@@ -1,0 +1,28 @@
+"""mpc_tpu_torch: the PyTorch/CUDA port of mpc_tpu for an NVIDIA H100.
+
+A second package beside the JAX one (which stays the reference it is
+tested against).  It imports torch and nothing of JAX or mpc_tpu.  This
+slice serves the forward iLQR solve of the pendulum swing-up through the
+hand-written Hopper kernel K1 (ops/fused.py, csrc/fused_ilqr.cu); the
+entry points run on the CUDA card unless the caller passes
+``device="cpu"``, where the kernel's plain PyTorch version runs.
+
+Public surface so far:
+  MPC                        - reference-compatible batched solver class
+  batched_solve              - functional batched solve
+  QuadCost, LinDx            - cost / linear-dynamics tuples
+  GradMethods, MPCConfig, Solution
+  rollout, trajectory_cost   - trajectory helpers
+"""
+
+from .types import GradMethods, LinDx, MPCConfig, QuadCost, Solution
+from .mpc import MPC
+from .learning import batched_solve
+from .solver import rollout, trajectory_cost
+
+__version__ = '0.1.0'
+
+__all__ = [
+    'MPC', 'QuadCost', 'LinDx', 'GradMethods', 'MPCConfig', 'Solution',
+    'batched_solve', 'rollout', 'trajectory_cost',
+]

@@ -1,0 +1,161 @@
+"""Pendulum dynamics (counterpart of mpc_tpu/models/pendulum.py:18-116).
+
+3-state (cos th, sin th, dth), 1-control pendulum with a torque clamp of
++-2 and Euler integration.  ``forward`` is the reference's atan2 step;
+``soa_step`` is the angle-addition form that kernel K1 runs
+(csrc/pendulum.cuh), and ``soa_jacobian`` its hand-written Jacobian,
+which takes the place of the JAX kernel's in-kernel ``jax.linearize``
+(mpc_tpu/ops/fused.py:788-815).
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ..ops.math import hard_clip, rotate_unit
+from ..utils.device import resolve_device
+
+
+class PendulumDx(nn.Module):
+    # constants (reference pendulum.py:23-27)
+    max_torque = 2.0
+    dt = 0.05
+    n_state = 3
+    n_ctrl = 1
+
+    # cost / solver spec carried on the env object
+    goal_state = (1., 0., 0.)
+    goal_weights = (1., 1., 0.1)
+    ctrl_penalty = 0.001
+    lower, upper = -2., 2.
+    mpc_eps = 1e-3
+    linesearch_decay = 0.2
+    max_linesearch_iter = 5
+
+    def __init__(self, params=None, simple=True, device=None,
+                 dtype=torch.float32):
+        super().__init__()
+        self.simple = simple
+        if params is None:
+            params = [10., 1., 1.] if simple else [10., 1., 1., 0., 0.]
+            params = torch.tensor(params, dtype=dtype,
+                                  device=resolve_device(device))
+        else:
+            params = torch.as_tensor(params)
+            if device is not None:
+                params = params.to(resolve_device(device))
+        if params.shape != ((3,) if simple else (5,)):
+            raise ValueError(f'PendulumDx params must have shape '
+                             f'{(3,) if simple else (5,)}')
+        self.register_buffer('params', params)
+
+    def forward(self, x, u):
+        """Euler step (reference pendulum.py:49-84) on the last axis:
+        x [..., 3], u [..., 1] -> [..., 3]."""
+        if self.simple:
+            g, m, l = self.params.unbind()
+        else:
+            g, m, l, d, b = self.params.unbind()
+        u = hard_clip(u[..., 0], -self.max_torque, self.max_torque)
+        cos_th, sin_th, dth = x.unbind(-1)
+        th = torch.atan2(sin_th, cos_th)
+        if self.simple:
+            newdth = dth + self.dt * (
+                -3. * g / (2. * l) * (-sin_th) + 3. * u / (m * (l * l)))
+        else:
+            sin_th_bias = torch.sin(th + b)
+            newdth = dth + self.dt * (
+                -3. * g / (2. * l) * (-sin_th_bias)
+                + 3. * u / (m * (l * l)) - d * th)
+        newth = th + newdth * self.dt
+        return torch.stack(
+            [torch.cos(newth), torch.sin(newth), newdth], dim=-1)
+
+    # -- structure-of-arrays form (what kernel K1 runs) -----------------
+    def soa_params(self):
+        return tuple(self.params.unbind())
+
+    def _require_simple(self):
+        if not self.simple:
+            raise NotImplementedError(
+                'the structure-of-arrays pendulum step covers '
+                'simple=True only; the damped-biased model waits for '
+                'ROADMAP queue 2 (K1 configurations)')
+
+    def soa_step(self, xs, u, params):
+        """One step on component tensors: xs = (cos, sin, dth), u the
+        bare control.  Angle addition instead of atan2 (same result on
+        the unit circle, see ops/math.py:rotate_unit)."""
+        self._require_simple()
+        g, m, l = params
+        cos_th, sin_th, dth = xs
+        u = hard_clip(u, -self.max_torque, self.max_torque)
+        newdth = dth + self.dt * (
+            -3. * g / (2. * l) * (-sin_th) + 3. * u / (m * (l * l)))
+        new_cos, new_sin = rotate_unit(cos_th, sin_th, newdth * self.dt)
+        return new_cos, new_sin, newdth
+
+    def soa_jacobian(self, xs, u, params):
+        """Jacobian of ``soa_step`` as rows of component tensors,
+        F[i][j] = d new_x[i] / d (x, u)[j].
+
+        The control column follows ``hard_clip``: the full derivative
+        for -2 <= u <= 2, endpoints included, and 0 strictly outside.
+        At the degenerate point (0, 0) the rotation's inputs are
+        replaced by constants, so only the path through dth remains."""
+        self._require_simple()
+        g, m, l = params
+        cos_th, sin_th, dth = xs
+        dt = self.dt
+        mt = self.max_torque
+        inside = (u >= -mt) & (u <= mt)
+        uc = hard_clip(u, -mt, mt)
+        newdth = dth + dt * (
+            -3. * g / (2. * l) * (-sin_th) + 3. * uc / (m * (l * l)))
+        delta = newdth * dt
+        cd, sd = torch.cos(delta), torch.sin(delta)
+        r2 = cos_th * cos_th + sin_th * sin_th
+        deg = r2 < 1e-30
+        zero = torch.zeros_like(cos_th)
+        one = torch.ones_like(cos_th)
+        c = torch.where(deg, one, cos_th)
+        s = torch.where(deg, zero, sin_th)
+        inv_r = 1.0 / torch.sqrt(torch.where(deg, one, r2))
+        p = c * cd - s * sd
+        q = s * cd + c * sd
+        new_cos = p * inv_r
+        new_sin = q * inv_r
+        ir3 = inv_r * inv_r * inv_r
+        # d newdth / d sin_th and / d u, then d delta = dt * d newdth
+        dn_ds = dt * (3. * g / (2. * l)) + zero
+        dn_du = torch.where(inside, dt * (3. / (m * (l * l))) + zero, zero)
+        dd_ds = dt * dn_ds
+        dd_du = dt * dn_du
+        # derivative of the renormalised rotation at fixed delta
+        a00 = torch.where(deg, zero, cd * inv_r - p * c * ir3)
+        a01 = torch.where(deg, zero, -sd * inv_r - p * s * ir3)
+        a10 = torch.where(deg, zero, sd * inv_r - q * c * ir3)
+        a11 = torch.where(deg, zero, cd * inv_r - q * s * ir3)
+        # d new_cos / d delta = -new_sin, d new_sin / d delta = new_cos
+        return [
+            [a00, a01 - new_sin * dd_ds, -new_sin * dt, -new_sin * dd_du],
+            [a10, a11 + new_cos * dd_ds, new_cos * dt, new_cos * dd_du],
+            [zero, dn_ds, one, dn_du],
+        ]
+
+    def step_jacobian(self, x, u):
+        """F [B, 3, 4] = d soa_step / d (x, u) at x [B, 3], u [B, 1]."""
+        rows = self.soa_jacobian(tuple(x.unbind(-1)), u[..., 0],
+                                 self.soa_params())
+        return torch.stack([torch.stack(r, -1) for r in rows], -2)
+
+    def get_true_obj(self):
+        """Diagonal swing-up objective (reference pendulum.py:106-114):
+        (q, p) with C = diag(q), c = p."""
+        kw = dict(dtype=self.params.dtype, device=self.params.device)
+        w = torch.tensor(self.goal_weights, **kw)
+        q = torch.cat([w, self.ctrl_penalty * torch.ones(self.n_ctrl, **kw)])
+        px = -torch.sqrt(w) * torch.tensor(self.goal_state, **kw)
+        p = torch.cat([px, torch.zeros(self.n_ctrl, **kw)])
+        return q, p

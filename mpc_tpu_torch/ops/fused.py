@@ -1,0 +1,541 @@
+"""Fused iLQR solve: kernel K1 for Hopper and its plain PyTorch version.
+
+Counterpart of mpc_tpu/ops/fused.py, whose ``_make_kernel``
+(mpc_tpu/ops/fused.py:617-1119) runs the whole box-constrained iLQR
+solve in one Pallas kernel with a batch tile on the TPU's vector lanes.
+On the H100 the same solve is csrc/fused_ilqr.cu with ONE EXAMPLE PER
+THREAD: T, n_state=3 and n_ctrl=1 are compile-time constants, so the
+small loops unroll, and every per-example array (trajectory, gains,
+trial rollout) lives in the thread's registers and local memory.
+
+``fused_solve_plain`` is the plain version of that kernel: each kernel
+scalar is a [B] tensor and the arithmetic runs in the kernel's order.
+The CPU path of the entry points runs it (in any float dtype, so float64
+is there for tests); on a CUDA tensor ``fused_ilqr`` launches the kernel
+or raises, and never falls back to the plain version.
+
+Scope of this slice (``scope_gap``): the simple pendulum, n_ctrl = 1, a
+QuadCost with C and c each shared or batched, bounds absent, scalar,
+[T, nc] or [T, B, nc], an optional u_init, and T <= T_MAX.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from ..models.pendulum import PendulumDx
+from ..types import GradMethods, LinDx, QuadCost, Solution
+
+# Horizon limit.  The kernel keeps 16*T floats per thread (x, u, the best
+# x and u, K, k and the trial rollout) in local memory, and CUDA
+# reserves that much for every resident thread slot of the card (2048
+# per SM x 132 SMs): 64*T bytes x 270,336 slots is 1.1 GB at T = 64 and
+# 4.4 GB at T = 256.  The horizon loops are not unrolled, so nvcc's time
+# does not grow with T.  Past 256 the memory reserved for local arrays
+# outgrows what a solve of that size should hold; long horizons belong
+# to the streaming kernel (K3, ROADMAP queue 2).
+T_MAX = 256
+
+# Line-search schedules are passed to the kernel by value, up to this
+# many step sizes (csrc/fused_ilqr.cu:MPC_MAX_ALPHA).
+MAX_ALPHA = 32
+
+# Initial best cost / step norm, as in the TPU kernel
+# (mpc_tpu/ops/fused.py:719); any finite cost replaces it at iteration 0.
+BIG = 3.0e38
+
+# One count per launch of K1 on the card, and nowhere else.
+launch_counts = {'fused_ilqr': 0}
+
+
+def reset_launch_counts():
+    for name in launch_counts:
+        launch_counts[name] = 0
+
+
+def scope_gap(cfg, cost, dynamics, *, u_zero_I=None, prev_ctrl=None,
+              dtype=torch.float32,
+              device=torch.device('cpu')) -> Optional[str]:
+    """Why a problem is outside this slice, naming the ROADMAP item that
+    brings it; None when the fused solve runs it."""
+    if cfg.use_fused == 'never':
+        return ('use_fused="never" asks for the eager solver, which '
+                'waits for ROADMAP queue 1 item 3')
+    if isinstance(dynamics, LinDx):
+        return ('LinDx dynamics in K1 wait for ROADMAP queue 2 '
+                '(K1 configurations)')
+    if not isinstance(dynamics, PendulumDx):
+        return (f'{type(dynamics).__name__} dynamics wait for ROADMAP '
+                'queue 1 item 8 (remaining models)')
+    if not dynamics.simple:
+        return ('PendulumDx(simple=False) waits for ROADMAP queue 2 '
+                '(K1 configurations)')
+    if cfg.n_state != 3 or cfg.n_ctrl != 1:
+        return ('the pendulum slice takes n_state=3, n_ctrl=1; n_ctrl>1 '
+                'with the in-kernel PNQP waits for ROADMAP queue 2')
+    if not isinstance(cost, QuadCost):
+        return ('non-quadratic (SoA) costs wait for ROADMAP queue 2 '
+                '(K1 configurations)')
+    if u_zero_I is not None:
+        return 'u_zero_I waits for ROADMAP queue 2 (K1 configurations)'
+    if cfg.delta_u is not None:
+        return 'delta_u waits for ROADMAP queue 2 (K1 configurations)'
+    if cfg.slew_rate_penalty is not None or prev_ctrl is not None:
+        return ('slew-rate penalties and prev_ctrl wait for ROADMAP '
+                'queue 2 (slew host augmentation)')
+    if cfg.verbose > 0:
+        return 'verbose > 0 waits for ROADMAP queue 1 item 9'
+    if cfg.grad_method == GradMethods.ANALYTIC_CHECK:
+        return 'ANALYTIC_CHECK waits for ROADMAP queue 1 item 9'
+    if dtype not in (torch.float32, torch.float64):
+        return f'dtype {dtype} is not supported (float32 or float64)'
+    if dtype == torch.float64 and device.type == 'cuda':
+        return ('float64 on the card waits for ROADMAP queue 2 (K1 '
+                'configurations); K1 is float32, and float64 runs on '
+                'the CPU with device="cpu"')
+    if cfg.T > T_MAX:
+        return (f'T={cfg.T} exceeds K1\'s T_MAX={T_MAX}; long horizons '
+                'wait for K3 (ROADMAP queue 2)')
+    if cfg.max_linesearch_iter > MAX_ALPHA:
+        return (f'max_linesearch_iter={cfg.max_linesearch_iter} exceeds '
+                f'K1\'s schedule of {MAX_ALPHA} step sizes')
+    return None
+
+
+def supports(cfg, cost, dynamics, **kw) -> bool:
+    """Whether the fused solve runs this problem (see ``scope_gap``)."""
+    return scope_gap(cfg, cost, dynamics, **kw) is None
+
+
+# ---------------------------------------------------------------------------
+# work and bytes of one launch (the kernel's bound)
+# ---------------------------------------------------------------------------
+
+# Arithmetic operations of the pendulum pieces, counted from
+# csrc/pendulum.cuh with the parameter-only terms hoisted: the step
+# (newdth 6, delta 1, cos+sin 2, r2 3, sqrt+div 2, rotation 8) and its
+# Jacobian (the step's terms plus 2 for ir3, 2 for the chain factors,
+# 16 for the rotation derivatives and 8 for the chain products).
+_STEP_OPS = 22
+_JAC_OPS = 50
+
+
+def k1_flops(T, ns, nc, lqr_iter, n_alpha, batch=1):
+    """Arithmetic operations of K1 (each +, -, *, /, sqrt, sin, cos
+    counts one; compares and selects none).
+
+    ``batch`` examples each roll out their initial trajectory; between
+    them they run ``lqr_iter`` outer iterations and ``n_alpha`` line-
+    search trial rollouts in total (pass the sums over the batch of
+    n_iter and of the kernel's trial count, so data-dependent early
+    stops are counted as they ran)."""
+    if nc != 1:
+        raise ValueError('k1_flops counts the n_ctrl = 1 kernel')
+    ntau = ns + nc
+    stage = ntau * (2 * ntau + 2)                  # _quad_lin_cost
+    cb = ntau * 2 * ntau                           # C tau + c
+    box = 9                                        # 1-D box QP + gains
+    vupd = ns * ns + ns + 2 * ns * (ns + 1) + 1 + 5 * ns
+    ric_t = (ns * ntau * (2 * ns - 1)              # W = V F
+             + ntau * (ntau + 1) // 2 * 2 * ns     # Qt = C + F^T W
+             + ntau * 2 * ns                       # qt = cb + F^T v
+             + _JAC_OPS + cb + box + vupd)
+    riccati = (T - 1) * ric_t + cb + box + vupd
+    old_cost = T * stage
+    trial_ctrl = ns + (2 * ns - 1) + 3
+    trial = T * (trial_ctrl + stage) + (T - 1) * _STEP_OPS
+    full_du = 2 * T + 1
+    per_iter = riccati + old_cost + full_du + 4
+    init = (T - 1) * _STEP_OPS
+    return batch * init + lqr_iter * per_iter + n_alpha * trial
+
+
+def k1_bytes(ops):
+    """Bytes K1 must move for the operands ``ops`` (``k1_operands``):
+    each input read once, shared ones once for the whole batch, and each
+    output (x, u and six stats rows) written once."""
+    T, B = ops['u0'].shape
+    ins = [ops[k] for k in ('params', 'C', 'c', 'x0', 'u0', 'lb', 'ub')
+           if ops[k] is not None]
+    out = (T * B * 4 + 6 * B) * ops['x0'].element_size()
+    return sum(a.numel() * a.element_size() for a in ins) + out
+
+
+# ---------------------------------------------------------------------------
+# the plain version of K1
+# ---------------------------------------------------------------------------
+
+def _dot(a, b):
+    acc = a[0] * b[0]
+    for i in range(1, len(a)):
+        acc = acc + a[i] * b[i]
+    return acc
+
+
+def _stage_cost(Ct, ct, tau):
+    """0.5 tau^T C tau + c^T tau in mpc_tpu's _quad_lin_cost order
+    (mpc_tpu/ops/fused.py:468-476)."""
+    acc = None
+    for i in range(len(tau)):
+        term = (0.5 * _dot(Ct[i], tau) + ct[i]) * tau[i]
+        acc = term if acc is None else acc + term
+    return acc
+
+
+def fused_solve_plain(dynamics, params, C, c, x0, u0, lb, ub, *, alphas,
+                      lqr_iter, eps, best_cost_eps, not_improved_lim):
+    """The plain PyTorch version of kernel K1, on the kernel's operands.
+
+    params [3] (g, m, l); C [T, 1 or B, 4, 4]; c [T, 1 or B, 4];
+    x0 [B, 3]; u0 [T, B]; lb, ub None or [T, 1 or B]; ``alphas`` the
+    line-search schedule as Python floats.  Returns x [T, B, 3],
+    u [T, B, 1] and stats [6, B]: best cost, best full-step norm,
+    n_iter, n_qp_iter, alpha and the number of trial rollouts.
+
+    Same arithmetic in the same order as csrc/fused_ilqr.cu.  The kernel
+    stops each example's line search at its first passing step size;
+    here all lanes try each step size until every lane has passed, and
+    a lane keeps its first passing trial, which selects the same one.
+    """
+    T = u0.shape[0]
+    B = x0.shape[0]
+    ns = 3
+    has_bounds = lb is not None
+    p = tuple(params.unbind())
+    step = dynamics.soa_step
+    jac = dynamics.soa_jacobian
+    zero = x0.new_zeros(B)
+    Cl = [[[C[t, :, i, j] for j in range(4)] for i in range(4)]
+          for t in range(T)]
+    cl = [[c[t, :, i] for i in range(4)] for t in range(T)]
+    if has_bounds:
+        lbl = [lb[t] + zero for t in range(T)]
+        ubl = [ub[t] + zero for t in range(T)]
+
+    def stage(t, xt, ut):
+        return _stage_cost(Cl[t], cl[t], list(xt) + [ut])
+
+    x = [list(x0.unbind(-1))]
+    u = list(u0.unbind(0))
+    for t in range(T - 1):
+        x.append(list(step(tuple(x[t]), u[t], p)))
+    best_x, best_u = x, u
+    best_cost = zero + BIG
+    best_du = zero + BIG
+    cur_du = zero + BIG
+    nni = zero.clone()
+    n_qp = zero.clone()
+    alpha_sel = zero + 1.0
+    n_it = zero.clone()
+    n_trials = zero.clone()
+    active = torch.ones(B, dtype=torch.bool, device=x0.device)
+
+    for it in range(lqr_iter):
+        # ---- Riccati backward recursion with the 1-D box QP ----------
+        K = [None] * T
+        k = [None] * T
+        V = v = None
+        qp_cnt = 0.0
+        for t in range(T - 1, -1, -1):
+            tau = x[t] + [u[t]]
+            cb = [_dot(Cl[t][i], tau) + cl[t][i] for i in range(4)]
+            if t == T - 1:
+                Qt = [[Cl[t][i][j] for j in range(4)] for i in range(4)]
+                qt = cb
+            else:
+                F = jac(tuple(x[t]), u[t], p)
+                W = [[_dot(V[i], [F[kk][j] for kk in range(ns)])
+                      for j in range(4)] for i in range(ns)]
+                Qt = [[None] * 4 for _ in range(4)]
+                for a in range(4):
+                    for b in range(a, 4):
+                        Qt[a][b] = Cl[t][a][b] + _dot(
+                            [F[kk][a] for kk in range(ns)],
+                            [W[kk][b] for kk in range(ns)])
+                        Qt[b][a] = Qt[a][b]
+                qt = [cb[a] + _dot([F[kk][a] for kk in range(ns)], v)
+                      for a in range(4)]
+            Quu = Qt[3][3]
+            qu = qt[3]
+            inv = 1.0 / Quu
+            if has_bounds:
+                lo = lbl[t] - u[t]
+                hi = ubl[t] - u[t]
+                kv = torch.clamp(-qu * inv, lo, hi)
+                g = Quu * kv + qu
+                clamped = ((kv == lo) & (g > 0)) | ((kv == hi) & (g < 0))
+                Kt = [torch.where(clamped, zero, -Qt[3][j] * inv)
+                      for j in range(ns)]
+                kt = kv
+                qp_cnt += 1.0
+            else:
+                kt = -qu * inv
+                Kt = [-Qt[3][j] * inv for j in range(ns)]
+            K[t], k[t] = Kt, kt
+            # cost-to-go: V = Qxx + Qxu K + K^T Qux + K^T Quu K; likewise v
+            QK = [[Qt[i][3] * Kt[j] for j in range(ns)] for i in range(ns)]
+            KQuu = [Quu * Kt[j] for j in range(ns)]
+            Vn = [[None] * ns for _ in range(ns)]
+            for i in range(ns):
+                for j in range(i, ns):
+                    Vn[i][j] = (Qt[i][j] + QK[i][j]) + (
+                        QK[j][i] + Kt[i] * KQuu[j])
+                    Vn[j][i] = Vn[i][j]
+            quk = qu + Quu * kt
+            V = Vn
+            v = [(qt[i] + Qt[i][3] * kt) + Kt[i] * quk for i in range(ns)]
+
+        # ---- line search: first passing step size, else the last -----
+        old_cost = stage(0, x[0], u[0])
+        for t in range(1, T):
+            old_cost = old_cost + stage(t, x[t], u[t])
+        found = torch.zeros(B, dtype=torch.bool, device=x0.device)
+        for ki, a in enumerate(alphas):
+            nx = [x[0]]
+            nu = []
+            cost_a = None
+            for t in range(T):
+                dx = [nx[t][i] - x[t][i] for i in range(ns)]
+                ut = _dot(K[t], dx) + (u[t] + a * k[t])
+                if has_bounds:
+                    ut = torch.clamp(ut, lbl[t], ubl[t])
+                nu.append(ut)
+                sc = stage(t, nx[t], ut)
+                cost_a = sc if cost_a is None else cost_a + sc
+                if t < T - 1:
+                    nx.append(list(step(tuple(nx[t]), ut, p)))
+            take = ~found
+            n_trials = n_trials + (take & active).to(x0.dtype)
+            if ki == 0:
+                du2 = (u[0] - nu[0]) * (u[0] - nu[0])
+                for t in range(1, T):
+                    du2 = du2 + (u[t] - nu[t]) * (u[t] - nu[t])
+                full_du = torch.sqrt(du2)
+                sel_x, sel_u, sel_cost = nx, nu, cost_a
+                sel_alpha = zero + a
+            else:
+                sel_x = [[torch.where(take, nx[t][i], sel_x[t][i])
+                          for i in range(ns)] for t in range(T)]
+                sel_u = [torch.where(take, nu[t], sel_u[t])
+                         for t in range(T)]
+                sel_cost = torch.where(take, cost_a, sel_cost)
+                sel_alpha = torch.where(take, zero + a, sel_alpha)
+            found = found | (take & (cost_a <= old_cost))
+            if bool(found.all()):
+                break
+
+        # ---- best tracking and per-example stopping ------------------
+        improved = sel_cost <= best_cost + best_cost_eps
+        take_best = active & (improved | (it == 0))
+        nni = torch.where(active, torch.where(
+            improved & (it != 0), zero, nni + 1.0), nni)
+        x = [[torch.where(active, sel_x[t][i], x[t][i]) for i in range(ns)]
+             for t in range(T)]
+        u = [torch.where(active, sel_u[t], u[t]) for t in range(T)]
+        best_x = [[torch.where(take_best, sel_x[t][i], best_x[t][i])
+                   for i in range(ns)] for t in range(T)]
+        best_u = [torch.where(take_best, sel_u[t], best_u[t])
+                  for t in range(T)]
+        best_cost = torch.where(take_best, sel_cost, best_cost)
+        best_du = torch.where(take_best, full_du, best_du)
+        cur_du = torch.where(active, full_du, cur_du)
+        n_qp = n_qp + torch.where(active, zero + qp_cnt, zero)
+        alpha_sel = torch.where(active, sel_alpha, alpha_sel)
+        n_it = n_it + active.to(x0.dtype)
+        active = active & (cur_du >= eps) & (nni <= not_improved_lim)
+        if not bool(active.any()):
+            break
+
+    xs = torch.stack([torch.stack(best_x[t], -1) for t in range(T)], 0)
+    us = torch.stack(best_u, 0).unsqueeze(-1)
+    stats = torch.stack([best_cost, best_du, n_it, n_qp, alpha_sel,
+                         n_trials], 0)
+    return xs, us, stats
+
+
+# ---------------------------------------------------------------------------
+# the kernel's wrapper
+# ---------------------------------------------------------------------------
+
+_P = ctypes.c_void_p
+_I64 = ctypes.c_longlong
+_ARGTYPES = [
+    ctypes.c_int, _P,                     # B, params
+    _P, _I64, _I64,                       # C, t stride, batch stride
+    _P, _I64, _I64,                       # c, t stride, batch stride
+    _P, _P,                               # x0, u0
+    _P, _P, _I64, _I64,                   # lb, ub, t stride, batch stride
+    ctypes.POINTER(ctypes.c_float), ctypes.c_int,   # alphas (host), n
+    ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_float,
+    _P, _P, _P,                           # x, u, stats
+    _P,                                   # stream
+]
+
+
+def _kernel_lib(T, has_bounds):
+    from . import _build
+    lib = _build.load('fused_ilqr', {'MPC_T': T,
+                                     'MPC_HAS_BOUNDS': int(has_bounds)})
+    fn = lib.mpc_fused_ilqr
+    if fn.argtypes is None:
+        fn.argtypes = _ARGTYPES
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _batch_stride(a, inner):
+    return 0 if a.shape[1] == 1 else inner
+
+
+def fused_ilqr(dynamics, params, C, c, x0, u0, lb, ub, *, alphas, lqr_iter,
+               eps, best_cost_eps, not_improved_lim):
+    """Run K1 on its operands (layouts as in ``fused_solve_plain``).
+
+    On the CPU this is ``fused_solve_plain``.  On a CUDA tensor it
+    launches csrc/fused_ilqr.cu on the current stream and raises on any
+    operand the kernel does not take or on a launch error."""
+    kw = dict(alphas=alphas, lqr_iter=lqr_iter, eps=eps,
+              best_cost_eps=best_cost_eps,
+              not_improved_lim=not_improved_lim)
+    if x0.device.type == 'cpu':
+        return fused_solve_plain(dynamics, params, C, c, x0, u0, lb, ub,
+                                 **kw)
+    if x0.device.type != 'cuda':
+        raise NotImplementedError(f'K1 runs on cuda or cpu, not '
+                                  f'{x0.device.type}')
+    T, B = u0.shape
+    has_bounds = lb is not None
+    ops = [params, C, c, x0, u0] + ([lb, ub] if has_bounds else [])
+    for a in ops:
+        if a.dtype != torch.float32 or a.device != x0.device \
+                or not a.is_contiguous():
+            raise ValueError('K1 takes contiguous float32 operands on one '
+                             'device')
+    if (params.shape != (3,) or C.shape[0] != T or C.shape[2:] != (4, 4)
+            or c.shape[0] != T or c.shape[2:] != (4,)
+            or C.shape[1] not in (1, B) or c.shape[1] not in (1, B)
+            or x0.shape != (B, 3)):
+        raise ValueError('K1 operand shapes do not match')
+    if has_bounds and (lb.shape != ub.shape or lb.shape[0] != T
+                       or lb.shape[1] not in (1, B)):
+        raise ValueError('K1 bound shapes do not match')
+    if not 0 < len(alphas) <= MAX_ALPHA:
+        raise ValueError(f'K1 takes 1 to {MAX_ALPHA} step sizes')
+    fn = _kernel_lib(T, has_bounds)
+    x = torch.empty((T, B, 3), dtype=torch.float32, device=x0.device)
+    u = torch.empty((T, B, 1), dtype=torch.float32, device=x0.device)
+    stats = torch.empty((6, B), dtype=torch.float32, device=x0.device)
+    if B == 0:
+        return x, u, stats
+    a_host = (ctypes.c_float * len(alphas))(*alphas)
+    if has_bounds:
+        bounds = (lb.data_ptr(), ub.data_ptr(), B if lb.shape[1] > 1 else 1,
+                  _batch_stride(lb, 1))
+    else:
+        bounds = (None, None, 0, 0)
+    with torch.cuda.device(x0.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(B, params.data_ptr(),
+                 C.data_ptr(), C.shape[1] * 16, _batch_stride(C, 16),
+                 c.data_ptr(), c.shape[1] * 4, _batch_stride(c, 4),
+                 x0.data_ptr(), u0.data_ptr(), *bounds,
+                 a_host, len(alphas), int(lqr_iter), float(eps),
+                 float(best_cost_eps), float(not_improved_lim),
+                 x.data_ptr(), u.data_ptr(), stats.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f'K1 launch failed with cudaError_t {err}')
+    launch_counts['fused_ilqr'] += 1
+    return x, u, stats
+
+
+# ---------------------------------------------------------------------------
+# host-side launcher
+# ---------------------------------------------------------------------------
+
+def _cost_operand(a, T, B, n_lead, dtype, device):
+    """Shared [n] / [T, n] or batched [T, B, n] (n the trailing dims) to
+    a contiguous [T, 1 or B, n]."""
+    a = torch.as_tensor(a, dtype=dtype, device=device)
+    if a.dim() == n_lead:
+        a = a.expand((T,) + a.shape)
+    if a.dim() == n_lead + 1:
+        a = a.unsqueeze(1)
+    if a.dim() != n_lead + 2 or a.shape[0] != T or a.shape[1] not in (1, B):
+        raise ValueError(f'unexpected cost shape {tuple(a.shape)}')
+    return a.contiguous()
+
+
+def _bound_operand(a, T, B, dtype, device):
+    """Scalar, [T, 1] or [T, B, 1] bounds to a contiguous [T, 1 or B]."""
+    a = torch.as_tensor(a, dtype=dtype, device=device)
+    if a.dim() == 0:
+        a = a.expand(T, 1)
+    elif a.dim() == 3 and a.shape[1] in (1, B):
+        a = a[..., 0]
+    elif a.dim() != 2:
+        raise ValueError(f'unexpected bound shape {tuple(a.shape)}')
+    if a.shape[0] != T or a.shape[1] not in (1, B):
+        raise ValueError(f'unexpected bound shape {tuple(a.shape)}')
+    return a.contiguous()
+
+
+def k1_operands(cfg, x_init, cost: QuadCost, dynamics, u_init=None,
+                u_lower=None, u_upper=None) -> dict:
+    """K1's operands (the keyword arguments of ``fused_ilqr`` and
+    ``fused_solve_plain``) on x_init's device and dtype.
+
+    Layouts match learning.batched_solve: x_init [B, 3]; cost leaves
+    shared ([4, 4] / [T, 4, 4], [4] / [T, 4]) or batched ([T, B, ...]);
+    bounds scalar, [T, 1] or [T, B, 1]; u_init [T, 1] or [T, B, 1].
+    Shared operands keep a batch extent of 1 (batch stride 0 in the
+    kernel)."""
+    T = cfg.T
+    dtype, device = x_init.dtype, x_init.device
+    x0 = x_init.contiguous()
+    B = x0.shape[0]
+    if u_init is None:
+        u0 = torch.zeros((T, B), dtype=dtype, device=device)
+    else:
+        u0 = torch.as_tensor(u_init, dtype=dtype, device=device)
+        if u0.dim() == 2:
+            u0 = u0.unsqueeze(1)
+        u0 = u0[..., 0].expand(T, B).contiguous()
+    lb = ub = None
+    if u_lower is not None:
+        lb = _bound_operand(u_lower, T, B, dtype, device)
+        ub = _bound_operand(u_upper, T, B, dtype, device)
+    alphas = [float(cfg.linesearch_decay) ** i
+              for i in range(cfg.max_linesearch_iter)]
+    if dtype == torch.float32:
+        # the schedule as the kernel gets it (the JAX kernel bakes the
+        # same Python floats in as float32 constants)
+        alphas = torch.tensor(alphas, dtype=torch.float32).tolist()
+    return dict(
+        dynamics=dynamics,
+        params=dynamics.params.to(device=device, dtype=dtype).contiguous(),
+        C=_cost_operand(cost.C, T, B, 2, dtype, device),
+        c=_cost_operand(cost.c, T, B, 1, dtype, device),
+        x0=x0, u0=u0, lb=lb, ub=ub, alphas=alphas, lqr_iter=cfg.lqr_iter,
+        eps=cfg.eps, best_cost_eps=cfg.best_cost_eps,
+        not_improved_lim=float(cfg.not_improved_lim))
+
+
+def solution_from_outputs(x, u, stats, eps) -> Solution:
+    best_cost, best_du, n_it, n_qp, alpha = stats[:5].unbind(0)
+    return Solution(
+        x=x, u=u, costs=best_cost, full_du_norm=best_du,
+        n_iter=n_it.to(torch.int32), n_qp_iter=n_qp.to(torch.int32),
+        converged=best_du < eps, alpha=alpha)
+
+
+def fused_batched_solve(cfg, x_init, cost: QuadCost, dynamics,
+                        u_init=None, u_lower=None, u_upper=None) -> Solution:
+    """Batched solve through K1 on x_init's device (layouts as in
+    ``k1_operands``)."""
+    x, u, stats = fused_ilqr(**k1_operands(
+        cfg, x_init, cost, dynamics, u_init=u_init, u_lower=u_lower,
+        u_upper=u_upper))
+    return solution_from_outputs(x, u, stats, cfg.eps)

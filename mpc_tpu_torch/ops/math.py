@@ -1,0 +1,32 @@
+"""Elementwise helpers of the pendulum step (counterpart of
+mpc_tpu/ops/math.py:39-72)."""
+
+from __future__ import annotations
+
+import torch
+
+
+def hard_clip(x, lo, hi):
+    """Clip whose gradient is 1 on the boundary and 0 strictly outside.
+
+    The JAX package writes this by hand because ``jnp.clip`` splits the
+    gradient 0.5/0.5 at a tie.  ``torch.clamp`` already has the wanted
+    convention (its backward passes the gradient where lo <= x <= hi), so
+    it is used as it is; the tests hold it against the JAX version."""
+    return torch.clamp(x, lo, hi)
+
+
+def rotate_unit(cos_th, sin_th, delta):
+    """Advance an angle's (cos, sin) pair by ``delta`` radians.
+
+    Angle addition with a 1/hypot factor that reproduces atan2's implicit
+    renormalisation of a drifting pair.  The degenerate point (0, 0)
+    follows atan2's convention (angle 0, treated as (1, 0)).  The
+    operation order is the one csrc/pendulum.cuh follows."""
+    cd, sd = torch.cos(delta), torch.sin(delta)
+    r2 = cos_th * cos_th + sin_th * sin_th
+    deg = r2 < 1e-30
+    c = torch.where(deg, torch.ones_like(cos_th), cos_th)
+    s = torch.where(deg, torch.zeros_like(sin_th), sin_th)
+    inv_r = 1.0 / torch.sqrt(torch.where(deg, torch.ones_like(r2), r2))
+    return (c * cd - s * sd) * inv_r, (s * cd + c * sd) * inv_r

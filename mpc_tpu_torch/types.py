@@ -1,0 +1,102 @@
+"""Public types of the PyTorch/CUDA port (counterpart of mpc_tpu/types.py).
+
+Same names, fields and defaults as the JAX package so that a reader can
+move between the two: ``QuadCost`` and ``LinDx`` named tuples of
+tensors, the ``GradMethods`` enum, the ``Solution`` named tuple and the
+frozen ``MPCConfig`` dataclass of the reference's 21 constructor knobs
+(mpc/mpc.py:123-144) plus the JAX package's own options.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import enum
+from typing import Any, NamedTuple, Optional
+
+import torch
+
+
+class QuadCost(NamedTuple):
+    """Quadratic cost 0.5 tau^T C tau + c^T tau.
+
+    C: [T, n_tau, n_tau], [T, B, n_tau, n_tau] batched, or [n_tau, n_tau]
+    shared over time; c: [T, n_tau], [T, B, n_tau] or [n_tau].  C and c
+    are shared or batched independently of each other.
+    """
+    C: torch.Tensor = None
+    c: torch.Tensor = None
+
+
+class LinDx(NamedTuple):
+    """Linear dynamics x' = F @ (x, u) + f.
+
+    F: [T-1, n_state, n_tau] (or [T-1, B, ...]); f: [T-1, n_state] or
+    None.  The port's solver does not take it yet: the front end
+    recognises it and refuses it (ROADMAP queue 2, K1).
+    """
+    F: torch.Tensor = None
+    f: Optional[torch.Tensor] = None
+
+
+class GradMethods(enum.Enum):
+    """Dynamics-Jacobian method (reference mpc/mpc.py:29-33).  The
+    kernel path always uses the model's hand-written step Jacobian."""
+    AUTO_DIFF = 1
+    FINITE_DIFF = 2
+    ANALYTIC = 3
+    ANALYTIC_CHECK = 4
+
+
+class Solution(NamedTuple):
+    """Full solver output, batched: x [T, B, n_state], u [T, B, n_ctrl],
+    and per-example costs, full_du_norm, n_iter, n_qp_iter, converged and
+    alpha, each [B]."""
+    x: torch.Tensor
+    u: torch.Tensor
+    costs: torch.Tensor
+    full_du_norm: torch.Tensor
+    n_iter: torch.Tensor
+    n_qp_iter: torch.Tensor
+    converged: torch.Tensor
+    # accepted line-search step size of the last executed iteration
+    alpha: torch.Tensor
+    # per-iteration history, recorded only at verbose > 0 (not ported)
+    iter_stats: Any = None
+
+
+@dataclasses.dataclass(frozen=True)
+class MPCConfig:
+    """Static solver configuration, same names and defaults as
+    mpc_tpu.types.MPCConfig."""
+    n_state: int
+    n_ctrl: int
+    T: int
+    lqr_iter: int = 10
+    grad_method: GradMethods = GradMethods.ANALYTIC
+    delta_u: Optional[float] = None
+    verbose: int = 0
+    eps: float = 1e-7
+    back_eps: float = 1e-7
+    linesearch_decay: float = 0.2
+    max_linesearch_iter: int = 10
+    exit_unconverged: bool = True
+    detach_unconverged: bool = True
+    backprop: bool = True
+    slew_rate_penalty: Optional[float] = None
+    not_improved_lim: int = 5
+    best_cost_eps: float = 1e-4
+    pnqp_iter: int = 20
+    parallel_linesearch: bool = True
+    scan_unroll: int = 4
+    # 'auto' and 'always' run the fused solve (the CUDA kernel on the
+    # card, its plain PyTorch version on the CPU); 'never' asks for the
+    # eager solver, which the port does not have yet
+    use_fused: str = 'auto'
+    matmul_precision: str = 'float32'
+    parallel_riccati: Any = 'auto'
+
+    def __post_init__(self):
+        if self.max_linesearch_iter <= 0:
+            raise ValueError('max_linesearch_iter must be positive')
+        if self.lqr_iter < 1:
+            raise ValueError('lqr_iter must be at least 1')
