@@ -3,19 +3,31 @@
 
     python3 chip_smoke.py
 
-Builds kernel K1 (mpc_tpu_torch/csrc/fused_ilqr.cu) with nvcc for
-sm_90a, holds it against its plain PyTorch version on the card, serves
-a few batched requests of the pendulum swing-up solve (the JAX package's
-headline workload: T=20, lqr_iter=10, B=4096, box bounds +-2, float32)
-through the port's entry points, runs the receding-horizon swing-up at
-B=4096, times K1 against its bound, and prints one JSON line of kernel
-numbers, the card's name and power limit, and a last JSON line with the
-device.  Every phase raises on failure; the script then exits nonzero.
-It exits nonzero without a result when no card is visible or when the
-package is not beside it.  It imports nothing of JAX or mpc_tpu.
+Builds kernels K1 (mpc_tpu_torch/csrc/fused_ilqr.cu) and K2
+(mpc_tpu_torch/csrc/fused_kkt_bwd.cu) with nvcc for sm_90a, in parallel,
+and drives the port's two main paths on the card:
+
+- serving: K1 against its plain PyTorch version, a few batched requests
+  of the pendulum swing-up solve (the JAX package's headline workload:
+  T=20, lqr_iter=10, B=4096, box bounds +-2, float32) through the
+  entry points, the receding-horizon swing-up at B=4096, and K1's time
+  against its bound;
+- training: K1 against its plain version at config 4's shapes (T=10,
+  lqr_iter=5, B=1024 and 8192), K2 against its plain version on the
+  same primal (config 4's solution), the imitation train step of config
+  4 (B=1024 and 8192, T=10, a learned batch-shared quadratic cost,
+  Adam) through make_imitation_train_step, a learner that must cut its
+  loss, and K1's and K2's times at config 4 against their bounds.
+
+It prints one JSON line of kernel numbers, the card's name and power
+limit, and a last JSON line with the device.  Every phase raises on
+failure; the script then exits nonzero.  It exits nonzero without a
+result when no card is visible or when the package is not beside it.
+It imports nothing of JAX or mpc_tpu.
 """
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -37,6 +49,24 @@ TAIL_MEAN, TAIL_ENTRY, TAIL_SHARE = 1e-4, 1e-3, 0.005
 # seed and loop at B=64 (64 of 64 within 0.1 of cos th = 1) less a margin
 # for float32 on the card (PERF.md)
 SWINGUP_MIN_SHARE = 0.95
+# config 4, imitation learning (benchmarks/configs.py:257-322): the
+# differentiable solve of the pendulum at T=10 through K1 and K2
+TRAIN_T = 10
+TRAIN = dict(n_state=3, n_ctrl=1, T=TRAIN_T, lqr_iter=5, eps=0.0,
+             exit_unconverged=False, detach_unconverged=False,
+             backprop=True, linesearch_decay=0.2, max_linesearch_iter=3)
+# K2 against its plain version in float32 on the same primal: largest
+# |difference| over each gradient's largest entry.  K2 has no branch
+# that float rounding can flip (the active set is an input), so the
+# only difference is nvcc's FMA contraction; the JAX package holds its
+# own kernel to 5e-4 (tests/test_fused_bwd.py).
+BWD_TOL = 1e-4
+# the learner of examples/pod_imitation.py:84-104 at T=10 must bring its
+# loss below this share of its first value within LEARN_STEPS steps;
+# from a CPU rehearsal of the same seed and loop at B=64 on the plain
+# versions (best / first 0.156, PERF.md), with a margin of about 2x
+LEARN_STEPS = 30
+LEARN_MAX_RATIO = 0.3
 # H100 SXM peaks (NVIDIA datasheet): float32 outside the tensor cores,
 # and HBM bandwidth
 PEAK_F32, PEAK_BYTES = 67e12, 3.35e12
@@ -87,20 +117,60 @@ def check_tail(what, u, ref):
 
 def phase_build():
     from mpc_tpu_torch.ops import _build
-    specs = [('fused_ilqr', {'MPC_T': T, 'MPC_HAS_BOUNDS': 1})]
+    specs = [('fused_ilqr', {'MPC_T': T, 'MPC_HAS_BOUNDS': 1}),
+             ('fused_ilqr', {'MPC_T': TRAIN_T, 'MPC_HAS_BOUNDS': 1})]
+    specs += [('fused_kkt_bwd', {'MPC_T': TRAIN_T, 'MPC_HAS_I': has_I,
+                                 'MPC_COST_SHARED': shared})
+              for shared in (1, 0) for has_I in (1, 0)]
     t0 = time.perf_counter()
     paths = _build.build(specs)
     log(f'[build] nvcc {" ".join(_build.NVCC_FLAGS)} '
         f'({time.perf_counter() - t0:.1f} s)')
     for (name, defines), path in zip(specs, paths):
-        log(f'  {os.path.relpath(path, HERE)}')
+        log(f'  {os.path.relpath(path, HERE)} {defines}')
         for line in _build.ptxas_report(name, defines).splitlines():
             if 'registers' in line or 'spill' in line or 'stack' in line:
                 log(f'  ptxas: {line.strip()}')
 
 
+def hold_k1(torch, what, ops, ops64):
+    """K1 against fused_solve_plain on the same operands (a batch-shared
+    cost): finite, within the float32 tail, the same n_iter, no further
+    from the float64 plain run on ``ops64`` than the plain float32 run,
+    and bitwise equal on the reversed batch.  Returns K1's (x, u, stats)
+    and max |du|."""
+    from mpc_tpu_torch.ops import fused
+    xk, uk, sk = fused.fused_ilqr(**ops)
+    xp, up, sp = fused.fused_solve_plain(**ops)
+    _, u64, _ = fused.fused_solve_plain(**ops64)
+    for t in (xk, uk, sk):
+        if not torch.isfinite(t).all():
+            raise AssertionError(f'{what}: K1 returned non-finite values')
+    mx = check_tail(f'{what} (f32)', uk, up)
+    if not torch.equal(sk[2], sp[2]):
+        raise AssertionError(f'{what}: n_iter differs between K1 and plain')
+    cost_gap = float((sk[0] - sp[0]).abs().max())
+    log(f'  max |cost K1 - cost plain| {cost_gap:.3e}')
+    k_far = tail(uk.double(), u64)[0]
+    p_far = tail(up.double(), u64)[0]
+    log(f'  mean |du| to the f64 plain run: K1 {k_far:.3e}, '
+        f'plain f32 {p_far:.3e}')
+    if k_far > 2 * p_far + 1e-6:
+        raise AssertionError(f'{what}: K1 sits further from float64 than '
+                             'the plain float32 run')
+    # batch reversal: no example reads another's data
+    r = fused.fused_ilqr(**dict(ops, x0=ops['x0'].flip(0).contiguous(),
+                                u0=ops['u0'].flip(1).contiguous()))
+    if not (torch.equal(r[1].flip(1), uk) and torch.equal(r[0].flip(1), xk)
+            and torch.equal(r[2].flip(1), sk)):
+        raise AssertionError(f'{what}: reversed batch is not bitwise equal')
+    log('  reversed batch: bitwise equal')
+    return (xk, uk, sk), mx
+
+
 def phase_compare(torch, device, n=B):
-    """K1 against fused_solve_plain on the card; returns max |du|."""
+    """K1 against fused_solve_plain on the card at the serving headline;
+    returns max |du|."""
     from mpc_tpu_torch import MPCConfig
     from mpc_tpu_torch.ops import fused
     cfg = MPCConfig(**HEADLINE)
@@ -114,32 +184,9 @@ def phase_compare(torch, device, n=B):
                                  u_upper=kw.pop('ub', 2.0))
 
     x0 = x0_batch(n, 0, torch, device)
-    xk, uk, sk = fused.fused_ilqr(**ops(x0))
-    xp, up, sp = fused.fused_solve_plain(**ops(x0))
     o64 = fused.k1_operands(cfg, x0.double(), cost64, dx64, u_lower=-2.0,
                             u_upper=2.0)
-    _, u64, _ = fused.fused_solve_plain(**o64)
-    for t in (xk, uk, sk):
-        if not torch.isfinite(t).all():
-            raise AssertionError('K1 returned non-finite values')
-    mx = check_tail('K1 vs plain (f32)', uk, up)
-    if not torch.equal(sk[2], sp[2]):
-        raise AssertionError('n_iter differs between K1 and plain')
-    cost_gap = float((sk[0] - sp[0]).abs().max())
-    log(f'  max |cost K1 - cost plain| {cost_gap:.3e}')
-    k_far = tail(uk.double(), u64)[0]
-    p_far = tail(up.double(), u64)[0]
-    log(f'  mean |du| to the f64 plain run: K1 {k_far:.3e}, '
-        f'plain f32 {p_far:.3e}')
-    if k_far > 2 * p_far + 1e-6:
-        raise AssertionError('K1 sits further from float64 than the '
-                             'plain float32 run')
-    # batch reversal: no example reads another's data
-    r = fused.fused_ilqr(**ops(x0.flip(0).contiguous()))
-    if not (torch.equal(r[1].flip(1), uk) and torch.equal(r[0].flip(1), xk)
-            and torch.equal(r[2].flip(1), sk)):
-        raise AssertionError('reversed batch is not bitwise equal')
-    log('  reversed batch: bitwise equal')
+    (xk, uk, sk), mx = hold_k1(torch, 'K1 vs plain', ops(x0), o64)
     # batched cost / bounds layouts: batch stride 16 and 1 instead of 0
     from mpc_tpu_torch import QuadCost
     cb = QuadCost(cost.C.expand(T, n, 4, 4), cost.c.expand(T, n, 4))
@@ -277,6 +324,422 @@ def phase_time(torch, device, reps=50):
                 bound_by='operations' if t_ops >= t_bytes else 'bytes')
 
 
+# ---------------------------------------------------------------------------
+# the training path: config 4 through K1 and K2
+# ---------------------------------------------------------------------------
+
+def sync(torch, device):
+    if device.type == 'cuda':
+        torch.cuda.synchronize()
+
+
+def config4_data(n, torch, device, seed=3):
+    """x0 [n, 3] and clipped-normal expert controls [T, n, 1] from one
+    RandomState, as benchmarks/configs.py:277-283."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    th = np.pi * (2 * rng.rand(n) - 1)
+    x0 = np.stack([np.cos(th), np.sin(th), np.zeros(n)], 1)
+    u_exp = np.clip(rng.randn(TRAIN_T, n, 1), -2, 2)
+    return (torch.tensor(x0, dtype=torch.float32, device=device),
+            torch.tensor(u_exp, dtype=torch.float32, device=device))
+
+
+def learned_cost(torch, device, q_log, p):
+    """Config 4's learnable batch-shared diagonal cost."""
+    import mpc_tpu_torch as mt
+    theta = {'q_log': torch.nn.Parameter(q_log.to(device)),
+             'p': torch.nn.Parameter(p.to(device))}
+
+    def make_cost(th):
+        return mt.QuadCost(torch.diag(torch.exp(th['q_log'])), th['p'])
+    return theta, make_cost
+
+
+def config4_theta(torch, device, dtype=None):
+    dx, _ = problem(torch, device, dtype)
+    q, p = dx.get_true_obj()
+    return learned_cost(torch, device, torch.log(q + 1e-3), p)
+
+
+def config4_k1_operands(torch, device, n, dtype=None):
+    """K1's operands on the training path: config 4's first n examples
+    under the cost theta starts from."""
+    import mpc_tpu_torch as mt
+    from mpc_tpu_torch.ops import fused
+    dtype = dtype or torch.float32
+    dx, _ = problem(torch, device, dtype)
+    theta, make_cost = config4_theta(torch, device, dtype)
+    x0, _ = config4_data(n, torch, device)
+    with torch.no_grad():
+        return fused.k1_operands(mt.MPCConfig(**TRAIN), x0.to(dtype),
+                                 make_cost(theta), dx, u_lower=-2.0,
+                                 u_upper=2.0)
+
+
+def phase_compare_train(torch, device):
+    """K1 against fused_solve_plain at the training path's shapes
+    (config 4: T=10, lqr_iter=5, max_linesearch_iter=3, the learned cost
+    theta starts from, B=1024 and 8192); returns max |du|."""
+    from mpc_tpu_torch.ops import fused
+    mx = 0.0
+    for n in (1024, 8192):
+        log(f'[compare-train] K1 vs its plain version on config 4, B={n}')
+        ops = config4_k1_operands(torch, device, n)
+        ops64 = config4_k1_operands(torch, device, n, torch.float64)
+        mx = max(mx, hold_k1(torch, f'K1 vs plain, T={TRAIN_T}', ops,
+                             ops64)[1])
+    return mx
+
+
+def bwd_operands(torch, device, n, seed=11):
+    """K2's operands at config 4's solution: x*, u* from K1 on n
+    examples, the cost, the dynamics' Jacobians, the active set, and
+    seeded random cotangents."""
+    import numpy as np
+    import mpc_tpu_torch as mt
+    from mpc_tpu_torch.ops import fused, fused_bwd
+    from mpc_tpu_torch.solver import linearize_dynamics
+    dx, _ = problem(torch, device)
+    ops = config4_k1_operands(torch, device, n)
+    with torch.no_grad():
+        xs, us, _ = fused.fused_ilqr(**ops)
+        F, _ = linearize_dynamics(dx, xs, us, mt.GradMethods.AUTO_DIFF)
+    bound = torch.tensor(2.0, device=device)
+    rng = np.random.RandomState(seed)
+    return dict(C=ops['C'], c=ops['c'], F=F.contiguous(), x_star=xs,
+                u_star=us,
+                dl_dx=torch.tensor(rng.randn(TRAIN_T, n, 3),
+                                   dtype=torch.float32, device=device),
+                dl_du=torch.tensor(rng.randn(TRAIN_T, n, 1),
+                                   dtype=torch.float32, device=device),
+                I_mask=fused_bwd.active_set(us, -bound, bound))
+
+
+def bwd_case(ops, cost_shared, has_I):
+    """The operands of one K2 build: shared or batched cost, with or
+    without the active set."""
+    T, n = ops['u_star'].shape[:2]
+    o = dict(ops)
+    if not cost_shared:
+        o['C'] = o['C'].expand(T, n, 4, 4).contiguous()
+        o['c'] = o['c'].expand(T, n, 4).contiguous()
+    if not has_I:
+        o['I_mask'] = None
+    return o
+
+
+def flip_batch(ops, torch):
+    out = {}
+    for k, v in ops.items():
+        batched = v is not None and v.dim() >= 2 and v.shape[1] > 1
+        out[k] = v.flip(1).contiguous() if batched else v
+    return out
+
+
+def phase_compare_bwd(torch, device, n=1024):
+    """K2 against fused_kkt_backward_plain on the card, same-primal;
+    returns the largest |difference|."""
+    from mpc_tpu_torch.ops import fused_bwd
+    log(f'[compare-bwd] K2 vs its plain version at config 4\'s solution, '
+        f'B={n}')
+    names = ('dx_init', 'dC', 'dc', 'dF', 'df')
+    base = bwd_operands(torch, device, n)
+    log(f'  active controls: '
+        f'{float(base["I_mask"].mean()):.3f} of T*B')
+    max_err = 0.0
+
+    def check(what, o):
+        nonlocal max_err
+        kk = fused_bwd.fused_kkt_backward(**o)
+        pp = fused_bwd.fused_kkt_backward_plain(**o)
+        o64 = {k: (v.double() if v is not None else None)
+               for k, v in o.items()}
+        p64 = fused_bwd.fused_kkt_backward_plain(**o64)
+        rels, far = [], []
+        for name, a, b, r in zip(names, kk, pp, p64):
+            if not torch.isfinite(a).all():
+                raise AssertionError(f'{what}: K2 {name} is not finite')
+            scale = float(b.abs().max()) or 1.0
+            err = float((a - b).abs().max())
+            max_err = max(max_err, err)
+            rels.append(err / scale)
+            k_far = float((a.double() - r).abs().mean())
+            p_far = float((b.double() - r).abs().mean())
+            far.append((k_far, p_far))
+            if k_far > 2 * p_far + 1e-7 * scale:
+                raise AssertionError(f'{what}: K2 {name} sits further from '
+                                     'float64 than the plain float32 run')
+        log(f'  {what}: max |K2 - plain| / scale ' + ' '.join(
+            f'{nm} {r:.2e}' for nm, r in zip(names, rels)))
+        log('    mean |. - f64|, K2 / plain: ' + ' '.join(
+            f'{nm} {k:.2e}/{p:.2e}' for nm, (k, p) in zip(names, far)))
+        if max(rels) > BWD_TOL:
+            raise AssertionError(f'{what}: K2 differs from its plain '
+                                 f'version by more than {BWD_TOL}')
+        return kk
+
+    for cost_shared in (True, False):
+        for has_I in (True, False):
+            o = bwd_case(base, cost_shared, has_I)
+            what = (f'{"shared" if cost_shared else "batched"} cost, '
+                    f'{"with" if has_I else "without"} active set')
+            kk = check(what, o)
+            if not has_I:
+                continue
+            # batch reversal: no example reads another's data
+            back = fused_bwd.fused_kkt_backward(**flip_batch(o, torch))
+            per_example = [(kk[0], back[0].flip(0)), (kk[3], back[3].flip(1)),
+                           (kk[4], back[4].flip(1))]
+            if not cost_shared:
+                per_example += [(kk[1], back[1].flip(1)),
+                                (kk[2], back[2].flip(1))]
+            if not all(torch.equal(a, b) for a, b in per_example):
+                raise AssertionError(f'{what}: reversed batch is not '
+                                     'bitwise equal')
+            log('    reversed batch: bitwise equal on per-example outputs')
+            if cost_shared:
+                again = fused_bwd.fused_kkt_backward(**o)
+                if not (torch.equal(again[1], kk[1])
+                        and torch.equal(again[2], kk[2])):
+                    raise AssertionError('reduced dC/dc differ between two '
+                                         'launches')
+                log('    two launches: reduced dC, dc bitwise equal')
+    o = bwd_case(bwd_operands(torch, device, 2050), True, True)
+    check('B=2050, shared cost, with active set', o)
+    phase_tf32(torch, device, n)
+    return max_err
+
+
+def train_grads(torch, device, n):
+    import mpc_tpu_torch as mt
+    dx, _ = problem(torch, device)
+    theta, make_cost = config4_theta(torch, device)
+    x0, u_exp = config4_data(n, torch, device)
+    loss = mt.imitation_loss(theta, mt.MPCConfig(**TRAIN), x0, u_exp,
+                             make_cost, lambda th: dx, u_lower=-2.0,
+                             u_upper=2.0, device=device)
+    loss.backward()
+    return [loss.detach()] + [theta[k].grad for k in sorted(theta)]
+
+
+def phase_tf32(torch, device, n):
+    """A training-step gradient with TF32 matrix products allowed and
+    forbidden: phase 2 is elementwise, so the bits must not move."""
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    try:
+        grads = []
+        for tf32 in (False, True):
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            torch.backends.cudnn.allow_tf32 = tf32
+            grads.append(train_grads(torch, device, n))
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = flags
+    if not all(torch.equal(a, b) for a, b in zip(*grads)):
+        raise AssertionError('TF32 on and off give different gradients')
+    log('  TF32 on and off: training-step loss and gradients bitwise equal')
+
+
+def phase_train(torch, device, n, steps=20, warmup=3):
+    """Config 4's train step through make_imitation_train_step: median
+    step time over ``steps`` host-timed, synchronised steps after
+    warm-up.  Returns the K1 and K2 launches, with the counts set to 0
+    just before the timed steps and read just after."""
+    import mpc_tpu_torch as mt
+    from mpc_tpu_torch.ops import fused, fused_bwd
+    dx, _ = problem(torch, device)
+    theta, make_cost = config4_theta(torch, device)
+    x0, u_exp = config4_data(n, torch, device)
+    step = mt.make_imitation_train_step(
+        mt.MPCConfig(**TRAIN), torch.optim.Adam(theta.values(), lr=1e-2),
+        make_cost, lambda th: dx, u_lower=-2.0, u_upper=2.0, device=device)
+    for _ in range(warmup):
+        step(theta, x0, u_exp)
+    sync(torch, device)
+    fused.reset_launch_counts()
+    fused_bwd.reset_launch_counts()
+    lat, losses = [], []
+    for _ in range(steps):
+        k1 = fused.launch_counts['fused_ilqr']
+        k2 = fused_bwd.launch_counts['fused_kkt_bwd']
+        t0 = time.perf_counter()
+        loss = step(theta, x0, u_exp)
+        sync(torch, device)
+        lat.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+        if device.type == 'cuda' and (
+                fused.launch_counts['fused_ilqr'] == k1
+                or fused_bwd.launch_counts['fused_kkt_bwd'] == k2):
+            raise AssertionError('a train step did not launch K1 and K2')
+    k1 = fused.launch_counts['fused_ilqr']
+    k2 = fused_bwd.launch_counts['fused_kkt_bwd']
+    med = sorted(lat)[len(lat) // 2]
+    log(f'[train] config 4, B={n}, T={TRAIN_T}: {steps} steps, median '
+        f'{1e3 * med:.3f} ms ({min(lat) * 1e3:.3f}-{max(lat) * 1e3:.3f}), '
+        f'{n / med:.0f} examples/s; K1 launches {k1}, K2 launches {k2}; '
+        f'loss {losses[0]:.5f} -> {losses[-1]:.5f}')
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError('the training loss is not finite')
+    return k1, k2
+
+
+def phase_learn(torch, device, n=1024):
+    """The learner of examples/pod_imitation.py:84-104 at T=10: the
+    expert solves with the true cost, the learner starts from a wrong
+    diagonal cost and must cut the imitation loss."""
+    import mpc_tpu_torch as mt
+    cfg = mt.MPCConfig(**TRAIN)
+    dx, true_cost = problem(torch, device)
+    x0 = x0_batch(n, 0, torch, device)
+    with torch.no_grad():
+        u_exp = mt.batched_solve(cfg, x0, true_cost, dx, u_lower=-2.0,
+                                 u_upper=2.0, device=device).u
+    q, p = dx.get_true_obj()
+    theta, make_cost = learned_cost(torch, device, torch.log(0.2 * q + 0.3),
+                                    torch.zeros_like(p))
+    step = mt.make_imitation_train_step(
+        cfg, torch.optim.Adam(theta.values(), lr=5e-2), make_cost,
+        lambda th: dx, u_lower=-2.0, u_upper=2.0, device=device)
+    losses = [float(step(theta, x0, u_exp)) for _ in range(LEARN_STEPS)]
+    ratio = min(losses) / losses[0]
+    log(f'[learn] B={n}, {LEARN_STEPS} steps of Adam(5e-2): loss '
+        + ' '.join(f'{v:.4g}' for v in losses[::3])
+        + f'; best / first {ratio:.4f} (threshold {LEARN_MAX_RATIO})')
+    if not (all(math.isfinite(v) for v in losses)
+            and ratio < LEARN_MAX_RATIO):
+        raise AssertionError('the learner did not cut its loss')
+    return losses
+
+
+def phase_profile_train(torch, device, n=1024, steps=5):
+    """Where a config-4 train step's time goes: torch.profiler over a few
+    steps after warm-up.  Prints the wall time per step, the device's
+    busy time per step (the sum of the times of its kernels and copies,
+    which do not overlap on one stream), their number per step and the
+    largest by device time."""
+    import mpc_tpu_torch as mt
+    from torch.profiler import ProfilerActivity, profile
+    dx, _ = problem(torch, device)
+    theta, make_cost = config4_theta(torch, device)
+    x0, u_exp = config4_data(n, torch, device)
+    step = mt.make_imitation_train_step(
+        mt.MPCConfig(**TRAIN), torch.optim.Adam(theta.values(), lr=1e-2),
+        make_cost, lambda th: dx, u_lower=-2.0, u_upper=2.0, device=device)
+    for _ in range(3):
+        step(theta, x0, u_exp)
+    sync(torch, device)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step(theta, x0, u_exp)
+        sync(torch, device)
+        wall = (time.perf_counter() - t0) / steps
+    # device kernels and copies; a user annotation (Adam's
+    # record_function) spans kernels and is not one
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.is_user_annotation]
+    busy = sum(e.device_time_total for e in kernels) / 1e3 / steps
+    log(f'[profile] config 4 train step, B={n}: wall {wall * 1e3:.3f} ms '
+        f'a step, device operations {len(kernels) / steps:.0f} a step, busy '
+        f'{busy:.3f} ms a step')
+    if not kernels:
+        log('  the profiler saw no device operations: idle share not '
+            'measured')
+        return
+    log(f'  device idle share {1 - busy / (wall * 1e3):.3f}')
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    for name, us in top:
+        log(f'  {us / steps:9.1f} us a step  {name[:90]}')
+
+
+def event_ms(torch, fn):
+    """Device time of one call of ``fn`` between CUDA events."""
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def graph_ms(torch, launch, reps=10, per_graph=20):
+    """The device's time for one call of ``launch``: ``per_graph`` calls
+    captured in one CUDA graph, replayed ``reps`` times between CUDA
+    events after warm-up, so that the time is the device's and not the
+    Python wrapper's (a call of a wrapper costs about as much host time
+    as a kernel takes at the training sizes).  Also returns the time of
+    a call from Python, eager."""
+    for _ in range(5):
+        launch()
+    n = reps * per_graph
+    eager_ms = event_ms(torch, lambda: [launch() for _ in range(n)]) / n
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(per_graph):
+            launch()
+    graph.replay()
+    ms = event_ms(torch, lambda: [graph.replay() for _ in range(reps)]) / n
+    return ms, eager_ms
+
+
+def bound(flops, nbytes):
+    """The least time the card could take: operations over the float32
+    peak or bytes over the memory rate, whichever is longer (ms), and
+    which it is."""
+    t_ops, t_bytes = flops / PEAK_F32 * 1e3, nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), 'operations' if t_ops >= t_bytes else 'bytes'
+
+
+def phase_time_train(torch, device, n=1024):
+    """K1 at the training path's shape (config 4, B=n) timed from a CUDA
+    graph, its bound from this run's iterations and trial rollouts, and
+    the plain version on the card."""
+    from mpc_tpu_torch.ops import fused
+    ops = config4_k1_operands(torch, device, n)
+    _, _, stats = fused.fused_ilqr(**ops)
+    ms, eager_ms = graph_ms(torch, lambda: fused.fused_ilqr(**ops))
+    plain_ms = event_ms(torch, lambda: fused.fused_solve_plain(**ops))
+    n_it = float(stats[2].double().sum())
+    n_trials = float(stats[5].double().sum())
+    flops = fused.k1_flops(TRAIN_T, 3, 1, n_it, n_trials, batch=n)
+    nbytes = fused.k1_bytes(ops)
+    bound_ms, by = bound(flops, nbytes)
+    log(f'[time-train] K1 config 4, B={n}, T={TRAIN_T}: {ms:.4f} ms (from '
+        f'a CUDA graph; {eager_ms:.4f} ms a call from Python), plain '
+        f'{plain_ms:.2f} ms; {flops:.4e} operations ({n_it / n:.2f} '
+        f'iterations, {n_trials / n:.2f} trials/solve), {nbytes} bytes; '
+        f'bound {bound_ms:.5f} ms by {by}')
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by)
+
+
+def phase_time_bwd(torch, device, n):
+    """K2 (shared cost with the active set, as on the training path)
+    timed from a CUDA graph, its bound, and the plain version on the
+    card."""
+    from mpc_tpu_torch.ops import fused_bwd
+    o = bwd_operands(torch, device, n)
+    ms, eager_ms = graph_ms(torch, lambda: fused_bwd.fused_kkt_backward(**o))
+    plain_ms = event_ms(torch,
+                        lambda: fused_bwd.fused_kkt_backward_plain(**o))
+    flops = fused_bwd.k2_flops(TRAIN_T, n, True)
+    nbytes = fused_bwd.k2_bytes(o['C'], o['c'], o['F'], o['x_star'],
+                                o['I_mask'])
+    bound_ms, by = bound(flops, nbytes)
+    log(f'[time-bwd] K2 B={n}, T={TRAIN_T}: {ms:.4f} ms (from a CUDA '
+        f'graph; {eager_ms:.4f} ms a call from Python), plain '
+        f'{plain_ms:.2f} ms; {flops:.4e} operations, {nbytes} bytes; '
+        f'bound {bound_ms:.5f} ms by {by}')
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by)
+
+
 def main():
     try:
         import torch
@@ -301,15 +764,36 @@ def main():
     launches = phase_serve(torch, device)
     phase_swingup(torch, device)
     timing = phase_time(torch, device)
+    train_err = phase_compare_train(torch, device)
+    bwd_err = phase_compare_bwd(torch, device)
+    k1_train, k2_train = phase_train(torch, device, 1024)
+    phase_train(torch, device, 8192)
+    phase_learn(torch, device)
+    phase_profile_train(torch, device)
+    timing_train = phase_time_train(torch, device, 1024)
+    phase_time_train(torch, device, 8192)
+    timing_bwd = phase_time_bwd(torch, device, 1024)
+    phase_time_bwd(torch, device, 8192)
     log(f'[done] {time.perf_counter() - t0:.1f} s')
-    log(json.dumps({'kernels': [{
-        'name': 'fused_ilqr', 'route': 'cuda',
-        'source': 'mpc_tpu_torch/csrc/fused_ilqr.cu',
-        'replaces': 'mpc_tpu/ops/fused.py:617',
-        'launches': launches, 'max_abs_err': max_err,
-        'tolerance': f'mean|du|<{TAIL_MEAN}, '
-                     f'share(|du|>{TAIL_ENTRY})<{TAIL_SHARE}',
-        'library_ms': None, **timing}]}))
+    # one entry per kernel and main path: serving ([serve], headline
+    # B=4096) and training ([train], config 4 at B=1024); launches are
+    # that path's count, the times and bound that path's shape
+    k1 = {'route': 'cuda', 'source': 'mpc_tpu_torch/csrc/fused_ilqr.cu',
+          'replaces': 'mpc_tpu/ops/fused.py:617',
+          'tolerance': f'mean|du|<{TAIL_MEAN}, '
+                       f'share(|du|>{TAIL_ENTRY})<{TAIL_SHARE}',
+          'library_ms': None}
+    log(json.dumps({'kernels': [
+        {'name': 'fused_ilqr', 'path': 'serving', **k1,
+         'launches': launches, 'max_abs_err': max_err, **timing},
+        {'name': 'fused_ilqr (training)', 'path': 'training', **k1,
+         'launches': k1_train, 'max_abs_err': train_err, **timing_train},
+        {'name': 'fused_kkt_bwd', 'path': 'training', 'route': 'cuda',
+         'source': 'mpc_tpu_torch/csrc/fused_kkt_bwd.cu',
+         'replaces': 'mpc_tpu/ops/fused_bwd.py:251',
+         'launches': k2_train, 'max_abs_err': bwd_err,
+         'tolerance': f'max|K2-plain|/max|plain|<{BWD_TOL} per gradient',
+         'library_ms': None, **timing_bwd}]}))
     log(card)
     log(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -1,14 +1,24 @@
-"""Batched solve dispatch (counterpart of mpc_tpu/learning.py:123-179).
+"""Batched solve dispatch and imitation learning (counterpart of
+mpc_tpu/learning.py:42-324).
 
-Forward dispatch only: the differentiable solve (the KKT fixed point and
-kernel K2) and the training loops wait for ROADMAP queue 1 items 6-7.
+A differentiable solve runs in two phases, as in the JAX package.  Phase
+1 is the iLQR solve through kernel K1 with gradients stopped (the
+reference's detached outer loop, mpc/mpc.py:249-262).  Phase 2
+re-linearises the dynamics and re-quadratises the cost at the solution,
+differentiably, and attaches the batched fixed point whose backward is
+kernel K2 (ops/fused_bwd.py), so gradients reach x_init, the cost and the
+model's parameters.  The sharded train step waits for ROADMAP queue 1
+item 12.
 """
 
 from __future__ import annotations
 
+from typing import Callable
+
 import torch
 
-from .ops import fused
+from .ops import fused, fused_bwd
+from .solver import linearize_dynamics, quadratize_cost
 from .types import LinDx, MPCConfig, QuadCost, Solution
 from .utils.device import resolve_device
 
@@ -24,6 +34,49 @@ def _tensors(*objs):
             yield from o.buffers()
 
 
+def _bound(b, dtype, device):
+    """A scalar, [T, nc] or [T, B, nc] bound, broadcastable to u [T, B, nc]."""
+    b = torch.as_tensor(b, dtype=dtype, device=device)
+    return b.unsqueeze(1) if b.dim() == 2 else b
+
+
+def _phase2_kernel_bwd(cfg, x_init, cost, dynamics, sol1, u_lower, u_upper):
+    """Differentiable phase 2 (mpc_tpu/learning.py:42-120): the
+    linearisation and quadratisation at phase 1's solution, then the
+    batched fixed point whose backward runs K2.  A cost whose C and c
+    are both batch-shared stays un-broadcast, and K2 returns its
+    gradient summed over the batch; otherwise both leaves are batched
+    [T, B, ...] views and K2 returns per-example gradients, which
+    autograd sums back through any broadcast."""
+    T, ns = cfg.T, cfg.n_state
+    dtype, device = x_init.dtype, x_init.device
+    B = x_init.shape[0]
+    # phase 1's outputs carry no gradient; the problem's leaves do
+    bx, bu = sol1.x.detach(), sol1.u.detach()
+    C = torch.as_tensor(cost.C, dtype=dtype, device=device)
+    c = torch.as_tensor(cost.c, dtype=dtype, device=device)
+    C, c, _ = quadratize_cost(QuadCost(C, c), bx, bu)
+    cost_shared = C.dim() == 3 and c.dim() == 2
+    if not cost_shared:
+        if C.dim() == 3:
+            C = C.unsqueeze(1)
+        if c.dim() == 2:
+            c = c.unsqueeze(1)
+        C = C.expand(T, B, ns + 1, ns + 1)
+        c = c.expand(T, B, ns + 1)
+    F, f = linearize_dynamics(dynamics, bx, bu, cfg.grad_method)
+    has_bounds = u_lower is not None
+    lb = _bound(u_lower, dtype, device) if has_bounds else None
+    ub = _bound(u_upper, dtype, device) if has_bounds else None
+    fp = fused_bwd.make_batched_fixed_point(ns, has_bounds, f is not None)
+    x, u = fp.apply(x_init, C, c, F, f, lb, ub, bx, bu)
+    if cfg.detach_unconverged:
+        conv = sol1.converged[None, :, None]
+        x = torch.where(conv, x, x.detach())
+        u = torch.where(conv, u, u.detach())
+    return x, u
+
+
 def batched_solve(cfg: MPCConfig, x_init, cost, dynamics, u_init=None,
                   u_lower=None, u_upper=None, u_zero_I=None, prev_ctrl=None,
                   device=None) -> Solution:
@@ -32,16 +85,16 @@ def batched_solve(cfg: MPCConfig, x_init, cost, dynamics, u_init=None,
     ``x_init`` is [B, n_state]; cost leaves, bounds and u_init are
     time-major [T, B, ...] or batch-shared with the batch axis dropped
     (bounds may be scalars).  Everything runs on ``device``: the CUDA
-    card by default (the kernel), or the CPU when asked (the kernel's
-    plain PyTorch version, in float32 or float64).  A problem outside
+    card by default (the kernels), or the CPU when asked (the kernels'
+    plain PyTorch versions, in float32 or float64).  A problem outside
     this slice raises NotImplementedError naming the ROADMAP item that
     brings it.
 
-    ``cfg.backprop`` asks for a differentiable solve, which is not
-    ported yet: the forward values are those of the JAX package's
-    pass-through fixed point, and the call raises rather than return
-    outputs that silently carry no gradient when autograd would need
-    one.
+    With ``cfg.backprop`` and any of x_init, the cost's C or c, the
+    model's parameters or the bounds requiring grad (and grad mode on), x
+    and u carry gradients to them through the KKT fixed point (phase 2,
+    kernel K2).  The bounds get a zero gradient, as in the reference.  costs, n_iter
+    and the other statistics come from phase 1 and carry none.
     """
     if (u_lower is None) != (u_upper is None):
         # one-sided bounds would clamp against nothing; the reference
@@ -55,17 +108,58 @@ def batched_solve(cfg: MPCConfig, x_init, cost, dynamics, u_init=None,
     gap = fused.scope_gap(cfg, cost, dynamics, u_zero_I=u_zero_I,
                           prev_ctrl=prev_ctrl, dtype=x_init.dtype,
                           device=device)
+    differentiable = cfg.backprop and torch.is_grad_enabled() and any(
+        t.requires_grad
+        for t in _tensors(x_init, cost, dynamics, u_lower, u_upper))
+    if gap is None and differentiable:
+        gap = fused_bwd.scope_gap_bwd(cfg.T, cfg.n_ctrl, x_init.dtype,
+                                      device)
     if gap is not None:
         raise NotImplementedError(gap)
-    if cfg.backprop and torch.is_grad_enabled() and any(
-            t.requires_grad for t in _tensors(x_init, cost, dynamics,
-                                              u_init, u_lower, u_upper)):
-        raise NotImplementedError(
-            'gradients through the solve (backprop=True with inputs that '
-            'require grad) wait for the differentiable path, ROADMAP '
-            'queue 1 item 6 and kernel K2; pass backprop=False or solve '
-            'under torch.no_grad()')
     with torch.no_grad():
-        return fused.fused_batched_solve(cfg, x_init, cost, dynamics,
+        sol1 = fused.fused_batched_solve(cfg, x_init, cost, dynamics,
                                          u_init=u_init, u_lower=u_lower,
                                          u_upper=u_upper)
+    if not differentiable:
+        return sol1
+    x, u = _phase2_kernel_bwd(cfg, x_init, cost, dynamics, sol1, u_lower,
+                              u_upper)
+    return sol1._replace(x=x, u=u)
+
+
+def imitation_loss(theta, cfg: MPCConfig, x_init, u_expert,
+                   make_cost: Callable, make_dynamics: Callable,
+                   u_lower=None, u_upper=None, device=None):
+    """Mean-squared imitation loss of the MPC controls against expert
+    controls u_expert [T, B, n_ctrl] (mpc_tpu/learning.py:276-291).
+
+    ``theta`` holds the learnable parameters (a dict of tensors or an
+    ``nn.Module``); ``make_cost(theta)`` and ``make_dynamics(theta)``
+    build the cost and the model.  Gradients flow through the solver's
+    KKT fixed point."""
+    sol = batched_solve(cfg, x_init, make_cost(theta), make_dynamics(theta),
+                        u_lower=u_lower, u_upper=u_upper, device=device)
+    return ((sol.u - u_expert) ** 2).mean()
+
+
+def make_imitation_train_step(cfg: MPCConfig, optimizer,
+                              make_cost: Callable, make_dynamics: Callable,
+                              u_lower=None, u_upper=None, device=None):
+    """An imitation-learning train step (mpc_tpu/learning.py:300-324),
+    with a ``torch.optim`` optimizer over the parameters in ``theta``
+    in place of optax.
+
+    ``step(theta, x_init, u_expert)`` zeroes the gradients, takes the
+    loss, back-propagates through the solve and steps the optimizer.  It
+    returns the loss, detached."""
+
+    def train_step(theta, x_init, u_expert):
+        optimizer.zero_grad()
+        loss = imitation_loss(theta, cfg, x_init, u_expert, make_cost,
+                              make_dynamics, u_lower=u_lower,
+                              u_upper=u_upper, device=device)
+        loss.backward()
+        optimizer.step()
+        return loss.detach()
+
+    return train_step

@@ -1,16 +1,25 @@
-"""Trajectory helpers (counterpart of mpc_tpu/solver.py:35-70).
+"""Trajectory helpers and the linearisation at a trajectory (counterpart
+of mpc_tpu/solver.py:35-147).
 
-Only ``rollout`` and ``trajectory_cost`` are ported so far; the eager
-iLQR solver (``solve_single`` and the linearisation helpers) waits for
-ROADMAP queue 1 item 3.  Both functions take any leading batch shape:
-x_init [..., n_state] and u [T, ..., n_ctrl].
+``rollout``, ``trajectory_cost``, ``linearize_dynamics`` and
+``quadratize_cost`` are ported; the eager iLQR solver (``solve_single``)
+waits for ROADMAP queue 1 item 3.  The functions take any leading batch
+shape: x_init [..., n_state], x [T, ..., n_state] and u [T, ..., n_ctrl].
+They are written with elementwise products and sums, never ``matmul`` or
+``einsum``, so that a float32 call on the card gives the same bits
+whether or not TF32 is allowed for matrix products.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .types import QuadCost
+from .models.pendulum import PendulumDx
+from .types import GradMethods, QuadCost
+
+# central-difference step of GradMethods.FINITE_DIFF
+# (mpc_tpu/solver.py:97, reference mpc/util.py:8-18)
+FD_EPS = 1e-4
 
 
 def rollout(dynamics, x_init, u):
@@ -44,3 +53,62 @@ def trajectory_cost(cost: QuadCost, x, u):
     Ctau = (C * tau.unsqueeze(-2)).sum(-1)
     objs = 0.5 * (tau * Ctau).sum(-1) + (tau * c).sum(-1)
     return objs.sum(0)
+
+
+def linearize_dynamics(dynamics, x, u, grad_method: GradMethods):
+    """First-order dynamics model along a trajectory
+    (mpc_tpu/solver.py:71-118, reference mpc/mpc.py:490-601).
+
+    Returns F [T-1, ..., n_state, n_tau] and f [T-1, ..., n_state] with
+    the residual f_t = step(x_t, u_t) - R_t x_t - S_t u_t, differentiable
+    with respect to the model's parameters.  For ``PendulumDx(simple=
+    True)`` AUTO_DIFF and ANALYTIC take the hand-written Jacobian of the
+    step (``step_jacobian``; the JAX pendulum has no ``grad_input``, so
+    both take ``jax.jacrev`` there) and FINITE_DIFF central differences
+    of ``forward`` with step ``FD_EPS``.
+    """
+    if not isinstance(dynamics, PendulumDx) or not dynamics.simple:
+        raise NotImplementedError(
+            'linearize_dynamics covers PendulumDx(simple=True); LinDx '
+            'waits for ROADMAP queue 2 (K1 configurations), other models '
+            'for queue 1 item 8')
+    xs, us = x[:-1], u[:-1]
+    ns = xs.shape[-1]
+    new_x = dynamics(xs, us)
+    if grad_method in (GradMethods.AUTO_DIFF, GradMethods.ANALYTIC):
+        F = dynamics.step_jacobian(xs, us)
+    elif grad_method == GradMethods.FINITE_DIFF:
+        z = torch.cat([xs, us], -1)
+        cols = []
+        for j in range(z.shape[-1]):
+            e = torch.zeros_like(z)
+            e[..., j] = FD_EPS
+            hi, lo = z + e, z - e
+            cols.append((dynamics(hi[..., :ns], hi[..., ns:])
+                         - dynamics(lo[..., :ns], lo[..., ns:]))
+                        / (2 * FD_EPS))
+        F = torch.stack(cols, -1)
+    else:
+        raise NotImplementedError(f'{grad_method} waits for ROADMAP queue 1 '
+                                  'item 9')
+    f = (new_x - (F[..., :ns] * xs.unsqueeze(-2)).sum(-1)
+         - (F[..., ns:] * us.unsqueeze(-2)).sum(-1))
+    return F, f
+
+
+def quadratize_cost(cost, x, u):
+    """Second-order cost model along a trajectory
+    (mpc_tpu/solver.py:121-147).  For a QuadCost this is the cost itself,
+    a time-less [ntau, ntau] / [ntau] leaf broadcast over T (a view, so
+    autograd sums its gradient back over T).  Returns (C, c, None).
+    Non-quadratic costs wait for ROADMAP queue 2 (K1 configurations)."""
+    if not isinstance(cost, QuadCost):
+        raise NotImplementedError('non-quadratic costs wait for ROADMAP '
+                                  'queue 2 (K1 configurations)')
+    C, c = cost.C, cost.c
+    T = x.shape[0]
+    if C.dim() == 2:
+        C = C.expand((T,) + C.shape)
+    if c.dim() == 1:
+        c = c.expand((T,) + c.shape)
+    return C, c, None

@@ -1,5 +1,6 @@
-"""Utilities of the port: device resolution (``device``) and numpy
-conversion to and from the JAX package's arrays (``convert``)."""
+"""Utilities of the port: device resolution (``device``), numpy
+conversion to and from the JAX package's arrays (``convert``) and
+central differences for gradient tests (``fd``)."""
 
 from .device import resolve_device
 

@@ -1,4 +1,4 @@
-"""Kernel K1 on the card against its plain PyTorch version.
+"""Kernels K1 and K2 on the card against their plain PyTorch versions.
 
 Needs a CUDA card (and nvcc); skips without one.  tests/conftest.py
 imports JAX, which the card's machine does not have, so run this file
@@ -13,7 +13,14 @@ switch steps.  At T = T_MAX the two float32 solves drift further apart
 (measured mean |du| 2.8e-4 after 3 unconverged iterations over 256
 steps), so there each is held against the float64 plain run instead:
 the kernel may sit at most twice as far from it as the plain float32
-run does.  This file imports nothing of JAX.
+run does.
+
+K2 (the KKT backward) is held to its plain version on the same random
+problem: the largest |difference| of each gradient over its largest
+entry below 1e-4 (nvcc's FMA contraction is the only difference; K2 has
+no branch that rounding can flip, as the active set is an input), and
+the kernel's mean distance to a float64 plain run at most twice the
+plain float32 run's.  This file imports nothing of JAX.
 """
 
 import numpy as np
@@ -22,7 +29,7 @@ import torch
 
 import mpc_tpu_torch as mt
 from mpc_tpu_torch.models import PendulumDx
-from mpc_tpu_torch.ops import fused
+from mpc_tpu_torch.ops import _build, fused, fused_bwd
 
 pytestmark = pytest.mark.gpu
 
@@ -81,6 +88,22 @@ def test_k1_matches_plain(cuda, T, B, bounded):
     assert torch.equal(sk[3], sp[3])          # n_qp_iter
 
 
+def test_k1_matches_plain_on_the_training_path(cuda):
+    """K1 at config 4's shapes (T=10, lqr_iter=5, max_linesearch_iter=3,
+    B=1024) under the learned cost's first value, exp(log(q + 1e-3))."""
+    T, B = 10, 1024
+    x0, dx, cost = _problem(cuda, B, T)
+    q, p = dx.get_true_obj()
+    cost = mt.QuadCost(torch.diag(torch.exp(torch.log(q + 1e-3))), p)
+    cfg = _cfg(T, lqr_iter=5, max_linesearch_iter=3, linesearch_decay=0.2)
+    ops = fused.k1_operands(cfg, x0, cost, dx, u_lower=-2.0, u_upper=2.0)
+    xk, uk, sk = fused.fused_ilqr(**ops)
+    xp, up, sp = fused.fused_solve_plain(**ops)
+    assert torch.isfinite(xk).all() and torch.isfinite(uk).all()
+    _assert_tail(uk, up)
+    assert torch.equal(sk[2], sp[2])          # n_iter
+
+
 def test_entry_point_launches_k1_on_the_default_device(cuda):
     T, B = 20, 256
     x0, dx, cost = _problem(cuda, B, T)
@@ -91,3 +114,74 @@ def test_entry_point_launches_k1_on_the_default_device(cuda):
     assert float(sol.u.abs().max()) <= 2.0
     with pytest.raises(NotImplementedError, match='float64'):
         mt.batched_solve(_cfg(T), x0.double(), cost, dx)
+
+
+BWD_SHAPES = [(10, 1024), (20, 2050), (fused_bwd.T_MAX_BWD, 128)]
+
+
+@pytest.fixture(scope='module')
+def k2_built():
+    """Every K2 build these tests launch, compiled in parallel."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card')
+    _build.build([('fused_kkt_bwd', {'MPC_T': T, 'MPC_HAS_I': has_I,
+                                     'MPC_COST_SHARED': shared})
+                  for T, _ in BWD_SHAPES for has_I in (0, 1)
+                  for shared in (0, 1)])
+
+
+def _bwd_problem(device, T, B, cost_shared, has_I, seed=0):
+    """A random SPD problem with contractive dynamics (so the costate
+    stays finite in float32 at T_MAX_BWD), ~30% of the controls on a
+    bound."""
+    rng = np.random.RandomState(seed)
+    nb = 1 if cost_shared else B
+    Cr = rng.randn(T, nb, 4, 4)
+    C = np.einsum('tbij,tbkj->tbik', Cr, Cr) + np.eye(4)
+    F = 0.05 * rng.randn(T - 1, B, 3, 4)
+    F[..., :3] += 0.9 * np.eye(3)
+    us = rng.randn(T, B, 1)
+    pinned = rng.rand(T, B, 1) < 0.3
+    us = np.where(pinned, np.sign(us), us)
+    arrays = dict(C=C, c=rng.randn(T, nb, 4), F=F,
+                  x_star=rng.randn(T, B, 3), u_star=us,
+                  dl_dx=rng.randn(T, B, 3), dl_du=rng.randn(T, B, 1),
+                  I_mask=pinned.astype(np.float64) if has_I else None)
+    return {k: None if v is None else torch.tensor(
+        v, dtype=torch.float32, device=device) for k, v in arrays.items()}
+
+
+@pytest.mark.parametrize('cost_shared', [True, False])
+@pytest.mark.parametrize('has_I', [True, False])
+@pytest.mark.parametrize('T,B', BWD_SHAPES)
+def test_k2_matches_plain(cuda, k2_built, T, B, has_I, cost_shared):
+    ops = _bwd_problem(cuda, T, B, cost_shared, has_I)
+    got = fused_bwd.fused_kkt_backward(**ops)
+    ref = fused_bwd.fused_kkt_backward_plain(**ops)
+    ops64 = {k: None if v is None else v.double() for k, v in ops.items()}
+    ref64 = fused_bwd.fused_kkt_backward_plain(**ops64)
+    for a, b, r in zip(got, ref, ref64):
+        assert a.shape == b.shape and torch.isfinite(a).all()
+        scale = float(b.abs().max())
+        assert float((a - b).abs().max()) <= 1e-4 * scale
+        k_far = float((a.double() - r).abs().mean())
+        p_far = float((b.double() - r).abs().mean())
+        assert k_far <= 2 * p_far + 1e-7 * scale, (k_far, p_far)
+
+
+def test_differentiable_solve_launches_k1_and_k2(cuda):
+    """On the default device a differentiable solve runs K1 forward and
+    K2 once per backward."""
+    T, B = 10, 256
+    x0, dx, cost = _problem(cuda, B, T)
+    cfg = _cfg(T, backprop=True, detach_unconverged=False)
+    c = cost.c.clone().requires_grad_()
+    k1 = fused.launch_counts['fused_ilqr']
+    k2 = fused_bwd.launch_counts['fused_kkt_bwd']
+    sol = mt.batched_solve(cfg, x0, mt.QuadCost(cost.C, c), dx,
+                           u_lower=-2.0, u_upper=2.0)
+    assert fused.launch_counts['fused_ilqr'] == k1 + 1
+    assert fused_bwd.launch_counts['fused_kkt_bwd'] == k2
+    (sol.u ** 2).sum().backward()
+    assert fused_bwd.launch_counts['fused_kkt_bwd'] == k2 + 1
+    assert torch.isfinite(c.grad).all() and c.grad.abs().sum() > 0

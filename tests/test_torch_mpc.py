@@ -4,8 +4,9 @@
   mpc_tpu.MPC in float64 (tolerance 1e-8: each solve agrees to ~1e-12 and
   the closed loop carries the states on; see test_torch_fused.py);
 - the reference's exit semantics, the slice's NotImplementedError for
-  every input outside it, the backprop guard, the default device, and an
-  import of the port that brings in nothing of JAX or mpc_tpu.
+  every input outside it, gradients through backprop=True, the default
+  device, and an import of the port that brings in nothing of JAX or
+  mpc_tpu.
 """
 
 import os
@@ -141,9 +142,10 @@ def test_out_of_scope_problems_raise():
 
 
 def test_backprop_guard():
-    """backprop=True (the default) runs the forward solve; with an input
-    that requires grad it raises rather than return outputs that carry
-    no gradient."""
+    """backprop=True (the default) runs the forward solve with the same
+    values as backprop=False; with an input that requires grad, x and u
+    now carry gradients back to it (they once raised here); under
+    torch.no_grad() the solve returns plain values."""
     x0 = torch.tensor(_x0(3))
     cost = quad_cost_from_numpy(np.diag(Q), P, 'cpu')
     dx = pendulum_from_numpy(PARAMS, device='cpu')
@@ -152,16 +154,27 @@ def test_backprop_guard():
     b = mt.batched_solve(_cfg(), x0, cost, dx, u_lower=-2., u_upper=2., device='cpu')
     np.testing.assert_array_equal(a.u.numpy(), b.u.numpy())
     xg = x0.clone().requires_grad_()
-    with pytest.raises(NotImplementedError, match='differentiable path'):
-        mt.batched_solve(_cfg(backprop=True), xg, cost, dx, u_lower=-2., u_upper=2.,
+    s = mt.batched_solve(_cfg(backprop=True), xg, cost, dx, u_lower=-2., u_upper=2.,
                          device='cpu')
+    np.testing.assert_array_equal(s.u.detach().numpy(), b.u.numpy())
+    (s.u.sum() + s.x.sum()).backward()
+    assert torch.isfinite(xg.grad).all() and xg.grad.abs().sum() > 0
     Cg = cost.C.clone().requires_grad_()
-    with pytest.raises(NotImplementedError, match='differentiable path'):
-        mt.batched_solve(_cfg(backprop=True), x0, mt.QuadCost(Cg, cost.c),
+    s = mt.batched_solve(_cfg(backprop=True), x0, mt.QuadCost(Cg, cost.c),
                          dx, u_lower=-2., u_upper=2., device='cpu')
+    s.u.sum().backward()
+    assert torch.isfinite(Cg.grad).all() and Cg.grad.abs().sum() > 0
+    # bounds alone requiring grad: the reference's zero gradient
+    lb = torch.tensor(-2., dtype=x0.dtype, requires_grad=True)
+    s = mt.batched_solve(_cfg(backprop=True), x0, cost, dx, u_lower=lb,
+                         u_upper=2., device='cpu')
+    np.testing.assert_array_equal(s.u.detach().numpy(), b.u.numpy())
+    s.u.sum().backward()
+    assert lb.grad is not None and float(lb.grad) == 0.0
     with torch.no_grad():
         c = mt.batched_solve(_cfg(backprop=True), xg, cost, dx, u_lower=-2., u_upper=2.,
                              device='cpu')
+    assert c.u.grad_fn is None
     np.testing.assert_array_equal(c.u.numpy(), b.u.numpy())
 
 
@@ -190,7 +203,9 @@ def test_port_imports_nothing_of_jax():
         'for m in ("mpc_tpu_torch", "mpc_tpu_torch.ops.fused",\n'
         '          "mpc_tpu_torch.ops._build", "mpc_tpu_torch.mpc",\n'
         '          "mpc_tpu_torch.learning", "mpc_tpu_torch.solver",\n'
-        '          "mpc_tpu_torch.utils.convert", "chip_smoke"):\n'
+        '          "mpc_tpu_torch.utils.convert", "mpc_tpu_torch.ops.fused_bwd",\n'
+        '          "mpc_tpu_torch.ops.diff", "mpc_tpu_torch.utils.fd",\n'
+        '          "chip_smoke"):\n'
         '    importlib.import_module(m)\n'
         'bad = [n for n in sys.modules if n in ("jax", "mpc_tpu")\n'
         '       or n.startswith(("jax.", "mpc_tpu."))]\n'
