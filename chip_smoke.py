@@ -3,9 +3,11 @@
 
     python3 chip_smoke.py
 
-Builds kernels K1 (mpc_tpu_torch/csrc/fused_ilqr.cu) and K2
-(mpc_tpu_torch/csrc/fused_kkt_bwd.cu) with nvcc for sm_90a, in parallel,
-and drives the port's two main paths on the card:
+Builds kernels K1 (mpc_tpu_torch/csrc/fused_ilqr.cu), K2
+(mpc_tpu_torch/csrc/fused_kkt_bwd.cu), K3
+(mpc_tpu_torch/csrc/fused_ilqr_long.cu) and K4
+(mpc_tpu_torch/csrc/fused_kkt_bwd_long.cu) with nvcc for sm_90a, in
+parallel, and drives the port's main paths on the card:
 
 - serving: K1 against its plain PyTorch version, a few batched requests
   of the pendulum swing-up solve (the JAX package's headline workload:
@@ -17,7 +19,14 @@ and drives the port's two main paths on the card:
   same primal (config 4's solution), the imitation train step of config
   4 (B=1024 and 8192, T=10, a learned batch-shared quadratic cost,
   Adam) through make_imitation_train_step, a learner that must cut its
-  loss, and K1's and K2's times at config 4 against their bounds.
+  loss, and K1's and K2's times at config 4 against their bounds;
+- long horizons: the long-horizon LQR imitation configuration
+  (benchmarks/configs.py:325-372: T=160, B=4096, a batch-shared LinDx
+  and a batch-shared QuadCost with a learned c, box bounds +-2,
+  lqr_iter=4, float32) at its own sizes: K3 and K4 against their plain
+  versions, forward requests through batched_solve, the train step
+  through make_imitation_train_step, a learner that must cut its loss,
+  and K3's and K4's times against their bounds.
 
 It prints one JSON line of kernel numbers, the card's name and power
 limit, and a last JSON line with the device.  Every phase raises on
@@ -67,6 +76,31 @@ BWD_TOL = 1e-4
 # versions (best / first 0.156, PERF.md), with a margin of about 2x
 LEARN_STEPS = 30
 LEARN_MAX_RATIO = 0.3
+# the long-horizon imitation configuration (benchmarks/configs.py:325-372)
+LONG_T, LONG_B = 160, 4096
+LONG = dict(n_state=3, n_ctrl=1, T=LONG_T, lqr_iter=4, eps=0.0,
+            exit_unconverged=False, detach_unconverged=False,
+            backprop=True, linesearch_decay=0.2, max_linesearch_iter=3)
+# K3 against its plain version in float32 on that configuration.  After
+# its 4 iterations the solve is still moving (median full-step norm 17
+# in a float64 run: the active set of the box keeps changing until
+# about iteration 12), and the cost is nearly flat in u (R = 0.01,
+# B = 0.01), so where a trial cost ties the current one to round-off two
+# float32 solves take different step sizes and their controls part, as
+# the pendulum's do.  Held like the pendulum's tail, at this
+# configuration's own measured level (PERF.md), and against a float64
+# plain run.
+LONG_TAIL_MEAN, LONG_TAIL_SHARE = 1e-4, 0.005
+# the pendulum past K1's horizon limit, as
+# tests/test_fused_stream.py:test_streamed_cost_pendulum_matches_jnp
+# runs the streaming kernel: 2 iterations of 2 step sizes
+PEND_LONG_T, PEND_LONG_B = 384, 1024
+# the long learner: the expert solves with c = LEARN_LONG_C at every
+# step, the learner starts from c = 0; 16 iterations converge the solve,
+# so the fixed point's gradient is the loss's.  From a CPU rehearsal of
+# the same seed and loop at B=16 on the plain versions (PERF.md)
+LEARN_LONG_C = (0.5, -0.5, 0.2, 0.02)
+LEARN_LONG_ITER, LEARN_LONG_STEPS, LEARN_LONG_MAX_RATIO = 16, 20, 0.5
 # H100 SXM peaks (NVIDIA datasheet): float32 outside the tensor cores,
 # and HBM bandwidth
 PEAK_F32, PEAK_BYTES = 67e12, 3.35e12
@@ -106,12 +140,15 @@ def tail(u, ref):
         float(d.max())
 
 
-def check_tail(what, u, ref):
+def check_tail(what, u, ref, limits=(TAIL_MEAN, TAIL_SHARE)):
+    """Log the tail of |u - ref| and hold it to ``limits`` (mean, share
+    above TAIL_ENTRY); None only logs it."""
     mean, share, mx = tail(u, ref)
     log(f'  {what}: mean |du| {mean:.3e}, share |du|>1e-3 {share:.5f}, '
         f'max |du| {mx:.3e}')
-    if not (mean < TAIL_MEAN and share < TAIL_SHARE):
-        raise AssertionError(f'{what}: outside the float32 bang-bang tail')
+    if limits and not (mean < limits[0] and share < limits[1]):
+        raise AssertionError(f'{what}: outside the float32 tail (mean |du| '
+                             f'< {limits[0]}, share < {limits[1]})')
     return mx
 
 
@@ -122,6 +159,12 @@ def phase_build():
     specs += [('fused_kkt_bwd', {'MPC_T': TRAIN_T, 'MPC_HAS_I': has_I,
                                  'MPC_COST_SHARED': shared})
               for shared in (1, 0) for has_I in (1, 0)]
+    from mpc_tpu_torch.ops import fused, fused_bwd
+    specs += [('fused_ilqr_long', fused.long_kernel_defines(lindx, True))
+              for lindx in (True, False)]
+    specs += [('fused_kkt_bwd_long',
+               fused_bwd.long_kernel_defines(cost_shared, dyn_shared))
+              for cost_shared in (True, False) for dyn_shared in (True, False)]
     t0 = time.perf_counter()
     paths = _build.build(specs)
     log(f'[build] nvcc {" ".join(_build.NVCC_FLAGS)} '
@@ -133,34 +176,43 @@ def phase_build():
                 log(f'  ptxas: {line.strip()}')
 
 
-def hold_k1(torch, what, ops, ops64):
-    """K1 against fused_solve_plain on the same operands (a batch-shared
-    cost): finite, within the float32 tail, the same n_iter, no further
+def hold_k1(torch, what, ops, ops64, kernel=None, plain=None,
+            limits=(TAIL_MEAN, TAIL_SHARE)):
+    """A forward kernel (K1 unless ``kernel`` and ``plain`` name K3 and
+    its plain version) against its plain version on the same operands (a
+    batch-shared problem): finite, within the float32 tail ``limits``
+    (None: judged against float64 alone), the same n_iter, no further
     from the float64 plain run on ``ops64`` than the plain float32 run,
-    and bitwise equal on the reversed batch.  Returns K1's (x, u, stats)
-    and max |du|."""
+    and bitwise equal on the reversed batch.
+    Returns the kernel's (x, u, stats) and max |du|."""
     from mpc_tpu_torch.ops import fused
-    xk, uk, sk = fused.fused_ilqr(**ops)
-    xp, up, sp = fused.fused_solve_plain(**ops)
-    _, u64, _ = fused.fused_solve_plain(**ops64)
+    kernel = kernel or fused.fused_ilqr
+    plain = plain or fused.fused_solve_plain
+    xk, uk, sk = kernel(**ops)
+    xp, up, sp = plain(**ops)
+    _, u64, _ = plain(**ops64)
     for t in (xk, uk, sk):
         if not torch.isfinite(t).all():
-            raise AssertionError(f'{what}: K1 returned non-finite values')
-    mx = check_tail(f'{what} (f32)', uk, up)
+            raise AssertionError(f'{what}: the kernel returned non-finite '
+                                 'values')
+    mx = check_tail(f'{what} (f32)', uk, up, limits)
     if not torch.equal(sk[2], sp[2]):
-        raise AssertionError(f'{what}: n_iter differs between K1 and plain')
+        raise AssertionError(f'{what}: n_iter differs between kernel and '
+                             'plain')
     cost_gap = float((sk[0] - sp[0]).abs().max())
-    log(f'  max |cost K1 - cost plain| {cost_gap:.3e}')
+    log(f'  max |cost kernel - cost plain| {cost_gap:.3e} (largest |cost| '
+        f'{float(sp[0].abs().max()):.3e}), max |dx| '
+        f'{float((xk - xp).abs().max()):.3e}')
     k_far = tail(uk.double(), u64)[0]
     p_far = tail(up.double(), u64)[0]
-    log(f'  mean |du| to the f64 plain run: K1 {k_far:.3e}, '
+    log(f'  mean |du| to the f64 plain run: kernel {k_far:.3e}, '
         f'plain f32 {p_far:.3e}')
     if k_far > 2 * p_far + 1e-6:
-        raise AssertionError(f'{what}: K1 sits further from float64 than '
-                             'the plain float32 run')
+        raise AssertionError(f'{what}: the kernel sits further from float64 '
+                             'than the plain float32 run')
     # batch reversal: no example reads another's data
-    r = fused.fused_ilqr(**dict(ops, x0=ops['x0'].flip(0).contiguous(),
-                                u0=ops['u0'].flip(1).contiguous()))
+    r = kernel(**dict(ops, x0=ops['x0'].flip(0).contiguous(),
+                      u0=ops['u0'].flip(1).contiguous()))
     if not (torch.equal(r[1].flip(1), uk) and torch.equal(r[0].flip(1), xk)
             and torch.equal(r[2].flip(1), sk)):
         raise AssertionError(f'{what}: reversed batch is not bitwise equal')
@@ -437,13 +489,54 @@ def flip_batch(ops, torch):
     return out
 
 
+BWD_NAMES = ('dx_init', 'dC', 'dc', 'dF', 'df')
+
+
+def hold_bwd(torch, label, what, kernel, plain, o, **kw):
+    """A backward kernel (``label`` K2 or K4) against its plain version
+    on the same operands ``o``: every gradient finite and of the plain
+    version's shape, within BWD_TOL of it relative to its largest entry,
+    and no further from a float64 plain run than twice the plain float32
+    run.  A gradient that does not exist (None) is skipped.  Returns the
+    kernel's outputs and the largest |difference|."""
+    kk = kernel(**o, **kw)
+    pp = plain(**o, **kw)
+    o64 = {k: (v.double() if v is not None else None) for k, v in o.items()}
+    p64 = plain(**o64, **kw)
+    max_err, rels, far = 0.0, [], []
+    for name, a, b, r in zip(BWD_NAMES, kk, pp, p64):
+        if a is None and b is None:
+            continue
+        if a is None or b is None or a.shape != b.shape \
+                or not torch.isfinite(a).all():
+            raise AssertionError(f'{what}: {label} {name} is missing, has '
+                                 'the wrong shape or is not finite')
+        scale = float(b.abs().max()) or 1.0
+        err = float((a - b).abs().max())
+        max_err = max(max_err, err)
+        rels.append((name, err / scale))
+        k_far = float((a.double() - r).abs().mean())
+        p_far = float((b.double() - r).abs().mean())
+        far.append((name, k_far, p_far))
+        if k_far > 2 * p_far + 1e-7 * scale:
+            raise AssertionError(f'{what}: {label} {name} sits further from '
+                                 'float64 than the plain float32 run')
+    log(f'  {what}: max |{label} - plain| / scale ' + ' '.join(
+        f'{nm} {r:.2e}' for nm, r in rels))
+    log(f'    mean |. - f64|, {label} / plain: ' + ' '.join(
+        f'{nm} {k:.2e}/{p:.2e}' for nm, k, p in far))
+    if max(r for _, r in rels) > BWD_TOL:
+        raise AssertionError(f'{what}: {label} differs from its plain '
+                             f'version by more than {BWD_TOL}')
+    return kk, max_err
+
+
 def phase_compare_bwd(torch, device, n=1024):
     """K2 against fused_kkt_backward_plain on the card, same-primal;
     returns the largest |difference|."""
     from mpc_tpu_torch.ops import fused_bwd
     log(f'[compare-bwd] K2 vs its plain version at config 4\'s solution, '
         f'B={n}')
-    names = ('dx_init', 'dC', 'dc', 'dF', 'df')
     base = bwd_operands(torch, device, n)
     log(f'  active controls: '
         f'{float(base["I_mask"].mean()):.3f} of T*B')
@@ -451,32 +544,9 @@ def phase_compare_bwd(torch, device, n=1024):
 
     def check(what, o):
         nonlocal max_err
-        kk = fused_bwd.fused_kkt_backward(**o)
-        pp = fused_bwd.fused_kkt_backward_plain(**o)
-        o64 = {k: (v.double() if v is not None else None)
-               for k, v in o.items()}
-        p64 = fused_bwd.fused_kkt_backward_plain(**o64)
-        rels, far = [], []
-        for name, a, b, r in zip(names, kk, pp, p64):
-            if not torch.isfinite(a).all():
-                raise AssertionError(f'{what}: K2 {name} is not finite')
-            scale = float(b.abs().max()) or 1.0
-            err = float((a - b).abs().max())
-            max_err = max(max_err, err)
-            rels.append(err / scale)
-            k_far = float((a.double() - r).abs().mean())
-            p_far = float((b.double() - r).abs().mean())
-            far.append((k_far, p_far))
-            if k_far > 2 * p_far + 1e-7 * scale:
-                raise AssertionError(f'{what}: K2 {name} sits further from '
-                                     'float64 than the plain float32 run')
-        log(f'  {what}: max |K2 - plain| / scale ' + ' '.join(
-            f'{nm} {r:.2e}' for nm, r in zip(names, rels)))
-        log('    mean |. - f64|, K2 / plain: ' + ' '.join(
-            f'{nm} {k:.2e}/{p:.2e}' for nm, (k, p) in zip(names, far)))
-        if max(rels) > BWD_TOL:
-            raise AssertionError(f'{what}: K2 differs from its plain '
-                                 f'version by more than {BWD_TOL}')
+        kk, err = hold_bwd(torch, 'K2', what, fused_bwd.fused_kkt_backward,
+                           fused_bwd.fused_kkt_backward_plain, o)
+        max_err = max(max_err, err)
         return kk
 
     for cost_shared in (True, False):
@@ -507,7 +577,7 @@ def phase_compare_bwd(torch, device, n=1024):
                 log('    two launches: reduced dC, dc bitwise equal')
     o = bwd_case(bwd_operands(torch, device, 2050), True, True)
     check('B=2050, shared cost, with active set', o)
-    phase_tf32(torch, device, n)
+    phase_tf32(torch, 'config 4', lambda: train_grads(torch, device, n))
     return max_err
 
 
@@ -523,9 +593,10 @@ def train_grads(torch, device, n):
     return [loss.detach()] + [theta[k].grad for k in sorted(theta)]
 
 
-def phase_tf32(torch, device, n):
-    """A training-step gradient with TF32 matrix products allowed and
-    forbidden: phase 2 is elementwise, so the bits must not move."""
+def phase_tf32(torch, what, grads_fn):
+    """A training-step loss and gradient (``grads_fn()``) with TF32
+    matrix products allowed and forbidden: phase 2 is elementwise, so
+    the bits must not move."""
     flags = (torch.backends.cuda.matmul.allow_tf32,
              torch.backends.cudnn.allow_tf32)
     try:
@@ -533,13 +604,14 @@ def phase_tf32(torch, device, n):
         for tf32 in (False, True):
             torch.backends.cuda.matmul.allow_tf32 = tf32
             torch.backends.cudnn.allow_tf32 = tf32
-            grads.append(train_grads(torch, device, n))
+            grads.append(grads_fn())
     finally:
         (torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32) = flags
     if not all(torch.equal(a, b) for a, b in zip(*grads)):
         raise AssertionError('TF32 on and off give different gradients')
-    log('  TF32 on and off: training-step loss and gradients bitwise equal')
+    log(f'  TF32 on and off: {what} training-step loss and gradients '
+        'bitwise equal')
 
 
 def phase_train(torch, device, n, steps=20, warmup=3):
@@ -547,14 +619,8 @@ def phase_train(torch, device, n, steps=20, warmup=3):
     step time over ``steps`` host-timed, synchronised steps after
     warm-up.  Returns the K1 and K2 launches, with the counts set to 0
     just before the timed steps and read just after."""
-    import mpc_tpu_torch as mt
     from mpc_tpu_torch.ops import fused, fused_bwd
-    dx, _ = problem(torch, device)
-    theta, make_cost = config4_theta(torch, device)
-    x0, u_exp = config4_data(n, torch, device)
-    step = mt.make_imitation_train_step(
-        mt.MPCConfig(**TRAIN), torch.optim.Adam(theta.values(), lr=1e-2),
-        make_cost, lambda th: dx, u_lower=-2.0, u_upper=2.0, device=device)
+    step, theta, x0, u_exp = config4_train_step(torch, device, n)
     for _ in range(warmup):
         step(theta, x0, u_exp)
     sync(torch, device)
@@ -613,20 +679,26 @@ def phase_learn(torch, device, n=1024):
     return losses
 
 
-def phase_profile_train(torch, device, n=1024, steps=5):
-    """Where a config-4 train step's time goes: torch.profiler over a few
-    steps after warm-up.  Prints the wall time per step, the device's
-    busy time per step (the sum of the times of its kernels and copies,
-    which do not overlap on one stream), their number per step and the
-    largest by device time."""
+def config4_train_step(torch, device, n):
+    """(step, theta, x0, u_expert) of config 4's train step."""
     import mpc_tpu_torch as mt
-    from torch.profiler import ProfilerActivity, profile
     dx, _ = problem(torch, device)
     theta, make_cost = config4_theta(torch, device)
     x0, u_exp = config4_data(n, torch, device)
     step = mt.make_imitation_train_step(
         mt.MPCConfig(**TRAIN), torch.optim.Adam(theta.values(), lr=1e-2),
         make_cost, lambda th: dx, u_lower=-2.0, u_upper=2.0, device=device)
+    return step, theta, x0, u_exp
+
+
+def phase_profile_train(torch, device, what, train_step, steps=5):
+    """Where a train step's time goes (``train_step`` = (step, theta, x0,
+    u_expert)): torch.profiler over a few steps after warm-up.  Prints
+    the wall time per step, the device's busy time per step (the sum of
+    the times of its kernels and copies, which do not overlap on one
+    stream), their number per step and the largest by device time."""
+    from torch.profiler import ProfilerActivity, profile
+    step, theta, x0, u_exp = train_step
     for _ in range(3):
         step(theta, x0, u_exp)
     sync(torch, device)
@@ -643,9 +715,9 @@ def phase_profile_train(torch, device, n=1024, steps=5):
                if e.device_type == torch.autograd.DeviceType.CUDA
                and not e.is_user_annotation]
     busy = sum(e.device_time_total for e in kernels) / 1e3 / steps
-    log(f'[profile] config 4 train step, B={n}: wall {wall * 1e3:.3f} ms '
-        f'a step, device operations {len(kernels) / steps:.0f} a step, busy '
-        f'{busy:.3f} ms a step')
+    log(f'[profile] {what} train step, B={x0.shape[0]}: wall '
+        f'{wall * 1e3:.3f} ms a step, device operations '
+        f'{len(kernels) / steps:.0f} a step, busy {busy:.3f} ms a step')
     if not kernels:
         log('  the profiler saw no device operations: idle share not '
             'measured')
@@ -740,6 +812,391 @@ def phase_time_bwd(torch, device, n):
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by)
 
 
+# ---------------------------------------------------------------------------
+# the long-horizon path: LinDx, T=160, through K3 and K4
+# ---------------------------------------------------------------------------
+
+def long_data(torch, device, dtype=None):
+    """The long-horizon imitation configuration's data, made with numpy
+    as benchmarks/configs.py:341-351: the shared F [T-1, 3, 4] and C
+    [T, 4, 4], x0 [B, 3] and the expert's controls [T, B, 1] from one
+    RandomState(5)."""
+    import numpy as np
+    dtype = dtype or torch.float32
+    rng = np.random.RandomState(5)
+    A = np.eye(3, dtype=np.float32)
+    A[0, 1] = 0.01
+    Fsh = np.concatenate([A, 0.01 * np.ones((3, 1), np.float32)], 1)
+    F = np.broadcast_to(Fsh, (LONG_T - 1, 3, 4)).copy()
+    C = np.broadcast_to(np.diag([1., 1., 0.1, 0.01]).astype(np.float32),
+                        (LONG_T, 4, 4)).copy()
+    x0 = rng.randn(LONG_B, 3).astype(np.float32)
+    u_exp = 0.1 * rng.randn(LONG_T, LONG_B, 1).astype(np.float32)
+    return tuple(torch.tensor(a, dtype=dtype, device=device)
+                 for a in (F, C, x0, u_exp))
+
+
+def long_problem(torch, device, n=LONG_B, dtype=None, c=None, **cfg_kw):
+    """(cfg, x0 [n, 3], cost, dynamics, u_expert) of the long-horizon
+    configuration on its first n examples, with the learned c at its
+    start (zero) unless given."""
+    import mpc_tpu_torch as mt
+    F, C, x0, u_exp = long_data(torch, device, dtype)
+    if c is None:
+        c = torch.zeros(LONG_T, 4, dtype=F.dtype, device=device)
+    return (mt.MPCConfig(**dict(LONG, **cfg_kw)), x0[:n].contiguous(),
+            mt.QuadCost(C, c), mt.LinDx(F, None), u_exp[:, :n].contiguous())
+
+
+def long_k3_operands(torch, device, n=LONG_B, dtype=None):
+    from mpc_tpu_torch.ops import fused
+    cfg, x0, cost, dyn, _ = long_problem(torch, device, n, dtype)
+    return fused.k3_operands(cfg, x0, cost, dyn, u_lower=-2.0, u_upper=2.0)
+
+
+def phase_compare_long(torch, device):
+    """K3 against fused_solve_long_plain on the card at the long-horizon
+    configuration's full size, at B=2050, with every shared operand
+    broadcast to batched, and on the pendulum past K1's horizon limit;
+    returns max |du| of the LinDx cases."""
+    import mpc_tpu_torch as mt
+    from mpc_tpu_torch.ops import fused
+    long_kw = dict(kernel=fused.fused_ilqr_long,
+                   plain=fused.fused_solve_long_plain)
+    limits = (LONG_TAIL_MEAN, LONG_TAIL_SHARE)
+    log(f'[compare-long] K3 vs its plain version, LinDx, T={LONG_T}, '
+        f'B={LONG_B}')
+    ops = long_k3_operands(torch, device)
+    ops64 = long_k3_operands(torch, device, dtype=torch.float64)
+    (xk, uk, sk), mx = hold_k1(torch, 'K3 vs plain', ops, ops64,
+                               limits=limits, **long_kw)
+    log(f'  controls on a bound: {float((uk.abs() >= 2.0).double().mean()):.3f}'
+        f' of T*B; trial rollouts a solve {float(sk[5].mean()):.2f}')
+    # every shared operand broadcast to batched: batch strides 16, 4, 12
+    # and 1 instead of 0
+    n = LONG_B
+    batched = dict(ops, C=ops['C'].expand(LONG_T, n, 4, 4).contiguous(),
+                   c=ops['c'].expand(LONG_T, n, 4).contiguous(),
+                   F=ops['F'].expand(LONG_T - 1, n, 3, 4).contiguous(),
+                   lb=ops['lb'].expand(LONG_T, n).contiguous(),
+                   ub=ops['ub'].expand(LONG_T, n).contiguous())
+    rb = fused.fused_ilqr_long(**batched)
+    if not (torch.equal(rb[0], xk) and torch.equal(rb[1], uk)
+            and torch.equal(rb[2], sk)):
+        raise AssertionError('batched layouts differ from shared ones')
+    log('  batched cost, dynamics and bounds: bitwise equal to shared')
+    # ragged tail: 2050 = 64 blocks of 32 and 2 examples
+    hold_k1(torch, 'K3 vs plain, B=2050',
+            long_k3_operands(torch, device, 2050),
+            long_k3_operands(torch, device, 2050, torch.float64),
+            limits=limits, **long_kw)
+    # the pendulum past K1's T_MAX.  Over 384 steps two float32 solves
+    # of the pendulum drift apart (at T = 256 K1 and its plain version
+    # already sit 2.8e-4 apart in the mean, tests/test_torch_gpu.py), so
+    # each is judged against the float64 plain run and not by the tail
+    cfg = mt.MPCConfig(**dict(HEADLINE, T=PEND_LONG_T, lqr_iter=2,
+                              max_linesearch_iter=2))
+    log(f'[compare-long] K3 vs its plain version, pendulum, T={PEND_LONG_T}, '
+        f'B={PEND_LONG_B}')
+    pend = []
+    for dtype in (torch.float32, torch.float64):
+        dx, cost = problem(torch, device, dtype)
+        x0 = x0_batch(PEND_LONG_B, 4, torch, device).to(dtype)
+        pend.append(fused.k3_operands(cfg, x0, cost, dx, u_lower=-2.0,
+                                      u_upper=2.0))
+    hold_k1(torch, 'K3 vs plain, pendulum', *pend, limits=None, **long_kw)
+    return mx
+
+
+def bwd_long_operands(torch, device, n=LONG_B, seed=12):
+    """K4's operands at the long configuration's solution: x*, u* from
+    K3 on n examples, the shared cost and dynamics, the active set, and
+    seeded random cotangents."""
+    import numpy as np
+    from mpc_tpu_torch.ops import fused, fused_bwd
+    ops = long_k3_operands(torch, device, n)
+    xs, us, _ = fused.fused_ilqr_long(**ops)
+    bound = torch.tensor(2.0, device=device)
+    rng = np.random.RandomState(seed)
+    return dict(C=ops['C'], c=ops['c'], F=ops['F'], x_star=xs, u_star=us,
+                dl_dx=torch.tensor(rng.randn(LONG_T, n, 3),
+                                   dtype=torch.float32, device=device),
+                dl_du=torch.tensor(rng.randn(LONG_T, n, 1),
+                                   dtype=torch.float32, device=device),
+                I_mask=fused_bwd.active_set(us, -bound, bound))
+
+
+def bwd_long_case(ops, cost_shared, dyn_shared, has_I=True):
+    """The operands of one K4 layout: shared or batched cost, shared or
+    batched dynamics, with or without the active set."""
+    T, n = ops['u_star'].shape[:2]
+    o = bwd_case(ops, cost_shared, has_I)
+    if not dyn_shared:
+        o['F'] = o['F'].expand(T - 1, n, 3, 4).contiguous()
+    return o
+
+
+def phase_compare_bwd_long(torch, device):
+    """K4 against fused_kkt_backward_long_plain on the card, same-primal
+    (K3's solution of the long configuration); returns the largest
+    |difference|."""
+    from mpc_tpu_torch.ops import fused_bwd
+    log(f'[compare-bwd-long] K4 vs its plain version at the long '
+        f'configuration\'s solution, T={LONG_T}, B={LONG_B}')
+    names = BWD_NAMES
+    base = bwd_long_operands(torch, device)
+    log(f'  active controls: {float(base["I_mask"].mean()):.3f} of T*B')
+    max_err = 0.0
+
+    def check(what, o, has_f):
+        nonlocal max_err
+        kk, err = hold_bwd(torch, 'K4', what,
+                           fused_bwd.fused_kkt_backward_long,
+                           fused_bwd.fused_kkt_backward_long_plain, o,
+                           has_f=has_f)
+        if (kk[4] is None) != (not has_f):
+            raise AssertionError(f'{what}: df must exist exactly when f does')
+        max_err = max(max_err, err)
+        return kk
+
+    for cost_shared in (True, False):
+        for dyn_shared in (True, False):
+            o = bwd_long_case(base, cost_shared, dyn_shared)
+            what = (f'{"shared" if cost_shared else "batched"} cost, '
+                    f'{"shared" if dyn_shared else "batched"} dynamics')
+            kk = check(f'{what}, no f', o, False)
+            # batch reversal: no example reads another's data
+            back = fused_bwd.fused_kkt_backward_long(**flip_batch(o, torch),
+                                                     has_f=False)
+            per_example = [(kk[0], back[0].flip(0))]
+            if not cost_shared:
+                per_example += [(kk[1], back[1].flip(1)),
+                                (kk[2], back[2].flip(1))]
+            if not dyn_shared:
+                per_example += [(kk[3], back[3].flip(1))]
+            if not all(torch.equal(a, b) for a, b in per_example):
+                raise AssertionError(f'{what}: reversed batch is not '
+                                     'bitwise equal')
+            log('    reversed batch: bitwise equal on per-example outputs')
+            if cost_shared or dyn_shared:
+                again = fused_bwd.fused_kkt_backward_long(**o, has_f=True)
+                twice = fused_bwd.fused_kkt_backward_long(**o, has_f=True)
+                reduced = ([1, 2] if cost_shared else []) + (
+                    [3, 4] if dyn_shared else [])
+                if not all(torch.equal(again[i], twice[i]) for i in reduced) \
+                        or not all(torch.equal(again[i], kk[i])
+                                   for i in reduced if kk[i] is not None):
+                    raise AssertionError('reduced gradients differ between '
+                                         'two launches')
+                log('    two launches: reduced '
+                    + ', '.join(names[i] for i in reduced)
+                    + ' bitwise equal')
+    shared = bwd_long_case(base, True, True)
+    check('shared cost, shared dynamics, with f', shared, True)
+    check('shared cost, shared dynamics, no f, without active set',
+          bwd_long_case(base, True, True, has_I=False), False)
+    check('B=2050, shared cost, shared dynamics, no f',
+          bwd_long_case(bwd_long_operands(torch, device, 2050), True, True),
+          False)
+    phase_tf32(torch, 'long', lambda: long_train_grads(torch, device))
+    return max_err
+
+
+def long_theta(torch, device):
+    """The long configuration's learnable batch-shared c, starting at
+    zero, and the cost it makes."""
+    import mpc_tpu_torch as mt
+    _, C, _, _ = long_data(torch, device)
+    theta = {'c': torch.nn.Parameter(torch.zeros(LONG_T, 4, device=device))}
+    return theta, lambda th: mt.QuadCost(C, th['c'])
+
+
+def long_train_step(torch, device, cfg=None, lr=1e-2):
+    """(step, theta, x0, u_expert) of the long configuration's train step
+    through make_imitation_train_step: Adam on the learned c."""
+    import mpc_tpu_torch as mt
+    F, _, x0, u_exp = long_data(torch, device)
+    dyn = mt.LinDx(F, None)
+    theta, make_cost = long_theta(torch, device)
+    step = mt.make_imitation_train_step(
+        cfg or mt.MPCConfig(**LONG), torch.optim.Adam(theta.values(), lr=lr),
+        make_cost, lambda th: dyn, u_lower=-2.0, u_upper=2.0, device=device)
+    return step, theta, x0, u_exp
+
+
+def long_train_grads(torch, device):
+    import mpc_tpu_torch as mt
+    F, _, x0, u_exp = long_data(torch, device)
+    theta, make_cost = long_theta(torch, device)
+    loss = mt.imitation_loss(theta, mt.MPCConfig(**LONG), x0, u_exp,
+                             make_cost, lambda th: mt.LinDx(F, None),
+                             u_lower=-2.0, u_upper=2.0, device=device)
+    loss.backward()
+    return [loss.detach(), theta['c'].grad]
+
+
+def phase_serve_long(torch, device, n_requests=4):
+    """The serving half of the long configuration: distinct B=4096
+    forward requests (backprop=False), host to host, through
+    batched_solve; returns the K3 launches counted in this phase."""
+    import numpy as np
+    import mpc_tpu_torch as mt
+    from mpc_tpu_torch.ops import fused
+    from mpc_tpu_torch.solver import rollout, trajectory_cost
+    cfg, x0, cost, dyn, _ = long_problem(torch, device, backprop=False)
+    requests = [torch.tensor(np.random.RandomState(200 + i).randn(LONG_B, 3),
+                             dtype=torch.float32)
+                for i in range(n_requests)]
+    mt.batched_solve(cfg, x0, cost, dyn, u_lower=-2.0, u_upper=2.0,
+                     device=device).u.cpu()          # warm-up
+    fused.reset_launch_counts()
+    lat = []
+    for req in requests:
+        t0 = time.perf_counter()
+        x0 = req.to(device)
+        sol = mt.batched_solve(cfg, x0, cost, dyn, u_lower=-2.0, u_upper=2.0,
+                               device=device)
+        u = sol.u.cpu()
+        lat.append(time.perf_counter() - t0)
+    launches = fused.launch_counts['fused_ilqr_long']
+    log(f'[serve-long] {len(requests)} requests of B={LONG_B}, T={LONG_T}: '
+        'latency ms ' + ' '.join(f'{1e3 * v:.3f}' for v in lat)
+        + f'; median {1e3 * sorted(lat)[len(lat) // 2]:.3f} ms, '
+        f'{LONG_B * len(lat) / sum(lat):.0f} solves/s, K3 launches '
+        f'{launches}, K1 launches {fused.launch_counts["fused_ilqr"]}')
+    if launches != len(requests) or fused.launch_counts['fused_ilqr']:
+        raise AssertionError('each served request must launch K3 once and '
+                             'K1 not at all')
+    # the last answer holds up: its states are the rollout of its
+    # controls and its costs are their objective
+    xr = rollout(dyn, x0, u.to(device))
+    cr = trajectory_cost(cost, xr, u.to(device))
+    gap = float((cr - sol.costs).abs().max() / sol.costs.abs().max())
+    x_gap = float((xr - sol.x).abs().max())
+    log(f'  last answer: relative cost gap to its own rollout {gap:.2e}, '
+        f'max |x - rollout| {x_gap:.2e}')
+    if not (torch.isfinite(u).all() and u.abs().max() <= 2.0
+            and gap < 1e-3 and x_gap < 1e-3):
+        raise AssertionError('served controls are not a feasible solve')
+    return launches
+
+
+def phase_train_long(torch, device, steps=20, warmup=3):
+    """The long configuration's train step: median step time over
+    ``steps`` host-timed, synchronised steps after warm-up.  Each step
+    must launch K3 and K4 exactly once and K1, K2 not at all.  Returns
+    the K3 and K4 launches, with the counts set to 0 just before the
+    timed steps and read just after."""
+    from mpc_tpu_torch.ops import fused, fused_bwd
+    step, theta, x0, u_exp = long_train_step(torch, device)
+    first = float(step(theta, x0, u_exp))
+    for _ in range(warmup - 1):
+        step(theta, x0, u_exp)
+    sync(torch, device)
+    fused.reset_launch_counts()
+    fused_bwd.reset_launch_counts()
+    lat, losses = [], []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        loss = step(theta, x0, u_exp)
+        sync(torch, device)
+        lat.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+        counts = dict(fused.launch_counts, **fused_bwd.launch_counts)
+        if device.type == 'cuda' and counts != {
+                'fused_ilqr': 0, 'fused_kkt_bwd': 0,
+                'fused_ilqr_long': i + 1, 'fused_kkt_bwd_long': i + 1}:
+            raise AssertionError('a long train step must launch K3 and K4 '
+                                 f'once each and K1, K2 never: {counts}')
+    k3 = fused.launch_counts['fused_ilqr_long']
+    k4 = fused_bwd.launch_counts['fused_kkt_bwd_long']
+    med = sorted(lat)[len(lat) // 2]
+    log(f'[train-long] B={LONG_B}, T={LONG_T}: {steps} steps of Adam(1e-2) '
+        f'on c, median {1e3 * med:.3f} ms ({min(lat) * 1e3:.3f}-'
+        f'{max(lat) * 1e3:.3f}), {LONG_B / med:.0f} examples/s; K3 launches '
+        f'{k3}, K4 launches {k4}, K1 and K2 none; loss first {first:.5f}, '
+        f'after {warmup + steps} steps {losses[-1]:.5f} (lowest '
+        f'{min(losses):.5f})')
+    if not all(math.isfinite(v) for v in [first] + losses):
+        raise AssertionError('the long training loss is not finite')
+    return k3, k4
+
+
+def phase_learn_long(torch, device, n=1024):
+    """A learner on the long path: the expert solves the long problem
+    with c = LEARN_LONG_C at every step, the learner starts from c = 0
+    and must cut the imitation loss.  The solves run LEARN_LONG_ITER
+    iterations, enough to converge, so that the fixed point's gradient
+    is the loss's (the configuration's own 4 iterations stop mid-way,
+    and its loss is then no smooth function of c)."""
+    import mpc_tpu_torch as mt
+    cfg, x0, cost, dyn, _ = long_problem(torch, device, n,
+                                         lqr_iter=LEARN_LONG_ITER)
+    c_true = torch.tensor(LEARN_LONG_C, device=device).expand(LONG_T, 4)
+    with torch.no_grad():
+        u_exp = mt.batched_solve(cfg, x0, mt.QuadCost(cost.C, c_true), dyn,
+                                 u_lower=-2.0, u_upper=2.0, device=device).u
+    step, theta, _, _ = long_train_step(torch, device, cfg)
+    losses = [float(step(theta, x0, u_exp)) for _ in range(LEARN_LONG_STEPS)]
+    ratio = min(losses) / losses[0]
+    log(f'[learn-long] B={n}, T={LONG_T}, lqr_iter={LEARN_LONG_ITER}, '
+        f'{LEARN_LONG_STEPS} steps of Adam(1e-2): loss '
+        + ' '.join(f'{v:.4g}' for v in losses[::2])
+        + f'; best / first {ratio:.4f} (threshold {LEARN_LONG_MAX_RATIO})')
+    if not (all(math.isfinite(v) for v in losses)
+            and ratio < LEARN_LONG_MAX_RATIO):
+        raise AssertionError('the long learner did not cut its loss')
+    return losses
+
+
+def phase_time_long(torch, device):
+    """K3 at the long configuration's full size timed from a CUDA graph,
+    its bound from this run's iterations and trial rollouts, and the
+    plain version on the card."""
+    from mpc_tpu_torch.ops import fused
+    ops = long_k3_operands(torch, device)
+    _, _, stats = fused.fused_ilqr_long(**ops)
+    ms, eager_ms = graph_ms(torch, lambda: fused.fused_ilqr_long(**ops),
+                            reps=5, per_graph=4)
+    plain_ms = event_ms(torch, lambda: fused.fused_solve_long_plain(**ops))
+    n_it = float(stats[2].double().sum())
+    n_trials = float(stats[5].double().sum())
+    flops = fused.k3_flops(LONG_T, 3, 1, n_it, n_trials, batch=LONG_B,
+                           lindx=True, has_f=False)
+    nbytes = fused.k3_bytes(ops)
+    bound_ms, by = bound(flops, nbytes)
+    log(f'[time-long] K3 B={LONG_B}, T={LONG_T}: {ms:.4f} ms (from a CUDA '
+        f'graph; {eager_ms:.4f} ms a call from Python), plain '
+        f'{plain_ms:.2f} ms; {flops:.4e} operations ({n_it / LONG_B:.2f} '
+        f'iterations, {n_trials / LONG_B:.2f} trials/solve), {nbytes} '
+        f'bytes; bound {bound_ms:.5f} ms by {by}; '
+        f'{LONG_B / ms * 1e3:.0f} solves/s')
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by)
+
+
+def phase_time_bwd_long(torch, device):
+    """K4 (shared cost, shared dynamics, no f, with the active set, as
+    on the long training path) timed from a CUDA graph, its bound, and
+    the plain version on the card."""
+    from mpc_tpu_torch.ops import fused_bwd
+    o = bwd_long_operands(torch, device)
+    ms, eager_ms = graph_ms(
+        torch, lambda: fused_bwd.fused_kkt_backward_long(**o, has_f=False),
+        reps=5, per_graph=4)
+    plain_ms = event_ms(
+        torch,
+        lambda: fused_bwd.fused_kkt_backward_long_plain(**o, has_f=False))
+    flops = fused_bwd.k4_flops(LONG_T, LONG_B, True, True, has_f=False)
+    nbytes = fused_bwd.k4_bytes(o['C'], o['c'], o['F'], o['x_star'],
+                                o['I_mask'], has_f=False)
+    bound_ms, by = bound(flops, nbytes)
+    log(f'[time-bwd-long] K4 B={LONG_B}, T={LONG_T}: {ms:.4f} ms (from a '
+        f'CUDA graph; {eager_ms:.4f} ms a call from Python), plain '
+        f'{plain_ms:.2f} ms; {flops:.4e} operations, {nbytes} bytes; '
+        f'bound {bound_ms:.5f} ms by {by}')
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by)
+
+
 def main():
     try:
         import torch
@@ -769,15 +1226,26 @@ def main():
     k1_train, k2_train = phase_train(torch, device, 1024)
     phase_train(torch, device, 8192)
     phase_learn(torch, device)
-    phase_profile_train(torch, device)
+    phase_profile_train(torch, device, 'config 4',
+                        config4_train_step(torch, device, 1024))
     timing_train = phase_time_train(torch, device, 1024)
     phase_time_train(torch, device, 8192)
     timing_bwd = phase_time_bwd(torch, device, 1024)
     phase_time_bwd(torch, device, 8192)
+    long_err = phase_compare_long(torch, device)
+    bwd_long_err = phase_compare_bwd_long(torch, device)
+    k3_serve = phase_serve_long(torch, device)
+    k3_train, k4_train = phase_train_long(torch, device)
+    phase_learn_long(torch, device)
+    phase_profile_train(torch, device, 'long',
+                        long_train_step(torch, device))
+    timing_long = phase_time_long(torch, device)
+    timing_bwd_long = phase_time_bwd_long(torch, device)
     log(f'[done] {time.perf_counter() - t0:.1f} s')
     # one entry per kernel and main path: serving ([serve], headline
-    # B=4096) and training ([train], config 4 at B=1024); launches are
-    # that path's count, the times and bound that path's shape
+    # B=4096), training ([train], config 4 at B=1024) and long-horizon
+    # training ([train-long], T=160 at B=4096); launches are that path's
+    # count, the times and bound that path's shape
     k1 = {'route': 'cuda', 'source': 'mpc_tpu_torch/csrc/fused_ilqr.cu',
           'replaces': 'mpc_tpu/ops/fused.py:617',
           'tolerance': f'mean|du|<{TAIL_MEAN}, '
@@ -793,7 +1261,22 @@ def main():
          'replaces': 'mpc_tpu/ops/fused_bwd.py:251',
          'launches': k2_train, 'max_abs_err': bwd_err,
          'tolerance': f'max|K2-plain|/max|plain|<{BWD_TOL} per gradient',
-         'library_ms': None, **timing_bwd}]}))
+         'library_ms': None, **timing_bwd},
+        {'name': 'fused_ilqr_long', 'path': 'long training',
+         'route': 'cuda', 'source': 'mpc_tpu_torch/csrc/fused_ilqr_long.cu',
+         'replaces': 'mpc_tpu/ops/fused.py:1126',
+         'launches': k3_train, 'launches_serve_long': k3_serve,
+         'max_abs_err': long_err,
+         'tolerance': f'mean|du|<{LONG_TAIL_MEAN}, '
+                      f'share(|du|>{TAIL_ENTRY})<{LONG_TAIL_SHARE}',
+         'library_ms': None, **timing_long},
+        {'name': 'fused_kkt_bwd_long', 'path': 'long training',
+         'route': 'cuda',
+         'source': 'mpc_tpu_torch/csrc/fused_kkt_bwd_long.cu',
+         'replaces': 'mpc_tpu/ops/fused_bwd.py:413',
+         'launches': k4_train, 'max_abs_err': bwd_long_err,
+         'tolerance': f'max|K4-plain|/max|plain|<{BWD_TOL} per gradient',
+         'library_ms': None, **timing_bwd_long}]}))
     log(card)
     log(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

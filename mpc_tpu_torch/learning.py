@@ -2,13 +2,14 @@
 mpc_tpu/learning.py:42-324).
 
 A differentiable solve runs in two phases, as in the JAX package.  Phase
-1 is the iLQR solve through kernel K1 with gradients stopped (the
-reference's detached outer loop, mpc/mpc.py:249-262).  Phase 2
-re-linearises the dynamics and re-quadratises the cost at the solution,
-differentiably, and attaches the batched fixed point whose backward is
-kernel K2 (ops/fused_bwd.py), so gradients reach x_init, the cost and the
-model's parameters.  The sharded train step waits for ROADMAP queue 1
-item 12.
+1 is the iLQR solve through kernel K1 or K3 (ops/fused.py:routes_long)
+with gradients stopped (the reference's detached outer loop,
+mpc/mpc.py:249-262).  Phase 2 re-linearises the dynamics and
+re-quadratises the cost at the solution, differentiably, and attaches
+the batched fixed point whose backward is kernel K2 or K4
+(ops/fused_bwd.py:bwd_routes_long), so gradients reach x_init, the cost
+and the model's parameters or a LinDx's F and f.  The sharded train step
+waits for ROADMAP queue 1 item 12.
 """
 
 from __future__ import annotations
@@ -43,32 +44,26 @@ def _bound(b, dtype, device):
 def _phase2_kernel_bwd(cfg, x_init, cost, dynamics, sol1, u_lower, u_upper):
     """Differentiable phase 2 (mpc_tpu/learning.py:42-120): the
     linearisation and quadratisation at phase 1's solution, then the
-    batched fixed point whose backward runs K2.  A cost whose C and c
-    are both batch-shared stays un-broadcast, and K2 returns its
-    gradient summed over the batch; otherwise both leaves are batched
-    [T, B, ...] views and K2 returns per-example gradients, which
-    autograd sums back through any broadcast."""
-    T, ns = cfg.T, cfg.n_state
+    batched fixed point whose backward runs K2 or K4.  Batch-shared cost
+    leaves and a batch-shared LinDx stay un-broadcast ([T, ...]): the
+    kernel returns their gradient summed over the batch when both leaves
+    of the pair are shared, and the fixed point sums a per-example
+    gradient back onto a shared leaf otherwise."""
     dtype, device = x_init.dtype, x_init.device
-    B = x_init.shape[0]
     # phase 1's outputs carry no gradient; the problem's leaves do
     bx, bu = sol1.x.detach(), sol1.u.detach()
     C = torch.as_tensor(cost.C, dtype=dtype, device=device)
     c = torch.as_tensor(cost.c, dtype=dtype, device=device)
     C, c, _ = quadratize_cost(QuadCost(C, c), bx, bu)
-    cost_shared = C.dim() == 3 and c.dim() == 2
-    if not cost_shared:
-        if C.dim() == 3:
-            C = C.unsqueeze(1)
-        if c.dim() == 2:
-            c = c.unsqueeze(1)
-        C = C.expand(T, B, ns + 1, ns + 1)
-        c = c.expand(T, B, ns + 1)
+    if isinstance(dynamics, LinDx):
+        dynamics = LinDx(*(None if a is None else torch.as_tensor(
+            a, dtype=dtype, device=device) for a in dynamics))
     F, f = linearize_dynamics(dynamics, bx, bu, cfg.grad_method)
     has_bounds = u_lower is not None
     lb = _bound(u_lower, dtype, device) if has_bounds else None
     ub = _bound(u_upper, dtype, device) if has_bounds else None
-    fp = fused_bwd.make_batched_fixed_point(ns, has_bounds, f is not None)
+    fp = fused_bwd.make_batched_fixed_point(cfg.n_state, has_bounds,
+                                            f is not None)
     x, u = fp.apply(x_init, C, c, F, f, lb, ub, bx, bu)
     if cfg.detach_unconverged:
         conv = sol1.converged[None, :, None]
@@ -80,20 +75,21 @@ def _phase2_kernel_bwd(cfg, x_init, cost, dynamics, sol1, u_lower, u_upper):
 def batched_solve(cfg: MPCConfig, x_init, cost, dynamics, u_init=None,
                   u_lower=None, u_upper=None, u_zero_I=None, prev_ctrl=None,
                   device=None) -> Solution:
-    """Solve a batch of MPC problems through the fused solve (kernel K1).
+    """Solve a batch of MPC problems through the fused solve (kernel K1
+    or K3).
 
-    ``x_init`` is [B, n_state]; cost leaves, bounds and u_init are
-    time-major [T, B, ...] or batch-shared with the batch axis dropped
-    (bounds may be scalars).  Everything runs on ``device``: the CUDA
+    ``x_init`` is [B, n_state]; cost and LinDx leaves, bounds and u_init
+    are time-major [T, B, ...] or batch-shared with the batch axis
+    dropped (bounds may be scalars).  Everything runs on ``device``: the CUDA
     card by default (the kernels), or the CPU when asked (the kernels'
     plain PyTorch versions, in float32 or float64).  A problem outside
-    this slice raises NotImplementedError naming the ROADMAP item that
+    the port's scope raises NotImplementedError naming the ROADMAP item that
     brings it.
 
     With ``cfg.backprop`` and any of x_init, the cost's C or c, the
-    model's parameters or the bounds requiring grad (and grad mode on), x
-    and u carry gradients to them through the KKT fixed point (phase 2,
-    kernel K2).  The bounds get a zero gradient, as in the reference.  costs, n_iter
+    model's parameters, a LinDx's F or f or the bounds requiring grad
+    (and grad mode on), x and u carry gradients to them through the KKT
+    fixed point (phase 2, kernel K2 or K4).  The bounds get a zero gradient, as in the reference.  costs, n_iter
     and the other statistics come from phase 1 and carry none.
     """
     if (u_lower is None) != (u_upper is None):

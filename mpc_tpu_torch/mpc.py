@@ -13,7 +13,7 @@ from __future__ import annotations
 import torch
 
 from .learning import batched_solve
-from .types import GradMethods, MPCConfig, QuadCost, Solution
+from .types import GradMethods, LinDx, MPCConfig, QuadCost, Solution
 from .utils.device import resolve_device
 
 
@@ -117,8 +117,9 @@ class MPC:
     def solve(self, x_init, cost, dx) -> Solution:
         """Full solve returning the per-example Solution.  Normalises
         shapes (reference mpc/mpc.py:193-236) and delegates to
-        ``learning.batched_solve``; batch-shared cost and scalar bounds
-        stay un-broadcast (batch stride 0 in the kernel)."""
+        ``learning.batched_solve``; batch-shared cost, batch-shared LinDx
+        and scalar bounds stay un-broadcast (batch stride 0 in the
+        kernel)."""
         cfg = self.cfg
         T, nc = cfg.T, cfg.n_ctrl
         dev = self.device
@@ -143,6 +144,17 @@ class MPC:
             n_batch = x_init.shape[0]
         if x_init.shape[0] != n_batch:
             raise AssertionError('x_init must be [n_batch, n_state]')
+
+        # the reference tolerates [T, ...] time dims on a LinDx and never
+        # touches the last slice (mpc_tpu/mpc.py:269-278)
+        if isinstance(dx, LinDx):
+            F = torch.as_tensor(dx.F, dtype=dtype, device=dev)
+            f = dx.f
+            if f is not None:
+                f = torch.as_tensor(f, dtype=dtype, device=dev)
+                if f.shape[0] == T:
+                    f = f[:T - 1]
+            dx = LinDx(F[:T - 1] if F.shape[0] == T else F, f)
 
         u_init = self.u_init
         if u_init is not None:

@@ -1,27 +1,39 @@
-"""Fused iLQR solve: kernel K1 for Hopper and its plain PyTorch version.
+"""Fused iLQR solve: kernels K1 and K3 for Hopper and their plain
+PyTorch versions.
 
 Counterpart of mpc_tpu/ops/fused.py, whose ``_make_kernel``
 (mpc_tpu/ops/fused.py:617-1119) runs the whole box-constrained iLQR
-solve in one Pallas kernel with a batch tile on the TPU's vector lanes.
-On the H100 the same solve is csrc/fused_ilqr.cu with ONE EXAMPLE PER
-THREAD: T, n_state=3 and n_ctrl=1 are compile-time constants, so the
-small loops unroll, and every per-example array (trajectory, gains,
-trial rollout) lives in the thread's registers and local memory.
+solve in one Pallas kernel with a batch tile on the TPU's vector lanes,
+and whose ``_make_kernel_long`` (mpc_tpu/ops/fused.py:1126-1932) runs
+the same solve with the horizon as loops over per-t scratch.
 
-``fused_solve_plain`` is the plain version of that kernel: each kernel
-scalar is a [B] tensor and the arithmetic runs in the kernel's order.
-The CPU path of the entry points runs it (in any float dtype, so float64
-is there for tests); on a CUDA tensor ``fused_ilqr`` launches the kernel
-or raises, and never falls back to the plain version.
+K1 is csrc/fused_ilqr.cu with ONE EXAMPLE PER THREAD: T, n_state=3 and
+n_ctrl=1 are compile-time constants, so the small loops unroll, and
+every per-example array (trajectory, gains, trial rollout) lives in the
+thread's registers and local memory.  K3 is csrc/fused_ilqr_long.cu,
+also one example per thread, with the trajectory and the gains in a
+workspace in global memory that the wrapper allocates, T a run-time
+argument, LinDx or pendulum dynamics, and the streaming kernel's
+trial-then-commit line search.
 
-Scope of this slice (``scope_gap``): the simple pendulum, n_ctrl = 1, a
-QuadCost with C and c each shared or batched, bounds absent, scalar,
-[T, nc] or [T, B, nc], an optional u_init, and T <= T_MAX.
+``fused_solve_plain`` and ``fused_solve_long_plain`` are the plain
+versions of those kernels: each kernel scalar is a [B] tensor and the
+arithmetic runs in the kernel's order.  The CPU path of the entry points
+runs them (in any float dtype, so float64 is there for tests); on a CUDA
+tensor ``fused_ilqr`` and ``fused_ilqr_long`` launch their kernel or
+raise, and never fall back to the plain version.
+
+Scope (``scope_gap``): LinDx dynamics (F, f each shared or batched, f
+optional) or the simple pendulum, n_state = 3, n_ctrl = 1, a QuadCost
+with C and c each shared or batched, bounds absent, scalar, [T, nc] or
+[T, B, nc], an optional u_init, any T.  ``routes_long`` says which
+kernel takes a problem.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -29,14 +41,15 @@ import torch
 from ..models.pendulum import PendulumDx
 from ..types import GradMethods, LinDx, QuadCost, Solution
 
-# Horizon limit.  The kernel keeps 16*T floats per thread (x, u, the best
-# x and u, K, k and the trial rollout) in local memory, and CUDA
+# K1's horizon limit.  The kernel keeps 16*T floats per thread (x, u, the
+# best x and u, K, k and the trial rollout) in local memory, and CUDA
 # reserves that much for every resident thread slot of the card (2048
 # per SM x 132 SMs): 64*T bytes x 270,336 slots is 1.1 GB at T = 64 and
 # 4.4 GB at T = 256.  The horizon loops are not unrolled, so nvcc's time
 # does not grow with T.  Past 256 the memory reserved for local arrays
-# outgrows what a solve of that size should hold; long horizons belong
-# to the streaming kernel (K3, ROADMAP queue 2).
+# outgrows what a solve of that size should hold; longer horizons go to
+# the streaming kernel K3, whose workspace is 32*T bytes per example of
+# the batch it is given and nothing per idle thread slot.
 T_MAX = 256
 
 # Line-search schedules are passed to the kernel by value, up to this
@@ -47,8 +60,8 @@ MAX_ALPHA = 32
 # (mpc_tpu/ops/fused.py:719); any finite cost replaces it at iteration 0.
 BIG = 3.0e38
 
-# One count per launch of K1 on the card, and nowhere else.
-launch_counts = {'fused_ilqr': 0}
+# One count per launch of K1 and of K3 on the card, and nowhere else.
+launch_counts = {'fused_ilqr': 0, 'fused_ilqr_long': 0}
 
 
 def reset_launch_counts():
@@ -56,26 +69,45 @@ def reset_launch_counts():
         launch_counts[name] = 0
 
 
+def routes_long(dynamics, T) -> bool:
+    """THE K1-or-K3 routing predicate of the forward solve, shared by
+    ``scope_gap``, the dispatch in ``fused_batched_solve`` and the tests
+    (as ``_routes_long`` is in mpc_tpu/ops/fused.py:287-300).
+
+    K3 takes every LinDx problem, because K1's source has no LinDx step
+    (ROADMAP queue 2, K1 configurations), and the pendulum past
+    ``T_MAX``, which is K1's local-memory reservation and not a
+    threshold carried over from the TPU."""
+    return isinstance(dynamics, LinDx) or T > T_MAX
+
+
 def scope_gap(cfg, cost, dynamics, *, u_zero_I=None, prev_ctrl=None,
               dtype=torch.float32,
               device=torch.device('cpu')) -> Optional[str]:
-    """Why a problem is outside this slice, naming the ROADMAP item that
-    brings it; None when the fused solve runs it."""
+    """Why a problem is outside the port's scope, naming the ROADMAP
+    item that brings it; None when the fused solve (K1 or K3, see
+    ``routes_long``) runs it."""
     if cfg.use_fused == 'never':
         return ('use_fused="never" asks for the eager solver, which '
                 'waits for ROADMAP queue 1 item 3')
     if isinstance(dynamics, LinDx):
-        return ('LinDx dynamics in K1 wait for ROADMAP queue 2 '
-                '(K1 configurations)')
-    if not isinstance(dynamics, PendulumDx):
+        if (getattr(dynamics.F, 'ndim', 0) not in (3, 4)
+                or (dynamics.f is not None
+                    and getattr(dynamics.f, 'ndim', 0) not in (2, 3))):
+            return ('LinDx takes F [T-1, n_state, n_tau] or [T-1, B, ...] '
+                    'and f [T-1, n_state], [T-1, B, n_state] or None; '
+                    'other layouts wait for ROADMAP queue 2 (K3 '
+                    'configurations)')
+    elif not isinstance(dynamics, PendulumDx):
         return (f'{type(dynamics).__name__} dynamics wait for ROADMAP '
                 'queue 1 item 8 (remaining models)')
-    if not dynamics.simple:
+    elif not dynamics.simple:
         return ('PendulumDx(simple=False) waits for ROADMAP queue 2 '
                 '(K1 configurations)')
     if cfg.n_state != 3 or cfg.n_ctrl != 1:
-        return ('the pendulum slice takes n_state=3, n_ctrl=1; n_ctrl>1 '
-                'with the in-kernel PNQP waits for ROADMAP queue 2')
+        return ('the kernels take n_state=3, n_ctrl=1; n_ctrl>1 with the '
+                'in-kernel PNQP and other state sizes wait for ROADMAP '
+                'queue 2')
     if not isinstance(cost, QuadCost):
         return ('non-quadratic (SoA) costs wait for ROADMAP queue 2 '
                 '(K1 configurations)')
@@ -93,15 +125,12 @@ def scope_gap(cfg, cost, dynamics, *, u_zero_I=None, prev_ctrl=None,
     if dtype not in (torch.float32, torch.float64):
         return f'dtype {dtype} is not supported (float32 or float64)'
     if dtype == torch.float64 and device.type == 'cuda':
-        return ('float64 on the card waits for ROADMAP queue 2 (K1 '
-                'configurations); K1 is float32, and float64 runs on '
-                'the CPU with device="cpu"')
-    if cfg.T > T_MAX:
-        return (f'T={cfg.T} exceeds K1\'s T_MAX={T_MAX}; long horizons '
-                'wait for K3 (ROADMAP queue 2)')
+        return ('float64 on the card waits for ROADMAP queue 2 (K1 and K3 '
+                'configurations); the kernels are float32, and float64 '
+                'runs on the CPU with device="cpu"')
     if cfg.max_linesearch_iter > MAX_ALPHA:
         return (f'max_linesearch_iter={cfg.max_linesearch_iter} exceeds '
-                f'K1\'s schedule of {MAX_ALPHA} step sizes')
+                f'the kernels\' schedule of {MAX_ALPHA} step sizes')
     return None
 
 
@@ -123,6 +152,29 @@ _STEP_OPS = 22
 _JAC_OPS = 50
 
 
+def _op_counts(T, ns, nc, step_ops, jac_ops):
+    """Operation counts of the pieces K1 and K3 share (n_ctrl = 1): one
+    stage cost, one Riccati sweep over the horizon, the control of one
+    rollout step and the full-step norm."""
+    if nc != 1:
+        raise ValueError('the operation counts are for the n_ctrl = 1 '
+                         'kernels')
+    ntau = ns + nc
+    stage = ntau * (2 * ntau + 2)                  # _quad_lin_cost
+    cb = ntau * 2 * ntau                           # C tau + c
+    box = 9                                        # 1-D box QP + gains
+    vupd = ns * ns + ns + 2 * ns * (ns + 1) + 1 + 5 * ns
+    ric_t = (ns * ntau * (2 * ns - 1)              # W = V F
+             + ntau * (ntau + 1) // 2 * 2 * ns     # Qt = C + F^T W
+             + ntau * 2 * ns                       # qt = cb + F^T v
+             + jac_ops + cb + box + vupd)
+    return dict(stage=stage,
+                riccati=(T - 1) * ric_t + cb + box + vupd,
+                ctrl=ns + (2 * ns - 1) + 3,
+                full_du=2 * T + 1,
+                rollout=(T - 1) * step_ops)
+
+
 def k1_flops(T, ns, nc, lqr_iter, n_alpha, batch=1):
     """Arithmetic operations of K1 (each +, -, *, /, sqrt, sin, cos
     counts one; compares and selects none).
@@ -132,36 +184,46 @@ def k1_flops(T, ns, nc, lqr_iter, n_alpha, batch=1):
     search trial rollouts in total (pass the sums over the batch of
     n_iter and of the kernel's trial count, so data-dependent early
     stops are counted as they ran)."""
-    if nc != 1:
-        raise ValueError('k1_flops counts the n_ctrl = 1 kernel')
-    ntau = ns + nc
-    stage = ntau * (2 * ntau + 2)                  # _quad_lin_cost
-    cb = ntau * 2 * ntau                           # C tau + c
-    box = 9                                        # 1-D box QP + gains
-    vupd = ns * ns + ns + 2 * ns * (ns + 1) + 1 + 5 * ns
-    ric_t = (ns * ntau * (2 * ns - 1)              # W = V F
-             + ntau * (ntau + 1) // 2 * 2 * ns     # Qt = C + F^T W
-             + ntau * 2 * ns                       # qt = cb + F^T v
-             + _JAC_OPS + cb + box + vupd)
-    riccati = (T - 1) * ric_t + cb + box + vupd
-    old_cost = T * stage
-    trial_ctrl = ns + (2 * ns - 1) + 3
-    trial = T * (trial_ctrl + stage) + (T - 1) * _STEP_OPS
-    full_du = 2 * T + 1
-    per_iter = riccati + old_cost + full_du + 4
-    init = (T - 1) * _STEP_OPS
+    n = _op_counts(T, ns, nc, _STEP_OPS, _JAC_OPS)
+    old_cost = T * n['stage']
+    trial = T * (n['ctrl'] + n['stage']) + n['rollout']
+    per_iter = n['riccati'] + old_cost + n['full_du'] + 4
+    return batch * n['rollout'] + lqr_iter * per_iter + n_alpha * trial
+
+
+def k3_flops(T, ns, nc, lqr_iter, n_alpha, batch=1, *, lindx=True,
+             has_f=False):
+    """Arithmetic operations of K3, counted as ``k1_flops`` counts K1's
+    from csrc/fused_ilqr_long.cu: the initial rollout with its cost, and
+    per outer iteration one Riccati sweep (a LinDx Jacobian is a load),
+    the cost-only trial rollouts that ran (``n_alpha``, summed over the
+    batch) and one commit rollout; the current cost is carried, not
+    recomputed."""
+    if lindx:
+        step_ops = ns * (2 * (ns + nc) - 1) + (ns if has_f else 0)
+        n = _op_counts(T, ns, nc, step_ops, 0)
+    else:
+        n = _op_counts(T, ns, nc, _STEP_OPS, _JAC_OPS)
+    init = n['rollout'] + T * n['stage']
+    trial = T * (n['ctrl'] + n['stage']) + n['rollout']
+    commit = T * n['ctrl'] + n['rollout']
+    per_iter = n['riccati'] + commit + n['full_du'] + 4
     return batch * init + lqr_iter * per_iter + n_alpha * trial
 
 
 def k1_bytes(ops):
-    """Bytes K1 must move for the operands ``ops`` (``k1_operands``):
-    each input read once, shared ones once for the whole batch, and each
-    output (x, u and six stats rows) written once."""
+    """Bytes K1 or K3 must move for the operands ``ops``
+    (``k1_operands`` or ``k3_operands``): each input read once, shared
+    ones once for the whole batch, and each output (x, u and six stats
+    rows) written once.  K3's workspace is neither."""
     T, B = ops['u0'].shape
-    ins = [ops[k] for k in ('params', 'C', 'c', 'x0', 'u0', 'lb', 'ub')
-           if ops[k] is not None]
+    ins = [ops[k] for k in ('params', 'F', 'f', 'C', 'c', 'x0', 'u0', 'lb',
+                            'ub') if ops.get(k) is not None]
     out = (T * B * 4 + 6 * B) * ops['x0'].element_size()
     return sum(a.numel() * a.element_size() for a in ins) + out
+
+
+k3_bytes = k1_bytes
 
 
 # ---------------------------------------------------------------------------
@@ -452,6 +514,337 @@ def fused_ilqr(dynamics, params, C, c, x0, u0, lb, ub, *, alphas, lqr_iter,
 
 
 # ---------------------------------------------------------------------------
+# the plain version of K3
+# ---------------------------------------------------------------------------
+
+def fused_solve_long_plain(dynamics, params, F, f, C, c, x0, u0, lb, ub, *,
+                           alphas, lqr_iter, eps, best_cost_eps,
+                           not_improved_lim):
+    """The plain PyTorch version of kernel K3, on the kernel's operands.
+
+    ``dynamics`` is a ``PendulumDx`` with ``params`` [3] (F and f None),
+    or None for LinDx with F [T-1, 1 or B, 3, 4] and f None or
+    [T-1, 1 or B, 3]; C [T, 1 or B, 4, 4]; c [T, 1 or B, 4]; x0 [B, 3];
+    u0 [T, B]; lb, ub None or [T, 1 or B]; ``alphas`` the line-search
+    schedule as Python floats.  Returns x [T, B, 3], u [T, B, 1] and
+    stats [6, B]: best cost, best full-step norm, n_iter, n_qp_iter,
+    alpha and the number of cost-only trial rollouts.
+
+    Same arithmetic in the same order as csrc/fused_ilqr_long.cu: the
+    current cost is carried from the last accepted trial, the trials
+    keep only their cost, and one commit rollout with each lane's
+    selected step size writes the new trajectory.  The kernel stops each
+    example's trials at its first passing step size; here all lanes try
+    each step size until every active lane has passed, and a lane keeps
+    its first passing trial, which selects the same one.
+    """
+    T = u0.shape[0]
+    B = x0.shape[0]
+    ns = 3
+    has_bounds = lb is not None
+    lindx = dynamics is None
+    zero = x0.new_zeros(B)
+    Cl = [[[C[t, :, i, j] for j in range(4)] for i in range(4)]
+          for t in range(T)]
+    cl = [[c[t, :, i] for i in range(4)] for t in range(T)]
+    if has_bounds:
+        lbl = [lb[t] + zero for t in range(T)]
+        ubl = [ub[t] + zero for t in range(T)]
+    if lindx:
+        Fl = [[[F[t, :, i, j] for j in range(4)] for i in range(ns)]
+              for t in range(T - 1)]
+        fl = None if f is None else [[f[t, :, i] for i in range(ns)]
+                                     for t in range(T - 1)]
+
+        def step(t, xt, ut):
+            tau = list(xt) + [ut]
+            out = [_dot(Fl[t][i], tau) for i in range(ns)]
+            if fl is not None:
+                out = [out[i] + fl[t][i] for i in range(ns)]
+            return out
+
+        def jac(t, xt, ut):
+            return Fl[t]
+    else:
+        p = tuple(params.unbind())
+
+        def step(t, xt, ut):
+            return list(dynamics.soa_step(tuple(xt), ut, p))
+
+        def jac(t, xt, ut):
+            return dynamics.soa_jacobian(tuple(xt), ut, p)
+
+    def stage(t, xt, ut):
+        return _stage_cost(Cl[t], cl[t], list(xt) + [ut])
+
+    def control(t, xt, K, k, alpha):
+        dx = [xt[i] - x[t][i] for i in range(ns)]
+        ut = (_dot(K[t], dx) + u[t]) + alpha * k[t]
+        if has_bounds:
+            ut = torch.clamp(ut, lbl[t], ubl[t])
+        return ut
+
+    # ---- init: x <- rollout(u0), best <- the same, its cost ------------
+    x = [list(x0.unbind(-1))]
+    u = list(u0.unbind(0))
+    cost_cur = stage(0, x[0], u[0])
+    for t in range(T - 1):
+        x.append(step(t, x[t], u[t]))
+        cost_cur = cost_cur + stage(t + 1, x[t + 1], u[t + 1])
+    best_x, best_u = x, u
+    best_cost = zero + BIG
+    best_du = zero + BIG
+    cur_du = zero + BIG
+    nni = zero.clone()
+    n_qp = zero.clone()
+    alpha_sel = zero + 1.0
+    n_it = zero.clone()
+    n_trials = zero.clone()
+    active = torch.ones(B, dtype=torch.bool, device=x0.device)
+
+    for it in range(lqr_iter):
+        # ---- Riccati backward recursion with the 1-D box QP ----------
+        K = [None] * T
+        k = [None] * T
+        V = v = None
+        qp_cnt = 0.0
+        for t in range(T - 1, -1, -1):
+            tau = x[t] + [u[t]]
+            cb = [_dot(Cl[t][i], tau) + cl[t][i] for i in range(4)]
+            if t == T - 1:
+                Qt = [[Cl[t][i][j] for j in range(4)] for i in range(4)]
+                qt = cb
+            else:
+                Ft = jac(t, x[t], u[t])
+                W = [[_dot(V[i], [Ft[kk][j] for kk in range(ns)])
+                      for j in range(4)] for i in range(ns)]
+                Qt = [[None] * 4 for _ in range(4)]
+                for a in range(4):
+                    for b in range(a, 4):
+                        Qt[a][b] = Cl[t][a][b] + _dot(
+                            [Ft[kk][a] for kk in range(ns)],
+                            [W[kk][b] for kk in range(ns)])
+                        Qt[b][a] = Qt[a][b]
+                qt = [cb[a] + _dot([Ft[kk][a] for kk in range(ns)], v)
+                      for a in range(4)]
+            Quu = Qt[3][3]
+            qu = qt[3]
+            inv = 1.0 / Quu
+            if has_bounds:
+                lo = lbl[t] - u[t]
+                hi = ubl[t] - u[t]
+                kv = torch.clamp(-qu * inv, lo, hi)
+                g = Quu * kv + qu
+                clamped = ((kv == lo) & (g > 0)) | ((kv == hi) & (g < 0))
+                Kt = [torch.where(clamped, zero, -Qt[3][j] * inv)
+                      for j in range(ns)]
+                kt = kv
+                qp_cnt += 1.0
+            else:
+                kt = -qu * inv
+                Kt = [-Qt[3][j] * inv for j in range(ns)]
+            K[t], k[t] = Kt, kt
+            # cost-to-go, summed left to right (vv_update,
+            # mpc_tpu/ops/fused.py:1546-1573)
+            QK = [[Qt[i][3] * Kt[j] for j in range(ns)] for i in range(ns)]
+            KQuu = [Quu * Kt[j] for j in range(ns)]
+            Vn = [[None] * ns for _ in range(ns)]
+            for i in range(ns):
+                for j in range(i, ns):
+                    Vn[i][j] = ((Qt[i][j] + QK[i][j]) + QK[j][i]) \
+                        + Kt[i] * KQuu[j]
+                    Vn[j][i] = Vn[i][j]
+            quk = qu + Quu * kt
+            V = Vn
+            v = [(qt[i] + Qt[i][3] * kt) + Kt[i] * quk for i in range(ns)]
+
+        # ---- line search: cost-only trials, the first passing step
+        # size, else the last --------------------------------------------
+        old_cost = cost_cur
+        found = torch.zeros(B, dtype=torch.bool, device=x0.device)
+        for ki, a in enumerate(alphas):
+            xt = x[0]
+            cost_a = None
+            du2 = None
+            for t in range(T):
+                ut = control(t, xt, K, k, a)
+                sc = stage(t, xt, ut)
+                cost_a = sc if cost_a is None else cost_a + sc
+                if ki == 0:
+                    d2 = (u[t] - ut) * (u[t] - ut)
+                    du2 = d2 if du2 is None else du2 + d2
+                if t < T - 1:
+                    xt = step(t, xt, ut)
+            take = ~found
+            n_trials = n_trials + (take & active).to(x0.dtype)
+            if ki == 0:
+                full_du = torch.sqrt(du2)
+                sel_cost = cost_a
+                sel_alpha = zero + a
+            else:
+                sel_cost = torch.where(take, cost_a, sel_cost)
+                sel_alpha = torch.where(take, zero + a, sel_alpha)
+            found = found | (take & (cost_a <= old_cost))
+            if bool((found | ~active).all()):
+                break
+
+        # ---- commit: re-roll with each lane's selected step size ------
+        improved = sel_cost <= best_cost + best_cost_eps
+        take_best = active & (improved | (it == 0))
+        new_x, new_u = [], []
+        xt = x[0]
+        for t in range(T):
+            ut = control(t, xt, K, k, sel_alpha)
+            new_x.append([torch.where(active, xt[i], x[t][i])
+                          for i in range(ns)])
+            new_u.append(torch.where(active, ut, u[t]))
+            if t < T - 1:
+                xt = step(t, xt, ut)
+        best_x = [[torch.where(take_best, new_x[t][i], best_x[t][i])
+                   for i in range(ns)] for t in range(T)]
+        best_u = [torch.where(take_best, new_u[t], best_u[t])
+                  for t in range(T)]
+        x, u = new_x, new_u
+
+        # ---- best tracking and per-example stopping ------------------
+        nni = torch.where(active, torch.where(
+            improved & (it != 0), zero, nni + 1.0), nni)
+        best_cost = torch.where(take_best, sel_cost, best_cost)
+        best_du = torch.where(take_best, full_du, best_du)
+        cur_du = torch.where(active, full_du, cur_du)
+        n_qp = n_qp + torch.where(active, zero + qp_cnt, zero)
+        alpha_sel = torch.where(active, sel_alpha, alpha_sel)
+        n_it = n_it + active.to(x0.dtype)
+        cost_cur = torch.where(active, sel_cost, cost_cur)
+        active = active & (cur_du >= eps) & (nni <= not_improved_lim)
+        if not bool(active.any()):
+            break
+
+    xs = torch.stack([torch.stack(best_x[t], -1) for t in range(T)], 0)
+    us = torch.stack(best_u, 0).unsqueeze(-1)
+    stats = torch.stack([best_cost, best_du, n_it, n_qp, alpha_sel,
+                         n_trials], 0)
+    return xs, us, stats
+
+
+# ---------------------------------------------------------------------------
+# K3's wrapper
+# ---------------------------------------------------------------------------
+
+_ARGTYPES_LONG = [
+    ctypes.c_int, ctypes.c_int, _P,       # B, T, params
+    _P, _I64, _I64,                       # F, t stride, batch stride
+    _P, _I64, _I64,                       # f, t stride, batch stride
+    _P, _I64, _I64,                       # C, t stride, batch stride
+    _P, _I64, _I64,                       # c, t stride, batch stride
+    _P, _P,                               # x0, u0
+    _P, _P, _I64, _I64,                   # lb, ub, t stride, batch stride
+    ctypes.POINTER(ctypes.c_float), ctypes.c_int,   # alphas (host), n
+    ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_float,
+    _P, _P, _P, _P,                       # workspace, x, u, stats
+    _P,                                   # stream
+]
+
+
+def long_kernel_defines(lindx, has_bounds) -> dict:
+    """The nvcc defines of the K3 build for these dynamics and bounds."""
+    return {'MPC_DYN': 0 if lindx else 1, 'MPC_HAS_BOUNDS': int(has_bounds)}
+
+
+def _kernel_lib_long(lindx, has_bounds):
+    from . import _build
+    lib = _build.load('fused_ilqr_long',
+                      long_kernel_defines(lindx, has_bounds))
+    fn = lib.mpc_fused_ilqr_long
+    if fn.argtypes is None:
+        fn.argtypes = _ARGTYPES_LONG
+        fn.restype = ctypes.c_int
+        lib.mpc_fused_ilqr_long_rows.restype = ctypes.c_int
+    return fn, lib.mpc_fused_ilqr_long_rows()
+
+
+def _strided(a, inner):
+    """(pointer, t stride, batch stride) of a [T', 1 or B, ...] operand
+    with ``inner`` elements per example and step; batch stride 0 for a
+    shared one."""
+    if a is None:
+        return None, 0, 0
+    return a.data_ptr(), a.shape[1] * inner, _batch_stride(a, inner)
+
+
+def fused_ilqr_long(dynamics, params, F, f, C, c, x0, u0, lb, ub, *, alphas,
+                    lqr_iter, eps, best_cost_eps, not_improved_lim):
+    """Run K3 on its operands (layouts as in ``fused_solve_long_plain``).
+
+    On the CPU this is ``fused_solve_long_plain``.  On a CUDA tensor it
+    allocates the [T, 8, B] workspace, launches
+    csrc/fused_ilqr_long.cu on the current stream and raises on any
+    operand the kernel does not take or on a launch error."""
+    kw = dict(alphas=alphas, lqr_iter=lqr_iter, eps=eps,
+              best_cost_eps=best_cost_eps,
+              not_improved_lim=not_improved_lim)
+    if x0.device.type == 'cpu':
+        return fused_solve_long_plain(dynamics, params, F, f, C, c, x0, u0,
+                                      lb, ub, **kw)
+    if x0.device.type != 'cuda':
+        raise NotImplementedError(f'K3 runs on cuda or cpu, not '
+                                  f'{x0.device.type}')
+    T, B = u0.shape
+    lindx = dynamics is None
+    has_bounds = lb is not None
+    ops = [a for a in (params, F, f, C, c, x0, u0, lb, ub) if a is not None]
+    for a in ops:
+        if a.dtype != torch.float32 or a.device != x0.device \
+                or not a.is_contiguous():
+            raise ValueError('K3 takes contiguous float32 operands on one '
+                             'device')
+    if (C.shape[0] != T or C.shape[2:] != (4, 4) or c.shape[0] != T
+            or c.shape[2:] != (4,) or C.shape[1] not in (1, B)
+            or c.shape[1] not in (1, B) or x0.shape != (B, 3)):
+        raise ValueError('K3 operand shapes do not match')
+    if lindx:
+        if (params is not None or F is None or F.shape[0] != T - 1
+                or F.shape[1] not in (1, B) or F.shape[2:] != (3, 4)
+                or (f is not None and (f.shape[0] != T - 1
+                                       or f.shape[1] not in (1, B)
+                                       or f.shape[2:] != (3,)))):
+            raise ValueError('K3 LinDx operand shapes do not match')
+    elif params is None or params.shape != (3,) or F is not None \
+            or f is not None:
+        raise ValueError('K3 pendulum operands do not match')
+    if has_bounds and (ub is None or lb.shape != ub.shape
+                       or lb.shape[0] != T or lb.shape[1] not in (1, B)):
+        raise ValueError('K3 bound shapes do not match')
+    if not 0 < len(alphas) <= MAX_ALPHA:
+        raise ValueError(f'K3 takes 1 to {MAX_ALPHA} step sizes')
+    fn, rows = _kernel_lib_long(lindx, has_bounds)
+    empty = functools.partial(torch.empty, dtype=torch.float32,
+                              device=x0.device)
+    x, u, stats = empty((T, B, 3)), empty((T, B, 1)), empty((6, B))
+    if B == 0:
+        return x, u, stats
+    # the current trajectory and the gains, [t, row, b]: a warp's 32
+    # examples share one 128-byte line per row
+    ws = empty((T, rows, B))
+    a_host = (ctypes.c_float * len(alphas))(*alphas)
+    lb_ptr, sbt, sbb = _strided(lb, 1)
+    with torch.cuda.device(x0.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(B, T, params.data_ptr() if params is not None else None,
+                 *_strided(F, 12), *_strided(f, 3), *_strided(C, 16),
+                 *_strided(c, 4), x0.data_ptr(), u0.data_ptr(),
+                 lb_ptr, ub.data_ptr() if has_bounds else None, sbt, sbb,
+                 a_host, len(alphas), int(lqr_iter), float(eps),
+                 float(best_cost_eps), float(not_improved_lim),
+                 ws.data_ptr(), x.data_ptr(), u.data_ptr(),
+                 stats.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f'K3 launch failed with cudaError_t {err}')
+    launch_counts['fused_ilqr_long'] += 1
+    return x, u, stats
+
+
+# ---------------------------------------------------------------------------
 # host-side launcher
 # ---------------------------------------------------------------------------
 
@@ -482,16 +875,22 @@ def _bound_operand(a, T, B, dtype, device):
     return a.contiguous()
 
 
-def k1_operands(cfg, x_init, cost: QuadCost, dynamics, u_init=None,
-                u_lower=None, u_upper=None) -> dict:
-    """K1's operands (the keyword arguments of ``fused_ilqr`` and
-    ``fused_solve_plain``) on x_init's device and dtype.
+def _dyn_operand(a, T, B, n_lead, dtype, device):
+    """A LinDx leaf, shared [T-1, ...] or batched [T-1, B, ...], to a
+    contiguous [T-1, 1 or B, ...]."""
+    a = torch.as_tensor(a, dtype=dtype, device=device)
+    if a.dim() == n_lead + 1:
+        a = a.unsqueeze(1)
+    if a.dim() != n_lead + 2 or a.shape[0] != T - 1 \
+            or a.shape[1] not in (1, B):
+        raise ValueError(f'unexpected LinDx shape {tuple(a.shape)} for '
+                         f'T={T}, B={B}')
+    return a.contiguous()
 
-    Layouts match learning.batched_solve: x_init [B, 3]; cost leaves
-    shared ([4, 4] / [T, 4, 4], [4] / [T, 4]) or batched ([T, B, ...]);
-    bounds scalar, [T, 1] or [T, B, 1]; u_init [T, 1] or [T, B, 1].
-    Shared operands keep a batch extent of 1 (batch stride 0 in the
-    kernel)."""
+
+def _problem_operands(cfg, x_init, cost, u_init, u_lower, u_upper) -> dict:
+    """The operands K1 and K3 share: cost, x0, u0, bounds, the line-search
+    schedule and the solver's scalars."""
     T = cfg.T
     dtype, device = x_init.dtype, x_init.device
     x0 = x_init.contiguous()
@@ -514,13 +913,56 @@ def k1_operands(cfg, x_init, cost: QuadCost, dynamics, u_init=None,
         # same Python floats in as float32 constants)
         alphas = torch.tensor(alphas, dtype=torch.float32).tolist()
     return dict(
-        dynamics=dynamics,
-        params=dynamics.params.to(device=device, dtype=dtype).contiguous(),
         C=_cost_operand(cost.C, T, B, 2, dtype, device),
         c=_cost_operand(cost.c, T, B, 1, dtype, device),
         x0=x0, u0=u0, lb=lb, ub=ub, alphas=alphas, lqr_iter=cfg.lqr_iter,
         eps=cfg.eps, best_cost_eps=cfg.best_cost_eps,
         not_improved_lim=float(cfg.not_improved_lim))
+
+
+def _pendulum_params(dynamics, x0):
+    return dynamics.params.to(device=x0.device, dtype=x0.dtype).contiguous()
+
+
+def k1_operands(cfg, x_init, cost: QuadCost, dynamics, u_init=None,
+                u_lower=None, u_upper=None) -> dict:
+    """K1's operands (the keyword arguments of ``fused_ilqr`` and
+    ``fused_solve_plain``) on x_init's device and dtype.
+
+    Layouts match learning.batched_solve: x_init [B, 3]; cost leaves
+    shared ([4, 4] / [T, 4, 4], [4] / [T, 4]) or batched ([T, B, ...]);
+    bounds scalar, [T, 1] or [T, B, 1]; u_init [T, 1] or [T, B, 1].
+    Shared operands keep a batch extent of 1 (batch stride 0 in the
+    kernel)."""
+    ops = _problem_operands(cfg, x_init, cost, u_init, u_lower, u_upper)
+    return dict(ops, dynamics=dynamics,
+                params=_pendulum_params(dynamics, ops['x0']))
+
+
+def k3_operands(cfg, x_init, cost: QuadCost, dynamics, u_init=None,
+                u_lower=None, u_upper=None) -> dict:
+    """K3's operands (the keyword arguments of ``fused_ilqr_long`` and
+    ``fused_solve_long_plain``), layouts as in ``k1_operands``.  A LinDx
+    (F [T-1, 3, 4] or [T-1, B, 3, 4]; f None, [T-1, 3] or [T-1, B, 3])
+    gives ``dynamics=None``, ``params=None``, F [T-1, 1 or B, 3, 4] and f
+    None or [T-1, 1 or B, 3]; the pendulum gives F = f = None.
+
+    Every leaf keeps its own layout: K3 reads each operand with its own
+    batch stride, so a shared F beside a batched f (or a shared C beside
+    a batched c) needs no broadcast, where the TPU kernel keys layouts
+    per pair and normalises a mixed pair to batched
+    (mpc_tpu/ops/fused.py:2021-2066)."""
+    ops = _problem_operands(cfg, x_init, cost, u_init, u_lower, u_upper)
+    if not isinstance(dynamics, LinDx):
+        return dict(ops, dynamics=dynamics, F=None, f=None,
+                    params=_pendulum_params(dynamics, ops['x0']))
+    T, B = ops['u0'].shape
+    dtype, device = x_init.dtype, x_init.device
+    f = dynamics.f
+    if f is not None:
+        f = _dyn_operand(f, T, B, 1, dtype, device)
+    return dict(ops, dynamics=None, params=None, f=f,
+                F=_dyn_operand(dynamics.F, T, B, 2, dtype, device))
 
 
 def solution_from_outputs(x, u, stats, eps) -> Solution:
@@ -533,9 +975,13 @@ def solution_from_outputs(x, u, stats, eps) -> Solution:
 
 def fused_batched_solve(cfg, x_init, cost: QuadCost, dynamics,
                         u_init=None, u_lower=None, u_upper=None) -> Solution:
-    """Batched solve through K1 on x_init's device (layouts as in
-    ``k1_operands``)."""
-    x, u, stats = fused_ilqr(**k1_operands(
-        cfg, x_init, cost, dynamics, u_init=u_init, u_lower=u_lower,
-        u_upper=u_upper))
+    """Batched solve through K1 or K3 (``routes_long``) on x_init's
+    device (layouts as in ``k1_operands`` and ``k3_operands``)."""
+    kw = dict(u_init=u_init, u_lower=u_lower, u_upper=u_upper)
+    if routes_long(dynamics, cfg.T):
+        x, u, stats = fused_ilqr_long(**k3_operands(cfg, x_init, cost,
+                                                    dynamics, **kw))
+    else:
+        x, u, stats = fused_ilqr(**k1_operands(cfg, x_init, cost, dynamics,
+                                               **kw))
     return solution_from_outputs(x, u, stats, cfg.eps)

@@ -1,5 +1,5 @@
-"""Fused KKT backward: kernel K2 for Hopper, its plain PyTorch version,
-and the batched fixed point whose backward runs it.
+"""Fused KKT backward: kernels K2 and K4 for Hopper, their plain PyTorch
+versions, and the batched fixed point whose backward runs them.
 
 Counterpart of mpc_tpu/ops/fused_bwd.py, whose ``_make_bwd_kernel``
 (mpc_tpu/ops/fused_bwd.py:251-410) differentiates the converged
@@ -9,21 +9,31 @@ rollout from dx_0 = 0, dC = -1/2 (dtau (x) tau + tau (x) dtau) and
 dc = -dtau, the costate and differential-costate recursions, then dF,
 df and dx_init (reference mpc/lqr_step.py:311-407).  There is no line
 search, no inner QP and no outer loop, so per example it is one short
-linear pass.
+linear pass.  ``_make_bwd_kernel_long`` (mpc_tpu/ops/fused_bwd.py:
+413-785) is the same function with the three passes as loops over per-t
+scratch, and with the gradients of batch-shared dynamics reduced in the
+kernel as those of a batch-shared cost are.
 
-On the H100 the same function is csrc/fused_kkt_bwd.cu with ONE EXAMPLE
-PER THREAD, as K1.  A batch-shared cost has its gradients reduced over
-the batch inside the kernel's source, deterministically: each block sums
-its threads in a fixed order and a second pass sums the blocks in order.
+On the H100 K2 is csrc/fused_kkt_bwd.cu with ONE EXAMPLE PER THREAD, as
+K1, and per-example dynamics.  K4 is csrc/fused_kkt_bwd_long.cu: the
+gains and differentials in a workspace in global memory that the
+wrapper allocates, T a run-time argument, and F shared or per example.
+A batch-shared cost or batch-shared dynamics have their gradients
+reduced over the batch inside the kernel's source, deterministically:
+each block sums its threads in a fixed order and a second pass sums the
+blocks in order.
 
-``fused_kkt_backward_plain`` is the plain version of that kernel: each
-kernel scalar is a [B] tensor and the arithmetic runs in the kernel's
-order (float32 or float64).  ``fused_kkt_backward`` runs it for tensors
-on the CPU; on a CUDA tensor it launches K2 or raises.
+``fused_kkt_backward_plain`` and ``fused_kkt_backward_long_plain`` are
+the plain versions of those kernels: each kernel scalar is a [B] tensor
+and the arithmetic runs in the kernels' order, which is one order
+(float32 or float64).  ``fused_kkt_backward`` and
+``fused_kkt_backward_long`` run them for tensors on the CPU; on a CUDA
+tensor they launch K2 or K4 or raise.
 
-Scope (``scope_gap_bwd``): n_ctrl = 1, batched dynamics (F per example),
-a QuadCost whose C and c are each shared or batched, T <= T_MAX_BWD,
-float32 on the card.
+Scope (``scope_gap_bwd``): n_state = 3, n_ctrl = 1, a QuadCost whose C
+and c are each shared or batched, dynamics per example (the pendulum's
+linearisation, a batched LinDx) or batch-shared (LinDx), any T, float32
+on the card.  ``bwd_routes_long`` says which kernel takes a backward.
 """
 
 from __future__ import annotations
@@ -37,18 +47,19 @@ from torch.autograd.function import once_differentiable
 
 from .diff import ACTIVE_TOL
 
-# Horizon limit.  K2 keeps 8*T floats per thread in local memory (the
-# gains K, k and the differentials dx, du of every step; the costate
+# K2's horizon limit.  K2 keeps 8*T floats per thread in local memory
+# (the gains K, k and the differentials dx, du of every step; the costate
 # pass consumes lambda on the fly, so it is never stored), and CUDA
 # reserves that much for every resident thread slot of the card (2048
 # per SM x 132 SMs).  At T = 512 that is 16 KB a thread, 4.4 GB in all:
-# the reservation K1 accepts at its own T_MAX = 256 (ops/fused.py).  So
-# every solve K1 runs can be differentiated.  The loops over t are not
-# unrolled, so nvcc's time does not grow with T.
+# the reservation K1 accepts at its own T_MAX = 256 (ops/fused.py).  The
+# loops over t are not unrolled, so nvcc's time does not grow with T.
+# Longer horizons go to K4, whose workspace is 16*T bytes per example of
+# the batch it is given.
 T_MAX_BWD = 512
 
-# One count per launch of K2 on the card, and nowhere else.
-launch_counts = {'fused_kkt_bwd': 0}
+# One count per launch of K2 and of K4 on the card, and nowhere else.
+launch_counts = {'fused_kkt_bwd': 0, 'fused_kkt_bwd_long': 0}
 
 
 def reset_launch_counts():
@@ -56,29 +67,39 @@ def reset_launch_counts():
         launch_counts[name] = 0
 
 
+def bwd_routes_long(T, dyn_shared) -> bool:
+    """THE K2-or-K4 routing predicate of the backward, shared by the
+    fixed point's dispatch and the tests (as ``_bwd_route_long`` is in
+    mpc_tpu/ops/fused_bwd.py:130-136).
+
+    K4 takes batch-shared dynamics, because K2's source reads F per
+    example and has no reduction of dF, df, and anything past
+    ``T_MAX_BWD``, which is K2's local-memory reservation.  K2 keeps the
+    rest, a per-example LinDx F included."""
+    return bool(dyn_shared) or T > T_MAX_BWD
+
+
 def scope_gap_bwd(T, n_ctrl=1, dtype=torch.float32,
                   device=torch.device('cpu')) -> Optional[str]:
-    """Why a differentiable solve is outside K2's scope, naming the
-    ROADMAP item that brings it; None when K2 (or its plain version on
-    the CPU) runs it."""
+    """Why a differentiable solve is outside the backward kernels' scope,
+    naming the ROADMAP item that brings it; None when K2 or K4
+    (``bwd_routes_long``), or its plain version on the CPU, runs it.  No
+    horizon is refused: K4's T is a run-time argument."""
     if n_ctrl != 1:
         return ('the backward of n_ctrl > 1 with the masked Cholesky waits '
-                'for ROADMAP queue 2 (K2 configurations)')
+                'for ROADMAP queue 2 (K2 and K4 configurations)')
     if dtype not in (torch.float32, torch.float64):
         return f'dtype {dtype} is not supported (float32 or float64)'
     if dtype == torch.float64 and device.type == 'cuda':
-        return ('float64 on the card waits for ROADMAP queue 2 (K2 '
+        return ('float64 on the card waits for ROADMAP queue 2 (K2 and K4 '
                 'configurations); float64 runs on the CPU with '
                 'device="cpu"')
-    if T > T_MAX_BWD:
-        return (f'T={T} exceeds K2\'s T_MAX_BWD={T_MAX_BWD}; longer '
-                'horizons wait for K4 (ROADMAP queue 2)')
     return None
 
 
 def supports_bwd(T, n_ctrl=1, dtype=torch.float32,
                  device=torch.device('cpu')) -> bool:
-    """Whether K2 runs this backward (see ``scope_gap_bwd``)."""
+    """Whether K2 or K4 runs this backward (see ``scope_gap_bwd``)."""
     return scope_gap_bwd(T, n_ctrl, dtype, device) is None
 
 
@@ -86,10 +107,12 @@ def supports_bwd(T, n_ctrl=1, dtype=torch.float32,
 # work and bytes of one launch (the kernel's bound)
 # ---------------------------------------------------------------------------
 
-def k2_flops(T, B, cost_shared, ns=3):
+def k2_flops(T, B, cost_shared, ns=3, *, dyn_shared=False, has_f=True):
     """Arithmetic operations of K2 for n_ctrl = 1 (each +, -, *, /
     counts one; compares and selects none), counted from
-    csrc/fused_kkt_bwd.cu.  The work does not depend on the data."""
+    csrc/fused_kkt_bwd.cu; with ``dyn_shared`` or without ``has_f`` those
+    of K4 (``k4_flops``), which runs the same passes.  The work does not
+    depend on the data."""
     ntau = ns + 1
     ric = (ns * ntau * (2 * ns - 1)                # W = V F
            + ntau * (ntau + 1) // 2 * 2 * ns       # Qt = C + F^T W
@@ -102,36 +125,58 @@ def k2_flops(T, B, cost_shared, ns=3):
     red = ntau * ntau + ntau if cost_shared else 0  # block and pass sums
     lam = 2 * ns * 2 * ntau                        # lam, dlam from C, c, r
     lam_f = 2 * ns * (2 * ns)                      # + F_x^T lam'
-    dyn = ns * ntau * 4 + ns                       # dF, df
+    n_df = ns if has_f else 0
+    dyn = ns * ntau * 4 + n_df                     # dF, df
+    red_dyn = ns * ntau + n_df if dyn_shared else 0
     per_t = ctrl + vv + roll_u + dcost + red + lam
-    per_link = ric + roll_x + lam_f + dyn          # t < T-1 only
+    per_link = ric + roll_x + lam_f + dyn + red_dyn  # t < T-1 only
     # + the negations of r at t = T-1 and of dlam_0 into dx_init
     return B * (T * per_t + (T - 1) * per_link + ntau + ns)
 
 
-def k2_bytes(C, c, F, x_star, I_mask):
-    """Bytes K2 must move on its operands: each input read once (shared
-    ones once for the whole batch) and each output written once."""
+def k4_flops(T, B, cost_shared, dyn_shared, has_f=True, ns=3):
+    """Arithmetic operations of K4, counted from
+    csrc/fused_kkt_bwd_long.cu (K2's passes, and the sums of dF, df for
+    batch-shared dynamics)."""
+    return k2_flops(T, B, cost_shared, ns, dyn_shared=dyn_shared,
+                    has_f=has_f)
+
+
+def k2_bytes(C, c, F, x_star, I_mask, has_f=True):
+    """Bytes K2 or K4 (``k4_bytes``) must move on its operands: each
+    input read once (shared ones once for the whole batch) and each
+    output written once (reduced gradients once for the whole batch; no
+    df for an absent f).  K4's workspace and the scratch of the
+    reductions are neither."""
     T, B, ns = x_star.shape
-    cost_shared = _cost_shared(C, c)
     ntau = ns + 1
     e = x_star.element_size()
     ins = (C.numel() + c.numel() + F.numel()
            + T * B * (2 * ntau)                    # r = (dl_dx, dl_du), x*, u*
            + (I_mask.numel() if I_mask is not None else 0))
-    cost_out = T * (ntau * ntau + ntau) * (1 if cost_shared else B)
-    outs = B * ns + cost_out + (T - 1) * B * (ns * ntau + ns)
-    return (ins + outs) * e
+    cost_out = T * (ntau * ntau + ntau) * (1 if _cost_shared(C, c) else B)
+    dyn_out = ((T - 1) * (ns * ntau + (ns if has_f else 0))
+               * (1 if _dyn_shared(F) else B))
+    return (ins + B * ns + cost_out + dyn_out) * e
+
+
+k4_bytes = k2_bytes
 
 
 # ---------------------------------------------------------------------------
-# the plain version of K2
+# the plain versions of K2 and K4
 # ---------------------------------------------------------------------------
 
 def _cost_shared(C, c):
-    """Whether K2 reduces the cost gradient over the batch: C and c both
-    shared (batch extent 1)."""
+    """Whether the kernels reduce the cost gradient over the batch: C and
+    c both shared (batch extent 1)."""
     return C.shape[1] == 1 and c.shape[1] == 1
+
+
+def _dyn_shared(F):
+    """Whether K4 reduces dF, df over the batch: F shared (batch extent
+    1).  f has no values in the backward, so F's layout is the pair's."""
+    return F.shape[1] == 1
 
 
 def _sum3(a, b):
@@ -143,20 +188,13 @@ def _sum3(a, b):
     return acc
 
 
-def fused_kkt_backward_plain(C, c, F, x_star, u_star, dl_dx, dl_du,
-                             I_mask=None, *, has_f=True):
-    """The plain PyTorch version of kernel K2, on the kernel's operands.
-
-    C [T, 1 or B, ntau, ntau], c [T, 1 or B, ntau] (extent 1: shared, read
-    for every example); F [T-1, B, ns, ntau]; x_star, dl_dx [T, B, ns];
-    u_star, dl_du [T, B, 1]; I_mask None or [T, B, 1] float (1.0 = control
-    pinned).  Returns (dx_init [B, ns], dC, dc, dF [T-1, B, ns, ntau],
-    df [T-1, B, ns]); dC, dc are [T, ntau, ntau], [T, ntau] summed over
-    the batch when C and c are both shared, else [T, B, ntau, ntau],
-    [T, B, ntau].  df is zero when ``has_f`` is
-    false.  Same arithmetic in the same order as csrc/fused_kkt_bwd.cu,
-    apart from the order of the batch sum.
-    """
+def _kkt_passes(C, c, F, x_star, u_star, dl_dx, dl_du, I_mask):
+    """The three passes K2 and K4 share, per example: returns dx_init
+    [B, ns], dC [T, B, ntau, ntau], dc [T, B, ntau], dF [T-1, B, ns,
+    ntau] and df [T-1, B, ns] before any batch sum.  C, c and F may have
+    a batch extent of 1 (shared, read for every example).  Same
+    arithmetic in the same order as csrc/fused_kkt_bwd.cu and
+    csrc/fused_kkt_bwd_long.cu."""
     T, B, ns = x_star.shape
     nt = ns + 1
     zero = x_star.new_zeros(B)
@@ -233,12 +271,10 @@ def fused_kkt_backward_plain(C, c, F, x_star, u_star, dl_dx, dl_du,
             dx = [_sum3(Fl[t][i], d) for i in range(ns)]
     dC = torch.stack(dC_t, 0)
     dc = torch.stack(dc_t, 0)
-    if _cost_shared(C, c):
-        dC, dc = dC.sum(1), dc.sum(1)
 
     # ---- costate recursions, dF and df on the fly ---------------------
     dF = x_star.new_empty((T - 1, B, ns, nt))
-    df = x_star.new_zeros((T - 1, B, ns))
+    df = x_star.new_empty((T - 1, B, ns))
     lam_n = dlam_n = None
     for t in range(T - 1, -1, -1):
         Ct = Cl[t]
@@ -252,8 +288,7 @@ def fused_kkt_backward_plain(C, c, F, x_star, u_star, dl_dx, dl_du,
                 for j in range(nt):
                     dF[t, :, i, j] = -(dlam_n[i] * tau[t][j]
                                        + lam_n[i] * dtau[t][j])
-                if has_f:
-                    df[t, :, i] = -dlam_n[i]
+                df[t, :, i] = -dlam_n[i]
             lam = [lam[i] + _sum3([Ft[kk][i] for kk in range(ns)], lam_n)
                    for i in range(ns)]
             dlam = [dlam[i] + _sum3([Ft[kk][i] for kk in range(ns)], dlam_n)
@@ -261,6 +296,47 @@ def fused_kkt_backward_plain(C, c, F, x_star, u_star, dl_dx, dl_du,
         lam_n, dlam_n = lam, dlam
     dx_init = torch.stack([-dlam_n[i] for i in range(ns)], -1)
     return dx_init, dC, dc, dF, df
+
+
+def fused_kkt_backward_plain(C, c, F, x_star, u_star, dl_dx, dl_du,
+                             I_mask=None, *, has_f=True):
+    """The plain PyTorch version of kernel K2, on the kernel's operands.
+
+    C [T, 1 or B, ntau, ntau], c [T, 1 or B, ntau] (extent 1: shared, read
+    for every example); F [T-1, B, ns, ntau]; x_star, dl_dx [T, B, ns];
+    u_star, dl_du [T, B, 1]; I_mask None or [T, B, 1] float (1.0 = control
+    pinned).  Returns (dx_init [B, ns], dC, dc, dF [T-1, B, ns, ntau],
+    df [T-1, B, ns]); dC, dc are [T, ntau, ntau], [T, ntau] summed over
+    the batch when C and c are both shared, else [T, B, ntau, ntau],
+    [T, B, ntau].  df is zero when ``has_f`` is
+    false.  Same arithmetic in the same order as csrc/fused_kkt_bwd.cu,
+    apart from the order of the batch sum.
+    """
+    dx_init, dC, dc, dF, df = _kkt_passes(C, c, F, x_star, u_star, dl_dx,
+                                          dl_du, I_mask)
+    if _cost_shared(C, c):
+        dC, dc = dC.sum(1), dc.sum(1)
+    return dx_init, dC, dc, dF, df if has_f else torch.zeros_like(df)
+
+
+def fused_kkt_backward_long_plain(C, c, F, x_star, u_star, dl_dx, dl_du,
+                                  I_mask=None, *, has_f=True):
+    """The plain PyTorch version of kernel K4, on the kernel's operands:
+    those of ``fused_kkt_backward_plain`` with F [T-1, 1 or B, ns, ntau].
+
+    Returns (dx_init, dC, dc, dF, df) as K2's plain version does, and for
+    a shared F (extent 1) dF [T-1, ns, ntau] and df [T-1, ns] summed over
+    the batch.  df is None when ``has_f`` is false: an absent f has no
+    gradient.  Same arithmetic in the same order as
+    csrc/fused_kkt_bwd_long.cu, apart from the order of the batch sums.
+    """
+    dx_init, dC, dc, dF, df = _kkt_passes(C, c, F, x_star, u_star, dl_dx,
+                                          dl_du, I_mask)
+    if _cost_shared(C, c):
+        dC, dc = dC.sum(1), dc.sum(1)
+    if _dyn_shared(F):
+        dF, df = dF.sum(1), df.sum(1)
+    return dx_init, dC, dc, dF, df if has_f else None
 
 
 # ---------------------------------------------------------------------------
@@ -356,21 +432,145 @@ def fused_kkt_backward(C, c, F, x_star, u_star, dl_dx, dl_du, I_mask=None,
 
 
 # ---------------------------------------------------------------------------
+# K4's wrapper
+# ---------------------------------------------------------------------------
+
+_ARGTYPES_LONG = [
+    ctypes.c_int, ctypes.c_int,            # B, T
+    _P, _I64, _I64,                        # C, t stride, batch stride
+    _P, _I64, _I64,                        # c, t stride, batch stride
+    _P, _I64, _I64,                        # F, t stride, batch stride
+    _P, _P, _P, _P, _P,                    # dl_dx, dl_du, x*, u*, I
+    _P,                                    # workspace
+    _P, _P, _P, _P, _P,                    # dx_init, dC, dc, dF, df
+    _P, _P,                                # cost partials, dynamics partials
+    _P,                                    # stream
+]
+
+
+def long_kernel_defines(cost_shared, dyn_shared) -> dict:
+    """The nvcc defines of the K4 build for these layouts."""
+    return {'MPC_COST_SHARED': int(cost_shared),
+            'MPC_DYN_SHARED': int(dyn_shared)}
+
+
+def _kernel_lib_long(cost_shared, dyn_shared):
+    from . import _build
+    lib = _build.load('fused_kkt_bwd_long',
+                      long_kernel_defines(cost_shared, dyn_shared))
+    fn = lib.mpc_fused_kkt_bwd_long
+    if fn.argtypes is None:
+        fn.argtypes = _ARGTYPES_LONG
+        fn.restype = ctypes.c_int
+        lib.mpc_fused_kkt_bwd_long_threads.restype = ctypes.c_int
+    return fn, lib.mpc_fused_kkt_bwd_long_threads()
+
+
+def _strided(a, inner):
+    """(pointer, t stride, batch stride) of a [T', 1 or B, ...] operand
+    with ``inner`` elements per example and step; batch stride 0 for a
+    shared one."""
+    return (a.data_ptr(), a.shape[1] * inner,
+            0 if a.shape[1] == 1 else inner)
+
+
+def fused_kkt_backward_long(C, c, F, x_star, u_star, dl_dx, dl_du,
+                            I_mask=None, *, has_f=True):
+    """Run K4 on its operands (layouts as in
+    ``fused_kkt_backward_long_plain``).
+
+    On the CPU this is ``fused_kkt_backward_long_plain``.  On a CUDA
+    tensor it allocates the workspace and the scratch of the reductions,
+    launches csrc/fused_kkt_bwd_long.cu on the current stream and raises
+    on any operand the kernel does not take or on a launch error."""
+    if x_star.device.type == 'cpu':
+        return fused_kkt_backward_long_plain(C, c, F, x_star, u_star, dl_dx,
+                                             dl_du, I_mask, has_f=has_f)
+    if x_star.device.type != 'cuda':
+        raise NotImplementedError(f'K4 runs on cuda or cpu, not '
+                                  f'{x_star.device.type}')
+    T, B, ns = x_star.shape
+    has_I = I_mask is not None
+    ops = [C, c, F, x_star, u_star, dl_dx, dl_du] + ([I_mask] if has_I
+                                                    else [])
+    for a in ops:
+        if a.dtype != torch.float32 or a.device != x_star.device \
+                or not a.is_contiguous():
+            raise ValueError('K4 takes contiguous float32 operands on one '
+                             'device')
+    if (ns != 3 or C.shape[0] != T or C.shape[2:] != (4, 4)
+            or c.shape[0] != T or c.shape[2:] != (4,)
+            or C.shape[1] not in (1, B) or c.shape[1] not in (1, B)
+            or F.shape[0] != T - 1 or F.shape[1] not in (1, B)
+            or F.shape[2:] != (3, 4)
+            or u_star.shape != (T, B, 1) or dl_dx.shape != (T, B, 3)
+            or dl_du.shape != (T, B, 1)
+            or (has_I and I_mask.shape != (T, B, 1))):
+        raise ValueError('K4 operand shapes do not match')
+    cost_shared, dyn_shared = _cost_shared(C, c), _dyn_shared(F)
+    fn, threads = _kernel_lib_long(cost_shared, dyn_shared)
+    dev = x_star.device
+    empty = functools.partial(torch.empty, dtype=torch.float32, device=dev)
+    dxi = empty((B, 3))
+    dC = empty((T, 4, 4) if cost_shared else (T, B, 4, 4))
+    dc = empty((T, 4) if cost_shared else (T, B, 4))
+    dF = empty((T - 1, 3, 4) if dyn_shared else (T - 1, B, 3, 4))
+    df = None
+    if has_f:
+        df = empty((T - 1, 3) if dyn_shared else (T - 1, B, 3))
+    if B == 0:
+        if cost_shared:
+            dC.zero_(), dc.zero_()
+        if dyn_shared:
+            dF.zero_()
+            if has_f:
+                df.zero_()
+        return dxi, dC, dc, dF, df
+    n_blocks = -(-B // threads)
+    # K, k and then dx, du of every step, [t, row, b] with the batch
+    # padded to whole blocks; and the per-block partial sums of the
+    # shared gradients, summed in block order by the kernel's second pass
+    ws = empty((T, 4, n_blocks * threads))
+    part_cost = empty((n_blocks, T, 20)) if cost_shared else None
+    part_dyn = empty((n_blocks, T - 1, 15)) if dyn_shared else None
+
+    def ptr(a):
+        return a.data_ptr() if a is not None else None
+
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(B, T, *_strided(C, 16), *_strided(c, 4), *_strided(F, 12),
+                 dl_dx.data_ptr(), dl_du.data_ptr(), x_star.data_ptr(),
+                 u_star.data_ptr(), ptr(I_mask), ws.data_ptr(),
+                 dxi.data_ptr(), dC.data_ptr(), dc.data_ptr(),
+                 dF.data_ptr(), ptr(df), ptr(part_cost), ptr(part_dyn),
+                 stream)
+    if err != 0:
+        raise RuntimeError(f'K4 launch failed with cudaError_t {err}')
+    launch_counts['fused_kkt_bwd_long'] += 1
+    return dxi, dC, dc, dF, df
+
+
+# ---------------------------------------------------------------------------
 # the batched fixed point
 # ---------------------------------------------------------------------------
 
-def _kernel_cost(a, n_trailing):
-    """A shared [T, ...] or batched [T, B, ...] cost leaf as K2's
-    [T, 1 or B, ...] operand."""
+def _kernel_leaf(a, n_trailing, batched_shape=None):
+    """A shared [T', ...] or batched [T', B, ...] leaf as the kernels'
+    [T', 1 or B, ...] operand; with ``batched_shape`` a shared leaf is
+    broadcast to it (its pair's other leaf is batched, and the kernels
+    key a pair's reduction on both)."""
     if a.dim() == n_trailing + 1:
         a = a.unsqueeze(1)
+        if batched_shape is not None:
+            a = a.expand(batched_shape)
     return a.contiguous()
 
 
 def _to_leaf(g, leaf):
-    """K2's cost gradient in the layout of its leaf: summed over the batch
-    for a shared leaf [T, ...] beside a batched one, and reshaped where K2
-    reduced a batch of one."""
+    """A kernel's gradient in the layout of its leaf: summed over the
+    batch for a shared leaf [T', ...] whose pair was batched, and
+    reshaped where the kernel reduced a batch of one."""
     if g.dim() > leaf.dim():
         g = g.sum(1)
     return g.reshape(leaf.shape)
@@ -392,24 +592,26 @@ def make_batched_fixed_point(n_state: int, has_bounds: bool, has_f: bool):
 
     ``apply(x_init, C, c, F, f, u_lower, u_upper, x_star, u_star)`` passes
     the converged x_star [T, B, n_state] and u_star [T, B, 1] through.
-    Its backward runs K2 over the whole batch and returns gradients for
-    x_init [B, n_state], C, c, F [T-1, B, n_state, ntau] and f (None when
-    ``has_f`` is false) in their own layouts: a shared leaf C [T, ntau,
-    ntau] or c [T, ntau] gets the gradient summed over the batch (by K2
-    itself when both are shared), a batched leaf [T, B, ...] a
-    per-example one.  Bounds (broadcastable to u_star, or None without
-    ``has_bounds``) get zeros, the reference's gradient; x_star and
-    u_star get none.
+    Its backward runs K2 or K4 (``bwd_routes_long``) over the whole batch
+    and returns gradients for x_init [B, n_state], C, c, F and f (None
+    when ``has_f`` is false) in their own layouts: a shared leaf C
+    [T, ntau, ntau], c [T, ntau], F [T-1, n_state, ntau] or f
+    [T-1, n_state] gets the gradient summed over the batch (by the kernel
+    itself when both leaves of its pair are shared), a batched leaf
+    [T, B, ...] a per-example one.  Bounds (broadcastable to u_star, or
+    None without ``has_bounds``) get zeros, the reference's gradient;
+    x_star and u_star get none.
     """
     if n_state != 3:
-        raise NotImplementedError('K2 covers n_state = 3 (the pendulum); '
-                                  'other models wait for ROADMAP queue 1 '
-                                  'item 8')
+        raise NotImplementedError('K2 and K4 cover n_state = 3; other '
+                                  'sizes wait for ROADMAP queue 1 item 8')
 
     class BatchedFixedPoint(torch.autograd.Function):
         @staticmethod
         def forward(ctx, x_init, C, c, F, f, u_lower, u_upper, x_star,
                     u_star):
+            # f has no values in the backward; its shape says where df goes
+            ctx.f_shape = f.shape if has_f else None
             ctx.save_for_backward(C, c, F, u_lower if has_bounds else None,
                                   u_upper if has_bounds else None, x_star,
                                   u_star)
@@ -421,14 +623,27 @@ def make_batched_fixed_point(n_state: int, has_bounds: bool, has_f: bool):
         @once_differentiable
         def backward(ctx, dl_dx, dl_du):
             C, c, F, lb, ub, x_star, u_star = ctx.saved_tensors
+            T, B, ns = x_star.shape
             I_mask = active_set(u_star, lb, ub) if has_bounds else None
-            dxi, dC, dc, dF, df = fused_kkt_backward(
-                _kernel_cost(C, 2), _kernel_cost(c, 1), F.contiguous(),
-                x_star.contiguous(), u_star.contiguous(),
+            cost_shared = C.dim() == 3 and c.dim() == 2
+            dyn_shared = F.dim() == 3 and (not has_f
+                                           or len(ctx.f_shape) == 2)
+            Ck = _kernel_leaf(C, 2, None if cost_shared
+                              else (T, B, ns + 1, ns + 1))
+            ck = _kernel_leaf(c, 1, None if cost_shared else (T, B, ns + 1))
+            Fk = _kernel_leaf(F, 2, None if dyn_shared
+                              else (T - 1, B, ns, ns + 1))
+            run = (fused_kkt_backward_long if bwd_routes_long(T, dyn_shared)
+                   else fused_kkt_backward)
+            dxi, dC, dc, dF, df = run(
+                Ck, ck, Fk, x_star.contiguous(), u_star.contiguous(),
                 dl_dx.contiguous(), dl_du.contiguous(), I_mask, has_f=has_f)
             dlb, dub = (torch.zeros_like(b) if need else None for b, need in
                         zip((lb, ub), ctx.needs_input_grad[5:7]))
-            return (dxi, _to_leaf(dC, C), _to_leaf(dc, c), dF,
+            if has_f:
+                df = df.sum(1) if df.dim() > len(ctx.f_shape) else df
+                df = df.reshape(ctx.f_shape)
+            return (dxi, _to_leaf(dC, C), _to_leaf(dc, c), _to_leaf(dF, F),
                     df if has_f else None, dlb, dub, None, None)
 
     return BatchedFixedPoint

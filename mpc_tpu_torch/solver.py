@@ -2,7 +2,7 @@
 of mpc_tpu/solver.py:35-147).
 
 ``rollout``, ``trajectory_cost``, ``linearize_dynamics`` and
-``quadratize_cost`` are ported; the eager iLQR solver (``solve_single``)
+``quadratize_cost`` are ported, for the pendulum and for LinDx; the eager iLQR solver (``solve_single``)
 waits for ROADMAP queue 1 item 3.  The functions take any leading batch
 shape: x_init [..., n_state], x [T, ..., n_state] and u [T, ..., n_ctrl].
 They are written with elementwise products and sums, never ``matmul`` or
@@ -15,21 +15,32 @@ from __future__ import annotations
 import torch
 
 from .models.pendulum import PendulumDx
-from .types import GradMethods, QuadCost
+from .types import GradMethods, LinDx, QuadCost
 
 # central-difference step of GradMethods.FINITE_DIFF
 # (mpc_tpu/solver.py:97, reference mpc/util.py:8-18)
 FD_EPS = 1e-4
 
 
+def lin_dx_step(dynamics: LinDx, t, x, u):
+    """x_{t+1} = F_t (x, u) + f_t for a LinDx whose leaves are shared
+    ([T-1, ...], any leading batch shape of x) or batched ([T-1, B, ...]
+    against x [B, n_state])."""
+    tau = torch.cat([x, u], -1)
+    nxt = (dynamics.F[t] * tau.unsqueeze(-2)).sum(-1)
+    return nxt if dynamics.f is None else nxt + dynamics.f[t]
+
+
 def rollout(dynamics, x_init, u):
-    """Roll the dynamics (a callable (x, u) -> x_next) along a control
-    sequence (reference mpc/util.py:102-126).  Returns x [T, ..., n_state],
-    whose first slice is x_init.  LinDx rollouts come with the eager
-    solver (ROADMAP queue 1 item 3)."""
+    """Roll the dynamics (a callable (x, u) -> x_next, or a LinDx) along
+    a control sequence (reference mpc/util.py:102-126).  Returns
+    x [T, ..., n_state], whose first slice is x_init."""
     xs = [x_init]
     for t in range(u.shape[0] - 1):
-        xs.append(dynamics(xs[t], u[t]))
+        if isinstance(dynamics, LinDx):
+            xs.append(lin_dx_step(dynamics, t, xs[t], u[t]))
+        else:
+            xs.append(dynamics(xs[t], u[t]))
     return torch.stack(xs, 0)
 
 
@@ -61,17 +72,21 @@ def linearize_dynamics(dynamics, x, u, grad_method: GradMethods):
 
     Returns F [T-1, ..., n_state, n_tau] and f [T-1, ..., n_state] with
     the residual f_t = step(x_t, u_t) - R_t x_t - S_t u_t, differentiable
-    with respect to the model's parameters.  For ``PendulumDx(simple=
-    True)`` AUTO_DIFF and ANALYTIC take the hand-written Jacobian of the
-    step (``step_jacobian``; the JAX pendulum has no ``grad_input``, so
-    both take ``jax.jacrev`` there) and FINITE_DIFF central differences
-    of ``forward`` with step ``FD_EPS``.
+    with respect to the model's parameters.  A ``LinDx`` is its own
+    linearisation whatever the ``grad_method``: its F and f come back as
+    given, shared or batched, f None when it has none
+    (mpc_tpu/solver.py:87-88).  For ``PendulumDx(simple=True)``
+    AUTO_DIFF and ANALYTIC take the hand-written Jacobian of the step
+    (``step_jacobian``; the JAX pendulum has no ``grad_input``, so both
+    take ``jax.jacrev`` there) and FINITE_DIFF central differences of
+    ``forward`` with step ``FD_EPS``.
     """
+    if isinstance(dynamics, LinDx):
+        return dynamics.F, dynamics.f
     if not isinstance(dynamics, PendulumDx) or not dynamics.simple:
         raise NotImplementedError(
-            'linearize_dynamics covers PendulumDx(simple=True); LinDx '
-            'waits for ROADMAP queue 2 (K1 configurations), other models '
-            'for queue 1 item 8')
+            'linearize_dynamics covers LinDx and PendulumDx(simple=True); '
+            'other models wait for ROADMAP queue 1 item 8')
     xs, us = x[:-1], u[:-1]
     ns = xs.shape[-1]
     new_x = dynamics(xs, us)

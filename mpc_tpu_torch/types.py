@@ -30,9 +30,11 @@ class QuadCost(NamedTuple):
 class LinDx(NamedTuple):
     """Linear dynamics x' = F @ (x, u) + f.
 
-    F: [T-1, n_state, n_tau] (or [T-1, B, ...]); f: [T-1, n_state] or
-    None.  The port's solver does not take it yet: the front end
-    recognises it and refuses it (ROADMAP queue 2, K1).
+    F: [T-1, n_state, n_tau] shared or [T-1, B, n_state, n_tau] batched;
+    f: [T-1, n_state], [T-1, B, n_state] or None.  F and f are shared or
+    batched independently of each other.  The forward solve runs in the
+    streaming kernel K3; the backward in K4 when both are shared, else in
+    K2 (ops/fused.py:routes_long, ops/fused_bwd.py:bwd_routes_long).
     """
     F: torch.Tensor = None
     f: Optional[torch.Tensor] = None

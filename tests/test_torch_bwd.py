@@ -343,7 +343,10 @@ def test_scope_gap_bwd():
     cuda = torch.device('cuda')
     assert fused_bwd.supports_bwd(10)
     assert fused_bwd.supports_bwd(fused_bwd.T_MAX_BWD, dtype=torch.float64)
-    assert 'T_MAX_BWD' in fused_bwd.scope_gap_bwd(fused_bwd.T_MAX_BWD + 1)
+    # past K2's horizon the backward is K4's
+    assert fused_bwd.supports_bwd(fused_bwd.T_MAX_BWD + 1)
+    assert fused_bwd.bwd_routes_long(fused_bwd.T_MAX_BWD + 1, False)
+    assert not fused_bwd.bwd_routes_long(fused_bwd.T_MAX_BWD, False)
     assert 'ROADMAP' in fused_bwd.scope_gap_bwd(10, n_ctrl=2)
     assert 'float64' in fused_bwd.scope_gap_bwd(10, dtype=torch.float64,
                                                 device=cuda)

@@ -1,4 +1,4 @@
-"""Kernels K1 and K2 on the card against their plain PyTorch versions.
+"""Kernels K1 to K4 on the card against their plain PyTorch versions.
 
 Needs a CUDA card (and nvcc); skips without one.  tests/conftest.py
 imports JAX, which the card's machine does not have, so run this file
@@ -20,7 +20,17 @@ problem: the largest |difference| of each gradient over its largest
 entry below 1e-4 (nvcc's FMA contraction is the only difference; K2 has
 no branch that rounding can flip, as the active set is an input), and
 the kernel's mean distance to a float64 plain run at most twice the
-plain float32 run's.  This file imports nothing of JAX.
+plain float32 run's.
+
+K3 (the streaming solve) is held on a stable LinDx box problem, where
+two float32 runs part only in the few examples whose line search ties to
+round-off (measured at B=1024: max |du| 2.3e-3 in such an example):
+mean |du| < 1e-5 and under 0.1% of entries off by more than 5e-5, the
+tolerance tests/test_fused_stream.py holds every entry of the TPU kernel
+to at B=16; and on the pendulum past K1's horizon against the float64
+plain run, as K1 at T_MAX.  K4 (the streaming KKT backward) is held as K2 is, for the four
+mixes of shared and batched cost and dynamics, with and without f, and
+past K2's horizon.  This file imports nothing of JAX.
 """
 
 import numpy as np
@@ -185,3 +195,110 @@ def test_differentiable_solve_launches_k1_and_k2(cuda):
     (sol.u ** 2).sum().backward()
     assert fused_bwd.launch_counts['fused_kkt_bwd'] == k2 + 1
     assert torch.isfinite(c.grad).all() and c.grad.abs().sum() > 0
+
+
+# ---------------------------------------------------------------------------
+# the streaming kernels K3 and K4
+# ---------------------------------------------------------------------------
+
+def _lindx_problem(device, T, B, batched, has_f, seed=0):
+    """A stable rotation-like system (0.97 x an orthogonal matrix) with a
+    random input column, per-example costs, as
+    tests/test_fused_stream.py's LinDx problems."""
+    rng = np.random.RandomState(seed)
+    Qo, _ = np.linalg.qr(rng.randn(3, 3))
+    F = np.tile(np.concatenate([0.97 * Qo, 0.3 * rng.randn(3, 1)], 1),
+                (T - 1, 1, 1))
+    f = 0.05 * rng.randn(T - 1, 3) if has_f else None
+    if batched:
+        F = F[:, None] + 0.01 * rng.randn(T - 1, B, 3, 4)
+    C = np.tile(np.eye(4), (T, B, 1, 1))
+    C[:, :, 3, 3] = 0.1 + rng.rand(B)
+    c = 0.3 * rng.randn(T, B, 4)
+
+    def t(a):
+        return None if a is None else torch.tensor(
+            a, dtype=torch.float32, device=device)
+    return t(rng.randn(B, 3)), mt.LinDx(t(F), t(f)), mt.QuadCost(t(C), t(c))
+
+
+@pytest.mark.parametrize('T,B,batched,has_f', [
+    (140, 1024, False, False), (140, 2050, True, True),
+    (600, 128, False, True)])
+def test_k3_matches_plain_lindx(cuda, T, B, batched, has_f):
+    x0, dyn, cost = _lindx_problem(cuda, T, B, batched, has_f)
+    cfg = _cfg(T, lqr_iter=3, max_linesearch_iter=3, linesearch_decay=0.2)
+    ops = fused.k3_operands(cfg, x0, cost, dyn, u_lower=-0.6, u_upper=0.6)
+    xk, uk, sk = fused.fused_ilqr_long(**ops)
+    xp, up, sp = fused.fused_solve_long_plain(**ops)
+    assert torch.isfinite(xk).all() and torch.isfinite(uk).all()
+    for a, b in ((uk, up), (xk, xp)):
+        d = (a - b).abs()
+        assert float(d.mean()) < 1e-5, float(d.mean())
+        assert float((d > 5e-5).double().mean()) < 1e-3
+    assert torch.equal(sk[2], sp[2])          # n_iter
+    assert torch.equal(sk[3], sp[3])          # n_qp_iter
+
+
+def test_k3_matches_plain_pendulum_past_t_max(cuda):
+    T, B = fused.T_MAX + 44, 256
+    x0, dx, cost = _problem(cuda, B, T)
+    cfg = _cfg(T, lqr_iter=2, max_linesearch_iter=2, linesearch_decay=0.2)
+    ops = fused.k3_operands(cfg, x0, cost, dx, u_lower=-2.0, u_upper=2.0)
+    xk, uk, sk = fused.fused_ilqr_long(**ops)
+    _, up, sp = fused.fused_solve_long_plain(**ops)
+    dx64 = PendulumDx(device=cuda, dtype=torch.float64)
+    cost64 = mt.QuadCost(cost.C.double(), cost.c.double())
+    _, u64, _ = fused.fused_solve_long_plain(**fused.k3_operands(
+        cfg, x0.double(), cost64, dx64, u_lower=-2.0, u_upper=2.0))
+    assert torch.isfinite(xk).all() and torch.isfinite(uk).all()
+    k_far = float((uk.double() - u64).abs().mean())
+    p_far = float((up.double() - u64).abs().mean())
+    assert k_far <= 2 * p_far + 1e-6, (k_far, p_far)
+    assert torch.equal(sk[2], sp[2])
+
+
+@pytest.mark.parametrize('has_f', [True, False])
+@pytest.mark.parametrize('dyn_shared', [True, False])
+@pytest.mark.parametrize('cost_shared', [True, False])
+@pytest.mark.parametrize('T,B', [(160, 2050), (fused_bwd.T_MAX_BWD + 88, 128)])
+def test_k4_matches_plain(cuda, T, B, cost_shared, dyn_shared, has_f):
+    ops = _bwd_problem(cuda, T, B, cost_shared, True)
+    if dyn_shared:
+        ops['F'] = ops['F'][:, :1].contiguous()
+    got = fused_bwd.fused_kkt_backward_long(**ops, has_f=has_f)
+    ref = fused_bwd.fused_kkt_backward_long_plain(**ops, has_f=has_f)
+    ops64 = {k: None if v is None else v.double() for k, v in ops.items()}
+    ref64 = fused_bwd.fused_kkt_backward_long_plain(**ops64, has_f=has_f)
+    assert (got[4] is None) == (not has_f)
+    for a, b, r in zip(got, ref, ref64):
+        if a is None:
+            continue
+        assert a.shape == b.shape and torch.isfinite(a).all()
+        scale = float(b.abs().max())
+        assert float((a - b).abs().max()) <= 1e-4 * scale
+        k_far = float((a.double() - r).abs().mean())
+        p_far = float((b.double() - r).abs().mean())
+        assert k_far <= 2 * p_far + 1e-7 * scale, (k_far, p_far)
+
+
+def test_differentiable_lindx_solve_launches_k3_and_k4(cuda):
+    """On the default device a differentiable solve of a shared LinDx
+    runs K3 forward and K4 once per backward, and gradients reach c, F
+    and f."""
+    T, B = 160, 256
+    x0, dyn, cost = _lindx_problem(cuda, T, B, False, True)
+    cfg = _cfg(T, backprop=True, detach_unconverged=False,
+               max_linesearch_iter=3, linesearch_decay=0.2)
+    c, F, f = (a.clone().requires_grad_() for a in (cost.c, dyn.F, dyn.f))
+    fused.reset_launch_counts()
+    fused_bwd.reset_launch_counts()
+    sol = mt.batched_solve(cfg, x0, mt.QuadCost(cost.C, c), mt.LinDx(F, f),
+                           u_lower=-0.6, u_upper=0.6)
+    assert fused.launch_counts == {'fused_ilqr': 0, 'fused_ilqr_long': 1}
+    (sol.u ** 2).sum().backward()
+    assert fused_bwd.launch_counts == {'fused_kkt_bwd': 0,
+                                       'fused_kkt_bwd_long': 1}
+    for g, leaf in ((c.grad, c), (F.grad, F), (f.grad, f)):
+        assert g.shape == leaf.shape
+        assert torch.isfinite(g).all() and g.abs().sum() > 0

@@ -98,15 +98,50 @@ OUT_OF_SCOPE = {
     'verbose': dict(verbose=1),
     'analytic_check': dict(grad_method=mt.GradMethods.ANALYTIC_CHECK),
     'eager_solver': dict(use_fused='never'),
-    'long_horizon': dict(T=fused.T_MAX + 1),
 }
 
 
 @pytest.mark.parametrize('case', list(OUT_OF_SCOPE))
 def test_out_of_scope_knobs_raise(case):
-    with pytest.raises(NotImplementedError, match='ROADMAP|T_MAX'):
+    with pytest.raises(NotImplementedError, match='ROADMAP'):
         _one_solve(backprop=False, exit_unconverged=False,
                    **OUT_OF_SCOPE[case])
+
+
+def _solve_long_horizon():
+    """The pendulum one step past K1's horizon limit: the streaming
+    solve (K3's plain version here) takes it."""
+    T = fused.T_MAX + 1
+    x, u, costs = _one_solve(T=T, u_lower=-2., u_upper=2., lqr_iter=1,
+                             backprop=False, exit_unconverged=False)
+    return T, 1, x, u, costs
+
+
+def _solve_lindx():
+    """A LinDx with F and f, handed to ``batched_solve``."""
+    T, B = 5, 2
+    rng = np.random.RandomState(0)
+    F = np.tile(np.concatenate([0.9 * np.eye(3), 0.3 * np.ones((3, 1))], 1),
+                (T - 1, 1, 1))
+    sol = mt.batched_solve(
+        _cfg(lqr_iter=2, exit_unconverged=False), torch.tensor(_x0(B)),
+        quad_cost_from_numpy(np.diag(Q), P, 'cpu'),
+        lin_dx_from_numpy(F, 0.1 * rng.randn(T - 1, 3), 'cpu'),
+        u_lower=-2., u_upper=2., device='cpu')
+    return T, B, sol.x, sol.u, sol.costs
+
+
+@pytest.mark.parametrize('solve', [_solve_long_horizon, _solve_lindx],
+                         ids=['long_horizon', 'lindx'])
+def test_streaming_route_problems_solve(solve):
+    """Problems that route to the streaming solve (K3's plain version
+    here): finite values of the expected shapes inside the box."""
+    T, B, x, u, costs = solve()
+    assert x.shape == (T, B, 3) and u.shape == (T, B, 1)
+    assert costs.shape == (B,)
+    for a in (x, u, costs):
+        assert torch.isfinite(a).all()
+    assert float(u.abs().max()) <= 2.0
 
 
 def _cfg(**kw):
@@ -121,8 +156,8 @@ def test_out_of_scope_problems_raise():
     cost = quad_cost_from_numpy(np.diag(Q), P, 'cpu')
     dx = pendulum_from_numpy(PARAMS, device='cpu')
     cases = [
-        (_cfg(), cost, lin_dx_from_numpy(np.zeros((T - 1, 3, 4)),
-                                         np.zeros((T - 1, 3)), 'cpu')),
+        (_cfg(), cost, lin_dx_from_numpy(np.zeros((T - 1, 2, 3, 4, 1)),
+                                         None, 'cpu')),
         (_cfg(), cost, PendulumDx(simple=False, device='cpu',
                                   dtype=torch.float64)),
         (_cfg(n_ctrl=2), quad_cost_from_numpy(np.eye(5), np.zeros(5),
@@ -205,6 +240,7 @@ def test_port_imports_nothing_of_jax():
         '          "mpc_tpu_torch.learning", "mpc_tpu_torch.solver",\n'
         '          "mpc_tpu_torch.utils.convert", "mpc_tpu_torch.ops.fused_bwd",\n'
         '          "mpc_tpu_torch.ops.diff", "mpc_tpu_torch.utils.fd",\n'
+        '          "mpc_tpu_torch.types", "mpc_tpu_torch.models.pendulum",\n'
         '          "chip_smoke"):\n'
         '    importlib.import_module(m)\n'
         'bad = [n for n in sys.modules if n in ("jax", "mpc_tpu")\n'
