@@ -28,6 +28,11 @@ parallel, and drives the port's main paths on the card:
   through make_imitation_train_step, a learner that must cut its loss,
   and K3's and K4's times against their bounds.
 
+K1 and K3 give each example a team of lanes (ops/fused.py:TEAM): the
+compare phases also run what that makes new ([compare-teams]: more step
+sizes than lanes, examples of one warp stopping at different
+iterations, B = 1 and batches that do not fill a block).
+
 It prints one JSON line of kernel numbers, the card's name and power
 limit, and a last JSON line with the device.  Every phase raises on
 failure; the script then exits nonzero.  It exits nonzero without a
@@ -153,13 +158,12 @@ def check_tail(what, u, ref, limits=(TAIL_MEAN, TAIL_SHARE)):
 
 
 def phase_build():
-    from mpc_tpu_torch.ops import _build
-    specs = [('fused_ilqr', {'MPC_T': T, 'MPC_HAS_BOUNDS': 1}),
-             ('fused_ilqr', {'MPC_T': TRAIN_T, 'MPC_HAS_BOUNDS': 1})]
+    from mpc_tpu_torch.ops import _build, fused, fused_bwd
+    specs = [('fused_ilqr', fused.kernel_defines(T, True)),
+             ('fused_ilqr', fused.kernel_defines(TRAIN_T, True))]
     specs += [('fused_kkt_bwd', {'MPC_T': TRAIN_T, 'MPC_HAS_I': has_I,
                                  'MPC_COST_SHARED': shared})
               for shared in (1, 0) for has_I in (1, 0)]
-    from mpc_tpu_torch.ops import fused, fused_bwd
     specs += [('fused_ilqr_long', fused.long_kernel_defines(lindx, True))
               for lindx in (True, False)]
     specs += [('fused_kkt_bwd_long',
@@ -174,16 +178,51 @@ def phase_build():
         for line in _build.ptxas_report(name, defines).splitlines():
             if 'registers' in line or 'spill' in line or 'stack' in line:
                 log(f'  ptxas: {line.strip()}')
+    for what, geo in (
+            ('K1 headline', fused.k1_launch(T, B, 5)),
+            ('K1 config 4, B=1024', fused.k1_launch(TRAIN_T, 1024, 3)),
+            ('K3 long', fused.k3_launch(LONG_T, LONG_B, 3))):
+        log(f'  launch, {what}: {geo}')
+
+
+def design(name, defines, geo):
+    """What a team kernel's design is, for its entry of the kernels
+    line: the launch geometry and the registers ptxas reports."""
+    import re
+    from mpc_tpu_torch.ops import _build
+    regs = re.findall(r'Used (\d+) registers',
+                      _build.ptxas_report(name, defines))
+    spills = re.findall(r'(\d+) bytes spill stores',
+                        _build.ptxas_report(name, defines))
+    return {'team_lanes': geo['team'], 'warps_a_block': geo['warps'],
+            'examples_a_block': geo['examples'], 'blocks': geo['blocks'],
+            'shared_memory_bytes': geo['smem_bytes'],
+            'workspace_bytes': geo.get('workspace_bytes', 0),
+            'registers': max(map(int, regs)),
+            'spill_store_bytes': max(map(int, spills))}
+
+
+def hold_equidistance(what, uk, up, u64):
+    """The kernel's controls may sit at most twice as far from the
+    float64 plain run's as the plain float32 run's do."""
+    k_far = tail(uk.double(), u64)[0]
+    p_far = tail(up.double(), u64)[0]
+    log(f'  mean |du| to the f64 plain run: kernel {k_far:.3e}, '
+        f'plain f32 {p_far:.3e}')
+    if k_far > 2 * p_far + 1e-6:
+        raise AssertionError(f'{what}: the kernel sits further from float64 '
+                             'than the plain float32 run')
 
 
 def hold_k1(torch, what, ops, ops64, kernel=None, plain=None,
-            limits=(TAIL_MEAN, TAIL_SHARE)):
+            limits=(TAIL_MEAN, TAIL_SHARE), counts=False):
     """A forward kernel (K1 unless ``kernel`` and ``plain`` name K3 and
     its plain version) against its plain version on the same operands (a
     batch-shared problem): finite, within the float32 tail ``limits``
     (None: judged against float64 alone), the same n_iter, no further
     from the float64 plain run on ``ops64`` than the plain float32 run,
-    and bitwise equal on the reversed batch.
+    bitwise equal on the reversed batch and, where ``counts``, with the
+    plain run's step-size counts (``hold_counts``).
     Returns the kernel's (x, u, stats) and max |du|."""
     from mpc_tpu_torch.ops import fused
     kernel = kernel or fused.fused_ilqr
@@ -203,13 +242,7 @@ def hold_k1(torch, what, ops, ops64, kernel=None, plain=None,
     log(f'  max |cost kernel - cost plain| {cost_gap:.3e} (largest |cost| '
         f'{float(sp[0].abs().max()):.3e}), max |dx| '
         f'{float((xk - xp).abs().max()):.3e}')
-    k_far = tail(uk.double(), u64)[0]
-    p_far = tail(up.double(), u64)[0]
-    log(f'  mean |du| to the f64 plain run: kernel {k_far:.3e}, '
-        f'plain f32 {p_far:.3e}')
-    if k_far > 2 * p_far + 1e-6:
-        raise AssertionError(f'{what}: the kernel sits further from float64 '
-                             'than the plain float32 run')
+    hold_equidistance(what, uk, up, u64)
     # batch reversal: no example reads another's data
     r = kernel(**dict(ops, x0=ops['x0'].flip(0).contiguous(),
                       u0=ops['u0'].flip(1).contiguous()))
@@ -217,6 +250,8 @@ def hold_k1(torch, what, ops, ops64, kernel=None, plain=None,
             and torch.equal(r[2].flip(1), sk)):
         raise AssertionError(f'{what}: reversed batch is not bitwise equal')
     log('  reversed batch: bitwise equal')
+    if counts:
+        hold_counts(torch, what, sk, sp, mixed=False)
     return (xk, uk, sk), mx
 
 
@@ -247,7 +282,7 @@ def phase_compare(torch, device, n=B):
     if not (torch.equal(rb[1], uk) and torch.equal(rb[2], sk)):
         raise AssertionError('batched layouts differ from shared ones')
     log('  batched cost and bounds: bitwise equal to shared')
-    # ragged tail: 2050 = 32 blocks of 64 and 2 examples
+    # ragged tail: 2050 = 256 blocks of 8 examples and 2 more
     x2 = x0_batch(2050, 1, torch, device)
     _, u2, s2 = fused.fused_ilqr(**ops(x2))
     _, u2p, s2p = fused.fused_solve_plain(**ops(x2))
@@ -752,7 +787,11 @@ def graph_ms(torch, launch, reps=10, per_graph=20):
     for _ in range(5):
         launch()
     n = reps * per_graph
-    eager_ms = event_ms(torch, lambda: [launch() for _ in range(n)]) / n
+
+    def eager():
+        for _ in range(n):      # results dropped, so their memory is reused
+            launch()
+    eager_ms = event_ms(torch, eager) / n
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         for _ in range(per_graph):
@@ -891,8 +930,7 @@ def phase_compare_long(torch, device):
             long_k3_operands(torch, device, 2050, torch.float64),
             limits=limits, **long_kw)
     # the pendulum past K1's T_MAX.  Over 384 steps two float32 solves
-    # of the pendulum drift apart (at T = 256 K1 and its plain version
-    # already sit 2.8e-4 apart in the mean, tests/test_torch_gpu.py), so
+    # of the pendulum drift apart (mean |du| 2.9e-3 here, PERF.md), so
     # each is judged against the float64 plain run and not by the tail
     cfg = mt.MPCConfig(**dict(HEADLINE, T=PEND_LONG_T, lqr_iter=2,
                               max_linesearch_iter=2))
@@ -906,6 +944,234 @@ def phase_compare_long(torch, device):
                                       u_upper=2.0))
     hold_k1(torch, 'K3 vs plain, pendulum', *pend, limits=None, **long_kw)
     return mx
+
+
+# the cases the teams of K1 and K3 make new
+TEAMS_T = 40            # the long configuration cut to 40 steps
+# shares of examples with the plain version's n_iter and with its summed
+# selected index + 1
+TEAMS_SAME_ITER, TEAMS_SAME_TRIALS = 0.99, 0.98
+# a line-search tie moves the controls where the iteration's full-step
+# norm exceeds TEAMS_REAL_STEP; at most TEAMS_MAX_TIED of a problem's
+# examples may be left out for such a tie
+TEAMS_REAL_STEP, TEAMS_MAX_TIED = 1e-3, 0.1
+
+
+def same_share(a, b):
+    return float((a == b).double().mean())
+
+
+def hold_slices(torch, what, kernel, ops, full, sizes=(1, 7, 33)):
+    """The first n examples solved alone (n = 1, and batches that do not
+    fill a block) must be bitwise what they are inside the full batch
+    ``full``: an example's result depends on nothing beside it.  ``ops``
+    is a batch-shared problem: only x0 and u0 have a batch extent."""
+    for n in sizes:
+        o = dict(ops, x0=ops['x0'][:n].contiguous(),
+                 u0=ops['u0'][:, :n].contiguous())
+        r = kernel(**o)
+        if not (torch.equal(r[0], full[0][:, :n])
+                and torch.equal(r[1], full[1][:, :n])
+                and torch.equal(r[2], full[2][:, :n])):
+            raise AssertionError(f'{what}: B={n} alone differs from the '
+                                 'same examples inside the full batch')
+    log(f'  {what}: B in {sizes} alone bitwise equal to the full batch\'s '
+        'first examples')
+
+
+def hold_f64(what, uk, up, u64):
+    """Where two float32 solves part (examples that stop an iteration
+    apart, long searches), the kernel is judged against the float64
+    plain run: no further from it than twice the plain float32 run."""
+    check_tail(f'{what} (f32)', uk, up, None)
+    hold_equidistance(what, uk, up, u64)
+
+
+def hold_counts(torch, what, sk, sp, mixed, trials=True):
+    """The counts of a kernel run against the plain run's: n_iter equal
+    in TEAMS_SAME_ITER of the examples (a full-step norm within round-off
+    of eps may fall on the other side) and, where ``trials``, the summed
+    selected index + 1 in TEAMS_SAME_TRIALS.  The latter holds only while
+    the steps are real: near convergence a trial cost ties the current
+    one to round-off, either step size is right, and the share is only
+    logged.  Where asked, n_iter must really be mixed."""
+    it_same, tr_same = same_share(sk[2], sp[2]), same_share(sk[5], sp[5])
+    log(f'  {what}: n_iter {float(sk[2].min()):.0f} to '
+        f'{float(sk[2].max()):.0f} (equal to plain in {it_same:.4f}), '
+        f'selected index + 1 summed: most {float(sk[5].max()):.0f} (equal '
+        f'in {tr_same:.4f})')
+    if it_same < TEAMS_SAME_ITER or (trials
+                                     and tr_same < TEAMS_SAME_TRIALS):
+        raise AssertionError(f'{what}: counts differ from the plain '
+                             'version\'s')
+    if mixed and not float(sk[2].min()) < float(sk[2].max()):
+        raise AssertionError(f'{what}: the examples did not stop at '
+                             'different iterations')
+
+
+def tied_examples(torch, trace, horizon, min_step=0.0):
+    """The examples whose line search decided a tie of float32 round-off
+    somewhere: a trial cost within ``horizon`` ulps of the current cost
+    (each is a sum of ``horizon`` terms, rounded once a term), read from
+    the decisions ``trace`` of a float64 plain run, where the gap is the
+    true one.  Either side of such a decision is right in float32.  With
+    ``min_step``, only ties in an iteration whose full-step norm exceeds
+    it: the ones that move the controls."""
+    ulp = torch.finfo(torch.float32).eps
+    tied = torch.zeros_like(trace[0][4])
+    for _, _, old, cost_a, tried, full_du in trace:
+        tied |= (tried & (full_du > min_step)
+                 & ((cost_a - old).abs() <= horizon * ulp * old.abs()))
+    return tied
+
+
+def hold_lindx_search(torch, what, ops, ops64, horizon, show=3):
+    """K3 on a LinDx problem with more step sizes than a team has lanes.
+    Its line search goes past the first step size only where a trial
+    cost ties the current one to round-off (a converged example, or a
+    step along which the cost is flat), and there the kernel and the
+    plain version may decide differently, both rightly.  Every example
+    whose counts differ must hold such a tie (``tied_examples``); those
+    that differ after a tie at a real step are shown, decision by
+    decision; every example without a tie at a real step is held against
+    the float64 plain run."""
+    from mpc_tpu_torch.ops import fused
+    rk = fused.fused_ilqr_long(**ops)
+    tr32, tr64 = [], []
+    rp = fused.fused_solve_long_plain(**ops, trace=tr32)
+    r64 = fused.fused_solve_long_plain(**ops64, trace=tr64)
+    tied_any = tied_examples(torch, tr64, horizon)
+    tied = tied_examples(torch, tr64, horizon, min_step=TEAMS_REAL_STEP)
+    differ = rk[2][5] != rp[2][5]
+    log(f'  {what}: {int(tied_any.sum())} of {tied.numel()} examples decide '
+        f'a tie of round-off somewhere, {int(tied.sum())} at a real step '
+        f'(full-step norm > {TEAMS_REAL_STEP}); counts differ from the plain '
+        f'run\'s in {int(differ.sum())} examples, {int((differ & tied).sum())}'
+        ' of them with a tie at a real step')
+    # the kernel's counts and best cost after each iteration: solves cut
+    # after 1, 2, ... iterations
+    n_iter = ops['lqr_iter']
+    upto = [fused.fused_ilqr_long(**dict(ops, lqr_iter=i))[2]
+            for i in range(1, n_iter)] + [rk[2]]
+    parted = (rk[1] - rp[1]).abs().amax((0, 2)) > TAIL_ENTRY
+    log(f'  controls part by more than {TAIL_ENTRY} in {int(parted.sum())} '
+        f'examples, {int((parted & tied).sum())} of them with a tie at a '
+        'real step')
+    for b in torch.nonzero((differ & tied) | parted)[:show, 0].tolist():
+        log(f'  example {b}: max |du| kernel - plain '
+            f'{float((rk[1] - rp[1])[:, b].abs().max()):.3e}')
+        for it in range(n_iter):
+            k_idx = float(upto[it][5][b] - (upto[it - 1][5][b] if it else 0))
+            rows32 = [r for r in tr32 if r[0] == it and bool(r[4][b])]
+            rows64 = [r for r in tr64 if r[0] == it and bool(r[4][b])]
+            if not rows32:
+                continue
+            log(f'    iteration {it}: selected index + 1: kernel {k_idx:.0f}, '
+                f'plain f32 {len(rows32)}, plain f64 {len(rows64)}; kernel '
+                f'best cost {float(upto[it][0][b]):.9g}; plain f32 current '
+                f'cost {float(rows32[0][2][b]):.9g}, trials '
+                + ' '.join(f'{float(r[3][b]):.9g}' for r in rows32)
+                + '; f64 (trial - current) / |current| '
+                + ' '.join(f'{float((r[3][b] - r[2][b]) / r[2][b].abs()):.2e}'
+                           for r in rows64))
+    if bool((differ & ~tied_any).any()):
+        raise AssertionError(f'{what}: counts differ from the plain '
+                             'version\'s where no decision was a tie')
+    if float(tied.double().mean()) > TEAMS_MAX_TIED:
+        raise AssertionError(f'{what}: too many ties to hold the rest')
+    keep = ~tied
+    hold_f64(f'{what}, untied examples', rk[1][:, keep], rp[1][:, keep],
+             r64[1][:, keep])
+    if not torch.equal(rk[2][2], rp[2][2]):
+        raise AssertionError(f'{what}: n_iter differs')
+
+
+def phase_compare_teams(torch, device):
+    """What a team of lanes per example makes new, K1 and K3 against
+    their plain versions: examples of one warp that stop at different
+    iterations (eps > 0), more step sizes than lanes, B = 1 and batches
+    that do not fill a block."""
+    import mpc_tpu_torch as mt
+    from mpc_tpu_torch.ops import fused
+    log(f'[compare-teams] teams of {fused.TEAM} lanes')
+    dx, cost = problem(torch, device)
+    dx64, cost64 = problem(torch, device, torch.float64)
+    # K1, the headline with eps = 1e-2: mixed stopping inside a warp
+    n = 1024
+    x0 = x0_batch(n, 6, torch, device)
+    cfg = mt.MPCConfig(**dict(HEADLINE, eps=1e-2, lqr_iter=12))
+    ops = fused.k1_operands(cfg, x0, cost, dx, u_lower=-2.0, u_upper=2.0)
+    rk, rp = fused.fused_ilqr(**ops), fused.fused_solve_plain(**ops)
+    _, u64, _ = fused.fused_solve_plain(**fused.k1_operands(
+        cfg, x0.double(), cost64, dx64, u_lower=-2.0, u_upper=2.0))
+    hold_f64('K1, eps=1e-2', rk[1], rp[1], u64)
+    hold_counts(torch, 'K1, eps=1e-2', rk[2], rp[2], mixed=True,
+                trials=False)
+    hold_slices(torch, 'K1', fused.fused_ilqr, ops, rk)
+    # K3 on the long configuration cut to TEAMS_T steps
+    F, C, x0l, _ = long_data(torch, device)
+    F64, C64, x064, _ = long_data(torch, device, torch.float64)
+    n = 256
+
+    def k3_ops(dtype, **kw):
+        f_, c_, x_ = (F, C, x0l) if dtype == torch.float32 else (F64, C64,
+                                                                 x064)
+        cfg = mt.MPCConfig(**dict(LONG, T=TEAMS_T, backprop=False, **kw))
+        return fused.k3_operands(
+            cfg, x_[:n].contiguous(),
+            mt.QuadCost(c_[:TEAMS_T], torch.zeros(TEAMS_T, 4, dtype=dtype,
+                                                  device=device)),
+            mt.LinDx(f_[:TEAMS_T - 1], None), u_lower=-2.0, u_upper=2.0)
+
+    ops = k3_ops(torch.float32, eps=1e-2, lqr_iter=8)
+    rk = fused.fused_ilqr_long(**ops)
+    rp = fused.fused_solve_long_plain(**ops)
+    _, u64, _ = fused.fused_solve_long_plain(
+        **k3_ops(torch.float64, eps=1e-2, lqr_iter=8))
+    hold_f64(f'K3, T={TEAMS_T}, eps=1e-2', rk[1], rp[1], u64)
+    hold_counts(torch, 'K3, eps=1e-2', rk[2], rp[2], mixed=True,
+                trials=False)
+    hold_slices(torch, 'K3', fused.fused_ilqr_long, ops, rk)
+    six = dict(max_linesearch_iter=6, linesearch_decay=0.5)
+    hold_lindx_search(torch, f'K3, LinDx, T={TEAMS_T}, 6 step sizes',
+                      k3_ops(torch.float32, **six),
+                      k3_ops(torch.float64, **six), TEAMS_T)
+    # 6 step sizes of decay 0.5 on a cheap-control pendulum with wide
+    # bounds, where from the second iteration on the full step overshoots:
+    # rounds of the line search past the team's width with real steps.
+    # Through K1 at the headline's T and through K3 at TEAMS_T; judged
+    # against float64.  (A single step size is a case of
+    # tests/test_torch_gpu.py.)
+    q, p = dx.get_true_obj()
+    scale = torch.tensor([1.0, 1.0, 0.1, 0.1], device=device)
+    x0 = x0_batch(1024, 6, torch, device)
+    for name, horizon, operands, kernel, plain in (
+            ('K1', T, fused.k1_operands, fused.fused_ilqr,
+             fused.fused_solve_plain),
+            ('K3', TEAMS_T, fused.k3_operands, fused.fused_ilqr_long,
+             fused.fused_solve_long_plain)):
+        what = f'{name}, pendulum, T={horizon}, 6 step sizes'
+        cfg = mt.MPCConfig(**dict(
+            HEADLINE, T=horizon, lqr_iter=3, linesearch_decay=0.5,
+            max_linesearch_iter=6))
+        both = [operands(
+            cfg, x0.to(dt), mt.QuadCost(torch.diag((q * scale).to(dt)),
+                                        p.to(dt)), d, u_lower=-20.0,
+            u_upper=20.0) for dt, d in ((torch.float32, dx),
+                                        (torch.float64, dx64))]
+        (_, _, sk), _ = hold_k1(torch, what, *both, kernel=kernel,
+                                plain=plain, limits=None, counts=True)
+        # one iteration's count is the difference of two solves that
+        # differ by that iteration
+        upto = [kernel(**dict(both[0], lqr_iter=i))[2][5] for i in (1, 2)]
+        past = torch.stack([upto[1] - upto[0], sk[5] - upto[1]]) > fused.TEAM
+        log(f'  iterations 2 and 3: step sizes past the team\'s width '
+            f'in {float(past.any(0).double().mean()):.4f} of the '
+            'examples')
+        if not bool(past.any()):
+            raise AssertionError(f'{what}: no example searched past the '
+                                 'team\'s width: the rounds were not '
+                                 'exercised')
 
 
 def bwd_long_operands(torch, device, n=LONG_B, seed=12):
@@ -1233,6 +1499,7 @@ def main():
     timing_bwd = phase_time_bwd(torch, device, 1024)
     phase_time_bwd(torch, device, 8192)
     long_err = phase_compare_long(torch, device)
+    phase_compare_teams(torch, device)
     bwd_long_err = phase_compare_bwd_long(torch, device)
     k3_serve = phase_serve_long(torch, device)
     k3_train, k4_train = phase_train_long(torch, device)
@@ -1246,6 +1513,7 @@ def main():
     # B=4096), training ([train], config 4 at B=1024) and long-horizon
     # training ([train-long], T=160 at B=4096); launches are that path's
     # count, the times and bound that path's shape
+    from mpc_tpu_torch.ops import fused
     k1 = {'route': 'cuda', 'source': 'mpc_tpu_torch/csrc/fused_ilqr.cu',
           'replaces': 'mpc_tpu/ops/fused.py:617',
           'tolerance': f'mean|du|<{TAIL_MEAN}, '
@@ -1253,8 +1521,12 @@ def main():
           'library_ms': None}
     log(json.dumps({'kernels': [
         {'name': 'fused_ilqr', 'path': 'serving', **k1,
+         'design': design('fused_ilqr', fused.kernel_defines(T, True),
+                          fused.k1_launch(T, B, 5)),
          'launches': launches, 'max_abs_err': max_err, **timing},
         {'name': 'fused_ilqr (training)', 'path': 'training', **k1,
+         'design': design('fused_ilqr', fused.kernel_defines(TRAIN_T, True),
+                          fused.k1_launch(TRAIN_T, 1024, 3)),
          'launches': k1_train, 'max_abs_err': train_err, **timing_train},
         {'name': 'fused_kkt_bwd', 'path': 'training', 'route': 'cuda',
          'source': 'mpc_tpu_torch/csrc/fused_kkt_bwd.cu',
@@ -1265,6 +1537,9 @@ def main():
         {'name': 'fused_ilqr_long', 'path': 'long training',
          'route': 'cuda', 'source': 'mpc_tpu_torch/csrc/fused_ilqr_long.cu',
          'replaces': 'mpc_tpu/ops/fused.py:1126',
+         'design': design('fused_ilqr_long',
+                          fused.long_kernel_defines(True, True),
+                          fused.k3_launch(LONG_T, LONG_B, 3)),
          'launches': k3_train, 'launches_serve_long': k3_serve,
          'max_abs_err': long_err,
          'tolerance': f'mean|du|<{LONG_TAIL_MEAN}, '

@@ -1,58 +1,98 @@
-// Kernel K3 for Hopper: the streaming box-constrained iLQR solve, one
-// example per thread, any horizon.
+// Kernel K3 for Hopper: the streaming box-constrained iLQR solve, a team
+// of lanes per example, any horizon.
 //
 // Replaces the TPU kernel mpc_tpu/ops/fused.py:_make_kernel_long (lines
 // 1126-1932), which runs the horizon as fori_loops with x, u, K, k per t
-// in VMEM scratch and streams batched operands through a 2-slot DMA
-// buffer.  It is the same solve as K1 (fused_ilqr.cu) with two
-// differences that make it a kernel of its own on this card:
+// in VMEM scratch, evaluates every line-search step size at once and
+// streams batched operands through a 2-slot DMA buffer.
 //
-// - K1 keeps 16*T floats per thread in local memory, which CUDA reserves
-//   for every resident thread slot and which stops K1 at T = 256.  Here
-//   the current trajectory x, u and the gains K, k live in a WORKSPACE IN
-//   GLOBAL MEMORY that the wrapper allocates, laid out [t, row, b] (8
-//   rows), so the 32 examples of a warp read and write one 128-byte line
-//   per row.  The best trajectory lives in the outputs themselves, as in
-//   the TPU kernel.  T is a run-time argument: one build serves every
-//   horizon, and T is bounded by memory the caller can see (32*T bytes
-//   per example).
-// - the line search is K3's own (mpc_tpu/ops/fused.py:1144-1150): trial
-//   rollouts that keep only their cost, over the step-size schedule, the
-//   first whose cost does not exceed the current one, else the last; then
-//   ONE commit rollout with the selected step size writes the new
-//   trajectory (and the best one where it improved).  The current cost
-//   is carried from the last accepted trial, not recomputed.  A thread
-//   stops trying step sizes at its first passing one, which selects what
-//   the TPU's evaluate-all-then-select does.
+// What bounds it on this card.  The work is small (~2.5e5 operations and
+// ~3 KB in and out per example at T = 160; k3_flops, k3_bytes: the bound
+// is set by operations) and the batch is small for the card: B = 4096 is
+// 31 examples an SM.  What takes the time is the length of the chain of
+// dependent horizon steps one example walks, times the latency of a
+// step: the loads a step starts with, then its dependent arithmetic,
+// with no other warp on the scheduler to fill the gaps.  An iLQR
+// iteration has two recurrences that cannot be cut, the cost-to-go V, v
+// backwards and the rollout forwards; everything else is parallel.
 //
-// Dynamics (MPC_DYN): 0 = LinDx (lindx.cuh; F shared or per example, f
-// optional), 1 = the simple pendulum (pendulum.cuh).  Cost, dynamics and
-// bound operands are read straight from global memory at [t, b] through
-// the read-only cache; a batch-shared operand has batch stride 0, so a
-// warp's load is one broadcast, and at T = 160 the shared C, c, F and
-// bounds (24 KB) stay resident in L1.  Staging them in shared memory
-// would add a second code path and a limit on T (227 KB a block) for
-// loads that already hit; so there is no gate on T for shared layouts.
+// What the design does about it.
 //
-// The arithmetic follows the TPU kernel's order (vv_update sums left to
-// right, the control is (K dx + u) + alpha k), and the plain PyTorch
-// version mpc_tpu_torch/ops/fused.py:fused_solve_long_plain follows this
-// file.  Built without --use_fast_math; nvcc's FMA contraction is the
-// only arithmetic difference from the plain version.
+// - A TEAM of kTeam neighbouring lanes of a warp owns one example
+//   (cooperative_groups::tiled_partition<kTeam>), so B = 4096 fills 512
+//   warps: one on every scheduler of the card.
+// - The line search runs ACROSS the lanes: lane g rolls out step size
+//   alphas[g] and writes its trajectory to a slot of its own in the
+//   workspace; a ballot picks the first lane whose cost does not exceed
+//   the current one, else the last step size.  More step sizes than
+//   lanes run in rounds of kTeam, a later round only if no lane of the
+//   earlier one passed.  That selects what a serial search that stops at
+//   its first passing step size selects, and stats[5] stays the selected
+//   index plus one.
+// - There is NO COMMIT ROLLOUT.  The team copies the winner's slot into
+//   the current trajectory and, where it improved on the best cost, into
+//   the outputs, lane g taking steps g, g + kTeam, ... with the loads of
+//   kCopy steps in flight together: a copy, not a chain.  Per iteration
+//   the chain is one Riccati sweep and one rollout.
+// - What the chains read lives in SHARED MEMORY where it fits.  The
+//   state a chain reads at every step is the current trajectory (x, u)
+//   and the gains (K, k): two float4 a step and example.  A round trip
+//   to the L2 for them costs more than a step's arithmetic (measured:
+//   600-800 cycles a step with the state in global memory, whether or
+//   not it was loaded a step ahead).  A block of kWarps warps holds
+//   kExamples = 32 kWarps / kTeam examples, so the state takes
+//   T * 2 * 16 * kExamples bytes (1024 T for 4 warps of teams of 4) and
+//   the shared operands 160 T: both are resident up to T = 196 (232,448
+//   bytes a block), one block an SM, which at T = 160 leaves the card's
+//   132 SMs room for 4224 examples.  Past that the same source keeps the
+//   state in the workspace in global memory (``state`` is a generic
+//   pointer); ops/fused.py:k3_launch computes which, and nothing else
+//   limits T.  The trial slots are always in global memory: the chains
+//   only write them.
+// - Rows arrive before the step that needs them, which is this card's
+//   form of the TPU kernel's make_async_copy double buffer: in both
+//   horizon loops the operands and the state of step t -+ 1 are loaded
+//   into registers while step t computes (two register sets used in
+//   turns, so nothing is moved).  The initial controls come from device
+//   memory: the team fetches them in a pass parallel over t.
+// - A batch-shared operand (batch stride 0) is ONE COPY FOR THE BLOCK:
+//   where the state is resident the block first copies the shared ones
+//   of C, c, F, f and the bounds into shared memory behind it (160 bytes
+//   a step), all threads together, and the loops read them there; the
+//   initial rollout, the first to touch them, otherwise waits for device
+//   memory at every step of its chain (measured: ~1000 cycles a step).
+//   A batched operand is read from global memory with its batch stride.
+// - The workspace is [t, slot, b] of float4: one 16-byte access for
+//   (x, u) or (K, k) of a step, the 8 examples of a warp on one 128-byte
+//   line; C, c and F are read as float4 too.
+// - The Riccati sweep runs redundantly in every lane of a team (same
+//   arithmetic, same bits, no shuffles on the chain); lane 0 stores the
+//   gains.  A lane reads rows another lane of its team wrote only after
+//   a tile.sync(), and never through the read-only path.
 //
-// Bound on the card: operations (k3_flops against k3_bytes: ~2.5e5
-// operations and ~3 KB in and out per example at T = 160).  This first
-// version is latency-bound: one thread walks its solve sequentially
-// through global memory, one warp a block so that B = 4096 spreads over
-// 128 of the 132 SMs.
+// Teams of one warp stop at different iterations: the whole team leaves
+// its loop together and every collective there is the tile's.  The one
+// __syncthreads() follows the block's copy of the shared operands, before
+// any team has left.
+//
+// Dynamics (MPC_DYN): 0 = LinDx (x' = F (x, u) + f; F shared or per
+// example, f optional), 1 = the simple pendulum (pendulum.cuh).
+//
+// The arithmetic of every scalar is the TPU kernel's, in its order
+// (vv_update sums left to right, the control is (K dx + u) + alpha k,
+// sums over t run left to right in one lane), and the plain PyTorch
+// version mpc_tpu_torch/ops/fused.py:fused_solve_long_plain follows it.
+// Built without --use_fast_math; nvcc's FMA contraction is the only
+// arithmetic difference from the plain version.
 //
 // Outputs: x [T, B, 3], u [T, B, 1], stats [6, B] = best cost, best
-// full-step norm, n_iter, n_qp_iter, alpha and the number of trial
-// rollouts (for the operation count).
+// full-step norm, n_iter, n_qp_iter, alpha and the summed index plus one
+// of the selected step sizes (the trial rollouts a serial search would
+// run, for the operation count).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
-#include "lindx.cuh"
 #include "pendulum.cuh"
 
 #ifndef MPC_DYN
@@ -61,6 +101,11 @@
 #ifndef MPC_HAS_BOUNDS
 #error "compile with -DMPC_HAS_BOUNDS=0 or 1"
 #endif
+#if !defined(MPC_TEAM) || !defined(MPC_WARPS) || !defined(MPC_OP_ROW)
+#error "compile with -DMPC_TEAM=<lanes an example> -DMPC_WARPS=<warps a block> -DMPC_OP_ROW=<floats a step of the shared operands' copy>"
+#endif
+
+namespace cg = cooperative_groups;
 
 namespace mpc {
 
@@ -69,95 +114,74 @@ constexpr int NTAU = 4;
 constexpr bool kLinDx = MPC_DYN == 0;
 constexpr bool kHasBounds = MPC_HAS_BOUNDS != 0;
 constexpr int kMaxAlpha = 32;  // ops/fused.py:MAX_ALPHA
-constexpr int kThreads = 32;
-constexpr int kRows = 8;  // workspace rows per step: x (3), u, K (3), k
+constexpr int kTeam = MPC_TEAM;
+constexpr int kWarps = MPC_WARPS;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kExamples = kThreads / kTeam;  // per block
+constexpr int kCopy = 8;  // steps a lane keeps in flight in the copy
 constexpr float kBig = 3.0e38f;
+// the state's two slots of one step and example
+constexpr int kGain = 0;  // (K, k)
+constexpr int kTraj = 1;  // the current (x, u)
+// a step of the block's copy of the batch-shared operands, in floats
+constexpr int kOffC = 0, kOffc = 16, kOffF = 20, kOfff = 32, kOffLb = 36,
+              kOffUb = 37, kOpRow = MPC_OP_ROW;
+static_assert(kOffUb < kOpRow && kOpRow % 4 == 0,
+              "a row holds every operand and keeps float4 alignment");
+
+static_assert(kTeam == 2 || kTeam == 4 || kTeam == 8 || kTeam == 16,
+              "a team is a power-of-two part of a warp");
 
 struct Schedule {
   float a[kMaxAlpha];
   int n;
 };
 
+// Every operand, the outputs and the workspace have fewer than 2^31
+// elements (the launcher checks), so indices are 32-bit: a 64-bit
+// multiply costs three instruction slots on this card, and a step
+// computes a dozen addresses.
 struct Operands {
   int B, T;
   const float* params;  // pendulum (g, m, l); unused for LinDx
-  LinDxOperand lin;     // unused for the pendulum
-  const float* C;       // [T, 1 or B, 4, 4]
-  long long sCt, sCb;
+  const float* F;       // LinDx: [T-1, 1 or B, 3, 4]
+  int sFt, sFb;
+  const float* f;  // LinDx: [T-1, 1 or B, 3], or nullptr
+  int sft, sfb;
+  const float* C;  // [T, 1 or B, 4, 4]
+  int sCt, sCb;
   const float* c;  // [T, 1 or B, 4]
-  long long sct, scb;
+  int sct, scb;
   const float* x0;  // [B, 3]
   const float* u0;  // [T, B]
   const float* lb;  // [T, 1 or B]
   const float* ub;
-  long long sbt, sbb;
+  int sbt, sbb;
   int lqr_iter;
   float eps, best_cost_eps, not_improved_lim;
-  float* ws;     // [T, 8, B]
+  float4* ws;    // [T, slots, B]: the trial slots, then the state's two
+  int slots;     // min(n_alpha, kTeam), + 2 where the state is not resident
+  int resident;  // the state (K, k), (x, u) and the batch-shared operands
+                 // are in shared memory
   float* x_out;  // [T, B, 3]: the best trajectory throughout
   float* u_out;  // [T, B]
   float* stats;  // [6, B]
 };
 
-struct Thread {
-  const Operands& op;
-  int b;
-  PendulumParams p;
-  const float* Cb;
-  const float* cb;
+// ``p`` points into global or shared memory
+__device__ __forceinline__ void load4(const float* p, float* out) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  out[0] = v.x;
+  out[1] = v.y;
+  out[2] = v.z;
+  out[3] = v.w;
+}
 
-  __device__ __forceinline__ float& ws(int t, int row) const {
-    return op.ws[((long long)t * kRows + row) * op.B + b];
-  }
-  __device__ __forceinline__ void load_x(int t, float* x) const {
-#pragma unroll
-    for (int i = 0; i < NS; ++i) x[i] = ws(t, i);
-  }
-  __device__ __forceinline__ void load_cost(int t, float Ct[NTAU][NTAU],
-                                            float* ct) const {
-    const float* Cp = Cb + t * op.sCt;
-    const float* cp = cb + t * op.sct;
-#pragma unroll
-    for (int i = 0; i < NTAU; ++i) {
-#pragma unroll
-      for (int j = 0; j < NTAU; ++j) Ct[i][j] = __ldg(Cp + 4 * i + j);
-      ct[i] = __ldg(cp + i);
-    }
-  }
-  __device__ __forceinline__ float lower(int t) const {
-    return __ldg(op.lb + t * op.sbt + b * op.sbb);
-  }
-  __device__ __forceinline__ float upper(int t) const {
-    return __ldg(op.ub + t * op.sbt + b * op.sbb);
-  }
-  // x_{t+1} from (x_t, u_t); ``out`` must not alias ``x``
-  __device__ __forceinline__ void step(int t, const float* x, float u,
-                                       float* out) const {
-    if (kLinDx)
-      lindx_step(op.lin, t, b, x, u, out);
-    else
-      pendulum_step(p, x, u, out);
-  }
-  __device__ __forceinline__ void jacobian(int t, const float* x, float u,
-                                           float F[NS][NTAU]) const {
-    if (kLinDx)
-      lindx_load(op.lin, t, b, F);
-    else
-      pendulum_jacobian(p, x, u, F);
-  }
-  // the new control at step t from the stored gains
-  // (_ctrl_from, mpc_tpu/ops/fused.py:1681-1695)
-  __device__ __forceinline__ float control(int t, const float* xt,
-                                           const float* x_old, float u_old,
-                                           float alpha) const {
-    const float d0 = xt[0] - x_old[0];
-    const float d1 = xt[1] - x_old[1];
-    const float d2 = xt[2] - x_old[2];
-    float ut = ((ws(t, 4) * d0 + ws(t, 5) * d1) + ws(t, 6) * d2 + u_old) +
-               alpha * ws(t, 7);
-    if (kHasBounds) ut = clampf(ut, lower(t), upper(t));
-    return ut;
-  }
+// The operands of one horizon step, as one register set of the prefetch.
+struct Rows {
+  float C[NTAU][NTAU], c[NTAU];
+  float F[NS][NTAU], f[NS];  // LinDx only
+  float lb, ub;              // with bounds only
 };
 
 // 0.5 tau^T C tau + c^T tau in _quad_lin_cost's order
@@ -177,206 +201,426 @@ __device__ __forceinline__ float stage_cost(const float Ct[NTAU][NTAU],
   return acc;
 }
 
+extern __shared__ float4 smem[];
+
+// Copies a batch-shared operand of ``N`` floats a step into the block's
+// shared memory, all threads of the block together.
+template <int N>
+__device__ __forceinline__ void stage(const float* src, int stride, int steps,
+                                      float* dst) {
+  for (int i = threadIdx.x; i < steps * N; i += kThreads) {
+    const int t = i / N;
+    const int j = i - t * N;
+    dst[t * kOpRow + j] = src[t * stride + j];
+  }
+}
+
+// An operand as the horizon loops read it: the example's rows in global
+// memory, or the block's copy in shared memory.
+struct Operand {
+  const float* p;
+  int step;  // floats between steps
+
+  __device__ __forceinline__ const float* at(int t) const {
+    return p + t * step;
+  }
+};
+
+// ``staged`` is the block's copy of the batch-shared operands (nullptr
+// where it has none) and ``offset`` this operand's place in its rows; it
+// is used where the operand is batch-shared (batch stride 0).
+__device__ __forceinline__ Operand operand(const float* src, int step,
+                                           int batch, int b,
+                                           const float* staged, int offset) {
+  if (staged != nullptr && batch == 0) return Operand{staged + offset, kOpRow};
+  return Operand{src + b * batch, step};
+}
+
+struct Team {
+  const Operands& op;
+  int b;  // the team's example
+  PendulumParams p;
+  Operand C, c, F, f, lb, ub;
+  bool has_f;
+  float4* st;  // the example's state at step 0, slot kGain: shared
+               // memory [t, 2, kExamples] where resident, else the last
+               // two slots of the workspace [t, slots, B]
+  int st_step, st_slot;  // its strides
+
+  // slot ``slot`` (kGain or kTraj) of the state at step t
+  __device__ __forceinline__ float4& state(int t, int slot) const {
+    return st[t * st_step + slot * st_slot];
+  }
+  // trial slot ``lane`` of the workspace at step t
+  __device__ __forceinline__ float4& trial(int t, int lane) const {
+    return op.ws[(t * op.slots + lane) * op.B + b];
+  }
+
+  // the operands of step t; F and f are those of min(t, T - 2), the last
+  // step having no successor
+  __device__ __forceinline__ void load_rows(int t, Rows& r) const {
+    const float* Cp = C.at(t);
+#pragma unroll
+    for (int i = 0; i < NTAU; ++i) load4(Cp + 4 * i, r.C[i]);
+    load4(c.at(t), r.c);
+    if (kLinDx && op.T > 1) {
+      const int tf = t < op.T - 1 ? t : op.T - 2;
+      const float* Fp = F.at(tf);
+#pragma unroll
+      for (int i = 0; i < NS; ++i) load4(Fp + 4 * i, r.F[i]);
+      if (has_f) {
+        const float* fp = f.at(tf);
+#pragma unroll
+        for (int i = 0; i < NS; ++i) r.f[i] = fp[i];
+      }
+    }
+    if (kHasBounds) {
+      r.lb = *lb.at(t);
+      r.ub = *ub.at(t);
+    }
+  }
+
+  // x_{t+1} from (x_t, u_t) in place
+  __device__ __forceinline__ void step(const Rows& r, float* x, float u) const {
+    float out[NS];
+    if (kLinDx) {
+      // the TPU kernel's LinDx branch (mpc_tpu/ops/fused.py:1369-1405):
+      // F[i][j] tau[j] from j = 0 upwards, f[i] last
+#pragma unroll
+      for (int i = 0; i < NS; ++i) {
+        float s = ((r.F[i][0] * x[0] + r.F[i][1] * x[1]) + r.F[i][2] * x[2]) +
+                  r.F[i][3] * u;
+        if (has_f) s += r.f[i];
+        out[i] = s;
+      }
+    } else {
+      pendulum_step(p, x, u, out);
+    }
+#pragma unroll
+    for (int i = 0; i < NS; ++i) x[i] = out[i];
+  }
+
+  // One step of the Riccati backward recursion with the 1-D box QP.  V, v
+  // are those of step t + 1 on entry and of step t on return.
+  __device__ __forceinline__ void riccati_step(int t, const Rows& r,
+                                               const float4 xu,
+                                               float V[NS][NS], float* v,
+                                               float& qp_cnt,
+                                               bool store) const {
+    const float xt[NS] = {xu.x, xu.y, xu.z};
+    const float ut = xu.w;
+    const float tau[NTAU] = {xt[0], xt[1], xt[2], ut};
+    float cbv[NTAU];
+#pragma unroll
+    for (int i = 0; i < NTAU; ++i)
+      cbv[i] = (((r.C[i][0] * tau[0] + r.C[i][1] * tau[1]) + r.C[i][2] * tau[2]) +
+                r.C[i][3] * tau[3]) + r.c[i];
+    float Qt[NTAU][NTAU], qt[NTAU];
+    if (t == op.T - 1) {
+#pragma unroll
+      for (int i = 0; i < NTAU; ++i) {
+#pragma unroll
+        for (int j = 0; j < NTAU; ++j) Qt[i][j] = r.C[i][j];
+        qt[i] = cbv[i];
+      }
+    } else {
+      float F[NS][NTAU];
+      if (kLinDx) {
+#pragma unroll
+        for (int i = 0; i < NS; ++i)
+#pragma unroll
+          for (int j = 0; j < NTAU; ++j) F[i][j] = r.F[i][j];
+      } else {
+        pendulum_jacobian(p, xt, ut, F);
+      }
+      float W[NS][NTAU];
+#pragma unroll
+      for (int i = 0; i < NS; ++i)
+#pragma unroll
+        for (int j = 0; j < NTAU; ++j)
+          W[i][j] = (V[i][0] * F[0][j] + V[i][1] * F[1][j]) + V[i][2] * F[2][j];
+#pragma unroll
+      for (int a = 0; a < NTAU; ++a) {
+#pragma unroll
+        for (int bb = a; bb < NTAU; ++bb) {
+          Qt[a][bb] = r.C[a][bb] + ((F[0][a] * W[0][bb] + F[1][a] * W[1][bb]) +
+                                    F[2][a] * W[2][bb]);
+          Qt[bb][a] = Qt[a][bb];
+        }
+        qt[a] = cbv[a] + ((F[0][a] * v[0] + F[1][a] * v[1]) + F[2][a] * v[2]);
+      }
+    }
+    const float Quu = Qt[3][3];
+    const float qu = qt[3];
+    const float inv = 1.f / Quu;
+    float Kt[NS], kt;
+    if (kHasBounds) {
+      // closed-form 1-D box QP (mpc_tpu/ops/fused.py:1516-1527); the
+      // clamped test compares exactly against the clipped value
+      const float lo = r.lb - ut;
+      const float hi = r.ub - ut;
+      const float kv = clampf(-qu * inv, lo, hi);
+      const float g = Quu * kv + qu;
+      const bool clamped = (kv == lo && g > 0.f) || (kv == hi && g < 0.f);
+#pragma unroll
+      for (int j = 0; j < NS; ++j) Kt[j] = clamped ? 0.f : -Qt[3][j] * inv;
+      kt = kv;
+      qp_cnt += 1.f;
+    } else {
+      kt = -qu * inv;
+#pragma unroll
+      for (int j = 0; j < NS; ++j) Kt[j] = -Qt[3][j] * inv;
+    }
+    if (store) state(t, kGain) = make_float4(Kt[0], Kt[1], Kt[2], kt);
+    // cost-to-go, summed left to right (vv_update,
+    // mpc_tpu/ops/fused.py:1546-1573)
+    float QK[NS][NS], KQuu[NS];
+#pragma unroll
+    for (int i = 0; i < NS; ++i) {
+#pragma unroll
+      for (int j = 0; j < NS; ++j) QK[i][j] = Qt[i][3] * Kt[j];
+      KQuu[i] = Quu * Kt[i];
+    }
+#pragma unroll
+    for (int i = 0; i < NS; ++i)
+#pragma unroll
+      for (int j = i; j < NS; ++j) {
+        V[i][j] = ((Qt[i][j] + QK[i][j]) + QK[j][i]) + Kt[i] * KQuu[j];
+        V[j][i] = V[i][j];
+      }
+    const float quk = qu + Quu * kt;
+#pragma unroll
+    for (int i = 0; i < NS; ++i) v[i] = (qt[i] + Qt[i][3] * kt) + Kt[i] * quk;
+  }
+
+  // One step of a trial rollout with step size alpha: the new control
+  // from the stored gains (_ctrl_from, mpc_tpu/ops/fused.py:1681-1695),
+  // the lane's slot, the cost, the step norm, and x <- x_{t+1}.
+  __device__ __forceinline__ void trial_step(int t, const Rows& r,
+                                             const float4 old, const float4 Kk,
+                                             float alpha, int lane, float* xt,
+                                             float& cost, float& du2) const {
+    const float d0 = xt[0] - old.x;
+    const float d1 = xt[1] - old.y;
+    const float d2 = xt[2] - old.z;
+    float ut = ((Kk.x * d0 + Kk.y * d1) + Kk.z * d2 + old.w) + alpha * Kk.w;
+    if (kHasBounds) ut = clampf(ut, r.lb, r.ub);
+    trial(t, lane) = make_float4(xt[0], xt[1], xt[2], ut);
+    const float sc = stage_cost(r.C, r.c, xt, ut);
+    cost = t == 0 ? sc : cost + sc;
+    const float d = old.w - ut;
+    du2 = t == 0 ? d * d : du2 + d * d;
+    if (t < op.T - 1) step(r, xt, ut);
+  }
+};
+
 __global__ void __launch_bounds__(kThreads)
     fused_ilqr_long_kernel(const Operands op, const Schedule sched) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= op.B) return;  // ragged tail: no padding, just masking
+  const cg::thread_block_tile<kTeam> tile =
+      cg::tiled_partition<kTeam>(cg::this_thread_block());
+  const int g = tile.thread_rank();
+  const int b = blockIdx.x * kExamples + threadIdx.x / kTeam;
   const int B = op.B;
   const int T = op.T;
+  // the block's copy of the batch-shared operands, behind the state: the
+  // whole block fills it before any team leaves
+  float* const staged =
+      op.resident ? reinterpret_cast<float*>(smem + 2 * T * kExamples)
+                  : nullptr;
+  if (staged != nullptr) {
+    if (op.sCb == 0) stage<16>(op.C, op.sCt, T, staged + kOffC);
+    if (op.scb == 0) stage<4>(op.c, op.sct, T, staged + kOffc);
+    if (kLinDx && op.sFb == 0) stage<12>(op.F, op.sFt, T - 1, staged + kOffF);
+    if (kLinDx && op.f != nullptr && op.sfb == 0)
+      stage<3>(op.f, op.sft, T - 1, staged + kOfff);
+    if (kHasBounds && op.sbb == 0) {
+      stage<1>(op.lb, op.sbt, T, staged + kOffLb);
+      stage<1>(op.ub, op.sbt, T, staged + kOffUb);
+    }
+    __syncthreads();
+  }
+  if (b >= B) return;  // ragged tail: a whole team leaves together
   PendulumParams p{0.f, 0.f, 0.f};
   if (!kLinDx) p = PendulumParams{op.params[0], op.params[1], op.params[2]};
-  const Thread th{op, b, p, op.C + b * op.sCb, op.c + b * op.scb};
+  // the lanes that roll out a trial, each into its slot of the workspace
+  const int n_lanes = sched.n < kTeam ? sched.n : kTeam;
+  const int e = threadIdx.x / kTeam;
+  const Team tm{op,
+                b,
+                p,
+                operand(op.C, op.sCt, op.sCb, b, staged, kOffC),
+                operand(op.c, op.sct, op.scb, b, staged, kOffc),
+                operand(op.F, op.sFt, op.sFb, b, staged, kOffF),
+                operand(op.f, op.sft, op.sfb, b, staged, kOfff),
+                operand(op.lb, op.sbt, op.sbb, b, staged, kOffLb),
+                operand(op.ub, op.sbt, op.sbb, b, staged, kOffUb),
+                kLinDx && op.f != nullptr,
+                op.resident ? smem + e : op.ws + n_lanes * B + b,
+                op.resident ? 2 * kExamples : op.slots * B,
+                op.resident ? kExamples : B};
+  // the team's lanes within its warp, for the ballot of the line search
+  const unsigned team_shift = (threadIdx.x & 31u) & ~(unsigned)(kTeam - 1);
+  const unsigned team_mask = ((1u << kTeam) - 1u) << team_shift;
 
-  float Ct[NTAU][NTAU], ct[NTAU];
   float x0[NS];
 #pragma unroll
-  for (int i = 0; i < NS; ++i) x0[i] = op.x0[(long long)b * NS + i];
+  for (int i = 0; i < NS; ++i) x0[i] = op.x0[b * NS + i];
 
-  // ---- init: u <- u0, x <- rollout(u0), best <- the same, its cost -----
+  // ---- init: u <- u0, x <- rollout(u0) into the state and, as the best
+  // trajectory, into the outputs; its cost.  u0 comes from device
+  // memory, a round trip far longer than a rollout step: the team
+  // fetches it in a pass parallel over t, kCopy steps of a lane in
+  // flight together, not on the chain.  Then every lane walks the chain
+  // (the cost is then in every lane), lane 0 stores. ------------------
+  for (int t0 = g; t0 < T; t0 += kCopy * kTeam) {
+    float u[kCopy];
+#pragma unroll
+    for (int k = 0; k < kCopy; ++k) {
+      const int t = t0 + k * kTeam;
+      if (t < T) u[k] = op.u0[t * B + b];
+    }
+#pragma unroll
+    for (int k = 0; k < kCopy; ++k) {
+      const int t = t0 + k * kTeam;
+      if (t < T) tm.state(t, kTraj).w = u[k];
+    }
+  }
+  tile.sync();
   float cost_cur = 0.f;
   {
     float xt[NS] = {x0[0], x0[1], x0[2]};
+    Rows r, rn;
+    tm.load_rows(0, r);
+    float ut = tm.state(0, kTraj).w;
     for (int t = 0; t < T; ++t) {
-      const long long o = (long long)t * B + b;
-      const float ut = op.u0[o];
-      th.ws(t, 3) = ut;
-      op.u_out[o] = ut;
+      const int tn = t < T - 1 ? t + 1 : t;
+      tm.load_rows(tn, rn);
+      const float un = tm.state(tn, kTraj).w;
+      if (g == 0) {
+        const int o = t * B + b;
+        tm.state(t, kTraj) = make_float4(xt[0], xt[1], xt[2], ut);
+        op.u_out[o] = ut;
 #pragma unroll
-      for (int i = 0; i < NS; ++i) {
-        th.ws(t, i) = xt[i];
-        op.x_out[o * NS + i] = xt[i];
+        for (int i = 0; i < NS; ++i) op.x_out[o * NS + i] = xt[i];
       }
-      th.load_cost(t, Ct, ct);
-      const float sc = stage_cost(Ct, ct, xt, ut);
+      const float sc = stage_cost(r.C, r.c, xt, ut);
       cost_cur = t == 0 ? sc : cost_cur + sc;
-      if (t < T - 1) {
-        float xn[NS];
-        th.step(t, xt, ut, xn);
-#pragma unroll
-        for (int i = 0; i < NS; ++i) xt[i] = xn[i];
-      }
+      if (t < T - 1) tm.step(r, xt, ut);
+      r = rn;
+      ut = un;
     }
   }
+  tile.sync();
 
   float best_cost = kBig, best_du = kBig;
   float nni = 0.f, n_qp = 0.f, alpha_sel = 1.f, n_it = 0.f, n_trials = 0.f;
 
   for (int it = 0; it < op.lqr_iter; ++it) {
-    // ---- Riccati backward recursion with the 1-D box QP --------------
-    float V[NS][NS], v[NS];
+    // ---- Riccati backward recursion, rows of step t - 1 in flight
+    // while step t computes; two register sets in turns ----------------
     float qp_cnt = 0.f;
-    for (int t = T - 1; t >= 0; --t) {
-      float xt[NS];
-      th.load_x(t, xt);
-      const float ut = th.ws(t, 3);
-      th.load_cost(t, Ct, ct);
-      const float tau[NTAU] = {xt[0], xt[1], xt[2], ut};
-      float cbv[NTAU];
-#pragma unroll
-      for (int i = 0; i < NTAU; ++i)
-        cbv[i] = (((Ct[i][0] * tau[0] + Ct[i][1] * tau[1]) + Ct[i][2] * tau[2]) +
-                  Ct[i][3] * tau[3]) + ct[i];
-      float Qt[NTAU][NTAU], qt[NTAU];
-      if (t == T - 1) {
-#pragma unroll
-        for (int i = 0; i < NTAU; ++i) {
-#pragma unroll
-          for (int j = 0; j < NTAU; ++j) Qt[i][j] = Ct[i][j];
-          qt[i] = cbv[i];
-        }
-      } else {
-        float F[NS][NTAU];
-        th.jacobian(t, xt, ut, F);
-        float W[NS][NTAU];
-#pragma unroll
-        for (int i = 0; i < NS; ++i)
-#pragma unroll
-          for (int j = 0; j < NTAU; ++j)
-            W[i][j] = (V[i][0] * F[0][j] + V[i][1] * F[1][j]) + V[i][2] * F[2][j];
-#pragma unroll
-        for (int a = 0; a < NTAU; ++a) {
-#pragma unroll
-          for (int bb = a; bb < NTAU; ++bb) {
-            Qt[a][bb] = Ct[a][bb] + ((F[0][a] * W[0][bb] + F[1][a] * W[1][bb]) +
-                                     F[2][a] * W[2][bb]);
-            Qt[bb][a] = Qt[a][bb];
-          }
-          qt[a] = cbv[a] + ((F[0][a] * v[0] + F[1][a] * v[1]) + F[2][a] * v[2]);
-        }
+    {
+      float V[NS][NS], v[NS];
+      Rows ra, rb;
+      float4 xa, xb;
+      tm.load_rows(T - 1, ra);
+      xa = tm.state(T - 1, kTraj);
+      int t = T - 1;
+      for (; t >= 1; t -= 2) {
+        tm.load_rows(t - 1, rb);
+        xb = tm.state(t - 1, kTraj);
+        tm.riccati_step(t, ra, xa, V, v, qp_cnt, g == 0);
+        const int t2 = t >= 2 ? t - 2 : 0;
+        tm.load_rows(t2, ra);
+        xa = tm.state(t2, kTraj);
+        tm.riccati_step(t - 1, rb, xb, V, v, qp_cnt, g == 0);
       }
-      const float Quu = Qt[3][3];
-      const float qu = qt[3];
-      const float inv = 1.f / Quu;
-      float Kt[NS], kt;
-      if (kHasBounds) {
-        // closed-form 1-D box QP (mpc_tpu/ops/fused.py:1516-1527); the
-        // clamped test compares exactly against the clipped value
-        const float lo = th.lower(t) - ut;
-        const float hi = th.upper(t) - ut;
-        const float kv = clampf(-qu * inv, lo, hi);
-        const float g = Quu * kv + qu;
-        const bool clamped = (kv == lo && g > 0.f) || (kv == hi && g < 0.f);
-#pragma unroll
-        for (int j = 0; j < NS; ++j) Kt[j] = clamped ? 0.f : -Qt[3][j] * inv;
-        kt = kv;
-        qp_cnt += 1.f;
-      } else {
-        kt = -qu * inv;
-#pragma unroll
-        for (int j = 0; j < NS; ++j) Kt[j] = -Qt[3][j] * inv;
-      }
-#pragma unroll
-      for (int j = 0; j < NS; ++j) th.ws(t, 4 + j) = Kt[j];
-      th.ws(t, 7) = kt;
-      // cost-to-go, summed left to right (vv_update,
-      // mpc_tpu/ops/fused.py:1546-1573)
-      float QK[NS][NS], KQuu[NS];
-#pragma unroll
-      for (int i = 0; i < NS; ++i) {
-#pragma unroll
-        for (int j = 0; j < NS; ++j) QK[i][j] = Qt[i][3] * Kt[j];
-        KQuu[i] = Quu * Kt[i];
-      }
-#pragma unroll
-      for (int i = 0; i < NS; ++i)
-#pragma unroll
-        for (int j = i; j < NS; ++j) {
-          V[i][j] = ((Qt[i][j] + QK[i][j]) + QK[j][i]) + Kt[i] * KQuu[j];
-          V[j][i] = V[i][j];
-        }
-      const float quk = qu + Quu * kt;
-#pragma unroll
-      for (int i = 0; i < NS; ++i) v[i] = (qt[i] + Qt[i][3] * kt) + Kt[i] * quk;
+      if (t == 0) tm.riccati_step(0, ra, xa, V, v, qp_cnt, g == 0);
     }
+    tile.sync();  // the gains are lane 0's stores
 
-    // ---- line search: trial rollouts that keep only their cost; the
-    // first step size whose cost does not exceed the current one, else
-    // the last.  The alpha = 1 trial always runs and gives the
-    // full-step norm. ----------------------------------------------------
+    // ---- line search across the lanes: lane g rolls out step size
+    // base + g into its own slot; the first lane whose cost does not
+    // exceed the current one is taken, else the next round, else the
+    // last step size.  Round 0's lane 0 is alpha = 1 and gives the
+    // full-step norm. --------------------------------------------------
     const float old_cost = cost_cur;
     float sel_cost = 0.f, sel_alpha = 1.f, full_du = 0.f;
-    for (int ki = 0; ki < sched.n; ++ki) {
-      const float a = sched.a[ki];
-      float xt[NS] = {x0[0], x0[1], x0[2]};
+    int sel_lane = 0, sel_index = 0;
+    for (int base = 0; base < sched.n; base += kTeam) {
+      const int ki = base + g;
+      const bool runs = g < n_lanes && ki < sched.n;
       float cost_a = 0.f, du2 = 0.f;
-      for (int t = 0; t < T; ++t) {
-        float x_old[NS];
-        th.load_x(t, x_old);
-        const float u_old = th.ws(t, 3);
-        const float ut = th.control(t, xt, x_old, u_old, a);
-        th.load_cost(t, Ct, ct);
-        const float sc = stage_cost(Ct, ct, xt, ut);
-        cost_a = t == 0 ? sc : cost_a + sc;
-        if (ki == 0) {
-          const float d = u_old - ut;
-          du2 = t == 0 ? d * d : du2 + d * d;
+      if (runs) {
+        const float a = sched.a[ki];
+        float xt[NS] = {x0[0], x0[1], x0[2]};
+        Rows ra, rb;
+        float4 oa, ob, ka, kb;
+        tm.load_rows(0, ra);
+        oa = tm.state(0, kTraj);
+        ka = tm.state(0, kGain);
+        int t = 0;
+        for (; t + 1 < T; t += 2) {
+          tm.load_rows(t + 1, rb);
+          ob = tm.state(t + 1, kTraj);
+          kb = tm.state(t + 1, kGain);
+          tm.trial_step(t, ra, oa, ka, a, g, xt, cost_a, du2);
+          const int t2 = t + 2 < T ? t + 2 : T - 1;
+          tm.load_rows(t2, ra);
+          oa = tm.state(t2, kTraj);
+          ka = tm.state(t2, kGain);
+          tm.trial_step(t + 1, rb, ob, kb, a, g, xt, cost_a, du2);
         }
-        if (t < T - 1) {
-          float xn[NS];
-          th.step(t, xt, ut, xn);
-#pragma unroll
-          for (int i = 0; i < NS; ++i) xt[i] = xn[i];
-        }
+        if (t < T) tm.trial_step(t, ra, oa, ka, a, g, xt, cost_a, du2);
       }
-      n_trials += 1.f;
-      if (ki == 0) full_du = sqrtf(du2);
-      sel_cost = cost_a;
-      sel_alpha = a;
-      if (cost_a <= old_cost) break;
+      if (base == 0) full_du = sqrtf(tile.shfl(du2, 0));
+      const unsigned passed =
+          (__ballot_sync(team_mask, runs && cost_a <= old_cost) >> team_shift) &
+          ((1u << kTeam) - 1u);
+      const bool last = base + kTeam >= sched.n;
+      if (passed != 0u || last) {
+        sel_lane = passed != 0u ? __ffs(passed) - 1 : sched.n - 1 - base;
+        sel_cost = tile.shfl(cost_a, sel_lane);
+        sel_index = base + sel_lane;
+        sel_alpha = sched.a[sel_index];
+        break;
+      }
     }
+    n_trials += (float)(sel_index + 1);
+    tile.sync();  // the winner's slot is another lane's stores
 
-    // ---- commit: re-roll with the selected step size into the current
-    // trajectory, and into the best one where it improved
-    // (rollout_commit, mpc_tpu/ops/fused.py:1828-1857) ------------------
+    // ---- the team copies the winner's slot into the current trajectory
+    // and, where it improved, into the outputs (the best one): lane g
+    // takes steps g, g + kTeam, ..., kCopy of them in flight ------------
     const bool first = it == 0;
     const bool improved = sel_cost <= best_cost + op.best_cost_eps;
     const bool take_best = first || improved;
-    {
-      float xt[NS] = {x0[0], x0[1], x0[2]};
-      for (int t = 0; t < T; ++t) {
-        float x_old[NS];
-        th.load_x(t, x_old);
-        const float u_old = th.ws(t, 3);
-        const float ut = th.control(t, xt, x_old, u_old, sel_alpha);
-        const long long o = (long long)t * B + b;
+    for (int t0 = g; t0 < T; t0 += kCopy * kTeam) {
+      float4 rows[kCopy];
 #pragma unroll
-        for (int i = 0; i < NS; ++i) th.ws(t, i) = xt[i];
-        th.ws(t, 3) = ut;
-        if (take_best) {
+      for (int k = 0; k < kCopy; ++k) {
+        const int t = t0 + k * kTeam;
+        if (t < T) rows[k] = tm.trial(t, sel_lane);
+      }
 #pragma unroll
-          for (int i = 0; i < NS; ++i) op.x_out[o * NS + i] = xt[i];
-          op.u_out[o] = ut;
-        }
-        if (t < T - 1) {
-          float xn[NS];
-          th.step(t, xt, ut, xn);
-#pragma unroll
-          for (int i = 0; i < NS; ++i) xt[i] = xn[i];
+      for (int k = 0; k < kCopy; ++k) {
+        const int t = t0 + k * kTeam;
+        if (t < T) {
+          tm.state(t, kTraj) = rows[k];
+          if (take_best) {
+            const int o = t * B + b;
+            op.x_out[o * NS + 0] = rows[k].x;
+            op.x_out[o * NS + 1] = rows[k].y;
+            op.x_out[o * NS + 2] = rows[k].z;
+            op.u_out[o] = rows[k].w;
+          }
         }
       }
     }
+    tile.sync();  // the current trajectory is every lane's stores
 
-    // ---- best tracking and per-example stopping -----------------------
+    // ---- best tracking and per-example stopping (the same in every
+    // lane of the team) ------------------------------------------------
     nni = (improved && !first) ? 0.f : nni + 1.f;
     if (take_best) {
       best_cost = sel_cost;
@@ -389,20 +633,26 @@ __global__ void __launch_bounds__(kThreads)
     if (!(full_du >= op.eps && nni <= op.not_improved_lim)) break;
   }
 
-  op.stats[0 * B + b] = best_cost;
-  op.stats[1 * B + b] = best_du;
-  op.stats[2 * B + b] = n_it;
-  op.stats[3 * B + b] = n_qp;
-  op.stats[4 * B + b] = alpha_sel;
-  op.stats[5 * B + b] = n_trials;
+  if (g == 0) {
+    op.stats[0 * B + b] = best_cost;
+    op.stats[1 * B + b] = best_du;
+    op.stats[2 * B + b] = n_it;
+    op.stats[3 * B + b] = n_qp;
+    op.stats[4 * B + b] = alpha_sel;
+    op.stats[5 * B + b] = n_trials;
+  }
 }
 
 }  // namespace mpc
 
-extern "C" int mpc_fused_ilqr_long_rows() { return mpc::kRows; }
-
-// Launches K3 on ``stream``; returns the cudaError_t of the launch.
-// ``ws`` is the [T, 8, B] workspace.
+// Launches K3 on ``stream`` with the geometry of ops/fused.py:k3_launch,
+// which is built with the same MPC_TEAM, MPC_WARPS and MPC_OP_ROW; returns
+// the cudaError_t of the launch, or of raising the kernel's shared-memory
+// limit where that is needed.  ``ws`` is the [T, slots, B] float4
+// workspace.  With ``smem_bytes`` > 0 the state and the block's copy of
+// the batch-shared operands are resident in shared memory and the slots
+// are the trial slots; with 0 the state lives in the workspace's last two
+// slots.
 extern "C" int mpc_fused_ilqr_long(
     int B, int T, const float* params, const float* F, long long sFt,
     long long sFb, const float* f, long long sft, long long sfb,
@@ -410,42 +660,70 @@ extern "C" int mpc_fused_ilqr_long(
     long long sct, long long scb, const float* x0, const float* u0,
     const float* lb, const float* ub, long long sbt, long long sbb,
     const float* alphas, int n_alpha, int lqr_iter, float eps,
-    float best_cost_eps, float not_improved_lim, float* ws, float* x_out,
-    float* u_out, float* stats, void* stream) {
+    float best_cost_eps, float not_improved_lim, float* ws, int slots,
+    int smem_bytes, float* x_out, float* u_out, float* stats, void* stream) {
+  const bool resident = smem_bytes != 0;
   if (B <= 0 || T <= 0 || n_alpha <= 0 || n_alpha > mpc::kMaxAlpha ||
-      ws == nullptr || (mpc::kLinDx ? F == nullptr : params == nullptr) ||
+      ws == nullptr ||
+      (mpc::kLinDx ? (F == nullptr && T > 1) : params == nullptr) ||
       (mpc::kHasBounds && (lb == nullptr || ub == nullptr)))
     return (int)cudaErrorInvalidValue;
+  // more than 48 KB of dynamic shared memory has to be asked for; the
+  // library remembers the most it has asked for
+  static int smem_allowed = 48 * 1024;
+  if (smem_bytes > smem_allowed) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        mpc::fused_ilqr_long_kernel,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    if (err != cudaSuccess) return (int)err;
+    smem_allowed = smem_bytes;
+  }
   mpc::Schedule sched;
   for (int i = 0; i < n_alpha; ++i) sched.a[i] = alphas[i];
   sched.n = n_alpha;
+  // 32-bit indices: the largest offset of each array
+  const long long last = T - 1, lastb = B - 1, big = 1LL << 31;
+  if (last * sCt + lastb * sCb + 16 >= big ||
+      last * sct + lastb * scb + 4 >= big ||
+      last * sFt + lastb * sFb + 12 >= big ||
+      last * sft + lastb * sfb + 3 >= big ||
+      last * sbt + lastb * sbb + 1 >= big ||
+      4LL * T * (slots + 2) * B >= big)
+    return (int)cudaErrorInvalidValue;
   mpc::Operands op;
   op.B = B;
   op.T = T;
   op.params = params;
-  op.lin = mpc::LinDxOperand{F, sFt, sFb, f, sft, sfb};
+  op.F = F;
+  op.sFt = (int)sFt;
+  op.sFb = (int)sFb;
+  op.f = f;
+  op.sft = (int)sft;
+  op.sfb = (int)sfb;
   op.C = C;
-  op.sCt = sCt;
-  op.sCb = sCb;
+  op.sCt = (int)sCt;
+  op.sCb = (int)sCb;
   op.c = c;
-  op.sct = sct;
-  op.scb = scb;
+  op.sct = (int)sct;
+  op.scb = (int)scb;
   op.x0 = x0;
   op.u0 = u0;
   op.lb = lb;
   op.ub = ub;
-  op.sbt = sbt;
-  op.sbb = sbb;
+  op.sbt = (int)sbt;
+  op.sbb = (int)sbb;
   op.lqr_iter = lqr_iter;
   op.eps = eps;
   op.best_cost_eps = best_cost_eps;
   op.not_improved_lim = not_improved_lim;
-  op.ws = ws;
+  op.ws = reinterpret_cast<float4*>(ws);
+  op.slots = slots;
+  op.resident = resident ? 1 : 0;
   op.x_out = x_out;
   op.u_out = u_out;
   op.stats = stats;
-  const int blocks = (B + mpc::kThreads - 1) / mpc::kThreads;
-  mpc::fused_ilqr_long_kernel<<<blocks, mpc::kThreads, 0,
+  const int blocks = (B + mpc::kExamples - 1) / mpc::kExamples;
+  mpc::fused_ilqr_long_kernel<<<blocks, mpc::kThreads, smem_bytes,
                                 (cudaStream_t)stream>>>(op, sched);
   return (int)cudaGetLastError();
 }

@@ -1,4 +1,5 @@
-// Pendulum step and its Jacobian for kernel K1, one example per thread.
+// Pendulum step and its Jacobian for kernels K1 and K3, each call one
+// example's in one thread.
 //
 // Device counterpart of mpc_tpu_torch/models/pendulum.py:soa_step and
 // soa_jacobian, with the same operations in the same order; the

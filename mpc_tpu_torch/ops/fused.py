@@ -7,14 +7,20 @@ solve in one Pallas kernel with a batch tile on the TPU's vector lanes,
 and whose ``_make_kernel_long`` (mpc_tpu/ops/fused.py:1126-1932) runs
 the same solve with the horizon as loops over per-t scratch.
 
-K1 is csrc/fused_ilqr.cu with ONE EXAMPLE PER THREAD: T, n_state=3 and
-n_ctrl=1 are compile-time constants, so the small loops unroll, and
-every per-example array (trajectory, gains, trial rollout) lives in the
-thread's registers and local memory.  K3 is csrc/fused_ilqr_long.cu,
-also one example per thread, with the trajectory and the gains in a
-workspace in global memory that the wrapper allocates, T a run-time
-argument, LinDx or pendulum dynamics, and the streaming kernel's
-trial-then-commit line search.
+Both kernels give one example to a TEAM of ``TEAM`` neighbouring lanes of
+a warp and keep only the two true recurrences of an iLQR iteration
+serial (the cost-to-go backwards, the rollout forwards): the line-search
+step sizes roll out side by side on the team's lanes, each into a
+trajectory slot of its own, and the winner's slot becomes the current
+trajectory.  K1 is csrc/fused_ilqr.cu: the pendulum, T a compile-time
+constant, the horizon resident in shared memory ([t, slot, example] of
+float4), the Jacobians computed in a pass parallel over t.  K3 is
+csrc/fused_ilqr_long.cu: LinDx or pendulum dynamics, T a run-time
+argument, the same slots in a workspace in global memory that the
+wrapper allocates and, where the horizon fits, the state the loops read
+in shared memory; each step's rows are loaded one step ahead of their use.
+The launch geometry is computed here (``k1_launch``, ``k3_launch``), so
+the CPU tests reach it.
 
 ``fused_solve_plain`` and ``fused_solve_long_plain`` are the plain
 versions of those kernels: each kernel scalar is a [B] tensor and the
@@ -41,20 +47,93 @@ import torch
 from ..models.pendulum import PendulumDx
 from ..types import GradMethods, LinDx, QuadCost, Solution
 
-# K1's horizon limit.  The kernel keeps 16*T floats per thread (x, u, the
-# best x and u, K, k and the trial rollout) in local memory, and CUDA
-# reserves that much for every resident thread slot of the card (2048
-# per SM x 132 SMs): 64*T bytes x 270,336 slots is 1.1 GB at T = 64 and
-# 4.4 GB at T = 256.  The horizon loops are not unrolled, so nvcc's time
-# does not grow with T.  Past 256 the memory reserved for local arrays
-# outgrows what a solve of that size should hold; longer horizons go to
-# the streaming kernel K3, whose workspace is 32*T bytes per example of
-# the batch it is given and nothing per idle thread slot.
-T_MAX = 256
-
 # Line-search schedules are passed to the kernel by value, up to this
-# many step sizes (csrc/fused_ilqr.cu:MPC_MAX_ALPHA).
+# many step sizes (csrc/fused_ilqr.cu:kMaxAlpha).
 MAX_ALPHA = 32
+
+# The launch geometry of K1 and K3 lives here alone: the sources get it
+# as nvcc defines (``kernel_defines``, ``long_kernel_defines``) and the
+# launchers take the slots and shared-memory bytes computed below.
+#
+# Lanes of a warp that own one example, in K1 and K3 (MPC_TEAM).
+# Lane g rolls out step size g of the line search, so a team as wide as
+# the usual schedules (3 to 5 step sizes) keeps its lanes busy; 8 lanes
+# would idle 3 to 5 of them through every rollout.
+TEAM = 4
+# Warps a block.  K1's block is one warp (its 32 / TEAM examples share
+# the block's shared memory, and the smaller the block, the longer the
+# horizon that fits); K3 keeps two slots a step and example there, not
+# ten, and takes four (2 and 8 measured slower, PERF.md).
+K1_WARPS = 1
+K3_WARPS = 4
+# Shared memory one block may use on an H100 (227 KB).
+SMEM_LIMIT = 232448
+# K1's shared-memory slots (float4) per step and example beside the
+# trajectories: (K, k), three rows of F, C tau + c
+# (csrc/fused_ilqr.cu:kSlotTraj).
+_K1_FIXED_SLOTS = 5
+# Floats a step of K3's block-wide copy of the batch-shared operands
+# (MPC_OP_ROW): C 16, c 4, F 12, f 3 (padded to 4), the two bounds, padded
+# to a multiple of 4.
+_K3_OPERAND_ROW = 40
+
+
+def _trial_lanes(n_alpha) -> int:
+    """The lanes of a team that roll out a trial, each into an (x, u)
+    slot of its own."""
+    return min(n_alpha, TEAM)
+
+
+def _blocks(B, examples) -> int:
+    return -(-B // examples)
+
+
+def k1_launch(T, B, n_alpha) -> dict:
+    """K1's launch geometry: team width, warps and examples a block,
+    blocks, the float4 slots per step and example and the dynamic shared
+    memory of a block, [T, slots, examples] of float4."""
+    examples = 32 * K1_WARPS // TEAM
+    slots = _K1_FIXED_SLOTS + 1 + _trial_lanes(n_alpha)
+    return dict(team=TEAM, warps=K1_WARPS, examples=examples,
+                blocks=_blocks(B, examples), slots=slots,
+                smem_bytes=T * slots * examples * 16)
+
+
+def k3_launch(T, B, n_alpha) -> dict:
+    """K3's launch geometry: team width, warps and examples a block,
+    blocks, where the state lives, and the workspace [T, slots, B] of
+    float4 in global memory.
+
+    The state that the horizon loops read at every step, the gains
+    (K, k) and the current (x, u), is two float4 a step and example: a
+    block of 32 * K3_WARPS / TEAM = 32 examples needs T * 2 * 16 * 32 =
+    1024 T bytes of shared memory, and its copy of the batch-shared
+    operands (``_K3_OPERAND_ROW`` = 40 floats a step) 160 T more, which
+    fits up to T = 232448 // 1184 = 196 (``K3_T_RESIDENT``).  Up to
+    there both are resident (``smem_bytes`` > 0) and the workspace holds
+    the trial slots only; past it ``smem_bytes`` is 0, the state takes
+    the workspace's last two slots and the operands are read from global
+    memory, so any T runs."""
+    examples = 32 * K3_WARPS // TEAM
+    smem = T * (2 * 16 * examples + 4 * _K3_OPERAND_ROW)
+    resident = smem <= SMEM_LIMIT
+    slots = _trial_lanes(n_alpha) + (0 if resident else 2)
+    return dict(team=TEAM, warps=K3_WARPS, examples=examples,
+                blocks=_blocks(B, examples), slots=slots,
+                smem_bytes=smem if resident else 0,
+                workspace_bytes=T * slots * B * 16)
+
+
+# K1's horizon limit: the longest T whose block fits in shared memory
+# with every lane of the team rolling out a trial.  A block holds
+# 32 * K1_WARPS / TEAM = 8 examples of (5 + 1 + TEAM) = 10 float4 slots a
+# step, 1280 bytes a step, so T_MAX = 232448 // 1280 = 181.  Longer
+# horizons go to the streaming kernel K3, whose workspace is in global
+# memory.
+T_MAX = SMEM_LIMIT // k1_launch(1, 1, MAX_ALPHA)['smem_bytes']
+# The longest horizon whose state and shared operands K3 keeps in shared
+# memory (196).
+K3_T_RESIDENT = SMEM_LIMIT // k3_launch(1, 1, 1)['smem_bytes']
 
 # Initial best cost / step norm, as in the TPU kernel
 # (mpc_tpu/ops/fused.py:719); any finite cost replaces it at iteration 0.
@@ -76,8 +155,8 @@ def routes_long(dynamics, T) -> bool:
 
     K3 takes every LinDx problem, because K1's source has no LinDx step
     (ROADMAP queue 2, K1 configurations), and the pendulum past
-    ``T_MAX``, which is K1's local-memory reservation and not a
-    threshold carried over from the TPU."""
+    ``T_MAX``, which is what K1's block can hold in shared memory and
+    not a threshold carried over from the TPU."""
     return isinstance(dynamics, LinDx) or T > T_MAX
 
 
@@ -176,29 +255,35 @@ def _op_counts(T, ns, nc, step_ops, jac_ops):
 
 
 def k1_flops(T, ns, nc, lqr_iter, n_alpha, batch=1):
-    """Arithmetic operations of K1 (each +, -, *, /, sqrt, sin, cos
-    counts one; compares and selects none).
+    """Arithmetic operations the solve K1 computes needs (each +, -, *,
+    /, sqrt, sin, cos counts one; compares and selects none): the least
+    work of the function, not of one implementation of it.
 
-    ``batch`` examples each roll out their initial trajectory; between
-    them they run ``lqr_iter`` outer iterations and ``n_alpha`` line-
-    search trial rollouts in total (pass the sums over the batch of
-    n_iter and of the kernel's trial count, so data-dependent early
-    stops are counted as they ran)."""
+    ``batch`` examples each roll out their initial trajectory and sum
+    its cost; between them they run ``lqr_iter`` outer iterations (one
+    Riccati sweep and one full-step norm each; the current cost is the
+    accepted trial's, so it is not summed again) and ``n_alpha`` line-
+    search trial rollouts with their costs in total: the trials up to
+    the selected step size, which a search has to run, and whose winner
+    is the new trajectory (pass the sums over the batch of n_iter and of
+    stats[5], the selected step size's index plus one summed over the
+    iterations, so data-dependent early stops are counted as they
+    ran)."""
     n = _op_counts(T, ns, nc, _STEP_OPS, _JAC_OPS)
-    old_cost = T * n['stage']
+    init = n['rollout'] + T * n['stage']
     trial = T * (n['ctrl'] + n['stage']) + n['rollout']
-    per_iter = n['riccati'] + old_cost + n['full_du'] + 4
-    return batch * n['rollout'] + lqr_iter * per_iter + n_alpha * trial
+    per_iter = n['riccati'] + n['full_du'] + 4
+    return batch * init + lqr_iter * per_iter + n_alpha * trial
 
 
 def k3_flops(T, ns, nc, lqr_iter, n_alpha, batch=1, *, lindx=True,
              has_f=False):
-    """Arithmetic operations of K3, counted as ``k1_flops`` counts K1's
-    from csrc/fused_ilqr_long.cu: the initial rollout with its cost, and
-    per outer iteration one Riccati sweep (a LinDx Jacobian is a load),
-    the cost-only trial rollouts that ran (``n_alpha``, summed over the
-    batch) and one commit rollout; the current cost is carried, not
-    recomputed."""
+    """Arithmetic operations the solve K3 computes needs, counted as
+    ``k1_flops`` counts K1's: the initial rollout with its cost, and per
+    outer iteration one Riccati sweep (a LinDx Jacobian is a load) and
+    the trial rollouts up to the selected step size (``n_alpha``:
+    stats[5] summed over the batch), whose winner is the new trajectory:
+    no rollout to commit it and no second sum of the current cost."""
     if lindx:
         step_ops = ns * (2 * (ns + nc) - 1) + (ns if has_f else 0)
         n = _op_counts(T, ns, nc, step_ops, 0)
@@ -206,8 +291,7 @@ def k3_flops(T, ns, nc, lqr_iter, n_alpha, batch=1, *, lindx=True,
         n = _op_counts(T, ns, nc, _STEP_OPS, _JAC_OPS)
     init = n['rollout'] + T * n['stage']
     trial = T * (n['ctrl'] + n['stage']) + n['rollout']
-    commit = T * n['ctrl'] + n['rollout']
-    per_iter = n['riccati'] + commit + n['full_du'] + 4
+    per_iter = n['riccati'] + n['full_du'] + 4
     return batch * init + lqr_iter * per_iter + n_alpha * trial
 
 
@@ -248,19 +332,24 @@ def _stage_cost(Ct, ct, tau):
 
 
 def fused_solve_plain(dynamics, params, C, c, x0, u0, lb, ub, *, alphas,
-                      lqr_iter, eps, best_cost_eps, not_improved_lim):
+                      lqr_iter, eps, best_cost_eps, not_improved_lim,
+                      recompute_cost=False):
     """The plain PyTorch version of kernel K1, on the kernel's operands.
 
     params [3] (g, m, l); C [T, 1 or B, 4, 4]; c [T, 1 or B, 4];
     x0 [B, 3]; u0 [T, B]; lb, ub None or [T, 1 or B]; ``alphas`` the
     line-search schedule as Python floats.  Returns x [T, B, 3],
     u [T, B, 1] and stats [6, B]: best cost, best full-step norm,
-    n_iter, n_qp_iter, alpha and the number of trial rollouts.
+    n_iter, n_qp_iter, alpha and the selected step size's index plus one
+    summed over the iterations.
 
     Same arithmetic in the same order as csrc/fused_ilqr.cu.  The kernel
-    stops each example's line search at its first passing step size;
-    here all lanes try each step size until every lane has passed, and
-    a lane keeps its first passing trial, which selects the same one.
+    rolls the step sizes out side by side and takes the first passing
+    one, else the last; here all examples try each step size until every
+    one has passed, and each keeps its first passing trial, which
+    selects the same one.  The current cost is carried from the accepted
+    trial, as in the kernel; ``recompute_cost=True`` sums it anew every
+    iteration instead, which gives the same bits (the tests hold that).
     """
     T = u0.shape[0]
     B = x0.shape[0]
@@ -284,6 +373,14 @@ def fused_solve_plain(dynamics, params, C, c, x0, u0, lb, ub, *, alphas,
     u = list(u0.unbind(0))
     for t in range(T - 1):
         x.append(list(step(tuple(x[t]), u[t], p)))
+
+    def total_cost(xs, us):
+        acc = stage(0, xs[0], us[0])
+        for t in range(1, T):
+            acc = acc + stage(t, xs[t], us[t])
+        return acc
+
+    cost_cur = total_cost(x, u)
     best_x, best_u = x, u
     best_cost = zero + BIG
     best_du = zero + BIG
@@ -351,9 +448,7 @@ def fused_solve_plain(dynamics, params, C, c, x0, u0, lb, ub, *, alphas,
             v = [(qt[i] + Qt[i][3] * kt) + Kt[i] * quk for i in range(ns)]
 
         # ---- line search: first passing step size, else the last -----
-        old_cost = stage(0, x[0], u[0])
-        for t in range(1, T):
-            old_cost = old_cost + stage(t, x[t], u[t])
+        old_cost = total_cost(x, u) if recompute_cost else cost_cur
         found = torch.zeros(B, dtype=torch.bool, device=x0.device)
         for ki, a in enumerate(alphas):
             nx = [x[0]]
@@ -407,6 +502,7 @@ def fused_solve_plain(dynamics, params, C, c, x0, u0, lb, ub, *, alphas,
         n_qp = n_qp + torch.where(active, zero + qp_cnt, zero)
         alpha_sel = torch.where(active, sel_alpha, alpha_sel)
         n_it = n_it + active.to(x0.dtype)
+        cost_cur = torch.where(active, sel_cost, cost_cur)
         active = active & (cur_du >= eps) & (nni <= not_improved_lim)
         if not bool(active.any()):
             break
@@ -432,20 +528,32 @@ _ARGTYPES = [
     _P, _P, _I64, _I64,                   # lb, ub, t stride, batch stride
     ctypes.POINTER(ctypes.c_float), ctypes.c_int,   # alphas (host), n
     ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_float,
+    ctypes.c_int, ctypes.c_int,           # slots, shared memory bytes
     _P, _P, _P,                           # x, u, stats
     _P,                                   # stream
 ]
 
 
+def kernel_defines(T, has_bounds) -> dict:
+    """The nvcc defines of the K1 build for this horizon and bounds."""
+    return {'MPC_T': T, 'MPC_HAS_BOUNDS': int(has_bounds), 'MPC_TEAM': TEAM,
+            'MPC_WARPS': K1_WARPS}
+
+
 def _kernel_lib(T, has_bounds):
     from . import _build
-    lib = _build.load('fused_ilqr', {'MPC_T': T,
-                                     'MPC_HAS_BOUNDS': int(has_bounds)})
-    fn = lib.mpc_fused_ilqr
+    fn = _build.load('fused_ilqr', kernel_defines(T, has_bounds)).mpc_fused_ilqr
     if fn.argtypes is None:
         fn.argtypes = _ARGTYPES
         fn.restype = ctypes.c_int
     return fn
+
+
+def _check_float4(name, *operands):
+    """The kernels read C, c and F sixteen bytes at a time."""
+    for a in operands:
+        if a is not None and a.data_ptr() % 16:
+            raise ValueError(f'{name} takes C, c and F aligned to 16 bytes')
 
 
 def _batch_stride(a, inner):
@@ -457,8 +565,10 @@ def fused_ilqr(dynamics, params, C, c, x0, u0, lb, ub, *, alphas, lqr_iter,
     """Run K1 on its operands (layouts as in ``fused_solve_plain``).
 
     On the CPU this is ``fused_solve_plain``.  On a CUDA tensor it
-    launches csrc/fused_ilqr.cu on the current stream and raises on any
-    operand the kernel does not take or on a launch error."""
+    launches csrc/fused_ilqr.cu on the current stream with the geometry
+    of ``k1_launch`` and raises on any operand the kernel does not take
+    or on a launch error (the launcher refuses, as an invalid value, an
+    array too large for its 32-bit indices)."""
     kw = dict(alphas=alphas, lqr_iter=lqr_iter, eps=eps,
               best_cost_eps=best_cost_eps,
               not_improved_lim=not_improved_lim)
@@ -486,6 +596,11 @@ def fused_ilqr(dynamics, params, C, c, x0, u0, lb, ub, *, alphas, lqr_iter,
         raise ValueError('K1 bound shapes do not match')
     if not 0 < len(alphas) <= MAX_ALPHA:
         raise ValueError(f'K1 takes 1 to {MAX_ALPHA} step sizes')
+    _check_float4('K1', C, c)
+    geo = k1_launch(T, B, len(alphas))
+    if geo['smem_bytes'] > SMEM_LIMIT:
+        raise ValueError(f'K1 holds T <= {T_MAX} in shared memory; T={T} '
+                         'goes to K3 (routes_long)')
     fn = _kernel_lib(T, has_bounds)
     x = torch.empty((T, B, 3), dtype=torch.float32, device=x0.device)
     u = torch.empty((T, B, 1), dtype=torch.float32, device=x0.device)
@@ -506,6 +621,7 @@ def fused_ilqr(dynamics, params, C, c, x0, u0, lb, ub, *, alphas, lqr_iter,
                  x0.data_ptr(), u0.data_ptr(), *bounds,
                  a_host, len(alphas), int(lqr_iter), float(eps),
                  float(best_cost_eps), float(not_improved_lim),
+                 geo['slots'], geo['smem_bytes'],
                  x.data_ptr(), u.data_ptr(), stats.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f'K1 launch failed with cudaError_t {err}')
@@ -519,7 +635,7 @@ def fused_ilqr(dynamics, params, C, c, x0, u0, lb, ub, *, alphas, lqr_iter,
 
 def fused_solve_long_plain(dynamics, params, F, f, C, c, x0, u0, lb, ub, *,
                            alphas, lqr_iter, eps, best_cost_eps,
-                           not_improved_lim):
+                           not_improved_lim, trace=None):
     """The plain PyTorch version of kernel K3, on the kernel's operands.
 
     ``dynamics`` is a ``PendulumDx`` with ``params`` [3] (F and f None),
@@ -528,15 +644,23 @@ def fused_solve_long_plain(dynamics, params, F, f, C, c, x0, u0, lb, ub, *,
     u0 [T, B]; lb, ub None or [T, 1 or B]; ``alphas`` the line-search
     schedule as Python floats.  Returns x [T, B, 3], u [T, B, 1] and
     stats [6, B]: best cost, best full-step norm, n_iter, n_qp_iter,
-    alpha and the number of cost-only trial rollouts.
+    alpha and the selected step size's index plus one summed over the
+    iterations.
 
     Same arithmetic in the same order as csrc/fused_ilqr_long.cu: the
-    current cost is carried from the last accepted trial, the trials
-    keep only their cost, and one commit rollout with each lane's
-    selected step size writes the new trajectory.  The kernel stops each
-    example's trials at its first passing step size; here all lanes try
-    each step size until every active lane has passed, and a lane keeps
-    its first passing trial, which selects the same one.
+    current cost is carried from the last accepted trial.  The kernel
+    rolls the step sizes out side by side, each trial keeping its
+    trajectory, and the first passing one (else the last) becomes the
+    current trajectory; here the trials keep only their cost, all
+    examples try each step size until every active one has passed, and
+    one more rollout with each example's selected step size writes the
+    new trajectory: the same operations on the same numbers, so the same
+    trajectory.
+
+    ``trace``, a list, receives one (iteration, step-size index, current
+    cost, trial cost, tried, full-step norm) per trial, ``tried`` marking
+    the examples still searching: the decisions of the line search, for
+    a caller that wants to know where they were ties of round-off.
     """
     T = u0.shape[0]
     B = x0.shape[0]
@@ -684,6 +808,9 @@ def fused_solve_long_plain(dynamics, params, F, f, C, c, x0, u0, lb, ub, *,
             else:
                 sel_cost = torch.where(take, cost_a, sel_cost)
                 sel_alpha = torch.where(take, zero + a, sel_alpha)
+            if trace is not None:
+                trace.append((it, ki, old_cost, cost_a, take & active,
+                              full_du))
             found = found | (take & (cost_a <= old_cost))
             if bool((found | ~active).all()):
                 break
@@ -741,26 +868,28 @@ _ARGTYPES_LONG = [
     _P, _P, _I64, _I64,                   # lb, ub, t stride, batch stride
     ctypes.POINTER(ctypes.c_float), ctypes.c_int,   # alphas (host), n
     ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_float,
-    _P, _P, _P, _P,                       # workspace, x, u, stats
+    _P, ctypes.c_int, ctypes.c_int,       # workspace, its slots, shared
+                                          # memory bytes
+    _P, _P, _P,                           # x, u, stats
     _P,                                   # stream
 ]
 
 
 def long_kernel_defines(lindx, has_bounds) -> dict:
     """The nvcc defines of the K3 build for these dynamics and bounds."""
-    return {'MPC_DYN': 0 if lindx else 1, 'MPC_HAS_BOUNDS': int(has_bounds)}
+    return {'MPC_DYN': 0 if lindx else 1, 'MPC_HAS_BOUNDS': int(has_bounds),
+            'MPC_TEAM': TEAM, 'MPC_WARPS': K3_WARPS,
+            'MPC_OP_ROW': _K3_OPERAND_ROW}
 
 
 def _kernel_lib_long(lindx, has_bounds):
     from . import _build
-    lib = _build.load('fused_ilqr_long',
-                      long_kernel_defines(lindx, has_bounds))
-    fn = lib.mpc_fused_ilqr_long
+    fn = _build.load('fused_ilqr_long',
+                     long_kernel_defines(lindx, has_bounds)).mpc_fused_ilqr_long
     if fn.argtypes is None:
         fn.argtypes = _ARGTYPES_LONG
         fn.restype = ctypes.c_int
-        lib.mpc_fused_ilqr_long_rows.restype = ctypes.c_int
-    return fn, lib.mpc_fused_ilqr_long_rows()
+    return fn
 
 
 def _strided(a, inner):
@@ -772,14 +901,25 @@ def _strided(a, inner):
     return a.data_ptr(), a.shape[1] * inner, _batch_stride(a, inner)
 
 
+def k3_workspace(geo, T, B, device):
+    """K3's workspace for the geometry ``geo`` of ``k3_launch``: the
+    trial slots (and the state's two where it is not resident),
+    [t, slot, b] of float4, so that the 8 examples of a warp share one
+    128-byte line per slot."""
+    return torch.empty((T, geo['slots'], B, 4), dtype=torch.float32,
+                       device=device)
+
+
 def fused_ilqr_long(dynamics, params, F, f, C, c, x0, u0, lb, ub, *, alphas,
                     lqr_iter, eps, best_cost_eps, not_improved_lim):
     """Run K3 on its operands (layouts as in ``fused_solve_long_plain``).
 
     On the CPU this is ``fused_solve_long_plain``.  On a CUDA tensor it
-    allocates the [T, 8, B] workspace, launches
+    allocates the workspace of ``k3_launch``, launches
     csrc/fused_ilqr_long.cu on the current stream and raises on any
-    operand the kernel does not take or on a launch error."""
+    operand the kernel does not take or on a launch error (the launcher
+    refuses, as an invalid value, an array or a workspace too large for
+    its 32-bit indices)."""
     kw = dict(alphas=alphas, lqr_iter=lqr_iter, eps=eps,
               best_cost_eps=best_cost_eps,
               not_improved_lim=not_improved_lim)
@@ -817,15 +957,15 @@ def fused_ilqr_long(dynamics, params, F, f, C, c, x0, u0, lb, ub, *, alphas,
         raise ValueError('K3 bound shapes do not match')
     if not 0 < len(alphas) <= MAX_ALPHA:
         raise ValueError(f'K3 takes 1 to {MAX_ALPHA} step sizes')
-    fn, rows = _kernel_lib_long(lindx, has_bounds)
+    _check_float4('K3', C, c, F)
+    fn = _kernel_lib_long(lindx, has_bounds)
     empty = functools.partial(torch.empty, dtype=torch.float32,
                               device=x0.device)
     x, u, stats = empty((T, B, 3)), empty((T, B, 1)), empty((6, B))
     if B == 0:
         return x, u, stats
-    # the current trajectory and the gains, [t, row, b]: a warp's 32
-    # examples share one 128-byte line per row
-    ws = empty((T, rows, B))
+    geo = k3_launch(T, B, len(alphas))
+    ws = k3_workspace(geo, T, B, x0.device)
     a_host = (ctypes.c_float * len(alphas))(*alphas)
     lb_ptr, sbt, sbb = _strided(lb, 1)
     with torch.cuda.device(x0.device):
@@ -836,7 +976,8 @@ def fused_ilqr_long(dynamics, params, F, f, C, c, x0, u0, lb, ub, *, alphas,
                  lb_ptr, ub.data_ptr() if has_bounds else None, sbt, sbb,
                  a_host, len(alphas), int(lqr_iter), float(eps),
                  float(best_cost_eps), float(not_improved_lim),
-                 ws.data_ptr(), x.data_ptr(), u.data_ptr(),
+                 ws.data_ptr(), geo['slots'], geo['smem_bytes'],
+                 x.data_ptr(), u.data_ptr(),
                  stats.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f'K3 launch failed with cudaError_t {err}')

@@ -14,8 +14,8 @@ linear pass.  ``_make_bwd_kernel_long`` (mpc_tpu/ops/fused_bwd.py:
 scratch, and with the gradients of batch-shared dynamics reduced in the
 kernel as those of a batch-shared cost are.
 
-On the H100 K2 is csrc/fused_kkt_bwd.cu with ONE EXAMPLE PER THREAD, as
-K1, and per-example dynamics.  K4 is csrc/fused_kkt_bwd_long.cu: the
+On the H100 K2 is csrc/fused_kkt_bwd.cu with ONE EXAMPLE PER THREAD and
+per-example dynamics.  K4 is csrc/fused_kkt_bwd_long.cu: the
 gains and differentials in a workspace in global memory that the
 wrapper allocates, T a run-time argument, and F shared or per example.
 A batch-shared cost or batch-shared dynamics have their gradients
@@ -51,9 +51,9 @@ from .diff import ACTIVE_TOL
 # (the gains K, k and the differentials dx, du of every step; the costate
 # pass consumes lambda on the fly, so it is never stored), and CUDA
 # reserves that much for every resident thread slot of the card (2048
-# per SM x 132 SMs).  At T = 512 that is 16 KB a thread, 4.4 GB in all:
-# the reservation K1 accepts at its own T_MAX = 256 (ops/fused.py).  The
-# loops over t are not unrolled, so nvcc's time does not grow with T.
+# per SM x 132 SMs).  At T = 512 that is 16 KB a thread, 4.4 GB in all,
+# the most a backward of that size should hold.  The loops over t are
+# not unrolled, so nvcc's time does not grow with T.
 # Longer horizons go to K4, whose workspace is 16*T bytes per example of
 # the batch it is given.
 T_MAX_BWD = 512

@@ -9,9 +9,9 @@ there without it:
 Tolerance: the float32 bang-bang tail of tests/test_fused_fulltile.py
 (mean |du| < 1e-4, under 0.5% of entries off by more than 1e-3): nvcc's
 FMA contraction is the only arithmetic difference, and it flips a few
-switch steps.  At T = T_MAX the two float32 solves drift further apart
-(measured mean |du| 2.8e-4 after 3 unconverged iterations over 256
-steps), so there each is held against the float64 plain run instead:
+switch steps.  Over a long horizon (T = T_MAX) two float32 solves of
+the pendulum drift further apart, so there each is held against the
+float64 plain run instead:
 the kernel may sit at most twice as far from it as the plain float32
 run does.
 
@@ -30,7 +30,14 @@ tolerance tests/test_fused_stream.py holds every entry of the TPU kernel
 to at B=16; and on the pendulum past K1's horizon against the float64
 plain run, as K1 at T_MAX.  K4 (the streaming KKT backward) is held as K2 is, for the four
 mixes of shared and batched cost and dynamics, with and without f, and
-past K2's horizon.  This file imports nothing of JAX.
+past K2's horizon.
+
+K1 and K3 give each example a team of lanes, so both are also run with
+fewer, as many and more step sizes than a team has lanes, with eps > 0
+(the examples of one warp then stop at different iterations), at B = 1
+and at batches that do not fill a block (bitwise equal to the same
+examples inside a large batch), and on the reversed batch (bitwise).
+This file imports nothing of JAX.
 """
 
 import numpy as np
@@ -96,6 +103,112 @@ def test_k1_matches_plain(cuda, T, B, bounded):
         assert k_far <= 2 * p_far + 1e-6, (k_far, p_far)
     assert torch.equal(sk[2], sp[2])          # n_iter
     assert torch.equal(sk[3], sp[3])          # n_qp_iter
+
+
+def _assert_near_f64(uk, up, u64):
+    """Where two float32 solves part, the kernel may sit at most twice
+    as far from the float64 plain run as the plain float32 run does."""
+    k_far = float((uk.double() - u64).abs().mean())
+    p_far = float((up.double() - u64).abs().mean())
+    assert k_far <= 2 * p_far + 1e-6, (k_far, p_far)
+
+
+def _assert_counts(sk, sp, mixed, need_real=True):
+    """n_iter equals the plain run's in 99% of the examples (a full-step
+    norm within round-off of eps may fall on the other side), and so
+    does the summed selected index + 1 among the examples whose steps
+    are real.  Near convergence (a full-step norm under 1e-2 in float32)
+    a trial cost ties the current one to round-off and either step size
+    is right, so those examples are left out; with eps = 0 some examples
+    must remain (``need_real``), with eps > 0 every example may have
+    converged."""
+    assert float((sk[2] == sp[2]).double().mean()) >= 0.99
+    real = (sk[1] > 1e-2) & (sp[1] > 1e-2)
+    assert bool(real.any()) or not need_real
+    if bool(real.any()):
+        same = (sk[5] == sp[5])[real]
+        assert float(same.double().mean()) >= 0.98
+    if mixed:
+        assert float(sk[2].min()) < float(sk[2].max())
+
+
+def _batch_map(ops, x0_fn, batched_fn):
+    """``ops`` with x0 [B, 3] through ``x0_fn`` and every other operand
+    with a batch extent [T', B, ...] through ``batched_fn``."""
+    B = ops['x0'].shape[0]
+    out = dict(ops, x0=x0_fn(ops['x0']).contiguous())
+    for k, v in ops.items():
+        if k != 'x0' and torch.is_tensor(v) and v.dim() >= 2 \
+                and v.shape[1] == B:
+            out[k] = batched_fn(v).contiguous()
+    return out
+
+
+def _assert_position_free(kernel, ops, full):
+    """Small batches alone and the reversed batch give, bitwise, what
+    the same examples give inside the full batch."""
+    for n in (1, 7, 33):
+        alone = kernel(**_batch_map(ops, lambda a: a[:n], lambda a: a[:, :n]))
+        for a, b in zip(alone, full):
+            assert torch.equal(a, b[:, :n])
+    back = kernel(**_batch_map(ops, lambda a: a.flip(0), lambda a: a.flip(1)))
+    for a, b in zip(back, full):
+        assert torch.equal(a.flip(1), b)
+
+
+@pytest.mark.parametrize('eps', [0.0, 1e-2])
+@pytest.mark.parametrize('n_alpha', [1, 3, 5, 6])
+def test_k1_teams(cuda, n_alpha, eps):
+    T, B = 10, 2050
+    x0, dx, cost = _problem(cuda, B, T)
+    cfg = _cfg(T, lqr_iter=12 if eps > 0 else 3, eps=eps,
+               linesearch_decay=0.5, max_linesearch_iter=n_alpha)
+    ops = fused.k1_operands(cfg, x0, cost, dx, u_lower=-2.0, u_upper=2.0)
+    full = fused.fused_ilqr(**ops)
+    _, up, sp = fused.fused_solve_plain(**ops)
+    assert all(torch.isfinite(a).all() for a in full)
+    if eps > 0:
+        # examples that stop an iteration apart part two float32 solves
+        dx64 = PendulumDx(device=cuda, dtype=torch.float64)
+        _, u64, _ = fused.fused_solve_plain(**fused.k1_operands(
+            cfg, x0.double(), mt.QuadCost(cost.C.double(), cost.c.double()),
+            dx64, u_lower=-2.0, u_upper=2.0))
+        _assert_near_f64(full[1], up, u64)
+    else:
+        _assert_tail(full[1], up)
+    _assert_counts(full[2], sp, mixed=eps > 0, need_real=eps == 0)
+    _assert_position_free(fused.fused_ilqr, ops, full)
+
+
+@pytest.mark.parametrize('name,T', [('K1', 20), ('K3', 40)])
+def test_line_search_past_the_team(cuda, name, T):
+    """Cheap control and wide bounds on the pendulum: from the second
+    iteration on the full step overshoots, so the search goes past the
+    team's width into a second round.  The kernel is judged against the
+    float64 plain run."""
+    operands, kernel, plain = {
+        'K1': (fused.k1_operands, fused.fused_ilqr, fused.fused_solve_plain),
+        'K3': (fused.k3_operands, fused.fused_ilqr_long,
+               fused.fused_solve_long_plain)}[name]
+    B = 1024
+    x0, dx, cost = _problem(cuda, B, T)
+    scale = torch.tensor([1.0, 1.0, 0.1, 0.1], device=cuda)
+    cost = mt.QuadCost(cost.C * scale, cost.c)
+    cfg = _cfg(T, lqr_iter=3, linesearch_decay=0.5, max_linesearch_iter=6)
+    ops = operands(cfg, x0, cost, dx, u_lower=-20.0, u_upper=20.0)
+    _, uk, sk = kernel(**ops)
+    _, up, sp = plain(**ops)
+    # the count of one iteration is the difference of two solves that
+    # differ by that iteration
+    upto = [kernel(**dict(ops, lqr_iter=i))[2][5] for i in (1, 2)]
+    per_iteration = torch.stack([upto[1] - upto[0], sk[5] - upto[1]])
+    assert bool((per_iteration > fused.TEAM).any())
+    _assert_counts(sk, sp, mixed=False)
+    dx64 = PendulumDx(device=cuda, dtype=torch.float64)
+    _, u64, _ = plain(**operands(
+        cfg, x0.double(), mt.QuadCost(cost.C.double(), cost.c.double()),
+        dx64, u_lower=-20.0, u_upper=20.0))
+    _assert_near_f64(uk, up, u64)
 
 
 def test_k1_matches_plain_on_the_training_path(cuda):
@@ -201,7 +314,8 @@ def test_differentiable_solve_launches_k1_and_k2(cuda):
 # the streaming kernels K3 and K4
 # ---------------------------------------------------------------------------
 
-def _lindx_problem(device, T, B, batched, has_f, seed=0):
+def _lindx_problem(device, T, B, batched, has_f, seed=0,
+                   dtype=torch.float32):
     """A stable rotation-like system (0.97 x an orthogonal matrix) with a
     random input column, per-example costs, as
     tests/test_fused_stream.py's LinDx problems."""
@@ -218,7 +332,7 @@ def _lindx_problem(device, T, B, batched, has_f, seed=0):
 
     def t(a):
         return None if a is None else torch.tensor(
-            a, dtype=torch.float32, device=device)
+            a, dtype=dtype, device=device)
     return t(rng.randn(B, 3)), mt.LinDx(t(F), t(f)), mt.QuadCost(t(C), t(c))
 
 
@@ -240,8 +354,35 @@ def test_k3_matches_plain_lindx(cuda, T, B, batched, has_f):
     assert torch.equal(sk[3], sp[3])          # n_qp_iter
 
 
+@pytest.mark.parametrize('eps', [0.0, 1e-2])
+@pytest.mark.parametrize('n_alpha', [1, 3, 5, 6])
+def test_k3_teams(cuda, n_alpha, eps):
+    T, B = 60, 2050
+    x0, dyn, cost = _lindx_problem(cuda, T, B, False, True)
+    cfg = _cfg(T, lqr_iter=8 if eps > 0 else 3, eps=eps,
+               linesearch_decay=0.5, max_linesearch_iter=n_alpha)
+    ops = fused.k3_operands(cfg, x0, cost, dyn, u_lower=-0.6, u_upper=0.6)
+    full = fused.fused_ilqr_long(**ops)
+    _, up, sp = fused.fused_solve_long_plain(**ops)
+    assert all(torch.isfinite(a).all() for a in full)
+    if eps > 0:
+        # more iterations, examples that stop an iteration apart, ties
+        # near convergence: judged against the float64 plain run
+        x64, dyn64, cost64 = _lindx_problem(cuda, T, B, False, True,
+                                            dtype=torch.float64)
+        _, u64, _ = fused.fused_solve_long_plain(**fused.k3_operands(
+            cfg, x64, cost64, dyn64, u_lower=-0.6, u_upper=0.6))
+        _assert_near_f64(full[1], up, u64)
+    else:
+        d = (full[1] - up).abs()
+        assert float(d.mean()) < 1e-5, float(d.mean())
+        assert float((d > 5e-5).double().mean()) < 1e-3
+    _assert_counts(full[2], sp, mixed=False, need_real=eps == 0)
+    _assert_position_free(fused.fused_ilqr_long, ops, full)
+
+
 def test_k3_matches_plain_pendulum_past_t_max(cuda):
-    T, B = fused.T_MAX + 44, 256
+    T, B = 300, 256
     x0, dx, cost = _problem(cuda, B, T)
     cfg = _cfg(T, lqr_iter=2, max_linesearch_iter=2, linesearch_decay=0.2)
     ops = fused.k3_operands(cfg, x0, cost, dx, u_lower=-2.0, u_upper=2.0)

@@ -357,7 +357,7 @@ def test_k3_bound_counts():
     assert fused.k3_flops(T, 3, 1, 8, 12, batch=2) == 2 * per_solve
     assert 1e5 < per_solve < 5e5
     assert fused.k3_flops(T, 3, 1, 4, 6, has_f=True) - per_solve \
-        == 3 * (T - 1) * (1 + 4 + 6)
+        == 3 * (T - 1) * (1 + 6)       # the initial rollout and 6 trials
     assert fused.k3_flops(T, 3, 1, 4, 6, lindx=False) > per_solve
     F, _, C, c, x0 = _lindx_problem(T, B, False, False, dtype=np.float32)
     ops = fused.k3_operands(
