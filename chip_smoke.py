@@ -161,9 +161,9 @@ def phase_build():
     from mpc_tpu_torch.ops import _build, fused, fused_bwd
     specs = [('fused_ilqr', fused.kernel_defines(T, True)),
              ('fused_ilqr', fused.kernel_defines(TRAIN_T, True))]
-    specs += [('fused_kkt_bwd', {'MPC_T': TRAIN_T, 'MPC_HAS_I': has_I,
-                                 'MPC_COST_SHARED': shared})
-              for shared in (1, 0) for has_I in (1, 0)]
+    specs += [('fused_kkt_bwd',
+               fused_bwd.kernel_defines(TRAIN_T, has_I, cost_shared))
+              for cost_shared in (True, False) for has_I in (True, False)]
     specs += [('fused_ilqr_long', fused.long_kernel_defines(lindx, True))
               for lindx in (True, False)]
     specs += [('fused_kkt_bwd_long',
@@ -181,13 +181,19 @@ def phase_build():
     for what, geo in (
             ('K1 headline', fused.k1_launch(T, B, 5)),
             ('K1 config 4, B=1024', fused.k1_launch(TRAIN_T, 1024, 3)),
-            ('K3 long', fused.k3_launch(LONG_T, LONG_B, 3))):
+            ('K3 long', fused.k3_launch(LONG_T, LONG_B, 3)),
+            ('K2 config 4, B=1024', fused_bwd.k2_launch(TRAIN_T, 1024)),
+            ('K2 config 4, B=8192', fused_bwd.k2_launch(TRAIN_T, 8192)),
+            ('K4 long', fused_bwd.k4_launch(LONG_T, LONG_B)),
+            (f'K4 past K4_T_RESIDENT = {fused_bwd.K4_T_RESIDENT}',
+             fused_bwd.k4_launch(fused_bwd.K4_T_RESIDENT + 1, 2050))):
         log(f'  launch, {what}: {geo}')
 
 
 def design(name, defines, geo):
-    """What a team kernel's design is, for its entry of the kernels
-    line: the launch geometry and the registers ptxas reports."""
+    """What a kernel's design is, for its entry of the kernels line: the
+    launch geometry and the registers ptxas reports (the most of the
+    library's kernels)."""
     import re
     from mpc_tpu_torch.ops import _build
     regs = re.findall(r'Used (\d+) registers',
@@ -566,6 +572,58 @@ def hold_bwd(torch, label, what, kernel, plain, o, **kw):
     return kk, max_err
 
 
+def hold_bwd_slices(torch, label, what, kernel, o, full, sizes=(1, 7, 33),
+                    **kw):
+    """The first n examples alone (n = 1, and batches that do not fill a
+    block) must give, bitwise, the per-example outputs (dx_init, and
+    dC, dc, dF, df where their leaf is batched) that the same examples
+    give inside the batch of ``full``; reduced outputs are held by
+    ``hold_bwd`` and the repeated launches."""
+    B = o['x_star'].shape[1]
+    for n in sizes:
+        part = {k: (v[:, :n].contiguous() if v is not None and v.dim() >= 2
+                    and v.shape[1] == B else v) for k, v in o.items()}
+        alone = kernel(**part, **kw)
+        for name, a, f in zip(BWD_NAMES, alone, full):
+            if f is None:
+                continue
+            if name == 'dx_init':
+                same = torch.equal(a, f[:n])
+            elif f.dim() >= 3 and f.shape[1] == B:
+                # one example of a batched leaf comes back as a shared
+                # one's: its "sum" over the batch
+                same = torch.equal(a.reshape(f[:, :n].shape), f[:, :n])
+            else:
+                continue
+            if not same:
+                raise AssertionError(f'{what}: {label} {name} of B={n} alone '
+                                     'differs from the same examples inside '
+                                     f'B={B}')
+    log(f'    B in {sizes} alone: per-example outputs bitwise equal to the '
+        f'same examples inside B={B}')
+
+
+def bwd_random_operands(torch, device, T, n, seed=0):
+    """A random problem for the backward kernels with shared C, c and F:
+    SPD C, contractive dynamics (so the costate stays finite in float32
+    over long horizons), ~30% of the controls pinned on a bound, as
+    tests/test_torch_gpu.py's backward problems."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    Cr = rng.randn(T, 1, 4, 4)
+    C = np.einsum('tbij,tbkj->tbik', Cr, Cr) + np.eye(4)
+    F = 0.05 * rng.randn(T - 1, 1, 3, 4)
+    F[..., :3] += 0.9 * np.eye(3)
+    us = rng.randn(T, n, 1)
+    pinned = rng.rand(T, n, 1) < 0.3
+    arrays = dict(C=C, c=rng.randn(T, 1, 4), F=F, x_star=rng.randn(T, n, 3),
+                  u_star=np.where(pinned, np.sign(us), us),
+                  dl_dx=rng.randn(T, n, 3), dl_du=rng.randn(T, n, 1),
+                  I_mask=pinned.astype(np.float64))
+    return {k: torch.tensor(v, dtype=torch.float32, device=device)
+            for k, v in arrays.items()}
+
+
 def phase_compare_bwd(torch, device, n=1024):
     """K2 against fused_kkt_backward_plain on the card, same-primal;
     returns the largest |difference|."""
@@ -610,8 +668,13 @@ def phase_compare_bwd(torch, device, n=1024):
                     raise AssertionError('reduced dC/dc differ between two '
                                          'launches')
                 log('    two launches: reduced dC, dc bitwise equal')
-    o = bwd_case(bwd_operands(torch, device, 2050), True, True)
-    check('B=2050, shared cost, with active set', o)
+    base = bwd_operands(torch, device, 2050)
+    for cost_shared in (True, False):
+        o = bwd_case(base, cost_shared, True)
+        what = (f'B=2050, {"shared" if cost_shared else "batched"} cost, '
+                'with active set')
+        hold_bwd_slices(torch, 'K2', what, fused_bwd.fused_kkt_backward, o,
+                        check(what, o))
     phase_tf32(torch, 'config 4', lambda: train_grads(torch, device, n))
     return max_err
 
@@ -1261,9 +1324,22 @@ def phase_compare_bwd_long(torch, device):
     check('shared cost, shared dynamics, with f', shared, True)
     check('shared cost, shared dynamics, no f, without active set',
           bwd_long_case(base, True, True, has_I=False), False)
-    check('B=2050, shared cost, shared dynamics, no f',
-          bwd_long_case(bwd_long_operands(torch, device, 2050), True, True),
-          False)
+    base = bwd_long_operands(torch, device, 2050)
+    for shared in (True, False):
+        o = bwd_long_case(base, shared, shared)
+        what = f'B=2050, {"shared" if shared else "batched"} cost and dynamics'
+        hold_bwd_slices(torch, 'K4', what, fused_bwd.fused_kkt_backward_long,
+                        o, check(f'{what}, with f', o, True), has_f=True)
+    # the state in shared memory up to K4_T_RESIDENT, past it in the
+    # workspace in global memory
+    for T in (fused_bwd.K4_T_RESIDENT, fused_bwd.K4_T_RESIDENT + 1):
+        geo = fused_bwd.k4_launch(T, 2050)
+        where = 'shared memory' if geo['resident'] else 'global memory'
+        rand = bwd_random_operands(torch, device, T, 2050)
+        for shared in (True, False):
+            check(f'T={T} (state in {where}), random problem, '
+                  f'{"shared" if shared else "batched"} cost and dynamics',
+                  bwd_long_case(rand, shared, shared), True)
     phase_tf32(torch, 'long', lambda: long_train_grads(torch, device))
     return max_err
 
@@ -1440,15 +1516,35 @@ def phase_time_long(torch, device):
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by)
 
 
+def kernel_device_us(torch, launch, n=20):
+    """The device time one call of ``launch`` spends in each CUDA kernel,
+    by the kernel's name (us), from torch.profiler over ``n`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+    launch()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            launch()
+        torch.cuda.synchronize()
+    return {e.key: e.device_time_total / n for e in prof.key_averages()
+            if e.device_time_total > 0}
+
+
 def phase_time_bwd_long(torch, device):
     """K4 (shared cost, shared dynamics, no f, with the active set, as
-    on the long training path) timed from a CUDA graph, its bound, and
-    the plain version on the card."""
+    on the long training path) timed from a CUDA graph, its main kernel
+    and its block-order sums apart (torch.profiler), its bound, and the
+    plain version on the card."""
     from mpc_tpu_torch.ops import fused_bwd
     o = bwd_long_operands(torch, device)
-    ms, eager_ms = graph_ms(
-        torch, lambda: fused_bwd.fused_kkt_backward_long(**o, has_f=False),
-        reps=5, per_graph=4)
+
+    def launch():
+        return fused_bwd.fused_kkt_backward_long(**o, has_f=False)
+    ms, eager_ms = graph_ms(torch, launch, reps=5, per_graph=4)
+    split = kernel_device_us(torch, launch)
+    main_ms = sum(v for k, v in split.items() if 'kkt_bwd_kernel' in k) / 1e3
+    sums_ms = sum(v for k, v in split.items()
+                  if 'reduce_partials' in k) / 1e3
     plain_ms = event_ms(
         torch,
         lambda: fused_bwd.fused_kkt_backward_long_plain(**o, has_f=False))
@@ -1457,10 +1553,12 @@ def phase_time_bwd_long(torch, device):
                                 o['I_mask'], has_f=False)
     bound_ms, by = bound(flops, nbytes)
     log(f'[time-bwd-long] K4 B={LONG_B}, T={LONG_T}: {ms:.4f} ms (from a '
-        f'CUDA graph; {eager_ms:.4f} ms a call from Python), plain '
-        f'{plain_ms:.2f} ms; {flops:.4e} operations, {nbytes} bytes; '
-        f'bound {bound_ms:.5f} ms by {by}')
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by)
+        f'CUDA graph; {eager_ms:.4f} ms a call from Python; main kernel '
+        f'{main_ms:.4f} ms, block-order sums {sums_ms:.4f} ms from '
+        f'torch.profiler), plain {plain_ms:.2f} ms; {flops:.4e} operations, '
+        f'{nbytes} bytes; bound {bound_ms:.5f} ms by {by}')
+    return dict(ms=ms, main_ms=main_ms, sums_ms=sums_ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=by)
 
 
 def main():
@@ -1513,7 +1611,7 @@ def main():
     # B=4096), training ([train], config 4 at B=1024) and long-horizon
     # training ([train-long], T=160 at B=4096); launches are that path's
     # count, the times and bound that path's shape
-    from mpc_tpu_torch.ops import fused
+    from mpc_tpu_torch.ops import fused, fused_bwd
     k1 = {'route': 'cuda', 'source': 'mpc_tpu_torch/csrc/fused_ilqr.cu',
           'replaces': 'mpc_tpu/ops/fused.py:617',
           'tolerance': f'mean|du|<{TAIL_MEAN}, '
@@ -1531,6 +1629,9 @@ def main():
         {'name': 'fused_kkt_bwd', 'path': 'training', 'route': 'cuda',
          'source': 'mpc_tpu_torch/csrc/fused_kkt_bwd.cu',
          'replaces': 'mpc_tpu/ops/fused_bwd.py:251',
+         'design': design('fused_kkt_bwd',
+                          fused_bwd.kernel_defines(TRAIN_T, True, True),
+                          fused_bwd.k2_launch(TRAIN_T, 1024)),
          'launches': k2_train, 'max_abs_err': bwd_err,
          'tolerance': f'max|K2-plain|/max|plain|<{BWD_TOL} per gradient',
          'library_ms': None, **timing_bwd},
@@ -1549,6 +1650,9 @@ def main():
          'route': 'cuda',
          'source': 'mpc_tpu_torch/csrc/fused_kkt_bwd_long.cu',
          'replaces': 'mpc_tpu/ops/fused_bwd.py:413',
+         'design': design('fused_kkt_bwd_long',
+                          fused_bwd.long_kernel_defines(True, True),
+                          fused_bwd.k4_launch(LONG_T, LONG_B)),
          'launches': k4_train, 'max_abs_err': bwd_long_err,
          'tolerance': f'max|K4-plain|/max|plain|<{BWD_TOL} per gradient',
          'library_ms': None, **timing_bwd_long}]}))

@@ -14,14 +14,22 @@ linear pass.  ``_make_bwd_kernel_long`` (mpc_tpu/ops/fused_bwd.py:
 scratch, and with the gradients of batch-shared dynamics reduced in the
 kernel as those of a batch-shared cost are.
 
-On the H100 K2 is csrc/fused_kkt_bwd.cu with ONE EXAMPLE PER THREAD and
-per-example dynamics.  K4 is csrc/fused_kkt_bwd_long.cu: the
-gains and differentials in a workspace in global memory that the
-wrapper allocates, T a run-time argument, and F shared or per example.
-A batch-shared cost or batch-shared dynamics have their gradients
-reduced over the batch inside the kernel's source, deterministically:
-each block sums its threads in a fixed order and a second pass sums the
-blocks in order.
+On the H100 both are one kernel, csrc/kkt_bwd.cuh: K2
+(csrc/fused_kkt_bwd.cu) with T known at compile time and per-example
+dynamics, K4 (csrc/fused_kkt_bwd_long.cu) with T a run-time argument and
+F shared or per example.  Only the three true recurrences of an example
+(the differential Riccati, the differential rollout, the differential
+costate) are serial; the costate lam runs beside the first on a thread
+of its own (a TEAM of threads an example, one in each role, each role
+a warp), and every gradient is computed after the chains in a pass
+parallel over t.  The state the chains read is in shared memory where
+``k2_launch``/``k4_launch`` say it fits, with one copy a block of the
+batch-shared operands; past that (K4 only) in a workspace in global
+memory that the wrapper allocates.  A batch-shared cost or batch-shared
+dynamics have their gradients reduced over the batch deterministically:
+each block sums its examples by a fixed tree of warp shuffles, and a
+second pass sums the blocks in order.  The launch geometry lives here alone and reaches the sources
+as nvcc defines (``kernel_defines``, ``long_kernel_defines``).
 
 ``fused_kkt_backward_plain`` and ``fused_kkt_backward_long_plain`` are
 the plain versions of those kernels: each kernel scalar is a [B] tensor
@@ -47,16 +55,86 @@ from torch.autograd.function import once_differentiable
 
 from .diff import ACTIVE_TOL
 
-# K2's horizon limit.  K2 keeps 8*T floats per thread in local memory
-# (the gains K, k and the differentials dx, du of every step; the costate
-# pass consumes lambda on the fly, so it is never stored), and CUDA
-# reserves that much for every resident thread slot of the card (2048
-# per SM x 132 SMs).  At T = 512 that is 16 KB a thread, 4.4 GB in all,
-# the most a backward of that size should hold.  The loops over t are
-# not unrolled, so nvcc's time does not grow with T.
-# Longer horizons go to K4, whose workspace is 16*T bytes per example of
-# the batch it is given.
-T_MAX_BWD = 512
+# The launch geometry of K2 and K4.  An example is owned by a TEAM of
+# threads, one in each role (csrc/kkt_bwd.cuh): role 0 walks the three
+# recurrences, role 1 the costate lam beside the first; a role is a warp,
+# a lane an example.  Both take 32 examples a block and a team of 4: the
+# two roles and two more warps for the copies before the chains and the
+# pass parallel over t, so B = 4096 is 128 blocks, one an SM.  Smaller
+# blocks fill more SMs at config 4's B = 1024 but gain little there, since
+# the chains' latency does not depend on the batch, and lose at B = 8192
+# (PERF.md, PR 5).
+K2_TEAM, K2_EXAMPLES = 4, 32
+K4_TEAM, K4_EXAMPLES = 4, 32
+# Shared memory one block may use on an H100 (227 KB).
+SMEM_LIMIT = 232448
+# Floats of state a step and example: K, k (then dx, du), r and the mask
+# (csrc/kkt_bwd.cuh:kFields); a block's state is [t, field, example] with
+# one float of padding a step, so that threads on different steps read
+# different banks.  Then one copy a block of the batch-shared C, c and F,
+# 32 floats a step (kOpRow).  The costates lam and dlam, 6 floats a step
+# and example, are a workspace in global memory (kCostates).
+_STATE_FIELDS = 9
+_OP_ROW = 32
+_COSTATES = 6
+
+
+def _bwd_launch(T, B, team, examples, resident=True) -> dict:
+    state = T * (_STATE_FIELDS * examples + 1)
+    state += -state % 4                    # the operands' copy is float4
+    padded = -(-B // examples) * examples
+    fields = _COSTATES + (0 if resident else _STATE_FIELDS)
+    return dict(team=team, warps=team, examples=examples,
+                blocks=-(-B // examples), resident=resident,
+                smem_bytes=4 * (state + T * _OP_ROW) if resident else 0,
+                workspace_bytes=4 * T * fields * padded)
+
+
+def k2_launch(T, B) -> dict:
+    """K2's launch geometry: team width, warps (a warp a role) and
+    examples a block (at most 32, a lane each), blocks, the dynamic
+    shared memory of a block, which holds the state of its examples'
+    chains and its copy of the batch-shared cost (K2 refuses a T whose
+    block does not fit: ``T_MAX_BWD``), and the workspace of the
+    costates, [T, 6, blocks * examples] of float32."""
+    return _bwd_launch(T, B, K2_TEAM, K2_EXAMPLES)
+
+
+def k4_launch(T, B) -> dict:
+    """K4's launch geometry: team width, warps and examples a block,
+    blocks, where the state lives, and the workspace in global memory.
+
+    A block of 32 examples holds 9 floats a step and example of state,
+    and its copy of the batch-shared operands 32 floats a step: 4 *
+    (289 + 32) = 1284 bytes a step, resident up to T = 181
+    (``K4_T_RESIDENT``; the long configuration's T = 160 takes 205,440
+    bytes).  Past that the state follows the costates in the workspace,
+    [T, 6 + 9, blocks * examples] of float32, and the operands are read
+    where they are, so any T runs."""
+    geo = _bwd_launch(T, B, K4_TEAM, K4_EXAMPLES)
+    if geo['smem_bytes'] <= SMEM_LIMIT:
+        return geo
+    return _bwd_launch(T, B, K4_TEAM, K4_EXAMPLES, resident=False)
+
+
+def _longest_resident(launch) -> int:
+    """The longest T whose block state ``launch`` keeps in shared
+    memory."""
+    T = 1
+    while True:
+        geo = launch(T + 1, 1)
+        if not geo['resident'] or geo['smem_bytes'] > SMEM_LIMIT:
+            return T
+        T += 1
+
+
+# K2's horizon limit: the longest T whose block of 32 examples holds its
+# chains' state in shared memory (181).  It must stay at or above
+# ops/fused.py:T_MAX (181), so that every horizon K1 solves has a K2
+# backward.  Longer horizons go to K4.
+T_MAX_BWD = _longest_resident(k2_launch)
+# The longest horizon whose state K4 keeps in shared memory (181).
+K4_T_RESIDENT = _longest_resident(k4_launch)
 
 # One count per launch of K2 and of K4 on the card, and nowhere else.
 launch_counts = {'fused_kkt_bwd': 0, 'fused_kkt_bwd_long': 0}
@@ -72,10 +150,11 @@ def bwd_routes_long(T, dyn_shared) -> bool:
     fixed point's dispatch and the tests (as ``_bwd_route_long`` is in
     mpc_tpu/ops/fused_bwd.py:130-136).
 
-    K4 takes batch-shared dynamics, because K2's source reads F per
-    example and has no reduction of dF, df, and anything past
-    ``T_MAX_BWD``, which is K2's local-memory reservation.  K2 keeps the
-    rest, a per-example LinDx F included."""
+    K4 takes batch-shared dynamics, because K2 is built for per-example
+    F and has no reduction of dF, df, and anything past ``T_MAX_BWD``,
+    the longest horizon whose chains' state K2's block holds in shared
+    memory (K4 keeps it in global memory past its own limit, so it takes
+    any T).  K2 keeps the rest, a per-example LinDx F included."""
     return bool(dyn_shared) or T > T_MAX_BWD
 
 
@@ -340,130 +419,59 @@ def fused_kkt_backward_long_plain(C, c, F, x_star, u_star, dl_dx, dl_du,
 
 
 # ---------------------------------------------------------------------------
-# the kernel's wrapper
+# the kernels' wrappers
 # ---------------------------------------------------------------------------
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
+# mpc_fused_kkt_bwd (K2) and mpc_fused_kkt_bwd_long (K4) take the same
+# arguments (csrc/kkt_bwd.cuh:launch)
 _ARGTYPES = [
-    ctypes.c_int,                          # B
-    _P, _I64, _I64,                        # C, t stride, batch stride
-    _P, _I64, _I64,                        # c, t stride, batch stride
-    _P, _P, _P, _P, _P, _P,                # F, dl_dx, dl_du, x*, u*, I
-    ctypes.c_int,                          # has_f
-    _P, _P, _P, _P, _P, _P,                # dx_init, dC, dc, dF, df, partial
-    _P,                                    # stream
-]
-
-
-def _kernel_lib(T, has_I, cost_shared):
-    from . import _build
-    lib = _build.load('fused_kkt_bwd', {'MPC_T': T,
-                                        'MPC_HAS_I': int(has_I),
-                                        'MPC_COST_SHARED': int(cost_shared)})
-    fn = lib.mpc_fused_kkt_bwd
-    if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
-        lib.mpc_fused_kkt_bwd_threads.restype = ctypes.c_int
-    return fn, lib.mpc_fused_kkt_bwd_threads()
-
-
-def fused_kkt_backward(C, c, F, x_star, u_star, dl_dx, dl_du, I_mask=None,
-                       *, has_f=True):
-    """Run K2 on its operands (layouts as in ``fused_kkt_backward_plain``).
-
-    On the CPU this is ``fused_kkt_backward_plain``.  On a CUDA tensor it
-    launches csrc/fused_kkt_bwd.cu on the current stream and raises on
-    any operand the kernel does not take or on a launch error."""
-    if x_star.device.type == 'cpu':
-        return fused_kkt_backward_plain(C, c, F, x_star, u_star, dl_dx,
-                                        dl_du, I_mask, has_f=has_f)
-    if x_star.device.type != 'cuda':
-        raise NotImplementedError(f'K2 runs on cuda or cpu, not '
-                                  f'{x_star.device.type}')
-    T, B, ns = x_star.shape
-    has_I = I_mask is not None
-    ops = [C, c, F, x_star, u_star, dl_dx, dl_du] + ([I_mask] if has_I
-                                                    else [])
-    for a in ops:
-        if a.dtype != torch.float32 or a.device != x_star.device \
-                or not a.is_contiguous():
-            raise ValueError('K2 takes contiguous float32 operands on one '
-                             'device')
-    if (ns != 3 or T > T_MAX_BWD or C.shape[0] != T
-            or C.shape[2:] != (4, 4) or c.shape[0] != T
-            or c.shape[2:] != (4,) or C.shape[1] not in (1, B)
-            or c.shape[1] not in (1, B) or F.shape != (T - 1, B, 3, 4)
-            or u_star.shape != (T, B, 1) or dl_dx.shape != (T, B, 3)
-            or dl_du.shape != (T, B, 1)
-            or (has_I and I_mask.shape != (T, B, 1))):
-        raise ValueError('K2 operand shapes do not match')
-    cost_shared = _cost_shared(C, c)
-    fn, threads = _kernel_lib(T, has_I, cost_shared)
-    dev = x_star.device
-    empty = functools.partial(torch.empty, dtype=torch.float32, device=dev)
-    dxi = empty((B, 3))
-    dC = empty((T, 4, 4) if cost_shared else (T, B, 4, 4))
-    dc = empty((T, 4) if cost_shared else (T, B, 4))
-    dF = empty((T - 1, B, 3, 4))
-    df = empty((T - 1, B, 3))
-    if B == 0:
-        return dxi, dC.zero_(), dc.zero_(), dF, df
-    n_blocks = -(-B // threads)
-    # per-block partial sums of the shared-cost gradient, summed in block
-    # order by the kernel's second pass
-    partial = empty((n_blocks, T, 20)) if cost_shared else None
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(B,
-                 C.data_ptr(), C.shape[1] * 16, 0 if C.shape[1] == 1 else 16,
-                 c.data_ptr(), c.shape[1] * 4, 0 if c.shape[1] == 1 else 4,
-                 F.data_ptr(), dl_dx.data_ptr(), dl_du.data_ptr(),
-                 x_star.data_ptr(), u_star.data_ptr(),
-                 I_mask.data_ptr() if has_I else None, int(has_f),
-                 dxi.data_ptr(), dC.data_ptr(), dc.data_ptr(),
-                 dF.data_ptr(), df.data_ptr(),
-                 partial.data_ptr() if cost_shared else None, stream)
-    if err != 0:
-        raise RuntimeError(f'K2 launch failed with cudaError_t {err}')
-    launch_counts['fused_kkt_bwd'] += 1
-    return dxi, dC, dc, dF, df
-
-
-# ---------------------------------------------------------------------------
-# K4's wrapper
-# ---------------------------------------------------------------------------
-
-_ARGTYPES_LONG = [
     ctypes.c_int, ctypes.c_int,            # B, T
     _P, _I64, _I64,                        # C, t stride, batch stride
     _P, _I64, _I64,                        # c, t stride, batch stride
     _P, _I64, _I64,                        # F, t stride, batch stride
     _P, _P, _P, _P, _P,                    # dl_dx, dl_du, x*, u*, I
-    _P,                                    # workspace
+    ctypes.c_int,                          # has_f
+    _P, ctypes.c_int, ctypes.c_int,        # workspace, resident, smem bytes
     _P, _P, _P, _P, _P,                    # dx_init, dC, dc, dF, df
     _P, _P,                                # cost partials, dynamics partials
     _P,                                    # stream
 ]
 
 
+def kernel_defines(T, has_I, cost_shared) -> dict:
+    """The nvcc defines of the K2 build for this horizon and layout."""
+    return {'MPC_T': T, 'MPC_HAS_I': int(has_I),
+            'MPC_COST_SHARED': int(cost_shared), 'MPC_TEAM': K2_TEAM,
+            'MPC_EXAMPLES': K2_EXAMPLES}
+
+
 def long_kernel_defines(cost_shared, dyn_shared) -> dict:
     """The nvcc defines of the K4 build for these layouts."""
     return {'MPC_COST_SHARED': int(cost_shared),
-            'MPC_DYN_SHARED': int(dyn_shared)}
+            'MPC_DYN_SHARED': int(dyn_shared), 'MPC_TEAM': K4_TEAM,
+            'MPC_EXAMPLES': K4_EXAMPLES}
+
+
+def _entry(name, defines, symbol):
+    from . import _build
+    fn = getattr(_build.load(name, defines), symbol)
+    if fn.argtypes is None:
+        fn.argtypes = _ARGTYPES
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _kernel_lib(T, has_I, cost_shared):
+    return _entry('fused_kkt_bwd', kernel_defines(T, has_I, cost_shared),
+                  'mpc_fused_kkt_bwd')
 
 
 def _kernel_lib_long(cost_shared, dyn_shared):
-    from . import _build
-    lib = _build.load('fused_kkt_bwd_long',
-                      long_kernel_defines(cost_shared, dyn_shared))
-    fn = lib.mpc_fused_kkt_bwd_long
-    if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES_LONG
-        fn.restype = ctypes.c_int
-        lib.mpc_fused_kkt_bwd_long_threads.restype = ctypes.c_int
-    return fn, lib.mpc_fused_kkt_bwd_long_threads()
+    return _entry('fused_kkt_bwd_long',
+                  long_kernel_defines(cost_shared, dyn_shared),
+                  'mpc_fused_kkt_bwd_long')
 
 
 def _strided(a, inner):
@@ -474,30 +482,18 @@ def _strided(a, inner):
             0 if a.shape[1] == 1 else inner)
 
 
-def fused_kkt_backward_long(C, c, F, x_star, u_star, dl_dx, dl_du,
-                            I_mask=None, *, has_f=True):
-    """Run K4 on its operands (layouts as in
-    ``fused_kkt_backward_long_plain``).
-
-    On the CPU this is ``fused_kkt_backward_long_plain``.  On a CUDA
-    tensor it allocates the workspace and the scratch of the reductions,
-    launches csrc/fused_kkt_bwd_long.cu on the current stream and raises
-    on any operand the kernel does not take or on a launch error."""
-    if x_star.device.type == 'cpu':
-        return fused_kkt_backward_long_plain(C, c, F, x_star, u_star, dl_dx,
-                                             dl_du, I_mask, has_f=has_f)
-    if x_star.device.type != 'cuda':
-        raise NotImplementedError(f'K4 runs on cuda or cpu, not '
-                                  f'{x_star.device.type}')
+def _check_operands(label, C, c, F, x_star, u_star, dl_dx, dl_du, I_mask):
+    """Raise unless the operands are what K2 and K4 take: contiguous
+    float32 on one device, the shapes of ``fused_kkt_backward_long_plain``
+    and C, c, F aligned to 16 bytes (the kernels read them as float4)."""
     T, B, ns = x_star.shape
-    has_I = I_mask is not None
-    ops = [C, c, F, x_star, u_star, dl_dx, dl_du] + ([I_mask] if has_I
-                                                    else [])
+    ops = [C, c, F, x_star, u_star, dl_dx, dl_du] + (
+        [I_mask] if I_mask is not None else [])
     for a in ops:
         if a.dtype != torch.float32 or a.device != x_star.device \
                 or not a.is_contiguous():
-            raise ValueError('K4 takes contiguous float32 operands on one '
-                             'device')
+            raise ValueError(f'{label} takes contiguous float32 operands on '
+                             'one device')
     if (ns != 3 or C.shape[0] != T or C.shape[2:] != (4, 4)
             or c.shape[0] != T or c.shape[2:] != (4,)
             or C.shape[1] not in (1, B) or c.shape[1] not in (1, B)
@@ -505,12 +501,101 @@ def fused_kkt_backward_long(C, c, F, x_star, u_star, dl_dx, dl_du,
             or F.shape[2:] != (3, 4)
             or u_star.shape != (T, B, 1) or dl_dx.shape != (T, B, 3)
             or dl_du.shape != (T, B, 1)
-            or (has_I and I_mask.shape != (T, B, 1))):
-        raise ValueError('K4 operand shapes do not match')
+            or (I_mask is not None and I_mask.shape != (T, B, 1))):
+        raise ValueError(f'{label} operand shapes do not match')
+    for a in (C, c, F):
+        if a.data_ptr() % 16:
+            raise ValueError(f'{label} takes C, c and F aligned to 16 bytes')
+
+
+def _launch(label, fn, geo, C, c, F, x_star, u_star, dl_dx, dl_du, I_mask,
+            has_f, dxi, dC, dc, dF, df):
+    """Launch K2 or K4 (``fn``) with the geometry ``geo`` on the current
+    stream: the workspace of ``geo``, and the per-block partial sums of
+    the shared gradients, which the kernel's second pass sums in block
+    order."""
+    T, B, _ = x_star.shape
+    empty = functools.partial(torch.empty, dtype=torch.float32,
+                              device=x_star.device)
+    # the costates, and behind them the state where it is not resident
+    ws = empty((geo['workspace_bytes'] // 4,))
+    part_cost = (empty((geo['blocks'], T, 20)) if _cost_shared(C, c)
+                 else None)
+    part_dyn = (empty((geo['blocks'], T - 1, 15))
+                if _dyn_shared(F) and T > 1 else None)
+
+    def ptr(a):
+        return a.data_ptr() if a is not None else None
+
+    with torch.cuda.device(x_star.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(B, T, *_strided(C, 16), *_strided(c, 4), *_strided(F, 12),
+                 dl_dx.data_ptr(), dl_du.data_ptr(), x_star.data_ptr(),
+                 u_star.data_ptr(), ptr(I_mask), int(has_f), ptr(ws),
+                 int(geo['resident']), geo['smem_bytes'], dxi.data_ptr(),
+                 dC.data_ptr(), dc.data_ptr(), dF.data_ptr(), ptr(df),
+                 ptr(part_cost), ptr(part_dyn), stream)
+    if err != 0:
+        raise RuntimeError(f'{label} launch failed with cudaError_t {err}')
+
+
+def fused_kkt_backward(C, c, F, x_star, u_star, dl_dx, dl_du, I_mask=None,
+                       *, has_f=True):
+    """Run K2 on its operands (layouts as in ``fused_kkt_backward_plain``).
+
+    On the CPU this is ``fused_kkt_backward_plain``.  On a CUDA tensor it
+    launches csrc/fused_kkt_bwd.cu on the current stream with the
+    geometry of ``k2_launch`` and raises on any operand the kernel does
+    not take (T past ``T_MAX_BWD`` included) or on a launch error."""
+    if x_star.device.type == 'cpu':
+        return fused_kkt_backward_plain(C, c, F, x_star, u_star, dl_dx,
+                                        dl_du, I_mask, has_f=has_f)
+    if x_star.device.type != 'cuda':
+        raise NotImplementedError(f'K2 runs on cuda or cpu, not '
+                                  f'{x_star.device.type}')
+    T, B, _ = x_star.shape
+    _check_operands('K2', C, c, F, x_star, u_star, dl_dx, dl_du, I_mask)
+    if T > T_MAX_BWD or F.shape[1] != B:
+        raise ValueError(f'K2 takes per-example F and T <= {T_MAX_BWD}')
+    cost_shared = _cost_shared(C, c)
+    fn = _kernel_lib(T, I_mask is not None, cost_shared)
+    empty = functools.partial(torch.empty, dtype=torch.float32,
+                              device=x_star.device)
+    dxi = empty((B, 3))
+    dC = empty((T, 4, 4) if cost_shared else (T, B, 4, 4))
+    dc = empty((T, 4) if cost_shared else (T, B, 4))
+    dF = empty((T - 1, B, 3, 4))
+    df = empty((T - 1, B, 3))
+    if B == 0:
+        return dxi, dC.zero_(), dc.zero_(), dF, df
+    _launch('K2', fn, k2_launch(T, B), C, c, F, x_star, u_star, dl_dx,
+            dl_du, I_mask, has_f, dxi, dC, dc, dF, df)
+    launch_counts['fused_kkt_bwd'] += 1
+    return dxi, dC, dc, dF, df
+
+
+def fused_kkt_backward_long(C, c, F, x_star, u_star, dl_dx, dl_du,
+                            I_mask=None, *, has_f=True):
+    """Run K4 on its operands (layouts as in
+    ``fused_kkt_backward_long_plain``).
+
+    On the CPU this is ``fused_kkt_backward_long_plain``.  On a CUDA
+    tensor it allocates what ``k4_launch`` says (the workspace past
+    ``K4_T_RESIDENT``) and the scratch of the reductions, launches
+    csrc/fused_kkt_bwd_long.cu on the current stream and raises on any
+    operand the kernel does not take or on a launch error."""
+    if x_star.device.type == 'cpu':
+        return fused_kkt_backward_long_plain(C, c, F, x_star, u_star, dl_dx,
+                                             dl_du, I_mask, has_f=has_f)
+    if x_star.device.type != 'cuda':
+        raise NotImplementedError(f'K4 runs on cuda or cpu, not '
+                                  f'{x_star.device.type}')
+    T, B, _ = x_star.shape
+    _check_operands('K4', C, c, F, x_star, u_star, dl_dx, dl_du, I_mask)
     cost_shared, dyn_shared = _cost_shared(C, c), _dyn_shared(F)
-    fn, threads = _kernel_lib_long(cost_shared, dyn_shared)
-    dev = x_star.device
-    empty = functools.partial(torch.empty, dtype=torch.float32, device=dev)
+    fn = _kernel_lib_long(cost_shared, dyn_shared)
+    empty = functools.partial(torch.empty, dtype=torch.float32,
+                              device=x_star.device)
     dxi = empty((B, 3))
     dC = empty((T, 4, 4) if cost_shared else (T, B, 4, 4))
     dc = empty((T, 4) if cost_shared else (T, B, 4))
@@ -526,27 +611,8 @@ def fused_kkt_backward_long(C, c, F, x_star, u_star, dl_dx, dl_du,
             if has_f:
                 df.zero_()
         return dxi, dC, dc, dF, df
-    n_blocks = -(-B // threads)
-    # K, k and then dx, du of every step, [t, row, b] with the batch
-    # padded to whole blocks; and the per-block partial sums of the
-    # shared gradients, summed in block order by the kernel's second pass
-    ws = empty((T, 4, n_blocks * threads))
-    part_cost = empty((n_blocks, T, 20)) if cost_shared else None
-    part_dyn = empty((n_blocks, T - 1, 15)) if dyn_shared else None
-
-    def ptr(a):
-        return a.data_ptr() if a is not None else None
-
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(B, T, *_strided(C, 16), *_strided(c, 4), *_strided(F, 12),
-                 dl_dx.data_ptr(), dl_du.data_ptr(), x_star.data_ptr(),
-                 u_star.data_ptr(), ptr(I_mask), ws.data_ptr(),
-                 dxi.data_ptr(), dC.data_ptr(), dc.data_ptr(),
-                 dF.data_ptr(), ptr(df), ptr(part_cost), ptr(part_dyn),
-                 stream)
-    if err != 0:
-        raise RuntimeError(f'K4 launch failed with cudaError_t {err}')
+    _launch('K4', fn, k4_launch(T, B), C, c, F, x_star, u_star, dl_dx,
+            dl_du, I_mask, True, dxi, dC, dc, dF, df)
     launch_counts['fused_kkt_bwd_long'] += 1
     return dxi, dC, dc, dF, df
 

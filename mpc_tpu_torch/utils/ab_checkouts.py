@@ -1,5 +1,5 @@
 """Two checkouts of this repository in turns on one card: the main
-paths' host times and the forward kernels' device times.
+paths' host times and the kernels' device times.
 
     python3 mpc_tpu_torch/utils/ab_checkouts.py OTHER [THIS]
 
@@ -9,7 +9,8 @@ OTHER and THIS (default: the checkout this file is in) each hold a
 Every turn is a process of its own, run from its checkout, that builds
 the checkout's kernels (once: a build is reused) and runs chip_smoke's
 [serve], [train] at B=1024 and 8192, [serve-long], [train-long], [time],
-[time-train] and [time-long]; the turns go OTHER, THIS, THIS, OTHER, so
+[time-train] at B=1024 and 8192, [time-long], [time-bwd] at B=1024 and
+8192 and [time-bwd-long]; the turns go OTHER, THIS, THIS, OTHER, so
 that a drift of the machine shows as a difference between the two turns
 of one checkout.  The script reports the phases' own lines and judges
 nothing; host times compare within one call only.
@@ -34,6 +35,9 @@ cs.phase_time(torch, d)
 cs.phase_time_train(torch, d, 1024)
 cs.phase_time_train(torch, d, 8192)
 cs.phase_time_long(torch, d)
+cs.phase_time_bwd(torch, d, 1024)
+cs.phase_time_bwd(torch, d, 8192)
+cs.phase_time_bwd_long(torch, d)
 print(cs.card_line())
 '''
 KEEP = ('[serve', '[train', '[time', '  median', '  latency')

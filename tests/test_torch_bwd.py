@@ -50,7 +50,7 @@ from mpc_tpu.solver import linearize_dynamics as j_linearize_dynamics
 from mpc_tpu.utils import fd as j_fd
 
 from mpc_tpu_torch.models import PendulumDx
-from mpc_tpu_torch.ops import fused_bwd
+from mpc_tpu_torch.ops import fused, fused_bwd
 from mpc_tpu_torch.solver import linearize_dynamics
 from mpc_tpu_torch.types import GradMethods
 from mpc_tpu_torch.utils import fd
@@ -350,7 +350,7 @@ def test_scope_gap_bwd():
     assert 'ROADMAP' in fused_bwd.scope_gap_bwd(10, n_ctrl=2)
     assert 'float64' in fused_bwd.scope_gap_bwd(10, dtype=torch.float64,
                                                 device=cuda)
-    assert fused_bwd.T_MAX_BWD >= 256       # every K1 horizon
+    assert fused_bwd.T_MAX_BWD >= fused.T_MAX    # every K1 horizon
 
 
 def test_fd_utilities_match_mpc_tpu():

@@ -20,7 +20,10 @@ problem: the largest |difference| of each gradient over its largest
 entry below 1e-4 (nvcc's FMA contraction is the only difference; K2 has
 no branch that rounding can flip, as the active set is an input), and
 the kernel's mean distance to a float64 plain run at most twice the
-plain float32 run's.
+plain float32 run's.  Both also give an example's outputs bitwise
+whatever batch it sits in (B = 1, 7 and 33 alone against the same
+examples in a batch of 2050), and the same bits at a second launch,
+reduced gradients included.
 
 K3 (the streaming solve) is held on a stable LinDx box problem, where
 two float32 runs part only in the few examples whose line search ties to
@@ -247,10 +250,10 @@ def k2_built():
     """Every K2 build these tests launch, compiled in parallel."""
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA card')
-    _build.build([('fused_kkt_bwd', {'MPC_T': T, 'MPC_HAS_I': has_I,
-                                     'MPC_COST_SHARED': shared})
-                  for T, _ in BWD_SHAPES for has_I in (0, 1)
-                  for shared in (0, 1)])
+    _build.build([('fused_kkt_bwd',
+                   fused_bwd.kernel_defines(T, has_I, cost_shared))
+                  for T, _ in BWD_SHAPES for has_I in (False, True)
+                  for cost_shared in (False, True)])
 
 
 def _bwd_problem(device, T, B, cost_shared, has_I, seed=0):
@@ -402,7 +405,9 @@ def test_k3_matches_plain_pendulum_past_t_max(cuda):
 @pytest.mark.parametrize('has_f', [True, False])
 @pytest.mark.parametrize('dyn_shared', [True, False])
 @pytest.mark.parametrize('cost_shared', [True, False])
-@pytest.mark.parametrize('T,B', [(160, 2050), (fused_bwd.T_MAX_BWD + 88, 128)])
+@pytest.mark.parametrize('T,B', [
+    (160, 2050), (fused_bwd.T_MAX_BWD + 88, 128),
+    (fused_bwd.K4_T_RESIDENT, 300), (fused_bwd.K4_T_RESIDENT + 1, 300)])
 def test_k4_matches_plain(cuda, T, B, cost_shared, dyn_shared, has_f):
     ops = _bwd_problem(cuda, T, B, cost_shared, True)
     if dyn_shared:
@@ -421,6 +426,38 @@ def test_k4_matches_plain(cuda, T, B, cost_shared, dyn_shared, has_f):
         k_far = float((a.double() - r).abs().mean())
         p_far = float((b.double() - r).abs().mean())
         assert k_far <= 2 * p_far + 1e-7 * scale, (k_far, p_far)
+
+
+@pytest.mark.parametrize('cost_shared', [True, False])
+@pytest.mark.parametrize('name,T', [
+    ('K2', fused_bwd.T_MAX_BWD), ('K4', 160),
+    ('K4', fused_bwd.K4_T_RESIDENT + 1)])
+def test_bwd_position_free_and_repeatable(cuda, k2_built, name, T,
+                                          cost_shared):
+    """B = 1, 7 and 33 alone give the per-example outputs that the same
+    examples give inside B = 2050, bitwise; a second launch gives every
+    output bitwise again, the block-order sums of the shared leaves
+    included.  K4 runs batch-shared dynamics (dF, df reduced)."""
+    B = 2050
+    ops = _bwd_problem(cuda, T, B, cost_shared, True)
+    if name == 'K2':
+        kernel = fused_bwd.fused_kkt_backward
+    else:
+        kernel = fused_bwd.fused_kkt_backward_long
+        ops['F'] = ops['F'][:, :1].contiguous()
+    full = kernel(**ops)
+    for n in (1, 7, 33):
+        alone = kernel(**{k: v[:, :n].contiguous()
+                          if v is not None and v.shape[1] == B else v
+                          for k, v in ops.items()})
+        assert torch.equal(alone[0], full[0][:n])
+        for a, f in zip(alone[1:], full[1:]):
+            if f.dim() >= 3 and f.shape[1] == B:
+                # one example of a batched leaf comes back reduced
+                assert torch.equal(a.reshape(f[:, :n].shape), f[:, :n])
+    again = kernel(**ops)
+    for a, f in zip(again, full):
+        assert torch.equal(a, f)
 
 
 def test_differentiable_lindx_solve_launches_k3_and_k4(cuda):

@@ -1,12 +1,14 @@
-"""The launch geometry of kernels K1 and K3, and what their plain
-versions pin for the kernels' design.
+"""The launch geometry of kernels K1 to K4, and what the plain versions
+of K1 and K3 pin for the kernels' design.
 
 The kernels run only on the card, but how they are launched (team
 width, examples and warps a block, blocks, shared memory, workspace) is
-plain Python in mpc_tpu_torch/ops/fused.py, and is held here: shared
-memory never above what a block may use, every example covered once,
-``routes_long`` in step with the re-derived ``T_MAX``, the workspace as
-large as the geometry says.  Two more tests pin what the team design
+plain Python in mpc_tpu_torch/ops/fused.py (K1, K3) and
+mpc_tpu_torch/ops/fused_bwd.py (K2, K4), and is held here: shared memory
+never above what a block may use, every example covered once,
+``routes_long`` in step with the re-derived ``T_MAX`` and
+``bwd_routes_long`` with ``T_MAX_BWD``, the workspace as large as the
+geometry says.  Two more tests pin what the team design
 rests on in the plain versions: stats[5] is the selected step size's
 index plus one summed over the iterations (not the rollouts executed),
 and K1's carried cost equals a recomputed one bit for bit.
@@ -18,7 +20,7 @@ import torch
 
 import mpc_tpu_torch as mt
 from mpc_tpu_torch.models import PendulumDx
-from mpc_tpu_torch.ops import fused
+from mpc_tpu_torch.ops import fused, fused_bwd
 
 BATCHES = [0, 1, 33, 2050, 4096]
 ALPHAS = [1, 3, 5, 32]
@@ -116,6 +118,106 @@ def test_routes_long_follows_t_max():
     assert not fused.routes_long(dx, fused.T_MAX)
     assert fused.routes_long(dx, fused.T_MAX + 1)
     assert fused.routes_long(lin, 4) and fused.routes_long(lin, 600)
+
+
+BWD_HORIZONS = [2, 10, fused_bwd.T_MAX_BWD, fused_bwd.T_MAX_BWD + 1,
+                fused_bwd.K4_T_RESIDENT, fused_bwd.K4_T_RESIDENT + 1, 600]
+
+
+def _bwd_smem(T, examples):
+    """A block's state, T * (9 * examples + 1) floats padded to float4,
+    and its copy of the batch-shared C, c and F, 32 floats a step."""
+    state = T * (9 * examples + 1)
+    return 4 * (state + -state % 4 + 32 * T)
+
+
+def _assert_covers(geo, B):
+    """Every example in exactly one block, no empty block, and a warp
+    for each thread of the team, a lane an example."""
+    assert geo['warps'] == geo['team'] and geo['examples'] <= 32
+    assert geo['blocks'] * geo['examples'] >= B
+    assert (geo['blocks'] - 1) * geo['examples'] < B or B == 0
+    assert geo['blocks'] == 0 or B > 0
+
+
+def test_t_max_bwd_is_what_shared_memory_holds():
+    assert fused_bwd.SMEM_LIMIT == fused.SMEM_LIMIT == 232448
+    e2, e4 = fused_bwd.K2_EXAMPLES, fused_bwd.K4_EXAMPLES
+    assert _bwd_smem(fused_bwd.T_MAX_BWD, e2) <= fused_bwd.SMEM_LIMIT
+    assert _bwd_smem(fused_bwd.T_MAX_BWD + 1, e2) > fused_bwd.SMEM_LIMIT
+    assert _bwd_smem(fused_bwd.K4_T_RESIDENT, e4) <= fused_bwd.SMEM_LIMIT
+    assert _bwd_smem(fused_bwd.K4_T_RESIDENT + 1, e4) > fused_bwd.SMEM_LIMIT
+    # every horizon K1 solves has a K2 backward; the long configuration's
+    # T = 160 is resident in K4
+    assert fused_bwd.T_MAX_BWD >= fused.T_MAX
+    assert fused_bwd.T_MAX_BWD == 181 and fused_bwd.K4_T_RESIDENT == 181
+
+
+@pytest.mark.parametrize('B', BATCHES)
+@pytest.mark.parametrize('T', BWD_HORIZONS)
+def test_k2_launch_geometry(T, B):
+    geo = fused_bwd.k2_launch(T, B)
+    assert (geo['team'], geo['examples']) == (fused_bwd.K2_TEAM,
+                                              fused_bwd.K2_EXAMPLES)
+    _assert_covers(geo, B)
+    assert geo['resident']
+    assert geo['smem_bytes'] == _bwd_smem(T, geo['examples'])
+    # the costates lam, dlam in global memory
+    assert geo['workspace_bytes'] == 4 * T * 6 * geo['blocks'] * geo['examples']
+    # K2 keeps its chains' state in shared memory: what does not fit goes
+    # to K4
+    if fused_bwd.bwd_routes_long(T, False):
+        assert T > fused_bwd.T_MAX_BWD
+        assert geo['smem_bytes'] > fused_bwd.SMEM_LIMIT
+    else:
+        assert T <= fused_bwd.T_MAX_BWD
+        assert geo['smem_bytes'] <= fused_bwd.SMEM_LIMIT
+
+
+@pytest.mark.parametrize('B', BATCHES)
+@pytest.mark.parametrize('T', BWD_HORIZONS)
+def test_k4_launch_geometry_and_workspace(T, B):
+    geo = fused_bwd.k4_launch(T, B)
+    assert (geo['team'], geo['examples']) == (fused_bwd.K4_TEAM,
+                                              fused_bwd.K4_EXAMPLES)
+    _assert_covers(geo, B)
+    # the state and the shared operands' copy are resident where they
+    # fit; else the state follows the costates in the workspace, [T, 6 + 9,
+    # padded batch] of float32, so any T runs, and shared memory is not
+    # used
+    smem = _bwd_smem(T, geo['examples'])
+    resident = smem <= fused_bwd.SMEM_LIMIT
+    assert resident == (T <= fused_bwd.K4_T_RESIDENT) == geo['resident']
+    assert geo['smem_bytes'] == (smem if resident else 0)
+    assert geo['smem_bytes'] <= fused_bwd.SMEM_LIMIT
+    assert geo['workspace_bytes'] == 4 * T * (6 if resident else 15) * (
+        geo['blocks'] * geo['examples'])
+
+
+def test_bwd_routes_long_follows_t_max_bwd():
+    for T in BWD_HORIZONS:
+        assert fused_bwd.bwd_routes_long(T, False) == (
+            T > fused_bwd.T_MAX_BWD)
+        assert fused_bwd.bwd_routes_long(T, True)
+
+
+def test_bwd_main_path_geometries():
+    """The shapes chip_smoke.py drives: config 4 (K2) and the long
+    configuration (K4), and what reaches the sources as defines."""
+    assert fused_bwd.k2_launch(10, 1024) == dict(
+        team=4, warps=4, examples=32, blocks=32, resident=True,
+        smem_bytes=12848, workspace_bytes=4 * 10 * 6 * 1024)
+    assert fused_bwd.k2_launch(10, 8192)['blocks'] == 256
+    assert fused_bwd.k4_launch(160, 4096) == dict(
+        team=4, warps=4, examples=32, blocks=128, resident=True,
+        smem_bytes=205440, workspace_bytes=4 * 160 * 6 * 4096)
+    assert fused_bwd.k4_launch(600, 4096)['workspace_bytes'] == (
+        4 * 600 * 15 * 4096)
+    assert fused_bwd.kernel_defines(10, True, False) == dict(
+        MPC_T=10, MPC_HAS_I=1, MPC_COST_SHARED=0, MPC_TEAM=4,
+        MPC_EXAMPLES=32)
+    assert fused_bwd.long_kernel_defines(True, False) == dict(
+        MPC_COST_SHARED=1, MPC_DYN_SHARED=0, MPC_TEAM=4, MPC_EXAMPLES=32)
 
 
 def _pendulum_ops(B, T, dtype, n_alpha, decay, lqr_iter, eps=0.0, seed=0,
