@@ -33,8 +33,19 @@ compare phases also run what that makes new ([compare-teams]: more step
 sizes than lanes, examples of one warp stopping at different
 iterations, B = 1 and batches that do not fill a block).
 
-It prints one JSON line of kernel numbers, the card's name and power
-limit, and a last JSON line with the device.  Every phase raises on
+The eager solver (mpc_tpu_torch/solver.py), the route of every problem
+the kernels do not take, runs on the card in the [eager-*] phases: the
+headline with use_fused='never' against K1 in the same process
+([eager-serve]), and the JAX package's configurations that take its jnp
+path (benchmarks/configs.py): config 1, TVLQR ([eager-tvlqr]), the
+medium-state row with 24 states and 4 controls ([eager-medium]), config
+3, the cartpole ([eager-cartpole]), and the sequential long-horizon solve
+at T=512 ([eager-long]); each float32 against float64 on the card, the
+card's float64 against the CPU's, and gradients through the eager fixed
+point against K2 ([eager-grad]).
+
+It prints one JSON line of kernel numbers, one of the eager phases, the
+card's name and power limit, and a last JSON line with the device.  Every phase raises on
 failure; the script then exits nonzero.  It exits nonzero without a
 result when no card is visible or when the package is not beside it.
 It imports nothing of JAX or mpc_tpu.
@@ -675,7 +686,8 @@ def phase_compare_bwd(torch, device, n=1024):
                 'with active set')
         hold_bwd_slices(torch, 'K2', what, fused_bwd.fused_kkt_backward, o,
                         check(what, o))
-    phase_tf32(torch, 'config 4', lambda: train_grads(torch, device, n))
+    phase_tf32(torch, 'config 4 training-step loss and gradients',
+               lambda: train_grads(torch, device, n))
     return max_err
 
 
@@ -708,8 +720,7 @@ def phase_tf32(torch, what, grads_fn):
          torch.backends.cudnn.allow_tf32) = flags
     if not all(torch.equal(a, b) for a, b in zip(*grads)):
         raise AssertionError('TF32 on and off give different gradients')
-    log(f'  TF32 on and off: {what} training-step loss and gradients '
-        'bitwise equal')
+    log(f'  TF32 on and off: {what} bitwise equal')
 
 
 def phase_train(torch, device, n, steps=20, warmup=3):
@@ -1340,7 +1351,8 @@ def phase_compare_bwd_long(torch, device):
             check(f'T={T} (state in {where}), random problem, '
                   f'{"shared" if shared else "batched"} cost and dynamics',
                   bwd_long_case(rand, shared, shared), True)
-    phase_tf32(torch, 'long', lambda: long_train_grads(torch, device))
+    phase_tf32(torch, 'long training-step loss and gradients',
+               lambda: long_train_grads(torch, device))
     return max_err
 
 
@@ -1561,6 +1573,636 @@ def phase_time_bwd_long(torch, device):
                 bound_ms=bound_ms, bound_by=by)
 
 
+# ---------------------------------------------------------------------------
+# the eager solver ([eager-*]): every problem the kernels do not take
+# ---------------------------------------------------------------------------
+
+# the JAX package's own configurations that take its jnp path
+# (benchmarks/configs.py): config 1, TVLQR (49-105); the medium-state jnp
+# row, 24 states and 4 controls (107-171); config 3, the cartpole
+# (173-202); the sequential arm of the long-horizon solve (596-644)
+TVLQR = dict(n_state=3, n_ctrl=4, T=5, lqr_iter=10, eps=0.0,
+             exit_unconverged=False, detach_unconverged=False,
+             backprop=False)
+TVLQR_B = 128
+MEDIUM = dict(n_state=24, n_ctrl=4, T=20, lqr_iter=10, eps=0.0,
+              exit_unconverged=False, detach_unconverged=False,
+              backprop=False, use_fused='never')
+MEDIUM_B = 2048
+CARTPOLE = dict(n_state=5, n_ctrl=1, T=25, lqr_iter=10, eps=0.0,
+                exit_unconverged=False, detach_unconverged=False,
+                backprop=False, linesearch_decay=0.5, max_linesearch_iter=2)
+CARTPOLE_B = 512
+LONG_EAGER = dict(n_state=3, n_ctrl=1, T=512, lqr_iter=5, eps=0.0,
+                  exit_unconverged=False, detach_unconverged=False,
+                  backprop=False, linesearch_decay=0.2, max_linesearch_iter=3,
+                  parallel_riccati=False, use_fused='never')
+LONG_EAGER_B = 16
+# the card's float64 against the CPU's float64 on the same examples,
+# relative to the largest |u| (and to each gradient's largest entry):
+# the two differ only in the order of their sums (and libm).  Where an
+# iterate is close to converged, a line search's trial cost can equal the
+# current one to round-off, and PNQP's free set can hang on a gradient
+# at a bound that is zero to round-off; two runs then rightly take
+# different step sizes or Newton counts there, and their controls part
+# by up to that step.  So the tolerance holds the examples whose
+# decisions (the eager trace: active, alpha and n_qp at every iteration)
+# are equal on both, and the examples that part are shown, held to
+# costs equal within TIE_COST_TOL (the flat cost of a tie) and to a
+# share below PARTED_SHARE.  The CPU against itself with the states and
+# controls permuted (the same problem, other sums) is the witness, run
+# beside the check (a CPU rehearsal at B=1024: 1.6% and 0.8% of the
+# examples part, at iterations 2-4, the rest within 5.2e-15; the card's
+# readings in PERF.md section 6).
+EAGER_F64_TOL = 1e-10
+EAGER_CPU_B = 256          # the headline's slice solved on the CPU too
+TIE_COST_TOL = 1e-12
+PARTED_SHARE = 0.05
+# an unconstrained float32 solve against the float64 one (TVLQR) and
+# against the dense QP, relative to the largest |u| (CPU rehearsal at
+# B=128: 2.6e-6)
+TVLQR_F32_TOL = 1e-3
+# the pendulum at T=512 after 5 iterations is far from converged (step
+# norms 3-80) and its open-loop rollout is chaotic: float32 and float64
+# controls part (a CPU rehearsal at B=16: mean |du| 1e-3, max 0.75), so
+# the two are held by the costs each reaches, relative to the float64
+# one (the rehearsal: 1.1e-2; on an H100 2.005e-2)
+LONG_COST_GAP = 0.05
+# the same at T=512, card f64 against CPU f64: no decision parts, but each
+# of 512 steps of an unconverged open-loop rollout adds its last-bit
+# differences.  The CPU against itself with one ulp added to every
+# step's state (the witness, in the phase) moves u by 1.1e-10 and the
+# costs by 4.7e-12 (a CPU rehearsal); one ulp on x0 alone moves u by
+# 1.5e-13.
+LONG_F64_TOL = 1e-9
+LONG_F64_COST_TOL = 1e-10
+
+
+def eager_record(records, phase, config, solves, err, reference, tolerance,
+                 ms):
+    records.append({'phase': phase, 'config': config, 'route': 'eager',
+                    'eager_solves': solves, 'max_err': err,
+                    'reference': reference, 'tolerance': tolerance,
+                    'median_ms': ms})
+
+
+def rel_err(a, ref):
+    ref = ref.double().cpu()
+    return float((a.double().cpu() - ref).abs().max() / ref.abs().max())
+
+
+def timed(torch, device, fn, reps):
+    """``fn()`` ``reps`` times, each ending in a synchronise: the results
+    and the median host time in ms."""
+    out, ms = [], []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out.append(fn())
+        sync(torch, device)
+        ms.append(1e3 * (time.perf_counter() - t0))
+    return out, sorted(ms)[len(ms) // 2]
+
+
+def same_bits(what, torch, pairs):
+    if not all(torch.equal(a, b) for a, b in pairs):
+        raise AssertionError(f'{what}: not bitwise equal')
+    log(f'  {what}: bitwise equal')
+
+
+def eager_counted(torch, fn):
+    """``fn()`` with the eager counts and the kernels' launch counts set
+    to 0 just before and read just after: (result, eager solves)."""
+    from mpc_tpu_torch import solver
+    from mpc_tpu_torch.ops import fused
+    solver.reset_eager_counts()
+    fused.reset_launch_counts()
+    out = fn()
+    if any(fused.launch_counts.values()):
+        raise AssertionError('an eager solve launched a kernel')
+    return out, solver.eager_counts['eager_solve']
+
+
+def phase_eager_serve(torch, device, records, reps=3):
+    """The headline with use_fused='never' against K1 (the eager half of
+    the same-process A/B) and both against a float64 eager run."""
+    import mpc_tpu_torch as mt
+    from mpc_tpu_torch.ops import fused
+    log(f'[eager-serve] headline B={B}, T={T}: eager solver vs K1')
+    dx, cost = problem(torch, device)
+    dx64, cost64 = problem(torch, device, torch.float64)
+    x0 = x0_batch(B, 0, torch, device)
+    kw = dict(u_lower=-2.0, u_upper=2.0, device=device)
+    eager_cfg = mt.MPCConfig(**dict(HEADLINE, use_fused='never'))
+    (runs, eager_ms), n_eager = eager_counted(torch, lambda: timed(
+        torch, device, lambda: mt.batched_solve(eager_cfg, x0, cost, dx, **kw),
+        reps))
+    ue = runs[-1].u
+    fused.reset_launch_counts()
+    k1, k1_ms = timed(torch, device, lambda: mt.batched_solve(
+        mt.MPCConfig(**HEADLINE), x0, cost, dx, **kw), 2 * reps)
+    if device.type == 'cuda' and fused.launch_counts['fused_ilqr'] != 2 * reps:
+        raise AssertionError('the kernel route did not launch K1')
+    uk = k1[-1].u
+    u64 = mt.batched_solve(mt.MPCConfig(**dict(HEADLINE, use_fused='never')),
+                           x0.double(), cost64, dx64, **kw).u
+    err = check_tail('eager f32 vs K1', ue, uk)
+    check_tail('eager f32 vs eager f64', ue, u64)
+    check_tail('K1 vs eager f64', uk, u64)
+    # the card's float64 against the CPU's, both eager, on a slice
+    from mpc_tpu_torch import solver
+    cpu, k = torch.device('cpu'), EAGER_CPU_B
+    traced = []
+    for dev in (device, cpu):
+        dxd, costd = problem(torch, dev, torch.float64)
+        tr = []
+        traced += [solver.eager_batched_solve(
+            eager_cfg, x0[:k].double().to(dev), costd, dxd, trace=tr,
+            u_lower=-2.0, u_upper=2.0), tr]
+    _, e64, _ = hold_tied(torch, f'card f64 vs CPU f64, B={k}', *traced)
+    log(f'  {card_line()}: median host ms, eager {eager_ms:.3f} '
+        f'({B / eager_ms * 1e3:.0f} solves/s, {n_eager} eager solves), '
+        f'K1 {k1_ms:.3f} ({B / k1_ms * 1e3:.0f} solves/s); eager / K1 '
+        f'{eager_ms / k1_ms:.1f}')
+    eager_record(records, 'eager-serve', f'headline, B={B}, T={T}, float32',
+                 n_eager, err, 'K1 (and the float64 eager run); card '
+                 f'f64 vs CPU f64 (B={k}) {e64:.2e}',
+                 f'mean|du|<{TAIL_MEAN}, share(|du|>{TAIL_ENTRY})'
+                 f'<{TAIL_SHARE}', eager_ms)
+    records[-1]['k1_median_ms'] = k1_ms
+
+
+def tvlqr_problem(torch, device, dtype, n, seed=1):
+    """Config 1's random batched TVLQR (benchmarks/configs.py:49-68):
+    per-example C = R R^T, c, F = (I + 0.1 N | 0.5 N), f and x0."""
+    import numpy as np
+    import mpc_tpu_torch as mt
+    ns, nc, T_ = TVLQR['n_state'], TVLQR['n_ctrl'], TVLQR['T']
+    rng = np.random.RandomState(seed)
+    C = rng.randn(T_, n, ns + nc, ns + nc)
+    C = np.einsum('tbij,tbkj->tbik', C, C)
+    c = rng.randn(T_, n, ns + nc)
+    F = np.concatenate([np.eye(ns) + 0.1 * rng.randn(T_ - 1, n, ns, ns),
+                        0.5 * rng.randn(T_ - 1, n, ns, nc)], 3)
+    f = rng.randn(T_ - 1, n, ns)
+    x0 = rng.randn(n, ns)
+    t = (lambda a: torch.tensor(a, dtype=dtype, device=device))
+    return (t(x0), mt.QuadCost(t(C), t(c)), mt.LinDx(t(F), t(f)),
+            dict(C=C, c=c, F=F, f=f, x0=x0))
+
+
+def dense_lqr_u(C, c, F, f, x0):
+    """The unconstrained LQR of one example as a dense QP in the controls
+    (the states eliminated), solved in numpy float64: u [T, n_ctrl]."""
+    import numpy as np
+    T_, nt = c.shape
+    ns = F.shape[1]
+    nc = nt - ns
+    nu = T_ * nc
+    M, m = np.zeros((ns, nu)), np.asarray(x0, float)
+    H, g = np.zeros((nu, nu)), np.zeros(nu)
+    for t in range(T_):
+        Mx = np.zeros((nt, nu))
+        Mx[:ns] = M
+        Mx[ns:, t * nc:(t + 1) * nc] = np.eye(nc)
+        mx = np.concatenate([m, np.zeros(nc)])
+        H += Mx.T @ C[t] @ Mx
+        g += Mx.T @ (C[t] @ mx + c[t])
+        if t < T_ - 1:
+            M, m = F[t] @ Mx, F[t] @ mx + f[t]
+    return np.linalg.solve(0.5 * (H + H.T), -g).reshape(T_, nc)
+
+
+def phase_eager_tvlqr(torch, device, records, reps=3):
+    import numpy as np
+    import mpc_tpu_torch as mt
+    log(f'[eager-tvlqr] config 1: TVLQR, B={TVLQR_B}, T={TVLQR["T"]}, '
+        f'{TVLQR["n_state"]} states, {TVLQR["n_ctrl"]} controls, '
+        'per-example C, c, F, f')
+    cfg = mt.MPCConfig(**TVLQR)
+    x0, cost, dyn, arr = tvlqr_problem(torch, device, torch.float32, TVLQR_B)
+    x64, cost64, dyn64, _ = tvlqr_problem(torch, device, torch.float64,
+                                          TVLQR_B)
+    (runs, ms), n_eager = eager_counted(torch, lambda: timed(
+        torch, device, lambda: mt.batched_solve(cfg, x0, cost, dyn,
+                                                device=device), reps))
+    u32 = runs[-1].u
+    u64 = mt.batched_solve(cfg, x64, cost64, dyn64, device=device).u
+    dense = torch.tensor(np.stack([
+        dense_lqr_u(arr['C'][:, b], arr['c'][:, b], arr['F'][:, b],
+                    arr['f'][:, b], arr['x0'][b]) for b in range(TVLQR_B)], 1))
+    e64, e32, e32_64 = rel_err(u64, dense), rel_err(u32, dense), \
+        rel_err(u32, u64)
+    log(f'  max |du| / max |u|: f64 vs dense QP {e64:.3e}, f32 vs dense '
+        f'{e32:.3e}, f32 vs f64 {e32_64:.3e}; {n_eager} eager solves, '
+        f'median {ms:.3f} ms ({TVLQR_B / ms * 1e3:.0f} solves/s), '
+        f'{card_line()}')
+    if not (e64 < 1e-8 and e32 < TVLQR_F32_TOL and e32_64 < TVLQR_F32_TOL):
+        raise AssertionError('TVLQR: the eager solve is off the dense QP')
+    eager_record(records, 'eager-tvlqr', f'config 1, B={TVLQR_B}, T=5, '
+                 '3s/4c, float32', n_eager, e32_64,
+                 'float64 eager run and a numpy float64 dense QP',
+                 f'{TVLQR_F32_TOL} relative (f64 vs dense 1e-8)', ms)
+    phase_tf32(torch, 'TVLQR forward (pseudo-inverse)',
+               lambda: list(mt.batched_solve(cfg, x0, cost, dyn,
+                                             device=device)[:6]))
+
+
+def medium_problem(torch, device, dtype, n, seed=3):
+    """The medium-state jnp row (benchmarks/configs.py:141-151): a
+    batch-shared LinDx(F, None) with a stable A, a diagonal QuadCost."""
+    import numpy as np
+    import mpc_tpu_torch as mt
+    ns, nc, T_ = MEDIUM['n_state'], MEDIUM['n_ctrl'], MEDIUM['T']
+    rng = np.random.RandomState(seed)
+    A = np.eye(ns) + 0.01 * rng.randn(ns, ns)
+    A /= max(1.0, np.max(np.abs(np.linalg.eigvals(A))))
+    Bm = 0.1 * rng.randn(ns, nc)
+    F = np.tile(np.concatenate([A, Bm], 1)[None], (T_ - 1, 1, 1))
+    C = np.diag(np.concatenate([np.ones(ns), 0.1 * np.ones(nc)]))
+    x0 = rng.randn(n, ns)
+    t = (lambda a: torch.tensor(a, dtype=dtype, device=device))
+    return t(x0), mt.QuadCost(t(C), t(np.zeros(ns + nc))), mt.LinDx(t(F))
+
+
+def phase_eager_medium(torch, device, records):
+    import mpc_tpu_torch as mt
+    n = MEDIUM_B
+    log(f'[eager-medium] 24 states, 4 controls, T=20, B={n}, box +-1 '
+        '(the medium-state jnp row)')
+    cfg = mt.MPCConfig(**MEDIUM)
+    x0, cost, dyn = medium_problem(torch, device, torch.float32, n)
+    kw = dict(u_lower=-1.0, u_upper=1.0, device=device)
+
+    def solve(x, c=cost, d=dyn, dev=device):
+        return mt.batched_solve(cfg, x, c, d, **dict(kw, device=dev))
+
+    # timed once each, the batch and the reversed batch (host-bound)
+    (runs, ms), n_eager = eager_counted(torch, lambda: timed(
+        torch, device, lambda: solve(x0), 1))
+    sol = runs[-1]
+    rev, ms_rev = timed(torch, device, lambda: solve(x0.flip(0)), 1)
+    ms = 0.5 * (ms + ms_rev)
+    same_bits('reversed batch', torch, [
+        (rev[0].u.flip(1), sol.u), (rev[0].x.flip(1), sol.x),
+        (rev[0].n_iter.flip(0), sol.n_iter),
+        (rev[0].n_qp_iter.flip(0), sol.n_qp_iter)])
+    # slices alone against the same examples inside the batch, at three
+    # iterations (the per-example arithmetic of all ten)
+    short = mt.MPCConfig(**dict(MEDIUM, lqr_iter=3))
+    full3 = mt.batched_solve(short, x0, cost, dyn, **kw)
+    at = n // 8
+    for k in (1, 7, 33):
+        part = mt.batched_solve(short, x0[at:at + k], cost, dyn, **kw)
+        same_bits(f'B={k} alone vs inside B={n} (3 iterations)', torch, [
+            (part.u, full3.u[:, at:at + k]), (part.x, full3.x[:, at:at + k]),
+            (part.n_qp_iter, full3.n_qp_iter[at:at + k])])
+    x64, cost64, dyn64 = medium_problem(torch, device, torch.float64, n)
+    s64 = solve(x64, cost64, dyn64)
+    mx = check_tail('f32 vs f64', sol.u, s64.u)
+    cpu = torch.device('cpu')
+    xc, costc, dync = medium_problem(torch, cpu, torch.float64, n=64)
+    sc = solve(xc, costc, dync, cpu)
+    e = rel_err(s64.u[:, :64], sc.u)
+    # PNQP's Newton counts may part where a gradient at a bound is zero to
+    # round-off (its sign picks the free set, not the solution)
+    qp_differ = int((s64.n_qp_iter[:64].cpu() != sc.n_qp_iter).sum())
+    log(f'  card f64 vs CPU f64, B=64: max |du| / max |u| {e:.3e}, n_iter '
+        f'{"equal" if torch.equal(s64.n_iter[:64].cpu(), sc.n_iter) else "DIFFER"}'
+        f', n_qp_iter differs in {qp_differ} examples')
+    if not (e < EAGER_F64_TOL
+            and torch.equal(s64.n_iter[:64].cpu(), sc.n_iter)):
+        raise AssertionError('medium: the card\'s float64 is off the CPU\'s')
+    active = float((sol.u.abs() == 1.0).double().mean())
+    log(f'  {active:.3f} of the controls on the box; {n_eager} eager '
+        f'solves, median {ms:.1f} ms ({n / ms * 1e3:.1f} solves/s), '
+        f'{card_line()}')
+    eager_record(records, 'eager-medium', f'24s/4c, B={n}, T=20, box, '
+                 'float32', n_eager, mx, 'float64 eager run on the card; '
+                 'card f64 vs CPU f64 (B=64) '
+                 f'{e:.2e}', f'f32 tail as K1; f64 {EAGER_F64_TOL}', ms)
+
+
+def cartpole_problem(torch, device, dtype, n, seed=2):
+    """Config 3 (benchmarks/configs.py:173-202): the cartpole from small
+    angles, its diagonal balance objective, box +-100."""
+    import numpy as np
+    import mpc_tpu_torch as mt
+    from mpc_tpu_torch.models import CartpoleDx
+    rng = np.random.RandomState(seed)
+    th = 0.5 * (2 * rng.rand(n) - 1)
+    z = np.zeros(n)
+    x0 = torch.tensor(np.stack([z, z, np.cos(th), np.sin(th), z], 1),
+                      dtype=dtype, device=device)
+    dx = CartpoleDx(device=device, dtype=dtype)
+    q, p = dx.get_true_obj()
+    return x0, mt.QuadCost(torch.diag(q), p), dx
+
+
+def phase_eager_cartpole(torch, device, records):
+    import mpc_tpu_torch as mt
+    log(f'[eager-cartpole] config 3: CartpoleDx, B={CARTPOLE_B}, T=25, '
+        'AUTO_DIFF through torch.func, box +-100')
+    cfg = mt.MPCConfig(grad_method=mt.GradMethods.AUTO_DIFF, **CARTPOLE)
+    kw = dict(u_lower=-100.0, u_upper=100.0, device=device)
+    x0, cost, dx = cartpole_problem(torch, device, torch.float32,
+                                    CARTPOLE_B)
+    (runs, ms), n_eager = eager_counted(torch, lambda: timed(
+        torch, device, lambda: mt.batched_solve(cfg, x0, cost, dx, **kw), 3))
+    x64, cost64, dx64 = cartpole_problem(torch, device, torch.float64,
+                                         CARTPOLE_B)
+    s64 = mt.batched_solve(cfg, x64, cost64, dx64, **kw)
+    mx = check_tail('f32 vs f64', runs[-1].u, s64.u)
+    log(f'  {n_eager} eager solves, median {ms:.1f} ms '
+        f'({CARTPOLE_B / ms * 1e3:.0f} solves/s), {card_line()}')
+    eager_record(records, 'eager-cartpole', f'config 3, B={CARTPOLE_B}, '
+                 'T=25, float32', n_eager, mx, 'float64 eager run',
+                 f'mean|du|<{TAIL_MEAN}, share(|du|>{TAIL_ENTRY})'
+                 f'<{TAIL_SHARE}', ms)
+
+
+def phase_eager_long(torch, device, records):
+    import numpy as np
+    import mpc_tpu_torch as mt
+    from mpc_tpu_torch import solver
+    n, T_ = LONG_EAGER_B, LONG_EAGER['T']
+    log(f'[eager-long] the pendulum at T={T_}, B={n}, unconstrained, '
+        'parallel_riccati=False (the sequential arm)')
+    cfg = mt.MPCConfig(grad_method=mt.GradMethods.AUTO_DIFF, **LONG_EAGER)
+    rng = np.random.RandomState(9)
+    th = np.pi * (2 * rng.rand(n) - 1)
+    x = np.stack([np.cos(th), np.sin(th), np.zeros(n)], 1)
+
+    def inputs(dtype, dev):
+        dx, cost = problem(torch, dev, dtype)
+        return torch.tensor(x, dtype=dtype, device=dev), cost, dx
+
+    x0, cost, dx = inputs(torch.float32, device)
+    (runs, ms), n_eager = eager_counted(torch, lambda: timed(
+        torch, device, lambda: mt.batched_solve(cfg, x0, cost, dx,
+                                                device=device), 1))
+    s32 = runs[-1]
+    # float64 on the card and on the CPU, each with its decisions traced;
+    # the witness is the CPU with every step's state moved by one ulp
+    cpu = torch.device('cpu')
+    (s64, t64), (sc, tc), (sw, tw) = [
+        (solver.eager_batched_solve(cfg, x0_, cost_, dx_, trace=tr), tr)
+        for (x0_, cost_, dx_), tr in (
+            (inputs(torch.float64, device), []),
+            (inputs(torch.float64, cpu), []),
+            (inputs(torch.float64, cpu)[:2] + (ulp_pendulum(torch),), []))]
+    _, err, _ = hold_tied(torch, 'card f64 vs CPU f64', s64, t64, sc, tc,
+                          LONG_F64_TOL, LONG_F64_COST_TOL)
+    hold_tied(torch, 'witness, CPU vs CPU one ulp a step', sc, tc, sw, tw,
+              LONG_F64_TOL, LONG_F64_COST_TOL)
+    check_tail('f32 vs f64 (not held)', s32.u, s64.u, None)
+    gap = float(((s32.costs.double() - s64.costs).abs()
+                 / s64.costs.abs()).max())
+    log(f'  cost f32 vs f64: largest relative gap {gap:.3e}; '
+        f'{n_eager} eager solve, {ms:.1f} ms ({n / ms * 1e3:.1f} '
+        f'solves/s), {card_line()}')
+    if not (torch.isfinite(s32.u).all() and gap < LONG_COST_GAP):
+        raise AssertionError('long: the float32 solve is off the float64 '
+                             'one')
+    eager_record(records, 'eager-long', f'pendulum, T={T_}, B={n}, '
+                 'float32', n_eager, gap, 'float64 eager run (costs); '
+                 f'card f64 vs CPU f64 {err:.2e}',
+                 f'{LONG_COST_GAP} relative cost gap; f64 {LONG_F64_TOL}',
+                 ms)
+
+
+def ulp_pendulum(torch):
+    """The simple pendulum in float64 on the CPU with every step's new
+    state moved by one ulp, up or down by a fixed pattern of its digits:
+    the size of a last-bit difference in each step's sin, cos, atan2 and
+    sums, as the card's and the CPU's libraries give them."""
+    from mpc_tpu_torch.models import PendulumDx
+
+    class UlpPendulum(PendulumDx):
+        def forward(self, x, u):
+            y = super().forward(x, u)
+            up = torch.frac(y.abs() * 1e7) < 0.5
+            return torch.nextafter(y, torch.where(up, torch.inf, -torch.inf)
+                                   .to(y.dtype))
+
+    return UlpPendulum(device='cpu', dtype=torch.float64)
+
+
+# the 4-control box LinDx problems of [eager-grad]: a third of the
+# controls end on the box at a c scale of 0.2, 0.82 of them at 2
+BOX4_C_SCALES = (0.2, 2.0)
+# the witness's permutation of the states and of the controls
+BOX4_PERM = ((3, 0, 5, 1, 4, 2), (2, 0, 3, 1))
+
+
+def box4_problem(torch, device, dtype, n, seed=21, c_scale=0.2, perm=None):
+    """A 4-control box LinDx problem for the gradients: 6 states, T=10,
+    a batch-shared F, per-example c (scaled by ``c_scale``), f and x0,
+    box +-1, 5 iterations.  ``perm`` (states, controls) permutes the
+    problem's coordinates: the same problem, summed in another order."""
+    import numpy as np
+    import mpc_tpu_torch as mt
+    ns, nc, T_ = 6, 4, 10
+    rng = np.random.RandomState(seed)
+    A = np.eye(ns) + 0.05 * rng.randn(ns, ns)
+    A /= max(1.0, np.max(np.abs(np.linalg.eigvals(A))))
+    F = np.tile(np.concatenate([A, 0.3 * rng.randn(ns, nc)], 1)[None],
+                (T_ - 1, 1, 1))
+    C = np.diag(np.concatenate([np.ones(ns), 0.1 * np.ones(nc)]))
+    arrays = dict(F=F, C=C, c=c_scale * rng.randn(T_, n, ns + nc),
+                  f=0.1 * rng.randn(T_ - 1, n, ns), x0=rng.randn(n, ns),
+                  w=rng.randn(T_, n, nc))
+    if perm is not None:
+        ps = np.asarray(perm[0])
+        pt = np.concatenate([ps, ns + np.asarray(perm[1])])
+        arrays.update(F=F[:, ps][:, :, pt], C=C[pt][:, pt],
+                      c=arrays['c'][..., pt], f=arrays['f'][..., ps],
+                      x0=arrays['x0'][:, ps], w=arrays['w'][..., perm[1]])
+    leaves = {k: torch.tensor(v, dtype=dtype, device=device,
+                              requires_grad=k != 'w')
+              for k, v in arrays.items()}
+    cfg = mt.MPCConfig(n_state=ns, n_ctrl=nc, T=T_, lqr_iter=5, eps=0.0,
+                       exit_unconverged=False, detach_unconverged=False,
+                       backprop=True, use_fused='never')
+    return cfg, leaves
+
+
+def box4_solve(torch, device, dtype, n, c_scale=0.2, perm=None,
+               trace=None):
+    """The box problem's eager solve with its fixed point attached (the
+    route batched_solve takes for it), tracing its decisions."""
+    import mpc_tpu_torch as mt
+    from mpc_tpu_torch import solver
+    cfg, L = box4_problem(torch, device, dtype, n, c_scale=c_scale,
+                          perm=perm)
+    sol = solver.eager_batched_solve(
+        cfg, L['x0'], mt.QuadCost(L['C'], L['c']), mt.LinDx(L['F'], L['f']),
+        u_lower=-1.0, u_upper=1.0, differentiable=True, trace=trace)
+    return sol, L
+
+
+def box4_backward(sol, L, keep=None):
+    """The gradients of (w u).sum() + 0.5 |x|^2 over the examples in
+    ``keep`` (all when None): [u] + the leaves' gradients."""
+    m = 1.0 if keep is None else keep.to(sol.u.device, sol.u.dtype)[
+        None, :, None]
+    ((m * L['w'] * sol.u).sum() + 0.5 * (m * sol.x ** 2).sum()).backward()
+    return [sol.u.detach()] + [L[k].grad for k in ('x0', 'C', 'c', 'F', 'f')]
+
+
+def box4_grads(torch, device, dtype, n):
+    """u and the gradients through the eager solver and its fixed point,
+    through the entry point (batched_solve)."""
+    import mpc_tpu_torch as mt
+    cfg, L = box4_problem(torch, device, dtype, n)
+    sol = mt.batched_solve(cfg, L['x0'], mt.QuadCost(L['C'], L['c']),
+                           mt.LinDx(L['F'], L['f']), u_lower=-1.0,
+                           u_upper=1.0, device=device)
+    return box4_backward(sol, L)
+
+
+def parted_examples(torch, ta, tb):
+    """The examples whose eager decisions differ between two traces
+    (``solver.eager_batched_solve(trace=...)``): active, alpha or n_qp at
+    any iteration.  bool [B] on the CPU."""
+    cpu = [{k: v.cpu() for k, v in d.items()} for d in ta], \
+        [{k: v.cpu() for k, v in d.items()} for d in tb]
+    parted = torch.zeros_like(cpu[0][0]['active'])
+    for a, b in zip(*cpu):
+        parted |= (a['active'] != b['active']) | (a['active'] & (
+            (a['alpha'] != b['alpha']) | (a['n_qp'] != b['n_qp'])))
+    for extra in cpu[0][len(tb):] + cpu[1][len(ta):]:
+        parted |= extra['active']
+    return parted
+
+
+def first_parting(torch, ta, tb, parted):
+    """For each parted example (at most 4): the first iteration whose
+    decisions differ and what differs there."""
+    out = []
+    for e in torch.nonzero(parted).flatten()[:4].tolist():
+        for i, (a, b) in enumerate(zip(ta, tb)):
+            what = [k for k in ('active', 'alpha', 'n_qp')
+                    if a[k][e].item() != b[k][e].item()]
+            if what:
+                out.append(f'example {e} at iteration {i}: ' + ', '.join(
+                    f'{k} {a[k][e].item():.6g}/{b[k][e].item():.6g}'
+                    for k in what))
+                break
+    return out
+
+
+def hold_tied(torch, what, sa, ta, sb, tb, tol=EAGER_F64_TOL,
+              cost_tol=TIE_COST_TOL):
+    """Hold two float64 eager solves of one problem (solutions and
+    traces): the examples with the same decisions within ``tol`` of the
+    largest |u|, every example's cost within ``cost_tol`` (relative; for
+    the parted ones the flat cost of a tie) and the parted share below
+    PARTED_SHARE.  Returns (keep, the untied error, the tied examples'
+    largest |du| / max |u|)."""
+    parted = parted_examples(torch, ta, tb)
+    keep = ~parted
+    ua, ub = sa.u.detach().double().cpu(), sb.u.detach().double().cpu()
+    scale = ub.abs().max()
+    err = float((ua[:, keep] - ub[:, keep]).abs().max() / scale)
+    tied = float((ua[:, parted] - ub[:, parted]).abs().max() / scale) \
+        if parted.any() else 0.0
+    ca, cb = sa.costs.double().cpu(), sb.costs.double().cpu()
+    cost_gap = float(((ca - cb).abs() / cb.abs()).max())
+    share = float(parted.double().mean())
+    log(f'  {what}: {int(parted.sum())} of {parted.numel()} examples part '
+        f'({share:.4f}); the rest max |du| / max |u| {err:.3e}, the parted '
+        f'{tied:.3e}; largest relative cost gap {cost_gap:.3e}')
+    for line in first_parting(torch, ta, tb, parted):
+        log(f'    {line}')
+    if not (err < tol and cost_gap < cost_tol and share < PARTED_SHARE):
+        raise AssertionError(f'{what}: the solves differ beyond their ties')
+    return keep, err, tied
+
+
+def phase_eager_grad(torch, device, records, n=1024):
+    import mpc_tpu_torch as mt
+    from mpc_tpu_torch import solver
+    from mpc_tpu_torch.ops import fused_bwd
+    from mpc_tpu_torch.ops.diff import make_lqr_fixed_point
+    log(f'[eager-grad] (a) config 4, T={TRAIN_T}, B={n}: the eager fixed '
+        'point vs K2 on the same primal')
+    o = bwd_operands(torch, device, n)
+    kk = fused_bwd.fused_kkt_backward(**o, has_f=False)
+    leaves = [t.detach().clone().requires_grad_() for t in
+              (torch.zeros(n, 3, device=device), o['C'], o['c'], o['F'])]
+    bnd = torch.tensor(2.0, device=device).expand(TRAIN_T, 1, 1)
+    solver.reset_eager_counts()
+
+    def eager_bwd():
+        for t in leaves:
+            t.grad = None
+        x, u = make_lqr_fixed_point(3, True, False).apply(
+            leaves[0], leaves[1], leaves[2], leaves[3], None, -bnd, bnd,
+            o['x_star'], o['u_star'])
+        ((x * o['dl_dx']).sum() + (u * o['dl_du']).sum()).backward()
+        return [t.grad.clone() for t in leaves]
+
+    (runs, ms) = timed(torch, device, eager_bwd, 3)
+    err_a = 0.0
+    for name, g, ref in zip(('dx_init', 'dC', 'dc', 'dF'), runs[-1], kk[:4]):
+        e = rel_err(g.reshape(ref.shape), ref)
+        err_a = max(err_a, e)
+        log(f'  {name}: max |eager - K2| / max |K2| {e:.3e}')
+    if err_a > BWD_TOL:
+        raise AssertionError('the eager fixed point is off K2')
+    log(f'  eager backward median {ms:.3f} ms, {card_line()}')
+    eager_record(records, 'eager-grad', f'config 4, B={n}, T={TRAIN_T}, '
+                 'float32, same primal', 0, err_a, 'K2',
+                 f'{BWD_TOL} relative per gradient', ms)
+
+    cpu = torch.device('cpu')
+    names = ('dx_init', 'dC', 'dc', 'dF', 'df')
+    for c_scale in BOX4_C_SCALES:
+        log(f'[eager-grad] (b) 4 controls, box LinDx, B={n}, c scale '
+            f'{c_scale}: card f64 vs CPU f64, solve and gradients')
+        tk, tc, tw = [], [], []
+        solver.reset_eager_counts()
+        t0 = time.perf_counter()
+        sk, Lk = box4_solve(torch, device, torch.float64, n, c_scale,
+                            trace=tk)
+        sync(torch, device)
+        ms = 1e3 * (time.perf_counter() - t0)
+        n_eager = solver.eager_counts['eager_solve']
+        sc, Lc = box4_solve(torch, cpu, torch.float64, n, c_scale, trace=tc)
+        keep, err_u, tied = hold_tied(torch, 'card vs CPU', sk, tk, sc, tc)
+        # the witness: the CPU against itself on the permuted problem
+        with torch.no_grad():
+            sw, _ = box4_solve(torch, cpu, torch.float64, n, c_scale,
+                               perm=BOX4_PERM, trace=tw)
+        uw = torch.empty_like(sw.u)
+        uw[..., list(BOX4_PERM[1])] = sw.u
+        hold_tied(torch, 'witness, CPU vs CPU permuted', sc, tc,
+                  sw._replace(u=uw), tw)
+        # gradients of the loss over the examples that did not part
+        gk, gc = box4_backward(sk, Lk, keep), box4_backward(sc, Lc, keep)
+        err_b = err_u
+        for name, a, b in zip(names, gk[1:], gc[1:]):
+            e = rel_err(a, b)
+            err_b = max(err_b, e)
+            log(f'  {name} (the examples that do not part): card f64 vs '
+                f'CPU f64 {e:.3e}')
+        if err_b > EAGER_F64_TOL:
+            raise AssertionError('box LinDx: the card\'s float64 gradients '
+                                 'are off the CPU\'s')
+        active = float((gk[0].abs() == 1.0).double().mean())
+        log(f'  {active:.3f} of the controls on the box; {n_eager} eager '
+            f'solve with its fixed point on the card, {ms:.1f} ms')
+        eager_record(records, 'eager-grad', f'4 controls, box LinDx, B={n}, '
+                     f'T=10, c scale {c_scale}, float64 solve and '
+                     'gradients', n_eager, err_b,
+                     'the same on the CPU (examples whose decisions '
+                     f'match; {int((~keep).sum())} part, by up to '
+                     f'{tied:.2e})', f'{EAGER_F64_TOL} relative', ms)
+    log('[eager-grad] (c) TF32 on and off')
+    phase_tf32(torch, '4-control box LinDx float32 solve and gradients',
+               lambda: box4_grads(torch, device, torch.float32, n))
+
+
 def main():
     try:
         import torch
@@ -1606,6 +2248,16 @@ def main():
                         long_train_step(torch, device))
     timing_long = phase_time_long(torch, device)
     timing_bwd_long = phase_time_bwd_long(torch, device)
+    t_eager = time.perf_counter()
+    eager = []
+    phase_eager_serve(torch, device, eager)
+    phase_eager_tvlqr(torch, device, eager)
+    phase_eager_medium(torch, device, eager)
+    phase_eager_cartpole(torch, device, eager)
+    phase_eager_long(torch, device, eager)
+    phase_eager_grad(torch, device, eager)
+    log(f'[eager] the [eager-*] phases took '
+        f'{time.perf_counter() - t_eager:.1f} s')
     log(f'[done] {time.perf_counter() - t0:.1f} s')
     # one entry per kernel and main path: serving ([serve], headline
     # B=4096), training ([train], config 4 at B=1024) and long-horizon
@@ -1656,6 +2308,10 @@ def main():
          'launches': k4_train, 'max_abs_err': bwd_long_err,
          'tolerance': f'max|K4-plain|/max|plain|<{BWD_TOL} per gradient',
          'library_ms': None, **timing_bwd_long}]}))
+    # the eager solver's phases: configuration, route, eager solves
+    # counted in the phase, largest error against its reference, the
+    # tolerance and the median host ms of a solve (or of a backward)
+    log(json.dumps({'eager': eager}))
     log(card)
     log(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

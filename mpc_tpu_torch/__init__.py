@@ -1,34 +1,49 @@
 """mpc_tpu_torch: the PyTorch/CUDA port of mpc_tpu for an NVIDIA H100.
 
 A second package beside the JAX one (which stays the reference it is
-tested against).  It imports torch and nothing of JAX or mpc_tpu.  It
-serves the iLQR solve of the pendulum through the hand-written Hopper
-kernel K1 (ops/fused.py, csrc/fused_ilqr.cu) and differentiates through
-it with kernel K2 (ops/fused_bwd.py, csrc/fused_kkt_bwd.cu), which makes
-imitation training run on the card.  The entry points run on the CUDA
-card unless the caller passes ``device="cpu"``, where the kernels' plain
-PyTorch versions run.
+tested against).  It imports torch and nothing of JAX or mpc_tpu.  The
+entry points run on the CUDA card unless the caller passes
+``device="cpu"``.
 
-Public surface so far:
+``batched_solve`` (and the ``MPC`` front end on top of it) routes each
+problem as the JAX package does.  The problems the hand-written Hopper
+kernels take (the simple pendulum or a LinDx, n_state = 3, n_ctrl = 1, a
+QuadCost, float32 on the card) are solved by K1 (csrc/fused_ilqr.cu, up
+to T = 181) or K3 (csrc/fused_ilqr_long.cu, LinDx and longer horizons)
+and differentiated by K2 or K4 (csrc/fused_kkt_bwd.cu,
+csrc/fused_kkt_bwd_long.cu); on the CPU their plain PyTorch versions run
+instead.  Every other problem (n_ctrl > 1, float64 on the card, callable
+costs and models, the damped pendulum, the cartpole, u_zero_I, delta_u,
+``use_fused='never'``) runs on the eager solver (``solver.py``), batched
+natively, and its differentiable fixed point (``ops/diff.py``), on the
+card or the CPU.
+
+Public surface:
   MPC                        - reference-compatible batched solver class
   batched_solve              - functional batched solve (differentiable
                                with cfg.backprop)
+  solve_single               - one instance through the eager solver
   imitation_loss, make_imitation_train_step - training through the solve
   QuadCost, LinDx            - cost / linear-dynamics tuples
   GradMethods, MPCConfig, Solution
   rollout, trajectory_cost   - trajectory helpers
+  linearize_dynamics, quadratize_cost - the model along a trajectory
+  models.PendulumDx, models.CartpoleDx
 """
 
 from .types import GradMethods, LinDx, MPCConfig, QuadCost, Solution
 from .mpc import MPC
 from .learning import (batched_solve, imitation_loss,
                        make_imitation_train_step)
-from .solver import rollout, trajectory_cost
+from .solver import (linearize_dynamics, quadratize_cost, rollout,
+                     solve_single, trajectory_cost)
+from . import models
 
 __version__ = '0.1.0'
 
 __all__ = [
     'MPC', 'QuadCost', 'LinDx', 'GradMethods', 'MPCConfig', 'Solution',
-    'batched_solve', 'imitation_loss', 'make_imitation_train_step',
-    'rollout', 'trajectory_cost',
+    'batched_solve', 'solve_single', 'imitation_loss',
+    'make_imitation_train_step', 'rollout', 'trajectory_cost',
+    'linearize_dynamics', 'quadratize_cost', 'models',
 ]

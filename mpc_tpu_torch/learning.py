@@ -1,15 +1,20 @@
 """Batched solve dispatch and imitation learning (counterpart of
 mpc_tpu/learning.py:42-324).
 
-A differentiable solve runs in two phases, as in the JAX package.  Phase
-1 is the iLQR solve through kernel K1 or K3 (ops/fused.py:routes_long)
-with gradients stopped (the reference's detached outer loop,
-mpc/mpc.py:249-262).  Phase 2 re-linearises the dynamics and
-re-quadratises the cost at the solution, differentiably, and attaches
-the batched fixed point whose backward is kernel K2 or K4
-(ops/fused_bwd.py:bwd_routes_long), so gradients reach x_init, the cost
-and the model's parameters or a LinDx's F and f.  The sharded train step
-waits for ROADMAP queue 1 item 12.
+``batched_solve`` routes a problem as mpc_tpu/learning.py:151-273 does.
+A problem that the kernels take (``ops/fused.scope_gap``) runs phase 1,
+the iLQR solve, through kernel K1 or K3 (``ops/fused.routes_long``) with
+gradients stopped (the reference's detached outer loop,
+mpc/mpc.py:249-262); a differentiable solve then re-linearises the
+dynamics and re-quadratises the cost at the solution, differentiably,
+and attaches the batched fixed point whose backward is kernel K2 or K4
+(``ops/fused_bwd.bwd_routes_long``), or the eager fixed point where
+those do not take the backward.  Every other problem, and every problem
+under ``use_fused='never'``, runs the eager solver (``solver.py``) and
+its fixed point, on the same device.  The route is chosen from the
+problem alone before anything runs: a kernel that fails to build or
+launch raises and never falls back to the eager solver.  The sharded
+train step waits for ROADMAP queue 1 item 8.
 """
 
 from __future__ import annotations
@@ -18,21 +23,13 @@ from typing import Callable
 
 import torch
 
+from . import solver
+from .models.cartpole import CartpoleDx
+from .models.pendulum import PendulumDx
 from .ops import fused, fused_bwd
 from .solver import linearize_dynamics, quadratize_cost
 from .types import LinDx, MPCConfig, QuadCost, Solution
 from .utils.device import resolve_device
-
-
-def _tensors(*objs):
-    for o in objs:
-        if isinstance(o, torch.Tensor):
-            yield o
-        elif isinstance(o, (QuadCost, LinDx)):
-            yield from _tensors(*o)
-        elif isinstance(o, torch.nn.Module):
-            yield from o.parameters()
-            yield from o.buffers()
 
 
 def _bound(b, dtype, device):
@@ -72,24 +69,50 @@ def _phase2_kernel_bwd(cfg, x_init, cost, dynamics, sol1, u_lower, u_upper):
     return x, u
 
 
+def _always_error(cfg, cost, dynamics, u_lower, dtype, gap):
+    """The error of ``use_fused='always'`` outside the kernels' scope: a
+    ValueError where mpc_tpu's own kernels refuse the problem too
+    (mpc_tpu/ops/fused.py:supports, mpc_tpu/learning.py:165-168: float64,
+    a cost or model without a structure-of-arrays form, delta_u without
+    bounds), else a NotImplementedError naming the kernel configuration
+    that waits."""
+    msg = f'use_fused="always" but the kernels do not take this problem: {gap}'
+    soa_model = isinstance(dynamics, (LinDx, PendulumDx, CartpoleDx)) or \
+        hasattr(dynamics, 'soa_step')
+    soa_cost = isinstance(cost, QuadCost) or hasattr(cost, 'soa_cost')
+    if (dtype != torch.float32 or not soa_model or not soa_cost
+            or (cfg.delta_u is not None and u_lower is None)):
+        return ValueError(msg)
+    return NotImplementedError(msg)
+
+
 def batched_solve(cfg: MPCConfig, x_init, cost, dynamics, u_init=None,
                   u_lower=None, u_upper=None, u_zero_I=None, prev_ctrl=None,
                   device=None) -> Solution:
-    """Solve a batch of MPC problems through the fused solve (kernel K1
-    or K3).
+    """Solve a batch of MPC problems.
 
-    ``x_init`` is [B, n_state]; cost and LinDx leaves, bounds and u_init
-    are time-major [T, B, ...] or batch-shared with the batch axis
-    dropped (bounds may be scalars).  Everything runs on ``device``: the CUDA
-    card by default (the kernels), or the CPU when asked (the kernels'
-    plain PyTorch versions, in float32 or float64).  A problem outside
-    the port's scope raises NotImplementedError naming the ROADMAP item that
-    brings it.
+    ``x_init`` is [B, n_state]; cost and LinDx leaves, bounds, u_init and
+    u_zero_I are time-major [T, B, ...] or batch-shared with the batch
+    axis dropped (bounds may be scalars); a callable cost or model acts
+    on the last axis of batched inputs (``solver.py``).  Everything runs
+    on ``device``: the CUDA card by default, or the CPU when asked.
+
+    The route (module docstring): the kernels K1 or K3 for a problem in
+    their scope (``ops/fused.scope_gap``) unless ``cfg.use_fused`` is
+    'never'; the eager solver otherwise, which 'always' refuses.  On the
+    CPU the kernels' plain PyTorch versions run in their place, and they
+    take float64, which on the card goes to the eager solver: so under
+    'auto' a float64 problem in the kernels' scope takes a different
+    algorithm on the CPU than on the card, and a CPU run that stands as
+    a reference for the card's float64 passes use_fused='never'.  A
+    problem that no route takes raises NotImplementedError naming the
+    ROADMAP item that brings it.
 
     With ``cfg.backprop`` and any of x_init, the cost's C or c, the
     model's parameters, a LinDx's F or f or the bounds requiring grad
     (and grad mode on), x and u carry gradients to them through the KKT
-    fixed point (phase 2, kernel K2 or K4).  The bounds get a zero gradient, as in the reference.  costs, n_iter
+    fixed point (phase 2: kernel K2 or K4, or the eager fixed point).
+    The bounds get a zero gradient, as in the reference.  costs, n_iter
     and the other statistics come from phase 1 and carry none.
     """
     if (u_lower is None) != (u_upper is None):
@@ -101,25 +124,49 @@ def batched_solve(cfg: MPCConfig, x_init, cost, dynamics, u_init=None,
     x_init = torch.as_tensor(x_init, device=device)
     if x_init.dim() != 2 or x_init.shape[1] != cfg.n_state:
         raise ValueError('x_init must be [n_batch, n_state]')
-    gap = fused.scope_gap(cfg, cost, dynamics, u_zero_I=u_zero_I,
-                          prev_ctrl=prev_ctrl, dtype=x_init.dtype,
-                          device=device)
-    differentiable = cfg.backprop and torch.is_grad_enabled() and any(
-        t.requires_grad
-        for t in _tensors(x_init, cost, dynamics, u_lower, u_upper))
-    if gap is None and differentiable:
-        gap = fused_bwd.scope_gap_bwd(cfg.T, cfg.n_ctrl, x_init.dtype,
-                                      device)
+    dtype = x_init.dtype
+    gap = solver.unported_gap(cfg, prev_ctrl, dtype)
     if gap is not None:
         raise NotImplementedError(gap)
+    differentiable = solver.wants_grad(cfg, x_init, cost, dynamics, u_lower,
+                                       u_upper)
+    kernel_gap = fused.scope_gap(cfg, cost, dynamics, u_zero_I=u_zero_I,
+                                 prev_ctrl=prev_ctrl, dtype=dtype,
+                                 device=device)
+    if kernel_gap is not None and cfg.use_fused == 'always':
+        raise _always_error(cfg, cost, dynamics, u_lower, dtype, kernel_gap)
+    if kernel_gap is not None or cfg.use_fused == 'never':
+        gap = solver.scan_gap(cfg, has_bounds=u_lower is not None,
+                              has_u_zero_I=u_zero_I is not None,
+                              differentiable=differentiable)
+        if gap is not None:
+            raise NotImplementedError(gap)
+        return solver.eager_batched_solve(
+            cfg, x_init, cost, dynamics, u_init=u_init, u_lower=u_lower,
+            u_upper=u_upper, u_zero_I=u_zero_I,
+            differentiable=differentiable)
+
+    # the kernels' backward may not take what their forward does; its
+    # phase 2 is then the eager fixed point (mpc_tpu/learning.py:213-242)
+    bwd_gap = differentiable and fused_bwd.scope_gap_bwd(
+        cfg.T, cfg.n_ctrl, dtype, device)
+    if bwd_gap:
+        gap = solver.scan_gap(cfg, phase1=False, differentiable=True)
+        if gap is not None:
+            raise NotImplementedError(gap)
     with torch.no_grad():
         sol1 = fused.fused_batched_solve(cfg, x_init, cost, dynamics,
                                          u_init=u_init, u_lower=u_lower,
                                          u_upper=u_upper)
     if not differentiable:
         return sol1
-    x, u = _phase2_kernel_bwd(cfg, x_init, cost, dynamics, sol1, u_lower,
-                              u_upper)
+    if bwd_gap:
+        x, u = solver.fixed_point_phase(cfg, x_init, cost, dynamics,
+                                        sol1.x, sol1.u, u_lower, u_upper,
+                                        sol1.converged)
+    else:
+        x, u = _phase2_kernel_bwd(cfg, x_init, cost, dynamics, sol1,
+                                  u_lower, u_upper)
     return sol1._replace(x=x, u=u)
 
 

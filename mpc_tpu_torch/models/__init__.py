@@ -1,5 +1,7 @@
-"""Models of the port: so far the pendulum."""
+"""Models of the port: the pendulum (simple and damped-biased) and the
+cartpole."""
 
+from .cartpole import CartpoleDx
 from .pendulum import PendulumDx
 
-__all__ = ['PendulumDx']
+__all__ = ['CartpoleDx', 'PendulumDx']

@@ -4,8 +4,9 @@ Same constructor knobs and defaults as the reference (mpc/mpc.py:77-144)
 and the JAX package, the same time-major [T, n_batch, ...] layout and
 the same ``(x, u, costs)`` return.  The class normalises shapes and
 delegates to ``learning.batched_solve``, so both entry points take the
-same path.  It runs on ``device``: the CUDA card unless the caller asks
-for the CPU.
+same path: the kernels for the problems they take, the eager solver for
+the rest (``use_fused``, ``u_zero_I`` and ``delta_u`` pass through).  It
+runs on ``device``: the CUDA card unless the caller asks for the CPU.
 """
 
 from __future__ import annotations
@@ -170,7 +171,14 @@ class MPC:
                 lb = lb.expand(T, n_batch, nc)
                 ub = ub.expand(T, n_batch, nc)
 
+        # u_zero_I: [T, n_batch, n_ctrl] when given with a batch axis,
+        # else [T, n_ctrl] shared (mpc_tpu/mpc.py:298-304)
+        uz = self.u_zero_I
+        if uz is not None:
+            uz = torch.as_tensor(uz, dtype=torch.bool, device=dev)
+            uz = uz.expand(T, n_batch, nc) if uz.dim() >= 3 \
+                else uz.expand(T, nc)
+
         return batched_solve(cfg, x_init, cost, dx, u_init=u_init,
-                             u_lower=lb, u_upper=ub,
-                             u_zero_I=self.u_zero_I,
+                             u_lower=lb, u_upper=ub, u_zero_I=uz,
                              prev_ctrl=self.prev_ctrl, device=dev)

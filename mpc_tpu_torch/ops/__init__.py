@@ -1,7 +1,9 @@
-"""Compute ops of the port: the fused iLQR solve (kernel K1), the fused
-KKT backward (kernel K2) with its constants (``diff``), and the
-pendulum's elementwise helpers."""
+"""Compute ops of the port: the fused iLQR solve (kernels K1 and K3),
+the fused KKT backward (kernels K2 and K4), the eager solver's linear
+algebra, box QP and LQR pieces (``linalg``, ``pnqp``, ``lqr``), its
+differentiable fixed point (``diff``) and the pendulum's elementwise
+helpers."""
 
-from . import diff, fused, fused_bwd, math
+from . import diff, fused, fused_bwd, linalg, lqr, math, pnqp
 
-__all__ = ['diff', 'fused', 'fused_bwd', 'math']
+__all__ = ['diff', 'fused', 'fused_bwd', 'linalg', 'lqr', 'math', 'pnqp']

@@ -32,8 +32,9 @@ raise, and never fall back to the plain version.
 Scope (``scope_gap``): LinDx dynamics (F, f each shared or batched, f
 optional) or the simple pendulum, n_state = 3, n_ctrl = 1, a QuadCost
 with C and c each shared or batched, bounds absent, scalar, [T, nc] or
-[T, B, nc], an optional u_init, any T.  ``routes_long`` says which
-kernel takes a problem.
+[T, B, nc], an optional u_init, any T, float32 (float64 too on the CPU,
+in the plain versions).  ``routes_long`` says which kernel takes a
+problem; the dispatch sends every other problem to the eager solver.
 """
 
 from __future__ import annotations
@@ -163,12 +164,11 @@ def routes_long(dynamics, T) -> bool:
 def scope_gap(cfg, cost, dynamics, *, u_zero_I=None, prev_ctrl=None,
               dtype=torch.float32,
               device=torch.device('cpu')) -> Optional[str]:
-    """Why a problem is outside the port's scope, naming the ROADMAP
-    item that brings it; None when the fused solve (K1 or K3, see
-    ``routes_long``) runs it."""
-    if cfg.use_fused == 'never':
-        return ('use_fused="never" asks for the eager solver, which '
-                'waits for ROADMAP queue 1 item 3')
+    """Why the kernels (K1 or K3, see ``routes_long``) do not take a
+    problem, naming the kernel configuration or ROADMAP item that waits;
+    None when they do.  The admission test alone: the dispatch
+    (learning.batched_solve) sends what it refuses to the eager solver,
+    and ``cfg.use_fused`` is read there."""
     if isinstance(dynamics, LinDx):
         if (getattr(dynamics.F, 'ndim', 0) not in (3, 4)
                 or (dynamics.f is not None
@@ -178,15 +178,16 @@ def scope_gap(cfg, cost, dynamics, *, u_zero_I=None, prev_ctrl=None,
                     'other layouts wait for ROADMAP queue 2 (K3 '
                     'configurations)')
     elif not isinstance(dynamics, PendulumDx):
-        return (f'{type(dynamics).__name__} dynamics wait for ROADMAP '
-                'queue 1 item 8 (remaining models)')
+        return (f'{type(dynamics).__name__} dynamics have no kernel step; '
+                'the SoA steps of the remaining models wait for ROADMAP '
+                'queue 2 (K1 configurations)')
     elif not dynamics.simple:
         return ('PendulumDx(simple=False) waits for ROADMAP queue 2 '
                 '(K1 configurations)')
     if cfg.n_state != 3 or cfg.n_ctrl != 1:
         return ('the kernels take n_state=3, n_ctrl=1; n_ctrl>1 with the '
                 'in-kernel PNQP and other state sizes wait for ROADMAP '
-                'queue 2')
+                'queue 2 (K1 and K3 configurations)')
     if not isinstance(cost, QuadCost):
         return ('non-quadratic (SoA) costs wait for ROADMAP queue 2 '
                 '(K1 configurations)')
@@ -196,17 +197,17 @@ def scope_gap(cfg, cost, dynamics, *, u_zero_I=None, prev_ctrl=None,
         return 'delta_u waits for ROADMAP queue 2 (K1 configurations)'
     if cfg.slew_rate_penalty is not None or prev_ctrl is not None:
         return ('slew-rate penalties and prev_ctrl wait for ROADMAP '
-                'queue 2 (slew host augmentation)')
+                'queue 1 item 5 and the slew host augmentation of queue 2')
     if cfg.verbose > 0:
-        return 'verbose > 0 waits for ROADMAP queue 1 item 9'
+        return 'verbose > 0 waits for ROADMAP queue 1 item 5'
     if cfg.grad_method == GradMethods.ANALYTIC_CHECK:
-        return 'ANALYTIC_CHECK waits for ROADMAP queue 1 item 9'
+        return 'ANALYTIC_CHECK waits for ROADMAP queue 1 item 5'
     if dtype not in (torch.float32, torch.float64):
         return f'dtype {dtype} is not supported (float32 or float64)'
     if dtype == torch.float64 and device.type == 'cuda':
-        return ('float64 on the card waits for ROADMAP queue 2 (K1 and K3 '
-                'configurations); the kernels are float32, and float64 '
-                'runs on the CPU with device="cpu"')
+        return ('float64 is no kernel configuration (ROADMAP queue 2; the '
+                'TPU kernels are float32 too): float64 runs on the eager '
+                'solver')
     if cfg.max_linesearch_iter > MAX_ALPHA:
         return (f'max_linesearch_iter={cfg.max_linesearch_iter} exceeds '
                 f'the kernels\' schedule of {MAX_ALPHA} step sizes')

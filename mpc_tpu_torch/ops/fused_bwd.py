@@ -160,19 +160,20 @@ def bwd_routes_long(T, dyn_shared) -> bool:
 
 def scope_gap_bwd(T, n_ctrl=1, dtype=torch.float32,
                   device=torch.device('cpu')) -> Optional[str]:
-    """Why a differentiable solve is outside the backward kernels' scope,
-    naming the ROADMAP item that brings it; None when K2 or K4
-    (``bwd_routes_long``), or its plain version on the CPU, runs it.  No
-    horizon is refused: K4's T is a run-time argument."""
+    """Why K2 and K4 do not take the backward of a differentiable solve
+    that K1 or K3 solved, naming the kernel configuration that waits;
+    None when K2 or K4 (``bwd_routes_long``), or its plain version on the
+    CPU, runs it.  The admission test alone: the dispatch runs the eager
+    fixed point where it refuses.  No horizon is refused: K4's T is a
+    run-time argument."""
     if n_ctrl != 1:
         return ('the backward of n_ctrl > 1 with the masked Cholesky waits '
                 'for ROADMAP queue 2 (K2 and K4 configurations)')
     if dtype not in (torch.float32, torch.float64):
         return f'dtype {dtype} is not supported (float32 or float64)'
     if dtype == torch.float64 and device.type == 'cuda':
-        return ('float64 on the card waits for ROADMAP queue 2 (K2 and K4 '
-                'configurations); float64 runs on the CPU with '
-                'device="cpu"')
+        return ('the backward kernels are float32, as the TPU kernels are; '
+                'float64 takes the eager fixed point')
     return None
 
 
@@ -670,7 +671,8 @@ def make_batched_fixed_point(n_state: int, has_bounds: bool, has_f: bool):
     """
     if n_state != 3:
         raise NotImplementedError('K2 and K4 cover n_state = 3; other '
-                                  'sizes wait for ROADMAP queue 1 item 8')
+                                  'state sizes wait for ROADMAP queue 2 '
+                                  '(K2 and K4 configurations)')
 
     class BatchedFixedPoint(torch.autograd.Function):
         @staticmethod

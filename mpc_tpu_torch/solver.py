@@ -1,54 +1,80 @@
-"""Trajectory helpers and the linearisation at a trajectory (counterpart
-of mpc_tpu/solver.py:35-147).
+"""The eager iLQR solver, batched natively, and its differentiable fixed
+point (counterpart of mpc_tpu/solver.py:35-153 and 237-508).
 
-``rollout``, ``trajectory_cost``, ``linearize_dynamics`` and
-``quadratize_cost`` are ported, for the pendulum and for LinDx; the eager iLQR solver (``solve_single``)
-waits for ROADMAP queue 1 item 3.  The functions take any leading batch
-shape: x_init [..., n_state], x [T, ..., n_state] and u [T, ..., n_ctrl].
-They are written with elementwise products and sums, never ``matmul`` or
-``einsum``, so that a float32 call on the card gives the same bits
-whether or not TF32 is allowed for matrix products.
+The JAX package writes its solver for one instance and vmaps it; here
+one call solves a batch [B] at once, with the per-example semantics of
+the vmapped ``lax.while_loop``: every example keeps its own best
+trajectory, iteration count, step norm and "not improved" count, and an
+example whose stopping test fails keeps its state while the others go
+on.  The outer loop reads one flag back from the device an iteration, to
+stop when no example is left; everything inside it runs a fixed number
+of trips.
+
+This is the route of every problem the kernels do not take
+(learning.batched_solve): n_ctrl > 1, float64 on the card, callable
+costs and dynamics, models other than the simple pendulum, u_zero_I and
+delta_u.  It runs on whatever device its inputs are on.
+
+A callable cost maps tau [..., n_tau] to [...], and a callable model
+maps x [..., n_state], u [..., n_ctrl] to [..., n_state], acting on the
+last axis as the models do; a model may carry
+``grad_input(x, u) -> (R [..., n_state, n_state], S [..., n_state,
+n_ctrl])`` for GradMethods.ANALYTIC.
+
+Products are elementwise multiplications and sums (``ops/linalg.py``),
+never ``matmul`` or ``einsum``, so a float32 solve on the card gives the
+same bits whether or not TF32 is allowed.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from .models.pendulum import PendulumDx
-from .types import GradMethods, LinDx, QuadCost
+from .ops import linalg, lqr
+from .ops.diff import make_lqr_fixed_point
+from .types import GradMethods, LinDx, MPCConfig, QuadCost, Solution
+from .utils.device import resolve_device
 
 # central-difference step of GradMethods.FINITE_DIFF
 # (mpc_tpu/solver.py:97, reference mpc/util.py:8-18)
 FD_EPS = 1e-4
 
+# One count per eager solve (phase 1) and per eager fixed point (phase 2)
+# on any device, so that a caller can tell which route ran.
+eager_counts = {'eager_solve': 0, 'eager_fixed_point': 0}
 
-def lin_dx_step(dynamics: LinDx, t, x, u):
-    """x_{t+1} = F_t (x, u) + f_t for a LinDx whose leaves are shared
-    ([T-1, ...], any leading batch shape of x) or batched ([T-1, B, ...]
-    against x [B, n_state])."""
-    tau = torch.cat([x, u], -1)
-    nxt = (dynamics.F[t] * tau.unsqueeze(-2)).sum(-1)
-    return nxt if dynamics.f is None else nxt + dynamics.f[t]
 
+def reset_eager_counts():
+    for name in eager_counts:
+        eager_counts[name] = 0
+
+
+# ---------------------------------------------------------------------------
+# trajectory helpers
+# ---------------------------------------------------------------------------
 
 def rollout(dynamics, x_init, u):
-    """Roll the dynamics (a callable (x, u) -> x_next, or a LinDx) along
-    a control sequence (reference mpc/util.py:102-126).  Returns
-    x [T, ..., n_state], whose first slice is x_init."""
+    """Roll the dynamics (a callable (x, u) -> x_next, or a LinDx with
+    shared or batched leaves) along a control sequence (reference
+    mpc/util.py:102-126).  x_init [..., n_state], u [T, ..., n_ctrl];
+    returns x [T, ..., n_state], whose first slice is x_init."""
+    step = tuple(dynamics) if isinstance(dynamics, LinDx) else dynamics
     xs = [x_init]
     for t in range(u.shape[0] - 1):
-        if isinstance(dynamics, LinDx):
-            xs.append(lin_dx_step(dynamics, t, xs[t], u[t]))
-        else:
-            xs.append(dynamics(xs[t], u[t]))
+        xs.append(lqr.dynamics_step(step, t, xs[t], u[t]))
     return torch.stack(xs, 0)
 
 
-def trajectory_cost(cost: QuadCost, x, u):
-    """Total objective sum_t 0.5 tau_t^T C_t tau_t + c_t^T tau_t of a
-    trajectory (reference mpc/util.py:129-153).  C may be [ntau, ntau],
-    [T, ntau, ntau] or [T, B, ntau, ntau]; c likewise.  Returns the
-    per-example totals (shape of x without its first and last axes)."""
+def trajectory_cost(cost, x, u):
+    """Total objective of trajectories x [T, ..., n_state],
+    u [T, ..., n_ctrl] (reference mpc/util.py:129-153): a QuadCost whose
+    C is [ntau, ntau], [T, ntau, ntau] or [T, B, ntau, ntau] (c likewise),
+    or a callable tau -> [...].  Returns the per-example totals."""
+    if not isinstance(cost, QuadCost):
+        return lqr.total_cost(x, u, cost)
     T = x.shape[0]
     tau = torch.cat([x, u], -1)                      # [T, ..., ntau]
     C, c = cost.C, cost.c
@@ -66,32 +92,47 @@ def trajectory_cost(cost: QuadCost, x, u):
     return objs.sum(0)
 
 
+# ---------------------------------------------------------------------------
+# linearisation and quadratisation along a trajectory
+# ---------------------------------------------------------------------------
+
+def _over_leading(fn, n_lead):
+    """``fn`` vmapped over ``n_lead`` leading axes, one vmap an axis (the
+    time and the batch axis each get their own, so no example's
+    derivative can reach another's)."""
+    for _ in range(n_lead):
+        fn = torch.func.vmap(fn)
+    return fn
+
+
 def linearize_dynamics(dynamics, x, u, grad_method: GradMethods):
-    """First-order dynamics model along a trajectory
-    (mpc_tpu/solver.py:71-118, reference mpc/mpc.py:490-601).
+    """First-order dynamics model along trajectories x [T, ..., n_state],
+    u [T, ..., n_ctrl] (mpc_tpu/solver.py:71-118, reference
+    mpc/mpc.py:490-601).
 
     Returns F [T-1, ..., n_state, n_tau] and f [T-1, ..., n_state] with
     the residual f_t = step(x_t, u_t) - R_t x_t - S_t u_t, differentiable
-    with respect to the model's parameters.  A ``LinDx`` is its own
-    linearisation whatever the ``grad_method``: its F and f come back as
-    given, shared or batched, f None when it has none
-    (mpc_tpu/solver.py:87-88).  For ``PendulumDx(simple=True)``
-    AUTO_DIFF and ANALYTIC take the hand-written Jacobian of the step
-    (``step_jacobian``; the JAX pendulum has no ``grad_input``, so both
-    take ``jax.jacrev`` there) and FINITE_DIFF central differences of
-    ``forward`` with step ``FD_EPS``.
+    with respect to the model's parameters.  A LinDx is its own
+    linearisation whatever the method (F and f as given, f None when it
+    has none).  Otherwise:
+
+    - ANALYTIC with a model that has ``grad_input``: (R, S) from it;
+    - FINITE_DIFF: central differences of the step with ``FD_EPS``;
+    - AUTO_DIFF, and ANALYTIC without ``grad_input``: ``torch.func.jacrev``
+      vmapped over the time and the batch axes, except for the simple
+      pendulum, whose hand-written ``step_jacobian`` (the Jacobian that
+      kernel K1 computes, 1e-12 from ``jax.jacrev`` of the step in
+      float64) takes its place.
     """
     if isinstance(dynamics, LinDx):
         return dynamics.F, dynamics.f
-    if not isinstance(dynamics, PendulumDx) or not dynamics.simple:
-        raise NotImplementedError(
-            'linearize_dynamics covers LinDx and PendulumDx(simple=True); '
-            'other models wait for ROADMAP queue 1 item 8')
     xs, us = x[:-1], u[:-1]
     ns = xs.shape[-1]
     new_x = dynamics(xs, us)
-    if grad_method in (GradMethods.AUTO_DIFF, GradMethods.ANALYTIC):
-        F = dynamics.step_jacobian(xs, us)
+    grad_input = getattr(dynamics, 'grad_input', None)
+    if grad_method == GradMethods.ANALYTIC and grad_input is not None:
+        R, S = grad_input(xs, us)
+        F = torch.cat([R, S], -1)
     elif grad_method == GradMethods.FINITE_DIFF:
         z = torch.cat([xs, us], -1)
         cols = []
@@ -103,27 +144,306 @@ def linearize_dynamics(dynamics, x, u, grad_method: GradMethods):
                          - dynamics(lo[..., :ns], lo[..., ns:]))
                         / (2 * FD_EPS))
         F = torch.stack(cols, -1)
+    elif isinstance(dynamics, PendulumDx) and dynamics.simple:
+        F = dynamics.step_jacobian(xs, us)
     else:
-        raise NotImplementedError(f'{grad_method} waits for ROADMAP queue 1 '
-                                  'item 9')
-    f = (new_x - (F[..., :ns] * xs.unsqueeze(-2)).sum(-1)
-         - (F[..., ns:] * us.unsqueeze(-2)).sum(-1))
+        R, S = _over_leading(torch.func.jacrev(dynamics, argnums=(0, 1)),
+                             xs.dim() - 1)(xs, us)
+        F = torch.cat([R, S], -1)
+    f = new_x - linalg.bmv(F[..., :ns], xs) - linalg.bmv(F[..., ns:], us)
     return F, f
 
 
 def quadratize_cost(cost, x, u):
-    """Second-order cost model along a trajectory
-    (mpc_tpu/solver.py:121-147).  For a QuadCost this is the cost itself,
-    a time-less [ntau, ntau] / [ntau] leaf broadcast over T (a view, so
-    autograd sums its gradient back over T).  Returns (C, c, None).
-    Non-quadratic costs wait for ROADMAP queue 2 (K1 configurations)."""
-    if not isinstance(cost, QuadCost):
-        raise NotImplementedError('non-quadratic costs wait for ROADMAP '
-                                  'queue 2 (K1 configurations)')
-    C, c = cost.C, cost.c
-    T = x.shape[0]
-    if C.dim() == 2:
-        C = C.expand((T,) + C.shape)
-    if c.dim() == 1:
-        c = c.expand((T,) + c.shape)
-    return C, c, None
+    """Second-order cost model along trajectories (mpc_tpu/solver.py:121-
+    147, reference ``approximate_cost``, mpc/mpc.py:447-487).
+
+    For a QuadCost this is the cost itself, a time-less [ntau, ntau] /
+    [ntau] leaf broadcast over T (a view, so autograd sums its gradient
+    back over T); returns (C, c, None).  For a callable cost, the Hessian
+    and gradient at each tau_t by ``torch.func`` (vmapped over the time
+    and batch axes) with the Taylor-shifted c_t = g_t - H_t tau_t;
+    returns (C [T, ..., ntau, ntau], c [T, ..., ntau], costs [T, ...])."""
+    if isinstance(cost, QuadCost):
+        C, c = cost.C, cost.c
+        T = x.shape[0]
+        if C.dim() == 2:
+            C = C.expand((T,) + C.shape)
+        if c.dim() == 1:
+            c = c.expand((T,) + c.shape)
+        return C, c, None
+    tau = torch.cat([x, u], -1)
+
+    def per_t(tau_t):
+        H = torch.func.hessian(cost)(tau_t)
+        g = torch.func.grad(cost)(tau_t)
+        return H, g - linalg.bmv(H, tau_t), cost(tau_t)
+
+    return _over_leading(per_t, tau.dim() - 1)(tau)
+
+
+# ---------------------------------------------------------------------------
+# scope and operand layouts
+# ---------------------------------------------------------------------------
+
+def _tensors(*objs):
+    for o in objs:
+        if isinstance(o, torch.Tensor):
+            yield o
+        elif isinstance(o, (QuadCost, LinDx)):
+            yield from _tensors(*o)
+        elif isinstance(o, torch.nn.Module):
+            yield from o.parameters()
+            yield from o.buffers()
+
+
+def wants_grad(cfg: MPCConfig, *objs) -> bool:
+    """Whether a solve must attach the fixed point: ``cfg.backprop``,
+    grad mode on, and a tensor in ``objs`` (x_init, a cost or dynamics
+    object, the bounds) that requires grad."""
+    return cfg.backprop and torch.is_grad_enabled() and any(
+        t.requires_grad for t in _tensors(*objs))
+
+
+def uses_scan(cfg: MPCConfig) -> bool:
+    """Whether ``cfg.parallel_riccati`` asks for the O(log T) scan
+    (mpc_tpu/ops/lqr.py:386-391, 418-423: True, or 'auto' at T >= 128)."""
+    p = cfg.parallel_riccati
+    return p is True or (p == 'auto' and cfg.T >= 128)
+
+
+def unported_gap(cfg: MPCConfig, prev_ctrl=None,
+                 dtype=torch.float32) -> Optional[str]:
+    """Why neither the kernels nor the eager solver take a problem,
+    naming the ROADMAP item that brings it; None when one of them
+    does."""
+    if cfg.slew_rate_penalty is not None or prev_ctrl is not None:
+        return ('slew-rate penalties and prev_ctrl wait for ROADMAP queue 1 '
+                'item 5')
+    if cfg.verbose > 0:
+        return 'verbose > 0 waits for ROADMAP queue 1 item 5'
+    if cfg.grad_method == GradMethods.ANALYTIC_CHECK:
+        return 'ANALYTIC_CHECK waits for ROADMAP queue 1 item 5'
+    if dtype not in (torch.float32, torch.float64):
+        return f'dtype {dtype} is not supported (float32 or float64)'
+    return None
+
+
+def scan_gap(cfg: MPCConfig, *, phase1=True, has_bounds=False,
+             has_u_zero_I=False, differentiable=False) -> Optional[str]:
+    """Why the eager route would need the O(log T) Riccati scan, which is
+    not ported: unconstrained iLQR steps take it in phase 1 (``phase1``
+    False: phase 1 ran in a kernel), and the fixed point's exact solve
+    always does (mpc_tpu/ops/lqr.py:386-391, 418-423).  None when the
+    sequential recursion runs everything."""
+    if uses_scan(cfg) and (differentiable or (
+            phase1 and not has_bounds and not has_u_zero_I)):
+        return (f'parallel_riccati={cfg.parallel_riccati!r} at T={cfg.T} '
+                'asks for the O(log T) Riccati scan, which waits for '
+                'ROADMAP queue 1 item 6; parallel_riccati=False runs the '
+                'sequential recursion')
+    return None
+
+
+def _leaf(a, n_trailing, T, dtype, device, name='', timeless=True):
+    """A shared ([T, ...] or time-less) or batched ([T, B, ...]) leaf as
+    [T, 1 or B, ...], a view where it can be, so that autograd carries a
+    gradient back to the leaf in its own layout."""
+    a = torch.as_tensor(a, dtype=dtype, device=device)
+    if a.dim() not in (n_trailing + 1, n_trailing + 2) and not (
+            timeless and a.dim() == n_trailing):
+        raise ValueError(f'{name} has {a.dim()} dimensions; it takes '
+                         f'[T, ...] or [T, B, ...] with {n_trailing} '
+                         'trailing ones')
+    if a.dim() == n_trailing:
+        return a.expand((T, 1) + a.shape)
+    if a.dim() == n_trailing + 1:
+        return a.unsqueeze(1)
+    return a
+
+
+def eager_operands(cfg: MPCConfig, x_init, cost, dynamics, u_init=None,
+                   u_lower=None, u_upper=None, u_zero_I=None):
+    """The eager solver's operands on x_init's device and dtype: cost and
+    LinDx leaves, bounds and u_zero_I as [T(-1), 1 or B, ...] (scalar
+    bounds too), u_init as [T, B, n_ctrl].  Callables pass through."""
+    T, nc = cfg.T, cfg.n_ctrl
+    dtype, device = x_init.dtype, x_init.device
+    B = x_init.shape[0]
+    if isinstance(cost, QuadCost):
+        cost = QuadCost(_leaf(cost.C, 2, T, dtype, device, 'QuadCost.C'),
+                        _leaf(cost.c, 1, T, dtype, device, 'QuadCost.c'))
+    if isinstance(dynamics, LinDx):
+        dynamics = LinDx(
+            _leaf(dynamics.F, 2, T - 1, dtype, device, 'LinDx.F', False),
+            None if dynamics.f is None else
+            _leaf(dynamics.f, 1, T - 1, dtype, device, 'LinDx.f', False))
+    if u_lower is not None:
+        def bound(b):
+            b = torch.as_tensor(b, dtype=dtype, device=device)
+            return _leaf(b.expand(nc) if b.dim() == 0 else b, 1, T, dtype,
+                         device, 'a bound')
+
+        u_lower, u_upper = bound(u_lower), bound(u_upper)
+    if u_zero_I is not None:
+        u_zero_I = _leaf(u_zero_I, 1, T, torch.bool, device, 'u_zero_I',
+                         False)
+    if u_init is None:
+        u_init = torch.zeros((T, B, nc), dtype=dtype, device=device)
+    else:
+        u_init = _leaf(u_init, 1, T, dtype, device, 'u_init',
+                       False).expand(T, B, nc)
+    return cost, dynamics, u_init, u_lower, u_upper, u_zero_I
+
+
+# ---------------------------------------------------------------------------
+# phase 1: the outer iLQR loop
+# ---------------------------------------------------------------------------
+
+def _solve_phase1(cfg: MPCConfig, x_init, cost, dynamics, u_init, u_lower,
+                  u_upper, u_zero_I, trace=None) -> Solution:
+    """The outer loop of mpc_tpu/solver.py:_solve_single (:295-446) for a
+    batch, on operands from ``eager_operands``, gradients off.  A list
+    ``trace`` gets one dict an iteration of the examples' decisions:
+    ``active`` (it ran), the accepted step size ``alpha``, the PNQP
+    iterations ``n_qp`` and the kept trial's ``cost`` [B]."""
+    B = x_init.shape[0]
+    dtype, device = x_init.dtype, x_init.device
+    quad = isinstance(cost, QuadCost)
+    lin = isinstance(dynamics, LinDx)
+    true_dynamics = tuple(dynamics) if lin else dynamics
+
+    x = rollout(dynamics, x_init, u_init)
+    u = u_init
+    best_x, best_u = x, u
+    inf = torch.full((B,), float('inf'), dtype=dtype, device=device)
+    best_cost, best_du, cur_du = inf, inf, inf
+    i = torch.zeros(B, dtype=torch.int32, device=device)
+    n_not_improved = torch.zeros_like(i)
+    n_qp_total = torch.zeros_like(i)
+    alpha = torch.ones(B, dtype=dtype, device=device)
+    for it in range(cfg.lqr_iter):
+        # the while loop's condition, before each body, per example
+        # (mpc_tpu/solver.py:416-421)
+        keep = (cur_du >= cfg.eps) & (n_not_improved <= cfg.not_improved_lim)
+        active = (i < cfg.lqr_iter) & ((i == 0) | keep)
+        if it > 0 and not bool(active.any()):
+            break
+        F, f = linearize_dynamics(dynamics, x, u, cfg.grad_method)
+        C, c, _ = quadratize_cost(cost, x, u)
+        fwd, n_qp = lqr.lqr_step_delta(
+            x_init, C, c, F, f, x, u, n_state=cfg.n_state,
+            true_cost=(C, c) if quad else cost,
+            true_dynamics=true_dynamics,
+            u_lower=u_lower, u_upper=u_upper, u_zero_I=u_zero_I,
+            delta_u=cfg.delta_u, linesearch_decay=cfg.linesearch_decay,
+            max_linesearch_iter=cfg.max_linesearch_iter,
+            pnqp_iter=cfg.pnqp_iter,
+            parallel_linesearch=cfg.parallel_linesearch)
+
+        first = i == 0
+        improved = fwd.cost_total <= best_cost + cfg.best_cost_eps
+        take = (first | improved) & active
+        nni = torch.where(improved & ~first, torch.zeros_like(i),
+                          n_not_improved + 1)
+        tk = take.view(1, B, 1)
+        av = active.view(1, B, 1)
+        best_x = torch.where(tk, fwd.new_x, best_x)
+        best_u = torch.where(tk, fwd.new_u, best_u)
+        best_cost = torch.where(take, fwd.cost_total, best_cost)
+        best_du = torch.where(take, fwd.full_du_norm, best_du)
+        x = torch.where(av, fwd.new_x, x)
+        u = torch.where(av, fwd.new_u, u)
+        cur_du = torch.where(active, fwd.full_du_norm, cur_du)
+        n_not_improved = torch.where(active, nni, n_not_improved)
+        n_qp_total = n_qp_total + torch.where(active, n_qp,
+                                              torch.zeros_like(n_qp))
+        alpha = torch.where(active, fwd.alpha, alpha)
+        i = i + active.to(torch.int32)
+        if trace is not None:
+            trace.append(dict(active=active, alpha=fwd.alpha, n_qp=n_qp,
+                              cost=fwd.cost_total))
+    return Solution(x=best_x, u=best_u, costs=best_cost,
+                    full_du_norm=best_du, n_iter=i, n_qp_iter=n_qp_total,
+                    converged=best_du < cfg.eps, alpha=alpha)
+
+
+# ---------------------------------------------------------------------------
+# phase 2: the differentiable fixed point
+# ---------------------------------------------------------------------------
+
+def fixed_point_phase(cfg: MPCConfig, x_init, cost, dynamics, best_x,
+                      best_u, u_lower, u_upper, converged):
+    """Attach the differentiable KKT fixed point at a solution
+    (mpc_tpu/solver.py:459-508): re-linearise the dynamics and
+    re-quadratise the cost at (best_x, best_u) with gradients on, then
+    ``ops/diff.make_lqr_fixed_point``, whose backward solves the
+    differential LQR problem eagerly.  Leaves in any layout the solver
+    takes; gradients come back in each leaf's own layout (summed over
+    the batch for a shared one).  With ``cfg.detach_unconverged`` the
+    unconverged examples carry none."""
+    cost, dynamics, _, lb, ub, _ = eager_operands(
+        cfg, x_init, cost, dynamics, u_lower=u_lower, u_upper=u_upper)
+    bx, bu = best_x.detach(), best_u.detach()
+    F, f = linearize_dynamics(dynamics, bx, bu, cfg.grad_method)
+    C, c, _ = quadratize_cost(cost, bx, bu)
+    fp = make_lqr_fixed_point(cfg.n_state, lb is not None, f is not None)
+    eager_counts['eager_fixed_point'] += 1
+    x, u = fp.apply(x_init, C, c, F, f, lb, ub, bx, bu)
+    if cfg.detach_unconverged:
+        conv = converged[None, :, None]
+        x = torch.where(conv, x, x.detach())
+        u = torch.where(conv, u, u.detach())
+    return x, u
+
+
+def eager_batched_solve(cfg: MPCConfig, x_init, cost, dynamics, u_init=None,
+                        u_lower=None, u_upper=None, u_zero_I=None,
+                        differentiable=False, trace=None) -> Solution:
+    """The eager route of ``learning.batched_solve``: phase 1 with
+    gradients off, then, when ``differentiable``, the fixed point at the
+    solution.  Layouts as ``batched_solve`` takes them; runs on
+    x_init's device.  ``trace``: see ``_solve_phase1``."""
+    ops = eager_operands(cfg, x_init, cost, dynamics, u_init, u_lower,
+                         u_upper, u_zero_I)
+    eager_counts['eager_solve'] += 1
+    with torch.no_grad():
+        sol = _solve_phase1(cfg, x_init.detach(), *ops, trace=trace)
+    if not differentiable:
+        return sol
+    x, u = fixed_point_phase(cfg, x_init, cost, dynamics, sol.x, sol.u,
+                             u_lower, u_upper, sol.converged)
+    return sol._replace(x=x, u=u)
+
+
+def solve_single(cfg: MPCConfig, x_init, cost, dynamics, u_init=None,
+                 u_lower=None, u_upper=None, u_zero_I=None, prev_ctrl=None,
+                 device=None) -> Solution:
+    """Solve one MPC instance through the eager solver (the JAX package's
+    ``solve_single``, mpc_tpu/solver.py:270-282): a batch of one.
+
+    x_init [n_state]; a QuadCost with C [T, ntau, ntau] (or [ntau,
+    ntau]) and c [T, ntau] (or [ntau]); a LinDx with F [T-1, n_state,
+    ntau] and f [T-1, n_state] or None, or a callable model; u_init,
+    bounds and u_zero_I [T, n_ctrl] (bounds may be scalars).  Returns a
+    Solution with x [T, n_state], u [T, n_ctrl] and scalar statistics;
+    with ``cfg.backprop`` and inputs that require grad, x and u carry
+    gradients through the fixed point.  Runs on ``device``, the CUDA card
+    unless the caller asks for another."""
+    device = resolve_device(device)
+    x_init = torch.as_tensor(x_init, device=device)
+    if x_init.dim() != 1 or x_init.shape[0] != cfg.n_state:
+        raise ValueError('x_init must be [n_state]')
+    if (u_lower is None) != (u_upper is None):
+        raise ValueError('u_lower and u_upper must both be given or '
+                         'both be None')
+    differentiable = wants_grad(cfg, x_init, cost, dynamics, u_lower,
+                                u_upper)
+    gap = unported_gap(cfg, prev_ctrl, x_init.dtype) or scan_gap(
+        cfg, has_bounds=u_lower is not None,
+        has_u_zero_I=u_zero_I is not None, differentiable=differentiable)
+    if gap is not None:
+        raise NotImplementedError(gap)
+    sol = eager_batched_solve(cfg, x_init[None], cost, dynamics, u_init,
+                              u_lower, u_upper, u_zero_I, differentiable)
+    return Solution(sol.x[:, 0], sol.u[:, 0], *(v[0] for v in sol[2:8]))

@@ -32,9 +32,11 @@ class LinDx(NamedTuple):
 
     F: [T-1, n_state, n_tau] shared or [T-1, B, n_state, n_tau] batched;
     f: [T-1, n_state], [T-1, B, n_state] or None.  F and f are shared or
-    batched independently of each other.  The forward solve runs in the
-    streaming kernel K3; the backward in K4 when both are shared, else in
-    K2 (ops/fused.py:routes_long, ops/fused_bwd.py:bwd_routes_long).
+    batched independently of each other.  With n_state = 3 and n_ctrl = 1
+    the forward solve runs in the streaming kernel K3, the backward in K4
+    when both are shared, else in K2 (ops/fused.py:routes_long,
+    ops/fused_bwd.py:bwd_routes_long); any other LinDx runs on the eager
+    solver.
     """
     F: torch.Tensor = None
     f: Optional[torch.Tensor] = None
@@ -42,7 +44,8 @@ class LinDx(NamedTuple):
 
 class GradMethods(enum.Enum):
     """Dynamics-Jacobian method (reference mpc/mpc.py:29-33).  The
-    kernel path always uses the model's hand-written step Jacobian."""
+    kernel path always uses the model's hand-written step Jacobian; the
+    eager solver follows solver.linearize_dynamics."""
     AUTO_DIFF = 1
     FINITE_DIFF = 2
     ANALYTIC = 3
@@ -90,9 +93,12 @@ class MPCConfig:
     pnqp_iter: int = 20
     parallel_linesearch: bool = True
     scan_unroll: int = 4
-    # 'auto' and 'always' run the fused solve (the CUDA kernel on the
-    # card, its plain PyTorch version on the CPU); 'never' asks for the
-    # eager solver, which the port does not have yet
+    # 'auto' runs a problem through the kernels K1/K3 (K2/K4 for its
+    # backward) when they take it (ops/fused.py:scope_gap; on the CPU
+    # their plain PyTorch versions, which take float64 too, where the
+    # card sends float64 to the eager solver) and through the eager
+    # solver otherwise; 'never' forces the eager solver; 'always' raises
+    # where the kernels do not take the problem (learning.batched_solve)
     use_fused: str = 'auto'
     matmul_precision: str = 'float32'
     parallel_riccati: Any = 'auto'

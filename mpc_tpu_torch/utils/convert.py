@@ -11,6 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..models.cartpole import CartpoleDx
 from ..models.pendulum import PendulumDx
 from ..types import LinDx, QuadCost, Solution
 from .device import resolve_device
@@ -22,7 +23,14 @@ def _tensor(a, device):
 
 
 def pendulum_from_numpy(params, simple=True, device=None) -> PendulumDx:
+    """(g, m, l) for the simple pendulum, (g, m, l, d, b) for the damped,
+    biased one."""
     return PendulumDx(params=_tensor(params, device), simple=simple)
+
+
+def cartpole_from_numpy(params, device=None) -> CartpoleDx:
+    """(gravity, masscart, masspole, length)."""
+    return CartpoleDx(params=_tensor(params, device))
 
 
 def quad_cost_from_numpy(C, c, device=None) -> QuadCost:

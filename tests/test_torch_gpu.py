@@ -43,11 +43,14 @@ examples inside a large batch), and on the reversed batch (bitwise).
 This file imports nothing of JAX.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 import mpc_tpu_torch as mt
+from mpc_tpu_torch import solver
 from mpc_tpu_torch.models import PendulumDx
 from mpc_tpu_torch.ops import _build, fused, fused_bwd
 
@@ -238,8 +241,94 @@ def test_entry_point_launches_k1_on_the_default_device(cuda):
     assert fused.launch_counts['fused_ilqr'] == before + 1
     assert sol.u.device.type == 'cuda'
     assert float(sol.u.abs().max()) <= 2.0
-    with pytest.raises(NotImplementedError, match='float64'):
-        mt.batched_solve(_cfg(T), x0.double(), cost, dx)
+    # float64 takes the eager route on the card: no K1 launch, and the
+    # CPU's float64 eager result (use_fused='never': on the CPU 'auto'
+    # sends float64 to the kernels' plain versions) within CARD_CPU_F64
+    before = fused.launch_counts['fused_ilqr']
+    solver.reset_eager_counts()
+    s64 = mt.batched_solve(_cfg(T), x0.double(), cost, dx, u_lower=-2.0,
+                           u_upper=2.0)
+    assert fused.launch_counts['fused_ilqr'] == before
+    assert solver.eager_counts['eager_solve'] == 1
+    assert s64.u.device.type == 'cuda' and s64.u.dtype == torch.float64
+    cpu = mt.batched_solve(_cfg(T, use_fused='never'), x0.double().cpu(),
+                           mt.QuadCost(cost.C.cpu(), cost.c.cpu()),
+                           PendulumDx(params=dx.params.cpu()), u_lower=-2.0,
+                           u_upper=2.0, device='cpu')
+    assert (s64.u.cpu() - cpu.u).abs().max() <= \
+        CARD_CPU_F64 * cpu.u.abs().max()
+
+
+# The card's float64 eager solve against the CPU's float64 eager solve,
+# relative to the largest |u|: the two differ only in the order of their
+# small sums and in the last bit of sin, cos and atan2.
+CARD_CPU_F64 = 1e-10
+
+
+def _eager_problems(device):
+    """Problems the kernels do not take, in float64: (cfg keywords,
+    x0, cost, dynamics, batched_solve keywords)."""
+    import numpy as np
+    from mpc_tpu_torch.models import CartpoleDx
+    B, T = 64, 10
+    rng = np.random.RandomState(0)
+    th = np.pi * (2 * rng.rand(B) - 1)
+    x0 = torch.tensor(np.stack([np.cos(th), np.sin(th), np.zeros(B)], 1),
+                      device=device)
+    kw = dict(dtype=torch.float64, device=device)
+    dx = PendulumDx(**kw)
+    q, p = dx.get_true_obj()
+    cost = mt.QuadCost(torch.diag(q), p)
+    box = dict(u_lower=-2.0, u_upper=2.0)
+    cart = CartpoleDx(**kw)
+    qc, pc = cart.get_true_obj()
+    xc = torch.zeros(B, 5, **kw)
+    xc[:, 2], xc[:, 3] = torch.cos(x0[:, 1] / 4), torch.sin(x0[:, 1] / 4)
+    F = torch.tensor(np.concatenate([np.eye(3) + 0.05 * rng.randn(3, 3),
+                                     0.3 * rng.randn(3, 2)], 1), **kw)
+    lin2 = mt.LinDx(F.expand(T - 1, 3, 5))
+    cost2 = mt.QuadCost(torch.diag(torch.tensor([1., 1., 1., .1, .1], **kw)),
+                        torch.tensor(rng.randn(5), **kw))
+    return {
+        'float64': (dict(T=T), x0, cost, dx, box),
+        'n_ctrl_2': (dict(T=T, n_ctrl=2), x0, cost2, lin2,
+                     dict(u_lower=-0.5, u_upper=0.5)),
+        'callable_cost': (dict(T=T), x0,
+                          lambda tau: (q * (tau - p) ** 2).sum(-1), dx, box),
+        'cartpole': (dict(T=T, n_state=5, grad_method=mt.GradMethods.AUTO_DIFF),
+                     xc, mt.QuadCost(torch.diag(qc), pc), cart,
+                     dict(u_lower=-100.0, u_upper=100.0)),
+        'damped_pendulum': (dict(T=T), x0, cost,
+                            PendulumDx(simple=False, **kw), box),
+        'u_zero_I': (dict(T=T), x0, cost, dx, dict(u_zero_I=torch.tensor(
+            rng.rand(T, B, 1) < 0.3, device=device))),
+        'delta_u': (dict(T=T, delta_u=0.3), x0, cost, dx, box),
+    }
+
+
+@pytest.mark.parametrize('case', ['float64', 'n_ctrl_2', 'callable_cost',
+                                  'cartpole', 'damped_pendulum', 'u_zero_I',
+                                  'delta_u'])
+def test_eager_route_runs_on_the_card(cuda, case):
+    """Every problem the kernels do not take runs on the card by default
+    through the eager route (one eager solve, no kernel launch) and equals
+    the same float64 solve on the CPU's eager route (CARD_CPU_F64)."""
+    cfg_kw, x0, cost, dyn, kw = _eager_problems(cuda)[case]
+    cfg = _cfg(**dict(dict(lqr_iter=4, eps=1e-3), **cfg_kw))
+    fused.reset_launch_counts()
+    solver.reset_eager_counts()
+    sol = mt.batched_solve(cfg, x0, cost, dyn, **kw)
+    assert not any(fused.launch_counts.values())
+    assert solver.eager_counts == {'eager_solve': 1, 'eager_fixed_point': 0}
+    assert sol.u.device == x0.device
+    cfg_kw, x0, cost, dyn, kw = _eager_problems(torch.device('cpu'))[case]
+    # use_fused='never': on the CPU 'auto' sends the 'float64' case to the
+    # kernels' plain versions
+    ref = mt.batched_solve(dataclasses.replace(cfg, use_fused='never'), x0,
+                           cost, dyn, device='cpu', **kw)
+    assert (sol.u.cpu() - ref.u).abs().max() <= \
+        CARD_CPU_F64 * ref.u.abs().max()
+    assert torch.equal(sol.n_iter.cpu(), ref.n_iter)
 
 
 BWD_SHAPES = [(10, 1024), (20, 2050), (fused_bwd.T_MAX_BWD, 128)]

@@ -24,7 +24,9 @@ which the CPU path runs) and its LinDx front end against the JAX package.
 - the LinDx pieces of the front end: ``lin_dx_from_numpy``, ``rollout``
   and ``linearize_dynamics`` against mpc_tpu's (1e-12, float64), ``MPC``
   with [T, ...] time dims against ``mpc_tpu.MPC`` (1e-8), the routing
-  predicate and the scope.
+  predicate and the kernels' scope; the LinDx problems outside it
+  (n_ctrl > 1, u_zero_I, delta_u, use_fused='never', float64 by both
+  routes) through the eager solver against mpc_tpu's jnp path (1e-10).
 """
 
 import numpy as np
@@ -41,6 +43,7 @@ from mpc_tpu.solver import (linearize_dynamics as j_linearize_dynamics,
                             rollout as j_rollout)
 
 import mpc_tpu_torch as mt
+from mpc_tpu_torch import solver
 from mpc_tpu_torch.models import PendulumDx
 from mpc_tpu_torch.ops import fused
 from mpc_tpu_torch.solver import linearize_dynamics, rollout
@@ -332,8 +335,7 @@ SCOPE_GAPS = {
     'lindx_u_zero_I': (dict(), _lin, dict(u_zero_I=torch.zeros(5, 1)),
                        'queue 2'),
     'lindx_delta_u': (dict(delta_u=0.1), _lin, {}, 'queue 2'),
-    'lindx_slew': (dict(slew_rate_penalty=0.1), _lin, {}, 'queue 2'),
-    'lindx_eager': (dict(use_fused='never'), _lin, {}, 'queue 1 item 3'),
+    'lindx_slew': (dict(slew_rate_penalty=0.1), _lin, {}, 'queue 1 item 5'),
 }
 
 
@@ -345,6 +347,74 @@ def test_scope_gap_names_what_waits(case):
     gap = fused.scope_gap(cfg, cost, make(), **kw)
     assert gap is not None and 'ROADMAP' in gap and needle in gap, gap
     assert not fused.supports(cfg, cost, make(), **kw)
+
+
+EAGER_ROUTE = {
+    # MPCConfig keywords, n_ctrl, batched_solve keywords
+    'lindx_n_ctrl_2': (dict(), 2, {}),
+    'lindx_eager': (dict(use_fused='never'), 1, {}),
+    # one iteration: the masked solve is exact up to its 1e-11
+    # regularisation, and a second step that small ties to round-off in
+    # both line searches (compare alpha where the step is real only)
+    'lindx_u_zero_I': (dict(lqr_iter=1), 1, dict(u_zero_I=True)),
+    'lindx_delta_u': (dict(delta_u=0.1), 1, {}),
+    'lindx_f64': (dict(use_fused='never'), 1, dict(against_kernel=True)),
+}
+
+
+@pytest.mark.parametrize('case', list(EAGER_ROUTE))
+def test_kernel_gaps_solve_eagerly(case):
+    """The LinDx problems of test_scope_gap_names_what_waits that the
+    kernels refuse (and use_fused='never') run on the eager solver and
+    match mpc_tpu's jnp path in float64: x, u and costs within 1e-10
+    relative, n_iter and n_qp_iter equal, alpha where the full step is
+    real.  'lindx_f64' also holds the eager route against the kernel's
+    plain version (the route float64 takes on the CPU) on the same
+    problem.  The 4-control case stacks the system's input column with
+    three more."""
+    cfg_kw, nc, kw = EAGER_ROUTE[case]
+    T, B = 8, 6
+    F, f, C, c, x0 = _lindx_problem(T, B, False, True)
+    if nc > 1:
+        rng = np.random.RandomState(1)
+        F = np.concatenate([F, 0.02 * rng.randn(T - 1, 3, nc - 1)], -1)
+        C = np.stack([np.diag(np.concatenate([np.diag(Ct), [0.02] * (nc - 1)]))
+                      for Ct in C])
+        c = np.concatenate([c, np.zeros((T, nc - 1))], -1)
+    ckw = _cfg_kw(T, **dict(dict(n_ctrl=nc, eps=1e-6, lqr_iter=5), **cfg_kw))
+    bk = dict(u_lower=-0.6, u_upper=0.6)
+    uz = None
+    if kw.get('u_zero_I'):
+        # the unconstrained solve pins controls to zero
+        uz = np.random.RandomState(2).rand(T, B, nc) < 0.3
+        bk = {}
+    ref = j_batched_solve(
+        mpc_tpu.MPCConfig(**dict(ckw, use_fused='never')), jnp.asarray(x0),
+        mpc_tpu.QuadCost(jnp.asarray(C), jnp.asarray(c)),
+        mpc_tpu.LinDx(jnp.asarray(F), jnp.asarray(f)),
+        u_zero_I=None if uz is None else jnp.asarray(uz), **bk)
+    solver.reset_eager_counts()
+    out = solution_to_numpy(mt.batched_solve(
+        mt.MPCConfig(**ckw), torch.tensor(x0),
+        quad_cost_from_numpy(C, c, 'cpu'), lin_dx_from_numpy(F, f, 'cpu'),
+        u_zero_I=None if uz is None else torch.tensor(uz), device='cpu',
+        **bk))
+    assert solver.eager_counts['eager_solve'] == 1
+    for name in ('x', 'u', 'costs'):
+        r = np.asarray(getattr(ref, name))
+        np.testing.assert_allclose(getattr(out, name), r, rtol=0,
+                                   atol=1e-10 * np.abs(r).max(),
+                                   err_msg=name)
+    for name in ('n_iter', 'n_qp_iter', 'converged'):
+        np.testing.assert_array_equal(getattr(out, name),
+                                      np.asarray(getattr(ref, name)))
+    real = np.asarray(ref.full_du_norm) > 1e-6
+    np.testing.assert_array_equal(out.alpha[real],
+                                  np.asarray(ref.alpha)[real])
+    if kw.get('against_kernel'):
+        plain = _port_solve(dict(ckw, use_fused='auto'), x0, C, c,
+                            lin_dx_from_numpy(F, f, 'cpu'), -0.6, 0.6)
+        np.testing.assert_allclose(out.u, plain.u, rtol=0, atol=1e-10)
 
 
 def test_k3_bound_counts():

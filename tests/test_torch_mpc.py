@@ -3,10 +3,13 @@
 - a few receding-horizon swing-up steps of mpc_tpu_torch.MPC against
   mpc_tpu.MPC in float64 (tolerance 1e-8: each solve agrees to ~1e-12 and
   the closed loop carries the states on; see test_torch_fused.py);
-- the reference's exit semantics, the slice's NotImplementedError for
-  every input outside it, gradients through backprop=True, the default
-  device, and an import of the port that brings in nothing of JAX or
-  mpc_tpu.
+- the reference's exit semantics; the knobs and problems the kernels do
+  not take (u_zero_I, delta_u, use_fused='never', the damped pendulum,
+  n_ctrl = 2, a callable cost) through the eager solver against
+  mpc_tpu's jnp path (1e-10 in float64); NotImplementedError, naming the
+  ROADMAP item, for what no route takes yet; gradients through
+  backprop=True, the default device, and an import of the port that
+  brings in nothing of JAX or mpc_tpu.
 """
 
 import os
@@ -20,9 +23,11 @@ import torch
 import jax.numpy as jnp
 
 import mpc_tpu
+from mpc_tpu.learning import batched_solve as j_batched_solve
 from mpc_tpu.models import PendulumDx as JPendulumDx
 
 import mpc_tpu_torch as mt
+from mpc_tpu_torch import solver
 from mpc_tpu_torch.models import PendulumDx
 from mpc_tpu_torch.ops import fused
 from mpc_tpu_torch.utils.convert import (lin_dx_from_numpy,
@@ -91,21 +96,60 @@ def test_exit_unconverged_raises():
 
 
 OUT_OF_SCOPE = {
-    'u_zero_I': dict(u_zero_I=torch.zeros(5, 1, dtype=torch.bool)),
-    'delta_u': dict(u_lower=-2., u_upper=2., delta_u=0.5),
-    'slew': dict(slew_rate_penalty=0.1),
-    'prev_ctrl': dict(prev_ctrl=torch.zeros(1)),
-    'verbose': dict(verbose=1),
-    'analytic_check': dict(grad_method=mt.GradMethods.ANALYTIC_CHECK),
-    'eager_solver': dict(use_fused='never'),
+    'slew': (dict(slew_rate_penalty=0.1), 'item 5'),
+    'prev_ctrl': (dict(prev_ctrl=torch.zeros(1)), 'item 5'),
+    'verbose': (dict(verbose=1), 'item 5'),
+    'analytic_check': (dict(grad_method=mt.GradMethods.ANALYTIC_CHECK),
+                       'item 5'),
+    'parallel_riccati': (dict(parallel_riccati=True, use_fused='never'),
+                         'item 6'),
 }
 
 
 @pytest.mark.parametrize('case', list(OUT_OF_SCOPE))
 def test_out_of_scope_knobs_raise(case):
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        _one_solve(backprop=False, exit_unconverged=False,
-                   **OUT_OF_SCOPE[case])
+    """What neither the kernels nor the eager solver take raises, naming
+    the current ROADMAP item (queue 1 items 5 and 6)."""
+    kw, needle = OUT_OF_SCOPE[case]
+    with pytest.raises(NotImplementedError, match=f'ROADMAP queue 1 {needle}'):
+        _one_solve(backprop=False, exit_unconverged=False, **kw)
+
+
+EAGER_KNOBS = {
+    'u_zero_I': dict(u_zero_I=np.array([[False], [True], [False], [True],
+                                        [False]])),
+    'delta_u': dict(u_lower=-2., u_upper=2., delta_u=0.5),
+    'eager_solver': dict(u_lower=-2., u_upper=2., use_fused='never'),
+}
+
+
+@pytest.mark.parametrize('case', list(EAGER_KNOBS))
+def test_eager_knobs_match_jax_mpc(case):
+    """Knobs the kernels do not take run on the eager solver through the
+    MPC front end and match mpc_tpu.MPC (its jnp path) in float64; the
+    pendulum's swing-up from a generic angle, 4 iterations, 1e-10
+    relative."""
+    kw = dict(EAGER_KNOBS[case], lqr_iter=4, backprop=False,
+              exit_unconverged=False,
+              grad_method=mpc_tpu.GradMethods.AUTO_DIFF)
+    th = np.array([2.0, -1.0, 0.5])
+    x0 = np.stack([np.cos(th), np.sin(th), np.zeros(3)], 1)
+    jkw = dict(kw, use_fused='never')
+    if 'u_zero_I' in jkw:
+        jkw['u_zero_I'] = jnp.asarray(jkw['u_zero_I'])
+    jxs, jus, jcs = mpc_tpu.MPC(3, 1, 5, **jkw)(
+        jnp.asarray(x0), mpc_tpu.QuadCost(jnp.diag(jnp.asarray(Q)),
+                                          jnp.asarray(P)),
+        JPendulumDx(params=jnp.asarray(PARAMS)))
+    solver.reset_eager_counts()
+    txs, tus, tcs = mt.MPC(3, 1, 5, device='cpu', **kw)(
+        torch.tensor(x0), quad_cost_from_numpy(np.diag(Q), P, 'cpu'),
+        pendulum_from_numpy(PARAMS, device='cpu'))
+    assert solver.eager_counts['eager_solve'] == 1
+    for a, b in ((txs, jxs), (tus, jus), (tcs, jcs)):
+        b = np.asarray(b)
+        np.testing.assert_allclose(a.numpy(), b, rtol=0,
+                                   atol=1e-10 * np.abs(b).max())
 
 
 def _solve_long_horizon():
@@ -151,29 +195,93 @@ def _cfg(**kw):
 
 
 def test_out_of_scope_problems_raise():
+    """Malformed layouts, one-sided bounds, 'always' outside the kernels'
+    scope and the O(log T) scan raise before anything runs; problems the
+    kernels refuse are named by ``fused.scope_gap`` (and solve eagerly:
+    test_problems_outside_the_kernels_solve_eagerly)."""
     T = 5
     x0 = torch.tensor(_x0(2))
     cost = quad_cost_from_numpy(np.diag(Q), P, 'cpu')
     dx = pendulum_from_numpy(PARAMS, device='cpu')
-    cases = [
-        (_cfg(), cost, lin_dx_from_numpy(np.zeros((T - 1, 2, 3, 4, 1)),
-                                         None, 'cpu')),
-        (_cfg(), cost, PendulumDx(simple=False, device='cpu',
-                                  dtype=torch.float64)),
-        (_cfg(n_ctrl=2), quad_cost_from_numpy(np.eye(5), np.zeros(5),
-                                              'cpu'), dx),
-        (_cfg(), lambda tau: (tau * tau).sum(), dx),
-    ]
-    for cfg, cst, dyn in cases:
-        with pytest.raises(NotImplementedError, match='ROADMAP'):
-            mt.batched_solve(cfg, x0, cst, dyn, device='cpu')
-    # float64 on the card: refused before anything touches a card
-    assert 'float64' in fused.scope_gap(_cfg(), cost, dx,
-                                        dtype=torch.float64,
-                                        device=torch.device('cuda'))
-    assert fused.supports(_cfg(), cost, dx, dtype=torch.float64)
+    with pytest.raises(ValueError, match='LinDx.F'):
+        mt.batched_solve(_cfg(), x0, cost, lin_dx_from_numpy(
+            np.zeros((T - 1, 2, 3, 4, 1)), None, 'cpu'), device='cpu')
     with pytest.raises(ValueError, match='both'):
         mt.batched_solve(_cfg(), x0, cost, dx, u_lower=-2., device='cpu')
+    # 'always': a ValueError where mpc_tpu's kernels refuse the problem
+    # too (a plain callable model), else NotImplementedError naming the
+    # kernel configuration that waits
+    with pytest.raises(ValueError, match='always'):
+        mt.batched_solve(_cfg(use_fused='always'), x0, cost,
+                         lambda x, u: x, device='cpu')
+    with pytest.raises(NotImplementedError, match='queue 2'):
+        mt.batched_solve(_cfg(use_fused='always'), x0.float(),
+                         quad_cost_from_numpy(np.diag(Q).astype(np.float32),
+                                              P.astype(np.float32), 'cpu'),
+                         PendulumDx(simple=False, device='cpu'),
+                         device='cpu')
+    # the scan: unconstrained at T >= 128 under 'auto', or differentiable
+    with pytest.raises(NotImplementedError, match='item 6'):
+        mt.batched_solve(_cfg(T=128, use_fused='never'), x0, cost, dx,
+                         device='cpu')
+    with pytest.raises(NotImplementedError, match='item 6'):
+        mt.batched_solve(_cfg(T=128, use_fused='never', backprop=True),
+                         x0.clone().requires_grad_(), cost, dx,
+                         u_lower=-2., u_upper=2., device='cpu')
+    # float64 on the card: the kernels refuse it, the eager solver takes it
+    gap = fused.scope_gap(_cfg(), cost, dx, dtype=torch.float64,
+                          device=torch.device('cuda'))
+    assert 'float64' in gap and 'eager' in gap
+    assert fused.supports(_cfg(), cost, dx, dtype=torch.float64)
+    assert fused.scope_gap(_cfg(use_fused='never'), cost, dx) is None
+
+
+OUTSIDE_KERNELS = {
+    'damped_pendulum': dict(n_ctrl=1, simple=False),
+    'n_ctrl_2': dict(n_ctrl=2, simple=True),
+    'callable_cost': dict(n_ctrl=1, simple=True, callable_cost=True),
+}
+
+
+@pytest.mark.parametrize('case', list(OUTSIDE_KERNELS))
+def test_problems_outside_the_kernels_solve_eagerly(case):
+    """The problems that once raised here run on the eager solver and
+    match mpc_tpu.learning.batched_solve (its jnp path) in float64:
+    x, u within 1e-10 relative, n_iter equal.  n_ctrl = 2 drives the
+    pendulum's torque with the sum of two controls."""
+    kw = OUTSIDE_KERNELS[case]
+    nc = kw['n_ctrl']
+    prm = np.array([10., 1., 1., 0.1, 0.2]) if not kw['simple'] else PARAMS
+    q = np.concatenate([Q[:3], 0.01 * np.ones(nc)])
+    p = np.concatenate([P[:3], np.zeros(nc)])
+    x0 = _x0(3, seed=2)
+    jdx = JPendulumDx(params=jnp.asarray(prm), simple=kw['simple'])
+    tdx = pendulum_from_numpy(prm, simple=kw['simple'], device='cpu')
+    if nc == 2:
+        jdyn = lambda x, u: jdx(x, u[..., :1] + u[..., 1:])
+        tdyn = lambda x, u: tdx(x, u[..., :1] + u[..., 1:])
+    else:
+        jdyn, tdyn = jdx, tdx
+    if kw.get('callable_cost'):
+        jcost = lambda tau: jnp.sum(q * jnp.sqrt(1 + (tau - p) ** 2))
+        qt, pt = torch.tensor(q), torch.tensor(p)
+        tcost = lambda tau: (qt * torch.sqrt(1 + (tau - pt) ** 2)).sum(-1)
+    else:
+        jcost = mpc_tpu.QuadCost(jnp.diag(jnp.asarray(q)), jnp.asarray(p))
+        tcost = quad_cost_from_numpy(np.diag(q), p, 'cpu')
+    cfg = dict(n_state=3, n_ctrl=nc, T=5, lqr_iter=4, eps=1e-3,
+               backprop=False, exit_unconverged=False,
+               grad_method=mpc_tpu.GradMethods.AUTO_DIFF)
+    js = j_batched_solve(mpc_tpu.MPCConfig(**cfg, use_fused='never'),
+                         jnp.asarray(x0), jcost, jdyn, u_lower=-1.,
+                         u_upper=1.)
+    ts = mt.batched_solve(mt.MPCConfig(**cfg), torch.tensor(x0), tcost,
+                          tdyn, u_lower=-1., u_upper=1., device='cpu')
+    for a, b in ((ts.x, js.x), (ts.u, js.u)):
+        b = np.asarray(b)
+        np.testing.assert_allclose(a.numpy(), b, rtol=0,
+                                   atol=1e-10 * np.abs(b).max())
+    np.testing.assert_array_equal(ts.n_iter.numpy(), np.asarray(js.n_iter))
 
 
 def test_backprop_guard():
@@ -241,6 +349,8 @@ def test_port_imports_nothing_of_jax():
         '          "mpc_tpu_torch.utils.convert", "mpc_tpu_torch.ops.fused_bwd",\n'
         '          "mpc_tpu_torch.ops.diff", "mpc_tpu_torch.utils.fd",\n'
         '          "mpc_tpu_torch.types", "mpc_tpu_torch.models.pendulum",\n'
+        '          "mpc_tpu_torch.models.cartpole", "mpc_tpu_torch.ops.lqr",\n'
+        '          "mpc_tpu_torch.ops.pnqp", "mpc_tpu_torch.ops.linalg",\n'
         '          "chip_smoke"):\n'
         '    importlib.import_module(m)\n'
         'bad = [n for n in sys.modules if n in ("jax", "mpc_tpu")\n'

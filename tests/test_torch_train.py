@@ -13,9 +13,17 @@ package, on the CPU, end to end in float64.
   step with optax.sgd: the same loss and update, 1e-7 as above.
 - the ``MPC`` front end: gradients reach c and x_init, and
   ``detach_unconverged`` zeroes those of unconverged examples exactly.
+- the layout mixes of the leaves (per-example C and bounds, shared
+  time-varying C beside batched c, shared and batched u_init, no bounds,
+  LinDx with F and f each shared or batched, no f beside a batched C)
+  through the kernels' plain versions and through the eager solver
+  against jax.grad (tolerances at test_layout_mix_gradients_match_jax_f64).
 """
 
+import functools
+
 import numpy as np
+import pytest
 import torch
 
 import jax
@@ -149,3 +157,130 @@ def test_mpc_gradients_and_detach_unconverged():
     np.testing.assert_array_equal(grads[True][~conv], 0.0)
     np.testing.assert_array_equal(grads[True][conv], grads[False][conv])
     assert np.abs(grads[False][~conv]).sum() > 0
+
+
+# The layout mixes of the leaves, end to end in float64 through both
+# routes against jax.grad through mpc_tpu's jnp path, relative to the
+# reference's largest entry.  The eager solver (use_fused='never') is
+# held to 1e-10 in u and 1e-8 in every gradient (measured 4e-15).  The
+# kernels' plain versions compute in the kernels' order with the
+# pendulum's hand-written Jacobian, which these unconverged pendulum
+# iterates amplify (measured up to 1.3e-9 in u and 1.6e-8 in a gradient;
+# the LinDx mixes 1.4e-11), so that route is held to 1e-8 and TOL.
+def _lin_sys(rng, batched_F, f_layout):
+    A = np.eye(3)
+    A[0, 1] = 0.01
+    F = np.tile(np.concatenate([A, 0.3 * np.ones((3, 1))], 1),
+                (T - 1, 1, 1)) + 0.05 * rng.randn(T - 1, 3, 4)
+    if batched_F:
+        F = F[:, None] * (1 + 0.05 * rng.randn(T - 1, B, 3, 4))
+    f = {None: None, 'shared': 0.1 * rng.randn(T - 1, 3),
+         'batched': 0.1 * rng.randn(T - 1, B, 3)}[f_layout]
+    return F, f
+
+
+def _mix(name):
+    """numpy leaves of one mix: x0, C, c, dynamics (pendulum params or
+    (F, f)), bounds, u_init."""
+    rng = np.random.RandomState(7)
+    x0 = _x0(B, seed=5)
+    C, c = np.diag(Q), P.copy()
+    dyn, lb, ub, u0 = PARAMS.copy(), -2., 2., None
+    if name == 'batched_C_batched_bounds':
+        C = np.diag(Q) * (1 + 0.1 * rng.rand(T, B, 4, 1) * np.eye(4))
+        lb = -1.5 - 0.5 * rng.rand(T, B, 1)
+        ub = 1.5 + 0.5 * rng.rand(T, B, 1)
+    elif name == 'shared_tv_C_batched_c':
+        C = np.diag(Q) * (1 + 0.1 * rng.rand(T, 4, 1) * np.eye(4))
+        c = P + 0.1 * rng.randn(T, B, 4)
+    elif name == 'shared_u_init':
+        u0 = 0.5 * rng.randn(T, 1)
+    elif name == 'batched_u_init':
+        u0 = 0.5 * rng.randn(T, B, 1)
+    elif name == 'unbounded':
+        lb = ub = None
+        C = np.diag([1., 1., 0.1, 0.1])
+    elif name.startswith('lindx'):
+        x0 = rng.randn(B, 3)
+        C = np.diag([1., 1., 0.1, 0.01])
+        c = 0.3 * rng.randn(4)
+        lb, ub = -0.6, 0.6
+        if name == 'lindx_no_f_batched_C':
+            C = C * (1 + 0.1 * rng.rand(T, B, 4, 1) * np.eye(4))
+            dyn = _lin_sys(rng, False, None)
+        else:
+            _, F_l, f_l = name.split('_')
+            dyn = _lin_sys(rng, F_l == 'Fbatched',
+                           'shared' if f_l == 'fshared' else 'batched')
+    return x0, C, c, dyn, lb, ub, u0
+
+
+MIXES = ['batched_C_batched_bounds', 'shared_tv_C_batched_c',
+         'shared_u_init', 'batched_u_init', 'unbounded',
+         'lindx_Fshared_fshared', 'lindx_Fshared_fbatched',
+         'lindx_Fbatched_fshared', 'lindx_Fbatched_fbatched',
+         'lindx_no_f_batched_C']
+
+
+def _mix_loss(s_u, s_x):
+    return (s_u ** 2).sum() + 0.1 * (s_x ** 2).sum()
+
+
+@functools.lru_cache(maxsize=None)
+def _mix_reference(name):
+    """u and the gradients of mpc_tpu's jnp path for one mix."""
+    x0, C, c, dyn, lb, ub, u0 = _mix(name)
+    lin = isinstance(dyn, tuple)
+    cfg = mpc_tpu.MPCConfig(grad_method=mpc_tpu.GradMethods.AUTO_DIFF,
+                            use_fused='never', **_cfg_kw())
+
+    def solve(x, Cv, cv, d):
+        dynamics = (mpc_tpu.LinDx(*d) if lin
+                    else JPendulumDx(params=d))
+        return j_batched_solve(
+            cfg, x, mpc_tpu.QuadCost(Cv, cv), dynamics,
+            u_init=None if u0 is None else jnp.asarray(u0),
+            u_lower=None if lb is None else jnp.asarray(lb),
+            u_upper=None if ub is None else jnp.asarray(ub))
+
+    d = (tuple(None if a is None else jnp.asarray(a) for a in dyn) if lin
+         else jnp.asarray(dyn))
+    args = (jnp.asarray(x0), jnp.asarray(C), jnp.asarray(c), d)
+    grads = jax.grad(lambda *a: _mix_loss(solve(*a).u, solve(*a).x),
+                     argnums=(0, 1, 2, 3))(*args)
+    return np.asarray(solve(*args).u), jax.tree_util.tree_leaves(grads)
+
+
+@pytest.mark.parametrize('route', ['kernel', 'eager'])
+@pytest.mark.parametrize('mix', MIXES)
+def test_layout_mix_gradients_match_jax_f64(mix, route):
+    from mpc_tpu_torch import solver
+    x0, C, c, dyn, lb, ub, u0 = _mix(mix)
+    lin = isinstance(dyn, tuple)
+    u_ref, g_ref = _mix_reference(mix)
+    leaves = [torch.tensor(a, requires_grad=True) for a in (x0, C, c)]
+    if lin:
+        dleaves = [None if a is None else torch.tensor(a, requires_grad=True)
+                   for a in dyn]
+        dynamics = mt.LinDx(*dleaves)
+        dleaves = [a for a in dleaves if a is not None]
+    else:
+        dleaves = [torch.tensor(dyn, requires_grad=True)]
+        dynamics = PendulumDx(params=dleaves[0])
+    cfg = mt.MPCConfig(grad_method=mt.GradMethods.AUTO_DIFF,
+                       use_fused='never' if route == 'eager' else 'auto',
+                       **_cfg_kw())
+    tb = (lambda b: None if b is None else torch.tensor(np.asarray(b)))
+    solver.reset_eager_counts()
+    sol = mt.batched_solve(cfg, leaves[0], mt.QuadCost(leaves[1], leaves[2]),
+                           dynamics, u_init=tb(u0), u_lower=tb(lb),
+                           u_upper=tb(ub), device='cpu')
+    assert solver.eager_counts['eager_solve'] == (route == 'eager')
+    u_tol, g_tol = (1e-10, 1e-8) if route == 'eager' else (1e-8, TOL)
+    _assert_rel('u', u_ref, sol.u.detach().numpy(), u_tol)
+    _mix_loss(sol.u, sol.x).backward()
+    got = [a.grad for a in leaves + dleaves]
+    assert len(got) == len(g_ref)
+    for i, (a, b) in enumerate(zip(g_ref, got)):
+        assert b.shape == a.shape, (i, b.shape, a.shape)
+        _assert_rel(f'grad {i}', a, b.numpy(), g_tol)
