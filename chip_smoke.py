@@ -28,6 +28,16 @@ parallel, and drives the port's main paths on the card:
   through make_imitation_train_step, a learner that must cut its loss,
   and K3's and K4's times against their bounds.
 
+- learned dynamics: the JAX package's bench_nn_dynamics row
+  (benchmarks/configs.py:647-678: the reference's default MLP, one
+  hidden layer of 100 sigmoid units, B=2048, T=20, lqr_iter=10, box +-2,
+  float32) through K3's streamed-weights configuration (MPC_DYN=2,
+  csrc/nn.cuh): K3 against its plain version ([compare-nn]), requests
+  through batched_solve ([serve-nn]), K3's time against its bound and
+  with other warps a block ([time-nn]), and gradients of an imitation
+  loss to the MLP's weights through K3 and K2 against the eager fixed
+  point, with K2 on that path's operands ([grad-nn]).
+
 K1 and K3 give each example a team of lanes (ops/fused.py:TEAM): the
 compare phases also run what that makes new ([compare-teams]: more step
 sizes than lanes, examples of one warp stopping at different
@@ -42,7 +52,9 @@ medium-state row with 24 states and 4 controls ([eager-medium]), config
 3, the cartpole ([eager-cartpole]), and the sequential long-horizon solve
 at T=512 ([eager-long]); each float32 against float64 on the card, the
 card's float64 against the CPU's, and gradients through the eager fixed
-point against K2 ([eager-grad]).
+point against K2 ([eager-grad]); the MLP problem through the eager
+solver against K3 ([eager-nn]); an affine model and the pseudo-Huber
+cost, the card's float64 against the CPU's ([eager-models]).
 
 It prints one JSON line of kernel numbers, one of the eager phases, the
 card's name and power limit, and a last JSON line with the device.  Every phase raises on
@@ -177,6 +189,14 @@ def phase_build():
               for cost_shared in (True, False) for has_I in (True, False)]
     specs += [('fused_ilqr_long', fused.long_kernel_defines(lindx, True))
               for lindx in (True, False)]
+    # K3's MLP build: sigmoid with bounds at each warps a block that
+    # [time-nn] tries, and relu without bounds; K2 at the MLP path's T
+    specs += [('fused_ilqr_long', dict(
+        fused.long_kernel_defines(False, True, 'sigmoid'), MPC_WARPS=w))
+        for w in NN_WARPS_TRIED]
+    specs += [('fused_ilqr_long', fused.long_kernel_defines(False, False,
+                                                            'relu')),
+              ('fused_kkt_bwd', fused_bwd.kernel_defines(NN_T, True, True))]
     specs += [('fused_kkt_bwd_long',
                fused_bwd.long_kernel_defines(cost_shared, dyn_shared))
               for cost_shared in (True, False) for dyn_shared in (True, False)]
@@ -193,6 +213,7 @@ def phase_build():
             ('K1 headline', fused.k1_launch(T, B, 5)),
             ('K1 config 4, B=1024', fused.k1_launch(TRAIN_T, 1024, 3)),
             ('K3 long', fused.k3_launch(LONG_T, LONG_B, 3)),
+            (f'K3 MLP, H={NN_H}', fused.k3_launch(NN_T, NN_B, 3, NN_H)),
             ('K2 config 4, B=1024', fused_bwd.k2_launch(TRAIN_T, 1024)),
             ('K2 config 4, B=8192', fused_bwd.k2_launch(TRAIN_T, 8192)),
             ('K4 long', fused_bwd.k4_launch(LONG_T, LONG_B)),
@@ -1574,6 +1595,381 @@ def phase_time_bwd_long(torch, device):
 
 
 # ---------------------------------------------------------------------------
+# the learned-dynamics path: the reference's default MLP through K3's
+# streamed-weights configuration (MPC_DYN=2) and K2
+# ---------------------------------------------------------------------------
+
+# the JAX package's learned-dynamics row (benchmarks/configs.py:647-678,
+# bench_nn_dynamics): NNDynamics with the reference's default
+# hidden_sizes=[100] (mpc/dynamics.py:9-13), sigmoid, passthrough, the
+# pendulum's swing-up cost, box +-2, nothing cut
+NN_B, NN_T, NN_H = 2048, 20, 100
+NN = dict(n_state=3, n_ctrl=1, T=NN_T, lqr_iter=10, eps=0.0,
+          exit_unconverged=False, detach_unconverged=False, backprop=False,
+          linesearch_decay=0.2, max_linesearch_iter=3)
+# the gradient phase's batch and its learner's target scale
+NN_GRAD_B = 1024
+# the warps a block K3's MLP build is timed with (K3_WARPS and fewer)
+NN_WARPS_TRIED = (4, 2, 1)
+
+
+def nn_problem(torch, device, n=NN_B, act='sigmoid', dtype=None, seed=4,
+               **cfg_kw):
+    """(cfg, x0 [n, 3], cost, model) of bench_nn_dynamics: the MLP drawn
+    in float32 from a seeded generator (cast for float64, so both
+    precisions solve one problem), pendulum starts from RandomState(seed)
+    and the swing-up cost."""
+    import numpy as np
+    import mpc_tpu_torch as mt
+    from mpc_tpu_torch.models import PendulumDx
+    dtype = dtype or torch.float32
+    model = mt.NNDynamics.init(3, 1, (NN_H,), act,
+                               generator=torch.Generator().manual_seed(0),
+                               device=device).to(dtype)
+    rng = np.random.RandomState(seed)
+    th = np.pi * (2 * rng.rand(n) - 1)
+    x0 = torch.tensor(np.stack([np.cos(th), np.sin(th), np.zeros(n)], 1),
+                      dtype=dtype, device=device)
+    q, p = PendulumDx(device=device, dtype=dtype).get_true_obj()
+    cfg = mt.MPCConfig(**dict(NN, grad_method=mt.GradMethods.AUTO_DIFF,
+                              **cfg_kw))
+    return cfg, x0, mt.QuadCost(torch.diag(q), p), model
+
+
+def nn_k3_operands(torch, device, n=NN_B, act='sigmoid', dtype=None,
+                   bounded=True, seed=4):
+    from mpc_tpu_torch.ops import fused
+    cfg, x0, cost, model = nn_problem(torch, device, n, act, dtype, seed)
+    lim = dict(u_lower=-2.0, u_upper=2.0) if bounded else {}
+    return fused.k3_operands(cfg, x0, cost, model, **lim)
+
+
+def phase_compare_nn(torch, device):
+    """K3's MLP configuration against its plain version at the full size
+    of bench_nn_dynamics: the float32 tail, the float64 plain run, the
+    reversed batch, and B = 1, 7, 33 and 2048 alone against the same
+    examples inside a batch of 2050, bitwise; then relu without bounds
+    at B=1024.  Returns max |du| of the bench problem and the plain
+    version's ms there."""
+    from mpc_tpu_torch.ops import fused
+    long_kw = dict(kernel=fused.fused_ilqr_long,
+                   plain=fused.fused_solve_long_plain)
+    log(f'[compare-nn] K3 MLP (sigmoid, H={NN_H}) vs its plain version, '
+        f'B={NN_B}, T={NN_T}, lqr_iter=10, box +-2')
+    ops = nn_k3_operands(torch, device)
+    plain_ms = event_ms(torch, lambda: fused.fused_solve_long_plain(**ops))
+    (xk, uk, sk), mx = hold_k1(
+        torch, 'K3 MLP vs plain', ops,
+        nn_k3_operands(torch, device, dtype=torch.float64), **long_kw)
+    on_box = float((uk.abs() >= 2.0).double().mean())
+    log(f'  controls on a bound: {on_box:.3f} of T*B; selected index + 1 a '
+        f'solve {float(sk[5].mean()):.2f}; plain version {plain_ms:.1f} ms')
+    # B=2050: 64 full blocks and 2 examples; its first 2048 are the
+    # bench batch
+    wide = nn_k3_operands(torch, device, NN_B + 2)
+    hold_slices(torch, 'K3 MLP, B=2050', fused.fused_ilqr_long, wide,
+                fused.fused_ilqr_long(**wide), sizes=(1, 7, 33, NN_B))
+    log(f'[compare-nn] K3 MLP (relu, no bounds) vs its plain version, '
+        f'B=1024: judged against the float64 plain run')
+    relu = nn_k3_operands(torch, device, 1024, 'relu', bounded=False)
+    (_, ur, _), _ = hold_k1(
+        torch, 'K3 MLP relu vs plain', relu,
+        nn_k3_operands(torch, device, 1024, 'relu', torch.float64,
+                       bounded=False), limits=None, **long_kw)
+    log(f'  largest |u| {float(ur.abs().max()):.3e}')
+    return mx, plain_ms
+
+
+def phase_serve_nn(torch, device, n_requests=8):
+    """Requests of bench_nn_dynamics through batched_solve under the
+    default 'auto': host to host, each launching K3 once and nothing
+    else; returns the K3 launches and the median request ms."""
+    import numpy as np
+    import mpc_tpu_torch as mt
+    from mpc_tpu_torch import solver
+    from mpc_tpu_torch.ops import fused
+    from mpc_tpu_torch.solver import rollout, trajectory_cost
+    cfg, x0, cost, model = nn_problem(torch, device)
+    requests = []
+    for i in range(n_requests):
+        th = np.pi * (2 * np.random.RandomState(300 + i).rand(NN_B) - 1)
+        requests.append(torch.tensor(
+            np.stack([np.cos(th), np.sin(th), np.zeros(NN_B)], 1),
+            dtype=torch.float32))
+    kw = dict(u_lower=-2.0, u_upper=2.0, device=device)
+    mt.batched_solve(cfg, x0, cost, model, **kw).u.cpu()      # warm-up
+    fused.reset_launch_counts()
+    solver.reset_eager_counts()
+    lat = []
+    for req in requests:
+        t0 = time.perf_counter()
+        x = req.to(device)
+        sol = mt.batched_solve(cfg, x, cost, model, **kw)
+        u = sol.u.cpu()
+        lat.append(time.perf_counter() - t0)
+    launches = fused.launch_counts['fused_ilqr_long']
+    med = sorted(lat)[len(lat) // 2]
+    log(f'[serve-nn] {n_requests} requests of B={NN_B}, T={NN_T}, MLP '
+        f'H={NN_H}: latency ms ' + ' '.join(f'{1e3 * v:.3f}' for v in lat)
+        + f'; median {1e3 * med:.3f} ms, {NN_B / med:.0f} solves/s; K3 '
+        f'launches {launches}, K1 {fused.launch_counts["fused_ilqr"]}, '
+        f'eager solves {solver.eager_counts["eager_solve"]}; {card_line()}')
+    if (launches != n_requests or fused.launch_counts['fused_ilqr']
+            or solver.eager_counts['eager_solve']):
+        raise AssertionError('each request must launch K3 once and nothing '
+                             'else')
+    with torch.no_grad():
+        xr = rollout(model, x, u.to(device))
+        cr = trajectory_cost(cost, xr, u.to(device))
+    gap = float((cr - sol.costs).abs().max() / sol.costs.abs().max())
+    log(f'  last answer: relative cost gap to its own rollout {gap:.2e}')
+    if not (torch.isfinite(u).all() and u.abs().max() <= 2.0 and gap < 1e-3):
+        raise AssertionError('served controls are not a feasible solve')
+    return launches, 1e3 * med
+
+
+def phase_time_nn(torch, device, plain_ms):
+    """K3's MLP build at the full size from a CUDA graph against its
+    bound, with the blocks and SMs it uses, and the same kernel built
+    with the other warps a block of NN_WARPS_TRIED, in this process."""
+    from mpc_tpu_torch.ops import fused
+    ops = nn_k3_operands(torch, device)
+    _, _, stats = fused.fused_ilqr_long(**ops)
+    n_it = float(stats[2].double().sum())
+    n_trials = float(stats[5].double().sum())
+    flops = fused.k3_flops(NN_T, 3, 1, n_it, n_trials, batch=NN_B,
+                           lindx=False,
+                           nn_ops=fused.nn_op_counts(NN_H, 'sigmoid', True))
+    nbytes = fused.k3_bytes(ops)
+    bound_ms, by = bound(flops, nbytes)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    default = fused.K3_WARPS
+    times = {}
+    try:
+        for warps in NN_WARPS_TRIED:
+            fused.K3_WARPS = warps
+            ref = fused.fused_ilqr_long(**ops)
+            if not torch.equal(ref[1], fused.fused_ilqr_long(**ops)[1]):
+                raise AssertionError('K3 MLP: two launches differ')
+            ms, eager_ms = graph_ms(
+                torch, lambda: fused.fused_ilqr_long(**ops), reps=5,
+                per_graph=4)
+            geo = fused.k3_launch(NN_T, NN_B, 3, NN_H)
+            times[warps] = ms
+            log(f'[time-nn] K3 MLP, {warps} warps a block: {ms:.4f} ms (from '
+                f'a CUDA graph; {eager_ms:.4f} ms a call from Python); '
+                f'{geo["blocks"]} blocks of {geo["examples"]} examples on '
+                f'{min(geo["blocks"], sms)} of {sms} SMs; {geo["smem_bytes"]} '
+                'bytes of shared memory a block')
+    finally:
+        fused.K3_WARPS = default
+    ms = times[default]
+    log(f'[time-nn] K3 MLP B={NN_B}, T={NN_T}, H={NN_H}: {ms:.4f} ms with '
+        f'{default} warps a block; {flops:.4e} operations ({n_it / NN_B:.2f} '
+        f'iterations, {n_trials / NN_B:.2f} trials/solve), {nbytes} bytes; '
+        f'bound {bound_ms:.5f} ms by {by} ({ms / bound_ms:.1f}x); plain '
+        f'{plain_ms:.1f} ms; {NN_B / ms * 1e3:.0f} solves/s; {card_line()}')
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
+                ms_by_warps={str(k): v for k, v in times.items()})
+
+
+def nn_imitation(torch, device, n, primal=None):
+    """An imitation loss of bench_nn_dynamics at B=n with gradients to the
+    MLP's weights, x_init, C and c: through the kernels (K3, then K2), or,
+    given the Solution ``primal`` of the kernels' phase 1, through the
+    eager fixed point on it.  Returns the loss and the gradients, and the
+    kernels' Solution."""
+    import numpy as np
+    import mpc_tpu_torch as mt
+    from mpc_tpu_torch import solver
+    cfg, x0, cost, model = nn_problem(torch, device, n, backprop=True)
+    x0 = x0.requires_grad_()
+    C, c = (a.clone().requires_grad_() for a in cost)
+    u_exp = torch.tensor(0.5 * np.random.RandomState(7).randn(NN_T, n, 1),
+                         dtype=torch.float32, device=device)
+    lb = torch.tensor(-2.0, device=device)
+    sol = None
+    if primal is None:
+        sol = mt.batched_solve(cfg, x0, mt.QuadCost(C, c), model,
+                               u_lower=-2.0, u_upper=2.0, device=device)
+        x, u = sol.x, sol.u
+    else:
+        x, u = solver.fixed_point_phase(cfg, x0, mt.QuadCost(C, c), model,
+                                        primal.x, primal.u, lb, -lb,
+                                        primal.converged)
+    loss = ((u - u_exp) ** 2).mean() + 0.1 * (x ** 2).mean()
+    loss.backward()
+    grads = [p.grad for p in model.parameters()] + [x0.grad, C.grad, c.grad]
+    return [loss.detach()] + grads, sol
+
+
+def nn_bwd_operands(torch, device, sol, n=NN_GRAD_B, seed=13):
+    """K2's operands on the MLP's path: the solution ``sol`` of K3, the
+    shared cost, the MLP's per-example linearisation there, the active
+    set and seeded random cotangents."""
+    import numpy as np
+    from mpc_tpu_torch.ops import fused_bwd
+    from mpc_tpu_torch.solver import linearize_dynamics
+    cfg, _, cost, model = nn_problem(torch, device, n)
+    with torch.no_grad():
+        F, _ = linearize_dynamics(model, sol.x, sol.u, cfg.grad_method)
+    bound = torch.tensor(2.0, device=device)
+    rng = np.random.RandomState(seed)
+    return dict(C=cost.C.expand(NN_T, 1, 4, 4).contiguous(),
+                c=cost.c.expand(NN_T, 1, 4).contiguous(),
+                F=F.contiguous(), x_star=sol.x.detach().contiguous(),
+                u_star=sol.u.detach().contiguous(),
+                dl_dx=torch.tensor(rng.randn(NN_T, n, 3),
+                                   dtype=torch.float32, device=device),
+                dl_du=torch.tensor(rng.randn(NN_T, n, 1),
+                                   dtype=torch.float32, device=device),
+                I_mask=fused_bwd.active_set(sol.u.detach(), -bound, bound))
+
+
+def phase_grad_nn(torch, device, n=NN_GRAD_B):
+    """Gradients of an imitation loss to the MLP's weights, x_init, C and
+    c through K3 and K2, against the eager fixed point on the same primal
+    (BWD_TOL relative to each gradient's largest entry), and with TF32
+    on and off (bitwise); K2 on this path's operands against its plain
+    version (``hold_bwd``) and timed from a CUDA graph against its
+    bound.  Returns the K3 and K2 launches of one differentiable solve,
+    the largest gradient error and K2's entry."""
+    from mpc_tpu_torch import solver
+    from mpc_tpu_torch.ops import fused, fused_bwd
+    log(f'[grad-nn] bench_nn_dynamics, B={n}, T={NN_T}: gradients through '
+        'K3 and K2 vs the eager fixed point on the same primal')
+    fused.reset_launch_counts()
+    fused_bwd.reset_launch_counts()
+    solver.reset_eager_counts()
+    kk, sol = nn_imitation(torch, device, n)
+    k3 = fused.launch_counts['fused_ilqr_long']
+    k2 = fused_bwd.launch_counts['fused_kkt_bwd']
+    if (k3, k2, fused.launch_counts['fused_ilqr'],
+            fused_bwd.launch_counts['fused_kkt_bwd_long'],
+            solver.eager_counts['eager_solve'],
+            solver.eager_counts['eager_fixed_point']) != (1, 1, 0, 0, 0, 0):
+        raise AssertionError('a differentiable MLP solve must launch K3 and '
+                             'K2 once each and nothing else')
+    ref, _ = nn_imitation(torch, device, n, sol._replace(
+        x=sol.x.detach(), u=sol.u.detach()))
+    err = 0.0
+    for name, g, r in zip(('W1', 'b1', 'W2', 'b2', 'x_init', 'C', 'c'),
+                          kk[1:], ref[1:]):
+        e = rel_err(g, r)
+        err = max(err, e)
+        log(f'  {name}: max |K2 route - eager| / max |eager| {e:.3e}')
+    if not (err < BWD_TOL and all(torch.isfinite(g).all() for g in kk[1:])
+            and float(kk[1].abs().max()) > 0):
+        raise AssertionError('MLP gradients through K2 are off the eager '
+                             'fixed point')
+    phase_tf32(torch, 'MLP loss and gradients through K3 and K2',
+               lambda: nn_imitation(torch, device, n)[0])
+    o = nn_bwd_operands(torch, device, sol, n)
+    log(f'[grad-nn] K2 vs its plain version on the MLP\'s linearisation, '
+        f'B={n}: active controls {float(o["I_mask"].mean()):.3f} of T*B')
+    _, k2_err = hold_bwd(torch, 'K2', 'MLP path', fused_bwd.fused_kkt_backward,
+                         fused_bwd.fused_kkt_backward_plain, o)
+    ms, eager_ms = graph_ms(torch, lambda: fused_bwd.fused_kkt_backward(**o))
+    plain_ms = event_ms(torch,
+                        lambda: fused_bwd.fused_kkt_backward_plain(**o))
+    flops = fused_bwd.k2_flops(NN_T, n, True)
+    nbytes = fused_bwd.k2_bytes(o['C'], o['c'], o['F'], o['x_star'],
+                                o['I_mask'])
+    bound_ms, by = bound(flops, nbytes)
+    log(f'[grad-nn] K2 B={n}, T={NN_T}: {ms:.4f} ms (from a CUDA graph; '
+        f'{eager_ms:.4f} ms a call from Python), plain {plain_ms:.2f} ms; '
+        f'{flops:.4e} operations, {nbytes} bytes; bound {bound_ms:.5f} ms '
+        f'by {by}')
+    return k3, k2, err, dict(max_abs_err=k2_err, ms=ms, plain_ms=plain_ms,
+                             bound_ms=bound_ms, bound_by=by)
+
+
+def phase_eager_nn(torch, device, records, k3_ms, reps=3):
+    """bench_nn_dynamics through the eager solver (use_fused='never') on
+    the card in this process: ms a solve and the kernels' speed-up over
+    it (their median request, host to host, in [serve-nn]), and K3 held
+    within the float32 tail of it."""
+    import dataclasses
+    import mpc_tpu_torch as mt
+    log(f'[eager-nn] bench_nn_dynamics B={NN_B}, T={NN_T}: the eager solver '
+        'vs K3')
+    cfg, x0, cost, model = nn_problem(torch, device, use_fused='never')
+    kw = dict(u_lower=-2.0, u_upper=2.0, device=device)
+    (runs, ms), n_eager = eager_counted(torch, lambda: timed(
+        torch, device, lambda: mt.batched_solve(cfg, x0, cost, model, **kw),
+        reps))
+    cfg_k = dataclasses.replace(cfg, use_fused='auto')
+    uk = mt.batched_solve(cfg_k, x0, cost, model, **kw).u
+    mx = check_tail('K3 vs eager (f32)', uk, runs[-1].u)
+    log(f'  {n_eager} eager solves, median {ms:.1f} ms ({NN_B / ms * 1e3:.0f} '
+        f'solves/s); K3 request {k3_ms:.3f} ms: {ms / k3_ms:.0f}x; '
+        f'{card_line()}')
+    eager_record(records, 'eager-nn', f'bench_nn_dynamics, MLP H={NN_H}, '
+                 f'B={NN_B}, T={NN_T}, float32', n_eager, mx,
+                 'K3 on the same problem', 'f32 tail as K1', ms)
+
+
+def phase_eager_models(torch, device, records, n=512):
+    """An affine model and the pseudo-Huber cost through the eager solver
+    on the card in float64, held against the CPU's float64 where the
+    decisions match (``hold_tied``)."""
+    import numpy as np
+    import mpc_tpu_torch as mt
+    from mpc_tpu_torch import solver
+    from mpc_tpu_torch.utils.convert import (affine_from_numpy,
+                                             pseudo_huber_from_numpy)
+    rng = np.random.RandomState(9)
+    A = np.eye(3) + 0.1 * rng.randn(3, 3)
+    Bm, cA = 0.2 * rng.randn(3, 2), 0.1 * rng.randn(3)
+    xa = rng.randn(n, 3)
+    Ca = np.tile(np.diag([1., 0.5, 0.3, 0.1, 0.2]), (10, 1, 1))
+    ca = 0.2 * rng.randn(10, n, 5)
+    th = np.pi * (2 * rng.rand(n) - 1)
+    xp = np.stack([np.cos(th), np.sin(th), np.zeros(n)], 1)
+    base = dict(lqr_iter=10, exit_unconverged=False, detach_unconverged=False,
+                backprop=False, linesearch_decay=0.2, max_linesearch_iter=4,
+                use_fused='never')
+    cases = [
+        ('affine, 2 controls, box +-0.4', mt.MPCConfig(3, 2, 10, eps=1e-10,
+                                                       **base),
+         lambda dev: (torch.tensor(xa, device=dev),
+                      mt.QuadCost(torch.tensor(Ca, device=dev),
+                                  torch.tensor(ca, device=dev)),
+                      affine_from_numpy(A, Bm, cA, device=dev)), 0.4),
+        ('pendulum with the pseudo-Huber cost, box +-2',
+         mt.MPCConfig(3, 1, 20, eps=1e-3,
+                      grad_method=mt.GradMethods.AUTO_DIFF, **base),
+         lambda dev: (torch.tensor(xp, device=dev),
+                      pseudo_huber_from_numpy(np.array([1., 1., 0.1, 0.01]),
+                                              np.array([1., 0., 0., 0.]), 0.5,
+                                              device=dev),
+                      mt.models.PendulumDx(params=torch.tensor(
+                          [10., 1., 1.], dtype=torch.float64), device=dev)),
+         2.0)]
+    for what, cfg, make, lim in cases:
+        log(f'[eager-models] {what}, B={n}, T={cfg.T}: card f64 vs CPU f64')
+        runs = []
+        for dev in (device, torch.device('cpu')):
+            x, cost, dyn = make(dev)
+            trace = []
+            solver.reset_eager_counts()
+            t0 = time.perf_counter()
+            sol = solver.eager_batched_solve(cfg, x, cost, dyn, u_lower=-lim,
+                                             u_upper=lim, trace=trace)
+            sync(torch, device)
+            runs.append((sol, trace, 1e3 * (time.perf_counter() - t0),
+                         solver.eager_counts['eager_solve']))
+        (sk, tk, ms, n_eager), (sc, tc, _, _) = runs
+        _, err, tied = hold_tied(torch, 'card vs CPU', sk, tk, sc, tc)
+        log(f'  {float((sk.u.abs() == lim).double().mean()):.3f} of the '
+            f'controls on the box; the card {ms:.1f} ms a solve')
+        eager_record(records, 'eager-models', f'{what}, B={n}, T={cfg.T}, '
+                     'float64', n_eager, err, 'the same on the CPU (examples '
+                     'whose decisions match)', f'{EAGER_F64_TOL} relative',
+                     ms)
+
+
+# ---------------------------------------------------------------------------
 # the eager solver ([eager-*]): every problem the kernels do not take
 # ---------------------------------------------------------------------------
 
@@ -2248,6 +2644,10 @@ def main():
                         long_train_step(torch, device))
     timing_long = phase_time_long(torch, device)
     timing_bwd_long = phase_time_bwd_long(torch, device)
+    nn_err, nn_plain_ms = phase_compare_nn(torch, device)
+    k3_nn_serve, nn_request_ms = phase_serve_nn(torch, device)
+    timing_nn = phase_time_nn(torch, device, nn_plain_ms)
+    k3_nn_grad, k2_nn_grad, nn_grad_err, k2_nn = phase_grad_nn(torch, device)
     t_eager = time.perf_counter()
     eager = []
     phase_eager_serve(torch, device, eager)
@@ -2256,13 +2656,17 @@ def main():
     phase_eager_cartpole(torch, device, eager)
     phase_eager_long(torch, device, eager)
     phase_eager_grad(torch, device, eager)
+    phase_eager_nn(torch, device, eager, nn_request_ms)
+    phase_eager_models(torch, device, eager)
     log(f'[eager] the [eager-*] phases took '
         f'{time.perf_counter() - t_eager:.1f} s')
     log(f'[done] {time.perf_counter() - t0:.1f} s')
     # one entry per kernel and main path: serving ([serve], headline
-    # B=4096), training ([train], config 4 at B=1024) and long-horizon
-    # training ([train-long], T=160 at B=4096); launches are that path's
-    # count, the times and bound that path's shape
+    # B=4096), training ([train], config 4 at B=1024), long-horizon
+    # training ([train-long], T=160 at B=4096) and learned dynamics
+    # ([serve-nn], bench_nn_dynamics at B=2048; [grad-nn] at B=1024);
+    # launches are that path's count, the times and bound that path's
+    # shape
     from mpc_tpu_torch.ops import fused, fused_bwd
     k1 = {'route': 'cuda', 'source': 'mpc_tpu_torch/csrc/fused_ilqr.cu',
           'replaces': 'mpc_tpu/ops/fused.py:617',
@@ -2307,7 +2711,28 @@ def main():
                           fused_bwd.k4_launch(LONG_T, LONG_B)),
          'launches': k4_train, 'max_abs_err': bwd_long_err,
          'tolerance': f'max|K4-plain|/max|plain|<{BWD_TOL} per gradient',
-         'library_ms': None, **timing_bwd_long}]}))
+         'library_ms': None, **timing_bwd_long},
+        {'name': 'fused_ilqr_long (nn)', 'path': 'learned dynamics',
+         'route': 'cuda', 'source': 'mpc_tpu_torch/csrc/fused_ilqr_long.cu',
+         'headers': ['mpc_tpu_torch/csrc/nn.cuh'],
+         'replaces': 'mpc_tpu/ops/fused.py:1252',
+         'design': design('fused_ilqr_long',
+                          fused.long_kernel_defines(False, True, 'sigmoid'),
+                          fused.k3_launch(NN_T, NN_B, 3, NN_H)),
+         'launches': k3_nn_serve, 'launches_grad_nn': k3_nn_grad,
+         'max_abs_err': nn_err, 'grad_err_vs_eager': nn_grad_err,
+         'tolerance': f'mean|du|<{TAIL_MEAN}, '
+                      f'share(|du|>{TAIL_ENTRY})<{TAIL_SHARE}',
+         'library_ms': None, **timing_nn},
+        {'name': 'fused_kkt_bwd (nn)', 'path': 'learned dynamics',
+         'route': 'cuda', 'source': 'mpc_tpu_torch/csrc/fused_kkt_bwd.cu',
+         'replaces': 'mpc_tpu/ops/fused_bwd.py:251',
+         'design': design('fused_kkt_bwd',
+                          fused_bwd.kernel_defines(NN_T, True, True),
+                          fused_bwd.k2_launch(NN_T, NN_GRAD_B)),
+         'launches': k2_nn_grad,
+         'tolerance': f'max|K2-plain|/max|plain|<{BWD_TOL} per gradient',
+         'library_ms': None, **k2_nn}]}))
     # the eager solver's phases: configuration, route, eager solves
     # counted in the phase, largest error against its reference, the
     # tolerance and the median host ms of a solve (or of a backward)

@@ -28,6 +28,9 @@ Public surface:
   GradMethods, MPCConfig, Solution
   rollout, trajectory_cost   - trajectory helpers
   linearize_dynamics, quadratize_cost - the model along a trajectory
+  NNDynamics, AffineDynamics, CtrlPassthroughDynamics, PseudoHuberCost
+                             - the learned, affine and passthrough models
+                               and the robust cost (also in ``models``)
   models.PendulumDx, models.CartpoleDx
 """
 
@@ -38,6 +41,8 @@ from .learning import (batched_solve, imitation_loss,
 from .solver import (linearize_dynamics, quadratize_cost, rollout,
                      solve_single, trajectory_cost)
 from . import models
+from .models import (AffineDynamics, CtrlPassthroughDynamics, NNDynamics,
+                     PseudoHuberCost)
 
 __version__ = '0.1.0'
 
@@ -45,5 +50,6 @@ __all__ = [
     'MPC', 'QuadCost', 'LinDx', 'GradMethods', 'MPCConfig', 'Solution',
     'batched_solve', 'solve_single', 'imitation_loss',
     'make_imitation_train_step', 'rollout', 'trajectory_cost',
-    'linearize_dynamics', 'quadratize_cost', 'models',
+    'linearize_dynamics', 'quadratize_cost', 'models', 'NNDynamics',
+    'AffineDynamics', 'CtrlPassthroughDynamics', 'PseudoHuberCost',
 ]

@@ -76,7 +76,23 @@
 // any team has left.
 //
 // Dynamics (MPC_DYN): 0 = LinDx (x' = F (x, u) + f; F shared or per
-// example, f optional), 1 = the simple pendulum (pendulum.cuh).
+// example, f optional), 1 = the simple pendulum (pendulum.cuh), 2 = a
+// one-hidden-layer MLP (nn.cuh; MPC_ACT its activation, H and the
+// passthrough run-time arguments), the TPU kernel's streamed-weights NN
+// mode (mpc_tpu/ops/fused.py:1252-1306).  An MLP's step is ~1,800
+// operations at H = 100 and its Jacobian ~4,100 (ops/fused.py:
+// nn_op_counts), ~80x the pendulum's: on the Riccati chain the Jacobian
+// would add H units of work to every step.  So the block keeps the
+// weights in shared memory (read as broadcasts, every lane of a warp on
+// the same unit) and, before each Riccati sweep, the team computes the
+// sweep's Jacobians in a pass parallel over t (lane g takes steps g,
+// g + kTeam, ...) into three float4 rows a step and example, resident
+// beside the state where the horizon fits, else in the workspace; the
+// sweep then reads them as it reads a LinDx F.  The rollouts keep the
+// step on their chains: each lane its own step size, as for the other
+// dynamics (the JAX kernel shares one SMEM weight sweep across its step
+// sizes, :1705-1720, a scalar-read saving that the broadcast makes
+// moot here).
 //
 // The arithmetic of every scalar is the TPU kernel's, in its order
 // (vv_update sums left to right, the control is (K dx + u) + alpha k,
@@ -93,10 +109,17 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "nn.cuh"
 #include "pendulum.cuh"
 
 #ifndef MPC_DYN
-#error "compile with -DMPC_DYN=0 (LinDx) or 1 (pendulum)"
+#error "compile with -DMPC_DYN=0 (LinDx), 1 (pendulum) or 2 (MLP)"
+#endif
+#if MPC_DYN == 2 && !defined(MPC_ACT)
+#error "compile the MLP with -DMPC_ACT=0 (sigmoid), 1 (relu) or 2 (elu)"
+#endif
+#ifndef MPC_ACT
+#define MPC_ACT 0
 #endif
 #ifndef MPC_HAS_BOUNDS
 #error "compile with -DMPC_HAS_BOUNDS=0 or 1"
@@ -112,6 +135,8 @@ namespace mpc {
 constexpr int NS = 3;
 constexpr int NTAU = 4;
 constexpr bool kLinDx = MPC_DYN == 0;
+constexpr bool kPendulum = MPC_DYN == 1;
+constexpr bool kNN = MPC_DYN == 2;
 constexpr bool kHasBounds = MPC_HAS_BOUNDS != 0;
 constexpr int kMaxAlpha = 32;  // ops/fused.py:MAX_ALPHA
 constexpr int kTeam = MPC_TEAM;
@@ -143,7 +168,9 @@ struct Schedule {
 // computes a dozen addresses.
 struct Operands {
   int B, T;
-  const float* params;  // pendulum (g, m, l); unused for LinDx
+  const float* params;  // pendulum (g, m, l), or an MLP's flat weights;
+                        // unused for LinDx
+  int nn_h, nn_pass;    // MLP: hidden units, passthrough
   const float* F;       // LinDx: [T-1, 1 or B, 3, 4]
   int sFt, sFb;
   const float* f;  // LinDx: [T-1, 1 or B, 3], or nullptr
@@ -161,8 +188,8 @@ struct Operands {
   float eps, best_cost_eps, not_improved_lim;
   float4* ws;    // [T, slots, B]: the trial slots, then the state's two
   int slots;     // min(n_alpha, kTeam), + 2 where the state is not resident
-  int resident;  // the state (K, k), (x, u) and the batch-shared operands
-                 // are in shared memory
+  int resident;  // the state (K, k), (x, u), the batch-shared operands
+                 // and an MLP's Jacobian rows are in shared memory
   float* x_out;  // [T, B, 3]: the best trajectory throughout
   float* u_out;  // [T, B]
   float* stats;  // [6, B]
@@ -243,13 +270,24 @@ struct Team {
   Operand C, c, F, f, lb, ub;
   bool has_f;
   float4* st;  // the example's state at step 0, slot kGain: shared
-               // memory [t, 2, kExamples] where resident, else the last
-               // two slots of the workspace [t, slots, B]
+               // memory [t, 2, kExamples] where resident, else two
+               // slots of the workspace [t, slots, B] after the trials'
   int st_step, st_slot;  // its strides
+  const float4* w;  // MLP: the block's weights in shared memory
+  int H;
+  bool pass;
+  float4* jb;  // MLP: the example's Jacobian rows at step 0: shared memory
+               // [t, 3, kExamples] where resident, else the workspace's
+               // last three slots
+  int jb_step, jb_row;  // their strides
 
   // slot ``slot`` (kGain or kTraj) of the state at step t
   __device__ __forceinline__ float4& state(int t, int slot) const {
     return st[t * st_step + slot * st_slot];
+  }
+  // row i of an MLP's Jacobian at step t
+  __device__ __forceinline__ float4& jac(int t, int i) const {
+    return jb[t * jb_step + i * jb_row];
   }
   // trial slot ``lane`` of the workspace at step t
   __device__ __forceinline__ float4& trial(int t, int lane) const {
@@ -280,6 +318,21 @@ struct Team {
     }
   }
 
+  // an MLP's Jacobian of step t (t < T - 1) into r.F, which the Riccati
+  // sweep reads as it reads a LinDx F; nothing for the other dynamics
+  __device__ __forceinline__ void load_jac(int t, Rows& r) const {
+    if (kNN && t < op.T - 1) {
+#pragma unroll
+      for (int i = 0; i < NS; ++i) {
+        const float4 v = jac(t, i);
+        r.F[i][0] = v.x;
+        r.F[i][1] = v.y;
+        r.F[i][2] = v.z;
+        r.F[i][3] = v.w;
+      }
+    }
+  }
+
   // x_{t+1} from (x_t, u_t) in place
   __device__ __forceinline__ void step(const Rows& r, float* x, float u) const {
     float out[NS];
@@ -293,6 +346,8 @@ struct Team {
         if (has_f) s += r.f[i];
         out[i] = s;
       }
+    } else if (kNN) {
+      nn_step<MPC_ACT>(w, H, pass, x, u, out);
     } else {
       pendulum_step(p, x, u, out);
     }
@@ -325,7 +380,7 @@ struct Team {
       }
     } else {
       float F[NS][NTAU];
-      if (kLinDx) {
+      if (kLinDx || kNN) {
 #pragma unroll
         for (int i = 0; i < NS; ++i)
 #pragma unroll
@@ -422,11 +477,16 @@ __global__ void __launch_bounds__(kThreads)
   const int b = blockIdx.x * kExamples + threadIdx.x / kTeam;
   const int B = op.B;
   const int T = op.T;
-  // the block's copy of the batch-shared operands, behind the state: the
-  // whole block fills it before any team leaves
+  // shared memory: an MLP's weights (2 H + 1 float4), then where resident
+  // the state [T, 2, kExamples], the block's copy of the batch-shared
+  // operands [T, kOpRow] and an MLP's Jacobian rows [T, 3, kExamples];
+  // the whole block fills the weights and the copy before any team leaves
+  float4* const state_base = smem + (kNN ? 2 * op.nn_h + 1 : 0);
   float* const staged =
-      op.resident ? reinterpret_cast<float*>(smem + 2 * T * kExamples)
+      op.resident ? reinterpret_cast<float*>(state_base + 2 * T * kExamples)
                   : nullptr;
+  float4* const jac_base = state_base + 2 * T * kExamples + T * (kOpRow / 4);
+  if (kNN) stage_nn_weights<kThreads>(op.params, op.nn_h, smem);
   if (staged != nullptr) {
     if (op.sCb == 0) stage<16>(op.C, op.sCt, T, staged + kOffC);
     if (op.scb == 0) stage<4>(op.c, op.sct, T, staged + kOffc);
@@ -437,11 +497,12 @@ __global__ void __launch_bounds__(kThreads)
       stage<1>(op.lb, op.sbt, T, staged + kOffLb);
       stage<1>(op.ub, op.sbt, T, staged + kOffUb);
     }
-    __syncthreads();
   }
+  if (kNN || staged != nullptr) __syncthreads();
   if (b >= B) return;  // ragged tail: a whole team leaves together
   PendulumParams p{0.f, 0.f, 0.f};
-  if (!kLinDx) p = PendulumParams{op.params[0], op.params[1], op.params[2]};
+  if (kPendulum)
+    p = PendulumParams{op.params[0], op.params[1], op.params[2]};
   // the lanes that roll out a trial, each into its slot of the workspace
   const int n_lanes = sched.n < kTeam ? sched.n : kTeam;
   const int e = threadIdx.x / kTeam;
@@ -455,8 +516,14 @@ __global__ void __launch_bounds__(kThreads)
                 operand(op.lb, op.sbt, op.sbb, b, staged, kOffLb),
                 operand(op.ub, op.sbt, op.sbb, b, staged, kOffUb),
                 kLinDx && op.f != nullptr,
-                op.resident ? smem + e : op.ws + n_lanes * B + b,
+                op.resident ? state_base + e : op.ws + n_lanes * B + b,
                 op.resident ? 2 * kExamples : op.slots * B,
+                op.resident ? kExamples : B,
+                smem,
+                op.nn_h,
+                op.nn_pass != 0,
+                op.resident ? jac_base + e : op.ws + (n_lanes + 2) * B + b,
+                op.resident ? 3 * kExamples : op.slots * B,
                 op.resident ? kExamples : B};
   // the team's lanes within its warp, for the ballot of the line search
   const unsigned team_shift = (threadIdx.x & 31u) & ~(unsigned)(kTeam - 1);
@@ -516,6 +583,21 @@ __global__ void __launch_bounds__(kThreads)
   float nni = 0.f, n_qp = 0.f, alpha_sel = 1.f, n_it = 0.f, n_trials = 0.f;
 
   for (int it = 0; it < op.lqr_iter; ++it) {
+    // ---- an MLP's Jacobians at the current trajectory, off the chain:
+    // lane g takes steps g, g + kTeam, ... --------------------------------
+    if (kNN) {
+      for (int t = g; t < T - 1; t += kTeam) {
+        const float4 xu = tm.state(t, kTraj);
+        const float xt[NS] = {xu.x, xu.y, xu.z};
+        float J[NS][NTAU];
+        nn_jacobian<MPC_ACT>(tm.w, tm.H, tm.pass, xt, xu.w, J);
+#pragma unroll
+        for (int i = 0; i < NS; ++i)
+          tm.jac(t, i) = make_float4(J[i][0], J[i][1], J[i][2], J[i][3]);
+      }
+      tile.sync();  // the sweep reads every lane's rows
+    }
+
     // ---- Riccati backward recursion, rows of step t - 1 in flight
     // while step t computes; two register sets in turns ----------------
     float qp_cnt = 0.f;
@@ -528,10 +610,12 @@ __global__ void __launch_bounds__(kThreads)
       int t = T - 1;
       for (; t >= 1; t -= 2) {
         tm.load_rows(t - 1, rb);
+        tm.load_jac(t - 1, rb);
         xb = tm.state(t - 1, kTraj);
         tm.riccati_step(t, ra, xa, V, v, qp_cnt, g == 0);
         const int t2 = t >= 2 ? t - 2 : 0;
         tm.load_rows(t2, ra);
+        tm.load_jac(t2, ra);
         xa = tm.state(t2, kTraj);
         tm.riccati_step(t - 1, rb, xb, V, v, qp_cnt, g == 0);
       }
@@ -649,12 +733,15 @@ __global__ void __launch_bounds__(kThreads)
 // which is built with the same MPC_TEAM, MPC_WARPS and MPC_OP_ROW; returns
 // the cudaError_t of the launch, or of raising the kernel's shared-memory
 // limit where that is needed.  ``ws`` is the [T, slots, B] float4
-// workspace.  With ``smem_bytes`` > 0 the state and the block's copy of
-// the batch-shared operands are resident in shared memory and the slots
-// are the trial slots; with 0 the state lives in the workspace's last two
-// slots.
+// workspace.  An MLP's weights are always in shared memory (the first
+// 16 (2 nn_h + 1) of ``smem_bytes``).  Where the rest of ``smem_bytes``
+// holds them, the state, the block's copy of the batch-shared operands
+// and an MLP's Jacobian rows are resident in shared memory and the slots
+// are the trial slots; else the state lives in the two workspace slots
+// after the trials' and an MLP's Jacobian rows in the three after those.
 extern "C" int mpc_fused_ilqr_long(
-    int B, int T, const float* params, const float* F, long long sFt,
+    int B, int T, const float* params, int nn_h, int nn_pass,
+    const float* F, long long sFt,
     long long sFb, const float* f, long long sft, long long sfb,
     const float* C, long long sCt, long long sCb, const float* c,
     long long sct, long long scb, const float* x0, const float* u0,
@@ -662,9 +749,10 @@ extern "C" int mpc_fused_ilqr_long(
     const float* alphas, int n_alpha, int lqr_iter, float eps,
     float best_cost_eps, float not_improved_lim, float* ws, int slots,
     int smem_bytes, float* x_out, float* u_out, float* stats, void* stream) {
-  const bool resident = smem_bytes != 0;
+  const int weight_bytes = mpc::kNN ? 16 * (2 * nn_h + 1) : 0;
+  const bool resident = smem_bytes > weight_bytes;
   if (B <= 0 || T <= 0 || n_alpha <= 0 || n_alpha > mpc::kMaxAlpha ||
-      ws == nullptr ||
+      ws == nullptr || (mpc::kNN && (nn_h <= 0 || smem_bytes < weight_bytes)) ||
       (mpc::kLinDx ? (F == nullptr && T > 1) : params == nullptr) ||
       (mpc::kHasBounds && (lb == nullptr || ub == nullptr)))
     return (int)cudaErrorInvalidValue;
@@ -694,6 +782,8 @@ extern "C" int mpc_fused_ilqr_long(
   op.B = B;
   op.T = T;
   op.params = params;
+  op.nn_h = nn_h;
+  op.nn_pass = nn_pass;
   op.F = F;
   op.sFt = (int)sFt;
   op.sFb = (int)sFb;

@@ -25,6 +25,8 @@ import torch
 
 from . import solver
 from .models.cartpole import CartpoleDx
+from .models.cost import PseudoHuberCost
+from .models.dynamics import NNDynamics
 from .models.pendulum import PendulumDx
 from .ops import fused, fused_bwd
 from .solver import linearize_dynamics, quadratize_cost
@@ -75,11 +77,14 @@ def _always_error(cfg, cost, dynamics, u_lower, dtype, gap):
     (mpc_tpu/ops/fused.py:supports, mpc_tpu/learning.py:165-168: float64,
     a cost or model without a structure-of-arrays form, delta_u without
     bounds), else a NotImplementedError naming the kernel configuration
-    that waits."""
+    that waits (for every MLP and the pseudo-Huber cost, which mpc_tpu's
+    kernels take)."""
     msg = f'use_fused="always" but the kernels do not take this problem: {gap}'
-    soa_model = isinstance(dynamics, (LinDx, PendulumDx, CartpoleDx)) or \
+    soa_model = isinstance(
+        dynamics, (LinDx, PendulumDx, CartpoleDx, NNDynamics)) or \
         hasattr(dynamics, 'soa_step')
-    soa_cost = isinstance(cost, QuadCost) or hasattr(cost, 'soa_cost')
+    soa_cost = isinstance(cost, (QuadCost, PseudoHuberCost)) or \
+        hasattr(cost, 'soa_cost')
     if (dtype != torch.float32 or not soa_model or not soa_cost
             or (cfg.delta_u is not None and u_lower is None)):
         return ValueError(msg)

@@ -15,10 +15,13 @@ trajectory slot of its own, and the winner's slot becomes the current
 trajectory.  K1 is csrc/fused_ilqr.cu: the pendulum, T a compile-time
 constant, the horizon resident in shared memory ([t, slot, example] of
 float4), the Jacobians computed in a pass parallel over t.  K3 is
-csrc/fused_ilqr_long.cu: LinDx or pendulum dynamics, T a run-time
+csrc/fused_ilqr_long.cu: LinDx, pendulum or MLP dynamics, T a run-time
 argument, the same slots in a workspace in global memory that the
 wrapper allocates and, where the horizon fits, the state the loops read
 in shared memory; each step's rows are loaded one step ahead of their use.
+For an MLP (csrc/nn.cuh) the block keeps the weights in shared memory
+and the team computes the step Jacobians in a pass parallel over t
+before each Riccati sweep.
 The launch geometry is computed here (``k1_launch``, ``k3_launch``), so
 the CPU tests reach it.
 
@@ -30,11 +33,13 @@ tensor ``fused_ilqr`` and ``fused_ilqr_long`` launch their kernel or
 raise, and never fall back to the plain version.
 
 Scope (``scope_gap``): LinDx dynamics (F, f each shared or batched, f
-optional) or the simple pendulum, n_state = 3, n_ctrl = 1, a QuadCost
-with C and c each shared or batched, bounds absent, scalar, [T, nc] or
-[T, B, nc], an optional u_init, any T, float32 (float64 too on the CPU,
-in the plain versions).  ``routes_long`` says which kernel takes a
-problem; the dispatch sends every other problem to the eager solver.
+optional), the simple pendulum or a one-hidden-layer ``NNDynamics``
+(sigmoid, relu or elu, its weights in a block's shared memory: K3's
+streamed-weights configuration, csrc/nn.cuh), n_state = 3, n_ctrl = 1, a
+QuadCost with C and c each shared or batched, bounds absent, scalar,
+[T, nc] or [T, B, nc], an optional u_init, any T, float32 (float64 too on
+the CPU, in the plain versions).  ``routes_long`` says which kernel takes
+a problem; the dispatch sends every other problem to the eager solver.
 """
 
 from __future__ import annotations
@@ -45,6 +50,7 @@ from typing import Optional
 
 import torch
 
+from ..models.dynamics import NNDynamics
 from ..models.pendulum import PendulumDx
 from ..types import GradMethods, LinDx, QuadCost, Solution
 
@@ -100,7 +106,7 @@ def k1_launch(T, B, n_alpha) -> dict:
                 smem_bytes=T * slots * examples * 16)
 
 
-def k3_launch(T, B, n_alpha) -> dict:
+def k3_launch(T, B, n_alpha, nn_hidden=0) -> dict:
     """K3's launch geometry: team width, warps and examples a block,
     blocks, where the state lives, and the workspace [T, slots, B] of
     float4 in global memory.
@@ -114,15 +120,38 @@ def k3_launch(T, B, n_alpha) -> dict:
     there both are resident (``smem_bytes`` > 0) and the workspace holds
     the trial slots only; past it ``smem_bytes`` is 0, the state takes
     the workspace's last two slots and the operands are read from global
-    memory, so any T runs."""
+    memory, so any T runs.
+
+    An MLP of ``nn_hidden`` hidden units adds
+    its weights, 2 float4 a unit and one for the output biases, which
+    stay in shared memory in either case (``_nn_weight_bytes``), and the
+    step Jacobians, three float4 rows a step and example: resident with
+    the state where all of it fits (T <= 84 at 100 units), else three
+    more workspace slots after the state's two.  Its build keeps
+    K3_WARPS too: at the bench MLP's B = 2048 that fills 64 of the 132
+    SMs, and 2 or 1 warps a block, which fill more, measured slower
+    (PERF.md, section 6)."""
     examples = 32 * K3_WARPS // TEAM
-    smem = T * (2 * 16 * examples + 4 * _K3_OPERAND_ROW)
+    weights = _nn_weight_bytes(nn_hidden)
+    per_step = 2 * 16 * examples + 4 * _K3_OPERAND_ROW
+    if nn_hidden:
+        per_step += 3 * 16 * examples
+    smem = weights + T * per_step
     resident = smem <= SMEM_LIMIT
-    slots = _trial_lanes(n_alpha) + (0 if resident else 2)
+    slots = _trial_lanes(n_alpha)
+    if not resident:
+        slots += 5 if nn_hidden else 2
     return dict(team=TEAM, warps=K3_WARPS, examples=examples,
                 blocks=_blocks(B, examples), slots=slots,
-                smem_bytes=smem if resident else 0,
+                smem_bytes=smem if resident else weights,
                 workspace_bytes=T * slots * B * 16)
+
+
+def _nn_weight_bytes(hidden) -> int:
+    """The shared memory of an MLP's weights in K3 (csrc/nn.cuh): per
+    hidden unit k one float4 (w1[k, :]) and one (b1[k], w2[:, k]), then
+    (b2, 0); none without an MLP."""
+    return 16 * (2 * hidden + 1) if hidden else 0
 
 
 # K1's horizon limit: the longest T whose block fits in shared memory
@@ -135,6 +164,14 @@ T_MAX = SMEM_LIMIT // k1_launch(1, 1, MAX_ALPHA)['smem_bytes']
 # The longest horizon whose state and shared operands K3 keeps in shared
 # memory (196).
 K3_T_RESIDENT = SMEM_LIMIT // k3_launch(1, 1, 1)['smem_bytes']
+# The widest one-hidden-layer MLP whose weights K3's block holds in shared
+# memory with nothing else there (the state and the Jacobian rows then in
+# the workspace): 16 (2 H + 1) <= 232448, H <= 7263, 8 H + 3 = 58107
+# weights for 3 states and 1 control.  The weights are read at every
+# hidden unit of every step, so they stay in shared memory; past this
+# width an MLP goes to the eager solver.  Registers and the kernel's code
+# do not grow with H (a loop over the units, H a run-time argument).
+K3_NN_MAX_HIDDEN = (SMEM_LIMIT // 16 - 1) // 2
 
 # Initial best cost / step norm, as in the TPU kernel
 # (mpc_tpu/ops/fused.py:719); any finite cost replaces it at iteration 0.
@@ -154,11 +191,29 @@ def routes_long(dynamics, T) -> bool:
     ``scope_gap``, the dispatch in ``fused_batched_solve`` and the tests
     (as ``_routes_long`` is in mpc_tpu/ops/fused.py:287-300).
 
-    K3 takes every LinDx problem, because K1's source has no LinDx step
-    (ROADMAP queue 2, K1 configurations), and the pendulum past
-    ``T_MAX``, which is what K1's block can hold in shared memory and
-    not a threshold carried over from the TPU."""
-    return isinstance(dynamics, LinDx) or T > T_MAX
+    K3 takes every LinDx problem and every MLP, because K1's source has
+    neither step (ROADMAP queue 2, K1 configurations), and the pendulum
+    past ``T_MAX``, which is what K1's block can hold in shared memory and
+    not a threshold carried over from the TPU.  This differs from the
+    JAX package for MLPs of 64 weights or fewer, which it runs in its
+    unrolled kernel (K1); the two kernels compute the same function."""
+    return isinstance(dynamics, (LinDx, NNDynamics)) or T > T_MAX
+
+
+def nn_scope_gap(dynamics) -> Optional[str]:
+    """Why K3's streamed-weights configuration does not take an MLP;
+    None when it does."""
+    if not dynamics.streams:
+        return ('NNDynamics with more than one hidden layer (the JAX '
+                'package\'s tuple path) waits for ROADMAP queue 2 (K1 and '
+                'K3 configurations); it runs on the eager solver')
+    if dynamics.n_state != 3 or dynamics.n_ctrl != 1:
+        return ('NNDynamics at n_state != 3 or n_ctrl > 1 waits for ROADMAP '
+                'queue 2 (K3 configurations)')
+    if dynamics.hidden > K3_NN_MAX_HIDDEN:
+        return (f'an MLP of {dynamics.hidden} hidden units exceeds the '
+                f'{K3_NN_MAX_HIDDEN} whose weights K3 holds in shared memory')
+    return None
 
 
 def scope_gap(cfg, cost, dynamics, *, u_zero_I=None, prev_ctrl=None,
@@ -177,6 +232,10 @@ def scope_gap(cfg, cost, dynamics, *, u_zero_I=None, prev_ctrl=None,
                     'and f [T-1, n_state], [T-1, B, n_state] or None; '
                     'other layouts wait for ROADMAP queue 2 (K3 '
                     'configurations)')
+    elif isinstance(dynamics, NNDynamics):
+        gap = nn_scope_gap(dynamics)
+        if gap is not None:
+            return gap
     elif not isinstance(dynamics, PendulumDx):
         return (f'{type(dynamics).__name__} dynamics have no kernel step; '
                 'the SoA steps of the remaining models wait for ROADMAP '
@@ -277,19 +336,43 @@ def k1_flops(T, ns, nc, lqr_iter, n_alpha, batch=1):
     return batch * init + lqr_iter * per_iter + n_alpha * trial
 
 
+# Operations of an activation and of its derivative from the
+# pre-activation, as csrc/nn.cuh computes them: sigmoid 0.5 (tanh(0.5 v)
+# + 1) (3 and the tanh) and s (1 - s) (2 more); relu none (a compare);
+# elu exp(v) - 1 and exp(v) (counted whichever side v is on).
+_NN_ACT_OPS = {'sigmoid': (4, 6), 'relu': (0, 0), 'elu': (2, 1)}
+
+
+def nn_op_counts(hidden, activation, passthrough, n_in=4, ns=3):
+    """(step, Jacobian) operations of K3's MLP step, counted from
+    csrc/nn.cuh: per hidden unit the pre-activation (n_in products, n_in
+    sums with b1) and the activation, then for the step n_state
+    multiply-adds and for the Jacobian n_state products w2 act' and
+    n_state * n_in multiply-adds; after the units b2 and the passthrough
+    (the Jacobian's diagonal 1)."""
+    act, dact = _NN_ACT_OPS[activation]
+    pre = 2 * n_in
+    step = hidden * (pre + act + 2 * ns) + ns + (ns if passthrough else 0)
+    jac = hidden * (pre + dact + ns + 2 * ns * n_in) + (
+        ns if passthrough else 0)
+    return step, jac
+
+
 def k3_flops(T, ns, nc, lqr_iter, n_alpha, batch=1, *, lindx=True,
-             has_f=False):
+             has_f=False, nn_ops=None):
     """Arithmetic operations the solve K3 computes needs, counted as
     ``k1_flops`` counts K1's: the initial rollout with its cost, and per
     outer iteration one Riccati sweep (a LinDx Jacobian is a load) and
     the trial rollouts up to the selected step size (``n_alpha``:
     stats[5] summed over the batch), whose winner is the new trajectory:
-    no rollout to commit it and no second sum of the current cost."""
+    no rollout to commit it and no second sum of the current cost.
+    ``nn_ops``, the (step, Jacobian) counts of ``nn_op_counts``, counts
+    an MLP's instead of the pendulum's (``lindx`` False)."""
     if lindx:
         step_ops = ns * (2 * (ns + nc) - 1) + (ns if has_f else 0)
         n = _op_counts(T, ns, nc, step_ops, 0)
     else:
-        n = _op_counts(T, ns, nc, _STEP_OPS, _JAC_OPS)
+        n = _op_counts(T, ns, nc, *(nn_ops or (_STEP_OPS, _JAC_OPS)))
     init = n['rollout'] + T * n['stage']
     trial = T * (n['ctrl'] + n['stage']) + n['rollout']
     per_iter = n['riccati'] + n['full_du'] + 4
@@ -640,8 +723,10 @@ def fused_solve_long_plain(dynamics, params, F, f, C, c, x0, u0, lb, ub, *,
     """The plain PyTorch version of kernel K3, on the kernel's operands.
 
     ``dynamics`` is a ``PendulumDx`` with ``params`` [3] (F and f None),
-    or None for LinDx with F [T-1, 1 or B, 3, 4] and f None or
-    [T-1, 1 or B, 3]; C [T, 1 or B, 4, 4]; c [T, 1 or B, 4]; x0 [B, 3];
+    a one-hidden-layer ``NNDynamics`` with ``params`` its flat weights
+    (``kernel_params``; F and f None), or None for LinDx with F
+    [T-1, 1 or B, 3, 4] and f None or [T-1, 1 or B, 3];
+    C [T, 1 or B, 4, 4]; c [T, 1 or B, 4]; x0 [B, 3];
     u0 [T, B]; lb, ub None or [T, 1 or B]; ``alphas`` the line-search
     schedule as Python floats.  Returns x [T, B, 3], u [T, B, 1] and
     stats [6, B]: best cost, best full-step norm, n_iter, n_qp_iter,
@@ -656,7 +741,10 @@ def fused_solve_long_plain(dynamics, params, F, f, C, c, x0, u0, lb, ub, *,
     examples try each step size until every active one has passed, and
     one more rollout with each example's selected step size writes the
     new trajectory: the same operations on the same numbers, so the same
-    trajectory.
+    trajectory.  An MLP's step and Jacobian are the model's
+    ``soa_stream_step`` and ``soa_stream_jac``, the stream form of
+    csrc/nn.cuh; the kernel computes the Jacobians of a sweep in a pass
+    before it, at the same points, so the same values.
 
     ``trace``, a list, receives one (iteration, step-size index, current
     cost, trial cost, tried, full-step norm) per trial, ``tried`` marking
@@ -690,6 +778,12 @@ def fused_solve_long_plain(dynamics, params, F, f, C, c, x0, u0, lb, ub, *,
 
         def jac(t, xt, ut):
             return Fl[t]
+    elif isinstance(dynamics, NNDynamics):
+        def step(t, xt, ut):
+            return list(dynamics.soa_stream_step(tuple(xt), ut, params))
+
+        def jac(t, xt, ut):
+            return dynamics.soa_stream_jac(tuple(xt), ut, params)
     else:
         p = tuple(params.unbind())
 
@@ -861,6 +955,7 @@ def fused_solve_long_plain(dynamics, params, F, f, C, c, x0, u0, lb, ub, *,
 
 _ARGTYPES_LONG = [
     ctypes.c_int, ctypes.c_int, _P,       # B, T, params
+    ctypes.c_int, ctypes.c_int,           # MLP: hidden units, passthrough
     _P, _I64, _I64,                       # F, t stride, batch stride
     _P, _I64, _I64,                       # f, t stride, batch stride
     _P, _I64, _I64,                       # C, t stride, batch stride
@@ -876,17 +971,26 @@ _ARGTYPES_LONG = [
 ]
 
 
-def long_kernel_defines(lindx, has_bounds) -> dict:
-    """The nvcc defines of the K3 build for these dynamics and bounds."""
+# csrc/nn.cuh's activations, by their MPC_ACT define
+NN_ACTIVATIONS = ('sigmoid', 'relu', 'elu')
+
+
+def long_kernel_defines(lindx, has_bounds, activation=None) -> dict:
+    """The nvcc defines of the K3 build for these dynamics and bounds:
+    LinDx, the pendulum, or with ``activation`` an MLP (MPC_DYN 0, 1,
+    2)."""
+    if activation is not None:
+        return {'MPC_DYN': 2, 'MPC_ACT': NN_ACTIVATIONS.index(activation),
+                'MPC_HAS_BOUNDS': int(has_bounds), 'MPC_TEAM': TEAM,
+                'MPC_WARPS': K3_WARPS, 'MPC_OP_ROW': _K3_OPERAND_ROW}
     return {'MPC_DYN': 0 if lindx else 1, 'MPC_HAS_BOUNDS': int(has_bounds),
             'MPC_TEAM': TEAM, 'MPC_WARPS': K3_WARPS,
             'MPC_OP_ROW': _K3_OPERAND_ROW}
 
 
-def _kernel_lib_long(lindx, has_bounds):
+def _kernel_lib_long(defines):
     from . import _build
-    fn = _build.load('fused_ilqr_long',
-                     long_kernel_defines(lindx, has_bounds)).mpc_fused_ilqr_long
+    fn = _build.load('fused_ilqr_long', defines).mpc_fused_ilqr_long
     if fn.argtypes is None:
         fn.argtypes = _ARGTYPES_LONG
         fn.restype = ctypes.c_int
@@ -904,9 +1008,9 @@ def _strided(a, inner):
 
 def k3_workspace(geo, T, B, device):
     """K3's workspace for the geometry ``geo`` of ``k3_launch``: the
-    trial slots (and the state's two where it is not resident),
-    [t, slot, b] of float4, so that the 8 examples of a warp share one
-    128-byte line per slot."""
+    trial slots (and the state's two, and an MLP's three Jacobian rows,
+    where they are not resident), [t, slot, b] of float4, so that the 8
+    examples of a warp share one 128-byte line per slot."""
     return torch.empty((T, geo['slots'], B, 4), dtype=torch.float32,
                        device=device)
 
@@ -932,6 +1036,7 @@ def fused_ilqr_long(dynamics, params, F, f, C, c, x0, u0, lb, ub, *, alphas,
                                   f'{x0.device.type}')
     T, B = u0.shape
     lindx = dynamics is None
+    nn = isinstance(dynamics, NNDynamics)
     has_bounds = lb is not None
     ops = [a for a in (params, F, f, C, c, x0, u0, lb, ub) if a is not None]
     for a in ops:
@@ -950,6 +1055,13 @@ def fused_ilqr_long(dynamics, params, F, f, C, c, x0, u0, lb, ub, *, alphas,
                                        or f.shape[1] not in (1, B)
                                        or f.shape[2:] != (3,)))):
             raise ValueError('K3 LinDx operand shapes do not match')
+    elif nn:
+        gap = nn_scope_gap(dynamics)
+        if gap is not None:
+            raise ValueError(gap)
+        if (params is None or params.shape != (dynamics.soa_param_count(),)
+                or F is not None or f is not None):
+            raise ValueError('K3 takes an MLP\'s flat weights as params')
     elif params is None or params.shape != (3,) or F is not None \
             or f is not None:
         raise ValueError('K3 pendulum operands do not match')
@@ -959,19 +1071,22 @@ def fused_ilqr_long(dynamics, params, F, f, C, c, x0, u0, lb, ub, *, alphas,
     if not 0 < len(alphas) <= MAX_ALPHA:
         raise ValueError(f'K3 takes 1 to {MAX_ALPHA} step sizes')
     _check_float4('K3', C, c, F)
-    fn = _kernel_lib_long(lindx, has_bounds)
+    hidden = dynamics.hidden if nn else 0
+    fn = _kernel_lib_long(long_kernel_defines(
+        lindx, has_bounds, dynamics.activation if nn else None))
     empty = functools.partial(torch.empty, dtype=torch.float32,
                               device=x0.device)
     x, u, stats = empty((T, B, 3)), empty((T, B, 1)), empty((6, B))
     if B == 0:
         return x, u, stats
-    geo = k3_launch(T, B, len(alphas))
+    geo = k3_launch(T, B, len(alphas), hidden)
     ws = k3_workspace(geo, T, B, x0.device)
     a_host = (ctypes.c_float * len(alphas))(*alphas)
     lb_ptr, sbt, sbb = _strided(lb, 1)
     with torch.cuda.device(x0.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(B, T, params.data_ptr() if params is not None else None,
+                 hidden, int(nn and dynamics.passthrough),
                  *_strided(F, 12), *_strided(f, 3), *_strided(C, 16),
                  *_strided(c, 4), x0.data_ptr(), u0.data_ptr(),
                  lb_ptr, ub.data_ptr() if has_bounds else None, sbt, sbb,
@@ -1087,7 +1202,9 @@ def k3_operands(cfg, x_init, cost: QuadCost, dynamics, u_init=None,
     ``fused_solve_long_plain``), layouts as in ``k1_operands``.  A LinDx
     (F [T-1, 3, 4] or [T-1, B, 3, 4]; f None, [T-1, 3] or [T-1, B, 3])
     gives ``dynamics=None``, ``params=None``, F [T-1, 1 or B, 3, 4] and f
-    None or [T-1, 1 or B, 3]; the pendulum gives F = f = None.
+    None or [T-1, 1 or B, 3]; the pendulum gives F = f = None, and an
+    MLP F = f = None with its flat weights (``kernel_params``) as
+    ``params``.
 
     Every leaf keeps its own layout: K3 reads each operand with its own
     batch stride, so a shared F beside a batched f (or a shared C beside
@@ -1095,6 +1212,11 @@ def k3_operands(cfg, x_init, cost: QuadCost, dynamics, u_init=None,
     per pair and normalises a mixed pair to batched
     (mpc_tpu/ops/fused.py:2021-2066)."""
     ops = _problem_operands(cfg, x_init, cost, u_init, u_lower, u_upper)
+    if isinstance(dynamics, NNDynamics):
+        w = dynamics.kernel_params().detach()
+        return dict(ops, dynamics=dynamics, F=None, f=None,
+                    params=w.to(device=x_init.device,
+                                dtype=x_init.dtype).contiguous())
     if not isinstance(dynamics, LinDx):
         return dict(ops, dynamics=dynamics, F=None, f=None,
                     params=_pendulum_params(dynamics, ops['x0']))

@@ -32,6 +32,7 @@ from typing import Optional
 
 import torch
 
+from .models.dynamics import NNDynamics
 from .models.pendulum import PendulumDx
 from .ops import linalg, lqr
 from .ops.diff import make_lqr_fixed_point
@@ -122,7 +123,9 @@ def linearize_dynamics(dynamics, x, u, grad_method: GradMethods):
       vmapped over the time and the batch axes, except for the simple
       pendulum, whose hand-written ``step_jacobian`` (the Jacobian that
       kernel K1 computes, 1e-12 from ``jax.jacrev`` of the step in
-      float64) takes its place.
+      float64) takes its place, and for an MLP, whose analytic
+      ``grad_input`` does (1e-12 from ``jax.jacfwd`` in float64,
+      tests/test_torch_models.py).
     """
     if isinstance(dynamics, LinDx):
         return dynamics.F, dynamics.f
@@ -130,7 +133,9 @@ def linearize_dynamics(dynamics, x, u, grad_method: GradMethods):
     ns = xs.shape[-1]
     new_x = dynamics(xs, us)
     grad_input = getattr(dynamics, 'grad_input', None)
-    if grad_method == GradMethods.ANALYTIC and grad_input is not None:
+    if grad_input is not None and (grad_method == GradMethods.ANALYTIC or (
+            grad_method == GradMethods.AUTO_DIFF
+            and isinstance(dynamics, NNDynamics))):
         R, S = grad_input(xs, us)
         F = torch.cat([R, S], -1)
     elif grad_method == GradMethods.FINITE_DIFF:

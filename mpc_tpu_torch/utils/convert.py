@@ -10,8 +10,11 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+from torch import nn
 
 from ..models.cartpole import CartpoleDx
+from ..models.cost import PseudoHuberCost
+from ..models.dynamics import AffineDynamics, NNDynamics
 from ..models.pendulum import PendulumDx
 from ..types import LinDx, QuadCost, Solution
 from .device import resolve_device
@@ -31,6 +34,39 @@ def pendulum_from_numpy(params, simple=True, device=None) -> PendulumDx:
 def cartpole_from_numpy(params, device=None) -> CartpoleDx:
     """(gravity, masscart, masspole, length)."""
     return CartpoleDx(params=_tensor(params, device))
+
+
+def nn_dynamics_from_numpy(params, activation='sigmoid', passthrough=True,
+                           n_state=None, n_ctrl=None,
+                           device=None) -> NNDynamics:
+    """An MLP from mpc_tpu's ``NNDynamics.params`` as numpy arrays: a
+    list of (W [n_out, n_in], b [n_out]).  n_state and n_ctrl, where
+    given, are checked against the layers."""
+    layers = []
+    for W, b in params:
+        W, b = _tensor(W, device), _tensor(b, device)
+        lin = nn.utils.skip_init(nn.Linear, W.shape[1], W.shape[0],
+                                 device=W.device, dtype=W.dtype)
+        with torch.no_grad():
+            lin.weight.copy_(W)
+            lin.bias.copy_(b)
+        layers.append(lin)
+    model = NNDynamics(layers, activation, passthrough)
+    if (n_state is not None and n_state != model.n_state) or (
+            n_ctrl is not None and n_ctrl != model.n_ctrl):
+        raise ValueError('the layers do not match n_state and n_ctrl')
+    return model
+
+
+def affine_from_numpy(A, B, c=None, device=None) -> AffineDynamics:
+    return AffineDynamics(_tensor(A, device), _tensor(B, device),
+                          None if c is None else _tensor(c, device))
+
+
+def pseudo_huber_from_numpy(w, goal, delta=1.0,
+                            device=None) -> PseudoHuberCost:
+    return PseudoHuberCost(_tensor(w, device), _tensor(goal, device),
+                           _tensor(delta, device))
 
 
 def quad_cost_from_numpy(C, c, device=None) -> QuadCost:

@@ -35,6 +35,14 @@ plain run, as K1 at T_MAX.  K4 (the streaming KKT backward) is held as K2 is, fo
 mixes of shared and batched cost and dynamics, with and without f, and
 past K2's horizon.
 
+K3's MLP configuration (MPC_DYN=2, the bench_nn_dynamics problem's
+one-hidden-layer MLP of 100 units, sigmoid, relu or elu) is held to its
+plain version in the same float32 tail and, with bounds, no further from
+the float64 plain run than twice the plain float32 run; at B = 2050 and
+past the horizon whose state and Jacobian rows stay in shared memory; on
+the reversed batch and small batches bitwise; and a launch with weights
+that are not float32 on the card raises instead of falling back.
+
 K1 and K3 give each example a team of lanes, so both are also run with
 fewer, as many and more step sizes than a team has lanes, with eps > 0
 (the examples of one warp then stop at different iterations), at B = 1
@@ -569,3 +577,87 @@ def test_differentiable_lindx_solve_launches_k3_and_k4(cuda):
     for g, leaf in ((c.grad, c), (F.grad, F), (f.grad, f)):
         assert g.shape == leaf.shape
         assert torch.isfinite(g).all() and g.abs().sum() > 0
+
+
+# ---------------------------------------------------------------------------
+# K3's MLP configuration (MPC_DYN=2)
+# ---------------------------------------------------------------------------
+
+def _nn_problem(device, B, T, act='sigmoid', dtype=torch.float32, seed=4):
+    """The bench_nn_dynamics problem (benchmarks/configs.py:647-678): an
+    MLP of 100 units drawn from a seeded generator in float32 (and cast
+    for float64), pendulum starts and the swing-up cost."""
+    model = mt.NNDynamics.init(3, 1, (100,), act, generator=torch.Generator(
+        ).manual_seed(0), device=device).to(dtype)
+    rng = np.random.RandomState(seed)
+    th = np.pi * (2 * rng.rand(B) - 1)
+    x0 = torch.tensor(np.stack([np.cos(th), np.sin(th), np.zeros(B)], 1),
+                      dtype=dtype, device=device)
+    q, p = PendulumDx(device=device, dtype=dtype).get_true_obj()
+    return x0, model, mt.QuadCost(torch.diag(q), p)
+
+
+@pytest.mark.parametrize('act,T,B,bound', [
+    ('sigmoid', 20, 1024, 2.0), ('sigmoid', 20, 2050, 2.0),
+    ('relu', 10, 1024, None), ('elu', 20, 256, 2.0),
+    ('sigmoid', 90, 256, 2.0)])
+def test_k3_nn_matches_plain(cuda, act, T, B, bound):
+    """T = 90 is past the 84 steps whose state and Jacobian rows a block
+    of 100 units keeps in shared memory: the workspace path.  (Over such
+    horizons the elu and relu MLPs with passthrough blow the state up,
+    |x| to ~1e4, and any two float32 solves part; the sigmoid's stays
+    bounded.)"""
+    x0, dx, cost = _nn_problem(cuda, B, T, act)
+    lim = {} if bound is None else dict(u_lower=-bound, u_upper=bound)
+    cfg = _cfg(T, lqr_iter=5, max_linesearch_iter=3, linesearch_decay=0.2)
+    ops = fused.k3_operands(cfg, x0, cost, dx, **lim)
+    assert (fused.k3_launch(T, B, 3, 100)['smem_bytes'] > 3216) == (T <= 84)
+    full = fused.fused_ilqr_long(**ops)
+    _, up, sp = fused.fused_solve_long_plain(**ops)
+    assert all(torch.isfinite(a).all() for a in full)
+    _assert_tail(full[1], up)
+    x64, dx64, cost64 = _nn_problem(cuda, B, T, act, torch.float64)
+    _, u64, _ = fused.fused_solve_long_plain(**fused.k3_operands(
+        cfg, x64, cost64, dx64, **lim))
+    # unbounded relu: a few examples part at round-off ties (max |du|
+    # 1.3e-2) while the plain float32 run sits 4e-7 from float64 in the
+    # mean, so there the tail alone holds the kernel
+    if bound is not None:
+        _assert_near_f64(full[1], up, u64)
+    assert float((full[2][2] == sp[2]).double().mean()) >= 0.99
+    _assert_position_free(fused.fused_ilqr_long, ops, full)
+
+
+def test_k3_nn_raises_rather_than_falls_back(cuda):
+    x0, dx, cost = _nn_problem(cuda, 64, 20)
+    ops = fused.k3_operands(_cfg(20), x0, cost, dx, u_lower=-2.0,
+                            u_upper=2.0)
+    fused.reset_launch_counts()
+    for params in (ops['params'].double(), ops['params'].cpu()):
+        with pytest.raises(ValueError):
+            fused.fused_ilqr_long(**dict(ops, params=params))
+    with pytest.raises(ValueError):
+        fused.fused_ilqr_long(**dict(ops, params=ops['params'][:-1]))
+    assert fused.launch_counts['fused_ilqr_long'] == 0
+
+
+def test_differentiable_nn_solve_launches_k3_and_k2(cuda):
+    """A differentiable solve of the MLP on the default device: K3
+    forward, K2 once per backward (per-example F from the MLP's
+    linearisation), no eager solve, and gradients reach the weights."""
+    T, B = 20, 256
+    x0, dx, cost = _nn_problem(cuda, B, T)
+    cfg = _cfg(T, backprop=True, detach_unconverged=False, lqr_iter=5,
+               max_linesearch_iter=3, linesearch_decay=0.2,
+               grad_method=mt.GradMethods.AUTO_DIFF)
+    fused.reset_launch_counts()
+    fused_bwd.reset_launch_counts()
+    solver.reset_eager_counts()
+    sol = mt.batched_solve(cfg, x0, cost, dx, u_lower=-2.0, u_upper=2.0)
+    assert fused.launch_counts == {'fused_ilqr': 0, 'fused_ilqr_long': 1}
+    (sol.u ** 2).sum().backward()
+    assert fused_bwd.launch_counts == {'fused_kkt_bwd': 1,
+                                       'fused_kkt_bwd_long': 0}
+    assert solver.eager_counts == {'eager_solve': 0, 'eager_fixed_point': 0}
+    for p in dx.parameters():
+        assert torch.isfinite(p.grad).all() and p.grad.abs().sum() > 0
