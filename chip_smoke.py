@@ -56,6 +56,18 @@ point against K2 ([eager-grad]); the MLP problem through the eager
 solver against K3 ([eager-nn]); an affine model and the pseudo-Huber
 cost, the card's float64 against the CPU's ([eager-models]).
 
+The controller's own surface: make_closed_loop at bench_closed_loop's
+sizes (benchmarks/configs.py:375-417; B = 1, 16, 256 and 4096, one K1
+launch a step, bitwise the host loop of [swingup], the swing-up through
+it; [closed-loop]); a slew-rate penalty on a double integrator, whose
+augmented LinDx of three states K3 takes ([slew-k3]: K3 against its
+plain version, requests, gradients through the eager fixed point); the
+slew-augmented pendulum in a closed loop on the eager route
+([slew-eager]); bench_long_horizon's two arms, the O(log T) Riccati scan
+against the sequential recursion, and the scan in the long
+configuration's float64 gradients ([pscan]); MPC(verbose=1) and
+ANALYTIC_CHECK on the card ([verbose]).
+
 It prints one JSON line of kernel numbers, one of the eager phases, the
 card's name and power limit, and a last JSON line with the device.  Every phase raises on
 failure; the script then exits nonzero.  It exits nonzero without a
@@ -2364,6 +2376,8 @@ def phase_eager_long(torch, device, records):
                  f'card f64 vs CPU f64 {err:.2e}',
                  f'{LONG_COST_GAP} relative cost gap; f64 {LONG_F64_TOL}',
                  ms)
+    # the sequential arm of [pscan]
+    return (s32, s64, ms, (x0, cost, dx), inputs(torch.float64, device))
 
 
 def ulp_pendulum(torch):
@@ -2599,6 +2613,754 @@ def phase_eager_grad(torch, device, records, n=1024):
                lambda: box4_grads(torch, device, torch.float32, n))
 
 
+# ---------------------------------------------------------------------------
+# the controller's own surface: the closed loop, slew penalties, the
+# O(log T) Riccati scan, verbose and ANALYTIC_CHECK
+# ---------------------------------------------------------------------------
+
+# bench_closed_loop (benchmarks/configs.py:375-417): the headline's solve
+# (AUTO_DIFF, lqr_iter=10, eps=0, box +-2, decay 0.2, 5 step sizes) for
+# 100 environment steps at B = 1, 16, 256, and at the headline's 4096
+CLOSED_LOOP_BS = (1, 16, 256, B)
+CLOSED_LOOP_STEPS = 100
+# the step of the B=4096 loop whose K1 operands are held against the
+# plain version and timed (a warm-started solve mid-swing)
+CLOSED_LOOP_HELD_STEP = 50
+# the double integrator (p, v) under a slew penalty, at the long
+# configuration's T and B (the JAX package has no slew configuration):
+# F = [[1, dt, 0], [0, 1, dt]], C = diag(1, 0.1, 0.01), c the target
+# position 1 (shared, as the long configuration's cost is), box +-2,
+# x0 and prev_ctrl per example
+SLEW_DT = 0.05
+SLEW = dict(n_state=2, n_ctrl=1, T=LONG_T, lqr_iter=4, eps=0.0,
+            exit_unconverged=False, detach_unconverged=False, backprop=False,
+            linesearch_decay=0.2, max_linesearch_iter=3,
+            slew_rate_penalty=0.5)
+SLEW_B = LONG_B
+# the headline's solve under the same penalty on the eager route (the
+# pendulum's augmented state has 4 states, past K1's 3): a closed loop of
+# 10 steps at B=256, ~38,600 operations a solve (a CPU count)
+SLEW_EAGER = dict(HEADLINE, slew_rate_penalty=0.5)
+SLEW_EAGER_B, SLEW_EAGER_STEPS = 256, 10
+# The card's float64 loop against the CPU's.  Each solve of the loop
+# starts from the last one's solution and runs 10 iterations with eps = 0,
+# so its later iterations take steps at round-off: there every trial cost
+# ties the current one and each machine's line search picks its own step
+# size (on an NVIDIA H100 80GB HBM3 at 700 W: 227 of 256 examples part
+# somewhere, their applied controls within 2.95e-8 of the CPU's, the rest
+# within 1.7e-15).  Where a full step s is a tie follows from the cost's
+# round-off: near the solution a step changes the objective (~20) by about
+# 1/2 Quu s^2 with Quu ~ 0.5 (the slew block), and float64 evaluates the
+# objective to ~3e-14, so steps below ~4e-7 cannot be told apart.  A
+# parting at an iteration whose full step is below SLEW_TIE_STEP (on
+# either run) counts as such a tie (the largest seen on that card:
+# 6.14e-7; no parting at a larger step).
+# Held: the examples that never part within EAGER_F64_TOL, the share that
+# parts at a step of SLEW_TIE_STEP or more below PARTED_SHARE (0 of 256
+# seen; 13 would fail), every example's applied controls within
+# SLEW_CTRL_TOL of the CPU's (relative to max |u|).
+SLEW_TIE_STEP = 1e-6
+SLEW_CTRL_TOL = 1e-6
+# Each float32 solve of the float32 loop against a float64 solve on the
+# same inputs.  Where a float32 full step is small the trial costs equal
+# the current one to float32 round-off and the line search takes another
+# step size than float64 does (the alpha ties of the verify notes): the
+# example stops short by up to ~3e-3 in u, so the float32 tail's share
+# (TAIL_SHARE) is not held here (a CPU rehearsal: 0.68% of the entries
+# off by more than 1e-3).  What is held is the objective: float32's line
+# search compares two costs it evaluates with an error of at most E (the
+# largest |J32(u32) - J64(u32)| of the solve, over the batch), so its
+# decisions can leave it at most 2 E above the float64 solve's objective.
+# Held: each example's objective of its float32 controls, evaluated in
+# float64, exceeds the float64 solve's by at most F32_DECISIONS E (a CPU
+# rehearsal: at most 0.58 E); E itself below F32_EVAL_TOL of max |J|, an
+# ulp a term of the sum over T (rehearsal: 4.4e-7, its largest step);
+# and the mean |du| in the tail (TAIL_MEAN).
+F32_DECISIONS = 2.0
+F32_EVAL_TOL = T * 2.0 ** -23
+# the O(log T) scan against the sequential recursion in float64: the
+# same solve by another association of the same products
+PSCAN_F64_TOL = 1e-9
+# the long imitation configuration in float64, differentiated through
+# the eager fixed point with 'auto' (the scan) against False; B keeps
+# phase 1 (~105,000 operations at any B, a CPU count) near 1-2 s.  The
+# sequential masked solve adds PSCAN_REG = 1e-11 to the free control
+# block (as the JAX package's does; its scan does not).  The scan is held
+# at PSCAN_GRAD_EXACT_TOL against the sequential solve without it
+# (3.6e-16 in a CPU rehearsal, 2.9e-16 on an H100).  Against the
+# sequential solve with it, the first-order change is a relative one of
+# reg / Quu in each free control pivot, Quu >= the cost's control block
+# (the value functions are PSD), so it is held at PSCAN_REG_ROOM reg /
+# lambda_min(C_uu) (= 1e-8 here: 9.99e-10 measured on an H100, 1e-9 from
+# the first-order estimate).
+PSCAN_GRAD_B = 256
+PSCAN_GRAD_EXACT_TOL, PSCAN_REG, PSCAN_REG_ROOM = 1e-12, 1e-11, 10.0
+
+
+def count_ops(torch, fn):
+    """(result, the number of PyTorch operators ``fn()`` dispatches)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        out = fn()
+    return out, Count.n
+
+
+def host_ms(torch, device, fn):
+    """Host-to-host ms of ``fn()`` ending in a synchronise, and its
+    result."""
+    sync(torch, device)
+    t0 = time.perf_counter()
+    out = fn()
+    sync(torch, device)
+    return 1e3 * (time.perf_counter() - t0), out
+
+
+def swingup_host_loop(torch, device, x, cost, dx, steps, lqr_iter=10,
+                      eps=0.0, record=None):
+    """The [swingup] host loop: an MPC a step, warm-started from the last
+    solve shifted left with a zero tail; with ``record`` a list [k], the
+    state and warm start of step k are appended to it."""
+    import mpc_tpu_torch as mt
+    u_init = None
+    xs, us = [x], []
+    for i in range(steps):
+        if record is not None and i == record[0]:
+            record.append((x, torch.zeros(T, x.shape[0], 1, device=device)
+                           if u_init is None else u_init))
+        ctrl = mt.MPC(3, 1, T, u_lower=-2., u_upper=2., lqr_iter=lqr_iter,
+                      n_batch=x.shape[0], u_init=u_init,
+                      grad_method=mt.GradMethods.AUTO_DIFF, eps=eps,
+                      exit_unconverged=False, detach_unconverged=False,
+                      backprop=False, linesearch_decay=0.2,
+                      max_linesearch_iter=5, device=device)
+        _, u, _ = ctrl(x, cost, dx)
+        x = dx(x, u[0])
+        u_init = torch.cat([u[1:], torch.zeros_like(u[:1])], 0)
+        xs.append(x)
+        us.append(u[0])
+    return torch.stack(xs), torch.stack(us)
+
+
+def timed_plain(torch, plain, times):
+    """``plain`` that appends the device ms of each call to ``times``."""
+    def run(**ops):
+        out = []
+        times.append(event_ms(torch, lambda: out.append(plain(**ops))))
+        return out[0]
+    return run
+
+
+def phase_closed_loop(torch, device):
+    """make_closed_loop at bench_closed_loop's sizes: us per environment
+    step against the [swingup] host loop on the same steps in the same
+    process, K1 launches one a step, the loop bitwise equal to the host
+    loop; K1 against its plain version on a step's operands at B=4096 and
+    its time there; the swing-up at B=4096 through make_closed_loop."""
+    import mpc_tpu_torch as mt
+    from mpc_tpu_torch.ops import fused
+    steps = CLOSED_LOOP_STEPS
+    cfg = mt.MPCConfig(grad_method=mt.GradMethods.AUTO_DIFF, **HEADLINE)
+    dx, cost = problem(torch, device)
+    log(f'[closed-loop] make_closed_loop, {steps} steps, T={T}, '
+        f'lqr_iter={cfg.lqr_iter}, eps=0, box +-2, 5 step sizes; '
+        f'{card_line()}')
+    rows, launches = [], None
+    for n in CLOSED_LOOP_BS:
+        x0 = x0_batch(n, 0, torch, device)
+        roll = mt.make_closed_loop(cfg, cost, dx, u_lower=-2.0, u_upper=2.0,
+                                   device=device)
+        roll(x0, 2)
+        fused.reset_launch_counts()
+        loop_ms, out = host_ms(torch, device, lambda: roll(x0, steps))
+        k1 = fused.launch_counts['fused_ilqr']
+        if device.type == 'cuda' and (
+                k1 != steps or fused.launch_counts['fused_ilqr_long']):
+            raise AssertionError(f'closed loop B={n}: {k1} K1 launches for '
+                                 f'{steps} steps')
+        loop_ms = min(loop_ms, host_ms(torch, device,
+                                       lambda: roll(x0, steps))[0])
+        swingup_host_loop(torch, device, x0, cost, dx, 2)
+        host = [host_ms(torch, device, lambda: swingup_host_loop(
+            torch, device, x0, cost, dx, steps)) for _ in range(2)]
+        xs, us = host[-1][1]
+        same_bits(f'B={n}: closed loop vs host loop, xs and us', torch,
+                  [(out['xs'], xs), (out['us'], us)])
+        loop_us = 1e3 * loop_ms / steps
+        host_us = 1e3 * min(h[0] for h in host) / steps
+        n_ops = count_ops(torch, lambda: roll(x0, 10))[1] / 10
+        log(f'  B={n}: {loop_us:.1f} us a step (make_closed_loop), host '
+            f'loop {host_us:.1f} us a step; host / closed '
+            f'{host_us / loop_us:.2f}; K1 launches {k1}; PyTorch operators '
+            f'a step {n_ops:.1f}')
+        rows.append({'B': n, 'closed_loop_us_per_step': loop_us,
+                     'host_loop_us_per_step': host_us,
+                     'operators_a_step': n_ops})
+        if n == B:
+            launches = k1
+    # K1 on a step's operands at the headline's width
+    rec = [CLOSED_LOOP_HELD_STEP]
+    swingup_host_loop(torch, device, x0_batch(B, 0, torch, device), cost, dx,
+                      CLOSED_LOOP_HELD_STEP + 1, record=rec)
+    x, u_init = rec[1]
+    dx64, cost64 = problem(torch, device, torch.float64)
+    kw = dict(u_lower=-2.0, u_upper=2.0)
+    ops = fused.k1_operands(cfg, x, cost, dx, u_init=u_init, **kw)
+    ops64 = fused.k1_operands(cfg, x.double(), cost64, dx64,
+                              u_init=u_init.double(), **kw)
+    plain_times = []
+    log(f'[closed-loop] K1 vs its plain version on step '
+        f'{CLOSED_LOOP_HELD_STEP}\'s operands, B={B}')
+    (_, _, sk), mx = hold_k1(torch, 'K1 vs plain, closed loop', ops, ops64,
+                             plain=timed_plain(torch, fused.fused_solve_plain,
+                                               plain_times))
+    ms, eager_ms = graph_ms(torch, lambda: fused.fused_ilqr(**ops))
+    flops = fused.k1_flops(T, 3, 1, float(sk[2].double().sum()),
+                           float(sk[5].double().sum()), batch=B)
+    bound_ms, by = bound(flops, fused.k1_bytes(ops))
+    log(f'  K1 {ms:.4f} ms from a CUDA graph ({eager_ms:.4f} a call from '
+        f'Python), plain {plain_times[0]:.2f} ms, bound {bound_ms:.5f} ms '
+        f'by {by}')
+    # the swing-up of [swingup] through make_closed_loop
+    sw_cfg = mt.MPCConfig(**dict(HEADLINE, lqr_iter=50, eps=1e-2,
+                                 grad_method=mt.GradMethods.AUTO_DIFF))
+    roll = mt.make_closed_loop(sw_cfg, cost, dx, u_lower=-2.0, u_upper=2.0,
+                               device=device)
+    fused.reset_launch_counts()
+    sw_ms, out = host_ms(torch, device, lambda: roll(
+        x0_batch(B, 0, torch, device), steps))
+    share = float((out['xs'][-1][:, 0] > 0.9).double().mean())
+    log(f'  swing-up through make_closed_loop, B={B}, {steps} steps: '
+        f'{sw_ms:.1f} ms, K1 launches {fused.launch_counts["fused_ilqr"]}, '
+        f'share within 0.1 of cos th = 1: {share:.4f} (threshold '
+        f'{SWINGUP_MIN_SHARE})')
+    if not (torch.isfinite(out['xs']).all() and share >= SWINGUP_MIN_SHARE
+            and fused.launch_counts['fused_ilqr'] == steps * (
+                device.type == 'cuda')):
+        raise AssertionError('the closed-loop swing-up did not reach its '
+                             'success share')
+    return dict(launches=launches, max_abs_err=mx, ms=ms,
+                plain_ms=plain_times[0], bound_ms=bound_ms, bound_by=by,
+                rows=rows)
+
+
+def slew_data(torch, device, n, dtype=None, seed=31):
+    """The slew configuration's data, made with numpy: x0 [n, 2], the
+    shared C [3, 3] and c [3] (the target position 1), the shared F
+    [T-1, 2, 3], prev_ctrl [n, 1]."""
+    import numpy as np
+    import mpc_tpu_torch as mt
+    dtype = dtype or torch.float32
+    rng = np.random.RandomState(seed)
+    Tn = SLEW['T']
+    F = np.broadcast_to(np.array([[1., SLEW_DT, 0.], [0., 1., SLEW_DT]]),
+                        (Tn - 1, 2, 3))
+    c = np.array([-1., 0., 0.])
+    x0 = 0.5 * rng.randn(n, 2)
+    pc = rng.uniform(-1, 1, (n, 1))
+    t = [torch.tensor(np.ascontiguousarray(a), dtype=dtype, device=device)
+         for a in (x0, np.diag([1., 0.1, 0.01]), c, F, pc)]
+    return t[0], mt.QuadCost(t[1], t[2]), mt.LinDx(t[3], None), t[4]
+
+
+def slew_augmented(torch, cfg, device, x0, cost, dyn, prev):
+    """The slew configuration's augmented problem on ``device``, written
+    out from its definition: state (u_{t-1}, p, v), cost C + slew (u_t -
+    u_{t-1})^2 / 2 on (u_{t-1}, p, v, u_t), next state (u_t, F (p, v,
+    u_t)), x0 (prev, p0, v0)."""
+    import mpc_tpu_torch as mt
+    s = cfg.slew_rate_penalty
+    C = torch.zeros(4, 4, dtype=cost.C.dtype)
+    C[1:, 1:] = cost.C.cpu()
+    C[0, 0] += s
+    C[3, 3] += s
+    C[0, 3] -= s
+    C[3, 0] -= s
+    c = torch.cat([torch.zeros(1, dtype=cost.c.dtype), cost.c.cpu()])
+    F = dyn.F.cpu()
+    Fa = torch.zeros(F.shape[0], 3, 4, dtype=F.dtype)
+    Fa[:, 0, 3] = 1.0
+    Fa[:, 1:, 1:] = F
+    acfg = mt.MPCConfig(**dict(SLEW, n_state=3, slew_rate_penalty=None))
+    return (acfg, torch.cat([prev, x0], -1).to(device),
+            mt.QuadCost(C.to(device), c.to(device)),
+            mt.LinDx(Fa.to(device), None))
+
+
+def phase_slew_k3(torch, device, n_requests=4):
+    """A slew penalty on the double integrator through K3: K3 against its
+    plain version on the augmented problem (and both against float64),
+    requests through batched_solve (one K3 launch each; the last held
+    against the plain K3 on its own augmented operands), K3's time there,
+    and gradients to c, F and prev_ctrl (K3, then the eager fixed point)
+    against the float64 eager fixed point on the same primal."""
+    import mpc_tpu_torch as mt
+    from mpc_tpu_torch import solver
+    from mpc_tpu_torch.ops import fused
+    n, Tn = SLEW_B, SLEW['T']
+    cfg = mt.MPCConfig(**SLEW)
+    log(f'[slew-k3] the double integrator under slew 0.5 (LinDx, 3 '
+        f'augmented states), T={Tn}, B={n}, lqr_iter=4; {card_line()}')
+    kw = dict(u_lower=-2.0, u_upper=2.0)
+    ops, ops64 = (fused.k3_operands(*fused.slew_problem(
+        cfg, *slew_data(torch, device, n, dtype)), **kw)
+        for dtype in (torch.float32, torch.float64))
+    plain_times = []
+    (_, _, sk), mx = hold_k1(
+        torch, 'K3 vs plain, slew-augmented', ops, ops64,
+        kernel=fused.fused_ilqr_long,
+        plain=timed_plain(torch, fused.fused_solve_long_plain, plain_times),
+        limits=(LONG_TAIL_MEAN, LONG_TAIL_SHARE))
+    ms, eager_ms = graph_ms(torch, lambda: fused.fused_ilqr_long(**ops),
+                            reps=5, per_graph=4)
+    flops = fused.k3_flops(Tn, 3, 1, float(sk[2].double().sum()),
+                           float(sk[5].double().sum()), batch=n, lindx=True,
+                           has_f=False)
+    bound_ms, by = bound(flops, fused.k3_bytes(ops))
+    log(f'  K3 {ms:.4f} ms from a CUDA graph ({eager_ms:.4f} a call from '
+        f'Python), plain {plain_times[0]:.2f} ms, bound {bound_ms:.5f} ms '
+        f'by {by}')
+    # requests through batched_solve: one K3 launch each, no eager solve
+    reqs = [slew_data(torch, 'cpu', n, seed=40 + i) for i in range(
+        n_requests + 1)]
+
+    def request(r):
+        x0, cost, dyn, pc = r
+        sol = mt.batched_solve(cfg, x0.to(device), cost, dyn,
+                               prev_ctrl=pc.to(device), device=device, **kw)
+        return sol.u.cpu(), sol
+
+    request(reqs[0])
+    fused.reset_launch_counts()
+    solver.reset_eager_counts()
+    lat = []
+    for r in reqs[1:]:
+        t, (u, sol) = host_ms(torch, device, lambda: request(r))
+        lat.append(t)
+    launches = fused.launch_counts['fused_ilqr_long']
+    log(f'  {n_requests} requests: ' + ' '.join(f'{v:.3f}' for v in lat)
+        + f' ms host to host; K3 launches {launches}, eager solves '
+        f'{solver.eager_counts["eager_solve"]}')
+    if launches != n_requests * (device.type == 'cuda') or \
+            solver.eager_counts['eager_solve'] or \
+            fused.launch_counts['fused_ilqr']:
+        raise AssertionError('slew requests did not each launch K3 once')
+    if not (torch.isfinite(u).all() and u.abs().max() <= 2.0
+            and sol.x.shape == (Tn, n, 2)):
+        raise AssertionError('slew requests: not a feasible solve')
+    # the last request against the plain K3 on its own augmented problem,
+    # written out here from the slew's definition (not fused.slew_problem)
+    ops_r = fused.k3_operands(*slew_augmented(torch, cfg, device, *reqs[-1]),
+                              **kw)
+    xp, up, _ = fused.fused_solve_long_plain(**ops_r)
+    check_tail('last request vs plain K3 on its augmented operands, u', u,
+               up.cpu(), (LONG_TAIL_MEAN, LONG_TAIL_SHARE))
+    check_tail('last request vs plain K3 on its augmented operands, x '
+               '(u_{-1} stripped)', sol.x, xp[..., 1:],
+               (LONG_TAIL_MEAN, LONG_TAIL_SHARE))
+    # gradients: K3 phase 1, eager fixed point, against the float64 eager
+    # fixed point on the same primal
+    x0, cost, dyn, pc = slew_data(torch, device, n)
+    w = torch.randn(Tn, n, 1, generator=torch.Generator().manual_seed(3)).to(
+        device)
+
+    def grads(dtype, primal=None):
+        leaves = [a.to(dtype).clone().requires_grad_()
+                  for a in (cost.c, dyn.F, pc)]
+        gcfg = mt.MPCConfig(**dict(SLEW, backprop=True))
+        args = (x0.to(dtype), mt.QuadCost(cost.C.to(dtype), leaves[0]),
+                mt.LinDx(leaves[1], None))
+        if primal is None:
+            sol = mt.batched_solve(gcfg, *args, prev_ctrl=leaves[2],
+                                   device=device, **kw)
+            x, u = sol.x, sol.u
+        else:
+            x, u = solver.fixed_point_phase(
+                gcfg, *args, *(a.to(dtype) for a in primal[:2]), -2.0, 2.0,
+                primal[2], leaves[2])
+        ((u * w.to(dtype)).sum() + 0.5 * (x ** 2).sum()).backward()
+        return [a.grad for a in leaves], (x.detach(), u.detach(),
+                                          torch.ones(n, dtype=torch.bool,
+                                                     device=device))
+
+    fused.reset_launch_counts()
+    solver.reset_eager_counts()
+    g32, primal = grads(torch.float32)
+    if fused.launch_counts['fused_ilqr_long'] != (device.type == 'cuda') \
+            or solver.eager_counts['eager_fixed_point'] != 1:
+        raise AssertionError('the slew gradient did not run K3 and the '
+                             'eager fixed point')
+    g64, _ = grads(torch.float64, primal)
+    errs = {name: rel_err(a, b) for name, a, b in
+            zip(('c', 'F', 'prev_ctrl'), g32, g64)}
+    log('  gradients (K3 + eager fixed point, float32) vs the float64 eager '
+        'fixed point, same primal, max |d| / max |g64|: '
+        + ', '.join(f'{k} {v:.3e}' for k, v in errs.items()))
+    if not all(torch.isfinite(g).all() for g in g32) or \
+            max(errs.values()) > BWD_TOL:
+        raise AssertionError(f'slew gradients outside {BWD_TOL}')
+    return dict(launches=launches, max_abs_err=mx, ms=ms,
+                plain_ms=plain_times[0], bound_ms=bound_ms, bound_by=by,
+                request_ms=sorted(lat)[len(lat) // 2], grad_err=errs)
+
+
+def traced_slew_loop(torch, cfg, x, cost, dx, steps):
+    """The closed-loop protocol of make_closed_loop on the eager route,
+    written out here as a second copy, each solve's decisions traced and
+    padded to lqr_iter entries so that two runs' traces line up step by
+    step.  Returns a Solution-like with the visited states [steps + 1, B,
+    3] as xs, the applied controls [steps, B, 1] as u, the summed costs
+    and each step's inputs (x, u_init, prev_ctrl), Solution and trace;
+    and the padded trace."""
+    from types import SimpleNamespace
+    from mpc_tpu_torch import solver
+    B_ = x.shape[0]
+    u_warm = torch.zeros(cfg.T, B_, 1, dtype=x.dtype, device=x.device)
+    prev = torch.zeros(B_, 1, dtype=x.dtype, device=x.device)
+    xs, us, costs, trace, solves = [x], [], [], [], []
+    for _ in range(steps):
+        tr = []
+        sol = solver.eager_batched_solve(cfg, x, cost, dx, u_init=u_warm,
+                                         u_lower=-2.0, u_upper=2.0,
+                                         prev_ctrl=prev, trace=tr)
+        solves.append(((x, u_warm, prev), sol, tr))
+        idle = {k: torch.zeros_like(v) for k, v in tr[0].items()}
+        trace += tr + [idle] * (cfg.lqr_iter - len(tr))
+        u0 = sol.u[0]
+        x = dx(x, u0)
+        prev = u0
+        u_warm = torch.cat([sol.u[1:], torch.zeros_like(sol.u[:1])])
+        xs.append(x)
+        us.append(u0)
+        costs.append(sol.costs)
+    return SimpleNamespace(xs=torch.stack(xs), u=torch.stack(us),
+                           costs=torch.stack(costs).sum(0),
+                           solves=solves), trace
+
+
+def hold_closed_loop_ties(torch, what, sa, ta, sb, tb):
+    """Hold two float64 eager closed loops of one problem (their applied
+    controls and padded traces, ``traced_slew_loop``) as SLEW_TIE_STEP's
+    comment says; returns the never-parted examples' error."""
+    ta, tb = ([{k: v.cpu() for k, v in d.items()} for d in t]
+              for t in (ta, tb))
+    parted = parted_examples(torch, ta, tb)
+    step = torch.zeros(parted.shape, dtype=torch.float64)
+    for e in torch.nonzero(parted).flatten().tolist():
+        for a, b in zip(ta, tb):
+            if any(a[k][e].item() != b[k][e].item()
+                   for k in ('active', 'alpha', 'n_qp')):
+                step[e] = max(a['full_du'][e].item(), b['full_du'][e].item())
+                break
+    real = parted & (step >= SLEW_TIE_STEP)
+    ua, ub = sa.u.detach().double().cpu(), sb.u.detach().double().cpu()
+    scale = ub.abs().max()
+    err = float((ua[:, ~parted] - ub[:, ~parted]).abs().max() / scale) \
+        if (~parted).any() else 0.0
+    tied = float((ua - ub).abs().max() / scale)
+    ties, reals = step[parted & ~real], step[real]
+    log(f'  {what}: {int(parted.sum())} of {parted.numel()} examples part '
+        f'at a line-search decision; full step at the first parting: '
+        f'largest below {SLEW_TIE_STEP} (a tie) '
+        f'{float(ties.max()) if ties.numel() else 0.0:.3e}, smallest at or '
+        f'above it (a real parting) '
+        + (f'{float(reals.min()):.3e}, {int(real.sum())} examples'
+           if reals.numel() else 'none')
+        + f'; never parted: max |du| / max |u| {err:.3e}; all: {tied:.3e}')
+    for line in first_parting(torch, ta, tb, real if real.any() else parted):
+        log(f'    {line}')
+    if not (err < EAGER_F64_TOL and tied < SLEW_CTRL_TOL
+            and float(real.double().mean()) < PARTED_SHARE):
+        raise AssertionError(f'{what}: the loops differ beyond their ties')
+    return err
+
+
+def slew_objective(torch, cfg, cost, dx, x_init, u, prev):
+    """The slew-penalised objective of controls u [T, B, 1] from x_init
+    [B, 3] after prev [B, 1], in the dtype of ``cost`` and ``dx``: the
+    rollout, then sum_t 1/2 tau' C tau + c' tau + 1/2 slew (u_t -
+    u_{t-1})^2 (the reference's mpc/mpc.py:362-372)."""
+    import mpc_tpu_torch as mt
+    from mpc_tpu_torch import solver
+    dt = cost.C.dtype
+    x_init, u, prev = x_init.to(dt), u.to(dt), prev.to(dt)
+    x = solver.rollout(dx, x_init, u)
+    blk = solver.slew_block(cfg.slew_rate_penalty, cfg.n_state, cfg.n_ctrl,
+                            dt, x.device)
+    C, c = solver.augment_cost(cost.C, cost.c, blk, cfg.n_ctrl)
+    xa = torch.cat([torch.cat([prev.unsqueeze(0), u[:-1]]), x], -1)
+    return solver.trajectory_cost(mt.QuadCost(C, c), xa, u)
+
+
+def hold_f32_solves(torch, cfg, cost64, dx64, solves):
+    """Each float32 solve of a float32 closed loop (``traced_slew_loop``'s
+    ``solves``) against a float64 solve on the same inputs, held as
+    F32_DECISIONS's comment says; returns max |du|."""
+    from mpc_tpu_torch import solver
+    d32, d64, ratios, evals = [], [], [], []
+    for (x, u_init, prev), s32, _ in solves:
+        s64 = solver.eager_batched_solve(
+            cfg, x.double(), cost64, dx64, u_init=u_init.double(),
+            u_lower=-2.0, u_upper=2.0, prev_ctrl=prev.double())
+        j32 = slew_objective(torch, cfg, cost64, dx64, x, s32.u, prev)
+        E = (s32.costs.double() - j32).abs().max()
+        gap = j32 - s64.costs
+        ratios.append(float(gap.max() / E))
+        evals.append(float(E / s64.costs.abs().max()))
+        d32.append(s32.u.double())
+        d64.append(s64.u)
+    du = (torch.stack(d32) - torch.stack(d64)).abs()     # [steps, T, B, 1]
+    mean = float(du.mean())
+    parted = du.amax((1, 3)) > TAIL_ENTRY                # [steps, B]
+    log(f'  each float32 solve of the loop vs float64 on its inputs: mean '
+        f'|du| {mean:.3e} (held < {TAIL_MEAN}), share |du|>{TAIL_ENTRY} '
+        f'{float((du > TAIL_ENTRY).double().mean()):.5f} (shown), max '
+        f'{float(du.max()):.3e}; {int(parted.sum())} of {parted.numel()} '
+        f'solves of an example part by more than {TAIL_ENTRY}')
+    log(f'  objective of the float32 controls (in float64) above the float64 '
+        f'solve\'s, over float32\'s largest error on its own objective E: '
+        f'largest {max(ratios):.3f} (held <= {F32_DECISIONS}); E / max |J| '
+        f'largest {max(evals):.3e} (held < {F32_EVAL_TOL:.3e})')
+    if not (mean < TAIL_MEAN and max(ratios) <= F32_DECISIONS
+            and max(evals) < F32_EVAL_TOL):
+        raise AssertionError('slew eager: float32 off float64 beyond its '
+                             'resolution')
+    return float(du.max())
+
+
+def phase_slew_eager(torch, device, records, n=SLEW_EAGER_B,
+                     steps=SLEW_EAGER_STEPS):
+    """The pendulum under slew 0.5 in a closed loop on the eager route.
+    make_closed_loop runs in float32 (timed) and in float64 on the card,
+    and each run is held bitwise against ``traced_slew_loop``, this
+    script's own copy of the loop's protocol, on the same device and
+    inputs.  Through that tie: the card's float64 loop against the CPU's
+    (``hold_closed_loop_ties``), and each float32 solve of the float32
+    loop against a float64 solve on the same inputs (``hold_f32_solves``).
+    The float32 loop against the float64 loop is shown, not held: over
+    the steps the float32 line search's ties at round-off move the
+    states, and the next solves start elsewhere (on an NVIDIA H100 80GB
+    HBM3 at 700 W: 0.547% of the applied controls off by more than 1e-3,
+    mean 5.3e-5; a CPU rehearsal 0.27%)."""
+    import mpc_tpu_torch as mt
+    from mpc_tpu_torch.ops import fused
+    cfg = mt.MPCConfig(grad_method=mt.GradMethods.AUTO_DIFF, **SLEW_EAGER)
+    log(f'[slew-eager] the pendulum under slew 0.5, closed loop of {steps} '
+        f'steps on the eager route, B={n}, T={T}, lqr_iter={cfg.lqr_iter}')
+    dx, cost = problem(torch, device)
+    dx64, cost64 = problem(torch, device, torch.float64)
+    x0 = x0_batch(n, 7, torch, device)
+    if fused.scope_gap(cfg, cost, dx) is None:
+        raise AssertionError('the slew-augmented pendulum is in the kernels\' '
+                             'scope')
+    kw = dict(u_lower=-2.0, u_upper=2.0, device=device)
+    roll = mt.make_closed_loop(cfg, cost, dx, **kw)
+    (ms, out), n_eager = eager_counted(torch, lambda: host_ms(
+        torch, device, lambda: roll(x0, steps)))
+    if n_eager != steps:
+        raise AssertionError(f'{n_eager} eager solves for {steps} steps')
+    out64, n64 = eager_counted(torch, lambda: mt.make_closed_loop(
+        cfg, cost64, dx64, **kw)(x0.double(), steps))
+    if n64 != steps:
+        raise AssertionError(f'{n64} eager solves for {steps} float64 steps')
+    l32, _ = traced_slew_loop(torch, cfg, x0, cost, dx, steps)
+    same_bits('make_closed_loop float32 vs the traced loop, xs and us',
+              torch, [(out['xs'], l32.xs), (out['us'], l32.u)])
+    runs = []
+    for dev in (device, torch.device('cpu')):
+        d64, c64 = problem(torch, dev, torch.float64)
+        runs += traced_slew_loop(torch, cfg, x0.double().to(dev), c64,
+                                 d64, steps)
+    same_bits('make_closed_loop float64 vs the traced loop, xs and us',
+              torch, [(out64['xs'], runs[0].xs), (out64['us'], runs[0].u)])
+    e64 = hold_closed_loop_ties(torch, 'card f64 vs CPU f64, applied '
+                                'controls', *runs)
+    check_tail('closed loop f32 vs f64, applied controls (not held)',
+               out['us'], out64['us'], None)
+    err = hold_f32_solves(torch, cfg, cost64, dx64, l32.solves)
+    log(f'  {ms:.1f} ms for {steps} steps ({ms / steps:.1f} ms a step, '
+        f'{n_eager} eager solves), {card_line()}')
+    eager_record(records, 'slew-eager', f'pendulum, slew 0.5, closed loop '
+                 f'of {steps} steps, B={n}, T={T}, float32', n_eager, err,
+                 f'float64 on the card, each step on the same inputs; '
+                 f'card f64 vs CPU f64 {e64:.2e}',
+                 f'mean|du|<{TAIL_MEAN}; objective within {F32_DECISIONS} '
+                 'E (F32_DECISIONS)',
+                 ms / steps)
+
+
+def unregularised_masked_solve(on):
+    """A context in which the eager solver's masked control solve
+    (``linalg.masked_free_matrix``) adds no PSCAN_REG to the control
+    block: the exact arm of PSCAN_GRAD_B's comment."""
+    import contextlib
+    from mpc_tpu_torch.ops import linalg
+
+    @contextlib.contextmanager
+    def patched():
+        orig = linalg.masked_free_matrix
+        linalg.masked_free_matrix = (
+            lambda H, free, clamped_diag=1.0, reg=0.0: orig(H, free,
+                                                            clamped_diag, 0.0))
+        try:
+            yield
+        finally:
+            linalg.masked_free_matrix = orig
+    return patched() if on else contextlib.nullcontext()
+
+
+def phase_pscan(torch, device, records, seq):
+    """bench_long_horizon's two arms (benchmarks/configs.py:596-644): the
+    pendulum at T=512, B=16, unconstrained, use_fused='never', with the
+    O(log T) scan against [eager-long]'s sequential solves in the same
+    process; then the long imitation configuration in float64
+    differentiated through the eager fixed point with 'auto' (the scan)
+    against False."""
+    import dataclasses
+    import mpc_tpu_torch as mt
+    from mpc_tpu_torch import solver
+    s32, s64, seq_ms, (x0, cost, dx), (x64, cost64, dx64) = seq
+    n, T_ = LONG_EAGER_B, LONG_EAGER['T']
+    cfg = mt.MPCConfig(grad_method=mt.GradMethods.AUTO_DIFF,
+                       **dict(LONG_EAGER, parallel_riccati=True))
+    log(f'[pscan] the pendulum at T={T_}, B={n}, unconstrained, both arms '
+        '(the sequential arm from [eager-long])')
+    (runs, par_ms), n_eager = eager_counted(torch, lambda: timed(
+        torch, device, lambda: mt.batched_solve(cfg, x0, cost, dx,
+                                                device=device), 1))
+    p32 = runs[-1]
+    p64 = mt.batched_solve(cfg, x64, cost64, dx64, device=device)
+    e64 = rel_err(p64.u, s64.u)
+    log(f'  f64: parallel vs sequential max |du| / max |u| {e64:.3e} '
+        f'(tolerance {PSCAN_F64_TOL})')
+    if not e64 < PSCAN_F64_TOL:
+        raise AssertionError('the scan is off the sequential solve in f64')
+    e32 = check_tail('f32: parallel vs sequential', p32.u, s32.u)
+    check_tail('f32 parallel vs f64 (not held)', p32.u, s64.u, None)
+    check_tail('f32 sequential vs f64 (not held)', s32.u, s64.u, None)
+    # operator counts of one iteration of each arm (the host's work)
+    one = dict(LONG_EAGER, lqr_iter=1)
+    counts = {arm: count_ops(torch, lambda: mt.batched_solve(
+        mt.MPCConfig(grad_method=mt.GradMethods.AUTO_DIFF,
+                     **dict(one, parallel_riccati=arm)), x0, cost, dx,
+        device=device))[1] for arm in (False, True)}
+    log(f'  {card_line()}: a solve {seq_ms:.1f} ms sequential, {par_ms:.1f} '
+        f'ms parallel ({n_eager} eager solve); sequential / parallel '
+        f'{seq_ms / par_ms:.2f}; operators of one iteration: sequential '
+        f'{counts[False]}, parallel {counts[True]}')
+    eager_record(records, 'pscan', f'pendulum, T={T_}, B={n}, float32, '
+                 'parallel_riccati=True', n_eager, e32, 'the sequential arm '
+                 f'([eager-long]); f64 parallel vs sequential {e64:.2e}',
+                 f'mean|du|<{TAIL_MEAN}, share(|du|>{TAIL_ENTRY})'
+                 f'<{TAIL_SHARE}; f64 {PSCAN_F64_TOL}', par_ms)
+    records[-1]['sequential_ms'] = seq_ms
+    # the long imitation configuration, float64, differentiated with the
+    # scan and without it on the same phase 1
+    m = PSCAN_GRAD_B
+    gcfg, x0l, costl, dyn, u_exp = long_problem(
+        torch, device, m, torch.float64, use_fused='never')
+    p1_ms, sol = host_ms(torch, device, lambda: solver.eager_batched_solve(
+        gcfg, x0l, costl, dyn, u_lower=-2.0, u_upper=2.0))
+    grads, bwd_ms = {}, {}
+    for arm in ('auto', False, 'exact'):
+        c = costl.c.clone().requires_grad_()
+        acfg = dataclasses.replace(gcfg, parallel_riccati=arm == 'auto')
+
+        def backward():
+            _, u = solver.fixed_point_phase(
+                acfg, x0l, mt.QuadCost(costl.C, c), dyn, sol.x, sol.u, -2.0,
+                2.0, sol.converged)
+            ((u - u_exp) ** 2).mean().backward()
+        with unregularised_masked_solve(arm == 'exact'):
+            bwd_ms[arm], _ = host_ms(torch, device, backward)
+        grads[arm] = c.grad
+    g_err = rel_err(grads['auto'], grads[False])
+    g_exact = rel_err(grads['auto'], grads['exact'])
+    cuu = costl.C[..., gcfg.n_state:, gcfg.n_state:]
+    reg_tol = PSCAN_REG_ROOM * PSCAN_REG / float(
+        torch.linalg.eigvalsh(cuu).min())
+    log(f'  long imitation configuration, float64, T={LONG_T}, B={m}: phase 1 '
+        f'{p1_ms:.1f} ms (eager), the fixed point and its backward '
+        f'{bwd_ms["auto"]:.1f} ms with the scan, {bwd_ms[False]:.1f} ms '
+        f'without; dL/dc scan vs sequential without its {PSCAN_REG} '
+        f'{g_exact:.3e} (tolerance {PSCAN_GRAD_EXACT_TOL}), vs sequential '
+        f'{g_err:.3e} (tolerance {PSCAN_REG_ROOM} reg / min eig C_uu = '
+        f'{reg_tol:.3e})')
+    if not (torch.isfinite(grads['auto']).all() and g_err < reg_tol
+            and g_exact < PSCAN_GRAD_EXACT_TOL):
+        raise AssertionError('the scan\'s gradients are off the sequential '
+                             'ones')
+
+
+def analytic_pendulum(torch, device, wrong=False):
+    """The simple pendulum in float64 with a ``grad_input`` from its
+    hand-written step Jacobian (``step_jacobian``, the Jacobian K1
+    computes); with ``wrong``, that Jacobian taken at one fixed state
+    whatever x."""
+    from mpc_tpu_torch.models import PendulumDx
+    fixed = x0_batch(1, 0, torch, device).double()
+
+    class Pendulum(PendulumDx):
+        def grad_input(self, x, u):
+            F = self.step_jacobian(fixed.expand(x.shape) if wrong else x, u)
+            return F[..., :3], F[..., 3:]
+
+    return Pendulum(device=device, dtype=torch.float64)
+
+
+def phase_verbose(torch, device, n=64):
+    """MPC(verbose=1) on the card prints the initial mean cost and one
+    table row an iteration (the eager route, which records them);
+    ANALYTIC_CHECK passes on the pendulum's hand-written Jacobian and
+    raises on a wrong one, in float64 (its tolerance, 1e-8, is below
+    float32's round-off: the float32 Jacobians of the two forms of the
+    step differ by ~3e-7)."""
+    import contextlib
+    import io
+    import mpc_tpu_torch as mt
+    dx, cost = problem(torch, device)
+    x0 = x0_batch(n, 0, torch, device)
+    kw = dict(u_lower=-2., u_upper=2., eps=0.0, exit_unconverged=False,
+              detach_unconverged=False, backprop=False, device=device)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        sol = mt.MPC(3, 1, T, lqr_iter=3, verbose=1,
+                     grad_method=mt.GradMethods.AUTO_DIFF, **kw).solve(
+            x0, cost, dx)
+    lines = buf.getvalue().splitlines()
+    log(f'[verbose] MPC(verbose=1), B={n}, T={T}, lqr_iter=3, on the card:')
+    for line in lines:
+        log(f'  {line}')
+    if not (lines and lines[0].startswith('Initial mean(cost): ')
+            and any('||full_du||_max' in line for line in lines)
+            and sum(line.startswith('| ') and line[2].isdigit()
+                    for line in lines) == int(sol.n_iter.max())
+            and sol.iter_stats.shape == (n, 3, 4)):
+        raise AssertionError('verbose did not print its table')
+    ctrl = mt.MPC(3, 1, T, lqr_iter=3,
+                  grad_method=mt.GradMethods.ANALYTIC_CHECK, **kw)
+    cost64 = mt.QuadCost(cost.C.double(), cost.c.double())
+    _, u, _ = ctrl(x0.double(), cost64, analytic_pendulum(torch, device))
+    try:
+        ctrl(x0.double(), cost64, analytic_pendulum(torch, device,
+                                                    wrong=True))
+    except AssertionError as e:
+        log(f'  ANALYTIC_CHECK: the hand-written Jacobian passes; a wrong '
+            f'one raises: {e}')
+    else:
+        raise AssertionError('ANALYTIC_CHECK passed a wrong Jacobian')
+    if not torch.isfinite(u).all():
+        raise AssertionError('ANALYTIC_CHECK: the solve after the check '
+                             'failed')
+
+
 def main():
     try:
         import torch
@@ -2648,16 +3410,33 @@ def main():
     k3_nn_serve, nn_request_ms = phase_serve_nn(torch, device)
     timing_nn = phase_time_nn(torch, device, nn_plain_ms)
     k3_nn_grad, k2_nn_grad, nn_grad_err, k2_nn = phase_grad_nn(torch, device)
+    t_new = time.perf_counter()
+    closed = phase_closed_loop(torch, device)
+    t_closed = time.perf_counter()
+    slew = phase_slew_k3(torch, device)
+    t_slew = time.perf_counter()
     t_eager = time.perf_counter()
     eager = []
     phase_eager_serve(torch, device, eager)
     phase_eager_tvlqr(torch, device, eager)
     phase_eager_medium(torch, device, eager)
     phase_eager_cartpole(torch, device, eager)
-    phase_eager_long(torch, device, eager)
+    seq = phase_eager_long(torch, device, eager)
     phase_eager_grad(torch, device, eager)
     phase_eager_nn(torch, device, eager, nn_request_ms)
     phase_eager_models(torch, device, eager)
+    t_s = [time.perf_counter()]
+    phase_slew_eager(torch, device, eager)
+    t_s.append(time.perf_counter())
+    phase_pscan(torch, device, eager, seq)
+    t_s.append(time.perf_counter())
+    phase_verbose(torch, device)
+    t_s.append(time.perf_counter())
+    log(f'[surface] the new phases took {t_closed - t_new:.1f} s '
+        f'[closed-loop], {t_slew - t_closed:.1f} s [slew-k3], '
+        f'{t_s[1] - t_s[0]:.1f} s [slew-eager], {t_s[2] - t_s[1]:.1f} s '
+        f'[pscan], {t_s[3] - t_s[2]:.1f} s [verbose]: '
+        f'{t_slew - t_new + t_s[3] - t_s[0]:.1f} s')
     log(f'[eager] the [eager-*] phases took '
         f'{time.perf_counter() - t_eager:.1f} s')
     log(f'[done] {time.perf_counter() - t0:.1f} s')
@@ -2732,7 +3511,28 @@ def main():
                           fused_bwd.k2_launch(NN_T, NN_GRAD_B)),
          'launches': k2_nn_grad,
          'tolerance': f'max|K2-plain|/max|plain|<{BWD_TOL} per gradient',
-         'library_ms': None, **k2_nn}]}))
+         'library_ms': None, **k2_nn},
+        {'name': 'fused_ilqr (closed loop)', 'path': 'closed loop', **k1,
+         'design': design('fused_ilqr', fused.kernel_defines(T, True),
+                          fused.k1_launch(T, B, 5)),
+         'launches': closed['launches'],
+         'max_abs_err': closed['max_abs_err'],
+         **{k: closed[k] for k in ('ms', 'plain_ms', 'bound_ms',
+                                   'bound_by')},
+         'us_per_step': closed['rows']},
+        {'name': 'fused_ilqr_long (slew)', 'path': 'slew', 'route': 'cuda',
+         'source': 'mpc_tpu_torch/csrc/fused_ilqr_long.cu',
+         'replaces': 'mpc_tpu/ops/fused.py:1126',
+         'design': design('fused_ilqr_long',
+                          fused.long_kernel_defines(True, True),
+                          fused.k3_launch(LONG_T, SLEW_B, 3)),
+         'launches': slew['launches'], 'max_abs_err': slew['max_abs_err'],
+         'request_ms': slew['request_ms'], 'grad_err': slew['grad_err'],
+         'tolerance': f'mean|du|<{LONG_TAIL_MEAN}, '
+                      f'share(|du|>{TAIL_ENTRY})<{LONG_TAIL_SHARE}',
+         'library_ms': None,
+         **{k: slew[k] for k in ('ms', 'plain_ms', 'bound_ms',
+                                 'bound_by')}}]}))
     # the eager solver's phases: configuration, route, eager solves
     # counted in the phase, largest error against its reference, the
     # tolerance and the median host ms of a solve (or of a backward)

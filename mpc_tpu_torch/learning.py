@@ -99,8 +99,11 @@ def batched_solve(cfg: MPCConfig, x_init, cost, dynamics, u_init=None,
     ``x_init`` is [B, n_state]; cost and LinDx leaves, bounds, u_init and
     u_zero_I are time-major [T, B, ...] or batch-shared with the batch
     axis dropped (bounds may be scalars); a callable cost or model acts
-    on the last axis of batched inputs (``solver.py``).  Everything runs
-    on ``device``: the CUDA card by default, or the CPU when asked.
+    on the last axis of batched inputs (``solver.py``); ``prev_ctrl``,
+    the control before the horizon under ``cfg.slew_rate_penalty``, is
+    [B, n_ctrl] or [n_ctrl] (zeros when None; unused without a slew
+    penalty).  Everything runs on ``device``: the CUDA card by default,
+    or the CPU when asked.
 
     The route (module docstring): the kernels K1 or K3 for a problem in
     their scope (``ops/fused.scope_gap``) unless ``cfg.use_fused`` is
@@ -109,14 +112,18 @@ def batched_solve(cfg: MPCConfig, x_init, cost, dynamics, u_init=None,
     take float64, which on the card goes to the eager solver: so under
     'auto' a float64 problem in the kernels' scope takes a different
     algorithm on the CPU than on the card, and a CPU run that stands as
-    a reference for the card's float64 passes use_fused='never'.  A
-    problem that no route takes raises NotImplementedError naming the
-    ROADMAP item that brings it.
+    a reference for the card's float64 passes use_fused='never'.  A slew
+    penalty augments the state with the previous control
+    (mpc_tpu/learning.py:196-242): the kernels solve the augmented
+    problem where it is in their scope (a LinDx of n_state = 2, n_ctrl =
+    1 in K3), and its fixed point is always the eager one.  A problem
+    that no route takes raises NotImplementedError.
 
     With ``cfg.backprop`` and any of x_init, the cost's C or c, the
-    model's parameters, a LinDx's F or f or the bounds requiring grad
-    (and grad mode on), x and u carry gradients to them through the KKT
-    fixed point (phase 2: kernel K2 or K4, or the eager fixed point).
+    model's parameters, a LinDx's F or f, the bounds or (under a slew
+    penalty) prev_ctrl requiring grad (and grad mode on), x and u carry
+    gradients to them through the KKT fixed point (phase 2: kernel K2
+    or K4, or the eager fixed point).
     The bounds get a zero gradient, as in the reference.  costs, n_iter
     and the other statistics come from phase 1 and carry none.
     """
@@ -130,45 +137,43 @@ def batched_solve(cfg: MPCConfig, x_init, cost, dynamics, u_init=None,
     if x_init.dim() != 2 or x_init.shape[1] != cfg.n_state:
         raise ValueError('x_init must be [n_batch, n_state]')
     dtype = x_init.dtype
-    gap = solver.unported_gap(cfg, prev_ctrl, dtype)
+    gap = solver.unported_gap(cfg, cost, dtype)
     if gap is not None:
         raise NotImplementedError(gap)
+    # prev_ctrl means something under a slew penalty alone
+    # (mpc_tpu/closed_loop.py:93-96, mpc_tpu/solver.py:219-222)
+    slew = cfg.slew_rate_penalty is not None
+    if not slew:
+        prev_ctrl = None
     differentiable = solver.wants_grad(cfg, x_init, cost, dynamics, u_lower,
-                                       u_upper)
+                                       u_upper, prev_ctrl)
     kernel_gap = fused.scope_gap(cfg, cost, dynamics, u_zero_I=u_zero_I,
-                                 prev_ctrl=prev_ctrl, dtype=dtype,
-                                 device=device)
+                                 dtype=dtype, device=device)
     if kernel_gap is not None and cfg.use_fused == 'always':
         raise _always_error(cfg, cost, dynamics, u_lower, dtype, kernel_gap)
     if kernel_gap is not None or cfg.use_fused == 'never':
-        gap = solver.scan_gap(cfg, has_bounds=u_lower is not None,
-                              has_u_zero_I=u_zero_I is not None,
-                              differentiable=differentiable)
-        if gap is not None:
-            raise NotImplementedError(gap)
         return solver.eager_batched_solve(
             cfg, x_init, cost, dynamics, u_init=u_init, u_lower=u_lower,
-            u_upper=u_upper, u_zero_I=u_zero_I,
+            u_upper=u_upper, u_zero_I=u_zero_I, prev_ctrl=prev_ctrl,
             differentiable=differentiable)
 
     # the kernels' backward may not take what their forward does; its
-    # phase 2 is then the eager fixed point (mpc_tpu/learning.py:213-242)
-    bwd_gap = differentiable and fused_bwd.scope_gap_bwd(
-        cfg.T, cfg.n_ctrl, dtype, device)
-    if bwd_gap:
-        gap = solver.scan_gap(cfg, phase1=False, differentiable=True)
-        if gap is not None:
-            raise NotImplementedError(gap)
+    # phase 2 is then the eager fixed point (mpc_tpu/learning.py:213-242),
+    # as it always is under a slew penalty, whose backward the JAX package
+    # keeps off its kernel too
+    bwd_gap = differentiable and (slew or fused_bwd.scope_gap_bwd(
+        cfg.T, cfg.n_ctrl, dtype, device))
     with torch.no_grad():
         sol1 = fused.fused_batched_solve(cfg, x_init, cost, dynamics,
                                          u_init=u_init, u_lower=u_lower,
-                                         u_upper=u_upper)
+                                         u_upper=u_upper,
+                                         prev_ctrl=prev_ctrl)
     if not differentiable:
         return sol1
     if bwd_gap:
         x, u = solver.fixed_point_phase(cfg, x_init, cost, dynamics,
                                         sol1.x, sol1.u, u_lower, u_upper,
-                                        sol1.converged)
+                                        sol1.converged, prev_ctrl)
     else:
         x, u = _phase2_kernel_bwd(cfg, x_init, cost, dynamics, sol1,
                                   u_lower, u_upper)

@@ -41,8 +41,11 @@ def _to_shape(g, shape):
 
 
 @functools.lru_cache(maxsize=None)
-def make_lqr_fixed_point(n_state: int, has_bounds: bool, has_f: bool):
-    """The batched fixed point for a problem shape.
+def make_lqr_fixed_point(n_state: int, has_bounds: bool, has_f: bool,
+                         parallel: bool = False):
+    """The batched fixed point for a problem shape; with ``parallel``
+    its backward solves the differential problem by the O(log T) scan
+    (``lqr.lqr_solve``).
 
     ``apply(x_init, C, c, F, f, u_lower, u_upper, x_star, u_star)`` with
     x_init [B, n_state], C [T, *b, ntau, ntau], c [T, *b, ntau],
@@ -76,7 +79,7 @@ def make_lqr_fixed_point(n_state: int, has_bounds: bool, has_f: bool):
                 I = ((u_star - lb).abs() <= ACTIVE_TOL) | \
                     ((u_star - ub).abs() <= ACTIVE_TOL)
             dx, du = lqr_solve(C, -r, F, None, torch.zeros_like(x_star[0]),
-                               u_zero_I=I, n_state=ns)
+                               u_zero_I=I, n_state=ns, parallel=parallel)
             dxu = torch.cat([dx, du], -1)
             xu = torch.cat([x_star, u_star], -1)
             dC = -0.5 * (linalg.bger(dxu, xu) + linalg.bger(xu, dxu))

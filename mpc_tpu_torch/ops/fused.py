@@ -40,6 +40,11 @@ QuadCost with C and c each shared or batched, bounds absent, scalar,
 [T, nc] or [T, B, nc], an optional u_init, any T, float32 (float64 too on
 the CPU, in the plain versions).  ``routes_long`` says which kernel takes
 a problem; the dispatch sends every other problem to the eager solver.
+A slew-rate penalty is solved as the JAX package solves it in its kernel
+(``_fused_slew_solve``, mpc_tpu/ops/fused.py:2510-2580): the state is
+augmented with the previous control on the host and the kernels take
+the augmented problem where it is in their scope, a LinDx of
+n_state = 2, n_ctrl = 1 (three augmented states) in K3.
 """
 
 from __future__ import annotations
@@ -52,7 +57,7 @@ import torch
 
 from ..models.dynamics import NNDynamics
 from ..models.pendulum import PendulumDx
-from ..types import GradMethods, LinDx, QuadCost, Solution
+from ..types import LinDx, QuadCost, Solution
 
 # Line-search schedules are passed to the kernel by value, up to this
 # many step sizes (csrc/fused_ilqr.cu:kMaxAlpha).
@@ -216,14 +221,15 @@ def nn_scope_gap(dynamics) -> Optional[str]:
     return None
 
 
-def scope_gap(cfg, cost, dynamics, *, u_zero_I=None, prev_ctrl=None,
-              dtype=torch.float32,
+def scope_gap(cfg, cost, dynamics, *, u_zero_I=None, dtype=torch.float32,
               device=torch.device('cpu')) -> Optional[str]:
     """Why the kernels (K1 or K3, see ``routes_long``) do not take a
     problem, naming the kernel configuration or ROADMAP item that waits;
-    None when they do.  The admission test alone: the dispatch
-    (learning.batched_solve) sends what it refuses to the eager solver,
-    and ``cfg.use_fused`` is read there."""
+    None when they do.  Under a slew penalty it judges the augmented
+    problem (n_state + n_ctrl states, ``fused_batched_solve``).  The
+    admission test alone: the dispatch (learning.batched_solve) sends
+    what it refuses to the eager solver, and ``cfg.use_fused`` is read
+    there."""
     if isinstance(dynamics, LinDx):
         if (getattr(dynamics.F, 'ndim', 0) not in (3, 4)
                 or (dynamics.f is not None
@@ -243,7 +249,20 @@ def scope_gap(cfg, cost, dynamics, *, u_zero_I=None, prev_ctrl=None,
     elif not dynamics.simple:
         return ('PendulumDx(simple=False) waits for ROADMAP queue 2 '
                 '(K1 configurations)')
-    if cfg.n_state != 3 or cfg.n_ctrl != 1:
+    slew = cfg.slew_rate_penalty is not None
+    if slew and not isinstance(dynamics, LinDx):
+        return (f'the slew-augmented {type(dynamics).__name__} has '
+                f'{cfg.n_state + cfg.n_ctrl} states (u_{{t-1}} and the '
+                f'model\'s {cfg.n_state}): its kernel configuration, K1 at '
+                'NS = 4 with the passthrough step of mpc_tpu\'s _SlewSoA '
+                '(mpc_tpu/ops/fused.py:2441-2508), waits for ROADMAP queue '
+                '2 (K1 configurations); it runs on the eager solver')
+    ns = cfg.n_state + (cfg.n_ctrl if slew else 0)
+    if slew and (ns != 3 or cfg.n_ctrl != 1):
+        return (f'the slew-augmented LinDx has {ns} states; K3 takes three '
+                '(n_state = 2, n_ctrl = 1): more augmented states and '
+                'n_ctrl > 1 wait for ROADMAP queue 2 (K3 configurations)')
+    if ns != 3 or cfg.n_ctrl != 1:
         return ('the kernels take n_state=3, n_ctrl=1; n_ctrl>1 with the '
                 'in-kernel PNQP and other state sizes wait for ROADMAP '
                 'queue 2 (K1 and K3 configurations)')
@@ -254,13 +273,11 @@ def scope_gap(cfg, cost, dynamics, *, u_zero_I=None, prev_ctrl=None,
         return 'u_zero_I waits for ROADMAP queue 2 (K1 configurations)'
     if cfg.delta_u is not None:
         return 'delta_u waits for ROADMAP queue 2 (K1 configurations)'
-    if cfg.slew_rate_penalty is not None or prev_ctrl is not None:
-        return ('slew-rate penalties and prev_ctrl wait for ROADMAP '
-                'queue 1 item 5 and the slew host augmentation of queue 2')
     if cfg.verbose > 0:
-        return 'verbose > 0 waits for ROADMAP queue 1 item 5'
-    if cfg.grad_method == GradMethods.ANALYTIC_CHECK:
-        return 'ANALYTIC_CHECK waits for ROADMAP queue 1 item 5'
+        # the JAX package's kernels refuse it too
+        # (mpc_tpu/ops/fused.py:217)
+        return ('verbose > 0 runs on the eager solver, which records each '
+                'iteration (iter_stats)')
     if dtype not in (torch.float32, torch.float64):
         return f'dtype {dtype} is not supported (float32 or float64)'
     if dtype == torch.float64 and device.type == 'cuda':
@@ -1237,11 +1254,43 @@ def solution_from_outputs(x, u, stats, eps) -> Solution:
         converged=best_du < eps, alpha=alpha)
 
 
+def slew_problem(cfg, x_init, cost: QuadCost, dynamics: LinDx, prev_ctrl):
+    """The augmented problem that the kernels solve for a slew-penalised
+    LinDx (mpc_tpu/ops/fused.py:2510-2580): (cfg, x_init [B, nc + ns],
+    QuadCost, LinDx) with the state augmented by the previous control
+    (prev_ctrl [B, n_ctrl], [n_ctrl] or None), each leaf in its own
+    layout (a shared leaf stays shared)."""
+    import dataclasses
+
+    from ..solver import (augment_cost, augment_lindx, prev_ctrl_operand,
+                          slew_block)
+    ns, nc = cfg.n_state, cfg.n_ctrl
+    dtype, device = x_init.dtype, x_init.device
+
+    def leaf(a):
+        return None if a is None else torch.as_tensor(a, dtype=dtype,
+                                                      device=device)
+
+    blk = slew_block(cfg.slew_rate_penalty, ns, nc, dtype, device)
+    C, c = augment_cost(leaf(cost.C), leaf(cost.c), blk, nc)
+    F, f = augment_lindx(leaf(dynamics.F), leaf(dynamics.f), ns, nc)
+    x0 = torch.cat([prev_ctrl_operand(cfg, prev_ctrl, x_init), x_init], -1)
+    return (dataclasses.replace(cfg, n_state=ns + nc, slew_rate_penalty=None),
+            x0, QuadCost(C, c), LinDx(F, f))
+
+
 def fused_batched_solve(cfg, x_init, cost: QuadCost, dynamics,
-                        u_init=None, u_lower=None, u_upper=None) -> Solution:
+                        u_init=None, u_lower=None, u_upper=None,
+                        prev_ctrl=None) -> Solution:
     """Batched solve through K1 or K3 (``routes_long``) on x_init's
-    device (layouts as in ``k1_operands`` and ``k3_operands``)."""
+    device (layouts as in ``k1_operands`` and ``k3_operands``); under a
+    slew penalty, of the augmented problem (``slew_problem``)."""
     kw = dict(u_init=u_init, u_lower=u_lower, u_upper=u_upper)
+    if cfg.slew_rate_penalty is not None:
+        sol = fused_batched_solve(*slew_problem(cfg, x_init, cost, dynamics,
+                                                prev_ctrl), **kw)
+        # strip u_{t-1} from the augmented states (mpc/mpc.py:444)
+        return sol._replace(x=sol.x[..., cfg.n_ctrl:])
     if routes_long(dynamics, cfg.T):
         x, u, stats = fused_ilqr_long(**k3_operands(cfg, x_init, cost,
                                                     dynamics, **kw))

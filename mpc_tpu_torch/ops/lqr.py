@@ -1,7 +1,8 @@
 """LQR machinery of the eager solver: the Riccati recursion, the
 line-searched rollout and the exact LQR solve (counterpart of
-mpc_tpu/ops/lqr.py:35-450; the O(log T) scan of ops/pscan.py is not
-ported).
+mpc_tpu/ops/lqr.py:35-450).  ``parallel_riccati`` hands the
+unconstrained gains and the exact solve to the O(log T) scan of
+``pscan.py``.
 
 The JAX package writes each function for one instance with
 ``lax.scan``/``lax.while_loop`` and vmaps it.  Here the batch is native:
@@ -23,6 +24,7 @@ import torch
 
 from . import linalg
 from .pnqp import first_passing, pnqp
+from .pscan import parallel_lqr_solve, parallel_riccati_gains
 
 
 class RiccatiOut(NamedTuple):
@@ -268,19 +270,29 @@ def lqr_step_delta(x_init, C, c, F, f, x, u, n_state: int, true_cost,
                    true_dynamics, u_lower=None, u_upper=None, u_zero_I=None,
                    delta_u=None, linesearch_decay: float = 0.2,
                    max_linesearch_iter: int = 10, pnqp_iter: int = 20,
-                   parallel_linesearch: bool = True):
+                   parallel_linesearch: bool = True,
+                   parallel_riccati: bool = False):
     """One iLQR step in delta space (mpc_tpu/ops/lqr.py:348-408,
     reference mpc/lqr_step.py:277-309): recentre the linear cost at the
     current trajectory, c_back = C tau + c, run the Riccati recursion on
     the model, then the line-searched rollout through the true cost and
     dynamics.  ``f`` is folded into the trajectory and unused here, as
-    in the reference.  Returns (ForwardOut, n_qp_iter [B])."""
+    in the reference.  ``parallel_riccati`` (``solver.uses_scan``'s
+    answer) takes the gains of an unconstrained, unmasked step
+    from the O(log T) scan; a box or u_zero_I step stays sequential.
+    Returns (ForwardOut, n_qp_iter [B])."""
     tau = torch.cat([x, u], -1)
     c_back = linalg.bmv(C, tau) + c
-    back = riccati_backward(C, c_back, F, u, n_state=n_state,
-                            u_lower=u_lower, u_upper=u_upper,
-                            u_zero_I=u_zero_I, delta_u=delta_u,
-                            pnqp_iter=pnqp_iter)
+    if (parallel_riccati and u_lower is None
+            and u_zero_I is None):
+        K, k = parallel_riccati_gains(C, c_back, F, None, n_state)
+        back = RiccatiOut(K, k, torch.zeros(
+            u.shape[1:-1], dtype=torch.int32, device=u.device))
+    else:
+        back = riccati_backward(C, c_back, F, u, n_state=n_state,
+                                u_lower=u_lower, u_upper=u_upper,
+                                u_zero_I=u_zero_I, delta_u=delta_u,
+                                pnqp_iter=pnqp_iter)
     fwd = lqr_forward(x_init, x, u, back.K, back.k, true_cost=true_cost,
                       true_dynamics=true_dynamics, u_lower=u_lower,
                       u_upper=u_upper, u_zero_I=u_zero_I, delta_u=delta_u,
@@ -291,13 +303,18 @@ def lqr_step_delta(x_init, C, c, F, f, x, u, n_state: int, true_cost,
 
 
 def lqr_solve(C, c, F, f, x_init, u_zero_I=None,
-              n_state: Optional[int] = None):
+              n_state: Optional[int] = None, parallel: bool = False):
     """Exact LQR solve, optionally with controls pinned to zero
-    (mpc_tpu/ops/lqr.py:411-450): one Riccati pass and its rollout.  The
-    fixed point's backward solves its differential problem with it.
-    x_init [B, n_state]; returns x [T, B, n_state], u [T, B, n_ctrl]."""
+    (mpc_tpu/ops/lqr.py:411-450): one Riccati pass and its rollout, or,
+    with ``parallel`` (``solver.uses_scan``'s answer), the O(log T)
+    ``pscan.parallel_lqr_solve``.  The fixed point's backward solves its
+    differential problem with it.  x_init [B, n_state]; returns
+    x [T, B, n_state], u [T, B, n_ctrl]."""
     T, ntau = c.shape[0], c.shape[-1]
     ns = F.shape[-2] if n_state is None else n_state
+    if parallel:
+        return parallel_lqr_solve(C, c, F, f, x_init, u_zero_I=u_zero_I,
+                                  n_state=ns)
     batch = x_init.shape[:-1]
     u0 = torch.zeros((T,) + batch + (ntau - ns,), dtype=c.dtype,
                      device=c.device)

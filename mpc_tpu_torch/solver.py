@@ -28,7 +28,7 @@ same bits whether or not TF32 is allowed.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -212,41 +212,26 @@ def wants_grad(cfg: MPCConfig, *objs) -> bool:
 
 def uses_scan(cfg: MPCConfig) -> bool:
     """Whether ``cfg.parallel_riccati`` asks for the O(log T) scan
-    (mpc_tpu/ops/lqr.py:386-391, 418-423: True, or 'auto' at T >= 128)."""
-    p = cfg.parallel_riccati
-    return p is True or (p == 'auto' and cfg.T >= 128)
+    (``ops/pscan.py``; mpc_tpu/ops/lqr.py:386-391, 418-423: True, or
+    'auto' at T >= 128).  The eager solver then takes the gains of its
+    unconstrained, unmasked iLQR steps from the scan, and its fixed point
+    solves the differential problem with it."""
+    return cfg.parallel_riccati is True or (
+        cfg.parallel_riccati == 'auto' and cfg.T >= 128)
 
 
-def unported_gap(cfg: MPCConfig, prev_ctrl=None,
+def unported_gap(cfg: MPCConfig, cost=None,
                  dtype=torch.float32) -> Optional[str]:
-    """Why neither the kernels nor the eager solver take a problem,
-    naming the ROADMAP item that brings it; None when one of them
-    does."""
-    if cfg.slew_rate_penalty is not None or prev_ctrl is not None:
-        return ('slew-rate penalties and prev_ctrl wait for ROADMAP queue 1 '
-                'item 5')
-    if cfg.verbose > 0:
-        return 'verbose > 0 waits for ROADMAP queue 1 item 5'
-    if cfg.grad_method == GradMethods.ANALYTIC_CHECK:
-        return 'ANALYTIC_CHECK waits for ROADMAP queue 1 item 5'
+    """Why no route takes a problem; None when one does."""
+    if cfg.slew_rate_penalty is not None and cost is not None \
+            and not isinstance(cost, QuadCost):
+        # the reference and the JAX package refuse it too
+        # (mpc/mpc.py:451-457, mpc_tpu/solver.py:331-335)
+        return ('Non-convex cost with a slew rate penalty is not '
+                'implemented (same restriction as the reference, '
+                'mpc/mpc.py:451-457).')
     if dtype not in (torch.float32, torch.float64):
         return f'dtype {dtype} is not supported (float32 or float64)'
-    return None
-
-
-def scan_gap(cfg: MPCConfig, *, phase1=True, has_bounds=False,
-             has_u_zero_I=False, differentiable=False) -> Optional[str]:
-    """Why the eager route would need the O(log T) Riccati scan, which is
-    not ported: unconstrained iLQR steps take it in phase 1 (``phase1``
-    False: phase 1 ran in a kernel), and the fixed point's exact solve
-    always does (mpc_tpu/ops/lqr.py:386-391, 418-423).  None when the
-    sequential recursion runs everything."""
-    if uses_scan(cfg) and (differentiable or (
-            phase1 and not has_bounds and not has_u_zero_I)):
-        return (f'parallel_riccati={cfg.parallel_riccati!r} at T={cfg.T} '
-                'asks for the O(log T) Riccati scan, which waits for '
-                'ROADMAP queue 1 item 6; parallel_riccati=False runs the '
-                'sequential recursion')
     return None
 
 
@@ -265,6 +250,20 @@ def _leaf(a, n_trailing, T, dtype, device, name='', timeless=True):
     if a.dim() == n_trailing + 1:
         return a.unsqueeze(1)
     return a
+
+
+def prev_ctrl_operand(cfg: MPCConfig, prev_ctrl, x_init):
+    """The previous control of a slew-penalised solve as [B, n_ctrl] on
+    x_init's device and dtype, from [B, n_ctrl] or [n_ctrl] (zeros when
+    None, as mpc_tpu/solver.py:219-222); a view where it can be, so that
+    a gradient reaches the caller's tensor."""
+    B, nc = x_init.shape[0], cfg.n_ctrl
+    if prev_ctrl is None:
+        return torch.zeros((B, nc), dtype=x_init.dtype, device=x_init.device)
+    pc = torch.as_tensor(prev_ctrl, dtype=x_init.dtype, device=x_init.device)
+    if pc.dim() not in (1, 2) or pc.shape[-1] != nc:
+        raise ValueError('prev_ctrl takes [B, n_ctrl] or [n_ctrl]')
+    return pc.expand(B, nc)
 
 
 def eager_operands(cfg: MPCConfig, x_init, cost, dynamics, u_init=None,
@@ -302,16 +301,103 @@ def eager_operands(cfg: MPCConfig, x_init, cost, dynamics, u_init=None,
 
 
 # ---------------------------------------------------------------------------
+# slew-rate state augmentation
+# ---------------------------------------------------------------------------
+
+class SlewProblem(NamedTuple):
+    C: torch.Tensor          # [T, *b, naug, naug]
+    c: torch.Tensor          # [T, *b, naug]
+    F: torch.Tensor          # [T-1, *b, ns + nc, naug]
+    f: Optional[torch.Tensor]
+    x_init: torch.Tensor     # [B, nc + ns]: (u_{-1}, x_0)
+    x: torch.Tensor          # [T, B, nc + ns]: (u_{t-1}, x_t)
+    true_dynamics: object
+
+
+def slew_block(penalty, n_state, n_ctrl, dtype, device):
+    """The slew penalty on the augmented tau (u_{t-1}, x_t, u_t) as a
+    quadratic form [naug, naug]: penalty (u_t - u_{t-1})^2 per control
+    (mpc_tpu/solver.py:182-189, reference mpc/mpc.py:362-372)."""
+    nc = n_ctrl
+    naug = n_state + 2 * nc
+    g = penalty * torch.eye(nc, dtype=dtype, device=device)
+    blk = torch.zeros((naug, naug), dtype=dtype, device=device)
+    blk[:nc, :nc] = g
+    blk[-nc:, -nc:] = g
+    blk[:nc, -nc:] = -g
+    blk[-nc:, :nc] = -g
+    return blk
+
+
+def augment_cost(C, c, blk, n_ctrl):
+    """A quadratic cost (C [..., ntau, ntau], c [..., ntau], any leading
+    layout) on the augmented tau: zero rows and columns for u_{t-1} in
+    front, plus the slew block."""
+    nc = n_ctrl
+    return (torch.nn.functional.pad(C, (nc, 0, nc, 0)) + blk,
+            torch.nn.functional.pad(c, (nc, 0)))
+
+
+def augment_lindx(F, f, n_state, n_ctrl):
+    """Linear dynamics (F [..., ns, ntau], f [..., ns] or None, any
+    leading layout) on the augmented state: the next (u_t, x_{t+1}) is
+    [[0, I], [0, F]] (u_{t-1}, x_t, u_t) (+ (0, f))
+    (mpc_tpu/solver.py:194-202, reference mpc/mpc.py:380-390)."""
+    ns, nc = n_state, n_ctrl
+    lead = F.shape[:-2]
+    top = torch.cat([torch.zeros((nc, ns + nc), dtype=F.dtype,
+                                 device=F.device),
+                     torch.eye(nc, dtype=F.dtype, device=F.device)], 1)
+    bottom = torch.cat([F.new_zeros(lead + (ns, nc)), F], -1)
+    F_aug = torch.cat([top.expand(lead + top.shape), bottom], -2)
+    f_aug = None if f is None else torch.nn.functional.pad(f, (nc, 0))
+    return F_aug, f_aug
+
+
+def augment_slew(cfg: MPCConfig, C, c, F, f, x_init, x, u, dynamics,
+                 prev_ctrl) -> SlewProblem:
+    """The slew-penalised problem as an LQR problem on the state augmented
+    with the previous control (mpc_tpu/solver.py:154-236, reference
+    mpc/mpc.py:362-445): the cost and a LinDx augmented by
+    differentiable torch operations of (C, c, F, f), so that the fixed
+    point's gradients reach them; a callable model wrapped to pass the
+    control through.  prev_ctrl is [B, n_ctrl] (``prev_ctrl_operand``).
+    With LinDx dynamics the reference would crash (mpc/mpc.py:413-416);
+    here, as in the JAX package, the augmented LinDx is used."""
+    ns, nc = cfg.n_state, cfg.n_ctrl
+    blk = slew_block(cfg.slew_rate_penalty, ns, nc, C.dtype, C.device)
+    C_aug, c_aug = augment_cost(C, c, blk, nc)
+    F_aug, f_aug = augment_lindx(F, f, ns, nc)
+    x_aug = torch.cat([torch.cat([prev_ctrl.unsqueeze(0), u[:-1]]), x], -1)
+    if isinstance(dynamics, LinDx):
+        true_dynamics = (F_aug, f_aug)
+    else:
+        def true_dynamics(tx, uu):
+            # the control passes through (reference
+            # CtrlPassthroughDynamics, mpc/dynamics.py:133-153)
+            return torch.cat([uu, dynamics(tx[..., nc:], uu)], -1)
+    return SlewProblem(C_aug, c_aug, F_aug, f_aug,
+                       torch.cat([prev_ctrl, x_init], -1), x_aug,
+                       true_dynamics)
+
+
+# ---------------------------------------------------------------------------
 # phase 1: the outer iLQR loop
 # ---------------------------------------------------------------------------
 
 def _solve_phase1(cfg: MPCConfig, x_init, cost, dynamics, u_init, u_lower,
-                  u_upper, u_zero_I, trace=None) -> Solution:
+                  u_upper, u_zero_I, prev_ctrl, trace=None) -> Solution:
     """The outer loop of mpc_tpu/solver.py:_solve_single (:295-446) for a
-    batch, on operands from ``eager_operands``, gradients off.  A list
-    ``trace`` gets one dict an iteration of the examples' decisions:
-    ``active`` (it ran), the accepted step size ``alpha``, the PNQP
-    iterations ``n_qp`` and the kept trial's ``cost`` [B]."""
+    batch, on operands from ``eager_operands`` and ``prev_ctrl_operand``,
+    gradients off.  Under a slew penalty each step solves the augmented
+    problem (``augment_slew``) and strips the states back to n_state.  At
+    ``cfg.verbose`` > 0 the Solution carries ``iter_stats`` [B, lqr_iter,
+    4]: per iteration the best cost, the full step's norm, the accepted
+    step size and the PNQP iterations, NaN where an example had stopped.
+    A list ``trace`` gets one dict an iteration of the examples'
+    decisions: ``active`` (it ran), the accepted step size ``alpha``, the
+    PNQP iterations ``n_qp``, the kept trial's ``cost`` and the full
+    step's norm ``full_du`` [B]."""
     B = x_init.shape[0]
     dtype, device = x_init.dtype, x_init.device
     quad = isinstance(cost, QuadCost)
@@ -327,6 +413,15 @@ def _solve_phase1(cfg: MPCConfig, x_init, cost, dynamics, u_init, u_lower,
     n_not_improved = torch.zeros_like(i)
     n_qp_total = torch.zeros_like(i)
     alpha = torch.ones(B, dtype=dtype, device=device)
+    slew = cfg.slew_rate_penalty is not None
+    iter_stats = (torch.full((B, cfg.lqr_iter, 4), float('nan'), dtype=dtype,
+                             device=device) if cfg.verbose > 0 else None)
+    step = dict(u_lower=u_lower, u_upper=u_upper, u_zero_I=u_zero_I,
+                delta_u=cfg.delta_u, linesearch_decay=cfg.linesearch_decay,
+                max_linesearch_iter=cfg.max_linesearch_iter,
+                pnqp_iter=cfg.pnqp_iter,
+                parallel_linesearch=cfg.parallel_linesearch,
+                parallel_riccati=uses_scan(cfg))
     for it in range(cfg.lqr_iter):
         # the while loop's condition, before each body, per example
         # (mpc_tpu/solver.py:416-421)
@@ -336,15 +431,20 @@ def _solve_phase1(cfg: MPCConfig, x_init, cost, dynamics, u_init, u_lower,
             break
         F, f = linearize_dynamics(dynamics, x, u, cfg.grad_method)
         C, c, _ = quadratize_cost(cost, x, u)
-        fwd, n_qp = lqr.lqr_step_delta(
-            x_init, C, c, F, f, x, u, n_state=cfg.n_state,
-            true_cost=(C, c) if quad else cost,
-            true_dynamics=true_dynamics,
-            u_lower=u_lower, u_upper=u_upper, u_zero_I=u_zero_I,
-            delta_u=cfg.delta_u, linesearch_decay=cfg.linesearch_decay,
-            max_linesearch_iter=cfg.max_linesearch_iter,
-            pnqp_iter=cfg.pnqp_iter,
-            parallel_linesearch=cfg.parallel_linesearch)
+        if slew:
+            sp = augment_slew(cfg, C, c, F, f, x_init, x, u, dynamics,
+                              prev_ctrl)
+            fwd, n_qp = lqr.lqr_step_delta(
+                sp.x_init, sp.C, sp.c, sp.F, sp.f, sp.x, u,
+                n_state=cfg.n_state + cfg.n_ctrl, true_cost=(sp.C, sp.c),
+                true_dynamics=sp.true_dynamics, **step)
+            # strip u_{t-1} from the augmented states (mpc/mpc.py:444)
+            fwd = fwd._replace(new_x=fwd.new_x[..., cfg.n_ctrl:])
+        else:
+            fwd, n_qp = lqr.lqr_step_delta(
+                x_init, C, c, F, f, x, u, n_state=cfg.n_state,
+                true_cost=(C, c) if quad else cost,
+                true_dynamics=true_dynamics, **step)
 
         first = i == 0
         improved = fwd.cost_total <= best_cost + cfg.best_cost_eps
@@ -365,12 +465,21 @@ def _solve_phase1(cfg: MPCConfig, x_init, cost, dynamics, u_init, u_lower,
                                               torch.zeros_like(n_qp))
         alpha = torch.where(active, fwd.alpha, alpha)
         i = i + active.to(torch.int32)
+        if iter_stats is not None:
+            # the reference's table columns (mpc/mpc.py:287-297), one row
+            # an iteration (mpc_tpu/solver.py:372-382)
+            row = torch.stack([best_cost, fwd.full_du_norm, fwd.alpha,
+                               n_qp.to(dtype)], -1)
+            iter_stats[:, it] = torch.where(active.unsqueeze(-1), row,
+                                            iter_stats[:, it])
         if trace is not None:
             trace.append(dict(active=active, alpha=fwd.alpha, n_qp=n_qp,
-                              cost=fwd.cost_total))
+                              cost=fwd.cost_total,
+                              full_du=fwd.full_du_norm))
     return Solution(x=best_x, u=best_u, costs=best_cost,
                     full_du_norm=best_du, n_iter=i, n_qp_iter=n_qp_total,
-                    converged=best_du < cfg.eps, alpha=alpha)
+                    converged=best_du < cfg.eps, alpha=alpha,
+                    iter_stats=iter_stats)
 
 
 # ---------------------------------------------------------------------------
@@ -378,23 +487,37 @@ def _solve_phase1(cfg: MPCConfig, x_init, cost, dynamics, u_init, u_lower,
 # ---------------------------------------------------------------------------
 
 def fixed_point_phase(cfg: MPCConfig, x_init, cost, dynamics, best_x,
-                      best_u, u_lower, u_upper, converged):
+                      best_u, u_lower, u_upper, converged, prev_ctrl=None):
     """Attach the differentiable KKT fixed point at a solution
     (mpc_tpu/solver.py:459-508): re-linearise the dynamics and
     re-quadratise the cost at (best_x, best_u) with gradients on, then
     ``ops/diff.make_lqr_fixed_point``, whose backward solves the
-    differential LQR problem eagerly.  Leaves in any layout the solver
-    takes; gradients come back in each leaf's own layout (summed over
-    the batch for a shared one).  With ``cfg.detach_unconverged`` the
-    unconverged examples carry none."""
+    differential LQR problem eagerly (by the O(log T) scan where
+    ``uses_scan``).  Under a slew penalty the fixed point is the
+    augmented problem's (``augment_slew``), so gradients reach C, c, F,
+    f, x_init and ``prev_ctrl`` ([B, n_ctrl] or [n_ctrl]) through the
+    augmentation.  Leaves in any layout the solver takes; gradients come
+    back in each leaf's own layout (summed over the batch for a shared
+    one).  With ``cfg.detach_unconverged`` the unconverged examples
+    carry none."""
     cost, dynamics, _, lb, ub, _ = eager_operands(
         cfg, x_init, cost, dynamics, u_lower=u_lower, u_upper=u_upper)
     bx, bu = best_x.detach(), best_u.detach()
     F, f = linearize_dynamics(dynamics, bx, bu, cfg.grad_method)
     C, c, _ = quadratize_cost(cost, bx, bu)
-    fp = make_lqr_fixed_point(cfg.n_state, lb is not None, f is not None)
+    slew = cfg.slew_rate_penalty is not None
+    xs = bx
+    if slew:
+        sp = augment_slew(cfg, C, c, F, f, x_init, bx, bu, dynamics,
+                          prev_ctrl_operand(cfg, prev_ctrl, x_init))
+        C, c, F, f, x_init, xs = sp.C, sp.c, sp.F, sp.f, sp.x_init, sp.x
+    fp = make_lqr_fixed_point(xs.shape[-1], lb is not None, f is not None,
+                              uses_scan(cfg))
     eager_counts['eager_fixed_point'] += 1
-    x, u = fp.apply(x_init, C, c, F, f, lb, ub, bx, bu)
+    x, u = fp.apply(x_init, C, c, F, f, lb, ub, xs, bu)
+    if slew:
+        # strip u_{t-1} from the augmented states (mpc/mpc.py:444)
+        x = x[..., cfg.n_ctrl:]
     if cfg.detach_unconverged:
         conv = converged[None, :, None]
         x = torch.where(conv, x, x.detach())
@@ -404,7 +527,8 @@ def fixed_point_phase(cfg: MPCConfig, x_init, cost, dynamics, best_x,
 
 def eager_batched_solve(cfg: MPCConfig, x_init, cost, dynamics, u_init=None,
                         u_lower=None, u_upper=None, u_zero_I=None,
-                        differentiable=False, trace=None) -> Solution:
+                        prev_ctrl=None, differentiable=False,
+                        trace=None) -> Solution:
     """The eager route of ``learning.batched_solve``: phase 1 with
     gradients off, then, when ``differentiable``, the fixed point at the
     solution.  Layouts as ``batched_solve`` takes them; runs on
@@ -413,11 +537,13 @@ def eager_batched_solve(cfg: MPCConfig, x_init, cost, dynamics, u_init=None,
                          u_upper, u_zero_I)
     eager_counts['eager_solve'] += 1
     with torch.no_grad():
-        sol = _solve_phase1(cfg, x_init.detach(), *ops, trace=trace)
+        sol = _solve_phase1(
+            cfg, x_init.detach(), *ops,
+            prev_ctrl_operand(cfg, prev_ctrl, x_init).detach(), trace=trace)
     if not differentiable:
         return sol
     x, u = fixed_point_phase(cfg, x_init, cost, dynamics, sol.x, sol.u,
-                             u_lower, u_upper, sol.converged)
+                             u_lower, u_upper, sol.converged, prev_ctrl)
     return sol._replace(x=x, u=u)
 
 
@@ -430,8 +556,10 @@ def solve_single(cfg: MPCConfig, x_init, cost, dynamics, u_init=None,
     x_init [n_state]; a QuadCost with C [T, ntau, ntau] (or [ntau,
     ntau]) and c [T, ntau] (or [ntau]); a LinDx with F [T-1, n_state,
     ntau] and f [T-1, n_state] or None, or a callable model; u_init,
-    bounds and u_zero_I [T, n_ctrl] (bounds may be scalars).  Returns a
-    Solution with x [T, n_state], u [T, n_ctrl] and scalar statistics;
+    bounds and u_zero_I [T, n_ctrl] (bounds may be scalars); prev_ctrl
+    [n_ctrl], the control before the horizon under a slew penalty.
+    Returns a Solution with x [T, n_state], u [T, n_ctrl] and scalar
+    statistics (iter_stats [lqr_iter, 4] at verbose > 0);
     with ``cfg.backprop`` and inputs that require grad, x and u carry
     gradients through the fixed point.  Runs on ``device``, the CUDA card
     unless the caller asks for another."""
@@ -443,12 +571,13 @@ def solve_single(cfg: MPCConfig, x_init, cost, dynamics, u_init=None,
         raise ValueError('u_lower and u_upper must both be given or '
                          'both be None')
     differentiable = wants_grad(cfg, x_init, cost, dynamics, u_lower,
-                                u_upper)
-    gap = unported_gap(cfg, prev_ctrl, x_init.dtype) or scan_gap(
-        cfg, has_bounds=u_lower is not None,
-        has_u_zero_I=u_zero_I is not None, differentiable=differentiable)
+                                u_upper, prev_ctrl)
+    gap = unported_gap(cfg, cost, x_init.dtype)
     if gap is not None:
         raise NotImplementedError(gap)
     sol = eager_batched_solve(cfg, x_init[None], cost, dynamics, u_init,
-                              u_lower, u_upper, u_zero_I, differentiable)
-    return Solution(sol.x[:, 0], sol.u[:, 0], *(v[0] for v in sol[2:8]))
+                              u_lower, u_upper, u_zero_I, prev_ctrl,
+                              differentiable)
+    return Solution(sol.x[:, 0], sol.u[:, 0], *(v[0] for v in sol[2:8]),
+                    iter_stats=None if sol.iter_stats is None
+                    else sol.iter_stats[0])

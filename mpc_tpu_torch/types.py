@@ -65,7 +65,9 @@ class Solution(NamedTuple):
     converged: torch.Tensor
     # accepted line-search step size of the last executed iteration
     alpha: torch.Tensor
-    # per-iteration history, recorded only at verbose > 0 (not ported)
+    # [B, lqr_iter, 4] per-iteration history (best cost, full-step norm,
+    # step size, PNQP iterations; NaN after an example stopped), recorded
+    # by the eager solver at verbose > 0 only
     iter_stats: Any = None
 
 

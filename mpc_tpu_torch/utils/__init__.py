@@ -1,7 +1,12 @@
 """Utilities of the port: device resolution (``device``), numpy
-conversion to and from the JAX package's arrays (``convert``) and
-central differences for gradient tests (``fd``)."""
+conversion to and from the JAX package's arrays (``convert``), central
+differences for gradient tests (``fd``), iteration logging (``logging``)
+and numerical debugging (``debug``)."""
 
+from .debug import assert_finite, finite_mask, nan_checks
 from .device import resolve_device
+from .fd import fd_grad, fd_hess, fd_jacobian
+from .logging import table_log
 
-__all__ = ['resolve_device']
+__all__ = ['resolve_device', 'fd_grad', 'fd_hess', 'fd_jacobian',
+           'table_log', 'assert_finite', 'finite_mask', 'nan_checks']

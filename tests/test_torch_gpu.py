@@ -43,6 +43,13 @@ past the horizon whose state and Jacobian rows stay in shared memory; on
 the reversed batch and small batches bitwise; and a launch with weights
 that are not float32 on the card raises instead of falling back.
 
+The closed loop (make_closed_loop) launches K1 once a step and runs its
+steps without a synchronising call (torch.cuda.set_sync_debug_mode
+'error' after a first rollout); without a card and without a device it
+raises.  A slew request on a double integrator (a LinDx of three
+augmented states) launches K3 once, within the LinDx tail of the plain
+K3, and with the library broken raises instead of falling back.
+
 K1 and K3 give each example a team of lanes, so both are also run with
 fewer, as many and more step sizes than a team has lanes, with eps > 0
 (the examples of one warp then stop at different iterations), at B = 1
@@ -661,3 +668,102 @@ def test_differentiable_nn_solve_launches_k3_and_k2(cuda):
     assert solver.eager_counts == {'eager_solve': 0, 'eager_fixed_point': 0}
     for p in dx.parameters():
         assert torch.isfinite(p.grad).all() and p.grad.abs().sum() > 0
+
+
+# ---------------------------------------------------------------------------
+# the closed loop and slew penalties on the card
+# ---------------------------------------------------------------------------
+
+def _closed_loop(device, B=64, T=20, **kw):
+    x0, dx, cost = _problem(device, B, T)
+    cfg = _cfg(T, lqr_iter=10, linesearch_decay=0.2, **kw)
+    lim = torch.tensor(2.0, device=device)
+    return mt.make_closed_loop(cfg, cost, dx, u_lower=-lim, u_upper=lim,
+                               device=device), x0, cfg, dx, cost
+
+
+def test_closed_loop_launches_k1_once_a_step(cuda):
+    roll, x0, cfg, dx, cost = _closed_loop(cuda)
+    roll(x0, 1)
+    fused.reset_launch_counts()
+    solver.reset_eager_counts()
+    out = roll(x0, 7)
+    assert fused.launch_counts == {'fused_ilqr': 7, 'fused_ilqr_long': 0}
+    assert solver.eager_counts['eager_solve'] == 0
+    assert out['xs'].shape == (8, 64, 3) and torch.isfinite(out['xs']).all()
+
+
+def test_closed_loop_steps_never_synchronise(cuda):
+    """After a first rollout (which loads the library), a rollout of the
+    kernel route runs with no synchronising call: the host queues every
+    step without reading the card."""
+    roll, x0, cfg, dx, cost = _closed_loop(cuda)
+    roll(x0, 1)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        out = roll(x0, 5)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.isfinite(out['us']).all()
+
+
+def test_closed_loop_without_a_card_raises(monkeypatch):
+    """The closed loop runs on the card unless asked for the CPU: with no
+    card and no device it raises instead of falling back."""
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    dx = PendulumDx(device='cpu')
+    q, p = dx.get_true_obj()
+    with pytest.raises(RuntimeError, match='no card'):
+        mt.make_closed_loop(_cfg(5), mt.QuadCost(torch.diag(q), p), dx)
+
+
+def _slew_lindx(device, B=256, T=40):
+    rng = np.random.RandomState(2)
+    dt = 0.05
+    F = torch.tensor([[1., dt, 0.], [0., 1., dt]], device=device)
+    F = F.expand(T - 1, 2, 3).contiguous()
+    C = torch.diag(torch.tensor([1., 0.1, 0.01], device=device))
+    c = torch.zeros(T, B, 3, device=device)
+    c[..., 0] = -torch.tensor(rng.uniform(-1, 1, B), dtype=torch.float32,
+                              device=device)
+    x0 = torch.tensor(0.5 * rng.randn(B, 2), dtype=torch.float32,
+                      device=device)
+    pc = torch.tensor(rng.uniform(-1, 1, (B, 1)), dtype=torch.float32,
+                      device=device)
+    cfg = _cfg(T, n_state=2, lqr_iter=4, max_linesearch_iter=3,
+               linesearch_decay=0.2, slew_rate_penalty=0.5)
+    return cfg, x0, mt.QuadCost(C, c), mt.LinDx(F, None), pc
+
+
+def test_slew_request_launches_k3_and_raises_rather_than_falls_back(
+        cuda, monkeypatch):
+    """A slew request on the double integrator (the augmented LinDx of
+    three states) launches K3 once, matches the plain K3 on the same
+    augmented problem within the LinDx tail; with the library broken it
+    raises and neither falls back to the plain version nor to the eager
+    solver."""
+    cfg, x0, cost, dyn, pc = _slew_lindx(cuda)
+    kw = dict(u_lower=-2.0, u_upper=2.0, prev_ctrl=pc)
+    fused.reset_launch_counts()
+    solver.reset_eager_counts()
+    sol = mt.batched_solve(cfg, x0, cost, dyn, **kw)
+    assert fused.launch_counts == {'fused_ilqr': 0, 'fused_ilqr_long': 1}
+    assert solver.eager_counts == {'eager_solve': 0, 'eager_fixed_point': 0}
+    ref = mt.batched_solve(cfg, x0.cpu(), mt.QuadCost(*(a.cpu() for a in cost)),
+                           mt.LinDx(dyn.F.cpu(), None), u_lower=-2.0,
+                           u_upper=2.0, prev_ctrl=pc.cpu(), device='cpu')
+    d = (sol.u.cpu() - ref.u).abs()
+    assert float(d.mean()) < 1e-5 and float((d > 5e-5).double().mean()) < 1e-3
+    assert sol.x.shape == (cfg.T, 256, 2)
+
+    def broken(*a, **k):
+        raise RuntimeError('the K3 library is broken')
+
+    monkeypatch.setattr(fused, '_kernel_lib_long', broken)
+    fused.reset_launch_counts()
+    solver.reset_eager_counts()
+    with pytest.raises(RuntimeError, match='broken'):
+        mt.batched_solve(cfg, x0, cost, dyn, **kw)
+    assert fused.launch_counts == {'fused_ilqr': 0, 'fused_ilqr_long': 0}
+    assert solver.eager_counts == {'eager_solve': 0, 'eager_fixed_point': 0}

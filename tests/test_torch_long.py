@@ -335,7 +335,8 @@ SCOPE_GAPS = {
     'lindx_u_zero_I': (dict(), _lin, dict(u_zero_I=torch.zeros(5, 1)),
                        'queue 2'),
     'lindx_delta_u': (dict(delta_u=0.1), _lin, {}, 'queue 2'),
-    'lindx_slew': (dict(slew_rate_penalty=0.1), _lin, {}, 'queue 1 item 5'),
+    # the augmented state is u_{t-1} and the 3 states: 4, past K3's 3
+    'lindx_slew': (dict(slew_rate_penalty=0.1), _lin, {}, 'queue 2'),
 }
 
 

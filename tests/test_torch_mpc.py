@@ -6,8 +6,9 @@
 - the reference's exit semantics; the knobs and problems the kernels do
   not take (u_zero_I, delta_u, use_fused='never', the damped pendulum,
   n_ctrl = 2, a callable cost) through the eager solver against
-  mpc_tpu's jnp path (1e-10 in float64); NotImplementedError, naming the
-  ROADMAP item, for what no route takes yet; gradients through
+  mpc_tpu's jnp path (1e-10 in float64); the knobs that no route took
+  before (slew, prev_ctrl, verbose, ANALYTIC_CHECK, the O(log T) scan)
+  against mpc_tpu.MPC; gradients through
   backprop=True, the default device, and an import of the port that
   brings in nothing of JAX or mpc_tpu.
 """
@@ -95,24 +96,61 @@ def test_exit_unconverged_raises():
     assert costs.shape == (1,)
 
 
-OUT_OF_SCOPE = {
-    'slew': (dict(slew_rate_penalty=0.1), 'item 5'),
-    'prev_ctrl': (dict(prev_ctrl=torch.zeros(1)), 'item 5'),
-    'verbose': (dict(verbose=1), 'item 5'),
-    'analytic_check': (dict(grad_method=mt.GradMethods.ANALYTIC_CHECK),
-                       'item 5'),
-    'parallel_riccati': (dict(parallel_riccati=True, use_fused='never'),
-                         'item 6'),
+# the knobs that raised NotImplementedError until ROADMAP queue 1 items 5
+# and 6 were ported: MPC keywords, each given to both packages
+SURFACE_KNOBS = {
+    'slew': dict(slew_rate_penalty=0.1),
+    'prev_ctrl': dict(prev_ctrl=np.zeros(1)),
+    'verbose': dict(verbose=1),
+    'parallel_riccati': dict(parallel_riccati=True, use_fused='never'),
 }
+# what still raises, as mpc_tpu raises it
+OUT_OF_SCOPE = {
+    'analytic_check': dict(grad_method='ANALYTIC_CHECK'),
+}
+
+
+def _knob_args(pkg, knobs):
+    a = dict(knobs, backprop=False, exit_unconverged=False)
+    if 'grad_method' in a:
+        a['grad_method'] = getattr(pkg.GradMethods, a['grad_method'])
+    if 'prev_ctrl' in a:
+        a['prev_ctrl'] = (torch.tensor if pkg is mt else jnp.asarray)(
+            a['prev_ctrl'])
+    return a
+
+
+def _jax_one_solve(knobs):
+    """``_one_solve``'s problem through mpc_tpu.MPC."""
+    x0 = np.array([[np.cos(2.0), np.sin(2.0), 0.0]])
+    jcost = mpc_tpu.QuadCost(jnp.diag(jnp.asarray(Q)), jnp.asarray(P))
+    jdx = JPendulumDx(params=jnp.asarray(PARAMS))
+    return mpc_tpu.MPC(3, 1, 5, **_knob_args(mpc_tpu, knobs))(
+        jnp.asarray(x0), jcost, jdx)
 
 
 @pytest.mark.parametrize('case', list(OUT_OF_SCOPE))
 def test_out_of_scope_knobs_raise(case):
-    """What neither the kernels nor the eager solver take raises, naming
-    the current ROADMAP item (queue 1 items 5 and 6)."""
-    kw, needle = OUT_OF_SCOPE[case]
-    with pytest.raises(NotImplementedError, match=f'ROADMAP queue 1 {needle}'):
-        _one_solve(backprop=False, exit_unconverged=False, **kw)
+    """ANALYTIC_CHECK on the pendulum, which has no grad_input, raises
+    mpc_tpu's ValueError, word for word."""
+    with pytest.raises(ValueError, match='grad_input') as want:
+        _jax_one_solve(OUT_OF_SCOPE[case])
+    with pytest.raises(ValueError) as got:
+        _one_solve(**_knob_args(mt, OUT_OF_SCOPE[case]))
+    assert str(got.value) == str(want.value)
+
+
+@pytest.mark.parametrize('case', list(SURFACE_KNOBS))
+def test_surface_knobs_match_jax_mpc(case):
+    """The knobs that no route took before queue 1 items 5 and 6 run as
+    mpc_tpu runs them: a slew penalty, prev_ctrl (unused without one),
+    verbose and the O(log T) scan solve and match mpc_tpu.MPC in float64
+    (1e-10 relative)."""
+    got = _one_solve(**_knob_args(mt, SURFACE_KNOBS[case]))
+    ref = _jax_one_solve(SURFACE_KNOBS[case])
+    for a, b in zip(got, ref):
+        b = np.asarray(b)
+        assert np.abs(a.numpy() - b).max() <= 1e-10 * np.abs(b).max()
 
 
 EAGER_KNOBS = {
@@ -195,9 +233,10 @@ def _cfg(**kw):
 
 
 def test_out_of_scope_problems_raise():
-    """Malformed layouts, one-sided bounds, 'always' outside the kernels'
-    scope and the O(log T) scan raise before anything runs; problems the
-    kernels refuse are named by ``fused.scope_gap`` (and solve eagerly:
+    """Malformed layouts, one-sided bounds and 'always' outside the
+    kernels' scope raise before anything runs (the O(log T) scan, which
+    raised too until it was ported, runs); problems the kernels refuse
+    are named by ``fused.scope_gap`` (and solve eagerly:
     test_problems_outside_the_kernels_solve_eagerly)."""
     T = 5
     x0 = torch.tensor(_x0(2))
@@ -220,14 +259,18 @@ def test_out_of_scope_problems_raise():
                                               P.astype(np.float32), 'cpu'),
                          PendulumDx(simple=False, device='cpu'),
                          device='cpu')
-    # the scan: unconstrained at T >= 128 under 'auto', or differentiable
-    with pytest.raises(NotImplementedError, match='item 6'):
-        mt.batched_solve(_cfg(T=128, use_fused='never'), x0, cost, dx,
-                         device='cpu')
-    with pytest.raises(NotImplementedError, match='item 6'):
-        mt.batched_solve(_cfg(T=128, use_fused='never', backprop=True),
-                         x0.clone().requires_grad_(), cost, dx,
-                         u_lower=-2., u_upper=2., device='cpu')
+    # the scan (unconstrained at T >= 128 under 'auto', or
+    # differentiable), which raised before ops/pscan.py, now runs
+    solver.reset_eager_counts()
+    sol = mt.batched_solve(_cfg(T=128, use_fused='never', lqr_iter=1), x0,
+                           cost, dx, device='cpu')
+    x0g = x0.clone().requires_grad_()
+    sol2 = mt.batched_solve(_cfg(T=128, use_fused='never', backprop=True,
+                                 lqr_iter=1), x0g, cost, dx, u_lower=-2.,
+                            u_upper=2., device='cpu')
+    sol2.u.sum().backward()
+    assert torch.isfinite(sol.u).all() and torch.isfinite(x0g.grad).all()
+    assert solver.eager_counts == {'eager_solve': 2, 'eager_fixed_point': 1}
     # float64 on the card: the kernels refuse it, the eager solver takes it
     gap = fused.scope_gap(_cfg(), cost, dx, dtype=torch.float64,
                           device=torch.device('cuda'))
