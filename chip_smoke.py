@@ -68,8 +68,26 @@ against the sequential recursion, and the scan in the long
 configuration's float64 gradients ([pscan]); MPC(verbose=1) and
 ANALYTIC_CHECK on the card ([verbose]).
 
-It prints one JSON line of kernel numbers, one of the eager phases, the
-card's name and power limit, and a last JSON line with the device.  Every phase raises on
+The kernels are torch.library ops (mpc_tpu_torch/ops/custom.py), so the
+port's artifacts and scale-out run on the card too, each against the live
+path: the headline exported with torch.export and answered by a fresh
+process that imports torch and the ops only ([export-serve], bitwise, one
+K1 launch a request, exported against live host to host); one artifact
+padded to B=4096 at b = 1, 1000, 4096 ([export-flex]); an artifact
+traced on CPU tensors and moved to the card ([export-host]); the long
+configuration's request through K3 ([export-long]); gradient programs
+through K1 and K2 (config 4) and through K3 and K4 (the long
+configuration's dL/dc) ([export-grad]); the closed loop at B=256, 10
+steps ([export-loop]); solve_sharded of the headline over four shards on
+the one card, bitwise ([sharded]); config 4's sharded train step against
+the unsharded one ([train-sharded]) and over two gloo processes on the
+card ([pod]); a run resumed from a checkpoint in a fresh process,
+bitwise ([checkpoint]).  The worker processes are this script with
+--serve-worker, --pod-worker or --resume-worker.
+
+It prints one JSON line of kernel numbers, one of the artifact and
+scale-out times, one of the eager phases, the card's name and power
+limit, and a last JSON line with the device.  Every phase raises on
 failure; the script then exits nonzero.  It exits nonzero without a
 result when no card is visible or when the package is not beside it.
 It imports nothing of JAX or mpc_tpu.
@@ -3361,7 +3379,731 @@ def phase_verbose(torch, device, n=64):
                              'failed')
 
 
+# ---------------------------------------------------------------------------
+# scale-out and artifacts: the kernels as torch.library ops, exported
+# programs, the sharded paths, checkpoints
+# ---------------------------------------------------------------------------
+
+# what a serving process must not load: the solver's modules
+SOLVER_MODULES = ('mpc_tpu_torch.solver', 'mpc_tpu_torch.learning',
+                  'mpc_tpu_torch.mpc', 'mpc_tpu_torch.closed_loop',
+                  'mpc_tpu_torch.ops.lqr', 'mpc_tpu_torch.ops.pnqp',
+                  'mpc_tpu_torch.ops.diff', 'mpc_tpu_torch.ops.pscan',
+                  'mpc_tpu_torch.utils.export')
+EXPORT_REQUESTS = 4
+FLEX_BATCHES = (1, 1000, B)
+LOOP_B, LOOP_STEPS = 256, 10          # bench_closed_loop's B=256
+SHARDS, SHARD_STEPS, CKPT_STEPS = 4, 3, 5
+WORKER_TIMEOUT_S = 300
+# [train-sharded] and [pod]: the sharded step's loss is the mean of
+# equal shards' means and its gradient the mean of the shards' (K2 sums
+# a shard's examples where the unsharded step sums all of them), so both
+# are the unsharded ones up to float32's rounding of those sums: a CPU
+# rehearsal of config 4 at B=1024 measured the first step's gradients
+# 1.8e-7 apart on entries of 0.02-0.3 (~1e-6 relative, a few ulps of a
+# sum of 1024 terms) and its loss 0 apart.  Each step then solves at
+# parameters that differ by that much, and the solve's line search and
+# active set pass such a difference on unevenly: after 3 Adam steps the
+# parameters (of size 0.01-7) sat 9.1e-7 apart.  Held at 1e-5 relative
+# on the loss and 1e-5 absolute on the parameters (~10x the rehearsal,
+# ~100 float32 ulps of a parameter of size 1).
+SHARD_LOSS_RTOL = 1e-5
+SHARD_THETA_ATOL = 1e-5
+
+
+def all_counts():
+    from mpc_tpu_torch.ops import fused, fused_bwd
+    return dict(fused.launch_counts, **fused_bwd.launch_counts)
+
+
+def reset_all_counts():
+    from mpc_tpu_torch.ops import fused, fused_bwd
+    fused.reset_launch_counts()
+    fused_bwd.reset_launch_counts()
+
+
+def counted(device, record, phase, expect, fn):
+    """Run ``fn`` with every launch count set to 0 before it and read
+    after it, record the launches under ``phase`` and, on the card, hold
+    them to ``expect`` ({kernel: launches}; every other kernel none)."""
+    reset_all_counts()
+    out = fn()
+    got = all_counts()
+    for name, n in got.items():
+        if n:
+            record.setdefault(name, {})[phase] = \
+                record.get(name, {}).get(phase, 0) + n
+    if device.type == 'cuda' and got != dict(
+            {k: 0 for k in got}, **expect):
+        raise AssertionError(f'[{phase}] launches {got}, expected {expect}')
+    return out
+
+
+def same_outputs(what, got, want):
+    """Raise unless each tensor of ``got`` has the bits of ``want``'s."""
+    import torch
+    for a, b in zip(got, want, strict=True):
+        if not torch.equal(a.cpu(), b.cpu()):
+            raise AssertionError(f'{what}: not bitwise equal')
+
+
+def host_to_host(torch, device, fn, req):
+    """ms of one request, from the host's tensors to the host's answer."""
+    t0 = time.perf_counter()
+    out = fn(*(a.to(device) for a in req))
+    out = [a.cpu() for a in out]
+    return (time.perf_counter() - t0) * 1e3, out
+
+
+def median(v):
+    return sorted(v)[len(v) // 2]
+
+
+def run_workers(torch, argvs, envs=None):
+    """Run this script in worker mode, one process per argument list, all
+    at once; each gets WORKER_TIMEOUT_S and is killed at it.  Returns
+    each worker's last line, parsed as JSON."""
+    procs = []
+    for i, argv in enumerate(argvs):
+        env = dict(os.environ, **(envs[i] if envs else {}))
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), *argv], cwd=HERE,
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    outs = []
+    try:
+        deadline = time.monotonic() + WORKER_TIMEOUT_S
+        for p in procs:
+            try:
+                outs.append(p.communicate(
+                    timeout=max(1.0, deadline - time.monotonic()))[0])
+            except subprocess.TimeoutExpired:
+                raise AssertionError(f'a worker {argvs} did not finish in '
+                                     f'{WORKER_TIMEOUT_S} s')
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    results = []
+    for p, out in zip(procs, outs):
+        if p.returncode != 0:
+            raise AssertionError(f'worker failed ({p.returncode}):\n'
+                                 f'{out[-4000:]}')
+        results.append(json.loads(out.strip().splitlines()[-1]))
+    return results
+
+
+def serve_worker(device, art, req, out):
+    """A serving process: torch and the ops, nothing of the solver; loads
+    the artifact, answers the requests, reports the K1 launches and the
+    solver modules it loaded."""
+    import torch
+    import mpc_tpu_torch.ops.custom  # noqa: F401  (the kernels' ops)
+    from mpc_tpu_torch.ops import fused
+    fn = torch.export.load(art).module()
+    data = torch.load(req)
+    C = data['C'].to(device)
+    fused.reset_launch_counts()
+    answers = []
+    for x0, c in data['reqs']:
+        answers.append([a.cpu() for a in fn(x0.to(device), C,
+                                             c.to(device))])
+    launches = fused.launch_counts['fused_ilqr']
+    torch.save(answers, out)
+    print(json.dumps({'launches': launches,
+                      'solver_modules': [m for m in SOLVER_MODULES
+                                         if m in sys.modules]}))
+
+
+def phase_export_serve(torch, device, record, tmp, n=B):
+    """The headline exported on the card, answered by a fresh process
+    that imports torch and mpc_tpu_torch.ops.custom only: the answers
+    bitwise the live batched_solve's, one K1 launch a request, the graph
+    one k1_solve node; then exported against live host to host in one
+    process.  Returns the ms of both."""
+    import numpy as np
+    import mpc_tpu_torch as mt
+    from mpc_tpu_torch.utils import export as ex
+    cfg = mt.MPCConfig(**HEADLINE)
+    dx, cost = problem(torch, device)
+    data = counted(device, record, 'export-serve', {}, lambda: ex.export_solve(
+        cfg, dx, cost, x0_batch(n, 200, torch, device), u_lower=-2.0,
+        u_upper=2.0, device=device))
+    nodes = ex.kernel_nodes(data)
+    log(f'[export-serve] the headline exported on the card: '
+        f'{len(data)} bytes, kernel nodes {nodes}; {card_line()}')
+    if nodes != {'k1_solve': 1}:
+        raise AssertionError(f'the artifact holds {nodes}, not one K1')
+    rng = np.random.RandomState(7)
+    reqs = [(x0_batch(n, 300 + i, torch, 'cpu'),
+             cost.c.cpu() + torch.tensor(0.1 * rng.randn(4),
+                                         dtype=torch.float32))
+            for i in range(EXPORT_REQUESTS)]
+    art, req, out = (os.path.join(tmp, f) for f in
+                     ('headline.pt2', 'requests.pt', 'answers.pt'))
+    with open(art, 'wb') as fh:
+        fh.write(data)
+    torch.save({'reqs': reqs, 'C': cost.C.cpu()}, req)
+    t0 = time.perf_counter()
+    (res,) = run_workers(torch, [['--serve-worker', str(device), art, req,
+                                  out]])
+    log(f'  a fresh process ({time.perf_counter() - t0:.1f} s) loaded it '
+        f'and answered {len(reqs)} requests: K1 launches {res["launches"]}, '
+        f'solver modules loaded there {res["solver_modules"]}')
+    if res['solver_modules'] or (device.type == 'cuda'
+                                 and res['launches'] != len(reqs)):
+        raise AssertionError('the serving process loaded the solver or did '
+                             'not launch K1 once a request')
+    record.setdefault('fused_ilqr', {})['export-serve (fresh process)'] = \
+        res['launches']
+    answers = torch.load(out)
+
+    def live(x0, c):
+        sol = mt.batched_solve(cfg, x0, mt.QuadCost(cost.C, c), dx,
+                               u_lower=-2.0, u_upper=2.0, device=device)
+        return sol.x, sol.u, sol.costs
+
+    for (x0, c), got in zip(reqs, answers):
+        same_outputs('[export-serve] the fresh process against live', got,
+                     live(x0.to(device), c.to(device)))
+    fn = ex.load_fn(data)
+    runs = {'live': live, 'exported': lambda x0, c: fn(x0, cost.C, c)}
+    for f in runs.values():
+        host_to_host(torch, device, f, reqs[0])
+    times = {k: [] for k in runs}
+    for i, req_i in enumerate(reqs * 2):
+        outs = {}
+        for what in list(runs) if i % 2 == 0 else list(runs)[::-1]:
+            ms_i, outs[what] = counted(
+                device, record, 'export-serve', {'fused_ilqr': 1},
+                lambda: host_to_host(torch, device, runs[what], req_i))
+            times[what].append(ms_i)
+        same_outputs('[export-serve] in-process artifact against live',
+                     outs['exported'], outs['live'])
+    ms = {k: median(v) for k, v in times.items()}
+    log(f'  host to host, one process, {len(times["live"])} requests each '
+        f'in turns: live median {ms["live"]:.3f} ms '
+        f'({" ".join(f"{v:.3f}" for v in times["live"])}), exported '
+        f'{ms["exported"]:.3f} ms '
+        f'({" ".join(f"{v:.3f}" for v in times["exported"])}); bitwise; '
+        f'{card_line()}')
+    return ms
+
+
+def phase_export_flex(torch, device, record):
+    """One artifact padded to max_batch=4096 at b = 1, 1000 and 4096: one
+    k1_solve node, one launch a call, the first b rows bitwise the live
+    solve at b."""
+    import mpc_tpu_torch as mt
+    from mpc_tpu_torch.utils import export as ex
+    cfg = mt.MPCConfig(**HEADLINE)
+    dx, cost = problem(torch, device)
+    x0 = x0_batch(B, 201, torch, device)
+    data = ex.export_solve(cfg, dx, cost, x0, u_lower=-2.0, u_upper=2.0,
+                           polymorphic_batch=True, max_batch=B,
+                           device=device)
+    nodes = ex.kernel_nodes(data)
+    fn = ex.load_fn(data)
+    for b in FLEX_BATCHES:
+        got = counted(device, record, 'export-flex', {'fused_ilqr': 1},
+                      lambda: fn(x0[:b], cost.C, cost.c))
+        sol = mt.batched_solve(cfg, x0[:b], cost, dx, u_lower=-2.0,
+                               u_upper=2.0, device=device)
+        if got[1].shape != (T, b, 1):
+            raise AssertionError(f'[export-flex] b={b}: shape '
+                                 f'{tuple(got[1].shape)}')
+        same_outputs(f'[export-flex] b={b}', got, (sol.x, sol.u, sol.costs))
+    log(f'[export-flex] max_batch={B}, kernel nodes {nodes}: b = '
+        f'{", ".join(map(str, FLEX_BATCHES))} bitwise the live solve at b, '
+        'one K1 launch a call')
+    if nodes != {'k1_solve': 1}:
+        raise AssertionError('[export-flex] the padded artifact lost K1')
+
+
+def phase_export_host(torch, device, record):
+    """An artifact traced on CPU tensors for the card: the route is the
+    card's, move_to_device_pass moves it, and it runs K1 there, bitwise
+    the live card solve."""
+    import mpc_tpu_torch as mt
+    from mpc_tpu_torch.models import PendulumDx
+    from mpc_tpu_torch.utils import export as ex
+    cfg = mt.MPCConfig(**HEADLINE)
+    dx, cost = problem(torch, device)
+    x0 = x0_batch(B, 202, torch, device)
+    cpu = torch.device('cpu')
+    data = ex.export_solve(cfg, PendulumDx(device=cpu),
+                           mt.QuadCost(cost.C.cpu(), cost.c.cpu()), x0.cpu(),
+                           u_lower=-2.0, u_upper=2.0, device=device)
+    fn = ex.load_fn(data)
+    got = counted(device, record, 'export-host', {'fused_ilqr': 1},
+                  lambda: fn(x0, cost.C, cost.c))
+    sol = mt.batched_solve(cfg, x0, cost, dx, u_lower=-2.0, u_upper=2.0,
+                           device=device)
+    same_outputs('[export-host]', got, (sol.x, sol.u, sol.costs))
+    log(f'[export-host] traced on CPU tensors, moved to {device} by '
+        f'move_to_device_pass, kernel nodes {ex.kernel_nodes(data)}: one K1 '
+        'launch, bitwise the live card solve')
+
+
+def phase_export_long(torch, device, record):
+    """The long configuration's request (T=160, B=4096, shared LinDx F,
+    box +-2, lqr_iter=4) exported: one k3_solve node, bitwise live."""
+    import dataclasses
+    import mpc_tpu_torch as mt
+    from mpc_tpu_torch.utils import export as ex
+    cfg, x0, cost, dyn, _ = long_problem(torch, device)
+    cfg = dataclasses.replace(cfg, backprop=False)
+    data = ex.export_solve(cfg, dyn, cost, x0, u_lower=-2.0, u_upper=2.0,
+                           device=device)
+    nodes = ex.kernel_nodes(data)
+    got = counted(device, record, 'export-long', {'fused_ilqr_long': 1},
+                  lambda: ex.load_fn(data)(x0, cost.C, cost.c, dyn.F))
+    sol = mt.batched_solve(cfg, x0, cost, dyn, u_lower=-2.0, u_upper=2.0,
+                           device=device)
+    same_outputs('[export-long]', got, (sol.x, sol.u, sol.costs))
+    log(f'[export-long] T={LONG_T}, B={x0.shape[0]}, runtime inputs '
+        f'(x_init, C, c, F), kernel nodes {nodes}: one K3 launch, bitwise '
+        'live')
+    if nodes != {'k3_solve': 1}:
+        raise AssertionError('[export-long] the artifact does not hold K3')
+
+
+def exp_saving_input(torch):
+    """torch.exp whose backward recomputes exp(q) from its saved input q.
+    torch.export cannot trace torch.autograd.grad through an operation
+    whose backward reads its saved output (exp, sigmoid, tanh: autograd
+    unpacks a copy of the output that the tracer does not know, and the
+    export refuses it as a fake constant; ROADMAP section 3), so config
+    4's learned cost diag(exp(q_log)) is written with this in its
+    gradient program.  exp(q) recomputed is the saved output's bits, so
+    the gradient is the live one's."""
+    class Exp(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q):
+            ctx.save_for_backward(q)
+            return torch.exp(q)
+
+        @staticmethod
+        def backward(ctx, g):
+            (q,) = ctx.saved_tensors
+            return g * torch.exp(q)
+    return Exp.apply
+
+
+def phase_export_grad(torch, device, record):
+    """Gradient programs, torch.autograd.grad through the solve, exported:
+    config 4's loss and gradients to (q_log, p) through K1 and K2, and the
+    long configuration's dL/dc through K3 and K4; each bitwise the live
+    gradient, one launch of each kernel a call."""
+    import mpc_tpu_torch as mt
+    from mpc_tpu_torch.utils import export as ex
+    dx, _ = problem(torch, device)
+    theta, make_cost = config4_theta(torch, device)
+    x0, u_exp = config4_data(1024, torch, device)
+    cfg = mt.MPCConfig(**TRAIN)
+    exp = exp_saving_input(torch)
+
+    def grad4(q_log, p, exported=True):
+        th = {'q_log': q_log.detach().requires_grad_(),
+              'p': p.detach().requires_grad_()}
+        cost_of = make_cost if not exported else (
+            lambda t: mt.QuadCost(torch.diag(exp(t['q_log'])), t['p']))
+        loss = mt.imitation_loss(th, cfg, x0, u_exp, cost_of,
+                                 lambda _: dx, u_lower=-2.0, u_upper=2.0,
+                                 device=device)
+        return (loss.detach(),
+                *torch.autograd.grad(loss, [th['q_log'], th['p']]))
+
+    F, C, xl, ul = long_data(torch, device)
+    dyn = mt.LinDx(F, None)
+    cfg_long = mt.MPCConfig(**LONG)
+
+    def grad_long(c):
+        c = c.detach().requires_grad_()
+        loss = mt.imitation_loss({'c': c}, cfg_long, xl, ul,
+                                 lambda th: mt.QuadCost(C, th['c']),
+                                 lambda _: dyn, u_lower=-2.0, u_upper=2.0,
+                                 device=device)
+        return loss.detach(), torch.autograd.grad(loss, c)[0]
+
+    for what, fn, args, want in (
+            ('config 4, B=1024', grad4,
+             (theta['q_log'].detach(), theta['p'].detach()),
+             {'fused_ilqr': 1, 'fused_kkt_bwd': 1}),
+            (f'long, T={LONG_T}, B={LONG_B}, dL/dc', grad_long,
+             (torch.zeros(LONG_T, 4, device=device),),
+             {'fused_ilqr_long': 1, 'fused_kkt_bwd_long': 1})):
+        try:
+            data = ex.export_fn(fn, *args)
+        except Exception as e:
+            raise AssertionError(f'[export-grad] torch.export cannot carry '
+                                 f'the {what} gradient program: {e!r}')
+        got = counted(device, record, 'export-grad', want,
+                      lambda: ex.load_fn(data)(*args))
+        # the live gradient: config 4's own cost, torch.exp and all
+        live = grad4(*args, exported=False) if fn is grad4 else fn(*args)
+        same_outputs(f'[export-grad] {what}', got, live)
+        log(f'[export-grad] {what}: kernel nodes {ex.kernel_nodes(data)}, '
+            f'launches {want}; loss and gradients bitwise the live ones '
+            f'(largest |gradient| {float(got[1].abs().max()):.4e})')
+
+
+def phase_export_loop(torch, device, record):
+    """export_closed_loop at bench_closed_loop's B=256, 10 steps: ten
+    k1_solve nodes, ten launches a rollout, bitwise the live loop."""
+    import mpc_tpu_torch as mt
+    from mpc_tpu_torch.utils import export as ex
+    cfg = mt.MPCConfig(grad_method=mt.GradMethods.AUTO_DIFF, **HEADLINE)
+    dx, cost = problem(torch, device)
+    x0 = x0_batch(LOOP_B, 0, torch, device)
+    data = ex.export_closed_loop(cfg, cost, dx, x0, LOOP_STEPS,
+                                 u_lower=-2.0, u_upper=2.0, device=device)
+    nodes = ex.kernel_nodes(data)
+    got = counted(device, record, 'export-loop',
+                  {'fused_ilqr': LOOP_STEPS},
+                  lambda: ex.load_fn(data)(x0))
+    ref = mt.make_closed_loop(cfg, cost, dx, u_lower=-2.0, u_upper=2.0,
+                              device=device)(x0, LOOP_STEPS)
+    same_outputs('[export-loop]', [got[k] for k in ref], ref.values())
+    log(f'[export-loop] B={LOOP_B}, {LOOP_STEPS} steps, kernel nodes '
+        f'{nodes}: bitwise the live make_closed_loop')
+    if nodes != {'k1_solve': LOOP_STEPS}:
+        raise AssertionError('[export-loop] not one K1 a step')
+
+
+def phase_sharded(torch, device, record, reps=10):
+    """solve_sharded of the headline over four shards of 1024 on the one
+    card, bitwise the unsharded solve; a mesh of one card against
+    batched_solve, host to host in turns, and the four shards."""
+    import mpc_tpu_torch as mt
+    from mpc_tpu_torch.parallel import make_mesh, solve_sharded
+    cfg = mt.MPCConfig(**HEADLINE)
+    dx, cost = problem(torch, device)
+    x0 = x0_batch(B, 203, torch, device)
+    kw = dict(u_lower=-2.0, u_upper=2.0)
+    mesh4, mesh1 = make_mesh([device] * SHARDS), make_mesh([device])
+    sol = counted(device, record, 'sharded', {'fused_ilqr': SHARDS},
+                  lambda: solve_sharded(cfg, mesh4, x0, cost, dx, **kw))
+    one = mt.batched_solve(cfg, x0, cost, dx, device=device, **kw)
+    same_outputs('[sharded] four shards against the unsharded solve',
+                 sol[:8], one[:8])
+    runs = {'batched_solve': lambda x: mt.batched_solve(
+                cfg, x, cost, dx, device=device, **kw),
+            'mesh of 1': lambda x: solve_sharded(cfg, mesh1, x, cost, dx,
+                                                 **kw),
+            f'mesh of {SHARDS}': lambda x: solve_sharded(cfg, mesh4, x, cost,
+                                                         dx, **kw)}
+    req = (x0.cpu(),)
+    times = {k: [] for k in runs}
+    for i in range(reps):
+        names = list(runs) if i % 2 == 0 else list(runs)[::-1]
+        for name in names:
+            times[name].append(host_to_host(
+                torch, device, lambda x: (runs[name](x).u,), req)[0])
+    ms = {k: median(v[1:]) for k, v in times.items()}
+    log(f'[sharded] headline B={B} over {SHARDS} shards of {B // SHARDS} on '
+        f'{mesh4[0]}: bitwise the unsharded solve, {SHARDS} K1 launches; '
+        'host to host, median of ' + str(reps - 1) + ' in turns: '
+        + ', '.join(f'{k} {v:.3f} ms' for k, v in ms.items())
+        + f'; {card_line()}')
+    return ms
+
+
+class Config4Run:
+    """Config 4 from theta's start under the step that ``make_step(
+    optimizer, make_cost, dx)`` builds: ``steps(k)`` takes k steps and
+    returns the losses, each step's ms in ``ms``."""
+
+    def __init__(self, torch, device, make_step, n=1024):
+        self.torch, self.device = torch, device
+        dx, _ = problem(torch, device)
+        self.theta, make_cost = config4_theta(torch, device)
+        self.x0, self.u_exp = config4_data(n, torch, device)
+        self.opt = torch.optim.Adam(self.theta.values(), lr=1e-2)
+        self.step = make_step(self.opt, make_cost, dx)
+        self.ms = []
+
+    def steps(self, k):
+        losses = []
+        for _ in range(k):
+            t0 = time.perf_counter()
+            losses.append(float(self.step(self.theta, self.x0, self.u_exp)))
+            sync(self.torch, self.device)
+            self.ms.append((time.perf_counter() - t0) * 1e3)
+        return losses
+
+
+def hold_shard_step(what, losses, theta, ref_losses, ref_theta):
+    gap_loss = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
+    gap_theta = max(float((theta[k].detach().cpu()
+                           - ref_theta[k].detach().cpu()).abs().max())
+                    for k in theta)
+    log(f'  {what}: loss relative gap {gap_loss:.3e} (bound '
+        f'{SHARD_LOSS_RTOL}), parameters {gap_theta:.3e} (bound '
+        f'{SHARD_THETA_ATOL:.1e})')
+    if gap_loss > SHARD_LOSS_RTOL or gap_theta > SHARD_THETA_ATOL:
+        raise AssertionError(f'{what}: outside float32\'s rounding of a mean '
+                             'of means')
+
+
+def train_step_of(torch, device, mesh=None):
+    """A ``make_step`` for Config4Run: config 4's sharded step over
+    ``mesh``, or the unsharded one."""
+    import mpc_tpu_torch as mt
+    cfg = mt.MPCConfig(**TRAIN)
+    kw = dict(u_lower=-2.0, u_upper=2.0)
+
+    def make_step(opt, make_cost, dx):
+        if mesh is None:
+            return mt.make_imitation_train_step(
+                cfg, opt, make_cost, lambda _: dx, device=device, **kw)
+        return mt.make_sharded_train_step(cfg, mesh, opt, make_cost,
+                                          lambda _: dx, **kw)
+    return make_step
+
+
+def phase_train_sharded(torch, device, record, timed_steps=6):
+    """Config 4, B=1024: make_sharded_train_step over four shards on the
+    one card against make_imitation_train_step, SHARD_STEPS steps each
+    from the same start; then both step on in turns for their times."""
+    from mpc_tpu_torch.parallel import make_mesh
+    mesh = make_mesh([device] * SHARDS)
+    sharded = Config4Run(torch, device, train_step_of(torch, device, mesh))
+    unsharded = Config4Run(torch, device, train_step_of(torch, device))
+    ls = counted(device, record, 'train-sharded',
+                 {'fused_ilqr': SHARDS * SHARD_STEPS,
+                  'fused_kkt_bwd': SHARDS * SHARD_STEPS},
+                 lambda: sharded.steps(SHARD_STEPS))
+    lu = unsharded.steps(SHARD_STEPS)
+    log(f'[train-sharded] config 4, B=1024 over {SHARDS} shards on '
+        f'{mesh[0]}, {SHARD_STEPS} steps: losses {ls}, unsharded {lu}')
+    hold_shard_step('against make_imitation_train_step', ls, sharded.theta,
+                    lu, unsharded.theta)
+    for i in range(timed_steps):
+        for run in ((sharded, unsharded) if i % 2 == 0
+                    else (unsharded, sharded)):
+            run.steps(1)
+    step_ms = {'sharded': median(sharded.ms[SHARD_STEPS:]),
+               'unsharded': median(unsharded.ms[SHARD_STEPS:])}
+    log(f'  step ms, median of {timed_steps} in turns: sharded '
+        f'{step_ms["sharded"]:.3f}, unsharded {step_ms["unsharded"]:.3f}; '
+        f'{card_line()}')
+    return step_ms
+
+
+def pod_worker(device, out):
+    """A process of the [pod] group: config 4's sharded step over the
+    processes, SHARD_STEPS steps on its half of B=1024."""
+    import torch
+    import torch.distributed as dist
+    import mpc_tpu_torch as mt
+    from mpc_tpu_torch import parallel
+    device = torch.device(device)
+    parallel.initialize(timeout_s=WORKER_TIMEOUT_S)
+    mesh = parallel.make_pod_mesh()
+    dx, _ = problem(torch, device)
+    theta, make_cost = config4_theta(torch, device)
+    parallel.replicate(theta)
+    x0, u_exp = config4_data(1024, torch, device)
+    sl = parallel.pod_batch_spec(1024)
+    step = mt.make_sharded_train_step(
+        mt.MPCConfig(**TRAIN), mesh, torch.optim.Adam(theta.values(),
+                                                     lr=1e-2),
+        make_cost, lambda _: dx, u_lower=-2.0, u_upper=2.0)
+    reset_all_counts()
+    losses = [float(step(theta, x0[sl], u_exp[:, sl]))
+              for _ in range(SHARD_STEPS)]
+    torch.save({k: v.detach().cpu() for k, v in theta.items()}, out)
+    print(json.dumps({'rank': dist.get_rank(),
+                      'backend': dist.get_backend(),
+                      'mesh': list(mesh.shape), 'losses': losses,
+                      'launches': all_counts()}))
+    dist.destroy_process_group()
+
+
+def phase_pod(torch, device, record, tmp):
+    """Two processes on the one card (gloo, initialize from the
+    environment) run config 4's sharded step: both ranks end with the
+    same parameters, bit for bit, within the [train-sharded] bound of the
+    in-process two-shard step."""
+    import socket
+    from mpc_tpu_torch.parallel import make_mesh
+    s = socket.socket()
+    s.bind(('localhost', 0))
+    port = str(s.getsockname()[1])
+    s.close()
+    outs = [os.path.join(tmp, f'pod{r}.pt') for r in range(2)]
+    envs = [dict(MASTER_ADDR='localhost', MASTER_PORT=port, WORLD_SIZE='2',
+                 RANK=str(r)) for r in range(2)]
+    t0 = time.perf_counter()
+    res = run_workers(torch, [['--pod-worker', str(device), o]
+                              for o in outs], envs)
+    wall = time.perf_counter() - t0
+    thetas = [torch.load(o) for o in outs]
+    same = all(torch.equal(thetas[0][k], thetas[1][k]) for k in thetas[0])
+    log(f'[pod] 2 processes on one card, {res[0]["backend"]}, mesh '
+        f'{res[0]["mesh"]}, {SHARD_STEPS} steps ({wall:.1f} s): losses '
+        f'{res[0]["losses"]} / {res[1]["losses"]}, launches '
+        f'{[r["launches"] for r in res]}, parameters bitwise equal across '
+        f'the ranks: {same}')
+    for r in res:
+        for name, n in r['launches'].items():
+            if n:
+                record.setdefault(name, {})[f'pod rank {r["rank"]}'] = n
+        if device.type == 'cuda' and (
+                r['launches']['fused_ilqr'] != SHARD_STEPS
+                or r['launches']['fused_kkt_bwd'] != SHARD_STEPS):
+            raise AssertionError(f'[pod] rank {r["rank"]} launches '
+                                 f'{r["launches"]}')
+    if not same or res[0]['losses'] != res[1]['losses']:
+        raise AssertionError('[pod] the ranks took different steps')
+    two = Config4Run(torch, device, train_step_of(
+        torch, device, make_mesh([device] * 2)))
+    hold_shard_step('rank 0 against the in-process two-shard step',
+                    res[0]['losses'], thetas[0], two.steps(SHARD_STEPS),
+                    two.theta)
+
+
+def resume_worker(device, ckpt, out):
+    """[checkpoint]'s fresh process: load the state, CKPT_STEPS more
+    steps of config 4."""
+    import torch
+    from mpc_tpu_torch.utils import load_checkpoint
+    device = torch.device(device)
+    state = load_checkpoint(ckpt, device=device)
+    run = Config4Run(torch, device, train_step_of(torch, device))
+    with torch.no_grad():
+        for k, v in run.theta.items():
+            v.copy_(state['theta'][k])
+    run.opt.load_state_dict(state['opt_state'])
+    reset_all_counts()
+    run.steps(CKPT_STEPS)
+    theta = run.theta
+    torch.save({k: v.detach().cpu() for k, v in theta.items()}, out)
+    print(json.dumps({'step': state['step'], 'launches': all_counts()}))
+
+
+def phase_checkpoint(torch, device, record, tmp):
+    """Config 4: CKPT_STEPS steps, save_checkpoint, load_checkpoint in a
+    fresh process, CKPT_STEPS more: bitwise the 2 CKPT_STEPS
+    uninterrupted steps."""
+    import mpc_tpu_torch as mt
+    from mpc_tpu_torch.utils import save_checkpoint
+    run = Config4Run(torch, device, train_step_of(torch, device))
+    counted(device, record, 'checkpoint',
+            {'fused_ilqr': CKPT_STEPS, 'fused_kkt_bwd': CKPT_STEPS},
+            lambda: run.steps(CKPT_STEPS))
+    ckpt, out = os.path.join(tmp, 'ckpt.pt'), os.path.join(tmp, 'resumed.pt')
+    save_checkpoint(ckpt, mt.TrainState(
+        {k: v.detach() for k, v in run.theta.items()}, run.opt.state_dict(),
+        CKPT_STEPS))
+    (res,) = run_workers(torch, [['--resume-worker', str(device), ckpt,
+                                  out]])
+    for name in ('fused_ilqr', 'fused_kkt_bwd'):
+        record.setdefault(name, {})['checkpoint (fresh process)'] = \
+            res['launches'][name]
+    whole = Config4Run(torch, device, train_step_of(torch, device))
+    whole.steps(2 * CKPT_STEPS)
+    ref = whole.theta
+    resumed = torch.load(out)
+    same = all(torch.equal(resumed[k], ref[k].detach().cpu()) for k in ref)
+    log(f'[checkpoint] config 4: {CKPT_STEPS} steps, saved, resumed in a '
+        f'fresh process at step {res["step"]} ({res["launches"]}), '
+        f'{CKPT_STEPS} more: bitwise the {2 * CKPT_STEPS} uninterrupted '
+        f'steps: {same}')
+    if not same or (device.type == 'cuda'
+                    and res['launches']['fused_ilqr'] != CKPT_STEPS):
+        raise AssertionError('[checkpoint] the resumed run differs')
+
+
+def scale_entries(record, timings):
+    """The kernels line's entries of the scale-out and artifact paths: per
+    kernel its launches in each new phase (counts set to 0 before each,
+    read after), its error against its plain version and its times at
+    that shape from this run's earlier phases (the same kernel, the same
+    operands' shapes)."""
+    entries = []
+    for name, source, replaces, key in (
+            ('fused_ilqr', 'fused_ilqr.cu', 'mpc_tpu/ops/fused.py:617', 'k1'),
+            ('fused_kkt_bwd', 'fused_kkt_bwd.cu',
+             'mpc_tpu/ops/fused_bwd.py:251', 'k2'),
+            ('fused_ilqr_long', 'fused_ilqr_long.cu',
+             'mpc_tpu/ops/fused.py:1126', 'k3'),
+            ('fused_kkt_bwd_long', 'fused_kkt_bwd_long.cu',
+             'mpc_tpu/ops/fused_bwd.py:413', 'k4')):
+        phases = record.get(name, {})
+        if not phases:
+            raise AssertionError(f'{name} was never launched on the '
+                                 'scale-out and artifact paths')
+        err, timing = timings[key]
+        entries.append({
+            'name': f'{name} (op, artifacts and scale-out)',
+            'path': 'artifacts and scale-out', 'route': 'cuda',
+            'source': f'mpc_tpu_torch/csrc/{source}', 'replaces': replaces,
+            'op': f'mpc_tpu_torch::{OP_OF[name]}',
+            'launches': sum(phases.values()), 'launches_by_phase': phases,
+            'max_abs_err': err, 'artifact_vs_live_max_abs_err': 0.0,
+            'library_ms': None,
+            **{k: timing[k] for k in ('ms', 'plain_ms', 'bound_ms',
+                                      'bound_by')}})
+    return entries
+
+
+OP_OF = {'fused_ilqr': 'k1_solve', 'fused_kkt_bwd': 'k2_backward',
+         'fused_ilqr_long': 'k3_solve', 'fused_kkt_bwd_long': 'k4_backward'}
+
+
+def phases_scale(torch, device):
+    """The scale-out and artifact phases in order; returns the launches
+    by kernel and phase, the serving and sharding ms and the phases'
+    seconds."""
+    import shutil
+    import tempfile
+    root = os.path.join(HERE, 'build', 'chip_smoke')
+    os.makedirs(root, exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=root)
+    record, secs = {}, {}
+    try:
+        for name, run in (
+                ('export-serve', lambda: phase_export_serve(
+                    torch, device, record, tmp)),
+                ('export-flex', lambda: phase_export_flex(
+                    torch, device, record)),
+                ('export-host', lambda: phase_export_host(
+                    torch, device, record)),
+                ('export-long', lambda: phase_export_long(
+                    torch, device, record)),
+                ('export-grad', lambda: phase_export_grad(
+                    torch, device, record)),
+                ('export-loop', lambda: phase_export_loop(
+                    torch, device, record)),
+                ('sharded', lambda: phase_sharded(torch, device, record)),
+                ('train-sharded', lambda: phase_train_sharded(
+                    torch, device, record)),
+                ('pod', lambda: phase_pod(torch, device, record, tmp)),
+                ('checkpoint', lambda: phase_checkpoint(
+                    torch, device, record, tmp))):
+            t0 = time.perf_counter()
+            secs[name] = (run(), time.perf_counter() - t0)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log('[scale] the artifact and scale-out phases took '
+        + ', '.join(f'{v[1]:.1f} s [{k}]' for k, v in secs.items())
+        + f': {sum(v[1] for v in secs.values()):.1f} s')
+    return record, {k: v[0] for k, v in secs.items()}
+
+
+WORKERS = {'--serve-worker': serve_worker, '--pod-worker': pod_worker,
+           '--resume-worker': resume_worker}
+
+
 def main():
+    if len(sys.argv) > 1:
+        # a worker process of [export-serve], [pod] or [checkpoint]
+        sys.path.insert(0, HERE)
+        WORKERS[sys.argv[1]](*sys.argv[2:])
+        return 0
     try:
         import torch
     except ImportError:
@@ -3432,6 +4174,7 @@ def main():
     t_s.append(time.perf_counter())
     phase_verbose(torch, device)
     t_s.append(time.perf_counter())
+    scale, scale_ms = phases_scale(torch, device)
     log(f'[surface] the new phases took {t_closed - t_new:.1f} s '
         f'[closed-loop], {t_slew - t_closed:.1f} s [slew-k3], '
         f'{t_s[1] - t_s[0]:.1f} s [slew-eager], {t_s[2] - t_s[1]:.1f} s '
@@ -3532,7 +4275,17 @@ def main():
                       f'share(|du|>{TAIL_ENTRY})<{LONG_TAIL_SHARE}',
          'library_ms': None,
          **{k: slew[k] for k in ('ms', 'plain_ms', 'bound_ms',
-                                 'bound_by')}}]}))
+                                 'bound_by')}},
+        *scale_entries(scale, {'k1': (max_err, timing),
+                               'k2': (bwd_err, timing_bwd),
+                               'k3': (long_err, timing_long),
+                               'k4': (bwd_long_err, timing_bwd_long)})]}))
+    # host-to-host ms of the scale-out and artifact phases
+    log(json.dumps({'artifacts_and_scale_out': {
+        'export_serve_ms': scale_ms['export-serve'],
+        'sharded_ms': scale_ms['sharded'],
+        'train_sharded_step_ms': scale_ms['train-sharded'],
+        'card': card}}))
     # the eager solver's phases: configuration, route, eager solves
     # counted in the phase, largest error against its reference, the
     # tolerance and the median host ms of a solve (or of a backward)

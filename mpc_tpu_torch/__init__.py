@@ -21,8 +21,15 @@ the state with the previous control: a LinDx of 2 states and 1 control
 then solves in K3, everything else on the eager solver, whose fixed
 point is the slew backward.  ``parallel_riccati`` (True, or 'auto' at
 T >= 128) takes the eager solver's unconstrained steps and exact solves
-through the O(log T) Riccati scan (``ops/pscan.py``).  The sharded paths,
-checkpoints and export wait for ROADMAP queue 1 item 8.
+through the O(log T) Riccati scan (``ops/pscan.py``).
+
+The kernels are ``torch.library`` ops (``ops/custom.py``), so a solve, a
+gradient through it or a closed loop exports with ``torch.export``
+(``utils/export.py``) and runs where only the ops are imported.  A batch
+is split over several devices by ``parallel.solve_sharded`` and trained
+over them, or over processes, by ``make_sharded_train_step``; a training
+state saves and loads with ``utils.save_checkpoint`` and
+``utils.load_checkpoint``.
 
 Public surface:
   MPC                        - reference-compatible batched solver class
@@ -32,6 +39,8 @@ Public surface:
                                with cfg.backprop)
   solve_single               - one instance through the eager solver
   imitation_loss, make_imitation_train_step - training through the solve
+  make_sharded_train_step, TrainState - data-parallel training over a
+                               mesh of devices or processes
   make_closed_loop           - receding-horizon rollouts on the device
   QuadCost, LinDx            - cost / linear-dynamics tuples
   GradMethods, MPCConfig, Solution
@@ -41,28 +50,64 @@ Public surface:
                              - the learned, affine and passthrough models
                                and the robust cost (also in ``models``)
   models.PendulumDx, models.CartpoleDx
+  parallel                   - make_mesh, shard_batch, solve_sharded and
+                               the multi-process helpers
   utils.finite_mask, utils.assert_finite, utils.nan_checks,
   utils.table_log            - numerical debugging and iteration logging
+  utils.save_checkpoint, utils.load_checkpoint
+  utils.export               - export_solve, export_closed_loop,
+                               export_fn, load_fn
+
+The solver's modules load at the first use of a name that needs them,
+so ``import mpc_tpu_torch.ops.custom`` (what an exported program needs)
+imports none of them.
 """
 
+import importlib
+
 from .types import GradMethods, LinDx, MPCConfig, QuadCost, Solution
-from .mpc import MPC, SlewRateCost
-from .learning import (batched_solve, imitation_loss,
-                       make_imitation_train_step)
-from .closed_loop import make_closed_loop
-from .solver import (linearize_dynamics, quadratize_cost, rollout,
-                     solve_single, trajectory_cost)
 from . import models, utils
 from .models import (AffineDynamics, CtrlPassthroughDynamics, NNDynamics,
                      PseudoHuberCost)
+
+# name -> the module that defines it, imported at first use
+_LAZY = {
+    'MPC': 'mpc', 'SlewRateCost': 'mpc',
+    'batched_solve': 'learning', 'imitation_loss': 'learning',
+    'make_imitation_train_step': 'learning',
+    'make_sharded_train_step': 'learning', 'TrainState': 'learning',
+    'make_closed_loop': 'closed_loop',
+    'linearize_dynamics': 'solver', 'quadratize_cost': 'solver',
+    'rollout': 'solver', 'solve_single': 'solver',
+    'trajectory_cost': 'solver',
+}
+_LAZY_MODULES = ('closed_loop', 'learning', 'mpc', 'parallel', 'solver')
+
+
+def __getattr__(name):
+    if name in _LAZY_MODULES:
+        return importlib.import_module(f'.{name}', __name__)
+    if name in _LAZY:
+        value = getattr(importlib.import_module(f'.{_LAZY[name]}', __name__),
+                        name)
+        globals()[name] = value
+        return value
+    raise AttributeError(f'module {__name__!r} has no attribute {name!r}')
+
+
+def __dir__():
+    return sorted(set(globals()) | set(_LAZY) | set(_LAZY_MODULES))
+
 
 __version__ = '0.1.0'
 
 __all__ = [
     'MPC', 'SlewRateCost', 'QuadCost', 'LinDx', 'GradMethods', 'MPCConfig',
     'Solution', 'batched_solve', 'solve_single', 'imitation_loss',
-    'make_imitation_train_step', 'make_closed_loop', 'rollout',
+    'make_imitation_train_step', 'make_sharded_train_step', 'TrainState',
+    'make_closed_loop', 'rollout',
     'trajectory_cost',
     'linearize_dynamics', 'quadratize_cost', 'models', 'NNDynamics',
     'AffineDynamics', 'CtrlPassthroughDynamics', 'PseudoHuberCost', 'utils',
+    'parallel',
 ]

@@ -13,13 +13,16 @@ those do not take the backward.  Every other problem, and every problem
 under ``use_fused='never'``, runs the eager solver (``solver.py``) and
 its fixed point, on the same device.  The route is chosen from the
 problem alone before anything runs: a kernel that fails to build or
-launch raises and never falls back to the eager solver.  The sharded
-train step waits for ROADMAP queue 1 item 8.
+launch raises and never falls back to the eager solver.
+
+``make_sharded_train_step`` (mpc_tpu/learning.py:327-388) trains over a
+mesh of devices in one process or over the processes of a
+``torch.distributed`` group; ``TrainState`` is what a checkpoint holds.
 """
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Any, Callable, NamedTuple
 
 import torch
 
@@ -212,6 +215,110 @@ def make_imitation_train_step(cfg: MPCConfig, optimizer,
                               make_dynamics, u_lower=u_lower,
                               u_upper=u_upper, device=device)
         loss.backward()
+        optimizer.step()
+        return loss.detach()
+
+    return train_step
+
+
+class TrainState(NamedTuple):
+    """A training state (mpc_tpu/learning.py:294) as
+    ``utils.save_checkpoint`` writes it: the learnable parameters
+    ``theta`` (a dict of tensors or an ``nn.Module``'s ``state_dict``),
+    the optimizer's ``state_dict()`` and the number of steps taken."""
+    theta: Any
+    opt_state: Any
+    step: int
+
+
+def _theta_on(theta, device):
+    """``theta`` with its tensors on ``device``, by differentiable copies
+    where they are elsewhere (a module must already be there)."""
+    if isinstance(theta, torch.nn.Module):
+        if any(p.device != device for p in theta.parameters()):
+            raise ValueError('a module theta must be on every device of the '
+                             'mesh; pass a dict of tensors to shard over '
+                             'devices')
+        return theta
+    from torch.utils import _pytree as pytree
+    return pytree.tree_map(
+        lambda a: a.to(device) if isinstance(a, torch.Tensor) else a, theta)
+
+
+def make_sharded_train_step(cfg: MPCConfig, mesh, optimizer,
+                            make_cost: Callable, make_dynamics: Callable,
+                            u_lower=None, u_upper=None):
+    """An imitation train step over a mesh (mpc_tpu/learning.py:327-388):
+    the batch split in equal shards, each solved on its own device, the
+    loss the mean of the shards' mean losses (the global mean, since the
+    shards are equal), one optimizer step.
+
+    ``mesh`` is either a tuple of devices (``parallel.make_mesh``): the
+    step splits x_init [B, ns] and u_expert [T, B, nc] over it in this
+    process, solves shard i on mesh[i] with theta copied there
+    differentiably, takes the mean of the shard losses on mesh[0] and
+    back-propagates once; B must divide evenly.  Or a ``DeviceMesh`` of
+    every process of the group (``parallel.make_pod_mesh``): x_init and
+    u_expert are this process's shard, solved where they are, and the
+    loss and every parameter's gradient are averaged over the processes
+    (one all-reduce of a sum, divided by the number of processes, as
+    gloo has no average) before ``optimizer.step()``, so every process
+    takes the same step.  Start the processes from the same parameters
+    (``parallel.replicate``).
+
+    ``make_cost`` and ``make_dynamics`` see one shard, so they must not
+    depend on the batch size (mpc_tpu/learning.py:346-351): batch-shared
+    layouts, e.g. QuadCost(C [T, ntau, ntau], c [T, ntau]); the bounds
+    are scalars or shared [T, nc] likewise.  ``step(theta, x_init,
+    u_expert)`` returns the loss, detached."""
+    from torch.distributed.device_mesh import DeviceMesh
+    over_processes = isinstance(mesh, DeviceMesh)
+    if over_processes:
+        import torch.distributed as dist
+        if mesh.size() != dist.get_world_size():
+            raise ValueError('the process mesh must hold every process of '
+                             'the group')
+    else:
+        mesh = tuple(mesh)
+
+    def loss_on(theta, x_init, u_expert, device):
+        return imitation_loss(_theta_on(theta, device), cfg,
+                              x_init.to(device), u_expert.to(device),
+                              make_cost, make_dynamics, u_lower=u_lower,
+                              u_upper=u_upper, device=device)
+
+    def reduce_over_processes(loss):
+        """The loss and the gradients averaged over the processes, in one
+        all-reduce of one flat buffer."""
+        grads = [p.grad for group in optimizer.param_groups
+                 for p in group['params'] if p.grad is not None]
+        flat = torch.cat([loss.detach().reshape(1)]
+                         + [g.reshape(-1).to(loss.device) for g in grads])
+        dist.all_reduce(flat, op=dist.ReduceOp.SUM)
+        flat /= dist.get_world_size()
+        offset = 1
+        for g in grads:
+            g.copy_(flat[offset:offset + g.numel()].view_as(g))
+            offset += g.numel()
+        return flat[0]
+
+    def train_step(theta, x_init, u_expert):
+        optimizer.zero_grad()
+        if over_processes:
+            loss = loss_on(theta, x_init, u_expert, x_init.device)
+            loss.backward()
+            loss = reduce_over_processes(loss)
+        else:
+            B, n = x_init.shape[0], len(mesh)
+            if B % n:
+                raise ValueError(f'batch {B} must divide evenly over {n} '
+                                 'devices')
+            b = B // n
+            means = [loss_on(theta, x_init[i * b:(i + 1) * b],
+                             u_expert[:, i * b:(i + 1) * b], dev).to(mesh[0])
+                     for i, dev in enumerate(mesh)]
+            loss = torch.stack(means).mean()
+            loss.backward()
         optimizer.step()
         return loss.detach()
 

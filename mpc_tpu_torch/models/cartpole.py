@@ -5,8 +5,7 @@ reference mpc/env_dx/cartpole.py:28-124).
 clamp of +-100 and Euler integration.  ``forward`` is the reference's
 step with atan2; the eager solver linearises it with ``torch.func``.
 The structure-of-arrays step with a hand-written Jacobian, which a
-kernel would run, waits for its K1 configuration (ROADMAP queue 2), and
-``get_frame`` waits with the plotting helpers.
+kernel would run, waits for its K1 configuration (ROADMAP queue 2).
 """
 
 from __future__ import annotations
@@ -70,6 +69,27 @@ class CartpoleDx(nn.Module):
         dth = dth + self.dt * th_acc
         return torch.stack(
             [x, dx, torch.cos(th), torch.sin(th), dth], dim=-1)
+
+    def get_frame(self, state, ax=None):
+        """Matplotlib rendering of one state [5] (mpc_tpu/models/
+        cartpole.py:117-134, reference cartpole.py:98-114): the pole from
+        the cart.  Returns (fig, ax).  matplotlib is imported here, at the
+        first frame."""
+        import matplotlib.pyplot as plt
+        state = torch.as_tensor(state).detach().cpu().reshape(-1)
+        if state.numel() != 5:
+            raise ValueError('get_frame takes one state of 5 entries')
+        x, cos_th, sin_th = float(state[0]), float(state[2]), float(state[3])
+        length = float(self.params[3])
+        th_x, th_y = sin_th * length, cos_th * length
+        if ax is None:
+            fig, ax = plt.subplots(figsize=(6, 6))
+        else:
+            fig = ax.get_figure()
+        ax.plot((x, x + th_x), (0, th_y), color='k')
+        ax.set_xlim((-length * 2, length * 2))
+        ax.set_ylim((-length * 2, length * 2))
+        return fig, ax
 
     def get_true_obj(self):
         """Diagonal balance objective (reference cartpole.py:116-124):

@@ -150,6 +150,27 @@ class PendulumDx(nn.Module):
                                  self.soa_params())
         return torch.stack([torch.stack(r, -1) for r in rows], -2)
 
+    def get_frame(self, x, ax=None):
+        """Matplotlib rendering of one state x [3] (mpc_tpu/models/
+        pendulum.py:118-134, reference pendulum.py:86-104): the rod from
+        the pivot to the bob.  Returns (fig, ax).  matplotlib is imported
+        here, at the first frame."""
+        import matplotlib.pyplot as plt
+        x = torch.as_tensor(x).detach().cpu().reshape(-1)
+        if x.numel() != 3:
+            raise ValueError('get_frame takes one state of 3 entries')
+        l = float(self.params[2])
+        cos_th, sin_th = float(x[0]), float(x[1])
+        px, py = sin_th * l, cos_th * l
+        if ax is None:
+            fig, ax = plt.subplots(figsize=(6, 6))
+        else:
+            fig = ax.get_figure()
+        ax.plot((0, px), (0, py), color='k')
+        ax.set_xlim((-l * 1.2, l * 1.2))
+        ax.set_ylim((-l * 1.2, l * 1.2))
+        return fig, ax
+
     def get_true_obj(self):
         """Diagonal swing-up objective (reference pendulum.py:106-114):
         (q, p) with C = diag(q), c = p."""

@@ -1,0 +1,417 @@
+"""The four kernels as ``torch.library`` custom ops.
+
+``mpc_tpu_torch::k1_solve`` (K1, csrc/fused_ilqr.cu),
+``::k3_solve`` (K3, csrc/fused_ilqr_long.cu), ``::k2_backward`` (K2,
+csrc/fused_kkt_bwd.cu) and ``::k4_backward`` (K4,
+csrc/fused_kkt_bwd_long.cu).  Each op has three implementations: the
+kernel's launch on a CUDA tensor (the ``ctypes`` call on the tensors'
+pointers, on the current stream, raising on an operand the kernel does
+not take or on a launch error, and adding one to the kernel's count in
+``fused.launch_counts`` or ``fused_bwd.launch_counts``), the kernel's
+plain PyTorch version on a CPU tensor, and a fake one that gives the
+output shapes, so that ``torch.export`` can trace a solve or a gradient
+through the op and keep it as one node of the graph.  The wrappers
+(``fused.fused_ilqr``, ``fused_ilqr_long``, ``fused_bwd.fused_kkt_backward``,
+``fused_kkt_backward_long``) call nothing else, so the live path and an
+exported program run the same code.
+
+The ops take the kernels' operands as the plain versions do: a
+batch-shared leaf keeps a batch extent of 1 (the launch reads it with
+batch stride 0), absent bounds, f and active set are None, the
+line-search schedule is a list of floats (the values the kernel gets),
+and every scratch array (K3's and K4's workspaces, the partial sums) is
+allocated inside the op, so no op writes to its inputs.
+
+Importing this module registers the ops and builds nothing: a kernel is
+built at its first launch (``_build``).  It imports the kernels'
+wrappers and the models whose steps the plain versions run, and none of
+the solver (``solver``, ``learning``, ``ops/lqr``, ``ops/pnqp``,
+``ops/diff``, ``ops/pscan``): a process that loads an exported program
+needs this module and nothing more of the package.
+"""
+
+import ctypes
+import functools
+from typing import Optional
+
+import torch
+from torch import Tensor, nn
+
+from ..models.dynamics import NNDynamics
+from ..models.pendulum import PendulumDx
+from . import fused, fused_bwd
+
+
+@functools.lru_cache(maxsize=1)
+def _pendulum():
+    """The simple pendulum whose step the plain K1 and K3 run (its
+    parameters are the op's ``params``)."""
+    return PendulumDx(params=torch.zeros(3))
+
+
+@functools.lru_cache(maxsize=8)
+def _mlp(hidden, activation, passthrough):
+    """The one-hidden-layer MLP of K3's MLP configuration, its stream
+    step taking the flat weights ``params`` (its own layers hold none)."""
+    return NNDynamics([nn.Linear(4, hidden, device='meta'),
+                       nn.Linear(hidden, 3, device='meta')],
+                      activation, passthrough)
+
+
+def _floats_on_device(label, device, *operands):
+    for a in operands:
+        if a is not None and (a.dtype != torch.float32 or a.device != device
+                              or not a.is_contiguous()):
+            raise ValueError(f'{label} takes contiguous float32 operands on '
+                             'one device')
+
+
+# ---------------------------------------------------------------------------
+# K1
+# ---------------------------------------------------------------------------
+
+@torch.library.custom_op('mpc_tpu_torch::k1_solve', mutates_args=(),
+                         device_types='cpu')
+def k1_solve(params: Tensor, C: Tensor, c: Tensor, x0: Tensor, u0: Tensor,
+             lb: Optional[Tensor], ub: Optional[Tensor], alphas: list[float],
+             lqr_iter: int, eps: float, best_cost_eps: float,
+             not_improved_lim: float) -> tuple[Tensor, Tensor, Tensor]:
+    """K1 on the simple pendulum: params [3]; C [T, 1 or B, 4, 4];
+    c [T, 1 or B, 4]; x0 [B, 3]; u0 [T, B]; lb, ub None or [T, 1 or B].
+    Returns x [T, B, 3], u [T, B, 1], stats [6, B]
+    (``fused.fused_solve_plain``, which runs here on the CPU)."""
+    return fused.fused_solve_plain(
+        _pendulum(), params, C, c, x0, u0, lb, ub, alphas=alphas,
+        lqr_iter=lqr_iter, eps=eps, best_cost_eps=best_cost_eps,
+        not_improved_lim=not_improved_lim)
+
+
+@k1_solve.register_fake
+def _k1_fake(params, C, c, x0, u0, lb, ub, alphas, lqr_iter, eps,
+             best_cost_eps, not_improved_lim):
+    T, B = u0.shape
+    return (x0.new_empty((T, B, 3)), x0.new_empty((T, B, 1)),
+            x0.new_empty((6, B)))
+
+
+@k1_solve.register_kernel('cuda')
+def _k1_cuda(params, C, c, x0, u0, lb, ub, alphas, lqr_iter, eps,
+             best_cost_eps, not_improved_lim):
+    """Launch csrc/fused_ilqr.cu with the geometry of ``fused.k1_launch``
+    (the launcher refuses, as an invalid value, an array too large for
+    its 32-bit indices)."""
+    T, B = u0.shape
+    has_bounds = lb is not None
+    if has_bounds != (ub is not None):
+        raise ValueError('K1 takes both bounds or neither')
+    _floats_on_device('K1', x0.device, params, C, c, x0, u0, lb, ub)
+    if (params.shape != (3,) or C.shape[0] != T or C.shape[2:] != (4, 4)
+            or c.shape[0] != T or c.shape[2:] != (4,)
+            or C.shape[1] not in (1, B) or c.shape[1] not in (1, B)
+            or x0.shape != (B, 3)):
+        raise ValueError('K1 operand shapes do not match')
+    if has_bounds and (lb.shape != ub.shape or lb.shape[0] != T
+                       or lb.shape[1] not in (1, B)):
+        raise ValueError('K1 bound shapes do not match')
+    if not 0 < len(alphas) <= fused.MAX_ALPHA:
+        raise ValueError(f'K1 takes 1 to {fused.MAX_ALPHA} step sizes')
+    fused._check_float4('K1', C, c)
+    geo = fused.k1_launch(T, B, len(alphas))
+    if geo['smem_bytes'] > fused.SMEM_LIMIT:
+        raise ValueError(f'K1 holds T <= {fused.T_MAX} in shared memory; '
+                         f'T={T} goes to K3 (routes_long)')
+    fn = fused._kernel_lib(T, has_bounds)
+    x = torch.empty((T, B, 3), dtype=torch.float32, device=x0.device)
+    u = torch.empty((T, B, 1), dtype=torch.float32, device=x0.device)
+    stats = torch.empty((6, B), dtype=torch.float32, device=x0.device)
+    if B == 0:
+        return x, u, stats
+    a_host = (ctypes.c_float * len(alphas))(*alphas)
+    if has_bounds:
+        bounds = (lb.data_ptr(), ub.data_ptr(), B if lb.shape[1] > 1 else 1,
+                  fused._batch_stride(lb, 1))
+    else:
+        bounds = (None, None, 0, 0)
+    with torch.cuda.device(x0.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(B, params.data_ptr(),
+                 C.data_ptr(), C.shape[1] * 16, fused._batch_stride(C, 16),
+                 c.data_ptr(), c.shape[1] * 4, fused._batch_stride(c, 4),
+                 x0.data_ptr(), u0.data_ptr(), *bounds,
+                 a_host, len(alphas), int(lqr_iter), float(eps),
+                 float(best_cost_eps), float(not_improved_lim),
+                 geo['slots'], geo['smem_bytes'],
+                 x.data_ptr(), u.data_ptr(), stats.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f'K1 launch failed with cudaError_t {err}')
+    fused.launch_counts['fused_ilqr'] += 1
+    return x, u, stats
+
+
+# ---------------------------------------------------------------------------
+# K3
+# ---------------------------------------------------------------------------
+
+def _k3_model(params, nn_hidden, activation, passthrough):
+    """The model of a K3 call: None for LinDx (no params), the MLP of
+    ``nn_hidden`` units, or the pendulum."""
+    if params is None:
+        return None
+    if nn_hidden:
+        return _mlp(nn_hidden, activation, passthrough)
+    return _pendulum()
+
+
+@torch.library.custom_op('mpc_tpu_torch::k3_solve', mutates_args=(),
+                         device_types='cpu')
+def k3_solve(params: Optional[Tensor], F: Optional[Tensor],
+             f: Optional[Tensor], C: Tensor, c: Tensor, x0: Tensor,
+             u0: Tensor, lb: Optional[Tensor], ub: Optional[Tensor],
+             alphas: list[float], lqr_iter: int, eps: float,
+             best_cost_eps: float, not_improved_lim: float, nn_hidden: int,
+             activation: str, passthrough: bool
+             ) -> tuple[Tensor, Tensor, Tensor]:
+    """K3: a LinDx (params None, F [T-1, 1 or B, 3, 4], f None or
+    [T-1, 1 or B, 3]), the simple pendulum (params [3], nn_hidden 0) or
+    a one-hidden-layer MLP of ``nn_hidden`` units (params its flat
+    weights, ``NNDynamics.kernel_params``; ``activation``,
+    ``passthrough``); the other operands and the outputs as
+    ``k1_solve``'s (``fused.fused_solve_long_plain``, which runs here on
+    the CPU)."""
+    return fused.fused_solve_long_plain(
+        _k3_model(params, nn_hidden, activation, passthrough), params, F, f,
+        C, c, x0, u0, lb, ub, alphas=alphas, lqr_iter=lqr_iter, eps=eps,
+        best_cost_eps=best_cost_eps, not_improved_lim=not_improved_lim)
+
+
+@k3_solve.register_fake
+def _k3_fake(params, F, f, C, c, x0, u0, lb, ub, alphas, lqr_iter, eps,
+             best_cost_eps, not_improved_lim, nn_hidden, activation,
+             passthrough):
+    T, B = u0.shape
+    return (x0.new_empty((T, B, 3)), x0.new_empty((T, B, 1)),
+            x0.new_empty((6, B)))
+
+
+@k3_solve.register_kernel('cuda')
+def _k3_cuda(params, F, f, C, c, x0, u0, lb, ub, alphas, lqr_iter, eps,
+             best_cost_eps, not_improved_lim, nn_hidden, activation,
+             passthrough):
+    """Allocate the workspace of ``fused.k3_launch`` and launch
+    csrc/fused_ilqr_long.cu (the launcher refuses, as an invalid value,
+    an array or a workspace too large for its 32-bit indices)."""
+    T, B = u0.shape
+    lindx = params is None
+    nn = not lindx and nn_hidden > 0
+    has_bounds = lb is not None
+    _floats_on_device('K3', x0.device, params, F, f, C, c, x0, u0, lb, ub)
+    if (C.shape[0] != T or C.shape[2:] != (4, 4) or c.shape[0] != T
+            or c.shape[2:] != (4,) or C.shape[1] not in (1, B)
+            or c.shape[1] not in (1, B) or x0.shape != (B, 3)):
+        raise ValueError('K3 operand shapes do not match')
+    if lindx:
+        if (F is None or F.shape[0] != T - 1
+                or F.shape[1] not in (1, B) or F.shape[2:] != (3, 4)
+                or (f is not None and (f.shape[0] != T - 1
+                                       or f.shape[1] not in (1, B)
+                                       or f.shape[2:] != (3,)))):
+            raise ValueError('K3 LinDx operand shapes do not match')
+    elif nn:
+        if nn_hidden > fused.K3_NN_MAX_HIDDEN:
+            raise ValueError(f'an MLP of {nn_hidden} hidden units exceeds '
+                             f'the {fused.K3_NN_MAX_HIDDEN} whose weights '
+                             'K3 holds in shared memory')
+        if activation not in fused.NN_ACTIVATIONS:
+            raise ValueError(f'K3 takes the activations '
+                             f'{fused.NN_ACTIVATIONS}, not {activation!r}')
+        if (params.shape != (8 * nn_hidden + 3,) or F is not None
+                or f is not None):
+            raise ValueError('K3 takes an MLP\'s flat weights as params')
+    elif params.shape != (3,) or F is not None or f is not None:
+        raise ValueError('K3 pendulum operands do not match')
+    if has_bounds and (ub is None or lb.shape != ub.shape
+                       or lb.shape[0] != T or lb.shape[1] not in (1, B)):
+        raise ValueError('K3 bound shapes do not match')
+    if not 0 < len(alphas) <= fused.MAX_ALPHA:
+        raise ValueError(f'K3 takes 1 to {fused.MAX_ALPHA} step sizes')
+    fused._check_float4('K3', C, c, F)
+    fn = fused._kernel_lib_long(fused.long_kernel_defines(
+        lindx, has_bounds, activation if nn else None))
+    empty = functools.partial(torch.empty, dtype=torch.float32,
+                              device=x0.device)
+    x, u, stats = empty((T, B, 3)), empty((T, B, 1)), empty((6, B))
+    if B == 0:
+        return x, u, stats
+    hidden = nn_hidden if nn else 0
+    geo = fused.k3_launch(T, B, len(alphas), hidden)
+    ws = fused.k3_workspace(geo, T, B, x0.device)
+    a_host = (ctypes.c_float * len(alphas))(*alphas)
+    lb_ptr, sbt, sbb = fused._strided(lb, 1)
+    with torch.cuda.device(x0.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(B, T, params.data_ptr() if params is not None else None,
+                 hidden, int(nn and passthrough),
+                 *fused._strided(F, 12), *fused._strided(f, 3),
+                 *fused._strided(C, 16), *fused._strided(c, 4),
+                 x0.data_ptr(), u0.data_ptr(),
+                 lb_ptr, ub.data_ptr() if has_bounds else None, sbt, sbb,
+                 a_host, len(alphas), int(lqr_iter), float(eps),
+                 float(best_cost_eps), float(not_improved_lim),
+                 ws.data_ptr(), geo['slots'], geo['smem_bytes'],
+                 x.data_ptr(), u.data_ptr(),
+                 stats.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f'K3 launch failed with cudaError_t {err}')
+    fused.launch_counts['fused_ilqr_long'] += 1
+    return x, u, stats
+
+
+# ---------------------------------------------------------------------------
+# K2 and K4
+# ---------------------------------------------------------------------------
+
+def _bwd_fake(C, c, F, x_star, has_f, dyn_reduced):
+    """The gradient shapes of K2 (``dyn_reduced`` False) and K4: dC, dc
+    summed over the batch for a shared cost, dF, df for shared dynamics
+    (K4); df [0] for K4 without f."""
+    T, B, ns = x_star.shape
+    empty = x_star.new_empty
+    cost_shared = fused_bwd._cost_shared(C, c)
+    dyn_shared = dyn_reduced and fused_bwd._dyn_shared(F)
+    ntau = C.shape[-1]
+    df = empty((T - 1, ns) if dyn_shared else (T - 1, B, ns))
+    return (empty((B, ns)),
+            empty((T, ntau, ntau) if cost_shared else (T, B, ntau, ntau)),
+            empty((T, ntau) if cost_shared else (T, B, ntau)),
+            empty((T - 1, ns, ntau) if dyn_shared else (T - 1, B, ns, ntau)),
+            df if has_f or not dyn_reduced else empty((0,)))
+
+
+def _bwd_launch(label, fn, geo, C, c, F, x_star, u_star, dl_dx, dl_du,
+                I_mask, has_f, dxi, dC, dc, dF, df):
+    """Launch K2 or K4 (``fn``) with the geometry ``geo`` on the current
+    stream: the workspace of ``geo``, and the per-block partial sums of
+    the shared gradients, which the kernel's second pass sums in block
+    order."""
+    T, B, _ = x_star.shape
+    empty = functools.partial(torch.empty, dtype=torch.float32,
+                              device=x_star.device)
+    # the costates, and behind them the state where it is not resident
+    ws = empty((geo['workspace_bytes'] // 4,))
+    part_cost = (empty((geo['blocks'], T, 20))
+                 if fused_bwd._cost_shared(C, c) else None)
+    part_dyn = (empty((geo['blocks'], T - 1, 15))
+                if fused_bwd._dyn_shared(F) and T > 1 else None)
+
+    def ptr(a):
+        return a.data_ptr() if a is not None else None
+
+    with torch.cuda.device(x_star.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(B, T, *fused_bwd._strided(C, 16), *fused_bwd._strided(c, 4),
+                 *fused_bwd._strided(F, 12),
+                 dl_dx.data_ptr(), dl_du.data_ptr(), x_star.data_ptr(),
+                 u_star.data_ptr(), ptr(I_mask), int(has_f), ptr(ws),
+                 int(geo['resident']), geo['smem_bytes'], dxi.data_ptr(),
+                 dC.data_ptr(), dc.data_ptr(), dF.data_ptr(), ptr(df),
+                 ptr(part_cost), ptr(part_dyn), stream)
+    if err != 0:
+        raise RuntimeError(f'{label} launch failed with cudaError_t {err}')
+
+
+@torch.library.custom_op('mpc_tpu_torch::k2_backward', mutates_args=(),
+                         device_types='cpu')
+def k2_backward(C: Tensor, c: Tensor, F: Tensor, x_star: Tensor,
+                u_star: Tensor, dl_dx: Tensor, dl_du: Tensor,
+                I_mask: Optional[Tensor], has_f: bool
+                ) -> tuple[Tensor, Tensor, Tensor, Tensor, Tensor]:
+    """K2: the KKT backward with per-example F [T-1, B, 3, 4]; operands
+    and outputs (dx_init, dC, dc, dF, df) as
+    ``fused_bwd.fused_kkt_backward_plain``, which runs here on the
+    CPU."""
+    return fused_bwd.fused_kkt_backward_plain(
+        C, c, F, x_star, u_star, dl_dx, dl_du, I_mask, has_f=has_f)
+
+
+@k2_backward.register_fake
+def _k2_fake(C, c, F, x_star, u_star, dl_dx, dl_du, I_mask, has_f):
+    return _bwd_fake(C, c, F, x_star, has_f, False)
+
+
+@k2_backward.register_kernel('cuda')
+def _k2_cuda(C, c, F, x_star, u_star, dl_dx, dl_du, I_mask, has_f):
+    """Launch csrc/fused_kkt_bwd.cu with the geometry of
+    ``fused_bwd.k2_launch``; T past ``T_MAX_BWD`` and a shared F are
+    refused."""
+    T, B, _ = x_star.shape
+    fused_bwd._check_operands('K2', C, c, F, x_star, u_star, dl_dx, dl_du,
+                              I_mask)
+    if T > fused_bwd.T_MAX_BWD or F.shape[1] != B:
+        raise ValueError('K2 takes per-example F and T <= '
+                         f'{fused_bwd.T_MAX_BWD}')
+    cost_shared = fused_bwd._cost_shared(C, c)
+    fn = fused_bwd._kernel_lib(T, I_mask is not None, cost_shared)
+    empty = functools.partial(torch.empty, dtype=torch.float32,
+                              device=x_star.device)
+    dxi = empty((B, 3))
+    dC = empty((T, 4, 4) if cost_shared else (T, B, 4, 4))
+    dc = empty((T, 4) if cost_shared else (T, B, 4))
+    dF = empty((T - 1, B, 3, 4))
+    df = empty((T - 1, B, 3))
+    if B == 0:
+        return dxi, dC.zero_(), dc.zero_(), dF, df
+    _bwd_launch('K2', fn, fused_bwd.k2_launch(T, B), C, c, F, x_star, u_star,
+                dl_dx, dl_du, I_mask, has_f, dxi, dC, dc, dF, df)
+    fused_bwd.launch_counts['fused_kkt_bwd'] += 1
+    return dxi, dC, dc, dF, df
+
+
+@torch.library.custom_op('mpc_tpu_torch::k4_backward', mutates_args=(),
+                         device_types='cpu')
+def k4_backward(C: Tensor, c: Tensor, F: Tensor, x_star: Tensor,
+                u_star: Tensor, dl_dx: Tensor, dl_du: Tensor,
+                I_mask: Optional[Tensor], has_f: bool
+                ) -> tuple[Tensor, Tensor, Tensor, Tensor, Tensor]:
+    """K4: the KKT backward with F [T-1, 1 or B, 3, 4]; operands and
+    outputs as ``fused_bwd.fused_kkt_backward_long_plain``, which runs
+    here on the CPU, but df [0] (no values) when ``has_f`` is false."""
+    dxi, dC, dc, dF, df = fused_bwd.fused_kkt_backward_long_plain(
+        C, c, F, x_star, u_star, dl_dx, dl_du, I_mask, has_f=has_f)
+    return dxi, dC, dc, dF, df if has_f else x_star.new_empty((0,))
+
+
+@k4_backward.register_fake
+def _k4_fake(C, c, F, x_star, u_star, dl_dx, dl_du, I_mask, has_f):
+    return _bwd_fake(C, c, F, x_star, has_f, True)
+
+
+@k4_backward.register_kernel('cuda')
+def _k4_cuda(C, c, F, x_star, u_star, dl_dx, dl_du, I_mask, has_f):
+    """Allocate what ``fused_bwd.k4_launch`` says (the workspace past
+    ``K4_T_RESIDENT``) and the scratch of the reductions, and launch
+    csrc/fused_kkt_bwd_long.cu."""
+    T, B, _ = x_star.shape
+    fused_bwd._check_operands('K4', C, c, F, x_star, u_star, dl_dx, dl_du,
+                              I_mask)
+    cost_shared = fused_bwd._cost_shared(C, c)
+    dyn_shared = fused_bwd._dyn_shared(F)
+    fn = fused_bwd._kernel_lib_long(cost_shared, dyn_shared)
+    empty = functools.partial(torch.empty, dtype=torch.float32,
+                              device=x_star.device)
+    dxi = empty((B, 3))
+    dC = empty((T, 4, 4) if cost_shared else (T, B, 4, 4))
+    dc = empty((T, 4) if cost_shared else (T, B, 4))
+    dF = empty((T - 1, 3, 4) if dyn_shared else (T - 1, B, 3, 4))
+    df = empty((T - 1, 3) if dyn_shared else (T - 1, B, 3)) if has_f \
+        else empty((0,))
+    if B == 0:
+        if cost_shared:
+            dC.zero_(), dc.zero_()
+        if dyn_shared:
+            dF.zero_(), df.zero_()
+        return dxi, dC, dc, dF, df
+    _bwd_launch('K4', fn, fused_bwd.k4_launch(T, B), C, c, F, x_star,
+                u_star, dl_dx, dl_du, I_mask, True, dxi, dC, dc, dF,
+                df if has_f else None)
+    fused_bwd.launch_counts['fused_kkt_bwd_long'] += 1
+    return dxi, dC, dc, dF, df

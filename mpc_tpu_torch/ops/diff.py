@@ -26,12 +26,8 @@ from torch.autograd.function import once_differentiable
 
 from . import linalg
 from .lqr import lqr_solve
+from .math import ACTIVE_TOL
 
-# Active-set identification tolerance at the solution
-# (reference mpc/lqr_step.py:325-326).  Interacts with dtype: run f64 for
-# gradient-oracle tests; in f32 the clamp produces exact bound values so
-# the comparison is still reliable for genuinely active constraints.
-ACTIVE_TOL = 1e-8
 
 
 def _to_shape(g, shape):

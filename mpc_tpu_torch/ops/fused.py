@@ -30,7 +30,8 @@ versions of those kernels: each kernel scalar is a [B] tensor and the
 arithmetic runs in the kernel's order.  The CPU path of the entry points
 runs them (in any float dtype, so float64 is there for tests); on a CUDA
 tensor ``fused_ilqr`` and ``fused_ilqr_long`` launch their kernel or
-raise, and never fall back to the plain version.
+raise, and never fall back to the plain version.  Both go through the
+kernels' ``torch.library`` ops (ops/custom.py), which hold the launches.
 
 Scope (``scope_gap``): LinDx dynamics (F, f each shared or batched, f
 optional), the simple pendulum or a one-hidden-layer ``NNDynamics``
@@ -49,8 +50,8 @@ n_state = 2, n_ctrl = 1 (three augmented states) in K3.
 
 from __future__ import annotations
 
+import array
 import ctypes
-import functools
 from typing import Optional
 
 import torch
@@ -657,77 +658,37 @@ def _check_float4(name, *operands):
             raise ValueError(f'{name} takes C, c and F aligned to 16 bytes')
 
 
+def _check_device(name, a):
+    """The kernels and their plain versions run on the card and the CPU;
+    on any other device the wrappers raise (the ops' fake versions would
+    answer there with empty tensors)."""
+    if a.device.type not in ('cpu', 'cuda'):
+        raise NotImplementedError(f'{name} runs on cuda or cpu, not '
+                                  f'{a.device.type}')
+
+
 def _batch_stride(a, inner):
     return 0 if a.shape[1] == 1 else inner
 
 
 def fused_ilqr(dynamics, params, C, c, x0, u0, lb, ub, *, alphas, lqr_iter,
                eps, best_cost_eps, not_improved_lim):
-    """Run K1 on its operands (layouts as in ``fused_solve_plain``).
+    """Run K1 on its operands (layouts as in ``fused_solve_plain``)
+    through the op ``mpc_tpu_torch::k1_solve`` (ops/custom.py).
 
-    On the CPU this is ``fused_solve_plain``.  On a CUDA tensor it
+    On the CPU the op runs ``fused_solve_plain``.  On a CUDA tensor it
     launches csrc/fused_ilqr.cu on the current stream with the geometry
     of ``k1_launch`` and raises on any operand the kernel does not take
     or on a launch error (the launcher refuses, as an invalid value, an
-    array too large for its 32-bit indices)."""
-    kw = dict(alphas=alphas, lqr_iter=lqr_iter, eps=eps,
-              best_cost_eps=best_cost_eps,
-              not_improved_lim=not_improved_lim)
-    if x0.device.type == 'cpu':
-        return fused_solve_plain(dynamics, params, C, c, x0, u0, lb, ub,
-                                 **kw)
-    if x0.device.type != 'cuda':
-        raise NotImplementedError(f'K1 runs on cuda or cpu, not '
-                                  f'{x0.device.type}')
-    T, B = u0.shape
-    has_bounds = lb is not None
-    ops = [params, C, c, x0, u0] + ([lb, ub] if has_bounds else [])
-    for a in ops:
-        if a.dtype != torch.float32 or a.device != x0.device \
-                or not a.is_contiguous():
-            raise ValueError('K1 takes contiguous float32 operands on one '
-                             'device')
-    if (params.shape != (3,) or C.shape[0] != T or C.shape[2:] != (4, 4)
-            or c.shape[0] != T or c.shape[2:] != (4,)
-            or C.shape[1] not in (1, B) or c.shape[1] not in (1, B)
-            or x0.shape != (B, 3)):
-        raise ValueError('K1 operand shapes do not match')
-    if has_bounds and (lb.shape != ub.shape or lb.shape[0] != T
-                       or lb.shape[1] not in (1, B)):
-        raise ValueError('K1 bound shapes do not match')
-    if not 0 < len(alphas) <= MAX_ALPHA:
-        raise ValueError(f'K1 takes 1 to {MAX_ALPHA} step sizes')
-    _check_float4('K1', C, c)
-    geo = k1_launch(T, B, len(alphas))
-    if geo['smem_bytes'] > SMEM_LIMIT:
-        raise ValueError(f'K1 holds T <= {T_MAX} in shared memory; T={T} '
-                         'goes to K3 (routes_long)')
-    fn = _kernel_lib(T, has_bounds)
-    x = torch.empty((T, B, 3), dtype=torch.float32, device=x0.device)
-    u = torch.empty((T, B, 1), dtype=torch.float32, device=x0.device)
-    stats = torch.empty((6, B), dtype=torch.float32, device=x0.device)
-    if B == 0:
-        return x, u, stats
-    a_host = (ctypes.c_float * len(alphas))(*alphas)
-    if has_bounds:
-        bounds = (lb.data_ptr(), ub.data_ptr(), B if lb.shape[1] > 1 else 1,
-                  _batch_stride(lb, 1))
-    else:
-        bounds = (None, None, 0, 0)
-    with torch.cuda.device(x0.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(B, params.data_ptr(),
-                 C.data_ptr(), C.shape[1] * 16, _batch_stride(C, 16),
-                 c.data_ptr(), c.shape[1] * 4, _batch_stride(c, 4),
-                 x0.data_ptr(), u0.data_ptr(), *bounds,
-                 a_host, len(alphas), int(lqr_iter), float(eps),
-                 float(best_cost_eps), float(not_improved_lim),
-                 geo['slots'], geo['smem_bytes'],
-                 x.data_ptr(), u.data_ptr(), stats.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f'K1 launch failed with cudaError_t {err}')
-    launch_counts['fused_ilqr'] += 1
-    return x, u, stats
+    array too large for its 32-bit indices).  ``dynamics`` must be the
+    simple pendulum, the model of K1's source."""
+    _check_device('K1', x0)
+    if not (isinstance(dynamics, PendulumDx) and dynamics.simple):
+        raise ValueError('K1 runs the simple pendulum')
+    return torch.ops.mpc_tpu_torch.k1_solve(
+        params, C, c, x0, u0, lb, ub, [float(a) for a in alphas],
+        int(lqr_iter), float(eps), float(best_cost_eps),
+        float(not_improved_lim))
 
 
 # ---------------------------------------------------------------------------
@@ -1034,88 +995,34 @@ def k3_workspace(geo, T, B, device):
 
 def fused_ilqr_long(dynamics, params, F, f, C, c, x0, u0, lb, ub, *, alphas,
                     lqr_iter, eps, best_cost_eps, not_improved_lim):
-    """Run K3 on its operands (layouts as in ``fused_solve_long_plain``).
+    """Run K3 on its operands (layouts as in ``fused_solve_long_plain``)
+    through the op ``mpc_tpu_torch::k3_solve`` (ops/custom.py).
 
-    On the CPU this is ``fused_solve_long_plain``.  On a CUDA tensor it
-    allocates the workspace of ``k3_launch``, launches
+    On the CPU the op runs ``fused_solve_long_plain``.  On a CUDA tensor
+    it allocates the workspace of ``k3_launch``, launches
     csrc/fused_ilqr_long.cu on the current stream and raises on any
     operand the kernel does not take or on a launch error (the launcher
     refuses, as an invalid value, an array or a workspace too large for
     its 32-bit indices)."""
-    kw = dict(alphas=alphas, lqr_iter=lqr_iter, eps=eps,
-              best_cost_eps=best_cost_eps,
-              not_improved_lim=not_improved_lim)
-    if x0.device.type == 'cpu':
-        return fused_solve_long_plain(dynamics, params, F, f, C, c, x0, u0,
-                                      lb, ub, **kw)
-    if x0.device.type != 'cuda':
-        raise NotImplementedError(f'K3 runs on cuda or cpu, not '
-                                  f'{x0.device.type}')
-    T, B = u0.shape
-    lindx = dynamics is None
-    nn = isinstance(dynamics, NNDynamics)
-    has_bounds = lb is not None
-    ops = [a for a in (params, F, f, C, c, x0, u0, lb, ub) if a is not None]
-    for a in ops:
-        if a.dtype != torch.float32 or a.device != x0.device \
-                or not a.is_contiguous():
-            raise ValueError('K3 takes contiguous float32 operands on one '
-                             'device')
-    if (C.shape[0] != T or C.shape[2:] != (4, 4) or c.shape[0] != T
-            or c.shape[2:] != (4,) or C.shape[1] not in (1, B)
-            or c.shape[1] not in (1, B) or x0.shape != (B, 3)):
-        raise ValueError('K3 operand shapes do not match')
-    if lindx:
-        if (params is not None or F is None or F.shape[0] != T - 1
-                or F.shape[1] not in (1, B) or F.shape[2:] != (3, 4)
-                or (f is not None and (f.shape[0] != T - 1
-                                       or f.shape[1] not in (1, B)
-                                       or f.shape[2:] != (3,)))):
-            raise ValueError('K3 LinDx operand shapes do not match')
-    elif nn:
+    _check_device('K3', x0)
+    nn_hidden, activation, passthrough = 0, '', False
+    if isinstance(dynamics, NNDynamics):
         gap = nn_scope_gap(dynamics)
         if gap is not None:
             raise ValueError(gap)
-        if (params is None or params.shape != (dynamics.soa_param_count(),)
-                or F is not None or f is not None):
-            raise ValueError('K3 takes an MLP\'s flat weights as params')
-    elif params is None or params.shape != (3,) or F is not None \
-            or f is not None:
-        raise ValueError('K3 pendulum operands do not match')
-    if has_bounds and (ub is None or lb.shape != ub.shape
-                       or lb.shape[0] != T or lb.shape[1] not in (1, B)):
-        raise ValueError('K3 bound shapes do not match')
-    if not 0 < len(alphas) <= MAX_ALPHA:
-        raise ValueError(f'K3 takes 1 to {MAX_ALPHA} step sizes')
-    _check_float4('K3', C, c, F)
-    hidden = dynamics.hidden if nn else 0
-    fn = _kernel_lib_long(long_kernel_defines(
-        lindx, has_bounds, dynamics.activation if nn else None))
-    empty = functools.partial(torch.empty, dtype=torch.float32,
-                              device=x0.device)
-    x, u, stats = empty((T, B, 3)), empty((T, B, 1)), empty((6, B))
-    if B == 0:
-        return x, u, stats
-    geo = k3_launch(T, B, len(alphas), hidden)
-    ws = k3_workspace(geo, T, B, x0.device)
-    a_host = (ctypes.c_float * len(alphas))(*alphas)
-    lb_ptr, sbt, sbb = _strided(lb, 1)
-    with torch.cuda.device(x0.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(B, T, params.data_ptr() if params is not None else None,
-                 hidden, int(nn and dynamics.passthrough),
-                 *_strided(F, 12), *_strided(f, 3), *_strided(C, 16),
-                 *_strided(c, 4), x0.data_ptr(), u0.data_ptr(),
-                 lb_ptr, ub.data_ptr() if has_bounds else None, sbt, sbb,
-                 a_host, len(alphas), int(lqr_iter), float(eps),
-                 float(best_cost_eps), float(not_improved_lim),
-                 ws.data_ptr(), geo['slots'], geo['smem_bytes'],
-                 x.data_ptr(), u.data_ptr(),
-                 stats.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f'K3 launch failed with cudaError_t {err}')
-    launch_counts['fused_ilqr_long'] += 1
-    return x, u, stats
+        nn_hidden, activation = dynamics.hidden, dynamics.activation
+        passthrough = bool(dynamics.passthrough)
+    elif dynamics is not None and not (isinstance(dynamics, PendulumDx)
+                                       and dynamics.simple):
+        raise ValueError('K3 runs LinDx (dynamics None), the simple '
+                         'pendulum or a one-hidden-layer MLP')
+    if (dynamics is None) != (params is None):
+        raise ValueError('K3 takes params for the pendulum and an MLP, and '
+                         'none for LinDx')
+    return torch.ops.mpc_tpu_torch.k3_solve(
+        params, F, f, C, c, x0, u0, lb, ub, [float(a) for a in alphas],
+        int(lqr_iter), float(eps), float(best_cost_eps),
+        float(not_improved_lim), nn_hidden, activation, passthrough)
 
 
 # ---------------------------------------------------------------------------
@@ -1184,8 +1091,9 @@ def _problem_operands(cfg, x_init, cost, u_init, u_lower, u_upper) -> dict:
               for i in range(cfg.max_linesearch_iter)]
     if dtype == torch.float32:
         # the schedule as the kernel gets it (the JAX kernel bakes the
-        # same Python floats in as float32 constants)
-        alphas = torch.tensor(alphas, dtype=torch.float32).tolist()
+        # same Python floats in as float32 constants), rounded on the host
+        # so that torch.export sees constants
+        alphas = array.array('f', alphas).tolist()
     return dict(
         C=_cost_operand(cost.C, T, B, 2, dtype, device),
         c=_cost_operand(cost.c, T, B, 1, dtype, device),

@@ -36,7 +36,8 @@ the plain versions of those kernels: each kernel scalar is a [B] tensor
 and the arithmetic runs in the kernels' order, which is one order
 (float32 or float64).  ``fused_kkt_backward`` and
 ``fused_kkt_backward_long`` run them for tensors on the CPU; on a CUDA
-tensor they launch K2 or K4 or raise.
+tensor they launch K2 or K4 or raise, through the kernels'
+``torch.library`` ops (ops/custom.py), which hold the launches.
 
 Scope (``scope_gap_bwd``): n_state = 3, n_ctrl = 1, a QuadCost whose C
 and c are each shared or batched, dynamics per example (the pendulum's
@@ -53,7 +54,8 @@ from typing import Optional
 import torch
 from torch.autograd.function import once_differentiable
 
-from .diff import ACTIVE_TOL
+from .fused import _check_device
+from .math import ACTIVE_TOL
 
 # The launch geometry of K2 and K4.  An example is owned by a TEAM of
 # threads, one in each role (csrc/kkt_bwd.cuh): role 0 walks the three
@@ -509,113 +511,37 @@ def _check_operands(label, C, c, F, x_star, u_star, dl_dx, dl_du, I_mask):
             raise ValueError(f'{label} takes C, c and F aligned to 16 bytes')
 
 
-def _launch(label, fn, geo, C, c, F, x_star, u_star, dl_dx, dl_du, I_mask,
-            has_f, dxi, dC, dc, dF, df):
-    """Launch K2 or K4 (``fn``) with the geometry ``geo`` on the current
-    stream: the workspace of ``geo``, and the per-block partial sums of
-    the shared gradients, which the kernel's second pass sums in block
-    order."""
-    T, B, _ = x_star.shape
-    empty = functools.partial(torch.empty, dtype=torch.float32,
-                              device=x_star.device)
-    # the costates, and behind them the state where it is not resident
-    ws = empty((geo['workspace_bytes'] // 4,))
-    part_cost = (empty((geo['blocks'], T, 20)) if _cost_shared(C, c)
-                 else None)
-    part_dyn = (empty((geo['blocks'], T - 1, 15))
-                if _dyn_shared(F) and T > 1 else None)
-
-    def ptr(a):
-        return a.data_ptr() if a is not None else None
-
-    with torch.cuda.device(x_star.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(B, T, *_strided(C, 16), *_strided(c, 4), *_strided(F, 12),
-                 dl_dx.data_ptr(), dl_du.data_ptr(), x_star.data_ptr(),
-                 u_star.data_ptr(), ptr(I_mask), int(has_f), ptr(ws),
-                 int(geo['resident']), geo['smem_bytes'], dxi.data_ptr(),
-                 dC.data_ptr(), dc.data_ptr(), dF.data_ptr(), ptr(df),
-                 ptr(part_cost), ptr(part_dyn), stream)
-    if err != 0:
-        raise RuntimeError(f'{label} launch failed with cudaError_t {err}')
-
-
 def fused_kkt_backward(C, c, F, x_star, u_star, dl_dx, dl_du, I_mask=None,
                        *, has_f=True):
-    """Run K2 on its operands (layouts as in ``fused_kkt_backward_plain``).
+    """Run K2 on its operands (layouts as in ``fused_kkt_backward_plain``)
+    through the op ``mpc_tpu_torch::k2_backward`` (ops/custom.py).
 
-    On the CPU this is ``fused_kkt_backward_plain``.  On a CUDA tensor it
-    launches csrc/fused_kkt_bwd.cu on the current stream with the
-    geometry of ``k2_launch`` and raises on any operand the kernel does
-    not take (T past ``T_MAX_BWD`` included) or on a launch error."""
-    if x_star.device.type == 'cpu':
-        return fused_kkt_backward_plain(C, c, F, x_star, u_star, dl_dx,
-                                        dl_du, I_mask, has_f=has_f)
-    if x_star.device.type != 'cuda':
-        raise NotImplementedError(f'K2 runs on cuda or cpu, not '
-                                  f'{x_star.device.type}')
-    T, B, _ = x_star.shape
-    _check_operands('K2', C, c, F, x_star, u_star, dl_dx, dl_du, I_mask)
-    if T > T_MAX_BWD or F.shape[1] != B:
-        raise ValueError(f'K2 takes per-example F and T <= {T_MAX_BWD}')
-    cost_shared = _cost_shared(C, c)
-    fn = _kernel_lib(T, I_mask is not None, cost_shared)
-    empty = functools.partial(torch.empty, dtype=torch.float32,
-                              device=x_star.device)
-    dxi = empty((B, 3))
-    dC = empty((T, 4, 4) if cost_shared else (T, B, 4, 4))
-    dc = empty((T, 4) if cost_shared else (T, B, 4))
-    dF = empty((T - 1, B, 3, 4))
-    df = empty((T - 1, B, 3))
-    if B == 0:
-        return dxi, dC.zero_(), dc.zero_(), dF, df
-    _launch('K2', fn, k2_launch(T, B), C, c, F, x_star, u_star, dl_dx,
-            dl_du, I_mask, has_f, dxi, dC, dc, dF, df)
-    launch_counts['fused_kkt_bwd'] += 1
-    return dxi, dC, dc, dF, df
+    On the CPU the op runs ``fused_kkt_backward_plain``.  On a CUDA
+    tensor it launches csrc/fused_kkt_bwd.cu on the current stream with
+    the geometry of ``k2_launch`` and raises on any operand the kernel
+    does not take (T past ``T_MAX_BWD`` included) or on a launch
+    error."""
+    _check_device('K2', x_star)
+    return tuple(torch.ops.mpc_tpu_torch.k2_backward(
+        C, c, F, x_star, u_star, dl_dx, dl_du, I_mask, bool(has_f)))
 
 
 def fused_kkt_backward_long(C, c, F, x_star, u_star, dl_dx, dl_du,
                             I_mask=None, *, has_f=True):
     """Run K4 on its operands (layouts as in
-    ``fused_kkt_backward_long_plain``).
+    ``fused_kkt_backward_long_plain``) through the op
+    ``mpc_tpu_torch::k4_backward`` (ops/custom.py); df is None without
+    ``has_f``.
 
-    On the CPU this is ``fused_kkt_backward_long_plain``.  On a CUDA
+    On the CPU the op runs ``fused_kkt_backward_long_plain``.  On a CUDA
     tensor it allocates what ``k4_launch`` says (the workspace past
     ``K4_T_RESIDENT``) and the scratch of the reductions, launches
     csrc/fused_kkt_bwd_long.cu on the current stream and raises on any
     operand the kernel does not take or on a launch error."""
-    if x_star.device.type == 'cpu':
-        return fused_kkt_backward_long_plain(C, c, F, x_star, u_star, dl_dx,
-                                             dl_du, I_mask, has_f=has_f)
-    if x_star.device.type != 'cuda':
-        raise NotImplementedError(f'K4 runs on cuda or cpu, not '
-                                  f'{x_star.device.type}')
-    T, B, _ = x_star.shape
-    _check_operands('K4', C, c, F, x_star, u_star, dl_dx, dl_du, I_mask)
-    cost_shared, dyn_shared = _cost_shared(C, c), _dyn_shared(F)
-    fn = _kernel_lib_long(cost_shared, dyn_shared)
-    empty = functools.partial(torch.empty, dtype=torch.float32,
-                              device=x_star.device)
-    dxi = empty((B, 3))
-    dC = empty((T, 4, 4) if cost_shared else (T, B, 4, 4))
-    dc = empty((T, 4) if cost_shared else (T, B, 4))
-    dF = empty((T - 1, 3, 4) if dyn_shared else (T - 1, B, 3, 4))
-    df = None
-    if has_f:
-        df = empty((T - 1, 3) if dyn_shared else (T - 1, B, 3))
-    if B == 0:
-        if cost_shared:
-            dC.zero_(), dc.zero_()
-        if dyn_shared:
-            dF.zero_()
-            if has_f:
-                df.zero_()
-        return dxi, dC, dc, dF, df
-    _launch('K4', fn, k4_launch(T, B), C, c, F, x_star, u_star, dl_dx,
-            dl_du, I_mask, True, dxi, dC, dc, dF, df)
-    launch_counts['fused_kkt_bwd_long'] += 1
-    return dxi, dC, dc, dF, df
+    _check_device('K4', x_star)
+    dxi, dC, dc, dF, df = torch.ops.mpc_tpu_torch.k4_backward(
+        C, c, F, x_star, u_star, dl_dx, dl_du, I_mask, bool(has_f))
+    return dxi, dC, dc, dF, df if has_f else None
 
 
 # ---------------------------------------------------------------------------

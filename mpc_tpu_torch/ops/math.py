@@ -1,9 +1,16 @@
 """Elementwise helpers of the pendulum step (counterpart of
-mpc_tpu/ops/math.py:39-72)."""
+mpc_tpu/ops/math.py:39-72) and the active-set tolerance the fixed
+points share."""
 
 from __future__ import annotations
 
 import torch
+
+# Active-set identification tolerance at the solution
+# (reference mpc/lqr_step.py:325-326).  Interacts with dtype: run f64 for
+# gradient-oracle tests; in f32 the clamp produces exact bound values so
+# the comparison is still reliable for genuinely active constraints.
+ACTIVE_TOL = 1e-8
 
 
 def hard_clip(x, lo, hi):

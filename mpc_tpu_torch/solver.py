@@ -7,8 +7,9 @@ the vmapped ``lax.while_loop``: every example keeps its own best
 trajectory, iteration count, step norm and "not improved" count, and an
 example whose stopping test fails keeps its state while the others go
 on.  The outer loop reads one flag back from the device an iteration, to
-stop when no example is left; everything inside it runs a fixed number
-of trips.
+stop when no example is left (not while ``torch.export`` traces it: the
+exported loop runs every iteration); everything inside it runs a fixed
+number of trips.
 
 This is the route of every problem the kernels do not take
 (learning.batched_solve): n_ctrl > 1, float64 on the card, callable
@@ -427,7 +428,11 @@ def _solve_phase1(cfg: MPCConfig, x_init, cost, dynamics, u_init, u_lower,
         # (mpc_tpu/solver.py:416-421)
         keep = (cur_du >= cfg.eps) & (n_not_improved <= cfg.not_improved_lim)
         active = (i < cfg.lqr_iter) & ((i == 0) | keep)
-        if it > 0 and not bool(active.any()):
+        # the one read of the device: under torch.export every iteration
+        # runs (a finished example's state is frozen by the torch.where
+        # below, so the result is the same)
+        if it > 0 and not torch.compiler.is_exporting() \
+                and not bool(active.any()):
             break
         F, f = linearize_dynamics(dynamics, x, u, cfg.grad_method)
         C, c, _ = quadratize_cost(cost, x, u)

@@ -55,6 +55,12 @@ fewer, as many and more step sizes than a team has lanes, with eps > 0
 (the examples of one warp then stop at different iterations), at B = 1
 and at batches that do not fill a block (bitwise equal to the same
 examples inside a large batch), and on the reversed batch (bitwise).
+The kernels' ops carry the artifacts and the sharded paths: a solve
+exported on the card, one traced on CPU tensors and moved there, and one
+padded to max_batch each launch K1 once a call with the live solve's
+bits; an exported gradient launches K1 and K2 once each; four shards of
+a batch on the one card are bitwise the unsharded solve; a checkpoint
+loads onto the card.
 This file imports nothing of JAX.
 """
 
@@ -767,3 +773,89 @@ def test_slew_request_launches_k3_and_raises_rather_than_falls_back(
         mt.batched_solve(cfg, x0, cost, dyn, **kw)
     assert fused.launch_counts == {'fused_ilqr': 0, 'fused_ilqr_long': 0}
     assert solver.eager_counts == {'eager_solve': 0, 'eager_fixed_point': 0}
+
+
+def _counts():
+    return dict(fused.launch_counts, **fused_bwd.launch_counts)
+
+
+def _launched(fn):
+    """fn's result and the kernels it launched (every count set to 0
+    before it)."""
+    fused.reset_launch_counts()
+    fused_bwd.reset_launch_counts()
+    out = fn()
+    return out, {k: v for k, v in _counts().items() if v}
+
+
+def test_exported_solve_launches_k1_bitwise_live(cuda):
+    """A solve exported on the card holds one k1_solve node; each call
+    of the artifact launches K1 once and gives the live solve's bits; so
+    does an artifact traced on CPU tensors and moved to the card
+    (move_to_device_pass), and one padded to max_batch at b < max_batch."""
+    from mpc_tpu_torch.utils import export as ex
+    x0, dx, cost = _problem(cuda, 256, 20)
+    cfg = _cfg(20)
+    kw = dict(u_lower=-2.0, u_upper=2.0)
+    live = mt.batched_solve(cfg, x0, cost, dx, **kw)
+    on_card = ex.export_solve(cfg, dx, cost, x0, device=cuda, **kw)
+    from_cpu = ex.export_solve(
+        cfg, PendulumDx(device='cpu'),
+        mt.QuadCost(cost.C.cpu(), cost.c.cpu()), x0.cpu(), device=cuda,
+        **kw)
+    padded = ex.export_solve(cfg, dx, cost, x0, polymorphic_batch=True,
+                             max_batch=512, device=cuda, **kw)
+    for data in (on_card, from_cpu, padded):
+        assert ex.kernel_nodes(data) == {'k1_solve': 1}
+        out, launched = _launched(lambda: ex.load_fn(data)(x0, cost.C,
+                                                           cost.c))
+        assert launched == {'fused_ilqr': 1}
+        for a, b in zip(out, (live.x, live.u, live.costs)):
+            assert torch.equal(a, b)
+
+
+def test_exported_gradient_launches_k1_and_k2(cuda):
+    """The gradient of sum(u^2) to c, exported on the card: one node of
+    K1's and K2's ops each, one launch each a call, the live gradient's
+    bits."""
+    from mpc_tpu_torch.utils import export as ex
+    x0, dx, cost = _problem(cuda, 1024, 10)
+    cfg = _cfg(10, backprop=True, max_linesearch_iter=3)
+
+    def grad(c):
+        c = c.detach().requires_grad_()
+        sol = mt.batched_solve(cfg, x0, mt.QuadCost(cost.C, c), dx,
+                               u_lower=-2.0, u_upper=2.0)
+        return torch.autograd.grad((sol.u ** 2).sum(), c)[0]
+
+    data = ex.export_fn(grad, cost.c)
+    assert ex.kernel_nodes(data) == {'k1_solve': 1, 'k2_backward': 1}
+    g, launched = _launched(lambda: ex.load_fn(data)(cost.c))
+    assert launched == {'fused_ilqr': 1, 'fused_kkt_bwd': 1}
+    assert torch.equal(g, grad(cost.c))
+
+
+def test_solve_sharded_on_one_card_is_bitwise_unsharded(cuda):
+    """Four shards on the one card: four K1 launches, every output the
+    unsharded solve's bits (K1 solves each example alone)."""
+    from mpc_tpu_torch.parallel import make_mesh, solve_sharded
+    x0, dx, cost = _problem(cuda, 1024, 20)
+    cfg = _cfg(20)
+    sol, launched = _launched(lambda: solve_sharded(
+        cfg, make_mesh([cuda] * 4), x0, cost, dx, u_lower=-2.0,
+        u_upper=2.0))
+    assert launched == {'fused_ilqr': 4}
+    one = mt.batched_solve(cfg, x0, cost, dx, u_lower=-2.0, u_upper=2.0)
+    for a, b in zip(sol[:8], one[:8]):
+        assert torch.equal(a, b)
+
+
+def test_checkpoint_loads_onto_the_card(cuda, tmp_path):
+    """load_checkpoint puts a state on the card by default."""
+    from mpc_tpu_torch.utils import load_checkpoint, save_checkpoint
+    state = mt.TrainState({'c': torch.arange(4.)}, {'lr': 0.1}, 3)
+    path = save_checkpoint(str(tmp_path / 'ckpt.pt'), state)
+    got = load_checkpoint(path, like=state._replace(
+        theta={'c': torch.zeros(4)}))
+    assert got.theta['c'].device.type == 'cuda' and got.step == 3
+    assert torch.equal(got.theta['c'].cpu(), state.theta['c'])
