@@ -38,6 +38,20 @@ parallel, and drives the port's main paths on the card:
   loss to the MLP's weights through K3 and K2 against the eager fixed
   point, with K2 on that path's operands ([grad-nn]).
 
+LinDx problems of other sizes than 3 states and 1 control run in K3's
+dense configuration (csrc/fused_ilqr_dense.cu + box_qp.cuh: a warp an
+example, the in-kernel projected-Newton box QP for several bounded
+controls, the jittered Cholesky for several unbounded ones), at the JAX
+package's rows that its kernels serve (benchmarks/configs.py): config
+1, TVLQR (3 states, 4 controls, every operand per example, B=128), the
+medium-state rows (16 states and 4 controls at B=2048, 24 states and 4
+controls at B=1024 and 2048; box +-1, a batch-shared LinDx) and a
+5-state, 1-control box LinDx: the kernel against its plain version and
+float64, reversed and sliced batches bitwise, TVLQR against the dense
+QP ([compare-dense]), requests through batched_solve and MPC, one launch
+each ([serve-dense]), and its time from a CUDA graph beside its bound,
+the plain version's and its registers ([time-dense]).
+
 K1 and K3 give each example a team of lanes (ops/fused.py:TEAM): the
 compare phases also run what that makes new ([compare-teams]: more step
 sizes than lanes, examples of one warp stopping at different
@@ -48,7 +62,9 @@ the kernels do not take, runs on the card in the [eager-*] phases: the
 headline with use_fused='never' against K1 in the same process
 ([eager-serve]), and the JAX package's configurations that take its jnp
 path (benchmarks/configs.py): config 1, TVLQR ([eager-tvlqr]), the
-medium-state row with 24 states and 4 controls ([eager-medium]), config
+medium-state row with 24 states and 4 controls ([eager-medium]), both
+pinned to use_fused='never' and timed beside the dense kernel's route
+in the same process, config
 3, the cartpole ([eager-cartpole]), and the sequential long-horizon solve
 at T=512 ([eager-long]); each float32 against float64 on the card, the
 card's float64 against the CPU's, and gradients through the eager fixed
@@ -211,7 +227,7 @@ def check_tail(what, u, ref, limits=(TAIL_MEAN, TAIL_SHARE)):
 
 
 def phase_build():
-    from mpc_tpu_torch.ops import _build, fused, fused_bwd
+    from mpc_tpu_torch.ops import _build, fused, fused_bwd, fused_dense
     specs = [('fused_ilqr', fused.kernel_defines(T, True)),
              ('fused_ilqr', fused.kernel_defines(TRAIN_T, True))]
     specs += [('fused_kkt_bwd',
@@ -230,6 +246,14 @@ def phase_build():
     specs += [('fused_kkt_bwd_long',
                fused_bwd.long_kernel_defines(cost_shared, dyn_shared))
               for cost_shared in (True, False) for dyn_shared in (True, False)]
+    # the dense configuration at each size the dense phases run, and at
+    # the gate's corners (n_state + n_ctrl = 32; n_ctrl = 8), whose
+    # registers and spills below are the gate's evidence
+    specs += [('fused_ilqr_dense', fused_dense.dense_kernel_defines(
+        ns, nc, label != 'tvlqr', label == 'tvlqr'))
+              for label, ns, nc in sorted({r[:3] for r in DENSE_ROWS})]
+    specs += [('fused_ilqr_dense', fused_dense.dense_kernel_defines(
+        ns, nc, True, False)) for ns, nc in ((28, 4), (24, 8))]
     t0 = time.perf_counter()
     paths = _build.build(specs)
     log(f'[build] nvcc {" ".join(_build.NVCC_FLAGS)} '
@@ -248,7 +272,10 @@ def phase_build():
             ('K2 config 4, B=8192', fused_bwd.k2_launch(TRAIN_T, 8192)),
             ('K4 long', fused_bwd.k4_launch(LONG_T, LONG_B)),
             (f'K4 past K4_T_RESIDENT = {fused_bwd.K4_T_RESIDENT}',
-             fused_bwd.k4_launch(fused_bwd.K4_T_RESIDENT + 1, 2050))):
+             fused_bwd.k4_launch(fused_bwd.K4_T_RESIDENT + 1, 2050)),
+            *((f'dense {label} {ns}s{nc}c, B={n}', fused_dense.k3d_launch(
+                TVLQR['T'] if label == 'tvlqr' else MEDIUM['T'], n, ns, nc,
+                10)) for label, ns, nc, n in DENSE_ROWS)):
         log(f'  launch, {what}: {geo}')
 
 
@@ -282,14 +309,29 @@ def hold_equidistance(what, uk, up, u64):
                              'than the plain float32 run')
 
 
+def batch_subset(torch, ops, keep):
+    """A forward kernel's operands for the examples ``keep`` (an index
+    tensor): x0 and every operand with a batch extent gathered, shared
+    ones (batch extent 1) kept."""
+    B = ops['x0'].shape[0]
+    keep = keep.to(ops['x0'].device)
+    out = dict(ops, x0=ops['x0'][keep].contiguous())
+    for k in ('F', 'f', 'C', 'c', 'u0', 'lb', 'ub'):
+        a = ops.get(k)
+        if a is not None and a.shape[1] == B:
+            out[k] = a[:, keep].contiguous()
+    return out
+
+
 def hold_k1(torch, what, ops, ops64, kernel=None, plain=None,
             limits=(TAIL_MEAN, TAIL_SHARE), counts=False):
-    """A forward kernel (K1 unless ``kernel`` and ``plain`` name K3 and
-    its plain version) against its plain version on the same operands (a
-    batch-shared problem): finite, within the float32 tail ``limits``
+    """A forward kernel (K1 unless ``kernel`` and ``plain`` name another
+    and its plain version) against its plain version on the same
+    operands: finite, within the float32 tail ``limits``
     (None: judged against float64 alone), the same n_iter, no further
     from the float64 plain run on ``ops64`` than the plain float32 run,
-    bitwise equal on the reversed batch and, where ``counts``, with the
+    bitwise equal on the reversed batch (every batched operand reversed
+    with it) and, where ``counts``, with the
     plain run's step-size counts (``hold_counts``).
     Returns the kernel's (x, u, stats) and max |du|."""
     from mpc_tpu_torch.ops import fused
@@ -312,8 +354,8 @@ def hold_k1(torch, what, ops, ops64, kernel=None, plain=None,
         f'{float((xk - xp).abs().max()):.3e}')
     hold_equidistance(what, uk, up, u64)
     # batch reversal: no example reads another's data
-    r = kernel(**dict(ops, x0=ops['x0'].flip(0).contiguous(),
-                      u0=ops['u0'].flip(1).contiguous()))
+    B = ops['x0'].shape[0]
+    r = kernel(**batch_subset(torch, ops, torch.arange(B - 1, -1, -1)))
     if not (torch.equal(r[1].flip(1), uk) and torch.equal(r[0].flip(1), xk)
             and torch.equal(r[2].flip(1), sk)):
         raise AssertionError(f'{what}: reversed batch is not bitwise equal')
@@ -1089,12 +1131,9 @@ def same_share(a, b):
 def hold_slices(torch, what, kernel, ops, full, sizes=(1, 7, 33)):
     """The first n examples solved alone (n = 1, and batches that do not
     fill a block) must be bitwise what they are inside the full batch
-    ``full``: an example's result depends on nothing beside it.  ``ops``
-    is a batch-shared problem: only x0 and u0 have a batch extent."""
+    ``full``: an example's result depends on nothing beside it."""
     for n in sizes:
-        o = dict(ops, x0=ops['x0'][:n].contiguous(),
-                 u0=ops['u0'][:, :n].contiguous())
-        r = kernel(**o)
+        r = kernel(**batch_subset(torch, ops, torch.arange(n)))
         if not (torch.equal(r[0], full[0][:, :n])
                 and torch.equal(r[1], full[1][:, :n])
                 and torch.equal(r[2], full[2][:, :n])):
@@ -1509,7 +1548,7 @@ def phase_train_long(torch, device, steps=20, warmup=3):
         losses.append(float(loss))
         counts = dict(fused.launch_counts, **fused_bwd.launch_counts)
         if device.type == 'cuda' and counts != {
-                'fused_ilqr': 0, 'fused_kkt_bwd': 0,
+                'fused_ilqr': 0, 'fused_kkt_bwd': 0, 'fused_ilqr_dense': 0,
                 'fused_ilqr_long': i + 1, 'fused_kkt_bwd_long': i + 1}:
             raise AssertionError('a long train step must launch K3 and K4 '
                                  f'once each and K1, K2 never: {counts}')
@@ -2009,7 +2048,7 @@ def phase_eager_models(torch, device, records, n=512):
 # (173-202); the sequential arm of the long-horizon solve (596-644)
 TVLQR = dict(n_state=3, n_ctrl=4, T=5, lqr_iter=10, eps=0.0,
              exit_unconverged=False, detach_unconverged=False,
-             backprop=False)
+             backprop=False, use_fused='never')
 TVLQR_B = 128
 MEDIUM = dict(n_state=24, n_ctrl=4, T=20, lqr_iter=10, eps=0.0,
               exit_unconverged=False, detach_unconverged=False,
@@ -2198,6 +2237,24 @@ def dense_lqr_u(C, c, F, f, x0):
     return np.linalg.solve(0.5 * (H + H.T), -g).reshape(T_, nc)
 
 
+def kernel_route_ms(torch, device, cfg_kw, x0, cost, dyn, reps, **bk):
+    """The kernel route's median host ms on an eager phase's own problem
+    (use_fused='auto': K3's dense configuration), in the same process;
+    it must launch the dense kernel once a solve."""
+    import mpc_tpu_torch as mt
+    from mpc_tpu_torch.ops import fused
+    cfg = mt.MPCConfig(**dict(cfg_kw, use_fused='auto'))
+    mt.batched_solve(cfg, x0, cost, dyn, device=device, **bk)  # warm-up
+    fused.reset_launch_counts()
+    _, ms = timed(torch, device, lambda: mt.batched_solve(
+        cfg, x0, cost, dyn, device=device, **bk), reps)
+    if device.type == 'cuda' and \
+            fused.launch_counts['fused_ilqr_dense'] != reps:
+        raise AssertionError('the kernel route did not launch the dense '
+                             'kernel once a solve')
+    return ms
+
+
 def phase_eager_tvlqr(torch, device, records, reps=3):
     import numpy as np
     import mpc_tpu_torch as mt
@@ -2218,27 +2275,32 @@ def phase_eager_tvlqr(torch, device, records, reps=3):
                     arr['f'][:, b], arr['x0'][b]) for b in range(TVLQR_B)], 1))
     e64, e32, e32_64 = rel_err(u64, dense), rel_err(u32, dense), \
         rel_err(u32, u64)
+    k_ms = kernel_route_ms(torch, device, TVLQR, x0, cost, dyn, reps)
     log(f'  max |du| / max |u|: f64 vs dense QP {e64:.3e}, f32 vs dense '
         f'{e32:.3e}, f32 vs f64 {e32_64:.3e}; {n_eager} eager solves, '
-        f'median {ms:.3f} ms ({TVLQR_B / ms * 1e3:.0f} solves/s), '
-        f'{card_line()}')
+        f'median {ms:.3f} ms ({TVLQR_B / ms * 1e3:.0f} solves/s); the '
+        f'kernel route (dense configuration) {k_ms:.3f} ms, eager / kernel '
+        f'{ms / k_ms:.1f}; {card_line()}')
     if not (e64 < 1e-8 and e32 < TVLQR_F32_TOL and e32_64 < TVLQR_F32_TOL):
         raise AssertionError('TVLQR: the eager solve is off the dense QP')
     eager_record(records, 'eager-tvlqr', f'config 1, B={TVLQR_B}, T=5, '
                  '3s/4c, float32', n_eager, e32_64,
                  'float64 eager run and a numpy float64 dense QP',
                  f'{TVLQR_F32_TOL} relative (f64 vs dense 1e-8)', ms)
+    records[-1]['kernel_median_ms'] = k_ms
     phase_tf32(torch, 'TVLQR forward (pseudo-inverse)',
                lambda: list(mt.batched_solve(cfg, x0, cost, dyn,
                                              device=device)[:6]))
 
 
-def medium_problem(torch, device, dtype, n, seed=3):
-    """The medium-state jnp row (benchmarks/configs.py:141-151): a
-    batch-shared LinDx(F, None) with a stable A, a diagonal QuadCost."""
+def medium_problem(torch, device, dtype, n, seed=3, ns=None, nc=None):
+    """The medium-state rows (benchmarks/configs.py:141-151), 24 states
+    and 4 controls unless given: a batch-shared LinDx(F, None) with a
+    stable A, a diagonal QuadCost."""
     import numpy as np
     import mpc_tpu_torch as mt
-    ns, nc, T_ = MEDIUM['n_state'], MEDIUM['n_ctrl'], MEDIUM['T']
+    ns, nc = ns or MEDIUM['n_state'], nc or MEDIUM['n_ctrl']
+    T_ = MEDIUM['T']
     rng = np.random.RandomState(seed)
     A = np.eye(ns) + 0.01 * rng.randn(ns, ns)
     A /= max(1.0, np.max(np.abs(np.linalg.eigvals(A))))
@@ -2299,13 +2361,17 @@ def phase_eager_medium(torch, device, records):
             and torch.equal(s64.n_iter[:64].cpu(), sc.n_iter)):
         raise AssertionError('medium: the card\'s float64 is off the CPU\'s')
     active = float((sol.u.abs() == 1.0).double().mean())
+    k_ms = kernel_route_ms(torch, device, MEDIUM, x0, cost, dyn, 3,
+                           u_lower=-1.0, u_upper=1.0)
     log(f'  {active:.3f} of the controls on the box; {n_eager} eager '
-        f'solves, median {ms:.1f} ms ({n / ms * 1e3:.1f} solves/s), '
-        f'{card_line()}')
+        f'solves, median {ms:.1f} ms ({n / ms * 1e3:.1f} solves/s); the '
+        f'kernel route (dense configuration) {k_ms:.3f} ms, eager / kernel '
+        f'{ms / k_ms:.0f}; {card_line()}')
     eager_record(records, 'eager-medium', f'24s/4c, B={n}, T=20, box, '
                  'float32', n_eager, mx, 'float64 eager run on the card; '
                  'card f64 vs CPU f64 (B=64) '
                  f'{e:.2e}', f'f32 tail as K1; f64 {EAGER_F64_TOL}', ms)
+    records[-1]['kernel_median_ms'] = k_ms
 
 
 def cartpole_problem(torch, device, dtype, n, seed=2):
@@ -2639,6 +2705,247 @@ def phase_eager_grad(torch, device, records, n=1024):
 # bench_closed_loop (benchmarks/configs.py:375-417): the headline's solve
 # (AUTO_DIFF, lqr_iter=10, eps=0, box +-2, decay 0.2, 5 step sizes) for
 # 100 environment steps at B = 1, 16, 256, and at the headline's 4096
+# ---------------------------------------------------------------------------
+# K3's dense configuration: LinDx at any state and control size
+# ---------------------------------------------------------------------------
+
+# the JAX package's rows that its kernels serve (benchmarks/configs.py):
+# config 1, TVLQR (:49-105; 3 states, 4 controls, every operand per
+# example, unbounded, B=128) and the medium-state rows (:107-171; a
+# batch-shared LinDx(F, None), a diagonal C, box +-1, T=20, lqr_iter=10);
+# and a box LinDx of the cartpole's size, 5 states and 1 control, on the
+# medium rows' system (the closed-form 1-D box QP)
+DENSE_ROWS = (
+    # label, n_state, n_ctrl, B
+    ('tvlqr', 3, 4, TVLQR_B),
+    ('medium', 16, 4, 2048),
+    ('medium', 24, 4, 1024),
+    ('medium', 24, 4, 2048),
+    ('box', 5, 1, 2048),
+)
+# the row whose request stream [serve-dense] drives beside TVLQR's, and
+# the kernels line's entry: 24 states, 4 controls at B=2048
+DENSE_MAIN = DENSE_ROWS[3]
+DENSE_REQUESTS = 4
+
+
+def dense_problem(torch, device, label, ns, nc, n, dtype=None, seed=None):
+    """(cfg, x0, cost, dynamics, bounds) of a DENSE_ROWS row at its own
+    sizes on the first n examples; the kernel route (use_fused='auto')."""
+    import mpc_tpu_torch as mt
+    dtype = dtype or torch.float32
+    if label == 'tvlqr':
+        x0, cost, dyn, _ = tvlqr_problem(torch, device, dtype, n,
+                                         seed=1 if seed is None else seed)
+        return (mt.MPCConfig(**dict(TVLQR, use_fused='auto')), x0, cost,
+                dyn, {})
+    x0, cost, dyn = medium_problem(torch, device, dtype, n,
+                                   seed=3 if seed is None else seed, ns=ns,
+                                   nc=nc)
+    cfg = mt.MPCConfig(**dict(MEDIUM, n_state=ns, n_ctrl=nc,
+                              use_fused='auto'))
+    return cfg, x0, cost, dyn, dict(u_lower=-1.0, u_upper=1.0)
+
+
+def dense_operands(torch, device, label, ns, nc, n, dtype=None):
+    from mpc_tpu_torch.ops import fused_dense
+    cfg, x0, cost, dyn, bk = dense_problem(torch, device, label, ns, nc, n,
+                                           dtype)
+    return fused_dense.k3d_operands(cfg, x0, cost, dyn, **bk)
+
+
+def phase_compare_dense(torch, device):
+    """The dense configuration against fused_solve_dense_plain on the
+    card at each DENSE_ROWS row's own size (hold_k1: the LinDx float32
+    tail, n_iter, float64 equidistance, the reversed batch with every
+    batched operand); at TVLQR and the main row also B = 1, 7, 33 alone
+    and the batch with two more examples (more blocks) bitwise; TVLQR
+    also against the dense QP of [eager-tvlqr] (dense_lqr_u).  Returns
+    the largest max |du|."""
+    import numpy as np
+    from mpc_tpu_torch.ops import fused_dense as fd
+    kw = dict(kernel=fd.fused_ilqr_dense, plain=fd.fused_solve_dense_plain,
+              limits=(LONG_TAIL_MEAN, LONG_TAIL_SHARE))
+    worst = 0.0
+    for label, ns, nc, n in DENSE_ROWS:
+        what = f'{label} {ns}s{nc}c, B={n}'
+        log(f'[compare-dense] dense kernel vs its plain version, {what}')
+        ops = dense_operands(torch, device, label, ns, nc, n)
+        ops64 = dense_operands(torch, device, label, ns, nc, n, torch.float64)
+        full, mx = hold_k1(torch, what, ops, ops64, **kw)
+        worst = max(worst, mx)
+        if label == 'tvlqr':
+            _, _, _, arr = tvlqr_problem(torch, device, torch.float32, n)
+            dense = torch.tensor(np.stack([
+                dense_lqr_u(arr['C'][:, b], arr['c'][:, b], arr['F'][:, b],
+                            arr['f'][:, b], arr['x0'][b]) for b in range(n)],
+                1))
+            e = rel_err(full[1], dense)
+            log(f'  vs the dense QP (numpy float64): max |du| / max |u| '
+                f'{e:.3e}')
+            if not e < TVLQR_F32_TOL:
+                raise AssertionError('TVLQR: the dense kernel is off the '
+                                     'dense QP')
+        if (label, ns, nc, n) in (DENSE_ROWS[0], DENSE_MAIN):
+            hold_slices(torch, what, fd.fused_ilqr_dense, ops, full)
+            r = fd.fused_ilqr_dense(**batch_subset(torch, ops, torch.cat(
+                [torch.arange(n), torch.arange(2)])))
+            if not all(torch.equal(r[i][:, :n], full[i])
+                       and torch.equal(r[i][:, n:], full[i][:, :2])
+                       for i in range(3)):
+                raise AssertionError(f'{what}: B={n + 2} differs from B={n}')
+            log(f'  {what}: B={n + 2} bitwise equal to B={n}')
+        log(f'  controls on the box '
+            f'{float((full[1].abs() == 1.0).double().mean()):.3f}; '
+            f'n_qp_iter a solve {float(full[2][3].double().mean()):.1f}, '
+            f'trials a solve {float(full[2][5].double().mean()):.2f}')
+    return worst
+
+
+def phase_serve_dense(torch, device):
+    """Requests through the entry points: DENSE_REQUESTS distinct batches
+    through batched_solve and one through MPC for TVLQR and for the main
+    medium-state row, host to host, every count set to 0 before and read
+    after: one dense launch a request and nothing else.  The last
+    answers hold up: x is the rollout of u, costs their objective, u in
+    its box; TVLQR's u is the dense QP's.  Returns the launches by row
+    and the median request ms."""
+    import numpy as np
+    import mpc_tpu_torch as mt
+    from mpc_tpu_torch import solver
+    from mpc_tpu_torch.ops import fused
+    from mpc_tpu_torch.solver import rollout, trajectory_cost
+    launches, req_ms = {}, {}
+    for label, ns, nc, n in (DENSE_ROWS[0], DENSE_MAIN):
+        cfg, x0, cost, dyn, bk = dense_problem(torch, device, label, ns, nc, n)
+        requests = [torch.tensor(np.random.RandomState(300 + i).randn(n, ns),
+                                 dtype=torch.float32)
+                    for i in range(DENSE_REQUESTS)]
+        mt.batched_solve(cfg, x0, cost, dyn, device=device, **bk).u.cpu()
+        ctrl = mt.MPC(ns, nc, cfg.T, lqr_iter=cfg.lqr_iter, eps=cfg.eps,
+                      exit_unconverged=False, detach_unconverged=False,
+                      backprop=False, device=device, **bk)
+        reset_all_counts()
+        solver.reset_eager_counts()
+        lat = []
+        for req in requests:
+            t0 = time.perf_counter()
+            x = req.to(device)
+            sol = mt.batched_solve(cfg, x, cost, dyn, device=device, **bk)
+            u = sol.u.cpu()
+            lat.append(1e3 * (time.perf_counter() - t0))
+        t0 = time.perf_counter()
+        xm, um, _ = ctrl(requests[0].to(device), cost, dyn)
+        um = um.cpu()
+        lat_mpc = 1e3 * (time.perf_counter() - t0)
+        counts = {k: v for k, v in all_counts().items() if v}
+        n_req = len(requests) + 1
+        ms = median(lat)
+        log(f'[serve-dense] {label} {ns}s{nc}c, B={n}: {len(requests)} '
+            'batched_solve requests, latency ms '
+            + ' '.join(f'{v:.3f}' for v in lat) + f', median {ms:.3f} '
+            f'({n / ms * 1e3:.0f} solves/s); MPC {lat_mpc:.3f} ms; launches '
+            f'{counts}, eager solves {solver.eager_counts["eager_solve"]}')
+        if solver.eager_counts['eager_solve'] or (
+                device.type == 'cuda'
+                and counts != {'fused_ilqr_dense': n_req}):
+            raise AssertionError('each request must launch the dense kernel '
+                                 'once and nothing else')
+        if not torch.equal(um, mt.batched_solve(
+                cfg, requests[0].to(device), cost, dyn, device=device,
+                **bk).u.cpu()):
+            raise AssertionError('MPC and batched_solve answer differently')
+        xr = rollout(dyn, x, u.to(device))
+        cr = trajectory_cost(cost, xr, u.to(device))
+        gap = float((cr - sol.costs).abs().max() / sol.costs.abs().max())
+        x_gap = float((xr - sol.x).abs().max() / sol.x.abs().max())
+        log(f'  last answer: relative cost gap to its own rollout {gap:.2e}, '
+            f'max |x - rollout| / max |x| {x_gap:.2e}')
+        box = float(bk.get('u_upper', float('inf')))
+        if not (torch.isfinite(u).all() and u.abs().max() <= box
+                and gap < 1e-3 and x_gap < 1e-3):
+            raise AssertionError('served controls are not a feasible solve')
+        launches[label] = n_req
+        req_ms[label] = ms
+    return launches, req_ms
+
+
+def dense_entries(rows, launches, req_ms, err):
+    """The kernels line's entries of the dense configuration: the main
+    medium-state row (it replaces _make_kernel_long's configuration) and
+    TVLQR (config 1, which the JAX package runs in _make_kernel), each
+    with its [serve-dense] launches and its [time-dense] row; every row
+    under 'rows'."""
+    from mpc_tpu_torch.ops import fused_dense as fd
+    by_row = {r['row']: r for r in rows}
+    out = []
+    for (label, ns, nc, n), path, line in (
+            (DENSE_MAIN, 'medium-state serving', 1126),
+            (DENSE_ROWS[0], 'tvlqr serving', 617)):
+        r = by_row[f'{label} {ns}s{nc}c B={n}']
+        T_ = TVLQR['T'] if label == 'tvlqr' else MEDIUM['T']
+        out.append({
+            'name': 'fused_ilqr_dense' + (' (tvlqr)' if label == 'tvlqr'
+                                          else ''),
+            'path': path, 'route': 'cuda',
+            'source': 'mpc_tpu_torch/csrc/fused_ilqr_dense.cu',
+            'headers': ['mpc_tpu_torch/csrc/box_qp.cuh'],
+            'replaces': f'mpc_tpu/ops/fused.py:{line}',
+            'design': design('fused_ilqr_dense', fd.dense_kernel_defines(
+                ns, nc, label != 'tvlqr', label == 'tvlqr'),
+                fd.k3d_launch(T_, n, ns, nc, 10)),
+            'launches': launches[label], 'max_abs_err': err,
+            'tolerance': f'mean|du|<{LONG_TAIL_MEAN}, '
+                         f'share(|du|>{TAIL_ENTRY})<{LONG_TAIL_SHARE}; '
+                         'at most 2x the plain f32 distance from f64',
+            'library_ms': None, 'request_ms': req_ms[label],
+            **{k: r[k] for k in ('ms', 'plain_ms', 'bound_ms', 'bound_by')},
+            'rows': rows if label != 'tvlqr' else [r]})
+    return out
+
+
+def phase_time_dense(torch, device):
+    """The dense kernel at each DENSE_ROWS row timed from a CUDA graph,
+    its bound from this run's iterations, trial rollouts and QP trips,
+    its registers and spills (ptxas), and the plain version on the card.
+    Returns the rows."""
+    from mpc_tpu_torch.ops import fused_dense as fd
+    rows = []
+    for label, ns, nc, n in DENSE_ROWS:
+        ops = dense_operands(torch, device, label, ns, nc, n)
+        _, _, st = fd.fused_ilqr_dense(**ops)
+        ms, eager_ms = graph_ms(torch, lambda: fd.fused_ilqr_dense(**ops),
+                                reps=3, per_graph=4)
+        has_bounds = ops['lb'] is not None
+        sums = [float(st[i].double().sum()) for i in (2, 3, 5)]
+        T_ = ops['u0'].shape[0]
+        flops = fd.k3d_flops(T_, ns, nc, sums[0], sums[2], batch=n,
+                             has_f=ops['f'] is not None,
+                             has_bounds=has_bounds,
+                             n_qp=sums[1] if nc > 1 and has_bounds else 0)
+        nbytes = fd.k3d_bytes(ops)
+        bound_ms, by = bound(flops, nbytes)
+        des = design('fused_ilqr_dense',
+                     fd.dense_kernel_defines(ns, nc, has_bounds,
+                                             ops['f'] is not None),
+                     fd.k3d_launch(T_, n, ns, nc, len(ops['alphas'])))
+        pms = event_ms(torch, lambda: fd.fused_solve_dense_plain(**ops))
+        log(f'[time-dense] {label} {ns}s{nc}c, B={n}, T={T_}: {ms:.4f} ms '
+            f'(from a CUDA graph; {eager_ms:.4f} ms a call from Python), '
+            f'plain {pms:.1f} ms; {flops:.4e} operations '
+            f'({sums[0] / n:.2f} iterations, {sums[2] / n:.2f} trials, '
+            f'{sums[1] / n:.1f} QP trips a solve), {nbytes} bytes; bound '
+            f'{bound_ms:.5f} ms by {by} ({ms / bound_ms:.1f}x); '
+            f'{n / ms * 1e3:.0f} solves/s; registers {des["registers"]}, '
+            f'spill stores {des["spill_store_bytes"]} bytes, shared memory '
+            f'{des["shared_memory_bytes"]} bytes a block; {card_line()}')
+        rows.append(dict(row=f'{label} {ns}s{nc}c B={n}', ms=ms,
+                         plain_ms=pms, bound_ms=bound_ms, bound_by=by,
+                         registers=des['registers'],
+                         spill_store_bytes=des['spill_store_bytes']))
+    return rows
+
+
 CLOSED_LOOP_BS = (1, 16, 256, B)
 CLOSED_LOOP_STEPS = 100
 # the step of the B=4096 loop whose K1 operands are held against the
@@ -4152,6 +4459,12 @@ def main():
     k3_nn_serve, nn_request_ms = phase_serve_nn(torch, device)
     timing_nn = phase_time_nn(torch, device, nn_plain_ms)
     k3_nn_grad, k2_nn_grad, nn_grad_err, k2_nn = phase_grad_nn(torch, device)
+    t_dense = time.perf_counter()
+    dense_err = phase_compare_dense(torch, device)
+    dense_launches, dense_req_ms = phase_serve_dense(torch, device)
+    dense_rows = phase_time_dense(torch, device)
+    log(f'[dense] the dense phases took {time.perf_counter() - t_dense:.1f} '
+        's')
     t_new = time.perf_counter()
     closed = phase_closed_loop(torch, device)
     t_closed = time.perf_counter()
@@ -4189,7 +4502,7 @@ def main():
     # ([serve-nn], bench_nn_dynamics at B=2048; [grad-nn] at B=1024);
     # launches are that path's count, the times and bound that path's
     # shape
-    from mpc_tpu_torch.ops import fused, fused_bwd
+    from mpc_tpu_torch.ops import fused, fused_bwd, fused_dense
     k1 = {'route': 'cuda', 'source': 'mpc_tpu_torch/csrc/fused_ilqr.cu',
           'replaces': 'mpc_tpu/ops/fused.py:617',
           'tolerance': f'mean|du|<{TAIL_MEAN}, '
@@ -4276,6 +4589,7 @@ def main():
          'library_ms': None,
          **{k: slew[k] for k in ('ms', 'plain_ms', 'bound_ms',
                                  'bound_by')}},
+        *dense_entries(dense_rows, dense_launches, dense_req_ms, dense_err),
         *scale_entries(scale, {'k1': (max_err, timing),
                                'k2': (bwd_err, timing_bwd),
                                'k3': (long_err, timing_long),

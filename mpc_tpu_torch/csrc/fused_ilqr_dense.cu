@@ -1,0 +1,623 @@
+// K3's dense configuration for Hopper: the box-constrained iLQR solve of a
+// LinDx problem of any n_state and n_ctrl with n_state + n_ctrl <= 32, a
+// warp an example.
+//
+// Replaces the TPU kernels' general-size configurations:
+// mpc_tpu/ops/fused.py:_make_kernel_long (lines 1126-1932) at these
+// sizes, and _make_kernel (617-1119), where the JAX package's config 1
+// (TVLQR, 3 states and 4 controls) runs.  Both unroll every scalar of the
+// small matrices over lane vectors; the control solve of a step is the
+// closed-form 1-D box QP for one control, the projected-Newton box QP
+// (_pnqp_kernel) on the masked unrolled Cholesky for several bounded
+// controls, or the Cholesky with a 1e-11 jitter for several unbounded
+// ones (ctrl_solve, :1464-1544; here box_qp.cuh).
+//
+// What bounds it on this card.  An iteration's work per example is the
+// Riccati sweep's products, W = V F and Q = C + F^T W, ~3 n_state^2
+// (n_state + n_ctrl) operations a step (~51,000 at 24 states and 4
+// controls), the box QP's trips and the trial rollouts; at the JAX
+// package's medium-state row (24 states, 4 controls, T=20, B=2048, 10
+// iterations) that is ~2.6e10 operations against ~5.6 MB in and out, so
+// the bound is the card's float32 rate, not its memory
+// (fused_dense.k3d_flops, k3d_bytes).  The sweep is a chain over
+// t per example, so the card needs many examples in flight.
+//
+// What the design does about it.
+//
+// - ONE WARP AN EXAMPLE.  Lane r owns row r of the cost-to-go V, of Q
+//   and of W, and column j of the gains: the products of a step run on
+//   32 lanes at once, each a row's dot products from the first term on
+//   (the TPU kernel's order), and B = 2048 is 2048 warps, ~16 an SM.
+//   The lanes meet only through the warp's tiles in shared memory
+//   (__syncwarp between the phases of a step) and the xor-butterfly of
+//   shuffles that sums a stage cost over the lanes.
+// - The warp's TILES in shared memory: C_t staged and then updated in
+//   place into Q_t (its upper triangle computed, mirrored below), F_t,
+//   W, V, the vectors and the gains of the step; rows of odd stride, so
+//   that the lanes reading a column hit 32 banks.  At 24 states and 4
+//   controls a warp's tiles are 12.4 KB, a block of four warps 50 KB.
+//   A batch-shared operand is read by every warp from the same addresses
+//   (L1 and L2 hits), a batched one with its batch stride.
+// - The CONTROL SOLVE of a step runs in every lane on registers (its n_ctrl
+//   x n_ctrl block is small); the projected-Newton trip's Armijo search
+//   is split across lanes 0-9 with a ballot.  A warp stops its QP's
+//   trips, its line search and its iterations on its own, so stopped
+//   examples cost nothing: the TPU kernel runs every trip for every
+//   lane of its tile.
+// - The line search runs its step sizes one after the other: a rollout
+//   takes the whole warp (a lane a state), so the trial writes its
+//   trajectory to the second slot of the example's workspace and, if it
+//   passes (or is the last), the two slots swap roles: there is no
+//   commit rollout.  The gains and the two trajectory slots live in the
+//   workspace in global memory ([B][...] of float32, the example's
+//   region contiguous), written and read by the same warp.
+//
+// The arithmetic of every scalar is the TPU kernel's, in its order (dot
+// products from the first term on, vv_update's sums left to right, the
+// control (K dx + u) + alpha k, sums over t left to right), with the sums
+// over lanes in the butterfly's order; the plain PyTorch version
+// mpc_tpu_torch/ops/fused_dense.py:fused_solve_dense_plain follows it.
+// Built without --use_fast_math; nvcc's FMA contraction is the only
+// arithmetic difference from the plain version.  float32, on the CUDA
+// cores: no tensor cores, so no TF32.
+//
+// Outputs: x [T, B, n_state], u [T, B, n_ctrl], stats [6, B] = best cost,
+// best full-step norm, n_iter, n_qp_iter, alpha and the summed index plus
+// one of the selected step sizes.
+
+#include <cuda_runtime.h>
+
+#include <cmath>
+
+#include "box_qp.cuh"
+
+#if !defined(MPC_NS) || !defined(MPC_NC) || !defined(MPC_HAS_BOUNDS) || \
+    !defined(MPC_HAS_F) || !defined(MPC_WARPS)
+#error "compile with -DMPC_NS, -DMPC_NC, -DMPC_HAS_BOUNDS, -DMPC_HAS_F, -DMPC_WARPS"
+#endif
+
+namespace mpc {
+
+constexpr int kNS = MPC_NS;
+constexpr int kNC = MPC_NC;
+constexpr int kNT = kNS + kNC;
+constexpr bool kHasBounds = MPC_HAS_BOUNDS != 0;
+constexpr bool kHasF = MPC_HAS_F != 0;
+constexpr int kWarps = MPC_WARPS;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kMaxAlpha = 32;
+constexpr float kBig = 3.0e38f;
+static_assert(kNS >= 1 && kNC >= 1 && kNT <= 32,
+              "a warp an example: n_state + n_ctrl <= 32");
+
+// a warp's tiles (floats): rows of odd stride
+constexpr int kSQ = kNT | 1;
+constexpr int kSV = kNS | 1;
+constexpr int oQ = 0;                       // C_t, then Q_t   [kNT][kSQ]
+constexpr int oW = oQ + kNT * kSQ;          // W = V F         [kNS][kSQ]
+constexpr int oF = oW + kNS * kSQ;          // F_t             [kNS][kNT]
+constexpr int oV = oF + kNS * kNT;          // V               [kNS][kSV]
+constexpr int oTau = oV + kNS * kSV;        // tau_t           [kNT]
+constexpr int oQv = oTau + kNT;             // q               [kNT]
+constexpr int oCv = oQv + kNT;              // c_t             [kNT]
+constexpr int oVv = oCv + kNT;              // v               [kNS]
+constexpr int oDx = oVv + kNS;              // x_new - x       [kNS]
+constexpr int oK = oDx + kNS;               // K_t             [kNC][kNS]
+constexpr int oKQ = oK + kNC * kNS;         // Quu K_t         [kNC][kNS]
+constexpr int oKk = oKQ + kNC * kNS;        // k_t             [kNC]
+constexpr int kWarpFloats = (oKk + kNC + 3) / 4 * 4;
+// the gains of a step in the workspace: K (kNC x kNS), then k
+constexpr int kGain = kNC * (kNS + 1);
+
+struct Schedule {
+  float a[kMaxAlpha];          // the line search's step sizes
+  float qp_steps[kPnqpSteps];  // the box QP's 0.1^k
+  int n;
+};
+
+struct Operands {
+  int B, T;
+  const float* F;
+  int sFt, sFb;
+  const float* f;
+  int sft, sfb;
+  const float* C;
+  int sCt, sCb;
+  const float* c;
+  int sct, scb;
+  const float* x0;
+  const float* u0;
+  const float* lb;
+  const float* ub;
+  int sbt, sbb;
+  int lqr_iter, pnqp_iter;
+  float eps, best_cost_eps, not_improved_lim;
+  float* ws;
+  int ws_example;
+  float* x_out;
+  float* u_out;
+  float* stats;
+};
+
+// the sum over the warp's lanes, every lane ending with the same bits
+__device__ __forceinline__ float lane_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Every address below is computed from a lane index clamped into its
+// array (lt, lx, lu in the kernel), also where a guard keeps the lane
+// away: the compiler may hoist a load above its guard, and one through a
+// pointer of an absent operand was seen to fault.  f is a compile-time
+// flag (MPC_HAS_F) for the same reason.
+
+// 0.5 tau^T C_t tau + c_t^T tau: lane i's term from its row of C_t, the
+// terms summed over the lanes; lt is the lane clamped below kNT
+__device__ __forceinline__ float stage_cost(const float* Ct, const float* ct,
+                                            const float* tau, int lane,
+                                            int lt) {
+  float term = 0.f;
+  if (lane < kNT) {
+    const float* row = Ct + lt * kNT;
+    float s = __ldg(row) * tau[0];
+#pragma unroll
+    for (int j = 1; j < kNT; ++j) s = s + __ldg(row + j) * tau[j];
+    term = (0.5f * s + __ldg(ct + lt)) * tau[lt];
+  }
+  return lane_sum(term);
+}
+
+// state row lx (a lane clamped below kNS) of F_t tau + f_t
+__device__ __forceinline__ float dyn_step(const float* Ft, const float* ft,
+                                          const float* tau, int lx) {
+  const float* row = Ft + lx * kNT;
+  float s = __ldg(row) * tau[0];
+#pragma unroll
+  for (int j = 1; j < kNT; ++j) s = s + __ldg(row + j) * tau[j];
+  if constexpr (kHasF) s = s + __ldg(ft + lx);
+  return s;
+}
+
+__global__ void __launch_bounds__(kThreads)
+    fused_ilqr_dense_kernel(const Operands op, const Schedule sched) {
+  extern __shared__ float smem[];
+  const int lane = threadIdx.x & 31;
+  // the lane clamped into a tau row, a state row and a control
+  const int lt = lane < kNT ? lane : kNT - 1;
+  const int lx = lane < kNS ? lane : kNS - 1;
+  const int lu = lane < kNS ? 0 : lt - kNS;
+  const int b = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (b >= op.B) return;  // the whole warp: nothing below syncs the block
+  const int T = op.T, B = op.B;
+  float* sh = smem + (threadIdx.x >> 5) * kWarpFloats;
+  float* Qs = sh + oQ;
+  float* Ws = sh + oW;
+  float* Fs = sh + oF;
+  float* Vs = sh + oV;
+  float* tau = sh + oTau;
+  float* qv = sh + oQv;
+  float* cv = sh + oCv;
+  float* vv = sh + oVv;
+  float* dxs = sh + oDx;
+  float* Ks = sh + oK;
+  float* KQs = sh + oKQ;
+  float* ks = sh + oKk;
+  // the two trajectory slots [T][kNT] (current and trial, by ``cur``)
+  // and the gains; slot s at ws0 + s * T * kNT
+  float* const ws0 = op.ws + b * op.ws_example;
+  float* const gains = ws0 + 2 * T * kNT;
+  const float* Cb = op.C + b * op.sCb;
+  const float* cb = op.c + b * op.scb;
+  const float* Fb = op.F + b * op.sFb;
+  const float* fb = kHasF ? op.f + b * op.sfb : nullptr;
+  const float* lbb = kHasBounds ? op.lb + b * op.sbb : nullptr;
+  const float* ubb = kHasBounds ? op.ub + b * op.sbb : nullptr;
+  const float x0r = lane < kNS ? __ldg(op.x0 + b * kNS + lx) : 0.f;
+
+  // ---- init: the rollout of u0 into slot 0 and the outputs, its cost --
+  float cost_cur = 0.f;
+  {
+    float xr = x0r;
+    for (int t = 0; t < T; ++t) {
+      if (lane < kNS)
+        tau[lane] = xr;
+      else if (lane < kNT)
+        tau[lane] = __ldg(op.u0 + (t * B + b) * kNC + lu);
+      __syncwarp();
+      const float sc =
+          stage_cost(Cb + t * op.sCt, cb + t * op.sct, tau, lane, lt);
+      cost_cur = t == 0 ? sc : cost_cur + sc;
+      if (lane < kNT) {
+        const float v = tau[lt];
+        ws0[t * kNT + lane] = v;
+        if (lane < kNS)
+          op.x_out[(t * B + b) * kNS + lane] = v;
+        else
+          op.u_out[(t * B + b) * kNC + lane - kNS] = v;
+      }
+      if (t < T - 1 && lane < kNS)
+        xr = dyn_step(Fb + t * op.sFt, kHasF ? fb + t * op.sft : nullptr,
+                      tau, lx);
+      __syncwarp();
+    }
+  }
+
+  int cur = 0;
+  float best_cost = kBig, best_du = kBig, cur_du = kBig, nni = 0.f,
+        n_qp = 0.f, alpha_sel = 1.f, n_it = 0.f, n_trials = 0.f;
+  for (int it = 0; it < op.lqr_iter; ++it) {
+    const float* trajc = ws0 + cur * T * kNT;
+    // ---- the Riccati sweep, t = T-1 .. 0 ------------------------------
+    float qp_cnt = 0.f;
+    float prev_k[kNC];
+#pragma unroll
+    for (int m = 0; m < kNC; ++m) prev_k[m] = 0.f;
+    for (int t = T - 1; t >= 0; --t) {
+      const float* Ct = Cb + t * op.sCt;
+      if (lane < kNT) {
+        tau[lane] = trajc[t * kNT + lt];
+        cv[lane] = __ldg(cb + t * op.sct + lt);
+      }
+      for (int e = lane; e < kNT * kNT; e += 32)
+        Qs[(e / kNT) * kSQ + e % kNT] = __ldg(Ct + e);
+      const bool last = t == T - 1;
+      if (!last) {
+        const float* Ft = Fb + t * op.sFt;
+        for (int e = lane; e < kNS * kNT; e += 32) Fs[e] = __ldg(Ft + e);
+      }
+      __syncwarp();
+      // cb = C_t tau + c_t, from the staged C_t before Q replaces it
+      float cbv = 0.f;
+      if (lane < kNT) {
+        const float* row = Qs + lt * kSQ;
+        float s = row[0] * tau[0];
+#pragma unroll
+        for (int j = 1; j < kNT; ++j) s = s + row[j] * tau[j];
+        cbv = s + cv[lt];
+      }
+      __syncwarp();
+      if (last) {
+        if (lane < kNT) qv[lane] = cbv;
+      } else {
+        // W = V F_t, a row a lane
+        if (lane < kNS) {
+          float vr[kNS];
+#pragma unroll
+          for (int k = 0; k < kNS; ++k) vr[k] = Vs[lx * kSV + k];
+#pragma unroll 4
+          for (int j = 0; j < kNT; ++j) {
+            float s = vr[0] * Fs[j];
+#pragma unroll
+            for (int k = 1; k < kNS; ++k) s = s + vr[k] * Fs[k * kNT + j];
+            Ws[lane * kSQ + j] = s;
+          }
+        }
+        __syncwarp();
+        // Q = C_t + F_t^T W: row ``lane`` from its diagonal on, mirrored;
+        // q = cb + F_t^T v
+        if (lane < kNT) {
+          float fc[kNS];
+#pragma unroll
+          for (int k = 0; k < kNS; ++k) fc[k] = Fs[k * kNT + lt];
+          for (int j = lane; j < kNT; ++j) {
+            float s = fc[0] * Ws[j];
+#pragma unroll
+            for (int k = 1; k < kNS; ++k) s = s + fc[k] * Ws[k * kSQ + j];
+            const float qaj = Qs[lane * kSQ + j] + s;
+            Qs[lane * kSQ + j] = qaj;
+            Qs[j * kSQ + lane] = qaj;
+          }
+          float s = fc[0] * vv[0];
+#pragma unroll
+          for (int k = 1; k < kNS; ++k) s = s + fc[k] * vv[k];
+          qv[lane] = cbv + s;
+        }
+      }
+      __syncwarp();
+
+      // ---- the control solve (every lane on the same registers) ------
+      float Quu[kNC][kNC], qu[kNC], kt[kNC];
+#pragma unroll
+      for (int i = 0; i < kNC; ++i) {
+        qu[i] = qv[kNS + i];
+#pragma unroll
+        for (int j = 0; j < kNC; ++j) Quu[i][j] = Qs[(kNS + i) * kSQ + kNS + j];
+      }
+      // lane j's column of Qux
+      float qx[kNC];
+#pragma unroll
+      for (int i = 0; i < kNC; ++i)
+        qx[i] = lane < kNS ? Qs[(kNS + i) * kSQ + lx] : 0.f;
+      float Kcol[kNC];
+      if constexpr (!kHasBounds) {
+        if constexpr (kNC == 1) {
+          const float inv = 1.f / Quu[0][0];
+          kt[0] = -qu[0] * inv;
+          Kcol[0] = -qx[0] * inv;
+        } else {
+          float L[kNC][kNC], sol[kNC];
+          cholesky<kNC>(Quu, 1e-11f, L);
+          chol_solve<kNC>(L, qu, sol);
+#pragma unroll
+          for (int i = 0; i < kNC; ++i) kt[i] = -sol[i];
+          chol_solve<kNC>(L, qx, sol);
+#pragma unroll
+          for (int i = 0; i < kNC; ++i) Kcol[i] = -sol[i];
+        }
+      } else {
+        float lo[kNC], hi[kNC];
+#pragma unroll
+        for (int m = 0; m < kNC; ++m) {
+          lo[m] = __ldg(lbb + t * op.sbt + m) - tau[kNS + m];
+          hi[m] = __ldg(ubb + t * op.sbt + m) - tau[kNS + m];
+        }
+        if constexpr (kNC == 1) {
+          const float inv = 1.f / Quu[0][0];
+          const float kv = fminf(fmaxf(-qu[0] * inv, lo[0]), hi[0]);
+          const float g = Quu[0][0] * kv + qu[0];
+          const bool clamped =
+              (kv == lo[0] && g > 0.f) || (kv == hi[0] && g < 0.f);
+          kt[0] = kv;
+          Kcol[0] = clamped ? 0.f : -qx[0] * inv;
+          qp_cnt += 1.f;
+        } else {
+          float L[kNC][kNC], sol[kNC], trips;
+          bool fr[kNC];
+          if (last) {
+            cholesky<kNC>(Quu, 1e-11f, L);
+            chol_solve<kNC>(L, qu, sol);
+#pragma unroll
+            for (int i = 0; i < kNC; ++i) kt[i] = -sol[i];
+          } else {
+#pragma unroll
+            for (int i = 0; i < kNC; ++i) kt[i] = prev_k[i];
+          }
+          pnqp<kNC>(Quu, qu, lo, hi, kt, op.pnqp_iter, sched.qp_steps, lane,
+                    L, fr, trips);
+          qp_cnt += trips;
+#pragma unroll
+          for (int i = 0; i < kNC; ++i) qx[i] = fr[i] ? qx[i] : 0.f;
+          chol_solve<kNC>(L, qx, sol);
+#pragma unroll
+          for (int i = 0; i < kNC; ++i) Kcol[i] = -sol[i];
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kNC; ++i) prev_k[i] = kt[i];
+      float* gK = gains + t * kGain;
+      if (lane < kNS) {
+#pragma unroll
+        for (int i = 0; i < kNC; ++i) {
+          Ks[i * kNS + lane] = Kcol[i];
+          gK[i * kNS + lane] = Kcol[i];
+        }
+      }
+      if (lane == 0) {
+#pragma unroll
+        for (int i = 0; i < kNC; ++i) {
+          ks[i] = kt[i];
+          gK[kNC * kNS + i] = kt[i];
+        }
+      }
+      __syncwarp();
+
+      // ---- the cost-to-go, as vv_update sums it ----------------------
+      if (lane < kNS) {
+#pragma unroll
+        for (int m = 0; m < kNC; ++m) {
+          float s = Quu[m][0] * Ks[lx];
+#pragma unroll
+          for (int mm = 1; mm < kNC; ++mm)
+            s = s + Quu[m][mm] * Ks[mm * kNS + lx];
+          KQs[m * kNS + lane] = s;
+        }
+      }
+      __syncwarp();
+      if (lane < kNS) {
+        const int i = lx;
+        float qxu[kNC], ki[kNC];
+#pragma unroll
+        for (int m = 0; m < kNC; ++m) {
+          qxu[m] = Qs[i * kSQ + kNS + m];
+          ki[m] = Ks[m * kNS + i];
+        }
+        for (int j = i; j < kNS; ++j) {
+          float qk_ij = qxu[0] * Ks[j];
+          float qk_ji = Qs[j * kSQ + kNS] * ki[0];
+          float kqk = ki[0] * KQs[j];
+#pragma unroll
+          for (int m = 1; m < kNC; ++m) {
+            qk_ij = qk_ij + qxu[m] * Ks[m * kNS + j];
+            qk_ji = qk_ji + Qs[j * kSQ + kNS + m] * ki[m];
+            kqk = kqk + ki[m] * KQs[m * kNS + j];
+          }
+          const float vn = ((Qs[i * kSQ + j] + qk_ij) + qk_ji) + kqk;
+          Vs[i * kSV + j] = vn;
+          Vs[j * kSV + i] = vn;
+        }
+        float s1 = qxu[0] * kt[0];
+        float s2 = 0.f;
+#pragma unroll
+        for (int m = 0; m < kNC; ++m) {
+          if (m > 0) s1 = s1 + qxu[m] * kt[m];
+          float quk = Quu[m][0] * kt[0];
+#pragma unroll
+          for (int mm = 1; mm < kNC; ++mm) quk = quk + Quu[m][mm] * kt[mm];
+          const float term = ki[m] * (qu[m] + quk);
+          s2 = m == 0 ? term : s2 + term;
+        }
+        vv[i] = (qv[i] + s1) + s2;
+      }
+      __syncwarp();
+    }
+
+    // ---- the line search: trial rollouts into the other slot; the first
+    // passing step size, else the last, becomes the trajectory ----------
+    const float old_cost = cost_cur;
+    float* trial = ws0 + (1 - cur) * T * kNT;
+    float sel_cost = 0.f, sel_alpha = 0.f, full_du = 0.f;
+    for (int ai = 0; ai < sched.n; ++ai) {
+      const float a = sched.a[ai];
+      float xr = x0r, cost_a = 0.f, du2 = 0.f;
+      for (int t = 0; t < T; ++t) {
+        if (lane < kNS) {
+          tau[lane] = xr;
+          dxs[lane] = xr - trajc[t * kNT + lx];
+        }
+        __syncwarp();
+        float d2 = 0.f;
+        if (lane >= kNS && lane < kNT) {
+          const int m = lu;
+          const float* Kr = gains + t * kGain + m * kNS;
+          float s = Kr[0] * dxs[0];
+#pragma unroll
+          for (int j = 1; j < kNS; ++j) s = s + Kr[j] * dxs[j];
+          const float uo = trajc[t * kNT + kNS + m];
+          float ut = (s + uo) + a * gains[t * kGain + kNC * kNS + m];
+          if constexpr (kHasBounds)
+            ut = fminf(fmaxf(ut, __ldg(lbb + t * op.sbt + m)),
+                       __ldg(ubb + t * op.sbt + m));
+          tau[lane] = ut;
+          const float d = uo - ut;
+          d2 = d * d;
+        }
+        __syncwarp();
+        const float sc =
+            stage_cost(Cb + t * op.sCt, cb + t * op.sct, tau, lane, lt);
+        cost_a = t == 0 ? sc : cost_a + sc;
+        if (ai == 0) {
+          const float d2s = lane_sum(d2);
+          du2 = t == 0 ? d2s : du2 + d2s;
+        }
+        if (lane < kNT) trial[t * kNT + lane] = tau[lt];
+        if (t < T - 1 && lane < kNS)
+          xr = dyn_step(Fb + t * op.sFt, kHasF ? fb + t * op.sft : nullptr,
+                        tau, lx);
+        __syncwarp();
+      }
+      n_trials += 1.f;
+      if (ai == 0) full_du = sqrtf(du2);
+      if (cost_a <= old_cost || ai == sched.n - 1) {
+        sel_cost = cost_a;
+        sel_alpha = a;
+        break;
+      }
+    }
+
+    // ---- best tracking and stopping ----------------------------------
+    const bool improved = sel_cost <= best_cost + op.best_cost_eps;
+    const bool take_best = improved || it == 0;
+    nni = (improved && it != 0) ? 0.f : nni + 1.f;
+    cur = 1 - cur;
+    if (take_best) {
+      for (int t = 0; t < T; ++t) {
+        const float v = trial[t * kNT + lt];
+        if (lane < kNS)
+          op.x_out[(t * B + b) * kNS + lane] = v;
+        else if (lane < kNT)
+          op.u_out[(t * B + b) * kNC + lane - kNS] = v;
+      }
+      best_cost = sel_cost;
+      best_du = full_du;
+    }
+    cur_du = full_du;
+    n_qp += qp_cnt;
+    alpha_sel = sel_alpha;
+    n_it += 1.f;
+    cost_cur = sel_cost;
+    if (!(cur_du >= op.eps && nni <= op.not_improved_lim)) break;
+  }
+
+  if (lane == 0) {
+    op.stats[0 * B + b] = best_cost;
+    op.stats[1 * B + b] = best_du;
+    op.stats[2 * B + b] = n_it;
+    op.stats[3 * B + b] = n_qp;
+    op.stats[4 * B + b] = alpha_sel;
+    op.stats[5 * B + b] = n_trials;
+  }
+}
+
+}  // namespace mpc
+
+extern "C" int mpc_fused_ilqr_dense(
+    int B, int T, const float* F, long long sFt, long long sFb,
+    const float* f, long long sft, long long sfb, const float* C,
+    long long sCt, long long sCb, const float* c, long long sct,
+    long long scb, const float* x0, const float* u0, const float* lb,
+    const float* ub, long long sbt, long long sbb, const float* alphas,
+    int n_alpha, int lqr_iter, int pnqp_iter, float eps, float best_cost_eps,
+    float not_improved_lim, float* ws, int smem_bytes, float* x_out,
+    float* u_out, float* stats, void* stream) {
+  using namespace mpc;
+  if (B <= 0 || T <= 0 || n_alpha <= 0 || n_alpha > kMaxAlpha ||
+      lqr_iter < 0 || pnqp_iter < 0 || ws == nullptr ||
+      (F == nullptr && T > 1) || ((f != nullptr) != kHasF && T > 1) ||
+      (kHasBounds && (lb == nullptr || ub == nullptr)) ||
+      smem_bytes != kWarps * kWarpFloats * (int)sizeof(float))
+    return (int)cudaErrorInvalidValue;
+  // 32-bit indices: the largest offset of each array
+  const long long last = T - 1, lastb = B - 1, big = 1LL << 31;
+  const long long ws_example = (long long)T * (2 * kNT + kGain);
+  if (last * sCt + lastb * sCb + kNT * kNT >= big ||
+      last * sct + lastb * scb + kNT >= big ||
+      last * sFt + lastb * sFb + kNS * kNT >= big ||
+      last * sft + lastb * sfb + kNS >= big ||
+      last * sbt + lastb * sbb + kNC >= big ||
+      (long long)T * B * kNT >= big || ws_example * B >= big)
+    return (int)cudaErrorInvalidValue;
+  // more than 48 KB of dynamic shared memory has to be asked for; the
+  // library remembers the most it has asked for
+  static int smem_allowed = 48 * 1024;
+  if (smem_bytes > smem_allowed) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        fused_ilqr_dense_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem_bytes);
+    if (err != cudaSuccess) return (int)err;
+    smem_allowed = smem_bytes;
+  }
+  Schedule sched;
+  for (int i = 0; i < n_alpha; ++i) sched.a[i] = alphas[i];
+  for (int i = n_alpha; i < kMaxAlpha; ++i) sched.a[i] = 0.f;
+  // the box QP's step sizes: the float32 values of 0.1^k, as the JAX
+  // kernel bakes in the Python floats
+  for (int k = 0; k < kPnqpSteps; ++k)
+    sched.qp_steps[k] = (float)std::pow(0.1, (double)k);
+  sched.n = n_alpha;
+  Operands op;
+  op.B = B;
+  op.T = T;
+  op.F = F;
+  op.sFt = (int)sFt;
+  op.sFb = (int)sFb;
+  op.f = f;
+  op.sft = (int)sft;
+  op.sfb = (int)sfb;
+  op.C = C;
+  op.sCt = (int)sCt;
+  op.sCb = (int)sCb;
+  op.c = c;
+  op.sct = (int)sct;
+  op.scb = (int)scb;
+  op.x0 = x0;
+  op.u0 = u0;
+  op.lb = lb;
+  op.ub = ub;
+  op.sbt = (int)sbt;
+  op.sbb = (int)sbb;
+  op.lqr_iter = lqr_iter;
+  op.pnqp_iter = pnqp_iter;
+  op.eps = eps;
+  op.best_cost_eps = best_cost_eps;
+  op.not_improved_lim = not_improved_lim;
+  op.ws = ws;
+  op.ws_example = (int)ws_example;
+  op.x_out = x_out;
+  op.u_out = u_out;
+  op.stats = stats;
+  const int blocks = (B + kWarps - 1) / kWarps;
+  fused_ilqr_dense_kernel<<<blocks, kThreads, smem_bytes,
+                            (cudaStream_t)stream>>>(op, sched);
+  return (int)cudaGetLastError();
+}

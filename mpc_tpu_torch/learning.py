@@ -3,7 +3,8 @@ mpc_tpu/learning.py:42-324).
 
 ``batched_solve`` routes a problem as mpc_tpu/learning.py:151-273 does.
 A problem that the kernels take (``ops/fused.scope_gap``) runs phase 1,
-the iLQR solve, through kernel K1 or K3 (``ops/fused.routes_long``) with
+the iLQR solve, through kernel K1, K3 or K3's dense configuration
+(``ops/fused.routes_dense``, ``routes_long``) with
 gradients stopped (the reference's detached outer loop,
 mpc/mpc.py:249-262); a differentiable solve then re-linearises the
 dynamics and re-quadratises the cost at the solution, differentiably,
@@ -108,7 +109,8 @@ def batched_solve(cfg: MPCConfig, x_init, cost, dynamics, u_init=None,
     penalty).  Everything runs on ``device``: the CUDA card by default,
     or the CPU when asked.
 
-    The route (module docstring): the kernels K1 or K3 for a problem in
+    The route (module docstring): the kernels K1, K3 or K3's dense
+    configuration for a problem in
     their scope (``ops/fused.scope_gap``) unless ``cfg.use_fused`` is
     'never'; the eager solver otherwise, which 'always' refuses.  On the
     CPU the kernels' plain PyTorch versions run in their place, and they
@@ -118,8 +120,8 @@ def batched_solve(cfg: MPCConfig, x_init, cost, dynamics, u_init=None,
     a reference for the card's float64 passes use_fused='never'.  A slew
     penalty augments the state with the previous control
     (mpc_tpu/learning.py:196-242): the kernels solve the augmented
-    problem where it is in their scope (a LinDx of n_state = 2, n_ctrl =
-    1 in K3), and its fixed point is always the eager one.  A problem
+    problem where it is in their scope (a LinDx in K3 or its dense
+    configuration), and its fixed point is always the eager one.  A problem
     that no route takes raises NotImplementedError.
 
     With ``cfg.backprop`` and any of x_init, the cost's C or c, the
@@ -165,7 +167,7 @@ def batched_solve(cfg: MPCConfig, x_init, cost, dynamics, u_init=None,
     # as it always is under a slew penalty, whose backward the JAX package
     # keeps off its kernel too
     bwd_gap = differentiable and (slew or fused_bwd.scope_gap_bwd(
-        cfg.T, cfg.n_ctrl, dtype, device))
+        cfg.T, cfg.n_ctrl, dtype, device, cfg.n_state))
     with torch.no_grad():
         sol1 = fused.fused_batched_solve(cfg, x_init, cost, dynamics,
                                          u_init=u_init, u_lower=u_lower,

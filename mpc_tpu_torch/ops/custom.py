@@ -1,7 +1,8 @@
-"""The four kernels as ``torch.library`` custom ops.
+"""The kernels as ``torch.library`` custom ops.
 
 ``mpc_tpu_torch::k1_solve`` (K1, csrc/fused_ilqr.cu),
-``::k3_solve`` (K3, csrc/fused_ilqr_long.cu), ``::k2_backward`` (K2,
+``::k3_solve`` (K3, csrc/fused_ilqr_long.cu), ``::k3d_solve`` (K3's dense
+configuration, csrc/fused_ilqr_dense.cu), ``::k2_backward`` (K2,
 csrc/fused_kkt_bwd.cu) and ``::k4_backward`` (K4,
 csrc/fused_kkt_bwd_long.cu).  Each op has three implementations: the
 kernel's launch on a CUDA tensor (the ``ctypes`` call on the tensors'
@@ -11,7 +12,8 @@ not take or on a launch error, and adding one to the kernel's count in
 plain PyTorch version on a CPU tensor, and a fake one that gives the
 output shapes, so that ``torch.export`` can trace a solve or a gradient
 through the op and keep it as one node of the graph.  The wrappers
-(``fused.fused_ilqr``, ``fused_ilqr_long``, ``fused_bwd.fused_kkt_backward``,
+(``fused.fused_ilqr``, ``fused_ilqr_long``,
+``fused_dense.fused_ilqr_dense``, ``fused_bwd.fused_kkt_backward``,
 ``fused_kkt_backward_long``) call nothing else, so the live path and an
 exported program run the same code.
 
@@ -39,7 +41,7 @@ from torch import Tensor, nn
 
 from ..models.dynamics import NNDynamics
 from ..models.pendulum import PendulumDx
-from . import fused, fused_bwd
+from . import fused, fused_bwd, fused_dense
 
 
 @functools.lru_cache(maxsize=1)
@@ -263,6 +265,96 @@ def _k3_cuda(params, F, f, C, c, x0, u0, lb, ub, alphas, lqr_iter, eps,
     if err != 0:
         raise RuntimeError(f'K3 launch failed with cudaError_t {err}')
     fused.launch_counts['fused_ilqr_long'] += 1
+    return x, u, stats
+
+
+# ---------------------------------------------------------------------------
+# K3's dense configuration
+# ---------------------------------------------------------------------------
+
+@torch.library.custom_op('mpc_tpu_torch::k3d_solve', mutates_args=(),
+                         device_types='cpu')
+def k3d_solve(F: Tensor, f: Optional[Tensor], C: Tensor, c: Tensor,
+              x0: Tensor, u0: Tensor, lb: Optional[Tensor],
+              ub: Optional[Tensor], alphas: list[float], lqr_iter: int,
+              eps: float, best_cost_eps: float, not_improved_lim: float,
+              pnqp_iter: int) -> tuple[Tensor, Tensor, Tensor]:
+    """K3's dense configuration: a LinDx of any admitted size, F
+    [T-1, 1 or B, ns, ntau], f None or [T-1, 1 or B, ns], C
+    [T, 1 or B, ntau, ntau], c [T, 1 or B, ntau], x0 [B, ns], u0
+    [T, B, nc], lb, ub None or [T, 1 or B, nc].  Returns x [T, B, ns],
+    u [T, B, nc], stats [6, B] (``fused_dense.fused_solve_dense_plain``,
+    which runs here on the CPU)."""
+    return fused_dense.fused_solve_dense_plain(
+        F, f, C, c, x0, u0, lb, ub, alphas=alphas, lqr_iter=lqr_iter,
+        eps=eps, best_cost_eps=best_cost_eps,
+        not_improved_lim=not_improved_lim, pnqp_iter=pnqp_iter)
+
+
+@k3d_solve.register_fake
+def _k3d_fake(F, f, C, c, x0, u0, lb, ub, alphas, lqr_iter, eps,
+              best_cost_eps, not_improved_lim, pnqp_iter):
+    T, B, nc = u0.shape
+    return (x0.new_empty((T, B, x0.shape[1])), x0.new_empty((T, B, nc)),
+            x0.new_empty((6, B)))
+
+
+@k3d_solve.register_kernel('cuda')
+def _k3d_cuda(F, f, C, c, x0, u0, lb, ub, alphas, lqr_iter, eps,
+              best_cost_eps, not_improved_lim, pnqp_iter):
+    """Allocate the workspace of ``fused_dense.k3d_launch`` and launch
+    csrc/fused_ilqr_dense.cu (the launcher refuses, as an invalid value,
+    an array or a workspace too large for its 32-bit indices)."""
+    T, B, nc = u0.shape
+    if x0.dim() != 2:
+        raise ValueError('the dense kernel takes x0 [B, n_state]')
+    ns = x0.shape[1]
+    nt = ns + nc
+    has_bounds = lb is not None
+    _floats_on_device('the dense kernel', x0.device, F, f, C, c, x0, u0, lb,
+                      ub)
+    gap = fused.dense_gap(ns, nc)
+    if gap is not None:
+        raise ValueError(gap)
+    if (x0.shape != (B, ns) or C.shape[0] != T or C.shape[2:] != (nt, nt)
+            or c.shape[0] != T or c.shape[2:] != (nt,)
+            or C.shape[1] not in (1, B) or c.shape[1] not in (1, B)
+            or F.shape[0] != T - 1 or F.shape[1] not in (1, B)
+            or F.shape[2:] != (ns, nt)
+            or (f is not None and (f.shape[0] != T - 1
+                                   or f.shape[1] not in (1, B)
+                                   or f.shape[2:] != (ns,)))):
+        raise ValueError('the dense kernel\'s operand shapes do not match')
+    if has_bounds and (ub is None or lb.shape != ub.shape
+                       or lb.shape[0] != T or lb.shape[1] not in (1, B)
+                       or lb.shape[2] != nc):
+        raise ValueError('the dense kernel\'s bound shapes do not match')
+    if pnqp_iter < 0:
+        raise ValueError('pnqp_iter must not be negative')
+    geo = fused_dense.k3d_launch(T, B, ns, nc, len(alphas))
+    fn = fused_dense.kernel_lib(ns, nc, has_bounds, f is not None)
+    empty = functools.partial(torch.empty, dtype=torch.float32,
+                              device=x0.device)
+    x, u, stats = empty((T, B, ns)), empty((T, B, nc)), empty((6, B))
+    if B == 0:
+        return x, u, stats
+    ws = empty((geo['workspace_bytes'] // 4,))
+    a_host = (ctypes.c_float * len(alphas))(*alphas)
+    lb_ptr, sbt, sbb = fused._strided(lb, nc)
+    with torch.cuda.device(x0.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(B, T, *fused._strided(F, ns * nt), *fused._strided(f, ns),
+                 *fused._strided(C, nt * nt), *fused._strided(c, nt),
+                 x0.data_ptr(), u0.data_ptr(),
+                 lb_ptr, ub.data_ptr() if has_bounds else None, sbt, sbb,
+                 a_host, len(alphas), int(lqr_iter), int(pnqp_iter),
+                 float(eps), float(best_cost_eps), float(not_improved_lim),
+                 ws.data_ptr(), geo['smem_bytes'], x.data_ptr(),
+                 u.data_ptr(), stats.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError('the dense kernel\'s launch failed with '
+                           f'cudaError_t {err}')
+    fused.launch_counts['fused_ilqr_dense'] += 1
     return x, u, stats
 
 

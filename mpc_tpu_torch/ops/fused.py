@@ -34,18 +34,24 @@ raise, and never fall back to the plain version.  Both go through the
 kernels' ``torch.library`` ops (ops/custom.py), which hold the launches.
 
 Scope (``scope_gap``): LinDx dynamics (F, f each shared or batched, f
-optional), the simple pendulum or a one-hidden-layer ``NNDynamics``
-(sigmoid, relu or elu, its weights in a block's shared memory: K3's
-streamed-weights configuration, csrc/nn.cuh), n_state = 3, n_ctrl = 1, a
-QuadCost with C and c each shared or batched, bounds absent, scalar,
-[T, nc] or [T, B, nc], an optional u_init, any T, float32 (float64 too on
-the CPU, in the plain versions).  ``routes_long`` says which kernel takes
-a problem; the dispatch sends every other problem to the eager solver.
-A slew-rate penalty is solved as the JAX package solves it in its kernel
-(``_fused_slew_solve``, mpc_tpu/ops/fused.py:2510-2580): the state is
-augmented with the previous control on the host and the kernels take
-the augmented problem where it is in their scope, a LinDx of
-n_state = 2, n_ctrl = 1 (three augmented states) in K3.
+optional) of any n_state and n_ctrl with n_state + n_ctrl <=
+``DENSE_MAX_TAU`` and n_ctrl <= ``DENSE_MAX_CTRL``, the simple pendulum
+or a one-hidden-layer ``NNDynamics`` (sigmoid, relu or elu, its weights
+in a block's shared memory: K3's streamed-weights configuration,
+csrc/nn.cuh) at n_state = 3, n_ctrl = 1, a QuadCost with C and c each
+shared or batched, bounds absent, scalar, [T, nc] or [T, B, nc], an
+optional u_init, any T, float32 (float64 too on the CPU, in the plain
+versions).  ``routes_dense`` and ``routes_long`` say which kernel takes
+a problem: a LinDx of 3 states and 1 control stays on K3, every other
+admitted LinDx goes to K3's dense configuration (ops/fused_dense.py,
+csrc/fused_ilqr_dense.cu: a warp an example, the in-kernel
+projected-Newton box QP for several bounded controls); the dispatch
+sends every other problem to the eager solver.  A slew-rate penalty is
+solved as the JAX package solves it in its kernel (``_fused_slew_solve``,
+mpc_tpu/ops/fused.py:2510-2580): the state is augmented with the
+previous control on the host and the kernels take the augmented LinDx,
+in K3 where it has three states and one control, else in the dense
+configuration.
 """
 
 from __future__ import annotations
@@ -179,12 +185,27 @@ K3_T_RESIDENT = SMEM_LIMIT // k3_launch(1, 1, 1)['smem_bytes']
 # do not grow with H (a loop over the units, H a run-time argument).
 K3_NN_MAX_HIDDEN = (SMEM_LIMIT // 16 - 1) // 2
 
+# The dense configuration's size gate (ops/fused_dense.py), from this
+# card and not from the TPU's VMEM or its ntau <= 28 compile-time body
+# gate.  One warp owns an example and lane r row r of Q, V and the
+# gains, so n_state + n_ctrl <= 32, the lanes of a warp; the tiles of an
+# example take at most 16.3 KB of shared memory there (four examples a
+# block, 65 KB).  Every lane keeps the control block Quu, its factor and
+# the box QP's vectors in registers, nc^2 + nc (nc + 1) / 2 + 7 nc
+# floats, so n_ctrl <= 8: at 24 states and 8 controls the build takes 224
+# of a thread's 255 registers without spills (ptxas; chip_smoke.py
+# [build] compiles the gate's corners).  One library is built per
+# (n_state, n_ctrl, bounds, f), in seconds.
+DENSE_MAX_TAU = 32
+DENSE_MAX_CTRL = 8
+
 # Initial best cost / step norm, as in the TPU kernel
 # (mpc_tpu/ops/fused.py:719); any finite cost replaces it at iteration 0.
 BIG = 3.0e38
 
 # One count per launch of K1 and of K3 on the card, and nowhere else.
-launch_counts = {'fused_ilqr': 0, 'fused_ilqr_long': 0}
+launch_counts = {'fused_ilqr': 0, 'fused_ilqr_long': 0,
+                 'fused_ilqr_dense': 0}
 
 
 def reset_launch_counts():
@@ -193,9 +214,10 @@ def reset_launch_counts():
 
 
 def routes_long(dynamics, T) -> bool:
-    """THE K1-or-K3 routing predicate of the forward solve, shared by
-    ``scope_gap``, the dispatch in ``fused_batched_solve`` and the tests
-    (as ``_routes_long`` is in mpc_tpu/ops/fused.py:287-300).
+    """THE K1-or-K3 routing predicate of the forward solve at 3 states
+    and 1 control (``routes_dense`` takes every other LinDx first),
+    shared by ``scope_gap``, the dispatch in ``fused_batched_solve`` and
+    the tests (as ``_routes_long`` is in mpc_tpu/ops/fused.py:287-300).
 
     K3 takes every LinDx problem and every MLP, because K1's source has
     neither step (ROADMAP queue 2, K1 configurations), and the pendulum
@@ -204,6 +226,33 @@ def routes_long(dynamics, T) -> bool:
     JAX package for MLPs of 64 weights or fewer, which it runs in its
     unrolled kernel (K1); the two kernels compute the same function."""
     return isinstance(dynamics, (LinDx, NNDynamics)) or T > T_MAX
+
+
+def routes_dense(dynamics, n_state, n_ctrl) -> bool:
+    """THE dense-configuration predicate of the forward solve, shared by
+    ``scope_gap``, the dispatch in ``fused_batched_solve`` and the tests:
+    a LinDx of any other size than K3's 3 states and 1 control
+    (``n_state`` the augmented one under a slew penalty).  The JAX
+    package sends such problems to K1 or K3 by their unrolled volume
+    (mpc_tpu/ops/fused.py:287-300); here one kernel takes them all."""
+    return isinstance(dynamics, LinDx) and (n_state, n_ctrl) != (3, 1)
+
+
+def dense_gap(n_state, n_ctrl) -> Optional[str]:
+    """Why the dense configuration does not take a LinDx of these sizes
+    (the gate above); None when it does."""
+    if n_state + n_ctrl > DENSE_MAX_TAU:
+        return (f'a LinDx of n_state + n_ctrl = {n_state + n_ctrl} exceeds '
+                f'the dense configuration\'s {DENSE_MAX_TAU} (a warp an '
+                'example, a lane a row of Q); larger problems wait for '
+                'ROADMAP queue 2 (K3 configurations) and run on the eager '
+                'solver')
+    if n_ctrl > DENSE_MAX_CTRL:
+        return (f'n_ctrl = {n_ctrl} exceeds the dense configuration\'s '
+                f'{DENSE_MAX_CTRL} (every lane keeps the control block\'s '
+                'factor in registers); more controls wait for ROADMAP queue '
+                '2 (K3 configurations) and run on the eager solver')
+    return None
 
 
 def nn_scope_gap(dynamics) -> Optional[str]:
@@ -224,7 +273,8 @@ def nn_scope_gap(dynamics) -> Optional[str]:
 
 def scope_gap(cfg, cost, dynamics, *, u_zero_I=None, dtype=torch.float32,
               device=torch.device('cpu')) -> Optional[str]:
-    """Why the kernels (K1 or K3, see ``routes_long``) do not take a
+    """Why the kernels (K1, K3 or its dense configuration, see
+    ``routes_dense`` and ``routes_long``) do not take a
     problem, naming the kernel configuration or ROADMAP item that waits;
     None when they do.  Under a slew penalty it judges the augmented
     problem (n_state + n_ctrl states, ``fused_batched_solve``).  The
@@ -259,21 +309,23 @@ def scope_gap(cfg, cost, dynamics, *, u_zero_I=None, dtype=torch.float32,
                 '(mpc_tpu/ops/fused.py:2441-2508), waits for ROADMAP queue '
                 '2 (K1 configurations); it runs on the eager solver')
     ns = cfg.n_state + (cfg.n_ctrl if slew else 0)
-    if slew and (ns != 3 or cfg.n_ctrl != 1):
-        return (f'the slew-augmented LinDx has {ns} states; K3 takes three '
-                '(n_state = 2, n_ctrl = 1): more augmented states and '
-                'n_ctrl > 1 wait for ROADMAP queue 2 (K3 configurations)')
-    if ns != 3 or cfg.n_ctrl != 1:
-        return ('the kernels take n_state=3, n_ctrl=1; n_ctrl>1 with the '
-                'in-kernel PNQP and other state sizes wait for ROADMAP '
-                'queue 2 (K1 and K3 configurations)')
+    if isinstance(dynamics, LinDx):
+        gap = dense_gap(ns, cfg.n_ctrl)
+        if gap is not None:
+            return f'the slew-augmented LinDx has {ns} states: {gap}' \
+                if slew else gap
+    elif ns != 3 or cfg.n_ctrl != 1:
+        return ('the pendulum and the MLP run in the kernels at n_state=3, '
+                'n_ctrl=1; other sizes wait for ROADMAP queue 2 (K1 and K3 '
+                'configurations)')
     if not isinstance(cost, QuadCost):
         return ('non-quadratic (SoA) costs wait for ROADMAP queue 2 '
                 '(K1 configurations)')
     if u_zero_I is not None:
-        return 'u_zero_I waits for ROADMAP queue 2 (K1 configurations)'
+        return ('u_zero_I (the masked Cholesky, _masked_free_chol) waits for '
+                'ROADMAP queue 2 (K1 and K3 configurations)')
     if cfg.delta_u is not None:
-        return 'delta_u waits for ROADMAP queue 2 (K1 configurations)'
+        return 'delta_u waits for ROADMAP queue 2 (K1 and K3 configurations)'
     if cfg.verbose > 0:
         # the JAX package's kernels refuse it too
         # (mpc_tpu/ops/fused.py:217)
@@ -1069,6 +1121,18 @@ def _dyn_operand(a, T, B, n_lead, dtype, device):
     return a.contiguous()
 
 
+def line_search_schedule(cfg, dtype) -> list:
+    """The line search's step sizes as the kernels get them: in float32
+    the float32 values of the Python floats (the JAX kernel bakes the same
+    floats in as float32 constants), rounded on the host so that
+    torch.export sees constants."""
+    alphas = [float(cfg.linesearch_decay) ** i
+              for i in range(cfg.max_linesearch_iter)]
+    if dtype == torch.float32:
+        alphas = array.array('f', alphas).tolist()
+    return alphas
+
+
 def _problem_operands(cfg, x_init, cost, u_init, u_lower, u_upper) -> dict:
     """The operands K1 and K3 share: cost, x0, u0, bounds, the line-search
     schedule and the solver's scalars."""
@@ -1087,17 +1151,11 @@ def _problem_operands(cfg, x_init, cost, u_init, u_lower, u_upper) -> dict:
     if u_lower is not None:
         lb = _bound_operand(u_lower, T, B, dtype, device)
         ub = _bound_operand(u_upper, T, B, dtype, device)
-    alphas = [float(cfg.linesearch_decay) ** i
-              for i in range(cfg.max_linesearch_iter)]
-    if dtype == torch.float32:
-        # the schedule as the kernel gets it (the JAX kernel bakes the
-        # same Python floats in as float32 constants), rounded on the host
-        # so that torch.export sees constants
-        alphas = array.array('f', alphas).tolist()
     return dict(
         C=_cost_operand(cost.C, T, B, 2, dtype, device),
         c=_cost_operand(cost.c, T, B, 1, dtype, device),
-        x0=x0, u0=u0, lb=lb, ub=ub, alphas=alphas, lqr_iter=cfg.lqr_iter,
+        x0=x0, u0=u0, lb=lb, ub=ub,
+        alphas=line_search_schedule(cfg, dtype), lqr_iter=cfg.lqr_iter,
         eps=cfg.eps, best_cost_eps=cfg.best_cost_eps,
         not_improved_lim=float(cfg.not_improved_lim))
 
@@ -1164,7 +1222,9 @@ def solution_from_outputs(x, u, stats, eps) -> Solution:
 
 def slew_problem(cfg, x_init, cost: QuadCost, dynamics: LinDx, prev_ctrl):
     """The augmented problem that the kernels solve for a slew-penalised
-    LinDx (mpc_tpu/ops/fused.py:2510-2580): (cfg, x_init [B, nc + ns],
+    LinDx of any size (mpc_tpu/ops/fused.py:2510-2580; K3 takes it at
+    three augmented states and one control, the dense configuration
+    otherwise): (cfg, x_init [B, nc + ns],
     QuadCost, LinDx) with the state augmented by the previous control
     (prev_ctrl [B, n_ctrl], [n_ctrl] or None), each leaf in its own
     layout (a shared leaf stays shared)."""
@@ -1190,16 +1250,21 @@ def slew_problem(cfg, x_init, cost: QuadCost, dynamics: LinDx, prev_ctrl):
 def fused_batched_solve(cfg, x_init, cost: QuadCost, dynamics,
                         u_init=None, u_lower=None, u_upper=None,
                         prev_ctrl=None) -> Solution:
-    """Batched solve through K1 or K3 (``routes_long``) on x_init's
-    device (layouts as in ``k1_operands`` and ``k3_operands``); under a
-    slew penalty, of the augmented problem (``slew_problem``)."""
+    """Batched solve through the dense configuration (``routes_dense``),
+    K1 or K3 (``routes_long``) on x_init's device (layouts as in
+    ``fused_dense.k3d_operands``, ``k1_operands`` and ``k3_operands``);
+    under a slew penalty, of the augmented problem (``slew_problem``)."""
     kw = dict(u_init=u_init, u_lower=u_lower, u_upper=u_upper)
     if cfg.slew_rate_penalty is not None:
         sol = fused_batched_solve(*slew_problem(cfg, x_init, cost, dynamics,
                                                 prev_ctrl), **kw)
         # strip u_{t-1} from the augmented states (mpc/mpc.py:444)
         return sol._replace(x=sol.x[..., cfg.n_ctrl:])
-    if routes_long(dynamics, cfg.T):
+    if routes_dense(dynamics, cfg.n_state, cfg.n_ctrl):
+        from .fused_dense import fused_ilqr_dense, k3d_operands
+        x, u, stats = fused_ilqr_dense(**k3d_operands(cfg, x_init, cost,
+                                                      dynamics, **kw))
+    elif routes_long(dynamics, cfg.T):
         x, u, stats = fused_ilqr_long(**k3_operands(cfg, x_init, cost,
                                                     dynamics, **kw))
     else:

@@ -161,16 +161,22 @@ def bwd_routes_long(T, dyn_shared) -> bool:
 
 
 def scope_gap_bwd(T, n_ctrl=1, dtype=torch.float32,
-                  device=torch.device('cpu')) -> Optional[str]:
+                  device=torch.device('cpu'), n_state=3) -> Optional[str]:
     """Why K2 and K4 do not take the backward of a differentiable solve
-    that K1 or K3 solved, naming the kernel configuration that waits;
-    None when K2 or K4 (``bwd_routes_long``), or its plain version on the
-    CPU, runs it.  The admission test alone: the dispatch runs the eager
-    fixed point where it refuses.  No horizon is refused: K4's T is a
-    run-time argument."""
+    that K1, K3 or the dense configuration solved, naming the kernel
+    configuration that waits; None when K2 or K4 (``bwd_routes_long``),
+    or its plain version on the CPU, runs it.  The admission test alone:
+    the dispatch runs the eager fixed point where it refuses (every
+    problem of other sizes than 3 states and 1 control, as
+    mpc_tpu/learning.py:213-242 dispatches).  No horizon is refused: K4's
+    T is a run-time argument."""
     if n_ctrl != 1:
         return ('the backward of n_ctrl > 1 with the masked Cholesky waits '
                 'for ROADMAP queue 2 (K2 and K4 configurations)')
+    if n_state != 3:
+        return (f'the backward of n_state = {n_state} waits for ROADMAP '
+                'queue 2 (K2 and K4 configurations): K2 and K4 hold 3 '
+                'states')
     if dtype not in (torch.float32, torch.float64):
         return f'dtype {dtype} is not supported (float32 or float64)'
     if dtype == torch.float64 and device.type == 'cuda':
@@ -180,9 +186,9 @@ def scope_gap_bwd(T, n_ctrl=1, dtype=torch.float32,
 
 
 def supports_bwd(T, n_ctrl=1, dtype=torch.float32,
-                 device=torch.device('cpu')) -> bool:
+                 device=torch.device('cpu'), n_state=3) -> bool:
     """Whether K2 or K4 runs this backward (see ``scope_gap_bwd``)."""
-    return scope_gap_bwd(T, n_ctrl, dtype, device) is None
+    return scope_gap_bwd(T, n_ctrl, dtype, device, n_state) is None
 
 
 # ---------------------------------------------------------------------------

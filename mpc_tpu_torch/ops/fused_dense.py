@@ -1,0 +1,666 @@
+"""K3's dense configuration: the iLQR solve of a LinDx problem of any
+admitted n_state and n_ctrl on Hopper, and its plain PyTorch version.
+
+Counterpart of the general-size configurations of the TPU kernels
+``_make_kernel`` and ``_make_kernel_long`` (mpc_tpu/ops/fused.py:617-1119,
+1126-1932): LinDx dynamics, a QuadCost, and the control solve of the
+problem's regime (``ctrl_solve``, :1464-1544): the closed-form 1-D box
+QP for one control, the in-kernel projected-Newton box QP
+(``_pnqp_kernel``, :534-616) on the masked unrolled Cholesky
+(``_cholesky``, ``_chol_solve``, ``_masked_free_chol``, :479-533) for
+several bounded controls, and the Cholesky with a 1e-11 jitter for
+several unbounded ones.
+
+The kernel is csrc/fused_ilqr_dense.cu (+ csrc/box_qp.cuh): ONE WARP AN
+EXAMPLE, lane r owning row r of the cost-to-go V, of Q and of the gains,
+so n_state + n_ctrl <= 32 (``fused.DENSE_MAX_TAU``); n_state, n_ctrl and
+the bounds and f flags are nvcc defines (``dense_kernel_defines``), so
+the small loops unroll; the layouts (each operand shared or batched) are
+run-time batch strides, as in K3.  The launch geometry is computed here
+(``k3d_launch``), so the CPU tests reach it.
+
+``fused_solve_dense_plain`` is the plain version: each kernel scalar is
+a [B] tensor (a row of lanes a [B, n] tensor) and every sum runs in the
+kernel's order: a dot product over its index from the first term on, a
+sum over the warp's lanes (a stage cost, the full step's squares) by
+the xor-butterfly of warp shuffles (``_lane_sum``).  It runs in any
+float dtype; the entry points run it for tensors on the CPU, and on a
+CUDA tensor ``fused_ilqr_dense`` launches the kernel or raises, through
+the op ``mpc_tpu_torch::k3d_solve`` (ops/custom.py).
+"""
+
+from __future__ import annotations
+
+import array
+import ctypes
+
+import torch
+
+from ..types import LinDx, QuadCost
+from .fused import (BIG, MAX_ALPHA, _check_device, _cost_operand,
+                    _dyn_operand, line_search_schedule)
+
+# Examples (warps) a block of the dense kernel.  A warp's tiles of an
+# example (Q, W, F and V, ``_warp_floats``) take 12.4 KB at 24 states and
+# 4 controls, 16.3 KB at n_state + n_ctrl = 32, so a block of 4 takes
+# 50-65 KB and three or four blocks share an SM.
+DENSE_WARPS = 4
+
+# The projected-Newton box QP's constants (mpc_tpu/ops/fused.py:70-73):
+# Armijo ratio, step-size decay and count, and the norm of the Newton
+# step that freezes an example.
+PNQP_GAMMA = 0.1
+PNQP_LS_DECAY = 0.1
+PNQP_MAX_LS = 10
+PNQP_CONV_TOL = 1e-4
+# the unbounded Cholesky's jitter (mpc_tpu/ops/fused.py:908-920, 1464-1544)
+CHOL_JITTER = 1e-11
+
+
+def _odd(n) -> int:
+    """A row stride of a lane-per-row tile: odd, so that the 32 lanes
+    reading one column of their rows hit 32 banks."""
+    return n | 1
+
+
+def _warp_floats(ns, nc) -> int:
+    """The floats of a warp's shared tiles (csrc/fused_ilqr_dense.cu, oQ
+    to oKk): Q [ntau][odd], W [ns][odd], F [ns][ntau], V [ns][odd],
+    the vectors tau, q, c, v, dx, the gains K [nc][ns], k [nc] and
+    K^T Quu [nc][ns]; padded to a multiple of 4."""
+    nt = ns + nc
+    n = (nt * _odd(nt) + ns * _odd(nt) + ns * nt + ns * _odd(ns)
+         + 3 * nt + 2 * ns + 2 * nc * ns + nc)
+    return n + -n % 4
+
+
+def dense_workspace_floats(T, ns, nc) -> int:
+    """An example's workspace in global memory: two trajectory slots
+    [2][T][ntau] (the current one and the trial) and the gains
+    [T][nc][ns + 1] (K then k)."""
+    nt = ns + nc
+    return T * (2 * nt + nc * (ns + 1))
+
+
+def k3d_launch(T, B, ns, nc, n_alpha) -> dict:
+    """The dense kernel's launch geometry: lanes an example (a warp),
+    warps and examples a block, blocks, the dynamic shared memory of a
+    block and the workspace [B, ``dense_workspace_floats``] of float32 in
+    global memory.  ``n_alpha`` step sizes run one after another on the
+    warp, so they change nothing here; it is checked against
+    ``MAX_ALPHA``."""
+    if not 0 < n_alpha <= MAX_ALPHA:
+        raise ValueError(f'the dense kernel takes 1 to {MAX_ALPHA} step '
+                         'sizes')
+    smem = 4 * DENSE_WARPS * _warp_floats(ns, nc)
+    return dict(team=32, warps=DENSE_WARPS, examples=DENSE_WARPS,
+                blocks=-(-B // DENSE_WARPS), smem_bytes=smem,
+                workspace_bytes=4 * B * dense_workspace_floats(T, ns, nc))
+
+
+def dense_kernel_defines(ns, nc, has_bounds, has_f) -> dict:
+    """The nvcc defines of the dense build for these sizes, bounds and f
+    (present or absent: a compile-time flag, so that no load goes through
+    the pointer of an absent f)."""
+    return {'MPC_NS': ns, 'MPC_NC': nc, 'MPC_HAS_BOUNDS': int(has_bounds),
+            'MPC_HAS_F': int(has_f), 'MPC_WARPS': DENSE_WARPS}
+
+
+# ---------------------------------------------------------------------------
+# work and bytes of one launch (the kernel's bound)
+# ---------------------------------------------------------------------------
+
+def _chol_ops(n, jitter) -> int:
+    """+, -, *, /, sqrt of ``_cholesky`` on an n x n matrix."""
+    ops = 0
+    for j in range(n):
+        ops += int(jitter) + 2 * j + 2
+        ops += (n - 1 - j) * (2 * j + 1)
+    return ops
+
+
+def _solve_ops(n) -> int:
+    """Of ``_chol_solve`` for one right-hand side."""
+    return 2 * n * n
+
+
+def k3d_flops(T, ns, nc, lqr_iter, n_alpha, batch=1, *, has_f=False,
+              has_bounds=True, n_qp=0):
+    """Arithmetic operations the dense solve needs (each +, -, *, /,
+    sqrt counts one; compares, selects and sign flips none), counted as
+    ``fused.k3_flops`` counts K3's: ``batch`` initial rollouts with their
+    cost, ``lqr_iter`` Riccati sweeps (pass the sum over the batch of
+    n_iter), ``n_alpha`` trial rollouts (the sum of stats[5]: the trials
+    up to the selected step size) and, for several bounded controls,
+    ``n_qp`` projected-Newton trips (the sum of n_qp_iter), each with the
+    first trial of its Armijo search, the least a search runs."""
+    nt = ns + nc
+    stage = nt * (2 * nt + 2)
+    cb = nt * 2 * nt
+    step = ns * (2 * nt - 1) + (ns if has_f else 0)
+    if nc == 1:
+        ctrl = ns + 1 + (6 if has_bounds else 2)
+    elif has_bounds:
+        # the gains from the last trip's factor, the bounds' offsets
+        ctrl = ns * _solve_ops(nc) + 2 * nc
+    else:
+        ctrl = _chol_ops(nc, True) + (ns + 1) * _solve_ops(nc)
+    vupd = (ns * ns * (2 * nc - 1) + nc * ns * (2 * nc - 1)
+            + ns * (ns + 1) // 2 * (2 * nc + 2) + nc * (2 * nc - 1)
+            + ns * 5 * nc)
+    ric_t = (cb + ns * nt * (2 * ns - 1) + nt * (nt + 1) // 2 * 2 * ns
+             + nt * 2 * ns + ctrl + vupd)
+    riccati = (T - 1) * ric_t + cb + ctrl + vupd
+    if nc > 1 and has_bounds:
+        # the unclamped solve that starts the search at t = T - 1
+        riccati += _chol_ops(nc, True) + _solve_ops(nc)
+    obj = nc * (2 * nc + 2)
+    trip = (nc * 2 * nc + _chol_ops(nc, False) + _solve_ops(nc) + 2 * nc + 1
+            + obj + 2 * nc + obj + 1 + 3 * nc + 1)
+    ctrl_roll = ns + nc * (2 * ns + 2)
+    trial = T * (ctrl_roll + stage) + (T - 1) * step
+    full_du = T * 3 * nc + 1
+    init = T * stage + (T - 1) * step
+    return (batch * init + lqr_iter * (riccati + full_du + 4)
+            + n_alpha * trial + n_qp * trip)
+
+
+def k3d_bytes(ops):
+    """Bytes the dense solve must move for the operands ``ops``
+    (``k3d_operands``): each input read once, shared ones once for the
+    whole batch, and each output (x, u and six stats rows) written once.
+    The workspace is neither."""
+    T, B, nc = ops['u0'].shape
+    ns = ops['x0'].shape[1]
+    ins = [ops[k] for k in ('F', 'f', 'C', 'c', 'x0', 'u0', 'lb', 'ub')
+           if ops.get(k) is not None]
+    out = (T * B * (ns + nc) + 6 * B) * ops['x0'].element_size()
+    return sum(a.numel() * a.element_size() for a in ins) + out
+
+
+# ---------------------------------------------------------------------------
+# the plain version
+# ---------------------------------------------------------------------------
+
+def _lane_sum(terms):
+    """The sum over the last axis (a lane each, at most 32) in the order
+    of the kernel's xor-butterfly of warp shuffles: the lanes beyond the
+    axis hold 0, and level by level lane i adds lane i ^ o for o = 16, 8,
+    4, 2, 1 (every lane ends with the same bits)."""
+    n = terms.shape[-1]
+    a = torch.nn.functional.pad(terms, (0, 32 - n))
+    for o in (16, 8, 4, 2, 1):
+        a = a[..., :o] + a[..., o:2 * o]
+    return a[..., 0]
+
+
+def _sqrt(a):
+    """The correctly rounded square root, as the kernel's sqrtf gives it.
+    PyTorch's float32 sqrt on the CPU is not always (one ulp off in some
+    builds); the float64 root rounded to float32 is."""
+    if a.dtype == torch.float32:
+        return torch.sqrt(a.double()).float()
+    return torch.sqrt(a)
+
+
+def _dot(a, b, dim):
+    """sum_k a[k] b[k] along ``dim`` (broadcast), from the first term
+    on, k ascending: the kernel's order of every dot product."""
+    acc = a.select(dim, 0) * b.select(dim, 0)
+    for k in range(1, a.shape[dim]):
+        acc = acc + a.select(dim, k) * b.select(dim, k)
+    return acc
+
+
+def _upper(M):
+    """M's upper triangle mirrored below the diagonal, as the kernel
+    writes a symmetric matrix (mpc_tpu/ops/fused.py:1660-1664)."""
+    n = M.shape[-1]
+    up = torch.ones(n, n, dtype=torch.bool, device=M.device).triu()
+    return torch.where(up, M, M.transpose(-1, -2))
+
+
+def _cholesky(A, jitter=0.0):
+    """``_cholesky`` (mpc_tpu/ops/fused.py:479-499) on a list of lists of
+    [...] tensors: L (lower, zeros above), in its order."""
+    n = len(A)
+    z = torch.zeros_like(A[0][0])
+    L = [[z] * n for _ in range(n)]
+    for j in range(n):
+        s = A[j][j] + jitter if jitter else A[j][j]
+        for k in range(j):
+            s = s - L[j][k] * L[j][k]
+        L[j][j] = _sqrt(torch.clamp_min(s, 1e-30))
+        inv = 1.0 / L[j][j]
+        for i in range(j + 1, n):
+            s2 = A[i][j]
+            for k in range(j):
+                s2 = s2 - L[i][k] * L[j][k]
+            L[i][j] = s2 * inv
+    return L
+
+
+def _chol_solve(L, b):
+    """``_chol_solve`` (mpc_tpu/ops/fused.py:502-516): (L L^T) x = b, b a
+    list of tensors whose leading axes are L's (trailing ones are more
+    right-hand sides)."""
+    n = len(L)
+    extra = b[0].dim() - L[0][0].dim()
+
+    def e(v):
+        return v.reshape(v.shape + (1,) * extra)
+
+    y = [None] * n
+    for i in range(n):
+        s = b[i]
+        for k in range(i):
+            s = s - e(L[i][k]) * y[k]
+        y[i] = s / e(L[i][i])
+    x = [None] * n
+    for i in range(n - 1, -1, -1):
+        s = y[i]
+        for k in range(i + 1, n):
+            s = s - e(L[k][i]) * x[k]
+        x[i] = s / e(L[i][i])
+    return x
+
+
+def _masked_free_chol(H, free):
+    """``_masked_free_chol`` (mpc_tpu/ops/fused.py:519-533): the factor of
+    H with the clamped rows and columns zeroed and a unit diagonal on
+    them."""
+    n = len(H)
+    z = torch.zeros_like(H[0][0])
+    Hm = [[torch.where(free[i] & free[j], H[i][j], z) for j in range(n)]
+          for i in range(n)]
+    for i in range(n):
+        Hm[i][i] = torch.where(free[i], H[i][i], z + 1.0)
+    return _cholesky(Hm)
+
+
+def _pnqp_steps(dtype):
+    """The Armijo search's step sizes 0.1^k as the kernel has them (the
+    float32 values of the Python floats, as the JAX kernel bakes them
+    in)."""
+    steps = [PNQP_LS_DECAY ** k for k in range(PNQP_MAX_LS)]
+    if dtype == torch.float32:
+        steps = array.array('f', steps).tolist()
+    return steps
+
+
+def _pnqp(H, q, lo, hi, x0, n_iter):
+    """``_pnqp_kernel`` (mpc_tpu/ops/fused.py:534-616), batched: H, q,
+    lo, hi and the start x0 lists of [B] tensors.  The start is clamped;
+    each trip takes the Newton direction on the free set (clamped:
+    at a bound with the gradient pushing out), stops an example whose
+    step norm is below PNQP_CONV_TOL (its x stays), else takes the first
+    of the ten step sizes whose Armijo ratio exceeds PNQP_GAMMA, else the
+    last.  Returns (x, L_free, free, trips): the factor and free set of
+    the last trip an example ran, the trips it ran.  Trips stop once
+    every example has stopped, which changes nothing: a stopped
+    example's trip recomputes the same factor from the same x."""
+    n = len(q)
+    z = torch.zeros_like(q[0])
+    x = [torch.clamp(x0[i], lo[i], hi[i]) for i in range(n)]
+    done = torch.zeros(z.shape, dtype=torch.bool, device=z.device)
+    trips = z.clone()
+    L = [[z + float(i == j) for j in range(n)] for i in range(n)]
+    free = [torch.ones_like(done) for _ in range(n)]
+    steps = torch.tensor(_pnqp_steps(z.dtype), dtype=z.dtype,
+                         device=z.device).reshape((-1,) + (1,) * z.dim())
+
+    def obj(v):
+        acc = None
+        for i in range(n):
+            s = H[i][0] * v[0]
+            for j in range(1, n):
+                s = s + H[i][j] * v[j]
+            term = (0.5 * s + q[i]) * v[i]
+            acc = term if acc is None else acc + term
+        return acc
+
+    for _ in range(n_iter):
+        if bool(done.all()):
+            break
+        g = []
+        for i in range(n):
+            s = H[i][0] * x[0]
+            for j in range(1, n):
+                s = s + H[i][j] * x[j]
+            g.append(s + q[i])
+        clamped = [((x[i] == lo[i]) & (g[i] > 0))
+                   | ((x[i] == hi[i]) & (g[i] < 0)) for i in range(n)]
+        fr = [~c for c in clamped]
+        g_ = [torch.where(clamped[i], z, g[i]) for i in range(n)]
+        Lf = _masked_free_chol(H, fr)
+        dx = [-v for v in _chol_solve(Lf, g_)]
+        dx2 = dx[0] * dx[0]
+        for i in range(1, n):
+            dx2 = dx2 + dx[i] * dx[i]
+        done_new = done | (_sqrt(dx2) < PNQP_CONV_TOL)
+        ox = obj(x)
+        # the ten step sizes side by side, [10, B]
+        xt = [torch.clamp(x[i] + steps * dx[i], lo[i], hi[i])
+              for i in range(n)]
+        num = ox - obj(xt)
+        den = g[0] * (x[0] - xt[0])
+        for i in range(1, n):
+            den = den + g[i] * (x[i] - xt[i])
+        armijo = torch.where(den.abs() < 1e-30,
+                             torch.full_like(den, PNQP_GAMMA + 1e-6),
+                             num / den)
+        passing = armijo > PNQP_GAMMA
+        first = torch.where(passing.any(0), passing.to(torch.int8).argmax(0),
+                            PNQP_MAX_LS - 1)
+        sel = [v.gather(0, first.unsqueeze(0))[0] for v in xt]
+        x = [torch.where(done_new, x[i], sel[i]) for i in range(n)]
+        trips = trips + torch.where(done, z, z + 1.0)
+        L, free, done = Lf, fr, done_new
+    return x, L, free, trips
+
+
+def _ctrl_solve(t, T, Q, q, u_t, lb_t, ub_t, prev_kt, ns, pnqp_iter):
+    """``ctrl_solve`` (mpc_tpu/ops/fused.py:1464-1544) at one step, for
+    the three regimes: (K [B, nc, ns], k [B, nc], the QP's trips [B])."""
+    nc = q.shape[-1] - ns
+    B = q.shape[0]
+    z = q.new_zeros(B)
+    Quu = [[Q[:, ns + i, ns + j] for j in range(nc)] for i in range(nc)]
+    qu = [q[:, ns + i] for i in range(nc)]
+    Qux = Q[:, ns:, :ns]
+    if lb_t is None:
+        if nc == 1:
+            inv = 1.0 / Quu[0][0]
+            return ((-Qux) * inv[:, None, None], ((-qu[0]) * inv)[:, None],
+                    z)
+        L = _cholesky(Quu, CHOL_JITTER)
+        kt = [-v for v in _chol_solve(L, qu)]
+        cols = _chol_solve(L, list(Qux.unbind(1)))
+        return -torch.stack(cols, 1), torch.stack(kt, 1), z
+    lo = lb_t - u_t
+    hi = ub_t - u_t
+    if nc == 1:
+        Quu_s, qu_s = Quu[0][0], qu[0]
+        inv = 1.0 / Quu_s
+        kv = torch.clamp((-qu_s) * inv, lo[:, 0], hi[:, 0])
+        g = Quu_s * kv + qu_s
+        clamped = (((kv == lo[:, 0]) & (g > 0))
+                   | ((kv == hi[:, 0]) & (g < 0)))
+        K = torch.where(clamped[:, None, None], 0.0,
+                        (-Qux) * inv[:, None, None])
+        return K, kv[:, None], z + 1.0
+    if t == T - 1:
+        L0 = _cholesky(Quu, CHOL_JITTER)
+        x_init = [-v for v in _chol_solve(L0, qu)]
+    else:
+        x_init = list(prev_kt.unbind(1))
+    kt, L_free, free, trips = _pnqp(Quu, qu, list(lo.unbind(1)),
+                                    list(hi.unbind(1)), x_init, pnqp_iter)
+    rhs = [torch.where(free[i][:, None], Qux[:, i], 0.0) for i in range(nc)]
+    cols = _chol_solve(L_free, rhs)
+    return -torch.stack(cols, 1), torch.stack(kt, 1), trips
+
+
+def fused_solve_dense_plain(F, f, C, c, x0, u0, lb, ub, *, alphas, lqr_iter,
+                            eps, best_cost_eps, not_improved_lim, pnqp_iter):
+    """The plain PyTorch version of the dense kernel, on its operands.
+
+    F [T-1, 1 or B, ns, ntau]; f None or [T-1, 1 or B, ns];
+    C [T, 1 or B, ntau, ntau]; c [T, 1 or B, ntau]; x0 [B, ns];
+    u0 [T, B, nc]; lb, ub None or [T, 1 or B, nc]; ``alphas`` the
+    line-search schedule as Python floats.  Returns x [T, B, ns],
+    u [T, B, nc] and stats [6, B]: best cost, best full-step norm,
+    n_iter, n_qp_iter, alpha and the selected step size's index plus one
+    summed over the iterations.
+
+    Same arithmetic in the same order as csrc/fused_ilqr_dense.cu, which
+    computes what ``_make_kernel_long`` computes at these sizes: the
+    initial rollout and its cost; per iteration one Riccati sweep
+    (Q's upper triangle mirrored, the control solve of the regime, the
+    cost-to-go as vv_update sums it, mpc_tpu/ops/fused.py:1546-1573),
+    the line search's trial rollouts with the first passing step size
+    (trial cost <= current cost), else the last, the selected trial
+    becoming the current trajectory; best-tracking and per-example
+    stopping.  The kernel stops an example's search at its first passing
+    step size; here every example tries each step size until every
+    active one has passed, and each keeps its first passing trial.
+    ``n_qp_iter`` counts the box QP's trips (one a step for one control,
+    the projected-Newton trips for several, none without bounds)."""
+    T, B, nc = u0.shape
+    ns = x0.shape[1]
+    nt = ns + nc
+    has_bounds = lb is not None
+    dev, dt = x0.device, x0.dtype
+    zero = x0.new_zeros(B)
+
+    def stage(t, tau):
+        s = _dot(C[t], tau[:, None, :], -1)
+        return _lane_sum((0.5 * s + c[t]) * tau)
+
+    def step(t, tau):
+        out = _dot(F[t], tau[:, None, :], -1)
+        return out if f is None else out + f[t]
+
+    # ---- init: x <- rollout(u0), best <- the same, its cost ------------
+    x = [x0]
+    u = list(u0.unbind(0))
+    cost_cur = stage(0, torch.cat([x[0], u[0]], -1))
+    for t in range(T - 1):
+        x.append(step(t, torch.cat([x[t], u[t]], -1)))
+        cost_cur = cost_cur + stage(t + 1, torch.cat([x[t + 1], u[t + 1]],
+                                                     -1))
+    best_x, best_u = x, u
+    best_cost = zero + BIG
+    best_du = zero + BIG
+    cur_du = zero + BIG
+    nni = zero.clone()
+    n_qp = zero.clone()
+    alpha_sel = zero + 1.0
+    n_it = zero.clone()
+    n_trials = zero.clone()
+    active = torch.ones(B, dtype=torch.bool, device=dev)
+
+    for it in range(lqr_iter):
+        # ---- Riccati backward recursion --------------------------------
+        K = [None] * T
+        k = [None] * T
+        V = v = prev_kt = None
+        qp_cnt = zero.clone()
+        for t in range(T - 1, -1, -1):
+            tau = torch.cat([x[t], u[t]], -1)
+            Ct = C[t].expand(B, nt, nt)
+            cb = _dot(Ct, tau[:, None, :], -1) + c[t]
+            if t == T - 1:
+                Q, q = Ct, cb
+            else:
+                Ft = F[t].expand(B, ns, nt)
+                W = _dot(V[:, :, :, None], Ft[:, None, :, :], 2)
+                Q = _upper(Ct + _dot(Ft[:, :, :, None], W[:, :, None, :], 1))
+                q = cb + _dot(Ft, v[:, :, None], 1)
+            Kt, kt, qp_inc = _ctrl_solve(
+                t, T, Q, q, u[t], lb[t] if has_bounds else None,
+                ub[t] if has_bounds else None, prev_kt, ns, pnqp_iter)
+            K[t], k[t], prev_kt = Kt, kt, kt
+            qp_cnt = qp_cnt + qp_inc
+            # cost-to-go, summed as vv_update sums it
+            Qxu = Q[:, :ns, ns:]
+            Quu = Q[:, ns:, ns:]
+            qu = q[:, ns:]
+            QK = _dot(Qxu[:, :, :, None], Kt[:, None, :, :], 2)
+            KQuu = _dot(Quu[:, :, :, None], Kt[:, None, :, :], 2)
+            kqk = _dot(Kt[:, :, :, None], KQuu[:, :, None, :], 1)
+            V = _upper(((Q[:, :ns, :ns] + QK) + QK.transpose(1, 2)) + kqk)
+            Quuk = _dot(Quu, kt[:, None, :], 2)
+            v = (q[:, :ns] + _dot(Qxu, kt[:, None, :], 2)) \
+                + _dot(Kt, (qu + Quuk)[:, :, None], 1)
+
+        # ---- line search: trial rollouts, the first passing step size,
+        # else the last; the selected trial becomes the trajectory -------
+        old_cost = cost_cur
+        found = torch.zeros(B, dtype=torch.bool, device=dev)
+        for ki, a in enumerate(alphas):
+            xt = x0
+            nx, nu = [], []
+            cost_a = du2 = None
+            for t in range(T):
+                dx = xt - x[t]
+                ut = (_dot(K[t], dx[:, None, :], -1) + u[t]) + a * k[t]
+                if has_bounds:
+                    ut = torch.clamp(ut, lb[t], ub[t])
+                tau = torch.cat([xt, ut], -1)
+                sc = stage(t, tau)
+                cost_a = sc if cost_a is None else cost_a + sc
+                if ki == 0:
+                    d = u[t] - ut
+                    d2 = _lane_sum(d * d)
+                    du2 = d2 if du2 is None else du2 + d2
+                nx.append(xt)
+                nu.append(ut)
+                if t < T - 1:
+                    xt = step(t, tau)
+            take = ~found
+            n_trials = n_trials + (take & active).to(dt)
+            if ki == 0:
+                full_du = _sqrt(du2)
+                sel_x, sel_u, sel_cost = nx, nu, cost_a
+                sel_alpha = zero + a
+            else:
+                sel_x = [torch.where(take[:, None], nx[t], sel_x[t])
+                         for t in range(T)]
+                sel_u = [torch.where(take[:, None], nu[t], sel_u[t])
+                         for t in range(T)]
+                sel_cost = torch.where(take, cost_a, sel_cost)
+                sel_alpha = torch.where(take, zero + a, sel_alpha)
+            found = found | (take & (cost_a <= old_cost))
+            if bool((found | ~active).all()):
+                break
+
+        # ---- best tracking and per-example stopping ------------------
+        improved = sel_cost <= best_cost + best_cost_eps
+        take_best = active & (improved | (it == 0))
+        nni = torch.where(active, torch.where(
+            improved & (it != 0), zero, nni + 1.0), nni)
+        on = active[:, None]
+        x = [torch.where(on, sel_x[t], x[t]) for t in range(T)]
+        u = [torch.where(on, sel_u[t], u[t]) for t in range(T)]
+        best = take_best[:, None]
+        best_x = [torch.where(best, x[t], best_x[t]) for t in range(T)]
+        best_u = [torch.where(best, u[t], best_u[t]) for t in range(T)]
+        best_cost = torch.where(take_best, sel_cost, best_cost)
+        best_du = torch.where(take_best, full_du, best_du)
+        cur_du = torch.where(active, full_du, cur_du)
+        n_qp = n_qp + torch.where(active, qp_cnt, zero)
+        alpha_sel = torch.where(active, sel_alpha, alpha_sel)
+        n_it = n_it + active.to(dt)
+        cost_cur = torch.where(active, sel_cost, cost_cur)
+        active = active & (cur_du >= eps) & (nni <= not_improved_lim)
+        if not bool(active.any()):
+            break
+
+    stats = torch.stack([best_cost, best_du, n_it, n_qp, alpha_sel,
+                         n_trials], 0)
+    return torch.stack(best_x, 0), torch.stack(best_u, 0), stats
+
+
+# ---------------------------------------------------------------------------
+# the kernel's wrapper and operands
+# ---------------------------------------------------------------------------
+
+_P = ctypes.c_void_p
+_I64 = ctypes.c_longlong
+ARGTYPES = [
+    ctypes.c_int, ctypes.c_int,           # B, T
+    _P, _I64, _I64,                       # F, t stride, batch stride
+    _P, _I64, _I64,                       # f, t stride, batch stride
+    _P, _I64, _I64,                       # C, t stride, batch stride
+    _P, _I64, _I64,                       # c, t stride, batch stride
+    _P, _P,                               # x0, u0
+    _P, _P, _I64, _I64,                   # lb, ub, t stride, batch stride
+    ctypes.POINTER(ctypes.c_float), ctypes.c_int,   # alphas (host), n
+    ctypes.c_int, ctypes.c_int,           # lqr_iter, pnqp_iter
+    ctypes.c_float, ctypes.c_float, ctypes.c_float,
+    _P, ctypes.c_int,                     # workspace, shared memory bytes
+    _P, _P, _P,                           # x, u, stats
+    _P,                                   # stream
+]
+
+
+def kernel_lib(ns, nc, has_bounds, has_f):
+    from . import _build
+    fn = _build.load('fused_ilqr_dense',
+                     dense_kernel_defines(ns, nc, has_bounds, has_f)
+                     ).mpc_fused_ilqr_dense
+    if fn.argtypes is None:
+        fn.argtypes = ARGTYPES
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def fused_ilqr_dense(F, f, C, c, x0, u0, lb, ub, *, alphas, lqr_iter, eps,
+                     best_cost_eps, not_improved_lim, pnqp_iter):
+    """Run the dense kernel on its operands (layouts as in
+    ``fused_solve_dense_plain``) through the op
+    ``mpc_tpu_torch::k3d_solve`` (ops/custom.py).
+
+    On the CPU the op runs ``fused_solve_dense_plain``.  On a CUDA tensor
+    it allocates the workspace of ``k3d_launch``, launches
+    csrc/fused_ilqr_dense.cu on the current stream and raises on any
+    operand the kernel does not take or on a launch error."""
+    _check_device('the dense kernel', x0)
+    return torch.ops.mpc_tpu_torch.k3d_solve(
+        F, f, C, c, x0, u0, lb, ub, [float(a) for a in alphas],
+        int(lqr_iter), float(eps), float(best_cost_eps),
+        float(not_improved_lim), int(pnqp_iter))
+
+
+def _ctrl_bound(a, T, B, nc, dtype, device):
+    """A scalar, [T, nc] or [T, 1 or B, nc] bound to a contiguous
+    [T, 1 or B, nc]."""
+    a = torch.as_tensor(a, dtype=dtype, device=device)
+    if a.dim() == 0:
+        a = a.expand(T, 1, nc)
+    elif a.dim() == 2:
+        a = a.unsqueeze(1)
+    if a.dim() != 3 or a.shape[0] != T or a.shape[1] not in (1, B) \
+            or a.shape[2] != nc:
+        raise ValueError(f'unexpected bound shape {tuple(a.shape)}')
+    return a.contiguous()
+
+
+def k3d_operands(cfg, x_init, cost: QuadCost, dynamics: LinDx, u_init=None,
+                 u_lower=None, u_upper=None) -> dict:
+    """The dense kernel's operands (the keyword arguments of
+    ``fused_ilqr_dense`` and ``fused_solve_dense_plain``) on x_init's
+    device and dtype.  Layouts match learning.batched_solve: x_init
+    [B, ns]; cost and LinDx leaves shared ([T, ...] or without the time
+    axis for the cost) or batched ([T, B, ...]), each in its own layout
+    (the kernel reads each with its own batch stride); bounds scalar,
+    [T, nc] or [T, B, nc]; u_init [T, nc] or [T, B, nc]."""
+    T, nc = cfg.T, cfg.n_ctrl
+    dtype, device = x_init.dtype, x_init.device
+    x0 = x_init.contiguous()
+    B = x0.shape[0]
+    if u_init is None:
+        u0 = torch.zeros((T, B, nc), dtype=dtype, device=device)
+    else:
+        u0 = torch.as_tensor(u_init, dtype=dtype, device=device)
+        if u0.dim() == 2:
+            u0 = u0.unsqueeze(1)
+        u0 = u0.expand(T, B, nc).contiguous()
+    lb = ub = None
+    if u_lower is not None:
+        lb = _ctrl_bound(u_lower, T, B, nc, dtype, device)
+        ub = _ctrl_bound(u_upper, T, B, nc, dtype, device)
+    f = dynamics.f
+    if f is not None:
+        f = _dyn_operand(f, T, B, 1, dtype, device)
+    return dict(F=_dyn_operand(dynamics.F, T, B, 2, dtype, device), f=f,
+                C=_cost_operand(cost.C, T, B, 2, dtype, device),
+                c=_cost_operand(cost.c, T, B, 1, dtype, device),
+                x0=x0, u0=u0, lb=lb, ub=ub,
+                alphas=line_search_schedule(cfg, dtype),
+                lqr_iter=cfg.lqr_iter, eps=cfg.eps,
+                best_cost_eps=cfg.best_cost_eps,
+                not_improved_lim=float(cfg.not_improved_lim),
+                pnqp_iter=int(cfg.pnqp_iter))
+

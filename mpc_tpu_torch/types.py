@@ -95,8 +95,9 @@ class MPCConfig:
     pnqp_iter: int = 20
     parallel_linesearch: bool = True
     scan_unroll: int = 4
-    # 'auto' runs a problem through the kernels K1/K3 (K2/K4 for its
-    # backward) when they take it (ops/fused.py:scope_gap; on the CPU
+    # 'auto' runs a problem through the kernels K1/K3 or K3's dense
+    # configuration (K2/K4 for its backward) when they take it
+    # (ops/fused.py:scope_gap; on the CPU
     # their plain PyTorch versions, which take float64 too, where the
     # card sends float64 to the eager solver) and through the eager
     # solver otherwise; 'never' forces the eager solver; 'always' raises

@@ -63,7 +63,10 @@ P = np.array([-1., 0., 0., 0.])
 # for the gradient program, whose backward is traced too), two step
 # sizes and three PNQP trips, so that the unrolled graph exports in
 # seconds
-EAGER = dict(lqr_iter=2, max_linesearch_iter=2, pnqp_iter=3)
+# the eager route's export (two controls went there until the kernels'
+# dense configuration took them; 'never' keeps these cases on it)
+EAGER = dict(lqr_iter=2, max_linesearch_iter=2, pnqp_iter=3,
+             use_fused='never')
 EAGER_GRAD = dict(EAGER, lqr_iter=1)
 
 
@@ -395,10 +398,12 @@ def test_route_is_decided_for_the_artifact_device():
 
 
 def test_forced_kernel_outside_its_scope_raises():
-    """use_fused='always' on a problem the kernels do not take (two
-    controls) is an error at export, not an artifact of another route."""
+    """use_fused='always' on a problem the kernels do not take (delta_u
+    without bounds) is an error at export, not an artifact of another
+    route."""
     d = _t(_lin_setup())
-    cfg = mt.MPCConfig(**_cfg_kw(use_fused='always', **EAGER))
+    cfg = mt.MPCConfig(**_cfg_kw(**dict(EAGER, use_fused='always',
+                                        delta_u=0.1)))
     with pytest.raises(ValueError, match='always'):
         ex.export_solve(cfg, mt.LinDx(d['F'], d['f']),
                         mt.QuadCost(d['C'], d['c']), d['x0'], device='cpu')

@@ -43,6 +43,17 @@ past the horizon whose state and Jacobian rows stay in shared memory; on
 the reversed batch and small batches bitwise; and a launch with weights
 that are not float32 on the card raises instead of falling back.
 
+K3's dense configuration (csrc/fused_ilqr_dense.cu, a LinDx of any
+admitted size) is held to its plain version in the same float32 tail and
+no further from the float64 plain run than twice the plain float32 run,
+at config 1's layout (every operand per example, unbounded), at 24 and 28
+states with 4 bounded controls, at 5 states and 1 control and at 2
+states and 2 controls with per-example bounds and f; on the reversed
+batch, small batches and a second launch bitwise; the entry points
+launch it once a request, a differentiable solve runs it and the eager
+fixed point, and with its library broken a request raises instead of
+falling back.
+
 The closed loop (make_closed_loop) launches K1 once a step and runs its
 steps without a synchronising call (torch.cuda.set_sync_debug_mode
 'error' after a first rollout); without a card and without a device it
@@ -73,7 +84,7 @@ import torch
 import mpc_tpu_torch as mt
 from mpc_tpu_torch import solver
 from mpc_tpu_torch.models import PendulumDx
-from mpc_tpu_torch.ops import _build, fused, fused_bwd
+from mpc_tpu_torch.ops import _build, fused, fused_bwd, fused_dense
 
 pytestmark = pytest.mark.gpu
 
@@ -583,7 +594,8 @@ def test_differentiable_lindx_solve_launches_k3_and_k4(cuda):
     fused_bwd.reset_launch_counts()
     sol = mt.batched_solve(cfg, x0, mt.QuadCost(cost.C, c), mt.LinDx(F, f),
                            u_lower=-0.6, u_upper=0.6)
-    assert fused.launch_counts == {'fused_ilqr': 0, 'fused_ilqr_long': 1}
+    assert fused.launch_counts == {'fused_ilqr': 0, 'fused_ilqr_long': 1,
+                                   'fused_ilqr_dense': 0}
     (sol.u ** 2).sum().backward()
     assert fused_bwd.launch_counts == {'fused_kkt_bwd': 0,
                                        'fused_kkt_bwd_long': 1}
@@ -667,7 +679,8 @@ def test_differentiable_nn_solve_launches_k3_and_k2(cuda):
     fused_bwd.reset_launch_counts()
     solver.reset_eager_counts()
     sol = mt.batched_solve(cfg, x0, cost, dx, u_lower=-2.0, u_upper=2.0)
-    assert fused.launch_counts == {'fused_ilqr': 0, 'fused_ilqr_long': 1}
+    assert fused.launch_counts == {'fused_ilqr': 0, 'fused_ilqr_long': 1,
+                                   'fused_ilqr_dense': 0}
     (sol.u ** 2).sum().backward()
     assert fused_bwd.launch_counts == {'fused_kkt_bwd': 1,
                                        'fused_kkt_bwd_long': 0}
@@ -694,7 +707,8 @@ def test_closed_loop_launches_k1_once_a_step(cuda):
     fused.reset_launch_counts()
     solver.reset_eager_counts()
     out = roll(x0, 7)
-    assert fused.launch_counts == {'fused_ilqr': 7, 'fused_ilqr_long': 0}
+    assert fused.launch_counts == {'fused_ilqr': 7, 'fused_ilqr_long': 0,
+                                   'fused_ilqr_dense': 0}
     assert solver.eager_counts['eager_solve'] == 0
     assert out['xs'].shape == (8, 64, 3) and torch.isfinite(out['xs']).all()
 
@@ -754,7 +768,8 @@ def test_slew_request_launches_k3_and_raises_rather_than_falls_back(
     fused.reset_launch_counts()
     solver.reset_eager_counts()
     sol = mt.batched_solve(cfg, x0, cost, dyn, **kw)
-    assert fused.launch_counts == {'fused_ilqr': 0, 'fused_ilqr_long': 1}
+    assert fused.launch_counts == {'fused_ilqr': 0, 'fused_ilqr_long': 1,
+                                   'fused_ilqr_dense': 0}
     assert solver.eager_counts == {'eager_solve': 0, 'eager_fixed_point': 0}
     ref = mt.batched_solve(cfg, x0.cpu(), mt.QuadCost(*(a.cpu() for a in cost)),
                            mt.LinDx(dyn.F.cpu(), None), u_lower=-2.0,
@@ -771,8 +786,133 @@ def test_slew_request_launches_k3_and_raises_rather_than_falls_back(
     solver.reset_eager_counts()
     with pytest.raises(RuntimeError, match='broken'):
         mt.batched_solve(cfg, x0, cost, dyn, **kw)
-    assert fused.launch_counts == {'fused_ilqr': 0, 'fused_ilqr_long': 0}
+    assert fused.launch_counts == {'fused_ilqr': 0, 'fused_ilqr_long': 0,
+                                   'fused_ilqr_dense': 0}
     assert solver.eager_counts == {'eager_solve': 0, 'eager_fixed_point': 0}
+
+
+def _dense_problem(device, B, ns, nc, T=20, bounded=True, layout='shared',
+                   dtype=torch.float32, seed=0):
+    """A stable LinDx of ns states and nc controls: 'shared' (F, C, c
+    shared, as the medium-state rows), 'tvlqr' (every operand per
+    example, C = R R^T) or 'mixed' (shared F with per-example f and
+    bounds)."""
+    rng = np.random.RandomState(seed)
+    nt = ns + nc
+    per = layout == 'tvlqr'
+    shape = (T - 1, B) if per else (T - 1,)
+    F = np.concatenate([np.eye(ns) + 0.05 * rng.randn(*shape, ns, ns),
+                        0.3 * rng.randn(*shape, ns, nc)], -1)
+    if per:
+        R = rng.randn(T, B, nt, nt)
+        C = np.einsum('tbij,tbkj->tbik', R, R)
+        c = rng.randn(T, B, nt)
+    else:
+        C = np.diag(np.r_[np.ones(ns), 0.1 * np.ones(nc)])
+        c = 0.3 * rng.randn(T, nt)
+    f = (0.1 * rng.randn(T - 1, B, ns) if layout in ('tvlqr', 'mixed')
+         else None)
+    t = (lambda a: None if a is None else torch.tensor(a, dtype=dtype,
+                                                      device=device))
+    bk = {}
+    if bounded:
+        lo = -0.2 - rng.rand(T, B, nc) if layout == 'mixed' else -1.0
+        bk = dict(u_lower=t(lo) if layout == 'mixed' else lo,
+                  u_upper=t(-lo) if layout == 'mixed' else 1.0)
+    cfg = _cfg(T, n_state=ns, n_ctrl=nc, lqr_iter=6,
+               max_linesearch_iter=10)
+    return cfg, t(rng.randn(B, ns)), mt.QuadCost(t(C), t(c)), \
+        mt.LinDx(t(F), t(f)), bk
+
+
+@pytest.mark.parametrize('ns,nc,B,bounded,layout', [
+    (3, 4, 128, False, 'tvlqr'), (24, 4, 256, True, 'shared'),
+    (28, 4, 64, True, 'shared'), (5, 1, 2050, True, 'shared'),
+    (2, 2, 300, True, 'mixed')])
+def test_dense_matches_plain(cuda, ns, nc, B, bounded, layout):
+    cfg, x0, cost, dyn, bk = _dense_problem(cuda, B, ns, nc, bounded=bounded,
+                                            layout=layout)
+    ops = fused_dense.k3d_operands(cfg, x0, cost, dyn, **bk)
+    fused.reset_launch_counts()
+    xk, uk, sk = fused_dense.fused_ilqr_dense(**ops)
+    assert fused.launch_counts['fused_ilqr_dense'] == 1
+    xp, up, sp = fused_dense.fused_solve_dense_plain(**ops)
+    assert torch.isfinite(xk).all() and torch.isfinite(uk).all()
+    _assert_tail(uk, up)
+    assert torch.equal(sk[2], sp[2])          # n_iter
+    cfg64, x64, cost64, dyn64, bk64 = _dense_problem(
+        cuda, B, ns, nc, bounded=bounded, layout=layout, dtype=torch.float64)
+    _, u64, _ = fused_dense.fused_solve_dense_plain(
+        **fused_dense.k3d_operands(cfg64, x64, cost64, dyn64, **bk64))
+    _assert_near_f64(uk, up, u64)
+
+
+def test_dense_position_free_and_repeatable(cuda):
+    """An example's outputs are bitwise the same whatever batch it sits
+    in (reversed, alone, in small batches, past a block) and at a second
+    launch."""
+    cfg, x0, cost, dyn, bk = _dense_problem(cuda, 2050, 16, 4)
+    ops = fused_dense.k3d_operands(cfg, x0, cost, dyn, **bk)
+    full = fused_dense.fused_ilqr_dense(**ops)
+    again = fused_dense.fused_ilqr_dense(**ops)
+    assert all(torch.equal(a, b) for a, b in zip(full, again))
+    rev = fused_dense.fused_ilqr_dense(**dict(
+        ops, x0=ops['x0'].flip(0).contiguous(),
+        u0=ops['u0'].flip(1).contiguous()))
+    assert all(torch.equal(a.flip(1), b) for a, b in zip(rev, full))
+    for n in (1, 7, 33):
+        part = fused_dense.fused_ilqr_dense(**dict(
+            ops, x0=ops['x0'][:n].contiguous(),
+            u0=ops['u0'][:, :n].contiguous()))
+        assert all(torch.equal(a, b[:, :n]) for a, b in zip(part, full))
+
+
+def test_dense_entry_points_launch_it_once(cuda):
+    """batched_solve and MPC launch the dense kernel once a request and
+    nothing else; a differentiable 5-state solve runs it and the eager
+    fixed point and returns finite gradients."""
+    cfg, x0, cost, dyn, bk = _dense_problem(cuda, 512, 24, 4)
+    fused.reset_launch_counts()
+    fused_bwd.reset_launch_counts()
+    solver.reset_eager_counts()
+    sol = mt.batched_solve(cfg, x0, cost, dyn, **bk)
+    _, u, _ = mt.MPC(24, 4, cfg.T, lqr_iter=cfg.lqr_iter, eps=0.0,
+                     exit_unconverged=False, backprop=False, **bk)(
+        x0, cost, dyn)
+    assert torch.equal(u, sol.u)
+    assert fused.launch_counts == {'fused_ilqr': 0, 'fused_ilqr_long': 0,
+                                   'fused_ilqr_dense': 2}
+    assert solver.eager_counts['eager_solve'] == 0
+    cfg, x0, cost, dyn, bk = _dense_problem(cuda, 256, 5, 1)
+    c = cost.c.clone().requires_grad_(True)
+    solver.reset_eager_counts()
+    fused.reset_launch_counts()
+    sol = mt.batched_solve(dataclasses.replace(cfg, backprop=True,
+                                               detach_unconverged=False), x0,
+                           mt.QuadCost(cost.C, c), dyn, **bk)
+    (sol.u ** 2).sum().backward()
+    assert fused.launch_counts['fused_ilqr_dense'] == 1
+    assert solver.eager_counts == {'eager_solve': 0, 'eager_fixed_point': 1}
+    assert sum(fused_bwd.launch_counts.values()) == 0
+    assert torch.isfinite(c.grad).all() and c.grad.abs().max() > 0
+
+
+def test_dense_raises_rather_than_falls_back(cuda, monkeypatch):
+    cfg, x0, cost, dyn, bk = _dense_problem(cuda, 64, 6, 2)
+    ops = fused_dense.k3d_operands(cfg, x0, cost, dyn, **bk)
+    fused.reset_launch_counts()
+    with pytest.raises(ValueError):
+        fused_dense.fused_ilqr_dense(**dict(ops, C=ops['C'].double()))
+
+    def broken(*a, **k):
+        raise RuntimeError('the dense library is broken')
+
+    monkeypatch.setattr(fused_dense, 'kernel_lib', broken)
+    solver.reset_eager_counts()
+    with pytest.raises(RuntimeError, match='broken'):
+        mt.batched_solve(cfg, x0, cost, dyn, **bk)
+    assert fused.launch_counts['fused_ilqr_dense'] == 0
+    assert solver.eager_counts['eager_solve'] == 0
 
 
 def _counts():

@@ -327,16 +327,22 @@ SCOPE_GAPS = {
     'lindx_bad_f_rank': (dict(), lambda: mt.LinDx(torch.zeros(4, 3, 4),
                                                   torch.zeros(4)), {},
                          'K3 configurations'),
-    'lindx_n_ctrl_2': (dict(n_ctrl=2), lambda: mt.LinDx(torch.zeros(4, 3, 5)),
-                       {}, 'queue 2'),
+    # two controls past the dense configuration's 32 lanes (n_state +
+    # n_ctrl = 33); at smaller sizes the dense configuration takes them
+    'lindx_n_ctrl_2': (dict(n_state=31, n_ctrl=2),
+                       lambda: mt.LinDx(torch.zeros(4, 31, 33)), {},
+                       'queue 2'),
     'lindx_f64_on_card': (dict(), _lin, dict(dtype=torch.float64,
                                              device=torch.device('cuda')),
                           'float64'),
     'lindx_u_zero_I': (dict(), _lin, dict(u_zero_I=torch.zeros(5, 1)),
                        'queue 2'),
     'lindx_delta_u': (dict(delta_u=0.1), _lin, {}, 'queue 2'),
-    # the augmented state is u_{t-1} and the 3 states: 4, past K3's 3
-    'lindx_slew': (dict(slew_rate_penalty=0.1), _lin, {}, 'queue 2'),
+    # the augmented state is u_{t-1} and the 31 states: 32, with the
+    # control 33, past the dense configuration's 32 (a 3-state LinDx
+    # augments to 4 states, which it takes)
+    'lindx_slew': (dict(n_state=31, slew_rate_penalty=0.1),
+                   lambda: mt.LinDx(torch.zeros(4, 31, 32)), {}, 'queue 2'),
 }
 
 
@@ -351,8 +357,10 @@ def test_scope_gap_names_what_waits(case):
 
 
 EAGER_ROUTE = {
-    # MPCConfig keywords, n_ctrl, batched_solve keywords
-    'lindx_n_ctrl_2': (dict(), 2, {}),
+    # MPCConfig keywords, n_ctrl, batched_solve keywords; two controls
+    # under delta_u (the dense configuration takes two controls, not
+    # delta_u)
+    'lindx_n_ctrl_2': (dict(delta_u=0.1), 2, {}),
     'lindx_eager': (dict(use_fused='never'), 1, {}),
     # one iteration: the masked solve is exact up to its 1e-11
     # regularisation, and a second step that small ties to round-off in

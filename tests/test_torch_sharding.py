@@ -44,6 +44,7 @@ from mpc_tpu.parallel import make_mesh as j_make_mesh
 from mpc_tpu.parallel import solve_sharded as j_solve_sharded
 
 import mpc_tpu_torch as mt
+from mpc_tpu_torch import solver
 from mpc_tpu_torch.models import PendulumDx
 from mpc_tpu_torch.parallel import make_mesh, shard_batch, solve_sharded
 
@@ -103,7 +104,10 @@ def test_shard_batch_splits_on_the_batch_axis():
 
 def test_sharded_solve_matches_jax():
     (C, c, F, f, x0, lb, ub), jx = _both(_problem(16))
-    kw = dict(n_state=3, n_ctrl=4, T=5, lqr_iter=3, exit_unconverged=False)
+    # the eager route on both sides, as against mpc_tpu's jnp path (the
+    # dense kernel configuration's own sharded case is below)
+    kw = dict(n_state=3, n_ctrl=4, T=5, lqr_iter=3, exit_unconverged=False,
+              use_fused='never')
     sol = solve_sharded(mt.MPCConfig(**kw), make_mesh(MESH), x0,
                         mt.QuadCost(C, c), mt.LinDx(F, f), u_lower=lb,
                         u_upper=ub)
@@ -121,6 +125,23 @@ def test_sharded_solve_matches_jax():
                         mt.LinDx(F, f), u_lower=lb, u_upper=ub)
     one = mt.batched_solve(cfg, x0, mt.QuadCost(C, c), mt.LinDx(F, f),
                            u_lower=lb, u_upper=ub, device='cpu')
+    for a, b in zip(sol[:8], one[:8]):
+        assert torch.equal(a, b)
+
+
+def test_sharded_dense_kernel_route_is_the_unsharded_one():
+    """The same problem on the kernels' route (K3's dense configuration,
+    its plain version here): every shard solved alone gives the unsharded
+    solve's bits, at 20 iterations."""
+    (C, c, F, f, x0, lb, ub), _ = _both(_problem(16))
+    cfg = mt.MPCConfig(n_state=3, n_ctrl=4, T=5, lqr_iter=20,
+                       exit_unconverged=False)
+    solver.reset_eager_counts()
+    sol = solve_sharded(cfg, make_mesh(MESH), x0, mt.QuadCost(C, c),
+                        mt.LinDx(F, f), u_lower=lb, u_upper=ub)
+    one = mt.batched_solve(cfg, x0, mt.QuadCost(C, c), mt.LinDx(F, f),
+                           u_lower=lb, u_upper=ub, device='cpu')
+    assert solver.eager_counts['eager_solve'] == 0
     for a, b in zip(sol[:8], one[:8]):
         assert torch.equal(a, b)
 

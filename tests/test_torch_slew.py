@@ -261,9 +261,10 @@ def test_scope_gap_judges_the_augmented_problem():
     cost = quad_cost_from_numpy(C, c, 'cpu')
     gap = fused.scope_gap(cfg, cost, pend)
     assert 'ROADMAP queue 2' in gap and 'NS = 4' in gap and 'eager' in gap
-    # a 3-state LinDx augments to 4 states: K3 configurations, queue 2
+    # a 3-state LinDx augments to 4 states: K3's dense configuration
     lin3 = lin_dx_from_numpy(np.zeros((T - 1, 3, 4)), None, 'cpu')
-    assert 'queue 2' in fused.scope_gap(cfg, cost, lin3)
+    assert fused.scope_gap(cfg, cost, lin3) is None
+    assert fused.routes_dense(lin3, 4, 1)
     # the double integrator augments to K3's three states
     _, C2, c2, F, _ = _double_integrator(2, T)
     cfg2 = _di_cfg(T)
