@@ -5,9 +5,11 @@
 
 Builds kernels K1 (mpc_tpu_torch/csrc/fused_ilqr.cu), K2
 (mpc_tpu_torch/csrc/fused_kkt_bwd.cu), K3
-(mpc_tpu_torch/csrc/fused_ilqr_long.cu) and K4
-(mpc_tpu_torch/csrc/fused_kkt_bwd_long.cu) with nvcc for sm_90a, in
-parallel, and drives the port's main paths on the card:
+(mpc_tpu_torch/csrc/fused_ilqr_long.cu), K4
+(mpc_tpu_torch/csrc/fused_kkt_bwd_long.cu) and the dense configurations
+of K3 and of K2 and K4 (csrc/fused_ilqr_dense.cu,
+csrc/fused_kkt_bwd_dense.cu) with nvcc for sm_90a, in parallel, and
+drives the port's main paths on the card:
 
 - serving: K1 against its plain PyTorch version, a few batched requests
   of the pendulum swing-up solve (the JAX package's headline workload:
@@ -51,6 +53,22 @@ float64, reversed and sliced batches bitwise, TVLQR against the dense
 QP ([compare-dense]), requests through batched_solve and MPC, one launch
 each ([serve-dense]), and its time from a CUDA graph beside its bound,
 the plain version's and its registers ([time-dense]).
+
+The backward of every such LinDx is K2 and K4's dense configuration
+(csrc/fused_kkt_bwd_dense.cu: a warp an example for the three chains,
+the gradients in a pass parallel over t, shared leaves summed in chunk
+order), driven by the medium imitation row (BASELINE.md:483: the medium
+rows' system at 20 states and 4 controls, T=20, B=1024, a learned
+batch-shared diagonal cost, Adam): the kernel against its plain version
+and float64 at 20 and 24 states with shared leaves, 16 states with every
+leaf per example and f, TVLQR's size and 5 states, reversed, sliced,
+B+2 and repeated launches bitwise ([compare-bwd-dense]); 20 train steps
+through make_imitation_train_step, one dense forward and one dense
+backward launch a step, the loss falling, TF32 on and off, the step
+profiled ([train-dense]); the kernel's time from a CUDA graph beside its
+bound, registers and plain version, the forward at the training path's
+shape, and a differentiable 24-state solve against the eager fixed point
+in the same process ([time-bwd-dense]).
 
 K1 and K3 give each example a team of lanes (ops/fused.py:TEAM): the
 compare phases also run what that makes new ([compare-teams]: more step
@@ -227,7 +245,8 @@ def check_tail(what, u, ref, limits=(TAIL_MEAN, TAIL_SHARE)):
 
 
 def phase_build():
-    from mpc_tpu_torch.ops import _build, fused, fused_bwd, fused_dense
+    from mpc_tpu_torch.ops import (_build, fused, fused_bwd, fused_bwd_dense,
+                                   fused_dense)
     specs = [('fused_ilqr', fused.kernel_defines(T, True)),
              ('fused_ilqr', fused.kernel_defines(TRAIN_T, True))]
     specs += [('fused_kkt_bwd',
@@ -254,6 +273,13 @@ def phase_build():
               for label, ns, nc in sorted({r[:3] for r in DENSE_ROWS})]
     specs += [('fused_ilqr_dense', fused_dense.dense_kernel_defines(
         ns, nc, True, False)) for ns, nc in ((28, 4), (24, 8))]
+    # K2 and K4's dense configuration at each row of [compare-bwd-dense]
+    # (the medium imitation row among them) and at the gate's corners
+    specs += [('fused_kkt_bwd_dense', fused_bwd_dense.bwd_dense_kernel_defines(
+        ns, nc, *bwd_dense_case(label)))
+        for label, ns, nc in sorted({r[:3] for r in BWD_DENSE_ROWS})]
+    specs += [('fused_kkt_bwd_dense', fused_bwd_dense.bwd_dense_kernel_defines(
+        ns, nc, True, False)) for ns, nc in ((28, 4), (24, 8))]
     t0 = time.perf_counter()
     paths = _build.build(specs)
     log(f'[build] nvcc {" ".join(_build.NVCC_FLAGS)} '
@@ -275,7 +301,11 @@ def phase_build():
              fused_bwd.k4_launch(fused_bwd.K4_T_RESIDENT + 1, 2050)),
             *((f'dense {label} {ns}s{nc}c, B={n}', fused_dense.k3d_launch(
                 TVLQR['T'] if label == 'tvlqr' else MEDIUM['T'], n, ns, nc,
-                10)) for label, ns, nc, n in DENSE_ROWS)):
+                10)) for label, ns, nc, n in DENSE_ROWS),
+            *((f'dense backward {label} {ns}s{nc}c, B={n}',
+               fused_bwd_dense.k4d_launch(
+                   TVLQR['T'] if label == 'tvlqr' else MEDIUM['T'], n, ns,
+                   nc)) for label, ns, nc, n in BWD_DENSE_ROWS)):
         log(f'  launch, {what}: {geo}')
 
 
@@ -1549,7 +1579,8 @@ def phase_train_long(torch, device, steps=20, warmup=3):
         counts = dict(fused.launch_counts, **fused_bwd.launch_counts)
         if device.type == 'cuda' and counts != {
                 'fused_ilqr': 0, 'fused_kkt_bwd': 0, 'fused_ilqr_dense': 0,
-                'fused_ilqr_long': i + 1, 'fused_kkt_bwd_long': i + 1}:
+                'fused_kkt_bwd_dense': 0, 'fused_ilqr_long': i + 1,
+                'fused_kkt_bwd_long': i + 1}:
             raise AssertionError('a long train step must launch K3 and K4 '
                                  f'once each and K1, K2 never: {counts}')
     k3 = fused.launch_counts['fused_ilqr_long']
@@ -2904,46 +2935,450 @@ def dense_entries(rows, launches, req_ms, err):
     return out
 
 
-def phase_time_dense(torch, device):
-    """The dense kernel at each DENSE_ROWS row timed from a CUDA graph,
-    its bound from this run's iterations, trial rollouts and QP trips,
-    its registers and spills (ptxas), and the plain version on the card.
-    Returns the rows."""
+def time_dense_row(torch, what, ops, tag='time-dense'):
+    """The dense kernel on ``ops`` timed from a CUDA graph, its bound
+    from this run's iterations, trial rollouts and QP trips, its
+    registers and spills (ptxas), and the plain version on the card:
+    the row's numbers."""
     from mpc_tpu_torch.ops import fused_dense as fd
-    rows = []
-    for label, ns, nc, n in DENSE_ROWS:
+    T_, n, nc = ops['u0'].shape
+    ns = ops['x0'].shape[1]
+    _, _, st = fd.fused_ilqr_dense(**ops)
+    ms, eager_ms = graph_ms(torch, lambda: fd.fused_ilqr_dense(**ops),
+                            reps=3, per_graph=4)
+    has_bounds = ops['lb'] is not None
+    sums = [float(st[i].double().sum()) for i in (2, 3, 5)]
+    flops = fd.k3d_flops(T_, ns, nc, sums[0], sums[2], batch=n,
+                         has_f=ops['f'] is not None, has_bounds=has_bounds,
+                         n_qp=sums[1] if nc > 1 and has_bounds else 0)
+    nbytes = fd.k3d_bytes(ops)
+    bound_ms, by = bound(flops, nbytes)
+    des = design('fused_ilqr_dense',
+                 fd.dense_kernel_defines(ns, nc, has_bounds,
+                                         ops['f'] is not None),
+                 fd.k3d_launch(T_, n, ns, nc, len(ops['alphas'])))
+    pms = event_ms(torch, lambda: fd.fused_solve_dense_plain(**ops))
+    log(f'[{tag}] {what}, B={n}, T={T_}: {ms:.4f} ms '
+        f'(from a CUDA graph; {eager_ms:.4f} ms a call from Python), '
+        f'plain {pms:.1f} ms; {flops:.4e} operations '
+        f'({sums[0] / n:.2f} iterations, {sums[2] / n:.2f} trials, '
+        f'{sums[1] / n:.1f} QP trips a solve), {nbytes} bytes; bound '
+        f'{bound_ms:.5f} ms by {by} ({ms / bound_ms:.1f}x); '
+        f'{n / ms * 1e3:.0f} solves/s; registers {des["registers"]}, '
+        f'spill stores {des["spill_store_bytes"]} bytes, shared memory '
+        f'{des["shared_memory_bytes"]} bytes a block; {card_line()}')
+    return dict(row=f'{what} B={n}', ms=ms, plain_ms=pms, bound_ms=bound_ms,
+                bound_by=by, registers=des['registers'],
+                spill_store_bytes=des['spill_store_bytes'])
+
+
+def phase_time_dense(torch, device):
+    """The dense kernel at each DENSE_ROWS row (``time_dense_row``).
+    Returns the rows."""
+    return [time_dense_row(torch, f'{label} {ns}s{nc}c', dense_operands(
+        torch, device, label, ns, nc, n)) for label, ns, nc, n in DENSE_ROWS]
+
+
+# ---------------------------------------------------------------------------
+# K2 and K4's dense configuration: the backward at any state and control
+# size, and the medium imitation row trained on the card
+# ---------------------------------------------------------------------------
+
+# the medium imitation row (the JAX package's BASELINE.md:483: "fused
+# forward + fused KKT backward"), defined from the repo's pieces: the
+# medium rows' system (benchmarks/configs.py:141-151) at 20 states and 4
+# controls, T=20, lqr_iter=10, eps=0, box +-1, B=1024, float32, and a
+# learned batch-shared diagonal cost with config 4's structure
+# (benchmarks/configs.py:257-322: q_log and p, Adam(1e-2)); the expert
+# solves the true cost diag(1.., 0.1..), c = 0, on the kernel route
+TRAIN_DENSE = dict(MEDIUM, n_state=20, n_ctrl=4, backprop=True,
+                   use_fused='auto')
+TRAIN_DENSE_B = 1024
+TRAIN_DENSE_STEPS = 20
+# the learner's start: the true diagonal with log-normal noise of 0.5 and
+# a linear term of 0.3 N, both from RandomState(12).  phase_train_dense
+# itself, rehearsed on the CPU (the plain versions; card_line replaced,
+# TRAIN_DENSE_B set to 64 and 256, the threshold lifted), ends its 20
+# steps at 0.4822 and 0.4889 of the first loss (PERF.md); the card's run
+# must end below 0.7 of it, a margin for float32 on the card and B=1024
+DENSE_THETA_SEED, DENSE_THETA_LOG, DENSE_THETA_P = 12, 0.5, 0.3
+TRAIN_DENSE_MAX_RATIO = 0.7
+# [compare-bwd-dense]'s rows (label, n_state, n_ctrl, B): the medium
+# imitation row and 24 states, both with the box, shared cost and shared
+# F at the dense forward's solution; 16 states and 4 controls with every
+# leaf per example and f (benchmarks/hw_sweep.py:420-478's problem);
+# TVLQR's size, unbounded, at its forward's solution; 5 states and 1
+# control with the box
+BWD_DENSE_ROWS = (
+    ('medium', 20, 4, TRAIN_DENSE_B), ('medium', 24, 4, 1024),
+    ('batched', 16, 4, 1024), ('tvlqr', 3, 4, TVLQR_B), ('box', 5, 1, 2048))
+BWD_DENSE_MAIN = BWD_DENSE_ROWS[0]
+
+
+def bwd_dense_case(label):
+    """(has_I, has_f) of a BWD_DENSE_ROWS row."""
+    return label != 'tvlqr', label in ('tvlqr', 'batched')
+
+
+def bwd_dense_operands(torch, device, label, ns, nc, n, seed=14):
+    """The dense backward's operands of a BWD_DENSE_ROWS row: x*, u* from
+    the dense forward kernel on the row's problem (the medium rows, the
+    5-state box row and TVLQR; the active set from the box), or
+    hw_sweep's random per-example problem; seeded random cotangents.
+    Returns (operands, keyword arguments)."""
+    import numpy as np
+    from mpc_tpu_torch.ops import fused_bwd, fused_dense as fd
+    has_I, has_f = bwd_dense_case(label)
+    rng = np.random.RandomState(seed)
+    t = (lambda a: torch.tensor(a, dtype=torch.float32, device=device))
+    if label == 'batched':
+        # benchmarks/hw_sweep.py:430-447, at n examples
+        T_, nt = MEDIUM['T'], ns + nc
+        r = np.random.RandomState(13)
+        Cr = r.randn(T_, n, nt, nt)
+        C = np.einsum('tbij,tbkj->tbik', Cr, Cr) / nt + np.eye(nt)
+        c = r.randn(T_, n, nt)
+        F = 0.3 / np.sqrt(ns) * r.randn(T_ - 1, n, ns, nt)
+        F[..., :ns] += 0.9 * np.eye(ns)
+        r.randn(T_ - 1, n, ns)                  # f: no values in the backward
+        xs, us = r.randn(T_, n, ns), r.randn(T_, n, nc)
+        m = r.rand(T_, n, nc) < 0.3
+        us = np.where(m, np.sign(us), us)
+        o = dict(C=t(C), c=t(c), F=t(F), x_star=t(xs), u_star=t(us),
+                 I_mask=t(m.astype(np.float64)))
+    else:
         ops = dense_operands(torch, device, label, ns, nc, n)
-        _, _, st = fd.fused_ilqr_dense(**ops)
-        ms, eager_ms = graph_ms(torch, lambda: fd.fused_ilqr_dense(**ops),
-                                reps=3, per_graph=4)
-        has_bounds = ops['lb'] is not None
-        sums = [float(st[i].double().sum()) for i in (2, 3, 5)]
-        T_ = ops['u0'].shape[0]
-        flops = fd.k3d_flops(T_, ns, nc, sums[0], sums[2], batch=n,
-                             has_f=ops['f'] is not None,
-                             has_bounds=has_bounds,
-                             n_qp=sums[1] if nc > 1 and has_bounds else 0)
-        nbytes = fd.k3d_bytes(ops)
+        xs, us, _ = fd.fused_ilqr_dense(**ops)
+        o = dict(C=ops['C'], c=ops['c'], F=ops['F'], x_star=xs, u_star=us,
+                 I_mask=fused_bwd.active_set(us, ops['lb'], ops['ub'])
+                 if has_I else None)
+    T_ = o['x_star'].shape[0]
+    o['dl_dx'] = t(rng.randn(T_, n, ns))
+    o['dl_du'] = t(rng.randn(T_, n, nc))
+    return o, dict(has_f=has_f, f_shared=o['F'].shape[1] == 1)
+
+
+def phase_compare_bwd_dense(torch, device):
+    """The dense backward against fused_kkt_backward_dense_plain on the
+    card, same-primal, at each BWD_DENSE_ROWS row (hold_bwd: BWD_TOL and
+    the float64 equidistance); at the main row (shared leaves) and the
+    per-example row also the reversed batch, B = 1, 7, 33 alone and the
+    batch with two more examples bitwise on the per-example outputs, and
+    a second launch bitwise on every output.  Returns the largest
+    |difference|."""
+    from mpc_tpu_torch.ops import fused_bwd_dense as fbd
+    worst = 0.0
+    for label, ns, nc, n in BWD_DENSE_ROWS:
+        what = f'{label} {ns}s{nc}c, B={n}'
+        log(f'[compare-bwd-dense] dense backward vs its plain version, '
+            f'{what}')
+        o, kw = bwd_dense_operands(torch, device, label, ns, nc, n)
+        if o['I_mask'] is not None:
+            log(f'  active controls: {float(o["I_mask"].mean()):.3f} of T*B')
+        kk, err = hold_bwd(torch, 'K4d', what, fbd.fused_kkt_backward_dense,
+                           fbd.fused_kkt_backward_dense_plain, o, **kw)
+        worst = max(worst, err)
+        if (label, ns, nc, n) not in (BWD_DENSE_MAIN, BWD_DENSE_ROWS[2]):
+            continue
+        again = fbd.fused_kkt_backward_dense(**o, **kw)
+        if not all((a is None and b is None) or torch.equal(a, b)
+                   for a, b in zip(again, kk)):
+            raise AssertionError(f'{what}: a second launch differs')
+        log('    a second launch: every output bitwise equal')
+        # the outputs with a batch axis: dC, dc, dF of batched leaves, df
+        # of a batched f
+        per_example = [i for i, batched in (
+            (1, o['C'].shape[1] == n), (2, o['c'].shape[1] == n),
+            (3, o['F'].shape[1] == n),
+            (4, kw['has_f'] and not kw['f_shared'])) if batched]
+        back = fbd.fused_kkt_backward_dense(**flip_batch(o, torch), **kw)
+        if not (torch.equal(back[0].flip(0), kk[0]) and all(
+                torch.equal(back[i].flip(1), kk[i]) for i in per_example)):
+            raise AssertionError(f'{what}: reversed batch is not bitwise '
+                                 'equal')
+        log('    reversed batch: bitwise equal on per-example outputs')
+        hold_bwd_slices(torch, 'K4d', what, fbd.fused_kkt_backward_dense, o,
+                        kk, **kw)
+        more = fbd.fused_kkt_backward_dense(**batch_subset_bwd(
+            torch, o, torch.cat([torch.arange(n), torch.arange(2)])), **kw)
+        if not (torch.equal(more[0][:n], kk[0]) and all(
+                torch.equal(more[i][:, :n], kk[i]) for i in per_example)):
+            raise AssertionError(f'{what}: B={n + 2} differs from B={n}')
+        log(f'    B={n + 2}: per-example outputs bitwise equal to B={n}')
+    return worst
+
+
+def batch_subset_bwd(torch, o, keep):
+    """A backward's operands for the examples ``keep``: every operand
+    with a batch extent gathered, shared ones kept."""
+    B = o['x_star'].shape[1]
+    keep = keep.to(o['x_star'].device)
+    return {k: (v[:, keep].contiguous() if v is not None and v.dim() >= 2
+                and v.shape[1] == B else v) for k, v in o.items()}
+
+
+def dense_learner(torch, device):
+    """The medium imitation row's learner at B = TRAIN_DENSE_B: cfg,
+    theta, make_cost, the LinDx, x0 and the expert's controls (the kernel
+    route's solve of the true cost)."""
+    import numpy as np
+    import mpc_tpu_torch as mt
+    ns, nc = TRAIN_DENSE['n_state'], TRAIN_DENSE['n_ctrl']
+    n = TRAIN_DENSE_B
+    cfg = mt.MPCConfig(**TRAIN_DENSE)
+    x0, true_cost, dyn = medium_problem(torch, device, torch.float32, n,
+                                        ns=ns, nc=nc)
+    with torch.no_grad():
+        u_exp = mt.batched_solve(cfg, x0, true_cost, dyn, u_lower=-1.0,
+                                 u_upper=1.0, device=device).u
+    q = np.r_[np.ones(ns), 0.1 * np.ones(nc)]
+    rng = np.random.RandomState(DENSE_THETA_SEED)
+    q_log = torch.tensor(np.log(q) + DENSE_THETA_LOG * rng.randn(ns + nc),
+                         dtype=torch.float32)
+    p = torch.tensor(DENSE_THETA_P * rng.randn(ns + nc), dtype=torch.float32)
+    theta, make_cost = learned_cost(torch, device, q_log, p)
+    return dict(cfg=cfg, theta=theta, make_cost=make_cost, dyn=dyn, x0=x0,
+                u_exp=u_exp)
+
+
+def dense_train_grads(torch, device):
+    import mpc_tpu_torch as mt
+    ln = dense_learner(torch, device)
+    loss = mt.imitation_loss(ln['theta'], ln['cfg'], ln['x0'], ln['u_exp'],
+                             ln['make_cost'], lambda th: ln['dyn'],
+                             u_lower=-1.0, u_upper=1.0, device=device)
+    loss.backward()
+    return [loss.detach()] + [ln['theta'][k].grad for k in sorted(
+        ln['theta'])]
+
+
+def phase_train_dense(torch, device, record):
+    """The medium imitation row's train step through
+    make_imitation_train_step: the dense forward held to its plain
+    version at the learner's start (hold_k1), then TRAIN_DENSE_STEPS
+    host-timed, synchronised steps, each launching the dense forward and
+    the dense backward once and nothing else (every count set to 0 just
+    before a step and read just after, ``counted``), no eager solve or
+    fixed point, the loss ending below TRAIN_DENSE_MAX_RATIO of its
+    first; TF32 on and off the same gradients; where the step's time
+    goes (``phase_profile_train``).  Returns the forward's error, the
+    step times and the launches."""
+    import mpc_tpu_torch as mt
+    from mpc_tpu_torch import solver
+    from mpc_tpu_torch.ops import fused_dense as fd
+    ln = dense_learner(torch, device)
+    ns, nc = TRAIN_DENSE['n_state'], TRAIN_DENSE['n_ctrl']
+    n = TRAIN_DENSE_B
+    what = f'the medium imitation row {ns}s{nc}c, B={n}'
+    log(f'[train-dense] {what}, T={TRAIN_DENSE["T"]}: the dense forward vs '
+        'its plain version at the learner\'s start')
+    with torch.no_grad():
+        cost = ln['make_cost'](ln['theta'])
+        ops = fd.k3d_operands(ln['cfg'], ln['x0'], cost, ln['dyn'],
+                              u_lower=-1.0, u_upper=1.0)
+        cost64 = mt.QuadCost(cost.C.double(), cost.c.double())
+        ops64 = fd.k3d_operands(ln['cfg'], ln['x0'].double(), cost64,
+                                mt.LinDx(ln['dyn'].F.double()),
+                                u_lower=-1.0, u_upper=1.0)
+    _, fwd_err = hold_k1(torch, what, ops, ops64, kernel=fd.fused_ilqr_dense,
+                         plain=fd.fused_solve_dense_plain,
+                         limits=(LONG_TAIL_MEAN, LONG_TAIL_SHARE))
+    step = mt.make_imitation_train_step(
+        ln['cfg'], torch.optim.Adam(ln['theta'].values(), lr=1e-2),
+        ln['make_cost'], lambda th: ln['dyn'], u_lower=-1.0, u_upper=1.0,
+        device=device)
+    expect = {'fused_ilqr_dense': 1, 'fused_kkt_bwd_dense': 1}
+    solver.reset_eager_counts()
+    lat, losses = [], []
+    for _ in range(TRAIN_DENSE_STEPS):
+        t0 = time.perf_counter()
+        loss = counted(device, record, 'train-dense', expect,
+                       lambda: step(ln['theta'], ln['x0'], ln['u_exp']))
+        sync(torch, device)
+        lat.append(1e3 * (time.perf_counter() - t0))
+        losses.append(float(loss))
+    eager = dict(solver.eager_counts)
+    launches = {k: record.get(k, {}).get('train-dense', 0) for k in expect}
+    ratio = losses[-1] / losses[0]
+    med = median(lat)
+    log(f'[train-dense] {TRAIN_DENSE_STEPS} steps of Adam(1e-2) on q_log, '
+        f'p: median {med:.3f} ms a step ({min(lat):.3f}-{max(lat):.3f}), '
+        f'{n / med * 1e3:.0f} examples/s; launches {launches}, eager '
+        f'{eager}; loss ' + ' '.join(f'{v:.4g}' for v in losses[::4])
+        + f' -> {losses[-1]:.4g}; last / first {ratio:.4f} (threshold '
+        f'{TRAIN_DENSE_MAX_RATIO}); {card_line()}')
+    if any(eager.values()):
+        raise AssertionError('the medium train step ran an eager solve or '
+                             'fixed point')
+    if device.type == 'cuda' and launches != {
+            k: TRAIN_DENSE_STEPS for k in expect}:
+        raise AssertionError(f'[train-dense] launches {launches}')
+    if not (all(math.isfinite(v) for v in losses)
+            and ratio < TRAIN_DENSE_MAX_RATIO):
+        raise AssertionError('the medium learner did not cut its loss')
+    phase_tf32(torch, 'medium training-step loss and gradients',
+               lambda: dense_train_grads(torch, device))
+    phase_profile_train(torch, device, 'medium',
+                        (step, ln['theta'], ln['x0'], ln['u_exp']))
+    return dict(fwd_err=fwd_err, step_ms=med, launches=launches,
+                fwd_ops=ops, loss_ratio=ratio)
+
+
+def diff_solve_ms(torch, device, ns, nc, n, eager_bwd, reps=3):
+    """A differentiable solve of the medium rows' problem at ns, nc (the
+    gradient of a seeded weighted sum of u to c), host to host on the
+    kernel route: the dense forward, then the dense backward or, with
+    ``eager_bwd``, the eager fixed point (the backward's admission test
+    made to refuse it).  Returns the median ms, the last gradient and the
+    launches and eager fixed points of the timed calls."""
+    import numpy as np
+    import mpc_tpu_torch as mt
+    from mpc_tpu_torch import solver
+    from mpc_tpu_torch.ops import fused_bwd
+    cfg = mt.MPCConfig(**dict(TRAIN_DENSE, n_state=ns, n_ctrl=nc))
+    x0, cost, dyn = medium_problem(torch, device, torch.float32, n, ns=ns,
+                                   nc=nc)
+    w = torch.tensor(np.random.RandomState(15).randn(cfg.T, n, nc),
+                     dtype=torch.float32, device=device)
+    c = cost.c.clone().requires_grad_(True)
+
+    def run():
+        c.grad = None
+        sol = mt.batched_solve(cfg, x0, mt.QuadCost(cost.C, c), dyn,
+                               u_lower=-1.0, u_upper=1.0, device=device)
+        (sol.u * w).sum().backward()
+        return c.grad.clone()
+
+    admit = fused_bwd.scope_gap_bwd
+    if eager_bwd:
+        fused_bwd.scope_gap_bwd = (lambda *a: 'timing the eager fixed point')
+    try:
+        run()                                   # warm-up
+        reset_all_counts()
+        solver.reset_eager_counts()
+        grads, ms = timed(torch, device, run, reps)
+        counts = {k: v for k, v in all_counts().items() if v}
+        fixed = solver.eager_counts['eager_fixed_point']
+    finally:
+        fused_bwd.scope_gap_bwd = admit
+    return ms, grads[-1], counts, fixed
+
+
+def phase_time_bwd_dense(torch, device, train):
+    """The dense backward at 20 and 24 states, 4 controls, B=1024 on the
+    main row's operands (shared leaves, the active set), timed from a
+    CUDA graph, its three kernels apart (torch.profiler), its bound from
+    k4d_flops and k4d_bytes, its registers and spills, the plain version
+    on the card; the dense forward on the training path's operands
+    (``time_dense_row``); and the 24s4c differentiable solve host to
+    host on the kernel route against the eager fixed point in the same
+    process.  Returns the backward's rows, the forward's row and the
+    solve's ms."""
+    from mpc_tpu_torch.ops import fused_bwd_dense as fbd
+    rows = []
+    for label, ns, nc, n in BWD_DENSE_ROWS[:2]:
+        o, kw = bwd_dense_operands(torch, device, label, ns, nc, n)
+
+        def launch():
+            return fbd.fused_kkt_backward_dense(**o, **kw)
+        ms, eager_ms = graph_ms(torch, launch)
+        split = kernel_device_us(torch, launch)
+        parts = {name: sum(v for k, v in split.items() if name in k) / 1e3
+                 for name in ('chains', 'grads', 'sums')}
+        pms = event_ms(torch, lambda: fbd.fused_kkt_backward_dense_plain(
+            **o, **kw))
+        T_ = o['x_star'].shape[0]
+        flops = fbd.k4d_flops(T_, n, ns, nc, has_I=o['I_mask'] is not None,
+                              has_f=kw['has_f'], reduced=('C', 'c', 'F'))
+        nbytes = fbd.k4d_bytes(o['C'], o['c'], o['F'], o['x_star'],
+                               o['u_star'], o['I_mask'], **kw)
         bound_ms, by = bound(flops, nbytes)
-        des = design('fused_ilqr_dense',
-                     fd.dense_kernel_defines(ns, nc, has_bounds,
-                                             ops['f'] is not None),
-                     fd.k3d_launch(T_, n, ns, nc, len(ops['alphas'])))
-        pms = event_ms(torch, lambda: fd.fused_solve_dense_plain(**ops))
-        log(f'[time-dense] {label} {ns}s{nc}c, B={n}, T={T_}: {ms:.4f} ms '
-            f'(from a CUDA graph; {eager_ms:.4f} ms a call from Python), '
-            f'plain {pms:.1f} ms; {flops:.4e} operations '
-            f'({sums[0] / n:.2f} iterations, {sums[2] / n:.2f} trials, '
-            f'{sums[1] / n:.1f} QP trips a solve), {nbytes} bytes; bound '
-            f'{bound_ms:.5f} ms by {by} ({ms / bound_ms:.1f}x); '
-            f'{n / ms * 1e3:.0f} solves/s; registers {des["registers"]}, '
-            f'spill stores {des["spill_store_bytes"]} bytes, shared memory '
+        des = design('fused_kkt_bwd_dense', fbd.bwd_dense_kernel_defines(
+            ns, nc, *bwd_dense_case(label)),
+            fbd.k4d_launch(T_, n, ns, nc))
+        log(f'[time-bwd-dense] {ns}s{nc}c, B={n}, T={T_}: {ms:.4f} ms (from '
+            f'a CUDA graph; {eager_ms:.4f} ms a call from Python; chains '
+            f'{parts["chains"]:.4f}, gradients {parts["grads"]:.4f}, '
+            f'chunk-order sums {parts["sums"]:.4f} ms from torch.profiler), '
+            f'plain {pms:.1f} ms; {flops:.4e} operations, {nbytes} bytes; '
+            f'bound {bound_ms:.5f} ms by {by} ({ms / bound_ms:.1f}x); '
+            f'registers {des["registers"]}, spill stores '
+            f'{des["spill_store_bytes"]} bytes, shared memory '
             f'{des["shared_memory_bytes"]} bytes a block; {card_line()}')
         rows.append(dict(row=f'{label} {ns}s{nc}c B={n}', ms=ms,
                          plain_ms=pms, bound_ms=bound_ms, bound_by=by,
-                         registers=des['registers'],
+                         chains_ms=parts['chains'], grads_ms=parts['grads'],
+                         sums_ms=parts['sums'], registers=des['registers'],
                          spill_store_bytes=des['spill_store_bytes']))
-    return rows
+    fwd = time_dense_row(torch, 'medium training 20s4c (the learner\'s '
+                         'start)', train['fwd_ops'], tag='time-bwd-dense')
+    ns, nc, n = 24, 4, 1024
+    k_ms, gk, k_counts, k_fixed = diff_solve_ms(torch, device, ns, nc, n,
+                                                False)
+    e_ms, ge, e_counts, e_fixed = diff_solve_ms(torch, device, ns, nc, n,
+                                                True)
+    rel = float((gk - ge).abs().max() / ge.abs().max())
+    log(f'[time-bwd-dense] a differentiable {ns}s{nc}c solve, B={n}, host to '
+        f'host: {k_ms:.3f} ms on the kernel route (launches {k_counts}), '
+        f'{e_ms:.3f} ms with the eager fixed point (launches {e_counts}, '
+        f'{e_fixed} eager fixed points), eager / kernel {e_ms / k_ms:.1f}; '
+        f'max |d grad| / max |grad| between the two {rel:.2e}; '
+        f'{card_line()}')
+    if device.type == 'cuda' and (
+            k_counts != {'fused_ilqr_dense': 3, 'fused_kkt_bwd_dense': 3}
+            or k_fixed or e_counts != {'fused_ilqr_dense': 3}
+            or e_fixed != 3):
+        raise AssertionError('the routes of the timed differentiable solves')
+    # two float32 algorithms of the same fixed point on the same primal
+    # (the eager one adds 1e-11 to the masked block)
+    if not rel < 1e-3:
+        raise AssertionError('the dense backward and the eager fixed point '
+                             'disagree')
+    return rows, fwd, dict(kernel_ms=k_ms, eager_ms=e_ms, grad_rel=rel)
+
+
+def bwd_dense_entries(rows, fwd_row, train, diff_solve, err):
+    """The kernels line's entries of the medium training path
+    ([train-dense]): the dense backward (it replaces _make_bwd_kernel and
+    _make_bwd_kernel_long at these sizes) at the medium imitation row,
+    every [time-bwd-dense] row under 'rows', and the dense forward at
+    that path's own shape, each with its launches in [train-dense]."""
+    from mpc_tpu_torch.ops import fused_bwd_dense as fbd, fused_dense as fd
+    label, ns, nc, n = BWD_DENSE_MAIN
+    T_ = TRAIN_DENSE['T']
+    main = rows[0]
+    return [
+        {'name': 'fused_kkt_bwd_dense', 'path': 'medium training',
+         'route': 'cuda', 'source': 'mpc_tpu_torch/csrc/fused_kkt_bwd_dense.cu',
+         'headers': ['mpc_tpu_torch/csrc/box_qp.cuh'],
+         'replaces': 'mpc_tpu/ops/fused_bwd.py:251',
+         'also_replaces': 'mpc_tpu/ops/fused_bwd.py:413',
+         'design': design('fused_kkt_bwd_dense', fbd.bwd_dense_kernel_defines(
+             ns, nc, *bwd_dense_case(label)),
+             fbd.k4d_launch(T_, n, ns, nc)),
+         'launches': train['launches']['fused_kkt_bwd_dense'],
+         'max_abs_err': err,
+         'tolerance': f'max|K4d-plain|/max|plain|<{BWD_TOL} per gradient; '
+                      'at most 2x the plain f32 distance from f64',
+         'library_ms': None, 'train_step_ms': train['step_ms'],
+         'loss_last_over_first': train['loss_ratio'],
+         'diff_solve_24s4c': diff_solve,
+         **{k: main[k] for k in ('ms', 'plain_ms', 'bound_ms', 'bound_by')},
+         'rows': rows},
+        {'name': 'fused_ilqr_dense (training)', 'path': 'medium training',
+         'route': 'cuda', 'source': 'mpc_tpu_torch/csrc/fused_ilqr_dense.cu',
+         'headers': ['mpc_tpu_torch/csrc/box_qp.cuh'],
+         'replaces': 'mpc_tpu/ops/fused.py:1126',
+         'design': design('fused_ilqr_dense', fd.dense_kernel_defines(
+             ns, nc, True, False), fd.k3d_launch(T_, n, ns, nc, 10)),
+         'launches': train['launches']['fused_ilqr_dense'],
+         'max_abs_err': train['fwd_err'],
+         'tolerance': f'mean|du|<{LONG_TAIL_MEAN}, '
+                      f'share(|du|>{TAIL_ENTRY})<{LONG_TAIL_SHARE}; '
+                      'at most 2x the plain f32 distance from f64',
+         'library_ms': None,
+         **{k: fwd_row[k] for k in ('ms', 'plain_ms', 'bound_ms',
+                                    'bound_by')}}]
 
 
 CLOSED_LOOP_BS = (1, 16, 256, B)
@@ -4430,6 +4865,8 @@ def main():
         f'{torch.version.cuda}, {torch.cuda.get_device_name(0)}')
     t0 = time.perf_counter()
     phase_build()
+    # launches by kernel and phase of the phases that count with counted()
+    launch_record = {}
     max_err = phase_compare(torch, device)
     launches = phase_serve(torch, device)
     phase_swingup(torch, device)
@@ -4465,6 +4902,13 @@ def main():
     dense_rows = phase_time_dense(torch, device)
     log(f'[dense] the dense phases took {time.perf_counter() - t_dense:.1f} '
         's')
+    t_bwd_dense = time.perf_counter()
+    bwd_dense_err = phase_compare_bwd_dense(torch, device)
+    train_dense = phase_train_dense(torch, device, launch_record)
+    bwd_dense_rows, fwd_train_row, diff_solve = phase_time_bwd_dense(
+        torch, device, train_dense)
+    log(f'[bwd-dense] the dense backward\'s phases took '
+        f'{time.perf_counter() - t_bwd_dense:.1f} s')
     t_new = time.perf_counter()
     closed = phase_closed_loop(torch, device)
     t_closed = time.perf_counter()
@@ -4590,6 +5034,8 @@ def main():
          **{k: slew[k] for k in ('ms', 'plain_ms', 'bound_ms',
                                  'bound_by')}},
         *dense_entries(dense_rows, dense_launches, dense_req_ms, dense_err),
+        *bwd_dense_entries(bwd_dense_rows, fwd_train_row, train_dense,
+                           diff_solve, bwd_dense_err),
         *scale_entries(scale, {'k1': (max_err, timing),
                                'k2': (bwd_err, timing_bwd),
                                'k3': (long_err, timing_long),

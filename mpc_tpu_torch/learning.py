@@ -9,8 +9,10 @@ gradients stopped (the reference's detached outer loop,
 mpc/mpc.py:249-262); a differentiable solve then re-linearises the
 dynamics and re-quadratises the cost at the solution, differentiably,
 and attaches the batched fixed point whose backward is kernel K2 or K4
-(``ops/fused_bwd.bwd_routes_long``), or the eager fixed point where
-those do not take the backward.  Every other problem, and every problem
+(``ops/fused_bwd.bwd_routes_long``) or their dense configuration
+(``bwd_routes_dense``), or the eager fixed point where those do not take
+the backward (float64 on the card, a slew penalty,
+``fused_bwd.scope_gap_bwd``).  Every other problem, and every problem
 under ``use_fused='never'``, runs the eager solver (``solver.py``) and
 its fixed point, on the same device.  The route is chosen from the
 problem alone before anything runs: a kernel that fails to build or
@@ -47,7 +49,9 @@ def _bound(b, dtype, device):
 def _phase2_kernel_bwd(cfg, x_init, cost, dynamics, sol1, u_lower, u_upper):
     """Differentiable phase 2 (mpc_tpu/learning.py:42-120): the
     linearisation and quadratisation at phase 1's solution, then the
-    batched fixed point whose backward runs K2 or K4.  Batch-shared cost
+    batched fixed point whose backward runs K2, K4 or their dense
+    configuration (at any other size than 3 states and 1 control,
+    ``fused_bwd.bwd_routes_dense``).  Batch-shared cost
     leaves and a batch-shared LinDx stay un-broadcast ([T, ...]): the
     kernel returns their gradient summed over the batch when both leaves
     of the pair are shared, and the fixed point sums a per-example
@@ -66,7 +70,7 @@ def _phase2_kernel_bwd(cfg, x_init, cost, dynamics, sol1, u_lower, u_upper):
     lb = _bound(u_lower, dtype, device) if has_bounds else None
     ub = _bound(u_upper, dtype, device) if has_bounds else None
     fp = fused_bwd.make_batched_fixed_point(cfg.n_state, has_bounds,
-                                            f is not None)
+                                            f is not None, cfg.n_ctrl)
     x, u = fp.apply(x_init, C, c, F, f, lb, ub, bx, bu)
     if cfg.detach_unconverged:
         conv = sol1.converged[None, :, None]
@@ -127,8 +131,8 @@ def batched_solve(cfg: MPCConfig, x_init, cost, dynamics, u_init=None,
     With ``cfg.backprop`` and any of x_init, the cost's C or c, the
     model's parameters, a LinDx's F or f, the bounds or (under a slew
     penalty) prev_ctrl requiring grad (and grad mode on), x and u carry
-    gradients to them through the KKT fixed point (phase 2: kernel K2
-    or K4, or the eager fixed point).
+    gradients to them through the KKT fixed point (phase 2: kernel K2,
+    K4 or their dense configuration, or the eager fixed point).
     The bounds get a zero gradient, as in the reference.  costs, n_iter
     and the other statistics come from phase 1 and carry none.
     """
@@ -166,8 +170,8 @@ def batched_solve(cfg: MPCConfig, x_init, cost, dynamics, u_init=None,
     # phase 2 is then the eager fixed point (mpc_tpu/learning.py:213-242),
     # as it always is under a slew penalty, whose backward the JAX package
     # keeps off its kernel too
-    bwd_gap = differentiable and (slew or fused_bwd.scope_gap_bwd(
-        cfg.T, cfg.n_ctrl, dtype, device, cfg.n_state))
+    bwd_gap = differentiable and fused_bwd.scope_gap_bwd(
+        cfg.T, cfg.n_ctrl, dtype, device, cfg.n_state, slew)
     with torch.no_grad():
         sol1 = fused.fused_batched_solve(cfg, x_init, cost, dynamics,
                                          u_init=u_init, u_lower=u_lower,

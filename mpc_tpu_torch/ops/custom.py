@@ -3,8 +3,9 @@
 ``mpc_tpu_torch::k1_solve`` (K1, csrc/fused_ilqr.cu),
 ``::k3_solve`` (K3, csrc/fused_ilqr_long.cu), ``::k3d_solve`` (K3's dense
 configuration, csrc/fused_ilqr_dense.cu), ``::k2_backward`` (K2,
-csrc/fused_kkt_bwd.cu) and ``::k4_backward`` (K4,
-csrc/fused_kkt_bwd_long.cu).  Each op has three implementations: the
+csrc/fused_kkt_bwd.cu), ``::k4_backward`` (K4,
+csrc/fused_kkt_bwd_long.cu) and ``::k4d_backward`` (K2 and K4's dense
+configuration, csrc/fused_kkt_bwd_dense.cu).  Each op has three implementations: the
 kernel's launch on a CUDA tensor (the ``ctypes`` call on the tensors'
 pointers, on the current stream, raising on an operand the kernel does
 not take or on a launch error, and adding one to the kernel's count in
@@ -14,7 +15,8 @@ output shapes, so that ``torch.export`` can trace a solve or a gradient
 through the op and keep it as one node of the graph.  The wrappers
 (``fused.fused_ilqr``, ``fused_ilqr_long``,
 ``fused_dense.fused_ilqr_dense``, ``fused_bwd.fused_kkt_backward``,
-``fused_kkt_backward_long``) call nothing else, so the live path and an
+``fused_kkt_backward_long``, ``fused_bwd_dense.fused_kkt_backward_dense``)
+call nothing else, so the live path and an
 exported program run the same code.
 
 The ops take the kernels' operands as the plain versions do: a
@@ -41,7 +43,7 @@ from torch import Tensor, nn
 
 from ..models.dynamics import NNDynamics
 from ..models.pendulum import PendulumDx
-from . import fused, fused_bwd, fused_dense
+from . import fused, fused_bwd, fused_bwd_dense, fused_dense
 
 
 @functools.lru_cache(maxsize=1)
@@ -506,4 +508,111 @@ def _k4_cuda(C, c, F, x_star, u_star, dl_dx, dl_du, I_mask, has_f):
                 u_star, dl_dx, dl_du, I_mask, True, dxi, dC, dc, dF,
                 df if has_f else None)
     fused_bwd.launch_counts['fused_kkt_bwd_long'] += 1
+    return dxi, dC, dc, dF, df
+
+
+# ---------------------------------------------------------------------------
+# K2 and K4's dense configuration
+# ---------------------------------------------------------------------------
+
+def _k4d_reduced(C, c, F, has_f, f_shared):
+    """The leaves whose gradients the dense backward sums over the batch:
+    each one with a batch extent of 1, and f where ``f_shared``."""
+    return tuple(name for name, shared in (
+        ('C', C.shape[1] == 1), ('c', c.shape[1] == 1),
+        ('F', F.shape[1] == 1), ('f', has_f and f_shared)) if shared)
+
+
+@torch.library.custom_op('mpc_tpu_torch::k4d_backward', mutates_args=(),
+                         device_types='cpu')
+def k4d_backward(C: Tensor, c: Tensor, F: Tensor, x_star: Tensor,
+                 u_star: Tensor, dl_dx: Tensor, dl_du: Tensor,
+                 I_mask: Optional[Tensor], has_f: bool, f_shared: bool
+                 ) -> tuple[Tensor, Tensor, Tensor, Tensor, Tensor]:
+    """K2 and K4's dense configuration: the KKT backward at any admitted
+    n_state and n_ctrl, C [T, 1 or B, ntau, ntau], c [T, 1 or B, ntau],
+    F [T-1, 1 or B, ns, ntau], x_star, dl_dx [T, B, ns], u_star, dl_du
+    [T, B, nc], I_mask None or [T, B, nc]; each gradient in its leaf's
+    layout, summed over the batch for a shared one (f: ``f_shared``), as
+    ``fused_bwd_dense.fused_kkt_backward_dense_plain``, which runs here
+    on the CPU, but df [0] (no values) when ``has_f`` is false."""
+    dxi, dC, dc, dF, df = fused_bwd_dense.fused_kkt_backward_dense_plain(
+        C, c, F, x_star, u_star, dl_dx, dl_du, I_mask, has_f=has_f,
+        f_shared=f_shared)
+    return dxi, dC, dc, dF, df if has_f else x_star.new_empty((0,))
+
+
+@k4d_backward.register_fake
+def _k4d_fake(C, c, F, x_star, u_star, dl_dx, dl_du, I_mask, has_f,
+              f_shared):
+    T, B, ns = x_star.shape
+    nt = C.shape[-1]
+    red = _k4d_reduced(C, c, F, has_f, f_shared)
+    empty = x_star.new_empty
+
+    def batch(name):
+        return () if name in red else (B,)
+    return (empty((B, ns)), empty((T, *batch('C'), nt, nt)),
+            empty((T, *batch('c'), nt)), empty((T - 1, *batch('F'), ns, nt)),
+            empty((T - 1, *batch('f'), ns)) if has_f else empty((0,)))
+
+
+@k4d_backward.register_kernel('cuda')
+def _k4d_cuda(C, c, F, x_star, u_star, dl_dx, dl_du, I_mask, has_f,
+              f_shared):
+    """Allocate the workspace of ``fused_bwd_dense.k4d_launch`` and the
+    partial sums of the shared leaves, and launch
+    csrc/fused_kkt_bwd_dense.cu (the launcher refuses, as an invalid
+    value, an array or a workspace too large for its 32-bit indices)."""
+    T, B, ns = x_star.shape
+    if u_star.dim() != 3:
+        raise ValueError('the dense backward takes u_star [T, B, n_ctrl]')
+    nc = u_star.shape[-1]
+    nt = ns + nc
+    _floats_on_device('the dense backward', x_star.device, C, c, F, x_star,
+                      u_star, dl_dx, dl_du, I_mask)
+    gap = fused.dense_gap(ns, nc)
+    if gap is not None:
+        raise ValueError(gap)
+    if (C.shape[0] != T or C.shape[1] not in (1, B)
+            or C.shape[2:] != (nt, nt) or c.shape[0] != T
+            or c.shape[1] not in (1, B) or c.shape[2:] != (nt,)
+            or F.shape[0] != T - 1 or F.shape[1] not in (1, B)
+            or F.shape[2:] != (ns, nt) or u_star.shape != (T, B, nc)
+            or dl_dx.shape != (T, B, ns) or dl_du.shape != (T, B, nc)
+            or (I_mask is not None and I_mask.shape != (T, B, nc))):
+        raise ValueError('the dense backward\'s operand shapes do not match')
+    geo = fused_bwd_dense.k4d_launch(T, B, ns, nc)
+    fn = fused_bwd_dense.kernel_lib(ns, nc, I_mask is not None, has_f)
+    outs = _k4d_fake(C, c, F, x_star, u_star, dl_dx, dl_du, I_mask, has_f,
+                     f_shared)
+    if B == 0:
+        return tuple(o.zero_() for o in outs)
+    dxi, dC, dc, dF, df = outs
+    empty = functools.partial(torch.empty, dtype=torch.float32,
+                              device=x_star.device)
+    ws = empty((geo['workspace_bytes'] // 4,))
+    parts = [empty(s) if s is not None else None
+             for s in fused_bwd_dense.partial_shapes(
+                 T, B, ns, nc, _k4d_reduced(C, c, F, has_f, f_shared))]
+
+    def ptr(a):
+        return a.data_ptr() if a is not None and a.numel() else None
+
+    with torch.cuda.device(x_star.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(B, T, *fused._strided(C, nt * nt), *fused._strided(c, nt),
+                 # F has no rows at T = 1; its pointer is then never read
+                 ptr(F) or x_star.data_ptr(), F.shape[1] * ns * nt,
+                 fused._batch_stride(F, ns * nt),
+                 x_star.data_ptr(), u_star.data_ptr(), dl_dx.data_ptr(),
+                 dl_du.data_ptr(), ptr(I_mask), int(has_f and f_shared),
+                 ws.data_ptr(), geo['smem_bytes'], geo['grad_smem_bytes'],
+                 dxi.data_ptr(), dC.data_ptr(), dc.data_ptr(), ptr(dF),
+                 ptr(df), *map(ptr, parts),
+                 stream)
+    if err != 0:
+        raise RuntimeError('the dense backward\'s launch failed with '
+                           f'cudaError_t {err}')
+    fused_bwd.launch_counts['fused_kkt_bwd_dense'] += 1
     return dxi, dC, dc, dF, df

@@ -39,10 +39,14 @@ and the arithmetic runs in the kernels' order, which is one order
 tensor they launch K2 or K4 or raise, through the kernels'
 ``torch.library`` ops (ops/custom.py), which hold the launches.
 
-Scope (``scope_gap_bwd``): n_state = 3, n_ctrl = 1, a QuadCost whose C
-and c are each shared or batched, dynamics per example (the pendulum's
-linearisation, a batched LinDx) or batch-shared (LinDx), any T, float32
-on the card.  ``bwd_routes_long`` says which kernel takes a backward.
+Scope (``scope_gap_bwd``): K2 and K4 at n_state = 3, n_ctrl = 1, a
+QuadCost whose C and c are each shared or batched, dynamics per example
+(the pendulum's linearisation, a batched LinDx) or batch-shared (LinDx),
+any T, float32 on the card; ``bwd_routes_long`` says which of the two
+takes a backward.  Every other size with n_state + n_ctrl <= 32 and
+n_ctrl <= 8 goes to their dense configuration (``bwd_routes_dense``,
+ops/fused_bwd_dense.py, csrc/fused_kkt_bwd_dense.cu), whatever the
+layouts and T.
 """
 
 from __future__ import annotations
@@ -54,6 +58,7 @@ from typing import Optional
 import torch
 from torch.autograd.function import once_differentiable
 
+from . import fused, fused_bwd_dense
 from .fused import _check_device
 from .math import ACTIVE_TOL
 
@@ -138,8 +143,10 @@ T_MAX_BWD = _longest_resident(k2_launch)
 # The longest horizon whose state K4 keeps in shared memory (181).
 K4_T_RESIDENT = _longest_resident(k4_launch)
 
-# One count per launch of K2 and of K4 on the card, and nowhere else.
-launch_counts = {'fused_kkt_bwd': 0, 'fused_kkt_bwd_long': 0}
+# One count per launch of K2, of K4 and of their dense configuration on
+# the card, and nowhere else.
+launch_counts = {'fused_kkt_bwd': 0, 'fused_kkt_bwd_long': 0,
+                 'fused_kkt_bwd_dense': 0}
 
 
 def reset_launch_counts():
@@ -160,23 +167,44 @@ def bwd_routes_long(T, dyn_shared) -> bool:
     return bool(dyn_shared) or T > T_MAX_BWD
 
 
+def bwd_routes_dense(n_state, n_ctrl) -> bool:
+    """THE dense-configuration predicate of the backward, shared by the
+    fixed point's dispatch and the tests (as ``fused.routes_dense`` is for
+    the forward): every size but K2's and K4's 3 states and 1 control
+    goes to csrc/fused_kkt_bwd_dense.cu, at any T and in any layout."""
+    return (n_state, n_ctrl) != (3, 1)
+
+
+def _dense_bwd_gap(n_state, n_ctrl) -> Optional[str]:
+    """Why K2 and K4's dense configuration does not take these sizes
+    (the dense forward's gate, ``fused.dense_gap``); None when it does or
+    when they are K2's and K4's own."""
+    gap = fused.dense_gap(n_state, n_ctrl) if bwd_routes_dense(
+        n_state, n_ctrl) else None
+    return None if gap is None else (
+        f'the backward of a problem past the dense gate waits for ROADMAP '
+        f'queue 2 (K2 and K4 configurations) and takes the eager fixed '
+        f'point: {gap}')
+
+
 def scope_gap_bwd(T, n_ctrl=1, dtype=torch.float32,
-                  device=torch.device('cpu'), n_state=3) -> Optional[str]:
-    """Why K2 and K4 do not take the backward of a differentiable solve
-    that K1, K3 or the dense configuration solved, naming the kernel
-    configuration that waits; None when K2 or K4 (``bwd_routes_long``),
-    or its plain version on the CPU, runs it.  The admission test alone:
-    the dispatch runs the eager fixed point where it refuses (every
-    problem of other sizes than 3 states and 1 control, as
-    mpc_tpu/learning.py:213-242 dispatches).  No horizon is refused: K4's
-    T is a run-time argument."""
-    if n_ctrl != 1:
-        return ('the backward of n_ctrl > 1 with the masked Cholesky waits '
-                'for ROADMAP queue 2 (K2 and K4 configurations)')
-    if n_state != 3:
-        return (f'the backward of n_state = {n_state} waits for ROADMAP '
-                'queue 2 (K2 and K4 configurations): K2 and K4 hold 3 '
-                'states')
+                  device=torch.device('cpu'), n_state=3,
+                  slew=False) -> Optional[str]:
+    """Why the backward kernels do not take the backward of a
+    differentiable solve that K1, K3 or the dense configuration solved;
+    None when K2, K4 or their dense configuration (``bwd_routes_dense``,
+    ``bwd_routes_long``), or its plain version on the CPU, runs it.  The
+    admission test alone: the dispatch runs the eager fixed point where it
+    refuses, as mpc_tpu/learning.py:208-242 dispatches (float64 on the
+    card, a slew penalty, sizes past the dense gate).  No horizon is
+    refused: K4's and the dense backward's T is a run-time argument."""
+    if slew:
+        return ('a slew penalty\'s backward is the eager fixed point on the '
+                'augmented problem, as in mpc_tpu (mpc_tpu/learning.py:'
+                '196-242), so that gradients reach prev_ctrl')
+    gap = _dense_bwd_gap(n_state, n_ctrl)
+    if gap is not None:
+        return gap
     if dtype not in (torch.float32, torch.float64):
         return f'dtype {dtype} is not supported (float32 or float64)'
     if dtype == torch.float64 and device.type == 'cuda':
@@ -186,9 +214,10 @@ def scope_gap_bwd(T, n_ctrl=1, dtype=torch.float32,
 
 
 def supports_bwd(T, n_ctrl=1, dtype=torch.float32,
-                 device=torch.device('cpu'), n_state=3) -> bool:
-    """Whether K2 or K4 runs this backward (see ``scope_gap_bwd``)."""
-    return scope_gap_bwd(T, n_ctrl, dtype, device, n_state) is None
+                 device=torch.device('cpu'), n_state=3, slew=False) -> bool:
+    """Whether K2, K4 or their dense configuration runs this backward
+    (see ``scope_gap_bwd``)."""
+    return scope_gap_bwd(T, n_ctrl, dtype, device, n_state, slew) is None
 
 
 # ---------------------------------------------------------------------------
@@ -585,26 +614,30 @@ def active_set(u_star, u_lower, u_upper):
 
 
 @functools.lru_cache(maxsize=None)
-def make_batched_fixed_point(n_state: int, has_bounds: bool, has_f: bool):
+def make_batched_fixed_point(n_state: int, has_bounds: bool, has_f: bool,
+                             n_ctrl: int = 1):
     """Batched counterpart of the reference's no-op-forward LQR step
     (mpc_tpu/ops/fused_bwd.py:1096-1136) as a ``torch.autograd.Function``.
 
     ``apply(x_init, C, c, F, f, u_lower, u_upper, x_star, u_star)`` passes
-    the converged x_star [T, B, n_state] and u_star [T, B, 1] through.
-    Its backward runs K2 or K4 (``bwd_routes_long``) over the whole batch
-    and returns gradients for x_init [B, n_state], C, c, F and f (None
-    when ``has_f`` is false) in their own layouts: a shared leaf C
+    the converged x_star [T, B, n_state] and u_star [T, B, n_ctrl]
+    through.  Its backward runs, over the whole batch, K2 or K4
+    (``bwd_routes_long``) at 3 states and 1 control, their dense
+    configuration (``bwd_routes_dense``) at every other admitted size, and
+    returns gradients for x_init [B, n_state], C, c, F and f (None when
+    ``has_f`` is false) in their own layouts: a shared leaf C
     [T, ntau, ntau], c [T, ntau], F [T-1, n_state, ntau] or f
     [T-1, n_state] gets the gradient summed over the batch (by the kernel
-    itself when both leaves of its pair are shared), a batched leaf
-    [T, B, ...] a per-example one.  Bounds (broadcastable to u_star, or
-    None without ``has_bounds``) get zeros, the reference's gradient;
-    x_star and u_star get none.
+    itself: K2 and K4 when both leaves of its pair are shared, the dense
+    backward for each shared leaf), a batched leaf [T, B, ...] a
+    per-example one.  Bounds (broadcastable to u_star, or None without
+    ``has_bounds``) get zeros, the reference's gradient; x_star and
+    u_star get none.  Sizes past the dense gate raise.
     """
-    if n_state != 3:
-        raise NotImplementedError('K2 and K4 cover n_state = 3; other '
-                                  'state sizes wait for ROADMAP queue 2 '
-                                  '(K2 and K4 configurations)')
+    dense = bwd_routes_dense(n_state, n_ctrl)
+    gap = _dense_bwd_gap(n_state, n_ctrl)
+    if gap is not None:
+        raise NotImplementedError(gap)
 
     class BatchedFixedPoint(torch.autograd.Function):
         @staticmethod
@@ -623,21 +656,18 @@ def make_batched_fixed_point(n_state: int, has_bounds: bool, has_f: bool):
         @once_differentiable
         def backward(ctx, dl_dx, dl_du):
             C, c, F, lb, ub, x_star, u_star = ctx.saved_tensors
-            T, B, ns = x_star.shape
             I_mask = active_set(u_star, lb, ub) if has_bounds else None
-            cost_shared = C.dim() == 3 and c.dim() == 2
-            dyn_shared = F.dim() == 3 and (not has_f
-                                           or len(ctx.f_shape) == 2)
-            Ck = _kernel_leaf(C, 2, None if cost_shared
-                              else (T, B, ns + 1, ns + 1))
-            ck = _kernel_leaf(c, 1, None if cost_shared else (T, B, ns + 1))
-            Fk = _kernel_leaf(F, 2, None if dyn_shared
-                              else (T - 1, B, ns, ns + 1))
-            run = (fused_kkt_backward_long if bwd_routes_long(T, dyn_shared)
-                   else fused_kkt_backward)
-            dxi, dC, dc, dF, df = run(
-                Ck, ck, Fk, x_star.contiguous(), u_star.contiguous(),
-                dl_dx.contiguous(), dl_du.contiguous(), I_mask, has_f=has_f)
+            operands = (x_star.contiguous(), u_star.contiguous(),
+                        dl_dx.contiguous(), dl_du.contiguous(), I_mask)
+            if dense:
+                f_shared = has_f and len(ctx.f_shape) == 2
+                dxi, dC, dc, dF, df = fused_bwd_dense.fused_kkt_backward_dense(
+                    _kernel_leaf(C, 2), _kernel_leaf(c, 1),
+                    _kernel_leaf(F, 2), *operands, has_f=has_f,
+                    f_shared=f_shared)
+            else:
+                dxi, dC, dc, dF, df = _k2_k4(C, c, F, has_f, ctx.f_shape,
+                                            *operands)
             dlb, dub = (torch.zeros_like(b) if need else None for b, need in
                         zip((lb, ub), ctx.needs_input_grad[5:7]))
             if has_f:
@@ -647,3 +677,18 @@ def make_batched_fixed_point(n_state: int, has_bounds: bool, has_f: bool):
                     df if has_f else None, dlb, dub, None, None)
 
     return BatchedFixedPoint
+
+
+def _k2_k4(C, c, F, has_f, f_shape, x_star, u_star, dl_dx, dl_du, I_mask):
+    """K2 or K4 (``bwd_routes_long``) on a backward's leaves, a shared
+    leaf broadcast where its pair's other leaf is batched (K2 and K4 key a
+    pair's reduction on both)."""
+    T, B, ns = x_star.shape
+    cost_shared = C.dim() == 3 and c.dim() == 2
+    dyn_shared = F.dim() == 3 and (not has_f or len(f_shape) == 2)
+    Ck = _kernel_leaf(C, 2, None if cost_shared else (T, B, ns + 1, ns + 1))
+    ck = _kernel_leaf(c, 1, None if cost_shared else (T, B, ns + 1))
+    Fk = _kernel_leaf(F, 2, None if dyn_shared else (T - 1, B, ns, ns + 1))
+    run = (fused_kkt_backward_long if bwd_routes_long(T, dyn_shared)
+           else fused_kkt_backward)
+    return run(Ck, ck, Fk, x_star, u_star, dl_dx, dl_du, I_mask, has_f=has_f)

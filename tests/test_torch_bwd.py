@@ -347,9 +347,16 @@ def test_scope_gap_bwd():
     assert fused_bwd.supports_bwd(fused_bwd.T_MAX_BWD + 1)
     assert fused_bwd.bwd_routes_long(fused_bwd.T_MAX_BWD + 1, False)
     assert not fused_bwd.bwd_routes_long(fused_bwd.T_MAX_BWD, False)
-    assert 'ROADMAP' in fused_bwd.scope_gap_bwd(10, n_ctrl=2)
+    # n_ctrl > 1 takes K2 and K4's dense configuration; float64 on the
+    # card, a slew penalty and n_state + n_ctrl > 32 stay on the eager
+    # fixed point
+    assert fused_bwd.scope_gap_bwd(10, n_ctrl=2) is None
+    assert fused_bwd.bwd_routes_dense(3, 2)
+    assert not fused_bwd.bwd_routes_dense(3, 1)
     assert 'float64' in fused_bwd.scope_gap_bwd(10, dtype=torch.float64,
                                                 device=cuda)
+    assert 'slew' in fused_bwd.scope_gap_bwd(10, slew=True)
+    assert 'ROADMAP' in fused_bwd.scope_gap_bwd(10, n_ctrl=2, n_state=31)
     assert fused_bwd.T_MAX_BWD >= fused.T_MAX    # every K1 horizon
 
 

@@ -14,15 +14,19 @@ runs) against the JAX package, its routing, gate and geometry.
   next iteration takes back), ~1e-13 for one control.
 - float32 against the Pallas kernel in interpret mode at the smallest
   box problem with several controls (2 states, 2 controls, T=3,
-  lqr_iter=2): u and x within 1e-5, n_iter and n_qp_iter equal.
+  lqr_iter=2): u and x within 1e-5, n_iter and n_qp_iter equal; and on
+  an unbounded problem whose control block is only semidefinite, where
+  the kernel route takes the jittered Cholesky (as the Pallas kernel)
+  and the eager route the pseudo-inverse (as the jnp path).
 - the kernel's helpers against the JAX kernel's own (``_cholesky``,
   ``_chol_solve``, ``_masked_free_chol``, ``_pnqp_kernel``) on the same
   inputs, float64, 1e-12; the lane sum's order against a butterfly of 32
   lanes, bitwise.
 - gradients: a differentiable solve of a 5-state, 1-control and of a
-  4-state, 2-control LinDx runs the dense forward and the eager fixed
-  point (``fused_bwd.scope_gap_bwd`` refuses n_state != 3 and
-  n_ctrl != 1), against ``jax.grad`` of the jnp path, float64, 1e-7.
+  4-state, 2-control LinDx runs the dense forward and the dense backward
+  (``fused_bwd.bwd_routes_dense``; the eager fixed point stays for
+  float64 on the card, a slew penalty and n_state + n_ctrl > 32),
+  against ``jax.grad`` of the jnp path, float64, 1e-7.
 - a slew penalty on LinDx problems of other sizes reaches the dense
   configuration (``fused.slew_problem``) and matches mpc_tpu's slew
   solve in float64 (1e-8).
@@ -184,6 +188,48 @@ def test_plain_matches_pallas_kernel_f32():
     assert (got.u.abs() == 0.4).any()
 
 
+def _semidef_lindx(T, B, ns, nc, seed=0):
+    """tests/test_torch_eager_solve.py:_lindx(semidef=True): no weight on
+    the last control at the last two steps, so Quu is only semidefinite
+    there."""
+    rng = np.random.RandomState(seed)
+    A = np.eye(ns) + 0.1 * rng.randn(ns, ns)
+    A /= max(1.0, np.abs(np.linalg.eigvals(A)).max())
+    F = np.tile(np.concatenate([A, 0.5 * rng.randn(ns, nc)], 1)[None],
+                (T - 1, 1, 1))
+    C = np.tile(np.diag(np.concatenate([np.ones(ns), 0.1 * np.ones(nc)])),
+                (T, 1, 1))
+    C[-2:, -1, -1] = 0.0
+    c = 0.3 * rng.randn(T, ns + nc)
+    return F, C, c, rng.randn(B, ns)
+
+
+def test_semidefinite_unbounded_route_matches_pallas_f32():
+    """The route difference of an unbounded LinDx whose control block is
+    only semidefinite: the kernel route (use_fused='auto', the dense
+    configuration's plain version here) takes the Cholesky with a 1e-11
+    jitter, as mpc_tpu's kernel does (mpc_tpu/ops/fused.py:908-920), and
+    matches the interpret-mode Pallas kernel (|u| reaches ~5e8) within
+    1e-5 of the largest |u|; the eager route (use_fused='never') takes
+    the pseudo-inverse, as mpc_tpu's jnp path does
+    (mpc_tpu/ops/lqr.py:117-120), and stays small.  float32, T=3, 2
+    states, 2 controls, B=4."""
+    T, B, ns, nc = 3, 4, 2, 2
+    F, C, c, x0 = (a.astype(np.float32) for a in _semidef_lindx(T, B, ns,
+                                                                 nc, seed=2))
+    kw = _cfg(T, ns, nc)
+    ref = jfused.fused_batched_solve(
+        mpc_tpu.MPCConfig(**kw), jnp.asarray(x0),
+        mpc_tpu.QuadCost(jnp.asarray(C), jnp.asarray(c)),
+        mpc_tpu.LinDx(jnp.asarray(F), None), interpret=True)
+    got = _port_solve(dict(kw, use_fused='auto'), F, None, C, c, x0)
+    u_ref = np.asarray(ref.u)
+    assert got.u.dtype == torch.float32 and np.abs(u_ref).max() > 1e6
+    _rel(got.u.numpy(), u_ref, 1e-5, 'u (kernel route)')
+    eager = _port_solve(dict(kw, use_fused='never'), F, None, C, c, x0)
+    assert float(eager.u.abs().max()) < 10.0
+
+
 # ---------------------------------------------------------------------------
 # the helpers against the JAX kernel's own
 # ---------------------------------------------------------------------------
@@ -281,9 +327,9 @@ def test_lane_sum_is_the_warp_butterfly(n):
 
 @pytest.mark.parametrize('ns,nc', [(5, 1), (4, 2)])
 def test_gradients_through_dense_forward_match_jax(ns, nc):
-    """The dense forward (its plain version here) and the eager fixed
-    point (the backward kernels take 3 states and 1 control): gradients
-    to C, c, F, f and x_init against jax.grad of the jnp path."""
+    """The dense forward and the dense backward (their plain versions
+    here; no eager fixed point): gradients to C, c, F, f and x_init
+    against jax.grad of the jnp path."""
     T, B = 5, 4
     F, f, C, c, x0 = _problem(T, B, ns, nc, seed=ns + nc, c_batched=True,
                               f='shared')
@@ -300,13 +346,14 @@ def test_gradients_through_dense_forward_match_jax(ns, nc):
     args = (C, c, F, f, x0)
     ref = jax.grad(j_loss, argnums=range(5))(*map(jnp.asarray, args))
     leaves = [torch.tensor(a, requires_grad=True) for a in args]
-    assert fused_bwd.scope_gap_bwd(T, nc, n_state=ns) is not None
+    assert fused_bwd.scope_gap_bwd(T, nc, n_state=ns) is None
+    assert fused_bwd.bwd_routes_dense(ns, nc)
     solver.reset_eager_counts()
     sol = mt.batched_solve(mt.MPCConfig(**cfg), leaves[4],
                            mt.QuadCost(leaves[0], leaves[1]),
                            mt.LinDx(leaves[2], leaves[3]), device='cpu', **bk)
     ((sol.u * torch.tensor(w)).sum() + 0.5 * (sol.x ** 2).sum()).backward()
-    assert solver.eager_counts == {'eager_solve': 0, 'eager_fixed_point': 1}
+    assert solver.eager_counts == {'eager_solve': 0, 'eager_fixed_point': 0}
     assert sol.converged.all() and (sol.u.detach().abs() == 0.6).any()
     for name, t, r in zip('C c F f x_init'.split(), leaves, ref):
         assert t.grad.shape == r.shape, name
@@ -314,15 +361,25 @@ def test_gradients_through_dense_forward_match_jax(ns, nc):
 
 
 def test_scope_gap_bwd_judges_n_state():
-    """K2 and K4 hold 3 states: any other n_state takes the eager fixed
-    point, which returns gradients where make_batched_fixed_point would
-    raise."""
+    """K2 and K4 hold 3 states and 1 control; every other n_state up to
+    the dense gate takes their dense configuration, whose fixed point
+    make_batched_fixed_point builds.  What still refuses, and takes the
+    eager fixed point: float64 on the card, a slew penalty, and
+    n_state + n_ctrl > 32, which names its ROADMAP item."""
+    cuda = torch.device('cuda')
     assert fused_bwd.scope_gap_bwd(10) is None
-    gap = fused_bwd.scope_gap_bwd(10, 1, n_state=5)
-    assert 'n_state = 5' in gap and 'ROADMAP' in gap
-    assert not fused_bwd.supports_bwd(10, n_state=4)
+    assert fused_bwd.scope_gap_bwd(10, 1, n_state=5) is None
+    assert fused_bwd.bwd_routes_dense(5, 1)
+    assert not fused_bwd.bwd_routes_dense(3, 1)
+    assert fused_bwd.supports_bwd(10, n_state=4)
+    fused_bwd.make_batched_fixed_point(5, True, False)
+    assert 'float64' in fused_bwd.scope_gap_bwd(10, 1, torch.float64, cuda,
+                                                5)
+    assert 'slew' in fused_bwd.scope_gap_bwd(10, 1, n_state=5, slew=True)
+    gap = fused_bwd.scope_gap_bwd(10, 1, n_state=32)
+    assert 'n_state + n_ctrl = 33' in gap and 'ROADMAP' in gap
     with pytest.raises(NotImplementedError):
-        fused_bwd.make_batched_fixed_point(5, True, False)
+        fused_bwd.make_batched_fixed_point(32, True, False)
 
 
 @pytest.mark.parametrize('ns,nc', [(3, 1), (2, 2)])

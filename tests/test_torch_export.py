@@ -13,7 +13,9 @@ CPU: the counterparts of tests/test_export.py, float64.
   (``max_batch``) on the kernel route, which keep the K1 op and give the
   live bits at every batch;
 - gradient programs: ``torch.autograd.grad`` through the eager fixed
-  point (the JAX test's problem) and through K1 and K2 (the pendulum),
+  point (the JAX test's problem), through the dense forward and K2 and
+  K4's dense configuration (a 4-state, 2-control LinDx; the live bits)
+  and through K1 and K2 (the pendulum),
   each bitwise the live gradient and within 1e-8 of ``jax.grad`` (relative
   to the largest entry; the two forward solves are converged, so their
   gradients differ by the jnp path's 1e-11 regularisation of the control
@@ -303,6 +305,38 @@ def test_exported_gradient_program_through_k2():
         return (sol.u ** 2).sum()
 
     _assert_grad(g.numpy(), np.asarray(jax.grad(j_loss)(jnp.asarray(P))))
+
+
+def test_exported_gradient_program_through_dense_backward():
+    """A LinDx of 4 states and 2 controls with a box: the gradient of
+    sum(u^2) to c and F, exported, holds one node of the dense forward's
+    op and one of the dense backward's (K2 and K4's dense configuration,
+    ``k4d_backward``), and gives the live gradients' bits."""
+    T, B, ns, nc = 4, 3, 4, 2
+    rng = np.random.RandomState(9)
+    A = np.eye(ns) + 0.1 * rng.randn(ns, ns)
+    F0 = torch.tensor(np.tile(np.concatenate([A, 0.5 * rng.randn(ns, nc)],
+                                             1)[None], (T - 1, 1, 1)))
+    C = torch.tensor(np.diag(np.r_[np.ones(ns), 0.1 * np.ones(nc)]))
+    c0 = torch.tensor(0.3 * rng.randn(T, ns + nc))
+    x0 = torch.tensor(rng.randn(B, ns))
+    cfg = mt.MPCConfig(**_cfg_kw(T=T, nc=nc, n_state=ns, lqr_iter=4,
+                                 backprop=True, max_linesearch_iter=2))
+
+    def grad(c, F):
+        c = c.detach().requires_grad_(True)
+        F = F.detach().requires_grad_(True)
+        sol = mt.batched_solve(cfg, x0, mt.QuadCost(C, c), mt.LinDx(F),
+                               u_lower=-0.5, u_upper=0.5, device='cpu')
+        return torch.autograd.grad((sol.u ** 2).sum(), (c, F))
+
+    data = ex.export_fn(grad, c0, F0)
+    assert ex.kernel_nodes(data) == {'k3d_solve': 1, 'k4d_backward': 1}
+    got = ex.load_fn(data)(c0, F0)
+    live = grad(c0, F0)
+    assert all(g.abs().max() > 0 for g in live)
+    for a, b in zip(got, live):
+        assert torch.equal(a, b)
 
 
 class _Exp(torch.autograd.Function):

@@ -50,9 +50,19 @@ at config 1's layout (every operand per example, unbounded), at 24 and 28
 states with 4 bounded controls, at 5 states and 1 control and at 2
 states and 2 controls with per-example bounds and f; on the reversed
 batch, small batches and a second launch bitwise; the entry points
-launch it once a request, a differentiable solve runs it and the eager
-fixed point, and with its library broken a request raises instead of
+launch it once a request, a differentiable solve runs it and the dense
+backward, and with its library broken a request raises instead of
 falling back.
+
+K2 and K4's dense configuration (csrc/fused_kkt_bwd_dense.cu, the
+backward at any other admitted size) is held as K2 is, at the medium
+rows' sizes, 16 states and 4 controls with every leaf per example and f,
+TVLQR's size without an active set, 5 states and 1 control, the gate's
+corners and a long horizon; per-example outputs are bitwise whatever
+batch an example sits in and every output at a second launch; a
+differentiable solve launches the dense forward and backward once each,
+float64 on the card takes the eager fixed point, and with its library
+broken the backward raises instead of falling back.
 
 The closed loop (make_closed_loop) launches K1 once a step and runs its
 steps without a synchronising call (torch.cuda.set_sync_debug_mode
@@ -84,7 +94,8 @@ import torch
 import mpc_tpu_torch as mt
 from mpc_tpu_torch import solver
 from mpc_tpu_torch.models import PendulumDx
-from mpc_tpu_torch.ops import _build, fused, fused_bwd, fused_dense
+from mpc_tpu_torch.ops import (_build, fused, fused_bwd, fused_bwd_dense,
+                               fused_dense)
 
 pytestmark = pytest.mark.gpu
 
@@ -598,7 +609,8 @@ def test_differentiable_lindx_solve_launches_k3_and_k4(cuda):
                                    'fused_ilqr_dense': 0}
     (sol.u ** 2).sum().backward()
     assert fused_bwd.launch_counts == {'fused_kkt_bwd': 0,
-                                       'fused_kkt_bwd_long': 1}
+                                       'fused_kkt_bwd_long': 1,
+                                       'fused_kkt_bwd_dense': 0}
     for g, leaf in ((c.grad, c), (F.grad, F), (f.grad, f)):
         assert g.shape == leaf.shape
         assert torch.isfinite(g).all() and g.abs().sum() > 0
@@ -683,7 +695,8 @@ def test_differentiable_nn_solve_launches_k3_and_k2(cuda):
                                    'fused_ilqr_dense': 0}
     (sol.u ** 2).sum().backward()
     assert fused_bwd.launch_counts == {'fused_kkt_bwd': 1,
-                                       'fused_kkt_bwd_long': 0}
+                                       'fused_kkt_bwd_long': 0,
+                                       'fused_kkt_bwd_dense': 0}
     assert solver.eager_counts == {'eager_solve': 0, 'eager_fixed_point': 0}
     for p in dx.parameters():
         assert torch.isfinite(p.grad).all() and p.grad.abs().sum() > 0
@@ -869,8 +882,9 @@ def test_dense_position_free_and_repeatable(cuda):
 
 def test_dense_entry_points_launch_it_once(cuda):
     """batched_solve and MPC launch the dense kernel once a request and
-    nothing else; a differentiable 5-state solve runs it and the eager
-    fixed point and returns finite gradients."""
+    nothing else; a differentiable 5-state solve runs it and the dense
+    backward once each (no eager fixed point) and returns finite
+    gradients."""
     cfg, x0, cost, dyn, bk = _dense_problem(cuda, 512, 24, 4)
     fused.reset_launch_counts()
     fused_bwd.reset_launch_counts()
@@ -892,8 +906,10 @@ def test_dense_entry_points_launch_it_once(cuda):
                            mt.QuadCost(cost.C, c), dyn, **bk)
     (sol.u ** 2).sum().backward()
     assert fused.launch_counts['fused_ilqr_dense'] == 1
-    assert solver.eager_counts == {'eager_solve': 0, 'eager_fixed_point': 1}
-    assert sum(fused_bwd.launch_counts.values()) == 0
+    assert solver.eager_counts == {'eager_solve': 0, 'eager_fixed_point': 0}
+    assert fused_bwd.launch_counts == {'fused_kkt_bwd': 0,
+                                       'fused_kkt_bwd_long': 0,
+                                       'fused_kkt_bwd_dense': 1}
     assert torch.isfinite(c.grad).all() and c.grad.abs().max() > 0
 
 
@@ -913,6 +929,155 @@ def test_dense_raises_rather_than_falls_back(cuda, monkeypatch):
         mt.batched_solve(cfg, x0, cost, dyn, **bk)
     assert fused.launch_counts['fused_ilqr_dense'] == 0
     assert solver.eager_counts['eager_solve'] == 0
+
+
+# ---------------------------------------------------------------------------
+# K2 and K4's dense configuration (csrc/fused_kkt_bwd_dense.cu)
+# ---------------------------------------------------------------------------
+
+def _bwd_dense_problem(device, ns, nc, T, B, cost_shared, dyn_shared,
+                       has_I=True, has_f=True, seed=0, dtype=torch.float32):
+    """A random converged-LQR backward problem at any size: C = R R^T /
+    ntau + I, F = 0.9 I + 0.3 / sqrt(ns) N (the costate stays finite in
+    float32), ~30% of the controls on a bound; the dense backward's
+    operands (shared leaves with a batch extent of 1)."""
+    rng = np.random.RandomState(seed)
+    nt = ns + nc
+    nb, nf = 1 if cost_shared else B, 1 if dyn_shared else B
+    Cr = rng.randn(T, nb, nt, nt)
+    C = np.einsum('tbij,tbkj->tbik', Cr, Cr) / nt + np.eye(nt)
+    F = 0.3 / np.sqrt(ns) * rng.randn(T - 1, nf, ns, nt)
+    F[..., :ns] += 0.9 * np.eye(ns)
+    us = rng.randn(T, B, nc)
+    pinned = rng.rand(T, B, nc) < 0.3
+    us = np.where(pinned, np.sign(us), us)
+    arrays = dict(C=C, c=rng.randn(T, nb, nt), F=F,
+                  x_star=rng.randn(T, B, ns), u_star=us,
+                  dl_dx=rng.randn(T, B, ns), dl_du=rng.randn(T, B, nc),
+                  I_mask=pinned.astype(np.float64) if has_I else None)
+    ops = {k: None if v is None else torch.tensor(v, dtype=dtype,
+                                                  device=device)
+           for k, v in arrays.items()}
+    return dict(ops, has_f=has_f, f_shared=dyn_shared)
+
+
+@pytest.mark.parametrize('ns,nc,T,B,cost_shared,dyn_shared,has_I,has_f', [
+    (20, 4, 20, 1024, True, True, True, False),
+    (24, 4, 20, 1030, True, True, True, True),
+    (16, 4, 20, 300, False, False, True, True),
+    (3, 4, 5, 128, False, False, False, True),
+    (5, 1, 20, 2050, True, False, True, False),
+    (28, 4, 7, 100, False, True, True, True),
+    (24, 8, 7, 100, True, False, True, False),
+    (2, 2, 200, 70, True, True, True, True)])
+def test_bwd_dense_matches_plain(cuda, ns, nc, T, B, cost_shared, dyn_shared,
+                                 has_I, has_f):
+    """Every gradient within 1e-4 of the plain version relative to its
+    largest entry, and no further from a float64 plain run than twice
+    the plain float32 run (the batch sums take another order)."""
+    ops = _bwd_dense_problem(cuda, ns, nc, T, B, cost_shared, dyn_shared,
+                             has_I, has_f)
+    fused_bwd.reset_launch_counts()
+    got = fused_bwd_dense.fused_kkt_backward_dense(**ops)
+    assert fused_bwd.launch_counts['fused_kkt_bwd_dense'] == 1
+    ref = fused_bwd_dense.fused_kkt_backward_dense_plain(**ops)
+    ref64 = fused_bwd_dense.fused_kkt_backward_dense_plain(**{
+        k: v.double() if isinstance(v, torch.Tensor) else v
+        for k, v in ops.items()})
+    for a, b, r in zip(got, ref, ref64):
+        if b is None:
+            assert a is None
+            continue
+        assert a.shape == b.shape and torch.isfinite(a).all()
+        scale = float(b.abs().max())
+        assert float((a - b).abs().max()) <= 1e-4 * scale
+        k_far = float((a.double() - r).abs().mean())
+        p_far = float((b.double() - r).abs().mean())
+        assert k_far <= 2 * p_far + 1e-7 * scale, (k_far, p_far)
+
+
+def test_bwd_dense_position_free_and_repeatable(cuda):
+    """Per-example outputs are bitwise the same whatever batch an example
+    sits in (reversed, alone, a partial chunk, B+2), and a second launch
+    repeats every output, the batch sums included."""
+    ops = _bwd_dense_problem(cuda, 16, 4, 20, 1030, False, False)
+    full = fused_bwd_dense.fused_kkt_backward_dense(**ops)
+    again = fused_bwd_dense.fused_kkt_backward_dense(**ops)
+    assert all(torch.equal(a, b) for a, b in zip(full, again))
+    per = ('C', 'c', 'F', 'x_star', 'u_star', 'dl_dx', 'dl_du', 'I_mask')
+    rev = fused_bwd_dense.fused_kkt_backward_dense(**dict(
+        ops, **{k: ops[k].flip(1).contiguous() for k in per}))
+    assert torch.equal(rev[0].flip(0), full[0])
+    assert all(torch.equal(a.flip(1), b) for a, b in zip(rev[1:], full[1:]))
+    for n in (1, 7, 33, 65):
+        part = fused_bwd_dense.fused_kkt_backward_dense(**dict(
+            ops, **{k: ops[k][:, :n].contiguous() for k in per}))
+        assert torch.equal(part[0], full[0][:n])
+        # a batch of one has leaves of extent 1, which the backward reads
+        # as shared ones: their gradient is the one example's, unbatched
+        assert all(torch.equal(a.reshape(b[:, :n].shape), b[:, :n])
+                   for a, b in zip(part[1:], full[1:]))
+    shared = _bwd_dense_problem(cuda, 20, 4, 20, 1024, True, True)
+    one = fused_bwd_dense.fused_kkt_backward_dense(**shared)
+    two = fused_bwd_dense.fused_kkt_backward_dense(**shared)
+    assert all(torch.equal(a, b) for a, b in zip(one, two))
+    idx = torch.cat([torch.arange(1024), torch.arange(2)]).to(cuda)
+    more = fused_bwd_dense.fused_kkt_backward_dense(**dict(
+        shared, **{k: shared[k][:, idx].contiguous() for k in per[3:]}))
+    assert torch.equal(more[0][:1024], one[0])
+
+
+def test_bwd_dense_differentiable_solve_launches_once(cuda):
+    """A differentiable 6-state, 2-control solve on the default device
+    launches the dense forward and the dense backward once each, no eager
+    solve or fixed point; float64 on the card takes the eager fixed
+    point."""
+    cfg, x0, cost, dyn, bk = _dense_problem(cuda, 256, 6, 2)
+    cfg = dataclasses.replace(cfg, backprop=True, detach_unconverged=False)
+    c = cost.c.clone().requires_grad_(True)
+    F = dyn.F.clone().requires_grad_(True)
+    out, launched = _launched(lambda: mt.batched_solve(
+        cfg, x0, mt.QuadCost(cost.C, c), mt.LinDx(F, dyn.f), **bk))
+    assert launched == {'fused_ilqr_dense': 1}
+    solver.reset_eager_counts()
+    _, launched = _launched(lambda: (out.u ** 2).sum().backward())
+    assert launched == {'fused_kkt_bwd_dense': 1}
+    assert solver.eager_counts == {'eager_solve': 0, 'eager_fixed_point': 0}
+    assert torch.isfinite(c.grad).all() and c.grad.abs().max() > 0
+    assert torch.isfinite(F.grad).all() and F.grad.abs().max() > 0
+    cfg64, x64, cost64, dyn64, bk64 = _dense_problem(cuda, 16, 6, 2,
+                                                     dtype=torch.float64)
+    c64 = cost64.c.clone().requires_grad_(True)
+    solver.reset_eager_counts()
+    sol = mt.batched_solve(dataclasses.replace(cfg64, backprop=True),
+                           x64, mt.QuadCost(cost64.C, c64), dyn64, **bk64)
+    _, launched = _launched(lambda: (sol.u ** 2).sum().backward())
+    assert launched == {}
+    assert solver.eager_counts['eager_fixed_point'] == 1
+
+
+def test_bwd_dense_raises_rather_than_falls_back(cuda, monkeypatch):
+    ops = _bwd_dense_problem(cuda, 6, 2, 5, 64, True, True)
+    with pytest.raises(ValueError):
+        fused_bwd_dense.fused_kkt_backward_dense(**dict(
+            ops, C=ops['C'].double()))
+
+    def broken(*a, **k):
+        raise RuntimeError('the dense backward library is broken')
+
+    monkeypatch.setattr(fused_bwd_dense, 'kernel_lib', broken)
+    fused_bwd.reset_launch_counts()
+    with pytest.raises(RuntimeError, match='broken'):
+        fused_bwd_dense.fused_kkt_backward_dense(**ops)
+    cfg, x0, cost, dyn, bk = _dense_problem(cuda, 64, 6, 2)
+    c = cost.c.clone().requires_grad_(True)
+    sol = mt.batched_solve(dataclasses.replace(cfg, backprop=True), x0,
+                           mt.QuadCost(cost.C, c), dyn, **bk)
+    solver.reset_eager_counts()
+    with pytest.raises(RuntimeError, match='broken'):
+        (sol.u ** 2).sum().backward()
+    assert fused_bwd.launch_counts['fused_kkt_bwd_dense'] == 0
+    assert solver.eager_counts['eager_fixed_point'] == 0
 
 
 def _counts():
