@@ -90,14 +90,30 @@ point against K2 ([eager-grad]); the MLP problem through the eager
 solver against K3 ([eager-nn]); an affine model and the pseudo-Huber
 cost, the card's float64 against the CPU's ([eager-models]).
 
+The nonlinear models in the kernels: config 3, the cartpole
+(benchmarks/configs.py:173-202: B=512, T=25, lqr_iter=10, box +-100, 2
+step sizes, nothing cut), the cartpole at T=200 and the headline under
+slew 0.5 (4 augmented states) in the dense configuration's model-step
+build (csrc/soa_model.cuh, cartpole.cuh: the model's step in the
+rollouts, its Jacobians in a pass parallel over t), and the damped,
+biased pendulum at the headline's sizes in K1 and at T=200 in K3
+(MPC_DAMPED): each kernel against its plain version, float64, reversed,
+sliced and B+2 batches ([compare-soa]); config 3 through batched_solve
+and MPC, a closed loop of 20 steps, and requests of every row, one launch
+each ([serve-soa]); the kernels' times from CUDA graphs against their
+bounds ([time-soa]); gradients of a config-3 loss through one dense
+forward and one dense-backward launch against the eager fixed point on
+the same primal, float64 and TF32 ([grad-cartpole]); [eager-cartpole]
+then times config 3 on the eager route beside the kernel route.
+
 The controller's own surface: make_closed_loop at bench_closed_loop's
 sizes (benchmarks/configs.py:375-417; B = 1, 16, 256 and 4096, one K1
 launch a step, bitwise the host loop of [swingup], the swing-up through
 it; [closed-loop]); a slew-rate penalty on a double integrator, whose
 augmented LinDx of three states K3 takes ([slew-k3]: K3 against its
 plain version, requests, gradients through the eager fixed point); the
-slew-augmented pendulum in a closed loop on the eager route
-([slew-eager]); bench_long_horizon's two arms, the O(log T) Riccati scan
+slew-augmented pendulum in a closed loop on the eager route, pinned
+there with use_fused='never' ([slew-eager]); bench_long_horizon's two arms, the O(log T) Riccati scan
 against the sequential recursion, and the scan in the long
 configuration's float64 gradients ([pscan]); MPC(verbose=1) and
 ANALYTIC_CHECK on the card ([verbose]).
@@ -280,6 +296,16 @@ def phase_build():
         for label, ns, nc in sorted({r[:3] for r in BWD_DENSE_ROWS})]
     specs += [('fused_kkt_bwd_dense', fused_bwd_dense.bwd_dense_kernel_defines(
         ns, nc, True, False)) for ns, nc in ((28, 4), (24, 8))]
+    # the nonlinear models: the dense configuration's model-step build for
+    # the cartpole and the slew-augmented pendulums and cartpole, K1 and K3
+    # on the damped pendulum
+    specs += [('fused_ilqr_dense', fused_dense.dense_kernel_defines(
+        ns, 1, True, False, model, slew)) for ns, model, slew in (
+            (5, 'cartpole', False), (4, 'pendulum', True),
+            (4, 'damped_pendulum', True), (6, 'cartpole', True))]
+    specs += [('fused_ilqr', fused.kernel_defines(T, True, damped=True)),
+              ('fused_ilqr_long', fused.long_kernel_defines(False, True,
+                                                            damped=True))]
     t0 = time.perf_counter()
     paths = _build.build(specs)
     log(f'[build] nvcc {" ".join(_build.NVCC_FLAGS)} '
@@ -305,7 +331,14 @@ def phase_build():
             *((f'dense backward {label} {ns}s{nc}c, B={n}',
                fused_bwd_dense.k4d_launch(
                    TVLQR['T'] if label == 'tvlqr' else MEDIUM['T'], n, ns,
-                   nc)) for label, ns, nc, n in BWD_DENSE_ROWS)):
+                   nc)) for label, ns, nc, n in BWD_DENSE_ROWS),
+            *((f'SoA {label} ({kernel}), B={n}, T={T_}',
+               fused_dense.k3d_launch(T_, n, 4 if model == 'slew' else 5, 1,
+                                      CARTPOLE['max_linesearch_iter'] if
+                                      model == 'cartpole' else 5, True)
+               if kernel == 'dense' else fused.k1_launch(T_, n, 5)
+               if kernel == 'K1' else fused.k3_launch(T_, n, 5))
+              for label, model, T_, n, kernel in SOA_ROWS)):
         log(f'  launch, {what}: {geo}')
 
 
@@ -2087,7 +2120,8 @@ MEDIUM = dict(n_state=24, n_ctrl=4, T=20, lqr_iter=10, eps=0.0,
 MEDIUM_B = 2048
 CARTPOLE = dict(n_state=5, n_ctrl=1, T=25, lqr_iter=10, eps=0.0,
                 exit_unconverged=False, detach_unconverged=False,
-                backprop=False, linesearch_decay=0.5, max_linesearch_iter=2)
+                backprop=False, linesearch_decay=0.5, max_linesearch_iter=2,
+                use_fused='never')
 CARTPOLE_B = 512
 LONG_EAGER = dict(n_state=3, n_ctrl=1, T=512, lqr_iter=5, eps=0.0,
                   exit_unconverged=False, detach_unconverged=False,
@@ -2422,9 +2456,12 @@ def cartpole_problem(torch, device, dtype, n, seed=2):
 
 
 def phase_eager_cartpole(torch, device, records):
+    """Config 3 through the eager solver (use_fused='never'), float32
+    against float64, timed beside the kernel route's request (the dense
+    configuration's model-step build) in the same process."""
     import mpc_tpu_torch as mt
     log(f'[eager-cartpole] config 3: CartpoleDx, B={CARTPOLE_B}, T=25, '
-        'AUTO_DIFF through torch.func, box +-100')
+        'AUTO_DIFF through torch.func, box +-100, use_fused=\'never\'')
     cfg = mt.MPCConfig(grad_method=mt.GradMethods.AUTO_DIFF, **CARTPOLE)
     kw = dict(u_lower=-100.0, u_upper=100.0, device=device)
     x0, cost, dx = cartpole_problem(torch, device, torch.float32,
@@ -2435,12 +2472,20 @@ def phase_eager_cartpole(torch, device, records):
                                          CARTPOLE_B)
     s64 = mt.batched_solve(cfg, x64, cost64, dx64, **kw)
     mx = check_tail('f32 vs f64', runs[-1].u, s64.u)
+    k_ms = kernel_route_ms(torch, device, CARTPOLE, x0, cost, dx, 3,
+                           u_lower=-100.0, u_upper=100.0)
     log(f'  {n_eager} eager solves, median {ms:.1f} ms '
-        f'({CARTPOLE_B / ms * 1e3:.0f} solves/s), {card_line()}')
+        f'({CARTPOLE_B / ms * 1e3:.0f} solves/s); the kernel route (the '
+        f'dense configuration\'s model-step build) {k_ms:.3f} ms, eager / '
+        f'kernel {ms / k_ms:.0f}; {card_line()}')
+    if n_eager != 3:
+        raise AssertionError('config 3 under use_fused=\'never\' must run '
+                             'the eager solver')
     eager_record(records, 'eager-cartpole', f'config 3, B={CARTPOLE_B}, '
                  'T=25, float32', n_eager, mx, 'float64 eager run',
                  f'mean|du|<{TAIL_MEAN}, share(|du|>{TAIL_ENTRY})'
                  f'<{TAIL_SHARE}', ms)
+    records[-1]['kernel_median_ms'] = k_ms
 
 
 def phase_eager_long(torch, device, records):
@@ -3381,6 +3426,513 @@ def bwd_dense_entries(rows, fwd_row, train, diff_solve, err):
                                     'bound_by')}}]
 
 
+# ---------------------------------------------------------------------------
+# The nonlinear models in the kernels: the cartpole (config 3) and the
+# slew-augmented models in the dense configuration's model-step build, the
+# damped pendulum in K1 and K3
+# ---------------------------------------------------------------------------
+
+# the damped, biased pendulum's (g, m, l, d, b)
+SOA_DAMPED = (10.0, 1.0, 1.0, 0.1, 0.05)
+SOA_LONG_T = 200
+# (label, model, T, B, kernel): config 3 (benchmarks/configs.py:173-202)
+# and the cartpole at T=200 in the dense configuration; the damped
+# pendulum at the headline's sizes in K1 and at T=200 in K3; the headline
+# under slew_rate_penalty=0.5 (4 augmented states) in the dense
+# configuration
+SOA_ROWS = (
+    ('config 3', 'cartpole', 25, CARTPOLE_B, 'dense'),
+    (f'cartpole T={SOA_LONG_T}', 'cartpole', SOA_LONG_T, CARTPOLE_B, 'dense'),
+    ('damped', 'damped', T, B, 'K1'),
+    (f'damped T={SOA_LONG_T}', 'damped', SOA_LONG_T, B, 'K3'),
+    ('slew 0.5', 'slew', T, B, 'dense'),
+)
+SOA_MAIN = SOA_ROWS[0]
+SOA_REQUESTS = 4
+SOA_LOOP_STEPS = 20
+SOA_GRAD_B = CARTPOLE_B
+# The cartpole's controls span +-100 (100x the pendulum's +-2 and 200x
+# the unit scale of the float32 tail's TAIL_ENTRY), and its objective
+# weighs a control by 0.001, so a float32 round-off tie of the line search
+# leaves two solves apart by ~1e-3 of the range where the pendulum's part
+# by ~1e-3 absolute.  Its tail is held relative to that range: mean |du|
+# and the share above TAIL_ENTRY, both of |du| / CART_U_SCALE.
+CART_U_SCALE = 100.0
+
+
+def soa_problem(torch, device, label, dtype=None, n=None):
+    """(cfg, x0, cost, dynamics, bounds, prev_ctrl) of a SOA_ROWS row at
+    its own sizes (or on its first n examples), on the kernel route."""
+    import numpy as np
+    import mpc_tpu_torch as mt
+    from mpc_tpu_torch.models import PendulumDx
+    dtype = dtype or torch.float32
+    _, model, T_, n0, _ = next(r for r in SOA_ROWS if r[0] == label)
+    n = n or n0
+    if model == 'cartpole':
+        x0, cost, dx = cartpole_problem(torch, device, dtype, n)
+        cfg = mt.MPCConfig(**dict(CARTPOLE, T=T_, use_fused='auto'),
+                           grad_method=mt.GradMethods.AUTO_DIFF)
+        return cfg, x0, cost, dx, dict(u_lower=-100.0, u_upper=100.0), None
+    box = dict(u_lower=-2.0, u_upper=2.0)
+    if model == 'damped':
+        dx = PendulumDx(params=torch.tensor(SOA_DAMPED, dtype=dtype,
+                                            device=device), simple=False)
+        q, p = dx.get_true_obj()
+        return (mt.MPCConfig(**dict(HEADLINE, T=T_)),
+                x0_batch(n, 5, torch, device).to(dtype),
+                mt.QuadCost(torch.diag(q), p), dx, box, None)
+    dx, cost = problem(torch, device, dtype)
+    prev = torch.tensor(np.random.RandomState(33).uniform(-1, 1, (n, 1)),
+                        dtype=dtype, device=device)
+    return (mt.MPCConfig(**dict(HEADLINE, T=T_, slew_rate_penalty=0.5)),
+            x0_batch(n, 7, torch, device).to(dtype), cost, dx, box, prev)
+
+
+def soa_operands(torch, device, label, dtype=None, n=None):
+    """A SOA_ROWS row's kernel operands, its kernel and plain version."""
+    from mpc_tpu_torch.ops import fused
+    from mpc_tpu_torch.ops import fused_dense as fd
+    cfg, x0, cost, dx, bk, prev = soa_problem(torch, device, label, dtype, n)
+    kernel = next(r for r in SOA_ROWS if r[0] == label)[4]
+    if kernel == 'dense':
+        if prev is not None:
+            cfg, x0, cost, dx = fused.slew_problem(cfg, x0, cost, dx, prev)
+        return (fd.k3d_operands(cfg, x0, cost, dx, **bk),
+                fd.fused_ilqr_dense, fd.fused_solve_dense_plain)
+    if kernel == 'K1':
+        return (fused.k1_operands(cfg, x0, cost, dx, **bk),
+                fused.fused_ilqr, fused.fused_solve_plain)
+    return (fused.k3_operands(cfg, x0, cost, dx, **bk),
+            fused.fused_ilqr_long, fused.fused_solve_long_plain)
+
+
+def soa_limits(label):
+    """The float32 tail of a row: the pendulum's; the cartpole's at the
+    long configuration's level, relative to its control range
+    (CART_U_SCALE); None for the damped pendulum past K1's horizon, held
+    against float64 alone (``hold_long_pendulum``)."""
+    _, model, T_, _, _ = next(r for r in SOA_ROWS if r[0] == label)
+    if model == 'cartpole':
+        return (LONG_TAIL_MEAN, LONG_TAIL_SHARE)
+    return None if model == 'damped' and T_ > T else (TAIL_MEAN, TAIL_SHARE)
+
+
+def hold_long_pendulum(torch, what, ops, ops64, kernel, plain):
+    """A long pendulum horizon, where two float32 solves drift apart
+    (PEND_LONG_T's note; on an NVIDIA H100 80GB HBM3 at 700 W the damped
+    pendulum at T=200 parts by mean |du| 8.6e-3, 3.3% of entries past
+    1e-3): the tail shown, the kernel held against the float64 plain run
+    (at most twice the plain float32 run's distance), the counts as the
+    teams' compare holds them (n_iter equal in TEAMS_SAME_ITER of the
+    examples), the reversed batch bitwise.  Returns the kernel's
+    outputs and max |du|."""
+    xk, uk, sk = kernel(**ops)
+    xp, up, sp = plain(**ops)
+    _, u64, _ = plain(**ops64)
+    if not all(torch.isfinite(t).all() for t in (xk, uk, sk)):
+        raise AssertionError(f'{what}: the kernel returned non-finite values')
+    hold_f64(what, uk, up, u64)
+    hold_counts(torch, what, sk, sp, mixed=False, trials=False)
+    B_ = ops['x0'].shape[0]
+    r = kernel(**batch_subset(torch, ops, torch.arange(B_ - 1, -1, -1)))
+    if not all(torch.equal(a.flip(1), b) for a, b in zip(r, (xk, uk, sk))):
+        raise AssertionError(f'{what}: reversed batch is not bitwise equal')
+    log('  reversed batch: bitwise equal')
+    return (xk, uk, sk), float((uk - up).abs().max())
+
+
+def phase_compare_soa(torch, device):
+    """Each SOA_ROWS row's kernel against its plain version on the card
+    (hold_k1: the float32 tail, n_iter equal, at most twice the plain
+    float32 run's distance from a float64 plain run, the reversed batch
+    bitwise), B = 1, 7, 33 alone and the batch with two more examples
+    bitwise.  The cartpole's controls are held divided by CART_U_SCALE.
+    Returns max |du| and the plain float32 run's device ms, by row."""
+    max_du, plain_ms = {}, {}
+    for label, model, T_, n, kname in SOA_ROWS:
+        what = f'{label} ({kname}), B={n}, T={T_}'
+        log(f'[compare-soa] {what}: kernel vs its plain version')
+        t0 = time.perf_counter()
+        ops, kernel, plain = soa_operands(torch, device, label)
+        ops64, _, _ = soa_operands(torch, device, label, torch.float64)
+        times = []
+        scale = CART_U_SCALE if model == 'cartpole' else 1.0
+        if soa_limits(label) is None:
+            full, mx = hold_long_pendulum(torch, what, ops, ops64, kernel,
+                                          timed_plain(torch, plain, times))
+        elif scale != 1.0:
+            def scaled(fn):
+                def run(**o):
+                    x, u, s = fn(**o)
+                    return x, u / scale, s
+                return run
+            full, mx = hold_k1(torch, what, ops, ops64,
+                               kernel=scaled(kernel),
+                               plain=scaled(timed_plain(torch, plain, times)),
+                               limits=soa_limits(label))
+        else:
+            full, mx = hold_k1(torch, what, ops, ops64, kernel=kernel,
+                               plain=timed_plain(torch, plain, times),
+                               limits=soa_limits(label))
+        plain_ms[label] = times[0]
+        max_du[label] = mx * scale
+        if scale != 1.0:
+            full = kernel(**ops)
+        hold_slices(torch, what, kernel, ops, full)
+        r = kernel(**batch_subset(torch, ops, torch.cat(
+            [torch.arange(n), torch.arange(2)])))
+        if not all(torch.equal(r[i][:, :n], full[i])
+                   and torch.equal(r[i][:, n:], full[i][:, :2])
+                   for i in range(3)):
+            raise AssertionError(f'{what}: B={n + 2} differs from B={n}')
+        box = 100.0 if model == 'cartpole' else 2.0
+        log(f'  {what}: B={n + 2} bitwise equal to B={n}; controls on the '
+            f'box {float((full[1].abs() == box).double().mean()):.3f}, '
+            f'n_iter a solve {float(full[2][2].double().mean()):.2f}, trials '
+            f'a solve {float(full[2][5].double().mean()):.2f}; plain '
+            f'{times[0]:.1f} ms; {time.perf_counter() - t0:.1f} s')
+    return max_du, plain_ms
+
+
+def soa_counted(torch, fn):
+    """``fn()`` with every count set to 0 just before and read just after:
+    (result, the nonzero launch counts, eager solves)."""
+    from mpc_tpu_torch import solver
+    reset_all_counts()
+    solver.reset_eager_counts()
+    out = fn()
+    return (out, {k: v for k, v in all_counts().items() if v},
+            solver.eager_counts['eager_solve'])
+
+
+def phase_serve_soa(torch, device):
+    """The rows through the entry points, every count set to 0 before and
+    read after: config 3 as SOA_REQUESTS distinct batches through
+    batched_solve and one through MPC (host to host, one dense launch a
+    request and no eager solve), a closed loop of SOA_LOOP_STEPS steps
+    through make_closed_loop (one dense launch a step, bitwise the host
+    loop of batched_solve), and two requests of each other row (one launch
+    of its kernel each).  The last config-3 answer holds up: x the
+    rollout of u, costs its objective, u in its box.  Returns the
+    launches by row, config 3's median request ms, MPC's ms and the
+    loop's ms a step."""
+    import numpy as np
+    import mpc_tpu_torch as mt
+    from mpc_tpu_torch.solver import rollout, trajectory_cost
+    out = {'launches': {}}
+    cfg, x0, cost, dx, bk, _ = soa_problem(torch, device, 'config 3')
+    n = x0.shape[0]
+    reqs = []
+    for i in range(SOA_REQUESTS):
+        th = 0.5 * (2 * np.random.RandomState(400 + i).rand(n) - 1)
+        z = np.zeros(n)
+        reqs.append(torch.tensor(np.stack([z, z, np.cos(th), np.sin(th), z],
+                                          1), dtype=torch.float32))
+    mt.batched_solve(cfg, x0, cost, dx, device=device, **bk).u.cpu()
+    ctrl = mt.MPC(5, 1, cfg.T, lqr_iter=cfg.lqr_iter, eps=cfg.eps,
+                  linesearch_decay=cfg.linesearch_decay,
+                  max_linesearch_iter=cfg.max_linesearch_iter,
+                  grad_method=mt.GradMethods.AUTO_DIFF,
+                  exit_unconverged=False, detach_unconverged=False,
+                  backprop=False, device=device, **bk)
+
+    def serve():
+        lat, sols = [], []
+        for req in reqs:
+            t0 = time.perf_counter()
+            sol = mt.batched_solve(cfg, req.to(device), cost, dx,
+                                   device=device, **bk)
+            u = sol.u.cpu()
+            lat.append(1e3 * (time.perf_counter() - t0))
+            sols.append((sol, u))
+        t0 = time.perf_counter()
+        um = ctrl(reqs[0].to(device), cost, dx)[1].cpu()
+        return lat, sols, um, 1e3 * (time.perf_counter() - t0)
+
+    (lat, sols, um, mpc_ms), counts, n_eager = soa_counted(torch, serve)
+    n_req = SOA_REQUESTS + 1
+    ms = median(lat)
+    log(f'[serve-soa] config 3, B={n}: {SOA_REQUESTS} batched_solve requests, '
+        'latency ms ' + ' '.join(f'{v:.3f}' for v in lat) + f', median '
+        f'{ms:.3f} ({n / ms * 1e3:.0f} solves/s); MPC {mpc_ms:.3f} ms; '
+        f'launches {counts}, eager solves {n_eager}')
+    if n_eager or (device.type == 'cuda'
+                   and counts != {'fused_ilqr_dense': n_req}):
+        raise AssertionError('each config-3 request must launch the dense '
+                             'kernel once and nothing else')
+    if not torch.equal(um, sols[0][1]):
+        raise AssertionError('MPC and batched_solve answer differently')
+    sol, u = sols[-1]
+    x = reqs[-1].to(device)
+    xr = rollout(dx, x, u.to(device))
+    cr = trajectory_cost(cost, xr, u.to(device))
+    gap = float((cr - sol.costs).abs().max() / sol.costs.abs().max())
+    x_gap = float((xr - sol.x).abs().max() / sol.x.abs().max())
+    log(f'  last answer: relative cost gap to its own rollout {gap:.2e}, '
+        f'max |x - rollout| / max |x| {x_gap:.2e}')
+    if not (torch.isfinite(u).all() and u.abs().max() <= 100.0
+            and gap < 1e-3 and x_gap < 1e-3):
+        raise AssertionError('served controls are not a feasible solve')
+    out['launches']['config 3'] = n_req
+    out['request_ms'], out['mpc_ms'] = ms, mpc_ms
+    # the closed loop: one launch a step, bitwise the host loop
+    roll = mt.make_closed_loop(cfg, cost, dx, device=device, **bk)
+    roll(x0, 2)
+    (lp, counts, n_eager) = soa_counted(torch, lambda: host_ms(
+        torch, device, lambda: roll(x0, SOA_LOOP_STEPS)))
+    loop_ms, loop = lp
+    x, u_warm, xs, us = x0, torch.zeros(cfg.T, n, 1, device=device), [x0], []
+    for _ in range(SOA_LOOP_STEPS):
+        s = mt.batched_solve(cfg, x, cost, dx, u_init=u_warm, device=device,
+                             **bk)
+        x = dx(x, s.u[0])
+        u_warm = torch.cat([s.u[1:], torch.zeros_like(s.u[:1])])
+        xs.append(x)
+        us.append(s.u[0])
+    same_bits(f'make_closed_loop, {SOA_LOOP_STEPS} steps at B={n}, vs the '
+              'host loop, xs and us', torch,
+              [(loop['xs'], torch.stack(xs)), (loop['us'], torch.stack(us))])
+    log(f'  closed loop: {loop_ms:.1f} ms for {SOA_LOOP_STEPS} steps '
+        f'({1e3 * loop_ms / SOA_LOOP_STEPS:.0f} us a step), launches '
+        f'{counts}, eager solves {n_eager}; {card_line()}')
+    if n_eager or (device.type == 'cuda' and counts != {
+            'fused_ilqr_dense': SOA_LOOP_STEPS}):
+        raise AssertionError('each closed-loop step must launch the dense '
+                             'kernel once and nothing else')
+    out['loop_us_per_step'] = 1e3 * loop_ms / SOA_LOOP_STEPS
+    out['launches']['closed loop'] = SOA_LOOP_STEPS
+    # two requests of each other row, one launch of its kernel each
+    kname = {'dense': 'fused_ilqr_dense', 'K1': 'fused_ilqr',
+             'K3': 'fused_ilqr_long'}
+    for label, _, T_, n_, kernel in SOA_ROWS[1:]:
+        cfg_, x0_, cost_, dx_, bk_, prev = soa_problem(torch, device, label)
+        (sols_, counts, n_eager) = soa_counted(torch, lambda: [
+            mt.batched_solve(cfg_, x0_, cost_, dx_, prev_ctrl=prev,
+                             device=device, **bk_).u.cpu() for _ in range(2)])
+        log(f'[serve-soa] {label}, B={n_}, T={T_}: two requests, launches '
+            f'{counts}, eager solves {n_eager}')
+        if n_eager or (device.type == 'cuda'
+                       and counts != {kname[kernel]: 2}) \
+                or not torch.isfinite(sols_[-1]).all():
+            raise AssertionError(f'{label}: each request must launch its '
+                                 'kernel once and nothing else')
+        out['launches'][label] = 2
+    return out
+
+
+def soa_flops(ops, label, stats):
+    """The operations of a SOA_ROWS row's solve from this run's counts,
+    and the bytes it must move."""
+    from mpc_tpu_torch.ops import fused
+    from mpc_tpu_torch.ops import fused_dense as fd
+    kernel = next(r for r in SOA_ROWS if r[0] == label)[4]
+    sums = [float(stats[i].double().sum()) for i in (2, 3, 5)]
+    n = ops['x0'].shape[0]
+    T_ = ops['u0'].shape[0]
+    if kernel == 'dense':
+        ns = ops['x0'].shape[1]
+        name, _ = fd.dense_model(ops['model'])
+        return (fd.k3d_flops(T_, ns, 1, sums[0], sums[2], batch=n,
+                             model_ops=fd.model_op_counts(name)),
+                fd.k3d_bytes(ops))
+    if kernel == 'K1':
+        return (fused.k1_flops(T_, 3, 1, sums[0], sums[2], batch=n,
+                               damped=True), fused.k1_bytes(ops))
+    return (fused.k3_flops(T_, 3, 1, sums[0], sums[2], batch=n, lindx=False,
+                           damped=True), fused.k1_bytes(ops))
+
+
+def soa_design(ops, label):
+    """The design entry (geometry, registers, spills) of a row's build."""
+    from mpc_tpu_torch.ops import fused
+    from mpc_tpu_torch.ops import fused_dense as fd
+    kernel = next(r for r in SOA_ROWS if r[0] == label)[4]
+    T_, n = ops['u0'].shape[:2]
+    n_alpha = len(ops['alphas'])
+    if kernel == 'dense':
+        ns = ops['x0'].shape[1]
+        name, slew = fd.dense_model(ops['model'])
+        return design('fused_ilqr_dense', fd.dense_kernel_defines(
+            ns, 1, True, False, name, slew),
+            fd.k3d_launch(T_, n, ns, 1, n_alpha, True))
+    if kernel == 'K1':
+        return design('fused_ilqr', fused.kernel_defines(T_, True, True),
+                      fused.k1_launch(T_, n, n_alpha))
+    return design('fused_ilqr_long', fused.long_kernel_defines(
+        False, True, damped=True), fused.k3_launch(T_, n, n_alpha))
+
+
+def phase_time_soa(torch, device, plain_ms):
+    """Each SOA_ROWS row's kernel timed from a CUDA graph, its bound from
+    this run's iterations and trial rollouts (k3d_flops with the model's
+    operation counts, k1_flops and k3_flops with the damped pendulum's),
+    its registers and spills, beside the plain version's ms of
+    [compare-soa].  Returns the rows."""
+    rows = []
+    for label, model, T_, n, kname in SOA_ROWS:
+        ops, kernel, _ = soa_operands(torch, device, label)
+        _, _, st = kernel(**ops)
+        ms, eager_ms = graph_ms(torch, lambda: kernel(**ops), reps=3,
+                                per_graph=4)
+        flops, nbytes = soa_flops(ops, label, st)
+        bound_ms, by = bound(flops, nbytes)
+        des = soa_design(ops, label)
+        log(f'[time-soa] {label} ({kname}), B={n}, T={T_}: {ms:.4f} ms (from '
+            f'a CUDA graph; {eager_ms:.4f} ms a call from Python), plain '
+            f'{plain_ms[label]:.1f} ms; {flops:.4e} operations '
+            f'({float(st[2].double().mean()):.2f} iterations, '
+            f'{float(st[5].double().mean()):.2f} trials a solve), {nbytes} '
+            f'bytes; bound {bound_ms:.5f} ms by {by} ({ms / bound_ms:.1f}x); '
+            f'{n / ms * 1e3:.0f} solves/s; registers {des["registers"]}, '
+            f'spill stores {des["spill_store_bytes"]} bytes; {card_line()}')
+        rows.append(dict(row=f'{label} B={n} T={T_}', ms=ms,
+                         plain_ms=plain_ms[label], bound_ms=bound_ms,
+                         bound_by=by, registers=des['registers'],
+                         spill_store_bytes=des['spill_store_bytes'],
+                         design=des))
+    return rows
+
+
+def cartpole_grads(torch, device, n, primal=None, dtype=None):
+    """A loss of a differentiable config-3 solve at B=n with gradients to
+    CartpoleDx.params, x_init and c: through the kernels (the dense
+    configuration's forward, the dense backward), or, given the Solution
+    ``primal`` of the kernels' phase 1, through the eager fixed point on
+    it (in ``dtype``).  Returns [loss, d params, d x_init, d c] and the
+    kernels' Solution."""
+    import numpy as np
+    import mpc_tpu_torch as mt
+    from mpc_tpu_torch import solver
+    from mpc_tpu_torch.models import CartpoleDx
+    dtype = dtype or torch.float32
+    cfg = mt.MPCConfig(**dict(CARTPOLE, backprop=True, use_fused='auto'),
+                       grad_method=mt.GradMethods.AUTO_DIFF)
+    x0, cost, dx = cartpole_problem(torch, device, dtype, n)
+    prm = dx.params.clone().requires_grad_()
+    dx = CartpoleDx(params=prm)
+    x0 = x0.requires_grad_()
+    c = cost.c.clone().requires_grad_()
+    cost = mt.QuadCost(cost.C, c)
+    u_exp = torch.tensor(0.3 * np.random.RandomState(17).randn(cfg.T, n, 1),
+                         dtype=dtype, device=device)
+    sol = None
+    if primal is None:
+        sol = mt.batched_solve(cfg, x0, cost, dx, u_lower=-100.0,
+                               u_upper=100.0, device=device)
+        x, u = sol.x, sol.u
+    else:
+        lb = torch.tensor(-100.0, dtype=dtype, device=device)
+        x, u = solver.fixed_point_phase(cfg, x0, cost, dx,
+                                        primal.x.to(dtype),
+                                        primal.u.to(dtype), lb, -lb,
+                                        primal.converged)
+    loss = ((u / CART_U_SCALE - u_exp) ** 2).mean() + 0.1 * (x ** 2).mean()
+    loss.backward()
+    return [loss.detach(), prm.grad, x0.grad, c.grad], sol
+
+
+def phase_grad_cartpole(torch, device, n=SOA_GRAD_B):
+    """Gradients of a config-3 loss to CartpoleDx.params, x_init and c
+    through one dense forward and one dense-backward launch: against the
+    eager fixed point on the same converged trajectory and against the
+    float64 eager fixed point on it (each within BWD_TOL relative to the
+    gradient's largest entry: the two backward algorithms differ, so the
+    float32 eager one is no yardstick of distance from float64), and
+    with TF32 on and off (bitwise).  Returns the launches of the solve and the
+    largest gradient error."""
+    from mpc_tpu_torch.ops import fused_bwd
+    log(f'[grad-cartpole] config 3, B={n}: gradients to the cartpole\'s '
+        'parameters, x_init and c through the dense configuration and the '
+        'dense backward')
+    (kk, sol), counts, n_eager = soa_counted(
+        torch, lambda: cartpole_grads(torch, device, n))
+    from mpc_tpu_torch import solver
+    if solver.eager_counts['eager_fixed_point'] or n_eager or (
+            device.type == 'cuda' and counts != {
+                'fused_ilqr_dense': 1, 'fused_kkt_bwd_dense': 1}):
+        raise AssertionError('a differentiable cartpole solve must launch '
+                             'the dense forward and the dense backward once '
+                             f'each and nothing else: {counts}')
+    log(f'  launches {counts}, eager solves {n_eager}; converged '
+        f'{float(sol.converged.double().mean()):.3f}, n_iter a solve '
+        f'{float(sol.n_iter.double().mean()):.2f}')
+    primal = sol._replace(x=sol.x.detach(), u=sol.u.detach())
+    ref, _ = cartpole_grads(torch, device, n, primal)
+    ref64, _ = cartpole_grads(torch, device, n, primal, torch.float64)
+    err = 0.0
+    for name, g, r, r64 in zip(('params', 'x_init', 'c'), kk[1:], ref[1:],
+                               ref64[1:]):
+        e = rel_err(g, r)
+        err = max(err, e)
+        e64 = rel_err(g, r64)
+        log(f'  {name}: max |dense backward - eager| / max |eager| {e:.3e}; '
+            f'max |dense backward - f64 eager| / max |f64 eager| {e64:.3e} '
+            f'(eager f32: {rel_err(r, r64):.3e})')
+        if not (torch.isfinite(g).all() and float(g.abs().max()) > 0):
+            raise AssertionError(f'{name}: gradient not finite or zero')
+        if not e64 < BWD_TOL:
+            raise AssertionError(f'{name}: the kernels\' gradient is off the '
+                                 'float64 fixed point')
+        err = max(err, e64)
+    if not err < BWD_TOL:
+        raise AssertionError('cartpole gradients through the dense backward '
+                             'are off the eager fixed point')
+    phase_tf32(torch, 'config-3 loss and gradients through the dense '
+               'forward and backward',
+               lambda: cartpole_grads(torch, device, n)[0])
+    return counts, err
+
+
+def soa_entries(rows, serve, grad_counts, grad_err, err, eager):
+    """The kernels line's entries of this slice: the model-step build at
+    config 3 (serving, and the gradient path's launches, and beside its
+    request the eager route's ms and the kernel route's in that phase,
+    ``eager`` the [eager-cartpole] record) and under slew, K1 and K3 on
+    the damped pendulum, each with its row's max |du| (``err`` by row);
+    every row under 'rows'."""
+    by_row = {r['row'].split(' B=')[0]: r for r in rows}
+    tol = (f'pendulum: mean|du|<{TAIL_MEAN}, share(|du|>{TAIL_ENTRY})'
+           f'<{TAIL_SHARE}; cartpole: the same of |du|/{CART_U_SCALE} at '
+           f'{LONG_TAIL_MEAN}, {LONG_TAIL_SHARE}; every row at most 2x the '
+           f'plain f32 distance from f64, the damped pendulum at '
+           f'T={SOA_LONG_T} by that alone')
+    out = []
+    for label, name, source, line, path in (
+            ('config 3', 'fused_ilqr_dense (cartpole)',
+             'fused_ilqr_dense.cu', 617, 'config 3 serving'),
+            ('slew 0.5', 'fused_ilqr_dense (slew pendulum)',
+             'fused_ilqr_dense.cu', 617, 'slew serving'),
+            ('damped', 'fused_ilqr (damped pendulum)', 'fused_ilqr.cu', 617,
+             'damped serving'),
+            (f'damped T={SOA_LONG_T}', 'fused_ilqr_long (damped pendulum)',
+             'fused_ilqr_long.cu', 1126, 'damped long horizon')):
+        r = by_row[label]
+        e = {'name': name, 'path': path, 'route': 'cuda',
+             'source': f'mpc_tpu_torch/csrc/{source}',
+             'headers': ['mpc_tpu_torch/csrc/pendulum.cuh'],
+             'replaces': f'mpc_tpu/ops/fused.py:{line}',
+             'design': r['design'], 'launches': serve['launches'][label],
+             'max_abs_err': err[label], 'tolerance': tol, 'library_ms': None,
+             **{k: r[k] for k in ('ms', 'plain_ms', 'bound_ms', 'bound_by')}}
+        if 'dense' in source:
+            e['headers'] += ['mpc_tpu_torch/csrc/soa_model.cuh',
+                             'mpc_tpu_torch/csrc/cartpole.cuh',
+                             'mpc_tpu_torch/csrc/box_qp.cuh']
+        if label == 'config 3':
+            e.update(request_ms=serve['request_ms'],
+                     eager_ms=eager['median_ms'],
+                     kernel_route_ms_beside_eager=eager['kernel_median_ms'],
+                     loop_us_per_step=serve['loop_us_per_step'],
+                     launches_closed_loop=serve['launches']['closed loop'],
+                     launches_grad_cartpole=grad_counts,
+                     grad_err_vs_eager=grad_err,
+                     rows=[{k: v for k, v in x.items() if k != 'design'}
+                           for x in rows])
+        out.append(e)
+    return out
+
+
 CLOSED_LOOP_BS = (1, 16, 256, B)
 CLOSED_LOOP_STEPS = 100
 # the step of the B=4096 loop whose K1 operands are held against the
@@ -3397,10 +3949,12 @@ SLEW = dict(n_state=2, n_ctrl=1, T=LONG_T, lqr_iter=4, eps=0.0,
             linesearch_decay=0.2, max_linesearch_iter=3,
             slew_rate_penalty=0.5)
 SLEW_B = LONG_B
-# the headline's solve under the same penalty on the eager route (the
-# pendulum's augmented state has 4 states, past K1's 3): a closed loop of
-# 10 steps at B=256, ~38,600 operations a solve (a CPU count)
-SLEW_EAGER = dict(HEADLINE, slew_rate_penalty=0.5)
+# the headline's solve under the same penalty on the eager route, pinned
+# there with use_fused='never' (the kernels take the augmented pendulum
+# of 4 states in the dense configuration's model-step build, [compare-soa]):
+# a closed loop of 10 steps at B=256, ~38,600 operations a solve (a CPU
+# count)
+SLEW_EAGER = dict(HEADLINE, slew_rate_penalty=0.5, use_fused='never')
 SLEW_EAGER_B, SLEW_EAGER_STEPS = 256, 10
 # The card's float64 loop against the CPU's.  Each solve of the loop
 # starts from the last one's solution and runs 10 iterations with eps = 0,
@@ -3917,9 +4471,9 @@ def phase_slew_eager(torch, device, records, n=SLEW_EAGER_B,
     dx, cost = problem(torch, device)
     dx64, cost64 = problem(torch, device, torch.float64)
     x0 = x0_batch(n, 7, torch, device)
-    if fused.scope_gap(cfg, cost, dx) is None:
-        raise AssertionError('the slew-augmented pendulum is in the kernels\' '
-                             'scope')
+    if fused.scope_gap(cfg, cost, dx) is not None:
+        raise AssertionError('the kernels do not take the slew-augmented '
+                             'pendulum: this phase would not be pinned')
     kw = dict(u_lower=-2.0, u_upper=2.0, device=device)
     roll = mt.make_closed_loop(cfg, cost, dx, **kw)
     (ms, out), n_eager = eager_counted(torch, lambda: host_ms(
@@ -4909,6 +5463,19 @@ def main():
         torch, device, train_dense)
     log(f'[bwd-dense] the dense backward\'s phases took '
         f'{time.perf_counter() - t_bwd_dense:.1f} s')
+    t_soa = [time.perf_counter()]
+    soa_err, soa_plain_ms = phase_compare_soa(torch, device)
+    t_soa.append(time.perf_counter())
+    soa_serve = phase_serve_soa(torch, device)
+    t_soa.append(time.perf_counter())
+    soa_rows = phase_time_soa(torch, device, soa_plain_ms)
+    t_soa.append(time.perf_counter())
+    grad_counts, grad_err = phase_grad_cartpole(torch, device)
+    t_soa.append(time.perf_counter())
+    log('[soa] the nonlinear models\' phases took ' + ', '.join(
+        f'{b - a:.1f} s [{k}]' for k, a, b in zip(
+            ('compare-soa', 'serve-soa', 'time-soa', 'grad-cartpole'),
+            t_soa, t_soa[1:])) + f': {t_soa[-1] - t_soa[0]:.1f} s')
     t_new = time.perf_counter()
     closed = phase_closed_loop(torch, device)
     t_closed = time.perf_counter()
@@ -5036,6 +5603,8 @@ def main():
         *dense_entries(dense_rows, dense_launches, dense_req_ms, dense_err),
         *bwd_dense_entries(bwd_dense_rows, fwd_train_row, train_dense,
                            diff_solve, bwd_dense_err),
+        *soa_entries(soa_rows, soa_serve, grad_counts, grad_err, soa_err,
+                     next(r for r in eager if r['phase'] == 'eager-cartpole')),
         *scale_entries(scale, {'k1': (max_err, timing),
                                'k2': (bwd_err, timing_bwd),
                                'k3': (long_err, timing_long),

@@ -71,6 +71,9 @@ imports none of them.
 import importlib
 
 from .types import GradMethods, LinDx, MPCConfig, QuadCost, Solution
+# the ops before the models: the kernels' modules import every model whose
+# step they run, and each model imports the ops' elementwise helpers
+from . import ops
 from . import models, utils
 from .models import (AffineDynamics, CtrlPassthroughDynamics, NNDynamics,
                      PseudoHuberCost)

@@ -1,5 +1,6 @@
 // Kernel K1 for Hopper: the whole box-constrained iLQR solve of the
-// pendulum, a team of lanes per example, the horizon in shared memory.
+// pendulum (the simple one, or with MPC_DAMPED the damped, biased one), a
+// team of lanes per example, the horizon in shared memory.
 //
 // Replaces the TPU kernel mpc_tpu/ops/fused.py:_make_kernel (lines
 // 617-1119), which lays a tile of 1024 examples on the vector lanes,
@@ -76,6 +77,10 @@
 #if !defined(MPC_TEAM) || !defined(MPC_WARPS)
 #error "compile with -DMPC_TEAM=<lanes an example> -DMPC_WARPS=<warps a block>"
 #endif
+// the damped, biased pendulum (pendulum.cuh) instead of the simple one
+#ifndef MPC_DAMPED
+#define MPC_DAMPED 0
+#endif
 
 namespace cg = cooperative_groups;
 
@@ -85,6 +90,7 @@ constexpr int T = MPC_T;
 constexpr int NS = 3;
 constexpr int NTAU = 4;
 constexpr bool kHasBounds = MPC_HAS_BOUNDS != 0;
+constexpr bool kDamped = MPC_DAMPED != 0;
 constexpr int kMaxAlpha = 32;  // ops/fused.py:MAX_ALPHA
 constexpr int kTeam = MPC_TEAM;
 constexpr int kThreads = 32 * MPC_WARPS;
@@ -217,7 +223,7 @@ struct Team {
     sm(t, kSlotCb) = make_float4(cbv[0], cbv[1], cbv[2], cbv[3]);
     if (t < T - 1) {
       float F[NS][NTAU];
-      pendulum_jacobian(p, tau, tau[3], F);
+      pendulum_jacobian<kDamped>(p, tau, tau[3], F);
 #pragma unroll
       for (int i = 0; i < NS; ++i)
         sm(t, kSlotF + i) = make_float4(F[i][0], F[i][1], F[i][2], F[i][3]);
@@ -323,7 +329,7 @@ struct Team {
     du2 = t == 0 ? d * d : du2 + d * d;
     if (t < T - 1) {
       float xn[NS];
-      pendulum_step(p, xt, ut, xn);
+      pendulum_step<kDamped>(p, xt, ut, xn);
 #pragma unroll
       for (int i = 0; i < NS; ++i) xt[i] = xn[i];
     }
@@ -342,7 +348,7 @@ __global__ void __launch_bounds__(kThreads)
   const Team tm{op,
                 b,
                 e,
-                PendulumParams{op.params[0], op.params[1], op.params[2]},
+                load_pendulum<kDamped>(op.params),
                 op.C + b * op.sCb,
                 op.c + b * op.scb};
   // the lanes that roll out a trial, and the team's lanes within its
@@ -385,7 +391,7 @@ __global__ void __launch_bounds__(kThreads)
       cost_cur = t == 0 ? sc : cost_cur + sc;
       if (t < T - 1) {
         float xn[NS];
-        pendulum_step(tm.p, xt, ut, xn);
+        pendulum_step<kDamped>(tm.p, xt, ut, xn);
 #pragma unroll
         for (int i = 0; i < NS; ++i) xt[i] = xn[i];
       }

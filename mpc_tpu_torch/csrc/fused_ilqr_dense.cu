@@ -61,6 +61,26 @@
 // arithmetic difference from the plain version.  float32, on the CUDA
 // cores: no tensor cores, so no TF32.
 //
+// THE MODEL-STEP BUILD (MPC_MODEL 1, 2, 3: the simple pendulum, the damped
+// one, the cartpole; MPC_SLEW its slew passthrough, soa_model.cuh) runs a
+// nonlinear model where the TPU kernels take its structure-of-arrays step
+// (dyn_mode 'soa', mpc_tpu/ops/fused.py:676-700) and linearise it in the
+// kernel (jax.linearize, :788-815 in K1, :1307-1340 in K3).  There is no
+// F or f operand: no pointer of one is formed.  In the rollouts each lane
+// below n_state evaluates the model's whole step from tau in shared
+// memory and keeps its own component (every lane does the same
+// arithmetic, so the components agree to the bit).  Before each Riccati
+// sweep a pass parallel over t (lane t takes steps t, t + 32, ...)
+// computes the step Jacobians F_t = d x_{t+1} / d tau_t at the current
+// trajectory into the example's workspace, [T-1][n_state][n_tau], and the
+// sweep reads them there as it reads a batched LinDx's F: the Jacobian
+// stays off the Riccati chain (the MLP's lesson in K3).  The model's
+// parameters (3 to 5 floats) sit in every lane's registers.  What bounds
+// it: operations (k3d_flops with the model's counts, ~2.4e5 an example at
+// config 3), but config 3's 512 examples are one block an SM, so the time
+// is the chain's latency, a rollout step now the model's whole step with
+// its cosf, sinf and divisions (PERF.md section 6).
+//
 // Outputs: x [T, B, n_state], u [T, B, n_ctrl], stats [6, B] = best cost,
 // best full-step norm, n_iter, n_qp_iter, alpha and the summed index plus
 // one of the selected step sizes.
@@ -70,10 +90,19 @@
 #include <cmath>
 
 #include "box_qp.cuh"
+#include "soa_model.cuh"
 
 #if !defined(MPC_NS) || !defined(MPC_NC) || !defined(MPC_HAS_BOUNDS) || \
     !defined(MPC_HAS_F) || !defined(MPC_WARPS)
 #error "compile with -DMPC_NS, -DMPC_NC, -DMPC_HAS_BOUNDS, -DMPC_HAS_F, -DMPC_WARPS"
+#endif
+// the model-step build: MPC_MODEL 1 (pendulum), 2 (damped pendulum), 3
+// (cartpole), MPC_SLEW 0 or 1; a LinDx build leaves both out
+#ifndef MPC_MODEL
+#define MPC_MODEL 0
+#endif
+#ifndef MPC_SLEW
+#define MPC_SLEW 0
 #endif
 
 namespace mpc {
@@ -89,6 +118,47 @@ constexpr int kMaxAlpha = 32;
 constexpr float kBig = 3.0e38f;
 static_assert(kNS >= 1 && kNC >= 1 && kNT <= 32,
               "a warp an example: n_state + n_ctrl <= 32");
+
+constexpr bool kModel = MPC_MODEL != 0;
+// a LinDx build's stand-in, never called
+struct NoModel {
+  static constexpr int NS = kNS;
+  static constexpr int NP = 1;
+  __device__ static void step(const float*, const float*, float*) {}
+  __device__ static void jacobian(const float*, const float*,
+                                  float (*)[kNT]) {}
+};
+template <int Id>
+struct ModelOf {
+  using type = NoModel;
+};
+template <>
+struct ModelOf<1> {
+  using type = PendulumModel<false>;
+};
+template <>
+struct ModelOf<2> {
+  using type = PendulumModel<true>;
+};
+template <>
+struct ModelOf<3> {
+  using type = CartpoleModel;
+};
+template <class M, bool S>
+struct SlewOf {
+  using type = M;
+};
+template <class M>
+struct SlewOf<M, true> {
+  using type = Slew<M>;
+};
+using Model = typename SlewOf<typename ModelOf<MPC_MODEL>::type,
+                              kModel && MPC_SLEW != 0>::type;
+static_assert(!kModel || (Model::NS == kNS && kNC == 1 && !kHasF),
+              "the model-step build: the model's states, one control, no f");
+constexpr int kNP = Model::NP;
+// the Jacobians of the current trajectory in the workspace, a step's
+constexpr int kJac = kModel ? kNS * kNT : 0;
 
 // a warp's tiles (floats): rows of odd stride
 constexpr int kSQ = kNT | 1;
@@ -117,6 +187,7 @@ struct Schedule {
 
 struct Operands {
   int B, T;
+  const float* params;  // the model-step build's
   const float* F;
   int sFt, sFb;
   const float* f;
@@ -168,6 +239,18 @@ __device__ __forceinline__ float stage_cost(const float* Ct, const float* ct,
   return lane_sum(term);
 }
 
+// state row lx of the model's step from tau: the whole step in every lane
+// (the same arithmetic, so the same bits), its own component kept
+__device__ __forceinline__ float model_step(const float* prm,
+                                           const float* tau, int lx) {
+  float out[kNS];
+  Model::step(prm, tau, out);
+  float r = out[0];
+#pragma unroll
+  for (int i = 1; i < kNS; ++i) r = lx == i ? out[i] : r;
+  return r;
+}
+
 // state row lx (a lane clamped below kNS) of F_t tau + f_t
 __device__ __forceinline__ float dyn_step(const float* Ft, const float* ft,
                                           const float* tau, int lx) {
@@ -207,10 +290,18 @@ __global__ void __launch_bounds__(kThreads)
   // and the gains; slot s at ws0 + s * T * kNT
   float* const ws0 = op.ws + b * op.ws_example;
   float* const gains = ws0 + 2 * T * kNT;
+  // the model-step build's Jacobians [T-1][kNS][kNT]
+  float* const jac = gains + T * kGain;
   const float* Cb = op.C + b * op.sCb;
   const float* cb = op.c + b * op.scb;
-  const float* Fb = op.F + b * op.sFb;
+  const float* Fb = nullptr;
+  if constexpr (!kModel) Fb = op.F + b * op.sFb;
   const float* fb = kHasF ? op.f + b * op.sfb : nullptr;
+  float prm[kNP] = {};
+  if constexpr (kModel) {
+#pragma unroll
+    for (int i = 0; i < kNP; ++i) prm[i] = __ldg(op.params + i);
+  }
   const float* lbb = kHasBounds ? op.lb + b * op.sbb : nullptr;
   const float* ubb = kHasBounds ? op.ub + b * op.sbb : nullptr;
   const float x0r = lane < kNS ? __ldg(op.x0 + b * kNS + lx) : 0.f;
@@ -236,9 +327,13 @@ __global__ void __launch_bounds__(kThreads)
         else
           op.u_out[(t * B + b) * kNC + lane - kNS] = v;
       }
-      if (t < T - 1 && lane < kNS)
-        xr = dyn_step(Fb + t * op.sFt, kHasF ? fb + t * op.sft : nullptr,
-                      tau, lx);
+      if (t < T - 1 && lane < kNS) {
+        if constexpr (kModel)
+          xr = model_step(prm, tau, lx);
+        else
+          xr = dyn_step(Fb + t * op.sFt, kHasF ? fb + t * op.sft : nullptr,
+                        tau, lx);
+      }
       __syncwarp();
     }
   }
@@ -248,6 +343,23 @@ __global__ void __launch_bounds__(kThreads)
         n_qp = 0.f, alpha_sel = 1.f, n_it = 0.f, n_trials = 0.f;
   for (int it = 0; it < op.lqr_iter; ++it) {
     const float* trajc = ws0 + cur * T * kNT;
+    // ---- the model's Jacobians at the current trajectory, lane t taking
+    // steps t, t + 32, ...: off the sweep's chain ----------------------
+    if constexpr (kModel) {
+      for (int t = lane; t < T - 1; t += 32) {
+        float tl[kNT];
+#pragma unroll
+        for (int j = 0; j < kNT; ++j) tl[j] = trajc[t * kNT + j];
+        float J[kNS][kNT];
+        Model::jacobian(prm, tl, J);
+        float* dst = jac + t * kJac;
+#pragma unroll
+        for (int i = 0; i < kNS; ++i)
+#pragma unroll
+          for (int j = 0; j < kNT; ++j) dst[i * kNT + j] = J[i][j];
+      }
+      __syncwarp();
+    }
     // ---- the Riccati sweep, t = T-1 .. 0 ------------------------------
     float qp_cnt = 0.f;
     float prev_k[kNC];
@@ -263,8 +375,14 @@ __global__ void __launch_bounds__(kThreads)
         Qs[(e / kNT) * kSQ + e % kNT] = __ldg(Ct + e);
       const bool last = t == T - 1;
       if (!last) {
-        const float* Ft = Fb + t * op.sFt;
-        for (int e = lane; e < kNS * kNT; e += 32) Fs[e] = __ldg(Ft + e);
+        if constexpr (kModel) {
+          // written by this warp in this kernel: not the read-only path
+          const float* Ft = jac + t * kJac;
+          for (int e = lane; e < kNS * kNT; e += 32) Fs[e] = Ft[e];
+        } else {
+          const float* Ft = Fb + t * op.sFt;
+          for (int e = lane; e < kNS * kNT; e += 32) Fs[e] = __ldg(Ft + e);
+        }
       }
       __syncwarp();
       // cb = C_t tau + c_t, from the staged C_t before Q replaces it
@@ -491,9 +609,13 @@ __global__ void __launch_bounds__(kThreads)
           du2 = t == 0 ? d2s : du2 + d2s;
         }
         if (lane < kNT) trial[t * kNT + lane] = tau[lt];
-        if (t < T - 1 && lane < kNS)
-          xr = dyn_step(Fb + t * op.sFt, kHasF ? fb + t * op.sft : nullptr,
-                        tau, lx);
+        if (t < T - 1 && lane < kNS) {
+          if constexpr (kModel)
+            xr = model_step(prm, tau, lx);
+          else
+            xr = dyn_step(Fb + t * op.sFt, kHasF ? fb + t * op.sft : nullptr,
+                          tau, lx);
+        }
         __syncwarp();
       }
       n_trials += 1.f;
@@ -542,7 +664,8 @@ __global__ void __launch_bounds__(kThreads)
 }  // namespace mpc
 
 extern "C" int mpc_fused_ilqr_dense(
-    int B, int T, const float* F, long long sFt, long long sFb,
+    int B, int T, const float* params, const float* F, long long sFt,
+    long long sFb,
     const float* f, long long sft, long long sfb, const float* C,
     long long sCt, long long sCb, const float* c, long long sct,
     long long scb, const float* x0, const float* u0, const float* lb,
@@ -553,13 +676,16 @@ extern "C" int mpc_fused_ilqr_dense(
   using namespace mpc;
   if (B <= 0 || T <= 0 || n_alpha <= 0 || n_alpha > kMaxAlpha ||
       lqr_iter < 0 || pnqp_iter < 0 || ws == nullptr ||
-      (F == nullptr && T > 1) || ((f != nullptr) != kHasF && T > 1) ||
+      (kModel ? (params == nullptr || F != nullptr || f != nullptr)
+              : (F == nullptr && T > 1)) ||
+      ((f != nullptr) != kHasF && T > 1) ||
       (kHasBounds && (lb == nullptr || ub == nullptr)) ||
       smem_bytes != kWarps * kWarpFloats * (int)sizeof(float))
     return (int)cudaErrorInvalidValue;
   // 32-bit indices: the largest offset of each array
   const long long last = T - 1, lastb = B - 1, big = 1LL << 31;
-  const long long ws_example = (long long)T * (2 * kNT + kGain);
+  const long long ws_example =
+      (long long)T * (2 * kNT + kGain) + (T - 1LL) * kJac;
   if (last * sCt + lastb * sCb + kNT * kNT >= big ||
       last * sct + lastb * scb + kNT >= big ||
       last * sFt + lastb * sFb + kNS * kNT >= big ||
@@ -588,6 +714,7 @@ extern "C" int mpc_fused_ilqr_dense(
   Operands op;
   op.B = B;
   op.T = T;
+  op.params = params;
   op.F = F;
   op.sFt = (int)sFt;
   op.sFb = (int)sFb;

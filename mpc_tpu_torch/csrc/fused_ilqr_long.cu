@@ -76,7 +76,8 @@
 // any team has left.
 //
 // Dynamics (MPC_DYN): 0 = LinDx (x' = F (x, u) + f; F shared or per
-// example, f optional), 1 = the simple pendulum (pendulum.cuh), 2 = a
+// example, f optional), 1 = a pendulum (pendulum.cuh; MPC_DAMPED the
+// damped, biased one), 2 = a
 // one-hidden-layer MLP (nn.cuh; MPC_ACT its activation, H and the
 // passthrough run-time arguments), the TPU kernel's streamed-weights NN
 // mode (mpc_tpu/ops/fused.py:1252-1306).  An MLP's step is ~1,800
@@ -121,6 +122,11 @@
 #ifndef MPC_ACT
 #define MPC_ACT 0
 #endif
+// MPC_DYN = 1: the damped, biased pendulum (pendulum.cuh) instead of the
+// simple one
+#ifndef MPC_DAMPED
+#define MPC_DAMPED 0
+#endif
 #ifndef MPC_HAS_BOUNDS
 #error "compile with -DMPC_HAS_BOUNDS=0 or 1"
 #endif
@@ -138,6 +144,7 @@ constexpr bool kLinDx = MPC_DYN == 0;
 constexpr bool kPendulum = MPC_DYN == 1;
 constexpr bool kNN = MPC_DYN == 2;
 constexpr bool kHasBounds = MPC_HAS_BOUNDS != 0;
+constexpr bool kDamped = MPC_DAMPED != 0;
 constexpr int kMaxAlpha = 32;  // ops/fused.py:MAX_ALPHA
 constexpr int kTeam = MPC_TEAM;
 constexpr int kWarps = MPC_WARPS;
@@ -349,7 +356,7 @@ struct Team {
     } else if (kNN) {
       nn_step<MPC_ACT>(w, H, pass, x, u, out);
     } else {
-      pendulum_step(p, x, u, out);
+      pendulum_step<kDamped>(p, x, u, out);
     }
 #pragma unroll
     for (int i = 0; i < NS; ++i) x[i] = out[i];
@@ -386,7 +393,7 @@ struct Team {
 #pragma unroll
           for (int j = 0; j < NTAU; ++j) F[i][j] = r.F[i][j];
       } else {
-        pendulum_jacobian(p, xt, ut, F);
+        pendulum_jacobian<kDamped>(p, xt, ut, F);
       }
       float W[NS][NTAU];
 #pragma unroll
@@ -500,9 +507,8 @@ __global__ void __launch_bounds__(kThreads)
   }
   if (kNN || staged != nullptr) __syncthreads();
   if (b >= B) return;  // ragged tail: a whole team leaves together
-  PendulumParams p{0.f, 0.f, 0.f};
-  if (kPendulum)
-    p = PendulumParams{op.params[0], op.params[1], op.params[2]};
+  PendulumParams p{0.f, 0.f, 0.f, 0.f, 0.f};
+  if (kPendulum) p = load_pendulum<kDamped>(op.params);
   // the lanes that roll out a trial, each into its slot of the workspace
   const int n_lanes = sched.n < kTeam ? sched.n : kTeam;
   const int e = threadIdx.x / kTeam;

@@ -1,0 +1,77 @@
+// The models of the dense kernel's model-step build
+// (fused_ilqr_dense.cu, MPC_MODEL 1-3, MPC_SLEW): each device model of
+// pendulum.cuh and cartpole.cuh behind one interface on the kernel's tau
+// layout, and the slew passthrough step over any of them.
+//
+// A model M has NS states, one control and NP parameters (the vector the
+// wrapper passes, in the model's soa_params order), and two functions of
+// tau = (x_t, u_t), NS + 1 floats:
+//   M::step(p, tau, out)     out[NS] = x_{t+1}
+//   M::jacobian(p, tau, F)   F[NS][NS + 1] = d x_{t+1} / d tau
+// Slew<M> is mpc_tpu/ops/fused.py:_SlewSoA (lines 2441-2508;
+// mpc_tpu_torch/ops/fused.py:SlewSoA): on the augmented state
+// (u_{t-1}, x_t) its step is (u_t, f(x_t, u_t)), the control passed
+// through unclipped; its Jacobian's first row picks u_t and the inner
+// Jacobian's rows follow, shifted right past the u_{t-1} column.
+#pragma once
+
+#include "cartpole.cuh"
+#include "pendulum.cuh"
+
+namespace mpc {
+
+template <bool Damped>
+struct PendulumModel {
+  static constexpr int NS = 3;
+  static constexpr int NP = Damped ? 5 : 3;
+  __device__ static __forceinline__ void step(const float* p,
+                                              const float* tau, float* out) {
+    pendulum_step<Damped>(load_pendulum<Damped>(p), tau, tau[NS], out);
+  }
+  __device__ static __forceinline__ void jacobian(const float* p,
+                                                  const float* tau,
+                                                  float F[NS][NS + 1]) {
+    pendulum_jacobian<Damped>(load_pendulum<Damped>(p), tau, tau[NS], F);
+  }
+};
+
+struct CartpoleModel {
+  static constexpr int NS = 5;
+  static constexpr int NP = 4;
+  __device__ static __forceinline__ void step(const float* p,
+                                              const float* tau, float* out) {
+    cartpole_step(load_cartpole(p), tau, tau[NS], out);
+  }
+  __device__ static __forceinline__ void jacobian(const float* p,
+                                                  const float* tau,
+                                                  float F[NS][NS + 1]) {
+    cartpole_jacobian(load_cartpole(p), tau, tau[NS], F);
+  }
+};
+
+template <class M>
+struct Slew {
+  static constexpr int NS = M::NS + 1;
+  static constexpr int NP = M::NP;
+  __device__ static __forceinline__ void step(const float* p,
+                                              const float* tau, float* out) {
+    out[0] = tau[NS];
+    M::step(p, tau + 1, out + 1);
+  }
+  __device__ static __forceinline__ void jacobian(const float* p,
+                                                  const float* tau,
+                                                  float F[NS][NS + 1]) {
+    float Fi[M::NS][M::NS + 1];
+    M::jacobian(p, tau + 1, Fi);
+#pragma unroll
+    for (int j = 0; j <= NS; ++j) F[0][j] = j == NS ? 1.f : 0.f;
+#pragma unroll
+    for (int i = 0; i < M::NS; ++i) {
+      F[i + 1][0] = 0.f;
+#pragma unroll
+      for (int j = 0; j <= M::NS; ++j) F[i + 1][j + 1] = Fi[i][j];
+    }
+  }
+};
+
+}  // namespace mpc

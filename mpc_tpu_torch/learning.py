@@ -125,7 +125,9 @@ def batched_solve(cfg: MPCConfig, x_init, cost, dynamics, u_init=None,
     penalty augments the state with the previous control
     (mpc_tpu/learning.py:196-242): the kernels solve the augmented
     problem where it is in their scope (a LinDx in K3 or its dense
-    configuration), and its fixed point is always the eager one.  A problem
+    configuration, a pendulum or the cartpole in the dense
+    configuration through the passthrough step), and its fixed point is
+    always the eager one.  A problem
     that no route takes raises NotImplementedError.
 
     With ``cfg.backprop`` and any of x_init, the cost's C or c, the

@@ -2,10 +2,10 @@
 
 3-state (cos th, sin th, dth), 1-control pendulum with a torque clamp of
 +-2 and Euler integration.  ``forward`` is the reference's atan2 step;
-``soa_step`` is the angle-addition form that kernel K1 runs
-(csrc/pendulum.cuh), and ``soa_jacobian`` its hand-written Jacobian,
-which takes the place of the JAX kernel's in-kernel ``jax.linearize``
-(mpc_tpu/ops/fused.py:788-815).
+``soa_step`` is the step that kernels K1 and K3 run (csrc/pendulum.cuh;
+the simple pendulum in the angle-addition form), and ``soa_jacobian``
+its hand-written Jacobian, which takes the place of the JAX kernel's
+in-kernel ``jax.linearize`` (mpc_tpu/ops/fused.py:788-815).
 """
 
 from __future__ import annotations
@@ -76,21 +76,25 @@ class PendulumDx(nn.Module):
     def soa_params(self):
         return tuple(self.params.unbind())
 
-    def _require_simple(self):
-        if not self.simple:
-            raise NotImplementedError(
-                'the structure-of-arrays pendulum step covers '
-                'simple=True only; the damped-biased model waits for '
-                'ROADMAP queue 2 (K1 configurations)')
-
     def soa_step(self, xs, u, params):
         """One step on component tensors: xs = (cos, sin, dth), u the
-        bare control.  Angle addition instead of atan2 (same result on
-        the unit circle, see ops/math.py:rotate_unit)."""
-        self._require_simple()
-        g, m, l = params
+        bare control.  The simple pendulum advances by angle addition
+        instead of atan2 (same result on the unit circle, see
+        ops/math.py:rotate_unit); the damped, biased one needs the angle
+        itself (its damping term is d th) and takes the true atan2, where
+        the TPU kernel evaluates a degree-9 polynomial of it
+        (mpc_tpu/ops/math.py:atan2, ~1e-7 off; ROADMAP section 3)."""
         cos_th, sin_th, dth = xs
         u = hard_clip(u, -self.max_torque, self.max_torque)
+        if not self.simple:
+            g, m, l, d, b = params
+            th = torch.atan2(sin_th, cos_th)
+            newdth = dth + self.dt * (
+                -3. * g / (2. * l) * (-torch.sin(th + b))
+                + 3. * u / (m * (l * l)) - d * th)
+            newth = th + newdth * self.dt
+            return torch.cos(newth), torch.sin(newth), newdth
+        g, m, l = params
         newdth = dth + self.dt * (
             -3. * g / (2. * l) * (-sin_th) + 3. * u / (m * (l * l)))
         new_cos, new_sin = rotate_unit(cos_th, sin_th, newdth * self.dt)
@@ -102,9 +106,11 @@ class PendulumDx(nn.Module):
 
         The control column follows ``hard_clip``: the full derivative
         for -2 <= u <= 2, endpoints included, and 0 strictly outside.
-        At the degenerate point (0, 0) the rotation's inputs are
-        replaced by constants, so only the path through dth remains."""
-        self._require_simple()
+        At the degenerate point (0, 0) the rotation's inputs (the simple
+        pendulum) or the angle (the damped one: atan2's angle 0) are
+        constants, so only the path through dth remains."""
+        if not self.simple:
+            return self._damped_jacobian(xs, u, params)
         g, m, l = params
         cos_th, sin_th, dth = xs
         dt = self.dt
@@ -144,8 +150,45 @@ class PendulumDx(nn.Module):
             [zero, dn_ds, one, dn_du],
         ]
 
+    def _damped_jacobian(self, xs, u, params):
+        """``soa_jacobian`` of the damped, biased step, in the operation
+        order of csrc/pendulum.cuh: th = atan2(s, c) has d th / d (c, s) =
+        (-s, c) / (c^2 + s^2), taken as 0 at (0, 0), where atan2 gives
+        angle 0 whatever the pair's direction."""
+        g, m, l, d, b = params
+        cos_th, sin_th, dth = xs
+        dt = self.dt
+        mt = self.max_torque
+        zero = torch.zeros_like(cos_th)
+        one = zero + 1.0
+        inside = (u >= -mt) & (u <= mt)
+        uc = hard_clip(u, -mt, mt)
+        th = torch.atan2(sin_th, cos_th)
+        newdth = dth + dt * (
+            -3. * g / (2. * l) * (-torch.sin(th + b))
+            + 3. * uc / (m * (l * l)) - d * th)
+        newth = th + newdth * dt
+        nc, ns = torch.cos(newth), torch.sin(newth)
+        r2 = cos_th * cos_th + sin_th * sin_th
+        deg = r2 < 1e-30
+        inv_r2 = torch.where(deg, zero, 1.0 / torch.where(deg, one, r2))
+        th_c = -sin_th * inv_r2
+        th_s = cos_th * inv_r2
+        # d newdth / d th and / d u; d newth = d th + dt d newdth
+        dn_dth = dt * (3. * g / (2. * l) * torch.cos(th + b) - d)
+        dn_du = torch.where(inside, dt * (3. / (m * (l * l))) + zero, zero)
+        dnt_dth = 1.0 + dt * dn_dth
+        dn_c, dn_s = dn_dth * th_c, dn_dth * th_s
+        dt_c, dt_s = dnt_dth * th_c, dnt_dth * th_s
+        dt_du = dt * dn_du
+        return [
+            [-ns * dt_c, -ns * dt_s, -ns * dt, -ns * dt_du],
+            [nc * dt_c, nc * dt_s, nc * dt, nc * dt_du],
+            [dn_c, dn_s, one, dn_du],
+        ]
+
     def step_jacobian(self, x, u):
-        """F [B, 3, 4] = d soa_step / d (x, u) at x [B, 3], u [B, 1]."""
+        """F [..., 3, 4] = d soa_step / d (x, u) at x [..., 3], u [..., 1]."""
         rows = self.soa_jacobian(tuple(x.unbind(-1)), u[..., 0],
                                  self.soa_params())
         return torch.stack([torch.stack(r, -1) for r in rows], -2)

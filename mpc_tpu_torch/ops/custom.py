@@ -46,11 +46,18 @@ from ..models.pendulum import PendulumDx
 from . import fused, fused_bwd, fused_bwd_dense, fused_dense
 
 
-@functools.lru_cache(maxsize=1)
-def _pendulum():
-    """The simple pendulum whose step the plain K1 and K3 run (its
-    parameters are the op's ``params``)."""
-    return PendulumDx(params=torch.zeros(3))
+@functools.lru_cache(maxsize=2)
+def _pendulum(n_params=3):
+    """The pendulum whose step the plain K1 and K3 run (its parameters
+    are the op's ``params``): the simple one for 3 parameters, the
+    damped, biased one for 5."""
+    return PendulumDx(params=torch.zeros(n_params), simple=n_params == 3)
+
+
+def _check_pendulum_params(label, params):
+    if params.dim() != 1 or params.shape[0] not in (3, 5):
+        raise ValueError(f'{label} takes the pendulum\'s params [3] '
+                         '(simple) or [5] (damped)')
 
 
 @functools.lru_cache(maxsize=8)
@@ -80,12 +87,14 @@ def k1_solve(params: Tensor, C: Tensor, c: Tensor, x0: Tensor, u0: Tensor,
              lb: Optional[Tensor], ub: Optional[Tensor], alphas: list[float],
              lqr_iter: int, eps: float, best_cost_eps: float,
              not_improved_lim: float) -> tuple[Tensor, Tensor, Tensor]:
-    """K1 on the simple pendulum: params [3]; C [T, 1 or B, 4, 4];
+    """K1 on the pendulum: params [3] (simple) or [5] (damped, biased;
+    the MPC_DAMPED build); C [T, 1 or B, 4, 4];
     c [T, 1 or B, 4]; x0 [B, 3]; u0 [T, B]; lb, ub None or [T, 1 or B].
     Returns x [T, B, 3], u [T, B, 1], stats [6, B]
     (``fused.fused_solve_plain``, which runs here on the CPU)."""
     return fused.fused_solve_plain(
-        _pendulum(), params, C, c, x0, u0, lb, ub, alphas=alphas,
+        _pendulum(params.shape[0]), params, C, c, x0, u0, lb, ub,
+        alphas=alphas,
         lqr_iter=lqr_iter, eps=eps, best_cost_eps=best_cost_eps,
         not_improved_lim=not_improved_lim)
 
@@ -109,7 +118,8 @@ def _k1_cuda(params, C, c, x0, u0, lb, ub, alphas, lqr_iter, eps,
     if has_bounds != (ub is not None):
         raise ValueError('K1 takes both bounds or neither')
     _floats_on_device('K1', x0.device, params, C, c, x0, u0, lb, ub)
-    if (params.shape != (3,) or C.shape[0] != T or C.shape[2:] != (4, 4)
+    _check_pendulum_params('K1', params)
+    if (C.shape[0] != T or C.shape[2:] != (4, 4)
             or c.shape[0] != T or c.shape[2:] != (4,)
             or C.shape[1] not in (1, B) or c.shape[1] not in (1, B)
             or x0.shape != (B, 3)):
@@ -124,7 +134,7 @@ def _k1_cuda(params, C, c, x0, u0, lb, ub, alphas, lqr_iter, eps,
     if geo['smem_bytes'] > fused.SMEM_LIMIT:
         raise ValueError(f'K1 holds T <= {fused.T_MAX} in shared memory; '
                          f'T={T} goes to K3 (routes_long)')
-    fn = fused._kernel_lib(T, has_bounds)
+    fn = fused._kernel_lib(T, has_bounds, params.shape[0] == 5)
     x = torch.empty((T, B, 3), dtype=torch.float32, device=x0.device)
     u = torch.empty((T, B, 1), dtype=torch.float32, device=x0.device)
     stats = torch.empty((6, B), dtype=torch.float32, device=x0.device)
@@ -163,7 +173,7 @@ def _k3_model(params, nn_hidden, activation, passthrough):
         return None
     if nn_hidden:
         return _mlp(nn_hidden, activation, passthrough)
-    return _pendulum()
+    return _pendulum(params.shape[0])
 
 
 @torch.library.custom_op('mpc_tpu_torch::k3_solve', mutates_args=(),
@@ -176,7 +186,8 @@ def k3_solve(params: Optional[Tensor], F: Optional[Tensor],
              activation: str, passthrough: bool
              ) -> tuple[Tensor, Tensor, Tensor]:
     """K3: a LinDx (params None, F [T-1, 1 or B, 3, 4], f None or
-    [T-1, 1 or B, 3]), the simple pendulum (params [3], nn_hidden 0) or
+    [T-1, 1 or B, 3]), a pendulum (params [3], or [5] for the damped
+    one, nn_hidden 0) or
     a one-hidden-layer MLP of ``nn_hidden`` units (params its flat
     weights, ``NNDynamics.kernel_params``; ``activation``,
     ``passthrough``); the other operands and the outputs as
@@ -231,8 +242,10 @@ def _k3_cuda(params, F, f, C, c, x0, u0, lb, ub, alphas, lqr_iter, eps,
         if (params.shape != (8 * nn_hidden + 3,) or F is not None
                 or f is not None):
             raise ValueError('K3 takes an MLP\'s flat weights as params')
-    elif params.shape != (3,) or F is not None or f is not None:
-        raise ValueError('K3 pendulum operands do not match')
+    else:
+        _check_pendulum_params('K3', params)
+        if F is not None or f is not None:
+            raise ValueError('K3 pendulum operands do not match')
     if has_bounds and (ub is None or lb.shape != ub.shape
                        or lb.shape[0] != T or lb.shape[1] not in (1, B)):
         raise ValueError('K3 bound shapes do not match')
@@ -240,7 +253,8 @@ def _k3_cuda(params, F, f, C, c, x0, u0, lb, ub, alphas, lqr_iter, eps,
         raise ValueError(f'K3 takes 1 to {fused.MAX_ALPHA} step sizes')
     fused._check_float4('K3', C, c, F)
     fn = fused._kernel_lib_long(fused.long_kernel_defines(
-        lindx, has_bounds, activation if nn else None))
+        lindx, has_bounds, activation if nn else None,
+        damped=not (lindx or nn) and params.shape[0] == 5))
     empty = functools.partial(torch.empty, dtype=torch.float32,
                               device=x0.device)
     x, u, stats = empty((T, B, 3)), empty((T, B, 1)), empty((6, B))
@@ -276,34 +290,61 @@ def _k3_cuda(params, F, f, C, c, x0, u0, lb, ub, alphas, lqr_iter, eps,
 
 @torch.library.custom_op('mpc_tpu_torch::k3d_solve', mutates_args=(),
                          device_types='cpu')
-def k3d_solve(F: Tensor, f: Optional[Tensor], C: Tensor, c: Tensor,
+def k3d_solve(F: Optional[Tensor], f: Optional[Tensor], C: Tensor, c: Tensor,
               x0: Tensor, u0: Tensor, lb: Optional[Tensor],
               ub: Optional[Tensor], alphas: list[float], lqr_iter: int,
               eps: float, best_cost_eps: float, not_improved_lim: float,
-              pnqp_iter: int) -> tuple[Tensor, Tensor, Tensor]:
+              pnqp_iter: int, model: str = '', slew: bool = False,
+              params: Optional[Tensor] = None
+              ) -> tuple[Tensor, Tensor, Tensor]:
     """K3's dense configuration: a LinDx of any admitted size, F
-    [T-1, 1 or B, ns, ntau], f None or [T-1, 1 or B, ns], C
-    [T, 1 or B, ntau, ntau], c [T, 1 or B, ntau], x0 [B, ns], u0
-    [T, B, nc], lb, ub None or [T, 1 or B, nc].  Returns x [T, B, ns],
-    u [T, B, nc], stats [6, B] (``fused_dense.fused_solve_dense_plain``,
-    which runs here on the CPU)."""
+    [T-1, 1 or B, ns, ntau], f None or [T-1, 1 or B, ns]; or the
+    model-step build, F and f None, ``model`` a name of
+    ``fused_dense.DENSE_MODELS`` with its ``params``, ``slew`` for its
+    passthrough step on (u_{t-1}, x_t); C [T, 1 or B, ntau, ntau], c
+    [T, 1 or B, ntau], x0 [B, ns], u0 [T, B, nc], lb, ub None or
+    [T, 1 or B, nc].  Returns x [T, B, ns], u [T, B, nc], stats [6, B]
+    (``fused_dense.fused_solve_dense_plain``, which runs here on the
+    CPU)."""
     return fused_dense.fused_solve_dense_plain(
         F, f, C, c, x0, u0, lb, ub, alphas=alphas, lqr_iter=lqr_iter,
         eps=eps, best_cost_eps=best_cost_eps,
-        not_improved_lim=not_improved_lim, pnqp_iter=pnqp_iter)
+        not_improved_lim=not_improved_lim, pnqp_iter=pnqp_iter,
+        model=fused_dense.model_of(model, slew) if model else None,
+        params=params)
 
 
 @k3d_solve.register_fake
 def _k3d_fake(F, f, C, c, x0, u0, lb, ub, alphas, lqr_iter, eps,
-              best_cost_eps, not_improved_lim, pnqp_iter):
+              best_cost_eps, not_improved_lim, pnqp_iter, model='',
+              slew=False, params=None):
     T, B, nc = u0.shape
     return (x0.new_empty((T, B, x0.shape[1])), x0.new_empty((T, B, nc)),
             x0.new_empty((6, B)))
 
 
+def _check_dense_model(model, slew, params, F, f, ns, nc):
+    """The model-step build's operands: a known model at its own sizes
+    (plus the control under ``slew``), its parameter vector, no F, f."""
+    if model not in fused_dense.DENSE_MODELS:
+        raise ValueError(f'the dense kernel has no model {model!r}')
+    m = fused_dense.model_of(model, slew)
+    if (ns, nc) != (m.n_state, m.n_ctrl):
+        raise ValueError(f'the {model} model{" under slew" if slew else ""} '
+                         f'has {m.n_state} states and {m.n_ctrl} control, '
+                         f'not {ns} and {nc}')
+    if params is None or params.shape != (
+            fused_dense.DENSE_MODEL_PARAMS[model],):
+        raise ValueError(f'the {model} model takes '
+                         f'{fused_dense.DENSE_MODEL_PARAMS[model]} params')
+    if F is not None or f is not None:
+        raise ValueError('the model-step build takes no F or f')
+
+
 @k3d_solve.register_kernel('cuda')
 def _k3d_cuda(F, f, C, c, x0, u0, lb, ub, alphas, lqr_iter, eps,
-              best_cost_eps, not_improved_lim, pnqp_iter):
+              best_cost_eps, not_improved_lim, pnqp_iter, model='',
+              slew=False, params=None):
     """Allocate the workspace of ``fused_dense.k3d_launch`` and launch
     csrc/fused_ilqr_dense.cu (the launcher refuses, as an invalid value,
     an array or a workspace too large for its 32-bit indices)."""
@@ -314,18 +355,21 @@ def _k3d_cuda(F, f, C, c, x0, u0, lb, ub, alphas, lqr_iter, eps,
     nt = ns + nc
     has_bounds = lb is not None
     _floats_on_device('the dense kernel', x0.device, F, f, C, c, x0, u0, lb,
-                      ub)
+                      ub, params)
     gap = fused.dense_gap(ns, nc)
     if gap is not None:
         raise ValueError(gap)
+    if model:
+        _check_dense_model(model, slew, params, F, f, ns, nc)
+    elif (F is None or params is not None or F.shape[0] != T - 1
+          or F.shape[1] not in (1, B) or F.shape[2:] != (ns, nt)
+          or (f is not None and (f.shape[0] != T - 1
+                                 or f.shape[1] not in (1, B)
+                                 or f.shape[2:] != (ns,)))):
+        raise ValueError('the dense kernel\'s LinDx operands do not match')
     if (x0.shape != (B, ns) or C.shape[0] != T or C.shape[2:] != (nt, nt)
             or c.shape[0] != T or c.shape[2:] != (nt,)
-            or C.shape[1] not in (1, B) or c.shape[1] not in (1, B)
-            or F.shape[0] != T - 1 or F.shape[1] not in (1, B)
-            or F.shape[2:] != (ns, nt)
-            or (f is not None and (f.shape[0] != T - 1
-                                   or f.shape[1] not in (1, B)
-                                   or f.shape[2:] != (ns,)))):
+            or C.shape[1] not in (1, B) or c.shape[1] not in (1, B)):
         raise ValueError('the dense kernel\'s operand shapes do not match')
     if has_bounds and (ub is None or lb.shape != ub.shape
                        or lb.shape[0] != T or lb.shape[1] not in (1, B)
@@ -333,8 +377,9 @@ def _k3d_cuda(F, f, C, c, x0, u0, lb, ub, alphas, lqr_iter, eps,
         raise ValueError('the dense kernel\'s bound shapes do not match')
     if pnqp_iter < 0:
         raise ValueError('pnqp_iter must not be negative')
-    geo = fused_dense.k3d_launch(T, B, ns, nc, len(alphas))
-    fn = fused_dense.kernel_lib(ns, nc, has_bounds, f is not None)
+    geo = fused_dense.k3d_launch(T, B, ns, nc, len(alphas), bool(model))
+    fn = fused_dense.kernel_lib(ns, nc, has_bounds, f is not None,
+                                model or None, slew)
     empty = functools.partial(torch.empty, dtype=torch.float32,
                               device=x0.device)
     x, u, stats = empty((T, B, ns)), empty((T, B, nc)), empty((6, B))
@@ -345,7 +390,8 @@ def _k3d_cuda(F, f, C, c, x0, u0, lb, ub, alphas, lqr_iter, eps,
     lb_ptr, sbt, sbb = fused._strided(lb, nc)
     with torch.cuda.device(x0.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(B, T, *fused._strided(F, ns * nt), *fused._strided(f, ns),
+        err = fn(B, T, params.data_ptr() if model else None,
+                 *fused._strided(F, ns * nt), *fused._strided(f, ns),
                  *fused._strided(C, nt * nt), *fused._strided(c, nt),
                  x0.data_ptr(), u0.data_ptr(),
                  lb_ptr, ub.data_ptr() if has_bounds else None, sbt, sbb,

@@ -35,23 +35,28 @@ kernels' ``torch.library`` ops (ops/custom.py), which hold the launches.
 
 Scope (``scope_gap``): LinDx dynamics (F, f each shared or batched, f
 optional) of any n_state and n_ctrl with n_state + n_ctrl <=
-``DENSE_MAX_TAU`` and n_ctrl <= ``DENSE_MAX_CTRL``, the simple pendulum
-or a one-hidden-layer ``NNDynamics`` (sigmoid, relu or elu, its weights
-in a block's shared memory: K3's streamed-weights configuration,
-csrc/nn.cuh) at n_state = 3, n_ctrl = 1, a QuadCost with C and c each
-shared or batched, bounds absent, scalar, [T, nc] or [T, B, nc], an
-optional u_init, any T, float32 (float64 too on the CPU, in the plain
-versions).  ``routes_dense`` and ``routes_long`` say which kernel takes
-a problem: a LinDx of 3 states and 1 control stays on K3, every other
-admitted LinDx goes to K3's dense configuration (ops/fused_dense.py,
-csrc/fused_ilqr_dense.cu: a warp an example, the in-kernel
-projected-Newton box QP for several bounded controls); the dispatch
-sends every other problem to the eager solver.  A slew-rate penalty is
-solved as the JAX package solves it in its kernel (``_fused_slew_solve``,
-mpc_tpu/ops/fused.py:2510-2580): the state is augmented with the
-previous control on the host and the kernels take the augmented LinDx,
-in K3 where it has three states and one control, else in the dense
-configuration.
+``DENSE_MAX_TAU`` and n_ctrl <= ``DENSE_MAX_CTRL``; the simple and the
+damped, biased pendulum and the cartpole (``SOA_MODELS``, their
+structure-of-arrays steps and hand-written Jacobians); a
+one-hidden-layer ``NNDynamics`` (sigmoid, relu or elu, its weights in a
+block's shared memory: K3's streamed-weights configuration, csrc/nn.cuh)
+at n_state = 3, n_ctrl = 1; a QuadCost with C and c each shared or
+batched, bounds absent, scalar, [T, nc] or [T, B, nc], an optional
+u_init, any T, float32 (float64 too on the CPU, in the plain versions).
+``routes_dense`` and ``routes_long`` say which kernel takes a problem:
+at 3 states and 1 control a LinDx and an MLP go to K3, a pendulum to K1
+up to ``T_MAX`` and to K3 past it; every other admitted problem goes to
+K3's dense configuration (ops/fused_dense.py, csrc/fused_ilqr_dense.cu:
+a warp an example, the in-kernel projected-Newton box QP for several
+bounded controls), a model there in its model-step build (the model's
+step in the rollouts, its Jacobians in a pass parallel over t); the
+dispatch sends every other problem to the eager solver.  A slew-rate
+penalty is solved as the JAX package solves it in its kernel
+(``_fused_slew_solve``, mpc_tpu/ops/fused.py:2510-2580): the state is
+augmented with the previous control on the host and the kernels take
+the augmented problem, a LinDx in K3 where it has three states and one
+control, everything else in the dense configuration (a model through
+its passthrough step, ``SlewSoA``).
 """
 
 from __future__ import annotations
@@ -62,6 +67,7 @@ from typing import Optional
 
 import torch
 
+from ..models.cartpole import CartpoleDx
 from ..models.dynamics import NNDynamics
 from ..models.pendulum import PendulumDx
 from ..types import LinDx, QuadCost, Solution
@@ -231,11 +237,58 @@ def routes_long(dynamics, T) -> bool:
 def routes_dense(dynamics, n_state, n_ctrl) -> bool:
     """THE dense-configuration predicate of the forward solve, shared by
     ``scope_gap``, the dispatch in ``fused_batched_solve`` and the tests:
-    a LinDx of any other size than K3's 3 states and 1 control
-    (``n_state`` the augmented one under a slew penalty).  The JAX
-    package sends such problems to K1 or K3 by their unrolled volume
-    (mpc_tpu/ops/fused.py:287-300); here one kernel takes them all."""
-    return isinstance(dynamics, LinDx) and (n_state, n_ctrl) != (3, 1)
+    a LinDx or a model with a structure-of-arrays step (the pendulums,
+    the cartpole, a slew passthrough ``SlewSoA`` of one of them) at any
+    other size than K1's and K3's 3 states and 1 control (``n_state`` the
+    augmented one under a slew penalty), at any T.  So the cartpole and
+    every slew-augmented model run in the dense configuration, its
+    model-step build for the models; the damped pendulum stays on K1 and
+    K3.  The JAX package sends such problems to K1 or K3 by their
+    unrolled volume (mpc_tpu/ops/fused.py:287-300); here one kernel takes
+    them all."""
+    return (isinstance(dynamics, (LinDx, SlewSoA) + SOA_MODELS)
+            and (n_state, n_ctrl) != (3, 1))
+
+
+# The models whose structure-of-arrays step and hand-written Jacobian
+# the kernels run (csrc/pendulum.cuh, csrc/cartpole.cuh).
+SOA_MODELS = (PendulumDx, CartpoleDx)
+
+
+class SlewSoA:
+    """The passthrough step of a slew-augmented model (mpc_tpu/ops/
+    fused.py:2441-2508, ``_SlewSoA``; the reference's
+    CtrlPassthroughDynamics, mpc/dynamics.py:133-153): on the augmented
+    state (u_{t-1}, x_t) the step is (u_t, f(x_t, u_t)), the control
+    passed through unclipped.  ``soa_step`` and ``soa_jacobian`` take the
+    inner model's parameters; the dense kernel's model-step build runs
+    the same (csrc/soa_model.cuh, ``Slew``)."""
+
+    def __init__(self, dynamics, n_ctrl):
+        if n_ctrl != 1:
+            raise ValueError('the kernels\' models have one control')
+        self.inner = dynamics
+        self.n_ctrl = n_ctrl
+        self.n_state = dynamics.n_state + n_ctrl
+
+    @property
+    def params(self):
+        return self.inner.params
+
+    def soa_params(self):
+        return self.inner.soa_params()
+
+    def soa_step(self, xs, u, params):
+        return (u,) + tuple(self.inner.soa_step(tuple(xs[1:]), u, params))
+
+    def soa_jacobian(self, xs, u, params):
+        """The first row picks u_t (the augmented tau's last column); the
+        inner Jacobian's rows follow, shifted right past the u_{t-1}
+        column (``soa_stream_jac``, mpc_tpu/ops/fused.py:2487-2508)."""
+        inner = self.inner.soa_jacobian(tuple(xs[1:]), u, params)
+        zero = xs[0] * 0.0
+        return [[zero] * self.n_state + [zero + 1.0]] + [
+            [zero] + list(row) for row in inner]
 
 
 def dense_gap(n_state, n_ctrl) -> Optional[str]:
@@ -293,31 +346,29 @@ def scope_gap(cfg, cost, dynamics, *, u_zero_I=None, dtype=torch.float32,
         gap = nn_scope_gap(dynamics)
         if gap is not None:
             return gap
-    elif not isinstance(dynamics, PendulumDx):
+    elif not isinstance(dynamics, SOA_MODELS):
         return (f'{type(dynamics).__name__} dynamics have no kernel step; '
-                'the SoA steps of the remaining models wait for ROADMAP '
-                'queue 2 (K1 configurations)')
-    elif not dynamics.simple:
-        return ('PendulumDx(simple=False) waits for ROADMAP queue 2 '
-                '(K1 configurations)')
+                'the kernels run LinDx, the pendulums, the cartpole and '
+                'one-hidden-layer MLPs (other models run on the eager '
+                'solver)')
+    if not isinstance(dynamics, LinDx) and (cfg.n_state, cfg.n_ctrl) != (
+            dynamics.n_state, dynamics.n_ctrl):
+        return (f'{type(dynamics).__name__} has {dynamics.n_state} states '
+                f'and {dynamics.n_ctrl} control, not the configuration\'s '
+                f'{cfg.n_state} and {cfg.n_ctrl}')
     slew = cfg.slew_rate_penalty is not None
-    if slew and not isinstance(dynamics, LinDx):
-        return (f'the slew-augmented {type(dynamics).__name__} has '
-                f'{cfg.n_state + cfg.n_ctrl} states (u_{{t-1}} and the '
-                f'model\'s {cfg.n_state}): its kernel configuration, K1 at '
-                'NS = 4 with the passthrough step of mpc_tpu\'s _SlewSoA '
-                '(mpc_tpu/ops/fused.py:2441-2508), waits for ROADMAP queue '
-                '2 (K1 configurations); it runs on the eager solver')
+    if slew and isinstance(dynamics, NNDynamics):
+        return (f'the slew-augmented MLP has {cfg.n_state + cfg.n_ctrl} '
+                'states (u_{t-1} and the model\'s): its kernel '
+                'configuration, the MLP in the dense configuration, waits '
+                'for ROADMAP queue 2 (K3 configurations); it runs on the '
+                'eager solver')
     ns = cfg.n_state + (cfg.n_ctrl if slew else 0)
-    if isinstance(dynamics, LinDx):
+    if routes_dense(dynamics, ns, cfg.n_ctrl):
         gap = dense_gap(ns, cfg.n_ctrl)
         if gap is not None:
-            return f'the slew-augmented LinDx has {ns} states: {gap}' \
-                if slew else gap
-    elif ns != 3 or cfg.n_ctrl != 1:
-        return ('the pendulum and the MLP run in the kernels at n_state=3, '
-                'n_ctrl=1; other sizes wait for ROADMAP queue 2 (K1 and K3 '
-                'configurations)')
+            return (f'the slew-augmented {type(dynamics).__name__} has {ns} '
+                    f'states: {gap}') if slew else gap
     if not isinstance(cost, QuadCost):
         return ('non-quadratic (SoA) costs wait for ROADMAP queue 2 '
                 '(K1 configurations)')
@@ -359,6 +410,12 @@ def supports(cfg, cost, dynamics, **kw) -> bool:
 # 16 for the rotation derivatives and 8 for the chain products).
 _STEP_OPS = 22
 _JAC_OPS = 50
+# The damped, biased pendulum's, counted the same way: the step (atan2 1,
+# newdth 10 with sin(th + b), newth 2, cos+sin 2) and its Jacobian (the
+# step's 15, d th / d (cos, sin) 6, d newdth / d th 5, the chain factors
+# 7 and the rows' 8 products).
+_DAMPED_STEP_OPS = 15
+_DAMPED_JAC_OPS = 41
 
 
 def _op_counts(T, ns, nc, step_ops, jac_ops):
@@ -384,7 +441,14 @@ def _op_counts(T, ns, nc, step_ops, jac_ops):
                 rollout=(T - 1) * step_ops)
 
 
-def k1_flops(T, ns, nc, lqr_iter, n_alpha, batch=1):
+def pendulum_op_counts(damped):
+    """(step, Jacobian) operations of the simple or the damped pendulum
+    (csrc/pendulum.cuh)."""
+    return ((_DAMPED_STEP_OPS, _DAMPED_JAC_OPS) if damped
+            else (_STEP_OPS, _JAC_OPS))
+
+
+def k1_flops(T, ns, nc, lqr_iter, n_alpha, batch=1, damped=False):
     """Arithmetic operations the solve K1 computes needs (each +, -, *,
     /, sqrt, sin, cos counts one; compares and selects none): the least
     work of the function, not of one implementation of it.
@@ -398,8 +462,8 @@ def k1_flops(T, ns, nc, lqr_iter, n_alpha, batch=1):
     is the new trajectory (pass the sums over the batch of n_iter and of
     stats[5], the selected step size's index plus one summed over the
     iterations, so data-dependent early stops are counted as they
-    ran)."""
-    n = _op_counts(T, ns, nc, _STEP_OPS, _JAC_OPS)
+    ran).  ``damped`` counts the damped pendulum's step and Jacobian."""
+    n = _op_counts(T, ns, nc, *pendulum_op_counts(damped))
     init = n['rollout'] + T * n['stage']
     trial = T * (n['ctrl'] + n['stage']) + n['rollout']
     per_iter = n['riccati'] + n['full_du'] + 4
@@ -429,7 +493,7 @@ def nn_op_counts(hidden, activation, passthrough, n_in=4, ns=3):
 
 
 def k3_flops(T, ns, nc, lqr_iter, n_alpha, batch=1, *, lindx=True,
-             has_f=False, nn_ops=None):
+             has_f=False, nn_ops=None, damped=False):
     """Arithmetic operations the solve K3 computes needs, counted as
     ``k1_flops`` counts K1's: the initial rollout with its cost, and per
     outer iteration one Riccati sweep (a LinDx Jacobian is a load) and
@@ -437,12 +501,13 @@ def k3_flops(T, ns, nc, lqr_iter, n_alpha, batch=1, *, lindx=True,
     stats[5] summed over the batch), whose winner is the new trajectory:
     no rollout to commit it and no second sum of the current cost.
     ``nn_ops``, the (step, Jacobian) counts of ``nn_op_counts``, counts
-    an MLP's instead of the pendulum's (``lindx`` False)."""
+    an MLP's instead of the pendulum's (``lindx`` False; ``damped`` the
+    damped pendulum's)."""
     if lindx:
         step_ops = ns * (2 * (ns + nc) - 1) + (ns if has_f else 0)
         n = _op_counts(T, ns, nc, step_ops, 0)
     else:
-        n = _op_counts(T, ns, nc, *(nn_ops or (_STEP_OPS, _JAC_OPS)))
+        n = _op_counts(T, ns, nc, *(nn_ops or pendulum_op_counts(damped)))
     init = n['rollout'] + T * n['stage']
     trial = T * (n['ctrl'] + n['stage']) + n['rollout']
     per_iter = n['riccati'] + n['full_du'] + 4
@@ -490,7 +555,8 @@ def fused_solve_plain(dynamics, params, C, c, x0, u0, lb, ub, *, alphas,
                       recompute_cost=False):
     """The plain PyTorch version of kernel K1, on the kernel's operands.
 
-    params [3] (g, m, l); C [T, 1 or B, 4, 4]; c [T, 1 or B, 4];
+    ``dynamics`` a pendulum, params its [3] (g, m, l) or, damped, [5]
+    (g, m, l, d, b); C [T, 1 or B, 4, 4]; c [T, 1 or B, 4];
     x0 [B, 3]; u0 [T, B]; lb, ub None or [T, 1 or B]; ``alphas`` the
     line-search schedule as Python floats.  Returns x [T, B, 3],
     u [T, B, 1] and stats [6, B]: best cost, best full-step norm,
@@ -688,15 +754,17 @@ _ARGTYPES = [
 ]
 
 
-def kernel_defines(T, has_bounds) -> dict:
-    """The nvcc defines of the K1 build for this horizon and bounds."""
+def kernel_defines(T, has_bounds, damped=False) -> dict:
+    """The nvcc defines of the K1 build for this horizon and bounds, of
+    the simple pendulum or the damped, biased one (MPC_DAMPED)."""
     return {'MPC_T': T, 'MPC_HAS_BOUNDS': int(has_bounds), 'MPC_TEAM': TEAM,
-            'MPC_WARPS': K1_WARPS}
+            'MPC_WARPS': K1_WARPS, 'MPC_DAMPED': int(damped)}
 
 
-def _kernel_lib(T, has_bounds):
+def _kernel_lib(T, has_bounds, damped=False):
     from . import _build
-    fn = _build.load('fused_ilqr', kernel_defines(T, has_bounds)).mpc_fused_ilqr
+    fn = _build.load('fused_ilqr', kernel_defines(T, has_bounds, damped)
+                     ).mpc_fused_ilqr
     if fn.argtypes is None:
         fn.argtypes = _ARGTYPES
         fn.restype = ctypes.c_int
@@ -732,11 +800,12 @@ def fused_ilqr(dynamics, params, C, c, x0, u0, lb, ub, *, alphas, lqr_iter,
     launches csrc/fused_ilqr.cu on the current stream with the geometry
     of ``k1_launch`` and raises on any operand the kernel does not take
     or on a launch error (the launcher refuses, as an invalid value, an
-    array too large for its 32-bit indices).  ``dynamics`` must be the
-    simple pendulum, the model of K1's source."""
+    array too large for its 32-bit indices).  ``dynamics`` must be a
+    pendulum, the model of K1's source: the simple one (params [3]) or
+    the damped, biased one (params [5]; the build's MPC_DAMPED)."""
     _check_device('K1', x0)
-    if not (isinstance(dynamics, PendulumDx) and dynamics.simple):
-        raise ValueError('K1 runs the simple pendulum')
+    if not isinstance(dynamics, PendulumDx):
+        raise ValueError('K1 runs the pendulum')
     return torch.ops.mpc_tpu_torch.k1_solve(
         params, C, c, x0, u0, lb, ub, [float(a) for a in alphas],
         int(lqr_iter), float(eps), float(best_cost_eps),
@@ -752,7 +821,8 @@ def fused_solve_long_plain(dynamics, params, F, f, C, c, x0, u0, lb, ub, *,
                            not_improved_lim, trace=None):
     """The plain PyTorch version of kernel K3, on the kernel's operands.
 
-    ``dynamics`` is a ``PendulumDx`` with ``params`` [3] (F and f None),
+    ``dynamics`` is a ``PendulumDx`` with ``params`` [3] or, damped, [5]
+    (F and f None),
     a one-hidden-layer ``NNDynamics`` with ``params`` its flat weights
     (``kernel_params``; F and f None), or None for LinDx with F
     [T-1, 1 or B, 3, 4] and f None or [T-1, 1 or B, 3];
@@ -1005,17 +1075,18 @@ _ARGTYPES_LONG = [
 NN_ACTIVATIONS = ('sigmoid', 'relu', 'elu')
 
 
-def long_kernel_defines(lindx, has_bounds, activation=None) -> dict:
+def long_kernel_defines(lindx, has_bounds, activation=None,
+                        damped=False) -> dict:
     """The nvcc defines of the K3 build for these dynamics and bounds:
-    LinDx, the pendulum, or with ``activation`` an MLP (MPC_DYN 0, 1,
-    2)."""
+    LinDx, the pendulum (``damped``: the damped, biased one, MPC_DAMPED),
+    or with ``activation`` an MLP (MPC_DYN 0, 1, 2)."""
     if activation is not None:
         return {'MPC_DYN': 2, 'MPC_ACT': NN_ACTIVATIONS.index(activation),
                 'MPC_HAS_BOUNDS': int(has_bounds), 'MPC_TEAM': TEAM,
                 'MPC_WARPS': K3_WARPS, 'MPC_OP_ROW': _K3_OPERAND_ROW}
     return {'MPC_DYN': 0 if lindx else 1, 'MPC_HAS_BOUNDS': int(has_bounds),
             'MPC_TEAM': TEAM, 'MPC_WARPS': K3_WARPS,
-            'MPC_OP_ROW': _K3_OPERAND_ROW}
+            'MPC_OP_ROW': _K3_OPERAND_ROW, 'MPC_DAMPED': int(damped)}
 
 
 def _kernel_lib_long(defines):
@@ -1064,10 +1135,9 @@ def fused_ilqr_long(dynamics, params, F, f, C, c, x0, u0, lb, ub, *, alphas,
             raise ValueError(gap)
         nn_hidden, activation = dynamics.hidden, dynamics.activation
         passthrough = bool(dynamics.passthrough)
-    elif dynamics is not None and not (isinstance(dynamics, PendulumDx)
-                                       and dynamics.simple):
-        raise ValueError('K3 runs LinDx (dynamics None), the simple '
-                         'pendulum or a one-hidden-layer MLP')
+    elif dynamics is not None and not isinstance(dynamics, PendulumDx):
+        raise ValueError('K3 runs LinDx (dynamics None), a pendulum or a '
+                         'one-hidden-layer MLP')
     if (dynamics is None) != (params is None):
         raise ValueError('K3 takes params for the pendulum and an MLP, and '
                          'none for LinDx')
@@ -1220,14 +1290,16 @@ def solution_from_outputs(x, u, stats, eps) -> Solution:
         converged=best_du < eps, alpha=alpha)
 
 
-def slew_problem(cfg, x_init, cost: QuadCost, dynamics: LinDx, prev_ctrl):
+def slew_problem(cfg, x_init, cost: QuadCost, dynamics, prev_ctrl):
     """The augmented problem that the kernels solve for a slew-penalised
-    LinDx of any size (mpc_tpu/ops/fused.py:2510-2580; K3 takes it at
-    three augmented states and one control, the dense configuration
-    otherwise): (cfg, x_init [B, nc + ns],
-    QuadCost, LinDx) with the state augmented by the previous control
-    (prev_ctrl [B, n_ctrl], [n_ctrl] or None), each leaf in its own
-    layout (a shared leaf stays shared)."""
+    LinDx of any size or model of ``SOA_MODELS``
+    (mpc_tpu/ops/fused.py:2510-2580; K3 takes a LinDx at three augmented
+    states and one control, the dense configuration everything else):
+    (cfg, x_init [B, nc + ns], QuadCost, dynamics) with the state
+    augmented by the previous control (prev_ctrl [B, n_ctrl], [n_ctrl]
+    or None), each leaf in its own layout (a shared leaf stays shared);
+    a LinDx's F and f augmented, a model wrapped in its passthrough step
+    (``SlewSoA``)."""
     import dataclasses
 
     from ..solver import (augment_cost, augment_lindx, prev_ctrl_operand,
@@ -1241,10 +1313,14 @@ def slew_problem(cfg, x_init, cost: QuadCost, dynamics: LinDx, prev_ctrl):
 
     blk = slew_block(cfg.slew_rate_penalty, ns, nc, dtype, device)
     C, c = augment_cost(leaf(cost.C), leaf(cost.c), blk, nc)
-    F, f = augment_lindx(leaf(dynamics.F), leaf(dynamics.f), ns, nc)
+    if isinstance(dynamics, LinDx):
+        dynamics = LinDx(*augment_lindx(leaf(dynamics.F), leaf(dynamics.f),
+                                        ns, nc))
+    else:
+        dynamics = SlewSoA(dynamics, nc)
     x0 = torch.cat([prev_ctrl_operand(cfg, prev_ctrl, x_init), x_init], -1)
     return (dataclasses.replace(cfg, n_state=ns + nc, slew_rate_penalty=None),
-            x0, QuadCost(C, c), LinDx(F, f))
+            x0, QuadCost(C, c), dynamics)
 
 
 def fused_batched_solve(cfg, x_init, cost: QuadCost, dynamics,

@@ -36,9 +36,11 @@ import ctypes
 
 import torch
 
+from ..models.cartpole import CartpoleDx
+from ..models.pendulum import PendulumDx
 from ..types import LinDx, QuadCost
-from .fused import (BIG, MAX_ALPHA, _check_device, _cost_operand,
-                    _dyn_operand, line_search_schedule)
+from .fused import (BIG, MAX_ALPHA, SlewSoA, _check_device, _cost_operand,
+                    _dyn_operand, line_search_schedule, pendulum_op_counts)
 
 # Examples (warps) a block of the dense kernel.  A warp's tiles of an
 # example (Q, W, F and V, ``_warp_floats``) take 12.4 KB at 24 states and
@@ -74,15 +76,48 @@ def _warp_floats(ns, nc) -> int:
     return n + -n % 4
 
 
-def dense_workspace_floats(T, ns, nc) -> int:
+def dense_workspace_floats(T, ns, nc, model=False) -> int:
     """An example's workspace in global memory: two trajectory slots
-    [2][T][ntau] (the current one and the trial) and the gains
-    [T][nc][ns + 1] (K then k)."""
+    [2][T][ntau] (the current one and the trial), the gains
+    [T][nc][ns + 1] (K then k) and, in the model-step build, the step
+    Jacobians of the current trajectory [T-1][ns][ntau] (720 floats at
+    the cartpole's 5 states, 1 control and T = 25)."""
     nt = ns + nc
-    return T * (2 * nt + nc * (ns + 1))
+    return T * (2 * nt + nc * (ns + 1)) + (
+        (T - 1) * ns * nt if model else 0)
 
 
-def k3d_launch(T, B, ns, nc, n_alpha) -> dict:
+# The models of the dense kernel's model-step build (MPC_MODEL 1, 2, 3;
+# 0 is LinDx) and their parameter counts.
+DENSE_MODELS = ('pendulum', 'damped_pendulum', 'cartpole')
+DENSE_MODEL_PARAMS = {'pendulum': 3, 'damped_pendulum': 5, 'cartpole': 4}
+
+
+def dense_model(dynamics):
+    """(model name, slew) of a model the dense kernel runs: a pendulum,
+    the cartpole, or a ``SlewSoA`` of one of them."""
+    slew = isinstance(dynamics, SlewSoA)
+    inner = dynamics.inner if slew else dynamics
+    if isinstance(inner, CartpoleDx):
+        return 'cartpole', slew
+    if isinstance(inner, PendulumDx):
+        return ('pendulum' if inner.simple else 'damped_pendulum'), slew
+    raise ValueError(f'the dense kernel has no step for '
+                     f'{type(inner).__name__}')
+
+
+def model_of(name, slew):
+    """The plain model of a (model name, slew) pair, its step taking the
+    parameters it is given (its own hold zeros)."""
+    z = torch.zeros(DENSE_MODEL_PARAMS[name])
+    if name == 'cartpole':
+        m = CartpoleDx(params=z)
+    else:
+        m = PendulumDx(params=z, simple=name == 'pendulum')
+    return SlewSoA(m, 1) if slew else m
+
+
+def k3d_launch(T, B, ns, nc, n_alpha, model=False) -> dict:
     """The dense kernel's launch geometry: lanes an example (a warp),
     warps and examples a block, blocks, the dynamic shared memory of a
     block and the workspace [B, ``dense_workspace_floats``] of float32 in
@@ -95,15 +130,25 @@ def k3d_launch(T, B, ns, nc, n_alpha) -> dict:
     smem = 4 * DENSE_WARPS * _warp_floats(ns, nc)
     return dict(team=32, warps=DENSE_WARPS, examples=DENSE_WARPS,
                 blocks=-(-B // DENSE_WARPS), smem_bytes=smem,
-                workspace_bytes=4 * B * dense_workspace_floats(T, ns, nc))
+                workspace_bytes=4 * B * dense_workspace_floats(T, ns, nc,
+                                                               model))
 
 
-def dense_kernel_defines(ns, nc, has_bounds, has_f) -> dict:
+def dense_kernel_defines(ns, nc, has_bounds, has_f, model=None,
+                         slew=False) -> dict:
     """The nvcc defines of the dense build for these sizes, bounds and f
     (present or absent: a compile-time flag, so that no load goes through
-    the pointer of an absent f)."""
-    return {'MPC_NS': ns, 'MPC_NC': nc, 'MPC_HAS_BOUNDS': int(has_bounds),
-            'MPC_HAS_F': int(has_f), 'MPC_WARPS': DENSE_WARPS}
+    the pointer of an absent f); with ``model`` (a name of
+    ``DENSE_MODELS``) the model-step build, which has no F or f operand
+    (MPC_MODEL, and MPC_SLEW for the passthrough step)."""
+    d = {'MPC_NS': ns, 'MPC_NC': nc, 'MPC_HAS_BOUNDS': int(has_bounds),
+         'MPC_HAS_F': int(has_f), 'MPC_WARPS': DENSE_WARPS}
+    if model is not None:
+        if has_f:
+            raise ValueError('the model-step build has no f')
+        d.update(MPC_MODEL=DENSE_MODELS.index(model) + 1,
+                 MPC_SLEW=int(slew))
+    return d
 
 
 # ---------------------------------------------------------------------------
@@ -124,8 +169,26 @@ def _solve_ops(n) -> int:
     return 2 * n * n
 
 
+# (step, Jacobian) operations of the cartpole, counted from
+# csrc/cartpole.cuh with the parameter-only terms hoisted as
+# fused._STEP_OPS counts the pendulum's: the step (cart_in 5, th_acc 9,
+# xacc 4, the renormalised rotation 16, the three Euler updates 6) and
+# its Jacobian (cart_in, den, th_acc and 1 / den 15, the partials of
+# cart_in 6, of den 4, of th_acc 10, of xacc 12, the rotation with its
+# derivative 34, the rows' 11).  The slew passthrough adds none.
+_CART_STEP_OPS = 40
+_CART_JAC_OPS = 92
+
+
+def model_op_counts(name):
+    """(step, Jacobian) operations of a model of ``DENSE_MODELS``."""
+    if name == 'cartpole':
+        return _CART_STEP_OPS, _CART_JAC_OPS
+    return pendulum_op_counts(name == 'damped_pendulum')
+
+
 def k3d_flops(T, ns, nc, lqr_iter, n_alpha, batch=1, *, has_f=False,
-              has_bounds=True, n_qp=0):
+              has_bounds=True, n_qp=0, model_ops=None):
     """Arithmetic operations the dense solve needs (each +, -, *, /,
     sqrt counts one; compares, selects and sign flips none), counted as
     ``fused.k3_flops`` counts K3's: ``batch`` initial rollouts with their
@@ -133,11 +196,17 @@ def k3d_flops(T, ns, nc, lqr_iter, n_alpha, batch=1, *, has_f=False,
     n_iter), ``n_alpha`` trial rollouts (the sum of stats[5]: the trials
     up to the selected step size) and, for several bounded controls,
     ``n_qp`` projected-Newton trips (the sum of n_qp_iter), each with the
-    first trial of its Armijo search, the least a search runs."""
+    first trial of its Armijo search, the least a search runs.
+    ``model_ops``, a model's (step, Jacobian) counts
+    (``model_op_counts``), counts the model-step build: its step in the
+    rollouts and its T - 1 Jacobians before every sweep."""
     nt = ns + nc
     stage = nt * (2 * nt + 2)
     cb = nt * 2 * nt
     step = ns * (2 * nt - 1) + (ns if has_f else 0)
+    jac = 0
+    if model_ops is not None:
+        step, jac = model_ops
     if nc == 1:
         ctrl = ns + 1 + (6 if has_bounds else 2)
     elif has_bounds:
@@ -150,7 +219,7 @@ def k3d_flops(T, ns, nc, lqr_iter, n_alpha, batch=1, *, has_f=False,
             + ns * 5 * nc)
     ric_t = (cb + ns * nt * (2 * ns - 1) + nt * (nt + 1) // 2 * 2 * ns
              + nt * 2 * ns + ctrl + vupd)
-    riccati = (T - 1) * ric_t + cb + ctrl + vupd
+    riccati = (T - 1) * (ric_t + jac) + cb + ctrl + vupd
     if nc > 1 and has_bounds:
         # the unclamped solve that starts the search at t = T - 1
         riccati += _chol_ops(nc, True) + _solve_ops(nc)
@@ -172,8 +241,8 @@ def k3d_bytes(ops):
     The workspace is neither."""
     T, B, nc = ops['u0'].shape
     ns = ops['x0'].shape[1]
-    ins = [ops[k] for k in ('F', 'f', 'C', 'c', 'x0', 'u0', 'lb', 'ub')
-           if ops.get(k) is not None]
+    ins = [ops[k] for k in ('params', 'F', 'f', 'C', 'c', 'x0', 'u0', 'lb',
+                            'ub') if ops.get(k) is not None]
     out = (T * B * (ns + nc) + 6 * B) * ops['x0'].element_size()
     return sum(a.numel() * a.element_size() for a in ins) + out
 
@@ -402,10 +471,16 @@ def _ctrl_solve(t, T, Q, q, u_t, lb_t, ub_t, prev_kt, ns, pnqp_iter):
 
 
 def fused_solve_dense_plain(F, f, C, c, x0, u0, lb, ub, *, alphas, lqr_iter,
-                            eps, best_cost_eps, not_improved_lim, pnqp_iter):
+                            eps, best_cost_eps, not_improved_lim, pnqp_iter,
+                            model=None, params=None):
     """The plain PyTorch version of the dense kernel, on its operands.
 
-    F [T-1, 1 or B, ns, ntau]; f None or [T-1, 1 or B, ns];
+    F [T-1, 1 or B, ns, ntau]; f None or [T-1, 1 or B, ns]; or, for the
+    model-step build, F and f None and ``model`` one of the kernels'
+    models with one control (a pendulum, the cartpole or a ``SlewSoA``)
+    and ``params`` its parameter vector: the rollouts take its
+    ``soa_step`` and each sweep its ``soa_jacobian`` at the current
+    trajectory, computed before the sweep as the kernel computes them;
     C [T, 1 or B, ntau, ntau]; c [T, 1 or B, ntau]; x0 [B, ns];
     u0 [T, B, nc]; lb, ub None or [T, 1 or B, nc]; ``alphas`` the
     line-search schedule as Python floats.  Returns x [T, B, ns],
@@ -437,9 +512,31 @@ def fused_solve_dense_plain(F, f, C, c, x0, u0, lb, ub, *, alphas, lqr_iter,
         s = _dot(C[t], tau[:, None, :], -1)
         return _lane_sum((0.5 * s + c[t]) * tau)
 
-    def step(t, tau):
-        out = _dot(F[t], tau[:, None, :], -1)
-        return out if f is None else out + f[t]
+    if model is not None:
+        if nc != 1 or F is not None or f is not None:
+            raise ValueError('the model-step build takes a model of one '
+                             'control and no F or f')
+        p = tuple(params.unbind())
+
+        def step(t, tau):
+            return torch.stack(model.soa_step(
+                tuple(tau[:, :ns].unbind(-1)), tau[:, ns], p), -1)
+
+        def jacobians(x, u):
+            """F_t [B, ns, ntau] at the current trajectory for t < T - 1,
+            all steps in one elementwise pass, as the kernel's pass
+            parallel over t computes them."""
+            if T == 1:
+                return []
+            xs = torch.stack(x[:-1])
+            rows = model.soa_jacobian(tuple(xs.unbind(-1)),
+                                      torch.stack(u[:-1])[..., 0], p)
+            return list(torch.stack([torch.stack(r, -1) for r in rows],
+                                    -2).unbind(0))
+    else:
+        def step(t, tau):
+            out = _dot(F[t], tau[:, None, :], -1)
+            return out if f is None else out + f[t]
 
     # ---- init: x <- rollout(u0), best <- the same, its cost ------------
     x = [x0]
@@ -466,6 +563,8 @@ def fused_solve_dense_plain(F, f, C, c, x0, u0, lb, ub, *, alphas, lqr_iter,
         k = [None] * T
         V = v = prev_kt = None
         qp_cnt = zero.clone()
+        if model is not None:
+            Fm = jacobians(x, u)
         for t in range(T - 1, -1, -1):
             tau = torch.cat([x[t], u[t]], -1)
             Ct = C[t].expand(B, nt, nt)
@@ -473,7 +572,7 @@ def fused_solve_dense_plain(F, f, C, c, x0, u0, lb, ub, *, alphas, lqr_iter,
             if t == T - 1:
                 Q, q = Ct, cb
             else:
-                Ft = F[t].expand(B, ns, nt)
+                Ft = Fm[t] if model is not None else F[t].expand(B, ns, nt)
                 W = _dot(V[:, :, :, None], Ft[:, None, :, :], 2)
                 Q = _upper(Ct + _dot(Ft[:, :, :, None], W[:, :, None, :], 1))
                 q = cb + _dot(Ft, v[:, :, None], 1)
@@ -569,7 +668,7 @@ def fused_solve_dense_plain(F, f, C, c, x0, u0, lb, ub, *, alphas, lqr_iter,
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
 ARGTYPES = [
-    ctypes.c_int, ctypes.c_int,           # B, T
+    ctypes.c_int, ctypes.c_int, _P,       # B, T, model parameters
     _P, _I64, _I64,                       # F, t stride, batch stride
     _P, _I64, _I64,                       # f, t stride, batch stride
     _P, _I64, _I64,                       # C, t stride, batch stride
@@ -585,11 +684,11 @@ ARGTYPES = [
 ]
 
 
-def kernel_lib(ns, nc, has_bounds, has_f):
+def kernel_lib(ns, nc, has_bounds, has_f, model=None, slew=False):
     from . import _build
     fn = _build.load('fused_ilqr_dense',
-                     dense_kernel_defines(ns, nc, has_bounds, has_f)
-                     ).mpc_fused_ilqr_dense
+                     dense_kernel_defines(ns, nc, has_bounds, has_f, model,
+                                          slew)).mpc_fused_ilqr_dense
     if fn.argtypes is None:
         fn.argtypes = ARGTYPES
         fn.restype = ctypes.c_int
@@ -597,20 +696,23 @@ def kernel_lib(ns, nc, has_bounds, has_f):
 
 
 def fused_ilqr_dense(F, f, C, c, x0, u0, lb, ub, *, alphas, lqr_iter, eps,
-                     best_cost_eps, not_improved_lim, pnqp_iter):
+                     best_cost_eps, not_improved_lim, pnqp_iter, model=None,
+                     params=None):
     """Run the dense kernel on its operands (layouts as in
     ``fused_solve_dense_plain``) through the op
-    ``mpc_tpu_torch::k3d_solve`` (ops/custom.py).
+    ``mpc_tpu_torch::k3d_solve`` (ops/custom.py), a ``model`` as its name
+    and slew flag (``dense_model``) and its ``params``.
 
     On the CPU the op runs ``fused_solve_dense_plain``.  On a CUDA tensor
     it allocates the workspace of ``k3d_launch``, launches
     csrc/fused_ilqr_dense.cu on the current stream and raises on any
     operand the kernel does not take or on a launch error."""
     _check_device('the dense kernel', x0)
+    name, slew = dense_model(model) if model is not None else ('', False)
     return torch.ops.mpc_tpu_torch.k3d_solve(
         F, f, C, c, x0, u0, lb, ub, [float(a) for a in alphas],
         int(lqr_iter), float(eps), float(best_cost_eps),
-        float(not_improved_lim), int(pnqp_iter))
+        float(not_improved_lim), int(pnqp_iter), name, slew, params)
 
 
 def _ctrl_bound(a, T, B, nc, dtype, device):
@@ -627,7 +729,7 @@ def _ctrl_bound(a, T, B, nc, dtype, device):
     return a.contiguous()
 
 
-def k3d_operands(cfg, x_init, cost: QuadCost, dynamics: LinDx, u_init=None,
+def k3d_operands(cfg, x_init, cost: QuadCost, dynamics, u_init=None,
                  u_lower=None, u_upper=None) -> dict:
     """The dense kernel's operands (the keyword arguments of
     ``fused_ilqr_dense`` and ``fused_solve_dense_plain``) on x_init's
@@ -635,7 +737,9 @@ def k3d_operands(cfg, x_init, cost: QuadCost, dynamics: LinDx, u_init=None,
     [B, ns]; cost and LinDx leaves shared ([T, ...] or without the time
     axis for the cost) or batched ([T, B, ...]), each in its own layout
     (the kernel reads each with its own batch stride); bounds scalar,
-    [T, nc] or [T, B, nc]; u_init [T, nc] or [T, B, nc]."""
+    [T, nc] or [T, B, nc]; u_init [T, nc] or [T, B, nc].  A model (a
+    pendulum, the cartpole or a ``SlewSoA``) gives F = f = None, the
+    model and its parameters."""
     T, nc = cfg.T, cfg.n_ctrl
     dtype, device = x_init.dtype, x_init.device
     x0 = x_init.contiguous()
@@ -651,11 +755,18 @@ def k3d_operands(cfg, x_init, cost: QuadCost, dynamics: LinDx, u_init=None,
     if u_lower is not None:
         lb = _ctrl_bound(u_lower, T, B, nc, dtype, device)
         ub = _ctrl_bound(u_upper, T, B, nc, dtype, device)
-    f = dynamics.f
-    if f is not None:
-        f = _dyn_operand(f, T, B, 1, dtype, device)
-    return dict(F=_dyn_operand(dynamics.F, T, B, 2, dtype, device), f=f,
-                C=_cost_operand(cost.C, T, B, 2, dtype, device),
+    if isinstance(dynamics, LinDx):
+        f = dynamics.f
+        if f is not None:
+            f = _dyn_operand(f, T, B, 1, dtype, device)
+        dyn = dict(F=_dyn_operand(dynamics.F, T, B, 2, dtype, device), f=f,
+                   model=None, params=None)
+    else:
+        dense_model(dynamics)
+        dyn = dict(F=None, f=None, model=dynamics,
+                   params=dynamics.params.detach().to(
+                       device=device, dtype=dtype).contiguous())
+    return dict(**dyn, C=_cost_operand(cost.C, T, B, 2, dtype, device),
                 c=_cost_operand(cost.c, T, B, 1, dtype, device),
                 x0=x0, u0=u0, lb=lb, ub=ub,
                 alphas=line_search_schedule(cfg, dtype),

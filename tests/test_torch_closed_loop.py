@@ -12,8 +12,8 @@ six cases of tests/test_closed_loop.py.
   K1 on the CPU): every pendulum within 0.1 of cos th = 1;
 - a controller model that differs from the environment's; slew-rate
   penalties with the last applied control threaded as prev_ctrl (against
-  a host loop bitwise and against mpc_tpu within 1e-10); a callable and
-  a LinDx environment.
+  a host loop bitwise and against mpc_tpu within 1e-10 on the eager
+  route, 1e-8 on the kernel route); a callable and a LinDx environment.
 """
 
 import dataclasses
@@ -85,11 +85,11 @@ def _same(out, ref):
         assert torch.equal(out[name], r), name
 
 
-def _near_jax(out, ref):
+def _near_jax(out, ref, tol=TOL):
     for name in ('xs', 'us', 'costs'):
         a, b = out[name].numpy(), np.asarray(ref[name])
         assert a.shape == b.shape, name
-        assert np.abs(a - b).max() <= TOL * np.abs(b).max(), (
+        assert np.abs(a - b).max() <= tol * np.abs(b).max(), (
             name, np.abs(a - b).max())
 
 
@@ -136,12 +136,12 @@ def test_closed_loop_model_mismatch():
     _same(out, _host_loop(cfg, x0, cost, wrong, 4, env=dx))
 
 
-def test_closed_loop_slew_threads_prev_ctrl():
-    """Under a slew penalty each solve sees the last applied control as
-    prev_ctrl: a host loop doing the same, bitwise, and mpc_tpu within
-    1e-10 (the pendulum's augmented problem is on the eager route)."""
+def _slew_loop(route):
+    """The pendulum's closed loop under slew 0.5 on ``route``, against a
+    host loop doing the same bitwise and against one that does not thread
+    prev_ctrl; returns (the loop's output, mpc_tpu's)."""
     n_steps = 4
-    dx, x0, cost, cfg = _setup(slew_rate_penalty=0.5)
+    dx, x0, cost, cfg = _setup(slew_rate_penalty=0.5, use_fused=route)
     out = mt.make_closed_loop(cfg, cost, dx, u_lower=-2.0, u_upper=2.0,
                               device='cpu')(x0, n_steps)
     _same(out, _host_loop(cfg, x0, cost, dx, n_steps, slew=True))
@@ -151,7 +151,26 @@ def test_closed_loop_slew_threads_prev_ctrl():
     jdx, jx0, jcost, jcfg = _setup(port=False, slew_rate_penalty=0.5)
     ref = mpc_tpu.make_closed_loop(jcfg, jcost, jdx, u_lower=-2.0,
                                    u_upper=2.0)(jx0, n_steps)
+    return out, ref
+
+
+def test_closed_loop_slew_threads_prev_ctrl():
+    """Under a slew penalty each solve sees the last applied control as
+    prev_ctrl: a host loop doing the same, bitwise, and mpc_tpu within
+    1e-10 on the eager route (use_fused='never')."""
+    out, ref = _slew_loop('never')
     _near_jax(out, ref)
+
+
+def test_closed_loop_slew_kernel_route():
+    """The same loop on the kernel route (the augmented pendulum in the
+    dense configuration's model-step build, its plain version on the
+    CPU): bitwise the host loop, and mpc_tpu within 1e-8 relative, the
+    kernel route's closed-form 1-D box QP against the jnp path's PNQP
+    (1e-11 on its control block), over 4 warm-started steps of 4
+    iterations at eps = 0 (measured 2.9e-9)."""
+    out, ref = _slew_loop('auto')
+    _near_jax(out, ref, tol=1e-8)
 
 
 def test_closed_loop_callable_env():

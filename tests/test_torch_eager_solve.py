@@ -268,8 +268,13 @@ def _loss(u, x, w):
     return (w * u).sum() + 0.5 * (x ** 2).sum()
 
 
-def test_pendulum_gradients_match_jax():
-    """n_ctrl = 1: c, x_init and the damped pendulum's five parameters."""
+def _damped_grads(route):
+    """Gradients of a loss of u and x through a differentiable solve of
+    the damped pendulum, to c, x_init and its five parameters: the port
+    on ``route`` ('never': the eager solver and its fixed point; 'auto':
+    the kernel route, phase 1 in the plain K1 and phase 2 in the plain
+    K2) and jax.grad of mpc_tpu's jnp path.  Returns (the port's, the
+    reference's, the eager counts)."""
     T, B = 6, 6
     x0 = _x0_pend(B, seed=4)
     w = np.random.RandomState(5).randn(T, B, 1)
@@ -290,16 +295,36 @@ def test_pendulum_gradients_match_jax():
     cv, xt, prm = (torch.tensor(a, requires_grad=True) for a in (P, x0, DAMPED))
     solver.reset_eager_counts()
     sol = mt.batched_solve(
-        mt.MPCConfig(grad_method=mt.GradMethods.AUTO_DIFF, **cfg), xt,
+        mt.MPCConfig(grad_method=mt.GradMethods.AUTO_DIFF, use_fused=route,
+                     **cfg), xt,
         mt.QuadCost(torch.diag(torch.tensor(Q)), cv),
         mt.models.PendulumDx(params=prm, simple=False),
         u_lower=-2., u_upper=2., device='cpu')
     _loss(sol.u, sol.x, torch.tensor(w)).backward()
-    assert solver.eager_counts == {'eager_solve': 1, 'eager_fixed_point': 1}
-    for name, a, b in zip(('dc', 'dx_init', 'dparams'), ref,
-                          (cv.grad, xt.grad, prm.grad)):
+    return (cv.grad, xt.grad, prm.grad), ref, dict(solver.eager_counts)
+
+
+def test_pendulum_gradients_match_jax():
+    """n_ctrl = 1: c, x_init and the damped pendulum's five parameters
+    through the eager route (use_fused='never'), 1e-8 relative."""
+    got, ref, counts = _damped_grads('never')
+    assert counts == {'eager_solve': 1, 'eager_fixed_point': 1}
+    for name, a, b in zip(('dc', 'dx_init', 'dparams'), ref, got):
         a = np.asarray(a)
         assert np.abs(a - b.numpy()).max() <= 1e-8 * np.abs(a).max(), name
+
+
+def test_pendulum_gradients_kernel_route_match_jax():
+    """The same gradients through the kernel route, which now takes the
+    damped pendulum: phase 1 in K1's plain version, phase 2 in K2's, no
+    eager solve or fixed point; 1e-7 relative (the kernel route's float64
+    sits up to ~1e-8 from the jnp path's gradients, which add 1e-11 to
+    the control block in PNQP and the masked solve)."""
+    got, ref, counts = _damped_grads('auto')
+    assert counts == {'eager_solve': 0, 'eager_fixed_point': 0}
+    for name, a, b in zip(('dc', 'dx_init', 'dparams'), ref, got):
+        a = np.asarray(a)
+        assert np.abs(a - b.numpy()).max() <= 1e-7 * np.abs(a).max(), name
 
 
 def test_lindx_box_gradients_match_jax():

@@ -64,6 +64,16 @@ differentiable solve launches the dense forward and backward once each,
 float64 on the card takes the eager fixed point, and with its library
 broken the backward raises instead of falling back.
 
+The nonlinear models (the dense configuration's model-step build: the
+cartpole, the slew passthrough over the simple and damped pendulum and
+the cartpole; K1 and K3 on the damped pendulum) are each held to their
+plain version at B=2050, one case a process under
+CUDA_LAUNCH_BLOCKING=1, the cartpole's controls in units of its +-100
+box scaled to the pendulum's +-2; reversed, sliced and repeated
+launches bitwise; the entry points launch each kernel once a request, a
+differentiable cartpole solve the dense forward and backward once each,
+and a broken library raises.
+
 The closed loop (make_closed_loop) launches K1 once a step and runs its
 steps without a synchronising call (torch.cuda.set_sync_debug_mode
 'error' after a first rollout); without a card and without a device it
@@ -1164,3 +1174,214 @@ def test_checkpoint_loads_onto_the_card(cuda, tmp_path):
         theta={'c': torch.zeros(4)}))
     assert got.theta['c'].device.type == 'cuda' and got.step == 3
     assert torch.equal(got.theta['c'].cpu(), state.theta['c'])
+
+
+# ---------------------------------------------------------------------------
+# The nonlinear models: the dense configuration's model-step build (the
+# cartpole, the slew passthrough over each model) and K1 and K3 on the
+# damped pendulum
+# ---------------------------------------------------------------------------
+
+# each define set of this slice: (model, slew, kernel, T)
+SOA_CASES = {
+    'cartpole': ('cartpole', False, 'dense', 25),
+    'cartpole_long': ('cartpole', False, 'dense', 200),
+    'slew_pendulum': ('pendulum', True, 'dense', 20),
+    'slew_damped': ('damped_pendulum', True, 'dense', 20),
+    'slew_cartpole': ('cartpole', True, 'dense', 25),
+    'damped_k1': ('damped_pendulum', False, 'K1', 20),
+    'damped_k3': ('damped_pendulum', False, 'K3', 200),
+}
+SOA_DAMPED = (10.0, 1.0, 1.0, 0.1, 0.05)
+
+
+def _soa_problem(device, case, B, dtype=torch.float32, seed=0):
+    """(ops, kernel, plain, control scale) of a SOA_CASES case at B."""
+    from mpc_tpu_torch.models import CartpoleDx
+    model, slew, kernel, T = SOA_CASES[case]
+    rng = np.random.RandomState(seed)
+    if model == 'cartpole':
+        th = 0.5 * (2 * rng.rand(B) - 1)
+        z = np.zeros(B)
+        x0 = np.stack([z, z, np.cos(th), np.sin(th), z], 1)
+        dx = CartpoleDx(device=device, dtype=dtype)
+        box = 100.0
+        cfg = _cfg(T, n_state=5, lqr_iter=10, linesearch_decay=0.5,
+                   max_linesearch_iter=2)
+    else:
+        th = np.pi * (2 * rng.rand(B) - 1)
+        x0 = np.stack([np.cos(th), np.sin(th), np.zeros(B)], 1)
+        prm = SOA_DAMPED if model == 'damped_pendulum' else (10., 1., 1.)
+        dx = PendulumDx(params=torch.tensor(prm, dtype=dtype, device=device),
+                        simple=model == 'pendulum')
+        box = 2.0
+        cfg = _cfg(T, lqr_iter=10, linesearch_decay=0.2)
+    q, p = dx.get_true_obj()
+    cost = mt.QuadCost(torch.diag(q), p)
+    x0 = torch.tensor(x0, dtype=dtype, device=device)
+    bk = dict(u_lower=-box, u_upper=box)
+    if slew:
+        cfg = dataclasses.replace(cfg, slew_rate_penalty=0.5)
+        prev = torch.tensor(rng.uniform(-1, 1, (B, 1)), dtype=dtype,
+                            device=device)
+        cfg, x0, cost, dx = fused.slew_problem(cfg, x0, cost, dx, prev)
+    if kernel == 'dense':
+        return (fused_dense.k3d_operands(cfg, x0, cost, dx, **bk),
+                fused_dense.fused_ilqr_dense,
+                fused_dense.fused_solve_dense_plain, box / 2.0)
+    if kernel == 'K1':
+        return (fused.k1_operands(cfg, x0, cost, dx, **bk), fused.fused_ilqr,
+                fused.fused_solve_plain, 1.0)
+    return (fused.k3_operands(cfg, x0, cost, dx, **bk), fused.fused_ilqr_long,
+            fused.fused_solve_long_plain, 1.0)
+
+
+def soa_case_main(case):
+    """One case against its plain version at B=2050 (more than a block's
+    examples, a ragged tail), run alone in a process under
+    CUDA_LAUNCH_BLOCKING=1 by test_soa_matches_plain: a fault is reported
+    at the launch that made it.  The controls are held in units of
+    ``scale`` (the cartpole's +-100 box as the pendulum's +-2) to the
+    float32 tail, n_iter equal, no further from float64 than twice the
+    plain float32 run."""
+    device = torch.device('cuda')
+    ops, kernel, plain, scale = _soa_problem(device, case, 2050)
+    ops64, _, _, _ = _soa_problem(device, case, 2050, torch.float64)
+    fused.reset_launch_counts()
+    xk, uk, sk = kernel(**ops)
+    torch.cuda.synchronize()
+    assert sum(fused.launch_counts.values()) == 1
+    xp, up, sp = plain(**ops)
+    _, u64, _ = plain(**ops64)
+    assert torch.isfinite(xk).all() and torch.isfinite(uk).all()
+    long_pendulum = case == 'damped_k3'
+    if not long_pendulum:
+        _assert_tail(uk / scale, up / scale)
+        assert torch.equal(sk[2], sp[2])
+    _assert_near_f64(uk / scale, up / scale, u64 / scale)
+    print('ok', case, float((uk - up).abs().max()))
+
+
+@pytest.mark.parametrize('case', list(SOA_CASES))
+def test_soa_matches_plain(cuda, case):
+    """Each define set of the nonlinear models against its plain version
+    at B=2050, one case a process under CUDA_LAUNCH_BLOCKING=1 (a load
+    the compiler hoists through an absent operand's null pointer faults
+    at its own launch there).  The damped
+    pendulum at T=200 is held against float64 alone (two float32 solves
+    of the pendulum drift apart over long horizons)."""
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, CUDA_LAUNCH_BLOCKING='1',
+               PYTHONPATH=os.pathsep.join(
+                   [root, os.environ.get('PYTHONPATH', '')]))
+    r = subprocess.run([sys.executable, os.path.abspath(__file__), case],
+                       env=env, cwd=root, capture_output=True, text=True,
+                       timeout=600)
+    assert r.returncode == 0 and f'ok {case}' in r.stdout, \
+        r.stdout[-2000:] + r.stderr[-4000:]
+
+
+def test_soa_position_free_and_repeatable(cuda):
+    """The cartpole's and the slew pendulum's outputs are bitwise the same
+    whatever batch an example sits in (reversed, alone, past a block) and
+    at a second launch: the model's step in every lane gives every lane
+    the same bits."""
+    for case in ('cartpole', 'slew_pendulum'):
+        ops, kernel, _, _ = _soa_problem(cuda, case, 2050)
+        full = kernel(**ops)
+        assert all(torch.equal(a, b) for a, b in zip(full, kernel(**ops)))
+        rev = kernel(**dict(ops, x0=ops['x0'].flip(0).contiguous(),
+                            u0=ops['u0'].flip(1).contiguous()))
+        assert all(torch.equal(a.flip(1), b) for a, b in zip(rev, full))
+        for n in (1, 7, 33):
+            part = kernel(**dict(ops, x0=ops['x0'][:n].contiguous(),
+                                 u0=ops['u0'][:, :n].contiguous()))
+            assert all(torch.equal(a, b[:, :n]) for a, b in zip(part, full))
+
+
+def test_soa_entry_points_launch_once(cuda):
+    """Config 3 through batched_solve and MPC, the slew pendulum and the
+    damped pendulum (T=20 and T=200) through batched_solve: one launch of
+    their kernel a request and no eager solve; a differentiable cartpole
+    solve launches the dense forward and the dense backward once each and
+    returns finite gradients to its parameters."""
+    from mpc_tpu_torch.models import CartpoleDx
+    B = 512
+    rng = np.random.RandomState(3)
+    th = 0.5 * (2 * rng.rand(B) - 1)
+    z = np.zeros(B)
+    x0 = torch.tensor(np.stack([z, z, np.cos(th), np.sin(th), z], 1),
+                      dtype=torch.float32, device=cuda)
+    cart = CartpoleDx(device=cuda)
+    q, p = cart.get_true_obj()
+    cost = mt.QuadCost(torch.diag(q), p)
+    cfg = _cfg(25, n_state=5, lqr_iter=10, linesearch_decay=0.5,
+               max_linesearch_iter=2)
+    bk = dict(u_lower=-100.0, u_upper=100.0)
+    (sol, u), launched = _launched(lambda: (
+        mt.batched_solve(cfg, x0, cost, cart, **bk),
+        mt.MPC(5, 1, 25, lqr_iter=10, eps=0.0, linesearch_decay=0.5,
+               max_linesearch_iter=2, exit_unconverged=False,
+               backprop=False, **bk)(x0, cost, cart)[1]))
+    assert launched == {'fused_ilqr_dense': 2} and torch.equal(u, sol.u)
+    x3, dx3, cost3 = _problem(cuda, 1024, 20)
+    for kw, dyn, want in (
+            (dict(slew_rate_penalty=0.5), dx3, 'fused_ilqr_dense'),
+            ({}, PendulumDx(simple=False, device=cuda), 'fused_ilqr'),
+            (dict(T=200), PendulumDx(simple=False, device=cuda),
+             'fused_ilqr_long')):
+        c = _cfg(kw.pop('T', 20), **kw)
+        solver.reset_eager_counts()
+        s, launched = _launched(lambda: mt.batched_solve(
+            c, x3, cost3, dyn, u_lower=-2.0, u_upper=2.0))
+        assert launched == {want: 1} and torch.isfinite(s.u).all()
+        assert solver.eager_counts['eager_solve'] == 0
+    prm = cart.params.clone().requires_grad_(True)
+    solver.reset_eager_counts()
+    sol, launched = _launched(lambda: mt.batched_solve(
+        dataclasses.replace(cfg, backprop=True, detach_unconverged=False,
+                            grad_method=mt.GradMethods.AUTO_DIFF), x0, cost,
+        CartpoleDx(params=prm), **bk))
+    (_, launched_bwd) = _launched(lambda: (sol.u ** 2).mean().backward())
+    assert launched == {'fused_ilqr_dense': 1}
+    assert launched_bwd == {'fused_kkt_bwd_dense': 1}
+    assert solver.eager_counts == {'eager_solve': 0, 'eager_fixed_point': 0}
+    assert torch.isfinite(prm.grad).all() and prm.grad.abs().max() > 0
+
+
+def test_soa_raises_rather_than_falls_back(cuda, monkeypatch):
+    """With the dense library or K1's broken, a cartpole or damped
+    pendulum request raises: no plain version, no eager solve."""
+    ops, kernel, _, _ = _soa_problem(cuda, 'cartpole', 64)
+    with pytest.raises(ValueError):
+        kernel(**dict(ops, params=ops['params'][:3].contiguous()))
+
+    def broken(*a, **k):
+        raise RuntimeError('the library is broken')
+
+    monkeypatch.setattr(fused_dense, 'kernel_lib', broken)
+    monkeypatch.setattr(fused, '_kernel_lib', broken)
+    from mpc_tpu_torch.models import CartpoleDx
+    cart = CartpoleDx(device=cuda)
+    q, p = cart.get_true_obj()
+    x0, dx, cost = _problem(cuda, 64, 20)
+    solver.reset_eager_counts()
+    fused.reset_launch_counts()
+    with pytest.raises(RuntimeError, match='broken'):
+        mt.batched_solve(_cfg(25, n_state=5), torch.zeros(
+            64, 5, device=cuda), mt.QuadCost(torch.diag(q), p), cart,
+            u_lower=-100.0, u_upper=100.0)
+    with pytest.raises(RuntimeError, match='broken'):
+        mt.batched_solve(_cfg(20), x0, cost,
+                         PendulumDx(simple=False, device=cuda),
+                         u_lower=-2.0, u_upper=2.0)
+    assert not any(fused.launch_counts.values())
+    assert solver.eager_counts['eager_solve'] == 0
+
+
+if __name__ == '__main__':
+    import sys
+    soa_case_main(sys.argv[1])

@@ -33,6 +33,7 @@ from mpc_tpu_torch.models import PendulumDx
 from mpc_tpu_torch.ops import fused
 from mpc_tpu_torch.utils.convert import (lin_dx_from_numpy,
                                          pendulum_from_numpy,
+                                         pseudo_huber_from_numpy,
                                          quad_cost_from_numpy)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -253,12 +254,21 @@ def test_out_of_scope_problems_raise():
     with pytest.raises(ValueError, match='always'):
         mt.batched_solve(_cfg(use_fused='always'), x0, cost,
                          lambda x, u: x, device='cpu')
+    q32, p32 = np.diag(Q).astype(np.float32), P.astype(np.float32)
+    damped = PendulumDx(simple=False, device='cpu')
     with pytest.raises(NotImplementedError, match='queue 2'):
         mt.batched_solve(_cfg(use_fused='always'), x0.float(),
-                         quad_cost_from_numpy(np.diag(Q).astype(np.float32),
-                                              P.astype(np.float32), 'cpu'),
-                         PendulumDx(simple=False, device='cpu'),
-                         device='cpu')
+                         pseudo_huber_from_numpy(np.diag(q32), p32,
+                                                 device='cpu'),
+                         damped, device='cpu')
+    # the damped pendulum, refused here before its K1 and K3
+    # configurations, now solves under 'always' (the plain K1 on the CPU)
+    solver.reset_eager_counts()
+    sol = mt.batched_solve(_cfg(use_fused='always'), x0.float(),
+                           quad_cost_from_numpy(q32, p32, 'cpu'), damped,
+                           device='cpu')
+    assert torch.isfinite(sol.u).all()
+    assert solver.eager_counts['eager_solve'] == 0
     # the scan (unconstrained at T >= 128 under 'auto', or
     # differentiable), which raised before ops/pscan.py, now runs
     solver.reset_eager_counts()
@@ -288,10 +298,12 @@ OUTSIDE_KERNELS = {
 
 @pytest.mark.parametrize('case', list(OUTSIDE_KERNELS))
 def test_problems_outside_the_kernels_solve_eagerly(case):
-    """The problems that once raised here run on the eager solver and
-    match mpc_tpu.learning.batched_solve (its jnp path) in float64:
-    x, u within 1e-10 relative, n_iter equal.  n_ctrl = 2 drives the
-    pendulum's torque with the sum of two controls."""
+    """The problems that once raised here run on the eager solver
+    (use_fused='never': the damped pendulum now also has its K1 and K3
+    configurations, held in tests/test_torch_soa.py) and match
+    mpc_tpu.learning.batched_solve (its jnp path) in float64: x, u within
+    1e-10 relative, n_iter equal.  n_ctrl = 2 drives the pendulum's
+    torque with the sum of two controls."""
     kw = OUTSIDE_KERNELS[case]
     nc = kw['n_ctrl']
     prm = np.array([10., 1., 1., 0.1, 0.2]) if not kw['simple'] else PARAMS
@@ -318,8 +330,9 @@ def test_problems_outside_the_kernels_solve_eagerly(case):
     js = j_batched_solve(mpc_tpu.MPCConfig(**cfg, use_fused='never'),
                          jnp.asarray(x0), jcost, jdyn, u_lower=-1.,
                          u_upper=1.)
-    ts = mt.batched_solve(mt.MPCConfig(**cfg), torch.tensor(x0), tcost,
-                          tdyn, u_lower=-1., u_upper=1., device='cpu')
+    ts = mt.batched_solve(mt.MPCConfig(**cfg, use_fused='never'),
+                          torch.tensor(x0), tcost, tdyn, u_lower=-1.,
+                          u_upper=1., device='cpu')
     for a, b in ((ts.x, js.x), (ts.u, js.u)):
         b = np.asarray(b)
         np.testing.assert_allclose(a.numpy(), b, rtol=0,

@@ -23,8 +23,8 @@ import numpy as np
 import pytest
 import torch
 
-from mpc_tpu_torch.models import NNDynamics, PendulumDx
-from mpc_tpu_torch.ops import fused, fused_bwd
+from mpc_tpu_torch.models import CartpoleDx, NNDynamics, PendulumDx
+from mpc_tpu_torch.ops import custom, fused, fused_bwd
 
 T, B = 4, 3
 ALPHAS = [1.0, 0.2]
@@ -158,14 +158,20 @@ def test_wrappers_are_the_plain_versions():
 
 
 def test_k1_wrapper_refuses_another_model():
-    """K1's source is the simple pendulum: the wrapper refuses any other
-    model rather than run the pendulum in its place."""
+    """K1's source is the pendulum (simple or damped): the wrapper refuses
+    any other model rather than run the pendulum in its place, and the op
+    refuses a parameter vector of neither pendulum."""
     C, c, x0, u0, lb, ub = _solve_args(_rng(6), True, True)
-    dx = PendulumDx(simple=False, device='cpu', dtype=torch.float64)
-    with pytest.raises(ValueError, match='simple pendulum'):
-        fused.fused_ilqr(dx, _t([10., 1., 1.]), C, c, x0, u0, lb, ub,
-                         alphas=ALPHAS, lqr_iter=1, eps=0.0,
-                         best_cost_eps=1e-4, not_improved_lim=5.0)
+    kw = dict(alphas=ALPHAS, lqr_iter=1, eps=0.0, best_cost_eps=1e-4,
+              not_improved_lim=5.0)
+    cart = CartpoleDx(device='cpu', dtype=torch.float64)
+    with pytest.raises(ValueError, match='pendulum'):
+        fused.fused_ilqr(cart, _t([10., 1., 1.]), C, c, x0, u0, lb, ub, **kw)
+    damped = PendulumDx(simple=False, device='cpu', dtype=torch.float64)
+    fused.fused_ilqr(damped, _t([10., 1., 1., 0.1, 0.2]), C, c, x0, u0, lb,
+                     ub, **kw)
+    with pytest.raises(ValueError, match='params'):
+        custom._check_pendulum_params('K1', _t([1., 2.]))
 
 
 def test_ops_import_without_the_solver():

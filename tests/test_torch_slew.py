@@ -7,7 +7,10 @@ mpc_tpu in float64.
   solution, a unit one raises the objective and shrinks the slew), and x
   and u against ``mpc_tpu.MPC(slew_rate_penalty=...)`` within 1e-10
   relative: the affine model with 4 controls and the pendulum, both on
-  the eager solver;
+  the eager solver (the pendulum pinned there with use_fused='never'),
+  and the pendulum through the kernel route (the plain dense
+  configuration's model-step build with the passthrough step) within
+  1e-9;
 - the slew-augmented double integrator (2 states, 1 control: a LinDx of
   3 augmented states) through the kernel route (the plain K3 on the
   CPU) against mpc_tpu's jnp path within 1e-10, and the three layouts
@@ -15,9 +18,9 @@ mpc_tpu in float64.
 - gradients through both routes (the fixed point is the eager one, on
   the augmented problem) to c, F, x_init and prev_ctrl against
   ``jax.grad`` within 1e-8 relative;
-- ``fused.scope_gap`` judges the augmented problem: the pendulum goes to
-  the eager route naming its ROADMAP queue 2 item, the double
-  integrator to K3.
+- ``fused.scope_gap`` judges the augmented problem: the pendulum and a
+  3-state LinDx go to the dense configuration, the double integrator to
+  K3, the MLP to the eager route naming its ROADMAP queue 2 item.
 """
 
 import numpy as np
@@ -138,11 +141,10 @@ def _pendulum(B=3, seed=0):
     return x0, np.diag(q), p, rng.uniform(-1, 1, (B, 1))
 
 
-@pytest.mark.parametrize('layout', ['batched', 'shared', 'leading_one'])
-def test_slew_pendulum_prev_ctrl_layouts_match_jax_mpc(layout):
-    """The pendulum under slew 0.5 (the eager route: its augmented state
-    has 4 states) with prev_ctrl [B, nc], [nc] and [1, B, nc] against
-    mpc_tpu.MPC, 4 iterations."""
+def _slew_pendulum_mpc(layout, route):
+    """The pendulum under slew 0.5 with prev_ctrl in ``layout`` through
+    the port's MPC on ``route`` and through mpc_tpu.MPC, 4 iterations:
+    (the port's x, u, costs; the reference's; the eager solves)."""
     B, T = 3, 8
     x0, C, c, pc = _pendulum(B)
     pc = {'batched': pc, 'shared': pc[0], 'leading_one': pc[None]}[layout]
@@ -150,15 +152,39 @@ def test_slew_pendulum_prev_ctrl_layouts_match_jax_mpc(layout):
               slew_rate_penalty=0.5, grad_method=mpc_tpu.GradMethods.AUTO_DIFF,
               exit_unconverged=False, backprop=False)
     solver.reset_eager_counts()
-    got = mt.MPC(3, 1, T, prev_ctrl=torch.tensor(pc), device='cpu', **kw)(
+    got = mt.MPC(3, 1, T, prev_ctrl=torch.tensor(pc), device='cpu',
+                 use_fused=route, **kw)(
         torch.tensor(x0), quad_cost_from_numpy(C, c, 'cpu'),
         pendulum_from_numpy([10., 1., 1.], device='cpu'))
-    assert solver.eager_counts['eager_solve'] == 1
+    n_eager = solver.eager_counts['eager_solve']
     ref = mpc_tpu.MPC(3, 1, T, prev_ctrl=jnp.asarray(pc), **kw)(
         jnp.asarray(x0), mpc_tpu.QuadCost(jnp.asarray(C), jnp.asarray(c)),
         JPendulumDx())
+    return got, ref, n_eager
+
+
+@pytest.mark.parametrize('layout', ['batched', 'shared', 'leading_one'])
+def test_slew_pendulum_prev_ctrl_layouts_match_jax_mpc(layout):
+    """The pendulum under slew 0.5 on the eager route (use_fused='never')
+    with prev_ctrl [B, nc], [nc] and [1, B, nc] against mpc_tpu.MPC."""
+    got, ref, n_eager = _slew_pendulum_mpc(layout, 'never')
+    assert n_eager == 1
     for name, a, b in zip(('x', 'u', 'costs'), got, ref):
         _rel(a, b, TOL, name)
+
+
+@pytest.mark.parametrize('layout', ['batched', 'shared', 'leading_one'])
+def test_slew_pendulum_prev_ctrl_layouts_kernel_route(layout):
+    """The same through the kernel route (use_fused='auto'): the
+    augmented pendulum of 4 states in the dense configuration's
+    model-step build (its plain version on the CPU), no eager solve,
+    against mpc_tpu.MPC within 1e-9 relative (the kernel route's 1-D box
+    QP in closed form against the jnp path's PNQP, which adds 1e-11 to
+    the control block)."""
+    got, ref, n_eager = _slew_pendulum_mpc(layout, 'auto')
+    assert n_eager == 0
+    for name, a, b in zip(('x', 'u', 'costs'), got, ref):
+        _rel(a, b, 1e-9, name)
 
 
 def _double_integrator(B, T, seed=3):
@@ -259,8 +285,16 @@ def test_scope_gap_judges_the_augmented_problem():
     cfg = mt.MPCConfig(n_state=3, n_ctrl=1, T=T, slew_rate_penalty=0.5)
     pend = pendulum_from_numpy([10., 1., 1.], device='cpu')
     cost = quad_cost_from_numpy(C, c, 'cpu')
-    gap = fused.scope_gap(cfg, cost, pend)
-    assert 'ROADMAP queue 2' in gap and 'NS = 4' in gap and 'eager' in gap
+    # the pendulum augments to 4 states: the dense configuration's
+    # model-step build, through the passthrough step
+    assert fused.scope_gap(cfg, cost, pend) is None
+    assert fused.routes_dense(fused.SlewSoA(pend, 1), 4, 1)
+    assert not fused.routes_dense(pend, 3, 1)
+    # an MLP under slew has no kernel configuration yet
+    mlp = mt.NNDynamics.init(3, 1, (8,), generator=torch.Generator(
+    ).manual_seed(0), device='cpu', dtype=torch.float64)
+    gap = fused.scope_gap(cfg, cost, mlp)
+    assert 'ROADMAP queue 2' in gap and 'eager' in gap
     # a 3-state LinDx augments to 4 states: K3's dense configuration
     lin3 = lin_dx_from_numpy(np.zeros((T - 1, 3, 4)), None, 'cpu')
     assert fused.scope_gap(cfg, cost, lin3) is None
