@@ -106,6 +106,25 @@ forward and one dense-backward launch against the eager fixed point on
 the same primal, float64 and TF32 ([grad-cartpole]); [eager-cartpole]
 then times config 3 on the eager route beside the kernel route.
 
+The pseudo-Huber cost inside the kernels (each kernel's cost build,
+MPC_COST = 1, csrc/cost.cuh: the cost quadratised in the Riccati sweep,
+the true cost in the line search): the serving row of BASELINE.md:92 and
+benchmarks/hw_sweep.py:255-267 (the pendulum, B=2048, T=20, lqr_iter=6,
+3 step sizes, w (1, 1, 0.1, 0.1), goal (1, 0, 0, 0), delta 0.9, box +-2)
+from hw_sweep's starts and from full +-pi starts in K1, the pendulum at
+T=200, the long LinDx system at T=160 and the reference's MLP in K3,
+config 3's cartpole and the medium row at 24 states and 4 controls in the
+dense configuration, each against its plain version and float64,
+reversed, sliced and B+2 batches ([compare-huber]); the serving row
+through batched_solve and MPC, one K1 launch a request, beside the eager
+route's ms, a closed loop of 20 steps, and requests of every row
+([serve-huber]); each row's time from a CUDA graph beside its bound and
+the QuadCost build's time at the same shapes ([time-huber]); and the
+training row of benchmarks/parity_tpu.py:190-228 (B=256, T=8,
+lqr_iter=12): gradients to w, goal, delta and x_init through one K1 and
+one K2 launch against the eager fixed point, float64 and central
+differences in delta, and a K4 and a dense-backward row ([grad-huber]).
+
 The controller's own surface: make_closed_loop at bench_closed_loop's
 sizes (benchmarks/configs.py:375-417; B = 1, 16, 256 and 4096, one K1
 launch a step, bitwise the host loop of [swingup], the swing-up through
@@ -306,6 +325,19 @@ def phase_build():
     specs += [('fused_ilqr', fused.kernel_defines(T, True, damped=True)),
               ('fused_ilqr_long', fused.long_kernel_defines(False, True,
                                                             damped=True))]
+    # the pseudo-Huber cost: each kernel's cost build (MPC_COST = 1) at the
+    # rows of [compare-huber] and [grad-huber], and K2 on per-example C
+    specs += [('fused_ilqr', fused.kernel_defines(t_, True, huber=True))
+              for t_ in (T, HUBER_GRAD['T'])]
+    specs += [('fused_ilqr_long', fused.long_kernel_defines(
+        lindx, True, act, huber=True)) for lindx, act in (
+            (False, None), (True, None), (False, 'sigmoid'))]
+    specs += [('fused_ilqr_dense', fused_dense.dense_kernel_defines(
+        5, 1, True, False, 'cartpole', huber=True)),
+              ('fused_ilqr_dense', fused_dense.dense_kernel_defines(
+                  24, 4, True, False, huber=True)),
+              ('fused_kkt_bwd', fused_bwd.kernel_defines(HUBER_GRAD['T'],
+                                                         True, False))]
     t0 = time.perf_counter()
     paths = _build.build(specs)
     log(f'[build] nvcc {" ".join(_build.NVCC_FLAGS)} '
@@ -2439,14 +2471,15 @@ def phase_eager_medium(torch, device, records):
     records[-1]['kernel_median_ms'] = k_ms
 
 
-def cartpole_problem(torch, device, dtype, n, seed=2):
+def cartpole_problem(torch, device, dtype, n, seed=2, angle=0.5):
     """Config 3 (benchmarks/configs.py:173-202): the cartpole from small
-    angles, its diagonal balance objective, box +-100."""
+    angles (uniform in +-``angle``), its diagonal balance objective, box
+    +-100."""
     import numpy as np
     import mpc_tpu_torch as mt
     from mpc_tpu_torch.models import CartpoleDx
     rng = np.random.RandomState(seed)
-    th = 0.5 * (2 * rng.rand(n) - 1)
+    th = angle * (2 * rng.rand(n) - 1)
     z = np.zeros(n)
     x0 = torch.tensor(np.stack([z, z, np.cos(th), np.sin(th), z], 1),
                       dtype=dtype, device=device)
@@ -3926,6 +3959,732 @@ def soa_entries(rows, serve, grad_counts, grad_err, err, eager):
                      loop_us_per_step=serve['loop_us_per_step'],
                      launches_closed_loop=serve['launches']['closed loop'],
                      launches_grad_cartpole=grad_counts,
+                     grad_err_vs_eager=grad_err,
+                     rows=[{k: v for k, v in x.items() if k != 'design'}
+                           for x in rows])
+        out.append(e)
+    return out
+
+
+# the pseudo-Huber cost in the kernels' cost build (MPC_COST = 1,
+# csrc/cost.cuh): the JAX package's rows that run it
+HUBER_DELTA = 0.9
+# the serving row (BASELINE.md:92; benchmarks/hw_sweep.py:58-65, 255-267):
+# the pendulum, its cost (w, goal) below, 6 iterations, 3 step sizes
+HUBER = dict(n_state=3, n_ctrl=1, T=T, lqr_iter=6, eps=0.0,
+             exit_unconverged=False, detach_unconverged=False,
+             backprop=False, linesearch_decay=0.2, max_linesearch_iter=3)
+HUBER_W, HUBER_GOAL = (1.0, 1.0, 0.1, 0.1), (1.0, 0.0, 0.0, 0.0)
+HUBER_B = 2048
+# (label, problem, T, B, kernel): the serving row from hw_sweep's starts
+# (theta uniform in +-0.4) and from the headline's full +-pi, which reach
+# the cost's linear tails, each also at B+2 = 2050 (hw_sweep's partial
+# block); the pendulum at T=200 and the long LinDx system
+# (benchmarks/configs.py:325-372) at T=160 in K3; the reference's MLP
+# (H=100, bench_nn_dynamics) in K3's MLP build; config 3's cartpole
+# (:173-202) in the dense model-step build, and the same from starts near
+# its goal (HUBER_CART_NEAR); the medium row at 24 states and 4 controls
+# (:107-171) in the dense LinDx build.  Each but the serving row takes w
+# the diagonal of its own QuadCost and goal its target.
+HUBER_ROWS = (
+    ('serving hw_sweep', 'sweep', T, HUBER_B, 'K1'),
+    ('serving full', 'full', T, HUBER_B, 'K1'),
+    ('pendulum T=200', 'pendulum', SOA_LONG_T, B, 'K3'),
+    ('long LinDx', 'lindx', LONG_T, LONG_B, 'K3'),
+    ('MLP', 'mlp', NN_T, NN_B, 'K3'),
+    ('config 3', 'cartpole', CARTPOLE['T'], CARTPOLE_B, 'dense'),
+    ('config 3 near goal', 'cartpole_near', CARTPOLE['T'], CARTPOLE_B,
+     'dense'),
+    ('medium 24s4c', 'medium', MEDIUM['T'], MEDIUM_B, 'dense'),
+)
+# Config 3's starts put its controls in the cost's linear tails and on
+# the box, where H_uu = w_u / s^3 is ~1e-9 and the solve hardly reads the
+# cost's curvature.  From angles uniform in +-HUBER_CART_NEAR no control
+# reaches the box and H_uu stays near w_u, so that row holds the model-step
+# cost build's H and g to the float32 tail, its controls unscaled.
+HUBER_CART_NEAR = 0.05
+HUBER_REQUESTS = 4
+HUBER_LOOP_STEPS = 20
+# the training row (benchmarks/parity_tpu.py:190-228): B=256, T=8, 12
+# iterations, theta uniform in +-0.3, loss sum(u^2); d loss / d delta
+# against central differences of step 1e-2 within 5%
+HUBER_GRAD = dict(HUBER, T=8, lqr_iter=12, backprop=True)
+HUBER_GRAD_B = 256
+HUBER_FD_STEP, HUBER_FD_TOL = 1e-2, 0.05
+# the K4 row: the long LinDx system (benchmarks/configs.py:341-351, its
+# batch-shared F) past T_MAX_BWD, w the diagonal of its QuadCost, goal 0:
+# K3's cost build forward, K4 backward.  (The pendulum there is no
+# yardstick: after 12 iterations at T=190 its solve is far from converged
+# and d loss / d x_init of the fixed point differs between a float32 and a
+# float64 eager run by 4e4 of its scale, in a CPU rehearsal.)
+HUBER_K4_T = 190
+
+
+def huber_problem(torch, device, label, dtype=None, n=None, quad=False):
+    """(cfg, x0, cost, dynamics, bounds) of a HUBER_ROWS row at its own
+    sizes (or on its first n examples): the pseudo-Huber cost, or with
+    ``quad`` the QuadCost of the same weights and target (C = diag(w),
+    c = -w goal), the QuadCost build's problem at the same shapes."""
+    import numpy as np
+    import mpc_tpu_torch as mt
+    from mpc_tpu_torch.models import PseudoHuberCost
+    dtype = dtype or torch.float32
+    _, prob, T_, n0, _ = next(r for r in HUBER_ROWS if r[0] == label)
+    n = n or n0
+    box = dict(u_lower=-2.0, u_upper=2.0)
+    w, goal = HUBER_W, HUBER_GOAL
+    if prob in ('sweep', 'full', 'pendulum'):
+        dx, _ = problem(torch, device, dtype)
+        rng = np.random.RandomState({'sweep': 7, 'full': 8}.get(prob, 9))
+        th = (0.4 if prob == 'sweep' else np.pi) * (2 * rng.rand(n) - 1)
+        x0 = torch.tensor(np.stack([np.cos(th), np.sin(th), np.zeros(n)], 1),
+                          dtype=dtype, device=device)
+        cfg = mt.MPCConfig(**dict(HUBER, T=T_))
+        if prob == 'pendulum':
+            w = tuple(float(v) for v in dx.get_true_obj()[0])
+    elif prob == 'lindx':
+        cfg, x0, cost, dx, _ = long_problem(torch, device, n, dtype)
+        w, goal = tuple(float(v) for v in cost.C[0].diagonal()), (0.0,) * 4
+    elif prob == 'mlp':
+        cfg, x0, cost, dx = nn_problem(torch, device, n, dtype=dtype)
+        w = tuple(float(v) for v in cost.C.diagonal())
+    elif prob in ('cartpole', 'cartpole_near'):
+        x0, cost, dx = cartpole_problem(
+            torch, device, dtype, n,
+            angle=HUBER_CART_NEAR if prob == 'cartpole_near' else 0.5)
+        cfg = mt.MPCConfig(**dict(CARTPOLE, use_fused='auto'),
+                           grad_method=mt.GradMethods.AUTO_DIFF)
+        w = tuple(float(v) for v in cost.C.diagonal())
+        goal = tuple(dx.goal_state) + (0.0,)
+        box = dict(u_lower=-100.0, u_upper=100.0)
+    else:
+        x0, cost, dx = medium_problem(torch, device, dtype, n)
+        cfg = mt.MPCConfig(**dict(MEDIUM, use_fused='auto'))
+        w, goal = tuple(float(v) for v in cost.C.diagonal()), (0.0,) * 28
+        box = dict(u_lower=-1.0, u_upper=1.0)
+    t = (lambda a: torch.tensor(a, dtype=dtype, device=device))
+    if quad:
+        cost = mt.QuadCost(torch.diag(t(w)), -t(w) * t(goal))
+    else:
+        cost = PseudoHuberCost(t(w), t(goal), t(HUBER_DELTA))
+    return cfg, x0, cost, dx, box
+
+
+def huber_operands(torch, device, label, dtype=None, n=None, quad=False):
+    """A HUBER_ROWS row's kernel operands, its kernel and plain version."""
+    from mpc_tpu_torch.ops import fused
+    from mpc_tpu_torch.ops import fused_dense as fd
+    cfg, x0, cost, dx, bk = huber_problem(torch, device, label, dtype, n,
+                                          quad)
+    kernel = next(r for r in HUBER_ROWS if r[0] == label)[4]
+    if kernel == 'dense':
+        return (fd.k3d_operands(cfg, x0, cost, dx, **bk),
+                fd.fused_ilqr_dense, fd.fused_solve_dense_plain)
+    if kernel == 'K1':
+        return (fused.k1_operands(cfg, x0, cost, dx, **bk),
+                fused.fused_ilqr, fused.fused_solve_plain)
+    return (fused.k3_operands(cfg, x0, cost, dx, **bk),
+            fused.fused_ilqr_long, fused.fused_solve_long_plain)
+
+
+def huber_judged_by_f64(label):
+    """The rows whose two float32 solves part beyond the tail and are
+    judged against float64 alone: the pendulum at T=200 (a long horizon,
+    PEND_LONG_T's note); the cartpole, whose control weight of 0.001
+    leaves the cost's linear tails almost no curvature (H_uu = w_u /
+    s^3), so that its bang-bang controls tie at round-off (on an NVIDIA
+    H100 80GB HBM3 at 700 W the plain float32 run itself sits 0.10 of a
+    control from float64, mean |du|, at B=512); and the long LinDx
+    system, whose 4 iterations stop while the box's active set still
+    moves (LONG's note) and where a few examples' line searches tie (on
+    the same card: mean |du| 4.2e-4, 0.05% of entries past 1e-3, max |du|
+    4, a flip across the box)."""
+    return label in ('pendulum T=200', 'config 3', 'long LinDx')
+
+
+def hold_huber_f64(torch, what, ops, ops64, kernel, plain):
+    """A row of ``huber_judged_by_f64``: finite, the tail shown, the
+    kernel no further from the float64 plain run than twice the plain
+    float32 run, n_iter equal, the reversed batch bitwise.  Returns max
+    |du|."""
+    xk, uk, sk = kernel(**ops)
+    xp, up, sp = plain(**ops)
+    _, u64, _ = plain(**ops64)
+    if not all(torch.isfinite(t).all() for t in (xk, uk, sk)):
+        raise AssertionError(f'{what}: the kernel returned non-finite values')
+    hold_f64(what, uk, up, u64)
+    if not torch.equal(sk[2], sp[2]):
+        raise AssertionError(f'{what}: n_iter differs between kernel and '
+                             'plain')
+    B_ = ops['x0'].shape[0]
+    r = kernel(**batch_subset(torch, ops, torch.arange(B_ - 1, -1, -1)))
+    if not all(torch.equal(a.flip(1), b) for a, b in zip(r, (xk, uk, sk))):
+        raise AssertionError(f'{what}: reversed batch is not bitwise equal')
+    log('  reversed batch: bitwise equal')
+    return float((uk - up).abs().max())
+
+
+def phase_compare_huber(torch, device):
+    """Each HUBER_ROWS row's cost build against its plain version on the
+    card (hold_k1: the float32 tail, n_iter equal, at most twice the plain
+    float32 run's distance from a float64 plain run, the reversed batch
+    bitwise; the rows of ``huber_judged_by_f64`` by float64 alone, n_iter
+    equal), B = 1, 7, 33 alone and the batch with two more examples
+    bitwise.  The cartpole's controls are held divided by CART_U_SCALE.
+    Returns max |du| and the plain float32 run's device ms, by row."""
+    max_du, plain_ms = {}, {}
+    for label, prob, T_, n, kname in HUBER_ROWS:
+        what = f'{label} ({kname}), B={n}, T={T_}'
+        log(f'[compare-huber] {what}: the cost build vs its plain version')
+        t0 = time.perf_counter()
+        ops, kernel, plain = huber_operands(torch, device, label)
+        ops64, _, _ = huber_operands(torch, device, label, torch.float64)
+        if ops['C'] is not None or ops['cost_params'] is None:
+            raise AssertionError(f'{what}: not the cost build\'s operands')
+        times = []
+        scale = CART_U_SCALE if prob == 'cartpole' else 1.0
+
+        def scaled(fn):
+            def run(**o):
+                x, u, s = fn(**o)
+                return x, u / scale, s
+            return run
+        if huber_judged_by_f64(label):
+            mx = hold_huber_f64(torch, what, ops, ops64, scaled(kernel),
+                                scaled(timed_plain(torch, plain, times)))
+        else:
+            _, mx = hold_k1(torch, what, ops, ops64, kernel=kernel,
+                            plain=timed_plain(torch, plain, times))
+        plain_ms[label] = times[0]
+        max_du[label] = mx * scale
+        full = kernel(**ops)
+        hold_slices(torch, what, kernel, ops, full)
+        r = kernel(**batch_subset(torch, ops, torch.cat(
+            [torch.arange(n), torch.arange(2)])))
+        if not all(torch.equal(r[i][:, :n], full[i])
+                   and torch.equal(r[i][:, n:], full[i][:, :2])
+                   for i in range(3)):
+            raise AssertionError(f'{what}: B={n + 2} differs from B={n}')
+        box = 100.0 if prob.startswith('cartpole') else (
+            1.0 if prob == 'medium' else 2.0)
+        if prob.startswith('cartpole'):
+            s3 = (1.0 + (full[1] / HUBER_DELTA) ** 2) ** 1.5
+            log(f'  H_uu = w_u / s^3 at the solution: median '
+                f'{float((ops["cost_params"][5] / s3).median()):.3e}')
+        log(f'  {what}: B={n + 2} bitwise equal to B={n}; controls on the '
+            f'box {float((full[1].abs() == box).double().mean()):.3f}, '
+            f'n_iter a solve {float(full[2][2].double().mean()):.2f}, trials '
+            f'a solve {float(full[2][5].double().mean()):.2f}; plain '
+            f'{times[0]:.1f} ms; {time.perf_counter() - t0:.1f} s')
+    return max_du, plain_ms
+
+
+def phase_serve_huber(torch, device):
+    """The serving row through the entry points, every count set to 0
+    before and read after: HUBER_REQUESTS batches from full +-pi starts
+    through batched_solve and one through MPC (host to host, one K1
+    launch a request, no eager solve), beside the eager route's ms of the
+    same request in this process (use_fused='never'); a closed loop of
+    HUBER_LOOP_STEPS steps through make_closed_loop (one K1 launch a step,
+    bitwise the host loop); two requests of each other row (one launch of
+    its kernel each).  Returns the launches by row, the request's ms, the
+    eager route's and the loop's us a step."""
+    import dataclasses
+    import numpy as np
+    import mpc_tpu_torch as mt
+    from mpc_tpu_torch.solver import trajectory_cost
+    out = {'launches': {}}
+    cfg, x0, cost, dx, bk = huber_problem(torch, device, 'serving full')
+    n = x0.shape[0]
+    reqs = [x0_batch(n, 500 + i, torch, torch.device('cpu'))
+            for i in range(HUBER_REQUESTS)]
+    mt.batched_solve(cfg, x0, cost, dx, device=device, **bk).u.cpu()
+    ctrl = mt.MPC(3, 1, cfg.T, lqr_iter=cfg.lqr_iter, eps=cfg.eps,
+                  linesearch_decay=cfg.linesearch_decay,
+                  max_linesearch_iter=cfg.max_linesearch_iter,
+                  exit_unconverged=False, detach_unconverged=False,
+                  backprop=False, device=device, **bk)
+
+    def serve():
+        lat, sols = [], []
+        for req in reqs:
+            t0 = time.perf_counter()
+            sol = mt.batched_solve(cfg, req.to(device), cost, dx,
+                                   device=device, **bk)
+            u = sol.u.cpu()
+            lat.append(1e3 * (time.perf_counter() - t0))
+            sols.append((sol, u))
+        t0 = time.perf_counter()
+        um = ctrl(reqs[0].to(device), cost, dx)[1].cpu()
+        return lat, sols, um, 1e3 * (time.perf_counter() - t0)
+
+    (lat, sols, um, mpc_ms), counts, n_eager = soa_counted(torch, serve)
+    ms = median(lat)
+    log(f'[serve-huber] serving row, B={n}: {HUBER_REQUESTS} batched_solve '
+        'requests, latency ms ' + ' '.join(f'{v:.3f}' for v in lat) +
+        f', median {ms:.3f} ({n / ms * 1e3:.0f} solves/s); MPC '
+        f'{mpc_ms:.3f} ms; launches {counts}, eager solves {n_eager}')
+    if n_eager or (device.type == 'cuda'
+                   and counts != {'fused_ilqr': HUBER_REQUESTS + 1}):
+        raise AssertionError('each serving request must launch K1 once and '
+                             'nothing else')
+    if not torch.equal(um, sols[0][1]):
+        raise AssertionError('MPC and batched_solve answer differently')
+    sol, u = sols[-1]
+    tc = trajectory_cost(cost, sol.x, u.to(device))
+    gap = float((tc - sol.costs).abs().max() / sol.costs.abs().max())
+    log(f'  last answer: relative gap of its cost to the true cost of its '
+        f'trajectory {gap:.2e}')
+    if not (torch.isfinite(u).all() and u.abs().max() <= 2.0
+            and gap < 1e-4):
+        raise AssertionError('served controls are not a feasible solve')
+    # the eager route of the same request, in this process
+    never = dataclasses.replace(cfg, use_fused='never')
+    (eager_u, eager_ms), n_eager = eager_counted(torch, lambda: timed(
+        torch, device, lambda: mt.batched_solve(
+            never, reqs[0].to(device), cost, dx, device=device, **bk).u, 2))
+    log(f'  the eager route (use_fused=\'never\') of the first request: '
+        f'{eager_ms:.1f} ms ({eager_ms / ms:.0f}x the kernel route), eager '
+        f'solves {n_eager}, max |u - kernel route\'s| '
+        f'{float((eager_u[0].cpu() - sols[0][1]).abs().max()):.3e}; '
+        f'{card_line()}')
+    out['launches']['serving'] = HUBER_REQUESTS + 1
+    out['request_ms'], out['mpc_ms'], out['eager_ms'] = ms, mpc_ms, eager_ms
+    # the closed loop: one launch a step, bitwise the host loop
+    roll = mt.make_closed_loop(cfg, cost, dx, device=device, **bk)
+    roll(x0, 2)
+    (lp, counts, n_eager) = soa_counted(torch, lambda: host_ms(
+        torch, device, lambda: roll(x0, HUBER_LOOP_STEPS)))
+    loop_ms, loop = lp
+    x, u_warm, xs, us = x0, torch.zeros(cfg.T, n, 1, device=device), [x0], []
+    for _ in range(HUBER_LOOP_STEPS):
+        s = mt.batched_solve(cfg, x, cost, dx, u_init=u_warm, device=device,
+                             **bk)
+        x = dx(x, s.u[0])
+        u_warm = torch.cat([s.u[1:], torch.zeros_like(s.u[:1])])
+        xs.append(x)
+        us.append(s.u[0])
+    same_bits(f'make_closed_loop, {HUBER_LOOP_STEPS} steps at B={n}, vs the '
+              'host loop, xs and us', torch,
+              [(loop['xs'], torch.stack(xs)), (loop['us'], torch.stack(us))])
+    log(f'  closed loop: {loop_ms:.1f} ms for {HUBER_LOOP_STEPS} steps '
+        f'({1e3 * loop_ms / HUBER_LOOP_STEPS:.0f} us a step), launches '
+        f'{counts}, eager solves {n_eager}; {card_line()}')
+    if n_eager or (device.type == 'cuda' and counts != {
+            'fused_ilqr': HUBER_LOOP_STEPS}):
+        raise AssertionError('each closed-loop step must launch K1 once and '
+                             'nothing else')
+    out['loop_us_per_step'] = 1e3 * loop_ms / HUBER_LOOP_STEPS
+    out['launches']['closed loop'] = HUBER_LOOP_STEPS
+    # two requests of each other row, one launch of its kernel each
+    kname = {'dense': 'fused_ilqr_dense', 'K1': 'fused_ilqr',
+             'K3': 'fused_ilqr_long'}
+    for label, _, T_, n_, kernel in HUBER_ROWS:
+        if label == 'serving full':
+            continue
+        cfg_, x0_, cost_, dx_, bk_ = huber_problem(torch, device, label)
+        (sols_, counts, n_eager) = soa_counted(torch, lambda: [
+            mt.batched_solve(cfg_, x0_, cost_, dx_, device=device,
+                             **bk_).u.cpu() for _ in range(2)])
+        log(f'[serve-huber] {label}, B={n_}, T={T_}: two requests, launches '
+            f'{counts}, eager solves {n_eager}')
+        if n_eager or (device.type == 'cuda'
+                       and counts != {kname[kernel]: 2}) \
+                or not torch.isfinite(sols_[-1]).all():
+            raise AssertionError(f'{label}: each request must launch its '
+                                 'kernel once and nothing else')
+        out['launches'][label] = 2
+    return out
+
+
+def huber_flops(ops, label, stats):
+    """The operations of a HUBER_ROWS row's solve from this run's counts
+    (the cost build's, or the QuadCost build's where ``ops`` has C), and
+    the bytes it must move."""
+    from mpc_tpu_torch.ops import fused
+    from mpc_tpu_torch.ops import fused_dense as fd
+    _, prob, _, _, kernel = next(r for r in HUBER_ROWS if r[0] == label)
+    huber = ops['cost_params'] is not None
+    sums = [float(stats[i].double().sum()) for i in (2, 3, 5)]
+    n = ops['x0'].shape[0]
+    T_ = ops['u0'].shape[0]
+    if kernel == 'dense':
+        ns, nc = ops['x0'].shape[1], ops['u0'].shape[2]
+        model_ops = None
+        if ops['model'] is not None:
+            model_ops = fd.model_op_counts(fd.dense_model(ops['model'])[0])
+        return (fd.k3d_flops(T_, ns, nc, sums[0], sums[2], batch=n,
+                             n_qp=sums[1] if nc > 1 else 0,
+                             model_ops=model_ops, huber=huber),
+                fd.k3d_bytes(ops))
+    if kernel == 'K1':
+        return (fused.k1_flops(T_, 3, 1, sums[0], sums[2], batch=n,
+                               huber=huber), fused.k1_bytes(ops))
+    nn_ops = None
+    if prob == 'mlp':
+        nn_ops = fused.nn_op_counts(NN_H, 'sigmoid', True)
+    return (fused.k3_flops(T_, 3, 1, sums[0], sums[2], batch=n,
+                           lindx=prob == 'lindx', nn_ops=nn_ops,
+                           huber=huber), fused.k1_bytes(ops))
+
+
+def huber_design(ops, label):
+    """The design entry (geometry, registers, spills) of a row's cost
+    build."""
+    from mpc_tpu_torch.ops import fused
+    from mpc_tpu_torch.ops import fused_dense as fd
+    _, prob, _, _, kernel = next(r for r in HUBER_ROWS if r[0] == label)
+    T_, n = ops['u0'].shape[:2]
+    n_alpha = len(ops['alphas'])
+    if kernel == 'dense':
+        ns, nc = ops['x0'].shape[1], ops['u0'].shape[2]
+        model = None if ops['model'] is None else fd.dense_model(
+            ops['model'])[0]
+        return design('fused_ilqr_dense', fd.dense_kernel_defines(
+            ns, nc, True, False, model, huber=True),
+            fd.k3d_launch(T_, n, ns, nc, n_alpha, model is not None))
+    if kernel == 'K1':
+        return design('fused_ilqr', fused.kernel_defines(T_, True,
+                                                         huber=True),
+                      fused.k1_launch(T_, n, n_alpha))
+    return design('fused_ilqr_long', fused.long_kernel_defines(
+        prob == 'lindx', True, 'sigmoid' if prob == 'mlp' else None,
+        huber=True), fused.k3_launch(T_, n, n_alpha,
+                                     NN_H if prob == 'mlp' else 0))
+
+
+def phase_time_huber(torch, device, plain_ms):
+    """Each HUBER_ROWS row's cost build timed from a CUDA graph, its bound
+    from this run's iterations and trial rollouts (k1_flops, k3_flops,
+    k3d_flops with huber=True) and bytes, its registers and spills, beside
+    the plain version's ms of [compare-huber] and the QuadCost build's ms
+    at the same shapes (C = diag(w), c = -w goal) in this run.  Returns the
+    rows."""
+    rows = []
+    for label, _, T_, n, kname in HUBER_ROWS:
+        ops, kernel, _ = huber_operands(torch, device, label)
+        _, _, st = kernel(**ops)
+        ms, eager_ms = graph_ms(torch, lambda: kernel(**ops), reps=3,
+                                per_graph=4)
+        opq, kq, _ = huber_operands(torch, device, label, quad=True)
+        _, _, stq = kq(**opq)
+        quad_ms, _ = graph_ms(torch, lambda: kq(**opq), reps=3, per_graph=4)
+        flops, nbytes = huber_flops(ops, label, st)
+        bound_ms, by = bound(flops, nbytes)
+        des = huber_design(ops, label)
+        log(f'[time-huber] {label} ({kname}), B={n}, T={T_}: {ms:.4f} ms '
+            f'(from a CUDA graph; {eager_ms:.4f} ms a call from Python), the '
+            f'QuadCost build {quad_ms:.4f} ms ({ms / quad_ms:.2f}x; '
+            f'{float(stq[2].double().mean()):.2f} iterations, '
+            f'{float(stq[5].double().mean()):.2f} trials a solve), plain '
+            f'{plain_ms[label]:.1f} ms; {flops:.4e} operations '
+            f'({float(st[2].double().mean()):.2f} iterations, '
+            f'{float(st[5].double().mean()):.2f} trials a solve), {nbytes} '
+            f'bytes; bound {bound_ms:.5f} ms by {by} ({ms / bound_ms:.1f}x); '
+            f'{n / ms * 1e3:.0f} solves/s; registers {des["registers"]}, '
+            f'spill stores {des["spill_store_bytes"]} bytes; {card_line()}')
+        rows.append(dict(row=f'{label} B={n} T={T_}', ms=ms, quad_ms=quad_ms,
+                         plain_ms=plain_ms[label], bound_ms=bound_ms,
+                         bound_by=by, registers=des['registers'],
+                         spill_store_bytes=des['spill_store_bytes'],
+                         design=des))
+    return rows
+
+
+def huber_grads(torch, device, T_, n, delta=HUBER_DELTA, primal=None,
+                dtype=None, model='pendulum', grad=True):
+    """The training row's loss sum(u^2) at horizon T_ and batch n and its
+    gradients to w, goal, delta and x_init: through the kernels (the cost
+    build's forward, then K2, K4 or the dense backward on per-example C),
+    or, given the Solution ``primal`` of the kernels' phase 1, through
+    the eager fixed point on it (in ``dtype``).  ``model`` 'cartpole'
+    takes config 3's cartpole, 'lindx' the long LinDx system at T_ (its
+    shared F repeated), each with its QuadCost's diagonal as w and its
+    target as goal.  Without ``grad`` the loss of a forward solve alone.
+    Returns [loss, d w, d goal, d delta, d x_init] and the Solution."""
+    import numpy as np
+    import mpc_tpu_torch as mt
+    from mpc_tpu_torch import solver
+    from mpc_tpu_torch.models import PseudoHuberCost
+    dtype = dtype or torch.float32
+    t = (lambda a: torch.tensor(a, dtype=dtype, device=device))
+    if model == 'cartpole':
+        x0, cost, dx = cartpole_problem(torch, device, dtype, n)
+        cfg = mt.MPCConfig(**dict(CARTPOLE, backprop=grad, use_fused='auto',
+                                  T=T_), grad_method=mt.GradMethods.AUTO_DIFF)
+        w0 = cost.C.diagonal().clone()
+        goal0 = t(tuple(dx.goal_state) + (0.0,))
+        box, scale = 100.0, CART_U_SCALE
+    elif model == 'lindx':
+        F, C, x0, _ = long_data(torch, device, dtype)
+        dx = mt.LinDx(F[0].expand(T_ - 1, 3, 4).contiguous())
+        x0 = x0[:n].contiguous()
+        cfg = mt.MPCConfig(**dict(HUBER_GRAD, T=T_, backprop=grad))
+        w0, goal0 = C[0].diagonal().clone(), t((0.0,) * 4)
+        box, scale = 2.0, 1.0
+    else:
+        rng = np.random.RandomState(10)
+        th = 0.3 * (2 * rng.rand(n) - 1)
+        x0 = t(np.stack([np.cos(th), np.sin(th), np.zeros(n)], 1))
+        dx, _ = problem(torch, device, dtype)
+        cfg = mt.MPCConfig(**dict(HUBER_GRAD, T=T_, backprop=grad))
+        w0, goal0 = t(HUBER_W), t(HUBER_GOAL)
+        box, scale = 2.0, 1.0
+    leaves = [w0, goal0, t(delta), x0]
+    if grad:
+        leaves = [a.clone().requires_grad_() for a in leaves]
+    w, goal, d, x = leaves
+    cost = PseudoHuberCost(w, goal, d)
+    sol = None
+    if primal is None:
+        sol = mt.batched_solve(cfg, x, cost, dx, u_lower=-box, u_upper=box,
+                               device=device)
+        xs, us = sol.x, sol.u
+    else:
+        lb = t(-box)
+        xs, us = solver.fixed_point_phase(cfg, x, cost, dx,
+                                          primal.x.to(dtype),
+                                          primal.u.to(dtype), lb, -lb,
+                                          primal.converged)
+    loss = ((us / scale) ** 2).sum()
+    if not grad:
+        return [loss.detach()], sol
+    loss.backward()
+    return [loss.detach()] + [a.grad for a in leaves], sol
+
+
+def huber_cartpole_bwd_operands(torch, device, sol, n, dtype=None):
+    """The dense backward's operands of the config-3 gradient row at the
+    kernels' solution ``sol``: the pseudo-Huber cost quadratised per
+    example (C [T, B, 6, 6], c = g - H tau), the cartpole linearised
+    there (F [T-1, B, 5, 6], f), the box's active set and the loss's
+    cotangents (d sum((u / CART_U_SCALE)^2) / du, none on x): what phase 2
+    hands the kernel (in ``dtype``, float32 by default).  Returns
+    (operands, keyword arguments)."""
+    import mpc_tpu_torch as mt
+    from mpc_tpu_torch.models import PseudoHuberCost
+    from mpc_tpu_torch.ops import fused_bwd
+    from mpc_tpu_torch.solver import linearize_dynamics, quadratize_cost
+    dtype = dtype or torch.float32
+    _, cost, dx = cartpole_problem(torch, device, dtype, n)
+    goal = torch.tensor(tuple(dx.goal_state) + (0.0,), dtype=dtype,
+                        device=device)
+    hc = PseudoHuberCost(cost.C.diagonal().clone(), goal,
+                         torch.tensor(HUBER_DELTA, dtype=dtype,
+                                      device=device))
+    xs, us = sol.x.detach().to(dtype), sol.u.detach().to(dtype)
+    C, c, _ = quadratize_cost(hc, xs, us)
+    F, _ = linearize_dynamics(dx, xs, us, mt.GradMethods.AUTO_DIFF)
+    box = torch.tensor(100.0, dtype=dtype, device=device)
+    o = dict(C=C.contiguous(), c=c.contiguous(), F=F.contiguous(),
+             x_star=xs, u_star=us, dl_dx=torch.zeros_like(xs),
+             dl_du=2.0 * us / CART_U_SCALE ** 2,
+             I_mask=fused_bwd.active_set(us, -box, box))
+    return o, dict(has_f=True, f_shared=False)
+
+
+def kkt_x_init_grad(torch, C, F, pinned, r):
+    """d (r . tau) / d x_init of the differential LQR problem of each
+    example by one dense solve of its KKT system (batched, in C's dtype):
+    min 0.5 tau^T C tau over tau = (x, u) [T, n_tau] subject to x_0 =
+    x_init, x_{t+1} = F_t tau_t and u_t = 0 where ``pinned`` [T, B, nc];
+    an oracle that shares no code with the backwards.  A control that is
+    not pinned keeps its constraint row empty, with a 1 on its
+    multiplier's diagonal, so every example's system has one size.  The
+    gradient is the multiplier of x_0 = x_init in the solve with
+    right-hand side (r, 0).  C [T, B, nt, nt], F [T-1, B, ns, nt], r [T,
+    B, nt]; returns [B, ns]."""
+    T, B, nt, _ = C.shape
+    ns = F.shape[2]
+    nc = nt - ns
+    N, m = T * nt, T * nt
+    K = C.new_zeros(B, N + m, N + m)
+    eye = torch.eye(ns, dtype=C.dtype, device=C.device)
+    A = C.new_zeros(B, m, N)
+    A[:, :ns, :ns] = eye
+    for t in range(T):
+        K[:, t * nt:(t + 1) * nt, t * nt:(t + 1) * nt] = C[t]
+        if t < T - 1:
+            rows = slice((t + 1) * ns, (t + 2) * ns)
+            A[:, rows, (t + 1) * nt:(t + 1) * nt + ns] = eye
+            A[:, rows, t * nt:(t + 1) * nt] -= F[t]
+        for j in range(nc):
+            k = T * ns + t * nc + j
+            p = pinned[t, :, j].to(C.dtype)
+            A[:, k, t * nt + ns + j] = p
+            K[:, N + k, N + k] = 1.0 - p
+    K[:, N:, :N] = A
+    K[:, :N, N:] = A.transpose(1, 2)
+    rhs = torch.cat([r.transpose(0, 1).reshape(B, N), r.new_zeros(B, m)], 1)
+    return torch.linalg.solve(K, rhs)[:, N:N + ns]
+
+
+def phase_grad_huber(torch, device):
+    """The training row's gradients to w, goal, delta and x_init through
+    one cost-build K1 launch and one K2 launch: against the eager fixed
+    point on the same primal and against the float64 eager fixed point on
+    it (each within BWD_TOL of the gradient's largest entry), d loss /
+    d delta against central differences of the kernels' forward solves
+    (HUBER_FD_STEP, within HUBER_FD_TOL: parity_tpu's check [5]), TF32 on
+    and off bitwise.  Then a K4 row (the long LinDx system at T =
+    HUBER_K4_T, past T_MAX_BWD: K3's cost build and K4) and a
+    dense-backward row (config 3's cartpole: the
+    dense model-step cost build and the dense backward), each with one
+    launch of each and against the eager fixed point on its primal.  At
+    config 3 the gradient to x_init is held against a direct float64
+    solve of each example's KKT system at the kernels' primal
+    (kkt_x_init_grad, within BWD_TOL), and against the eager fixed point
+    within BWD_TOL plus the eager route's own distance from that solve in
+    float64: the eager fixed point, as mpc_tpu's jnp path does, adds
+    1e-11 to the free diagonal of the masked control block
+    (linalg.masked_free_matrix), and in the cost's linear tails (H_uu =
+    w_u / s^3 ~1e-9) the block falls to ~1e-7 at the horizon's end, where
+    that term moves the gradient by ~4e-4 of its scale; the dense
+    backward and mpc_tpu's K2 solve it without
+    (tests/test_torch_huber.py::
+    test_dense_backward_is_the_exact_kkt_where_the_jnp_path_regularises).
+    The dense backward is also held against its plain version on the
+    operands phase 2 gave it (hold_bwd).  Returns the launches by row and
+    the largest gradient error."""
+    from mpc_tpu_torch import solver
+    names = ('w', 'goal', 'delta', 'x_init')
+    launches, err = {}, 0.0
+    for label, T_, n, model, want in (
+            ('training', HUBER_GRAD['T'], HUBER_GRAD_B, 'pendulum',
+             {'fused_ilqr': 1, 'fused_kkt_bwd': 1}),
+            (f'K4 LinDx T={HUBER_K4_T}', HUBER_K4_T, HUBER_GRAD_B, 'lindx',
+             {'fused_ilqr_long': 1, 'fused_kkt_bwd_long': 1}),
+            ('config 3', CARTPOLE['T'], CARTPOLE_B, 'cartpole',
+             {'fused_ilqr_dense': 1, 'fused_kkt_bwd_dense': 1})):
+        log(f'[grad-huber] {label}, B={n}, T={T_}: gradients to w, goal, '
+            'delta and x_init through the cost build and its backward')
+        (kk, sol), counts, n_eager = soa_counted(
+            torch, lambda: huber_grads(torch, device, T_, n, model=model))
+        if solver.eager_counts['eager_fixed_point'] or n_eager or (
+                device.type == 'cuda' and counts != want):
+            raise AssertionError(f'{label}: a differentiable pseudo-Huber '
+                                 f'solve must launch {want} and nothing '
+                                 f'else: {counts}')
+        log(f'  launches {counts}, eager solves {n_eager}; converged '
+            f'{float(sol.converged.double().mean()):.3f}, n_iter a solve '
+            f'{float(sol.n_iter.double().mean()):.2f}')
+        primal = sol._replace(x=sol.x.detach(), u=sol.u.detach())
+        ref, _ = huber_grads(torch, device, T_, n, primal=primal,
+                             model=model)
+        ref64, _ = huber_grads(torch, device, T_, n, primal=primal,
+                               dtype=torch.float64, model=model)
+        for name, g, r, r64 in zip(names, kk[1:], ref[1:], ref64[1:]):
+            e, e64 = rel_err(g, r), rel_err(g, r64)
+            log(f'  {name}: max |kernels - eager| / max |eager| {e:.3e}; '
+                f'vs f64 eager {e64:.3e} (eager f32: {rel_err(r, r64):.3e})')
+            if not (torch.isfinite(g).all() and float(g.abs().max()) > 0):
+                raise AssertionError(f'{label} {name}: gradient not finite '
+                                     'or zero')
+            if label == 'config 3' and name == 'x_init':
+                continue                        # held below, by the KKT
+            if not (e < BWD_TOL and e64 < BWD_TOL):
+                raise AssertionError(f'{label} {name}: the kernels\' '
+                                     'gradient is off the eager fixed point')
+            err = max(err, e, e64)
+        launches[label] = counts
+        if label == 'config 3':
+            from mpc_tpu_torch.ops import fused_bwd_dense as fbd
+            o64, _ = huber_cartpole_bwd_operands(torch, device, sol, n,
+                                                 torch.float64)
+            kkt = kkt_x_init_grad(
+                torch, o64['C'], o64['F'], o64['I_mask'] > 0.5,
+                torch.cat([o64['dl_dx'], o64['dl_du']], -1))
+            e_kkt, e_eager = rel_err(kk[4], kkt), rel_err(kk[4], ref[4])
+            reg = rel_err(ref64[4], kkt)
+            log(f'  x_init: max |kernels - KKT f64| / max |KKT| {e_kkt:.3e} '
+                f'(limit {BWD_TOL}); the eager fixed point in float64 sits '
+                f'{reg:.3e} from the KKT (its 1e-11 on the masked block), '
+                f'in float32 {rel_err(ref[4], kkt):.3e}; kernels vs eager '
+                f'{e_eager:.3e} (limit {reg + BWD_TOL:.3e})')
+            if not (e_kkt < BWD_TOL and e_eager < reg + BWD_TOL):
+                raise AssertionError(f'{label} x_init: the kernels\' '
+                                     'gradient is off the KKT solve')
+            err = max(err, e_kkt)
+            o, kw = huber_cartpole_bwd_operands(torch, device, sol, n)
+            log(f'  x_init: the dense backward vs its plain version on '
+                f'phase 2\'s operands (active controls '
+                f'{float(o["I_mask"].mean()):.3f} of T*B)')
+            hold_bwd(torch, 'K4d', f'{label} pseudo-Huber',
+                     fbd.fused_kkt_backward_dense,
+                     fbd.fused_kkt_backward_dense_plain, o, **kw)
+        if label != 'training':
+            continue
+        # d loss / d delta against central differences of forward solves
+        lo, _ = huber_grads(torch, device, T_, n, HUBER_DELTA - HUBER_FD_STEP,
+                            grad=False)
+        hi, _ = huber_grads(torch, device, T_, n, HUBER_DELTA + HUBER_FD_STEP,
+                            grad=False)
+        fd = float(hi[0] - lo[0]) / (2 * HUBER_FD_STEP)
+        g = float(kk[3])
+        rel = abs(g - fd) / max(abs(fd), 1e-9)
+        log(f'  d loss / d delta: kernels {g:.4f}, central differences '
+            f'{fd:.4f} (step {HUBER_FD_STEP}), relative {rel:.2e}')
+        if not rel < HUBER_FD_TOL:
+            raise AssertionError('d loss / d delta is off the central '
+                                 'differences')
+        launches['fd_rel'] = rel
+        phase_tf32(torch, 'the training row\'s loss and gradients through '
+                   'K1\'s cost build and K2',
+                   lambda: huber_grads(torch, device, T_, n)[0])
+    return launches, err
+
+
+def huber_entries(rows, serve, grads, grad_err, err):
+    """The kernels line's entries of this slice: the cost build of K1 at
+    the serving row (its launches there, the closed loop's and the
+    training row's, the request's ms beside the eager route's), of K3 at
+    the pendulum, LinDx and MLP rows and of the dense configuration at
+    config 3 and the medium row; each with its row's max |du| (``err``
+    by row), ms, the QuadCost build's ms, bound and plain ms."""
+    by_row = {r['row'].split(' B=')[0]: r for r in rows}
+    tol = (f'mean|du|<{TAIL_MEAN}, share(|du|>{TAIL_ENTRY})<{TAIL_SHARE}, '
+           f'n_iter equal, at most 2x the plain f32 distance from f64; the '
+           f'pendulum at T={SOA_LONG_T}, the long LinDx and config 3 (|du|/'
+           f'{CART_U_SCALE}) by the last two alone')
+    out = []
+    for label, name, source, line, headers in (
+            ('serving hw_sweep', 'fused_ilqr (pseudo-Huber)', 'fused_ilqr.cu',
+             617, ['pendulum.cuh']),
+            ('serving full', 'fused_ilqr (pseudo-Huber, full starts)',
+             'fused_ilqr.cu', 617, ['pendulum.cuh']),
+            ('pendulum T=200', 'fused_ilqr_long (pseudo-Huber pendulum)',
+             'fused_ilqr_long.cu', 1126, ['pendulum.cuh']),
+            ('long LinDx', 'fused_ilqr_long (pseudo-Huber LinDx)',
+             'fused_ilqr_long.cu', 1126, []),
+            ('MLP', 'fused_ilqr_long (pseudo-Huber MLP)',
+             'fused_ilqr_long.cu', 1252, ['nn.cuh']),
+            ('config 3', 'fused_ilqr_dense (pseudo-Huber cartpole)',
+             'fused_ilqr_dense.cu', 617,
+             ['soa_model.cuh', 'cartpole.cuh', 'box_qp.cuh']),
+            ('config 3 near goal',
+             'fused_ilqr_dense (pseudo-Huber cartpole near the goal)',
+             'fused_ilqr_dense.cu', 617,
+             ['soa_model.cuh', 'cartpole.cuh', 'box_qp.cuh']),
+            ('medium 24s4c', 'fused_ilqr_dense (pseudo-Huber 24s4c)',
+             'fused_ilqr_dense.cu', 1126, ['box_qp.cuh'])):
+        r = by_row[label]
+        e = {'name': name, 'path': f'pseudo-Huber {label}', 'route': 'cuda',
+             'source': f'mpc_tpu_torch/csrc/{source}',
+             'headers': [f'mpc_tpu_torch/csrc/{h}'
+                         for h in ['cost.cuh'] + headers],
+             'replaces': f'mpc_tpu/ops/fused.py:{line}',
+             'design': r['design'],
+             'launches': serve['launches'][
+                 'serving' if label == 'serving full' else label],
+             'max_abs_err': err[label], 'tolerance': tol, 'library_ms': None,
+             'quadcost_build_ms': r['quad_ms'],
+             **{k: r[k] for k in ('ms', 'plain_ms', 'bound_ms', 'bound_by')}}
+        if label == 'serving full':
+            e.update(request_ms=serve['request_ms'],
+                     eager_ms=serve['eager_ms'],
+                     loop_us_per_step=serve['loop_us_per_step'],
+                     launches_closed_loop=serve['launches']['closed loop'],
+                     launches_grad_huber=grads,
                      grad_err_vs_eager=grad_err,
                      rows=[{k: v for k, v in x.items() if k != 'design'}
                            for x in rows])
@@ -5476,6 +6235,19 @@ def main():
         f'{b - a:.1f} s [{k}]' for k, a, b in zip(
             ('compare-soa', 'serve-soa', 'time-soa', 'grad-cartpole'),
             t_soa, t_soa[1:])) + f': {t_soa[-1] - t_soa[0]:.1f} s')
+    t_huber = [time.perf_counter()]
+    huber_err, huber_plain_ms = phase_compare_huber(torch, device)
+    t_huber.append(time.perf_counter())
+    huber_serve = phase_serve_huber(torch, device)
+    t_huber.append(time.perf_counter())
+    huber_rows = phase_time_huber(torch, device, huber_plain_ms)
+    t_huber.append(time.perf_counter())
+    huber_grad_launches, huber_grad_err = phase_grad_huber(torch, device)
+    t_huber.append(time.perf_counter())
+    log('[huber] the pseudo-Huber phases took ' + ', '.join(
+        f'{b - a:.1f} s [{k}]' for k, a, b in zip(
+            ('compare-huber', 'serve-huber', 'time-huber', 'grad-huber'),
+            t_huber, t_huber[1:])) + f': {t_huber[-1] - t_huber[0]:.1f} s')
     t_new = time.perf_counter()
     closed = phase_closed_loop(torch, device)
     t_closed = time.perf_counter()
@@ -5605,6 +6377,8 @@ def main():
                            diff_solve, bwd_dense_err),
         *soa_entries(soa_rows, soa_serve, grad_counts, grad_err, soa_err,
                      next(r for r in eager if r['phase'] == 'eager-cartpole')),
+        *huber_entries(huber_rows, huber_serve, huber_grad_launches,
+                       huber_grad_err, huber_err),
         *scale_entries(scale, {'k1': (max_err, timing),
                                'k2': (bwd_err, timing_bwd),
                                'k3': (long_err, timing_long),

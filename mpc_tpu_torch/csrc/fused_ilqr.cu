@@ -58,6 +58,19 @@
 // --use_fast_math; nvcc's FMA contraction is the only arithmetic
 // difference from the plain version.
 //
+// THE COST BUILD (MPC_COST = 1) takes the pseudo-Huber cost (cost.cuh)
+// where the TPU kernel takes a structure-of-arrays cost (cost_mode 'soa',
+// mpc_tpu/ops/fused.py:721-765, 819-826): no C or c operand (no pointer
+// of one is formed), the 9 parameters [w, goal, delta] in every lane's
+// registers.  The pass parallel over t quadratises the cost at the
+// current trajectory beside the Jacobians, off the Riccati chain: g (the
+// recentred C_t tau + c_t) into the C tau + c slot and the diagonal of H
+// into a trajectory slot that is not the current one (the trials write
+// the non-current slots only after the sweep), so the slot count, and
+// T_MAX, are the QuadCost build's; the Riccati step takes C_t = diag(H).
+// The initial rollout and the trials score the true cost
+// (mpc_tpu/ops/fused.py:731-735; reference mpc/lqr_step.py:230-236).
+//
 // Outputs: x [T, B, 3], u [T, B, 1], stats [6, B] = best cost, best
 // full-step norm, n_iter, n_qp_iter, alpha and the summed index plus one
 // of the selected step sizes (the trial rollouts a serial search would
@@ -66,6 +79,7 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "cost.cuh"
 #include "pendulum.cuh"
 
 #ifndef MPC_T
@@ -81,6 +95,10 @@
 #ifndef MPC_DAMPED
 #define MPC_DAMPED 0
 #endif
+// 0: a QuadCost (C, c); 1: the pseudo-Huber cost (cost.cuh)
+#ifndef MPC_COST
+#define MPC_COST 0
+#endif
 
 namespace cg = cooperative_groups;
 
@@ -91,6 +109,7 @@ constexpr int NS = 3;
 constexpr int NTAU = 4;
 constexpr bool kHasBounds = MPC_HAS_BOUNDS != 0;
 constexpr bool kDamped = MPC_DAMPED != 0;
+constexpr bool kHuber = MPC_COST == 1;
 constexpr int kMaxAlpha = 32;  // ops/fused.py:MAX_ALPHA
 constexpr int kTeam = MPC_TEAM;
 constexpr int kThreads = 32 * MPC_WARPS;
@@ -99,7 +118,7 @@ constexpr float kBig = 3.0e38f;
 // shared-memory slots of one step and example (float4 each)
 constexpr int kSlotGain = 0;  // (K, k)
 constexpr int kSlotF = 1;     // rows of F_t: 1, 2, 3
-constexpr int kSlotCb = 4;    // C_t tau_t + c_t
+constexpr int kSlotCb = 4;    // C_t tau_t + c_t (the cost build: g)
 constexpr int kSlotTraj = 5;  // (x, u): 1 + min(n_alpha, kTeam) of them
 
 static_assert(kTeam == 2 || kTeam == 4 || kTeam == 8 || kTeam == 16,
@@ -116,7 +135,8 @@ struct Schedule {
 struct Operands {
   int B;
   const float* params;
-  const float* C;  // [T, 1 or B, 4, 4]
+  const float* cost;  // the cost build's [w, goal, delta] (9)
+  const float* C;     // [T, 1 or B, 4, 4], or nullptr in the cost build
   int sCt, sCb;
   const float* c;  // [T, 1 or B, 4]
   int sct, scb;
@@ -172,13 +192,14 @@ __device__ __forceinline__ float stage_cost(const float Ct[NTAU][NTAU],
 // The global operands of one horizon step, as one register set of the
 // prefetch.
 struct Rows {
-  float C[NTAU][NTAU], c[NTAU];
-  float lb, ub;  // with bounds only
+  float C[NTAU][NTAU], c[NTAU];  // the QuadCost build only
+  float lb, ub;                  // with bounds only
 };
 
 // What the Riccati step reads from shared memory.
 struct Lin {
   float4 F[NS], cb, xu;
+  float4 H;  // the cost build's diagonal of C_t
 };
 
 struct Team {
@@ -186,6 +207,7 @@ struct Team {
   int b;  // the team's example
   int e;  // its place in the block
   PendulumParams p;
+  Huber<NTAU> hc;  // the cost build's parameters
   const float* Cb;
   const float* cb;
 
@@ -194,14 +216,22 @@ struct Team {
   }
 
   __device__ __forceinline__ void load_rows(int t, Rows& r) const {
-    const float* Cp = Cb + t * op.sCt;
+    if (!kHuber) {
+      const float* Cp = Cb + t * op.sCt;
 #pragma unroll
-    for (int i = 0; i < NTAU; ++i) load4(Cp + 4 * i, r.C[i]);
-    load4(cb + t * op.sct, r.c);
+      for (int i = 0; i < NTAU; ++i) load4(Cp + 4 * i, r.C[i]);
+      load4(cb + t * op.sct, r.c);
+    }
     if (kHasBounds) {
       r.lb = __ldg(op.lb + t * op.sbt + b * op.sbb);
       r.ub = __ldg(op.ub + t * op.sbt + b * op.sbb);
     }
+  }
+
+  // the trajectory slot that holds the cost build's H while the current
+  // trajectory is ``cur``: the first of the others
+  __device__ __forceinline__ static int h_slot(int cur) {
+    return cur == kSlotTraj ? kSlotTraj + 1 : kSlotTraj;
   }
 
   __device__ __forceinline__ void load_lin(int t, int cur, Lin& l) const {
@@ -209,17 +239,35 @@ struct Team {
     for (int i = 0; i < NS; ++i) l.F[i] = sm(t, kSlotF + i);
     l.cb = sm(t, kSlotCb);
     l.xu = sm(t, cur);
+    if (kHuber) l.H = sm(t, h_slot(cur));
+  }
+
+  // The true stage cost at (x_t, u_t) of the build's cost.
+  __device__ __forceinline__ float cost_at(const Rows& r, const float* xt,
+                                           float ut) const {
+    if (kHuber) {
+      const float tau[NTAU] = {xt[0], xt[1], xt[2], ut};
+      return hc.stage(tau);
+    }
+    return stage_cost(r.C, r.c, xt, ut);
   }
 
   // The part of the Riccati step that does not depend on V: F_t (for
-  // t < T - 1) and C_t tau_t + c_t of the current trajectory.
+  // t < T - 1) and C_t tau_t + c_t of the current trajectory; in the cost
+  // build g and the diagonal of H at tau_t.
   __device__ __forceinline__ void linearize(int t, int cur,
                                             const Rows& r) const {
     float tau[NTAU];
     unpack(sm(t, cur), tau);
     float cbv[NTAU];
+    if (kHuber) {
+      float C[NTAU][NTAU];
+      hc.quad(tau, C, cbv);
+      sm(t, h_slot(cur)) = make_float4(C[0][0], C[1][1], C[2][2], C[3][3]);
+    } else {
 #pragma unroll
-    for (int i = 0; i < NTAU; ++i) cbv[i] = dot4(r.C[i], tau) + r.c[i];
+      for (int i = 0; i < NTAU; ++i) cbv[i] = dot4(r.C[i], tau) + r.c[i];
+    }
     sm(t, kSlotCb) = make_float4(cbv[0], cbv[1], cbv[2], cbv[3]);
     if (t < T - 1) {
       float F[NS][NTAU];
@@ -237,14 +285,29 @@ struct Team {
                                                float* v, float& qp_cnt,
                                                bool store) const {
     const float ut = l.xu.w;
-    float cbv[NTAU];
+    // C_t and C_t tau_t + c_t; in the cost build diag(H) (exact zeros
+    // elsewhere) and g at tau_t, from the pass parallel over t
+    float Ct[NTAU][NTAU], cbv[NTAU];
     unpack(l.cb, cbv);
+    if (kHuber) {
+      float h[NTAU];
+      unpack(l.H, h);
+#pragma unroll
+      for (int i = 0; i < NTAU; ++i)
+#pragma unroll
+        for (int j = 0; j < NTAU; ++j) Ct[i][j] = i == j ? h[i] : 0.f;
+    } else {
+#pragma unroll
+      for (int i = 0; i < NTAU; ++i)
+#pragma unroll
+        for (int j = 0; j < NTAU; ++j) Ct[i][j] = r.C[i][j];
+    }
     float Qt[NTAU][NTAU], qt[NTAU];
     if (t == T - 1) {
 #pragma unroll
       for (int i = 0; i < NTAU; ++i) {
 #pragma unroll
-        for (int j = 0; j < NTAU; ++j) Qt[i][j] = r.C[i][j];
+        for (int j = 0; j < NTAU; ++j) Qt[i][j] = Ct[i][j];
         qt[i] = cbv[i];
       }
     } else {
@@ -261,8 +324,8 @@ struct Team {
       for (int a = 0; a < NTAU; ++a) {
 #pragma unroll
         for (int bb = a; bb < NTAU; ++bb) {
-          Qt[a][bb] = r.C[a][bb] + (F[0][a] * W[0][bb] + F[1][a] * W[1][bb] +
-                                    F[2][a] * W[2][bb]);
+          Qt[a][bb] = Ct[a][bb] + (F[0][a] * W[0][bb] + F[1][a] * W[1][bb] +
+                                   F[2][a] * W[2][bb]);
           Qt[bb][a] = Qt[a][bb];
         }
         qt[a] = cbv[a] + (F[0][a] * v[0] + F[1][a] * v[1] + F[2][a] * v[2]);
@@ -323,7 +386,7 @@ struct Team {
     float ut = (Kk.x * d0 + Kk.y * d1 + Kk.z * d2) + (old.w + alpha * Kk.w);
     if (kHasBounds) ut = clampf(ut, r.lb, r.ub);
     sm(t, slot) = make_float4(xt[0], xt[1], xt[2], ut);
-    const float sc = stage_cost(r.C, r.c, xt, ut);
+    const float sc = cost_at(r, xt, ut);
     cost = t == 0 ? sc : cost + sc;
     const float d = old.w - ut;
     du2 = t == 0 ? d * d : du2 + d * d;
@@ -345,12 +408,16 @@ __global__ void __launch_bounds__(kThreads)
   const int b = blockIdx.x * kExamples + e;
   if (b >= op.B) return;  // ragged tail: a whole team leaves together
   const int B = op.B;
+  // the cost build forms no pointer into the absent C and c
+  Huber<NTAU> hc{};
+  if (kHuber) hc = Huber<NTAU>::load(op.cost);
   const Team tm{op,
                 b,
                 e,
                 load_pendulum<kDamped>(op.params),
-                op.C + b * op.sCb,
-                op.c + b * op.scb};
+                hc,
+                kHuber ? nullptr : op.C + b * op.sCb,
+                kHuber ? nullptr : op.c + b * op.scb};
   // the lanes that roll out a trial, and the team's lanes within its
   // warp for the ballot of the line search
   const int n_lanes = sched.n < kTeam ? sched.n : kTeam;
@@ -387,7 +454,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
         for (int i = 0; i < NS; ++i) op.x_out[o * NS + i] = xt[i];
       }
-      const float sc = stage_cost(r.C, r.c, xt, ut);
+      const float sc = tm.cost_at(r, xt, ut);
       cost_cur = t == 0 ? sc : cost_cur + sc;
       if (t < T - 1) {
         float xn[NS];
@@ -539,14 +606,17 @@ __global__ void __launch_bounds__(kThreads)
 // the cudaError_t of the launch, or of raising the kernel's shared-memory
 // limit where that is needed.
 extern "C" int mpc_fused_ilqr(
-    int B, const float* params, const float* C, long long sCt, long long sCb,
+    int B, const float* params, const float* cost, const float* C,
+    long long sCt, long long sCb,
     const float* c, long long sct, long long scb, const float* x0,
     const float* u0, const float* lb, const float* ub, long long sbt,
     long long sbb, const float* alphas, int n_alpha, int lqr_iter, float eps,
     float best_cost_eps, float not_improved_lim, int slots, int smem_bytes,
     float* x_out, float* u_out, float* stats, void* stream) {
   if (B <= 0 || n_alpha <= 0 || n_alpha > mpc::kMaxAlpha ||
-      (mpc::kHasBounds && (lb == nullptr || ub == nullptr)))
+      (mpc::kHasBounds && (lb == nullptr || ub == nullptr)) ||
+      (mpc::kHuber ? (cost == nullptr || C != nullptr || c != nullptr)
+                   : (C == nullptr || c == nullptr)))
     return (int)cudaErrorInvalidValue;
   // more than 48 KB of dynamic shared memory has to be asked for; the
   // library remembers the most it has asked for
@@ -570,6 +640,7 @@ extern "C" int mpc_fused_ilqr(
   mpc::Operands op;
   op.B = B;
   op.params = params;
+  op.cost = cost;
   op.C = C;
   op.sCt = (int)sCt;
   op.sCb = (int)sCb;

@@ -81,6 +81,15 @@
 // is the chain's latency, a rollout step now the model's whole step with
 // its cosf, sinf and divisions (PERF.md section 6).
 //
+// THE COST BUILD (MPC_COST = 1), for the LinDx and the model-step builds,
+// takes the pseudo-Huber cost (cost.cuh) where the TPU kernels take a
+// structure-of-arrays cost (mpc_tpu/ops/fused.py:721-765, 1406-1461): no C
+// or c operand (no pointer of one is formed).  Lane i < n_tau owns
+// component i of tau and keeps w_i, goal_i and delta in registers: in the
+// sweep it writes H_ii into Q's diagonal (the rest of the tile zeros) and
+// takes g_i as its C tau + c, from the tau_i it stages; a stage cost is
+// lane i's term summed by the butterfly.  No workspace and no extra pass.
+//
 // Outputs: x [T, B, n_state], u [T, B, n_ctrl], stats [6, B] = best cost,
 // best full-step norm, n_iter, n_qp_iter, alpha and the summed index plus
 // one of the selected step sizes.
@@ -90,6 +99,7 @@
 #include <cmath>
 
 #include "box_qp.cuh"
+#include "cost.cuh"
 #include "soa_model.cuh"
 
 #if !defined(MPC_NS) || !defined(MPC_NC) || !defined(MPC_HAS_BOUNDS) || \
@@ -104,6 +114,10 @@
 #ifndef MPC_SLEW
 #define MPC_SLEW 0
 #endif
+// 0: a QuadCost (C, c); 1: the pseudo-Huber cost (cost.cuh)
+#ifndef MPC_COST
+#define MPC_COST 0
+#endif
 
 namespace mpc {
 
@@ -112,6 +126,7 @@ constexpr int kNC = MPC_NC;
 constexpr int kNT = kNS + kNC;
 constexpr bool kHasBounds = MPC_HAS_BOUNDS != 0;
 constexpr bool kHasF = MPC_HAS_F != 0;
+constexpr bool kHuber = MPC_COST == 1;
 constexpr int kWarps = MPC_WARPS;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kMaxAlpha = 32;
@@ -188,6 +203,7 @@ struct Schedule {
 struct Operands {
   int B, T;
   const float* params;  // the model-step build's
+  const float* cost;    // the cost build's [w, goal, delta] (2 n_tau + 1)
   const float* F;
   int sFt, sFb;
   const float* f;
@@ -237,6 +253,27 @@ __device__ __forceinline__ float stage_cost(const float* Ct, const float* ct,
     term = (0.5f * s + __ldg(ct + lt)) * tau[lt];
   }
   return lane_sum(term);
+}
+
+// The cost build's parameters of a lane's component (lane lt < kNT).
+struct LaneCost {
+  float w, goal, delta;
+};
+
+// The stage cost at step t of the build's cost: the pseudo-Huber term of
+// the lane's component, or the QuadCost's row, summed over the lanes.
+// The cost build forms no pointer into the absent C and c.
+__device__ __forceinline__ float stage_at(const float* Cb, const float* cb,
+                                          int sCt, int sct, int t,
+                                          const LaneCost& hl, const float* tau,
+                                          int lane, int lt) {
+  if constexpr (kHuber) {
+    const float term =
+        lane < kNT ? huber_term(hl.w, hl.goal, hl.delta, tau[lt]) : 0.f;
+    return lane_sum(term);
+  } else {
+    return stage_cost(Cb + t * sCt, cb + t * sct, tau, lane, lt);
+  }
 }
 
 // state row lx of the model's step from tau: the whole step in every lane
@@ -292,8 +329,14 @@ __global__ void __launch_bounds__(kThreads)
   float* const gains = ws0 + 2 * T * kNT;
   // the model-step build's Jacobians [T-1][kNS][kNT]
   float* const jac = gains + T * kGain;
-  const float* Cb = op.C + b * op.sCb;
-  const float* cb = op.c + b * op.scb;
+  const float* Cb = kHuber ? nullptr : op.C + b * op.sCb;
+  const float* cb = kHuber ? nullptr : op.c + b * op.scb;
+  LaneCost hl{0.f, 0.f, 1.f};
+  if constexpr (kHuber) {
+    hl.w = __ldg(op.cost + lt);
+    hl.goal = __ldg(op.cost + kNT + lt);
+    hl.delta = __ldg(op.cost + 2 * kNT);
+  }
   const float* Fb = nullptr;
   if constexpr (!kModel) Fb = op.F + b * op.sFb;
   const float* fb = kHasF ? op.f + b * op.sfb : nullptr;
@@ -317,7 +360,7 @@ __global__ void __launch_bounds__(kThreads)
         tau[lane] = __ldg(op.u0 + (t * B + b) * kNC + lu);
       __syncwarp();
       const float sc =
-          stage_cost(Cb + t * op.sCt, cb + t * op.sct, tau, lane, lt);
+          stage_at(Cb, cb, op.sCt, op.sct, t, hl, tau, lane, lt);
       cost_cur = t == 0 ? sc : cost_cur + sc;
       if (lane < kNT) {
         const float v = tau[lt];
@@ -366,13 +409,30 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int m = 0; m < kNC; ++m) prev_k[m] = 0.f;
     for (int t = T - 1; t >= 0; --t) {
-      const float* Ct = Cb + t * op.sCt;
+      // C_t staged into Q's tile; in the cost build lane i writes H_ii on
+      // the diagonal and keeps g_i as its C tau + c
+      float cbv = 0.f;
       if (lane < kNT) {
-        tau[lane] = trajc[t * kNT + lt];
-        cv[lane] = __ldg(cb + t * op.sct + lt);
+        const float v = trajc[t * kNT + lt];
+        tau[lane] = v;
+        if constexpr (kHuber) {
+          float h;
+          huber_quad(hl.w, hl.goal, hl.delta, v, h, cbv);
+          Qs[lane * kSQ + lane] = h;
+        } else {
+          cv[lane] = __ldg(cb + t * op.sct + lt);
+        }
       }
-      for (int e = lane; e < kNT * kNT; e += 32)
-        Qs[(e / kNT) * kSQ + e % kNT] = __ldg(Ct + e);
+      if constexpr (kHuber) {
+        for (int e = lane; e < kNT * kNT; e += 32) {
+          const int i = e / kNT, j = e - i * kNT;
+          if (i != j) Qs[i * kSQ + j] = 0.f;
+        }
+      } else {
+        const float* Ct = Cb + t * op.sCt;
+        for (int e = lane; e < kNT * kNT; e += 32)
+          Qs[(e / kNT) * kSQ + e % kNT] = __ldg(Ct + e);
+      }
       const bool last = t == T - 1;
       if (!last) {
         if constexpr (kModel) {
@@ -386,15 +446,16 @@ __global__ void __launch_bounds__(kThreads)
       }
       __syncwarp();
       // cb = C_t tau + c_t, from the staged C_t before Q replaces it
-      float cbv = 0.f;
-      if (lane < kNT) {
-        const float* row = Qs + lt * kSQ;
-        float s = row[0] * tau[0];
+      if constexpr (!kHuber) {
+        if (lane < kNT) {
+          const float* row = Qs + lt * kSQ;
+          float s = row[0] * tau[0];
 #pragma unroll
-        for (int j = 1; j < kNT; ++j) s = s + row[j] * tau[j];
-        cbv = s + cv[lt];
+          for (int j = 1; j < kNT; ++j) s = s + row[j] * tau[j];
+          cbv = s + cv[lt];
+        }
+        __syncwarp();
       }
-      __syncwarp();
       if (last) {
         if (lane < kNT) qv[lane] = cbv;
       } else {
@@ -602,7 +663,7 @@ __global__ void __launch_bounds__(kThreads)
         }
         __syncwarp();
         const float sc =
-            stage_cost(Cb + t * op.sCt, cb + t * op.sct, tau, lane, lt);
+            stage_at(Cb, cb, op.sCt, op.sct, t, hl, tau, lane, lt);
         cost_a = t == 0 ? sc : cost_a + sc;
         if (ai == 0) {
           const float d2s = lane_sum(d2);
@@ -664,7 +725,8 @@ __global__ void __launch_bounds__(kThreads)
 }  // namespace mpc
 
 extern "C" int mpc_fused_ilqr_dense(
-    int B, int T, const float* params, const float* F, long long sFt,
+    int B, int T, const float* params, const float* cost, const float* F,
+    long long sFt,
     long long sFb,
     const float* f, long long sft, long long sfb, const float* C,
     long long sCt, long long sCb, const float* c, long long sct,
@@ -680,6 +742,8 @@ extern "C" int mpc_fused_ilqr_dense(
               : (F == nullptr && T > 1)) ||
       ((f != nullptr) != kHasF && T > 1) ||
       (kHasBounds && (lb == nullptr || ub == nullptr)) ||
+      (kHuber ? (cost == nullptr || C != nullptr || c != nullptr)
+              : (C == nullptr || c == nullptr)) ||
       smem_bytes != kWarps * kWarpFloats * (int)sizeof(float))
     return (int)cudaErrorInvalidValue;
   // 32-bit indices: the largest offset of each array
@@ -715,6 +779,7 @@ extern "C" int mpc_fused_ilqr_dense(
   op.B = B;
   op.T = T;
   op.params = params;
+  op.cost = cost;
   op.F = F;
   op.sFt = (int)sFt;
   op.sFb = (int)sFb;

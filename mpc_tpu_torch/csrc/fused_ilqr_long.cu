@@ -102,6 +102,16 @@
 // Built without --use_fast_math; nvcc's FMA contraction is the only
 // arithmetic difference from the plain version.
 //
+// THE COST BUILD (MPC_COST = 1), for every MPC_DYN, takes the pseudo-Huber
+// cost (cost.cuh) where the TPU kernel takes a structure-of-arrays cost
+// (mpc_tpu/ops/fused.py:1406-1461, 1584-1590): no C or c operand (no
+// pointer of one is formed, and the block's copy of the shared operands
+// holds none), the 9 parameters [w, goal, delta] in every lane's
+// registers.  The Riccati step quadratises the cost at the current (x, u)
+// it already reads, C_t = diag(H) and g in place of C_t tau + c_t: work
+// on tau_t alone, off the V chain's dependencies, and no memory.  The
+// initial rollout and the trials score the true cost.
+//
 // Outputs: x [T, B, 3], u [T, B, 1], stats [6, B] = best cost, best
 // full-step norm, n_iter, n_qp_iter, alpha and the summed index plus one
 // of the selected step sizes (the trial rollouts a serial search would
@@ -110,6 +120,7 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "cost.cuh"
 #include "nn.cuh"
 #include "pendulum.cuh"
 
@@ -126,6 +137,10 @@
 // simple one
 #ifndef MPC_DAMPED
 #define MPC_DAMPED 0
+#endif
+// 0: a QuadCost (C, c); 1: the pseudo-Huber cost (cost.cuh)
+#ifndef MPC_COST
+#define MPC_COST 0
 #endif
 #ifndef MPC_HAS_BOUNDS
 #error "compile with -DMPC_HAS_BOUNDS=0 or 1"
@@ -145,6 +160,7 @@ constexpr bool kPendulum = MPC_DYN == 1;
 constexpr bool kNN = MPC_DYN == 2;
 constexpr bool kHasBounds = MPC_HAS_BOUNDS != 0;
 constexpr bool kDamped = MPC_DAMPED != 0;
+constexpr bool kHuber = MPC_COST == 1;
 constexpr int kMaxAlpha = 32;  // ops/fused.py:MAX_ALPHA
 constexpr int kTeam = MPC_TEAM;
 constexpr int kWarps = MPC_WARPS;
@@ -178,11 +194,12 @@ struct Operands {
   const float* params;  // pendulum (g, m, l), or an MLP's flat weights;
                         // unused for LinDx
   int nn_h, nn_pass;    // MLP: hidden units, passthrough
+  const float* cost;    // the cost build's [w, goal, delta] (9)
   const float* F;       // LinDx: [T-1, 1 or B, 3, 4]
   int sFt, sFb;
   const float* f;  // LinDx: [T-1, 1 or B, 3], or nullptr
   int sft, sfb;
-  const float* C;  // [T, 1 or B, 4, 4]
+  const float* C;  // [T, 1 or B, 4, 4], or nullptr in the cost build
   int sCt, sCb;
   const float* c;  // [T, 1 or B, 4]
   int sct, scb;
@@ -213,8 +230,8 @@ __device__ __forceinline__ void load4(const float* p, float* out) {
 
 // The operands of one horizon step, as one register set of the prefetch.
 struct Rows {
-  float C[NTAU][NTAU], c[NTAU];
-  float F[NS][NTAU], f[NS];  // LinDx only
+  float C[NTAU][NTAU], c[NTAU];  // the QuadCost build only
+  float F[NS][NTAU], f[NS];      // LinDx only
   float lb, ub;              // with bounds only
 };
 
@@ -274,6 +291,7 @@ struct Team {
   const Operands& op;
   int b;  // the team's example
   PendulumParams p;
+  Huber<NTAU> hc;  // the cost build's parameters
   Operand C, c, F, f, lb, ub;
   bool has_f;
   float4* st;  // the example's state at step 0, slot kGain: shared
@@ -304,10 +322,12 @@ struct Team {
   // the operands of step t; F and f are those of min(t, T - 2), the last
   // step having no successor
   __device__ __forceinline__ void load_rows(int t, Rows& r) const {
-    const float* Cp = C.at(t);
+    if (!kHuber) {
+      const float* Cp = C.at(t);
 #pragma unroll
-    for (int i = 0; i < NTAU; ++i) load4(Cp + 4 * i, r.C[i]);
-    load4(c.at(t), r.c);
+      for (int i = 0; i < NTAU; ++i) load4(Cp + 4 * i, r.C[i]);
+      load4(c.at(t), r.c);
+    }
     if (kLinDx && op.T > 1) {
       const int tf = t < op.T - 1 ? t : op.T - 2;
       const float* Fp = F.at(tf);
@@ -338,6 +358,16 @@ struct Team {
         r.F[i][3] = v.w;
       }
     }
+  }
+
+  // The true stage cost at (x_t, u_t) of the build's cost.
+  __device__ __forceinline__ float cost_at(const Rows& r, const float* xt,
+                                           float ut) const {
+    if (kHuber) {
+      const float tau[NTAU] = {xt[0], xt[1], xt[2], ut};
+      return hc.stage(tau);
+    }
+    return stage_cost(r.C, r.c, xt, ut);
   }
 
   // x_{t+1} from (x_t, u_t) in place
@@ -372,17 +402,25 @@ struct Team {
     const float xt[NS] = {xu.x, xu.y, xu.z};
     const float ut = xu.w;
     const float tau[NTAU] = {xt[0], xt[1], xt[2], ut};
-    float cbv[NTAU];
+    // C_t and C_t tau_t + c_t; in the cost build diag(H) and g at tau_t
+    float Ct[NTAU][NTAU], cbv[NTAU];
+    if (kHuber) {
+      hc.quad(tau, Ct, cbv);
+    } else {
 #pragma unroll
-    for (int i = 0; i < NTAU; ++i)
-      cbv[i] = (((r.C[i][0] * tau[0] + r.C[i][1] * tau[1]) + r.C[i][2] * tau[2]) +
-                r.C[i][3] * tau[3]) + r.c[i];
+      for (int i = 0; i < NTAU; ++i) {
+#pragma unroll
+        for (int j = 0; j < NTAU; ++j) Ct[i][j] = r.C[i][j];
+        cbv[i] = (((r.C[i][0] * tau[0] + r.C[i][1] * tau[1]) +
+                   r.C[i][2] * tau[2]) + r.C[i][3] * tau[3]) + r.c[i];
+      }
+    }
     float Qt[NTAU][NTAU], qt[NTAU];
     if (t == op.T - 1) {
 #pragma unroll
       for (int i = 0; i < NTAU; ++i) {
 #pragma unroll
-        for (int j = 0; j < NTAU; ++j) Qt[i][j] = r.C[i][j];
+        for (int j = 0; j < NTAU; ++j) Qt[i][j] = Ct[i][j];
         qt[i] = cbv[i];
       }
     } else {
@@ -405,8 +443,8 @@ struct Team {
       for (int a = 0; a < NTAU; ++a) {
 #pragma unroll
         for (int bb = a; bb < NTAU; ++bb) {
-          Qt[a][bb] = r.C[a][bb] + ((F[0][a] * W[0][bb] + F[1][a] * W[1][bb]) +
-                                    F[2][a] * W[2][bb]);
+          Qt[a][bb] = Ct[a][bb] + ((F[0][a] * W[0][bb] + F[1][a] * W[1][bb]) +
+                                   F[2][a] * W[2][bb]);
           Qt[bb][a] = Qt[a][bb];
         }
         qt[a] = cbv[a] + ((F[0][a] * v[0] + F[1][a] * v[1]) + F[2][a] * v[2]);
@@ -468,7 +506,7 @@ struct Team {
     float ut = ((Kk.x * d0 + Kk.y * d1) + Kk.z * d2 + old.w) + alpha * Kk.w;
     if (kHasBounds) ut = clampf(ut, r.lb, r.ub);
     trial(t, lane) = make_float4(xt[0], xt[1], xt[2], ut);
-    const float sc = stage_cost(r.C, r.c, xt, ut);
+    const float sc = cost_at(r, xt, ut);
     cost = t == 0 ? sc : cost + sc;
     const float d = old.w - ut;
     du2 = t == 0 ? d * d : du2 + d * d;
@@ -495,8 +533,8 @@ __global__ void __launch_bounds__(kThreads)
   float4* const jac_base = state_base + 2 * T * kExamples + T * (kOpRow / 4);
   if (kNN) stage_nn_weights<kThreads>(op.params, op.nn_h, smem);
   if (staged != nullptr) {
-    if (op.sCb == 0) stage<16>(op.C, op.sCt, T, staged + kOffC);
-    if (op.scb == 0) stage<4>(op.c, op.sct, T, staged + kOffc);
+    if (!kHuber && op.sCb == 0) stage<16>(op.C, op.sCt, T, staged + kOffC);
+    if (!kHuber && op.scb == 0) stage<4>(op.c, op.sct, T, staged + kOffc);
     if (kLinDx && op.sFb == 0) stage<12>(op.F, op.sFt, T - 1, staged + kOffF);
     if (kLinDx && op.f != nullptr && op.sfb == 0)
       stage<3>(op.f, op.sft, T - 1, staged + kOfff);
@@ -509,14 +547,20 @@ __global__ void __launch_bounds__(kThreads)
   if (b >= B) return;  // ragged tail: a whole team leaves together
   PendulumParams p{0.f, 0.f, 0.f, 0.f, 0.f};
   if (kPendulum) p = load_pendulum<kDamped>(op.params);
+  Huber<NTAU> hc{};
+  if (kHuber) hc = Huber<NTAU>::load(op.cost);
   // the lanes that roll out a trial, each into its slot of the workspace
   const int n_lanes = sched.n < kTeam ? sched.n : kTeam;
   const int e = threadIdx.x / kTeam;
+  // the cost build forms no pointer into the absent C and c
   const Team tm{op,
                 b,
                 p,
-                operand(op.C, op.sCt, op.sCb, b, staged, kOffC),
-                operand(op.c, op.sct, op.scb, b, staged, kOffc),
+                hc,
+                kHuber ? Operand{nullptr, 0}
+                       : operand(op.C, op.sCt, op.sCb, b, staged, kOffC),
+                kHuber ? Operand{nullptr, 0}
+                       : operand(op.c, op.sct, op.scb, b, staged, kOffc),
                 operand(op.F, op.sFt, op.sFb, b, staged, kOffF),
                 operand(op.f, op.sft, op.sfb, b, staged, kOfff),
                 operand(op.lb, op.sbt, op.sbb, b, staged, kOffLb),
@@ -576,7 +620,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
         for (int i = 0; i < NS; ++i) op.x_out[o * NS + i] = xt[i];
       }
-      const float sc = stage_cost(r.C, r.c, xt, ut);
+      const float sc = tm.cost_at(r, xt, ut);
       cost_cur = t == 0 ? sc : cost_cur + sc;
       if (t < T - 1) tm.step(r, xt, ut);
       r = rn;
@@ -747,7 +791,7 @@ __global__ void __launch_bounds__(kThreads)
 // after the trials' and an MLP's Jacobian rows in the three after those.
 extern "C" int mpc_fused_ilqr_long(
     int B, int T, const float* params, int nn_h, int nn_pass,
-    const float* F, long long sFt,
+    const float* cost, const float* F, long long sFt,
     long long sFb, const float* f, long long sft, long long sfb,
     const float* C, long long sCt, long long sCb, const float* c,
     long long sct, long long scb, const float* x0, const float* u0,
@@ -760,7 +804,9 @@ extern "C" int mpc_fused_ilqr_long(
   if (B <= 0 || T <= 0 || n_alpha <= 0 || n_alpha > mpc::kMaxAlpha ||
       ws == nullptr || (mpc::kNN && (nn_h <= 0 || smem_bytes < weight_bytes)) ||
       (mpc::kLinDx ? (F == nullptr && T > 1) : params == nullptr) ||
-      (mpc::kHasBounds && (lb == nullptr || ub == nullptr)))
+      (mpc::kHasBounds && (lb == nullptr || ub == nullptr)) ||
+      (mpc::kHuber ? (cost == nullptr || C != nullptr || c != nullptr)
+                   : (C == nullptr || c == nullptr)))
     return (int)cudaErrorInvalidValue;
   // more than 48 KB of dynamic shared memory has to be asked for; the
   // library remembers the most it has asked for
@@ -790,6 +836,7 @@ extern "C" int mpc_fused_ilqr_long(
   op.params = params;
   op.nn_h = nn_h;
   op.nn_pass = nn_pass;
+  op.cost = cost;
   op.F = F;
   op.sFt = (int)sFt;
   op.sFb = (int)sFb;

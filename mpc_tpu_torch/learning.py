@@ -55,13 +55,18 @@ def _phase2_kernel_bwd(cfg, x_init, cost, dynamics, sol1, u_lower, u_upper):
     leaves and a batch-shared LinDx stay un-broadcast ([T, ...]): the
     kernel returns their gradient summed over the batch when both leaves
     of the pair are shared, and the fixed point sums a per-example
-    gradient back onto a shared leaf otherwise."""
+    gradient back onto a shared leaf otherwise.  A pseudo-Huber cost is
+    never shared (mpc_tpu/learning.py:63-75): it is quadratised at the
+    solution, per example, differentiably (C [T, B, ntau, ntau] and c =
+    g - H tau [T, B, ntau]), so that the gradients of C and c reach w,
+    goal and delta by autograd."""
     dtype, device = x_init.dtype, x_init.device
     # phase 1's outputs carry no gradient; the problem's leaves do
     bx, bu = sol1.x.detach(), sol1.u.detach()
-    C = torch.as_tensor(cost.C, dtype=dtype, device=device)
-    c = torch.as_tensor(cost.c, dtype=dtype, device=device)
-    C, c, _ = quadratize_cost(QuadCost(C, c), bx, bu)
+    if isinstance(cost, QuadCost):
+        cost = QuadCost(torch.as_tensor(cost.C, dtype=dtype, device=device),
+                        torch.as_tensor(cost.c, dtype=dtype, device=device))
+    C, c, _ = quadratize_cost(cost, bx, bu)
     if isinstance(dynamics, LinDx):
         dynamics = LinDx(*(None if a is None else torch.as_tensor(
             a, dtype=dtype, device=device) for a in dynamics))
@@ -85,8 +90,7 @@ def _always_error(cfg, cost, dynamics, u_lower, dtype, gap):
     (mpc_tpu/ops/fused.py:supports, mpc_tpu/learning.py:165-168: float64,
     a cost or model without a structure-of-arrays form, delta_u without
     bounds), else a NotImplementedError naming the kernel configuration
-    that waits (for every MLP and the pseudo-Huber cost, which mpc_tpu's
-    kernels take)."""
+    that waits (for the MLPs and the problems mpc_tpu's kernels take)."""
     msg = f'use_fused="always" but the kernels do not take this problem: {gap}'
     soa_model = isinstance(
         dynamics, (LinDx, PendulumDx, CartpoleDx, NNDynamics)) or \

@@ -24,7 +24,10 @@ batch-shared leaf keeps a batch extent of 1 (the launch reads it with
 batch stride 0), absent bounds, f and active set are None, the
 line-search schedule is a list of floats (the values the kernel gets),
 and every scratch array (K3's and K4's workspaces, the partial sums) is
-allocated inside the op, so no op writes to its inputs.
+allocated inside the op, so no op writes to its inputs.  The forward ops
+take either a QuadCost's C and c or, with C and c None, the pseudo-Huber
+cost's parameter vector ``cost_params`` [w, goal, delta] (2 n_tau + 1):
+the kernels' cost build (MPC_COST = 1, csrc/cost.cuh).
 
 Importing this module registers the ops and builds nothing: a kernel is
 built at its first launch (``_build``).  It imports the kernels'
@@ -69,6 +72,23 @@ def _mlp(hidden, activation, passthrough):
                       activation, passthrough)
 
 
+def _check_cost(label, C, c, cost_params, ntau):
+    """A QuadCost's C and c, or (C and c None) the pseudo-Huber cost's
+    [w, goal, delta] of ``ntau`` components; returns whether it is the
+    latter (the kernel's cost build)."""
+    if cost_params is None:
+        if C is None or c is None:
+            raise ValueError(f'{label} takes C and c, or the pseudo-Huber '
+                             'cost\'s cost_params')
+        return False
+    if C is not None or c is not None:
+        raise ValueError(f'{label} takes C and c or cost_params, not both')
+    if cost_params.shape != (2 * ntau + 1,):
+        raise ValueError(f'{label} takes the pseudo-Huber cost\'s [w, goal, '
+                         f'delta] of {2 * ntau + 1} values')
+    return True
+
+
 def _floats_on_device(label, device, *operands):
     for a in operands:
         if a is not None and (a.dtype != torch.float32 or a.device != device
@@ -83,25 +103,28 @@ def _floats_on_device(label, device, *operands):
 
 @torch.library.custom_op('mpc_tpu_torch::k1_solve', mutates_args=(),
                          device_types='cpu')
-def k1_solve(params: Tensor, C: Tensor, c: Tensor, x0: Tensor, u0: Tensor,
-             lb: Optional[Tensor], ub: Optional[Tensor], alphas: list[float],
-             lqr_iter: int, eps: float, best_cost_eps: float,
-             not_improved_lim: float) -> tuple[Tensor, Tensor, Tensor]:
+def k1_solve(params: Tensor, C: Optional[Tensor], c: Optional[Tensor],
+             x0: Tensor, u0: Tensor, lb: Optional[Tensor],
+             ub: Optional[Tensor], alphas: list[float], lqr_iter: int,
+             eps: float, best_cost_eps: float, not_improved_lim: float,
+             cost_params: Optional[Tensor] = None
+             ) -> tuple[Tensor, Tensor, Tensor]:
     """K1 on the pendulum: params [3] (simple) or [5] (damped, biased;
-    the MPC_DAMPED build); C [T, 1 or B, 4, 4];
-    c [T, 1 or B, 4]; x0 [B, 3]; u0 [T, B]; lb, ub None or [T, 1 or B].
+    the MPC_DAMPED build); C [T, 1 or B, 4, 4] and c [T, 1 or B, 4], or
+    C and c None and ``cost_params`` [9] (the pseudo-Huber cost, the
+    MPC_COST build); x0 [B, 3]; u0 [T, B]; lb, ub None or [T, 1 or B].
     Returns x [T, B, 3], u [T, B, 1], stats [6, B]
     (``fused.fused_solve_plain``, which runs here on the CPU)."""
     return fused.fused_solve_plain(
         _pendulum(params.shape[0]), params, C, c, x0, u0, lb, ub,
         alphas=alphas,
         lqr_iter=lqr_iter, eps=eps, best_cost_eps=best_cost_eps,
-        not_improved_lim=not_improved_lim)
+        not_improved_lim=not_improved_lim, cost_params=cost_params)
 
 
 @k1_solve.register_fake
 def _k1_fake(params, C, c, x0, u0, lb, ub, alphas, lqr_iter, eps,
-             best_cost_eps, not_improved_lim):
+             best_cost_eps, not_improved_lim, cost_params=None):
     T, B = u0.shape
     return (x0.new_empty((T, B, 3)), x0.new_empty((T, B, 1)),
             x0.new_empty((6, B)))
@@ -109,7 +132,7 @@ def _k1_fake(params, C, c, x0, u0, lb, ub, alphas, lqr_iter, eps,
 
 @k1_solve.register_kernel('cuda')
 def _k1_cuda(params, C, c, x0, u0, lb, ub, alphas, lqr_iter, eps,
-             best_cost_eps, not_improved_lim):
+             best_cost_eps, not_improved_lim, cost_params=None):
     """Launch csrc/fused_ilqr.cu with the geometry of ``fused.k1_launch``
     (the launcher refuses, as an invalid value, an array too large for
     its 32-bit indices)."""
@@ -117,12 +140,14 @@ def _k1_cuda(params, C, c, x0, u0, lb, ub, alphas, lqr_iter, eps,
     has_bounds = lb is not None
     if has_bounds != (ub is not None):
         raise ValueError('K1 takes both bounds or neither')
-    _floats_on_device('K1', x0.device, params, C, c, x0, u0, lb, ub)
+    _floats_on_device('K1', x0.device, params, C, c, x0, u0, lb, ub,
+                      cost_params)
     _check_pendulum_params('K1', params)
-    if (C.shape[0] != T or C.shape[2:] != (4, 4)
-            or c.shape[0] != T or c.shape[2:] != (4,)
-            or C.shape[1] not in (1, B) or c.shape[1] not in (1, B)
-            or x0.shape != (B, 3)):
+    huber = _check_cost('K1', C, c, cost_params, 4)
+    if (not huber and (C.shape[0] != T or C.shape[2:] != (4, 4)
+                       or c.shape[0] != T or c.shape[2:] != (4,)
+                       or C.shape[1] not in (1, B)
+                       or c.shape[1] not in (1, B))) or x0.shape != (B, 3):
         raise ValueError('K1 operand shapes do not match')
     if has_bounds and (lb.shape != ub.shape or lb.shape[0] != T
                        or lb.shape[1] not in (1, B)):
@@ -134,7 +159,7 @@ def _k1_cuda(params, C, c, x0, u0, lb, ub, alphas, lqr_iter, eps,
     if geo['smem_bytes'] > fused.SMEM_LIMIT:
         raise ValueError(f'K1 holds T <= {fused.T_MAX} in shared memory; '
                          f'T={T} goes to K3 (routes_long)')
-    fn = fused._kernel_lib(T, has_bounds, params.shape[0] == 5)
+    fn = fused._kernel_lib(T, has_bounds, params.shape[0] == 5, huber)
     x = torch.empty((T, B, 3), dtype=torch.float32, device=x0.device)
     u = torch.empty((T, B, 1), dtype=torch.float32, device=x0.device)
     stats = torch.empty((6, B), dtype=torch.float32, device=x0.device)
@@ -149,8 +174,8 @@ def _k1_cuda(params, C, c, x0, u0, lb, ub, alphas, lqr_iter, eps,
     with torch.cuda.device(x0.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(B, params.data_ptr(),
-                 C.data_ptr(), C.shape[1] * 16, fused._batch_stride(C, 16),
-                 c.data_ptr(), c.shape[1] * 4, fused._batch_stride(c, 4),
+                 cost_params.data_ptr() if huber else None,
+                 *fused._strided(C, 16), *fused._strided(c, 4),
                  x0.data_ptr(), u0.data_ptr(), *bounds,
                  a_host, len(alphas), int(lqr_iter), float(eps),
                  float(best_cost_eps), float(not_improved_lim),
@@ -179,30 +204,32 @@ def _k3_model(params, nn_hidden, activation, passthrough):
 @torch.library.custom_op('mpc_tpu_torch::k3_solve', mutates_args=(),
                          device_types='cpu')
 def k3_solve(params: Optional[Tensor], F: Optional[Tensor],
-             f: Optional[Tensor], C: Tensor, c: Tensor, x0: Tensor,
-             u0: Tensor, lb: Optional[Tensor], ub: Optional[Tensor],
-             alphas: list[float], lqr_iter: int, eps: float,
-             best_cost_eps: float, not_improved_lim: float, nn_hidden: int,
-             activation: str, passthrough: bool
+             f: Optional[Tensor], C: Optional[Tensor], c: Optional[Tensor],
+             x0: Tensor, u0: Tensor, lb: Optional[Tensor],
+             ub: Optional[Tensor], alphas: list[float], lqr_iter: int,
+             eps: float, best_cost_eps: float, not_improved_lim: float,
+             nn_hidden: int, activation: str, passthrough: bool,
+             cost_params: Optional[Tensor] = None
              ) -> tuple[Tensor, Tensor, Tensor]:
     """K3: a LinDx (params None, F [T-1, 1 or B, 3, 4], f None or
     [T-1, 1 or B, 3]), a pendulum (params [3], or [5] for the damped
     one, nn_hidden 0) or
     a one-hidden-layer MLP of ``nn_hidden`` units (params its flat
     weights, ``NNDynamics.kernel_params``; ``activation``,
-    ``passthrough``); the other operands and the outputs as
-    ``k1_solve``'s (``fused.fused_solve_long_plain``, which runs here on
-    the CPU)."""
+    ``passthrough``); the other operands (the cost's C and c, or
+    ``cost_params``) and the outputs as ``k1_solve``'s
+    (``fused.fused_solve_long_plain``, which runs here on the CPU)."""
     return fused.fused_solve_long_plain(
         _k3_model(params, nn_hidden, activation, passthrough), params, F, f,
         C, c, x0, u0, lb, ub, alphas=alphas, lqr_iter=lqr_iter, eps=eps,
-        best_cost_eps=best_cost_eps, not_improved_lim=not_improved_lim)
+        best_cost_eps=best_cost_eps, not_improved_lim=not_improved_lim,
+        cost_params=cost_params)
 
 
 @k3_solve.register_fake
 def _k3_fake(params, F, f, C, c, x0, u0, lb, ub, alphas, lqr_iter, eps,
              best_cost_eps, not_improved_lim, nn_hidden, activation,
-             passthrough):
+             passthrough, cost_params=None):
     T, B = u0.shape
     return (x0.new_empty((T, B, 3)), x0.new_empty((T, B, 1)),
             x0.new_empty((6, B)))
@@ -211,7 +238,7 @@ def _k3_fake(params, F, f, C, c, x0, u0, lb, ub, alphas, lqr_iter, eps,
 @k3_solve.register_kernel('cuda')
 def _k3_cuda(params, F, f, C, c, x0, u0, lb, ub, alphas, lqr_iter, eps,
              best_cost_eps, not_improved_lim, nn_hidden, activation,
-             passthrough):
+             passthrough, cost_params=None):
     """Allocate the workspace of ``fused.k3_launch`` and launch
     csrc/fused_ilqr_long.cu (the launcher refuses, as an invalid value,
     an array or a workspace too large for its 32-bit indices)."""
@@ -219,10 +246,13 @@ def _k3_cuda(params, F, f, C, c, x0, u0, lb, ub, alphas, lqr_iter, eps,
     lindx = params is None
     nn = not lindx and nn_hidden > 0
     has_bounds = lb is not None
-    _floats_on_device('K3', x0.device, params, F, f, C, c, x0, u0, lb, ub)
-    if (C.shape[0] != T or C.shape[2:] != (4, 4) or c.shape[0] != T
-            or c.shape[2:] != (4,) or C.shape[1] not in (1, B)
-            or c.shape[1] not in (1, B) or x0.shape != (B, 3)):
+    _floats_on_device('K3', x0.device, params, F, f, C, c, x0, u0, lb, ub,
+                      cost_params)
+    huber = _check_cost('K3', C, c, cost_params, 4)
+    if (not huber and (C.shape[0] != T or C.shape[2:] != (4, 4)
+                       or c.shape[0] != T or c.shape[2:] != (4,)
+                       or C.shape[1] not in (1, B)
+                       or c.shape[1] not in (1, B))) or x0.shape != (B, 3):
         raise ValueError('K3 operand shapes do not match')
     if lindx:
         if (F is None or F.shape[0] != T - 1
@@ -254,7 +284,7 @@ def _k3_cuda(params, F, f, C, c, x0, u0, lb, ub, alphas, lqr_iter, eps,
     fused._check_float4('K3', C, c, F)
     fn = fused._kernel_lib_long(fused.long_kernel_defines(
         lindx, has_bounds, activation if nn else None,
-        damped=not (lindx or nn) and params.shape[0] == 5))
+        damped=not (lindx or nn) and params.shape[0] == 5, huber=huber))
     empty = functools.partial(torch.empty, dtype=torch.float32,
                               device=x0.device)
     x, u, stats = empty((T, B, 3)), empty((T, B, 1)), empty((6, B))
@@ -269,6 +299,7 @@ def _k3_cuda(params, F, f, C, c, x0, u0, lb, ub, alphas, lqr_iter, eps,
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(B, T, params.data_ptr() if params is not None else None,
                  hidden, int(nn and passthrough),
+                 cost_params.data_ptr() if huber else None,
                  *fused._strided(F, 12), *fused._strided(f, 3),
                  *fused._strided(C, 16), *fused._strided(c, 4),
                  x0.data_ptr(), u0.data_ptr(),
@@ -290,19 +321,22 @@ def _k3_cuda(params, F, f, C, c, x0, u0, lb, ub, alphas, lqr_iter, eps,
 
 @torch.library.custom_op('mpc_tpu_torch::k3d_solve', mutates_args=(),
                          device_types='cpu')
-def k3d_solve(F: Optional[Tensor], f: Optional[Tensor], C: Tensor, c: Tensor,
-              x0: Tensor, u0: Tensor, lb: Optional[Tensor],
-              ub: Optional[Tensor], alphas: list[float], lqr_iter: int,
-              eps: float, best_cost_eps: float, not_improved_lim: float,
-              pnqp_iter: int, model: str = '', slew: bool = False,
-              params: Optional[Tensor] = None
+def k3d_solve(F: Optional[Tensor], f: Optional[Tensor], C: Optional[Tensor],
+              c: Optional[Tensor], x0: Tensor, u0: Tensor,
+              lb: Optional[Tensor], ub: Optional[Tensor], alphas: list[float],
+              lqr_iter: int, eps: float, best_cost_eps: float,
+              not_improved_lim: float, pnqp_iter: int, model: str = '',
+              slew: bool = False, params: Optional[Tensor] = None,
+              cost_params: Optional[Tensor] = None
               ) -> tuple[Tensor, Tensor, Tensor]:
     """K3's dense configuration: a LinDx of any admitted size, F
     [T-1, 1 or B, ns, ntau], f None or [T-1, 1 or B, ns]; or the
     model-step build, F and f None, ``model`` a name of
     ``fused_dense.DENSE_MODELS`` with its ``params``, ``slew`` for its
     passthrough step on (u_{t-1}, x_t); C [T, 1 or B, ntau, ntau], c
-    [T, 1 or B, ntau], x0 [B, ns], u0 [T, B, nc], lb, ub None or
+    [T, 1 or B, ntau], or C and c None and ``cost_params`` [2 ntau + 1]
+    (the pseudo-Huber cost, the MPC_COST build); x0 [B, ns], u0 [T, B,
+    nc], lb, ub None or
     [T, 1 or B, nc].  Returns x [T, B, ns], u [T, B, nc], stats [6, B]
     (``fused_dense.fused_solve_dense_plain``, which runs here on the
     CPU)."""
@@ -311,13 +345,13 @@ def k3d_solve(F: Optional[Tensor], f: Optional[Tensor], C: Tensor, c: Tensor,
         eps=eps, best_cost_eps=best_cost_eps,
         not_improved_lim=not_improved_lim, pnqp_iter=pnqp_iter,
         model=fused_dense.model_of(model, slew) if model else None,
-        params=params)
+        params=params, cost_params=cost_params)
 
 
 @k3d_solve.register_fake
 def _k3d_fake(F, f, C, c, x0, u0, lb, ub, alphas, lqr_iter, eps,
               best_cost_eps, not_improved_lim, pnqp_iter, model='',
-              slew=False, params=None):
+              slew=False, params=None, cost_params=None):
     T, B, nc = u0.shape
     return (x0.new_empty((T, B, x0.shape[1])), x0.new_empty((T, B, nc)),
             x0.new_empty((6, B)))
@@ -344,7 +378,7 @@ def _check_dense_model(model, slew, params, F, f, ns, nc):
 @k3d_solve.register_kernel('cuda')
 def _k3d_cuda(F, f, C, c, x0, u0, lb, ub, alphas, lqr_iter, eps,
               best_cost_eps, not_improved_lim, pnqp_iter, model='',
-              slew=False, params=None):
+              slew=False, params=None, cost_params=None):
     """Allocate the workspace of ``fused_dense.k3d_launch`` and launch
     csrc/fused_ilqr_dense.cu (the launcher refuses, as an invalid value,
     an array or a workspace too large for its 32-bit indices)."""
@@ -355,7 +389,7 @@ def _k3d_cuda(F, f, C, c, x0, u0, lb, ub, alphas, lqr_iter, eps,
     nt = ns + nc
     has_bounds = lb is not None
     _floats_on_device('the dense kernel', x0.device, F, f, C, c, x0, u0, lb,
-                      ub, params)
+                      ub, params, cost_params)
     gap = fused.dense_gap(ns, nc)
     if gap is not None:
         raise ValueError(gap)
@@ -367,9 +401,11 @@ def _k3d_cuda(F, f, C, c, x0, u0, lb, ub, alphas, lqr_iter, eps,
                                  or f.shape[1] not in (1, B)
                                  or f.shape[2:] != (ns,)))):
         raise ValueError('the dense kernel\'s LinDx operands do not match')
-    if (x0.shape != (B, ns) or C.shape[0] != T or C.shape[2:] != (nt, nt)
+    huber = _check_cost('the dense kernel', C, c, cost_params, nt)
+    if x0.shape != (B, ns) or (not huber and (
+            C.shape[0] != T or C.shape[2:] != (nt, nt)
             or c.shape[0] != T or c.shape[2:] != (nt,)
-            or C.shape[1] not in (1, B) or c.shape[1] not in (1, B)):
+            or C.shape[1] not in (1, B) or c.shape[1] not in (1, B))):
         raise ValueError('the dense kernel\'s operand shapes do not match')
     if has_bounds and (ub is None or lb.shape != ub.shape
                        or lb.shape[0] != T or lb.shape[1] not in (1, B)
@@ -379,7 +415,7 @@ def _k3d_cuda(F, f, C, c, x0, u0, lb, ub, alphas, lqr_iter, eps,
         raise ValueError('pnqp_iter must not be negative')
     geo = fused_dense.k3d_launch(T, B, ns, nc, len(alphas), bool(model))
     fn = fused_dense.kernel_lib(ns, nc, has_bounds, f is not None,
-                                model or None, slew)
+                                model or None, slew, huber)
     empty = functools.partial(torch.empty, dtype=torch.float32,
                               device=x0.device)
     x, u, stats = empty((T, B, ns)), empty((T, B, nc)), empty((6, B))
@@ -391,6 +427,7 @@ def _k3d_cuda(F, f, C, c, x0, u0, lb, ub, alphas, lqr_iter, eps,
     with torch.cuda.device(x0.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(B, T, params.data_ptr() if model else None,
+                 cost_params.data_ptr() if huber else None,
                  *fused._strided(F, ns * nt), *fused._strided(f, ns),
                  *fused._strided(C, nt * nt), *fused._strided(c, nt),
                  x0.data_ptr(), u0.data_ptr(),

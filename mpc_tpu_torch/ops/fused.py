@@ -41,8 +41,11 @@ structure-of-arrays steps and hand-written Jacobians); a
 one-hidden-layer ``NNDynamics`` (sigmoid, relu or elu, its weights in a
 block's shared memory: K3's streamed-weights configuration, csrc/nn.cuh)
 at n_state = 3, n_ctrl = 1; a QuadCost with C and c each shared or
-batched, bounds absent, scalar, [T, nc] or [T, B, nc], an optional
-u_init, any T, float32 (float64 too on the CPU, in the plain versions).
+batched, or the pseudo-Huber cost (``PseudoHuberCost`` with w and goal
+[n_tau] and a scalar delta, quadratised inside the kernels at every
+iteration: each kernel's cost build, MPC_COST = 1, csrc/cost.cuh); bounds
+absent, scalar, [T, nc] or [T, B, nc], an optional u_init, any T, float32
+(float64 too on the CPU, in the plain versions).
 ``routes_dense`` and ``routes_long`` say which kernel takes a problem:
 at 3 states and 1 control a LinDx and an MLP go to K3, a pendulum to K1
 up to ``T_MAX`` and to K3 past it; every other admitted problem goes to
@@ -68,6 +71,7 @@ from typing import Optional
 import torch
 
 from ..models.cartpole import CartpoleDx
+from ..models.cost import PseudoHuberCost, huber_cost, huber_quad
 from ..models.dynamics import NNDynamics
 from ..models.pendulum import PendulumDx
 from ..types import LinDx, QuadCost, Solution
@@ -177,7 +181,9 @@ def _nn_weight_bytes(hidden) -> int:
 # 32 * K1_WARPS / TEAM = 8 examples of (5 + 1 + TEAM) = 10 float4 slots a
 # step, 1280 bytes a step, so T_MAX = 232448 // 1280 = 181.  Longer
 # horizons go to the streaming kernel K3, whose workspace is in global
-# memory.
+# memory.  The pseudo-Huber cost build keeps the same slots (its g takes
+# the C tau + c slot, its diagonal of H a trajectory slot that is not the
+# current one until the trials), so the same limit.
 T_MAX = SMEM_LIMIT // k1_launch(1, 1, MAX_ALPHA)['smem_bytes']
 # The longest horizon whose state and shared operands K3 keeps in shared
 # memory (196).
@@ -369,9 +375,9 @@ def scope_gap(cfg, cost, dynamics, *, u_zero_I=None, dtype=torch.float32,
         if gap is not None:
             return (f'the slew-augmented {type(dynamics).__name__} has {ns} '
                     f'states: {gap}') if slew else gap
-    if not isinstance(cost, QuadCost):
-        return ('non-quadratic (SoA) costs wait for ROADMAP queue 2 '
-                '(K1 configurations)')
+    gap = cost_gap(cost, ns + cfg.n_ctrl)
+    if gap is not None:
+        return gap
     if u_zero_I is not None:
         return ('u_zero_I (the masked Cholesky, _masked_free_chol) waits for '
                 'ROADMAP queue 2 (K1 and K3 configurations)')
@@ -391,6 +397,28 @@ def scope_gap(cfg, cost, dynamics, *, u_zero_I=None, dtype=torch.float32,
     if cfg.max_linesearch_iter > MAX_ALPHA:
         return (f'max_linesearch_iter={cfg.max_linesearch_iter} exceeds '
                 f'the kernels\' schedule of {MAX_ALPHA} step sizes')
+    return None
+
+
+def cost_gap(cost, n_tau) -> Optional[str]:
+    """Why the kernels do not take a cost on ``n_tau`` components; None
+    for a QuadCost and for a pseudo-Huber cost whose w and goal are
+    [n_tau] and delta a scalar (``PseudoHuberCost.kernel_gap``).  A
+    non-quadratic cost under a slew penalty never reaches it:
+    ``solver.unported_gap`` refuses that before any route."""
+    if isinstance(cost, QuadCost):
+        return None
+    if not isinstance(cost, PseudoHuberCost):
+        return ('a callable cost has no hand-written gradient and Hessian '
+                'in the kernels (as a callable model has no kernel step): '
+                'they take a QuadCost or a PseudoHuberCost, and this cost '
+                'runs on the eager solver')
+    gap = cost.kernel_gap()
+    if gap is not None:
+        return gap
+    if cost.w.shape[0] != n_tau:
+        return (f'the pseudo-Huber cost has {cost.w.shape[0]} components, '
+                f'not n_state + n_ctrl = {n_tau}')
     return None
 
 
@@ -416,9 +444,35 @@ _JAC_OPS = 50
 # 7 and the rows' 8 products).
 _DAMPED_STEP_OPS = 15
 _DAMPED_JAC_OPS = 41
+# The pseudo-Huber cost's, counted from csrc/cost.cuh with the
+# parameter-only products hoisted: a component's term of the stage cost
+# (r 2, r r + 1 2, sqrt, - 1, the product with w delta^2) and its
+# quadratisation (r 2, r r + 1 2, sqrt, g 2 from w delta, H 3); w delta
+# and w delta^2 are formed once a launch (HUBER_SETUP_OPS a component:
+# the parameters are shared by the batch).
+HUBER_TERM_OPS = 7
+HUBER_QUAD_OPS = 10
+HUBER_SETUP_OPS = 2
 
 
-def _op_counts(T, ns, nc, step_ops, jac_ops):
+def cost_op_counts(ntau, huber):
+    """(stage cost, C tau + c or its pseudo-Huber counterpart g with H)
+    operations on ntau components: a QuadCost's 0.5 tau^T C tau + c^T
+    tau (_quad_lin_cost) and C tau + c, or the pseudo-Huber terms summed
+    and the quadratisation.  The batch-shared products of the pseudo-
+    Huber parameters are ``cost_setup_ops``, counted once a launch."""
+    if huber:
+        return HUBER_TERM_OPS * ntau + ntau - 1, HUBER_QUAD_OPS * ntau
+    return ntau * (2 * ntau + 2), ntau * 2 * ntau
+
+
+def cost_setup_ops(ntau, huber):
+    """Operations on the cost's parameters alone, once a launch: the
+    pseudo-Huber cost's w_i delta and w_i delta^2; none for a QuadCost."""
+    return HUBER_SETUP_OPS * ntau if huber else 0
+
+
+def _op_counts(T, ns, nc, step_ops, jac_ops, huber=False):
     """Operation counts of the pieces K1 and K3 share (n_ctrl = 1): one
     stage cost, one Riccati sweep over the horizon, the control of one
     rollout step and the full-step norm."""
@@ -426,8 +480,7 @@ def _op_counts(T, ns, nc, step_ops, jac_ops):
         raise ValueError('the operation counts are for the n_ctrl = 1 '
                          'kernels')
     ntau = ns + nc
-    stage = ntau * (2 * ntau + 2)                  # _quad_lin_cost
-    cb = ntau * 2 * ntau                           # C tau + c
+    stage, cb = cost_op_counts(ntau, huber)
     box = 9                                        # 1-D box QP + gains
     vupd = ns * ns + ns + 2 * ns * (ns + 1) + 1 + 5 * ns
     ric_t = (ns * ntau * (2 * ns - 1)              # W = V F
@@ -448,7 +501,8 @@ def pendulum_op_counts(damped):
             else (_STEP_OPS, _JAC_OPS))
 
 
-def k1_flops(T, ns, nc, lqr_iter, n_alpha, batch=1, damped=False):
+def k1_flops(T, ns, nc, lqr_iter, n_alpha, batch=1, damped=False,
+             huber=False):
     """Arithmetic operations the solve K1 computes needs (each +, -, *,
     /, sqrt, sin, cos counts one; compares and selects none): the least
     work of the function, not of one implementation of it.
@@ -462,12 +516,16 @@ def k1_flops(T, ns, nc, lqr_iter, n_alpha, batch=1, damped=False):
     is the new trajectory (pass the sums over the batch of n_iter and of
     stats[5], the selected step size's index plus one summed over the
     iterations, so data-dependent early stops are counted as they
-    ran).  ``damped`` counts the damped pendulum's step and Jacobian."""
-    n = _op_counts(T, ns, nc, *pendulum_op_counts(damped))
+    ran).  ``damped`` counts the damped pendulum's step and Jacobian,
+    ``huber`` the pseudo-Huber cost (its terms in every stage cost, its
+    quadratisation where a QuadCost's C tau + c is, and its batch-shared
+    products once, ``cost_setup_ops``)."""
+    n = _op_counts(T, ns, nc, *pendulum_op_counts(damped), huber=huber)
     init = n['rollout'] + T * n['stage']
     trial = T * (n['ctrl'] + n['stage']) + n['rollout']
     per_iter = n['riccati'] + n['full_du'] + 4
-    return batch * init + lqr_iter * per_iter + n_alpha * trial
+    return (batch * init + lqr_iter * per_iter + n_alpha * trial
+            + cost_setup_ops(ns + nc, huber))
 
 
 # Operations of an activation and of its derivative from the
@@ -493,7 +551,7 @@ def nn_op_counts(hidden, activation, passthrough, n_in=4, ns=3):
 
 
 def k3_flops(T, ns, nc, lqr_iter, n_alpha, batch=1, *, lindx=True,
-             has_f=False, nn_ops=None, damped=False):
+             has_f=False, nn_ops=None, damped=False, huber=False):
     """Arithmetic operations the solve K3 computes needs, counted as
     ``k1_flops`` counts K1's: the initial rollout with its cost, and per
     outer iteration one Riccati sweep (a LinDx Jacobian is a load) and
@@ -502,26 +560,31 @@ def k3_flops(T, ns, nc, lqr_iter, n_alpha, batch=1, *, lindx=True,
     no rollout to commit it and no second sum of the current cost.
     ``nn_ops``, the (step, Jacobian) counts of ``nn_op_counts``, counts
     an MLP's instead of the pendulum's (``lindx`` False; ``damped`` the
-    damped pendulum's)."""
+    damped pendulum's); ``huber`` the pseudo-Huber cost's, as in
+    ``k1_flops``."""
     if lindx:
         step_ops = ns * (2 * (ns + nc) - 1) + (ns if has_f else 0)
-        n = _op_counts(T, ns, nc, step_ops, 0)
+        n = _op_counts(T, ns, nc, step_ops, 0, huber)
     else:
-        n = _op_counts(T, ns, nc, *(nn_ops or pendulum_op_counts(damped)))
+        n = _op_counts(T, ns, nc, *(nn_ops or pendulum_op_counts(damped)),
+                       huber=huber)
     init = n['rollout'] + T * n['stage']
     trial = T * (n['ctrl'] + n['stage']) + n['rollout']
     per_iter = n['riccati'] + n['full_du'] + 4
-    return batch * init + lqr_iter * per_iter + n_alpha * trial
+    return (batch * init + lqr_iter * per_iter + n_alpha * trial
+            + cost_setup_ops(ns + nc, huber))
 
 
 def k1_bytes(ops):
     """Bytes K1 or K3 must move for the operands ``ops``
     (``k1_operands`` or ``k3_operands``): each input read once, shared
-    ones once for the whole batch, and each output (x, u and six stats
-    rows) written once.  K3's workspace is neither."""
+    ones once for the whole batch (the cost build's parameter vector in
+    place of C and c), and each output (x, u and six stats rows) written
+    once.  K3's workspace is neither."""
     T, B = ops['u0'].shape
-    ins = [ops[k] for k in ('params', 'F', 'f', 'C', 'c', 'x0', 'u0', 'lb',
-                            'ub') if ops.get(k) is not None]
+    ins = [ops[k] for k in ('params', 'cost_params', 'F', 'f', 'C', 'c',
+                            'x0', 'u0', 'lb', 'ub')
+           if ops.get(k) is not None]
     out = (T * B * 4 + 6 * B) * ops['x0'].element_size()
     return sum(a.numel() * a.element_size() for a in ins) + out
 
@@ -550,13 +613,46 @@ def _stage_cost(Ct, ct, tau):
     return acc
 
 
+def _quad_cost_parts(C, c, cost_params, T):
+    """What the plain K1 and K3 read of the cost: ``stage(t, tau)`` the
+    stage cost of the components ``tau`` (a list of [B] tensors) and
+    ``quad(t, tau)`` (C_t as a 4 x 4 list, C_t tau + c_t); for the
+    pseudo-Huber cost (``cost_params`` [w, goal, delta], C and c None)
+    the terms summed in sequence, and (diag(H) with exact zeros
+    elsewhere, g) at tau, as csrc/cost.cuh computes them."""
+    if cost_params is not None:
+        cp = tuple(cost_params.unbind())
+
+        def stage(t, tau):
+            return huber_cost(tau, cp)
+
+        def quad(t, tau):
+            H, g = huber_quad(tau, cp)
+            zero = torch.zeros_like(tau[0])
+            return [[H[i] if i == j else zero for j in range(4)]
+                    for i in range(4)], g
+        return stage, quad
+    Cl = [[[C[t, :, i, j] for j in range(4)] for i in range(4)]
+          for t in range(T)]
+    cl = [[c[t, :, i] for i in range(4)] for t in range(T)]
+
+    def stage(t, tau):
+        return _stage_cost(Cl[t], cl[t], tau)
+
+    def quad(t, tau):
+        return Cl[t], [_dot(Cl[t][i], tau) + cl[t][i] for i in range(4)]
+    return stage, quad
+
+
 def fused_solve_plain(dynamics, params, C, c, x0, u0, lb, ub, *, alphas,
                       lqr_iter, eps, best_cost_eps, not_improved_lim,
-                      recompute_cost=False):
+                      recompute_cost=False, cost_params=None):
     """The plain PyTorch version of kernel K1, on the kernel's operands.
 
     ``dynamics`` a pendulum, params its [3] (g, m, l) or, damped, [5]
-    (g, m, l, d, b); C [T, 1 or B, 4, 4]; c [T, 1 or B, 4];
+    (g, m, l, d, b); C [T, 1 or B, 4, 4]; c [T, 1 or B, 4]; or, for the
+    cost build, C and c None and ``cost_params`` the pseudo-Huber cost's
+    [w, goal, delta] [9] (``PseudoHuberCost.kernel_params``);
     x0 [B, 3]; u0 [T, B]; lb, ub None or [T, 1 or B]; ``alphas`` the
     line-search schedule as Python floats.  Returns x [T, B, 3],
     u [T, B, 1] and stats [6, B]: best cost, best full-step norm,
@@ -579,15 +675,13 @@ def fused_solve_plain(dynamics, params, C, c, x0, u0, lb, ub, *, alphas,
     step = dynamics.soa_step
     jac = dynamics.soa_jacobian
     zero = x0.new_zeros(B)
-    Cl = [[[C[t, :, i, j] for j in range(4)] for i in range(4)]
-          for t in range(T)]
-    cl = [[c[t, :, i] for i in range(4)] for t in range(T)]
+    stage_tau, quad = _quad_cost_parts(C, c, cost_params, T)
     if has_bounds:
         lbl = [lb[t] + zero for t in range(T)]
         ubl = [ub[t] + zero for t in range(T)]
 
     def stage(t, xt, ut):
-        return _stage_cost(Cl[t], cl[t], list(xt) + [ut])
+        return stage_tau(t, list(xt) + [ut])
 
     x = [list(x0.unbind(-1))]
     u = list(u0.unbind(0))
@@ -619,10 +713,9 @@ def fused_solve_plain(dynamics, params, C, c, x0, u0, lb, ub, *, alphas,
         V = v = None
         qp_cnt = 0.0
         for t in range(T - 1, -1, -1):
-            tau = x[t] + [u[t]]
-            cb = [_dot(Cl[t][i], tau) + cl[t][i] for i in range(4)]
+            Ct, cb = quad(t, x[t] + [u[t]])
             if t == T - 1:
-                Qt = [[Cl[t][i][j] for j in range(4)] for i in range(4)]
+                Qt = [[Ct[i][j] for j in range(4)] for i in range(4)]
                 qt = cb
             else:
                 F = jac(tuple(x[t]), u[t], p)
@@ -631,7 +724,7 @@ def fused_solve_plain(dynamics, params, C, c, x0, u0, lb, ub, *, alphas,
                 Qt = [[None] * 4 for _ in range(4)]
                 for a in range(4):
                     for b in range(a, 4):
-                        Qt[a][b] = Cl[t][a][b] + _dot(
+                        Qt[a][b] = Ct[a][b] + _dot(
                             [F[kk][a] for kk in range(ns)],
                             [W[kk][b] for kk in range(ns)])
                         Qt[b][a] = Qt[a][b]
@@ -741,7 +834,7 @@ def fused_solve_plain(dynamics, params, C, c, x0, u0, lb, ub, *, alphas,
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
 _ARGTYPES = [
-    ctypes.c_int, _P,                     # B, params
+    ctypes.c_int, _P, _P,                 # B, params, cost parameters
     _P, _I64, _I64,                       # C, t stride, batch stride
     _P, _I64, _I64,                       # c, t stride, batch stride
     _P, _P,                               # x0, u0
@@ -754,17 +847,20 @@ _ARGTYPES = [
 ]
 
 
-def kernel_defines(T, has_bounds, damped=False) -> dict:
+def kernel_defines(T, has_bounds, damped=False, huber=False) -> dict:
     """The nvcc defines of the K1 build for this horizon and bounds, of
-    the simple pendulum or the damped, biased one (MPC_DAMPED)."""
-    return {'MPC_T': T, 'MPC_HAS_BOUNDS': int(has_bounds), 'MPC_TEAM': TEAM,
-            'MPC_WARPS': K1_WARPS, 'MPC_DAMPED': int(damped)}
+    the simple pendulum or the damped, biased one (MPC_DAMPED), and of a
+    QuadCost or, ``huber``, the pseudo-Huber cost (MPC_COST = 1; a
+    QuadCost build leaves it out, 0 in the source)."""
+    d = {'MPC_T': T, 'MPC_HAS_BOUNDS': int(has_bounds), 'MPC_TEAM': TEAM,
+         'MPC_WARPS': K1_WARPS, 'MPC_DAMPED': int(damped)}
+    return dict(d, MPC_COST=1) if huber else d
 
 
-def _kernel_lib(T, has_bounds, damped=False):
+def _kernel_lib(T, has_bounds, damped=False, huber=False):
     from . import _build
-    fn = _build.load('fused_ilqr', kernel_defines(T, has_bounds, damped)
-                     ).mpc_fused_ilqr
+    fn = _build.load('fused_ilqr', kernel_defines(T, has_bounds, damped,
+                                                  huber)).mpc_fused_ilqr
     if fn.argtypes is None:
         fn.argtypes = _ARGTYPES
         fn.restype = ctypes.c_int
@@ -792,7 +888,7 @@ def _batch_stride(a, inner):
 
 
 def fused_ilqr(dynamics, params, C, c, x0, u0, lb, ub, *, alphas, lqr_iter,
-               eps, best_cost_eps, not_improved_lim):
+               eps, best_cost_eps, not_improved_lim, cost_params=None):
     """Run K1 on its operands (layouts as in ``fused_solve_plain``)
     through the op ``mpc_tpu_torch::k1_solve`` (ops/custom.py).
 
@@ -802,14 +898,16 @@ def fused_ilqr(dynamics, params, C, c, x0, u0, lb, ub, *, alphas, lqr_iter,
     or on a launch error (the launcher refuses, as an invalid value, an
     array too large for its 32-bit indices).  ``dynamics`` must be a
     pendulum, the model of K1's source: the simple one (params [3]) or
-    the damped, biased one (params [5]; the build's MPC_DAMPED)."""
+    the damped, biased one (params [5]; the build's MPC_DAMPED).  With
+    ``cost_params`` (C and c None) the cost build runs the pseudo-Huber
+    cost (MPC_COST)."""
     _check_device('K1', x0)
     if not isinstance(dynamics, PendulumDx):
         raise ValueError('K1 runs the pendulum')
     return torch.ops.mpc_tpu_torch.k1_solve(
         params, C, c, x0, u0, lb, ub, [float(a) for a in alphas],
         int(lqr_iter), float(eps), float(best_cost_eps),
-        float(not_improved_lim))
+        float(not_improved_lim), cost_params)
 
 
 # ---------------------------------------------------------------------------
@@ -818,7 +916,7 @@ def fused_ilqr(dynamics, params, C, c, x0, u0, lb, ub, *, alphas, lqr_iter,
 
 def fused_solve_long_plain(dynamics, params, F, f, C, c, x0, u0, lb, ub, *,
                            alphas, lqr_iter, eps, best_cost_eps,
-                           not_improved_lim, trace=None):
+                           not_improved_lim, trace=None, cost_params=None):
     """The plain PyTorch version of kernel K3, on the kernel's operands.
 
     ``dynamics`` is a ``PendulumDx`` with ``params`` [3] or, damped, [5]
@@ -826,8 +924,9 @@ def fused_solve_long_plain(dynamics, params, F, f, C, c, x0, u0, lb, ub, *,
     a one-hidden-layer ``NNDynamics`` with ``params`` its flat weights
     (``kernel_params``; F and f None), or None for LinDx with F
     [T-1, 1 or B, 3, 4] and f None or [T-1, 1 or B, 3];
-    C [T, 1 or B, 4, 4]; c [T, 1 or B, 4]; x0 [B, 3];
-    u0 [T, B]; lb, ub None or [T, 1 or B]; ``alphas`` the line-search
+    C [T, 1 or B, 4, 4]; c [T, 1 or B, 4] (or, for the cost build, C and
+    c None and ``cost_params`` the pseudo-Huber cost's [w, goal, delta]);
+    x0 [B, 3]; u0 [T, B]; lb, ub None or [T, 1 or B]; ``alphas`` the line-search
     schedule as Python floats.  Returns x [T, B, 3], u [T, B, 1] and
     stats [6, B]: best cost, best full-step norm, n_iter, n_qp_iter,
     alpha and the selected step size's index plus one summed over the
@@ -857,9 +956,7 @@ def fused_solve_long_plain(dynamics, params, F, f, C, c, x0, u0, lb, ub, *,
     has_bounds = lb is not None
     lindx = dynamics is None
     zero = x0.new_zeros(B)
-    Cl = [[[C[t, :, i, j] for j in range(4)] for i in range(4)]
-          for t in range(T)]
-    cl = [[c[t, :, i] for i in range(4)] for t in range(T)]
+    stage_tau, quad = _quad_cost_parts(C, c, cost_params, T)
     if has_bounds:
         lbl = [lb[t] + zero for t in range(T)]
         ubl = [ub[t] + zero for t in range(T)]
@@ -894,7 +991,7 @@ def fused_solve_long_plain(dynamics, params, F, f, C, c, x0, u0, lb, ub, *,
             return dynamics.soa_jacobian(tuple(xt), ut, p)
 
     def stage(t, xt, ut):
-        return _stage_cost(Cl[t], cl[t], list(xt) + [ut])
+        return stage_tau(t, list(xt) + [ut])
 
     def control(t, xt, K, k, alpha):
         dx = [xt[i] - x[t][i] for i in range(ns)]
@@ -928,10 +1025,9 @@ def fused_solve_long_plain(dynamics, params, F, f, C, c, x0, u0, lb, ub, *,
         V = v = None
         qp_cnt = 0.0
         for t in range(T - 1, -1, -1):
-            tau = x[t] + [u[t]]
-            cb = [_dot(Cl[t][i], tau) + cl[t][i] for i in range(4)]
+            Ct, cb = quad(t, x[t] + [u[t]])
             if t == T - 1:
-                Qt = [[Cl[t][i][j] for j in range(4)] for i in range(4)]
+                Qt = [[Ct[i][j] for j in range(4)] for i in range(4)]
                 qt = cb
             else:
                 Ft = jac(t, x[t], u[t])
@@ -940,7 +1036,7 @@ def fused_solve_long_plain(dynamics, params, F, f, C, c, x0, u0, lb, ub, *,
                 Qt = [[None] * 4 for _ in range(4)]
                 for a in range(4):
                     for b in range(a, 4):
-                        Qt[a][b] = Cl[t][a][b] + _dot(
+                        Qt[a][b] = Ct[a][b] + _dot(
                             [Ft[kk][a] for kk in range(ns)],
                             [W[kk][b] for kk in range(ns)])
                         Qt[b][a] = Qt[a][b]
@@ -1056,6 +1152,7 @@ def fused_solve_long_plain(dynamics, params, F, f, C, c, x0, u0, lb, ub, *,
 _ARGTYPES_LONG = [
     ctypes.c_int, ctypes.c_int, _P,       # B, T, params
     ctypes.c_int, ctypes.c_int,           # MLP: hidden units, passthrough
+    _P,                                   # cost parameters
     _P, _I64, _I64,                       # F, t stride, batch stride
     _P, _I64, _I64,                       # f, t stride, batch stride
     _P, _I64, _I64,                       # C, t stride, batch stride
@@ -1076,17 +1173,22 @@ NN_ACTIVATIONS = ('sigmoid', 'relu', 'elu')
 
 
 def long_kernel_defines(lindx, has_bounds, activation=None,
-                        damped=False) -> dict:
+                        damped=False, huber=False) -> dict:
     """The nvcc defines of the K3 build for these dynamics and bounds:
     LinDx, the pendulum (``damped``: the damped, biased one, MPC_DAMPED),
-    or with ``activation`` an MLP (MPC_DYN 0, 1, 2)."""
+    or with ``activation`` an MLP (MPC_DYN 0, 1, 2); of a QuadCost or,
+    ``huber``, the pseudo-Huber cost (MPC_COST = 1, left out for a
+    QuadCost)."""
     if activation is not None:
-        return {'MPC_DYN': 2, 'MPC_ACT': NN_ACTIVATIONS.index(activation),
-                'MPC_HAS_BOUNDS': int(has_bounds), 'MPC_TEAM': TEAM,
-                'MPC_WARPS': K3_WARPS, 'MPC_OP_ROW': _K3_OPERAND_ROW}
-    return {'MPC_DYN': 0 if lindx else 1, 'MPC_HAS_BOUNDS': int(has_bounds),
-            'MPC_TEAM': TEAM, 'MPC_WARPS': K3_WARPS,
-            'MPC_OP_ROW': _K3_OPERAND_ROW, 'MPC_DAMPED': int(damped)}
+        d = {'MPC_DYN': 2, 'MPC_ACT': NN_ACTIVATIONS.index(activation),
+             'MPC_HAS_BOUNDS': int(has_bounds), 'MPC_TEAM': TEAM,
+             'MPC_WARPS': K3_WARPS, 'MPC_OP_ROW': _K3_OPERAND_ROW}
+    else:
+        d = {'MPC_DYN': 0 if lindx else 1,
+             'MPC_HAS_BOUNDS': int(has_bounds), 'MPC_TEAM': TEAM,
+             'MPC_WARPS': K3_WARPS, 'MPC_OP_ROW': _K3_OPERAND_ROW,
+             'MPC_DAMPED': int(damped)}
+    return dict(d, MPC_COST=1) if huber else d
 
 
 def _kernel_lib_long(defines):
@@ -1117,7 +1219,8 @@ def k3_workspace(geo, T, B, device):
 
 
 def fused_ilqr_long(dynamics, params, F, f, C, c, x0, u0, lb, ub, *, alphas,
-                    lqr_iter, eps, best_cost_eps, not_improved_lim):
+                    lqr_iter, eps, best_cost_eps, not_improved_lim,
+                    cost_params=None):
     """Run K3 on its operands (layouts as in ``fused_solve_long_plain``)
     through the op ``mpc_tpu_torch::k3_solve`` (ops/custom.py).
 
@@ -1126,7 +1229,8 @@ def fused_ilqr_long(dynamics, params, F, f, C, c, x0, u0, lb, ub, *, alphas,
     csrc/fused_ilqr_long.cu on the current stream and raises on any
     operand the kernel does not take or on a launch error (the launcher
     refuses, as an invalid value, an array or a workspace too large for
-    its 32-bit indices)."""
+    its 32-bit indices).  With ``cost_params`` (C and c None) the cost
+    build runs the pseudo-Huber cost (MPC_COST)."""
     _check_device('K3', x0)
     nn_hidden, activation, passthrough = 0, '', False
     if isinstance(dynamics, NNDynamics):
@@ -1144,7 +1248,8 @@ def fused_ilqr_long(dynamics, params, F, f, C, c, x0, u0, lb, ub, *, alphas,
     return torch.ops.mpc_tpu_torch.k3_solve(
         params, F, f, C, c, x0, u0, lb, ub, [float(a) for a in alphas],
         int(lqr_iter), float(eps), float(best_cost_eps),
-        float(not_improved_lim), nn_hidden, activation, passthrough)
+        float(not_improved_lim), nn_hidden, activation, passthrough,
+        cost_params)
 
 
 # ---------------------------------------------------------------------------
@@ -1203,6 +1308,19 @@ def line_search_schedule(cfg, dtype) -> list:
     return alphas
 
 
+def cost_operands(cost, T, B, dtype, device) -> dict:
+    """The cost's operands of every forward kernel: a QuadCost's C
+    [T, 1 or B, ntau, ntau] and c [T, 1 or B, ntau] (``cost_params``
+    None), or the pseudo-Huber cost's [w, goal, delta] (2 ntau + 1
+    values, detached; C and c None) for the kernels' cost build."""
+    if isinstance(cost, PseudoHuberCost):
+        return dict(C=None, c=None, cost_params=cost.kernel_params().to(
+            device=device, dtype=dtype).contiguous())
+    return dict(C=_cost_operand(cost.C, T, B, 2, dtype, device),
+                c=_cost_operand(cost.c, T, B, 1, dtype, device),
+                cost_params=None)
+
+
 def _problem_operands(cfg, x_init, cost, u_init, u_lower, u_upper) -> dict:
     """The operands K1 and K3 share: cost, x0, u0, bounds, the line-search
     schedule and the solver's scalars."""
@@ -1222,8 +1340,7 @@ def _problem_operands(cfg, x_init, cost, u_init, u_lower, u_upper) -> dict:
         lb = _bound_operand(u_lower, T, B, dtype, device)
         ub = _bound_operand(u_upper, T, B, dtype, device)
     return dict(
-        C=_cost_operand(cost.C, T, B, 2, dtype, device),
-        c=_cost_operand(cost.c, T, B, 1, dtype, device),
+        **cost_operands(cost, T, B, dtype, device),
         x0=x0, u0=u0, lb=lb, ub=ub,
         alphas=line_search_schedule(cfg, dtype), lqr_iter=cfg.lqr_iter,
         eps=cfg.eps, best_cost_eps=cfg.best_cost_eps,
@@ -1234,13 +1351,14 @@ def _pendulum_params(dynamics, x0):
     return dynamics.params.to(device=x0.device, dtype=x0.dtype).contiguous()
 
 
-def k1_operands(cfg, x_init, cost: QuadCost, dynamics, u_init=None,
+def k1_operands(cfg, x_init, cost, dynamics, u_init=None,
                 u_lower=None, u_upper=None) -> dict:
     """K1's operands (the keyword arguments of ``fused_ilqr`` and
     ``fused_solve_plain``) on x_init's device and dtype.
 
-    Layouts match learning.batched_solve: x_init [B, 3]; cost leaves
-    shared ([4, 4] / [T, 4, 4], [4] / [T, 4]) or batched ([T, B, ...]);
+    Layouts match learning.batched_solve: x_init [B, 3]; QuadCost leaves
+    shared ([4, 4] / [T, 4, 4], [4] / [T, 4]) or batched ([T, B, ...]),
+    or a pseudo-Huber cost (``cost_operands``);
     bounds scalar, [T, 1] or [T, B, 1]; u_init [T, 1] or [T, B, 1].
     Shared operands keep a batch extent of 1 (batch stride 0 in the
     kernel)."""
@@ -1249,7 +1367,7 @@ def k1_operands(cfg, x_init, cost: QuadCost, dynamics, u_init=None,
                 params=_pendulum_params(dynamics, ops['x0']))
 
 
-def k3_operands(cfg, x_init, cost: QuadCost, dynamics, u_init=None,
+def k3_operands(cfg, x_init, cost, dynamics, u_init=None,
                 u_lower=None, u_upper=None) -> dict:
     """K3's operands (the keyword arguments of ``fused_ilqr_long`` and
     ``fused_solve_long_plain``), layouts as in ``k1_operands``.  A LinDx
@@ -1323,13 +1441,14 @@ def slew_problem(cfg, x_init, cost: QuadCost, dynamics, prev_ctrl):
             x0, QuadCost(C, c), dynamics)
 
 
-def fused_batched_solve(cfg, x_init, cost: QuadCost, dynamics,
+def fused_batched_solve(cfg, x_init, cost, dynamics,
                         u_init=None, u_lower=None, u_upper=None,
                         prev_ctrl=None) -> Solution:
     """Batched solve through the dense configuration (``routes_dense``),
     K1 or K3 (``routes_long``) on x_init's device (layouts as in
-    ``fused_dense.k3d_operands``, ``k1_operands`` and ``k3_operands``);
-    under a slew penalty, of the augmented problem (``slew_problem``)."""
+    ``fused_dense.k3d_operands``, ``k1_operands`` and ``k3_operands``;
+    a QuadCost or a pseudo-Huber cost, each kernel's cost build); under a
+    slew penalty, of the augmented problem (``slew_problem``)."""
     kw = dict(u_init=u_init, u_lower=u_lower, u_upper=u_upper)
     if cfg.slew_rate_penalty is not None:
         sol = fused_batched_solve(*slew_problem(cfg, x_init, cost, dynamics,

@@ -3,7 +3,8 @@ admitted n_state and n_ctrl on Hopper, and its plain PyTorch version.
 
 Counterpart of the general-size configurations of the TPU kernels
 ``_make_kernel`` and ``_make_kernel_long`` (mpc_tpu/ops/fused.py:617-1119,
-1126-1932): LinDx dynamics, a QuadCost, and the control solve of the
+1126-1932): LinDx dynamics, a QuadCost or the pseudo-Huber cost (its
+cost build, MPC_COST), and the control solve of the
 problem's regime (``ctrl_solve``, :1464-1544): the closed-form 1-D box
 QP for one control, the in-kernel projected-Newton box QP
 (``_pnqp_kernel``, :534-616) on the masked unrolled Cholesky
@@ -38,9 +39,12 @@ import torch
 
 from ..models.cartpole import CartpoleDx
 from ..models.pendulum import PendulumDx
-from ..types import LinDx, QuadCost
-from .fused import (BIG, MAX_ALPHA, SlewSoA, _check_device, _cost_operand,
-                    _dyn_operand, line_search_schedule, pendulum_op_counts)
+from ..types import LinDx
+from ..models.cost import huber_quad, huber_terms
+from .fused import (BIG, MAX_ALPHA, SlewSoA, _check_device, _dyn_operand,
+                    cost_op_counts, cost_operands, cost_setup_ops,
+                    line_search_schedule, pendulum_op_counts)
+from .math import sqrt_rn as _sqrt
 
 # Examples (warps) a block of the dense kernel.  A warp's tiles of an
 # example (Q, W, F and V, ``_warp_floats``) take 12.4 KB at 24 states and
@@ -135,14 +139,18 @@ def k3d_launch(T, B, ns, nc, n_alpha, model=False) -> dict:
 
 
 def dense_kernel_defines(ns, nc, has_bounds, has_f, model=None,
-                         slew=False) -> dict:
+                         slew=False, huber=False) -> dict:
     """The nvcc defines of the dense build for these sizes, bounds and f
     (present or absent: a compile-time flag, so that no load goes through
     the pointer of an absent f); with ``model`` (a name of
     ``DENSE_MODELS``) the model-step build, which has no F or f operand
-    (MPC_MODEL, and MPC_SLEW for the passthrough step)."""
+    (MPC_MODEL, and MPC_SLEW for the passthrough step); ``huber`` the
+    cost build, which has no C or c operand (MPC_COST = 1, left out for a
+    QuadCost)."""
     d = {'MPC_NS': ns, 'MPC_NC': nc, 'MPC_HAS_BOUNDS': int(has_bounds),
          'MPC_HAS_F': int(has_f), 'MPC_WARPS': DENSE_WARPS}
+    if huber:
+        d['MPC_COST'] = 1
     if model is not None:
         if has_f:
             raise ValueError('the model-step build has no f')
@@ -188,7 +196,7 @@ def model_op_counts(name):
 
 
 def k3d_flops(T, ns, nc, lqr_iter, n_alpha, batch=1, *, has_f=False,
-              has_bounds=True, n_qp=0, model_ops=None):
+              has_bounds=True, n_qp=0, model_ops=None, huber=False):
     """Arithmetic operations the dense solve needs (each +, -, *, /,
     sqrt counts one; compares, selects and sign flips none), counted as
     ``fused.k3_flops`` counts K3's: ``batch`` initial rollouts with their
@@ -199,10 +207,12 @@ def k3d_flops(T, ns, nc, lqr_iter, n_alpha, batch=1, *, has_f=False,
     first trial of its Armijo search, the least a search runs.
     ``model_ops``, a model's (step, Jacobian) counts
     (``model_op_counts``), counts the model-step build: its step in the
-    rollouts and its T - 1 Jacobians before every sweep."""
+    rollouts and its T - 1 Jacobians before every sweep; ``huber`` the
+    pseudo-Huber cost's terms in the stage costs and its quadratisation
+    where a QuadCost's C tau + c is (``fused.cost_op_counts``), and its
+    batch-shared products once (``fused.cost_setup_ops``)."""
     nt = ns + nc
-    stage = nt * (2 * nt + 2)
-    cb = nt * 2 * nt
+    stage, cb = cost_op_counts(nt, huber)
     step = ns * (2 * nt - 1) + (ns if has_f else 0)
     jac = 0
     if model_ops is not None:
@@ -231,18 +241,20 @@ def k3d_flops(T, ns, nc, lqr_iter, n_alpha, batch=1, *, has_f=False,
     full_du = T * 3 * nc + 1
     init = T * stage + (T - 1) * step
     return (batch * init + lqr_iter * (riccati + full_du + 4)
-            + n_alpha * trial + n_qp * trip)
+            + n_alpha * trial + n_qp * trip + cost_setup_ops(nt, huber))
 
 
 def k3d_bytes(ops):
     """Bytes the dense solve must move for the operands ``ops``
     (``k3d_operands``): each input read once, shared ones once for the
-    whole batch, and each output (x, u and six stats rows) written once.
-    The workspace is neither."""
+    whole batch (the cost build's parameter vector in place of C and c),
+    and each output (x, u and six stats rows) written once.  The
+    workspace is neither."""
     T, B, nc = ops['u0'].shape
     ns = ops['x0'].shape[1]
-    ins = [ops[k] for k in ('params', 'F', 'f', 'C', 'c', 'x0', 'u0', 'lb',
-                            'ub') if ops.get(k) is not None]
+    ins = [ops[k] for k in ('params', 'cost_params', 'F', 'f', 'C', 'c',
+                            'x0', 'u0', 'lb', 'ub')
+           if ops.get(k) is not None]
     out = (T * B * (ns + nc) + 6 * B) * ops['x0'].element_size()
     return sum(a.numel() * a.element_size() for a in ins) + out
 
@@ -261,15 +273,6 @@ def _lane_sum(terms):
     for o in (16, 8, 4, 2, 1):
         a = a[..., :o] + a[..., o:2 * o]
     return a[..., 0]
-
-
-def _sqrt(a):
-    """The correctly rounded square root, as the kernel's sqrtf gives it.
-    PyTorch's float32 sqrt on the CPU is not always (one ulp off in some
-    builds); the float64 root rounded to float32 is."""
-    if a.dtype == torch.float32:
-        return torch.sqrt(a.double()).float()
-    return torch.sqrt(a)
 
 
 def _dot(a, b, dim):
@@ -472,7 +475,7 @@ def _ctrl_solve(t, T, Q, q, u_t, lb_t, ub_t, prev_kt, ns, pnqp_iter):
 
 def fused_solve_dense_plain(F, f, C, c, x0, u0, lb, ub, *, alphas, lqr_iter,
                             eps, best_cost_eps, not_improved_lim, pnqp_iter,
-                            model=None, params=None):
+                            model=None, params=None, cost_params=None):
     """The plain PyTorch version of the dense kernel, on its operands.
 
     F [T-1, 1 or B, ns, ntau]; f None or [T-1, 1 or B, ns]; or, for the
@@ -481,7 +484,11 @@ def fused_solve_dense_plain(F, f, C, c, x0, u0, lb, ub, *, alphas, lqr_iter,
     and ``params`` its parameter vector: the rollouts take its
     ``soa_step`` and each sweep its ``soa_jacobian`` at the current
     trajectory, computed before the sweep as the kernel computes them;
-    C [T, 1 or B, ntau, ntau]; c [T, 1 or B, ntau]; x0 [B, ns];
+    C [T, 1 or B, ntau, ntau]; c [T, 1 or B, ntau]; or, for the cost
+    build, C and c None and ``cost_params`` the pseudo-Huber cost's [w,
+    goal, delta] (2 ntau + 1), lane i's term of a stage cost summed by
+    the butterfly and its (H_ii, g_i) at the current trajectory in place
+    of C_t's row and (C_t tau + c_t)_i; x0 [B, ns];
     u0 [T, B, nc]; lb, ub None or [T, 1 or B, nc]; ``alphas`` the
     line-search schedule as Python floats.  Returns x [T, B, ns],
     u [T, B, nc] and stats [6, B]: best cost, best full-step norm,
@@ -508,9 +515,24 @@ def fused_solve_dense_plain(F, f, C, c, x0, u0, lb, ub, *, alphas, lqr_iter,
     dev, dt = x0.device, x0.dtype
     zero = x0.new_zeros(B)
 
-    def stage(t, tau):
-        s = _dot(C[t], tau[:, None, :], -1)
-        return _lane_sum((0.5 * s + c[t]) * tau)
+    if cost_params is not None:
+        cp = tuple(cost_params.unbind())
+
+        def stage(t, tau):
+            return _lane_sum(torch.stack(huber_terms(list(tau.unbind(-1)),
+                                                     cp), -1))
+
+        def quad(t, tau):
+            H, g = huber_quad(list(tau.unbind(-1)), cp)
+            return torch.diag_embed(torch.stack(H, -1)), torch.stack(g, -1)
+    else:
+        def stage(t, tau):
+            s = _dot(C[t], tau[:, None, :], -1)
+            return _lane_sum((0.5 * s + c[t]) * tau)
+
+        def quad(t, tau):
+            Ct = C[t].expand(B, nt, nt)
+            return Ct, _dot(Ct, tau[:, None, :], -1) + c[t]
 
     if model is not None:
         if nc != 1 or F is not None or f is not None:
@@ -566,9 +588,7 @@ def fused_solve_dense_plain(F, f, C, c, x0, u0, lb, ub, *, alphas, lqr_iter,
         if model is not None:
             Fm = jacobians(x, u)
         for t in range(T - 1, -1, -1):
-            tau = torch.cat([x[t], u[t]], -1)
-            Ct = C[t].expand(B, nt, nt)
-            cb = _dot(Ct, tau[:, None, :], -1) + c[t]
+            Ct, cb = quad(t, torch.cat([x[t], u[t]], -1))
             if t == T - 1:
                 Q, q = Ct, cb
             else:
@@ -669,6 +689,7 @@ _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
 ARGTYPES = [
     ctypes.c_int, ctypes.c_int, _P,       # B, T, model parameters
+    _P,                                   # cost parameters
     _P, _I64, _I64,                       # F, t stride, batch stride
     _P, _I64, _I64,                       # f, t stride, batch stride
     _P, _I64, _I64,                       # C, t stride, batch stride
@@ -684,11 +705,12 @@ ARGTYPES = [
 ]
 
 
-def kernel_lib(ns, nc, has_bounds, has_f, model=None, slew=False):
+def kernel_lib(ns, nc, has_bounds, has_f, model=None, slew=False,
+               huber=False):
     from . import _build
     fn = _build.load('fused_ilqr_dense',
                      dense_kernel_defines(ns, nc, has_bounds, has_f, model,
-                                          slew)).mpc_fused_ilqr_dense
+                                          slew, huber)).mpc_fused_ilqr_dense
     if fn.argtypes is None:
         fn.argtypes = ARGTYPES
         fn.restype = ctypes.c_int
@@ -697,11 +719,12 @@ def kernel_lib(ns, nc, has_bounds, has_f, model=None, slew=False):
 
 def fused_ilqr_dense(F, f, C, c, x0, u0, lb, ub, *, alphas, lqr_iter, eps,
                      best_cost_eps, not_improved_lim, pnqp_iter, model=None,
-                     params=None):
+                     params=None, cost_params=None):
     """Run the dense kernel on its operands (layouts as in
     ``fused_solve_dense_plain``) through the op
     ``mpc_tpu_torch::k3d_solve`` (ops/custom.py), a ``model`` as its name
-    and slew flag (``dense_model``) and its ``params``.
+    and slew flag (``dense_model``) and its ``params``; with
+    ``cost_params`` (C and c None) the cost build (MPC_COST).
 
     On the CPU the op runs ``fused_solve_dense_plain``.  On a CUDA tensor
     it allocates the workspace of ``k3d_launch``, launches
@@ -712,7 +735,8 @@ def fused_ilqr_dense(F, f, C, c, x0, u0, lb, ub, *, alphas, lqr_iter, eps,
     return torch.ops.mpc_tpu_torch.k3d_solve(
         F, f, C, c, x0, u0, lb, ub, [float(a) for a in alphas],
         int(lqr_iter), float(eps), float(best_cost_eps),
-        float(not_improved_lim), int(pnqp_iter), name, slew, params)
+        float(not_improved_lim), int(pnqp_iter), name, slew, params,
+        cost_params)
 
 
 def _ctrl_bound(a, T, B, nc, dtype, device):
@@ -729,7 +753,7 @@ def _ctrl_bound(a, T, B, nc, dtype, device):
     return a.contiguous()
 
 
-def k3d_operands(cfg, x_init, cost: QuadCost, dynamics, u_init=None,
+def k3d_operands(cfg, x_init, cost, dynamics, u_init=None,
                  u_lower=None, u_upper=None) -> dict:
     """The dense kernel's operands (the keyword arguments of
     ``fused_ilqr_dense`` and ``fused_solve_dense_plain``) on x_init's
@@ -739,7 +763,8 @@ def k3d_operands(cfg, x_init, cost: QuadCost, dynamics, u_init=None,
     (the kernel reads each with its own batch stride); bounds scalar,
     [T, nc] or [T, B, nc]; u_init [T, nc] or [T, B, nc].  A model (a
     pendulum, the cartpole or a ``SlewSoA``) gives F = f = None, the
-    model and its parameters."""
+    model and its parameters; a pseudo-Huber cost gives C = c = None and
+    its ``cost_params`` (``fused.cost_operands``)."""
     T, nc = cfg.T, cfg.n_ctrl
     dtype, device = x_init.dtype, x_init.device
     x0 = x_init.contiguous()
@@ -766,8 +791,7 @@ def k3d_operands(cfg, x_init, cost: QuadCost, dynamics, u_init=None,
         dyn = dict(F=None, f=None, model=dynamics,
                    params=dynamics.params.detach().to(
                        device=device, dtype=dtype).contiguous())
-    return dict(**dyn, C=_cost_operand(cost.C, T, B, 2, dtype, device),
-                c=_cost_operand(cost.c, T, B, 1, dtype, device),
+    return dict(**dyn, **cost_operands(cost, T, B, dtype, device),
                 x0=x0, u0=u0, lb=lb, ub=ub,
                 alphas=line_search_schedule(cfg, dtype),
                 lqr_iter=cfg.lqr_iter, eps=cfg.eps,

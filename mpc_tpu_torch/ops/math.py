@@ -1,6 +1,6 @@
 """Elementwise helpers of the pendulum step (counterpart of
-mpc_tpu/ops/math.py:39-72) and the active-set tolerance the fixed
-points share."""
+mpc_tpu/ops/math.py:39-72), the correctly rounded square root of the
+plain versions and the active-set tolerance the fixed points share."""
 
 from __future__ import annotations
 
@@ -11,6 +11,16 @@ import torch
 # gradient-oracle tests; in f32 the clamp produces exact bound values so
 # the comparison is still reliable for genuinely active constraints.
 ACTIVE_TOL = 1e-8
+
+
+def sqrt_rn(a):
+    """The correctly rounded square root, as CUDA's ``sqrtf`` gives it
+    (built without --use_fast_math).  PyTorch's float32 sqrt on the CPU is
+    not always (one ulp off in some builds); the float64 root rounded to
+    float32 is."""
+    if a.dtype == torch.float32:
+        return torch.sqrt(a.double()).float()
+    return torch.sqrt(a)
 
 
 def hard_clip(x, lo, hi):

@@ -214,9 +214,17 @@ def export_solve(cfg: MPCConfig, dynamics, cost: QuadCost, x_init,
     any batch b <= N to N with copies of example 0, solves at N and
     returns the first b examples, so the kernel runs at one static
     batch (which K1 and K3 do not need, but a caller that wants one
-    launch shape for every load does)."""
+    launch shape for every load does).
+
+    The cost is a QuadCost, as in mpc_tpu/utils/export.py:135; a solve
+    with another cost (the pseudo-Huber cost, baked in) exports through
+    ``export_fn``."""
     from ..learning import batched_solve
 
+    if not isinstance(cost, QuadCost):
+        raise ValueError('export_solve takes a QuadCost (its C and c are '
+                         'runtime inputs); export a solve with another cost '
+                         'through export_fn')
     if (u_lower is None) != (u_upper is None):
         raise ValueError('u_lower and u_upper must both be given or '
                          'both be None (the reference has no one-sided '

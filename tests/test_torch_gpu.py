@@ -74,6 +74,15 @@ launches bitwise; the entry points launch each kernel once a request, a
 differentiable cartpole solve the dense forward and backward once each,
 and a broken library raises.
 
+The pseudo-Huber cost in the kernels' cost build (K1, K3 on the
+pendulum, a LinDx and the MLP, the dense LinDx and model-step builds) is
+held to its plain version at B=2050, one case a process under
+CUDA_LAUNCH_BLOCKING=1, in the float32 tail with n_iter equal and no
+further from float64 than twice the plain float32 run (the pendulum at
+T=200 and the cartpole by that alone); K1's build is bitwise the same in
+any batch, the entry points launch it once a request, a differentiable
+solve launches K1 and K2 once each, and a broken library raises.
+
 The closed loop (make_closed_loop) launches K1 once a step and runs its
 steps without a synchronising call (torch.cuda.set_sync_debug_mode
 'error' after a first rollout); without a card and without a device it
@@ -1382,6 +1391,175 @@ def test_soa_raises_rather_than_falls_back(cuda, monkeypatch):
     assert solver.eager_counts['eager_solve'] == 0
 
 
+# ---------------------------------------------------------------------------
+# the pseudo-Huber cost in the kernels' cost build (MPC_COST = 1)
+# ---------------------------------------------------------------------------
+
+# each define set of the cost build: (dynamics, kernel, T, n_state, n_ctrl)
+HUBER_CASES = {
+    'huber_k1': ('pendulum', 'K1', 20, 3, 1),
+    'huber_k3_pendulum': ('pendulum', 'K3', 200, 3, 1),
+    'huber_k3_lindx': ('lindx', 'K3', 40, 3, 1),
+    'huber_k3_mlp': ('mlp', 'K3', 20, 3, 1),
+    'huber_dense_lindx': ('lindx', 'dense', 20, 5, 2),
+    'huber_dense_cartpole': ('cartpole', 'dense', 25, 5, 1),
+    # from starts near the goal: no control on the box and H_uu near w_u,
+    # so the model-step cost build's H and g are held to the float32 tail
+    'huber_dense_cartpole_near': ('cartpole_near', 'dense', 25, 5, 1),
+}
+
+
+def _huber_problem(device, case, B, dtype=torch.float32, seed=0):
+    """(ops, kernel, plain) of a HUBER_CASES case at B: the pseudo-Huber
+    cost with w the diagonal of the problem's QuadCost, goal its target
+    and delta 0.9, the serving row's solver settings (6 iterations, 3
+    step sizes), box bounds."""
+    from mpc_tpu_torch.models import CartpoleDx, PseudoHuberCost
+    dyn, kernel, T, ns, nc = HUBER_CASES[case]
+    rng = np.random.RandomState(seed)
+    t = (lambda a: torch.tensor(np.asarray(a), dtype=dtype, device=device))
+    cfg = _cfg(T, n_state=ns, n_ctrl=nc, lqr_iter=6, linesearch_decay=0.2,
+               max_linesearch_iter=3)
+    box = 2.0
+    if dyn in ('cartpole', 'cartpole_near'):
+        th = (0.05 if dyn == 'cartpole_near' else 0.5) * (2 * rng.rand(B) - 1)
+        z = np.zeros(B)
+        x0 = np.stack([z, z, np.cos(th), np.sin(th), z], 1)
+        model = CartpoleDx(device=device, dtype=dtype)
+        box = 100.0
+        w = model.get_true_obj()[0].cpu().numpy()
+        goal = list(model.goal_state) + [0.0]
+    elif dyn == 'lindx':
+        A = np.eye(ns) + 0.1 * rng.randn(ns, ns)
+        A /= max(1.0, np.max(np.abs(np.linalg.eigvals(A))))
+        F = np.tile(np.concatenate([A, 0.5 * rng.randn(ns, nc)], 1)[None],
+                    (T - 1, 1, 1))
+        model = mt.LinDx(t(F))
+        x0 = rng.randn(B, ns)
+        w = np.r_[np.ones(ns), 0.1 * np.ones(nc)]
+        goal = np.r_[0.5 * rng.randn(ns), np.zeros(nc)]
+    else:
+        th = np.pi * (2 * rng.rand(B) - 1)
+        x0 = np.stack([np.cos(th), np.sin(th), np.zeros(B)], 1)
+        model = PendulumDx(device=device, dtype=dtype) if dyn == 'pendulum' \
+            else mt.NNDynamics.init(3, 1, (100,), 'sigmoid',
+                                    generator=torch.Generator().manual_seed(0),
+                                    device=device).to(dtype)
+        w = PendulumDx(device=device, dtype=dtype).get_true_obj()[0]
+        w = w.cpu().numpy()
+        goal = [1.0, 0.0, 0.0, 0.0]
+    cost = PseudoHuberCost(t(w), t(goal), t(0.9))
+    x0 = t(x0)
+    bk = dict(u_lower=-box, u_upper=box)
+    if kernel == 'dense':
+        return (fused_dense.k3d_operands(cfg, x0, cost, model, **bk),
+                fused_dense.fused_ilqr_dense,
+                fused_dense.fused_solve_dense_plain)
+    if kernel == 'K1':
+        return (fused.k1_operands(cfg, x0, cost, model, **bk),
+                fused.fused_ilqr, fused.fused_solve_plain)
+    return (fused.k3_operands(cfg, x0, cost, model, **bk),
+            fused.fused_ilqr_long, fused.fused_solve_long_plain)
+
+
+def huber_case_main(case):
+    """One case of the cost build against its plain version at B=2050,
+    run alone in a process under CUDA_LAUNCH_BLOCKING=1 by
+    test_huber_matches_plain: one launch, finite, the float32 tail, n_iter
+    equal and no further from float64 than twice the plain float32 run.
+    The pendulum at T=200 and the cartpole are held against float64
+    alone: two float32 solves of them part (the pendulum over its long
+    horizon; the cartpole, whose control weight 0.001 leaves the cost's
+    linear tails almost no curvature, at round-off ties of its bang-bang
+    controls, where the plain float32 run itself sits ~1e-3 of the box
+    from float64)."""
+    device = torch.device('cuda')
+    ops, kernel, plain = _huber_problem(device, case, 2050)
+    ops64, _, _ = _huber_problem(device, case, 2050, torch.float64)
+    assert ops['C'] is None and ops['c'] is None
+    fused.reset_launch_counts()
+    xk, uk, sk = kernel(**ops)
+    torch.cuda.synchronize()
+    assert sum(fused.launch_counts.values()) == 1
+    xp, up, sp = plain(**ops)
+    _, u64, _ = plain(**ops64)
+    assert torch.isfinite(xk).all() and torch.isfinite(uk).all()
+    if case not in ('huber_k3_pendulum', 'huber_dense_cartpole'):
+        _assert_tail(uk, up)
+        assert torch.equal(sk[2], sp[2])
+    _assert_near_f64(uk, up, u64)
+    print('ok', case, float((uk - up).abs().max()))
+
+
+@pytest.mark.parametrize('case', list(HUBER_CASES))
+def test_huber_matches_plain(cuda, case):
+    """Each define set of the cost build (K1, K3 with each MPC_DYN, the
+    dense LinDx and model-step builds) against its plain version at
+    B=2050, one case a process under CUDA_LAUNCH_BLOCKING=1: a load
+    through the absent C or c would fault at its own launch there."""
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, CUDA_LAUNCH_BLOCKING='1',
+               PYTHONPATH=os.pathsep.join(
+                   [root, os.environ.get('PYTHONPATH', '')]))
+    r = subprocess.run([sys.executable, os.path.abspath(__file__), case],
+                       env=env, cwd=root, capture_output=True, text=True,
+                       timeout=600)
+    assert r.returncode == 0 and f'ok {case}' in r.stdout, \
+        r.stdout[-2000:] + r.stderr[-4000:]
+
+
+def test_huber_position_free_and_entry_points(cuda, monkeypatch):
+    """The serving row's K1 cost build gives an example's bits whatever
+    batch it sits in; batched_solve launches it once a request with no
+    eager solve; a differentiable solve launches K1 and K2 once each and
+    gives finite gradients to w, goal and delta; with K1's library broken
+    a request raises."""
+    from mpc_tpu_torch.models import PseudoHuberCost
+    ops, kernel, _ = _huber_problem(cuda, 'huber_k1', 2050)
+    full = kernel(**ops)
+    assert all(torch.equal(a, b) for a, b in zip(full, kernel(**ops)))
+    for n in (1, 7, 33):
+        part = kernel(**dict(ops, x0=ops['x0'][:n].contiguous(),
+                             u0=ops['u0'][:, :n].contiguous()))
+        assert all(torch.equal(a, b[:, :n]) for a, b in zip(part, full))
+    x0, dx, _ = _problem(cuda, 256, 8)
+    w = torch.tensor([1., 1., .1, .1], device=cuda, requires_grad=True)
+    goal = torch.tensor([1., 0., 0., 0.], device=cuda, requires_grad=True)
+    delta = torch.tensor(0.9, device=cuda, requires_grad=True)
+    cost = PseudoHuberCost(w, goal, delta)
+    cfg = _cfg(8, lqr_iter=12, max_linesearch_iter=3)
+    solver.reset_eager_counts()
+    sol, launched = _launched(lambda: mt.batched_solve(
+        cfg, x0, cost, dx, u_lower=-2.0, u_upper=2.0))
+    assert launched == {'fused_ilqr': 1}
+    solver.reset_eager_counts()
+    sol, launched = _launched(lambda: mt.batched_solve(
+        dataclasses.replace(cfg, backprop=True, detach_unconverged=False),
+        x0, cost, dx, u_lower=-2.0, u_upper=2.0))
+    (_, launched_bwd) = _launched(lambda: (sol.u ** 2).sum().backward())
+    assert launched == {'fused_ilqr': 1}
+    assert launched_bwd == {'fused_kkt_bwd': 1}
+    assert solver.eager_counts == {'eager_solve': 0, 'eager_fixed_point': 0}
+    for g in (w.grad, goal.grad, delta.grad):
+        assert torch.isfinite(g).all() and g.abs().max() > 0
+
+    def broken(*a, **k):
+        raise RuntimeError('the library is broken')
+
+    monkeypatch.setattr(fused, '_kernel_lib', broken)
+    with pytest.raises(RuntimeError, match='broken'):
+        mt.batched_solve(cfg, x0, PseudoHuberCost(w.detach(), goal.detach(),
+                                                  0.9),
+                         dx, u_lower=-2.0, u_upper=2.0)
+    assert solver.eager_counts['eager_solve'] == 0
+
+
 if __name__ == '__main__':
     import sys
-    soa_case_main(sys.argv[1])
+    if sys.argv[1] in HUBER_CASES:
+        huber_case_main(sys.argv[1])
+    else:
+        soa_case_main(sys.argv[1])

@@ -18,8 +18,9 @@ weights carried by mpc_tpu_torch/utils/convert.py.
   ``jax.grad``, ``jax.hessian`` against ``torch.func``): 1e-12.
 - solves of an affine model and of a pseudo-Huber cost through ``MPC``
   against ``mpc_tpu.MPC`` with ``use_fused='never'``: 1e-10 on x and u
-  (both run the eager solver; the port's scope sends these models
-  there).
+  (both run the eager solver; the port's scope sends the affine model
+  there), and the pseudo-Huber solve on the kernel route (the plain K1's
+  cost build) against the same reference, 1e-9.
 """
 
 import numpy as np
@@ -36,6 +37,7 @@ from mpc_tpu.models import (AffineDynamics as JAffine,
                             PseudoHuberCost as JPseudoHuber)
 
 import mpc_tpu_torch as mt
+from mpc_tpu_torch import solver
 from mpc_tpu_torch.models import (AffineDynamics, CtrlPassthroughDynamics,
                                   NNDynamics, PseudoHuberCost)
 from mpc_tpu_torch.ops import fused
@@ -310,3 +312,29 @@ def test_pseudo_huber_solve_matches_mpc_tpu():
         mt.models.PendulumDx(params=torch.tensor(params), device='cpu'))
     for a, b in zip(got, ref):
         _close(a, b, 1e-10)
+
+
+def test_pseudo_huber_solve_kernel_route_matches_mpc_tpu():
+    """The eager route's problem above (``_mpc_kw`` pins
+    use_fused='never') on the kernel route: the plain K1's cost build on
+    the CPU, no eager solve, against the same jnp-path reference at the
+    kernel route's float64 tolerance (tests/test_torch_huber.py)."""
+    T, B = 5, 6
+    rng = np.random.RandomState(8)
+    th = np.pi * (2 * rng.rand(B) - 1)
+    x0 = np.stack([np.cos(th), np.sin(th), np.zeros(B)], 1)
+    w, goal = np.array([1., 1., 0.1, 0.01]), np.array([1., 0., 0., 0.])
+    params = np.array([10., 1., 1.])
+    kw = _mpc_kw(T, 1, grad_method=mpc_tpu.GradMethods.AUTO_DIFF, eps=1e-3,
+                 lqr_iter=10)
+    ref = mpc_tpu.MPC(3, 1, T, u_lower=-2., u_upper=2., **kw)(
+        jnp.asarray(x0), JPseudoHuber(jnp.asarray(w), jnp.asarray(goal), 0.5),
+        JPendulumDx(params=jnp.asarray(params)))
+    kw.update(grad_method=mt.GradMethods.AUTO_DIFF, use_fused='always')
+    solver.reset_eager_counts()
+    got = mt.MPC(3, 1, T, u_lower=-2., u_upper=2., device='cpu', **kw)(
+        torch.tensor(x0), pseudo_huber_from_numpy(w, goal, 0.5, device='cpu'),
+        mt.models.PendulumDx(params=torch.tensor(params), device='cpu'))
+    assert solver.eager_counts['eager_solve'] == 0
+    for a, b in zip(got, ref):
+        _close(a, b, 1e-9)

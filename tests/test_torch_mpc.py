@@ -142,11 +142,16 @@ def test_out_of_scope_knobs_raise(case):
 
 
 @pytest.mark.parametrize('case', list(SURFACE_KNOBS))
-def test_surface_knobs_match_jax_mpc(case):
+def test_surface_knobs_match_jax_mpc(case, monkeypatch):
     """The knobs that no route took before queue 1 items 5 and 6 run as
     mpc_tpu runs them: a slew penalty, prev_ctrl (unused without one),
     verbose and the O(log T) scan solve and match mpc_tpu.MPC in float64
-    (1e-10 relative)."""
+    (1e-10 relative).  Verbose tables are recorded in fresh sets of seen
+    tables, so the process's own stay as they were."""
+    import mpc_tpu.utils.logging as jlogging
+    import mpc_tpu_torch.utils.logging as tlogging
+    monkeypatch.setattr(tlogging, '_seen_tables', set())
+    monkeypatch.setattr(jlogging, '_seen_tables', set())
     got = _one_solve(**_knob_args(mt, SURFACE_KNOBS[case]))
     ref = _jax_one_solve(SURFACE_KNOBS[case])
     for a, b in zip(got, ref):
@@ -256,11 +261,20 @@ def test_out_of_scope_problems_raise():
                          lambda x, u: x, device='cpu')
     q32, p32 = np.diag(Q).astype(np.float32), P.astype(np.float32)
     damped = PendulumDx(simple=False, device='cpu')
+    # delta_u still waits for its kernel configuration
     with pytest.raises(NotImplementedError, match='queue 2'):
-        mt.batched_solve(_cfg(use_fused='always'), x0.float(),
-                         pseudo_huber_from_numpy(np.diag(q32), p32,
-                                                 device='cpu'),
-                         damped, device='cpu')
+        mt.batched_solve(_cfg(use_fused='always', delta_u=0.5), x0.float(),
+                         quad_cost_from_numpy(q32, p32, 'cpu'), damped,
+                         u_lower=-2., u_upper=2., device='cpu')
+    # the pseudo-Huber cost, refused here before the kernels' cost build,
+    # now solves under 'always' (the plain K1 on the CPU)
+    solver.reset_eager_counts()
+    sol = mt.batched_solve(_cfg(use_fused='always'), x0.float(),
+                           pseudo_huber_from_numpy(np.diag(q32), p32,
+                                                   device='cpu'),
+                           damped, device='cpu')
+    assert torch.isfinite(sol.u).all()
+    assert solver.eager_counts['eager_solve'] == 0
     # the damped pendulum, refused here before its K1 and K3
     # configurations, now solves under 'always' (the plain K1 on the CPU)
     solver.reset_eager_counts()

@@ -180,8 +180,11 @@ def test_scope_gap_admits_the_bench_mlp_and_refuses_the_rest():
     assert 'shared memory' in fused.scope_gap(bench, cost, wide)
     assert fused.scope_gap(bench, cost, _mlp((fused.K3_NN_MAX_HIDDEN,))) \
         is None
+    # the pseudo-Huber cost: K3's MLP build takes it (its cost build), a
+    # deeper MLP still waits
     huber = pseudo_huber_from_numpy(np.ones(4), np.zeros(4), device='cpu')
-    assert fused.scope_gap(bench, huber, _mlp((100,))) is not None
+    assert fused.scope_gap(bench, huber, _mlp((100,))) is None
+    assert 'hidden layer' in fused.scope_gap(bench, huber, _mlp((16, 16)))
     # the solver's wants_grad finds the MLP's parameters
     assert solver.wants_grad(mt.MPCConfig(**_cfg_kw(20, backprop=True)),
                              _mlp((8,)))
@@ -252,8 +255,14 @@ def test_always_names_the_kernel_configuration_that_waits():
         mt.batched_solve(cfg, x0, cost, _mlp((6, 5)), device='cpu')
     huber = pseudo_huber_from_numpy(np.ones(4, np.float32),
                                     np.zeros(4, np.float32), device='cpu')
-    with pytest.raises(NotImplementedError):
-        mt.batched_solve(cfg, x0, huber, _mlp((8,)), device='cpu')
+    with pytest.raises(NotImplementedError, match='hidden layer'):
+        mt.batched_solve(cfg, x0, huber, _mlp((6, 5)), device='cpu')
+    # the pseudo-Huber cost with a one-hidden-layer MLP, refused here
+    # before K3's cost build, now solves (the plain K3 on the CPU)
+    solver.reset_eager_counts()
+    sol = mt.batched_solve(cfg, x0, huber, _mlp((8,)), device='cpu')
+    assert torch.isfinite(sol.u).all()
+    assert solver.eager_counts['eager_solve'] == 0
     affine = affine_from_numpy(np.eye(3, dtype=np.float32),
                                np.ones((3, 1), np.float32), device='cpu')
     with pytest.raises(ValueError):

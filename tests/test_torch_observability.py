@@ -49,17 +49,21 @@ def _both(x0, **kw):
 
 
 @pytest.mark.parametrize('lqr_iter,eps', [(2, 0.0), (6, 1e-2)])
-def test_verbose_prints_what_mpc_tpu_prints(capsys, lqr_iter, eps):
+def test_verbose_prints_what_mpc_tpu_prints(capsys, monkeypatch, lqr_iter,
+                                            eps):
     """verbose=1: the initial mean cost and one table row an iteration,
     line by line as mpc_tpu prints them (the same numbers at their
     printed precision); with eps > 0 examples stop early and drop out of
-    the rows (NaN-padded iter_stats)."""
+    the rows (NaN-padded iter_stats).  Each package prints a table's
+    header once a process: the test gives both fresh sets of seen tables
+    and leaves the process's own as they were, so that a test after it in
+    the process still sees its header."""
     x0 = _problem()
     kw = dict(u_lower=-2.0, u_upper=2.0, lqr_iter=lqr_iter, eps=eps, verbose=1,
               exit_unconverged=False, detach_unconverged=False,
               backprop=False, max_linesearch_iter=2)
-    tlogging._seen_tables.clear()
-    jlogging._seen_tables.clear()
+    monkeypatch.setattr(tlogging, '_seen_tables', set())
+    monkeypatch.setattr(jlogging, '_seen_tables', set())
     capsys.readouterr()
     t, j = _both(x0, **kw)
     out = capsys.readouterr().out.splitlines()
