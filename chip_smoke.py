@@ -125,6 +125,24 @@ lqr_iter=12): gradients to w, goal, delta and x_init through one K1 and
 one K2 launch against the eager fixed point, float64 and central
 differences in delta, and a K4 and a dense-backward row ([grad-huber]).
 
+Controls pinned to zero (u_zero_I, each kernel's MPC_HAS_UZ build) and
+the trust region delta_u inside the kernels: benchmarks/hw_sweep.py's
+'uzero shared', 'uzero batched' (K1, B=2050) and 'delta_u + batched
+bounds' (the dense configuration, 3 states and 2 controls) rows, the
+batched mask without bounds in K1, tests/test_fused.py's unbounded
+3-state, 4-control LinDx with its mask (the masked factor) at B=2050,
+the long LinDx system in K3 with a batched mask and delta_u, the MLP row
+in K3 with the shared mask, config 3 under delta_u and the headline under
+slew 0.5 with the shared mask in the model-step build: each row in a
+process of its own under CUDA_LAUNCH_BLOCKING=1, against its plain
+version in the float32 tail or by float64, pinned controls 0.0,
+reversed, sliced and B+2 batches bitwise ([compare-uz]; the workers are
+this script with --uz-worker); requests through batched_solve and MPC
+with the mask and with delta_u, one K1 launch each, beside the eager
+route's ms, and two requests of every row ([serve-uz]); each row's time
+from a CUDA graph beside the same row without mask and delta_u
+([time-uz]).
+
 The controller's own surface: make_closed_loop at bench_closed_loop's
 sizes (benchmarks/configs.py:375-417; B = 1, 16, 256 and 4096, one K1
 launch a step, bitwise the host loop of [swingup], the swing-up through
@@ -152,7 +170,7 @@ the one card, bitwise ([sharded]); config 4's sharded train step against
 the unsharded one ([train-sharded]) and over two gloo processes on the
 card ([pod]); a run resumed from a checkpoint in a fresh process,
 bitwise ([checkpoint]).  The worker processes are this script with
---serve-worker, --pod-worker or --resume-worker.
+--serve-worker, --pod-worker, --resume-worker or --uz-worker.
 
 It prints one JSON line of kernel numbers, one of the artifact and
 scale-out times, one of the eager phases, the card's name and power
@@ -338,6 +356,9 @@ def phase_build():
                   24, 4, True, False, huber=True)),
               ('fused_kkt_bwd', fused_bwd.kernel_defines(HUBER_GRAD['T'],
                                                          True, False))]
+    # u_zero_I and delta_u: each UZ_ROWS row's mask build (MPC_HAS_UZ = 1)
+    # and its build without the mask, the [time-uz] baseline
+    specs += [s for s in uz_build_specs() if s not in specs]
     t0 = time.perf_counter()
     paths = _build.build(specs)
     log(f'[build] nvcc {" ".join(_build.NVCC_FLAGS)} '
@@ -411,7 +432,7 @@ def batch_subset(torch, ops, keep):
     B = ops['x0'].shape[0]
     keep = keep.to(ops['x0'].device)
     out = dict(ops, x0=ops['x0'][keep].contiguous())
-    for k in ('F', 'f', 'C', 'c', 'u0', 'lb', 'ub'):
+    for k in ('F', 'f', 'C', 'c', 'u0', 'lb', 'ub', 'uz'):
         a = ops.get(k)
         if a is not None and a.shape[1] == B:
             out[k] = a[:, keep].contiguous()
@@ -4692,6 +4713,549 @@ def huber_entries(rows, serve, grads, grad_err, err):
     return out
 
 
+# ---------------------------------------------------------------------------
+# controls pinned to zero (each kernel's MPC_HAS_UZ build) and the trust
+# region delta_u: [compare-uz], [serve-uz], [time-uz]
+# ---------------------------------------------------------------------------
+
+# benchmarks/hw_sweep.py's solver settings (base_cfg, :59-66): 6
+# iterations, 3 step sizes, eps 0; its batch of three TPU tiles
+UZ_SWEEP = dict(n_state=3, n_ctrl=1, T=T, lqr_iter=6, eps=0.0,
+                exit_unconverged=False, detach_unconverged=False,
+                backprop=False, linesearch_decay=0.2, max_linesearch_iter=3)
+UZ_B = 2050
+UZ_DELTA = 0.3
+# config 3's trust region: a tenth of its +-100 box
+UZ_CART_DELTA = 10.0
+# (label, problem, T, B, kernel, mask, delta_u, gate): hw_sweep's 'uzero
+# shared' (the pendulum, box +-2, every example's control pinned at t =
+# 3..5, :68-80) and 'uzero batched' (15% of the controls pinned at
+# random, :83-95) in K1, and the same batched mask without bounds; its
+# 'delta_u + batched bounds' (3 states, 2 controls, batched C, c, F and
+# bounds, :145-170) in the dense configuration; tests/test_fused.py:
+# 224-240's unbounded 3-state, 4-control LinDx with its shared mask (the
+# masked factor) there; the long LinDx system (LONG) in K3 with a batched
+# mask and delta_u; the MLP row (NN) in K3's MLP build with the shared
+# mask; config 3 in the model-step build under delta_u; the headline
+# under slew 0.5 (4 augmented states, SOA_ROWS) with the shared mask.
+# The gate ([compare-uz]) is the float32 tail where the row was measured
+# inside it on the H100, float64 where two float32 solves part beyond it
+# (the MLP and the slew rows, PERF.md).
+UZ_ROWS = (
+    ('uzero shared', 'sweep', T, UZ_B, 'K1', 'shared', None, 'tail'),
+    ('uzero batched', 'sweep', T, UZ_B, 'K1', 'batched', None, 'tail'),
+    ('uzero unbounded', 'unbounded', T, UZ_B, 'K1', 'batched', None,
+     'tail'),
+    ('delta_u 3s2c', 'sweep3s2c', 8, UZ_B, 'dense', None, UZ_DELTA, 'tail'),
+    ('uzero 3s4c unbounded', 'lindx3s4c', 4, UZ_B, 'dense', 'shared', None,
+     'tail'),
+    ('long LinDx', 'lindx', LONG_T, LONG_B, 'K3', 'batched', UZ_DELTA,
+     'tail'),
+    ('MLP', 'mlp', NN_T, NN_B, 'K3', 'shared', None, 'float64'),
+    ('config 3', 'cartpole', CARTPOLE['T'], CARTPOLE_B, 'dense', None,
+     UZ_CART_DELTA, 'tail'),
+    ('headline slew', 'slew', T, B, 'dense', 'shared', None, 'float64'),
+)
+UZ_REQUESTS = 4
+
+
+def uz_row(label):
+    return next(r for r in UZ_ROWS if r[0] == label)
+
+
+def uz_problem(torch, device, label, dtype=None, n=None, plain=False):
+    """(cfg, x0, cost, dynamics, bounds with the mask, prev_ctrl) of a
+    UZ_ROWS row on its first n examples, on the kernel route; ``plain``
+    the same row without its mask and trust region."""
+    import dataclasses
+    import numpy as np
+    import mpc_tpu_torch as mt
+    dtype = dtype or torch.float32
+    _, prob, T_, n0, _, mask, delta, _ = uz_row(label)
+    n = n or n0
+    t = (lambda a: torch.tensor(np.asarray(a), dtype=dtype, device=device))
+    bk, prev, nc = dict(u_lower=-2.0, u_upper=2.0), None, 1
+    rng = np.random.RandomState(1 if mask == 'batched' else 0)
+    if prob in ('sweep', 'unbounded'):
+        dx, cost = problem(torch, device, dtype)
+        th = np.pi * (2 * rng.rand(n0) - 1)
+        x0 = t(np.stack([np.cos(th), np.sin(th), np.zeros(n0)], 1))
+        cfg = mt.MPCConfig(**UZ_SWEEP)
+        if prob == 'unbounded':
+            bk = {}
+    elif prob == 'sweep3s2c':
+        from mpc_tpu_torch.utils.problems import hw_sweep_delta_u
+        nc = 2
+        F, C, c, x0, lb, ub = hw_sweep_delta_u(T_, n0)
+        cost, dx, x0 = mt.QuadCost(t(C), t(c)), mt.LinDx(t(F)), t(x0)
+        bk = dict(u_lower=t(lb), u_upper=t(ub))
+        cfg = mt.MPCConfig(**dict(UZ_SWEEP, n_ctrl=nc, T=T_, lqr_iter=8,
+                                  pnqp_iter=20))
+    elif prob == 'lindx3s4c':
+        # tests/test_fused.py:97-113
+        ns, nc = 3, 4
+        nt = ns + nc
+        rng = np.random.RandomState(0)
+        R = rng.randn(T_, n0, nt, nt)
+        C = np.einsum('tbij,tbkj->tbik', R, R) + 0.5 * np.eye(nt)
+        c = rng.randn(T_, n0, nt)
+        F = np.concatenate([np.tile(np.eye(ns), (T_ - 1, n0, 1, 1))
+                            + 0.1 * rng.randn(T_ - 1, n0, ns, ns),
+                            0.5 * rng.randn(T_ - 1, n0, ns, nc)], 3)
+        f = 0.1 * rng.randn(T_ - 1, n0, ns)
+        x0 = t(rng.randn(n0, ns))
+        cost, dx = mt.QuadCost(t(C), t(c)), mt.LinDx(t(F), t(f))
+        bk = {}
+        cfg = mt.MPCConfig(**dict(UZ_SWEEP, n_ctrl=nc, T=T_, lqr_iter=2,
+                                  max_linesearch_iter=2))
+    elif prob == 'lindx':
+        cfg, x0, cost, dx, _ = long_problem(torch, device, n0, dtype,
+                                            backprop=False)
+    elif prob == 'mlp':
+        cfg, x0, cost, dx = nn_problem(torch, device, n0, dtype=dtype)
+    elif prob == 'cartpole':
+        x0, cost, dx = cartpole_problem(torch, device, dtype, n0)
+        cfg = mt.MPCConfig(**dict(CARTPOLE, use_fused='auto'),
+                           grad_method=mt.GradMethods.AUTO_DIFF)
+        bk = dict(u_lower=-100.0, u_upper=100.0)
+    else:
+        cfg, x0, cost, dx, bk, prev = soa_problem(torch, device, 'slew 0.5',
+                                                  dtype, n0)
+    uz = None
+    if mask == 'shared':
+        uz = np.zeros((T_, nc), bool)
+        if prob == 'lindx3s4c':
+            uz[0, 1] = uz[2, 3] = True
+        else:
+            uz[3:6] = True
+        uz = torch.tensor(uz, device=device)
+    elif mask == 'batched':
+        uz = torch.tensor(rng.rand(T_, n0, nc) < 0.15, device=device)[:, :n]
+    x0 = x0[:n].contiguous()
+    bk = {k: v if not torch.is_tensor(v) else v[:, :n].contiguous()
+          for k, v in bk.items()}
+    if prev is not None:
+        prev = prev[:n].contiguous()
+    if torch.is_tensor(cost.C) and cost.C.dim() == 4:
+        cost = mt.QuadCost(cost.C[:, :n], cost.c[:, :n])
+    if isinstance(dx, mt.LinDx) and dx.F.dim() == 4:
+        dx = mt.LinDx(dx.F[:, :n], None if dx.f is None else dx.f[:, :n])
+    if plain:
+        return cfg, x0, cost, dx, bk, prev
+    return (dataclasses.replace(cfg, delta_u=delta), x0, cost, dx,
+            dict(bk, u_zero_I=uz), prev)
+
+
+def uz_operands(torch, device, label, dtype=None, n=None, plain=False):
+    """A UZ_ROWS row's kernel operands (with its mask ``uz`` and
+    ``delta_u``, or without them where ``plain``), its kernel and plain
+    version."""
+    from mpc_tpu_torch.ops import fused
+    from mpc_tpu_torch.ops import fused_dense as fd
+    cfg, x0, cost, dx, bk, prev = uz_problem(torch, device, label, dtype, n,
+                                             plain)
+    kernel = uz_row(label)[4]
+    if kernel == 'dense':
+        if prev is not None:
+            cfg, x0, cost, dx = fused.slew_problem(cfg, x0, cost, dx, prev)
+        return (fd.k3d_operands(cfg, x0, cost, dx, **bk),
+                fd.fused_ilqr_dense, fd.fused_solve_dense_plain)
+    if kernel == 'K1':
+        return (fused.k1_operands(cfg, x0, cost, dx, **bk),
+                fused.fused_ilqr, fused.fused_solve_plain)
+    return (fused.k3_operands(cfg, x0, cost, dx, **bk),
+            fused.fused_ilqr_long, fused.fused_solve_long_plain)
+
+
+def uz_pinned_zero(what, ops, u):
+    """Every control the mask pins is exactly 0.0."""
+    if ops['uz'] is None:
+        return
+    uu = u if u.dim() == ops['uz'].dim() else u[..., 0]
+    pinned = (ops['uz'] > 0.5).expand_as(uu)
+    if bool(pinned.any()) and float(uu[pinned].abs().max()) != 0.0:
+        raise AssertionError(f'{what}: a pinned control is not 0.0')
+    log(f'  {what}: {int(pinned.sum())} pinned controls exactly 0.0')
+
+
+def uz_digest(outs):
+    """A digest of a solve's outputs' bytes (x, u, stats)."""
+    import hashlib
+    h = hashlib.sha256()
+    for a in outs:
+        h.update(a.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def uz_worker(device, label):
+    """[compare-uz]'s process for one UZ_ROWS row (one define set), run
+    under CUDA_LAUNCH_BLOCKING=1, so that a load through an absent
+    operand faults at its own launch: the kernel launched once, finite,
+    pinned controls exactly 0.0, the reversed batch, B = 1, 7, 33 alone
+    and the batch with two more examples bitwise.  Prints a JSON line:
+    the digest of its outputs and its log lines."""
+    import torch
+    lines = []
+    globals()['log'] = lambda *a: lines.append(' '.join(map(str, a)))
+    device = torch.device(device)
+    t0 = time.perf_counter()
+    _, _, T_, n, kname, _, _, _ = uz_row(label)
+    what = f'{label} ({kname}), B={n}, T={T_}'
+    ops, kernel, _ = uz_operands(torch, device, label)
+    reset_all_counts()
+    full = kernel(**ops)
+    if device.type == 'cuda':
+        torch.cuda.synchronize()
+        if sum(all_counts().values()) != 1:
+            raise AssertionError(f'{what}: not one launch: {all_counts()}')
+    if not all(torch.isfinite(a).all() for a in full):
+        raise AssertionError(f'{what}: the kernel returned non-finite values')
+    uz_pinned_zero(what, ops, full[1])
+    r = kernel(**batch_subset(torch, ops, torch.arange(n - 1, -1, -1)))
+    if not all(torch.equal(a.flip(1), b) for a, b in zip(r, full)):
+        raise AssertionError(f'{what}: reversed batch is not bitwise equal')
+    hold_slices(torch, what, kernel, ops, full)
+    r = kernel(**batch_subset(torch, ops, torch.cat(
+        [torch.arange(n), torch.arange(2)])))
+    if not all(torch.equal(r[i][:, :n], full[i])
+               and torch.equal(r[i][:, n:], full[i][:, :2])
+               for i in range(3)):
+        raise AssertionError(f'{what}: B={n + 2} differs from B={n}')
+    log(f'  {what}: one launch, reversed and B={n + 2} bitwise equal; '
+        f'{time.perf_counter() - t0:.1f} s in its process')
+    print(json.dumps({'label': label, 'digest': uz_digest(full),
+                      'lines': lines}))
+
+
+def phase_compare_uz(torch, device):
+    """Each UZ_ROWS row (each define set) first in a process of its own
+    under CUDA_LAUNCH_BLOCKING=1 (``uz_worker``), all rows at once; then
+    here, each row's kernel (the worker's bits) against its plain version
+    by the row's gate: the float32 tail (mean |du| < TAIL_MEAN, share past
+    TAIL_ENTRY < TAIL_SHARE, n_iter equal), or for the rows where two
+    float32 solves part beyond it (a mask's kinks amplify their divergence
+    ~30x, benchmarks/hw_sweep.py:42-56) the float64 rule (n_iter equal in
+    TEAMS_SAME_ITER of the examples); on every row at most twice the plain
+    float32 run's distance from a float64 plain run.  The cartpole's controls
+    are held divided by CART_U_SCALE.  Returns each row's summary (max
+    |du|, gate, the plain float32 run's device ms)."""
+    t0 = time.perf_counter()
+    out = run_workers(torch, [['--uz-worker', device.type, r[0]]
+                              for r in UZ_ROWS],
+                      [{'CUDA_LAUNCH_BLOCKING': '1'}] * len(UZ_ROWS))
+    log(f'[compare-uz] {len(UZ_ROWS)} rows, a process each under '
+        f'CUDA_LAUNCH_BLOCKING=1, all at once: '
+        f'{time.perf_counter() - t0:.1f} s')
+    res = {}
+    for row, summary in zip(UZ_ROWS, out):
+        label, prob, T_, n, kname, _, _, gate = row
+        what = f'{label} ({kname}), B={n}, T={T_}'
+        log(f'[compare-uz] {what}: the kernel vs its plain version')
+        for line in summary['lines']:
+            log(line)
+        t1 = time.perf_counter()
+        ops, kernel, plain = uz_operands(torch, device, label)
+        ops64, _, _ = uz_operands(torch, device, label, torch.float64)
+        scale = CART_U_SCALE if prob == 'cartpole' else 1.0
+        xk, uk, sk = kernel(**ops)
+        if uz_digest((xk, uk, sk)) != summary['digest']:
+            raise AssertionError(f'{what}: not the bits of its '
+                                 'CUDA_LAUNCH_BLOCKING=1 process')
+        times = []
+        _, up, sp = timed_plain(torch, plain, times)(**ops)
+        _, u64, _ = plain(**ops64)
+        us, ups, u64s = uk / scale, up / scale, u64 / scale
+        mean, share, mx = tail(us, ups)
+        same_iter = same_share(sk[2], sp[2])
+        if gate == 'tail':
+            check_tail(f'{what} (f32)', us, ups)
+            if same_iter != 1.0:
+                raise AssertionError(f'{what}: n_iter differs')
+        else:
+            check_tail(f'{what} (f32)', us, ups, None)
+            if same_iter < TEAMS_SAME_ITER:
+                raise AssertionError(f'{what}: n_iter equal in '
+                                     f'{same_iter:.4f} of the examples')
+        hold_equidistance(what, us, ups, u64s)
+        log(f'  {what}: gate {gate}; n_iter equal in {same_iter:.4f} of the '
+            f'examples, a solve {float(sk[2].double().mean()):.2f}, trials a '
+            f'solve {float(sk[5].double().mean()):.2f}; plain {times[0]:.1f} '
+            f'ms; {time.perf_counter() - t1:.1f} s')
+        res[label] = dict(gate=gate, max_abs_err=mx * scale, mean=mean,
+                          share=share, plain_ms=times[0])
+    log(f'[compare-uz] {time.perf_counter() - t0:.1f} s')
+    return res
+
+
+def phase_serve_uz(torch, device):
+    """Requests through the entry points, every count set to 0 before and
+    read after: UZ_REQUESTS batched_solve requests of the K1 row 'uzero
+    shared' with its mask and one through MPC (one K1 launch each, no
+    eager solve, pinned controls 0.0, MPC bitwise batched_solve), then the
+    same with delta_u = UZ_DELTA and no mask, each beside the eager
+    route's ms of its first request in this process (use_fused='never');
+    two requests of each other row (one launch of its kernel each).
+    Returns the launches by row and the request and eager ms."""
+    import dataclasses
+    import mpc_tpu_torch as mt
+    out = {'launches': {}}
+    for label, knob in (('uzero shared', 'mask'), ('delta_u', 'delta_u')):
+        cfg, x0, cost, dx, bk, _ = uz_problem(torch, device, 'uzero shared')
+        if knob == 'delta_u':
+            cfg = dataclasses.replace(cfg, delta_u=UZ_DELTA)
+            bk = dict(bk, u_zero_I=None)
+        n = x0.shape[0]
+        reqs = [x0_batch(n, 600 + i, torch, torch.device('cpu'))
+                for i in range(UZ_REQUESTS)]
+        mt.batched_solve(cfg, x0, cost, dx, device=device, **bk).u.cpu()
+        ctrl = mt.MPC(3, 1, cfg.T, u_lower=bk['u_lower'],
+                      u_upper=bk['u_upper'], u_zero_I=bk['u_zero_I'],
+                      delta_u=cfg.delta_u, lqr_iter=cfg.lqr_iter,
+                      eps=cfg.eps, linesearch_decay=cfg.linesearch_decay,
+                      max_linesearch_iter=cfg.max_linesearch_iter,
+                      exit_unconverged=False, detach_unconverged=False,
+                      backprop=False, device=device)
+
+        def serve():
+            lat, us = [], []
+            for req in reqs:
+                t0 = time.perf_counter()
+                u = mt.batched_solve(cfg, req.to(device), cost, dx,
+                                     device=device, **bk).u.cpu()
+                lat.append(1e3 * (time.perf_counter() - t0))
+                us.append(u)
+            t0 = time.perf_counter()
+            um = ctrl(reqs[0].to(device), cost, dx)[1].cpu()
+            return lat, us, um, 1e3 * (time.perf_counter() - t0)
+
+        (lat, us, um, mpc_ms), counts, n_eager = soa_counted(torch, serve)
+        ms = median(lat)
+        log(f'[serve-uz] {knob}, K1, B={n}: {UZ_REQUESTS} batched_solve '
+            'requests, latency ms ' + ' '.join(f'{v:.3f}' for v in lat) +
+            f', median {ms:.3f}; MPC {mpc_ms:.3f} ms; launches {counts}, '
+            f'eager solves {n_eager}')
+        if n_eager or (device.type == 'cuda'
+                       and counts != {'fused_ilqr': UZ_REQUESTS + 1}):
+            raise AssertionError(f'[serve-uz] {knob}: each request must '
+                                 'launch K1 once and nothing else')
+        if not torch.equal(um, us[0]):
+            raise AssertionError(f'[serve-uz] {knob}: MPC and batched_solve '
+                                 'answer differently')
+        ops = {'uz': None if bk['u_zero_I'] is None
+               else bk['u_zero_I'].to(torch.float32).cpu()}
+        for u in us:
+            if not (torch.isfinite(u).all() and u.abs().max() <= 2.0):
+                raise AssertionError(f'[serve-uz] {knob}: an answer is not '
+                                     'finite in the box')
+            uz_pinned_zero(f'[serve-uz] {knob}', ops, u)
+        never = dataclasses.replace(cfg, use_fused='never')
+        (eager_u, eager_ms), n_eager = eager_counted(torch, lambda: timed(
+            torch, device, lambda: mt.batched_solve(
+                never, reqs[0].to(device), cost, dx, device=device,
+                **bk).u, 2))
+        log(f'  the eager route (use_fused=\'never\') of the first request: '
+            f'{eager_ms:.1f} ms ({eager_ms / ms:.0f}x the kernel route), '
+            f'eager solves {n_eager}, max |u - kernel route\'s| '
+            f'{float((eager_u[0].cpu() - us[0]).abs().max()):.3e}; '
+            f'{card_line()}')
+        out['launches'][label] = UZ_REQUESTS + 1
+        out[f'{knob}_request_ms'], out[f'{knob}_mpc_ms'] = ms, mpc_ms
+        out[f'{knob}_eager_ms'] = eager_ms
+    kname = {'dense': 'fused_ilqr_dense', 'K1': 'fused_ilqr',
+             'K3': 'fused_ilqr_long'}
+    for label, _, T_, n_, kernel, _, _, _ in UZ_ROWS:
+        if label == 'uzero shared':
+            continue
+        cfg_, x0_, cost_, dx_, bk_, prev_ = uz_problem(torch, device, label)
+        (us_, counts, n_eager) = soa_counted(torch, lambda: [
+            mt.batched_solve(cfg_, x0_, cost_, dx_, prev_ctrl=prev_,
+                             device=device, **bk_).u.cpu()
+            for _ in range(2)])
+        log(f'[serve-uz] {label}, B={n_}, T={T_}: two requests, launches '
+            f'{counts}, eager solves {n_eager}')
+        if n_eager or (device.type == 'cuda'
+                       and counts != {kname[kernel]: 2}) \
+                or not torch.isfinite(us_[-1]).all():
+            raise AssertionError(f'{label}: each request must launch its '
+                                 'kernel once and nothing else')
+        out['launches'][label] = 2
+    return out
+
+
+def uz_flops(ops, label, stats):
+    """The operations of a UZ_ROWS row's solve from this run's counts, with
+    the trust region's bounds u -+ delta_u where ``ops`` has one and the
+    dense configuration's masked factor where it has a mask, and the
+    bytes it must move."""
+    from mpc_tpu_torch.ops import fused
+    from mpc_tpu_torch.ops import fused_dense as fd
+    _, prob, _, _, kernel, _, _, _ = uz_row(label)
+    delta_u = ops['delta_u'] is not None
+    sums = [float(stats[i].double().sum()) for i in (2, 3, 5)]
+    n = ops['x0'].shape[0]
+    T_ = ops['u0'].shape[0]
+    if kernel == 'dense':
+        ns, nc = ops['x0'].shape[1], ops['u0'].shape[2]
+        model_ops = None
+        if ops['model'] is not None:
+            model_ops = fd.model_op_counts(fd.dense_model(ops['model'])[0])
+        return (fd.k3d_flops(T_, ns, nc, sums[0], sums[2], batch=n,
+                             has_f=ops['f'] is not None,
+                             n_qp=sums[1] if nc > 1 else 0,
+                             model_ops=model_ops,
+                             has_bounds=ops['lb'] is not None,
+                             uz=ops['uz'] is not None, delta_u=delta_u),
+                fd.k3d_bytes(ops))
+    if kernel == 'K1':
+        return (fused.k1_flops(T_, 3, 1, sums[0], sums[2], batch=n,
+                               delta_u=delta_u),
+                fused.k1_bytes(ops))
+    nn_ops = fused.nn_op_counts(NN_H, 'sigmoid', True) if prob == 'mlp' \
+        else None
+    return (fused.k3_flops(T_, 3, 1, sums[0], sums[2], batch=n,
+                           lindx=prob == 'lindx', nn_ops=nn_ops,
+                           delta_u=delta_u),
+            fused.k1_bytes(ops))
+
+
+def uz_defines(ops, label):
+    """(library name, defines, launch geometry) of a row's build, with
+    the mask build's define where ``ops`` has a mask."""
+    from mpc_tpu_torch.ops import fused
+    from mpc_tpu_torch.ops import fused_dense as fd
+    _, prob, _, _, kernel, _, _, _ = uz_row(label)
+    T_, n = ops['u0'].shape[:2]
+    n_alpha = len(ops['alphas'])
+    bounds, has_uz = ops['lb'] is not None, ops['uz'] is not None
+    if kernel == 'dense':
+        ns, nc = ops['x0'].shape[1], ops['u0'].shape[2]
+        model, slew = (None, False) if ops['model'] is None else \
+            fd.dense_model(ops['model'])
+        return ('fused_ilqr_dense', fd.dense_kernel_defines(
+            ns, nc, bounds, ops['f'] is not None, model, slew,
+            has_uz=has_uz), fd.k3d_launch(T_, n, ns, nc, n_alpha,
+                                          model is not None))
+    if kernel == 'K1':
+        return ('fused_ilqr', fused.kernel_defines(T_, bounds,
+                                                   has_uz=has_uz),
+                fused.k1_launch(T_, n, n_alpha))
+    hidden = NN_H if prob == 'mlp' else 0
+    return ('fused_ilqr_long', fused.long_kernel_defines(
+        prob == 'lindx', bounds, 'sigmoid' if prob == 'mlp' else None,
+        has_uz=has_uz), fused.k3_launch(T_, n, n_alpha, hidden))
+
+
+def uz_build_specs():
+    """Every build the u_zero_I phases run: each row with its mask, and
+    without (the [time-uz] baseline)."""
+    import torch
+    specs = []
+    for label, *_ in UZ_ROWS:
+        for plain in (False, True):
+            ops, _, _ = uz_operands(torch, torch.device('cpu'), label, n=4,
+                                    plain=plain)
+            name, defines, _ = uz_defines(ops, label)
+            if (name, defines) not in specs:
+                specs.append((name, defines))
+    return specs
+
+
+def phase_time_uz(torch, device, compare):
+    """Each UZ_ROWS row's kernel timed from a CUDA graph beside the same
+    row without its mask and trust region (the build and operands the
+    earlier phases run) in this run, and, where it has a mask, the mask
+    build with an all-zero mask on that row run once (the same arithmetic
+    as the build without: the same bits, asserted, but at several
+    controls without bounds, where the build without a mask factors with
+    the jitter); its bound from this run's iterations, trials and QP trips
+    (k1_flops, k3_flops, k3d_flops with the trust region's bounds u -+
+    delta_u and the dense configuration's masked factor) and bytes, its
+    registers and spills, and the plain version's device ms of
+    [compare-uz].  Returns the rows."""
+    rows = []
+    for label, _, T_, n, kname, mask, delta, _ in UZ_ROWS:
+        ops, kernel, _ = uz_operands(torch, device, label)
+        _, _, st = kernel(**ops)
+        ms, eager_ms = graph_ms(torch, lambda: kernel(**ops), reps=3,
+                                per_graph=4)
+        op0, _, _ = uz_operands(torch, device, label, plain=True)
+        base = kernel(**op0)
+        st0 = base[2]
+        base_ms, _ = graph_ms(torch, lambda: kernel(**op0), reps=3,
+                              per_graph=4)
+        split = ''
+        if mask is not None:
+            zero = kernel(**dict(op0, uz=torch.zeros_like(ops['uz'])))
+            same = all(torch.equal(a, b) for a, b in zip(zero, base))
+            if not same and not (kname == 'dense' and op0['lb'] is None
+                                 and op0['u0'].shape[2] > 1):
+                raise AssertionError(f'{label}: the mask build with a zero '
+                                     'mask is not the build without one')
+            split = (f'; the mask build with a zero mask: bits '
+                     f'{"equal" if same else "not equal"}')
+        plain_ms = compare[label]['plain_ms']
+        flops, nbytes = uz_flops(ops, label, st)
+        bound_ms, by = bound(flops, nbytes)
+        name, defines, geo = uz_defines(ops, label)
+        des = design(name, defines, geo)
+        log(f'[time-uz] {label} ({kname}; mask {mask}, delta_u {delta}), '
+            f'B={n}, T={T_}: {ms:.4f} ms (from a CUDA graph; {eager_ms:.4f} '
+            f'ms a call from Python), without the mask and delta_u '
+            f'{base_ms:.4f} ms ({ms / base_ms:.3f}x; '
+            f'{float(st0[2].double().mean()):.2f} iterations, '
+            f'{float(st0[5].double().mean()):.2f} trials a solve){split}, '
+            f'plain {plain_ms:.1f} ms; {flops:.4e} operations '
+            f'({float(st[2].double().mean()):.2f} iterations, '
+            f'{float(st[5].double().mean()):.2f} trials, '
+            f'{float(st[3].double().mean()):.1f} QP trips a solve), {nbytes} '
+            f'bytes; bound {bound_ms:.5f} ms by {by} ({ms / bound_ms:.1f}x); '
+            f'registers {des["registers"]}, spill stores '
+            f'{des["spill_store_bytes"]} bytes; {card_line()}')
+        rows.append(dict(row=f'{label} B={n} T={T_}', label=label, ms=ms,
+                         base_ms=base_ms, plain_ms=plain_ms,
+                         bound_ms=bound_ms, bound_by=by,
+                         registers=des['registers'],
+                         spill_store_bytes=des['spill_store_bytes'],
+                         design=des))
+    return rows
+
+
+def uz_entries(rows, serve, compare):
+    """The kernels line's entries of this slice: each UZ_ROWS row's build
+    with its launches in [serve-uz], max |du| and gate of [compare-uz],
+    ms beside the same row without mask or delta_u, bound and plain ms."""
+    out = []
+    files = {'K1': ('fused_ilqr', 617), 'K3': ('fused_ilqr_long', 1126),
+             'dense': ('fused_ilqr_dense', 1126)}
+    for r in rows:
+        label = r['label']
+        _, prob, _, _, kernel, mask, delta, _ = uz_row(label)
+        name, line = files[kernel]
+        c = compare[label]
+        e = {'name': f'{name} (u_zero_I/delta_u: {label})',
+             'path': f'u_zero_I/delta_u {label}', 'route': 'cuda',
+             'source': f'mpc_tpu_torch/csrc/{name}.cu',
+             'replaces': f'mpc_tpu/ops/fused.py:{line}',
+             'mask': mask, 'delta_u': delta, 'design': r['design'],
+             'launches': serve['launches'][label],
+             'max_abs_err': c['max_abs_err'],
+             'tolerance': (f'mean|du|<{TAIL_MEAN}, share(|du|>{TAIL_ENTRY})'
+                           f'<{TAIL_SHARE}, n_iter equal'
+                           if c['gate'] == 'tail' else
+                           'at most 2x the plain f32 run\'s mean |du| from a '
+                           f'f64 plain run, n_iter equal in '
+                           f'{TEAMS_SAME_ITER} of the examples') +
+                          (f' (|du|/{CART_U_SCALE})' if prob == 'cartpole'
+                           else '') + '; pinned controls 0.0',
+             'gate': c['gate'], 'library_ms': None,
+             'without_mask_and_delta_u_ms': r['base_ms'],
+             **{k: r[k] for k in ('ms', 'plain_ms', 'bound_ms', 'bound_by')}}
+        if label == 'uzero shared':
+            e.update({k: serve[k] for k in serve if k != 'launches'},
+                     launches_delta_u=serve['launches']['delta_u'])
+        out.append(e)
+    return out
+
 CLOSED_LOOP_BS = (1, 16, 256, B)
 CLOSED_LOOP_STEPS = 100
 # the step of the B=4096 loop whose K1 operands are held against the
@@ -6150,7 +6714,7 @@ def phases_scale(torch, device):
 
 
 WORKERS = {'--serve-worker': serve_worker, '--pod-worker': pod_worker,
-           '--resume-worker': resume_worker}
+           '--resume-worker': resume_worker, '--uz-worker': uz_worker}
 
 
 def main():
@@ -6248,6 +6812,17 @@ def main():
         f'{b - a:.1f} s [{k}]' for k, a, b in zip(
             ('compare-huber', 'serve-huber', 'time-huber', 'grad-huber'),
             t_huber, t_huber[1:])) + f': {t_huber[-1] - t_huber[0]:.1f} s')
+    t_uz = [time.perf_counter()]
+    uz_compare = phase_compare_uz(torch, device)
+    t_uz.append(time.perf_counter())
+    uz_serve = phase_serve_uz(torch, device)
+    t_uz.append(time.perf_counter())
+    uz_rows = phase_time_uz(torch, device, uz_compare)
+    t_uz.append(time.perf_counter())
+    log('[uz] the u_zero_I and delta_u phases took ' + ', '.join(
+        f'{b - a:.1f} s [{k}]' for k, a, b in zip(
+            ('compare-uz', 'serve-uz', 'time-uz'), t_uz, t_uz[1:])) +
+        f': {t_uz[-1] - t_uz[0]:.1f} s')
     t_new = time.perf_counter()
     closed = phase_closed_loop(torch, device)
     t_closed = time.perf_counter()
@@ -6379,6 +6954,7 @@ def main():
                      next(r for r in eager if r['phase'] == 'eager-cartpole')),
         *huber_entries(huber_rows, huber_serve, huber_grad_launches,
                        huber_grad_err, huber_err),
+        *uz_entries(uz_rows, uz_serve, uz_compare),
         *scale_entries(scale, {'k1': (max_err, timing),
                                'k2': (bwd_err, timing_bwd),
                                'k3': (long_err, timing_long),

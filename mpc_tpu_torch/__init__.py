@@ -16,9 +16,11 @@ configuration (csrc/fused_ilqr_dense.cu, every other LinDx and model)
 and differentiated at 3 states and 1 control by K2 or K4
 (csrc/fused_kkt_bwd.cu, csrc/fused_kkt_bwd_long.cu), at every other size
 by their dense configuration (csrc/fused_kkt_bwd_dense.cu); on the CPU
-their plain PyTorch versions run instead.  Every other problem (float64
-on the card, callable costs and models, u_zero_I, delta_u,
-``use_fused='never'``, ``verbose`` > 0) runs on the eager solver
+their plain PyTorch versions run instead; each kernel also takes
+controls pinned to zero (u_zero_I) and, with bounds, the trust region
+delta_u.  Every other problem (float64 on the card, callable costs and
+models, delta_u without bounds, ``use_fused='never'``, ``verbose`` > 0)
+runs on the eager solver
 (``solver.py``), batched natively, and so does every other backward (and
 a slew penalty's), on its differentiable fixed point (``ops/diff.py``),
 on the card or the CPU.  A slew-rate penalty augments the state with

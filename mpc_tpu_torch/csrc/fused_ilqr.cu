@@ -71,6 +71,20 @@
 // The initial rollout and the trials score the true cost
 // (mpc_tpu/ops/fused.py:731-735; reference mpc/lqr_step.py:230-236).
 //
+// CONTROLS PINNED TO ZERO (MPC_HAS_UZ = 1) and THE TRUST REGION delta_u,
+// as the TPU kernel applies them (mpc_tpu/ops/fused.py:668-675, 872-928,
+// 1019-1032): the mask [T, 1 or B] (1 pinned) is an operand of that build
+// alone, so no other build forms a pointer into it, and rides in the rows
+// loaded one step ahead beside the bounds (no shared-memory slot, so
+// T_MAX stays); delta_u is a run-time argument, +inf where there is none,
+// where max and min with +-inf are exact, so the other builds keep their
+// bits.  Without bounds the Newton step's k and K are zero where the
+// control is pinned; with bounds the mask never enters the QP, whose box
+// delta_u narrows to [-delta_u, delta_u].  A trial zeroes a pinned
+// control before its clamp, and under delta_u clamps to the box
+// intersected with [u - delta_u, u + delta_u] around the current
+// iterate's control u.  The initial rollout applies neither.
+//
 // Outputs: x [T, B, 3], u [T, B, 1], stats [6, B] = best cost, best
 // full-step norm, n_iter, n_qp_iter, alpha and the summed index plus one
 // of the selected step sizes (the trial rollouts a serial search would
@@ -78,6 +92,8 @@
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include <cmath>
 
 #include "cost.cuh"
 #include "pendulum.cuh"
@@ -99,6 +115,10 @@
 #ifndef MPC_COST
 #define MPC_COST 0
 #endif
+// 1: the u_zero_I mask operand
+#ifndef MPC_HAS_UZ
+#define MPC_HAS_UZ 0
+#endif
 
 namespace cg = cooperative_groups;
 
@@ -110,6 +130,7 @@ constexpr int NTAU = 4;
 constexpr bool kHasBounds = MPC_HAS_BOUNDS != 0;
 constexpr bool kDamped = MPC_DAMPED != 0;
 constexpr bool kHuber = MPC_COST == 1;
+constexpr bool kHasUz = MPC_HAS_UZ != 0;
 constexpr int kMaxAlpha = 32;  // ops/fused.py:MAX_ALPHA
 constexpr int kTeam = MPC_TEAM;
 constexpr int kThreads = 32 * MPC_WARPS;
@@ -145,6 +166,9 @@ struct Operands {
   const float* lb;  // [T, 1 or B]
   const float* ub;
   int sbt, sbb;
+  const float* uz;  // [T, 1 or B], 1 pinned: the MPC_HAS_UZ build only
+  int sut, sub;
+  float delta;      // the trust region, +inf for none
   int lqr_iter;
   float eps, best_cost_eps, not_improved_lim;
   int slots;     // 6 + min(n_alpha, kTeam)
@@ -194,6 +218,7 @@ __device__ __forceinline__ float stage_cost(const float Ct[NTAU][NTAU],
 struct Rows {
   float C[NTAU][NTAU], c[NTAU];  // the QuadCost build only
   float lb, ub;                  // with bounds only
+  float uz;                      // the MPC_HAS_UZ build only
 };
 
 // What the Riccati step reads from shared memory.
@@ -226,6 +251,7 @@ struct Team {
       r.lb = __ldg(op.lb + t * op.sbt + b * op.sbb);
       r.ub = __ldg(op.ub + t * op.sbt + b * op.sbb);
     }
+    if constexpr (kHasUz) r.uz = __ldg(op.uz + t * op.sut + b * op.sub);
   }
 
   // the trajectory slot that holds the cost build's H while the current
@@ -336,11 +362,12 @@ struct Team {
     const float inv = 1.f / Quu;
     float Kt[NS], kt;
     if (kHasBounds) {
-      // closed-form 1-D box QP (mpc_tpu/ops/fused.py:929-942); the
-      // clamped test compares exactly against the clipped value
-      const float lo = r.lb - ut;
-      const float hi = r.ub - ut;
-      const float kv = clampf(-qu * inv, lo, hi);
+      // closed-form 1-D box QP (mpc_tpu/ops/fused.py:929-942) on the box
+      // narrowed by the trust region (:924-928); the clamped test
+      // compares exactly against the clipped value
+      const float lo = fmaxf(r.lb - ut, -op.delta);
+      const float hi = fminf(r.ub - ut, op.delta);
+      const float kv = clamp_box(-qu * inv, lo, hi);
       const float g = Quu * kv + qu;
       const bool clamped = (kv == lo && g > 0.f) || (kv == hi && g < 0.f);
 #pragma unroll
@@ -348,9 +375,11 @@ struct Team {
       kt = kv;
       qp_cnt += 1.f;
     } else {
-      kt = -qu * inv;
+      // a pinned control's k and K are zero (:872-884)
+      const bool free = !kHasUz || r.uz < 0.5f;
+      kt = free ? -qu * inv : 0.f;
 #pragma unroll
-      for (int j = 0; j < NS; ++j) Kt[j] = -Qt[3][j] * inv;
+      for (int j = 0; j < NS; ++j) Kt[j] = free ? -Qt[3][j] * inv : 0.f;
     }
     if (store) sm(t, kSlotGain) = make_float4(Kt[0], Kt[1], Kt[2], kt);
     // cost-to-go: V = Qxx + Qxu K + K^T Qux + K^T Quu K; likewise v
@@ -384,7 +413,11 @@ struct Team {
     const float d1 = xt[1] - old.y;
     const float d2 = xt[2] - old.z;
     float ut = (Kk.x * d0 + Kk.y * d1 + Kk.z * d2) + (old.w + alpha * Kk.w);
-    if (kHasBounds) ut = clampf(ut, r.lb, r.ub);
+    // zeroed where pinned, before the clamp (:1019-1024)
+    if (kHasUz && r.uz > 0.5f) ut = 0.f;
+    if (kHasBounds)
+      ut = clamp_box(ut, fmaxf(old.w - op.delta, r.lb),
+                     fminf(old.w + op.delta, r.ub));
     sm(t, slot) = make_float4(xt[0], xt[1], xt[2], ut);
     const float sc = cost_at(r, xt, ut);
     cost = t == 0 ? sc : cost + sc;
@@ -610,11 +643,14 @@ extern "C" int mpc_fused_ilqr(
     long long sCt, long long sCb,
     const float* c, long long sct, long long scb, const float* x0,
     const float* u0, const float* lb, const float* ub, long long sbt,
-    long long sbb, const float* alphas, int n_alpha, int lqr_iter, float eps,
+    long long sbb, const float* uz, long long sut, long long sub,
+    float delta, const float* alphas, int n_alpha, int lqr_iter, float eps,
     float best_cost_eps, float not_improved_lim, int slots, int smem_bytes,
     float* x_out, float* u_out, float* stats, void* stream) {
   if (B <= 0 || n_alpha <= 0 || n_alpha > mpc::kMaxAlpha ||
       (mpc::kHasBounds && (lb == nullptr || ub == nullptr)) ||
+      (mpc::kHasUz != (uz != nullptr)) || !(delta > 0.f) ||
+      (!mpc::kHasBounds && delta != INFINITY) ||
       (mpc::kHuber ? (cost == nullptr || C != nullptr || c != nullptr)
                    : (C == nullptr || c == nullptr)))
     return (int)cudaErrorInvalidValue;
@@ -632,7 +668,8 @@ extern "C" int mpc_fused_ilqr(
   const long long last = mpc::T - 1, lastb = B - 1, big = 1LL << 31;
   if (last * sCt + lastb * sCb + 16 >= big ||
       last * sct + lastb * scb + 4 >= big ||
-      last * sbt + lastb * sbb + 1 >= big || 3LL * mpc::T * B >= big)
+      last * sbt + lastb * sbb + 1 >= big ||
+      last * sut + lastb * sub + 1 >= big || 3LL * mpc::T * B >= big)
     return (int)cudaErrorInvalidValue;
   mpc::Schedule sched;
   for (int i = 0; i < n_alpha; ++i) sched.a[i] = alphas[i];
@@ -653,6 +690,10 @@ extern "C" int mpc_fused_ilqr(
   op.ub = ub;
   op.sbt = (int)sbt;
   op.sbb = (int)sbb;
+  op.uz = uz;
+  op.sut = (int)sut;
+  op.sub = (int)sub;
+  op.delta = delta;
   op.lqr_iter = lqr_iter;
   op.eps = eps;
   op.best_cost_eps = best_cost_eps;

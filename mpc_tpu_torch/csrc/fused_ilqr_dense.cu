@@ -90,6 +90,22 @@
 // takes g_i as its C tau + c, from the tau_i it stages; a stage cost is
 // lane i's term summed by the butterfly.  No workspace and no extra pass.
 //
+// CONTROLS PINNED TO ZERO (MPC_HAS_UZ = 1) and THE TRUST REGION delta_u,
+// for the LinDx, model-step and cost builds alike, as the TPU kernels
+// apply them (ctrl_solve and _ctrl_from, mpc_tpu/ops/fused.py:1475-1515,
+// 1681-1692): the mask [T, 1 or B, n_ctrl] (1 pinned) is an operand of
+// that build alone, read at the clamped control index; delta_u is a
+// run-time argument, +inf where there is none (max and min with +-inf
+// are exact, so the other builds keep their bits).  Without bounds a
+// pinned control's row of k and K is zero: at one control by a select,
+// at several from masked_free_chol (box_qp.cuh: unit diagonal on the
+// pinned entries, no jitter) with qu and the lane's column of Qux masked;
+// with bounds the mask never enters the QP, whose box delta_u narrows to
+// [-delta_u, delta_u] (the PNQP's start is clipped into it).  A trial
+// zeroes a pinned control before its clamp, and under delta_u clamps to
+// the box intersected with [u - delta_u, u + delta_u] around the current
+// iterate's control u.  The initial rollout applies neither.
+//
 // Outputs: x [T, B, n_state], u [T, B, n_ctrl], stats [6, B] = best cost,
 // best full-step norm, n_iter, n_qp_iter, alpha and the summed index plus
 // one of the selected step sizes.
@@ -118,6 +134,10 @@
 #ifndef MPC_COST
 #define MPC_COST 0
 #endif
+// 1: the u_zero_I mask operand
+#ifndef MPC_HAS_UZ
+#define MPC_HAS_UZ 0
+#endif
 
 namespace mpc {
 
@@ -127,6 +147,7 @@ constexpr int kNT = kNS + kNC;
 constexpr bool kHasBounds = MPC_HAS_BOUNDS != 0;
 constexpr bool kHasF = MPC_HAS_F != 0;
 constexpr bool kHuber = MPC_COST == 1;
+constexpr bool kHasUz = MPC_HAS_UZ != 0;
 constexpr int kWarps = MPC_WARPS;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kMaxAlpha = 32;
@@ -217,6 +238,9 @@ struct Operands {
   const float* lb;
   const float* ub;
   int sbt, sbb;
+  const float* uz;  // [T, 1 or B, n_ctrl], 1 pinned: MPC_HAS_UZ only
+  int sut, sub;
+  float delta;      // the trust region, +inf for none
   int lqr_iter, pnqp_iter;
   float eps, best_cost_eps, not_improved_lim;
   float* ws;
@@ -347,6 +371,7 @@ __global__ void __launch_bounds__(kThreads)
   }
   const float* lbb = kHasBounds ? op.lb + b * op.sbb : nullptr;
   const float* ubb = kHasBounds ? op.ub + b * op.sbb : nullptr;
+  const float* uzb = kHasUz ? op.uz + b * op.sub : nullptr;
   const float x0r = lane < kNS ? __ldg(op.x0 + b * kNS + lx) : 0.f;
 
   // ---- init: the rollout of u0 into slot 0 and the outputs, its cost --
@@ -510,14 +535,36 @@ __global__ void __launch_bounds__(kThreads)
         qx[i] = lane < kNS ? Qs[(kNS + i) * kSQ + lx] : 0.f;
       float Kcol[kNC];
       if constexpr (!kHasBounds) {
+        // a pinned control's row of k and K is zero (:1475-1503)
+        bool fr[kNC];
+#pragma unroll
+        for (int i = 0; i < kNC; ++i) fr[i] = true;
+        if constexpr (kHasUz) {
+#pragma unroll
+          for (int i = 0; i < kNC; ++i)
+            fr[i] = __ldg(uzb + t * op.sut + i) < 0.5f;
+        }
         if constexpr (kNC == 1) {
           const float inv = 1.f / Quu[0][0];
-          kt[0] = -qu[0] * inv;
-          Kcol[0] = -qx[0] * inv;
+          kt[0] = fr[0] ? -qu[0] * inv : 0.f;
+          Kcol[0] = fr[0] ? -qx[0] * inv : 0.f;
         } else {
-          float L[kNC][kNC], sol[kNC];
-          cholesky<kNC>(Quu, 1e-11f, L);
-          chol_solve<kNC>(L, qu, sol);
+          // qu stays whole for the cost-to-go; the solves take it masked
+          float L[kNC][kNC], sol[kNC], qm[kNC];
+#pragma unroll
+          for (int i = 0; i < kNC; ++i) qm[i] = qu[i];
+          if constexpr (kHasUz) {
+            // the free block's factor, qu and Qux masked (no jitter)
+            masked_free_chol<kNC>(Quu, fr, L);
+#pragma unroll
+            for (int i = 0; i < kNC; ++i) {
+              qm[i] = fr[i] ? qu[i] : 0.f;
+              qx[i] = fr[i] ? qx[i] : 0.f;
+            }
+          } else {
+            cholesky<kNC>(Quu, 1e-11f, L);
+          }
+          chol_solve<kNC>(L, qm, sol);
 #pragma unroll
           for (int i = 0; i < kNC; ++i) kt[i] = -sol[i];
           chol_solve<kNC>(L, qx, sol);
@@ -525,11 +572,12 @@ __global__ void __launch_bounds__(kThreads)
           for (int i = 0; i < kNC; ++i) Kcol[i] = -sol[i];
         }
       } else {
+        // the box narrowed by the trust region (:1513-1515)
         float lo[kNC], hi[kNC];
 #pragma unroll
         for (int m = 0; m < kNC; ++m) {
-          lo[m] = __ldg(lbb + t * op.sbt + m) - tau[kNS + m];
-          hi[m] = __ldg(ubb + t * op.sbt + m) - tau[kNS + m];
+          lo[m] = fmaxf(__ldg(lbb + t * op.sbt + m) - tau[kNS + m], -op.delta);
+          hi[m] = fminf(__ldg(ubb + t * op.sbt + m) - tau[kNS + m], op.delta);
         }
         if constexpr (kNC == 1) {
           const float inv = 1.f / Quu[0][0];
@@ -654,9 +702,13 @@ __global__ void __launch_bounds__(kThreads)
           for (int j = 1; j < kNS; ++j) s = s + Kr[j] * dxs[j];
           const float uo = trajc[t * kNT + kNS + m];
           float ut = (s + uo) + a * gains[t * kGain + kNC * kNS + m];
+          // zeroed where pinned, before the clamp (:1686-1692)
+          if constexpr (kHasUz)
+            ut = __ldg(uzb + t * op.sut + m) > 0.5f ? 0.f : ut;
           if constexpr (kHasBounds)
-            ut = fminf(fmaxf(ut, __ldg(lbb + t * op.sbt + m)),
-                       __ldg(ubb + t * op.sbt + m));
+            ut = fminf(fmaxf(ut, fmaxf(uo - op.delta,
+                                       __ldg(lbb + t * op.sbt + m))),
+                       fminf(uo + op.delta, __ldg(ubb + t * op.sbt + m)));
           tau[lane] = ut;
           const float d = uo - ut;
           d2 = d * d;
@@ -731,7 +783,8 @@ extern "C" int mpc_fused_ilqr_dense(
     const float* f, long long sft, long long sfb, const float* C,
     long long sCt, long long sCb, const float* c, long long sct,
     long long scb, const float* x0, const float* u0, const float* lb,
-    const float* ub, long long sbt, long long sbb, const float* alphas,
+    const float* ub, long long sbt, long long sbb, const float* uz,
+    long long sut, long long sub, float delta, const float* alphas,
     int n_alpha, int lqr_iter, int pnqp_iter, float eps, float best_cost_eps,
     float not_improved_lim, float* ws, int smem_bytes, float* x_out,
     float* u_out, float* stats, void* stream) {
@@ -742,6 +795,8 @@ extern "C" int mpc_fused_ilqr_dense(
               : (F == nullptr && T > 1)) ||
       ((f != nullptr) != kHasF && T > 1) ||
       (kHasBounds && (lb == nullptr || ub == nullptr)) ||
+      (kHasUz != (uz != nullptr)) || !(delta > 0.f) ||
+      (!kHasBounds && delta != INFINITY) ||
       (kHuber ? (cost == nullptr || C != nullptr || c != nullptr)
               : (C == nullptr || c == nullptr)) ||
       smem_bytes != kWarps * kWarpFloats * (int)sizeof(float))
@@ -755,6 +810,7 @@ extern "C" int mpc_fused_ilqr_dense(
       last * sFt + lastb * sFb + kNS * kNT >= big ||
       last * sft + lastb * sfb + kNS >= big ||
       last * sbt + lastb * sbb + kNC >= big ||
+      last * sut + lastb * sub + kNC >= big ||
       (long long)T * B * kNT >= big || ws_example * B >= big)
     return (int)cudaErrorInvalidValue;
   // more than 48 KB of dynamic shared memory has to be asked for; the
@@ -798,6 +854,10 @@ extern "C" int mpc_fused_ilqr_dense(
   op.ub = ub;
   op.sbt = (int)sbt;
   op.sbb = (int)sbb;
+  op.uz = uz;
+  op.sut = (int)sut;
+  op.sub = (int)sub;
+  op.delta = delta;
   op.lqr_iter = lqr_iter;
   op.pnqp_iter = pnqp_iter;
   op.eps = eps;

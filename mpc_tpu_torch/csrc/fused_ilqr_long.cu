@@ -112,6 +112,20 @@
 // on tau_t alone, off the V chain's dependencies, and no memory.  The
 // initial rollout and the trials score the true cost.
 //
+// CONTROLS PINNED TO ZERO (MPC_HAS_UZ = 1) and THE TRUST REGION delta_u,
+// for every MPC_DYN, as the TPU kernel applies them (read_uz, ctrl_solve
+// and _ctrl_from, mpc_tpu/ops/fused.py:1233-1236, 1475-1515, 1681-1692):
+// the mask [T, 1 or B] (1 pinned) is an operand of that build alone and
+// rides in each step's rows beside the bounds, a batch-shared one in the
+// block's copy of the shared operands; delta_u is a run-time argument,
+// +inf where there is none (max and min with +-inf are exact, so the
+// other builds keep their bits).  Without bounds a pinned control's k
+// and K are zero; with bounds the mask never enters the QP, whose box
+// delta_u narrows to [-delta_u, delta_u].  A trial zeroes a pinned
+// control before its clamp, and under delta_u clamps to the box
+// intersected with [u - delta_u, u + delta_u] around the current
+// iterate's control u.  The initial rollout applies neither.
+//
 // Outputs: x [T, B, 3], u [T, B, 1], stats [6, B] = best cost, best
 // full-step norm, n_iter, n_qp_iter, alpha and the summed index plus one
 // of the selected step sizes (the trial rollouts a serial search would
@@ -119,6 +133,8 @@
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include <cmath>
 
 #include "cost.cuh"
 #include "nn.cuh"
@@ -142,6 +158,10 @@
 #ifndef MPC_COST
 #define MPC_COST 0
 #endif
+// 1: the u_zero_I mask operand
+#ifndef MPC_HAS_UZ
+#define MPC_HAS_UZ 0
+#endif
 #ifndef MPC_HAS_BOUNDS
 #error "compile with -DMPC_HAS_BOUNDS=0 or 1"
 #endif
@@ -161,6 +181,7 @@ constexpr bool kNN = MPC_DYN == 2;
 constexpr bool kHasBounds = MPC_HAS_BOUNDS != 0;
 constexpr bool kDamped = MPC_DAMPED != 0;
 constexpr bool kHuber = MPC_COST == 1;
+constexpr bool kHasUz = MPC_HAS_UZ != 0;
 constexpr int kMaxAlpha = 32;  // ops/fused.py:MAX_ALPHA
 constexpr int kTeam = MPC_TEAM;
 constexpr int kWarps = MPC_WARPS;
@@ -173,8 +194,8 @@ constexpr int kGain = 0;  // (K, k)
 constexpr int kTraj = 1;  // the current (x, u)
 // a step of the block's copy of the batch-shared operands, in floats
 constexpr int kOffC = 0, kOffc = 16, kOffF = 20, kOfff = 32, kOffLb = 36,
-              kOffUb = 37, kOpRow = MPC_OP_ROW;
-static_assert(kOffUb < kOpRow && kOpRow % 4 == 0,
+              kOffUb = 37, kOffUz = 38, kOpRow = MPC_OP_ROW;
+static_assert(kOffUz < kOpRow && kOpRow % 4 == 0,
               "a row holds every operand and keeps float4 alignment");
 
 static_assert(kTeam == 2 || kTeam == 4 || kTeam == 8 || kTeam == 16,
@@ -208,6 +229,9 @@ struct Operands {
   const float* lb;  // [T, 1 or B]
   const float* ub;
   int sbt, sbb;
+  const float* uz;  // [T, 1 or B], 1 pinned: the MPC_HAS_UZ build only
+  int sut, sub;
+  float delta;      // the trust region, +inf for none
   int lqr_iter;
   float eps, best_cost_eps, not_improved_lim;
   float4* ws;    // [T, slots, B]: the trial slots, then the state's two
@@ -233,6 +257,7 @@ struct Rows {
   float C[NTAU][NTAU], c[NTAU];  // the QuadCost build only
   float F[NS][NTAU], f[NS];      // LinDx only
   float lb, ub;              // with bounds only
+  float uz;                  // the MPC_HAS_UZ build only
 };
 
 // 0.5 tau^T C tau + c^T tau in _quad_lin_cost's order
@@ -292,7 +317,7 @@ struct Team {
   int b;  // the team's example
   PendulumParams p;
   Huber<NTAU> hc;  // the cost build's parameters
-  Operand C, c, F, f, lb, ub;
+  Operand C, c, F, f, lb, ub, uz;
   bool has_f;
   float4* st;  // the example's state at step 0, slot kGain: shared
                // memory [t, 2, kExamples] where resident, else two
@@ -343,6 +368,7 @@ struct Team {
       r.lb = *lb.at(t);
       r.ub = *ub.at(t);
     }
+    if constexpr (kHasUz) r.uz = *uz.at(t);
   }
 
   // an MLP's Jacobian of step t (t < T - 1) into r.F, which the Riccati
@@ -455,11 +481,12 @@ struct Team {
     const float inv = 1.f / Quu;
     float Kt[NS], kt;
     if (kHasBounds) {
-      // closed-form 1-D box QP (mpc_tpu/ops/fused.py:1516-1527); the
-      // clamped test compares exactly against the clipped value
-      const float lo = r.lb - ut;
-      const float hi = r.ub - ut;
-      const float kv = clampf(-qu * inv, lo, hi);
+      // closed-form 1-D box QP (mpc_tpu/ops/fused.py:1516-1527) on the box
+      // narrowed by the trust region (:1513-1515); the clamped test
+      // compares exactly against the clipped value
+      const float lo = fmaxf(r.lb - ut, -op.delta);
+      const float hi = fminf(r.ub - ut, op.delta);
+      const float kv = clamp_box(-qu * inv, lo, hi);
       const float g = Quu * kv + qu;
       const bool clamped = (kv == lo && g > 0.f) || (kv == hi && g < 0.f);
 #pragma unroll
@@ -467,9 +494,11 @@ struct Team {
       kt = kv;
       qp_cnt += 1.f;
     } else {
-      kt = -qu * inv;
+      // a pinned control's k and K are zero (:1476-1481)
+      const bool free = !kHasUz || r.uz < 0.5f;
+      kt = free ? -qu * inv : 0.f;
 #pragma unroll
-      for (int j = 0; j < NS; ++j) Kt[j] = -Qt[3][j] * inv;
+      for (int j = 0; j < NS; ++j) Kt[j] = free ? -Qt[3][j] * inv : 0.f;
     }
     if (store) state(t, kGain) = make_float4(Kt[0], Kt[1], Kt[2], kt);
     // cost-to-go, summed left to right (vv_update,
@@ -504,7 +533,11 @@ struct Team {
     const float d1 = xt[1] - old.y;
     const float d2 = xt[2] - old.z;
     float ut = ((Kk.x * d0 + Kk.y * d1) + Kk.z * d2 + old.w) + alpha * Kk.w;
-    if (kHasBounds) ut = clampf(ut, r.lb, r.ub);
+    // zeroed where pinned, before the clamp (_ctrl_from, :1686-1692)
+    if (kHasUz && r.uz > 0.5f) ut = 0.f;
+    if (kHasBounds)
+      ut = clamp_box(ut, fmaxf(old.w - op.delta, r.lb),
+                     fminf(old.w + op.delta, r.ub));
     trial(t, lane) = make_float4(xt[0], xt[1], xt[2], ut);
     const float sc = cost_at(r, xt, ut);
     cost = t == 0 ? sc : cost + sc;
@@ -542,6 +575,7 @@ __global__ void __launch_bounds__(kThreads)
       stage<1>(op.lb, op.sbt, T, staged + kOffLb);
       stage<1>(op.ub, op.sbt, T, staged + kOffUb);
     }
+    if (kHasUz && op.sub == 0) stage<1>(op.uz, op.sut, T, staged + kOffUz);
   }
   if (kNN || staged != nullptr) __syncthreads();
   if (b >= B) return;  // ragged tail: a whole team leaves together
@@ -565,6 +599,8 @@ __global__ void __launch_bounds__(kThreads)
                 operand(op.f, op.sft, op.sfb, b, staged, kOfff),
                 operand(op.lb, op.sbt, op.sbb, b, staged, kOffLb),
                 operand(op.ub, op.sbt, op.sbb, b, staged, kOffUb),
+                kHasUz ? operand(op.uz, op.sut, op.sub, b, staged, kOffUz)
+                       : Operand{nullptr, 0},
                 kLinDx && op.f != nullptr,
                 op.resident ? state_base + e : op.ws + n_lanes * B + b,
                 op.resident ? 2 * kExamples : op.slots * B,
@@ -796,6 +832,7 @@ extern "C" int mpc_fused_ilqr_long(
     const float* C, long long sCt, long long sCb, const float* c,
     long long sct, long long scb, const float* x0, const float* u0,
     const float* lb, const float* ub, long long sbt, long long sbb,
+    const float* uz, long long sut, long long sub, float delta,
     const float* alphas, int n_alpha, int lqr_iter, float eps,
     float best_cost_eps, float not_improved_lim, float* ws, int slots,
     int smem_bytes, float* x_out, float* u_out, float* stats, void* stream) {
@@ -805,6 +842,8 @@ extern "C" int mpc_fused_ilqr_long(
       ws == nullptr || (mpc::kNN && (nn_h <= 0 || smem_bytes < weight_bytes)) ||
       (mpc::kLinDx ? (F == nullptr && T > 1) : params == nullptr) ||
       (mpc::kHasBounds && (lb == nullptr || ub == nullptr)) ||
+      (mpc::kHasUz != (uz != nullptr)) || !(delta > 0.f) ||
+      (!mpc::kHasBounds && delta != INFINITY) ||
       (mpc::kHuber ? (cost == nullptr || C != nullptr || c != nullptr)
                    : (C == nullptr || c == nullptr)))
     return (int)cudaErrorInvalidValue;
@@ -828,6 +867,7 @@ extern "C" int mpc_fused_ilqr_long(
       last * sFt + lastb * sFb + 12 >= big ||
       last * sft + lastb * sfb + 3 >= big ||
       last * sbt + lastb * sbb + 1 >= big ||
+      last * sut + lastb * sub + 1 >= big ||
       4LL * T * (slots + 2) * B >= big)
     return (int)cudaErrorInvalidValue;
   mpc::Operands op;
@@ -855,6 +895,10 @@ extern "C" int mpc_fused_ilqr_long(
   op.ub = ub;
   op.sbt = (int)sbt;
   op.sbb = (int)sbb;
+  op.uz = uz;
+  op.sut = (int)sut;
+  op.sub = (int)sub;
+  op.delta = delta;
   op.lqr_iter = lqr_iter;
   op.eps = eps;
   op.best_cost_eps = best_cost_eps;

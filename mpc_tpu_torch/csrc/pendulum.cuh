@@ -38,6 +38,13 @@ __device__ __forceinline__ float clampf(float v, float lo, float hi) {
   return v < lo ? lo : (v > hi ? hi : v);
 }
 
+// torch.clamp's value also where a trust region leaves lo > hi (the
+// control outside the box by more than delta_u): hi, as min(max(v, lo),
+// hi) gives it; where lo <= hi it is clampf's.
+__device__ __forceinline__ float clamp_box(float v, float lo, float hi) {
+  return clampf(v, fminf(lo, hi), hi);
+}
+
 __device__ __forceinline__ float pendulum_newdth(const PendulumParams& p,
                                                  float sin_th, float dth,
                                                  float uc) {

@@ -140,7 +140,10 @@ def batched_solve(cfg: MPCConfig, x_init, cost, dynamics, u_init=None,
     gradients to them through the KKT fixed point (phase 2: kernel K2,
     K4 or their dense configuration, or the eager fixed point).
     The bounds get a zero gradient, as in the reference.  costs, n_iter
-    and the other statistics come from phase 1 and carry none.
+    and the other statistics come from phase 1 and carry none.  A
+    u_zero_I mask and ``cfg.delta_u`` shape phase 1 alone: phase 2
+    differentiates the box's active set at the solution, as mpc_tpu's
+    does on every route.
     """
     if (u_lower is None) != (u_upper is None):
         # one-sided bounds would clamp against nothing; the reference
@@ -163,7 +166,7 @@ def batched_solve(cfg: MPCConfig, x_init, cost, dynamics, u_init=None,
     differentiable = solver.wants_grad(cfg, x_init, cost, dynamics, u_lower,
                                        u_upper, prev_ctrl)
     kernel_gap = fused.scope_gap(cfg, cost, dynamics, u_zero_I=u_zero_I,
-                                 dtype=dtype, device=device)
+                                 u_lower=u_lower, dtype=dtype, device=device)
     if kernel_gap is not None and cfg.use_fused == 'always':
         raise _always_error(cfg, cost, dynamics, u_lower, dtype, kernel_gap)
     if kernel_gap is not None or cfg.use_fused == 'never':
@@ -172,6 +175,9 @@ def batched_solve(cfg: MPCConfig, x_init, cost, dynamics, u_init=None,
             u_upper=u_upper, u_zero_I=u_zero_I, prev_ctrl=prev_ctrl,
             differentiable=differentiable)
 
+    # phase 2 takes neither u_zero_I nor delta_u on any route, as in
+    # mpc_tpu (mpc_tpu/learning.py:214-216, mpc_tpu/solver.py:459): its
+    # active set comes from the box alone.
     # the kernels' backward may not take what their forward does; its
     # phase 2 is then the eager fixed point (mpc_tpu/learning.py:213-242),
     # as it always is under a slew penalty, whose backward the JAX package
@@ -182,7 +188,8 @@ def batched_solve(cfg: MPCConfig, x_init, cost, dynamics, u_init=None,
         sol1 = fused.fused_batched_solve(cfg, x_init, cost, dynamics,
                                          u_init=u_init, u_lower=u_lower,
                                          u_upper=u_upper,
-                                         prev_ctrl=prev_ctrl)
+                                         prev_ctrl=prev_ctrl,
+                                         u_zero_I=u_zero_I)
     if not differentiable:
         return sol1
     if bwd_gap:

@@ -4,9 +4,10 @@ Same constructor knobs and defaults as the reference (mpc/mpc.py:77-144)
 and the JAX package, the same time-major [T, n_batch, ...] layout and
 the same ``(x, u, costs)`` return.  The class normalises shapes and
 delegates to ``learning.batched_solve``, so both entry points take the
-same path: the kernels for the problems they take, the eager solver for
-the rest (``use_fused``, ``u_zero_I``, ``delta_u``, the slew penalty and
-``prev_ctrl`` pass through).  It runs on ``device``: the CUDA card unless
+same path: the kernels for the problems they take (``u_zero_I`` and ``delta_u``
+with bounds among them), the eager solver for the rest (``use_fused``,
+``u_zero_I``, ``delta_u``, the slew penalty and ``prev_ctrl`` pass
+through).  It runs on ``device``: the CUDA card unless
 the caller asks for the CPU.
 
 What the class adds to ``batched_solve`` is the reference's surface:

@@ -27,7 +27,13 @@ and every scratch array (K3's and K4's workspaces, the partial sums) is
 allocated inside the op, so no op writes to its inputs.  The forward ops
 take either a QuadCost's C and c or, with C and c None, the pseudo-Huber
 cost's parameter vector ``cost_params`` [w, goal, delta] (2 n_tau + 1):
-the kernels' cost build (MPC_COST = 1, csrc/cost.cuh).
+the kernels' cost build (MPC_COST = 1, csrc/cost.cuh).  The forward ops
+end with the optional ``uz``, a mask of the controls pinned to zero (1
+pinned; [T, 1 or B] for K1 and K3, [T, 1 or B, n_ctrl] for the dense
+configuration: each kernel's MPC_HAS_UZ build), and ``delta_u``, the
+trust region on a control step (bounds required; the kernels get +inf
+where it is None), so that a call or an exported program without them
+traces as before.
 
 Importing this module registers the ops and builds nothing: a kernel is
 built at its first launch (``_build``).  It imports the kernels'
@@ -89,6 +95,26 @@ def _check_cost(label, C, c, cost_params, ntau):
     return True
 
 
+def _mask_and_trust(label, uz, delta_u, shape, has_bounds):
+    """The mask ``uz`` of ``shape`` (its batch extent 1 or B) and the
+    trust region ``delta_u`` (positive, with bounds) of a forward op; its
+    (mask pointer, t stride, batch stride, delta) for the launcher, +inf
+    for no trust region."""
+    if delta_u is not None and (not has_bounds or not delta_u > 0):
+        raise ValueError(f'{label} takes a positive delta_u, and only with '
+                         'bounds')
+    delta = float('inf') if delta_u is None else float(delta_u)
+    if uz is None:
+        return None, 0, 0, delta
+    T, B = shape[:2]
+    if (uz.dim() != len(shape) or uz.shape[0] != T
+            or uz.shape[1] not in (1, B) or uz.shape[2:] != shape[2:]):
+        raise ValueError(f'{label}\'s u_zero_I mask shape does not match')
+    inner = shape[2] if len(shape) == 3 else 1
+    return (uz.data_ptr(), uz.shape[1] * inner,
+            fused._batch_stride(uz, inner), delta)
+
+
 def _floats_on_device(label, device, *operands):
     for a in operands:
         if a is not None and (a.dtype != torch.float32 or a.device != device
@@ -107,24 +133,28 @@ def k1_solve(params: Tensor, C: Optional[Tensor], c: Optional[Tensor],
              x0: Tensor, u0: Tensor, lb: Optional[Tensor],
              ub: Optional[Tensor], alphas: list[float], lqr_iter: int,
              eps: float, best_cost_eps: float, not_improved_lim: float,
-             cost_params: Optional[Tensor] = None
+             cost_params: Optional[Tensor] = None,
+             uz: Optional[Tensor] = None, delta_u: Optional[float] = None
              ) -> tuple[Tensor, Tensor, Tensor]:
     """K1 on the pendulum: params [3] (simple) or [5] (damped, biased;
     the MPC_DAMPED build); C [T, 1 or B, 4, 4] and c [T, 1 or B, 4], or
     C and c None and ``cost_params`` [9] (the pseudo-Huber cost, the
-    MPC_COST build); x0 [B, 3]; u0 [T, B]; lb, ub None or [T, 1 or B].
-    Returns x [T, B, 3], u [T, B, 1], stats [6, B]
+    MPC_COST build); x0 [B, 3]; u0 [T, B]; lb, ub None or [T, 1 or B];
+    uz None or [T, 1 or B] (the MPC_HAS_UZ build); delta_u None or the
+    trust region.  Returns x [T, B, 3], u [T, B, 1], stats [6, B]
     (``fused.fused_solve_plain``, which runs here on the CPU)."""
     return fused.fused_solve_plain(
         _pendulum(params.shape[0]), params, C, c, x0, u0, lb, ub,
         alphas=alphas,
         lqr_iter=lqr_iter, eps=eps, best_cost_eps=best_cost_eps,
-        not_improved_lim=not_improved_lim, cost_params=cost_params)
+        not_improved_lim=not_improved_lim, cost_params=cost_params, uz=uz,
+        delta_u=delta_u)
 
 
 @k1_solve.register_fake
 def _k1_fake(params, C, c, x0, u0, lb, ub, alphas, lqr_iter, eps,
-             best_cost_eps, not_improved_lim, cost_params=None):
+             best_cost_eps, not_improved_lim, cost_params=None, uz=None,
+             delta_u=None):
     T, B = u0.shape
     return (x0.new_empty((T, B, 3)), x0.new_empty((T, B, 1)),
             x0.new_empty((6, B)))
@@ -132,7 +162,8 @@ def _k1_fake(params, C, c, x0, u0, lb, ub, alphas, lqr_iter, eps,
 
 @k1_solve.register_kernel('cuda')
 def _k1_cuda(params, C, c, x0, u0, lb, ub, alphas, lqr_iter, eps,
-             best_cost_eps, not_improved_lim, cost_params=None):
+             best_cost_eps, not_improved_lim, cost_params=None, uz=None,
+             delta_u=None):
     """Launch csrc/fused_ilqr.cu with the geometry of ``fused.k1_launch``
     (the launcher refuses, as an invalid value, an array too large for
     its 32-bit indices)."""
@@ -141,7 +172,7 @@ def _k1_cuda(params, C, c, x0, u0, lb, ub, alphas, lqr_iter, eps,
     if has_bounds != (ub is not None):
         raise ValueError('K1 takes both bounds or neither')
     _floats_on_device('K1', x0.device, params, C, c, x0, u0, lb, ub,
-                      cost_params)
+                      cost_params, uz)
     _check_pendulum_params('K1', params)
     huber = _check_cost('K1', C, c, cost_params, 4)
     if (not huber and (C.shape[0] != T or C.shape[2:] != (4, 4)
@@ -152,6 +183,7 @@ def _k1_cuda(params, C, c, x0, u0, lb, ub, alphas, lqr_iter, eps,
     if has_bounds and (lb.shape != ub.shape or lb.shape[0] != T
                        or lb.shape[1] not in (1, B)):
         raise ValueError('K1 bound shapes do not match')
+    mask = _mask_and_trust('K1', uz, delta_u, (T, B), has_bounds)
     if not 0 < len(alphas) <= fused.MAX_ALPHA:
         raise ValueError(f'K1 takes 1 to {fused.MAX_ALPHA} step sizes')
     fused._check_float4('K1', C, c)
@@ -159,7 +191,8 @@ def _k1_cuda(params, C, c, x0, u0, lb, ub, alphas, lqr_iter, eps,
     if geo['smem_bytes'] > fused.SMEM_LIMIT:
         raise ValueError(f'K1 holds T <= {fused.T_MAX} in shared memory; '
                          f'T={T} goes to K3 (routes_long)')
-    fn = fused._kernel_lib(T, has_bounds, params.shape[0] == 5, huber)
+    fn = fused._kernel_lib(T, has_bounds, params.shape[0] == 5, huber,
+                           uz is not None)
     x = torch.empty((T, B, 3), dtype=torch.float32, device=x0.device)
     u = torch.empty((T, B, 1), dtype=torch.float32, device=x0.device)
     stats = torch.empty((6, B), dtype=torch.float32, device=x0.device)
@@ -176,7 +209,7 @@ def _k1_cuda(params, C, c, x0, u0, lb, ub, alphas, lqr_iter, eps,
         err = fn(B, params.data_ptr(),
                  cost_params.data_ptr() if huber else None,
                  *fused._strided(C, 16), *fused._strided(c, 4),
-                 x0.data_ptr(), u0.data_ptr(), *bounds,
+                 x0.data_ptr(), u0.data_ptr(), *bounds, *mask,
                  a_host, len(alphas), int(lqr_iter), float(eps),
                  float(best_cost_eps), float(not_improved_lim),
                  geo['slots'], geo['smem_bytes'],
@@ -209,7 +242,8 @@ def k3_solve(params: Optional[Tensor], F: Optional[Tensor],
              ub: Optional[Tensor], alphas: list[float], lqr_iter: int,
              eps: float, best_cost_eps: float, not_improved_lim: float,
              nn_hidden: int, activation: str, passthrough: bool,
-             cost_params: Optional[Tensor] = None
+             cost_params: Optional[Tensor] = None,
+             uz: Optional[Tensor] = None, delta_u: Optional[float] = None
              ) -> tuple[Tensor, Tensor, Tensor]:
     """K3: a LinDx (params None, F [T-1, 1 or B, 3, 4], f None or
     [T-1, 1 or B, 3]), a pendulum (params [3], or [5] for the damped
@@ -217,19 +251,20 @@ def k3_solve(params: Optional[Tensor], F: Optional[Tensor],
     a one-hidden-layer MLP of ``nn_hidden`` units (params its flat
     weights, ``NNDynamics.kernel_params``; ``activation``,
     ``passthrough``); the other operands (the cost's C and c, or
-    ``cost_params``) and the outputs as ``k1_solve``'s
-    (``fused.fused_solve_long_plain``, which runs here on the CPU)."""
+    ``cost_params``, the mask ``uz`` and ``delta_u``) and the outputs as
+    ``k1_solve``'s (``fused.fused_solve_long_plain``, which runs here on
+    the CPU)."""
     return fused.fused_solve_long_plain(
         _k3_model(params, nn_hidden, activation, passthrough), params, F, f,
         C, c, x0, u0, lb, ub, alphas=alphas, lqr_iter=lqr_iter, eps=eps,
         best_cost_eps=best_cost_eps, not_improved_lim=not_improved_lim,
-        cost_params=cost_params)
+        cost_params=cost_params, uz=uz, delta_u=delta_u)
 
 
 @k3_solve.register_fake
 def _k3_fake(params, F, f, C, c, x0, u0, lb, ub, alphas, lqr_iter, eps,
              best_cost_eps, not_improved_lim, nn_hidden, activation,
-             passthrough, cost_params=None):
+             passthrough, cost_params=None, uz=None, delta_u=None):
     T, B = u0.shape
     return (x0.new_empty((T, B, 3)), x0.new_empty((T, B, 1)),
             x0.new_empty((6, B)))
@@ -238,7 +273,7 @@ def _k3_fake(params, F, f, C, c, x0, u0, lb, ub, alphas, lqr_iter, eps,
 @k3_solve.register_kernel('cuda')
 def _k3_cuda(params, F, f, C, c, x0, u0, lb, ub, alphas, lqr_iter, eps,
              best_cost_eps, not_improved_lim, nn_hidden, activation,
-             passthrough, cost_params=None):
+             passthrough, cost_params=None, uz=None, delta_u=None):
     """Allocate the workspace of ``fused.k3_launch`` and launch
     csrc/fused_ilqr_long.cu (the launcher refuses, as an invalid value,
     an array or a workspace too large for its 32-bit indices)."""
@@ -247,7 +282,7 @@ def _k3_cuda(params, F, f, C, c, x0, u0, lb, ub, alphas, lqr_iter, eps,
     nn = not lindx and nn_hidden > 0
     has_bounds = lb is not None
     _floats_on_device('K3', x0.device, params, F, f, C, c, x0, u0, lb, ub,
-                      cost_params)
+                      cost_params, uz)
     huber = _check_cost('K3', C, c, cost_params, 4)
     if (not huber and (C.shape[0] != T or C.shape[2:] != (4, 4)
                        or c.shape[0] != T or c.shape[2:] != (4,)
@@ -279,12 +314,14 @@ def _k3_cuda(params, F, f, C, c, x0, u0, lb, ub, alphas, lqr_iter, eps,
     if has_bounds and (ub is None or lb.shape != ub.shape
                        or lb.shape[0] != T or lb.shape[1] not in (1, B)):
         raise ValueError('K3 bound shapes do not match')
+    mask = _mask_and_trust('K3', uz, delta_u, (T, B), has_bounds)
     if not 0 < len(alphas) <= fused.MAX_ALPHA:
         raise ValueError(f'K3 takes 1 to {fused.MAX_ALPHA} step sizes')
     fused._check_float4('K3', C, c, F)
     fn = fused._kernel_lib_long(fused.long_kernel_defines(
         lindx, has_bounds, activation if nn else None,
-        damped=not (lindx or nn) and params.shape[0] == 5, huber=huber))
+        damped=not (lindx or nn) and params.shape[0] == 5, huber=huber,
+        has_uz=uz is not None))
     empty = functools.partial(torch.empty, dtype=torch.float32,
                               device=x0.device)
     x, u, stats = empty((T, B, 3)), empty((T, B, 1)), empty((6, B))
@@ -304,7 +341,7 @@ def _k3_cuda(params, F, f, C, c, x0, u0, lb, ub, alphas, lqr_iter, eps,
                  *fused._strided(C, 16), *fused._strided(c, 4),
                  x0.data_ptr(), u0.data_ptr(),
                  lb_ptr, ub.data_ptr() if has_bounds else None, sbt, sbb,
-                 a_host, len(alphas), int(lqr_iter), float(eps),
+                 *mask, a_host, len(alphas), int(lqr_iter), float(eps),
                  float(best_cost_eps), float(not_improved_lim),
                  ws.data_ptr(), geo['slots'], geo['smem_bytes'],
                  x.data_ptr(), u.data_ptr(),
@@ -327,7 +364,8 @@ def k3d_solve(F: Optional[Tensor], f: Optional[Tensor], C: Optional[Tensor],
               lqr_iter: int, eps: float, best_cost_eps: float,
               not_improved_lim: float, pnqp_iter: int, model: str = '',
               slew: bool = False, params: Optional[Tensor] = None,
-              cost_params: Optional[Tensor] = None
+              cost_params: Optional[Tensor] = None,
+              uz: Optional[Tensor] = None, delta_u: Optional[float] = None
               ) -> tuple[Tensor, Tensor, Tensor]:
     """K3's dense configuration: a LinDx of any admitted size, F
     [T-1, 1 or B, ns, ntau], f None or [T-1, 1 or B, ns]; or the
@@ -337,21 +375,23 @@ def k3d_solve(F: Optional[Tensor], f: Optional[Tensor], C: Optional[Tensor],
     [T, 1 or B, ntau], or C and c None and ``cost_params`` [2 ntau + 1]
     (the pseudo-Huber cost, the MPC_COST build); x0 [B, ns], u0 [T, B,
     nc], lb, ub None or
-    [T, 1 or B, nc].  Returns x [T, B, ns], u [T, B, nc], stats [6, B]
-    (``fused_dense.fused_solve_dense_plain``, which runs here on the
-    CPU)."""
+    [T, 1 or B, nc]; uz None or [T, 1 or B, nc] (the MPC_HAS_UZ build);
+    delta_u None or the trust region.  Returns x [T, B, ns], u [T, B, nc],
+    stats [6, B] (``fused_dense.fused_solve_dense_plain``, which runs here
+    on the CPU)."""
     return fused_dense.fused_solve_dense_plain(
         F, f, C, c, x0, u0, lb, ub, alphas=alphas, lqr_iter=lqr_iter,
         eps=eps, best_cost_eps=best_cost_eps,
         not_improved_lim=not_improved_lim, pnqp_iter=pnqp_iter,
         model=fused_dense.model_of(model, slew) if model else None,
-        params=params, cost_params=cost_params)
+        params=params, cost_params=cost_params, uz=uz, delta_u=delta_u)
 
 
 @k3d_solve.register_fake
 def _k3d_fake(F, f, C, c, x0, u0, lb, ub, alphas, lqr_iter, eps,
               best_cost_eps, not_improved_lim, pnqp_iter, model='',
-              slew=False, params=None, cost_params=None):
+              slew=False, params=None, cost_params=None, uz=None,
+              delta_u=None):
     T, B, nc = u0.shape
     return (x0.new_empty((T, B, x0.shape[1])), x0.new_empty((T, B, nc)),
             x0.new_empty((6, B)))
@@ -378,7 +418,8 @@ def _check_dense_model(model, slew, params, F, f, ns, nc):
 @k3d_solve.register_kernel('cuda')
 def _k3d_cuda(F, f, C, c, x0, u0, lb, ub, alphas, lqr_iter, eps,
               best_cost_eps, not_improved_lim, pnqp_iter, model='',
-              slew=False, params=None, cost_params=None):
+              slew=False, params=None, cost_params=None, uz=None,
+              delta_u=None):
     """Allocate the workspace of ``fused_dense.k3d_launch`` and launch
     csrc/fused_ilqr_dense.cu (the launcher refuses, as an invalid value,
     an array or a workspace too large for its 32-bit indices)."""
@@ -389,7 +430,7 @@ def _k3d_cuda(F, f, C, c, x0, u0, lb, ub, alphas, lqr_iter, eps,
     nt = ns + nc
     has_bounds = lb is not None
     _floats_on_device('the dense kernel', x0.device, F, f, C, c, x0, u0, lb,
-                      ub, params, cost_params)
+                      ub, params, cost_params, uz)
     gap = fused.dense_gap(ns, nc)
     if gap is not None:
         raise ValueError(gap)
@@ -411,11 +452,13 @@ def _k3d_cuda(F, f, C, c, x0, u0, lb, ub, alphas, lqr_iter, eps,
                        or lb.shape[0] != T or lb.shape[1] not in (1, B)
                        or lb.shape[2] != nc):
         raise ValueError('the dense kernel\'s bound shapes do not match')
+    mask = _mask_and_trust('the dense kernel', uz, delta_u, (T, B, nc),
+                           has_bounds)
     if pnqp_iter < 0:
         raise ValueError('pnqp_iter must not be negative')
     geo = fused_dense.k3d_launch(T, B, ns, nc, len(alphas), bool(model))
     fn = fused_dense.kernel_lib(ns, nc, has_bounds, f is not None,
-                                model or None, slew, huber)
+                                model or None, slew, huber, uz is not None)
     empty = functools.partial(torch.empty, dtype=torch.float32,
                               device=x0.device)
     x, u, stats = empty((T, B, ns)), empty((T, B, nc)), empty((6, B))
@@ -432,7 +475,7 @@ def _k3d_cuda(F, f, C, c, x0, u0, lb, ub, alphas, lqr_iter, eps,
                  *fused._strided(C, nt * nt), *fused._strided(c, nt),
                  x0.data_ptr(), u0.data_ptr(),
                  lb_ptr, ub.data_ptr() if has_bounds else None, sbt, sbb,
-                 a_host, len(alphas), int(lqr_iter), int(pnqp_iter),
+                 *mask, a_host, len(alphas), int(lqr_iter), int(pnqp_iter),
                  float(eps), float(best_cost_eps), float(not_improved_lim),
                  ws.data_ptr(), geo['smem_bytes'], x.data_ptr(),
                  u.data_ptr(), stats.data_ptr(), stream)

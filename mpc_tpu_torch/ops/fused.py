@@ -45,7 +45,11 @@ batched, or the pseudo-Huber cost (``PseudoHuberCost`` with w and goal
 [n_tau] and a scalar delta, quadratised inside the kernels at every
 iteration: each kernel's cost build, MPC_COST = 1, csrc/cost.cuh); bounds
 absent, scalar, [T, nc] or [T, B, nc], an optional u_init, any T, float32
-(float64 too on the CPU, in the plain versions).
+(float64 too on the CPU, in the plain versions).  Every kernel also takes
+controls pinned to zero (``u_zero_I`` [T, nc] shared or [T, B, nc], each
+kernel's MPC_HAS_UZ build) and, with bounds, the trust region
+``delta_u`` on each iteration's control step, as the JAX kernels apply
+them (mpc_tpu/ops/fused.py:872-928, 1019-1032, 1475-1515, 1681-1692).
 ``routes_dense`` and ``routes_long`` say which kernel takes a problem:
 at 3 states and 1 control a LinDx and an MLP go to K3, a pendulum to K1
 up to ``T_MAX`` and to K3 past it; every other admitted problem goes to
@@ -66,6 +70,7 @@ from __future__ import annotations
 
 import array
 import ctypes
+import math
 from typing import Optional
 
 import torch
@@ -102,8 +107,8 @@ SMEM_LIMIT = 232448
 # (csrc/fused_ilqr.cu:kSlotTraj).
 _K1_FIXED_SLOTS = 5
 # Floats a step of K3's block-wide copy of the batch-shared operands
-# (MPC_OP_ROW): C 16, c 4, F 12, f 3 (padded to 4), the two bounds, padded
-# to a multiple of 4.
+# (MPC_OP_ROW): C 16, c 4, F 12, f 3 (padded to 4), the two bounds and a
+# shared u_zero_I mask, padded to a multiple of 4.
 _K3_OPERAND_ROW = 40
 
 
@@ -330,13 +335,17 @@ def nn_scope_gap(dynamics) -> Optional[str]:
     return None
 
 
-def scope_gap(cfg, cost, dynamics, *, u_zero_I=None, dtype=torch.float32,
+def scope_gap(cfg, cost, dynamics, *, u_zero_I=None, u_lower=None,
+              dtype=torch.float32,
               device=torch.device('cpu')) -> Optional[str]:
     """Why the kernels (K1, K3 or its dense configuration, see
     ``routes_dense`` and ``routes_long``) do not take a
     problem, naming the kernel configuration or ROADMAP item that waits;
     None when they do.  Under a slew penalty it judges the augmented
-    problem (n_state + n_ctrl states, ``fused_batched_solve``).  The
+    problem (n_state + n_ctrl states, ``fused_batched_solve``).  A
+    ``u_zero_I`` mask of [T, n_ctrl] or [T, B, n_ctrl] and ``cfg.delta_u``
+    with bounds (``u_lower`` not None) are in every kernel's scope, as in
+    mpc_tpu's (mpc_tpu/ops/fused.py:211-214).  The
     admission test alone: the dispatch (learning.batched_solve) sends
     what it refuses to the eager solver, and ``cfg.use_fused`` is read
     there."""
@@ -378,11 +387,19 @@ def scope_gap(cfg, cost, dynamics, *, u_zero_I=None, dtype=torch.float32,
     gap = cost_gap(cost, ns + cfg.n_ctrl)
     if gap is not None:
         return gap
-    if u_zero_I is not None:
-        return ('u_zero_I (the masked Cholesky, _masked_free_chol) waits for '
-                'ROADMAP queue 2 (K1 and K3 configurations)')
-    if cfg.delta_u is not None:
-        return 'delta_u waits for ROADMAP queue 2 (K1 and K3 configurations)'
+    if u_zero_I is not None and getattr(u_zero_I, 'ndim', 0) not in (2, 3):
+        return ('u_zero_I is [T, n_ctrl] (shared) or [T, B, n_ctrl] in the '
+                'kernels (mpc_tpu/ops/fused.py:213-214)')
+    if cfg.delta_u is not None and u_lower is None:
+        # the trust region intersects the box (mpc_tpu/ops/fused.py:
+        # 211-212; reference mpc/lqr_step.py:195)
+        return ('delta_u needs bounds in the kernels, as in mpc_tpu\'s: '
+                'its trust region is intersected with the box')
+    delta = trust_region(cfg, dtype)
+    if delta is not None and not 0 < delta < math.inf:
+        return (f'delta_u={cfg.delta_u} is not finite and positive in '
+                f'{dtype}: the kernels take no other trust region, and it '
+                'runs on the eager solver')
     if cfg.verbose > 0:
         # the JAX package's kernels refuse it too
         # (mpc_tpu/ops/fused.py:217)
@@ -472,10 +489,19 @@ def cost_setup_ops(ntau, huber):
     return HUBER_SETUP_OPS * ntau if huber else 0
 
 
-def _op_counts(T, ns, nc, step_ops, jac_ops, huber=False):
+def trust_ops(nc, delta_u):
+    """Operations that a ``delta_u`` trust region adds to a rollout step
+    of every forward kernel: u - delta and u + delta for each control
+    (2 nc).  Its max and min on the QP's box and the trial's clamp, and a
+    ``u_zero_I`` mask's selects, are compares and selects: none."""
+    return 2 * nc if delta_u else 0
+
+
+def _op_counts(T, ns, nc, step_ops, jac_ops, huber=False, delta_u=False):
     """Operation counts of the pieces K1 and K3 share (n_ctrl = 1): one
     stage cost, one Riccati sweep over the horizon, the control of one
-    rollout step and the full-step norm."""
+    rollout step (with a trust region its ``trust_ops``) and the
+    full-step norm."""
     if nc != 1:
         raise ValueError('the operation counts are for the n_ctrl = 1 '
                          'kernels')
@@ -489,7 +515,7 @@ def _op_counts(T, ns, nc, step_ops, jac_ops, huber=False):
              + jac_ops + cb + box + vupd)
     return dict(stage=stage,
                 riccati=(T - 1) * ric_t + cb + box + vupd,
-                ctrl=ns + (2 * ns - 1) + 3,
+                ctrl=ns + (2 * ns - 1) + 3 + trust_ops(nc, delta_u),
                 full_du=2 * T + 1,
                 rollout=(T - 1) * step_ops)
 
@@ -502,7 +528,7 @@ def pendulum_op_counts(damped):
 
 
 def k1_flops(T, ns, nc, lqr_iter, n_alpha, batch=1, damped=False,
-             huber=False):
+             huber=False, delta_u=False):
     """Arithmetic operations the solve K1 computes needs (each +, -, *,
     /, sqrt, sin, cos counts one; compares and selects none): the least
     work of the function, not of one implementation of it.
@@ -519,8 +545,11 @@ def k1_flops(T, ns, nc, lqr_iter, n_alpha, batch=1, damped=False,
     ran).  ``damped`` counts the damped pendulum's step and Jacobian,
     ``huber`` the pseudo-Huber cost (its terms in every stage cost, its
     quadratisation where a QuadCost's C tau + c is, and its batch-shared
-    products once, ``cost_setup_ops``)."""
-    n = _op_counts(T, ns, nc, *pendulum_op_counts(damped), huber=huber)
+    products once, ``cost_setup_ops``); ``delta_u`` a trust region's
+    bounds u -+ delta in each trial step (``trust_ops``; a ``u_zero_I``
+    mask adds only selects)."""
+    n = _op_counts(T, ns, nc, *pendulum_op_counts(damped), huber=huber,
+                   delta_u=delta_u)
     init = n['rollout'] + T * n['stage']
     trial = T * (n['ctrl'] + n['stage']) + n['rollout']
     per_iter = n['riccati'] + n['full_du'] + 4
@@ -551,7 +580,8 @@ def nn_op_counts(hidden, activation, passthrough, n_in=4, ns=3):
 
 
 def k3_flops(T, ns, nc, lqr_iter, n_alpha, batch=1, *, lindx=True,
-             has_f=False, nn_ops=None, damped=False, huber=False):
+             has_f=False, nn_ops=None, damped=False, huber=False,
+             delta_u=False):
     """Arithmetic operations the solve K3 computes needs, counted as
     ``k1_flops`` counts K1's: the initial rollout with its cost, and per
     outer iteration one Riccati sweep (a LinDx Jacobian is a load) and
@@ -560,14 +590,15 @@ def k3_flops(T, ns, nc, lqr_iter, n_alpha, batch=1, *, lindx=True,
     no rollout to commit it and no second sum of the current cost.
     ``nn_ops``, the (step, Jacobian) counts of ``nn_op_counts``, counts
     an MLP's instead of the pendulum's (``lindx`` False; ``damped`` the
-    damped pendulum's); ``huber`` the pseudo-Huber cost's, as in
-    ``k1_flops``."""
+    damped pendulum's); ``huber`` the pseudo-Huber cost's and
+    ``delta_u`` a trust region's, as in ``k1_flops``."""
+    opts = dict(huber=huber, delta_u=delta_u)
     if lindx:
         step_ops = ns * (2 * (ns + nc) - 1) + (ns if has_f else 0)
-        n = _op_counts(T, ns, nc, step_ops, 0, huber)
+        n = _op_counts(T, ns, nc, step_ops, 0, **opts)
     else:
         n = _op_counts(T, ns, nc, *(nn_ops or pendulum_op_counts(damped)),
-                       huber=huber)
+                       **opts)
     init = n['rollout'] + T * n['stage']
     trial = T * (n['ctrl'] + n['stage']) + n['rollout']
     per_iter = n['riccati'] + n['full_du'] + 4
@@ -579,11 +610,11 @@ def k1_bytes(ops):
     """Bytes K1 or K3 must move for the operands ``ops``
     (``k1_operands`` or ``k3_operands``): each input read once, shared
     ones once for the whole batch (the cost build's parameter vector in
-    place of C and c), and each output (x, u and six stats rows) written
-    once.  K3's workspace is neither."""
+    place of C and c; a shared mask once), and each output (x, u and six
+    stats rows) written once.  K3's workspace is neither."""
     T, B = ops['u0'].shape
     ins = [ops[k] for k in ('params', 'cost_params', 'F', 'f', 'C', 'c',
-                            'x0', 'u0', 'lb', 'ub')
+                            'x0', 'u0', 'lb', 'ub', 'uz')
            if ops.get(k) is not None]
     out = (T * B * 4 + 6 * B) * ops['x0'].element_size()
     return sum(a.numel() * a.element_size() for a in ins) + out
@@ -644,9 +675,66 @@ def _quad_cost_parts(C, c, cost_params, T):
     return stage, quad
 
 
+def _at(rows, t):
+    """Row t of a list of per-step rows, or None for an absent operand."""
+    return None if rows is None else rows[t]
+
+
+def _check_trust_region(delta_u, has_bounds):
+    if delta_u is not None and not has_bounds:
+        raise ValueError('delta_u needs bounds: its trust region is '
+                         'intersected with the box')
+
+
+def _ctrl_1d(Quu, qu, Qux, u_t, lb_t, ub_t, uz_t, delta_u):
+    """The control solve of one step at one control, as K1 and K3 compute
+    it (mpc_tpu/ops/fused.py:872-942, 1475-1527): (K_t, k_t, QP trips).
+    With bounds the closed-form 1-D box QP on lo = lb - u and hi = ub - u,
+    narrowed to [-delta_u, delta_u] by a trust region; without, the
+    Newton step, whose k and K are zero where ``uz_t`` pins the control
+    (the mask never enters the box QP)."""
+    inv = 1.0 / Quu
+    zero = torch.zeros_like(qu)
+    if lb_t is not None:
+        lo = lb_t - u_t
+        hi = ub_t - u_t
+        if delta_u is not None:
+            lo = torch.clamp_min(lo, -delta_u)
+            hi = torch.clamp_max(hi, delta_u)
+        kv = torch.clamp(-qu * inv, lo, hi)
+        g = Quu * kv + qu
+        clamped = ((kv == lo) & (g > 0)) | ((kv == hi) & (g < 0))
+        return [torch.where(clamped, zero, -q * inv) for q in Qux], kv, 1.0
+    kt = -qu * inv
+    Kt = [-q * inv for q in Qux]
+    if uz_t is not None:
+        free = uz_t < 0.5
+        kt = torch.where(free, kt, zero)
+        Kt = [torch.where(free, v, zero) for v in Kt]
+    return Kt, kt, 0.0
+
+
+def _trial_ctrl(v, u_old, lb_t, ub_t, uz_t, delta_u):
+    """A rollout's control from its unclamped value ``v`` as K1 and K3
+    take it (mpc_tpu/ops/fused.py:1019-1032, 1681-1692): zero where
+    ``uz_t`` pins it, then clamped to the box, which a trust region
+    intersects with [u_old - delta_u, u_old + delta_u] around the current
+    iterate's control ``u_old``."""
+    if uz_t is not None:
+        v = torch.where(uz_t > 0.5, torch.zeros_like(v), v)
+    if lb_t is None:
+        return v
+    lo, hi = lb_t, ub_t
+    if delta_u is not None:
+        lo = torch.maximum(u_old - delta_u, lo)
+        hi = torch.minimum(u_old + delta_u, hi)
+    return torch.clamp(v, lo, hi)
+
+
 def fused_solve_plain(dynamics, params, C, c, x0, u0, lb, ub, *, alphas,
                       lqr_iter, eps, best_cost_eps, not_improved_lim,
-                      recompute_cost=False, cost_params=None):
+                      recompute_cost=False, cost_params=None, uz=None,
+                      delta_u=None):
     """The plain PyTorch version of kernel K1, on the kernel's operands.
 
     ``dynamics`` a pendulum, params its [3] (g, m, l) or, damped, [5]
@@ -666,19 +754,27 @@ def fused_solve_plain(dynamics, params, C, c, x0, u0, lb, ub, *, alphas,
     selects the same one.  The current cost is carried from the accepted
     trial, as in the kernel; ``recompute_cost=True`` sums it anew every
     iteration instead, which gives the same bits (the tests hold that).
+
+    ``uz`` None or [T, 1 or B], 1 where the control is pinned to zero
+    (the MPC_HAS_UZ build), and ``delta_u`` None or the trust region's
+    half-width (bounds required), as the JAX kernel applies them
+    (``_ctrl_1d`` and ``_trial_ctrl``).
     """
     T = u0.shape[0]
     B = x0.shape[0]
     ns = 3
     has_bounds = lb is not None
+    _check_trust_region(delta_u, has_bounds)
     p = tuple(params.unbind())
     step = dynamics.soa_step
     jac = dynamics.soa_jacobian
     zero = x0.new_zeros(B)
     stage_tau, quad = _quad_cost_parts(C, c, cost_params, T)
+    lbl = ubl = None
     if has_bounds:
         lbl = [lb[t] + zero for t in range(T)]
         ubl = [ub[t] + zero for t in range(T)]
+    uzl = None if uz is None else [uz[t] + zero for t in range(T)]
 
     def stage(t, xt, ut):
         return stage_tau(t, list(xt) + [ut])
@@ -732,20 +828,10 @@ def fused_solve_plain(dynamics, params, C, c, x0, u0, lb, ub, *, alphas,
                       for a in range(4)]
             Quu = Qt[3][3]
             qu = qt[3]
-            inv = 1.0 / Quu
-            if has_bounds:
-                lo = lbl[t] - u[t]
-                hi = ubl[t] - u[t]
-                kv = torch.clamp(-qu * inv, lo, hi)
-                g = Quu * kv + qu
-                clamped = ((kv == lo) & (g > 0)) | ((kv == hi) & (g < 0))
-                Kt = [torch.where(clamped, zero, -Qt[3][j] * inv)
-                      for j in range(ns)]
-                kt = kv
-                qp_cnt += 1.0
-            else:
-                kt = -qu * inv
-                Kt = [-Qt[3][j] * inv for j in range(ns)]
+            Kt, kt, qp_inc = _ctrl_1d(Quu, qu, [Qt[3][j] for j in range(ns)],
+                                      u[t], _at(lbl, t), _at(ubl, t),
+                                      _at(uzl, t), delta_u)
+            qp_cnt += qp_inc
             K[t], k[t] = Kt, kt
             # cost-to-go: V = Qxx + Qxu K + K^T Qux + K^T Quu K; likewise v
             QK = [[Qt[i][3] * Kt[j] for j in range(ns)] for i in range(ns)]
@@ -769,9 +855,9 @@ def fused_solve_plain(dynamics, params, C, c, x0, u0, lb, ub, *, alphas,
             cost_a = None
             for t in range(T):
                 dx = [nx[t][i] - x[t][i] for i in range(ns)]
-                ut = _dot(K[t], dx) + (u[t] + a * k[t])
-                if has_bounds:
-                    ut = torch.clamp(ut, lbl[t], ubl[t])
+                ut = _trial_ctrl(_dot(K[t], dx) + (u[t] + a * k[t]), u[t],
+                                 _at(lbl, t), _at(ubl, t), _at(uzl, t),
+                                 delta_u)
                 nu.append(ut)
                 sc = stage(t, nx[t], ut)
                 cost_a = sc if cost_a is None else cost_a + sc
@@ -839,6 +925,8 @@ _ARGTYPES = [
     _P, _I64, _I64,                       # c, t stride, batch stride
     _P, _P,                               # x0, u0
     _P, _P, _I64, _I64,                   # lb, ub, t stride, batch stride
+    _P, _I64, _I64,                       # u_zero_I, t stride, batch stride
+    ctypes.c_float,                       # delta_u (+inf: none)
     ctypes.POINTER(ctypes.c_float), ctypes.c_int,   # alphas (host), n
     ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_float,
     ctypes.c_int, ctypes.c_int,           # slots, shared memory bytes
@@ -847,20 +935,35 @@ _ARGTYPES = [
 ]
 
 
-def kernel_defines(T, has_bounds, damped=False, huber=False) -> dict:
+def _optional_defines(d, huber, has_uz):
+    """``d`` with the defines of the optional builds: the pseudo-Huber
+    cost (MPC_COST = 1) and the u_zero_I mask (MPC_HAS_UZ = 1), each left
+    out where absent (0 in the sources), so that an earlier build keeps
+    its defines and its library."""
+    if huber:
+        d = dict(d, MPC_COST=1)
+    if has_uz:
+        d = dict(d, MPC_HAS_UZ=1)
+    return d
+
+
+def kernel_defines(T, has_bounds, damped=False, huber=False,
+                   has_uz=False) -> dict:
     """The nvcc defines of the K1 build for this horizon and bounds, of
-    the simple pendulum or the damped, biased one (MPC_DAMPED), and of a
+    the simple pendulum or the damped, biased one (MPC_DAMPED), of a
     QuadCost or, ``huber``, the pseudo-Huber cost (MPC_COST = 1; a
-    QuadCost build leaves it out, 0 in the source)."""
+    QuadCost build leaves it out, 0 in the source), and with ``has_uz``
+    the u_zero_I mask (MPC_HAS_UZ = 1, likewise).  The trust region
+    delta_u is a run-time argument (+inf where there is none)."""
     d = {'MPC_T': T, 'MPC_HAS_BOUNDS': int(has_bounds), 'MPC_TEAM': TEAM,
          'MPC_WARPS': K1_WARPS, 'MPC_DAMPED': int(damped)}
-    return dict(d, MPC_COST=1) if huber else d
+    return _optional_defines(d, huber, has_uz)
 
 
-def _kernel_lib(T, has_bounds, damped=False, huber=False):
+def _kernel_lib(T, has_bounds, damped=False, huber=False, has_uz=False):
     from . import _build
-    fn = _build.load('fused_ilqr', kernel_defines(T, has_bounds, damped,
-                                                  huber)).mpc_fused_ilqr
+    fn = _build.load('fused_ilqr', kernel_defines(
+        T, has_bounds, damped, huber, has_uz)).mpc_fused_ilqr
     if fn.argtypes is None:
         fn.argtypes = _ARGTYPES
         fn.restype = ctypes.c_int
@@ -887,8 +990,13 @@ def _batch_stride(a, inner):
     return 0 if a.shape[1] == 1 else inner
 
 
+def _opt_float(v):
+    return None if v is None else float(v)
+
+
 def fused_ilqr(dynamics, params, C, c, x0, u0, lb, ub, *, alphas, lqr_iter,
-               eps, best_cost_eps, not_improved_lim, cost_params=None):
+               eps, best_cost_eps, not_improved_lim, cost_params=None,
+               uz=None, delta_u=None):
     """Run K1 on its operands (layouts as in ``fused_solve_plain``)
     through the op ``mpc_tpu_torch::k1_solve`` (ops/custom.py).
 
@@ -900,14 +1008,16 @@ def fused_ilqr(dynamics, params, C, c, x0, u0, lb, ub, *, alphas, lqr_iter,
     pendulum, the model of K1's source: the simple one (params [3]) or
     the damped, biased one (params [5]; the build's MPC_DAMPED).  With
     ``cost_params`` (C and c None) the cost build runs the pseudo-Huber
-    cost (MPC_COST)."""
+    cost (MPC_COST); with ``uz`` (a [T, 1 or B] mask, 1 pinned) the
+    MPC_HAS_UZ build pins controls to zero; ``delta_u`` (bounds
+    required) is the trust region."""
     _check_device('K1', x0)
     if not isinstance(dynamics, PendulumDx):
         raise ValueError('K1 runs the pendulum')
     return torch.ops.mpc_tpu_torch.k1_solve(
         params, C, c, x0, u0, lb, ub, [float(a) for a in alphas],
         int(lqr_iter), float(eps), float(best_cost_eps),
-        float(not_improved_lim), cost_params)
+        float(not_improved_lim), cost_params, uz, _opt_float(delta_u))
 
 
 # ---------------------------------------------------------------------------
@@ -916,7 +1026,8 @@ def fused_ilqr(dynamics, params, C, c, x0, u0, lb, ub, *, alphas, lqr_iter,
 
 def fused_solve_long_plain(dynamics, params, F, f, C, c, x0, u0, lb, ub, *,
                            alphas, lqr_iter, eps, best_cost_eps,
-                           not_improved_lim, trace=None, cost_params=None):
+                           not_improved_lim, trace=None, cost_params=None,
+                           uz=None, delta_u=None):
     """The plain PyTorch version of kernel K3, on the kernel's operands.
 
     ``dynamics`` is a ``PendulumDx`` with ``params`` [3] or, damped, [5]
@@ -949,17 +1060,24 @@ def fused_solve_long_plain(dynamics, params, F, f, C, c, x0, u0, lb, ub, *,
     cost, trial cost, tried, full-step norm) per trial, ``tried`` marking
     the examples still searching: the decisions of the line search, for
     a caller that wants to know where they were ties of round-off.
+
+    ``uz`` and ``delta_u`` as in ``fused_solve_plain`` (read_uz,
+    ctrl_solve and _ctrl_from, mpc_tpu/ops/fused.py:1233-1236,
+    1475-1515, 1681-1692).
     """
     T = u0.shape[0]
     B = x0.shape[0]
     ns = 3
     has_bounds = lb is not None
+    _check_trust_region(delta_u, has_bounds)
     lindx = dynamics is None
     zero = x0.new_zeros(B)
     stage_tau, quad = _quad_cost_parts(C, c, cost_params, T)
+    lbl = ubl = None
     if has_bounds:
         lbl = [lb[t] + zero for t in range(T)]
         ubl = [ub[t] + zero for t in range(T)]
+    uzl = None if uz is None else [uz[t] + zero for t in range(T)]
     if lindx:
         Fl = [[[F[t, :, i, j] for j in range(4)] for i in range(ns)]
               for t in range(T - 1)]
@@ -995,10 +1113,8 @@ def fused_solve_long_plain(dynamics, params, F, f, C, c, x0, u0, lb, ub, *,
 
     def control(t, xt, K, k, alpha):
         dx = [xt[i] - x[t][i] for i in range(ns)]
-        ut = (_dot(K[t], dx) + u[t]) + alpha * k[t]
-        if has_bounds:
-            ut = torch.clamp(ut, lbl[t], ubl[t])
-        return ut
+        return _trial_ctrl((_dot(K[t], dx) + u[t]) + alpha * k[t], u[t],
+                           _at(lbl, t), _at(ubl, t), _at(uzl, t), delta_u)
 
     # ---- init: x <- rollout(u0), best <- the same, its cost ------------
     x = [list(x0.unbind(-1))]
@@ -1044,20 +1160,10 @@ def fused_solve_long_plain(dynamics, params, F, f, C, c, x0, u0, lb, ub, *,
                       for a in range(4)]
             Quu = Qt[3][3]
             qu = qt[3]
-            inv = 1.0 / Quu
-            if has_bounds:
-                lo = lbl[t] - u[t]
-                hi = ubl[t] - u[t]
-                kv = torch.clamp(-qu * inv, lo, hi)
-                g = Quu * kv + qu
-                clamped = ((kv == lo) & (g > 0)) | ((kv == hi) & (g < 0))
-                Kt = [torch.where(clamped, zero, -Qt[3][j] * inv)
-                      for j in range(ns)]
-                kt = kv
-                qp_cnt += 1.0
-            else:
-                kt = -qu * inv
-                Kt = [-Qt[3][j] * inv for j in range(ns)]
+            Kt, kt, qp_inc = _ctrl_1d(Quu, qu, [Qt[3][j] for j in range(ns)],
+                                      u[t], _at(lbl, t), _at(ubl, t),
+                                      _at(uzl, t), delta_u)
+            qp_cnt += qp_inc
             K[t], k[t] = Kt, kt
             # cost-to-go, summed left to right (vv_update,
             # mpc_tpu/ops/fused.py:1546-1573)
@@ -1159,6 +1265,8 @@ _ARGTYPES_LONG = [
     _P, _I64, _I64,                       # c, t stride, batch stride
     _P, _P,                               # x0, u0
     _P, _P, _I64, _I64,                   # lb, ub, t stride, batch stride
+    _P, _I64, _I64,                       # u_zero_I, t stride, batch stride
+    ctypes.c_float,                       # delta_u (+inf: none)
     ctypes.POINTER(ctypes.c_float), ctypes.c_int,   # alphas (host), n
     ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_float,
     _P, ctypes.c_int, ctypes.c_int,       # workspace, its slots, shared
@@ -1173,12 +1281,13 @@ NN_ACTIVATIONS = ('sigmoid', 'relu', 'elu')
 
 
 def long_kernel_defines(lindx, has_bounds, activation=None,
-                        damped=False, huber=False) -> dict:
+                        damped=False, huber=False, has_uz=False) -> dict:
     """The nvcc defines of the K3 build for these dynamics and bounds:
     LinDx, the pendulum (``damped``: the damped, biased one, MPC_DAMPED),
     or with ``activation`` an MLP (MPC_DYN 0, 1, 2); of a QuadCost or,
     ``huber``, the pseudo-Huber cost (MPC_COST = 1, left out for a
-    QuadCost)."""
+    QuadCost); with ``has_uz`` the u_zero_I mask (MPC_HAS_UZ = 1, left out
+    without one)."""
     if activation is not None:
         d = {'MPC_DYN': 2, 'MPC_ACT': NN_ACTIVATIONS.index(activation),
              'MPC_HAS_BOUNDS': int(has_bounds), 'MPC_TEAM': TEAM,
@@ -1188,7 +1297,7 @@ def long_kernel_defines(lindx, has_bounds, activation=None,
              'MPC_HAS_BOUNDS': int(has_bounds), 'MPC_TEAM': TEAM,
              'MPC_WARPS': K3_WARPS, 'MPC_OP_ROW': _K3_OPERAND_ROW,
              'MPC_DAMPED': int(damped)}
-    return dict(d, MPC_COST=1) if huber else d
+    return _optional_defines(d, huber, has_uz)
 
 
 def _kernel_lib_long(defines):
@@ -1220,7 +1329,7 @@ def k3_workspace(geo, T, B, device):
 
 def fused_ilqr_long(dynamics, params, F, f, C, c, x0, u0, lb, ub, *, alphas,
                     lqr_iter, eps, best_cost_eps, not_improved_lim,
-                    cost_params=None):
+                    cost_params=None, uz=None, delta_u=None):
     """Run K3 on its operands (layouts as in ``fused_solve_long_plain``)
     through the op ``mpc_tpu_torch::k3_solve`` (ops/custom.py).
 
@@ -1230,7 +1339,8 @@ def fused_ilqr_long(dynamics, params, F, f, C, c, x0, u0, lb, ub, *, alphas,
     operand the kernel does not take or on a launch error (the launcher
     refuses, as an invalid value, an array or a workspace too large for
     its 32-bit indices).  With ``cost_params`` (C and c None) the cost
-    build runs the pseudo-Huber cost (MPC_COST)."""
+    build runs the pseudo-Huber cost (MPC_COST); ``uz`` and ``delta_u``
+    as in ``fused_ilqr``."""
     _check_device('K3', x0)
     nn_hidden, activation, passthrough = 0, '', False
     if isinstance(dynamics, NNDynamics):
@@ -1249,7 +1359,7 @@ def fused_ilqr_long(dynamics, params, F, f, C, c, x0, u0, lb, ub, *, alphas,
         params, F, f, C, c, x0, u0, lb, ub, [float(a) for a in alphas],
         int(lqr_iter), float(eps), float(best_cost_eps),
         float(not_improved_lim), nn_hidden, activation, passthrough,
-        cost_params)
+        cost_params, uz, _opt_float(delta_u))
 
 
 # ---------------------------------------------------------------------------
@@ -1281,6 +1391,32 @@ def _bound_operand(a, T, B, dtype, device):
     if a.shape[0] != T or a.shape[1] not in (1, B):
         raise ValueError(f'unexpected bound shape {tuple(a.shape)}')
     return a.contiguous()
+
+
+def mask_operand(u_zero_I, T, B, nc, dtype, device):
+    """A u_zero_I mask, [T, n_ctrl] shared or [T, B, n_ctrl] batched (bool
+    or 0/1), to a contiguous [T, 1 or B, n_ctrl] in the kernels' dtype, 1
+    where the control is pinned to zero, as the TPU kernel casts it
+    (mpc_tpu/ops/fused.py:2270-2280); None for no mask."""
+    if u_zero_I is None:
+        return None
+    a = torch.as_tensor(u_zero_I, device=device).to(dtype)
+    if a.dim() == 2:
+        a = a.unsqueeze(1)
+    if a.dim() != 3 or a.shape[0] != T or a.shape[1] not in (1, B) \
+            or a.shape[2] != nc:
+        raise ValueError(f'unexpected u_zero_I shape {tuple(a.shape)}')
+    return a.contiguous()
+
+
+def trust_region(cfg, dtype):
+    """``cfg.delta_u`` as the kernels get it: the float32 value of the
+    Python float in float32 (the JAX kernel bakes it in as a float32
+    constant), None for no trust region."""
+    if cfg.delta_u is None:
+        return None
+    d = float(cfg.delta_u)
+    return array.array('f', [d])[0] if dtype == torch.float32 else d
 
 
 def _dyn_operand(a, T, B, n_lead, dtype, device):
@@ -1321,9 +1457,11 @@ def cost_operands(cost, T, B, dtype, device) -> dict:
                 cost_params=None)
 
 
-def _problem_operands(cfg, x_init, cost, u_init, u_lower, u_upper) -> dict:
-    """The operands K1 and K3 share: cost, x0, u0, bounds, the line-search
-    schedule and the solver's scalars."""
+def _problem_operands(cfg, x_init, cost, u_init, u_lower, u_upper,
+                      u_zero_I) -> dict:
+    """The operands K1 and K3 share: cost, x0, u0, bounds, the mask uz
+    [T, 1 or B] and the trust region delta_u, the line-search schedule and
+    the solver's scalars."""
     T = cfg.T
     dtype, device = x_init.dtype, x_init.device
     x0 = x_init.contiguous()
@@ -1339,9 +1477,11 @@ def _problem_operands(cfg, x_init, cost, u_init, u_lower, u_upper) -> dict:
     if u_lower is not None:
         lb = _bound_operand(u_lower, T, B, dtype, device)
         ub = _bound_operand(u_upper, T, B, dtype, device)
+    uz = mask_operand(u_zero_I, T, B, 1, dtype, device)
     return dict(
         **cost_operands(cost, T, B, dtype, device),
-        x0=x0, u0=u0, lb=lb, ub=ub,
+        x0=x0, u0=u0, lb=lb, ub=ub, uz=None if uz is None else uz[..., 0],
+        delta_u=trust_region(cfg, dtype),
         alphas=line_search_schedule(cfg, dtype), lqr_iter=cfg.lqr_iter,
         eps=cfg.eps, best_cost_eps=cfg.best_cost_eps,
         not_improved_lim=float(cfg.not_improved_lim))
@@ -1352,23 +1492,26 @@ def _pendulum_params(dynamics, x0):
 
 
 def k1_operands(cfg, x_init, cost, dynamics, u_init=None,
-                u_lower=None, u_upper=None) -> dict:
+                u_lower=None, u_upper=None, u_zero_I=None) -> dict:
     """K1's operands (the keyword arguments of ``fused_ilqr`` and
     ``fused_solve_plain``) on x_init's device and dtype.
 
     Layouts match learning.batched_solve: x_init [B, 3]; QuadCost leaves
     shared ([4, 4] / [T, 4, 4], [4] / [T, 4]) or batched ([T, B, ...]),
     or a pseudo-Huber cost (``cost_operands``);
-    bounds scalar, [T, 1] or [T, B, 1]; u_init [T, 1] or [T, B, 1].
+    bounds scalar, [T, 1] or [T, B, 1]; u_init [T, 1] or [T, B, 1];
+    u_zero_I None, [T, 1] or [T, B, 1] (``uz`` [T, 1 or B] of 0/1) and
+    ``cfg.delta_u`` (``delta_u``).
     Shared operands keep a batch extent of 1 (batch stride 0 in the
     kernel)."""
-    ops = _problem_operands(cfg, x_init, cost, u_init, u_lower, u_upper)
+    ops = _problem_operands(cfg, x_init, cost, u_init, u_lower, u_upper,
+                            u_zero_I)
     return dict(ops, dynamics=dynamics,
                 params=_pendulum_params(dynamics, ops['x0']))
 
 
 def k3_operands(cfg, x_init, cost, dynamics, u_init=None,
-                u_lower=None, u_upper=None) -> dict:
+                u_lower=None, u_upper=None, u_zero_I=None) -> dict:
     """K3's operands (the keyword arguments of ``fused_ilqr_long`` and
     ``fused_solve_long_plain``), layouts as in ``k1_operands``.  A LinDx
     (F [T-1, 3, 4] or [T-1, B, 3, 4]; f None, [T-1, 3] or [T-1, B, 3])
@@ -1382,7 +1525,8 @@ def k3_operands(cfg, x_init, cost, dynamics, u_init=None,
     a batched c) needs no broadcast, where the TPU kernel keys layouts
     per pair and normalises a mixed pair to batched
     (mpc_tpu/ops/fused.py:2021-2066)."""
-    ops = _problem_operands(cfg, x_init, cost, u_init, u_lower, u_upper)
+    ops = _problem_operands(cfg, x_init, cost, u_init, u_lower, u_upper,
+                            u_zero_I)
     if isinstance(dynamics, NNDynamics):
         w = dynamics.kernel_params().detach()
         return dict(ops, dynamics=dynamics, F=None, f=None,
@@ -1417,7 +1561,9 @@ def slew_problem(cfg, x_init, cost: QuadCost, dynamics, prev_ctrl):
     augmented by the previous control (prev_ctrl [B, n_ctrl], [n_ctrl]
     or None), each leaf in its own layout (a shared leaf stays shared);
     a LinDx's F and f augmented, a model wrapped in its passthrough step
-    (``SlewSoA``)."""
+    (``SlewSoA``).  The controls are the same, so a u_zero_I mask and the
+    bounds pass to the augmented solve as they are
+    (mpc_tpu/ops/fused.py:2576)."""
     import dataclasses
 
     from ..solver import (augment_cost, augment_lindx, prev_ctrl_operand,
@@ -1443,13 +1589,15 @@ def slew_problem(cfg, x_init, cost: QuadCost, dynamics, prev_ctrl):
 
 def fused_batched_solve(cfg, x_init, cost, dynamics,
                         u_init=None, u_lower=None, u_upper=None,
-                        prev_ctrl=None) -> Solution:
+                        prev_ctrl=None, u_zero_I=None) -> Solution:
     """Batched solve through the dense configuration (``routes_dense``),
     K1 or K3 (``routes_long``) on x_init's device (layouts as in
     ``fused_dense.k3d_operands``, ``k1_operands`` and ``k3_operands``;
-    a QuadCost or a pseudo-Huber cost, each kernel's cost build); under a
-    slew penalty, of the augmented problem (``slew_problem``)."""
-    kw = dict(u_init=u_init, u_lower=u_lower, u_upper=u_upper)
+    a QuadCost or a pseudo-Huber cost, each kernel's cost build; a
+    u_zero_I mask and ``cfg.delta_u``, each kernel's); under a slew
+    penalty, of the augmented problem (``slew_problem``)."""
+    kw = dict(u_init=u_init, u_lower=u_lower, u_upper=u_upper,
+              u_zero_I=u_zero_I)
     if cfg.slew_rate_penalty is not None:
         sol = fused_batched_solve(*slew_problem(cfg, x_init, cost, dynamics,
                                                 prev_ctrl), **kw)

@@ -41,9 +41,11 @@ from ..models.cartpole import CartpoleDx
 from ..models.pendulum import PendulumDx
 from ..types import LinDx
 from ..models.cost import huber_quad, huber_terms
-from .fused import (BIG, MAX_ALPHA, SlewSoA, _check_device, _dyn_operand,
-                    cost_op_counts, cost_operands, cost_setup_ops,
-                    line_search_schedule, pendulum_op_counts)
+from .fused import (BIG, MAX_ALPHA, SlewSoA, _check_device,
+                    _check_trust_region, _dyn_operand, _opt_float,
+                    _optional_defines, cost_op_counts, cost_operands,
+                    cost_setup_ops, line_search_schedule, mask_operand,
+                    pendulum_op_counts, trust_ops, trust_region)
 from .math import sqrt_rn as _sqrt
 
 # Examples (warps) a block of the dense kernel.  A warp's tiles of an
@@ -139,18 +141,19 @@ def k3d_launch(T, B, ns, nc, n_alpha, model=False) -> dict:
 
 
 def dense_kernel_defines(ns, nc, has_bounds, has_f, model=None,
-                         slew=False, huber=False) -> dict:
+                         slew=False, huber=False, has_uz=False) -> dict:
     """The nvcc defines of the dense build for these sizes, bounds and f
     (present or absent: a compile-time flag, so that no load goes through
     the pointer of an absent f); with ``model`` (a name of
     ``DENSE_MODELS``) the model-step build, which has no F or f operand
     (MPC_MODEL, and MPC_SLEW for the passthrough step); ``huber`` the
     cost build, which has no C or c operand (MPC_COST = 1, left out for a
-    QuadCost)."""
-    d = {'MPC_NS': ns, 'MPC_NC': nc, 'MPC_HAS_BOUNDS': int(has_bounds),
-         'MPC_HAS_F': int(has_f), 'MPC_WARPS': DENSE_WARPS}
-    if huber:
-        d['MPC_COST'] = 1
+    QuadCost); ``has_uz`` the u_zero_I mask (MPC_HAS_UZ = 1, left out
+    without one, likewise a compile-time flag)."""
+    d = _optional_defines({'MPC_NS': ns, 'MPC_NC': nc,
+                           'MPC_HAS_BOUNDS': int(has_bounds),
+                           'MPC_HAS_F': int(has_f),
+                           'MPC_WARPS': DENSE_WARPS}, huber, has_uz)
     if model is not None:
         if has_f:
             raise ValueError('the model-step build has no f')
@@ -196,7 +199,8 @@ def model_op_counts(name):
 
 
 def k3d_flops(T, ns, nc, lqr_iter, n_alpha, batch=1, *, has_f=False,
-              has_bounds=True, n_qp=0, model_ops=None, huber=False):
+              has_bounds=True, n_qp=0, model_ops=None, huber=False,
+              uz=False, delta_u=False):
     """Arithmetic operations the dense solve needs (each +, -, *, /,
     sqrt counts one; compares, selects and sign flips none), counted as
     ``fused.k3_flops`` counts K3's: ``batch`` initial rollouts with their
@@ -210,7 +214,11 @@ def k3d_flops(T, ns, nc, lqr_iter, n_alpha, batch=1, *, has_f=False,
     rollouts and its T - 1 Jacobians before every sweep; ``huber`` the
     pseudo-Huber cost's terms in the stage costs and its quadratisation
     where a QuadCost's C tau + c is (``fused.cost_op_counts``), and its
-    batch-shared products once (``fused.cost_setup_ops``)."""
+    batch-shared products once (``fused.cost_setup_ops``); ``delta_u`` a
+    trust region's bounds u -+ delta in each trial step
+    (``fused.trust_ops``), and ``uz`` a mask, which without bounds at
+    several controls takes the masked factor (no jitter) in place of the
+    jittered one (its selects count none)."""
     nt = ns + nc
     stage, cb = cost_op_counts(nt, huber)
     step = ns * (2 * nt - 1) + (ns if has_f else 0)
@@ -223,7 +231,7 @@ def k3d_flops(T, ns, nc, lqr_iter, n_alpha, batch=1, *, has_f=False,
         # the gains from the last trip's factor, the bounds' offsets
         ctrl = ns * _solve_ops(nc) + 2 * nc
     else:
-        ctrl = _chol_ops(nc, True) + (ns + 1) * _solve_ops(nc)
+        ctrl = _chol_ops(nc, not uz) + (ns + 1) * _solve_ops(nc)
     vupd = (ns * ns * (2 * nc - 1) + nc * ns * (2 * nc - 1)
             + ns * (ns + 1) // 2 * (2 * nc + 2) + nc * (2 * nc - 1)
             + ns * 5 * nc)
@@ -236,7 +244,7 @@ def k3d_flops(T, ns, nc, lqr_iter, n_alpha, batch=1, *, has_f=False,
     obj = nc * (2 * nc + 2)
     trip = (nc * 2 * nc + _chol_ops(nc, False) + _solve_ops(nc) + 2 * nc + 1
             + obj + 2 * nc + obj + 1 + 3 * nc + 1)
-    ctrl_roll = ns + nc * (2 * ns + 2)
+    ctrl_roll = ns + nc * (2 * ns + 2) + trust_ops(nc, delta_u)
     trial = T * (ctrl_roll + stage) + (T - 1) * step
     full_du = T * 3 * nc + 1
     init = T * stage + (T - 1) * step
@@ -247,13 +255,13 @@ def k3d_flops(T, ns, nc, lqr_iter, n_alpha, batch=1, *, has_f=False,
 def k3d_bytes(ops):
     """Bytes the dense solve must move for the operands ``ops``
     (``k3d_operands``): each input read once, shared ones once for the
-    whole batch (the cost build's parameter vector in place of C and c),
-    and each output (x, u and six stats rows) written once.  The
-    workspace is neither."""
+    whole batch (the cost build's parameter vector in place of C and c; a
+    shared mask once), and each output (x, u and six stats rows) written
+    once.  The workspace is neither."""
     T, B, nc = ops['u0'].shape
     ns = ops['x0'].shape[1]
     ins = [ops[k] for k in ('params', 'cost_params', 'F', 'f', 'C', 'c',
-                            'x0', 'u0', 'lb', 'ub')
+                            'x0', 'u0', 'lb', 'ub', 'uz')
            if ops.get(k) is not None]
     out = (T * B * (ns + nc) + 6 * B) * ops['x0'].element_size()
     return sum(a.numel() * a.element_size() for a in ins) + out
@@ -431,9 +439,15 @@ def _pnqp(H, q, lo, hi, x0, n_iter):
     return x, L, free, trips
 
 
-def _ctrl_solve(t, T, Q, q, u_t, lb_t, ub_t, prev_kt, ns, pnqp_iter):
+def _ctrl_solve(t, T, Q, q, u_t, lb_t, ub_t, prev_kt, ns, pnqp_iter,
+                uz_t=None, delta_u=None):
     """``ctrl_solve`` (mpc_tpu/ops/fused.py:1464-1544) at one step, for
-    the three regimes: (K [B, nc, ns], k [B, nc], the QP's trips [B])."""
+    the three regimes: (K [B, nc, ns], k [B, nc], the QP's trips [B]).
+    Without bounds a mask ``uz_t`` [1 or B, nc] (1 pinned) zeroes the
+    pinned rows of k and K: at one control by a select, at several by the
+    masked factor ``_masked_free_chol`` (no jitter) of the free block with
+    qu and Qux masked (:1475-1503); with bounds it never enters the QP,
+    and ``delta_u`` narrows the box to [-delta_u, delta_u] (:1513-1515)."""
     nc = q.shape[-1] - ns
     B = q.shape[0]
     z = q.new_zeros(B)
@@ -441,16 +455,31 @@ def _ctrl_solve(t, T, Q, q, u_t, lb_t, ub_t, prev_kt, ns, pnqp_iter):
     qu = [q[:, ns + i] for i in range(nc)]
     Qux = Q[:, ns:, :ns]
     if lb_t is None:
+        free = None if uz_t is None else [(uz_t[:, i] + z) < 0.5
+                                          for i in range(nc)]
         if nc == 1:
             inv = 1.0 / Quu[0][0]
-            return ((-Qux) * inv[:, None, None], ((-qu[0]) * inv)[:, None],
-                    z)
-        L = _cholesky(Quu, CHOL_JITTER)
-        kt = [-v for v in _chol_solve(L, qu)]
-        cols = _chol_solve(L, list(Qux.unbind(1)))
+            K, k = (-Qux) * inv[:, None, None], ((-qu[0]) * inv)[:, None]
+            if free is not None:
+                K = torch.where(free[0][:, None, None], K, 0.0)
+                k = torch.where(free[0][:, None], k, 0.0)
+            return K, k, z
+        if free is None:
+            L = _cholesky(Quu, CHOL_JITTER)
+            rhs_k, rhs_K = qu, list(Qux.unbind(1))
+        else:
+            L = _masked_free_chol(Quu, free)
+            rhs_k = [torch.where(free[i], qu[i], 0.0) for i in range(nc)]
+            rhs_K = [torch.where(free[i][:, None], Qux[:, i], 0.0)
+                     for i in range(nc)]
+        kt = [-v for v in _chol_solve(L, rhs_k)]
+        cols = _chol_solve(L, rhs_K)
         return -torch.stack(cols, 1), torch.stack(kt, 1), z
     lo = lb_t - u_t
     hi = ub_t - u_t
+    if delta_u is not None:
+        lo = torch.clamp_min(lo, -delta_u)
+        hi = torch.clamp_max(hi, delta_u)
     if nc == 1:
         Quu_s, qu_s = Quu[0][0], qu[0]
         inv = 1.0 / Quu_s
@@ -475,7 +504,8 @@ def _ctrl_solve(t, T, Q, q, u_t, lb_t, ub_t, prev_kt, ns, pnqp_iter):
 
 def fused_solve_dense_plain(F, f, C, c, x0, u0, lb, ub, *, alphas, lqr_iter,
                             eps, best_cost_eps, not_improved_lim, pnqp_iter,
-                            model=None, params=None, cost_params=None):
+                            model=None, params=None, cost_params=None,
+                            uz=None, delta_u=None):
     """The plain PyTorch version of the dense kernel, on its operands.
 
     F [T-1, 1 or B, ns, ntau]; f None or [T-1, 1 or B, ns]; or, for the
@@ -507,11 +537,19 @@ def fused_solve_dense_plain(F, f, C, c, x0, u0, lb, ub, *, alphas, lqr_iter,
     step size; here every example tries each step size until every
     active one has passed, and each keeps its first passing trial.
     ``n_qp_iter`` counts the box QP's trips (one a step for one control,
-    the projected-Newton trips for several, none without bounds)."""
+    the projected-Newton trips for several, none without bounds).
+
+    ``uz`` None or [T, 1 or B, nc], 1 where a control is pinned to zero
+    (the MPC_HAS_UZ build: ``_ctrl_solve`` without bounds, and each
+    rollout zeroes the control before the clamp), and ``delta_u`` None or
+    the trust region's half-width (bounds required: the QP's box and each
+    rollout's clamp narrowed around the current iterate's control,
+    mpc_tpu/ops/fused.py:1681-1692)."""
     T, B, nc = u0.shape
     ns = x0.shape[1]
     nt = ns + nc
     has_bounds = lb is not None
+    _check_trust_region(delta_u, has_bounds)
     dev, dt = x0.device, x0.dtype
     zero = x0.new_zeros(B)
 
@@ -598,7 +636,8 @@ def fused_solve_dense_plain(F, f, C, c, x0, u0, lb, ub, *, alphas, lqr_iter,
                 q = cb + _dot(Ft, v[:, :, None], 1)
             Kt, kt, qp_inc = _ctrl_solve(
                 t, T, Q, q, u[t], lb[t] if has_bounds else None,
-                ub[t] if has_bounds else None, prev_kt, ns, pnqp_iter)
+                ub[t] if has_bounds else None, prev_kt, ns, pnqp_iter,
+                None if uz is None else uz[t], delta_u)
             K[t], k[t], prev_kt = Kt, kt, kt
             qp_cnt = qp_cnt + qp_inc
             # cost-to-go, summed as vv_update sums it
@@ -624,8 +663,14 @@ def fused_solve_dense_plain(F, f, C, c, x0, u0, lb, ub, *, alphas, lqr_iter,
             for t in range(T):
                 dx = xt - x[t]
                 ut = (_dot(K[t], dx[:, None, :], -1) + u[t]) + a * k[t]
+                if uz is not None:
+                    ut = torch.where(uz[t] > 0.5, 0.0, ut)
                 if has_bounds:
-                    ut = torch.clamp(ut, lb[t], ub[t])
+                    lo, hi = lb[t], ub[t]
+                    if delta_u is not None:
+                        lo = torch.maximum(u[t] - delta_u, lo)
+                        hi = torch.minimum(u[t] + delta_u, hi)
+                    ut = torch.clamp(ut, lo, hi)
                 tau = torch.cat([xt, ut], -1)
                 sc = stage(t, tau)
                 cost_a = sc if cost_a is None else cost_a + sc
@@ -696,6 +741,8 @@ ARGTYPES = [
     _P, _I64, _I64,                       # c, t stride, batch stride
     _P, _P,                               # x0, u0
     _P, _P, _I64, _I64,                   # lb, ub, t stride, batch stride
+    _P, _I64, _I64,                       # u_zero_I, t stride, batch stride
+    ctypes.c_float,                       # delta_u (+inf: none)
     ctypes.POINTER(ctypes.c_float), ctypes.c_int,   # alphas (host), n
     ctypes.c_int, ctypes.c_int,           # lqr_iter, pnqp_iter
     ctypes.c_float, ctypes.c_float, ctypes.c_float,
@@ -706,11 +753,11 @@ ARGTYPES = [
 
 
 def kernel_lib(ns, nc, has_bounds, has_f, model=None, slew=False,
-               huber=False):
+               huber=False, has_uz=False):
     from . import _build
-    fn = _build.load('fused_ilqr_dense',
-                     dense_kernel_defines(ns, nc, has_bounds, has_f, model,
-                                          slew, huber)).mpc_fused_ilqr_dense
+    fn = _build.load('fused_ilqr_dense', dense_kernel_defines(
+        ns, nc, has_bounds, has_f, model, slew, huber,
+        has_uz)).mpc_fused_ilqr_dense
     if fn.argtypes is None:
         fn.argtypes = ARGTYPES
         fn.restype = ctypes.c_int
@@ -719,12 +766,14 @@ def kernel_lib(ns, nc, has_bounds, has_f, model=None, slew=False,
 
 def fused_ilqr_dense(F, f, C, c, x0, u0, lb, ub, *, alphas, lqr_iter, eps,
                      best_cost_eps, not_improved_lim, pnqp_iter, model=None,
-                     params=None, cost_params=None):
+                     params=None, cost_params=None, uz=None, delta_u=None):
     """Run the dense kernel on its operands (layouts as in
     ``fused_solve_dense_plain``) through the op
     ``mpc_tpu_torch::k3d_solve`` (ops/custom.py), a ``model`` as its name
     and slew flag (``dense_model``) and its ``params``; with
-    ``cost_params`` (C and c None) the cost build (MPC_COST).
+    ``cost_params`` (C and c None) the cost build (MPC_COST); with ``uz``
+    [T, 1 or B, nc] the mask build (MPC_HAS_UZ); ``delta_u`` (bounds
+    required) the trust region.
 
     On the CPU the op runs ``fused_solve_dense_plain``.  On a CUDA tensor
     it allocates the workspace of ``k3d_launch``, launches
@@ -736,7 +785,7 @@ def fused_ilqr_dense(F, f, C, c, x0, u0, lb, ub, *, alphas, lqr_iter, eps,
         F, f, C, c, x0, u0, lb, ub, [float(a) for a in alphas],
         int(lqr_iter), float(eps), float(best_cost_eps),
         float(not_improved_lim), int(pnqp_iter), name, slew, params,
-        cost_params)
+        cost_params, uz, _opt_float(delta_u))
 
 
 def _ctrl_bound(a, T, B, nc, dtype, device):
@@ -754,7 +803,7 @@ def _ctrl_bound(a, T, B, nc, dtype, device):
 
 
 def k3d_operands(cfg, x_init, cost, dynamics, u_init=None,
-                 u_lower=None, u_upper=None) -> dict:
+                 u_lower=None, u_upper=None, u_zero_I=None) -> dict:
     """The dense kernel's operands (the keyword arguments of
     ``fused_ilqr_dense`` and ``fused_solve_dense_plain``) on x_init's
     device and dtype.  Layouts match learning.batched_solve: x_init
@@ -764,7 +813,9 @@ def k3d_operands(cfg, x_init, cost, dynamics, u_init=None,
     [T, nc] or [T, B, nc]; u_init [T, nc] or [T, B, nc].  A model (a
     pendulum, the cartpole or a ``SlewSoA``) gives F = f = None, the
     model and its parameters; a pseudo-Huber cost gives C = c = None and
-    its ``cost_params`` (``fused.cost_operands``)."""
+    its ``cost_params`` (``fused.cost_operands``); u_zero_I None, [T, nc]
+    or [T, B, nc] gives ``uz`` [T, 1 or B, nc] of 0/1
+    (``fused.mask_operand``) and ``cfg.delta_u`` ``delta_u``."""
     T, nc = cfg.T, cfg.n_ctrl
     dtype, device = x_init.dtype, x_init.device
     x0 = x_init.contiguous()
@@ -793,6 +844,8 @@ def k3d_operands(cfg, x_init, cost, dynamics, u_init=None,
                        device=device, dtype=dtype).contiguous())
     return dict(**dyn, **cost_operands(cost, T, B, dtype, device),
                 x0=x0, u0=u0, lb=lb, ub=ub,
+                uz=mask_operand(u_zero_I, T, B, nc, dtype, device),
+                delta_u=trust_region(cfg, dtype),
                 alphas=line_search_schedule(cfg, dtype),
                 lqr_iter=cfg.lqr_iter, eps=cfg.eps,
                 best_cost_eps=cfg.best_cost_eps,

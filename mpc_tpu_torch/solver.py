@@ -15,7 +15,9 @@ This is the route of every problem the kernels do not take
 (learning.batched_solve): float64 on the card, callable costs and
 dynamics, models without a kernel step (the affine and passthrough
 models, deeper MLPs, an MLP under slew), sizes past the dense gate,
-u_zero_I and delta_u.  It runs on whatever device its inputs are on.
+delta_u without bounds (u_zero_I, and delta_u with bounds, go to the
+kernels, and come here under ``use_fused='never'``).  It runs on
+whatever device its inputs are on.
 
 A callable cost maps tau [..., n_tau] to [...], and a callable model
 maps x [..., n_state], u [..., n_ctrl] to [..., n_state], acting on the

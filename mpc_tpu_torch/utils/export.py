@@ -144,7 +144,8 @@ def kernel_nodes(program) -> dict:
     return counts
 
 
-def _route_for(cfg: MPCConfig, cost, dynamics, dtype, device) -> MPCConfig:
+def _route_for(cfg: MPCConfig, cost, dynamics, dtype, device,
+               u_lower=None) -> MPCConfig:
     """Pin ``use_fused`` to the route ``device`` takes (the counterpart
     of ``_dispatch_for_platforms``, mpc_tpu/utils/export.py:83-122):
     batched_solve decides from the device it runs on, which is the
@@ -153,7 +154,8 @@ def _route_for(cfg: MPCConfig, cost, dynamics, dtype, device) -> MPCConfig:
     if cfg.use_fused != 'auto':
         return cfg
     from ..ops import fused
-    gap = fused.scope_gap(cfg, cost, dynamics, dtype=dtype, device=device)
+    gap = fused.scope_gap(cfg, cost, dynamics, u_lower=u_lower, dtype=dtype,
+                          device=device)
     return dataclasses.replace(cfg, use_fused='never' if gap else 'always')
 
 
@@ -255,7 +257,7 @@ def export_solve(cfg: MPCConfig, dynamics, cost: QuadCost, x_init,
     sig = list(ex)
     cfg = _route_for(cfg, QuadCost(ex['C'], ex['c']),
                      LinDx(ex['F'], ex.get('f')) if is_lindx else dynamics,
-                     dtype, target)
+                     dtype, target, u_lower)
 
     def fn(*args):
         kw = dict(zip(sig, args))
@@ -310,7 +312,7 @@ def export_closed_loop(cfg: MPCConfig, cost, dynamics, x_init,
 
     target = resolve_device(device)
     x_init = _tensor(x_init, None, target)
-    cfg = _route_for(cfg, cost, dynamics, x_init.dtype, target)
+    cfg = _route_for(cfg, cost, dynamics, x_init.dtype, target, u_lower)
     roll = make_closed_loop(cfg, cost, dynamics, env_dynamics=env_dynamics,
                             u_lower=u_lower, u_upper=u_upper,
                             device=x_init.device)

@@ -83,6 +83,17 @@ T=200 and the cartpole by that alone); K1's build is bitwise the same in
 any batch, the entry points launch it once a request, a differentiable
 solve launches K1 and K2 once each, and a broken library raises.
 
+Controls pinned to zero (each kernel's MPC_HAS_UZ build) and the trust
+region delta_u (K1 on the pendulum, K3 on a batched LinDx, the pendulum
+at T=200 and the MLP, the dense configuration at 3 states and 4
+controls unbounded, at hw_sweep's 3 states and 2 controls, on the
+cartpole and under slew) are held to their plain version at B=2050, one
+case a process under CUDA_LAUNCH_BLOCKING=1: pinned controls exactly
+0.0, n_iter equal in 99% of the examples, no further from float64 than
+twice the plain float32 run; masked K1 and dense builds are bitwise the
+same in any batch, batched_solve and MPC launch K1 once a request, and
+a broken library raises.
+
 The closed loop (make_closed_loop) launches K1 once a step and runs its
 steps without a synchronising call (torch.cuda.set_sync_debug_mode
 'error' after a first rollout); without a card and without a device it
@@ -115,6 +126,7 @@ from mpc_tpu_torch import solver
 from mpc_tpu_torch.models import PendulumDx
 from mpc_tpu_torch.ops import (_build, fused, fused_bwd, fused_bwd_dense,
                                fused_dense)
+from mpc_tpu_torch.utils.problems import hw_sweep_delta_u
 
 pytestmark = pytest.mark.gpu
 
@@ -362,6 +374,8 @@ def _eager_problems(device):
                      dict(u_lower=-100.0, u_upper=100.0)),
         'damped_pendulum': (dict(T=T), x0, cost,
                             PendulumDx(simple=False, **kw), box),
+        # a mask and a trust region are kernel configurations in float32
+        # (test_uz_matches_plain); in float64 the card's route is eager
         'u_zero_I': (dict(T=T), x0, cost, dx, dict(u_zero_I=torch.tensor(
             rng.rand(T, B, 1) < 0.3, device=device))),
         'delta_u': (dict(T=T, delta_u=0.3), x0, cost, dx, box),
@@ -1557,9 +1571,199 @@ def test_huber_position_free_and_entry_points(cuda, monkeypatch):
     assert solver.eager_counts['eager_solve'] == 0
 
 
+# ---------------------------------------------------------------------------
+# controls pinned to zero (MPC_HAS_UZ) and the trust region delta_u
+# ---------------------------------------------------------------------------
+
+# each new define set and the trust region in each kernel: (problem,
+# mask, bounded, delta_u); 'shared' pins every example's controls at t =
+# 3..5 (benchmarks/hw_sweep.py:68-80), 'batched' 15% of them at random
+UZ_CASES = {
+    'uz_k1_shared_box': ('K1', 'shared', True, None),
+    'uz_k1_batched_unbounded': ('K1', 'batched', False, None),
+    'delta_k1': ('K1', None, True, 0.3),
+    'uz_k3_lindx_delta': ('K3 lindx', 'batched', True, 0.3),
+    'uz_k3_pendulum_long': ('K3 pendulum', 'shared', True, None),
+    'uz_k3_mlp': ('K3 mlp', 'shared', True, None),
+    'uz_dense_unbounded': ('dense 3s4c', 'batched', False, None),
+    'delta_dense_box': ('dense 3s2c', None, True, 0.3),
+    'uz_dense_cartpole_delta': ('dense cartpole', 'batched', True, 10.0),
+    'uz_dense_slew': ('dense slew', 'shared', True, None),
+}
+
+
+def _uz_problem(device, case, B, dtype=torch.float32, seed=0):
+    """(ops, kernel, plain) of a UZ_CASES case at B: the problem's
+    operands with its mask and trust region."""
+    from mpc_tpu_torch.models import CartpoleDx
+    prob, mask, bounded, delta = UZ_CASES[case]
+    rng = np.random.RandomState(seed)
+    t = (lambda a: torch.tensor(np.asarray(a), dtype=dtype, device=device))
+    box, nc = 2.0, 1
+    if prob == 'K1' or prob == 'dense slew':
+        T = 20
+        x0, dx, cost = _problem(device, B, T, seed)
+        cfg = _cfg(T, lqr_iter=6, linesearch_decay=0.2,
+                   max_linesearch_iter=3)
+    elif prob == 'K3 lindx':
+        T = 40
+        x0, dx, cost = _lindx_problem(device, T, B, True, False, seed,
+                                      dtype)
+        cfg, box = _cfg(T, lqr_iter=4, linesearch_decay=0.2,
+                        max_linesearch_iter=3), 0.6
+    elif prob == 'K3 pendulum':
+        T = 200
+        x0, dx, cost = _problem(device, B, T, seed)
+        cfg = _cfg(T, lqr_iter=3, linesearch_decay=0.2)
+    elif prob == 'K3 mlp':
+        T = 20
+        x0, dx, cost = _nn_problem(device, B, T, dtype=dtype)
+        cfg = _cfg(T, lqr_iter=6, linesearch_decay=0.2,
+                   max_linesearch_iter=3)
+    elif prob == 'dense 3s4c':
+        cfg, x0, cost, dx, _ = _dense_problem(device, B, 3, 4, T=5,
+                                              bounded=False, layout='tvlqr',
+                                              dtype=dtype, seed=seed)
+        T, nc = 5, 4
+    elif prob == 'dense 3s2c':
+        T, nc = 8, 2
+        F, C, c, x0, lb, ub = hw_sweep_delta_u(T, B)
+        cost, dx = mt.QuadCost(t(C), t(c)), mt.LinDx(t(F))
+        x0, box = t(x0), (t(lb), t(ub))
+        cfg = _cfg(T, n_state=3, n_ctrl=nc, lqr_iter=8, pnqp_iter=20,
+                   linesearch_decay=0.2, max_linesearch_iter=3)
+    else:
+        T = 25
+        th = 0.5 * (2 * rng.rand(B) - 1)
+        z = np.zeros(B)
+        x0 = t(np.stack([z, z, np.cos(th), np.sin(th), z], 1))
+        dx = CartpoleDx(device=device, dtype=dtype)
+        q, p = dx.get_true_obj()
+        cost, box = mt.QuadCost(torch.diag(q), p), 100.0
+        cfg = _cfg(T, n_state=5, lqr_iter=10, linesearch_decay=0.5,
+                   max_linesearch_iter=2)
+    x0, cost = x0.to(dtype), mt.QuadCost(cost.C.to(dtype), cost.c.to(dtype))
+    if isinstance(dx, PendulumDx):
+        dx = PendulumDx(device=device, dtype=dtype)
+    cfg = dataclasses.replace(cfg, delta_u=delta)
+    uz = None
+    if mask == 'shared':
+        uz = np.zeros((T, nc), bool)
+        uz[3:6] = True
+    elif mask == 'batched':
+        uz = np.random.RandomState(seed + 1).rand(T, B, nc) < 0.15
+    bk = dict(u_zero_I=None if uz is None else torch.tensor(uz,
+                                                            device=device))
+    if bounded:
+        lo, hi = box if isinstance(box, tuple) else (-box, box)
+        bk.update(u_lower=lo, u_upper=hi)
+    if prob == 'dense slew':
+        cfg = dataclasses.replace(cfg, slew_rate_penalty=0.5)
+        prev = t(rng.uniform(-1, 1, (B, 1)))
+        cfg, x0, cost, dx = fused.slew_problem(cfg, x0, cost, dx, prev)
+    if prob.startswith('dense'):
+        return (fused_dense.k3d_operands(cfg, x0, cost, dx, **bk),
+                fused_dense.fused_ilqr_dense,
+                fused_dense.fused_solve_dense_plain)
+    if prob == 'K1':
+        return (fused.k1_operands(cfg, x0, cost, dx, **bk), fused.fused_ilqr,
+                fused.fused_solve_plain)
+    return (fused.k3_operands(cfg, x0, cost, dx, **bk),
+            fused.fused_ilqr_long, fused.fused_solve_long_plain)
+
+
+def uz_case_main(case):
+    """One case against its plain version at B=2050, run alone in a
+    process under CUDA_LAUNCH_BLOCKING=1 by test_uz_matches_plain: one
+    launch, finite, pinned controls exactly 0.0, no control step past
+    delta_u in the first iteration's box, n_iter equal in 99% of the
+    examples, and no further from float64 than twice the plain float32
+    run (the kinks of a mask amplify the float32 iterate divergence,
+    benchmarks/hw_sweep.py:42-56, so float64 is the yardstick here; the
+    tail is printed)."""
+    device = torch.device('cuda')
+    ops, kernel, plain = _uz_problem(device, case, 2050)
+    ops64, _, _ = _uz_problem(device, case, 2050, torch.float64)
+    fused.reset_launch_counts()
+    xk, uk, sk = kernel(**ops)
+    torch.cuda.synchronize()
+    assert sum(fused.launch_counts.values()) == 1
+    xp, up, sp = plain(**ops)
+    _, u64, _ = plain(**ops64)
+    assert torch.isfinite(xk).all() and torch.isfinite(uk).all()
+    if ops['uz'] is not None:
+        pinned = (ops['uz'] > 0.5).expand_as(
+            uk if uk.dim() == ops['uz'].dim() else uk[..., 0])
+        assert float(uk.reshape(pinned.shape)[pinned].abs().max()) == 0.0
+    assert float((sk[2] == sp[2]).double().mean()) >= 0.99
+    _assert_near_f64(uk, up, u64)
+    d = (uk - up).abs()
+    print('ok', case, float(d.max()), float(d.mean()))
+
+
+@pytest.mark.parametrize('case', list(UZ_CASES))
+def test_uz_matches_plain(cuda, case):
+    """Each MPC_HAS_UZ define set and the trust region in each kernel
+    against the plain version at B=2050, one case a process under
+    CUDA_LAUNCH_BLOCKING=1: a load through an absent operand would fault
+    at its own launch there."""
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, CUDA_LAUNCH_BLOCKING='1',
+               PYTHONPATH=os.pathsep.join(
+                   [root, os.environ.get('PYTHONPATH', '')]))
+    r = subprocess.run([sys.executable, os.path.abspath(__file__), case],
+                       env=env, cwd=root, capture_output=True, text=True,
+                       timeout=600)
+    assert r.returncode == 0 and f'ok {case}' in r.stdout, \
+        r.stdout[-2000:] + r.stderr[-4000:]
+
+
+def test_uz_position_free_and_entry_points(cuda, monkeypatch):
+    """A masked K1 and a masked dense solve give an example's bits
+    whatever batch it sits in; batched_solve launches K1 once for a masked
+    request and MPC once under delta_u, with no eager solve; delta_u
+    without bounds under 'always' raises; with the mask build's library
+    broken a request raises rather than falls back."""
+    for case in ('uz_k1_shared_box', 'uz_dense_unbounded'):
+        ops, kernel, _ = _uz_problem(cuda, case, 2050)
+        full = kernel(**ops)
+        assert all(torch.equal(a, b) for a, b in zip(full, kernel(**ops)))
+        _assert_position_free(kernel, ops, full)
+    x0, dx, cost = _problem(cuda, 256, 20)
+    uz = torch.rand(20, 256, 1, device=cuda) < 0.2
+    cfg = _cfg(20, lqr_iter=6)
+    solver.reset_eager_counts()
+    sol, launched = _launched(lambda: mt.batched_solve(
+        cfg, x0, cost, dx, u_lower=-2.0, u_upper=2.0, u_zero_I=uz))
+    assert launched == {'fused_ilqr': 1}
+    assert float(sol.u[uz].abs().max()) == 0.0
+    ctrl = mt.MPC(3, 1, 20, u_lower=-2.0, u_upper=2.0, lqr_iter=6,
+                  delta_u=0.3, exit_unconverged=False, backprop=False)
+    _, launched = _launched(lambda: ctrl(x0, cost, dx))
+    assert launched == {'fused_ilqr': 1}
+    assert solver.eager_counts['eager_solve'] == 0
+    with pytest.raises(ValueError, match='always'):
+        mt.batched_solve(dataclasses.replace(cfg, delta_u=0.3,
+                                             use_fused='always'),
+                         x0, cost, dx)
+
+    def broken(*a, **k):
+        raise RuntimeError('the library is broken')
+
+    monkeypatch.setattr(fused, '_kernel_lib', broken)
+    with pytest.raises(RuntimeError, match='broken'):
+        mt.batched_solve(cfg, x0, cost, dx, u_zero_I=uz)
+    assert solver.eager_counts['eager_solve'] == 0
+
+
 if __name__ == '__main__':
     import sys
     if sys.argv[1] in HUBER_CASES:
         huber_case_main(sys.argv[1])
+    elif sys.argv[1] in UZ_CASES:
+        uz_case_main(sys.argv[1])
     else:
         soa_case_main(sys.argv[1])

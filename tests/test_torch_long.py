@@ -24,9 +24,10 @@ which the CPU path runs) and its LinDx front end against the JAX package.
 - the LinDx pieces of the front end: ``lin_dx_from_numpy``, ``rollout``
   and ``linearize_dynamics`` against mpc_tpu's (1e-12, float64), ``MPC``
   with [T, ...] time dims against ``mpc_tpu.MPC`` (1e-8), the routing
-  predicate and the kernels' scope; the LinDx problems outside it
-  (n_ctrl > 1, u_zero_I, delta_u, use_fused='never', float64 by both
-  routes) through the eager solver against mpc_tpu's jnp path (1e-10).
+  predicate and the kernels' scope; LinDx problems on the eager solver
+  (use_fused='never', with n_ctrl > 1, u_zero_I and delta_u, which the
+  kernels take under 'auto'; float64 by both routes) against mpc_tpu's
+  jnp path (1e-10).
 """
 
 import numpy as np
@@ -335,9 +336,6 @@ SCOPE_GAPS = {
     'lindx_f64_on_card': (dict(), _lin, dict(dtype=torch.float64,
                                              device=torch.device('cuda')),
                           'float64'),
-    'lindx_u_zero_I': (dict(), _lin, dict(u_zero_I=torch.zeros(5, 1)),
-                       'queue 2'),
-    'lindx_delta_u': (dict(delta_u=0.1), _lin, {}, 'queue 2'),
     # the augmented state is u_{t-1} and the 31 states: 32, with the
     # control 33, past the dense configuration's 32 (a 3-state LinDx
     # augments to 4 states, which it takes)
@@ -356,25 +354,51 @@ def test_scope_gap_names_what_waits(case):
     assert not fused.supports(cfg, cost, make(), **kw)
 
 
+# problems the refusal table above held until the kernels took them: the
+# LinDx of 3 states and 1 control with a mask, and with delta_u and bounds,
+# go to K3 (on the card as on the CPU; the 2-control one to the dense
+# configuration)
+KERNEL_ROUTE = {
+    'lindx_u_zero_I': (dict(), 1, dict(u_zero_I=torch.zeros(5, 1))),
+    'lindx_delta_u': (dict(delta_u=0.1), 1, dict(u_lower=-1.0)),
+    'lindx_n_ctrl_2_delta_u': (dict(delta_u=0.1), 2, dict(u_lower=-1.0)),
+}
+
+
+@pytest.mark.parametrize('case', list(KERNEL_ROUTE))
+def test_masks_and_trust_regions_take_the_kernels(case):
+    cfg_kw, nc, kw = KERNEL_ROUTE[case]
+    cfg = mt.MPCConfig(**dict(dict(n_state=3, n_ctrl=nc, T=5), **cfg_kw))
+    cost = quad_cost_from_numpy(np.eye(3 + nc), np.zeros(3 + nc), 'cpu')
+    dyn = mt.LinDx(torch.zeros(4, 3, 3 + nc))
+    for device in ('cpu', 'cuda'):
+        assert fused.scope_gap(cfg, cost, dyn, device=torch.device(device),
+                               **kw) is None
+    assert fused.routes_dense(dyn, 3, nc) == (nc > 1)
+    assert fused.routes_long(dyn, 5)
+
+
 EAGER_ROUTE = {
-    # MPCConfig keywords, n_ctrl, batched_solve keywords; two controls
-    # under delta_u (the dense configuration takes two controls, not
-    # delta_u)
-    'lindx_n_ctrl_2': (dict(delta_u=0.1), 2, {}),
+    # MPCConfig keywords, n_ctrl, batched_solve keywords; the mask and
+    # delta_u go to the kernels under 'auto' (test_torch_uzero.py), so
+    # their eager cases, and two controls under delta_u, are pinned to
+    # use_fused='never'
+    'lindx_n_ctrl_2': (dict(delta_u=0.1, use_fused='never'), 2, {}),
     'lindx_eager': (dict(use_fused='never'), 1, {}),
     # one iteration: the masked solve is exact up to its 1e-11
     # regularisation, and a second step that small ties to round-off in
     # both line searches (compare alpha where the step is real only)
-    'lindx_u_zero_I': (dict(lqr_iter=1), 1, dict(u_zero_I=True)),
-    'lindx_delta_u': (dict(delta_u=0.1), 1, {}),
+    'lindx_u_zero_I': (dict(lqr_iter=1, use_fused='never'), 1,
+                       dict(u_zero_I=True)),
+    'lindx_delta_u': (dict(delta_u=0.1, use_fused='never'), 1, {}),
     'lindx_f64': (dict(use_fused='never'), 1, dict(against_kernel=True)),
 }
 
 
 @pytest.mark.parametrize('case', list(EAGER_ROUTE))
 def test_kernel_gaps_solve_eagerly(case):
-    """The LinDx problems of test_scope_gap_names_what_waits that the
-    kernels refuse (and use_fused='never') run on the eager solver and
+    """LinDx problems on the eager solver (use_fused='never'; the
+    kernels take the mask and delta_u under 'auto', test_torch_uzero.py)
     match mpc_tpu's jnp path in float64: x, u and costs within 1e-10
     relative, n_iter and n_qp_iter equal, alpha where the full step is
     real.  'lindx_f64' also holds the eager route against the kernel's

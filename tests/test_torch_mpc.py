@@ -4,8 +4,8 @@
   mpc_tpu.MPC in float64 (tolerance 1e-8: each solve agrees to ~1e-12 and
   the closed loop carries the states on; see test_torch_fused.py);
 - the reference's exit semantics; the knobs and problems the kernels do
-  not take (u_zero_I, delta_u, use_fused='never', the damped pendulum,
-  n_ctrl = 2, a callable cost) through the eager solver against
+  not take (use_fused='never', with u_zero_I and delta_u too, the damped
+  pendulum, n_ctrl = 2, a callable cost) through the eager solver against
   mpc_tpu's jnp path (1e-10 in float64); the knobs that no route took
   before (slew, prev_ctrl, verbose, ANALYTIC_CHECK, the O(log T) scan)
   against mpc_tpu.MPC; gradients through
@@ -159,18 +159,23 @@ def test_surface_knobs_match_jax_mpc(case, monkeypatch):
         assert np.abs(a.numpy() - b).max() <= 1e-10 * np.abs(b).max()
 
 
+# u_zero_I and delta_u with bounds go to the kernels under 'auto'
+# (tests/test_torch_uzero.py holds that route against mpc_tpu); here they
+# run on the eager solver under use_fused='never', which must match the
+# jnp path's arithmetic
 EAGER_KNOBS = {
     'u_zero_I': dict(u_zero_I=np.array([[False], [True], [False], [True],
-                                        [False]])),
-    'delta_u': dict(u_lower=-2., u_upper=2., delta_u=0.5),
+                                        [False]]), use_fused='never'),
+    'delta_u': dict(u_lower=-2., u_upper=2., delta_u=0.5,
+                    use_fused='never'),
     'eager_solver': dict(u_lower=-2., u_upper=2., use_fused='never'),
 }
 
 
 @pytest.mark.parametrize('case', list(EAGER_KNOBS))
 def test_eager_knobs_match_jax_mpc(case):
-    """Knobs the kernels do not take run on the eager solver through the
-    MPC front end and match mpc_tpu.MPC (its jnp path) in float64; the
+    """Knobs through the MPC front end on the eager solver
+    (use_fused='never') match mpc_tpu.MPC (its jnp path) in float64; the
     pendulum's swing-up from a generic angle, 4 iterations, 1e-10
     relative."""
     kw = dict(EAGER_KNOBS[case], lqr_iter=4, backprop=False,
@@ -261,10 +266,17 @@ def test_out_of_scope_problems_raise():
                          lambda x, u: x, device='cpu')
     q32, p32 = np.diag(Q).astype(np.float32), P.astype(np.float32)
     damped = PendulumDx(simple=False, device='cpu')
-    # delta_u still waits for its kernel configuration
+    # delta_u with bounds is in the kernels' scope
+    # (tests/test_torch_uzero.py); a problem they refuse for another
+    # reason (an MLP of 4 states, ROADMAP queue 2) raises under 'always'
+    # with delta_u too
+    mlp4 = mt.NNDynamics.init(4, 1, (8,), 'sigmoid', device='cpu',
+                              generator=torch.Generator().manual_seed(0))
     with pytest.raises(NotImplementedError, match='queue 2'):
-        mt.batched_solve(_cfg(use_fused='always', delta_u=0.5), x0.float(),
-                         quad_cost_from_numpy(q32, p32, 'cpu'), damped,
+        mt.batched_solve(_cfg(n_state=4, use_fused='always', delta_u=0.5),
+                         torch.zeros(2, 4), quad_cost_from_numpy(
+                             np.eye(5, dtype=np.float32),
+                             np.zeros(5, np.float32), 'cpu'), mlp4,
                          u_lower=-2., u_upper=2., device='cpu')
     # the pseudo-Huber cost, refused here before the kernels' cost build,
     # now solves under 'always' (the plain K1 on the CPU)

@@ -7,7 +7,9 @@ cases of tests/test_sharding.py, float64.
 - the LinDx problem with four controls, box bounds (test_sharding.py:
   21-36), within 1e-10 of ``mpc_tpu.parallel.solve_sharded``;
 - u_zero_I (batched) and prev_ctrl (per example, under a slew penalty)
-  passed through the shards, within 1e-10;
+  passed through the shards, within 1e-10 on the eager route, and on the
+  kernel route (the dense configuration's plain version) bitwise the
+  unsharded solve;
 - the nonlinear pendulum: on the eager route within 1e-10 of the JAX
   package (the same algorithm as its jnp path), and on the kernel route
   (the plain K1) bitwise the unsharded solve, as every example is solved
@@ -146,7 +148,7 @@ def test_sharded_dense_kernel_route_is_the_unsharded_one():
         assert torch.equal(a, b)
 
 
-def test_sharded_u_zero_prev_ctrl_passthrough():
+def _u_zero_prev_ctrl_problem():
     (C, c, F, f, x0, lb, ub), jx = _both(_problem(16, seed=7))
     npr.seed(11)
     uz = npr.rand(5, 16, 4) < 0.3
@@ -154,7 +156,18 @@ def test_sharded_u_zero_prev_ctrl_passthrough():
     kw = dict(n_state=3, n_ctrl=4, T=5, lqr_iter=6, exit_unconverged=False,
               detach_unconverged=False, backprop=False,
               slew_rate_penalty=0.1)
-    sol = solve_sharded(mt.MPCConfig(**kw), make_mesh(MESH), x0,
+    return (C, c, F, f, x0, lb, ub), jx, uz, pc, kw
+
+
+def test_sharded_u_zero_prev_ctrl_passthrough():
+    """The mask and prev_ctrl reach every shard, against mpc_tpu's jnp
+    path on the port's eager route (use_fused='never': under 'auto' the
+    masked slew problem goes to the dense kernel, whose box QP parts from
+    the jnp path's at round-off ties, as PR 10 found for
+    test_sharded_solve_matches_jax; its own sharded check is below)."""
+    (C, c, F, f, x0, lb, ub), jx, uz, pc, kw = _u_zero_prev_ctrl_problem()
+    sol = solve_sharded(mt.MPCConfig(**kw, use_fused='never'),
+                        make_mesh(MESH), x0,
                         mt.QuadCost(C, c), mt.LinDx(F, f), u_lower=lb,
                         u_upper=ub, u_zero_I=torch.tensor(uz),
                         prev_ctrl=torch.tensor(pc))
@@ -165,6 +178,24 @@ def test_sharded_u_zero_prev_ctrl_passthrough():
                           u_zero_I=jnp.asarray(uz),
                           prev_ctrl=jnp.asarray(pc))
     _close(sol.u, ref.u)
+    assert float(sol.u[torch.tensor(uz)].abs().max()) == 0.0
+
+
+def test_sharded_u_zero_kernel_route_is_the_unsharded_one():
+    """The same masked slew problem on the kernels' route (K3's dense
+    configuration through the slew passthrough, its plain version here):
+    the sharded solve gives the unsharded solve's bits, the pinned
+    controls exactly 0.0, and no eager solve."""
+    (C, c, F, f, x0, lb, ub), _, uz, pc, kw = _u_zero_prev_ctrl_problem()
+    args = (x0, mt.QuadCost(C, c), mt.LinDx(F, f))
+    bk = dict(u_lower=lb, u_upper=ub, u_zero_I=torch.tensor(uz),
+              prev_ctrl=torch.tensor(pc))
+    solver.reset_eager_counts()
+    sol = solve_sharded(mt.MPCConfig(**kw), make_mesh(MESH), *args, **bk)
+    one = mt.batched_solve(mt.MPCConfig(**kw), *args, device='cpu', **bk)
+    assert solver.eager_counts['eager_solve'] == 0
+    for a, b in zip(sol[:8], one[:8]):
+        assert torch.equal(a, b)
     assert float(sol.u[torch.tensor(uz)].abs().max()) == 0.0
 
 
