@@ -155,6 +155,24 @@ against the sequential recursion, and the scan in the long
 configuration's float64 gradients ([pscan]); MPC(verbose=1) and
 ANALYTIC_CHECK on the card ([verbose]).
 
+Learned dynamics at any size in the dense configuration's MLP build
+(MPC_MODEL 4, csrc/nn_dense.cuh: the weights in a block's shared memory,
+the step a unit a lane, the Jacobian as the reverse product of the layers
+in a pass over t before each sweep), at the rows of
+mpc_tpu_torch/utils/problems.MLP_ROWS: bench_nn_dynamics under slew 0.5
+(4 augmented states), the two-hidden-layer (64, 64) model of
+examples/gym_pendulum_approximate.py at B=2048 and B=1, and one hidden
+layer of 100 units at 8 states and 4 controls, with a box and without:
+each row in a process of its own under CUDA_LAUNCH_BLOCKING=1, then
+against its plain version in the float32 tail or by float64, reversed,
+sliced and B+2 batches bitwise ([compare-mlp]; the workers are this
+script with --mlp-worker); requests through batched_solve and MPC, one
+launch each, beside the eager route's ms ([serve-mlp]); each row's time
+from a CUDA graph beside its bound, with K3's MLP configuration on
+bench_nn_dynamics as the reference point ([time-mlp]); gradients of the
+8-state row to the MLP's weights and x_init through one dense forward
+and one dense backward against the eager fixed point ([grad-mlp]).
+
 The kernels are torch.library ops (mpc_tpu_torch/ops/custom.py), so the
 port's artifacts and scale-out run on the card too, each against the live
 path: the headline exported with torch.export and answered by a fresh
@@ -170,7 +188,8 @@ the one card, bitwise ([sharded]); config 4's sharded train step against
 the unsharded one ([train-sharded]) and over two gloo processes on the
 card ([pod]); a run resumed from a checkpoint in a fresh process,
 bitwise ([checkpoint]).  The worker processes are this script with
---serve-worker, --pod-worker, --resume-worker or --uz-worker.
+--serve-worker, --pod-worker, --resume-worker, --uz-worker or
+--mlp-worker.
 
 It prints one JSON line of kernel numbers, one of the artifact and
 scale-out times, one of the eager phases, the card's name and power
@@ -359,6 +378,8 @@ def phase_build():
     # u_zero_I and delta_u: each UZ_ROWS row's mask build (MPC_HAS_UZ = 1)
     # and its build without the mask, the [time-uz] baseline
     specs += [s for s in uz_build_specs() if s not in specs]
+    # the dense configuration's MLP build at each MLP_CASES row
+    specs += [s for s in mlp_build_specs() if s not in specs]
     t0 = time.perf_counter()
     paths = _build.build(specs)
     log(f'[build] nvcc {" ".join(_build.NVCC_FLAGS)} '
@@ -5256,6 +5277,471 @@ def uz_entries(rows, serve, compare):
         out.append(e)
     return out
 
+# ---------------------------------------------------------------------------
+# learned dynamics at any size: the dense configuration's MLP build
+# (MPC_MODEL 4, csrc/nn_dense.cuh)
+# ---------------------------------------------------------------------------
+
+# (label, row of mpc_tpu_torch/utils/problems.MLP_ROWS, B, bounds, gate):
+# bench_nn_dynamics under slew 0.5 (4 augmented states), the (64, 64)
+# model of examples/gym_pendulum_approximate.py at B=2048 and at the
+# example's own B=1, and the reference's default width at 8 states and 4
+# controls with box +-1 and, at B=2050, without bounds (the jittered
+# Cholesky).  The gate ([compare-mlp]) is the float32 tail where the row
+# was measured inside it on the H100, float64 where two float32 solves
+# part beyond it (mlp-slew: 0.61% of the controls past 1e-3; mlp-deep:
+# n_iter equal in 97.6% of the examples at eps 1e-2, both float32 runs
+# up to 0.2 from float64 in a first chip run, PERF.md section 6).
+MLP_CASES = (
+    ('mlp-slew', 'mlp-slew', 2048, True, 'float64'),
+    ('mlp-deep', 'mlp-deep', 2048, True, 'float64'),
+    ('mlp-deep B=1', 'mlp-deep', 1, True, 'tail'),
+    ('mlp-multictrl', 'mlp-multictrl', 2048, True, 'tail'),
+    ('mlp-multictrl unbounded', 'mlp-multictrl', 2050, False, 'tail'),
+)
+MLP_REQUESTS = 4
+# the rows whose build this is, and the TPU kernel mode each replaces: the
+# stream form (one hidden layer, mpc_tpu/ops/fused.py:1252) or the tuple
+# path (deeper, :1307)
+MLP_REPLACES = {1: 'mpc_tpu/ops/fused.py:1252', 2: 'mpc_tpu/ops/fused.py:1307'}
+
+
+def mlp_case(label):
+    return next(r for r in MLP_CASES if r[0] == label)
+
+
+def mlp_problem(torch, device, label, dtype=None, n=None):
+    """(cfg, x0, cost, model, bounds, prev_ctrl) of an MLP_CASES row at its
+    own sizes (or on its first n examples), on the kernel route; the
+    model's weights from problems.mlp_row's numpy seed, in ``dtype``."""
+    import mpc_tpu_torch as mt
+    from mpc_tpu_torch.utils.convert import nn_dynamics_from_numpy
+    from mpc_tpu_torch.utils.problems import mlp_row
+    dtype = dtype or torch.float32
+    _, row, n0, bounded, _ = mlp_case(label)
+    r = mlp_row(row, n or n0, bounded=bounded)
+    cfg = mt.MPCConfig(n_state=r['n_state'], n_ctrl=r['n_ctrl'], T=r['T'],
+                       exit_unconverged=False, detach_unconverged=False,
+                       backprop=False, grad_method=mt.GradMethods.AUTO_DIFF,
+                       **r['cfg'])
+    model = nn_dynamics_from_numpy(r['weights'], r['activation'],
+                                   r['passthrough'], device=device).to(dtype)
+
+    def t(a):
+        return torch.tensor(a, dtype=dtype, device=device)
+    bk = {} if r['u_lower'] is None else dict(u_lower=r['u_lower'],
+                                              u_upper=r['u_upper'])
+    return (cfg, t(r['x0']), mt.QuadCost(t(r['C']), t(r['c'])), model, bk,
+            None if r['prev_ctrl'] is None else t(r['prev_ctrl']))
+
+
+def mlp_operands(torch, device, label, dtype=None, n=None):
+    """An MLP_CASES row's dense-kernel operands (the slew-augmented problem
+    where the row has a slew penalty)."""
+    from mpc_tpu_torch.ops import fused
+    from mpc_tpu_torch.ops import fused_dense as fd
+    cfg, x0, cost, model, bk, prev = mlp_problem(torch, device, label, dtype,
+                                                 n)
+    if prev is not None:
+        cfg, x0, cost, model = fused.slew_problem(cfg, x0, cost, model, prev)
+    return fd.k3d_operands(cfg, x0, cost, model, **bk)
+
+
+def mlp_defines(ops):
+    """(defines, launch geometry) of the build a row's operands run."""
+    from mpc_tpu_torch.ops import fused_dense as fd
+    T_, n, nc = ops['u0'].shape
+    ns = ops['x0'].shape[1]
+    name, slew = fd.dense_model(ops['model'])
+    spec = fd.mlp_spec(ops['model'])
+    return (fd.dense_kernel_defines(ns, nc, ops['lb'] is not None, False,
+                                    name, slew, mlp=spec),
+            fd.k3d_launch(T_, n, ns, nc, len(ops['alphas']), True, spec[0]))
+
+
+def mlp_build_specs():
+    """The MLP build of each MLP_CASES row (one a define set)."""
+    import torch
+    specs = []
+    for label, *_ in MLP_CASES:
+        spec = ('fused_ilqr_dense', mlp_defines(mlp_operands(
+            torch, torch.device('cpu'), label, n=1))[0])
+        if spec not in specs:
+            specs.append(spec)
+    return specs
+
+
+def mlp_worker(device, label):
+    """[compare-mlp]'s process for one MLP_CASES row, run under
+    CUDA_LAUNCH_BLOCKING=1, so that a load through a wrong address faults
+    at its own launch: the kernel launched once, finite, the reversed
+    batch, B = 1, 7, 33 alone (where the row has that many) and the batch
+    with two more examples bitwise.  Prints a JSON line: the digest of its
+    outputs and its log lines."""
+    import torch
+    from mpc_tpu_torch.ops import fused_dense as fd
+    lines = []
+    globals()['log'] = lambda *a: lines.append(' '.join(map(str, a)))
+    device = torch.device(device)
+    t0 = time.perf_counter()
+    n = mlp_case(label)[2]
+    what = f'{label}, B={n}'
+    ops = mlp_operands(torch, device, label)
+    kernel = fd.fused_ilqr_dense
+    reset_all_counts()
+    full = kernel(**ops)
+    if device.type == 'cuda':
+        torch.cuda.synchronize()
+        if all_counts()['fused_ilqr_dense'] != 1 or \
+                sum(all_counts().values()) != 1:
+            raise AssertionError(f'{what}: not one launch: {all_counts()}')
+    if not all(torch.isfinite(a).all() for a in full):
+        raise AssertionError(f'{what}: the kernel returned non-finite values')
+    r = kernel(**batch_subset(torch, ops, torch.arange(n - 1, -1, -1)))
+    if not all(torch.equal(a.flip(1), b) for a, b in zip(r, full)):
+        raise AssertionError(f'{what}: reversed batch is not bitwise equal')
+    sizes = tuple(s for s in (1, 7, 33) if s < n)
+    if sizes:
+        hold_slices(torch, what, kernel, ops, full, sizes)
+    r = kernel(**batch_subset(torch, ops, torch.cat(
+        [torch.arange(n), torch.arange(min(2, n))])))
+    if not all(torch.equal(r[i][:, :n], full[i])
+               and torch.equal(r[i][:, n:], full[i][:, :min(2, n)])
+               for i in range(3)):
+        raise AssertionError(f'{what}: B={n + min(2, n)} differs from B={n}')
+    log(f'  {what}: one launch, reversed and B={n + min(2, n)} bitwise '
+        f'equal; {time.perf_counter() - t0:.1f} s in its process')
+    print(json.dumps({'label': label, 'digest': uz_digest(full),
+                      'lines': lines}))
+
+
+def phase_compare_mlp(torch, device):
+    """Each MLP_CASES row first in a process of its own under
+    CUDA_LAUNCH_BLOCKING=1 (``mlp_worker``), all rows at once; then here,
+    each row's kernel (the worker's bits) against its plain version by the
+    row's gate: the float32 tail (mean |du| < TAIL_MEAN, share past
+    TAIL_ENTRY < TAIL_SHARE) with n_iter equal, or, where a stiff MLP
+    parts two float32 solves beyond it, at most twice the plain float32
+    run's distance from a float64 plain run (n_iter's agreement shown).
+    Returns each row's summary (max |du|, gate, the plain float32 run's
+    device ms, the kernel's stats)."""
+    from mpc_tpu_torch.ops import fused_dense as fd
+    t0 = time.perf_counter()
+    out = run_workers(torch, [['--mlp-worker', device.type, r[0]]
+                              for r in MLP_CASES],
+                      [{'CUDA_LAUNCH_BLOCKING': '1'}] * len(MLP_CASES))
+    log(f'[compare-mlp] {len(MLP_CASES)} rows, a process each under '
+        f'CUDA_LAUNCH_BLOCKING=1, all at once: '
+        f'{time.perf_counter() - t0:.1f} s')
+    res = {}
+    for (label, _, n, bounded, gate), summary in zip(MLP_CASES, out):
+        what = f'{label}, B={n}'
+        log(f'[compare-mlp] {what}: the kernel vs its plain version')
+        for line in summary['lines']:
+            log(line)
+        t1 = time.perf_counter()
+        ops = mlp_operands(torch, device, label)
+        ops64 = mlp_operands(torch, device, label, torch.float64)
+        xk, uk, sk = fd.fused_ilqr_dense(**ops)
+        if uz_digest((xk, uk, sk)) != summary['digest']:
+            raise AssertionError(f'{what}: not the bits of its '
+                                 'CUDA_LAUNCH_BLOCKING=1 process')
+        times = []
+        _, up, sp = timed_plain(torch, fd.fused_solve_dense_plain,
+                                times)(**ops)
+        _, u64, _ = fd.fused_solve_dense_plain(**ops64)
+        mean, share, mx = tail(uk, up)
+        same_iter = same_share(sk[2], sp[2])
+        if gate == 'tail':
+            check_tail(f'{what} (f32)', uk, up)
+            if same_iter != 1.0:
+                raise AssertionError(f'{what}: n_iter differs')
+        else:
+            check_tail(f'{what} (f32)', uk, up, None)
+        hold_equidistance(what, uk, up, u64)
+        if bounded and float(uk.abs().max()) > float(ops['ub'].max()):
+            raise AssertionError(f'{what}: a control outside its box')
+        log(f'  {what}: gate {gate}; n_iter equal in {same_iter:.4f} of the '
+            f'examples, a solve {float(sk[2].double().mean()):.2f}, trials a '
+            f'solve {float(sk[5].double().mean()):.2f}, QP trips a solve '
+            f'{float(sk[3].double().mean()):.1f}; max |u - f64|: kernel '
+            f'{float((uk.double() - u64).abs().max()):.3e}, plain '
+            f'{float((up.double() - u64).abs().max()):.3e}; plain '
+            f'{times[0]:.1f} ms; {time.perf_counter() - t1:.1f} s')
+        res[label] = dict(gate=gate, max_abs_err=mx, mean=mean, share=share,
+                          same_iter=same_iter, plain_ms=times[0])
+    log(f'[compare-mlp] {time.perf_counter() - t0:.1f} s')
+    return res
+
+
+def mlp_served(torch, device, label, sol, req, u, cost, model):
+    """A served answer holds up: finite, in its box, x the rollout of u
+    through the model from the request (the augmented state's model part
+    under slew) and, without slew, costs its objective."""
+    from mpc_tpu_torch.solver import rollout, trajectory_cost
+    _, _, _, bounded, _ = mlp_case(label)
+    u = u.to(device)
+    with torch.no_grad():
+        xr = rollout(model, req, u)
+    x_gap = float((xr - sol.x).abs().max() / sol.x.abs().max())
+    gap = 0.0
+    if mlp_case(label)[1] != 'mlp-slew':
+        cr = trajectory_cost(cost, sol.x, u)
+        gap = float((cr - sol.costs).abs().max() / sol.costs.abs().max())
+    from mpc_tpu_torch.utils.problems import MLP_ROWS
+    lim = MLP_ROWS[mlp_case(label)[1]][7] if bounded else math.inf
+    log(f'  last answer: max |x - rollout| / max |x| {x_gap:.2e}, relative '
+        f'cost gap {gap:.2e}, max |u| {float(u.abs().max()):.3f}')
+    if not (torch.isfinite(u).all() and float(u.abs().max()) <= lim
+            and x_gap < 1e-3 and gap < 1e-3):
+        raise AssertionError(f'{label}: a served answer is not a feasible '
+                             'solve')
+
+
+def phase_serve_mlp(torch, device):
+    """Each MLP_CASES row through the entry points, every count set to 0
+    before and read after: MLP_REQUESTS distinct batches through
+    batched_solve (new starts from the row's seeds) and one through MPC,
+    host to host, one dense launch a request and no eager solve, MPC
+    bitwise batched_solve, the last answer a feasible solve; beside it
+    the eager route's (use_fused='never') ms of the first request in this
+    process.  Returns the launches by row and the request and eager ms."""
+    import dataclasses
+    import mpc_tpu_torch as mt
+    from mpc_tpu_torch.utils.problems import mlp_row
+    out = {'launches': {}, 'request_ms': {}, 'mpc_ms': {}, 'eager_ms': {}}
+    for label, row, n, bounded, _ in MLP_CASES:
+        cfg, x0, cost, model, bk, prev = mlp_problem(torch, device, label)
+        reqs = [torch.tensor(mlp_row(row, n, seed=100 + i)['x0'],
+                             dtype=torch.float32)
+                for i in range(MLP_REQUESTS)]
+        kw = dict(bk, prev_ctrl=prev, device=device)
+        mt.batched_solve(cfg, x0, cost, model, **kw).u.cpu()
+        slew = cfg.slew_rate_penalty
+        ctrl = mt.MPC(cfg.n_state, cfg.n_ctrl, cfg.T, lqr_iter=cfg.lqr_iter,
+                      eps=cfg.eps, linesearch_decay=cfg.linesearch_decay,
+                      max_linesearch_iter=cfg.max_linesearch_iter,
+                      grad_method=mt.GradMethods.AUTO_DIFF,
+                      slew_rate_penalty=slew, prev_ctrl=prev,
+                      exit_unconverged=False, detach_unconverged=False,
+                      backprop=False, device=device, **bk)
+
+        def serve():
+            lat, sols = [], []
+            for req in reqs:
+                t0 = time.perf_counter()
+                sol = mt.batched_solve(cfg, req.to(device), cost, model,
+                                       **kw)
+                u = sol.u.cpu()
+                lat.append(1e3 * (time.perf_counter() - t0))
+                sols.append((sol, u))
+            t0 = time.perf_counter()
+            um = ctrl(reqs[0].to(device), cost, model)[1].cpu()
+            return lat, sols, um, 1e3 * (time.perf_counter() - t0)
+
+        (lat, sols, um, mpc_ms), counts, n_eager = soa_counted(torch, serve)
+        ms = median(lat)
+        log(f'[serve-mlp] {label}, B={n}: {MLP_REQUESTS} batched_solve '
+            'requests, latency ms ' + ' '.join(f'{v:.3f}' for v in lat) +
+            f', median {ms:.3f} ({n / ms * 1e3:.0f} solves/s); MPC '
+            f'{mpc_ms:.3f} ms; launches {counts}, eager solves {n_eager}')
+        if n_eager or (device.type == 'cuda' and counts != {
+                'fused_ilqr_dense': MLP_REQUESTS + 1}):
+            raise AssertionError(f'{label}: each request must launch the '
+                                 'dense kernel once and nothing else')
+        if not torch.equal(um, sols[0][1]):
+            raise AssertionError(f'{label}: MPC and batched_solve answer '
+                                 'differently')
+        mlp_served(torch, device, label, sols[-1][0],
+                   reqs[-1].to(device), sols[-1][1], cost, model)
+        never = dataclasses.replace(cfg, use_fused='never')
+        (eager, eager_ms), n_eager = eager_counted(torch, lambda: timed(
+            torch, device, lambda: mt.batched_solve(
+                never, reqs[0].to(device), cost, model, **kw).u, 1))
+        log(f'  the eager route (use_fused=\'never\') of the first request: '
+            f'{eager_ms:.1f} ms ({eager_ms / ms:.0f}x the kernel route), '
+            f'eager solves {n_eager}, max |u - kernel route\'s| '
+            f'{float((eager[0].cpu() - sols[0][1]).abs().max()):.3e}; '
+            f'{card_line()}')
+        out['launches'][label] = MLP_REQUESTS + 1
+        out['request_ms'][label], out['mpc_ms'][label] = ms, mpc_ms
+        out['eager_ms'][label] = eager_ms
+    return out
+
+
+def mlp_flops(ops, stats):
+    """The operations of an MLP row's solve from this run's counts (the
+    MLP's step in every rollout and its Jacobian before every sweep,
+    fused_dense.mlp_op_counts; the QP trips at several bounded controls)
+    and the bytes it must move."""
+    from mpc_tpu_torch.ops import fused_dense as fd
+    T_, n, nc = ops['u0'].shape
+    ns = ops['x0'].shape[1]
+    sums = [float(stats[i].double().sum()) for i in (2, 3, 5)]
+    return (fd.k3d_flops(T_, ns, nc, sums[0], sums[2], batch=n,
+                         has_bounds=ops['lb'] is not None,
+                         n_qp=sums[1] if nc > 1 and ops['lb'] is not None
+                         else 0,
+                         model_ops=fd.model_op_counts(
+                             'mlp', fd.mlp_spec(ops['model']))),
+            fd.k3d_bytes(ops))
+
+
+def phase_time_mlp(torch, device, compare):
+    """Each MLP_CASES row's kernel timed from a CUDA graph, its bound from
+    this run's iterations, trials and QP trips (mlp_flops) and bytes, its
+    registers, spills and shared memory, beside the plain version's ms of
+    [compare-mlp]; and, as the reference point of the same run,
+    bench_nn_dynamics on K3's MLP configuration (NN, B=2048, T=20).
+    Returns the rows and K3's ms."""
+    from mpc_tpu_torch.ops import fused
+    from mpc_tpu_torch.ops import fused_dense as fd
+    ops = nn_k3_operands(torch, device)
+    k3_ms, _ = graph_ms(torch, lambda: fused.fused_ilqr_long(**ops), reps=3,
+                        per_graph=4)
+    log(f'[time-mlp] the reference point: bench_nn_dynamics (3 states, 1 '
+        f'control, H={NN_H}, B={NN_B}, T={NN_T}) in K3\'s MLP configuration '
+        f'{k3_ms:.4f} ms (from a CUDA graph); {card_line()}')
+    rows = []
+    for label, _, n, _, _ in MLP_CASES:
+        ops = mlp_operands(torch, device, label)
+        _, _, st = fd.fused_ilqr_dense(**ops)
+        ms, eager_ms = graph_ms(torch, lambda: fd.fused_ilqr_dense(**ops),
+                                reps=3, per_graph=4)
+        flops, nbytes = mlp_flops(ops, st)
+        bound_ms, by = bound(flops, nbytes)
+        defines, geo = mlp_defines(ops)
+        des = design('fused_ilqr_dense', defines, geo)
+        sizes = fd.mlp_spec(ops['model'])[0]
+        log(f'[time-mlp] {label}, B={n}, T={ops["u0"].shape[0]}, widths '
+            f'{sizes}: {ms:.4f} ms (from a CUDA graph; {eager_ms:.4f} ms a '
+            f'call from Python), plain {compare[label]["plain_ms"]:.1f} ms; '
+            f'{flops:.4e} operations ({float(st[2].double().mean()):.2f} '
+            f'iterations, {float(st[5].double().mean()):.2f} trials, '
+            f'{float(st[3].double().mean()):.1f} QP trips a solve), {nbytes} '
+            f'bytes; bound {bound_ms:.5f} ms by {by} ({ms / bound_ms:.1f}x); '
+            f'{n / ms * 1e3:.0f} solves/s; registers {des["registers"]}, '
+            f'spill stores {des["spill_store_bytes"]} bytes, shared memory '
+            f'{geo["smem_bytes"]} bytes a block; {card_line()}')
+        rows.append(dict(row=f'{label} B={n}', label=label, ms=ms,
+                         plain_ms=compare[label]['plain_ms'],
+                         bound_ms=bound_ms, bound_by=by, depth=len(sizes) - 2,
+                         registers=des['registers'],
+                         spill_store_bytes=des['spill_store_bytes'],
+                         design=des))
+    return rows, k3_ms
+
+
+def mlp_grads(torch, device, primal=None, dtype=None):
+    """A loss of a differentiable mlp-multictrl solve with gradients to the
+    MLP's weights and x_init: through the kernels (the dense forward and
+    the dense backward), or, given the Solution ``primal`` of the
+    kernels' phase 1, through the eager fixed point on it (in
+    ``dtype``).  Returns [loss, d weights..., d x_init] and the kernels'
+    Solution."""
+    import dataclasses
+    import numpy as np
+    import mpc_tpu_torch as mt
+    from mpc_tpu_torch import solver
+    dtype = dtype or torch.float32
+    cfg, x0, cost, model, bk, _ = mlp_problem(torch, device, 'mlp-multictrl',
+                                              dtype)
+    cfg = dataclasses.replace(cfg, backprop=True)
+    x0 = x0.requires_grad_()
+    n = x0.shape[0]
+    u_exp = torch.tensor(0.3 * np.random.RandomState(19).randn(
+        cfg.T, n, cfg.n_ctrl), dtype=dtype, device=device)
+    sol = None
+    if primal is None:
+        sol = mt.batched_solve(cfg, x0, cost, model, device=device, **bk)
+        x, u = sol.x, sol.u
+    else:
+        lb = torch.tensor(bk['u_lower'], dtype=dtype, device=device)
+        x, u = solver.fixed_point_phase(cfg, x0, cost, model,
+                                        primal.x.to(dtype),
+                                        primal.u.to(dtype), lb, -lb,
+                                        primal.converged)
+    loss = ((u - u_exp) ** 2).mean() + 0.1 * (x ** 2).mean()
+    loss.backward()
+    return [loss.detach()] + [p.grad for p in model.parameters()] + [
+        x0.grad], sol
+
+
+def phase_grad_mlp(torch, device):
+    """Gradients of an mlp-multictrl loss to the MLP's weights and x_init
+    through one dense forward and one dense-backward launch, against the
+    eager fixed point on the same converged trajectory and the float64
+    eager fixed point on it (each within BWD_TOL relative to the
+    gradient's largest entry).  Returns the launches and the largest
+    gradient error."""
+    from mpc_tpu_torch import solver
+    n = mlp_case('mlp-multictrl')[2]
+    log(f'[grad-mlp] mlp-multictrl, B={n}: gradients to the MLP\'s weights '
+        'and x_init through the dense configuration and the dense backward')
+    (kk, sol), counts, n_eager = soa_counted(
+        torch, lambda: mlp_grads(torch, device))
+    if solver.eager_counts['eager_fixed_point'] or n_eager or (
+            device.type == 'cuda' and counts != {
+                'fused_ilqr_dense': 1, 'fused_kkt_bwd_dense': 1}):
+        raise AssertionError('a differentiable mlp-multictrl solve must '
+                             'launch the dense forward and the dense backward '
+                             f'once each and nothing else: {counts}')
+    log(f'  launches {counts}, eager solves {n_eager}; converged '
+        f'{float(sol.converged.double().mean()):.3f}, n_iter a solve '
+        f'{float(sol.n_iter.double().mean()):.2f}')
+    primal = sol._replace(x=sol.x.detach(), u=sol.u.detach())
+    ref, _ = mlp_grads(torch, device, primal)
+    ref64, _ = mlp_grads(torch, device, primal, torch.float64)
+    names = [f'layer {i // 2} {"W" if i % 2 == 0 else "b"}'
+             for i in range(len(kk) - 2)] + ['x_init']
+    err = 0.0
+    for name, g, r, r64 in zip(names, kk[1:], ref[1:], ref64[1:]):
+        e, e64 = rel_err(g, r), rel_err(g, r64)
+        err = max(err, e, e64)
+        log(f'  {name}: max |dense backward - eager| / max |eager| {e:.3e}; '
+            f'vs the f64 eager {e64:.3e} (eager f32: {rel_err(r, r64):.3e})')
+        if not (torch.isfinite(g).all() and float(g.abs().max()) > 0):
+            raise AssertionError(f'{name}: gradient not finite or zero')
+    if not err < BWD_TOL:
+        raise AssertionError('mlp-multictrl gradients through the dense '
+                             'backward are off the eager fixed point')
+    return counts, err
+
+
+def mlp_entries(rows, serve, compare, grad_counts, grad_err, k3_ms):
+    """The kernels line's entries of this slice: the MLP build at each
+    MLP_CASES row with its launches in [serve-mlp], max |du| and gate of
+    [compare-mlp], ms, bound and plain ms; the first also the gradient
+    path's launches and error and K3's MLP configuration's ms beside."""
+    out = []
+    for r in rows:
+        label = r['label']
+        c = compare[label]
+        e = {'name': f'fused_ilqr_dense (mlp: {label})',
+             'path': f'learned dynamics {label}', 'route': 'cuda',
+             'source': 'mpc_tpu_torch/csrc/fused_ilqr_dense.cu',
+             'headers': ['mpc_tpu_torch/csrc/nn_dense.cuh',
+                         'mpc_tpu_torch/csrc/nn.cuh',
+                         'mpc_tpu_torch/csrc/box_qp.cuh'],
+             'replaces': MLP_REPLACES[min(r['depth'], 2)],
+             'design': r['design'], 'launches': serve['launches'][label],
+             'max_abs_err': c['max_abs_err'], 'gate': c['gate'],
+             'tolerance': (f'mean|du|<{TAIL_MEAN}, share(|du|>{TAIL_ENTRY})'
+                           f'<{TAIL_SHARE}, n_iter equal'
+                           if c['gate'] == 'tail' else
+                           'at most 2x the plain f32 run\'s mean |du| from a '
+                           'f64 plain run'),
+             'request_ms': serve['request_ms'][label],
+             'eager_ms': serve['eager_ms'][label], 'library_ms': None,
+             **{k: r[k] for k in ('ms', 'plain_ms', 'bound_ms', 'bound_by')}}
+        if label == 'mlp-multictrl':
+            e.update(launches_grad_mlp=grad_counts, grad_err_vs_eager=grad_err)
+        if label == 'mlp-slew':
+            e.update(k3_bench_nn_dynamics_ms=k3_ms)
+        out.append(e)
+    return out
+
+
 CLOSED_LOOP_BS = (1, 16, 256, B)
 CLOSED_LOOP_STEPS = 100
 # the step of the B=4096 loop whose K1 operands are held against the
@@ -6714,7 +7200,8 @@ def phases_scale(torch, device):
 
 
 WORKERS = {'--serve-worker': serve_worker, '--pod-worker': pod_worker,
-           '--resume-worker': resume_worker, '--uz-worker': uz_worker}
+           '--resume-worker': resume_worker, '--uz-worker': uz_worker,
+           '--mlp-worker': mlp_worker}
 
 
 def main():
@@ -6823,6 +7310,19 @@ def main():
         f'{b - a:.1f} s [{k}]' for k, a, b in zip(
             ('compare-uz', 'serve-uz', 'time-uz'), t_uz, t_uz[1:])) +
         f': {t_uz[-1] - t_uz[0]:.1f} s')
+    t_mlp = [time.perf_counter()]
+    mlp_compare = phase_compare_mlp(torch, device)
+    t_mlp.append(time.perf_counter())
+    mlp_serve = phase_serve_mlp(torch, device)
+    t_mlp.append(time.perf_counter())
+    mlp_rows, k3_nn_ms = phase_time_mlp(torch, device, mlp_compare)
+    t_mlp.append(time.perf_counter())
+    mlp_grad_launches, mlp_grad_err = phase_grad_mlp(torch, device)
+    t_mlp.append(time.perf_counter())
+    log('[mlp] the MLP build\'s phases took ' + ', '.join(
+        f'{b - a:.1f} s [{k}]' for k, a, b in zip(
+            ('compare-mlp', 'serve-mlp', 'time-mlp', 'grad-mlp'),
+            t_mlp, t_mlp[1:])) + f': {t_mlp[-1] - t_mlp[0]:.1f} s')
     t_new = time.perf_counter()
     closed = phase_closed_loop(torch, device)
     t_closed = time.perf_counter()
@@ -6955,6 +7455,8 @@ def main():
         *huber_entries(huber_rows, huber_serve, huber_grad_launches,
                        huber_grad_err, huber_err),
         *uz_entries(uz_rows, uz_serve, uz_compare),
+        *mlp_entries(mlp_rows, mlp_serve, mlp_compare, mlp_grad_launches,
+                     mlp_grad_err, k3_nn_ms),
         *scale_entries(scale, {'k1': (max_err, timing),
                                'k2': (bwd_err, timing_bwd),
                                'k3': (long_err, timing_long),

@@ -7,12 +7,13 @@ entry points run on the CUDA card unless the caller passes
 
 ``batched_solve`` (and the ``MPC`` front end on top of it) routes each
 problem as the JAX package does.  The problems the hand-written Hopper
-kernels take (the pendulums and the MLP at n_state = 3, n_ctrl = 1, the
-cartpole, a LinDx of n_state + n_ctrl <= 32 and n_ctrl <= 8, a QuadCost
-or a pseudo-Huber cost, float32 on the card) are solved by K1
-(csrc/fused_ilqr.cu, up to T = 181), K3 (csrc/fused_ilqr_long.cu, LinDx
-of 3 states and 1 control and longer horizons) or K3's dense
-configuration (csrc/fused_ilqr_dense.cu, every other LinDx and model)
+kernels take (the pendulums at n_state = 3, n_ctrl = 1, the cartpole,
+an MLP of 1 to 4 hidden layers and a LinDx of n_state + n_ctrl <= 32
+and n_ctrl <= 8, a QuadCost or a pseudo-Huber cost, float32 on the
+card) are solved by K1 (csrc/fused_ilqr.cu, up to T = 181), K3
+(csrc/fused_ilqr_long.cu, LinDx and the one-hidden-layer MLP of 3 states
+and 1 control, and longer horizons) or K3's dense configuration
+(csrc/fused_ilqr_dense.cu, every other LinDx, MLP and model)
 and differentiated at 3 states and 1 control by K2 or K4
 (csrc/fused_kkt_bwd.cu, csrc/fused_kkt_bwd_long.cu), at every other size
 by their dense configuration (csrc/fused_kkt_bwd_dense.cu); on the CPU
@@ -24,9 +25,9 @@ runs on the eager solver
 (``solver.py``), batched natively, and so does every other backward (and
 a slew penalty's), on its differentiable fixed point (``ops/diff.py``),
 on the card or the CPU.  A slew-rate penalty augments the state with
-the previous control: a LinDx, a pendulum or the cartpole then solves in
-K3 or the dense configuration, an MLP on the eager solver, and the eager
-fixed point is the slew backward.  ``parallel_riccati`` (True, or 'auto' at
+the previous control: a LinDx, a pendulum, the cartpole or an MLP then
+solves in K3 or the dense configuration, and the eager fixed point is
+the slew backward.  ``parallel_riccati`` (True, or 'auto' at
 T >= 128) takes the eager solver's unconstrained steps and exact solves
 through the O(log T) Riccati scan (``ops/pscan.py``).
 

@@ -81,6 +81,23 @@
 // is the chain's latency, a rollout step now the model's whole step with
 // its cosf, sinf and divisions (PERF.md section 6).
 //
+// THE MLP BUILD (MPC_MODEL 4, MPC_NN_DEPTH hidden layers, MPC_ACT; with
+// MPC_SLEW its slew passthrough, any n_ctrl) runs an NNDynamics of any
+// admitted size and depth where the TPU kernels take its stream form
+// (one hidden layer, mpc_tpu/ops/fused.py:1252-1306) or its tuple path
+// (deeper, :1307-1340): nn_dense.cuh.  The block copies the weights into
+// shared memory above the warps' tiles once a launch; each warp has a
+// scratch beside its tiles for a layer's activations, the derivatives of
+// the hidden layers and the reverse product's rows.  The step is the
+// whole warp's, a unit a lane, in the rollouts as in the Jacobian pass,
+// which runs one t after another before each sweep (the weights are
+// shared by the block, so there is no per-lane copy of a model to run
+// lane-parallel over t).  The sweep reads the Jacobians from the
+// workspace as for the other models.  What bounds it: operations, the
+// MLP's step in every trial rollout and its Jacobian T - 1 times an
+// iteration (k3d_flops with mlp_op_counts); the step's layers are a
+// chain of dependent dot products on the rollout's chain.
+//
 // THE COST BUILD (MPC_COST = 1), for the LinDx and the model-step builds,
 // takes the pseudo-Huber cost (cost.cuh) where the TPU kernels take a
 // structure-of-arrays cost (mpc_tpu/ops/fused.py:721-765, 1406-1461): no C
@@ -116,6 +133,7 @@
 
 #include "box_qp.cuh"
 #include "cost.cuh"
+#include "nn_dense.cuh"
 #include "soa_model.cuh"
 
 #if !defined(MPC_NS) || !defined(MPC_NC) || !defined(MPC_HAS_BOUNDS) || \
@@ -123,12 +141,20 @@
 #error "compile with -DMPC_NS, -DMPC_NC, -DMPC_HAS_BOUNDS, -DMPC_HAS_F, -DMPC_WARPS"
 #endif
 // the model-step build: MPC_MODEL 1 (pendulum), 2 (damped pendulum), 3
-// (cartpole), MPC_SLEW 0 or 1; a LinDx build leaves both out
+// (cartpole), 4 (an MLP of MPC_NN_DEPTH hidden layers, activation
+// MPC_ACT: 0 sigmoid, 1 relu, 2 elu), MPC_SLEW 0 or 1; a LinDx build
+// leaves them out
 #ifndef MPC_MODEL
 #define MPC_MODEL 0
 #endif
 #ifndef MPC_SLEW
 #define MPC_SLEW 0
+#endif
+#ifndef MPC_NN_DEPTH
+#define MPC_NN_DEPTH 1
+#endif
+#ifndef MPC_ACT
+#define MPC_ACT 0
 #endif
 // 0: a QuadCost (C, c); 1: the pseudo-Huber cost (cost.cuh)
 #ifndef MPC_COST
@@ -156,9 +182,18 @@ static_assert(kNS >= 1 && kNC >= 1 && kNT <= 32,
               "a warp an example: n_state + n_ctrl <= 32");
 
 constexpr bool kModel = MPC_MODEL != 0;
-// a LinDx build's stand-in, never called
+constexpr bool kMLP = MPC_MODEL == 4;
+constexpr bool kSlew = kModel && MPC_SLEW != 0;
+constexpr int kDepth = MPC_NN_DEPTH;
+// the MLP's own states (the augmented state less u_{t-1} under slew)
+constexpr int kNSI = kSlew ? kNS - kNC : kNS;
+static_assert(!kMLP || (kDepth >= 1 && kDepth <= kNNMaxDepth && kNSI >= 1),
+              "the MLP build: 1 to kNNMaxDepth hidden layers");
+// a LinDx build's stand-in, and the MLP build's (its step is the warp's,
+// mlp_model_step), never called
 struct NoModel {
   static constexpr int NS = kNS;
+  static constexpr int NC = kNC;
   static constexpr int NP = 1;
   __device__ static void step(const float*, const float*, float*) {}
   __device__ static void jacobian(const float*, const float*,
@@ -189,9 +224,10 @@ struct SlewOf<M, true> {
   using type = Slew<M>;
 };
 using Model = typename SlewOf<typename ModelOf<MPC_MODEL>::type,
-                              kModel && MPC_SLEW != 0>::type;
-static_assert(!kModel || (Model::NS == kNS && kNC == 1 && !kHasF),
-              "the model-step build: the model's states, one control, no f");
+                              kSlew && !kMLP>::type;
+static_assert(!kModel ||
+                  (Model::NS == kNS && Model::NC == kNC && !kHasF),
+              "the model-step build: the model's states and controls, no f");
 constexpr int kNP = Model::NP;
 // the Jacobians of the current trajectory in the workspace, a step's
 constexpr int kJac = kModel ? kNS * kNT : 0;
@@ -223,7 +259,9 @@ struct Schedule {
 
 struct Operands {
   int B, T;
-  const float* params;  // the model-step build's
+  const float* params;  // the model-step build's (an MLP's flat weights)
+  MLPLayout nn;         // the MLP build's widths and shared memory
+  int warp_floats;      // a warp's tiles, and in the MLP build its scratch
   const float* cost;    // the cost build's [w, goal, delta] (2 n_tau + 1)
   const float* F;
   int sFt, sFb;
@@ -312,6 +350,53 @@ __device__ __forceinline__ float model_step(const float* prm,
   return r;
 }
 
+// The MLP build's pointers into shared memory: the block's weights and
+// this warp's scratch (nn_dense.cuh).
+struct MLPShared {
+  const float* w;
+  float *hA, *hB, *D, *GA, *GB;
+};
+
+// state row lx of the MLP's step from tau in shared memory, every lane of
+// the warp calling it: the MLP on (x_t, u_t) (under slew past the
+// u_{t-1} entries), and under slew rows below n_ctrl passing u_t through
+__device__ __forceinline__ float mlp_model_step(const MLPShared& m,
+                                               const MLPLayout& L,
+                                               const float* tau, int lane,
+                                               int lx) {
+  const float o = mlp_step<kDepth, MPC_ACT>(m.w, L, kSlew ? tau + kNC : tau,
+                                            m.hA, m.hB, lane);
+  if constexpr (kSlew) {
+    const float r = __shfl_sync(0xffffffffu, o, lx >= kNC ? lx - kNC : 0);
+    return lx < kNC ? tau[kNS + lx] : r;
+  }
+  return o;
+}
+
+// F_t = d x_{t+1} / d tau_t of the MLP at tau in shared memory into J
+// [kNS][kNT] (the workspace), every lane of the warp calling it; under
+// slew the first n_ctrl rows pick u_t and the MLP's rows start past the
+// u_{t-1} columns (fused.SlewSoA.soa_jacobian)
+__device__ __forceinline__ void mlp_model_jacobian(const MLPShared& m,
+                                                   const MLPLayout& L,
+                                                   const float* tau,
+                                                   int lane, float* J) {
+  if constexpr (kSlew) {
+    for (int e = lane; e < kNC * kNT; e += 32) {
+      const int r = e / kNT;
+      J[e] = e - r * kNT == kNS + r ? 1.f : 0.f;
+    }
+    for (int e = lane; e < kNSI * kNC; e += 32) {
+      const int r = e / kNC;
+      J[(kNC + r) * kNT + e - r * kNC] = 0.f;
+    }
+  }
+  constexpr int off = kSlew ? kNC : 0;
+  mlp_jacobian<kDepth, MPC_ACT, kNSI>(m.w, L, tau + off, m.hA, m.hB, m.D,
+                                      m.GA, m.GB, lane,
+                                      J + off * kNT + off, kNT);
+}
+
 // state row lx (a lane clamped below kNS) of F_t tau + f_t
 __device__ __forceinline__ float dyn_step(const float* Ft, const float* ft,
                                           const float* tau, int lx) {
@@ -332,9 +417,21 @@ __global__ void __launch_bounds__(kThreads)
   const int lx = lane < kNS ? lane : kNS - 1;
   const int lu = lane < kNS ? 0 : lt - kNS;
   const int b = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  // a warp's tiles, and its scratch in the MLP build, then the weights
+  const int wf = kMLP ? op.warp_floats : kWarpFloats;
+  MLPShared mlp{};
+  if constexpr (kMLP) {
+    float* const w = smem + kWarps * wf;
+    stage_mlp<kThreads, kDepth>(op.params, op.nn, w);
+    __syncthreads();
+    float* const scr = smem + (threadIdx.x >> 5) * wf + kWarpFloats;
+    const int wm = op.nn.wmax;
+    mlp = MLPShared{w, scr, scr + wm, scr + 2 * wm, scr + (2 + kDepth) * wm,
+                    scr + (2 + kDepth + kNSI) * wm};
+  }
   if (b >= op.B) return;  // the whole warp: nothing below syncs the block
   const int T = op.T, B = op.B;
-  float* sh = smem + (threadIdx.x >> 5) * kWarpFloats;
+  float* sh = smem + (threadIdx.x >> 5) * wf;
   float* Qs = sh + oQ;
   float* Ws = sh + oW;
   float* Fs = sh + oF;
@@ -365,7 +462,7 @@ __global__ void __launch_bounds__(kThreads)
   if constexpr (!kModel) Fb = op.F + b * op.sFb;
   const float* fb = kHasF ? op.f + b * op.sfb : nullptr;
   float prm[kNP] = {};
-  if constexpr (kModel) {
+  if constexpr (kModel && !kMLP) {
 #pragma unroll
     for (int i = 0; i < kNP; ++i) prm[i] = __ldg(op.params + i);
   }
@@ -395,12 +492,17 @@ __global__ void __launch_bounds__(kThreads)
         else
           op.u_out[(t * B + b) * kNC + lane - kNS] = v;
       }
-      if (t < T - 1 && lane < kNS) {
-        if constexpr (kModel)
-          xr = model_step(prm, tau, lx);
-        else
-          xr = dyn_step(Fb + t * op.sFt, kHasF ? fb + t * op.sft : nullptr,
-                        tau, lx);
+      if (t < T - 1) {
+        if constexpr (kMLP) {
+          const float r = mlp_model_step(mlp, op.nn, tau, lane, lx);
+          if (lane < kNS) xr = r;
+        } else if (lane < kNS) {
+          if constexpr (kModel)
+            xr = model_step(prm, tau, lx);
+          else
+            xr = dyn_step(Fb + t * op.sFt,
+                          kHasF ? fb + t * op.sft : nullptr, tau, lx);
+        }
       }
       __syncwarp();
     }
@@ -412,8 +514,16 @@ __global__ void __launch_bounds__(kThreads)
   for (int it = 0; it < op.lqr_iter; ++it) {
     const float* trajc = ws0 + cur * T * kNT;
     // ---- the model's Jacobians at the current trajectory, lane t taking
-    // steps t, t + 32, ...: off the sweep's chain ----------------------
-    if constexpr (kModel) {
+    // steps t, t + 32, ... (the MLP's: the warp, one t after another):
+    // off the sweep's chain ---------------------------------------------
+    if constexpr (kMLP) {
+      for (int t = 0; t < T - 1; ++t) {
+        if (lane < kNT) tau[lane] = trajc[t * kNT + lane];
+        __syncwarp();
+        mlp_model_jacobian(mlp, op.nn, tau, lane, jac + t * kJac);
+        __syncwarp();
+      }
+    } else if constexpr (kModel) {
       for (int t = lane; t < T - 1; t += 32) {
         float tl[kNT];
 #pragma unroll
@@ -722,12 +832,17 @@ __global__ void __launch_bounds__(kThreads)
           du2 = t == 0 ? d2s : du2 + d2s;
         }
         if (lane < kNT) trial[t * kNT + lane] = tau[lt];
-        if (t < T - 1 && lane < kNS) {
-          if constexpr (kModel)
-            xr = model_step(prm, tau, lx);
-          else
-            xr = dyn_step(Fb + t * op.sFt, kHasF ? fb + t * op.sft : nullptr,
-                          tau, lx);
+        if (t < T - 1) {
+          if constexpr (kMLP) {
+            const float r = mlp_model_step(mlp, op.nn, tau, lane, lx);
+            if (lane < kNS) xr = r;
+          } else if (lane < kNS) {
+            if constexpr (kModel)
+              xr = model_step(prm, tau, lx);
+            else
+              xr = dyn_step(Fb + t * op.sFt,
+                            kHasF ? fb + t * op.sft : nullptr, tau, lx);
+          }
         }
         __syncwarp();
       }
@@ -777,7 +892,8 @@ __global__ void __launch_bounds__(kThreads)
 }  // namespace mpc
 
 extern "C" int mpc_fused_ilqr_dense(
-    int B, int T, const float* params, const float* cost, const float* F,
+    int B, int T, const float* params, const int* nn_sizes, int n_sizes,
+    int nn_pass, const float* cost, const float* F,
     long long sFt,
     long long sFb,
     const float* f, long long sft, long long sfb, const float* C,
@@ -799,7 +915,21 @@ extern "C" int mpc_fused_ilqr_dense(
       (!kHasBounds && delta != INFINITY) ||
       (kHuber ? (cost == nullptr || C != nullptr || c != nullptr)
               : (C == nullptr || c == nullptr)) ||
-      smem_bytes != kWarps * kWarpFloats * (int)sizeof(float))
+      (kMLP ? n_sizes != kDepth + 2 || nn_sizes == nullptr
+            : n_sizes != 0))
+    return (int)cudaErrorInvalidValue;
+  // the MLP build: its widths (the model's n_in and n_out are the build's),
+  // the weights' copy above the warps' tiles and scratch
+  MLPLayout nn{};
+  int warp_floats = kWarpFloats, smem_floats = kWarps * kWarpFloats;
+  if (kMLP) {
+    if (!mlp_layout(nn_sizes, kDepth, nn_pass != 0, nn) ||
+        nn.size[0] != kNSI + kNC || nn.size[kDepth + 1] != kNSI)
+      return (int)cudaErrorInvalidValue;
+    warp_floats = kWarpFloats + nn.scratch;
+    smem_floats = kWarps * warp_floats + nn.floats;
+  }
+  if (smem_bytes != smem_floats * (int)sizeof(float))
     return (int)cudaErrorInvalidValue;
   // 32-bit indices: the largest offset of each array
   const long long last = T - 1, lastb = B - 1, big = 1LL << 31;
@@ -835,6 +965,8 @@ extern "C" int mpc_fused_ilqr_dense(
   op.B = B;
   op.T = T;
   op.params = params;
+  op.nn = nn;
+  op.warp_floats = warp_floats;
   op.cost = cost;
   op.F = F;
   op.sFt = (int)sFt;

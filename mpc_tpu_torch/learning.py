@@ -89,8 +89,10 @@ def _always_error(cfg, cost, dynamics, u_lower, dtype, gap):
     ValueError where mpc_tpu's own kernels refuse the problem too
     (mpc_tpu/ops/fused.py:supports, mpc_tpu/learning.py:165-168: float64,
     a cost or model without a structure-of-arrays form, delta_u without
-    bounds), else a NotImplementedError naming the kernel configuration
-    that waits (for the MLPs and the problems mpc_tpu's kernels take)."""
+    bounds), else a NotImplementedError naming the gate of the port's
+    kernels that refuses it (an MLP past the dense configuration's MLP
+    build, a LinDx past its size gate: problems mpc_tpu's kernels may
+    take at their own sizes)."""
     msg = f'use_fused="always" but the kernels do not take this problem: {gap}'
     soa_model = isinstance(
         dynamics, (LinDx, PendulumDx, CartpoleDx, NNDynamics)) or \
@@ -118,7 +120,8 @@ def batched_solve(cfg: MPCConfig, x_init, cost, dynamics, u_init=None,
     or the CPU when asked.
 
     The route (module docstring): the kernels K1, K3 or K3's dense
-    configuration for a problem in
+    configuration (every MLP but K3's one-hidden-layer 3s1c one, in its
+    MLP build) for a problem in
     their scope (``ops/fused.scope_gap``) unless ``cfg.use_fused`` is
     'never'; the eager solver otherwise, which 'always' refuses.  On the
     CPU the kernels' plain PyTorch versions run in their place, and they
@@ -129,7 +132,7 @@ def batched_solve(cfg: MPCConfig, x_init, cost, dynamics, u_init=None,
     penalty augments the state with the previous control
     (mpc_tpu/learning.py:196-242): the kernels solve the augmented
     problem where it is in their scope (a LinDx in K3 or its dense
-    configuration, a pendulum or the cartpole in the dense
+    configuration, a pendulum, the cartpole or an MLP in the dense
     configuration through the passthrough step), and its fixed point is
     always the eager one.  A problem
     that no route takes raises NotImplementedError.

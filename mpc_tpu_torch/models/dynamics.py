@@ -12,7 +12,11 @@ kernel K3 runs for a one-hidden-layer MLP (csrc/nn.cuh, the counterpart
 of the JAX package's param-streaming ``_stream_core``,
 mpc_tpu/models/dynamics.py:176-235): the flat weight vector of
 ``kernel_params`` and the plain PyTorch step and Jacobian on component
-tensors, which ``ops/fused.py:fused_solve_long_plain`` runs.
+tensors, which ``ops/fused.py:fused_solve_long_plain`` runs; and, at any
+depth, ``soa_step`` (mpc_tpu/models/dynamics.py:285-309) with the
+hand-written ``soa_jacobian``, the step and Jacobian of the dense
+configuration's MLP build (csrc/nn_dense.cuh), which
+``ops/fused_dense.py:fused_solve_dense_plain`` runs.
 """
 
 from __future__ import annotations
@@ -148,6 +152,21 @@ class NNDynamics(nn.Module):
         return sum(lin.weight.numel() + lin.bias.numel()
                    for lin in self.layers)
 
+    @property
+    def sizes(self) -> tuple:
+        """The layer widths (n_in, hidden..., n_state)."""
+        return (self.layers[0].in_features,) + tuple(
+            lin.out_features for lin in self.layers)
+
+    @staticmethod
+    def shaped(sizes, activation='sigmoid', passthrough=True):
+        """An MLP of the layer widths ``sizes`` with no weights (its
+        layers on the meta device): what ``soa_step`` and
+        ``soa_jacobian`` need besides the flat weights they are given."""
+        return NNDynamics([nn.Linear(a, b, device='meta')
+                           for a, b in zip(sizes[:-1], sizes[1:])],
+                          activation, passthrough)
+
     def kernel_params(self):
         """The flat weight vector in mpc_tpu's ``soa_params_flat`` order
         (mpc_tpu/models/dynamics.py:151-158): each layer's W row-major,
@@ -212,6 +231,91 @@ class NNDynamics(nn.Module):
             for j in range(self.n_state):
                 rows[j][j] = rows[j][j] + 1.0
         return rows
+
+    # -- the step of the dense kernel's MLP build (csrc/nn_dense.cuh) ------
+    def _flat_layers(self, w):
+        """[(W [n_out, n_in], b [n_out])] of each layer, views of the flat
+        vector ``w`` (``kernel_params`` order, or a sequence of its
+        scalars)."""
+        if not torch.is_tensor(w):
+            w = torch.stack(list(w))
+        out, off = [], 0
+        for n_in, n_out in zip(self.sizes[:-1], self.sizes[1:]):
+            W = w[off:off + n_out * n_in].view(n_out, n_in)
+            off += n_out * n_in
+            out.append((W, w[off:off + n_out]))
+            off += n_out
+        return out
+
+    def _soa_inputs(self, xs, u):
+        """The components (x..., u...) stacked on a last axis; ``u`` a
+        component or a tuple of them."""
+        us = list(u) if isinstance(u, (tuple, list)) else [u]
+        return torch.stack(list(xs) + us, -1)
+
+    def soa_step(self, xs, u, params):
+        """mpc_tpu's ``soa_step`` at any depth
+        (mpc_tpu/models/dynamics.py:285-309) on component tensors xs =
+        (x_0, x_1, ...) and u (a component, or a tuple of them for several
+        controls) with the flat weights ``params``: each unit's
+        pre-activation a dot product over the layer's inputs from the first
+        term on, then its bias (``_pre``), the activation in the form that
+        stays finite when saturated, the passthrough last.  The dense
+        kernel's MLP build computes the same in the same order, a unit a
+        lane (csrc/nn_dense.cuh)."""
+        z0 = self._soa_inputs(xs, u)
+        layers = self._flat_layers(params)
+        act = _ACTS_SOA[self.activation]
+        z = z0
+        for i, (W, b) in enumerate(layers):
+            z = _pre(z, W, b)
+            if i < len(layers) - 1:
+                z = act(z)
+        if self.passthrough:
+            z = z + z0[..., :self.n_state]
+        return tuple(z.unbind(-1))
+
+    def soa_jacobian(self, xs, u, params):
+        """d x_{t+1} / d (x_t, u_t) as rows of component tensors,
+        J[j][i], written by hand as the reverse product of the layers with
+        the activations' derivatives (the reference's ``grad_input``,
+        mpc/dynamics.py:81-130) in the dense kernel's order: the hidden
+        pre-activations v as ``soa_step`` forms them, then G = W_L and,
+        layer by layer down, G[j, m] <- sum_k (G[j, k] act'(v_k)) W[k, m],
+        k ascending from the first term (the stream form's order,
+        ``soa_stream_jac``, at one hidden layer); 1 on the diagonal with
+        the passthrough."""
+        z = self._soa_inputs(xs, u)
+        layers = self._flat_layers(params)
+        act = _ACTS_SOA[self.activation]
+        dact = _ACT_DERIV_SOA[self.activation]
+        ds = []
+        for W, b in layers[:-1]:
+            v = _pre(z, W, b)
+            ds.append(dact(v))
+            z = act(v)
+        G = layers[-1][0]
+        for (W, _), d in zip(reversed(layers[:-1]), reversed(ds)):
+            gd = G * d.unsqueeze(-2)                  # [..., n_state, h]
+            acc = gd[..., 0:1] * W[0]
+            for k in range(1, W.shape[0]):
+                acc = acc + gd[..., k:k + 1] * W[k]
+            G = acc
+        rows = [list(G[..., j, :].unbind(-1)) for j in range(self.n_state)]
+        if self.passthrough:
+            for j in range(self.n_state):
+                rows[j][j] = rows[j][j] + 1.0
+        return rows
+
+
+def _pre(z, W, b):
+    """A layer's pre-activations [..., n_out] from its inputs z
+    [..., n_in]: W[k, 0] z_0 + W[k, 1] z_1 + ... + b[k], from the first
+    term on."""
+    v = W[:, 0] * z[..., 0:1]
+    for i in range(1, W.shape[1]):
+        v = v + W[:, i] * z[..., i:i + 1]
+    return v + b
 
 
 class AffineDynamics(nn.Module):

@@ -365,13 +365,17 @@ def k3d_solve(F: Optional[Tensor], f: Optional[Tensor], C: Optional[Tensor],
               not_improved_lim: float, pnqp_iter: int, model: str = '',
               slew: bool = False, params: Optional[Tensor] = None,
               cost_params: Optional[Tensor] = None,
-              uz: Optional[Tensor] = None, delta_u: Optional[float] = None
-              ) -> tuple[Tensor, Tensor, Tensor]:
+              uz: Optional[Tensor] = None, delta_u: Optional[float] = None,
+              nn_sizes: Optional[list[int]] = None, activation: str = '',
+              passthrough: bool = False) -> tuple[Tensor, Tensor, Tensor]:
     """K3's dense configuration: a LinDx of any admitted size, F
     [T-1, 1 or B, ns, ntau], f None or [T-1, 1 or B, ns]; or the
     model-step build, F and f None, ``model`` a name of
     ``fused_dense.DENSE_MODELS`` with its ``params``, ``slew`` for its
-    passthrough step on (u_{t-1}, x_t); C [T, 1 or B, ntau, ntau], c
+    passthrough step on (u_{t-1}, x_t); an MLP ('mlp') with its layer
+    widths ``nn_sizes`` (n_in, hidden..., n_state of the model itself),
+    ``activation`` and ``passthrough`` and its flat weights as
+    ``params``; C [T, 1 or B, ntau, ntau], c
     [T, 1 or B, ntau], or C and c None and ``cost_params`` [2 ntau + 1]
     (the pseudo-Huber cost, the MPC_COST build); x0 [B, ns], u0 [T, B,
     nc], lb, ub None or
@@ -383,7 +387,9 @@ def k3d_solve(F: Optional[Tensor], f: Optional[Tensor], C: Optional[Tensor],
         F, f, C, c, x0, u0, lb, ub, alphas=alphas, lqr_iter=lqr_iter,
         eps=eps, best_cost_eps=best_cost_eps,
         not_improved_lim=not_improved_lim, pnqp_iter=pnqp_iter,
-        model=fused_dense.model_of(model, slew) if model else None,
+        model=fused_dense.model_of(
+            model, slew, u0.shape[2], (nn_sizes, activation, passthrough))
+        if model else None,
         params=params, cost_params=cost_params, uz=uz, delta_u=delta_u)
 
 
@@ -391,26 +397,39 @@ def k3d_solve(F: Optional[Tensor], f: Optional[Tensor], C: Optional[Tensor],
 def _k3d_fake(F, f, C, c, x0, u0, lb, ub, alphas, lqr_iter, eps,
               best_cost_eps, not_improved_lim, pnqp_iter, model='',
               slew=False, params=None, cost_params=None, uz=None,
-              delta_u=None):
+              delta_u=None, nn_sizes=None, activation='', passthrough=False):
     T, B, nc = u0.shape
     return (x0.new_empty((T, B, x0.shape[1])), x0.new_empty((T, B, nc)),
             x0.new_empty((6, B)))
 
 
-def _check_dense_model(model, slew, params, F, f, ns, nc):
+def _check_dense_model(model, slew, params, F, f, ns, nc, mlp):
     """The model-step build's operands: a known model at its own sizes
-    (plus the control under ``slew``), its parameter vector, no F, f."""
+    (plus the controls under ``slew``), its parameter vector (an MLP's
+    flat weights, as many as its widths ``mlp[0]`` give, and the MLP
+    inside the gate, ``fused_dense.mlp_gap``), no F, f."""
     if model not in fused_dense.DENSE_MODELS:
         raise ValueError(f'the dense kernel has no model {model!r}')
-    m = fused_dense.model_of(model, slew)
+    if model == 'mlp':
+        sizes, activation, _ = mlp
+        if (sizes is None or len(sizes) < 3 or min(sizes) < 1
+                or activation not in fused.NN_ACTIVATIONS):
+            raise ValueError('the MLP build takes the layer widths (n_in, '
+                             'hidden..., n_state) and an activation of '
+                             f'{fused.NN_ACTIVATIONS}')
+    m = fused_dense.model_of(model, slew, nc, mlp)
     if (ns, nc) != (m.n_state, m.n_ctrl):
         raise ValueError(f'the {model} model{" under slew" if slew else ""} '
-                         f'has {m.n_state} states and {m.n_ctrl} control, '
+                         f'has {m.n_state} states and {m.n_ctrl} controls, '
                          f'not {ns} and {nc}')
-    if params is None or params.shape != (
-            fused_dense.DENSE_MODEL_PARAMS[model],):
-        raise ValueError(f'the {model} model takes '
-                         f'{fused_dense.DENSE_MODEL_PARAMS[model]} params')
+    n_params = (m.inner if slew else m).soa_param_count() if model == 'mlp' \
+        else fused_dense.DENSE_MODEL_PARAMS[model]
+    if params is None or params.shape != (n_params,):
+        raise ValueError(f'the {model} model takes {n_params} params')
+    if model == 'mlp':
+        gap = fused_dense.mlp_gap(m.inner if slew else m, nc if slew else 0)
+        if gap is not None:
+            raise ValueError(gap)
     if F is not None or f is not None:
         raise ValueError('the model-step build takes no F or f')
 
@@ -419,7 +438,7 @@ def _check_dense_model(model, slew, params, F, f, ns, nc):
 def _k3d_cuda(F, f, C, c, x0, u0, lb, ub, alphas, lqr_iter, eps,
               best_cost_eps, not_improved_lim, pnqp_iter, model='',
               slew=False, params=None, cost_params=None, uz=None,
-              delta_u=None):
+              delta_u=None, nn_sizes=None, activation='', passthrough=False):
     """Allocate the workspace of ``fused_dense.k3d_launch`` and launch
     csrc/fused_ilqr_dense.cu (the launcher refuses, as an invalid value,
     an array or a workspace too large for its 32-bit indices)."""
@@ -434,8 +453,11 @@ def _k3d_cuda(F, f, C, c, x0, u0, lb, ub, alphas, lqr_iter, eps,
     gap = fused.dense_gap(ns, nc)
     if gap is not None:
         raise ValueError(gap)
+    mlp = (tuple(nn_sizes), activation, passthrough) \
+        if model == 'mlp' and nn_sizes is not None else None
     if model:
-        _check_dense_model(model, slew, params, F, f, ns, nc)
+        _check_dense_model(model, slew, params, F, f, ns, nc,
+                           mlp or (None, activation, passthrough))
     elif (F is None or params is not None or F.shape[0] != T - 1
           or F.shape[1] not in (1, B) or F.shape[2:] != (ns, nt)
           or (f is not None and (f.shape[0] != T - 1
@@ -456,9 +478,11 @@ def _k3d_cuda(F, f, C, c, x0, u0, lb, ub, alphas, lqr_iter, eps,
                            has_bounds)
     if pnqp_iter < 0:
         raise ValueError('pnqp_iter must not be negative')
-    geo = fused_dense.k3d_launch(T, B, ns, nc, len(alphas), bool(model))
+    geo = fused_dense.k3d_launch(T, B, ns, nc, len(alphas), bool(model),
+                                 mlp[0] if mlp else None)
     fn = fused_dense.kernel_lib(ns, nc, has_bounds, f is not None,
-                                model or None, slew, huber, uz is not None)
+                                model or None, slew, huber, uz is not None,
+                                mlp)
     empty = functools.partial(torch.empty, dtype=torch.float32,
                               device=x0.device)
     x, u, stats = empty((T, B, ns)), empty((T, B, nc)), empty((6, B))
@@ -466,10 +490,13 @@ def _k3d_cuda(F, f, C, c, x0, u0, lb, ub, alphas, lqr_iter, eps,
         return x, u, stats
     ws = empty((geo['workspace_bytes'] // 4,))
     a_host = (ctypes.c_float * len(alphas))(*alphas)
+    sizes = mlp[0] if mlp else ()
+    sizes_host = (ctypes.c_int * max(len(sizes), 1))(*sizes)
     lb_ptr, sbt, sbb = fused._strided(lb, nc)
     with torch.cuda.device(x0.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(B, T, params.data_ptr() if model else None,
+                 sizes_host, len(sizes), int(bool(mlp and passthrough)),
                  cost_params.data_ptr() if huber else None,
                  *fused._strided(F, ns * nt), *fused._strided(f, ns),
                  *fused._strided(C, nt * nt), *fused._strided(c, nt),

@@ -37,11 +37,13 @@ Scope (``scope_gap``): LinDx dynamics (F, f each shared or batched, f
 optional) of any n_state and n_ctrl with n_state + n_ctrl <=
 ``DENSE_MAX_TAU`` and n_ctrl <= ``DENSE_MAX_CTRL``; the simple and the
 damped, biased pendulum and the cartpole (``SOA_MODELS``, their
-structure-of-arrays steps and hand-written Jacobians); a
-one-hidden-layer ``NNDynamics`` (sigmoid, relu or elu, its weights in a
-block's shared memory: K3's streamed-weights configuration, csrc/nn.cuh)
-at n_state = 3, n_ctrl = 1; a QuadCost with C and c each shared or
-batched, or the pseudo-Huber cost (``PseudoHuberCost`` with w and goal
+structure-of-arrays steps and hand-written Jacobians); an
+``NNDynamics`` of 1 to 4 hidden layers (sigmoid, relu or elu, with or
+without the passthrough, its weights in a block's shared memory): at
+n_state = 3, n_ctrl = 1 with one hidden layer K3's streamed-weights
+configuration (csrc/nn.cuh), at every other admitted size and depth the
+dense configuration's MLP build (csrc/nn_dense.cuh); a QuadCost with C
+and c each shared or batched, or the pseudo-Huber cost (``PseudoHuberCost`` with w and goal
 [n_tau] and a scalar delta, quadratised inside the kernels at every
 iteration: each kernel's cost build, MPC_COST = 1, csrc/cost.cuh); bounds
 absent, scalar, [T, nc] or [T, B, nc], an optional u_init, any T, float32
@@ -51,7 +53,8 @@ kernel's MPC_HAS_UZ build) and, with bounds, the trust region
 ``delta_u`` on each iteration's control step, as the JAX kernels apply
 them (mpc_tpu/ops/fused.py:872-928, 1019-1032, 1475-1515, 1681-1692).
 ``routes_dense`` and ``routes_long`` say which kernel takes a problem:
-at 3 states and 1 control a LinDx and an MLP go to K3, a pendulum to K1
+at 3 states and 1 control a LinDx and a one-hidden-layer MLP go to K3,
+a pendulum to K1
 up to ``T_MAX`` and to K3 past it; every other admitted problem goes to
 K3's dense configuration (ops/fused_dense.py, csrc/fused_ilqr_dense.cu:
 a warp an example, the in-kernel projected-Newton box QP for several
@@ -249,15 +252,21 @@ def routes_dense(dynamics, n_state, n_ctrl) -> bool:
     """THE dense-configuration predicate of the forward solve, shared by
     ``scope_gap``, the dispatch in ``fused_batched_solve`` and the tests:
     a LinDx or a model with a structure-of-arrays step (the pendulums,
-    the cartpole, a slew passthrough ``SlewSoA`` of one of them) at any
-    other size than K1's and K3's 3 states and 1 control (``n_state`` the
-    augmented one under a slew penalty), at any T.  So the cartpole and
-    every slew-augmented model run in the dense configuration, its
-    model-step build for the models; the damped pendulum stays on K1 and
-    K3.  The JAX package sends such problems to K1 or K3 by their
-    unrolled volume (mpc_tpu/ops/fused.py:287-300); here one kernel takes
-    them all."""
-    return (isinstance(dynamics, (LinDx, SlewSoA) + SOA_MODELS)
+    the cartpole, an MLP) at any other size than K1's and K3's 3 states
+    and 1 control, a slew passthrough ``SlewSoA`` of any of them (its
+    ``n_state`` the augmented one), and an MLP of more than one hidden
+    layer at any size, at any T.  So the cartpole, every MLP but K3's
+    one-hidden-layer 3s1c configuration and every slew-augmented model run
+    in the dense configuration, its model-step build for the models; the
+    damped pendulum stays on K1 and K3.  The JAX package sends such
+    problems to K1 or K3 by their unrolled volume or parameter count
+    (mpc_tpu/ops/fused.py:287-300, 122-129); here one kernel takes them
+    all."""
+    if isinstance(dynamics, SlewSoA):
+        return True
+    if isinstance(dynamics, NNDynamics) and not dynamics.streams:
+        return True
+    return (isinstance(dynamics, (LinDx, NNDynamics) + SOA_MODELS)
             and (n_state, n_ctrl) != (3, 1))
 
 
@@ -270,14 +279,14 @@ class SlewSoA:
     """The passthrough step of a slew-augmented model (mpc_tpu/ops/
     fused.py:2441-2508, ``_SlewSoA``; the reference's
     CtrlPassthroughDynamics, mpc/dynamics.py:133-153): on the augmented
-    state (u_{t-1}, x_t) the step is (u_t, f(x_t, u_t)), the control
+    state (u_{t-1}, x_t) the step is (u_t, f(x_t, u_t)), the controls
     passed through unclipped.  ``soa_step`` and ``soa_jacobian`` take the
-    inner model's parameters; the dense kernel's model-step build runs
-    the same (csrc/soa_model.cuh, ``Slew``)."""
+    inner model's parameters and ``u`` as the inner model does (a
+    component for one control, a tuple for several); the dense kernel's
+    model-step build runs the same (csrc/soa_model.cuh, ``Slew``; the
+    MLP's in csrc/fused_ilqr_dense.cu)."""
 
     def __init__(self, dynamics, n_ctrl):
-        if n_ctrl != 1:
-            raise ValueError('the kernels\' models have one control')
         self.inner = dynamics
         self.n_ctrl = n_ctrl
         self.n_state = dynamics.n_state + n_ctrl
@@ -290,16 +299,22 @@ class SlewSoA:
         return self.inner.soa_params()
 
     def soa_step(self, xs, u, params):
-        return (u,) + tuple(self.inner.soa_step(tuple(xs[1:]), u, params))
+        nc = self.n_ctrl
+        us = (u,) if nc == 1 else tuple(u)
+        return us + tuple(self.inner.soa_step(tuple(xs[nc:]), u, params))
 
     def soa_jacobian(self, xs, u, params):
-        """The first row picks u_t (the augmented tau's last column); the
-        inner Jacobian's rows follow, shifted right past the u_{t-1}
-        column (``soa_stream_jac``, mpc_tpu/ops/fused.py:2487-2508)."""
-        inner = self.inner.soa_jacobian(tuple(xs[1:]), u, params)
+        """The first n_ctrl rows pick u_t (the augmented tau's last
+        columns); the inner Jacobian's rows follow, shifted right past the
+        u_{t-1} columns (``soa_stream_jac``, mpc_tpu/ops/fused.py:
+        2487-2508)."""
+        nc = self.n_ctrl
+        inner = self.inner.soa_jacobian(tuple(xs[nc:]), u, params)
         zero = xs[0] * 0.0
-        return [[zero] * self.n_state + [zero + 1.0]] + [
-            [zero] + list(row) for row in inner]
+        return [[zero] * self.n_state
+                + [zero + 1.0 if i == m else zero for i in range(nc)]
+                for m in range(nc)] + [[zero] * nc + list(row)
+                                       for row in inner]
 
 
 def dense_gap(n_state, n_ctrl) -> Optional[str]:
@@ -319,20 +334,22 @@ def dense_gap(n_state, n_ctrl) -> Optional[str]:
     return None
 
 
-def nn_scope_gap(dynamics) -> Optional[str]:
-    """Why K3's streamed-weights configuration does not take an MLP;
-    None when it does."""
-    if not dynamics.streams:
-        return ('NNDynamics with more than one hidden layer (the JAX '
-                'package\'s tuple path) waits for ROADMAP queue 2 (K1 and '
-                'K3 configurations); it runs on the eager solver')
-    if dynamics.n_state != 3 or dynamics.n_ctrl != 1:
-        return ('NNDynamics at n_state != 3 or n_ctrl > 1 waits for ROADMAP '
-                'queue 2 (K3 configurations)')
-    if dynamics.hidden > K3_NN_MAX_HIDDEN:
-        return (f'an MLP of {dynamics.hidden} hidden units exceeds the '
-                f'{K3_NN_MAX_HIDDEN} whose weights K3 holds in shared memory')
-    return None
+def nn_scope_gap(dynamics, slew=False) -> Optional[str]:
+    """Why the kernels do not take an MLP (under a slew penalty with
+    ``slew``); None when they do: K3's streamed-weights configuration its
+    one-hidden-layer 3s1c MLP up to ``K3_NN_MAX_HIDDEN`` units, the dense
+    configuration's MLP build every other MLP its gate admits
+    (``fused_dense.mlp_gap``: the size gate, 1 to 4 hidden layers, the
+    weights and the warps' scratch in a block's shared memory)."""
+    if not slew and not routes_dense(dynamics, dynamics.n_state,
+                                     dynamics.n_ctrl):
+        if dynamics.hidden > K3_NN_MAX_HIDDEN:
+            return (f'an MLP of {dynamics.hidden} hidden units exceeds the '
+                    f'{K3_NN_MAX_HIDDEN} whose weights K3 holds in shared '
+                    'memory')
+        return None
+    from .fused_dense import mlp_gap
+    return mlp_gap(dynamics, dynamics.n_ctrl if slew else 0)
 
 
 def scope_gap(cfg, cost, dynamics, *, u_zero_I=None, u_lower=None,
@@ -357,29 +374,23 @@ def scope_gap(cfg, cost, dynamics, *, u_zero_I=None, u_lower=None,
                     'and f [T-1, n_state], [T-1, B, n_state] or None; '
                     'other layouts wait for ROADMAP queue 2 (K3 '
                     'configurations)')
-    elif isinstance(dynamics, NNDynamics):
-        gap = nn_scope_gap(dynamics)
-        if gap is not None:
-            return gap
-    elif not isinstance(dynamics, SOA_MODELS):
+    elif not isinstance(dynamics, (NNDynamics,) + SOA_MODELS):
         return (f'{type(dynamics).__name__} dynamics have no kernel step; '
                 'the kernels run LinDx, the pendulums, the cartpole and '
-                'one-hidden-layer MLPs (other models run on the eager '
-                'solver)')
+                'MLPs (other models run on the eager solver)')
     if not isinstance(dynamics, LinDx) and (cfg.n_state, cfg.n_ctrl) != (
             dynamics.n_state, dynamics.n_ctrl):
         return (f'{type(dynamics).__name__} has {dynamics.n_state} states '
                 f'and {dynamics.n_ctrl} control, not the configuration\'s '
                 f'{cfg.n_state} and {cfg.n_ctrl}')
     slew = cfg.slew_rate_penalty is not None
-    if slew and isinstance(dynamics, NNDynamics):
-        return (f'the slew-augmented MLP has {cfg.n_state + cfg.n_ctrl} '
-                'states (u_{t-1} and the model\'s): its kernel '
-                'configuration, the MLP in the dense configuration, waits '
-                'for ROADMAP queue 2 (K3 configurations); it runs on the '
-                'eager solver')
+    if isinstance(dynamics, NNDynamics):
+        gap = nn_scope_gap(dynamics, slew)
+        if gap is not None:
+            return gap
     ns = cfg.n_state + (cfg.n_ctrl if slew else 0)
-    if routes_dense(dynamics, ns, cfg.n_ctrl):
+    if routes_dense(SlewSoA(dynamics, cfg.n_ctrl) if slew and not isinstance(
+            dynamics, LinDx) else dynamics, ns, cfg.n_ctrl):
         gap = dense_gap(ns, cfg.n_ctrl)
         if gap is not None:
             return (f'the slew-augmented {type(dynamics).__name__} has {ns} '
@@ -1344,7 +1355,10 @@ def fused_ilqr_long(dynamics, params, F, f, C, c, x0, u0, lb, ub, *, alphas,
     _check_device('K3', x0)
     nn_hidden, activation, passthrough = 0, '', False
     if isinstance(dynamics, NNDynamics):
-        gap = nn_scope_gap(dynamics)
+        gap = ('K3 runs a one-hidden-layer MLP of 3 states and 1 control; '
+               'the dense configuration takes every other MLP'
+               if routes_dense(dynamics, dynamics.n_state, dynamics.n_ctrl)
+               else nn_scope_gap(dynamics))
         if gap is not None:
             raise ValueError(gap)
         nn_hidden, activation = dynamics.hidden, dynamics.activation
@@ -1554,7 +1568,7 @@ def solution_from_outputs(x, u, stats, eps) -> Solution:
 
 def slew_problem(cfg, x_init, cost: QuadCost, dynamics, prev_ctrl):
     """The augmented problem that the kernels solve for a slew-penalised
-    LinDx of any size or model of ``SOA_MODELS``
+    LinDx of any size, model of ``SOA_MODELS`` or MLP
     (mpc_tpu/ops/fused.py:2510-2580; K3 takes a LinDx at three augmented
     states and one control, the dense configuration everything else):
     (cfg, x_init [B, nc + ns], QuadCost, dynamics) with the state

@@ -3,8 +3,11 @@ admitted n_state and n_ctrl on Hopper, and its plain PyTorch version.
 
 Counterpart of the general-size configurations of the TPU kernels
 ``_make_kernel`` and ``_make_kernel_long`` (mpc_tpu/ops/fused.py:617-1119,
-1126-1932): LinDx dynamics, a QuadCost or the pseudo-Huber cost (its
-cost build, MPC_COST), and the control solve of the
+1126-1932): LinDx dynamics or a model's step (the model-step build,
+MPC_MODEL: the pendulums, the cartpole and, MPC_MODEL 4, an MLP of 1 to
+``MAX_NN_DEPTH`` hidden layers, csrc/nn_dense.cuh, where the TPU kernels
+take its stream form or tuple path, :1252-1340), a QuadCost or the
+pseudo-Huber cost (its cost build, MPC_COST), and the control solve of the
 problem's regime (``ctrl_solve``, :1464-1544): the closed-form 1-D box
 QP for one control, the in-kernel projected-Newton box QP
 (``_pnqp_kernel``, :534-616) on the masked unrolled Cholesky
@@ -38,14 +41,17 @@ import ctypes
 import torch
 
 from ..models.cartpole import CartpoleDx
+from ..models.dynamics import NNDynamics
 from ..models.pendulum import PendulumDx
 from ..types import LinDx
 from ..models.cost import huber_quad, huber_terms
-from .fused import (BIG, MAX_ALPHA, SlewSoA, _check_device,
+from .fused import (_NN_ACT_OPS, BIG, MAX_ALPHA, NN_ACTIVATIONS,
+                    SMEM_LIMIT, SlewSoA, _check_device,
                     _check_trust_region, _dyn_operand, _opt_float,
                     _optional_defines, cost_op_counts, cost_operands,
-                    cost_setup_ops, line_search_schedule, mask_operand,
-                    pendulum_op_counts, trust_ops, trust_region)
+                    cost_setup_ops, dense_gap, line_search_schedule,
+                    mask_operand, pendulum_op_counts, trust_ops,
+                    trust_region)
 from .math import sqrt_rn as _sqrt
 
 # Examples (warps) a block of the dense kernel.  A warp's tiles of an
@@ -93,47 +99,138 @@ def dense_workspace_floats(T, ns, nc, model=False) -> int:
         (T - 1) * ns * nt if model else 0)
 
 
-# The models of the dense kernel's model-step build (MPC_MODEL 1, 2, 3;
-# 0 is LinDx) and their parameter counts.
-DENSE_MODELS = ('pendulum', 'damped_pendulum', 'cartpole')
+# The models of the dense kernel's model-step build (MPC_MODEL 1, 2, 3,
+# 4; 0 is LinDx) and the parameter counts of the first three; an MLP
+# ('mlp') is described by its layer widths, activation and passthrough
+# (``mlp_spec``) and takes its flat weights.
+DENSE_MODELS = ('pendulum', 'damped_pendulum', 'cartpole', 'mlp')
 DENSE_MODEL_PARAMS = {'pendulum': 3, 'damped_pendulum': 5, 'cartpole': 4}
+# The MLP build's hidden layers at most (csrc/nn_dense.cuh:kNNMaxDepth):
+# its layout's arrays have this many entries; no deeper MLP is used
+# anywhere in the repository.
+MAX_NN_DEPTH = 4
 
 
 def dense_model(dynamics):
     """(model name, slew) of a model the dense kernel runs: a pendulum,
-    the cartpole, or a ``SlewSoA`` of one of them."""
+    the cartpole, an MLP, or a ``SlewSoA`` of one of them."""
     slew = isinstance(dynamics, SlewSoA)
     inner = dynamics.inner if slew else dynamics
     if isinstance(inner, CartpoleDx):
         return 'cartpole', slew
     if isinstance(inner, PendulumDx):
         return ('pendulum' if inner.simple else 'damped_pendulum'), slew
+    if isinstance(inner, NNDynamics):
+        return 'mlp', slew
     raise ValueError(f'the dense kernel has no step for '
                      f'{type(inner).__name__}')
 
 
-def model_of(name, slew):
+def mlp_spec(dynamics):
+    """(layer widths (n_in, hidden..., n_state), activation, passthrough)
+    of an MLP or a ``SlewSoA`` of one; None for any other model."""
+    inner = dynamics.inner if isinstance(dynamics, SlewSoA) else dynamics
+    if not isinstance(inner, NNDynamics):
+        return None
+    return inner.sizes, inner.activation, bool(inner.passthrough)
+
+
+def model_params(dynamics):
+    """The parameter vector the model-step build takes: an MLP's flat
+    weights (``kernel_params``), the other models' ``params``."""
+    inner = dynamics.inner if isinstance(dynamics, SlewSoA) else dynamics
+    if isinstance(inner, NNDynamics):
+        return inner.kernel_params()
+    return inner.params
+
+
+def model_of(name, slew, n_ctrl=1, mlp=None):
     """The plain model of a (model name, slew) pair, its step taking the
-    parameters it is given (its own hold zeros)."""
-    z = torch.zeros(DENSE_MODEL_PARAMS[name])
-    if name == 'cartpole':
-        m = CartpoleDx(params=z)
+    parameters it is given (its own hold zeros; an MLP, of the
+    ``mlp_spec`` ``mlp``, has no weights of its own)."""
+    if name == 'mlp':
+        m = NNDynamics.shaped(*mlp)
+        n_ctrl = m.n_ctrl
+    elif name == 'cartpole':
+        m = CartpoleDx(params=torch.zeros(DENSE_MODEL_PARAMS[name]))
     else:
-        m = PendulumDx(params=z, simple=name == 'pendulum')
-    return SlewSoA(m, 1) if slew else m
+        m = PendulumDx(params=torch.zeros(DENSE_MODEL_PARAMS[name]),
+                       simple=name == 'pendulum')
+    return SlewSoA(m, n_ctrl) if slew else m
 
 
-def k3d_launch(T, B, ns, nc, n_alpha, model=False) -> dict:
+def _mlp_scratch_floats(sizes):
+    """A warp's scratch of the MLP build (csrc/nn_dense.cuh,
+    ``mlp_scratch_floats``), in units of the widest hidden layer wmax:
+    two activation buffers, the derivatives of each hidden layer and, for
+    the reverse product's rows, one (two hidden layers) or two (more)
+    buffers of n_state x wmax."""
+    depth, ns = len(sizes) - 2, sizes[-1]
+    return max(sizes[1:-1]) * (2 + depth + ns * min(depth - 1, 2))
+
+
+def mlp_weight_floats(sizes):
+    """The block's copy of the MLP's weights in shared memory: each layer's
+    W [n_out][n_in | 1] (rows of odd stride: a lane a unit reads a column,
+    a lane an input a row, both conflict-free) and b [n_out]."""
+    return sum(b * _odd(a) + b for a, b in zip(sizes[:-1], sizes[1:]))
+
+
+def k3d_smem_bytes(ns, nc, mlp_sizes=None) -> int:
+    """The dense kernel's dynamic shared memory a block: the warps' tiles
+    (``_warp_floats``) and, in the MLP build, each warp's scratch and one
+    copy of the weights above them."""
+    floats = DENSE_WARPS * _warp_floats(ns, nc)
+    if mlp_sizes is not None:
+        floats += (DENSE_WARPS * _mlp_scratch_floats(mlp_sizes)
+                   + mlp_weight_floats(mlp_sizes))
+    return 4 * floats
+
+
+def mlp_gap(dynamics, slew_nc=0):
+    """Why the dense configuration's MLP build does not take an MLP
+    (under a slew penalty of ``slew_nc`` controls, its state augmented by
+    them); None when it does.  The gate is this card's: the size gate
+    (``fused.dense_gap``), 1 to ``MAX_NN_DEPTH`` hidden layers (the
+    layout's arrays) and a block's shared memory, 227 KB
+    (``fused.SMEM_LIMIT``), holding the four warps' tiles and scratch
+    and one copy of the weights (``k3d_smem_bytes``).  So it sits where
+    the weights and the scratch fill a block: (64, 64) at 2 states and 1
+    control takes 25,360 bytes and two hidden layers of 225 units fit
+    there; a one-hidden-layer MLP at 8 states and 4 controls takes 8,768
+    bytes of tiles and 104 bytes a hidden unit, so up to 1,644 units.
+    The weights are read at every unit of every step, so they stay in
+    shared memory and nothing past the gate is streamed."""
+    ns = dynamics.n_state + slew_nc
+    gap = dense_gap(ns, dynamics.n_ctrl)
+    if gap is not None:
+        return gap
+    sizes = dynamics.sizes
+    if not 1 <= len(sizes) - 2 <= MAX_NN_DEPTH:
+        return (f'an MLP of {len(sizes) - 2} hidden layers exceeds the dense '
+                f'configuration\'s {MAX_NN_DEPTH} (its MLP build\'s layout); '
+                'it runs on the eager solver')
+    smem = k3d_smem_bytes(ns, dynamics.n_ctrl, sizes)
+    if smem > SMEM_LIMIT:
+        return (f'an MLP of hidden widths {sizes[1:-1]} needs {smem} bytes of '
+                'a block\'s shared memory in the dense configuration (its '
+                f'weights and four warps\' tiles and scratch), over the '
+                f'{SMEM_LIMIT} an H100 block has; it runs on the eager solver')
+    return None
+
+
+def k3d_launch(T, B, ns, nc, n_alpha, model=False, mlp_sizes=None) -> dict:
     """The dense kernel's launch geometry: lanes an example (a warp),
     warps and examples a block, blocks, the dynamic shared memory of a
-    block and the workspace [B, ``dense_workspace_floats``] of float32 in
-    global memory.  ``n_alpha`` step sizes run one after another on the
-    warp, so they change nothing here; it is checked against
-    ``MAX_ALPHA``."""
+    block (``k3d_smem_bytes``: with an MLP's layer widths ``mlp_sizes``
+    its weights and the warps' scratch too) and the workspace
+    [B, ``dense_workspace_floats``] of float32 in global memory.
+    ``n_alpha`` step sizes run one after another on the warp, so they
+    change nothing here; it is checked against ``MAX_ALPHA``."""
     if not 0 < n_alpha <= MAX_ALPHA:
         raise ValueError(f'the dense kernel takes 1 to {MAX_ALPHA} step '
                          'sizes')
-    smem = 4 * DENSE_WARPS * _warp_floats(ns, nc)
+    smem = k3d_smem_bytes(ns, nc, mlp_sizes)
     return dict(team=32, warps=DENSE_WARPS, examples=DENSE_WARPS,
                 blocks=-(-B // DENSE_WARPS), smem_bytes=smem,
                 workspace_bytes=4 * B * dense_workspace_floats(T, ns, nc,
@@ -141,12 +238,16 @@ def k3d_launch(T, B, ns, nc, n_alpha, model=False) -> dict:
 
 
 def dense_kernel_defines(ns, nc, has_bounds, has_f, model=None,
-                         slew=False, huber=False, has_uz=False) -> dict:
+                         slew=False, huber=False, has_uz=False,
+                         mlp=None) -> dict:
     """The nvcc defines of the dense build for these sizes, bounds and f
     (present or absent: a compile-time flag, so that no load goes through
     the pointer of an absent f); with ``model`` (a name of
     ``DENSE_MODELS``) the model-step build, which has no F or f operand
-    (MPC_MODEL, and MPC_SLEW for the passthrough step); ``huber`` the
+    (MPC_MODEL, and MPC_SLEW for the passthrough step), for an MLP with
+    its ``mlp_spec`` ``mlp``'s activation (MPC_ACT, as K3's) and number
+    of hidden layers (MPC_NN_DEPTH; the widths and the passthrough are
+    run-time arguments); ``huber`` the
     cost build, which has no C or c operand (MPC_COST = 1, left out for a
     QuadCost); ``has_uz`` the u_zero_I mask (MPC_HAS_UZ = 1, left out
     without one, likewise a compile-time flag)."""
@@ -159,6 +260,10 @@ def dense_kernel_defines(ns, nc, has_bounds, has_f, model=None,
             raise ValueError('the model-step build has no f')
         d.update(MPC_MODEL=DENSE_MODELS.index(model) + 1,
                  MPC_SLEW=int(slew))
+        if model == 'mlp':
+            sizes, activation, _ = mlp
+            d.update(MPC_ACT=NN_ACTIVATIONS.index(activation),
+                     MPC_NN_DEPTH=len(sizes) - 2)
     return d
 
 
@@ -191,8 +296,35 @@ _CART_STEP_OPS = 40
 _CART_JAC_OPS = 92
 
 
-def model_op_counts(name):
-    """(step, Jacobian) operations of a model of ``DENSE_MODELS``."""
+def mlp_op_counts(sizes, activation, passthrough):
+    """(step, Jacobian) operations of an MLP of layer widths ``sizes`` in
+    the MLP build, counted from csrc/nn_dense.cuh: the step's layers, each
+    unit's pre-activation a dot product with its bias (2 n_in) and a
+    hidden unit's activation, then the passthrough; the Jacobian's
+    forward pass over the hidden layers (the pre-activations, the
+    derivatives and the activations the next layer reads) and its
+    reverse product, layer l down to the inputs: G act' (n_state h_l
+    products) and its product with W_l (n_state n_in (2 h_l - 1)), the
+    passthrough's diagonal last."""
+    act, dact = _NN_ACT_OPS[activation]
+    ns, depth = sizes[-1], len(sizes) - 2
+    pairs = list(zip(sizes[:-1], sizes[1:]))
+    step = sum(2 * a * b for a, b in pairs) + act * sum(sizes[1:-1])
+    jac = 0
+    for l, (a, b) in enumerate(pairs[:-1]):
+        jac += 2 * a * b + dact * b + (act * b if l < depth - 1 else 0)
+        jac += ns * b + ns * a * (2 * b - 1)
+    if passthrough:
+        step += ns
+        jac += ns
+    return step, jac
+
+
+def model_op_counts(name, mlp=None):
+    """(step, Jacobian) operations of a model of ``DENSE_MODELS`` (an MLP
+    by its ``mlp_spec`` ``mlp``)."""
+    if name == 'mlp':
+        return mlp_op_counts(*mlp)
     if name == 'cartpole':
         return _CART_STEP_OPS, _CART_JAC_OPS
     return pendulum_op_counts(name == 'damped_pendulum')
@@ -510,10 +642,11 @@ def fused_solve_dense_plain(F, f, C, c, x0, u0, lb, ub, *, alphas, lqr_iter,
 
     F [T-1, 1 or B, ns, ntau]; f None or [T-1, 1 or B, ns]; or, for the
     model-step build, F and f None and ``model`` one of the kernels'
-    models with one control (a pendulum, the cartpole or a ``SlewSoA``)
-    and ``params`` its parameter vector: the rollouts take its
-    ``soa_step`` and each sweep its ``soa_jacobian`` at the current
-    trajectory, computed before the sweep as the kernel computes them;
+    models (a pendulum, the cartpole, an MLP or a ``SlewSoA`` of one)
+    and ``params`` its parameter vector (``model_params``): the rollouts
+    take its ``soa_step`` and each sweep its ``soa_jacobian`` at the
+    current trajectory, computed before the sweep as the kernel computes
+    them (u a component for one control, a tuple for several);
     C [T, 1 or B, ntau, ntau]; c [T, 1 or B, ntau]; or, for the cost
     build, C and c None and ``cost_params`` the pseudo-Huber cost's [w,
     goal, delta] (2 ntau + 1), lane i's term of a stage cost summed by
@@ -573,24 +706,29 @@ def fused_solve_dense_plain(F, f, C, c, x0, u0, lb, ub, *, alphas, lqr_iter,
             return Ct, _dot(Ct, tau[:, None, :], -1) + c[t]
 
     if model is not None:
-        if nc != 1 or F is not None or f is not None:
-            raise ValueError('the model-step build takes a model of one '
-                             'control and no F or f')
-        p = tuple(params.unbind())
+        if F is not None or f is not None:
+            raise ValueError('the model-step build takes no F or f')
+        inner = model.inner if isinstance(model, SlewSoA) else model
+        # an MLP takes its flat weights, the other models their scalars
+        p = params if isinstance(inner, NNDynamics) else tuple(
+            params.unbind())
+
+        def ctrl(us):
+            return us[..., 0] if nc == 1 else tuple(us.unbind(-1))
 
         def step(t, tau):
             return torch.stack(model.soa_step(
-                tuple(tau[:, :ns].unbind(-1)), tau[:, ns], p), -1)
+                tuple(tau[:, :ns].unbind(-1)), ctrl(tau[:, ns:]), p), -1)
 
         def jacobians(x, u):
             """F_t [B, ns, ntau] at the current trajectory for t < T - 1,
-            all steps in one elementwise pass, as the kernel's pass
-            parallel over t computes them."""
+            all steps in one elementwise pass, as the kernel's pass over t
+            computes them."""
             if T == 1:
                 return []
             xs = torch.stack(x[:-1])
             rows = model.soa_jacobian(tuple(xs.unbind(-1)),
-                                      torch.stack(u[:-1])[..., 0], p)
+                                      ctrl(torch.stack(u[:-1])), p)
             return list(torch.stack([torch.stack(r, -1) for r in rows],
                                     -2).unbind(0))
     else:
@@ -734,6 +872,8 @@ _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
 ARGTYPES = [
     ctypes.c_int, ctypes.c_int, _P,       # B, T, model parameters
+    ctypes.POINTER(ctypes.c_int), ctypes.c_int,     # MLP widths (host), n
+    ctypes.c_int,                         # MLP passthrough
     _P,                                   # cost parameters
     _P, _I64, _I64,                       # F, t stride, batch stride
     _P, _I64, _I64,                       # f, t stride, batch stride
@@ -753,11 +893,11 @@ ARGTYPES = [
 
 
 def kernel_lib(ns, nc, has_bounds, has_f, model=None, slew=False,
-               huber=False, has_uz=False):
+               huber=False, has_uz=False, mlp=None):
     from . import _build
     fn = _build.load('fused_ilqr_dense', dense_kernel_defines(
         ns, nc, has_bounds, has_f, model, slew, huber,
-        has_uz)).mpc_fused_ilqr_dense
+        has_uz, mlp)).mpc_fused_ilqr_dense
     if fn.argtypes is None:
         fn.argtypes = ARGTYPES
         fn.restype = ctypes.c_int
@@ -770,7 +910,8 @@ def fused_ilqr_dense(F, f, C, c, x0, u0, lb, ub, *, alphas, lqr_iter, eps,
     """Run the dense kernel on its operands (layouts as in
     ``fused_solve_dense_plain``) through the op
     ``mpc_tpu_torch::k3d_solve`` (ops/custom.py), a ``model`` as its name
-    and slew flag (``dense_model``) and its ``params``; with
+    and slew flag (``dense_model``), an MLP's widths, activation and
+    passthrough (``mlp_spec``), and its ``params``; with
     ``cost_params`` (C and c None) the cost build (MPC_COST); with ``uz``
     [T, 1 or B, nc] the mask build (MPC_HAS_UZ); ``delta_u`` (bounds
     required) the trust region.
@@ -781,11 +922,14 @@ def fused_ilqr_dense(F, f, C, c, x0, u0, lb, ub, *, alphas, lqr_iter, eps,
     operand the kernel does not take or on a launch error."""
     _check_device('the dense kernel', x0)
     name, slew = dense_model(model) if model is not None else ('', False)
+    mlp = mlp_spec(model) if model is not None else None
+    sizes, activation, passthrough = mlp or (None, '', False)
     return torch.ops.mpc_tpu_torch.k3d_solve(
         F, f, C, c, x0, u0, lb, ub, [float(a) for a in alphas],
         int(lqr_iter), float(eps), float(best_cost_eps),
         float(not_improved_lim), int(pnqp_iter), name, slew, params,
-        cost_params, uz, _opt_float(delta_u))
+        cost_params, uz, _opt_float(delta_u),
+        None if sizes is None else list(sizes), activation, passthrough)
 
 
 def _ctrl_bound(a, T, B, nc, dtype, device):
@@ -811,8 +955,9 @@ def k3d_operands(cfg, x_init, cost, dynamics, u_init=None,
     axis for the cost) or batched ([T, B, ...]), each in its own layout
     (the kernel reads each with its own batch stride); bounds scalar,
     [T, nc] or [T, B, nc]; u_init [T, nc] or [T, B, nc].  A model (a
-    pendulum, the cartpole or a ``SlewSoA``) gives F = f = None, the
-    model and its parameters; a pseudo-Huber cost gives C = c = None and
+    pendulum, the cartpole, an MLP or a ``SlewSoA`` of one) gives F = f =
+    None, the model and its parameters (``model_params``: an MLP's flat
+    weights); a pseudo-Huber cost gives C = c = None and
     its ``cost_params`` (``fused.cost_operands``); u_zero_I None, [T, nc]
     or [T, B, nc] gives ``uz`` [T, 1 or B, nc] of 0/1
     (``fused.mask_operand``) and ``cfg.delta_u`` ``delta_u``."""
@@ -840,7 +985,7 @@ def k3d_operands(cfg, x_init, cost, dynamics, u_init=None,
     else:
         dense_model(dynamics)
         dyn = dict(F=None, f=None, model=dynamics,
-                   params=dynamics.params.detach().to(
+                   params=model_params(dynamics).detach().to(
                        device=device, dtype=dtype).contiguous())
     return dict(**dyn, **cost_operands(cost, T, B, dtype, device),
                 x0=x0, u0=u0, lb=lb, ub=ub,

@@ -16,9 +16,13 @@ of one checkout.  The script reports the phases' own lines and judges
 no time; host times compare within one call only.
 
 Each turn also solves the headline (K1, B=4096), the long LinDx system
-(K3, T=160, B=4096) and the medium row (the dense configuration, 24
-states and 4 controls, B=2048) once on the operands chip_smoke builds
-for them and prints a digest of the outputs' bytes (x, u and stats); the
+(K3, T=160, B=4096), the medium row (the dense configuration, 24
+states and 4 controls, B=2048), bench_nn_dynamics (K3's MLP
+configuration, B=2048), config 3 (the cartpole in the dense
+configuration's model-step build, B=512) and the headline under slew 0.5
+(the slew-augmented pendulum there, B=4096) once on the operands
+chip_smoke builds for them and prints a digest of the outputs' bytes (x,
+u and stats); the
 last line says whether each row's digest is the same in all four turns,
 that is whether the two checkouts' kernels give the same bits there.
 """
@@ -61,7 +65,12 @@ bits = {
     'long': fused.fused_ilqr_long(**cs.long_k3_operands(torch, d)),
     '24s4c': fused_dense.fused_ilqr_dense(**cs.dense_operands(
         torch, d, 'medium', 24, 4, 2048)),
+    'mlp': fused.fused_ilqr_long(**cs.nn_k3_operands(torch, d)),
 }
+for key, label in (('config3', 'config 3'), ('slew', 'slew 0.5')):
+    ops, kernel, _ = cs.soa_operands(torch, d, label)
+    bits[key] = kernel(**ops)
+
 print('[bits] ' + ' '.join(f'{k} {digest(v)}' for k, v in bits.items()))
 print(cs.card_line())
 '''

@@ -74,6 +74,13 @@ launches bitwise; the entry points launch each kernel once a request, a
 differentiable cartpole solve the dense forward and backward once each,
 and a broken library raises.
 
+The dense configuration's MLP build (an MLP of 1 to 4 hidden layers at
+any admitted size, under slew too) is held at B=2050 against float64,
+one define set a process under CUDA_LAUNCH_BLOCKING=1, the reversed batch
+bitwise; the entry points launch it once a request, a differentiable
+8-state solve the dense forward and backward once each, and a broken
+library raises.
+
 The pseudo-Huber cost in the kernels' cost build (K1, K3 on the
 pendulum, a LinDx and the MLP, the dense LinDx and model-step builds) is
 held to its plain version at B=2050, one case a process under
@@ -1759,11 +1766,138 @@ def test_uz_position_free_and_entry_points(cuda, monkeypatch):
     assert solver.eager_counts['eager_solve'] == 0
 
 
+# ---------------------------------------------------------------------------
+# learned dynamics at any size: the dense configuration's MLP build
+# (MPC_MODEL 4, csrc/nn_dense.cuh)
+# ---------------------------------------------------------------------------
+
+# (row of utils/problems.MLP_ROWS, hidden widths, bounds, activation,
+# passthrough): each define set the MLP build takes at B=2050 with T cut
+# to 8: the slew row, the deep row, two and three hidden layers of other
+# activations without the passthrough, the 8-state row with and without
+# a box
+MLP_CASES = {
+    'mlp_slew': ('mlp-slew', None, True, 'sigmoid', True),
+    'mlp_deep': ('mlp-deep', None, True, 'sigmoid', True),
+    'mlp_deep_relu': ('mlp-deep', (24, 16), False, 'relu', False),
+    'mlp_three_elu': ('mlp-multictrl', (20, 12, 9), True, 'elu', False),
+    'mlp_multictrl': ('mlp-multictrl', None, True, 'sigmoid', True),
+    'mlp_multictrl_free': ('mlp-multictrl', None, False, 'sigmoid', True),
+}
+
+
+def _mlp_problem(device, case, B, dtype=torch.float32):
+    """(ops, cfg, x0, cost, model, bounds, prev) of an MLP_CASES case."""
+    from mpc_tpu_torch.utils.convert import nn_dynamics_from_numpy
+    from mpc_tpu_torch.utils.problems import mlp_row
+    row, hidden, bounded, act, passthrough = MLP_CASES[case]
+    r = mlp_row(row, B, T=8, hidden=hidden, bounded=bounded)
+    t = (lambda a: torch.tensor(a, dtype=dtype, device=device))
+    cfg = _cfg(8, n_state=r['n_state'], n_ctrl=r['n_ctrl'], **r['cfg'])
+    model = nn_dynamics_from_numpy(r['weights'], act, passthrough,
+                                   device=device).to(dtype)
+    x0, cost = t(r['x0']), mt.QuadCost(t(r['C']), t(r['c']))
+    bk = {} if r['u_lower'] is None else dict(u_lower=r['u_lower'],
+                                              u_upper=r['u_upper'])
+    prev = None if r['prev_ctrl'] is None else t(r['prev_ctrl'])
+    c, x, co, dyn = cfg, x0, cost, model
+    if prev is not None:
+        c, x, co, dyn = fused.slew_problem(cfg, x0, cost, model, prev)
+    return (fused_dense.k3d_operands(c, x, co, dyn, **bk), cfg, x0, cost,
+            model, bk, prev)
+
+
+def mlp_case_main(case):
+    """One case against its plain version at B=2050, run alone in a
+    process under CUDA_LAUNCH_BLOCKING=1 by test_mlp_matches_plain: one
+    launch, finite, no further from float64 than twice the plain float32
+    run (two float32 solves of a stiff MLP part beyond the tail, PERF.md
+    section 6), the reversed batch bitwise."""
+    device = torch.device('cuda')
+    ops = _mlp_problem(device, case, 2050)[0]
+    ops64 = _mlp_problem(device, case, 2050, torch.float64)[0]
+    kernel, plain = fused_dense.fused_ilqr_dense, \
+        fused_dense.fused_solve_dense_plain
+    fused.reset_launch_counts()
+    xk, uk, sk = kernel(**ops)
+    torch.cuda.synchronize()
+    assert sum(fused.launch_counts.values()) == 1
+    _, up, _ = plain(**ops)
+    _, u64, _ = plain(**ops64)
+    assert torch.isfinite(xk).all() and torch.isfinite(uk).all()
+    _assert_near_f64(uk, up, u64)
+    back = kernel(**_batch_map(ops, lambda a: a.flip(0), lambda a: a.flip(1)))
+    assert all(torch.equal(a.flip(1), b) for a, b in zip(back, (xk, uk, sk)))
+    print('ok', case, float((uk - up).abs().max()))
+
+
+@pytest.mark.parametrize('case', list(MLP_CASES))
+def test_mlp_matches_plain(cuda, case):
+    """Each define set of the MLP build against its plain version at
+    B=2050, one case a process under CUDA_LAUNCH_BLOCKING=1."""
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, CUDA_LAUNCH_BLOCKING='1',
+               PYTHONPATH=os.pathsep.join(
+                   [root, os.environ.get('PYTHONPATH', '')]))
+    r = subprocess.run([sys.executable, os.path.abspath(__file__), case],
+                       env=env, cwd=root, capture_output=True, text=True,
+                       timeout=600)
+    assert r.returncode == 0 and f'ok {case}' in r.stdout, \
+        r.stdout[-2000:] + r.stderr[-4000:]
+
+
+def test_mlp_entry_points_launch_once_and_never_fall_back(cuda,
+                                                          monkeypatch):
+    """The slew row and the deep row through batched_solve and MPC: one
+    dense launch a request, no eager solve; a differentiable 8-state solve
+    launches the dense forward and the dense backward once each with
+    finite gradients to the weights; with the dense library broken a
+    request raises."""
+    _, cfg, x0, cost, model, bk, prev = _mlp_problem(cuda, 'mlp_slew', 512)
+    solver.reset_eager_counts()
+    (sol, u), launched = _launched(lambda: (
+        mt.batched_solve(cfg, x0, cost, model, prev_ctrl=prev, **bk),
+        mt.MPC(3, 1, 8, lqr_iter=cfg.lqr_iter, eps=cfg.eps,
+               linesearch_decay=cfg.linesearch_decay,
+               max_linesearch_iter=cfg.max_linesearch_iter,
+               slew_rate_penalty=0.5, prev_ctrl=prev,
+               exit_unconverged=False, backprop=False, **bk)(
+                   x0, cost, model)[1]))
+    assert launched == {'fused_ilqr_dense': 2} and torch.equal(u, sol.u)
+    _, cfg, x0, cost, model, bk, _ = _mlp_problem(cuda, 'mlp_deep', 1)
+    s, launched = _launched(lambda: mt.batched_solve(cfg, x0, cost, model,
+                                                     **bk))
+    assert launched == {'fused_ilqr_dense': 1} and torch.isfinite(s.u).all()
+    _, cfg, x0, cost, model, bk, _ = _mlp_problem(cuda, 'mlp_multictrl', 256)
+    sol, launched = _launched(lambda: mt.batched_solve(
+        dataclasses.replace(cfg, backprop=True, detach_unconverged=False),
+        x0, cost, model, **bk))
+    (_, launched_bwd) = _launched(lambda: (sol.u ** 2).mean().backward())
+    assert launched == {'fused_ilqr_dense': 1}
+    assert launched_bwd == {'fused_kkt_bwd_dense': 1}
+    assert solver.eager_counts == {'eager_solve': 0, 'eager_fixed_point': 0}
+    w = model.layers[0].weight.grad
+    assert torch.isfinite(w).all() and w.abs().max() > 0
+
+    def broken(*a, **k):
+        raise RuntimeError('the library is broken')
+
+    monkeypatch.setattr(fused_dense, 'kernel_lib', broken)
+    with pytest.raises(RuntimeError, match='broken'):
+        mt.batched_solve(cfg, x0, cost, model, **bk)
+    assert solver.eager_counts['eager_solve'] == 0
+
+
 if __name__ == '__main__':
     import sys
     if sys.argv[1] in HUBER_CASES:
         huber_case_main(sys.argv[1])
     elif sys.argv[1] in UZ_CASES:
         uz_case_main(sys.argv[1])
+    elif sys.argv[1] in MLP_CASES:
+        mlp_case_main(sys.argv[1])
     else:
         soa_case_main(sys.argv[1])

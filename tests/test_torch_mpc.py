@@ -268,16 +268,25 @@ def test_out_of_scope_problems_raise():
     damped = PendulumDx(simple=False, device='cpu')
     # delta_u with bounds is in the kernels' scope
     # (tests/test_torch_uzero.py); a problem they refuse for another
-    # reason (an MLP of 4 states, ROADMAP queue 2) raises under 'always'
-    # with delta_u too
+    # reason (an MLP of five hidden layers, past the dense configuration's
+    # MLP build) raises under 'always' with delta_u too; an MLP of 4
+    # states, refused here before that build, now solves
+    cost5 = quad_cost_from_numpy(np.eye(5, dtype=np.float32),
+                                 np.zeros(5, np.float32), 'cpu')
+    mlp4 = mt.NNDynamics.init(4, 1, (8,) * 5, 'sigmoid', device='cpu',
+                              generator=torch.Generator().manual_seed(0))
+    with pytest.raises(NotImplementedError, match='hidden layers'):
+        mt.batched_solve(_cfg(n_state=4, use_fused='always', delta_u=0.5),
+                         torch.zeros(2, 4), cost5, mlp4,
+                         u_lower=-2., u_upper=2., device='cpu')
     mlp4 = mt.NNDynamics.init(4, 1, (8,), 'sigmoid', device='cpu',
                               generator=torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match='queue 2'):
-        mt.batched_solve(_cfg(n_state=4, use_fused='always', delta_u=0.5),
-                         torch.zeros(2, 4), quad_cost_from_numpy(
-                             np.eye(5, dtype=np.float32),
-                             np.zeros(5, np.float32), 'cpu'), mlp4,
-                         u_lower=-2., u_upper=2., device='cpu')
+    solver.reset_eager_counts()
+    sol = mt.batched_solve(_cfg(n_state=4, use_fused='always', delta_u=0.5),
+                           torch.zeros(2, 4), cost5, mlp4, u_lower=-2.,
+                           u_upper=2., device='cpu')
+    assert torch.isfinite(sol.u).all()
+    assert solver.eager_counts['eager_solve'] == 0
     # the pseudo-Huber cost, refused here before the kernels' cost build,
     # now solves under 'always' (the plain K1 on the CPU)
     solver.reset_eager_counts()

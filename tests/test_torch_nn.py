@@ -12,20 +12,23 @@ the gradients to the MLP's weights.
   solves add 1e-11 to the diagonal (mpc_tpu/ops/lqr.py:143,
   mpc_tpu/ops/linalg.py:155-173): where a free control's Quu is small
   that moves the jnp iterates, by 8.3e-11 in the H = 8 box case
-  (measured; the free cases and H = 100 ~1e-15).  A two-layer MLP,
-  which the kernels do not take, through the eager route.
+  (measured; the free cases and H = 100 ~1e-15).  A two-layer MLP
+  through the eager route and the plain dense configuration's MLP build
+  (csrc/nn_dense.cuh; tests/test_torch_mlp_dense.py holds it further).
 - float32, at H = 8 (67 weights: the JAX package streams it too), B = 8,
   T = 5: the port's plain K3 against
   ``mpc_tpu.ops.fused.fused_batched_solve(..., interpret=True)`` on the
   problem of tests/test_fused_nn.py, within that test's 5e-4.
 - routing: ``scope_gap`` admits the JAX package's ``bench_nn_dynamics``
-  MLP and refuses a two-layer MLP, n_state != 3 and a width past
+  MLP (K3), a two-layer MLP and one of 4 states (the dense
+  configuration's MLP build), and refuses a width past
   ``K3_NN_MAX_HIDDEN``, whose arithmetic is pinned; ``routes_long``
-  sends every MLP to K3; ``k3_launch`` with ``nn_hidden`` (weights in
-  shared memory always, the state and the Jacobian rows resident where
-  they fit); the nvcc defines; ``use_fused='always'`` raises
-  NotImplementedError for MLPs and the pseudo-Huber cost (mpc_tpu's
-  kernels take them) and ValueError for an affine model.
+  sends the one-hidden-layer 3s1c MLP to K3; ``k3_launch`` with
+  ``nn_hidden`` (weights in shared memory always, the state and the
+  Jacobian rows resident where they fit); the nvcc defines;
+  ``use_fused='always'`` raises NotImplementedError for an MLP past the
+  dense gate and ValueError for an affine model, and solves a two-layer
+  MLP with the pseudo-Huber cost.
 - gradients of an imitation loss with respect to the MLP's weights,
   x_init and c, against ``jax.grad`` through mpc_tpu's jnp path, in
   float64: through the kernel route (the plain K3, then the plain K2 on
@@ -113,11 +116,14 @@ def test_nn_solve_f64_matches_jnp_path(hidden, bound):
     routes = {'eager': mt.batched_solve(
         _port_cfg(**kw, use_fused='never'), torch.tensor(x0), cost, tm,
         device='cpu', **lim)}
-    gap = fused.scope_gap(_port_cfg(**kw), cost, tm, dtype=torch.float64)
-    assert (gap is None) == (len(hidden) == 1)
-    if gap is None:
-        routes['plain K3'] = fused.fused_batched_solve(
-            _port_cfg(**kw), torch.tensor(x0), cost, tm, **lim)
+    assert fused.scope_gap(_port_cfg(**kw), cost, tm,
+                           dtype=torch.float64) is None
+    # K3's MLP configuration, or the dense one's MLP build for two layers
+    dense = fused.routes_dense(tm, 3, 1)
+    assert dense == (len(hidden) > 1)
+    routes['plain dense' if dense else 'plain K3'] = \
+        fused.fused_batched_solve(_port_cfg(**kw), torch.tensor(x0), cost,
+                                  tm, **lim)
     if bound is not None:
         assert (np.abs(np.asarray(ref.u)) == bound).mean() > 0.05
     for name, sol in routes.items():
@@ -173,18 +179,25 @@ def test_scope_gap_admits_the_bench_mlp_and_refuses_the_rest():
     for act in fused.NN_ACTIVATIONS:
         assert fused.scope_gap(bench, cost, _mlp((100,), act=act)) is None
     assert fused.routes_long(_mlp((100,)), 2)
-    assert 'hidden layer' in fused.scope_gap(bench, cost, _mlp((16, 16)))
+    # a deeper MLP and other sizes: the dense configuration's MLP build
+    assert fused.scope_gap(bench, cost, _mlp((16, 16))) is None
+    assert fused.routes_dense(_mlp((16, 16)), 3, 1)
     four = mt.MPCConfig(**dict(_cfg_kw(20), n_state=4))
-    assert 'n_state' in fused.scope_gap(four, cost, _mlp((8,), ns=4))
+    four_cost = mt.QuadCost(torch.eye(5), torch.zeros(5))
+    assert fused.scope_gap(four, four_cost, _mlp((8,), ns=4)) is None
+    assert fused.routes_dense(_mlp((8,), ns=4), 4, 1)
     wide = _mlp((fused.K3_NN_MAX_HIDDEN + 1,))
     assert 'shared memory' in fused.scope_gap(bench, cost, wide)
     assert fused.scope_gap(bench, cost, _mlp((fused.K3_NN_MAX_HIDDEN,))) \
         is None
-    # the pseudo-Huber cost: K3's MLP build takes it (its cost build), a
-    # deeper MLP still waits
+    # the pseudo-Huber cost: K3's MLP build takes it (its cost build), and
+    # so does the dense configuration's with a deeper MLP
     huber = pseudo_huber_from_numpy(np.ones(4), np.zeros(4), device='cpu')
     assert fused.scope_gap(bench, huber, _mlp((100,))) is None
-    assert 'hidden layer' in fused.scope_gap(bench, huber, _mlp((16, 16)))
+    assert fused.scope_gap(bench, huber, _mlp((16, 16))) is None
+    # five hidden layers: past the MLP build's layout
+    assert 'hidden layers' in fused.scope_gap(bench, cost,
+                                              _mlp((4,) * 5))
     # the solver's wants_grad finds the MLP's parameters
     assert solver.wants_grad(mt.MPCConfig(**_cfg_kw(20, backprop=True)),
                              _mlp((8,)))
@@ -251,12 +264,20 @@ def test_always_names_the_kernel_configuration_that_waits():
     x0 = torch.tensor(_x0(2), dtype=torch.float32)
     cost = mt.QuadCost(torch.diag(torch.tensor(Q, dtype=torch.float32)),
                        torch.tensor(P, dtype=torch.float32))
-    with pytest.raises(NotImplementedError, match='hidden layer'):
-        mt.batched_solve(cfg, x0, cost, _mlp((6, 5)), device='cpu')
+    with pytest.raises(NotImplementedError, match='hidden layers'):
+        mt.batched_solve(cfg, x0, cost, _mlp((4,) * 5), device='cpu')
     huber = pseudo_huber_from_numpy(np.ones(4, np.float32),
                                     np.zeros(4, np.float32), device='cpu')
-    with pytest.raises(NotImplementedError, match='hidden layer'):
-        mt.batched_solve(cfg, x0, huber, _mlp((6, 5)), device='cpu')
+    with pytest.raises(NotImplementedError, match='hidden layers'):
+        mt.batched_solve(cfg, x0, huber, _mlp((4,) * 5), device='cpu')
+    # a two-layer MLP, refused here before the dense configuration's MLP
+    # build, now solves under 'always' with either cost (the plain dense
+    # version on the CPU)
+    solver.reset_eager_counts()
+    for c_ in (cost, huber):
+        sol = mt.batched_solve(cfg, x0, c_, _mlp((6, 5)), device='cpu')
+        assert torch.isfinite(sol.u).all()
+    assert solver.eager_counts['eager_solve'] == 0
     # the pseudo-Huber cost with a one-hidden-layer MLP, refused here
     # before K3's cost build, now solves (the plain K3 on the CPU)
     solver.reset_eager_counts()

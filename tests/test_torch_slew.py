@@ -290,11 +290,12 @@ def test_scope_gap_judges_the_augmented_problem():
     assert fused.scope_gap(cfg, cost, pend) is None
     assert fused.routes_dense(fused.SlewSoA(pend, 1), 4, 1)
     assert not fused.routes_dense(pend, 3, 1)
-    # an MLP under slew has no kernel configuration yet
+    # an MLP under slew: the dense configuration's MLP build through its
+    # passthrough rows
     mlp = mt.NNDynamics.init(3, 1, (8,), generator=torch.Generator(
     ).manual_seed(0), device='cpu', dtype=torch.float64)
-    gap = fused.scope_gap(cfg, cost, mlp)
-    assert 'ROADMAP queue 2' in gap and 'eager' in gap
+    assert fused.scope_gap(cfg, cost, mlp) is None
+    assert fused.routes_dense(fused.SlewSoA(mlp, 1), 4, 1)
     # a 3-state LinDx augments to 4 states: K3's dense configuration
     lin3 = lin_dx_from_numpy(np.zeros((T - 1, 3, 4)), None, 'cpu')
     assert fused.scope_gap(cfg, cost, lin3) is None
