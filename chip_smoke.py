@@ -173,6 +173,24 @@ bench_nn_dynamics as the reference point ([time-mlp]); gradients of the
 8-state row to the MLP's weights and x_init through one dense forward
 and one dense backward against the eager fixed point ([grad-mlp]).
 
+More than 8 controls in both dense kernels (csrc/box_qp_smem.cuh: the
+control block's factor and the box QP on the warp's tiles in shared
+memory), at the rows of mpc_tpu_torch/utils/problems.WIDE_ROWS (the
+medium rows' system at 3s9c and 4s12c with box +-1 and at 2s16c
+unbounded, T=20, B=2048; the 4s12c learner at B=1024): the gate's
+corners (1s9c, 1s31c, 4s28c, 23s9c; with bounds, with f, with the mask;
+the backward with and without the active set) built and launched a
+process each under CUDA_LAUNCH_BLOCKING=1 ([build]; --corner-worker);
+the rows, a batched mask and delta_u at 3s9c and an MLP at 2s9c against
+the plain version in the float32 tail or by float64 with reversed,
+sliced and B+2 batches bitwise ([compare-dense]; --wide-worker);
+requests through batched_solve and MPC, one launch each, beside the
+eager route ([serve-dense]); each row's time from a CUDA graph beside
+its bound ([time-dense]); the backward at 4s12c same-primal against its
+plain version ([compare-bwd-dense]) and timed ([time-bwd-dense]); the
+learner's 20 steps, one dense forward and one dense backward a step, the
+loss falling ([train-dense]).
+
 The kernels are torch.library ops (mpc_tpu_torch/ops/custom.py), so the
 port's artifacts and scale-out run on the card too, each against the live
 path: the headline exported with torch.export and answered by a fresh
@@ -188,8 +206,8 @@ the one card, bitwise ([sharded]); config 4's sharded train step against
 the unsharded one ([train-sharded]) and over two gloo processes on the
 card ([pod]); a run resumed from a checkpoint in a fresh process,
 bitwise ([checkpoint]).  The worker processes are this script with
---serve-worker, --pod-worker, --resume-worker, --uz-worker or
---mlp-worker.
+--serve-worker, --pod-worker, --resume-worker, --uz-worker,
+--mlp-worker, --wide-worker or --corner-worker.
 
 It prints one JSON line of kernel numbers, one of the artifact and
 scale-out times, one of the eager phases, the card's name and power
@@ -380,6 +398,10 @@ def phase_build():
     specs += [s for s in uz_build_specs() if s not in specs]
     # the dense configuration's MLP build at each MLP_CASES row
     specs += [s for s in mlp_build_specs() if s not in specs]
+    # past 8 controls: each WIDE_CASES case's build, the wide backward and
+    # the gate's corners (1s9c, 1s31c, 4s28c, 23s9c), whose registers and
+    # spills below stand for the control solve on the warp's tiles
+    specs += [s for s in wide_build_specs() if s not in specs]
     t0 = time.perf_counter()
     paths = _build.build(specs)
     log(f'[build] nvcc {" ".join(_build.NVCC_FLAGS)} '
@@ -2912,18 +2934,23 @@ def phase_compare_dense(torch, device):
     batched operand); at TVLQR and the main row also B = 1, 7, 33 alone
     and the batch with two more examples (more blocks) bitwise; TVLQR
     also against the dense QP of [eager-tvlqr] (dense_lqr_u).  Returns
-    the largest max |du|."""
+    the largest max |du| and each row's plain float32 run's device ms."""
     import numpy as np
     from mpc_tpu_torch.ops import fused_dense as fd
-    kw = dict(kernel=fd.fused_ilqr_dense, plain=fd.fused_solve_dense_plain,
-              limits=(LONG_TAIL_MEAN, LONG_TAIL_SHARE))
-    worst = 0.0
+    worst, plain_ms = 0.0, {}
     for label, ns, nc, n in DENSE_ROWS:
         what = f'{label} {ns}s{nc}c, B={n}'
         log(f'[compare-dense] dense kernel vs its plain version, {what}')
         ops = dense_operands(torch, device, label, ns, nc, n)
         ops64 = dense_operands(torch, device, label, ns, nc, n, torch.float64)
-        full, mx = hold_k1(torch, what, ops, ops64, **kw)
+        times = []
+        full, mx = hold_k1(torch, what, ops, ops64,
+                           kernel=fd.fused_ilqr_dense,
+                           plain=timed_plain(torch,
+                                             fd.fused_solve_dense_plain,
+                                             times),
+                           limits=(LONG_TAIL_MEAN, LONG_TAIL_SHARE))
+        plain_ms[(label, ns, nc, n)] = times[0]
         worst = max(worst, mx)
         if label == 'tvlqr':
             _, _, _, arr = tvlqr_problem(torch, device, torch.float32, n)
@@ -2950,7 +2977,7 @@ def phase_compare_dense(torch, device):
             f'{float((full[1].abs() == 1.0).double().mean()):.3f}; '
             f'n_qp_iter a solve {float(full[2][3].double().mean()):.1f}, '
             f'trials a solve {float(full[2][5].double().mean()):.2f}')
-    return worst
+    return worst, plain_ms
 
 
 def phase_serve_dense(torch, device):
@@ -3055,11 +3082,12 @@ def dense_entries(rows, launches, req_ms, err):
     return out
 
 
-def time_dense_row(torch, what, ops, tag='time-dense'):
+def time_dense_row(torch, what, ops, tag='time-dense', plain_ms=None):
     """The dense kernel on ``ops`` timed from a CUDA graph, its bound
     from this run's iterations, trial rollouts and QP trips, its
-    registers and spills (ptxas), and the plain version on the card:
-    the row's numbers."""
+    registers and spills (ptxas), and the plain version on the card
+    (timed here unless ``plain_ms`` gives its time in this run): the
+    row's numbers."""
     from mpc_tpu_torch.ops import fused_dense as fd
     T_, n, nc = ops['u0'].shape
     ns = ops['x0'].shape[1]
@@ -3077,7 +3105,8 @@ def time_dense_row(torch, what, ops, tag='time-dense'):
                  fd.dense_kernel_defines(ns, nc, has_bounds,
                                          ops['f'] is not None),
                  fd.k3d_launch(T_, n, ns, nc, len(ops['alphas'])))
-    pms = event_ms(torch, lambda: fd.fused_solve_dense_plain(**ops))
+    pms = plain_ms if plain_ms is not None else event_ms(
+        torch, lambda: fd.fused_solve_dense_plain(**ops))
     log(f'[{tag}] {what}, B={n}, T={T_}: {ms:.4f} ms '
         f'(from a CUDA graph; {eager_ms:.4f} ms a call from Python), '
         f'plain {pms:.1f} ms; {flops:.4e} operations '
@@ -3092,11 +3121,13 @@ def time_dense_row(torch, what, ops, tag='time-dense'):
                 spill_store_bytes=des['spill_store_bytes'])
 
 
-def phase_time_dense(torch, device):
-    """The dense kernel at each DENSE_ROWS row (``time_dense_row``).
+def phase_time_dense(torch, device, plain_ms):
+    """The dense kernel at each DENSE_ROWS row (``time_dense_row``; the
+    plain version's device ms from [compare-dense], ``plain_ms``).
     Returns the rows."""
     return [time_dense_row(torch, f'{label} {ns}s{nc}c', dense_operands(
-        torch, device, label, ns, nc, n)) for label, ns, nc, n in DENSE_ROWS]
+        torch, device, label, ns, nc, n), plain_ms=plain_ms[row])
+        for row in DENSE_ROWS for label, ns, nc, n in (row,)]
 
 
 # ---------------------------------------------------------------------------
@@ -3237,17 +3268,24 @@ def batch_subset_bwd(torch, o, keep):
                 and v.shape[1] == B else v) for k, v in o.items()}
 
 
-def dense_learner(torch, device):
-    """The medium imitation row's learner at B = TRAIN_DENSE_B: cfg,
-    theta, make_cost, the LinDx, x0 and the expert's controls (the kernel
-    route's solve of the true cost)."""
+def dense_learner(torch, device, wide=False):
+    """The medium imitation row's learner at B = TRAIN_DENSE_B (with
+    ``wide`` at utils/problems.WIDE_ROWS['wide-train'], 4 states and 12
+    controls): cfg, theta, make_cost, the LinDx, x0 and the expert's
+    controls (the kernel route's solve of the true cost)."""
+    import dataclasses
     import numpy as np
     import mpc_tpu_torch as mt
-    ns, nc = TRAIN_DENSE['n_state'], TRAIN_DENSE['n_ctrl']
-    n = TRAIN_DENSE_B
-    cfg = mt.MPCConfig(**TRAIN_DENSE)
-    x0, true_cost, dyn = medium_problem(torch, device, torch.float32, n,
-                                        ns=ns, nc=nc)
+    if wide:
+        cfg, x0, true_cost, dyn, _ = wide_problem(torch, device,
+                                                  'wide-train')
+        cfg = dataclasses.replace(cfg, backprop=True)
+        ns, nc = cfg.n_state, cfg.n_ctrl
+    else:
+        ns, nc = TRAIN_DENSE['n_state'], TRAIN_DENSE['n_ctrl']
+        cfg = mt.MPCConfig(**TRAIN_DENSE)
+        x0, true_cost, dyn = medium_problem(torch, device, torch.float32,
+                                            TRAIN_DENSE_B, ns=ns, nc=nc)
     with torch.no_grad():
         u_exp = mt.batched_solve(cfg, x0, true_cost, dyn, u_lower=-1.0,
                                  u_upper=1.0, device=device).u
@@ -3272,25 +3310,31 @@ def dense_train_grads(torch, device):
         ln['theta'])]
 
 
-def phase_train_dense(torch, device, record):
+def phase_train_dense(torch, device, record, held=None):
     """The medium imitation row's train step through
-    make_imitation_train_step: the dense forward held to its plain
+    make_imitation_train_step (with ``held``, the paths of
+    ``wide_train_worker``'s saved plain runs, the same learner at
+    'wide-train', 4 states and 12 controls, its launches recorded under
+    'train-dense-wide'): the dense forward held to its plain
     version at the learner's start (hold_k1), then TRAIN_DENSE_STEPS
     host-timed, synchronised steps, each launching the dense forward and
     the dense backward once and nothing else (every count set to 0 just
     before a step and read just after, ``counted``), no eager solve or
     fixed point, the loss ending below TRAIN_DENSE_MAX_RATIO of its
-    first; TF32 on and off the same gradients; where the step's time
-    goes (``phase_profile_train``).  Returns the forward's error, the
-    step times and the launches."""
+    first; for the medium row also TF32 on and off the same gradients and
+    where the step's time goes (``phase_profile_train``).  Returns the
+    forward's error, the step times and the launches."""
     import mpc_tpu_torch as mt
     from mpc_tpu_torch import solver
     from mpc_tpu_torch.ops import fused_dense as fd
-    ln = dense_learner(torch, device)
-    ns, nc = TRAIN_DENSE['n_state'], TRAIN_DENSE['n_ctrl']
+    wide = held is not None
+    ln = dense_learner(torch, device, wide)
+    ns, nc = ln['cfg'].n_state, ln['cfg'].n_ctrl
     n = TRAIN_DENSE_B
-    what = f'the medium imitation row {ns}s{nc}c, B={n}'
-    log(f'[train-dense] {what}, T={TRAIN_DENSE["T"]}: the dense forward vs '
+    key = 'train-dense-wide' if wide else 'train-dense'
+    what = (f'wide-train {ns}s{nc}c, B={n}' if wide
+            else f'the medium imitation row {ns}s{nc}c, B={n}')
+    log(f'[train-dense] {what}, T={ln["cfg"].T}: the dense forward vs '
         'its plain version at the learner\'s start')
     with torch.no_grad():
         cost = ln['make_cost'](ln['theta'])
@@ -3300,8 +3344,20 @@ def phase_train_dense(torch, device, record):
         ops64 = fd.k3d_operands(ln['cfg'], ln['x0'].double(), cost64,
                                 mt.LinDx(ln['dyn'].F.double()),
                                 u_lower=-1.0, u_upper=1.0)
+    times = []
+    plain = timed_plain(torch, fd.fused_solve_dense_plain, times)
+    if wide:
+        # the plain runs on these operands, made by wide_train_worker
+        runs = [torch.load(held[m]) for m in ('f32', 'f64')]
+        for m in held:
+            os.remove(held[m])
+        times.append(runs[0]['plain_ms'])
+        outs = iter([tuple(a.to(device) for a in r['out']) for r in runs])
+
+        def plain(**_):
+            return next(outs)
     _, fwd_err = hold_k1(torch, what, ops, ops64, kernel=fd.fused_ilqr_dense,
-                         plain=fd.fused_solve_dense_plain,
+                         plain=plain,
                          limits=(LONG_TAIL_MEAN, LONG_TAIL_SHARE))
     step = mt.make_imitation_train_step(
         ln['cfg'], torch.optim.Adam(ln['theta'].values(), lr=1e-2),
@@ -3312,13 +3368,13 @@ def phase_train_dense(torch, device, record):
     lat, losses = [], []
     for _ in range(TRAIN_DENSE_STEPS):
         t0 = time.perf_counter()
-        loss = counted(device, record, 'train-dense', expect,
+        loss = counted(device, record, key, expect,
                        lambda: step(ln['theta'], ln['x0'], ln['u_exp']))
         sync(torch, device)
         lat.append(1e3 * (time.perf_counter() - t0))
         losses.append(float(loss))
     eager = dict(solver.eager_counts)
-    launches = {k: record.get(k, {}).get('train-dense', 0) for k in expect}
+    launches = {k: record.get(k, {}).get(key, 0) for k in expect}
     ratio = losses[-1] / losses[0]
     med = median(lat)
     log(f'[train-dense] {TRAIN_DENSE_STEPS} steps of Adam(1e-2) on q_log, '
@@ -3335,13 +3391,16 @@ def phase_train_dense(torch, device, record):
         raise AssertionError(f'[train-dense] launches {launches}')
     if not (all(math.isfinite(v) for v in losses)
             and ratio < TRAIN_DENSE_MAX_RATIO):
-        raise AssertionError('the medium learner did not cut its loss')
+        raise AssertionError(f'{what}: the learner did not cut its loss')
+    if wide:
+        return dict(fwd_err=fwd_err, step_ms=med, launches=launches,
+                    fwd_ops=ops, loss_ratio=ratio, fwd_plain_ms=times[0])
     phase_tf32(torch, 'medium training-step loss and gradients',
                lambda: dense_train_grads(torch, device))
     phase_profile_train(torch, device, 'medium',
                         (step, ln['theta'], ln['x0'], ln['u_exp']))
     return dict(fwd_err=fwd_err, step_ms=med, launches=launches,
-                fwd_ops=ops, loss_ratio=ratio)
+                fwd_ops=ops, loss_ratio=ratio, fwd_plain_ms=times[0])
 
 
 def diff_solve_ms(torch, device, ns, nc, n, eager_bwd, reps=3):
@@ -3431,7 +3490,8 @@ def phase_time_bwd_dense(torch, device, train):
                          sums_ms=parts['sums'], registers=des['registers'],
                          spill_store_bytes=des['spill_store_bytes']))
     fwd = time_dense_row(torch, 'medium training 20s4c (the learner\'s '
-                         'start)', train['fwd_ops'], tag='time-bwd-dense')
+                         'start)', train['fwd_ops'], tag='time-bwd-dense',
+                         plain_ms=train['fwd_plain_ms'])
     ns, nc, n = 24, 4, 1024
     k_ms, gk, k_counts, k_fixed = diff_solve_ms(torch, device, ns, nc, n,
                                                 False)
@@ -3496,6 +3556,685 @@ def bwd_dense_entries(rows, fwd_row, train, diff_solve, err):
          'tolerance': f'mean|du|<{LONG_TAIL_MEAN}, '
                       f'share(|du|>{TAIL_ENTRY})<{LONG_TAIL_SHARE}; '
                       'at most 2x the plain f32 distance from f64',
+         'library_ms': None,
+         **{k: fwd_row[k] for k in ('ms', 'plain_ms', 'bound_ms',
+                                    'bound_by')}}]
+
+
+# ---------------------------------------------------------------------------
+# More than 8 controls: the dense forward and backward with the control
+# block's factor and the box QP on the warp's tiles (csrc/box_qp_smem.cuh)
+# ---------------------------------------------------------------------------
+
+# the serving rows (utils/problems.WIDE_ROWS: the medium rows' system where
+# mpc_tpu's gate admits its kernels past 8 controls at T=20) and the
+# training row; the kernels line's entry is the main row's
+WIDE_SERVE = ('wide-3s9c', 'wide-4s12c', 'wide-2s16c')
+WIDE_MAIN = 'wide-4s12c'
+WIDE_REQUESTS = 4
+WIDE_UZ_DELTA = 0.3
+# the MLP of [compare-dense]'s wide MLP row: 2 states, 9 controls, one
+# hidden layer of 32 sigmoid units with the passthrough (the reference's
+# MLP form, mpc/dynamics.py:9-13), box +-1, on the wide rows' T and B
+WIDE_MLP = (2, 9, (32,), 'sigmoid', True)
+# [compare-dense]'s wide cases: (label, WIDE_ROWS row or 'mlp', a batched
+# u_zero_I and delta_u, gate).  The gate is fixed here, before the first
+# full run: the float32 tail of the medium rows (LONG_TAIL_*) for the
+# LinDx rows; float64 where a mask's kinks or an MLP part two float32
+# solves (as UZ_ROWS and MLP_CASES gate their masked and stiff rows).
+WIDE_CASES = (
+    ('wide-3s9c', 'wide-3s9c', False, 'tail'),
+    ('wide-4s12c', 'wide-4s12c', False, 'tail'),
+    ('wide-2s16c', 'wide-2s16c', False, 'tail'),
+    ('wide-3s9c uz delta', 'wide-3s9c', True, 'float64'),
+    ('wide-mlp 2s9c', 'mlp', False, 'float64'),
+)
+# the gate's corners past 8 controls: (n_state, n_ctrl); each forward build
+# with bounds, without bounds but with f, and with bounds and the mask;
+# each backward build with the active set, and without it but with f
+WIDE_CORNERS = ((1, 9), (1, 31), (4, 28), (23, 9))
+WIDE_CORNER_T, WIDE_CORNER_B = 3, 33
+WIDE_TRAIN_STEPS = 20
+WIDE_TRAIN_MAX_RATIO = 0.7
+
+
+def wide_case(label):
+    return next(r for r in WIDE_CASES if r[0] == label)
+
+
+def wide_problem(torch, device, label, dtype=None, n=None):
+    """(cfg, x0, cost, dynamics, bounds) of a WIDE_CASES case or a WIDE_ROWS
+    row at its own sizes (or on its first n examples), on the kernel route,
+    from problems.wide_row's numpy seed."""
+    import numpy as np
+    import mpc_tpu_torch as mt
+    from mpc_tpu_torch.utils.convert import nn_dynamics_from_numpy
+    from mpc_tpu_torch.utils.problems import mlp_weights, wide_row
+    dtype = dtype or torch.float32
+    row, uz = label, False
+    if label in {c[0] for c in WIDE_CASES}:
+        _, row, uz, _ = wide_case(label)
+    r = wide_row('wide-3s9c' if row == 'mlp' else row, n)
+    t = (lambda a: torch.tensor(a, dtype=dtype, device=device))
+    T_, B_ = r['T'], r['x0'].shape[0]
+    bk = {} if r['u_lower'] is None else dict(u_lower=r['u_lower'],
+                                              u_upper=r['u_upper'])
+    kw = dict(r['cfg'], backprop=False, use_fused='auto')
+    if row == 'mlp':
+        ns, nc, hid, act, passthrough = WIDE_MLP
+        rng = np.random.RandomState(41)
+        dyn = nn_dynamics_from_numpy(
+            mlp_weights((ns + nc,) + hid + (ns,), 41), act, passthrough,
+            device=device).to(dtype)
+        x0 = t(rng.randn(B_, ns))
+        cost = mt.QuadCost(t(np.diag(rng.uniform(0.2, 1.0, ns + nc))),
+                           t(0.2 * rng.randn(ns + nc)))
+        kw['grad_method'] = mt.GradMethods.AUTO_DIFF
+    else:
+        ns, nc = r['n_state'], r['n_ctrl']
+        x0, cost, dyn = (t(r['x0']), mt.QuadCost(t(r['C']), t(r['c'])),
+                         mt.LinDx(t(r['F'])))
+    if uz:
+        bk['u_zero_I'] = t((np.random.RandomState(43).rand(T_, B_, nc)
+                            < 0.3).astype(np.float64))
+        kw['delta_u'] = WIDE_UZ_DELTA
+    cfg = mt.MPCConfig(n_state=ns, n_ctrl=nc, T=T_, **kw)
+    return cfg, x0, cost, dyn, bk
+
+
+def wide_operands(torch, device, label, dtype=None, n=None):
+    from mpc_tpu_torch.ops import fused_dense as fd
+    cfg, x0, cost, dyn, bk = wide_problem(torch, device, label, dtype, n)
+    return fd.k3d_operands(cfg, x0, cost, dyn, **bk)
+
+
+def dense_defines(ops):
+    """(defines, launch geometry) of the dense build a forward's operands
+    run (any model, mask or f)."""
+    from mpc_tpu_torch.ops import fused_dense as fd
+    T_, n, nc = ops['u0'].shape
+    ns = ops['x0'].shape[1]
+    model, slew, spec = None, False, None
+    if ops.get('model') is not None:
+        model, slew = fd.dense_model(ops['model'])
+        spec = fd.mlp_spec(ops['model'])
+    return (fd.dense_kernel_defines(ns, nc, ops['lb'] is not None,
+                                    ops['f'] is not None, model, slew,
+                                    has_uz=ops.get('uz') is not None,
+                                    mlp=spec),
+            fd.k3d_launch(T_, n, ns, nc, len(ops['alphas']),
+                          model is not None, spec[0] if spec else None))
+
+
+def corner_problem(torch, device, kind, ns, nc, a, b, dtype=None):
+    """A gate corner's small problem: ``kind`` 'fwd' (the forward's
+    operands; ``a`` bounds, ``b`` f, bounds with 'uz' as ``a`` the mask
+    too) or 'bwd' (the backward's operands at a random primal with ~30%
+    of the controls on the box; ``a`` the active set, ``b`` f).  T =
+    WIDE_CORNER_T, B = WIDE_CORNER_B, the medium rows' system with a
+    linear cost term, lqr_iter 1."""
+    import numpy as np
+    import mpc_tpu_torch as mt
+    from mpc_tpu_torch.ops import fused_bwd, fused_dense as fd
+    dtype = dtype or torch.float32
+    T_, n = WIDE_CORNER_T, WIDE_CORNER_B
+    rng = np.random.RandomState(ns * 37 + nc)
+    nt = ns + nc
+    A = np.eye(ns) + 0.05 * rng.randn(ns, ns)
+    A /= max(1.0, np.max(np.abs(np.linalg.eigvals(A))))
+    F = np.tile(np.concatenate([A, 0.3 * rng.randn(ns, nc)], 1)[None],
+                (T_ - 1, 1, 1))
+    C = np.diag(np.concatenate([np.ones(ns), 0.1 * np.ones(nc)]))
+    c = 0.5 * rng.randn(nt)
+    f = 0.1 * rng.randn(T_ - 1, ns) if b else None
+    t = (lambda v: None if v is None else torch.tensor(v, dtype=dtype,
+                                                      device=device))
+    bounded = kind == 'bwd' or a
+    bk = dict(u_lower=-0.5, u_upper=0.5) if bounded else {}
+    if kind == 'fwd' and a == 'uz':
+        bk['u_zero_I'] = t((rng.rand(T_, n, nc) < 0.3).astype(np.float64))
+    cfg = mt.MPCConfig(n_state=ns, n_ctrl=nc, T=T_, lqr_iter=1, eps=0.0,
+                       exit_unconverged=False, detach_unconverged=False,
+                       backprop=False)
+    ops = fd.k3d_operands(cfg, t(3 * rng.randn(n, ns)), mt.QuadCost(t(C),
+                                                                   t(c)),
+                          mt.LinDx(t(F), t(f)), **bk)
+    if kind == 'fwd':
+        return ops
+    # the backward at a random primal with ~30% of the controls on the box
+    us = np.clip(0.4 * rng.randn(T_, n, nc), -0.5, 0.5)
+    us = np.where(rng.rand(T_, n, nc) < 0.3, 0.5 * np.sign(us), us)
+    us = t(us)
+    return dict(C=ops['C'], c=ops['c'], F=ops['F'],
+                x_star=t(rng.randn(T_, n, ns)), u_star=us,
+                I_mask=fused_bwd.active_set(us, ops['lb'], ops['ub'])
+                if a else None, dl_dx=t(rng.randn(T_, n, ns)),
+                dl_du=t(rng.randn(T_, n, nc))), dict(has_f=bool(b),
+                                                     f_shared=True)
+
+
+def wide_corner_specs():
+    """The builds of the gate's corners past 8 controls: (kind, ns, nc, a,
+    b, (name, defines))."""
+    from mpc_tpu_torch.ops import fused_bwd_dense as fbd
+    from mpc_tpu_torch.ops import fused_dense as fd
+    out = []
+    for ns, nc in WIDE_CORNERS:
+        for a, b in ((True, False), (False, True), ('uz', False)):
+            out.append(('fwd', ns, nc, a, b, (
+                'fused_ilqr_dense', fd.dense_kernel_defines(
+                    ns, nc, bool(a), b, has_uz=a == 'uz'))))
+        for a, b in ((True, False), (False, True)):
+            out.append(('bwd', ns, nc, a, b, (
+                'fused_kkt_bwd_dense', fbd.bwd_dense_kernel_defines(
+                    ns, nc, a, b))))
+    return out
+
+
+def wide_build_specs():
+    """Every build the wide phases run: the cases of [compare-dense], the
+    backward of [compare-bwd-dense] and [train-dense], the corners."""
+    import torch
+    from mpc_tpu_torch.ops import fused_bwd_dense as fbd
+    specs = []
+    for label, *_ in WIDE_CASES:
+        s = ('fused_ilqr_dense', dense_defines(wide_operands(
+            torch, torch.device('cpu'), label, n=1))[0])
+        if s not in specs:
+            specs.append(s)
+    for has_f in (False, True):
+        s = ('fused_kkt_bwd_dense', fbd.bwd_dense_kernel_defines(
+            4, 12, True, has_f))
+        if s not in specs:
+            specs.append(s)
+    return specs + [c[-1] for c in wide_corner_specs()
+                    if c[-1] not in specs]
+
+
+def corner_worker(device, index):
+    """[build]'s process for one corner build past 8 controls
+    (``wide_corner_specs``), run under CUDA_LAUNCH_BLOCKING=1: one launch,
+    finite, the reversed batch and B = 1 alone bitwise, a pinned control
+    exactly 0.  The plain versions past 20 controls take minutes under
+    CUDA_LAUNCH_BLOCKING=1 (a box QP trip is thousands of small kernels),
+    so the corners meet them in tests/test_torch_gpu.py, and here the
+    main path's rows in [compare-dense].  Prints a JSON line of its log
+    lines."""
+    import torch
+    from mpc_tpu_torch.ops import fused_bwd_dense as fbd
+    from mpc_tpu_torch.ops import fused_dense as fd
+    lines = []
+    globals()['log'] = lambda *a: lines.append(' '.join(map(str, a)))
+    device = torch.device(device)
+    kind, ns, nc, a, b, (name, defines) = wide_corner_specs()[int(index)]
+    what = (f'corner {kind} {ns}s{nc}c '
+            + ' '.join(f'{k}={v}' for k, v in sorted(defines.items())
+                       if k in ('MPC_HAS_BOUNDS', 'MPC_HAS_F', 'MPC_HAS_UZ',
+                                'MPC_HAS_I')))
+    t0 = time.perf_counter()
+    reset_all_counts()
+    if kind == 'fwd':
+        ops = corner_problem(torch, device, kind, ns, nc, a, b)
+        if dense_defines(ops)[0] != defines:
+            raise AssertionError(f'{what}: not its build')
+        full = fd.fused_ilqr_dense(**ops)
+        counts = dict(all_counts())
+        if not all(torch.isfinite(v).all() for v in full):
+            raise AssertionError(f'{what}: not finite')
+        r = fd.fused_ilqr_dense(**batch_subset(
+            torch, ops, torch.arange(WIDE_CORNER_B - 1, -1, -1)))
+        if not all(torch.equal(x.flip(1), y) for x, y in zip(r, full)):
+            raise AssertionError(f'{what}: reversed batch is not bitwise '
+                                 'equal')
+        hold_slices(torch, what, fd.fused_ilqr_dense, ops, full, (1,))
+        uz_pinned_zero(what, ops, full[1])
+    else:
+        o, kw = corner_problem(torch, device, kind, ns, nc, a, b)
+        full = fbd.fused_kkt_backward_dense(**o, **kw)
+        counts = dict(all_counts())
+        if not all(torch.isfinite(v).all() for v in full if v is not None):
+            raise AssertionError(f'{what}: not finite')
+        back = fbd.fused_kkt_backward_dense(**flip_batch(o, torch), **kw)
+        if not torch.equal(back[0].flip(0), full[0]):
+            raise AssertionError(f'{what}: reversed batch is not bitwise '
+                                 'equal')
+        hold_bwd_slices(torch, 'K4d', what, fbd.fused_kkt_backward_dense, o,
+                        full, (1,), **kw)
+    if device.type == 'cuda' and sum(counts.values()) != 1:
+        raise AssertionError(f'{what}: not one launch: {counts}')
+    log(f'  {what}: one launch, finite, reversed batch and B=1 bitwise; '
+        f'{time.perf_counter() - t0:.1f} s in its process')
+    print(json.dumps({'lines': lines}))
+
+
+def wide_train_worker(device, mode, path):
+    """The plain version at wide-train's learner's start (the operands
+    [train-dense] holds the dense forward to), in float32 (``mode``
+    'f32', its device ms timed) or float64, saved to ``path`` for
+    ``phase_train_dense``: at 4 states and 12 controls it takes minutes,
+    so it runs beside [compare-dense]'s workers.  Prints a JSON line."""
+    import torch
+    import mpc_tpu_torch as mt
+    from mpc_tpu_torch.ops import fused_dense as fd
+    device = torch.device(device)
+    t0 = time.perf_counter()
+    ln = dense_learner(torch, device, wide=True)
+    with torch.no_grad():
+        cost = ln['make_cost'](ln['theta'])
+        if mode == 'f64':
+            cost = mt.QuadCost(cost.C.double(), cost.c.double())
+        f64 = mode == 'f64'
+        ops = fd.k3d_operands(ln['cfg'], ln['x0'].double() if f64
+                              else ln['x0'], cost,
+                              mt.LinDx(ln['dyn'].F.double()) if f64
+                              else ln['dyn'], u_lower=-1.0, u_upper=1.0)
+        times = []
+        out = timed_plain(torch, fd.fused_solve_dense_plain, times)(**ops)
+    torch.save({'out': [a.cpu() for a in out], 'plain_ms': times[0]}, path)
+    print(json.dumps({'mode': mode, 'plain_ms': times[0],
+                      'seconds': time.perf_counter() - t0}))
+
+
+def bitwise_worker(torch, device, what, ops, kernel=None):
+    """A forward kernel's launch (the dense one unless ``kernel`` names
+    another) in a worker process under CUDA_LAUNCH_BLOCKING=1, so that a
+    load through a wrong address faults at its own launch: once, finite,
+    pinned controls exactly 0.0, the reversed batch, B = 1, 7, 33 alone
+    (where the batch has that many) and the batch with two more examples
+    bitwise.  Returns the outputs."""
+    from mpc_tpu_torch.ops import fused_dense as fd
+    n = ops['x0'].shape[0]
+    dense = kernel is None
+    kernel = kernel or fd.fused_ilqr_dense
+    reset_all_counts()
+    full = kernel(**ops)
+    if device.type == 'cuda':
+        torch.cuda.synchronize()
+        if sum(all_counts().values()) != 1 or (
+                dense and all_counts()['fused_ilqr_dense'] != 1):
+            raise AssertionError(f'{what}: not one launch: {all_counts()}')
+    if not all(torch.isfinite(a).all() for a in full):
+        raise AssertionError(f'{what}: the kernel returned non-finite values')
+    uz_pinned_zero(what, ops, full[1])
+    r = kernel(**batch_subset(torch, ops, torch.arange(n - 1, -1, -1)))
+    if not all(torch.equal(a.flip(1), b) for a, b in zip(r, full)):
+        raise AssertionError(f'{what}: reversed batch is not bitwise equal')
+    sizes = tuple(s for s in (1, 7, 33) if s < n)
+    if sizes:
+        hold_slices(torch, what, kernel, ops, full, sizes)
+    r = kernel(**batch_subset(torch, ops, torch.cat(
+        [torch.arange(n), torch.arange(min(2, n))])))
+    if not all(torch.equal(r[i][:, :n], full[i])
+               and torch.equal(r[i][:, n:], full[i][:, :min(2, n)])
+               for i in range(3)):
+        raise AssertionError(f'{what}: B={n + min(2, n)} differs from B={n}')
+    return full
+
+
+def wide_worker(device, label, mode):
+    """[compare-dense]'s processes for one WIDE_CASES case (one define
+    set).  ``mode`` 'bits', run under CUDA_LAUNCH_BLOCKING=1: the bitwise
+    checks of ``bitwise_worker``.  ``mode`` 'plain': the kernel against its
+    plain version by the case's gate (the float32 tail of the medium rows
+    with n_iter equal, or at most twice the plain float32 run's distance
+    from a float64 plain run), its box and mask held; the plain float32
+    run's device ms.  The plain versions are host-bound (a small kernel an
+    operation), so the cases run them side by side, a process each.
+    Prints a JSON line: the digest of the kernel's outputs, the case's
+    numbers and its log lines."""
+    import torch
+    from mpc_tpu_torch.ops import fused_dense as fd
+    lines = []
+    globals()['log'] = lambda *a: lines.append(' '.join(map(str, a)))
+    device = torch.device(device)
+    t0 = time.perf_counter()
+    ops = wide_operands(torch, device, label)
+    n = ops['x0'].shape[0]
+    what = f'{label}, B={n}'
+    res = {}
+    if mode == 'bits':
+        full = bitwise_worker(torch, device, what, ops)
+        log(f'  {what}: one launch, reversed and B={n + 2} bitwise equal; '
+            f'{time.perf_counter() - t0:.1f} s in its process')
+    else:
+        gate = wide_case(label)[3]
+        full = fd.fused_ilqr_dense(**ops)
+        xk, uk, sk = full
+        times = []
+        _, up, sp = timed_plain(torch, fd.fused_solve_dense_plain,
+                                times)(**ops)
+        _, u64, _ = fd.fused_solve_dense_plain(**wide_operands(
+            torch, device, label, torch.float64))
+        mean, share, mx = tail(uk, up)
+        same_iter = same_share(sk[2], sp[2])
+        if gate == 'tail':
+            check_tail(f'{what} (f32)', uk, up,
+                       (LONG_TAIL_MEAN, LONG_TAIL_SHARE))
+            if same_iter != 1.0:
+                raise AssertionError(f'{what}: n_iter differs')
+        else:
+            check_tail(f'{what} (f32)', uk, up, None)
+        hold_equidistance(what, uk, up, u64)
+        if ops['ub'] is not None and float(uk.abs().max()) > float(
+                ops['ub'].max()):
+            raise AssertionError(f'{what}: a control outside its box')
+        uz_pinned_zero(what, ops, uk)
+        log(f'  {what}: gate {gate}; n_iter equal in {same_iter:.4f} of the '
+            f'examples, a solve {float(sk[2].double().mean()):.2f}, trials a '
+            f'solve {float(sk[5].double().mean()):.2f}, QP trips a solve '
+            f'{float(sk[3].double().mean()):.1f} (plain '
+            f'{float(sp[3].double().mean()):.1f}); controls on the box '
+            f'{float((uk.abs() == 1.0).double().mean()):.3f}; max |u - f64|: '
+            f'kernel {float((uk.double() - u64).abs().max()):.3e}, plain '
+            f'{float((up.double() - u64).abs().max()):.3e}; plain '
+            f'{times[0]:.1f} ms; {time.perf_counter() - t0:.1f} s in its '
+            'process')
+        res = dict(gate=gate, max_abs_err=mx, mean=mean, share=share,
+                   same_iter=same_iter, plain_ms=times[0])
+    print(json.dumps({'label': label, 'digest': uz_digest(full), 'res': res,
+                      'lines': lines}))
+
+
+def phase_compare_wide(torch, device):
+    """[build]'s corner builds past 8 controls and [compare-dense] past 8
+    controls, their processes all at once: each corner build a process
+    under CUDA_LAUNCH_BLOCKING=1 (``corner_worker``); each WIDE_CASES case
+    in two (``wide_worker``: the bitwise checks under
+    CUDA_LAUNCH_BLOCKING=1, and the kernel against its plain version by
+    the case's gate, fixed in WIDE_CASES); and the plain versions at
+    wide-train's learner's start in float32 and float64
+    (``wide_train_worker``) for [train-dense].  Here each case's kernel
+    gives the bits of both of its processes.  Returns each case's summary
+    (max |du|, gate, the plain float32 run's device ms) and the paths of
+    the saved plain runs."""
+    from mpc_tpu_torch.ops import fused_dense as fd
+    t0 = time.perf_counter()
+    root = os.path.join(HERE, 'build', 'chip_smoke')
+    os.makedirs(root, exist_ok=True)
+    held = {m: os.path.join(root, f'wide_train_{m}.pt')
+            for m in ('f32', 'f64')}
+    corners = wide_corner_specs()
+    k = len(WIDE_CASES)
+    argv = ([['--wide-worker', device.type, c[0], 'bits'] for c in WIDE_CASES]
+            + [['--wide-worker', device.type, c[0], 'plain']
+               for c in WIDE_CASES]
+            + [['--wide-train-worker', device.type, m, held[m]]
+               for m in held])
+    cases = start_workers(argv, [{'CUDA_LAUNCH_BLOCKING': '1'}] * k
+                          + [{}] * (k + len(held)))
+    out = run_workers(torch, [['--corner-worker', device.type, str(i)]
+                              for i in range(len(corners))],
+                      [{'CUDA_LAUNCH_BLOCKING': '1'}] * len(corners))
+    for summary in out:
+        for line in summary['lines']:
+            log(line)
+    log(f'[build] {len(corners)} corner builds past 8 controls, a process '
+        f'each under CUDA_LAUNCH_BLOCKING=1, beside [compare-dense]\'s: '
+        f'{time.perf_counter() - t0:.1f} s')
+    out = join_workers(cases)
+    log(f'[compare-dense] past 8 controls: {k} cases, two processes each '
+        '(the bitwise checks under CUDA_LAUNCH_BLOCKING=1, the plain '
+        'versions), and wide-train\'s plain runs, all at once: '
+        f'{time.perf_counter() - t0:.1f} s')
+    res = {}
+    for (label, *_), bits, plain in zip(WIDE_CASES, out[:k], out[k:2 * k]):
+        ops = wide_operands(torch, device, label)
+        what = f'{label}, B={ops["x0"].shape[0]}'
+        log(f'[compare-dense] {what}: the kernel vs its plain version')
+        for line in bits['lines'] + plain['lines']:
+            log(line)
+        if not (uz_digest(fd.fused_ilqr_dense(**ops)) == bits['digest']
+                == plain['digest']):
+            raise AssertionError(f'{what}: not the bits of its '
+                                 'CUDA_LAUNCH_BLOCKING=1 process and of its '
+                                 'plain comparison')
+        res[label] = plain['res']
+    log(f'[compare-dense] past 8 controls: {time.perf_counter() - t0:.1f} s')
+    return res, held
+
+
+def phase_serve_wide(torch, device):
+    """[serve-dense] past 8 controls: each WIDE_SERVE row through the entry
+    points, every count set to 0 before and read after: WIDE_REQUESTS
+    distinct batches through batched_solve (new starts from the row's
+    seeds) and one through MPC, host to host, one dense launch a request
+    and no eager solve, MPC bitwise batched_solve, the last answer x the
+    rollout of u, costs their objective, u in its box; beside it the eager
+    route's (use_fused='never') ms of the first request.  Returns the
+    launches, request ms and eager ms by row."""
+    import dataclasses
+    import mpc_tpu_torch as mt
+    from mpc_tpu_torch.solver import rollout, trajectory_cost
+    from mpc_tpu_torch.utils.problems import wide_row
+    out = {'launches': {}, 'request_ms': {}, 'mpc_ms': {}, 'eager_ms': {}}
+    for label in WIDE_SERVE:
+        cfg, x0, cost, dyn, bk = wide_problem(torch, device, label)
+        n = x0.shape[0]
+        reqs = [torch.tensor(wide_row(label, n, seed=300 + i)['x0'],
+                             dtype=torch.float32)
+                for i in range(WIDE_REQUESTS)]
+        mt.batched_solve(cfg, x0, cost, dyn, device=device, **bk).u.cpu()
+        ctrl = mt.MPC(cfg.n_state, cfg.n_ctrl, cfg.T, lqr_iter=cfg.lqr_iter,
+                      eps=cfg.eps, exit_unconverged=False,
+                      detach_unconverged=False, backprop=False,
+                      device=device, **bk)
+
+        def serve():
+            lat, sols = [], []
+            for req in reqs:
+                t0 = time.perf_counter()
+                sol = mt.batched_solve(cfg, req.to(device), cost, dyn,
+                                       device=device, **bk)
+                u = sol.u.cpu()
+                lat.append(1e3 * (time.perf_counter() - t0))
+                sols.append((sol, u))
+            t0 = time.perf_counter()
+            um = ctrl(reqs[0].to(device), cost, dyn)[1].cpu()
+            return lat, sols, um, 1e3 * (time.perf_counter() - t0)
+
+        (lat, sols, um, mpc_ms), counts, n_eager = soa_counted(torch, serve)
+        ms = median(lat)
+        log(f'[serve-dense] {label}, B={n}: {WIDE_REQUESTS} batched_solve '
+            'requests, latency ms ' + ' '.join(f'{v:.3f}' for v in lat) +
+            f', median {ms:.3f} ({n / ms * 1e3:.0f} solves/s); MPC '
+            f'{mpc_ms:.3f} ms; launches {counts}, eager solves {n_eager}')
+        if n_eager or (device.type == 'cuda' and counts != {
+                'fused_ilqr_dense': WIDE_REQUESTS + 1}):
+            raise AssertionError(f'{label}: each request must launch the '
+                                 'dense kernel once and nothing else')
+        if not torch.equal(um, sols[0][1]):
+            raise AssertionError(f'{label}: MPC and batched_solve answer '
+                                 'differently')
+        sol, u = sols[-1][0], sols[-1][1].to(device)
+        xr = rollout(dyn, reqs[-1].to(device), u)
+        cr = trajectory_cost(cost, xr, u)
+        gap = float((cr - sol.costs).abs().max() / sol.costs.abs().max())
+        x_gap = float((xr - sol.x).abs().max() / sol.x.abs().max())
+        box = float(bk.get('u_upper', math.inf))
+        log(f'  last answer: relative cost gap to its own rollout {gap:.2e}, '
+            f'max |x - rollout| / max |x| {x_gap:.2e}, max |u| '
+            f'{float(u.abs().max()):.3f}')
+        if not (torch.isfinite(u).all() and float(u.abs().max()) <= box
+                and gap < 1e-3 and x_gap < 1e-3):
+            raise AssertionError(f'{label}: a served answer is not a '
+                                 'feasible solve')
+        never = dataclasses.replace(cfg, use_fused='never')
+        (eager, eager_ms), n_eager = eager_counted(torch, lambda: timed(
+            torch, device, lambda: mt.batched_solve(
+                never, reqs[0].to(device), cost, dyn, device=device,
+                **bk).u, 1))
+        log(f'  the eager route (use_fused=\'never\') of the first request: '
+            f'{eager_ms:.1f} ms ({eager_ms / ms:.0f}x the kernel route), '
+            f'eager solves {n_eager}, max |u - kernel route\'s| '
+            f'{float((eager[0].cpu() - sols[0][1]).abs().max()):.3e}; '
+            f'{card_line()}')
+        out['launches'][label] = WIDE_REQUESTS + 1
+        out['request_ms'][label], out['mpc_ms'][label] = ms, mpc_ms
+        out['eager_ms'][label] = eager_ms
+    return out
+
+
+def phase_time_wide(torch, device, compare):
+    """[time-dense] past 8 controls: each WIDE_SERVE row from a CUDA graph
+    beside its bound (``time_dense_row``: k3d_flops from this run's
+    iterations, trials and QP trips; a trip counts the arithmetic the
+    shared-memory QP runs for one step size, the same as the register
+    one's), the plain version's device time from [compare-dense]
+    (``compare``), registers and spills.  Returns the rows."""
+    return [time_dense_row(torch, label, wide_operands(torch, device, label),
+                           plain_ms=compare[label]['plain_ms'])
+            for label in WIDE_SERVE]
+
+
+def wide_bwd_operands(torch, device, n=None, seed=14):
+    """The dense backward's operands at the main wide row (4s12c, B=1024
+    unless given): x*, u* from the dense forward on the row's problem, the
+    active set from its box, seeded random cotangents."""
+    import numpy as np
+    from mpc_tpu_torch.ops import fused_bwd, fused_dense as fd
+    ops = wide_operands(torch, device, WIDE_MAIN,
+                        n=n or TRAIN_DENSE_B)
+    xs, us, _ = fd.fused_ilqr_dense(**ops)
+    rng = np.random.RandomState(seed)
+    T_, n, ns = xs.shape
+    nc = us.shape[-1]
+    t = (lambda a: torch.tensor(a, dtype=torch.float32, device=device))
+    return dict(C=ops['C'], c=ops['c'], F=ops['F'], x_star=xs, u_star=us,
+                I_mask=fused_bwd.active_set(us, ops['lb'], ops['ub']),
+                dl_dx=t(rng.randn(T_, n, ns)),
+                dl_du=t(rng.randn(T_, n, nc))), dict(has_f=False,
+                                                      f_shared=True)
+
+
+def phase_compare_bwd_wide(torch, device):
+    """[compare-bwd-dense] past 8 controls: the dense backward at 4s12c,
+    B=1024, same-primal against its plain version (hold_bwd), a second
+    launch bitwise, the reversed batch, B = 1, 7, 33 alone and B + 2
+    bitwise on the per-example outputs.  Returns the largest
+    |difference|."""
+    from mpc_tpu_torch.ops import fused_bwd_dense as fbd
+    o, kw = wide_bwd_operands(torch, device)
+    n = o['x_star'].shape[1]
+    what = f'{WIDE_MAIN}, B={n}'
+    log(f'[compare-bwd-dense] dense backward vs its plain version, {what}; '
+        f'active controls {float(o["I_mask"].mean()):.3f} of T*B')
+    kk, err = hold_bwd(torch, 'K4d', what, fbd.fused_kkt_backward_dense,
+                       fbd.fused_kkt_backward_dense_plain, o, **kw)
+    again = fbd.fused_kkt_backward_dense(**o, **kw)
+    if not all((a is None and b is None) or torch.equal(a, b)
+               for a, b in zip(again, kk)):
+        raise AssertionError(f'{what}: a second launch differs')
+    back = fbd.fused_kkt_backward_dense(**flip_batch(o, torch), **kw)
+    if not torch.equal(back[0].flip(0), kk[0]):
+        raise AssertionError(f'{what}: reversed batch is not bitwise equal')
+    hold_bwd_slices(torch, 'K4d', what, fbd.fused_kkt_backward_dense, o, kk,
+                    **kw)
+    more = fbd.fused_kkt_backward_dense(**batch_subset_bwd(
+        torch, o, torch.cat([torch.arange(n), torch.arange(2)])), **kw)
+    if not torch.equal(more[0][:n], kk[0]):
+        raise AssertionError(f'{what}: B={n + 2} differs from B={n}')
+    log(f'    a second launch bitwise, reversed batch and B={n + 2} bitwise '
+        'on dx_init')
+    return err
+
+
+def phase_time_bwd_wide(torch, device):
+    """[time-bwd-dense] past 8 controls: the dense backward at 4s12c,
+    B=1024, from a CUDA graph, its three kernels apart, its bound
+    (k4d_flops, k4d_bytes), registers and spills, the plain version.
+    Returns the row."""
+    from mpc_tpu_torch.ops import fused_bwd_dense as fbd
+    o, kw = wide_bwd_operands(torch, device)
+    T_, n, ns = o['x_star'].shape
+    nc = o['u_star'].shape[-1]
+
+    def launch():
+        return fbd.fused_kkt_backward_dense(**o, **kw)
+    ms, eager_ms = graph_ms(torch, launch)
+    split = kernel_device_us(torch, launch)
+    parts = {name: sum(v for k, v in split.items() if name in k) / 1e3
+             for name in ('chains', 'grads', 'sums')}
+    pms = event_ms(torch, lambda: fbd.fused_kkt_backward_dense_plain(
+        **o, **kw))
+    flops = fbd.k4d_flops(T_, n, ns, nc, has_I=True, has_f=False,
+                          reduced=('C', 'c', 'F'))
+    nbytes = fbd.k4d_bytes(o['C'], o['c'], o['F'], o['x_star'],
+                           o['u_star'], o['I_mask'], **kw)
+    bound_ms, by = bound(flops, nbytes)
+    des = design('fused_kkt_bwd_dense', fbd.bwd_dense_kernel_defines(
+        ns, nc, True, False), fbd.k4d_launch(T_, n, ns, nc))
+    log(f'[time-bwd-dense] {WIDE_MAIN} {ns}s{nc}c, B={n}, T={T_}: '
+        f'{ms:.4f} ms (from a CUDA graph; {eager_ms:.4f} ms a call from '
+        f'Python; chains {parts["chains"]:.4f}, gradients '
+        f'{parts["grads"]:.4f}, chunk-order sums {parts["sums"]:.4f} ms '
+        f'from torch.profiler), plain {pms:.1f} ms; {flops:.4e} operations, '
+        f'{nbytes} bytes; bound {bound_ms:.5f} ms by {by} '
+        f'({ms / bound_ms:.1f}x); registers {des["registers"]}, spill '
+        f'stores {des["spill_store_bytes"]} bytes, shared memory '
+        f'{des["shared_memory_bytes"]} bytes a block; {card_line()}')
+    return dict(row=f'{WIDE_MAIN} {ns}s{nc}c B={n}', ms=ms, plain_ms=pms,
+                bound_ms=bound_ms, bound_by=by, chains_ms=parts['chains'],
+                grads_ms=parts['grads'], sums_ms=parts['sums'],
+                registers=des['registers'],
+                spill_store_bytes=des['spill_store_bytes'])
+
+
+def wide_entries(torch, compare, serve, rows, bwd_err, bwd_row, train,
+                 fwd_row):
+    """The kernels line's entries past 8 controls: the dense forward on the
+    wide serving path (the main row's [serve-dense] launches and
+    [time-dense] row; every wide row under 'rows') and, on the wide
+    training path ([train-dense] at wide-train), the dense backward and
+    the dense forward at that path's shape."""
+    from mpc_tpu_torch.ops import fused_bwd_dense as fbd, fused_dense as fd
+    by_row = {r['row'].split(' B=')[0]: r for r in rows}
+    main = by_row[WIDE_MAIN]
+    r = wide_operands(torch, torch.device('cpu'), WIDE_MAIN, n=1)
+    T_, _, nc = r['u0'].shape
+    ns = r['x0'].shape[1]
+    n_serve = int(main['row'].split(' B=')[1])
+    headers = ['mpc_tpu_torch/csrc/box_qp.cuh',
+               'mpc_tpu_torch/csrc/box_qp_smem.cuh']
+    tol = (f'mean|du|<{LONG_TAIL_MEAN}, '
+           f'share(|du|>{TAIL_ENTRY})<{LONG_TAIL_SHARE}; '
+           'at most 2x the plain f32 distance from f64')
+    return [
+        {'name': 'fused_ilqr_dense (wide)', 'path': 'wide serving',
+         'route': 'cuda', 'source': 'mpc_tpu_torch/csrc/fused_ilqr_dense.cu',
+         'headers': headers, 'replaces': 'mpc_tpu/ops/fused.py:1126',
+         'design': design('fused_ilqr_dense', fd.dense_kernel_defines(
+             ns, nc, True, False), fd.k3d_launch(T_, n_serve, ns, nc, 10)),
+         'launches': serve['launches'][WIDE_MAIN],
+         'launches_by_row': serve['launches'],
+         'max_abs_err': max(v['max_abs_err'] for v in compare.values()),
+         'tolerance': tol, 'library_ms': None,
+         'request_ms': serve['request_ms'], 'eager_ms': serve['eager_ms'],
+         **{k: main[k] for k in ('ms', 'plain_ms', 'bound_ms', 'bound_by')},
+         'rows': rows},
+        {'name': 'fused_kkt_bwd_dense (wide training)',
+         'path': 'wide training', 'route': 'cuda',
+         'source': 'mpc_tpu_torch/csrc/fused_kkt_bwd_dense.cu',
+         'headers': headers, 'replaces': 'mpc_tpu/ops/fused_bwd.py:251',
+         'also_replaces': 'mpc_tpu/ops/fused_bwd.py:413',
+         'design': design('fused_kkt_bwd_dense',
+                          fbd.bwd_dense_kernel_defines(ns, nc, True, False),
+                          fbd.k4d_launch(T_, TRAIN_DENSE_B, ns, nc)),
+         'launches': train['launches']['fused_kkt_bwd_dense'],
+         'max_abs_err': bwd_err,
+         'tolerance': f'max|K4d-plain|/max|plain|<{BWD_TOL} per gradient; '
+                      'at most 2x the plain f32 distance from f64',
+         'library_ms': None, 'train_step_ms': train['step_ms'],
+         'loss_last_over_first': train['loss_ratio'],
+         **{k: bwd_row[k] for k in ('ms', 'plain_ms', 'bound_ms',
+                                    'bound_by')}},
+        {'name': 'fused_ilqr_dense (wide training)', 'path': 'wide training',
+         'route': 'cuda', 'source': 'mpc_tpu_torch/csrc/fused_ilqr_dense.cu',
+         'headers': headers, 'replaces': 'mpc_tpu/ops/fused.py:1126',
+         'design': design('fused_ilqr_dense', fd.dense_kernel_defines(
+             ns, nc, True, False), fd.k3d_launch(T_, TRAIN_DENSE_B, ns, nc,
+                                                 10)),
+         'launches': train['launches']['fused_ilqr_dense'],
+         'max_abs_err': train['fwd_err'], 'tolerance': tol,
          'library_ms': None,
          **{k: fwd_row[k] for k in ('ms', 'plain_ms', 'bound_ms',
                                     'bound_by')}}]
@@ -4890,7 +5629,7 @@ def uz_operands(torch, device, label, dtype=None, n=None, plain=False):
 
 def uz_pinned_zero(what, ops, u):
     """Every control the mask pins is exactly 0.0."""
-    if ops['uz'] is None:
+    if ops.get('uz') is None:
         return
     uu = u if u.dim() == ops['uz'].dim() else u[..., 0]
     pinned = (ops['uz'] > 0.5).expand_as(uu)
@@ -4923,25 +5662,7 @@ def uz_worker(device, label):
     _, _, T_, n, kname, _, _, _ = uz_row(label)
     what = f'{label} ({kname}), B={n}, T={T_}'
     ops, kernel, _ = uz_operands(torch, device, label)
-    reset_all_counts()
-    full = kernel(**ops)
-    if device.type == 'cuda':
-        torch.cuda.synchronize()
-        if sum(all_counts().values()) != 1:
-            raise AssertionError(f'{what}: not one launch: {all_counts()}')
-    if not all(torch.isfinite(a).all() for a in full):
-        raise AssertionError(f'{what}: the kernel returned non-finite values')
-    uz_pinned_zero(what, ops, full[1])
-    r = kernel(**batch_subset(torch, ops, torch.arange(n - 1, -1, -1)))
-    if not all(torch.equal(a.flip(1), b) for a, b in zip(r, full)):
-        raise AssertionError(f'{what}: reversed batch is not bitwise equal')
-    hold_slices(torch, what, kernel, ops, full)
-    r = kernel(**batch_subset(torch, ops, torch.cat(
-        [torch.arange(n), torch.arange(2)])))
-    if not all(torch.equal(r[i][:, :n], full[i])
-               and torch.equal(r[i][:, n:], full[i][:, :2])
-               for i in range(3)):
-        raise AssertionError(f'{what}: B={n + 2} differs from B={n}')
+    full = bitwise_worker(torch, device, what, ops, kernel)
     log(f'  {what}: one launch, reversed and B={n + 2} bitwise equal; '
         f'{time.perf_counter() - t0:.1f} s in its process')
     print(json.dumps({'label': label, 'digest': uz_digest(full),
@@ -5347,24 +6068,12 @@ def mlp_operands(torch, device, label, dtype=None, n=None):
     return fd.k3d_operands(cfg, x0, cost, model, **bk)
 
 
-def mlp_defines(ops):
-    """(defines, launch geometry) of the build a row's operands run."""
-    from mpc_tpu_torch.ops import fused_dense as fd
-    T_, n, nc = ops['u0'].shape
-    ns = ops['x0'].shape[1]
-    name, slew = fd.dense_model(ops['model'])
-    spec = fd.mlp_spec(ops['model'])
-    return (fd.dense_kernel_defines(ns, nc, ops['lb'] is not None, False,
-                                    name, slew, mlp=spec),
-            fd.k3d_launch(T_, n, ns, nc, len(ops['alphas']), True, spec[0]))
-
-
 def mlp_build_specs():
     """The MLP build of each MLP_CASES row (one a define set)."""
     import torch
     specs = []
     for label, *_ in MLP_CASES:
-        spec = ('fused_ilqr_dense', mlp_defines(mlp_operands(
+        spec = ('fused_ilqr_dense', dense_defines(mlp_operands(
             torch, torch.device('cpu'), label, n=1))[0])
         if spec not in specs:
             specs.append(spec)
@@ -5379,7 +6088,6 @@ def mlp_worker(device, label):
     with two more examples bitwise.  Prints a JSON line: the digest of its
     outputs and its log lines."""
     import torch
-    from mpc_tpu_torch.ops import fused_dense as fd
     lines = []
     globals()['log'] = lambda *a: lines.append(' '.join(map(str, a)))
     device = torch.device(device)
@@ -5387,28 +6095,7 @@ def mlp_worker(device, label):
     n = mlp_case(label)[2]
     what = f'{label}, B={n}'
     ops = mlp_operands(torch, device, label)
-    kernel = fd.fused_ilqr_dense
-    reset_all_counts()
-    full = kernel(**ops)
-    if device.type == 'cuda':
-        torch.cuda.synchronize()
-        if all_counts()['fused_ilqr_dense'] != 1 or \
-                sum(all_counts().values()) != 1:
-            raise AssertionError(f'{what}: not one launch: {all_counts()}')
-    if not all(torch.isfinite(a).all() for a in full):
-        raise AssertionError(f'{what}: the kernel returned non-finite values')
-    r = kernel(**batch_subset(torch, ops, torch.arange(n - 1, -1, -1)))
-    if not all(torch.equal(a.flip(1), b) for a, b in zip(r, full)):
-        raise AssertionError(f'{what}: reversed batch is not bitwise equal')
-    sizes = tuple(s for s in (1, 7, 33) if s < n)
-    if sizes:
-        hold_slices(torch, what, kernel, ops, full, sizes)
-    r = kernel(**batch_subset(torch, ops, torch.cat(
-        [torch.arange(n), torch.arange(min(2, n))])))
-    if not all(torch.equal(r[i][:, :n], full[i])
-               and torch.equal(r[i][:, n:], full[i][:, :min(2, n)])
-               for i in range(3)):
-        raise AssertionError(f'{what}: B={n + min(2, n)} differs from B={n}')
+    full = bitwise_worker(torch, device, what, ops)
     log(f'  {what}: one launch, reversed and B={n + min(2, n)} bitwise '
         f'equal; {time.perf_counter() - t0:.1f} s in its process')
     print(json.dumps({'label': label, 'digest': uz_digest(full),
@@ -5610,7 +6297,7 @@ def phase_time_mlp(torch, device, compare):
                                 reps=3, per_graph=4)
         flops, nbytes = mlp_flops(ops, st)
         bound_ms, by = bound(flops, nbytes)
-        defines, geo = mlp_defines(ops)
+        defines, geo = dense_defines(ops)
         des = design('fused_ilqr_dense', defines, geo)
         sizes = fd.mlp_spec(ops['model'])[0]
         log(f'[time-mlp] {label}, B={n}, T={ops["u0"].shape[0]}, widths '
@@ -6568,6 +7255,12 @@ def run_workers(torch, argvs, envs=None):
     """Run this script in worker mode, one process per argument list, all
     at once; each gets WORKER_TIMEOUT_S and is killed at it.  Returns
     each worker's last line, parsed as JSON."""
+    return join_workers(start_workers(argvs, envs))
+
+
+def start_workers(argvs, envs=None):
+    """Start this script in worker mode, one process per argument list,
+    all at once, for ``join_workers``; the time limit runs from here."""
     procs = []
     for i, argv in enumerate(argvs):
         env = dict(os.environ, **(envs[i] if envs else {}))
@@ -6575,9 +7268,16 @@ def run_workers(torch, argvs, envs=None):
             [sys.executable, os.path.abspath(__file__), *argv], cwd=HERE,
             env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True))
+    return argvs, procs, time.monotonic() + WORKER_TIMEOUT_S
+
+
+def join_workers(started):
+    """Wait for the workers of ``start_workers``; each is killed at
+    WORKER_TIMEOUT_S from its start.  Returns each worker's last line,
+    parsed as JSON."""
+    argvs, procs, deadline = started
     outs = []
     try:
-        deadline = time.monotonic() + WORKER_TIMEOUT_S
         for p in procs:
             try:
                 outs.append(p.communicate(
@@ -7201,7 +7901,9 @@ def phases_scale(torch, device):
 
 WORKERS = {'--serve-worker': serve_worker, '--pod-worker': pod_worker,
            '--resume-worker': resume_worker, '--uz-worker': uz_worker,
-           '--mlp-worker': mlp_worker}
+           '--mlp-worker': mlp_worker, '--wide-worker': wide_worker,
+           '--corner-worker': corner_worker,
+           '--wide-train-worker': wide_train_worker}
 
 
 def main():
@@ -7261,9 +7963,9 @@ def main():
     timing_nn = phase_time_nn(torch, device, nn_plain_ms)
     k3_nn_grad, k2_nn_grad, nn_grad_err, k2_nn = phase_grad_nn(torch, device)
     t_dense = time.perf_counter()
-    dense_err = phase_compare_dense(torch, device)
+    dense_err, dense_plain_ms = phase_compare_dense(torch, device)
     dense_launches, dense_req_ms = phase_serve_dense(torch, device)
-    dense_rows = phase_time_dense(torch, device)
+    dense_rows = phase_time_dense(torch, device, dense_plain_ms)
     log(f'[dense] the dense phases took {time.perf_counter() - t_dense:.1f} '
         's')
     t_bwd_dense = time.perf_counter()
@@ -7273,6 +7975,29 @@ def main():
         torch, device, train_dense)
     log(f'[bwd-dense] the dense backward\'s phases took '
         f'{time.perf_counter() - t_bwd_dense:.1f} s')
+    t_wide = [time.perf_counter()]
+    wide_compare, wide_held = phase_compare_wide(torch, device)
+    t_wide.append(time.perf_counter())
+    wide_serve = phase_serve_wide(torch, device)
+    t_wide.append(time.perf_counter())
+    wide_rows = phase_time_wide(torch, device, wide_compare)
+    t_wide.append(time.perf_counter())
+    wide_bwd_err = phase_compare_bwd_wide(torch, device)
+    t_wide.append(time.perf_counter())
+    wide_train = phase_train_dense(torch, device, launch_record,
+                                   held=wide_held)
+    t_wide.append(time.perf_counter())
+    wide_bwd_row = phase_time_bwd_wide(torch, device)
+    wide_fwd_row = time_dense_row(torch, 'wide-train 4s12c (the learner\'s '
+                                  'start)', wide_train['fwd_ops'],
+                                  tag='time-bwd-dense',
+                                  plain_ms=wide_train['fwd_plain_ms'])
+    t_wide.append(time.perf_counter())
+    log('[wide] the phases past 8 controls took ' + ', '.join(
+        f'{b - a:.1f} s [{k}]' for k, a, b in zip(
+            ('compare-dense', 'serve-dense', 'time-dense',
+             'compare-bwd-dense', 'train-dense', 'time-bwd-dense'),
+            t_wide, t_wide[1:])) + f': {t_wide[-1] - t_wide[0]:.1f} s')
     t_soa = [time.perf_counter()]
     soa_err, soa_plain_ms = phase_compare_soa(torch, device)
     t_soa.append(time.perf_counter())
@@ -7450,6 +8175,8 @@ def main():
         *dense_entries(dense_rows, dense_launches, dense_req_ms, dense_err),
         *bwd_dense_entries(bwd_dense_rows, fwd_train_row, train_dense,
                            diff_solve, bwd_dense_err),
+        *wide_entries(torch, wide_compare, wide_serve, wide_rows,
+                      wide_bwd_err, wide_bwd_row, wide_train, wide_fwd_row),
         *soa_entries(soa_rows, soa_serve, grad_counts, grad_err, soa_err,
                      next(r for r in eager if r['phase'] == 'eager-cartpole')),
         *huber_entries(huber_rows, huber_serve, huber_grad_launches,

@@ -9,7 +9,7 @@ entry points run on the CUDA card unless the caller passes
 problem as the JAX package does.  The problems the hand-written Hopper
 kernels take (the pendulums at n_state = 3, n_ctrl = 1, the cartpole,
 an MLP of 1 to 4 hidden layers and a LinDx of n_state + n_ctrl <= 32
-and n_ctrl <= 8, a QuadCost or a pseudo-Huber cost, float32 on the
+at any n_ctrl, a QuadCost or a pseudo-Huber cost, float32 on the
 card) are solved by K1 (csrc/fused_ilqr.cu, up to T = 181), K3
 (csrc/fused_ilqr_long.cu, LinDx and the one-hidden-layer MLP of 3 states
 and 1 control, and longer horizons) or K3's dense configuration

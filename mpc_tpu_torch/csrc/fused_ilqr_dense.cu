@@ -38,9 +38,13 @@
 //   controls a warp's tiles are 12.4 KB, a block of four warps 50 KB.
 //   A batch-shared operand is read by every warp from the same addresses
 //   (L1 and L2 hits), a batched one with its batch stride.
-// - The CONTROL SOLVE of a step runs in every lane on registers (its n_ctrl
-//   x n_ctrl block is small); the projected-Newton trip's Armijo search
-//   is split across lanes 0-9 with a ballot.  A warp stops its QP's
+// - The CONTROL SOLVE of a step runs in every lane on registers up to
+//   kRegCtrlMax = 8 controls (box_qp.cuh: the n_ctrl x n_ctrl block is
+//   small); past that on the warp's tiles (box_qp_smem.cuh: Quu read in
+//   place from Q's tile, its factor a tile of its own, the box QP's
+//   vectors rows of it, lane i owning row i of the factor, a column of
+//   the gains a lane).  Either way the projected-Newton trip's Armijo
+//   search is split across lanes 0-9 with a ballot.  A warp stops its QP's
 //   trips, its line search and its iterations on its own, so stopped
 //   examples cost nothing: the TPU kernel runs every trip for every
 //   lane of its tile.
@@ -132,6 +136,7 @@
 #include <cmath>
 
 #include "box_qp.cuh"
+#include "box_qp_smem.cuh"
 #include "cost.cuh"
 #include "nn_dense.cuh"
 #include "soa_model.cuh"
@@ -247,7 +252,19 @@ constexpr int oDx = oVv + kNS;              // x_new - x       [kNS]
 constexpr int oK = oDx + kNS;               // K_t             [kNC][kNS]
 constexpr int oKQ = oK + kNC * kNS;         // Quu K_t         [kNC][kNS]
 constexpr int oKk = oKQ + kNC * kNS;        // k_t             [kNC]
-constexpr int kWarpFloats = (oKk + kNC + 3) / 4 * 4;
+// past kRegCtrlMax controls the control solve's tiles (box_qp_smem.cuh):
+// the factor L [kNC][odd], the QP's x (kept from step to step: the next
+// step's start, prev_k), g, dx, lo and hi [kNC]
+constexpr bool kSmemCtrl = kNC > kRegCtrlMax;
+constexpr int kSL = odd_stride(kNC);
+constexpr int oL = oKk + kNC;               // L               [kNC][kSL]
+constexpr int oQx = oL + kNC * kSL;         // x, prev_k       [kNC]
+constexpr int oQg = oQx + kNC;              // g               [kNC]
+constexpr int oQd = oQg + kNC;              // dx              [kNC]
+constexpr int oQlo = oQd + kNC;             // lo              [kNC]
+constexpr int oQhi = oQlo + kNC;            // hi              [kNC]
+constexpr int kCtrlFloats = kSmemCtrl ? kNC * kSL + 5 * kNC : 0;
+constexpr int kWarpFloats = (oKk + kNC + kCtrlFloats + 3) / 4 * 4;
 // the gains of a step in the workspace: K (kNC x kNS), then k
 constexpr int kGain = kNC * (kNS + 1);
 
@@ -416,6 +433,8 @@ __global__ void __launch_bounds__(kThreads)
   const int lt = lane < kNT ? lane : kNT - 1;
   const int lx = lane < kNS ? lane : kNS - 1;
   const int lu = lane < kNS ? 0 : lt - kNS;
+  // the lane clamped into a control (the control solve's rows)
+  const int lc = lane < kNC ? lane : kNC - 1;
   const int b = blockIdx.x * kWarps + (threadIdx.x >> 5);
   // a warp's tiles, and its scratch in the MLP build, then the weights
   const int wf = kMLP ? op.warp_floats : kWarpFloats;
@@ -630,163 +649,283 @@ __global__ void __launch_bounds__(kThreads)
       }
       __syncwarp();
 
-      // ---- the control solve (every lane on the same registers) ------
-      float Quu[kNC][kNC], qu[kNC], kt[kNC];
+      if constexpr (kSmemCtrl) {
+        float* Ls = sh + oL;
+        float* xq = sh + oQx;
+        // ---- the control solve on the warp's tiles (box_qp_smem.cuh):
+        // Quu read in place from Q's tile -------------------------------
+        const float* Quu = Qs + kNS * kSQ + kNS;
+        const float* qu = qv + kNS;
+        // lane j < n_state: column j of K from Qux's column j (masked)
+        float Kcol[kNC];
+        unsigned fr = (1u << kNC) - 1u;
+        if constexpr (!kHasBounds) {
+          // a pinned control's row of k and K is zero (:1475-1503): the
+          // free block's factor (no jitter), qu and Qux masked
+          if constexpr (kHasUz)
+            fr = __ballot_sync(0xffffffffu,
+                               lane < kNC &&
+                                   __ldg(uzb + t * op.sut + lc) < 0.5f);
+          cholesky_rows<kNC>(Quu, kSQ, kHasUz, fr, kHasUz ? 0.f : 1e-11f,
+                             Ls, kSL, lane);
+          if (lane == kNS) {
+            float v[kNC];
 #pragma unroll
-      for (int i = 0; i < kNC; ++i) {
-        qu[i] = qv[kNS + i];
-#pragma unroll
-        for (int j = 0; j < kNC; ++j) Quu[i][j] = Qs[(kNS + i) * kSQ + kNS + j];
-      }
-      // lane j's column of Qux
-      float qx[kNC];
-#pragma unroll
-      for (int i = 0; i < kNC; ++i)
-        qx[i] = lane < kNS ? Qs[(kNS + i) * kSQ + lx] : 0.f;
-      float Kcol[kNC];
-      if constexpr (!kHasBounds) {
-        // a pinned control's row of k and K is zero (:1475-1503)
-        bool fr[kNC];
-#pragma unroll
-        for (int i = 0; i < kNC; ++i) fr[i] = true;
-        if constexpr (kHasUz) {
-#pragma unroll
-          for (int i = 0; i < kNC; ++i)
-            fr[i] = __ldg(uzb + t * op.sut + i) < 0.5f;
-        }
-        if constexpr (kNC == 1) {
-          const float inv = 1.f / Quu[0][0];
-          kt[0] = fr[0] ? -qu[0] * inv : 0.f;
-          Kcol[0] = fr[0] ? -qx[0] * inv : 0.f;
-        } else {
-          // qu stays whole for the cost-to-go; the solves take it masked
-          float L[kNC][kNC], sol[kNC], qm[kNC];
-#pragma unroll
-          for (int i = 0; i < kNC; ++i) qm[i] = qu[i];
-          if constexpr (kHasUz) {
-            // the free block's factor, qu and Qux masked (no jitter)
-            masked_free_chol<kNC>(Quu, fr, L);
+            for (int i = 0; i < kNC; ++i) v[i] = (fr >> i) & 1u ? qu[i] : 0.f;
+            chol_solve_reg<kNC>(Ls, kSL, v);
+            float* gk = gains + t * kGain + kNC * kNS;
 #pragma unroll
             for (int i = 0; i < kNC; ++i) {
-              qm[i] = fr[i] ? qu[i] : 0.f;
-              qx[i] = fr[i] ? qx[i] : 0.f;
+              ks[i] = -v[i];
+              gk[i] = -v[i];
             }
-          } else {
-            cholesky<kNC>(Quu, 1e-11f, L);
           }
-          chol_solve<kNC>(L, qm, sol);
-#pragma unroll
-          for (int i = 0; i < kNC; ++i) kt[i] = -sol[i];
-          chol_solve<kNC>(L, qx, sol);
-#pragma unroll
-          for (int i = 0; i < kNC; ++i) Kcol[i] = -sol[i];
-        }
-      } else {
-        // the box narrowed by the trust region (:1513-1515)
-        float lo[kNC], hi[kNC];
-#pragma unroll
-        for (int m = 0; m < kNC; ++m) {
-          lo[m] = fmaxf(__ldg(lbb + t * op.sbt + m) - tau[kNS + m], -op.delta);
-          hi[m] = fminf(__ldg(ubb + t * op.sbt + m) - tau[kNS + m], op.delta);
-        }
-        if constexpr (kNC == 1) {
-          const float inv = 1.f / Quu[0][0];
-          const float kv = fminf(fmaxf(-qu[0] * inv, lo[0]), hi[0]);
-          const float g = Quu[0][0] * kv + qu[0];
-          const bool clamped =
-              (kv == lo[0] && g > 0.f) || (kv == hi[0] && g < 0.f);
-          kt[0] = kv;
-          Kcol[0] = clamped ? 0.f : -qx[0] * inv;
-          qp_cnt += 1.f;
         } else {
-          float L[kNC][kNC], sol[kNC], trips;
-          bool fr[kNC];
+          // the box narrowed by the trust region (:1513-1515)
+          if (lane < kNC) {
+            sh[oQlo + lane] = fmaxf(
+                __ldg(lbb + t * op.sbt + lc) - tau[kNS + lc], -op.delta);
+            sh[oQhi + lane] = fminf(
+                __ldg(ubb + t * op.sbt + lc) - tau[kNS + lc], op.delta);
+          }
           if (last) {
-            cholesky<kNC>(Quu, 1e-11f, L);
-            chol_solve<kNC>(L, qu, sol);
+            // the unclamped solve that starts the search; later steps
+            // start from the previous step's solution, left in x
+            cholesky_rows<kNC>(Quu, kSQ, false, fr, 1e-11f, Ls, kSL, lane);
+            if (lane == 0) {
+              float v[kNC];
 #pragma unroll
-            for (int i = 0; i < kNC; ++i) kt[i] = -sol[i];
-          } else {
+              for (int i = 0; i < kNC; ++i) v[i] = qu[i];
+              chol_solve_reg<kNC>(Ls, kSL, v);
 #pragma unroll
-            for (int i = 0; i < kNC; ++i) kt[i] = prev_k[i];
+              for (int i = 0; i < kNC; ++i) xq[i] = -v[i];
+            }
           }
-          pnqp<kNC>(Quu, qu, lo, hi, kt, op.pnqp_iter, sched.qp_steps, lane,
-                    L, fr, trips);
+          __syncwarp();
+          float trips;
+          pnqp_rows<kNC>(Quu, kSQ, qu, sh + oQlo, sh + oQhi, xq, sh + oQg,
+                         sh + oQd, op.pnqp_iter, sched.qp_steps, lane, Ls,
+                         kSL, fr, trips);
           qp_cnt += trips;
-#pragma unroll
-          for (int i = 0; i < kNC; ++i) qx[i] = fr[i] ? qx[i] : 0.f;
-          chol_solve<kNC>(L, qx, sol);
-#pragma unroll
-          for (int i = 0; i < kNC; ++i) Kcol[i] = -sol[i];
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < kNC; ++i) prev_k[i] = kt[i];
-      float* gK = gains + t * kGain;
-      if (lane < kNS) {
-#pragma unroll
-        for (int i = 0; i < kNC; ++i) {
-          Ks[i * kNS + lane] = Kcol[i];
-          gK[i * kNS + lane] = Kcol[i];
-        }
-      }
-      if (lane == 0) {
-#pragma unroll
-        for (int i = 0; i < kNC; ++i) {
-          ks[i] = kt[i];
-          gK[kNC * kNS + i] = kt[i];
-        }
-      }
-      __syncwarp();
-
-      // ---- the cost-to-go, as vv_update sums it ----------------------
-      if (lane < kNS) {
-#pragma unroll
-        for (int m = 0; m < kNC; ++m) {
-          float s = Quu[m][0] * Ks[lx];
-#pragma unroll
-          for (int mm = 1; mm < kNC; ++mm)
-            s = s + Quu[m][mm] * Ks[mm * kNS + lx];
-          KQs[m * kNS + lane] = s;
-        }
-      }
-      __syncwarp();
-      if (lane < kNS) {
-        const int i = lx;
-        float qxu[kNC], ki[kNC];
-#pragma unroll
-        for (int m = 0; m < kNC; ++m) {
-          qxu[m] = Qs[i * kSQ + kNS + m];
-          ki[m] = Ks[m * kNS + i];
-        }
-        for (int j = i; j < kNS; ++j) {
-          float qk_ij = qxu[0] * Ks[j];
-          float qk_ji = Qs[j * kSQ + kNS] * ki[0];
-          float kqk = ki[0] * KQs[j];
-#pragma unroll
-          for (int m = 1; m < kNC; ++m) {
-            qk_ij = qk_ij + qxu[m] * Ks[m * kNS + j];
-            qk_ji = qk_ji + Qs[j * kSQ + kNS + m] * ki[m];
-            kqk = kqk + ki[m] * KQs[m * kNS + j];
+          if (lane < kNC) {
+            ks[lane] = xq[lane];
+            gains[t * kGain + kNC * kNS + lane] = xq[lane];
           }
-          const float vn = ((Qs[i * kSQ + j] + qk_ij) + qk_ji) + kqk;
-          Vs[i * kSV + j] = vn;
-          Vs[j * kSV + i] = vn;
         }
-        float s1 = qxu[0] * kt[0];
-        float s2 = 0.f;
+        if (lane < kNS) {
 #pragma unroll
-        for (int m = 0; m < kNC; ++m) {
-          if (m > 0) s1 = s1 + qxu[m] * kt[m];
-          float quk = Quu[m][0] * kt[0];
+          for (int i = 0; i < kNC; ++i)
+            Kcol[i] = (fr >> i) & 1u ? Qs[(kNS + i) * kSQ + lx] : 0.f;
+          chol_solve_reg<kNC>(Ls, kSL, Kcol);
+          float* gK = gains + t * kGain;
 #pragma unroll
-          for (int mm = 1; mm < kNC; ++mm) quk = quk + Quu[m][mm] * kt[mm];
-          const float term = ki[m] * (qu[m] + quk);
-          s2 = m == 0 ? term : s2 + term;
+          for (int i = 0; i < kNC; ++i) {
+            Ks[i * kNS + lane] = -Kcol[i];
+            gK[i * kNS + lane] = -Kcol[i];
+          }
         }
-        vv[i] = (qv[i] + s1) + s2;
+        __syncwarp();
+
+        // ---- the cost-to-go, as vv_update sums it, from the tiles -------
+        if (lane < kNS) {
+          for (int m = 0; m < kNC; ++m) {
+            const float* qr = Quu + m * kSQ;
+            float s = qr[0] * Ks[lx];
+            for (int mm = 1; mm < kNC; ++mm)
+              s = s + qr[mm] * Ks[mm * kNS + lx];
+            KQs[m * kNS + lane] = s;
+          }
+        }
+        __syncwarp();
+        if (lane < kNS) {
+          const int i = lx;
+          const float* qxu = Qs + i * kSQ + kNS;
+          for (int j = i; j < kNS; ++j) {
+            const float* qxj = Qs + j * kSQ + kNS;
+            float qk_ij = qxu[0] * Ks[j];
+            float qk_ji = qxj[0] * Ks[i];
+            float kqk = Ks[i] * KQs[j];
+            for (int m = 1; m < kNC; ++m) {
+              qk_ij = qk_ij + qxu[m] * Ks[m * kNS + j];
+              qk_ji = qk_ji + qxj[m] * Ks[m * kNS + i];
+              kqk = kqk + Ks[m * kNS + i] * KQs[m * kNS + j];
+            }
+            const float vn = ((Qs[i * kSQ + j] + qk_ij) + qk_ji) + kqk;
+            Vs[i * kSV + j] = vn;
+            Vs[j * kSV + i] = vn;
+          }
+          float s1 = qxu[0] * ks[0];
+          float s2 = 0.f;
+          for (int m = 0; m < kNC; ++m) {
+            if (m > 0) s1 = s1 + qxu[m] * ks[m];
+            const float* qr = Quu + m * kSQ;
+            float quk = qr[0] * ks[0];
+            for (int mm = 1; mm < kNC; ++mm) quk = quk + qr[mm] * ks[mm];
+            const float term = Ks[m * kNS + i] * (qu[m] + quk);
+            s2 = m == 0 ? term : s2 + term;
+          }
+          vv[i] = (qv[i] + s1) + s2;
+        }
+        __syncwarp();
+      } else {
+        // ---- the control solve (every lane on the same registers) ------
+        float Quu[kNC][kNC], qu[kNC], kt[kNC];
+  #pragma unroll
+        for (int i = 0; i < kNC; ++i) {
+          qu[i] = qv[kNS + i];
+  #pragma unroll
+          for (int j = 0; j < kNC; ++j) Quu[i][j] = Qs[(kNS + i) * kSQ + kNS + j];
+        }
+        // lane j's column of Qux
+        float qx[kNC];
+  #pragma unroll
+        for (int i = 0; i < kNC; ++i)
+          qx[i] = lane < kNS ? Qs[(kNS + i) * kSQ + lx] : 0.f;
+        float Kcol[kNC];
+        if constexpr (!kHasBounds) {
+          // a pinned control's row of k and K is zero (:1475-1503)
+          bool fr[kNC];
+  #pragma unroll
+          for (int i = 0; i < kNC; ++i) fr[i] = true;
+          if constexpr (kHasUz) {
+  #pragma unroll
+            for (int i = 0; i < kNC; ++i)
+              fr[i] = __ldg(uzb + t * op.sut + i) < 0.5f;
+          }
+          if constexpr (kNC == 1) {
+            const float inv = 1.f / Quu[0][0];
+            kt[0] = fr[0] ? -qu[0] * inv : 0.f;
+            Kcol[0] = fr[0] ? -qx[0] * inv : 0.f;
+          } else {
+            // qu stays whole for the cost-to-go; the solves take it masked
+            float L[kNC][kNC], sol[kNC], qm[kNC];
+  #pragma unroll
+            for (int i = 0; i < kNC; ++i) qm[i] = qu[i];
+            if constexpr (kHasUz) {
+              // the free block's factor, qu and Qux masked (no jitter)
+              masked_free_chol<kNC>(Quu, fr, L);
+  #pragma unroll
+              for (int i = 0; i < kNC; ++i) {
+                qm[i] = fr[i] ? qu[i] : 0.f;
+                qx[i] = fr[i] ? qx[i] : 0.f;
+              }
+            } else {
+              cholesky<kNC>(Quu, 1e-11f, L);
+            }
+            chol_solve<kNC>(L, qm, sol);
+  #pragma unroll
+            for (int i = 0; i < kNC; ++i) kt[i] = -sol[i];
+            chol_solve<kNC>(L, qx, sol);
+  #pragma unroll
+            for (int i = 0; i < kNC; ++i) Kcol[i] = -sol[i];
+          }
+        } else {
+          // the box narrowed by the trust region (:1513-1515)
+          float lo[kNC], hi[kNC];
+  #pragma unroll
+          for (int m = 0; m < kNC; ++m) {
+            lo[m] = fmaxf(__ldg(lbb + t * op.sbt + m) - tau[kNS + m], -op.delta);
+            hi[m] = fminf(__ldg(ubb + t * op.sbt + m) - tau[kNS + m], op.delta);
+          }
+          if constexpr (kNC == 1) {
+            const float inv = 1.f / Quu[0][0];
+            const float kv = fminf(fmaxf(-qu[0] * inv, lo[0]), hi[0]);
+            const float g = Quu[0][0] * kv + qu[0];
+            const bool clamped =
+                (kv == lo[0] && g > 0.f) || (kv == hi[0] && g < 0.f);
+            kt[0] = kv;
+            Kcol[0] = clamped ? 0.f : -qx[0] * inv;
+            qp_cnt += 1.f;
+          } else {
+            float L[kNC][kNC], sol[kNC], trips;
+            bool fr[kNC];
+            if (last) {
+              cholesky<kNC>(Quu, 1e-11f, L);
+              chol_solve<kNC>(L, qu, sol);
+  #pragma unroll
+              for (int i = 0; i < kNC; ++i) kt[i] = -sol[i];
+            } else {
+  #pragma unroll
+              for (int i = 0; i < kNC; ++i) kt[i] = prev_k[i];
+            }
+            pnqp<kNC>(Quu, qu, lo, hi, kt, op.pnqp_iter, sched.qp_steps, lane,
+                      L, fr, trips);
+            qp_cnt += trips;
+  #pragma unroll
+            for (int i = 0; i < kNC; ++i) qx[i] = fr[i] ? qx[i] : 0.f;
+            chol_solve<kNC>(L, qx, sol);
+  #pragma unroll
+            for (int i = 0; i < kNC; ++i) Kcol[i] = -sol[i];
+          }
+        }
+  #pragma unroll
+        for (int i = 0; i < kNC; ++i) prev_k[i] = kt[i];
+        float* gK = gains + t * kGain;
+        if (lane < kNS) {
+  #pragma unroll
+          for (int i = 0; i < kNC; ++i) {
+            Ks[i * kNS + lane] = Kcol[i];
+            gK[i * kNS + lane] = Kcol[i];
+          }
+        }
+        if (lane == 0) {
+  #pragma unroll
+          for (int i = 0; i < kNC; ++i) {
+            ks[i] = kt[i];
+            gK[kNC * kNS + i] = kt[i];
+          }
+        }
+        __syncwarp();
+
+        // ---- the cost-to-go, as vv_update sums it ----------------------
+        if (lane < kNS) {
+  #pragma unroll
+          for (int m = 0; m < kNC; ++m) {
+            float s = Quu[m][0] * Ks[lx];
+  #pragma unroll
+            for (int mm = 1; mm < kNC; ++mm)
+              s = s + Quu[m][mm] * Ks[mm * kNS + lx];
+            KQs[m * kNS + lane] = s;
+          }
+        }
+        __syncwarp();
+        if (lane < kNS) {
+          const int i = lx;
+          float qxu[kNC], ki[kNC];
+  #pragma unroll
+          for (int m = 0; m < kNC; ++m) {
+            qxu[m] = Qs[i * kSQ + kNS + m];
+            ki[m] = Ks[m * kNS + i];
+          }
+          for (int j = i; j < kNS; ++j) {
+            float qk_ij = qxu[0] * Ks[j];
+            float qk_ji = Qs[j * kSQ + kNS] * ki[0];
+            float kqk = ki[0] * KQs[j];
+  #pragma unroll
+            for (int m = 1; m < kNC; ++m) {
+              qk_ij = qk_ij + qxu[m] * Ks[m * kNS + j];
+              qk_ji = qk_ji + Qs[j * kSQ + kNS + m] * ki[m];
+              kqk = kqk + ki[m] * KQs[m * kNS + j];
+            }
+            const float vn = ((Qs[i * kSQ + j] + qk_ij) + qk_ji) + kqk;
+            Vs[i * kSV + j] = vn;
+            Vs[j * kSV + i] = vn;
+          }
+          float s1 = qxu[0] * kt[0];
+          float s2 = 0.f;
+  #pragma unroll
+          for (int m = 0; m < kNC; ++m) {
+            if (m > 0) s1 = s1 + qxu[m] * kt[m];
+            float quk = Quu[m][0] * kt[0];
+  #pragma unroll
+            for (int mm = 1; mm < kNC; ++mm) quk = quk + Quu[m][mm] * kt[mm];
+            const float term = ki[m] * (qu[m] + quk);
+            s2 = m == 0 ? term : s2 + term;
+          }
+          vv[i] = (qv[i] + s1) + s2;
+        }
+        __syncwarp();
       }
-      __syncwarp();
     }
 
     // ---- the line search: trial rollouts into the other slot; the first

@@ -1,6 +1,6 @@
 // The dense configuration of K2 and K4 for Hopper: the KKT backward of the
 // converged box-constrained LQR of a problem of any n_state and n_ctrl
-// with n_state + n_ctrl <= 32 and n_ctrl <= 8, a warp an example.
+// with n_state + n_ctrl <= 32, a warp an example.
 //
 // Replaces the TPU kernels' general-size configurations:
 // mpc_tpu/ops/fused_bwd.py:_make_bwd_kernel (lines 251-410, T unrolled)
@@ -35,7 +35,9 @@
 //   of odd stride, and the lanes meet by __syncwarp between a step's
 //   phases.  The control solve of a step runs in every lane on registers
 //   with the same bits (box_qp.cuh's cholesky, chol_solve and
-//   masked_free_chol), lane j computing column j of the gains.  Then the
+//   masked_free_chol) up to kRegCtrlMax = 8 controls, past that on the
+//   warp's tiles (box_qp_smem.cuh: Quu read in place from Q's tile, the
+//   factor a tile of its own); lane j computes column j of the gains.  Then the
 //   differential rollout (lane i state i, the controls on lanes n_state..)
 //   and the costates lam and dlam (lane i row i), the second beside the
 //   first.  The gains, dtau, lam and dlam of each step go to a workspace
@@ -70,6 +72,7 @@
 #include <cuda_runtime.h>
 
 #include "box_qp.cuh"
+#include "box_qp_smem.cuh"
 
 #if !defined(MPC_NS) || !defined(MPC_NC) || !defined(MPC_HAS_I) || \
     !defined(MPC_HAS_F) || !defined(MPC_WARPS) || !defined(MPC_CHUNK) || \
@@ -107,7 +110,13 @@ constexpr int oDl = oLam + kNS;             // dlam_{t+1}      [kNS]
 constexpr int oK = oDl + kNS;               // K_t             [kNC][kNS]
 constexpr int oKQ = oK + kNC * kNS;         // Quu K_t         [kNC][kNS]
 constexpr int oKk = oKQ + kNC * kNS;        // k_t             [kNC]
-constexpr int kWarpFloats = (oKk + kNC + 3) / 4 * 4;
+// past kRegCtrlMax controls the factor of the control block in the
+// warp's tiles (box_qp_smem.cuh)
+constexpr bool kSmemCtrl = kNC > kRegCtrlMax;
+constexpr int kSL = odd_stride(kNC);
+constexpr int oL = oKk + kNC;               // L               [kNC][kSL]
+constexpr int kCtrlFloats = kSmemCtrl ? kNC * kSL : 0;
+constexpr int kWarpFloats = (oKk + kNC + kCtrlFloats + 3) / 4 * 4;
 // the gains of a step in the workspace: K (kNC x kNS), then k
 constexpr int kGain = kNC * (kNS + 1);
 // a gradient block's copy of its chunk: tau, dtau [kChunk][kNT], then
@@ -154,6 +163,8 @@ __global__ void __launch_bounds__(kThreads)
   const int lt = lane < kNT ? lane : kNT - 1;
   const int lx = lane < kNS ? lane : kNS - 1;
   const int lu = lane < kNS ? 0 : lt - kNS;
+  // the lane clamped into a control (the control solve's mask)
+  const int lc = lane < kNC ? lane : kNC - 1;
   const int b = blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (b >= op.B) return;  // the whole warp: nothing below syncs the block
   const int T = op.T, B = op.B;
@@ -230,118 +241,198 @@ __global__ void __launch_bounds__(kThreads)
     }
     __syncwarp();
 
-    // ---- the control solve (every lane on the same registers) --------
-    float Quu[kNC][kNC], qu[kNC], kt[kNC], qx[kNC], Kcol[kNC];
+    if constexpr (kSmemCtrl) {
+      // ---- the control solve on the warp's tiles (box_qp_smem.cuh):
+      // Quu read in place from Q's tile, the pinned controls' rows and
+      // columns masked out of the factor (no jitter), else a 1e-11 jitter
+      float* Ls = sh + oL;
+      const float* Quu = Qs + kNS * kSQ + kNS;
+      const float* qu = qv + kNS;
+      unsigned fr = (1u << kNC) - 1u;
+      if constexpr (kHasI)
+        fr = __ballot_sync(0xffffffffu,
+                           lane < kNC && __ldg(op.I + tb * kNC + lc) < 0.5f);
+      cholesky_rows<kNC>(Quu, kSQ, kHasI, fr, kHasI ? 0.f : 1e-11f, Ls, kSL,
+                         lane);
+      float* gK = gains + t * kGain;
+      float v[kNC];
+      if (lane < kNS) {
+        // lane j: column j of K from Qux's column j
 #pragma unroll
-    for (int i = 0; i < kNC; ++i) {
-      qu[i] = qv[kNS + i];
-#pragma unroll
-      for (int j = 0; j < kNC; ++j) Quu[i][j] = Qs[(kNS + i) * kSQ + kNS + j];
-      // lane j's column of Qux
-      qx[i] = lane < kNS ? Qs[(kNS + i) * kSQ + lx] : 0.f;
-    }
-    if constexpr (kHasI) {
-      bool fr[kNC];
-#pragma unroll
-      for (int i = 0; i < kNC; ++i) fr[i] = __ldg(op.I + tb * kNC + i) < 0.5f;
-      if constexpr (kNC == 1) {
-        const float inv = 1.f / Quu[0][0];
-        kt[0] = fr[0] ? -qu[0] * inv : 0.f;
-        Kcol[0] = fr[0] ? -qx[0] * inv : 0.f;
-      } else {
-        float L[kNC][kNC], rhs[kNC], sol[kNC];
-        masked_free_chol<kNC>(Quu, fr, L);
-#pragma unroll
-        for (int i = 0; i < kNC; ++i) rhs[i] = fr[i] ? qu[i] : 0.f;
-        chol_solve<kNC>(L, rhs, sol);
+        for (int i = 0; i < kNC; ++i)
+          v[i] = (fr >> i) & 1u ? Qs[(kNS + i) * kSQ + lx] : 0.f;
+        chol_solve_reg<kNC>(Ls, kSL, v);
 #pragma unroll
         for (int i = 0; i < kNC; ++i) {
-          kt[i] = -sol[i];
-          rhs[i] = fr[i] ? qx[i] : 0.f;
+          Ks[i * kNS + lane] = -v[i];
+          gK[i * kNS + lane] = -v[i];
         }
-        chol_solve<kNC>(L, rhs, sol);
+      } else if (lane == kNS) {
 #pragma unroll
+        for (int i = 0; i < kNC; ++i) v[i] = (fr >> i) & 1u ? qu[i] : 0.f;
+        chol_solve_reg<kNC>(Ls, kSL, v);
+#pragma unroll
+        for (int i = 0; i < kNC; ++i) {
+          ks[i] = -v[i];
+          gK[kNC * kNS + i] = -v[i];
+        }
+      }
+      __syncwarp();
+
+      // ---- the cost-to-go, as _bwd_vv_update sums it, from the tiles ---
+      if (lane < kNS) {
+        for (int m = 0; m < kNC; ++m) {
+          const float* qr = Quu + m * kSQ;
+          float s = qr[0] * Ks[lx];
+          for (int mm = 1; mm < kNC; ++mm) s = s + qr[mm] * Ks[mm * kNS + lx];
+          KQs[m * kNS + lane] = s;
+        }
+      }
+      __syncwarp();
+      if (lane < kNS) {
+        const int i = lx;
+        const float* qxu = Qs + i * kSQ + kNS;
+        for (int j = i; j < kNS; ++j) {
+          const float* qxj = Qs + j * kSQ + kNS;
+          float qk_ij = qxu[0] * Ks[j];
+          float qk_ji = qxj[0] * Ks[i];
+          float kqk = Ks[i] * KQs[j];
+          for (int m = 1; m < kNC; ++m) {
+            qk_ij = qk_ij + qxu[m] * Ks[m * kNS + j];
+            qk_ji = qk_ji + qxj[m] * Ks[m * kNS + i];
+            kqk = kqk + Ks[m * kNS + i] * KQs[m * kNS + j];
+          }
+          const float vn = ((Qs[i * kSQ + j] + qk_ij) + qk_ji) + kqk;
+          Vs[i * kSV + j] = vn;
+          Vs[j * kSV + i] = vn;
+        }
+        float s1 = qxu[0] * ks[0];
+        float s2 = 0.f;
+        for (int m = 0; m < kNC; ++m) {
+          if (m > 0) s1 = s1 + qxu[m] * ks[m];
+          const float* qr = Quu + m * kSQ;
+          float quk = qr[0] * ks[0];
+          for (int mm = 1; mm < kNC; ++mm) quk = quk + qr[mm] * ks[mm];
+          const float term = Ks[m * kNS + i] * (qu[m] + quk);
+          s2 = m == 0 ? term : s2 + term;
+        }
+        vv[i] = (qv[i] + s1) + s2;
+      }
+      __syncwarp();
+    } else {
+      // ---- the control solve (every lane on the same registers) --------
+      float Quu[kNC][kNC], qu[kNC], kt[kNC], qx[kNC], Kcol[kNC];
+  #pragma unroll
+      for (int i = 0; i < kNC; ++i) {
+        qu[i] = qv[kNS + i];
+  #pragma unroll
+        for (int j = 0; j < kNC; ++j) Quu[i][j] = Qs[(kNS + i) * kSQ + kNS + j];
+        // lane j's column of Qux
+        qx[i] = lane < kNS ? Qs[(kNS + i) * kSQ + lx] : 0.f;
+      }
+      if constexpr (kHasI) {
+        bool fr[kNC];
+  #pragma unroll
+        for (int i = 0; i < kNC; ++i) fr[i] = __ldg(op.I + tb * kNC + i) < 0.5f;
+        if constexpr (kNC == 1) {
+          const float inv = 1.f / Quu[0][0];
+          kt[0] = fr[0] ? -qu[0] * inv : 0.f;
+          Kcol[0] = fr[0] ? -qx[0] * inv : 0.f;
+        } else {
+          float L[kNC][kNC], rhs[kNC], sol[kNC];
+          masked_free_chol<kNC>(Quu, fr, L);
+  #pragma unroll
+          for (int i = 0; i < kNC; ++i) rhs[i] = fr[i] ? qu[i] : 0.f;
+          chol_solve<kNC>(L, rhs, sol);
+  #pragma unroll
+          for (int i = 0; i < kNC; ++i) {
+            kt[i] = -sol[i];
+            rhs[i] = fr[i] ? qx[i] : 0.f;
+          }
+          chol_solve<kNC>(L, rhs, sol);
+  #pragma unroll
+          for (int i = 0; i < kNC; ++i) Kcol[i] = -sol[i];
+        }
+      } else if constexpr (kNC == 1) {
+        const float inv = 1.f / Quu[0][0];
+        kt[0] = -qu[0] * inv;
+        Kcol[0] = -qx[0] * inv;
+      } else {
+        float L[kNC][kNC], sol[kNC];
+        cholesky<kNC>(Quu, 1e-11f, L);
+        chol_solve<kNC>(L, qu, sol);
+  #pragma unroll
+        for (int i = 0; i < kNC; ++i) kt[i] = -sol[i];
+        chol_solve<kNC>(L, qx, sol);
+  #pragma unroll
         for (int i = 0; i < kNC; ++i) Kcol[i] = -sol[i];
       }
-    } else if constexpr (kNC == 1) {
-      const float inv = 1.f / Quu[0][0];
-      kt[0] = -qu[0] * inv;
-      Kcol[0] = -qx[0] * inv;
-    } else {
-      float L[kNC][kNC], sol[kNC];
-      cholesky<kNC>(Quu, 1e-11f, L);
-      chol_solve<kNC>(L, qu, sol);
-#pragma unroll
-      for (int i = 0; i < kNC; ++i) kt[i] = -sol[i];
-      chol_solve<kNC>(L, qx, sol);
-#pragma unroll
-      for (int i = 0; i < kNC; ++i) Kcol[i] = -sol[i];
-    }
-    float* gK = gains + t * kGain;
-    if (lane < kNS) {
-#pragma unroll
-      for (int i = 0; i < kNC; ++i) {
-        Ks[i * kNS + lane] = Kcol[i];
-        gK[i * kNS + lane] = Kcol[i];
-      }
-    }
-    if (lane == 0) {
-#pragma unroll
-      for (int i = 0; i < kNC; ++i) {
-        ks[i] = kt[i];
-        gK[kNC * kNS + i] = kt[i];
-      }
-    }
-    __syncwarp();
-
-    // ---- the cost-to-go, as _bwd_vv_update sums it --------------------
-    if (lane < kNS) {
-#pragma unroll
-      for (int m = 0; m < kNC; ++m) {
-        float s = Quu[m][0] * Ks[lx];
-#pragma unroll
-        for (int mm = 1; mm < kNC; ++mm)
-          s = s + Quu[m][mm] * Ks[mm * kNS + lx];
-        KQs[m * kNS + lane] = s;
-      }
-    }
-    __syncwarp();
-    if (lane < kNS) {
-      const int i = lx;
-      float qxu[kNC], ki[kNC];
-#pragma unroll
-      for (int m = 0; m < kNC; ++m) {
-        qxu[m] = Qs[i * kSQ + kNS + m];
-        ki[m] = Ks[m * kNS + i];
-      }
-      for (int j = i; j < kNS; ++j) {
-        float qk_ij = qxu[0] * Ks[j];
-        float qk_ji = Qs[j * kSQ + kNS] * ki[0];
-        float kqk = ki[0] * KQs[j];
-#pragma unroll
-        for (int m = 1; m < kNC; ++m) {
-          qk_ij = qk_ij + qxu[m] * Ks[m * kNS + j];
-          qk_ji = qk_ji + Qs[j * kSQ + kNS + m] * ki[m];
-          kqk = kqk + ki[m] * KQs[m * kNS + j];
+      float* gK = gains + t * kGain;
+      if (lane < kNS) {
+  #pragma unroll
+        for (int i = 0; i < kNC; ++i) {
+          Ks[i * kNS + lane] = Kcol[i];
+          gK[i * kNS + lane] = Kcol[i];
         }
-        const float vn = ((Qs[i * kSQ + j] + qk_ij) + qk_ji) + kqk;
-        Vs[i * kSV + j] = vn;
-        Vs[j * kSV + i] = vn;
       }
-      float s1 = qxu[0] * kt[0];
-      float s2 = 0.f;
-#pragma unroll
-      for (int m = 0; m < kNC; ++m) {
-        if (m > 0) s1 = s1 + qxu[m] * kt[m];
-        float quk = Quu[m][0] * kt[0];
-#pragma unroll
-        for (int mm = 1; mm < kNC; ++mm) quk = quk + Quu[m][mm] * kt[mm];
-        const float term = ki[m] * (qu[m] + quk);
-        s2 = m == 0 ? term : s2 + term;
+      if (lane == 0) {
+  #pragma unroll
+        for (int i = 0; i < kNC; ++i) {
+          ks[i] = kt[i];
+          gK[kNC * kNS + i] = kt[i];
+        }
       }
-      vv[i] = (qv[i] + s1) + s2;
+      __syncwarp();
+
+      // ---- the cost-to-go, as _bwd_vv_update sums it --------------------
+      if (lane < kNS) {
+  #pragma unroll
+        for (int m = 0; m < kNC; ++m) {
+          float s = Quu[m][0] * Ks[lx];
+  #pragma unroll
+          for (int mm = 1; mm < kNC; ++mm)
+            s = s + Quu[m][mm] * Ks[mm * kNS + lx];
+          KQs[m * kNS + lane] = s;
+        }
+      }
+      __syncwarp();
+      if (lane < kNS) {
+        const int i = lx;
+        float qxu[kNC], ki[kNC];
+  #pragma unroll
+        for (int m = 0; m < kNC; ++m) {
+          qxu[m] = Qs[i * kSQ + kNS + m];
+          ki[m] = Ks[m * kNS + i];
+        }
+        for (int j = i; j < kNS; ++j) {
+          float qk_ij = qxu[0] * Ks[j];
+          float qk_ji = Qs[j * kSQ + kNS] * ki[0];
+          float kqk = ki[0] * KQs[j];
+  #pragma unroll
+          for (int m = 1; m < kNC; ++m) {
+            qk_ij = qk_ij + qxu[m] * Ks[m * kNS + j];
+            qk_ji = qk_ji + Qs[j * kSQ + kNS + m] * ki[m];
+            kqk = kqk + ki[m] * KQs[m * kNS + j];
+          }
+          const float vn = ((Qs[i * kSQ + j] + qk_ij) + qk_ji) + kqk;
+          Vs[i * kSV + j] = vn;
+          Vs[j * kSV + i] = vn;
+        }
+        float s1 = qxu[0] * kt[0];
+        float s2 = 0.f;
+  #pragma unroll
+        for (int m = 0; m < kNC; ++m) {
+          if (m > 0) s1 = s1 + qxu[m] * kt[m];
+          float quk = Quu[m][0] * kt[0];
+  #pragma unroll
+          for (int mm = 1; mm < kNC; ++mm) quk = quk + Quu[m][mm] * kt[mm];
+          const float term = ki[m] * (qu[m] + quk);
+          s2 = m == 0 ? term : s2 + term;
+        }
+        vv[i] = (qv[i] + s1) + s2;
+      }
+      __syncwarp();
     }
-    __syncwarp();
   }
 
   // ---- the differential rollout from dx_0 = 0 -------------------------

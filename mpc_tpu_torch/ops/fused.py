@@ -35,7 +35,7 @@ kernels' ``torch.library`` ops (ops/custom.py), which hold the launches.
 
 Scope (``scope_gap``): LinDx dynamics (F, f each shared or batched, f
 optional) of any n_state and n_ctrl with n_state + n_ctrl <=
-``DENSE_MAX_TAU`` and n_ctrl <= ``DENSE_MAX_CTRL``; the simple and the
+``DENSE_MAX_TAU`` (any n_ctrl); the simple and the
 damped, biased pendulum and the cartpole (``SOA_MODELS``, their
 structure-of-arrays steps and hand-written Jacobians); an
 ``NNDynamics`` of 1 to 4 hidden layers (sigmoid, relu or elu, with or
@@ -207,17 +207,20 @@ K3_NN_MAX_HIDDEN = (SMEM_LIMIT // 16 - 1) // 2
 
 # The dense configuration's size gate (ops/fused_dense.py), from this
 # card and not from the TPU's VMEM or its ntau <= 28 compile-time body
-# gate.  One warp owns an example and lane r row r of Q, V and the
-# gains, so n_state + n_ctrl <= 32, the lanes of a warp; the tiles of an
-# example take at most 16.3 KB of shared memory there (four examples a
-# block, 65 KB).  Every lane keeps the control block Quu, its factor and
-# the box QP's vectors in registers, nc^2 + nc (nc + 1) / 2 + 7 nc
-# floats, so n_ctrl <= 8: at 24 states and 8 controls the build takes 224
-# of a thread's 255 registers without spills (ptxas; chip_smoke.py
-# [build] compiles the gate's corners).  One library is built per
-# (n_state, n_ctrl, bounds, f), in seconds.
+# gate: n_state + n_ctrl <= 32 at any n_ctrl.  It sits at 32 taus
+# because one warp owns an example and lane r row r of Q, V and the
+# gains: the lanes of a warp.  The tiles of an example take at most
+# 16.3 KB of shared memory there (four examples a block, 65 KB).  Up to
+# 8 controls every lane keeps the control block Quu, its factor and the
+# box QP's vectors in registers (csrc/box_qp.cuh; 224 of a thread's 255
+# registers at 24 states and 8 controls); past 8 they live in the
+# warp's tiles (csrc/box_qp_smem.cuh: Quu read in place from Q's tile,
+# the factor [nc][odd] and five rows of nc, at most 4.5 KB more a warp,
+# at 1 state and 31 controls), so no control count is refused
+# (chip_smoke.py [build] compiles the gate's corners and prints their
+# registers and spills).  One library is built per (n_state, n_ctrl,
+# bounds, f), in seconds.
 DENSE_MAX_TAU = 32
-DENSE_MAX_CTRL = 8
 
 # Initial best cost / step norm, as in the TPU kernel
 # (mpc_tpu/ops/fused.py:719); any finite cost replaces it at iteration 0.
@@ -323,14 +326,9 @@ def dense_gap(n_state, n_ctrl) -> Optional[str]:
     if n_state + n_ctrl > DENSE_MAX_TAU:
         return (f'a LinDx of n_state + n_ctrl = {n_state + n_ctrl} exceeds '
                 f'the dense configuration\'s {DENSE_MAX_TAU} (a warp an '
-                'example, a lane a row of Q); larger problems wait for '
-                'ROADMAP queue 2 (K3 configurations) and run on the eager '
-                'solver')
-    if n_ctrl > DENSE_MAX_CTRL:
-        return (f'n_ctrl = {n_ctrl} exceeds the dense configuration\'s '
-                f'{DENSE_MAX_CTRL} (every lane keeps the control block\'s '
-                'factor in registers); more controls wait for ROADMAP queue '
-                '2 (K3 configurations) and run on the eager solver')
+                'example, a lane a row of Q); it runs on the eager solver, '
+                'as mpc_tpu runs problems past its kernels\' gate on its '
+                'jnp path')
     return None
 
 

@@ -43,8 +43,8 @@ Scope (``scope_gap_bwd``): K2 and K4 at n_state = 3, n_ctrl = 1, a
 QuadCost whose C and c are each shared or batched, dynamics per example
 (the pendulum's linearisation, a batched LinDx) or batch-shared (LinDx),
 any T, float32 on the card; ``bwd_routes_long`` says which of the two
-takes a backward.  Every other size with n_state + n_ctrl <= 32 and
-n_ctrl <= 8 goes to their dense configuration (``bwd_routes_dense``,
+takes a backward.  Every other size with n_state + n_ctrl <= 32 (any
+n_ctrl) goes to their dense configuration (``bwd_routes_dense``,
 ops/fused_bwd_dense.py, csrc/fused_kkt_bwd_dense.cu), whatever the
 layouts and T.
 """
@@ -182,9 +182,8 @@ def _dense_bwd_gap(n_state, n_ctrl) -> Optional[str]:
     gap = fused.dense_gap(n_state, n_ctrl) if bwd_routes_dense(
         n_state, n_ctrl) else None
     return None if gap is None else (
-        f'the backward of a problem past the dense gate waits for ROADMAP '
-        f'queue 2 (K2 and K4 configurations) and takes the eager fixed '
-        f'point: {gap}')
+        f'the backward of a problem past the dense gate takes the eager '
+        f'fixed point, as mpc_tpu takes its jnp path\'s there: {gap}')
 
 
 def scope_gap_bwd(T, n_ctrl=1, dtype=torch.float32,

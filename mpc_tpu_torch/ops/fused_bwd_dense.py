@@ -44,17 +44,19 @@ import torch
 
 from .fused import _check_device
 from .fused_dense import (CHOL_JITTER, _chol_ops, _chol_solve, _cholesky,
-                          _dot, _masked_free_chol, _odd, _solve_ops, _upper)
+                          _ctrl_tile_floats, _dot, _masked_free_chol, _odd,
+                          _solve_ops, _upper)
 
 # Examples (warps) a block of the chains, as the dense forward.  The gate
 # is the forward's (``fused.dense_gap``), and this card holds it: a lane
 # a row of Q needs n_state + n_ctrl <= 32; at the corners a warp's tiles
 # take 15,104 bytes (24s8c) to 17,136 (31s1c), a block of 4 warps at most
 # 68,544 of the 232,448 a block may use, and the chains 168 registers at
-# 24s8c without spills (chip_smoke.py [build]), the control block's
-# factor in registers bounding n_ctrl <= 8; a gradient block's copy of
-# its chunk is at most 32,256 bytes, under the 49,152 a launch gets
-# without asking.
+# 24s8c without spills (chip_smoke.py [build]); past
+# ``fused_dense.REG_CTRL_MAX`` controls the control block's factor is a
+# tile of the warp's (csrc/box_qp_smem.cuh), 3,248 bytes more at 28
+# controls; a gradient block's copy of its chunk is at most 32,256
+# bytes, under the 49,152 a launch gets without asking.
 K4D_WARPS = 4
 # Examples a block of the gradient pass sums one after the other before
 # the second pass sums the blocks in order; the threads of that block.
@@ -64,13 +66,14 @@ K4D_GRAD_THREADS = 256
 
 def _warp_floats(ns, nc) -> int:
     """The floats of a warp's shared tiles in the chains
-    (csrc/fused_kkt_bwd_dense.cu, oQ to oDl): Q [ntau][odd], W
+    (csrc/fused_kkt_bwd_dense.cu, oQ to oL): Q [ntau][odd], W
     [ns][odd], F [ns][ntau], V [ns][odd], the vectors q, v, tau, dtau,
-    lam and dlam, the gains K and Quu K [nc][ns] and k; padded to a
-    multiple of 4."""
+    lam and dlam, the gains K and Quu K [nc][ns] and k; past
+    ``fused_dense.REG_CTRL_MAX`` controls the factor L [nc][odd]
+    (``fused_dense._ctrl_tile_floats``); padded to a multiple of 4."""
     nt = ns + nc
     n = (nt * _odd(nt) + ns * _odd(nt) + ns * nt + ns * _odd(ns)
-         + 3 * nt + 3 * ns + 2 * nc * ns + nc)
+         + 3 * nt + 3 * ns + 2 * nc * ns + nc + _ctrl_tile_floats(nc, 0))
     return n + -n % 4
 
 

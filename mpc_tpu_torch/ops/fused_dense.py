@@ -59,6 +59,12 @@ from .math import sqrt_rn as _sqrt
 # 4 controls, 16.3 KB at n_state + n_ctrl = 32, so a block of 4 takes
 # 50-65 KB and three or four blocks share an SM.
 DENSE_WARPS = 4
+# The most controls whose control solve runs on register arrays
+# (csrc/box_qp.cuh: the block Quu, its factor and the box QP's vectors,
+# nc^2 + nc (nc + 1) / 2 + 7 nc floats in every lane); past it the solve
+# runs on the warp's tiles (csrc/box_qp_smem.cuh:kRegCtrlMax), the same
+# arithmetic in the same order.
+REG_CTRL_MAX = 8
 
 # The projected-Newton box QP's constants (mpc_tpu/ops/fused.py:70-73):
 # Armijo ratio, step-size decay and count, and the norm of the Newton
@@ -79,13 +85,22 @@ def _odd(n) -> int:
 
 def _warp_floats(ns, nc) -> int:
     """The floats of a warp's shared tiles (csrc/fused_ilqr_dense.cu, oQ
-    to oKk): Q [ntau][odd], W [ns][odd], F [ns][ntau], V [ns][odd],
+    to oQhi): Q [ntau][odd], W [ns][odd], F [ns][ntau], V [ns][odd],
     the vectors tau, q, c, v, dx, the gains K [nc][ns], k [nc] and
-    K^T Quu [nc][ns]; padded to a multiple of 4."""
+    K^T Quu [nc][ns]; past ``REG_CTRL_MAX`` controls the control solve's
+    (``_ctrl_tile_floats``); padded to a multiple of 4."""
     nt = ns + nc
     n = (nt * _odd(nt) + ns * _odd(nt) + ns * nt + ns * _odd(ns)
-         + 3 * nt + 2 * ns + 2 * nc * ns + nc)
+         + 3 * nt + 2 * ns + 2 * nc * ns + nc + _ctrl_tile_floats(nc, 5))
     return n + -n % 4
+
+
+def _ctrl_tile_floats(nc, rows) -> int:
+    """The control solve's tiles past ``REG_CTRL_MAX`` controls
+    (csrc/box_qp_smem.cuh): the factor L [nc][odd] and ``rows`` vectors
+    of nc (the forward's box QP: x, g, dx, lo, hi; the backward none);
+    nothing at fewer controls, whose solve runs on registers."""
+    return nc * _odd(nc) + rows * nc if nc > REG_CTRL_MAX else 0
 
 
 def dense_workspace_floats(T, ns, nc, model=False) -> int:

@@ -100,3 +100,46 @@ def mlp_row(label, B, T=None, hidden=None, seed=0, bounded=True):
                 n_ctrl=nc, T=T, cfg=dict(cfg), x0=x0, C=C, c=c,
                 u_lower=None if box is None else -box,
                 u_upper=None if box is None else box, prev_ctrl=prev)
+
+
+# The rows past 8 controls of the dense configuration.  No public
+# configuration of the repository has more than 4 controls (neither
+# mpc_tpu's tests nor benchmarks/configs.py), so they sit where mpc_tpu's
+# own gate admits its kernels at T=20 (ops/fused.py:supports and
+# fused_bwd.supports_bwd, forward and backward), on the medium-state rows'
+# system (benchmarks/configs.py:107-171: a batch-shared LinDx(F, None)
+# with a stable A and a 0.1 N input block, C = diag(1.., 0.1..), c = 0,
+# lqr_iter=10, eps=0) at their batches and box:
+# (n_state, n_ctrl, B, box half-width or None).  'wide-train' is the
+# medium imitation row's learner (config 4's Adam(1e-2) on a learned
+# batch-shared diagonal cost) at 4 states and 12 controls.
+WIDE_ROWS = {
+    'wide-3s9c': (3, 9, 2048, 1.0),
+    'wide-4s12c': (4, 12, 2048, 1.0),
+    'wide-2s16c': (2, 16, 2048, None),
+    'wide-train': (4, 12, 1024, 1.0),
+}
+WIDE_T = 20
+
+
+def wide_row(label, B=None, T=None, seed=3):
+    """A row of WIDE_ROWS at batch B (T may be cut for a test): a dict of
+    ``n_state``, ``n_ctrl``, ``T``, the MPCConfig fields ``cfg`` (without
+    the sizes), the shared ``F`` [T-1, n_state, n_tau], ``C`` [n_tau,
+    n_tau] and ``c`` [n_tau], the starts ``x0`` [B, n_state] and the
+    bounds ``u_lower``/``u_upper`` (scalars, or None without a box)."""
+    ns, nc, B0, box = WIDE_ROWS[label]
+    B = B or B0
+    T = T or WIDE_T
+    rng = np.random.RandomState(seed)
+    A = np.eye(ns) + 0.01 * rng.randn(ns, ns)
+    A /= max(1.0, np.max(np.abs(np.linalg.eigvals(A))))
+    Bm = 0.1 * rng.randn(ns, nc)
+    F = np.tile(np.concatenate([A, Bm], 1)[None], (T - 1, 1, 1))
+    C = np.diag(np.concatenate([np.ones(ns), 0.1 * np.ones(nc)]))
+    return dict(n_state=ns, n_ctrl=nc, T=T,
+                cfg=dict(lqr_iter=10, eps=0.0, exit_unconverged=False,
+                         detach_unconverged=False),
+                F=F, C=C, c=np.zeros(ns + nc), x0=rng.randn(B, ns),
+                u_lower=None if box is None else -box,
+                u_upper=None if box is None else box)

@@ -356,7 +356,8 @@ def test_scope_gap_bwd():
     assert 'float64' in fused_bwd.scope_gap_bwd(10, dtype=torch.float64,
                                                 device=cuda)
     assert 'slew' in fused_bwd.scope_gap_bwd(10, slew=True)
-    assert 'ROADMAP' in fused_bwd.scope_gap_bwd(10, n_ctrl=2, n_state=31)
+    gap = fused_bwd.scope_gap_bwd(10, n_ctrl=2, n_state=31)
+    assert 'n_state + n_ctrl = 33' in gap and 'jnp path' in gap
     assert fused_bwd.T_MAX_BWD >= fused.T_MAX    # every K1 horizon
 
 

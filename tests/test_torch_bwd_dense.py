@@ -131,9 +131,12 @@ def _assert_rel(ref, got, tol, has_f=True):
 
 
 # (ns, nc, T, bounds, f): 4s2c box, 5s1c box with f, TVLQR's size
-# unbounded with f, 6s2c box with f
+# unbounded with f, 6s2c box with f; past 8 controls (the factor on the
+# warp's tiles in the kernel) 4s12c with the active set and without it
 SIZES = {'4s2c': (4, 2, 5, True, False), '5s1c': (5, 1, 9, True, True),
-         '3s4c': (3, 4, 2, False, True), '6s2c': (6, 2, 7, True, True)}
+         '3s4c': (3, 4, 2, False, True), '6s2c': (6, 2, 7, True, True),
+         '4s12c': (4, 12, 3, True, False),
+         '4s12c_free': (4, 12, 3, False, True)}
 
 
 @pytest.mark.parametrize('dyn_shared', [True, False],
@@ -393,15 +396,15 @@ def test_bwd_routes_dense(ns, nc, dense):
 
 @pytest.mark.parametrize('ns,nc,what', [
     (29, 4, 'n_state + n_ctrl = 33'), (31, 2, 'n_state + n_ctrl = 33'),
-    (20, 9, 'n_ctrl = 9')])
+    (24, 9, 'n_state + n_ctrl = 33')])
 def test_dense_gate_corners_refuse(ns, nc, what):
-    """Past the gate (32 taus: a warp an example; 8 controls: the factor
-    in registers) the backward takes the eager fixed point, naming what
-    waits; float64 on the card and a slew penalty stay eager at every
-    size, as in mpc_tpu."""
+    """Past the gate (32 taus: a warp an example, at any n_ctrl) the
+    backward takes the eager fixed point, as mpc_tpu takes its jnp path;
+    float64 on the card and a slew penalty stay eager at every size, as in
+    mpc_tpu."""
     gap = fused_bwd.scope_gap_bwd(20, nc, n_state=ns)
-    assert what in gap and 'ROADMAP queue 2' in gap
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
+    assert what in gap and 'jnp path' in gap and 'ROADMAP' not in gap
+    with pytest.raises(NotImplementedError, match='eager fixed point'):
         fused_bwd.make_batched_fixed_point(ns, True, False, nc)
     assert 'float64' in fused_bwd.scope_gap_bwd(
         20, 4, torch.float64, torch.device('cuda'), 20)
@@ -455,11 +458,12 @@ def test_k4d_bound_counts():
 def test_k4d_op_opcheck():
     """The op's CPU and fake versions agree on shapes, and its schema
     holds (torch.library.opcheck), with and without f, shared and batched
-    leaves."""
-    for cost_shared, dyn_shared, has_f in ((True, True, False),
-                                           (False, False, True),
-                                           (True, False, True)):
-        p = _problem(4, 2, 4, 3, cost_shared, dyn_shared, True, seed=1)
+    leaves, at 2 controls and at 9."""
+    for nc, cost_shared, dyn_shared, has_f in ((2, True, True, False),
+                                               (2, False, False, True),
+                                               (2, True, False, True),
+                                               (9, False, True, True)):
+        p = _problem(4, nc, 4, 3, cost_shared, dyn_shared, True, seed=1)
         t = {k: torch.tensor(v, dtype=torch.float32) for k, v in p.items()}
         C = t['C'] if t['C'].dim() == 4 else t['C'].unsqueeze(1)
         c = t['c'] if t['c'].dim() == 3 else t['c'].unsqueeze(1)

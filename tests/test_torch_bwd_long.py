@@ -342,16 +342,18 @@ def test_mpc_gradients_reach_shared_F_and_f():
     (160, True, True), (2000, False, True)])
 def test_bwd_routes_long(T, dyn_shared, long_route):
     """One predicate says which backward kernel runs; no horizon is out of
-    scope (n_ctrl > 1 takes the dense configuration at every T), and what
-    waits names its ROADMAP item; float64 on the card and a slew penalty
-    stay on the eager fixed point."""
+    scope (n_ctrl > 1 takes the dense configuration at every T), and a
+    size past the dense gate says it takes the eager fixed point, as
+    mpc_tpu's jnp path; float64 on the card and a slew penalty stay on the
+    eager fixed point."""
     assert fused_bwd.bwd_routes_long(T, dyn_shared) is long_route
     assert fused_bwd.supports_bwd(T)
     assert fused_bwd.scope_gap_bwd(T, dtype=torch.float32,
                                    device=torch.device('cuda')) is None
     assert fused_bwd.scope_gap_bwd(T, n_ctrl=2) is None
     assert fused_bwd.bwd_routes_dense(3, 2)
-    assert 'ROADMAP' in fused_bwd.scope_gap_bwd(T, n_ctrl=2, n_state=31)
+    gap = fused_bwd.scope_gap_bwd(T, n_ctrl=2, n_state=31)
+    assert 'n_state + n_ctrl = 33' in gap and 'jnp path' in gap
     assert 'slew' in fused_bwd.scope_gap_bwd(T, slew=True)
     assert 'float64' in fused_bwd.scope_gap_bwd(
         T, dtype=torch.float64, device=torch.device('cuda'))

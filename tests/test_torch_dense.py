@@ -50,11 +50,12 @@ from mpc_tpu.ops import fused as jfused
 
 import mpc_tpu_torch as mt
 from mpc_tpu_torch import solver
-from mpc_tpu_torch.ops import fused, fused_bwd, fused_dense as fd
+from mpc_tpu_torch.ops import fused, fused_bwd, fused_bwd_dense, fused_dense as fd
 from mpc_tpu_torch.utils import export as ex
 from mpc_tpu_torch.utils.convert import (lin_dx_from_numpy,
                                          quad_cost_from_numpy,
                                          solution_to_numpy)
+from mpc_tpu_torch.utils.problems import wide_row
 
 TOL = 1e-8
 GRAD_TOL = 1e-7
@@ -127,20 +128,61 @@ CASES = {
     # bounds [T, B, nc] and a shared u_init
     'mixed_6s3c': (6, 3, 5, 7, dict(F_batched=True, c_batched=True,
                                     f='shared'), 'mixed'),
+    # past 8 controls: the control solve on the warp's tiles
+    # (csrc/box_qp_smem.cuh), the plain version unchanged
+    'box_3s9c': (3, 9, 5, 6, dict(), BOX),
+    'box_4s12c_batched_C': (4, 12, 4, 4, dict(C_batched=True), BOX),
+    'free_2s16c': (2, 16, 4, 4, dict(), {}),
+    # a batched u_zero_I [T, B, nc] and the trust region delta_u
+    'uz_delta_3s9c': (3, 9, 4, 5, dict(), 'uz_delta'),
 }
+# MPCConfig fields of a case beyond ``_cfg``'s.  box_4s12c_batched_C stops
+# after two iterations: from the third on its box QP's trip counts part
+# from the jnp path's at a round-off tie (a free set decided on a gradient
+# zero at a bound; the jnp path adds 1e-11 to the masked block, the kernel
+# route does not), as tests/test_torch_uzero.py cuts hw_sweep's delta_u
+# row; measured at lqr_iter=6: n_qp_iter 37 against 34 in one example and
+# u 1.4e-8 apart relative, 3.1e-12 at 2 iterations.
+CASE_CFG = {'box_4s12c_batched_C': dict(lqr_iter=2)}
+
+
+@pytest.mark.parametrize('label', ['wide-3s9c', 'wide-4s12c', 'wide-2s16c'])
+def test_wide_rows_match_jnp_path_f64(label):
+    """The card's rows past 8 controls (utils/problems.WIDE_ROWS, which
+    chip_smoke.py drives at T=20, B=2048) cut to T=4, B=3: the kernel
+    route's plain version against the jnp path, float64."""
+    r = wide_row(label, B=3, T=4)
+    ns, nc, T = r['n_state'], r['n_ctrl'], r['T']
+    cfg = _cfg(T, ns, nc, **r['cfg'])
+    bk = {} if r['u_lower'] is None else dict(u_lower=r['u_lower'],
+                                              u_upper=r['u_upper'])
+    ref = _jax_solve(cfg, r['F'], None, r['C'], r['c'], r['x0'], **bk)
+    solver.reset_eager_counts()
+    got = solution_to_numpy(_port_solve(cfg, r['F'], None, r['C'], r['c'],
+                                        r['x0'], **bk))
+    assert solver.eager_counts['eager_solve'] == 0
+    for name in ('x', 'u', 'costs'):
+        _rel(getattr(got, name), getattr(ref, name), TOL, name)
+    for name in ('n_iter', 'n_qp_iter'):
+        np.testing.assert_array_equal(getattr(got, name),
+                                      np.asarray(getattr(ref, name)), name)
 
 
 @pytest.mark.parametrize('case', list(CASES))
 def test_plain_matches_jnp_path_f64(case):
     ns, nc, T, B, pkw, bk = CASES[case]
     F, f, C, c, x0 = _problem(T, B, ns, nc, seed=len(case), **pkw)
-    cfg = _cfg(T, ns, nc)
-    kw = dict(bk) if bk != 'mixed' else {}
+    cfg = _cfg(T, ns, nc, **CASE_CFG.get(case, {}))
+    kw = dict(bk) if isinstance(bk, dict) else {}
     if bk == 'mixed':
         rng = np.random.RandomState(3)
         kw = dict(u_lower=-0.3 - rng.rand(T, B, nc),
                   u_upper=0.3 + rng.rand(T, B, nc),
                   u_init=0.1 * rng.randn(T, nc))
+    elif bk == 'uz_delta':
+        rng = np.random.RandomState(4)
+        cfg = _cfg(T, ns, nc, delta_u=0.3)
+        kw = dict(BOX, u_zero_I=(rng.rand(T, B, nc) < 0.3).astype(float))
     ref = _jax_solve(cfg, F, f, C, c, x0, **kw)
     assert fused.routes_dense(mt.LinDx(F, f), ns, nc)
     solver.reset_eager_counts()
@@ -245,7 +287,7 @@ def _lists(A):
             for i in range(A.shape[1])]
 
 
-@pytest.mark.parametrize('n', [2, 4, 8])
+@pytest.mark.parametrize('n', [2, 4, 8, 9, 16, 28])
 def test_cholesky_and_solve_match_jax_kernel(n):
     rng = np.random.RandomState(n)
     A, b = _spd(rng, n, 6), rng.randn(6, n)
@@ -272,7 +314,7 @@ def test_cholesky_and_solve_match_jax_kernel(n):
     np.testing.assert_allclose(np.einsum('bij,bj->bi', A, x), b, atol=1e-8)
 
 
-@pytest.mark.parametrize('n', [2, 3, 4])
+@pytest.mark.parametrize('n', [2, 3, 4, 9, 16])
 @pytest.mark.parametrize('n_iter', [1, 3, 20])
 def test_pnqp_matches_jax_kernel(n, n_iter):
     """The projected-Newton box QP: x, the last trip's factor and free
@@ -325,7 +367,7 @@ def test_lane_sum_is_the_warp_butterfly(n):
 # gradients, slew
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize('ns,nc', [(5, 1), (4, 2)])
+@pytest.mark.parametrize('ns,nc', [(5, 1), (4, 2), (3, 9)])
 def test_gradients_through_dense_forward_match_jax(ns, nc):
     """The dense forward and the dense backward (their plain versions
     here; no eager fixed point): gradients to C, c, F, f and x_init
@@ -365,7 +407,7 @@ def test_scope_gap_bwd_judges_n_state():
     the dense gate takes their dense configuration, whose fixed point
     make_batched_fixed_point builds.  What still refuses, and takes the
     eager fixed point: float64 on the card, a slew penalty, and
-    n_state + n_ctrl > 32, which names its ROADMAP item."""
+    n_state + n_ctrl > 32, as mpc_tpu's jnp path."""
     cuda = torch.device('cuda')
     assert fused_bwd.scope_gap_bwd(10) is None
     assert fused_bwd.scope_gap_bwd(10, 1, n_state=5) is None
@@ -377,16 +419,17 @@ def test_scope_gap_bwd_judges_n_state():
                                                 5)
     assert 'slew' in fused_bwd.scope_gap_bwd(10, 1, n_state=5, slew=True)
     gap = fused_bwd.scope_gap_bwd(10, 1, n_state=32)
-    assert 'n_state + n_ctrl = 33' in gap and 'ROADMAP' in gap
+    assert 'n_state + n_ctrl = 33' in gap and 'jnp path' in gap
     with pytest.raises(NotImplementedError):
         fused_bwd.make_batched_fixed_point(32, True, False)
 
 
-@pytest.mark.parametrize('ns,nc', [(3, 1), (2, 2)])
+@pytest.mark.parametrize('ns,nc', [(3, 1), (2, 2), (2, 9)])
 def test_slew_lindx_reaches_dense_and_matches_jax(ns, nc):
     """A slew penalty augments the state with the previous control: a
-    3-state, 1-control LinDx becomes 4 states and a 2-state, 2-control
-    one 4 states and 2 controls, both in the dense configuration; the
+    3-state, 1-control LinDx becomes 4 states, a 2-state, 2-control one 4
+    states and 2 controls and a 2-state, 9-control one 11 states and 9
+    controls, all in the dense configuration; the
     solve matches mpc_tpu's slew solve (jnp path) in float64."""
     T, B = 6, 5
     F, f, C, c, x0 = _problem(T, B, ns, nc, seed=20 + ns, f='shared')
@@ -418,7 +461,10 @@ def _lin(ns, nc, T=5):
 # the JAX package's rows (benchmarks/configs.py:49-171) and the cartpole's
 # size: (n_state, n_ctrl, B)
 JAX_ROWS = [(3, 4, 128), (16, 4, 2048), (19, 4, 1024), (19, 4, 2048),
-            (24, 4, 1024), (24, 4, 2048), (5, 1, 512)]
+            (24, 4, 1024), (24, 4, 2048), (5, 1, 512),
+            # past 8 controls, where mpc_tpu's own gate admits its kernels
+            # at T=20 (utils/problems.WIDE_ROWS)
+            (3, 9, 2048), (4, 12, 2048), (2, 16, 2048)]
 
 
 @pytest.mark.parametrize('ns,nc,B', JAX_ROWS)
@@ -436,7 +482,8 @@ def test_gate_admits_the_jax_rows(ns, nc, B):
 
 GATE_REFUSALS = {
     'ntau_33': (31, 2, 'n_state + n_ctrl = 33'),
-    'n_ctrl_9': (2, 9, 'n_ctrl = 9'),
+    # past 8 controls the gate is the warp's lanes alone: 24s9c is 33
+    'n_ctrl_9': (24, 9, 'n_state + n_ctrl = 33'),
 }
 
 
@@ -446,7 +493,8 @@ def test_gate_refuses_past_its_limits(case):
     cfg = mt.MPCConfig(n_state=ns, n_ctrl=nc, T=5)
     cost = mt.QuadCost(torch.eye(ns + nc), torch.zeros(ns + nc))
     gap = fused.scope_gap(cfg, cost, _lin(ns, nc))
-    assert needle in gap and 'ROADMAP queue 2' in gap and 'eager' in gap
+    assert needle in gap and 'jnp path' in gap and 'eager' in gap
+    assert 'ROADMAP' not in gap
     # 'always' raises, 'auto' solves eagerly
     x0 = torch.zeros(2, ns, dtype=torch.float64)
     cost64 = mt.QuadCost(torch.eye(ns + nc, dtype=torch.float64),
@@ -465,15 +513,18 @@ def test_gate_refuses_past_its_limits(case):
 
 
 def test_gate_limits_fit_the_card():
-    """Every admitted size fits a block's shared memory; the limits sit
-    at the warp's 32 lanes and at 8 controls."""
-    assert fused.DENSE_MAX_TAU == 32 and fused.DENSE_MAX_CTRL == 8
+    """Every admitted size fits a block's shared memory, forward and
+    backward, at every n_ctrl up to nt - 1; the limit sits at the warp's
+    32 lanes alone, so 24s9c (33 taus) is refused."""
+    assert fused.DENSE_MAX_TAU == 32 and not hasattr(fused, 'DENSE_MAX_CTRL')
     for nt in range(2, 33):
-        for nc in range(1, min(nt - 1, fused.DENSE_MAX_CTRL) + 1):
+        for nc in range(1, nt):
             assert fd.k3d_launch(1, 1, nt - nc, nc, 1)['smem_bytes'] \
                 <= fused.SMEM_LIMIT
+            assert fused_bwd_dense.k4d_launch(1, 1, nt - nc, nc)[
+                'smem_bytes'] <= fused.SMEM_LIMIT
             assert fused.dense_gap(nt - nc, nc) is None
-    assert fused.dense_gap(24, 9) is not None
+    assert 'n_state + n_ctrl = 33' in fused.dense_gap(24, 9)
     assert fused.dense_gap(30, 3) is not None
 
 
@@ -483,6 +534,8 @@ ROUTES = {
     'lindx_5s1c': (lambda: _lin(5, 1), 5, 1, True),
     'lindx_3s4c': (lambda: _lin(3, 4), 3, 4, True),
     'lindx_2s1c': (lambda: _lin(2, 1), 2, 1, True),
+    'lindx_3s9c': (lambda: _lin(3, 9), 3, 9, True),
+    'lindx_2s16c': (lambda: _lin(2, 16), 2, 16, True),
     'pendulum': (lambda: mt.models.PendulumDx(device='cpu'), 3, 1, False),
 }
 
@@ -530,6 +583,25 @@ def test_warp_tiles_at_24_states():
         'MPC_WARPS': 4}
 
 
+def test_warp_tiles_past_8_controls():
+    """Past ``REG_CTRL_MAX`` controls (csrc/box_qp_smem.cuh:kRegCtrlMax,
+    the same number) a warp's tiles add the control solve's: the factor
+    [nc][odd] and the box QP's five rows in the forward, the factor in
+    the backward; at 4 states and 28 controls 2,644 and 2,508 floats
+    (1,692 and 1,696 without them), a block of four 42,304 and 40,128
+    bytes.  At 8 controls nothing is added."""
+    src = (fd.__file__.rsplit('/ops/', 1)[0] + '/csrc/box_qp_smem.cuh')
+    m = re.search(r'constexpr int kRegCtrlMax = (\d+);', open(src).read())
+    assert int(m.group(1)) == fd.REG_CTRL_MAX == 8
+    assert fd._warp_floats(4, 28) == 1692 + 28 * 29 + 5 * 28 == 2644
+    assert fused_bwd_dense._warp_floats(4, 28) == 1696 + 28 * 29 == 2508
+    assert fd.k3d_launch(20, 2048, 4, 28, 10)['smem_bytes'] == 42304
+    assert fused_bwd_dense.k4d_launch(20, 1024, 4, 28)['smem_bytes'] \
+        == 40128
+    assert fd._ctrl_tile_floats(8, 5) == 0
+    assert fd._ctrl_tile_floats(9, 5) == 9 * 9 + 5 * 9
+
+
 def test_k3d_bound_counts():
     """The work grows with the iterations, trials and QP trips that ran;
     shared operands count once; the medium-state row is bound by
@@ -565,7 +637,7 @@ def _op_args(rng, T, B, ns, nc, bounds, f):
             lb, None if lb is None else -lb)
 
 
-@pytest.mark.parametrize('nc', [1, 3])
+@pytest.mark.parametrize('nc', [1, 3, 9])
 @pytest.mark.parametrize('bounds', [True, False])
 @pytest.mark.parametrize('f', [True, False])
 def test_opcheck_k3d(nc, bounds, f):

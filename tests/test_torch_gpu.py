@@ -48,8 +48,11 @@ admitted size) is held to its plain version in the same float32 tail and
 no further from the float64 plain run than twice the plain float32 run,
 at config 1's layout (every operand per example, unbounded), at 24 and 28
 states with 4 bounded controls, at 5 states and 1 control and at 2
-states and 2 controls with per-example bounds and f; on the reversed
-batch, small batches and a second launch bitwise; the entry points
+states and 2 controls with per-example bounds and f, and past 8 controls
+(the control solve on the warp's tiles) at 3s9c and 23s9c with the box
+and 2s16c without, and at the gate's corners 1s31c and 4s28c (T=3); on
+the reversed batch, small batches and a second launch bitwise (at 16s4c
+and at 3s9c); the entry points
 launch it once a request, a differentiable solve runs it and the dense
 backward, and with its library broken a request raises instead of
 falling back.
@@ -58,7 +61,8 @@ K2 and K4's dense configuration (csrc/fused_kkt_bwd_dense.cu, the
 backward at any other admitted size) is held as K2 is, at the medium
 rows' sizes, 16 states and 4 controls with every leaf per example and f,
 TVLQR's size without an active set, 5 states and 1 control, the gate's
-corners and a long horizon; per-example outputs are bitwise whatever
+corners, a long horizon, 4s12c with and without the active set and the
+corners past 8 controls (1s31c, 4s28c); per-example outputs are bitwise whatever
 batch an example sits in and every output at a second launch; a
 differentiable solve launches the dense forward and backward once each,
 float64 on the card takes the eager fixed point, and with its library
@@ -881,7 +885,10 @@ def _dense_problem(device, B, ns, nc, T=20, bounded=True, layout='shared',
 @pytest.mark.parametrize('ns,nc,B,bounded,layout', [
     (3, 4, 128, False, 'tvlqr'), (24, 4, 256, True, 'shared'),
     (28, 4, 64, True, 'shared'), (5, 1, 2050, True, 'shared'),
-    (2, 2, 300, True, 'mixed')])
+    (2, 2, 300, True, 'mixed'),
+    # past 8 controls: the control solve on the warp's tiles
+    (3, 9, 256, True, 'shared'), (2, 16, 256, False, 'shared'),
+    (23, 9, 64, True, 'shared')])
 def test_dense_matches_plain(cuda, ns, nc, B, bounded, layout):
     cfg, x0, cost, dyn, bk = _dense_problem(cuda, B, ns, nc, bounded=bounded,
                                             layout=layout)
@@ -905,6 +912,51 @@ def test_dense_position_free_and_repeatable(cuda):
     in (reversed, alone, in small batches, past a block) and at a second
     launch."""
     cfg, x0, cost, dyn, bk = _dense_problem(cuda, 2050, 16, 4)
+    ops = fused_dense.k3d_operands(cfg, x0, cost, dyn, **bk)
+    full = fused_dense.fused_ilqr_dense(**ops)
+    again = fused_dense.fused_ilqr_dense(**ops)
+    assert all(torch.equal(a, b) for a, b in zip(full, again))
+    rev = fused_dense.fused_ilqr_dense(**dict(
+        ops, x0=ops['x0'].flip(0).contiguous(),
+        u0=ops['u0'].flip(1).contiguous()))
+    assert all(torch.equal(a.flip(1), b) for a, b in zip(rev, full))
+    for n in (1, 7, 33):
+        part = fused_dense.fused_ilqr_dense(**dict(
+            ops, x0=ops['x0'][:n].contiguous(),
+            u0=ops['u0'][:, :n].contiguous()))
+        assert all(torch.equal(a, b[:, :n]) for a, b in zip(part, full))
+
+
+@pytest.mark.parametrize('ns,nc,bounded', [(1, 31, True), (4, 28, True),
+                                            (1, 31, False)])
+def test_dense_gate_corners_match_plain(cuda, ns, nc, bounded):
+    """The gate's corners past 8 controls (n_state + n_ctrl = 32) against
+    the plain version at T=3, two iterations (its box QP at 28-31
+    controls is thousands of small kernels a trip): the float32 tail, n_iter
+    equal, and no further from the float64 plain run than twice the plain
+    float32 run."""
+    cfg, x0, cost, dyn, bk = _dense_problem(cuda, 33, ns, nc, T=3,
+                                            bounded=bounded)
+    cfg = dataclasses.replace(cfg, lqr_iter=2)
+    ops = fused_dense.k3d_operands(cfg, x0, cost, dyn, **bk)
+    xk, uk, sk = fused_dense.fused_ilqr_dense(**ops)
+    xp, up, sp = fused_dense.fused_solve_dense_plain(**ops)
+    assert torch.isfinite(xk).all() and torch.isfinite(uk).all()
+    _assert_tail(uk, up)
+    assert torch.equal(sk[2], sp[2])
+    cfg64, x64, cost64, dyn64, bk64 = _dense_problem(
+        cuda, 33, ns, nc, T=3, bounded=bounded, dtype=torch.float64)
+    _, u64, _ = fused_dense.fused_solve_dense_plain(
+        **fused_dense.k3d_operands(dataclasses.replace(cfg64, lqr_iter=2),
+                                   x64, cost64, dyn64, **bk64))
+    _assert_near_f64(uk, up, u64)
+
+
+def test_wide_dense_position_free_and_repeatable(cuda):
+    """Past 8 controls too (the box QP on the warp's tiles): an example's
+    outputs are bitwise the same reversed, alone, in small batches and at
+    a second launch."""
+    cfg, x0, cost, dyn, bk = _dense_problem(cuda, 2050, 3, 9)
     ops = fused_dense.k3d_operands(cfg, x0, cost, dyn, **bk)
     full = fused_dense.fused_ilqr_dense(**ops)
     again = fused_dense.fused_ilqr_dense(**ops)
@@ -1009,7 +1061,13 @@ def _bwd_dense_problem(device, ns, nc, T, B, cost_shared, dyn_shared,
     (5, 1, 20, 2050, True, False, True, False),
     (28, 4, 7, 100, False, True, True, True),
     (24, 8, 7, 100, True, False, True, False),
-    (2, 2, 200, 70, True, True, True, True)])
+    (2, 2, 200, 70, True, True, True, True),
+    # past 8 controls: the factor on the warp's tiles, and the gate's
+    # corners
+    (4, 12, 20, 1024, True, True, True, False),
+    (4, 12, 20, 256, False, False, False, True),
+    (1, 31, 4, 64, True, False, True, True),
+    (4, 28, 4, 64, False, True, False, False)])
 def test_bwd_dense_matches_plain(cuda, ns, nc, T, B, cost_shared, dyn_shared,
                                  has_I, has_f):
     """Every gradient within 1e-4 of the plain version relative to its

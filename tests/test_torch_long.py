@@ -324,33 +324,36 @@ def test_routes_long(case):
 
 SCOPE_GAPS = {
     'lindx_bad_F_rank': (dict(), lambda: mt.LinDx(torch.zeros(4, 3)), {},
-                         'K3 configurations'),
+                         ('ROADMAP', 'K3 configurations')),
     'lindx_bad_f_rank': (dict(), lambda: mt.LinDx(torch.zeros(4, 3, 4),
                                                   torch.zeros(4)), {},
-                         'K3 configurations'),
+                         ('ROADMAP', 'K3 configurations')),
     # two controls past the dense configuration's 32 lanes (n_state +
     # n_ctrl = 33); at smaller sizes the dense configuration takes them
     'lindx_n_ctrl_2': (dict(n_state=31, n_ctrl=2),
                        lambda: mt.LinDx(torch.zeros(4, 31, 33)), {},
-                       'queue 2'),
+                       ('n_state + n_ctrl = 33', 'jnp path')),
     'lindx_f64_on_card': (dict(), _lin, dict(dtype=torch.float64,
                                              device=torch.device('cuda')),
-                          'float64'),
+                          ('ROADMAP', 'float64')),
     # the augmented state is u_{t-1} and the 31 states: 32, with the
     # control 33, past the dense configuration's 32 (a 3-state LinDx
     # augments to 4 states, which it takes)
     'lindx_slew': (dict(n_state=31, slew_rate_penalty=0.1),
-                   lambda: mt.LinDx(torch.zeros(4, 31, 32)), {}, 'queue 2'),
+                   lambda: mt.LinDx(torch.zeros(4, 31, 32)), {},
+                   ('n_state + n_ctrl = 33', 'jnp path')),
 }
 
 
 @pytest.mark.parametrize('case', list(SCOPE_GAPS))
 def test_scope_gap_names_what_waits(case):
-    cfg_kw, make, kw, needle = SCOPE_GAPS[case]
+    """Each refusal names its ROADMAP item where one waits, and past the
+    dense gate (33 taus) the eager solver as mpc_tpu's jnp path."""
+    cfg_kw, make, kw, needles = SCOPE_GAPS[case]
     cfg = mt.MPCConfig(**dict(dict(n_state=3, n_ctrl=1, T=5), **cfg_kw))
     cost = quad_cost_from_numpy(np.eye(4), np.zeros(4), 'cpu')
     gap = fused.scope_gap(cfg, cost, make(), **kw)
-    assert gap is not None and 'ROADMAP' in gap and needle in gap, gap
+    assert gap is not None and all(n in gap for n in needles), gap
     assert not fused.supports(cfg, cost, make(), **kw)
 
 

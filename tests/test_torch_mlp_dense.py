@@ -233,6 +233,8 @@ SOLVES = [
      SOLVE_TOL),
     ('slew 0.5 2s2c', lambda: _custom(2, 2, (10, 6), 6, 5, slew=0.5,
                                       act='relu'), SOLVE_TOL_PNQP),
+    # past 8 controls: the box QP on the warp's tiles in the kernel
+    ('2s9c H=32', lambda: _custom(2, 9, (32,), 6, 5), SOLVE_TOL_PNQP),
 ]
 
 
