@@ -174,8 +174,8 @@ bench_nn_dynamics as the reference point ([time-mlp]); gradients of the
 and one dense backward against the eager fixed point ([grad-mlp]).
 
 More than 8 controls in both dense kernels (csrc/box_qp_smem.cuh: the
-control block's factor and the box QP on the warp's tiles in shared
-memory), at the rows of mpc_tpu_torch/utils/problems.WIDE_ROWS (the
+control block's factor, its solves and the box QP across the warp's
+lanes), at the rows of mpc_tpu_torch/utils/problems.WIDE_ROWS (the
 medium rows' system at 3s9c and 4s12c with box +-1 and at 2s16c
 unbounded, T=20, B=2048; the 4s12c learner at B=1024): the gate's
 corners (1s9c, 1s31c, 4s28c, 23s9c; with bounds, with f, with the mask;
@@ -190,6 +190,16 @@ its bound ([time-dense]); the backward at 4s12c same-primal against its
 plain version ([compare-bwd-dense]) and timed ([time-bwd-dense]); the
 learner's 20 steps, one dense forward and one dense backward a step, the
 loss falling ([train-dense]).
+
+The phase account of both dense kernels ([phases-dense]; alone:
+python3 chip_smoke.py --phases-dense [ROW ...]): each kernel's clocked
+build (MPC_PHASE_CLOCKS, csrc/phase_clock.cuh) at the forward's 24s4c,
+5s1c, wide-4s12c, wide-2s16c (B=2048), config 3 (B=512) and mlp-deep
+(B=2048) and the backward's 20s4c and 4s12c (B=1024): each phase's share
+of a warp's cycles (the Jacobian pass, staging a step's operands, W, Q,
+the control solve's factor, QP trips and gains, the cost-to-go, the
+trial rollouts), the backward's gradient pass and chunk-order sums by
+CUDA events.
 
 The kernels are torch.library ops (mpc_tpu_torch/ops/custom.py), so the
 port's artifacts and scale-out run on the card too, each against the live
@@ -207,7 +217,7 @@ the unsharded one ([train-sharded]) and over two gloo processes on the
 card ([pod]); a run resumed from a checkpoint in a fresh process,
 bitwise ([checkpoint]).  The worker processes are this script with
 --serve-worker, --pod-worker, --resume-worker, --uz-worker,
---mlp-worker, --wide-worker or --corner-worker.
+--mlp-worker, --wide-worker, --corner-worker or --wide-train-worker.
 
 It prints one JSON line of kernel numbers, one of the artifact and
 scale-out times, one of the eager phases, the card's name and power
@@ -288,8 +298,35 @@ LEARN_LONG_ITER, LEARN_LONG_STEPS, LEARN_LONG_MAX_RATIO = 16, 20, 0.5
 PEAK_F32, PEAK_BYTES = 67e12, 3.35e12
 
 
+# (time, phase tag) of each line logged, for [timeline]
+_LOGGED = [(time.perf_counter(), None, '')]
+
+
 def log(*a):
     print(*a, flush=True)
+    text = ' '.join(map(str, a))
+    end = text.find(']')
+    _LOGGED.append((time.perf_counter(),
+                    text[:end + 1] if text.startswith('[') and 0 < end < 40
+                    else None, text[:60]))
+
+
+def timeline():
+    """Seconds by phase tag: each gap between two logged lines goes to the
+    tag of the line that ends it, or to the last tag before an untagged
+    (indented) line.  Sorted, the largest first."""
+    secs, tag = {}, '[start]'
+    for (t0, *_), (t1, t, _) in zip(_LOGGED, _LOGGED[1:]):
+        tag = t or tag
+        secs[tag] = secs.get(tag, 0.0) + t1 - t0
+    return sorted(secs.items(), key=lambda kv: -kv[1])
+
+
+def longest_waits(k=12):
+    """The ``k`` longest gaps between two logged lines: (seconds, the
+    start of the line that ended the gap)."""
+    return sorted(((b[0] - a[0], b[2]) for a, b in zip(_LOGGED, _LOGGED[1:])),
+                  reverse=True)[:k]
 
 
 def card_line():
@@ -334,7 +371,20 @@ def check_tail(what, u, ref, limits=(TAIL_MEAN, TAIL_SHARE)):
     return mx
 
 
-def phase_build():
+DENSE_KERNELS = ('fused_ilqr_dense', 'fused_kkt_bwd_dense')
+# nvcc processes at once beside the phases before [compare-dense]: all 8
+# cores building (at the lowest priority) slowed those phases by a third
+# on the H100's host; four build the rest within them
+BACKGROUND_BUILDS = 4
+
+
+def phase_build(background=False):
+    """Build every kernel the phases run, one nvcc for each build, all
+    started together, and report registers and spills.  Where
+    ``background``, only the builds of the phases before [compare-dense]
+    are waited for here: the others run at the lowest priority beside
+    those phases, and ``phase_build_report`` waits for them and then
+    reports."""
     from mpc_tpu_torch.ops import (_build, fused, fused_bwd, fused_bwd_dense,
                                    fused_dense)
     specs = [('fused_ilqr', fused.kernel_defines(T, True)),
@@ -400,12 +450,38 @@ def phase_build():
     specs += [s for s in mlp_build_specs() if s not in specs]
     # past 8 controls: each WIDE_CASES case's build, the wide backward and
     # the gate's corners (1s9c, 1s31c, 4s28c, 23s9c), whose registers and
-    # spills below stand for the control solve on the warp's tiles
+    # spills below stand for the control solve across the warp's lanes
     specs += [s for s in wide_build_specs() if s not in specs]
+    # the phase account's clocked builds ([phases-dense])
+    specs += [s for s in phases_build_specs() if s not in specs]
     t0 = time.perf_counter()
-    paths = _build.build(specs)
-    log(f'[build] nvcc {" ".join(_build.NVCC_FLAGS)} '
-        f'({time.perf_counter() - t0:.1f} s)')
+    if not background:
+        return phase_build_report((specs, _build.start(specs), t0))
+    # the phases before [compare-dense] run only the builds listed before
+    # the first dense one
+    cut = next(i for i, s in enumerate(specs) if s[0] in DENSE_KERNELS)
+    _build.build(specs[:cut])
+    log(f'[build] nvcc {" ".join(_build.NVCC_FLAGS)}: {cut} builds of K1-K4 '
+        f'for the phases before [compare-dense] '
+        f'({time.perf_counter() - t0:.1f} s); the other {len(specs) - cut} '
+        f'go on beside those phases, {BACKGROUND_BUILDS} at a time')
+    return specs, _build.start(specs[cut:], niceness=19,
+                               jobs=BACKGROUND_BUILDS), t0
+
+
+def phase_build_report(started):
+    """Wait for ``phase_build``'s builds, then report each library's
+    registers, spills and stack and the launch geometry of each shape
+    the phases drive."""
+    from mpc_tpu_torch.ops import (_build, fused, fused_bwd, fused_bwd_dense,
+                                   fused_dense)
+    specs, builds, t0 = started
+    t1 = time.perf_counter()
+    _build.finish(builds)
+    log(f'[build] nvcc {" ".join(_build.NVCC_FLAGS)}: {len(specs)} builds, '
+        f'{time.perf_counter() - t0:.1f} s from the first; waited '
+        f'{time.perf_counter() - t1:.1f} s here')
+    paths = [_build._library_path(n, d) for n, d in specs]
     for (name, defines), path in zip(specs, paths):
         log(f'  {os.path.relpath(path, HERE)} {defines}')
         for line in _build.ptxas_report(name, defines).splitlines():
@@ -2485,20 +2561,19 @@ def phase_eager_medium(torch, device, records):
     def solve(x, c=cost, d=dyn, dev=device):
         return mt.batched_solve(cfg, x, c, d, **dict(kw, device=dev))
 
-    # timed once each, the batch and the reversed batch (host-bound)
+    # timed once (host-bound, ten seconds a solve)
     (runs, ms), n_eager = eager_counted(torch, lambda: timed(
         torch, device, lambda: solve(x0), 1))
     sol = runs[-1]
-    rev, ms_rev = timed(torch, device, lambda: solve(x0.flip(0)), 1)
-    ms = 0.5 * (ms + ms_rev)
-    same_bits('reversed batch', torch, [
-        (rev[0].u.flip(1), sol.u), (rev[0].x.flip(1), sol.x),
-        (rev[0].n_iter.flip(0), sol.n_iter),
-        (rev[0].n_qp_iter.flip(0), sol.n_qp_iter)])
-    # slices alone against the same examples inside the batch, at three
-    # iterations (the per-example arithmetic of all ten)
+    # the reversed batch and slices alone against the same examples inside
+    # the batch, at three iterations (the per-example arithmetic of all ten)
     short = mt.MPCConfig(**dict(MEDIUM, lqr_iter=3))
     full3 = mt.batched_solve(short, x0, cost, dyn, **kw)
+    rev = mt.batched_solve(short, x0.flip(0), cost, dyn, **kw)
+    same_bits('reversed batch (3 iterations)', torch, [
+        (rev.u.flip(1), full3.u), (rev.x.flip(1), full3.x),
+        (rev.n_iter.flip(0), full3.n_iter),
+        (rev.n_qp_iter.flip(0), full3.n_qp_iter)])
     at = n // 8
     for k in (1, 7, 33):
         part = mt.batched_solve(short, x0[at:at + k], cost, dyn, **kw)
@@ -3563,7 +3638,7 @@ def bwd_dense_entries(rows, fwd_row, train, diff_solve, err):
 
 # ---------------------------------------------------------------------------
 # More than 8 controls: the dense forward and backward with the control
-# block's factor and the box QP on the warp's tiles (csrc/box_qp_smem.cuh)
+# block's factor and the box QP across the warp's lanes (csrc/box_qp_smem.cuh)
 # ---------------------------------------------------------------------------
 
 # the serving rows (utils/problems.WIDE_ROWS: the medium rows' system where
@@ -3751,21 +3826,16 @@ def wide_build_specs():
                     if c[-1] not in specs]
 
 
-def corner_worker(device, index):
-    """[build]'s process for one corner build past 8 controls
-    (``wide_corner_specs``), run under CUDA_LAUNCH_BLOCKING=1: one launch,
-    finite, the reversed batch and B = 1 alone bitwise, a pinned control
-    exactly 0.  The plain versions past 20 controls take minutes under
+def corner_check(torch, device, index):
+    """One corner build past 8 controls (``wide_corner_specs``), in a
+    process run under CUDA_LAUNCH_BLOCKING=1: one launch, finite, the
+    reversed batch and B = 1 alone bitwise, a pinned control exactly 0.
+    The plain versions past 20 controls take minutes under
     CUDA_LAUNCH_BLOCKING=1 (a box QP trip is thousands of small kernels),
     so the corners meet them in tests/test_torch_gpu.py, and here the
-    main path's rows in [compare-dense].  Prints a JSON line of its log
-    lines."""
-    import torch
+    main path's rows in [compare-dense]."""
     from mpc_tpu_torch.ops import fused_bwd_dense as fbd
     from mpc_tpu_torch.ops import fused_dense as fd
-    lines = []
-    globals()['log'] = lambda *a: lines.append(' '.join(map(str, a)))
-    device = torch.device(device)
     kind, ns, nc, a, b, (name, defines) = wide_corner_specs()[int(index)]
     what = (f'corner {kind} {ns}s{nc}c '
             + ' '.join(f'{k}={v}' for k, v in sorted(defines.items())
@@ -3803,8 +3873,41 @@ def corner_worker(device, index):
     if device.type == 'cuda' and sum(counts.values()) != 1:
         raise AssertionError(f'{what}: not one launch: {counts}')
     log(f'  {what}: one launch, finite, reversed batch and B=1 bitwise; '
-        f'{time.perf_counter() - t0:.1f} s in its process')
-    print(json.dumps({'lines': lines}))
+        f'{time.perf_counter() - t0:.1f} s')
+
+
+def collect_log():
+    """Make ``log`` of a worker process keep its lines for the JSON line
+    the worker prints last, and print each one as it comes, so that a
+    worker that faults shows how far it got.  Returns the list."""
+    lines = []
+
+    def keep(*a):
+        lines.append(' '.join(map(str, a)))
+        print(lines[-1], flush=True)
+    globals()['log'] = keep
+    return lines
+
+
+def blocking_worker(device):
+    """[build]'s and [compare-dense]'s checks past 8 controls that run
+    under CUDA_LAUNCH_BLOCKING=1, one after another in this one process,
+    so that a load through a wrong address faults at its own launch:
+    ``corner_check`` of every corner build, then ``wide_bits`` of every
+    WIDE_CASES case.  Prints a JSON line: each case's digest and the log
+    lines."""
+    import torch
+    lines = collect_log()
+    device = torch.device(device)
+    t0 = time.perf_counter()
+    for i in range(len(wide_corner_specs())):
+        print(f'# corner {i}', flush=True)
+        corner_check(torch, device, i)
+    t1 = time.perf_counter()
+    digests = {label: wide_bits(torch, device, label)
+               for label, *_ in WIDE_CASES}
+    print(json.dumps({'digests': digests, 'lines': lines,
+                      'seconds': [t1 - t0, time.perf_counter() - t1]}))
 
 
 def wide_train_worker(device, mode, path):
@@ -3871,125 +3974,113 @@ def bitwise_worker(torch, device, what, ops, kernel=None):
     return full
 
 
-def wide_worker(device, label, mode):
-    """[compare-dense]'s processes for one WIDE_CASES case (one define
-    set).  ``mode`` 'bits', run under CUDA_LAUNCH_BLOCKING=1: the bitwise
-    checks of ``bitwise_worker``.  ``mode`` 'plain': the kernel against its
-    plain version by the case's gate (the float32 tail of the medium rows
-    with n_iter equal, or at most twice the plain float32 run's distance
-    from a float64 plain run), its box and mask held; the plain float32
-    run's device ms.  The plain versions are host-bound (a small kernel an
-    operation), so the cases run them side by side, a process each.
-    Prints a JSON line: the digest of the kernel's outputs, the case's
-    numbers and its log lines."""
-    import torch
-    from mpc_tpu_torch.ops import fused_dense as fd
-    lines = []
-    globals()['log'] = lambda *a: lines.append(' '.join(map(str, a)))
-    device = torch.device(device)
+def wide_bits(torch, device, label):
+    """``bitwise_worker``'s checks of one WIDE_CASES case (run under
+    CUDA_LAUNCH_BLOCKING=1).  Returns the digest of the kernel's
+    outputs."""
     t0 = time.perf_counter()
     ops = wide_operands(torch, device, label)
     n = ops['x0'].shape[0]
     what = f'{label}, B={n}'
-    res = {}
-    if mode == 'bits':
-        full = bitwise_worker(torch, device, what, ops)
-        log(f'  {what}: one launch, reversed and B={n + 2} bitwise equal; '
-            f'{time.perf_counter() - t0:.1f} s in its process')
+    full = bitwise_worker(torch, device, what, ops)
+    log(f'  {what}: one launch, reversed and B={n + 2} bitwise equal; '
+        f'{time.perf_counter() - t0:.1f} s')
+    return uz_digest(full)
+
+
+def hold_wide(torch, device, label, runs):
+    """[compare-dense] past 8 controls: one WIDE_CASES case's kernel
+    against its plain version (``runs``, from ``plain_worker``) by the
+    case's gate: the float32 tail of the medium rows with n_iter equal,
+    or at most twice the plain float32 run's distance from a float64
+    plain run; its box and mask held.  Returns the kernel's outputs and
+    the case's summary (max |du|, gate, the plain float32 run's device
+    ms)."""
+    from mpc_tpu_torch.ops import fused_dense as fd
+    ops = wide_operands(torch, device, label)
+    what = f'{label}, B={ops["x0"].shape[0]}'
+    log(f'[compare-dense] {what}: the kernel vs its plain version')
+    gate = wide_case(label)[3]
+    full = fd.fused_ilqr_dense(**ops)
+    xk, uk, sk = full
+    times = []
+    plain = preloaded(torch, runs, times)
+    _, up, sp = plain(**ops)
+    _, u64, _ = plain(**wide_operands(torch, device, label, torch.float64))
+    mean, share, mx = tail(uk, up)
+    same_iter = same_share(sk[2], sp[2])
+    if gate == 'tail':
+        check_tail(f'{what} (f32)', uk, up, (LONG_TAIL_MEAN, LONG_TAIL_SHARE))
+        if same_iter != 1.0:
+            raise AssertionError(f'{what}: n_iter differs')
     else:
-        gate = wide_case(label)[3]
-        full = fd.fused_ilqr_dense(**ops)
-        xk, uk, sk = full
-        times = []
-        _, up, sp = timed_plain(torch, fd.fused_solve_dense_plain,
-                                times)(**ops)
-        _, u64, _ = fd.fused_solve_dense_plain(**wide_operands(
-            torch, device, label, torch.float64))
-        mean, share, mx = tail(uk, up)
-        same_iter = same_share(sk[2], sp[2])
-        if gate == 'tail':
-            check_tail(f'{what} (f32)', uk, up,
-                       (LONG_TAIL_MEAN, LONG_TAIL_SHARE))
-            if same_iter != 1.0:
-                raise AssertionError(f'{what}: n_iter differs')
-        else:
-            check_tail(f'{what} (f32)', uk, up, None)
-        hold_equidistance(what, uk, up, u64)
-        if ops['ub'] is not None and float(uk.abs().max()) > float(
-                ops['ub'].max()):
-            raise AssertionError(f'{what}: a control outside its box')
-        uz_pinned_zero(what, ops, uk)
-        log(f'  {what}: gate {gate}; n_iter equal in {same_iter:.4f} of the '
-            f'examples, a solve {float(sk[2].double().mean()):.2f}, trials a '
-            f'solve {float(sk[5].double().mean()):.2f}, QP trips a solve '
-            f'{float(sk[3].double().mean()):.1f} (plain '
-            f'{float(sp[3].double().mean()):.1f}); controls on the box '
-            f'{float((uk.abs() == 1.0).double().mean()):.3f}; max |u - f64|: '
-            f'kernel {float((uk.double() - u64).abs().max()):.3e}, plain '
-            f'{float((up.double() - u64).abs().max()):.3e}; plain '
-            f'{times[0]:.1f} ms; {time.perf_counter() - t0:.1f} s in its '
-            'process')
-        res = dict(gate=gate, max_abs_err=mx, mean=mean, share=share,
-                   same_iter=same_iter, plain_ms=times[0])
-    print(json.dumps({'label': label, 'digest': uz_digest(full), 'res': res,
-                      'lines': lines}))
+        check_tail(f'{what} (f32)', uk, up, None)
+    hold_equidistance(what, uk, up, u64)
+    if ops['ub'] is not None and float(uk.abs().max()) > float(
+            ops['ub'].max()):
+        raise AssertionError(f'{what}: a control outside its box')
+    uz_pinned_zero(what, ops, uk)
+    log(f'  {what}: gate {gate}; n_iter equal in {same_iter:.4f} of the '
+        f'examples, a solve {float(sk[2].double().mean()):.2f}, trials a '
+        f'solve {float(sk[5].double().mean()):.2f}, QP trips a solve '
+        f'{float(sk[3].double().mean()):.1f} (plain '
+        f'{float(sp[3].double().mean()):.1f}); controls on the box '
+        f'{float((uk.abs() == 1.0).double().mean()):.3f}; max |u - f64|: '
+        f'kernel {float((uk.double() - u64).abs().max()):.3e}, plain '
+        f'{float((up.double() - u64).abs().max()):.3e}; plain '
+        f'{times[0]:.1f} ms')
+    return what, full, dict(gate=gate, max_abs_err=mx, mean=mean,
+                            share=share, same_iter=same_iter,
+                            plain_ms=times[0])
 
 
 def phase_compare_wide(torch, device):
     """[build]'s corner builds past 8 controls and [compare-dense] past 8
-    controls, their processes all at once: each corner build a process
-    under CUDA_LAUNCH_BLOCKING=1 (``corner_worker``); each WIDE_CASES case
-    in two (``wide_worker``: the bitwise checks under
-    CUDA_LAUNCH_BLOCKING=1, and the kernel against its plain version by
-    the case's gate, fixed in WIDE_CASES); and the plain versions at
-    wide-train's learner's start in float32 and float64
+    controls, their processes all at once: one process under
+    CUDA_LAUNCH_BLOCKING=1 (``blocking_worker``: each corner build, then
+    each WIDE_CASES case's bitwise checks); each case's plain version in
+    float32 and in float64, a process each (``plain_worker``); and the
+    plain versions at wide-train's learner's start in float32 and float64
     (``wide_train_worker``) for [train-dense].  Here each case's kernel
-    gives the bits of both of its processes.  Returns each case's summary
-    (max |du|, gate, the plain float32 run's device ms) and the paths of
-    the saved plain runs."""
-    from mpc_tpu_torch.ops import fused_dense as fd
+    gives the bits of the CUDA_LAUNCH_BLOCKING=1 process and meets its
+    plain version (``hold_wide``).  Returns each case's summary (max
+    |du|, gate, the plain float32 run's device ms) and the paths of the
+    saved plain runs."""
     t0 = time.perf_counter()
     root = os.path.join(HERE, 'build', 'chip_smoke')
     os.makedirs(root, exist_ok=True)
     held = {m: os.path.join(root, f'wide_train_{m}.pt')
             for m in ('f32', 'f64')}
-    corners = wide_corner_specs()
     k = len(WIDE_CASES)
-    argv = ([['--wide-worker', device.type, c[0], 'bits'] for c in WIDE_CASES]
-            + [['--wide-worker', device.type, c[0], 'plain']
-               for c in WIDE_CASES]
-            + [['--wide-train-worker', device.type, m, held[m]]
-               for m in held])
-    cases = start_workers(argv, [{'CUDA_LAUNCH_BLOCKING': '1'}] * k
-                          + [{}] * (k + len(held)))
-    out = run_workers(torch, [['--corner-worker', device.type, str(i)]
-                              for i in range(len(corners))],
-                      [{'CUDA_LAUNCH_BLOCKING': '1'}] * len(corners))
-    for summary in out:
-        for line in summary['lines']:
-            log(line)
-    log(f'[build] {len(corners)} corner builds past 8 controls, a process '
-        f'each under CUDA_LAUNCH_BLOCKING=1, beside [compare-dense]\'s: '
+    log(f'[compare-dense] past 8 controls: {k} cases; the corner builds and '
+        'the cases\' bitwise checks in one process under '
+        'CUDA_LAUNCH_BLOCKING=1, the plain versions in processes beside it')
+    blocking = start_workers([['--blocking-worker', device.type]],
+                             [{'CUDA_LAUNCH_BLOCKING': '1'}])
+    train = start_workers([['--wide-train-worker', device.type, m, held[m]]
+                           for m in held])
+    plain = start_plain(device, 'wide', [c[0] for c in WIDE_CASES],
+                        2 * len(WIDE_CASES))
+    (bits,) = join_workers(blocking)
+    for line in bits['lines']:
+        log(line)
+    log(f'[build] {len(wide_corner_specs())} corner builds past 8 controls '
+        f'({bits["seconds"][0]:.1f} s), then the bitwise checks of '
+        f'[compare-dense]\'s {k} cases ({bits["seconds"][1]:.1f} s), one '
+        'process under CUDA_LAUNCH_BLOCKING=1 beside the plain versions: '
         f'{time.perf_counter() - t0:.1f} s')
-    out = join_workers(cases)
-    log(f'[compare-dense] past 8 controls: {k} cases, two processes each '
-        '(the bitwise checks under CUDA_LAUNCH_BLOCKING=1, the plain '
-        'versions), and wide-train\'s plain runs, all at once: '
-        f'{time.perf_counter() - t0:.1f} s')
+    runs = plain_runs(torch, device, plain)
     res = {}
-    for (label, *_), bits, plain in zip(WIDE_CASES, out[:k], out[k:2 * k]):
-        ops = wide_operands(torch, device, label)
-        what = f'{label}, B={ops["x0"].shape[0]}'
-        log(f'[compare-dense] {what}: the kernel vs its plain version')
-        for line in bits['lines'] + plain['lines']:
-            log(line)
-        if not (uz_digest(fd.fused_ilqr_dense(**ops)) == bits['digest']
-                == plain['digest']):
+    for label, *_ in WIDE_CASES:
+        what, full, res[label] = hold_wide(torch, device, label, runs[label])
+        if uz_digest(full) != bits['digests'][label]:
             raise AssertionError(f'{what}: not the bits of its '
-                                 'CUDA_LAUNCH_BLOCKING=1 process and of its '
-                                 'plain comparison')
-        res[label] = plain['res']
-    log(f'[compare-dense] past 8 controls: {time.perf_counter() - t0:.1f} s')
+                                 'CUDA_LAUNCH_BLOCKING=1 process')
+    join_workers(train)
+    log(f'[compare-dense] past 8 controls: {k} cases (the bitwise checks '
+        'under CUDA_LAUNCH_BLOCKING=1, the plain versions a process each) '
+        'and wide-train\'s plain runs, all at once: '
+        f'{time.perf_counter() - t0:.1f} s')
     return res, held
 
 
@@ -3999,9 +4090,10 @@ def phase_serve_wide(torch, device):
     distinct batches through batched_solve (new starts from the row's
     seeds) and one through MPC, host to host, one dense launch a request
     and no eager solve, MPC bitwise batched_solve, the last answer x the
-    rollout of u, costs their objective, u in its box; beside it the eager
-    route's (use_fused='never') ms of the first request.  Returns the
-    launches, request ms and eager ms by row."""
+    rollout of u, costs their objective, u in its box; at WIDE_MAIN beside
+    it the eager route's (use_fused='never') ms of the first request (some
+    ten seconds a row).  Returns the launches, request ms and eager ms by
+    row."""
     import dataclasses
     import mpc_tpu_torch as mt
     from mpc_tpu_torch.solver import rollout, trajectory_cost
@@ -4058,6 +4150,10 @@ def phase_serve_wide(torch, device):
                 and gap < 1e-3 and x_gap < 1e-3):
             raise AssertionError(f'{label}: a served answer is not a '
                                  'feasible solve')
+        out['launches'][label] = WIDE_REQUESTS + 1
+        out['request_ms'][label], out['mpc_ms'][label] = ms, mpc_ms
+        if label != WIDE_MAIN:
+            continue
         never = dataclasses.replace(cfg, use_fused='never')
         (eager, eager_ms), n_eager = eager_counted(torch, lambda: timed(
             torch, device, lambda: mt.batched_solve(
@@ -4068,8 +4164,6 @@ def phase_serve_wide(torch, device):
             f'eager solves {n_eager}, max |u - kernel route\'s| '
             f'{float((eager[0].cpu() - sols[0][1]).abs().max()):.3e}; '
             f'{card_line()}')
-        out['launches'][label] = WIDE_REQUESTS + 1
-        out['request_ms'][label], out['mpc_ms'][label] = ms, mpc_ms
         out['eager_ms'][label] = eager_ms
     return out
 
@@ -4364,17 +4458,24 @@ def phase_compare_soa(torch, device):
     bitwise.  The cartpole's controls are held divided by CART_U_SCALE.
     Returns max |du| and the plain float32 run's device ms, by row."""
     max_du, plain_ms = {}, {}
+    t0 = time.perf_counter()
+    runs = plain_runs(torch, device, start_plain(
+        device, 'soa', [r[0] for r in SOA_ROWS], 4))
+    log(f'[compare-soa] the plain versions, each row in float32 and in '
+        f'float64, over 4 processes at once: {time.perf_counter() - t0:.1f} '
+        's')
     for label, model, T_, n, kname in SOA_ROWS:
         what = f'{label} ({kname}), B={n}, T={T_}'
         log(f'[compare-soa] {what}: kernel vs its plain version')
         t0 = time.perf_counter()
-        ops, kernel, plain = soa_operands(torch, device, label)
+        ops, kernel, _ = soa_operands(torch, device, label)
         ops64, _, _ = soa_operands(torch, device, label, torch.float64)
         times = []
+        plain = preloaded(torch, runs[label], times)
         scale = CART_U_SCALE if model == 'cartpole' else 1.0
         if soa_limits(label) is None:
             full, mx = hold_long_pendulum(torch, what, ops, ops64, kernel,
-                                          timed_plain(torch, plain, times))
+                                          plain)
         elif scale != 1.0:
             def scaled(fn):
                 def run(**o):
@@ -4382,13 +4483,11 @@ def phase_compare_soa(torch, device):
                     return x, u / scale, s
                 return run
             full, mx = hold_k1(torch, what, ops, ops64,
-                               kernel=scaled(kernel),
-                               plain=scaled(timed_plain(torch, plain, times)),
+                               kernel=scaled(kernel), plain=scaled(plain),
                                limits=soa_limits(label))
         else:
             full, mx = hold_k1(torch, what, ops, ops64, kernel=kernel,
-                               plain=timed_plain(torch, plain, times),
-                               limits=soa_limits(label))
+                               plain=plain, limits=soa_limits(label))
         plain_ms[label] = times[0]
         max_du[label] = mx * scale
         if scale != 1.0:
@@ -4914,15 +5013,22 @@ def phase_compare_huber(torch, device):
     bitwise.  The cartpole's controls are held divided by CART_U_SCALE.
     Returns max |du| and the plain float32 run's device ms, by row."""
     max_du, plain_ms = {}, {}
+    t0 = time.perf_counter()
+    runs = plain_runs(torch, device, start_plain(
+        device, 'huber', [r[0] for r in HUBER_ROWS], 6))
+    log(f'[compare-huber] the plain versions, each row in float32 and in '
+        f'float64, over 6 processes at once: {time.perf_counter() - t0:.1f} '
+        's')
     for label, prob, T_, n, kname in HUBER_ROWS:
         what = f'{label} ({kname}), B={n}, T={T_}'
         log(f'[compare-huber] {what}: the cost build vs its plain version')
         t0 = time.perf_counter()
-        ops, kernel, plain = huber_operands(torch, device, label)
+        ops, kernel, _ = huber_operands(torch, device, label)
         ops64, _, _ = huber_operands(torch, device, label, torch.float64)
         if ops['C'] is not None or ops['cost_params'] is None:
             raise AssertionError(f'{what}: not the cost build\'s operands')
         times = []
+        plain = preloaded(torch, runs[label], times)
         scale = CART_U_SCALE if prob == 'cartpole' else 1.0
 
         def scaled(fn):
@@ -4932,10 +5038,10 @@ def phase_compare_huber(torch, device):
             return run
         if huber_judged_by_f64(label):
             mx = hold_huber_f64(torch, what, ops, ops64, scaled(kernel),
-                                scaled(timed_plain(torch, plain, times)))
+                                scaled(plain))
         else:
             _, mx = hold_k1(torch, what, ops, ops64, kernel=kernel,
-                            plain=timed_plain(torch, plain, times))
+                            plain=plain)
         plain_ms[label] = times[0]
         max_du[label] = mx * scale
         full = kernel(**ops)
@@ -5647,32 +5753,36 @@ def uz_digest(outs):
     return h.hexdigest()[:16]
 
 
-def uz_worker(device, label):
-    """[compare-uz]'s process for one UZ_ROWS row (one define set), run
-    under CUDA_LAUNCH_BLOCKING=1, so that a load through an absent
-    operand faults at its own launch: the kernel launched once, finite,
-    pinned controls exactly 0.0, the reversed batch, B = 1, 7, 33 alone
-    and the batch with two more examples bitwise.  Prints a JSON line:
-    the digest of its outputs and its log lines."""
+def uz_worker(device, *labels):
+    """[compare-uz]'s process for the UZ_ROWS rows ``labels`` (one define
+    set each), one after another, run under CUDA_LAUNCH_BLOCKING=1, so
+    that a load through an absent operand faults at its own launch: the
+    kernel launched once, finite, pinned controls exactly 0.0, the
+    reversed batch, B = 1, 7, 33 alone and the batch with two more
+    examples bitwise.  Prints a JSON line: each row's digest of its
+    outputs and its log lines."""
     import torch
-    lines = []
-    globals()['log'] = lambda *a: lines.append(' '.join(map(str, a)))
     device = torch.device(device)
-    t0 = time.perf_counter()
-    _, _, T_, n, kname, _, _, _ = uz_row(label)
-    what = f'{label} ({kname}), B={n}, T={T_}'
-    ops, kernel, _ = uz_operands(torch, device, label)
-    full = bitwise_worker(torch, device, what, ops, kernel)
-    log(f'  {what}: one launch, reversed and B={n + 2} bitwise equal; '
-        f'{time.perf_counter() - t0:.1f} s in its process')
-    print(json.dumps({'label': label, 'digest': uz_digest(full),
-                      'lines': lines}))
+    out = []
+    for label in labels:
+        print(f'# {label}', flush=True)
+        lines = collect_log()
+        t0 = time.perf_counter()
+        _, _, T_, n, kname, _, _, _ = uz_row(label)
+        what = f'{label} ({kname}), B={n}, T={T_}'
+        ops, kernel, _ = uz_operands(torch, device, label)
+        full = bitwise_worker(torch, device, what, ops, kernel)
+        log(f'  {what}: one launch, reversed and B={n + 2} bitwise equal; '
+            f'{time.perf_counter() - t0:.1f} s')
+        out.append({'label': label, 'digest': uz_digest(full),
+                    'lines': lines})
+    print(json.dumps(out))
 
 
 def phase_compare_uz(torch, device):
-    """Each UZ_ROWS row (each define set) first in a process of its own
-    under CUDA_LAUNCH_BLOCKING=1 (``uz_worker``), all rows at once; then
-    here, each row's kernel (the worker's bits) against its plain version
+    """Each UZ_ROWS row (each define set) first in a process under
+    CUDA_LAUNCH_BLOCKING=1 (``uz_worker``, the rows one after another),
+    beside the rows' plain runs (``plain_worker``); then here, each row's kernel (the worker's bits) against its plain version
     by the row's gate: the float32 tail (mean |du| < TAIL_MEAN, share past
     TAIL_ENTRY < TAIL_SHARE, n_iter equal), or for the rows where two
     float32 solves part beyond it (a mask's kinks amplify their divergence
@@ -5682,11 +5792,15 @@ def phase_compare_uz(torch, device):
     are held divided by CART_U_SCALE.  Returns each row's summary (max
     |du|, gate, the plain float32 run's device ms)."""
     t0 = time.perf_counter()
-    out = run_workers(torch, [['--uz-worker', device.type, r[0]]
-                              for r in UZ_ROWS],
-                      [{'CUDA_LAUNCH_BLOCKING': '1'}] * len(UZ_ROWS))
-    log(f'[compare-uz] {len(UZ_ROWS)} rows, a process each under '
-        f'CUDA_LAUNCH_BLOCKING=1, all at once: '
+    bits = start_workers([['--uz-worker', device.type,
+                           *(r[0] for r in UZ_ROWS)]],
+                         [{'CUDA_LAUNCH_BLOCKING': '1'}])
+    pending = start_plain(device, 'uz', [r[0] for r in UZ_ROWS], 3)
+    (out,) = join_workers(bits)
+    runs = plain_runs(torch, device, pending)
+    log(f'[compare-uz] {len(UZ_ROWS)} rows in one process under '
+        f'CUDA_LAUNCH_BLOCKING=1, and their plain versions, each row in '
+        f'float32 and in float64, over 3 processes, all at once: '
         f'{time.perf_counter() - t0:.1f} s')
     res = {}
     for row, summary in zip(UZ_ROWS, out):
@@ -5696,7 +5810,7 @@ def phase_compare_uz(torch, device):
         for line in summary['lines']:
             log(line)
         t1 = time.perf_counter()
-        ops, kernel, plain = uz_operands(torch, device, label)
+        ops, kernel, _ = uz_operands(torch, device, label)
         ops64, _, _ = uz_operands(torch, device, label, torch.float64)
         scale = CART_U_SCALE if prob == 'cartpole' else 1.0
         xk, uk, sk = kernel(**ops)
@@ -5704,7 +5818,8 @@ def phase_compare_uz(torch, device):
             raise AssertionError(f'{what}: not the bits of its '
                                  'CUDA_LAUNCH_BLOCKING=1 process')
         times = []
-        _, up, sp = timed_plain(torch, plain, times)(**ops)
+        plain = preloaded(torch, runs[label], times)
+        _, up, sp = plain(**ops)
         _, u64, _ = plain(**ops64)
         us, ups, u64s = uk / scale, up / scale, u64 / scale
         mean, share, mx = tail(us, ups)
@@ -6080,31 +6195,35 @@ def mlp_build_specs():
     return specs
 
 
-def mlp_worker(device, label):
-    """[compare-mlp]'s process for one MLP_CASES row, run under
-    CUDA_LAUNCH_BLOCKING=1, so that a load through a wrong address faults
-    at its own launch: the kernel launched once, finite, the reversed
-    batch, B = 1, 7, 33 alone (where the row has that many) and the batch
-    with two more examples bitwise.  Prints a JSON line: the digest of its
-    outputs and its log lines."""
+def mlp_worker(device, *labels):
+    """[compare-mlp]'s process for the MLP_CASES rows ``labels``, one
+    after another, run under CUDA_LAUNCH_BLOCKING=1, so that a load
+    through a wrong address faults at its own launch: the kernel launched
+    once, finite, the reversed batch, B = 1, 7, 33 alone (where the row
+    has that many) and the batch with two more examples bitwise.  Prints
+    a JSON line: each row's digest of its outputs and its log lines."""
     import torch
-    lines = []
-    globals()['log'] = lambda *a: lines.append(' '.join(map(str, a)))
     device = torch.device(device)
-    t0 = time.perf_counter()
-    n = mlp_case(label)[2]
-    what = f'{label}, B={n}'
-    ops = mlp_operands(torch, device, label)
-    full = bitwise_worker(torch, device, what, ops)
-    log(f'  {what}: one launch, reversed and B={n + min(2, n)} bitwise '
-        f'equal; {time.perf_counter() - t0:.1f} s in its process')
-    print(json.dumps({'label': label, 'digest': uz_digest(full),
-                      'lines': lines}))
+    out = []
+    for label in labels:
+        print(f'# {label}', flush=True)
+        lines = collect_log()
+        t0 = time.perf_counter()
+        n = mlp_case(label)[2]
+        what = f'{label}, B={n}'
+        ops = mlp_operands(torch, device, label)
+        full = bitwise_worker(torch, device, what, ops)
+        log(f'  {what}: one launch, reversed and B={n + min(2, n)} bitwise '
+            f'equal; {time.perf_counter() - t0:.1f} s')
+        out.append({'label': label, 'digest': uz_digest(full),
+                    'lines': lines})
+    print(json.dumps(out))
 
 
 def phase_compare_mlp(torch, device):
-    """Each MLP_CASES row first in a process of its own under
-    CUDA_LAUNCH_BLOCKING=1 (``mlp_worker``), all rows at once; then here,
+    """Each MLP_CASES row first in a process under CUDA_LAUNCH_BLOCKING=1
+    (``mlp_worker``, the rows one after another), beside the rows' plain
+    runs (``plain_worker``); then here,
     each row's kernel (the worker's bits) against its plain version by the
     row's gate: the float32 tail (mean |du| < TAIL_MEAN, share past
     TAIL_ENTRY < TAIL_SHARE) with n_iter equal, or, where a stiff MLP
@@ -6114,11 +6233,15 @@ def phase_compare_mlp(torch, device):
     device ms, the kernel's stats)."""
     from mpc_tpu_torch.ops import fused_dense as fd
     t0 = time.perf_counter()
-    out = run_workers(torch, [['--mlp-worker', device.type, r[0]]
-                              for r in MLP_CASES],
-                      [{'CUDA_LAUNCH_BLOCKING': '1'}] * len(MLP_CASES))
-    log(f'[compare-mlp] {len(MLP_CASES)} rows, a process each under '
-        f'CUDA_LAUNCH_BLOCKING=1, all at once: '
+    bits = start_workers([['--mlp-worker', device.type,
+                           *(r[0] for r in MLP_CASES)]],
+                         [{'CUDA_LAUNCH_BLOCKING': '1'}])
+    pending = start_plain(device, 'mlp', [r[0] for r in MLP_CASES], 3)
+    (out,) = join_workers(bits)
+    runs = plain_runs(torch, device, pending)
+    log(f'[compare-mlp] {len(MLP_CASES)} rows in one process under '
+        f'CUDA_LAUNCH_BLOCKING=1, and their plain versions, each row in '
+        f'float32 and in float64, over 3 processes, all at once: '
         f'{time.perf_counter() - t0:.1f} s')
     res = {}
     for (label, _, n, bounded, gate), summary in zip(MLP_CASES, out):
@@ -6134,9 +6257,9 @@ def phase_compare_mlp(torch, device):
             raise AssertionError(f'{what}: not the bits of its '
                                  'CUDA_LAUNCH_BLOCKING=1 process')
         times = []
-        _, up, sp = timed_plain(torch, fd.fused_solve_dense_plain,
-                                times)(**ops)
-        _, u64, _ = fd.fused_solve_dense_plain(**ops64)
+        plain = preloaded(torch, runs[label], times)
+        _, up, sp = plain(**ops)
+        _, u64, _ = plain(**ops64)
         mean, share, mx = tail(uk, up)
         same_iter = same_share(sk[2], sp[2])
         if gate == 'tail':
@@ -6451,7 +6574,7 @@ SLEW_B = LONG_B
 # a closed loop of 10 steps at B=256, ~38,600 operations a solve (a CPU
 # count)
 SLEW_EAGER = dict(HEADLINE, slew_rate_penalty=0.5, use_fused='never')
-SLEW_EAGER_B, SLEW_EAGER_STEPS = 256, 10
+SLEW_EAGER_B, SLEW_EAGER_STEPS = 256, 5
 # The card's float64 loop against the CPU's.  Each solve of the loop
 # starts from the last one's solution and runs 10 iterations with eps = 0,
 # so its later iterations take steps at round-off: there every trial cost
@@ -6505,6 +6628,129 @@ PSCAN_F64_TOL = 1e-9
 # the first-order estimate).
 PSCAN_GRAD_B = 256
 PSCAN_GRAD_EXACT_TOL, PSCAN_REG, PSCAN_REG_ROOM = 1e-12, 1e-11, 10.0
+
+
+# ---------------------------------------------------------------------------
+# The dense kernels' phase account
+# ---------------------------------------------------------------------------
+
+# [phases-dense]'s rows: the dense forward at the medium row (24s4c), the
+# 5-state box row (each B=2048), TVLQR (B=128), the wide rows 4s12c and
+# 2s16c (B=2048), config 3 (B=512) and the deep MLP (B=2048); the dense
+# backward at the medium
+# imitation row (20s4c) and at 4s12c (B=1024), on the operands the other
+# phases build for them
+PHASE_ROWS = ('24s4c', '5s1c', 'tvlqr', 'wide-4s12c', 'wide-2s16c',
+              'config 3', 'mlp-deep', 'backward 20s4c', 'backward 4s12c')
+
+
+def phase_row_operands(torch, device, label, n=None):
+    """A PHASE_ROWS row's operands: the forward's keyword operands, or the
+    backward's (operands, keyword arguments); ``n`` cuts the batch (the
+    build specs read n=1 on the CPU)."""
+    if label == '24s4c':
+        return dense_operands(torch, device, 'medium', 24, 4, n or 2048)
+    if label == '5s1c':
+        return dense_operands(torch, device, 'box', 5, 1, n or 2048)
+    if label == 'tvlqr':
+        return dense_operands(torch, device, 'tvlqr', 3, 4, n or TVLQR_B)
+    if label.startswith('wide-'):
+        return wide_operands(torch, device, label, n=n)
+    if label == 'config 3':
+        return soa_operands(torch, device, label, n=n)[0]
+    if label == 'mlp-deep':
+        return mlp_operands(torch, device, label, n=n)
+    if label == 'backward 20s4c':
+        return bwd_dense_operands(torch, device, 'medium', 20, 4,
+                                  n or TRAIN_DENSE_B)
+    return wide_bwd_operands(torch, device, n=n)
+
+
+def phases_build_specs():
+    """The clocked builds (MPC_PHASE_CLOCKS = 1) of the PHASE_ROWS rows."""
+    import torch
+    from mpc_tpu_torch.ops import fused_bwd_dense as fbd
+    specs = []
+    for label in PHASE_ROWS:
+        if label.startswith('backward'):
+            ns, nc = (20, 4) if label.endswith('20s4c') else (4, 12)
+            s = ('fused_kkt_bwd_dense', dict(fbd.bwd_dense_kernel_defines(
+                ns, nc, True, False), MPC_PHASE_CLOCKS=1))
+        else:
+            # the forward's operands on the CPU (the backward's would
+            # solve them first)
+            defines = dense_defines(phase_row_operands(
+                torch, torch.device('cpu'), label, n=1))[0]
+            s = ('fused_ilqr_dense', dict(defines, MPC_PHASE_CLOCKS=1))
+        if s not in specs:
+            specs.append(s)
+    return specs
+
+
+def phase_phases_dense(torch, device, rows=PHASE_ROWS):
+    """The phase account of both dense kernels at the PHASE_ROWS rows:
+    each row's clocked build (utils/phase_account.py) launched once after
+    a warm-up, every phase's share of the warps' cycles and its mean
+    cycles a warp; the backward's gradient pass and chunk-order sums
+    apart by CUDA events.  The clocked outputs are set beside the op's
+    build's (the same arithmetic; logged, not held).  Returns the
+    accounts by row."""
+    from mpc_tpu_torch.ops import fused_bwd_dense as fbd
+    from mpc_tpu_torch.ops import fused_dense as fd
+    from mpc_tpu_torch.utils import phase_account as pa
+    accounts = {}
+    for label in rows:
+        ops = phase_row_operands(torch, device, label)
+        if label.startswith('backward'):
+            o, kw = ops
+            pa.clocked_backward(o, kw)
+            outs, clocks, part_ms = pa.clocked_backward(o, kw)
+            ref = fbd.fused_kkt_backward_dense(**o, **kw)
+            n = o['x_star'].shape[1]
+        else:
+            pa.clocked_forward(ops)
+            *outs, clocks = pa.clocked_forward(ops)
+            ref, part_ms = fd.fused_ilqr_dense(**ops), {}
+            n = ops['x0'].shape[0]
+        torch.cuda.synchronize()
+        same = all(a is None or b is None or torch.equal(a, b)
+                   for a, b in zip(outs, ref))
+        shares = pa.phase_shares(clocks)
+        total = sum(v[1] for v in shares.values())
+        log(f'[phases-dense] {label}, B={n}: {total:.0f} cycles a warp; '
+            + pa.format_shares(shares)
+            + ''.join(f'; {k} {v:.4f} ms' for k, v in part_ms.items())
+            + f'; outputs bitwise the op\'s build: {same}; {card_line()}')
+        accounts[label] = dict(cycles_a_warp=total, **{
+            k: round(v[0], 4) for k, v in shares.items()}, **{
+            f'{k}_ms': v for k, v in part_ms.items()})
+    return accounts
+
+
+def phases_dense_main(*rows):
+    """``python3 chip_smoke.py --phases-dense [ROW ...]``: [phases-dense]
+    alone (its builds, then the account), at the PHASE_ROWS rows named
+    (all by default)."""
+    import torch
+    from mpc_tpu_torch.ops import _build
+    if not torch.cuda.is_available():
+        print('chip_smoke: no CUDA card is visible', file=sys.stderr)
+        return 2
+    from mpc_tpu_torch.ops import fused_dense as fd
+    t0 = time.perf_counter()
+    clocked = phases_build_specs()
+    # the ops' builds of the same rows, and the forward the backward rows
+    # solve first, all at once
+    plain = [(name, {k: v for k, v in d.items() if k != 'MPC_PHASE_CLOCKS'})
+             for name, d in clocked]
+    plain.append(('fused_ilqr_dense', fd.dense_kernel_defines(20, 4, True,
+                                                              False)))
+    _build.build(clocked + [s for s in plain if s not in clocked])
+    log(f'[build] the clocked builds and the ops\' builds of their rows '
+        f'({time.perf_counter() - t0:.1f} s)')
+    phase_phases_dense(torch, torch.device('cuda'), rows or PHASE_ROWS)
+    log(card_line())
+    return 0
 
 
 def count_ops(torch, fn):
@@ -7299,6 +7545,120 @@ def join_workers(started):
     return results
 
 
+def plain_case(torch, device, section, label, dtype):
+    """The operands and the plain version of a row of [compare-dense] past
+    8 controls ('wide'), [compare-soa], [compare-huber], [compare-uz] or
+    [compare-mlp] in ``dtype``."""
+    from mpc_tpu_torch.ops import fused_dense as fd
+    if section in ('wide', 'mlp'):
+        return ((wide_operands if section == 'wide' else mlp_operands)(
+            torch, device, label, dtype), fd.fused_solve_dense_plain)
+    ops, _, plain = {'soa': soa_operands, 'huber': huber_operands,
+                     'uz': uz_operands}[section](torch, device, label, dtype)
+    return ops, plain
+
+
+def ops_digest(ops):
+    """A digest of a kernel's operands, by key: each tensor's bytes, a
+    model's attributes (its weights among them) taken apart the same way,
+    every other value's repr."""
+    import hashlib
+    h = hashlib.sha256()
+
+    def put(v, depth=0):
+        if hasattr(v, 'detach'):
+            h.update(str((v.dtype, tuple(v.shape))).encode())
+            h.update(v.detach().cpu().contiguous().numpy().tobytes())
+        elif isinstance(v, (list, tuple)):
+            for x in v:
+                put(x, depth + 1)
+        elif hasattr(v, 'state_dict'):
+            h.update(type(v).__name__.encode())
+            put([t for _, t in sorted(v.state_dict().items())], depth + 1)
+        elif hasattr(v, '__dict__') and depth < 4:
+            h.update(type(v).__name__.encode())
+            for k in sorted(vars(v)):
+                h.update(k.encode())
+                put(vars(v)[k], depth + 1)
+        else:
+            h.update(repr(v).encode())
+    for k in sorted(ops):
+        h.update(k.encode())
+        put(ops[k])
+    return h.hexdigest()[:16]
+
+
+def plain_worker(device, section, runs):
+    """Plain runs of a compare phase's rows (``plain_case``) in a process
+    of its own: the plain versions are host-bound (a small kernel an
+    operation), so a phase spreads its rows' float32 and float64 runs
+    over a few such processes, side by side, while it launches its
+    kernels.  ``runs`` is a JSON list of [label, dtype, path]: each run's
+    outputs are saved to its path.  Prints a JSON line: each run's device
+    ms and the digest of its operands."""
+    import torch
+    device = torch.device(device)
+    out = []
+    for label, dtype, path in json.loads(runs):
+        ops, plain = plain_case(torch, device, section, label,
+                                getattr(torch, dtype))
+        times = []
+        res = timed_plain(torch, plain, times)(**ops)
+        torch.save([a.cpu() for a in res], path)
+        out.append({'plain_ms': times[0], 'ops': ops_digest(ops)})
+    print(json.dumps(out))
+
+
+def start_plain(device, section, labels, procs):
+    """Start ``plain_worker`` for each row of ``labels`` in float32 and
+    in float64, the runs dealt round-robin to ``procs`` processes, all at
+    once; ``plain_runs`` collects them."""
+    root = os.path.join(HERE, 'build', 'chip_smoke', 'plain')
+    os.makedirs(root, exist_ok=True)
+    keys = [(label, dt) for label in labels
+            for dt in ('float32', 'float64')]
+    paths = [os.path.join(root, f'{section}-{i}.pt') for i in range(len(keys))]
+    deal = [list(range(i, len(keys), procs))
+            for i in range(min(procs, len(keys)))]
+    return section, keys, paths, deal, start_workers(
+        [['--plain-worker', device.type, section,
+          json.dumps([[*keys[i], paths[i]] for i in d])] for d in deal])
+
+
+def plain_runs(torch, device, pending):
+    """Wait for ``start_plain``'s workers.  Returns, by row, each dtype's
+    (outputs on ``device``, the run's device ms), after holding that each
+    worker ran on the operands this process makes for the row."""
+    section, keys, paths, deal, started = pending
+    outs = [None] * len(keys)
+    for d, res in zip(deal, join_workers(started)):
+        for i, r in zip(d, res):
+            outs[i] = r
+    runs = {}
+    for (label, dt), path, out in zip(keys, paths, outs):
+        ops, _ = plain_case(torch, device, section, label,
+                            getattr(torch, dt))
+        if ops_digest(ops) != out['ops']:
+            raise AssertionError(f'{section} {label} ({dt}): the plain '
+                                 'worker ran on other operands')
+        runs.setdefault(label, {})[dt] = (
+            [a.to(device) for a in torch.load(path)], out['plain_ms'])
+    return runs
+
+
+def preloaded(torch, runs, times=None):
+    """A plain version that answers from a row's ``plain_runs``: the
+    float32 or the float64 run, by the dtype of the operands it is
+    called with; the float32 run's device ms appended to ``times``."""
+    def run(**ops):
+        dt = 'float64' if ops['x0'].dtype == torch.float64 else 'float32'
+        out, ms = runs[dt]
+        if times is not None and dt == 'float32':
+            times.append(ms)
+        return tuple(out)
+    return run
+
+
 def serve_worker(device, art, req, out):
     """A serving process: torch and the ops, nothing of the solver; loads
     the artifact, answers the requests, reports the K1 launches and the
@@ -7901,17 +8261,17 @@ def phases_scale(torch, device):
 
 WORKERS = {'--serve-worker': serve_worker, '--pod-worker': pod_worker,
            '--resume-worker': resume_worker, '--uz-worker': uz_worker,
-           '--mlp-worker': mlp_worker, '--wide-worker': wide_worker,
-           '--corner-worker': corner_worker,
-           '--wide-train-worker': wide_train_worker}
+           '--mlp-worker': mlp_worker, '--blocking-worker': blocking_worker,
+           '--plain-worker': plain_worker,
+           '--wide-train-worker': wide_train_worker,
+           '--phases-dense': phases_dense_main}
 
 
 def main():
     if len(sys.argv) > 1:
         # a worker process of [export-serve], [pod] or [checkpoint]
         sys.path.insert(0, HERE)
-        WORKERS[sys.argv[1]](*sys.argv[2:])
-        return 0
+        return WORKERS[sys.argv[1]](*sys.argv[2:]) or 0
     try:
         import torch
     except ImportError:
@@ -7930,7 +8290,7 @@ def main():
     log(f'[card] {card}; torch {torch.__version__}, CUDA '
         f'{torch.version.cuda}, {torch.cuda.get_device_name(0)}')
     t0 = time.perf_counter()
-    phase_build()
+    builds = phase_build(background=True)
     # launches by kernel and phase of the phases that count with counted()
     launch_record = {}
     max_err = phase_compare(torch, device)
@@ -7962,6 +8322,7 @@ def main():
     k3_nn_serve, nn_request_ms = phase_serve_nn(torch, device)
     timing_nn = phase_time_nn(torch, device, nn_plain_ms)
     k3_nn_grad, k2_nn_grad, nn_grad_err, k2_nn = phase_grad_nn(torch, device)
+    phase_build_report(builds)
     t_dense = time.perf_counter()
     dense_err, dense_plain_ms = phase_compare_dense(torch, device)
     dense_launches, dense_req_ms = phase_serve_dense(torch, device)
@@ -8048,6 +8409,9 @@ def main():
         f'{b - a:.1f} s [{k}]' for k, a, b in zip(
             ('compare-mlp', 'serve-mlp', 'time-mlp', 'grad-mlp'),
             t_mlp, t_mlp[1:])) + f': {t_mlp[-1] - t_mlp[0]:.1f} s')
+    t_ph = time.perf_counter()
+    accounts = phase_phases_dense(torch, device)
+    log(f'[phases-dense] {time.perf_counter() - t_ph:.1f} s')
     t_new = time.perf_counter()
     closed = phase_closed_loop(torch, device)
     t_closed = time.perf_counter()
@@ -8079,6 +8443,10 @@ def main():
     log(f'[eager] the [eager-*] phases took '
         f'{time.perf_counter() - t_eager:.1f} s')
     log(f'[done] {time.perf_counter() - t0:.1f} s')
+    log('[timeline] seconds by phase: ' + ', '.join(
+        f'{k} {v:.1f}' for k, v in timeline()))
+    log('[timeline] the longest waits, each before the line it ended: '
+        + '; '.join(f'{v:.1f} s before {k!r}' for v, k in longest_waits()))
     # one entry per kernel and main path: serving ([serve], headline
     # B=4096), training ([train], config 4 at B=1024), long-horizon
     # training ([train-long], T=160 at B=4096) and learned dynamics
@@ -8091,7 +8459,7 @@ def main():
           'tolerance': f'mean|du|<{TAIL_MEAN}, '
                        f'share(|du|>{TAIL_ENTRY})<{TAIL_SHARE}',
           'library_ms': None}
-    log(json.dumps({'kernels': [
+    log(json.dumps({'kernels': mark_dense([
         {'name': 'fused_ilqr', 'path': 'serving', **k1,
          'design': design('fused_ilqr', fused.kernel_defines(T, True),
                           fused.k1_launch(T, B, 5)),
@@ -8187,7 +8555,8 @@ def main():
         *scale_entries(scale, {'k1': (max_err, timing),
                                'k2': (bwd_err, timing_bwd),
                                'k3': (long_err, timing_long),
-                               'k4': (bwd_long_err, timing_bwd_long)})]}))
+                               'k4': (bwd_long_err, timing_bwd_long)})],
+        accounts)}))
     # host-to-host ms of the scale-out and artifact phases
     log(json.dumps({'artifacts_and_scale_out': {
         'export_serve_ms': scale_ms['export-serve'],
@@ -8203,6 +8572,33 @@ def main():
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))
     return 0
+
+
+# the dense kernels' shared device code since their redesign
+DENSE_HEADERS = ('mpc_tpu_torch/csrc/riccati_dense.cuh',
+                 'mpc_tpu_torch/csrc/box_qp.cuh',
+                 'mpc_tpu_torch/csrc/box_qp_smem.cuh',
+                 'mpc_tpu_torch/csrc/phase_clock.cuh')
+DENSE_SOURCES = ('mpc_tpu_torch/csrc/fused_ilqr_dense.cu',
+                 'mpc_tpu_torch/csrc/fused_kkt_bwd_dense.cu')
+
+
+def mark_dense(kernels, accounts):
+    """Mark the dense kernels' entries redesigned (the register tiles,
+    the prefetch, the control solve across the lanes), with the shared
+    headers, and give each kernel's main entry the phase account of
+    [phases-dense]."""
+    for e in kernels:
+        if e['source'] in DENSE_SOURCES:
+            e['status'] = 'redesigned'
+            e['headers'] = sorted(set(e.get('headers', [])) |
+                                  set(DENSE_HEADERS))
+    for name in ('fused_ilqr_dense', 'fused_kkt_bwd_dense'):
+        e = next(e for e in kernels if e['name'] == name)
+        e['phase_account'] = {r: a for r, a in accounts.items()
+                              if r.startswith('backward') == (
+                                  name == 'fused_kkt_bwd_dense')}
+    return kernels
 
 
 if __name__ == '__main__':

@@ -21,6 +21,8 @@
 
 #include <cuda_runtime.h>
 
+#include "phase_clock.cuh"
+
 namespace mpc {
 
 // mpc_tpu/ops/fused.py:70-73
@@ -126,7 +128,8 @@ __device__ __forceinline__ void pnqp(const float (&H)[N][N],
                                      const float (&hi)[N], float (&x)[N],
                                      int n_iter, const float* steps,
                                      int lane, float (&L)[N][N],
-                                     bool (&fr)[N], float& trips) {
+                                     bool (&fr)[N], float& trips,
+                                     PhaseClock& clk) {
 #pragma unroll
   for (int i = 0; i < N; ++i) {
     x[i] = fminf(fmaxf(x[i], lo[i]), hi[i]);
@@ -149,7 +152,9 @@ __device__ __forceinline__ void pnqp(const float (&H)[N][N],
       fr[i] = !clamped;
       gm[i] = clamped ? 0.f : g[i];
     }
+    clk.mark(kPhQP);
     masked_free_chol<N>(H, fr, L);
+    clk.mark(kPhFactor);
     chol_solve<N>(L, gm, dx);
     float dx2 = 0.f;
 #pragma unroll

@@ -19,35 +19,42 @@
 // package's medium-state row (24 states, 4 controls, T=20, B=2048, 10
 // iterations) that is ~2.6e10 operations against ~5.6 MB in and out, so
 // the bound is the card's float32 rate, not its memory
-// (fused_dense.k3d_flops, k3d_bytes).  The sweep is a chain over
-// t per example, so the card needs many examples in flight.
+// (fused_dense.k3d_flops, k3d_bytes).  The sweep is a chain over t per
+// example, so the card needs many examples in flight, and what a step
+// costs is the latency of its phases on that chain: the phase account
+// (MPC_PHASE_CLOCKS, phase_clock.cuh; PERF.md section 6) put the
+// products at 40% of a warp's cycles at 24 states, staging the step's
+// operands at 12%, and past 8 controls the control block's factor at
+// 43% (a column at a time, one lane a solve).
 //
 // What the design does about it.
 //
-// - ONE WARP AN EXAMPLE.  Lane r owns row r of the cost-to-go V, of Q
-//   and of W, and column j of the gains: the products of a step run on
-//   32 lanes at once, each a row's dot products from the first term on
-//   (the TPU kernel's order), and B = 2048 is 2048 warps, ~16 an SM.
-//   The lanes meet only through the warp's tiles in shared memory
-//   (__syncwarp between the phases of a step) and the xor-butterfly of
-//   shuffles that sums a stage cost over the lanes.
-// - The warp's TILES in shared memory: C_t staged and then updated in
-//   place into Q_t (its upper triangle computed, mirrored below), F_t,
-//   W, V, the vectors and the gains of the step; rows of odd stride, so
-//   that the lanes reading a column hit 32 banks.  At 24 states and 4
-//   controls a warp's tiles are 12.4 KB, a block of four warps 50 KB.
-//   A batch-shared operand is read by every warp from the same addresses
-//   (L1 and L2 hits), a batched one with its batch stride.
+// - ONE WARP AN EXAMPLE, B = 2048 is 2048 warps, ~16 an SM: up to 4
+//   controls a build keeps to 128 registers a lane (__launch_bounds__
+//   with 4 blocks an SM), so that they are resident at once.  The lanes
+//   meet through the warp's tiles in shared memory (__syncwarp between
+//   the phases of a step), shuffles, and the xor-butterfly that sums a
+//   stage cost over the lanes.
+// - THE RICCATI STEP (riccati_dense.cuh, shared with the dense
+//   backward): W = V F and Q's upper triangle as register tiles, each
+//   lane an outer product over k of its block, every load a broadcast
+//   from one row of a tile; C_t staged into Q's tile of odd stride and
+//   updated in place, mirrored below.  Where a second set of tiles keeps
+//   the blocks an SM (fused_dense.dense_prefetch, MPC_PREFETCH) the next
+//   step's C, c and F are in flight by cp.async while this step's control
+//   solve and cost-to-go run, and the rows of F, W and V are float4
+//   loads.  A batch-shared operand is read by every warp from the same
+//   addresses (L1 and L2 hits), a batched one with its batch stride.
 // - The CONTROL SOLVE of a step runs in every lane on registers up to
 //   kRegCtrlMax = 8 controls (box_qp.cuh: the n_ctrl x n_ctrl block is
-//   small); past that on the warp's tiles (box_qp_smem.cuh: Quu read in
-//   place from Q's tile, its factor a tile of its own, the box QP's
-//   vectors rows of it, lane i owning row i of the factor, a column of
-//   the gains a lane).  Either way the projected-Newton trip's Armijo
-//   search is split across lanes 0-9 with a ballot.  A warp stops its QP's
-//   trips, its line search and its iterations on its own, so stopped
-//   examples cost nothing: the TPU kernel runs every trip for every
-//   lane of its tile.
+//   small); past that across the lanes (box_qp_smem.cuh: Quu read in
+//   place from Q's tile, lane i row i of the factor, right-looking with
+//   shuffles, of the triangular solves for all the gains' columns at
+//   once, and of the box QP's ten trial objectives).  Either way the
+//   projected-Newton trip's Armijo search judges step size 0.1^g on lane
+//   g with a ballot.  A warp stops its QP's trips, its line search and
+//   its iterations on its own, so stopped examples cost nothing: the TPU
+//   kernel runs every trip for every lane of its tile.
 // - The line search runs its step sizes one after the other: a rollout
 //   takes the whole warp (a lane a state), so the trial writes its
 //   trajectory to the second slot of the example's workspace and, if it
@@ -139,6 +146,8 @@
 #include "box_qp_smem.cuh"
 #include "cost.cuh"
 #include "nn_dense.cuh"
+#include "phase_clock.cuh"
+#include "riccati_dense.cuh"
 #include "soa_model.cuh"
 
 #if !defined(MPC_NS) || !defined(MPC_NC) || !defined(MPC_HAS_BOUNDS) || \
@@ -237,34 +246,53 @@ constexpr int kNP = Model::NP;
 // the Jacobians of the current trajectory in the workspace, a step's
 constexpr int kJac = kModel ? kNS * kNT : 0;
 
-// a warp's tiles (floats): rows of odd stride
-constexpr int kSQ = kNT | 1;
-constexpr int kSV = kNS | 1;
-constexpr int oQ = 0;                       // C_t, then Q_t   [kNT][kSQ]
-constexpr int oW = oQ + kNT * kSQ;          // W = V F         [kNS][kSQ]
-constexpr int oF = oW + kNS * kSQ;          // F_t             [kNS][kNT]
-constexpr int oV = oF + kNS * kNT;          // V               [kNS][kSV]
-constexpr int oTau = oV + kNS * kSV;        // tau_t           [kNT]
+// 1: the prefetching layout (a second set of C, c and F tiles, the rows
+// of F, W and V 16-byte aligned); 0: one set, the lane-a-row design's
+// strides.  The host sets it (fused_dense.dense_kernel_defines): 1
+// wherever the second set fits a block's 227 KB, which is every build but
+// an MLP's whose weights fill the block
+#ifndef MPC_PREFETCH
+#define MPC_PREFETCH 0
+#endif
+constexpr bool kPrefetch = MPC_PREFETCH != 0;
+constexpr int kBufs = kPrefetch ? 2 : 1;
+// a warp's tiles (floats), riccati_dense.cuh's strides: the aligned tiles
+// first, so that their rows start 16-byte aligned
+using Strides = RiccatiStrides<kNS, kNT, kPrefetch>;
+constexpr int kSQ = Strides::kSQ;
+constexpr int kSW = Strides::kSW;
+constexpr int kSF = Strides::kSF;
+constexpr int kSV = Strides::kSV;
+constexpr int kQT = kNT * kSQ;              // a Q tile
+constexpr int kFT = kNS * kSF;              // an F tile
+constexpr int oF = 0;                       // F_t             [kBufs][kNS][kSF]
+constexpr int oW = oF + kBufs * kFT;        // W = V F         [kNS][kSW]
+constexpr int oV = oW + kNS * kSW;          // V               [kNS][kSV]
+constexpr int oQ = oV + kNS * kSV;          // C_t, then Q_t   [kBufs][kNT][kSQ]
+constexpr int oTau = oQ + kBufs * kQT;      // tau_t           [kNT]
 constexpr int oQv = oTau + kNT;             // q               [kNT]
-constexpr int oCv = oQv + kNT;              // c_t             [kNT]
-constexpr int oVv = oCv + kNT;              // v               [kNS]
+constexpr int oCv = oQv + kNT;              // c_t             [kBufs][kNT]
+constexpr int oVv = oCv + kBufs * kNT;      // v               [kNS]
 constexpr int oDx = oVv + kNS;              // x_new - x       [kNS]
 constexpr int oK = oDx + kNS;               // K_t             [kNC][kNS]
 constexpr int oKQ = oK + kNC * kNS;         // Quu K_t         [kNC][kNS]
 constexpr int oKk = oKQ + kNC * kNS;        // k_t             [kNC]
 // past kRegCtrlMax controls the control solve's tiles (box_qp_smem.cuh):
-// the factor L [kNC][odd], the QP's x (kept from step to step: the next
-// step's start, prev_k), g, dx, lo and hi [kNC]
+// the factor L [kNC][odd] and its diagonal's reciprocals, the QP's x
+// (kept from step to step: the next step's start, prev_k), dx, lo and hi
+// [kNC]
 constexpr bool kSmemCtrl = kNC > kRegCtrlMax;
 constexpr int kSL = odd_stride(kNC);
 constexpr int oL = oKk + kNC;               // L               [kNC][kSL]
-constexpr int oQx = oL + kNC * kSL;         // x, prev_k       [kNC]
-constexpr int oQg = oQx + kNC;              // g               [kNC]
-constexpr int oQd = oQg + kNC;              // dx              [kNC]
+constexpr int oLi = oL + kNC * kSL;         // 1 / L_kk        [kNC]
+constexpr int oQx = oLi + kNC;              // x, prev_k       [kNC]
+constexpr int oQd = oQx + kNC;              // dx              [kNC]
 constexpr int oQlo = oQd + kNC;             // lo              [kNC]
 constexpr int oQhi = oQlo + kNC;            // hi              [kNC]
 constexpr int kCtrlFloats = kSmemCtrl ? kNC * kSL + 5 * kNC : 0;
-constexpr int kWarpFloats = (oKk + kNC + kCtrlFloats + 3) / 4 * 4;
+// the phase account's counters (phase_clock.cuh; none but in its build)
+constexpr int oClk = (oKk + kNC + kCtrlFloats + 3) / 4 * 4;
+constexpr int kWarpFloats = oClk + kClockFloats;
 // the gains of a step in the workspace: K (kNC x kNS), then k
 constexpr int kGain = kNC * (kNS + 1);
 
@@ -303,6 +331,7 @@ struct Operands {
   float* x_out;
   float* u_out;
   float* stats;
+  long long* clocks;  // [B][kPhases]: MPC_PHASE_CLOCKS only
 };
 
 // the sum over the warp's lanes, every lane ending with the same bits
@@ -425,7 +454,41 @@ __device__ __forceinline__ float dyn_step(const float* Ft, const float* ft,
   return s;
 }
 
-__global__ void __launch_bounds__(kThreads)
+// Step t's operands into its set of tiles (t % kBufs): C_t and c_t (a
+// QuadCost; the cost build has none) and, for t < T - 1, F_t (a LinDx's,
+// or the model's Jacobian from the workspace this warp wrote, not by the
+// read-only path); in flight with Async (cp.async), else read now.
+template <bool Async>
+__device__ __forceinline__ void stage_step(const Operands& op,
+                                           const float* Cb, const float* cb,
+                                           const float* Fb, const float* jac,
+                                           float* sh, int t, int T, int lane,
+                                           int lt) {
+  const int buf = kPrefetch ? (t & 1) : 0;
+  if constexpr (!kHuber) {
+    stage_tile<kNT, kNT, kSQ, Async, true>(sh + oQ + buf * kQT,
+                                           Cb + t * op.sCt, lane);
+    if (lane < kNT)
+      stage_entry<Async, true>(sh + oCv + buf * kNT + lt, cb + t * op.sct + lt);
+  }
+  if (t < T - 1) {
+    if constexpr (kModel)
+      stage_tile<kNS, kNT, kSF, Async, false>(sh + oF + buf * kFT,
+                                              jac + t * kJac, lane);
+    else
+      stage_tile<kNS, kNT, kSF, Async, true>(sh + oF + buf * kFT,
+                                             Fb + t * op.sFt, lane);
+  }
+}
+
+// Up to 16 controls a warp's work is held to 128 registers a lane, so
+// that four blocks of 128 threads share an SM (B = 2048, 512 blocks, then
+// runs in one wave on 132 SMs; at three blocks an SM a second wave of 116
+// blocks costs more than the few spilled registers); the corners past it
+// take what their solve needs.
+constexpr int kMinBlocks = kNC <= 16 ? 4 : 1;
+
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
     fused_ilqr_dense_kernel(const Operands op, const Schedule sched) {
   extern __shared__ float smem[];
   const int lane = threadIdx.x & 31;
@@ -451,13 +514,12 @@ __global__ void __launch_bounds__(kThreads)
   if (b >= op.B) return;  // the whole warp: nothing below syncs the block
   const int T = op.T, B = op.B;
   float* sh = smem + (threadIdx.x >> 5) * wf;
-  float* Qs = sh + oQ;
-  float* Ws = sh + oW;
-  float* Fs = sh + oF;
-  float* Vs = sh + oV;
+  PhaseClock clk;
+  clk.start(sh + oClk);
+  float* const Ws = sh + oW;
+  float* const Vs = sh + oV;
   float* tau = sh + oTau;
   float* qv = sh + oQv;
-  float* cv = sh + oCv;
   float* vv = sh + oVv;
   float* dxs = sh + oDx;
   float* Ks = sh + oK;
@@ -526,6 +588,7 @@ __global__ void __launch_bounds__(kThreads)
       __syncwarp();
     }
   }
+  clk.mark(kPhOther);
 
   int cur = 0;
   float best_cost = kBig, best_du = kBig, cur_du = kBig, nni = 0.f,
@@ -557,14 +620,29 @@ __global__ void __launch_bounds__(kThreads)
       }
       __syncwarp();
     }
+    clk.mark(kPhJac);
     // ---- the Riccati sweep, t = T-1 .. 0 ------------------------------
     float qp_cnt = 0.f;
     float prev_k[kNC];
 #pragma unroll
     for (int m = 0; m < kNC; ++m) prev_k[m] = 0.f;
+    // the last step's operands in flight (the next ones are started at
+    // the top of each step, after it has waited on its own)
+    if constexpr (kPrefetch) {
+      stage_step<true>(op, Cb, cb, Fb, jac, sh, T - 1, T, lane, lt);
+      cp_async_commit();
+    }
     for (int t = T - 1; t >= 0; --t) {
-      // C_t staged into Q's tile; in the cost build lane i writes H_ii on
-      // the diagonal and keeps g_i as its C tau + c
+      const int buf = kPrefetch ? (t & 1) : 0;
+      float* const Qs = sh + oQ + buf * kQT;
+      const float* const Fs = sh + oF + buf * kFT;
+      const float* const cv = sh + oCv + buf * kNT;
+      if constexpr (kPrefetch)
+        cp_async_wait_all();
+      else
+        stage_step<false>(op, Cb, cb, Fb, jac, sh, t, T, lane, lt);
+      // tau_t; in the cost build lane i writes H_ii on Q's diagonal (the
+      // rest zeros) and keeps g_i as its C tau + c
       float cbv = 0.f;
       if (lane < kNT) {
         const float v = trajc[t * kNT + lt];
@@ -573,8 +651,6 @@ __global__ void __launch_bounds__(kThreads)
           float h;
           huber_quad(hl.w, hl.goal, hl.delta, v, h, cbv);
           Qs[lane * kSQ + lane] = h;
-        } else {
-          cv[lane] = __ldg(cb + t * op.sct + lt);
         }
       }
       if constexpr (kHuber) {
@@ -582,23 +658,12 @@ __global__ void __launch_bounds__(kThreads)
           const int i = e / kNT, j = e - i * kNT;
           if (i != j) Qs[i * kSQ + j] = 0.f;
         }
-      } else {
-        const float* Ct = Cb + t * op.sCt;
-        for (int e = lane; e < kNT * kNT; e += 32)
-          Qs[(e / kNT) * kSQ + e % kNT] = __ldg(Ct + e);
-      }
-      const bool last = t == T - 1;
-      if (!last) {
-        if constexpr (kModel) {
-          // written by this warp in this kernel: not the read-only path
-          const float* Ft = jac + t * kJac;
-          for (int e = lane; e < kNS * kNT; e += 32) Fs[e] = Ft[e];
-        } else {
-          const float* Ft = Fb + t * op.sFt;
-          for (int e = lane; e < kNS * kNT; e += 32) Fs[e] = __ldg(Ft + e);
-        }
       }
       __syncwarp();
+      if constexpr (kPrefetch) {
+        if (t > 0) stage_step<true>(op, Cb, cb, Fb, jac, sh, t - 1, T, lane, lt);
+        cp_async_commit();
+      }
       // cb = C_t tau + c_t, from the staged C_t before Q replaces it
       if constexpr (!kHuber) {
         if (lane < kNT) {
@@ -610,54 +675,28 @@ __global__ void __launch_bounds__(kThreads)
         }
         __syncwarp();
       }
+      clk.mark(kPhStage);
+      const bool last = t == T - 1;
       if (last) {
         if (lane < kNT) qv[lane] = cbv;
       } else {
-        // W = V F_t, a row a lane
-        if (lane < kNS) {
-          float vr[kNS];
-#pragma unroll
-          for (int k = 0; k < kNS; ++k) vr[k] = Vs[lx * kSV + k];
-#pragma unroll 4
-          for (int j = 0; j < kNT; ++j) {
-            float s = vr[0] * Fs[j];
-#pragma unroll
-            for (int k = 1; k < kNS; ++k) s = s + vr[k] * Fs[k * kNT + j];
-            Ws[lane * kSQ + j] = s;
-          }
-        }
-        __syncwarp();
-        // Q = C_t + F_t^T W: row ``lane`` from its diagonal on, mirrored;
-        // q = cb + F_t^T v
-        if (lane < kNT) {
-          float fc[kNS];
-#pragma unroll
-          for (int k = 0; k < kNS; ++k) fc[k] = Fs[k * kNT + lt];
-          for (int j = lane; j < kNT; ++j) {
-            float s = fc[0] * Ws[j];
-#pragma unroll
-            for (int k = 1; k < kNS; ++k) s = s + fc[k] * Ws[k * kSQ + j];
-            const float qaj = Qs[lane * kSQ + j] + s;
-            Qs[lane * kSQ + j] = qaj;
-            Qs[j * kSQ + lane] = qaj;
-          }
-          float s = fc[0] * vv[0];
-#pragma unroll
-          for (int k = 1; k < kNS; ++k) s = s + fc[k] * vv[k];
-          qv[lane] = cbv + s;
-        }
+        products_W<kNS, kNT, kSV, kSF, kSW, kPrefetch>(Vs, Fs, Ws, lane);
+        clk.mark(kPhW);
+        // Q = C_t + F_t^T W; q = cb + F_t^T v
+        products_Q<kNS, kNT, kSF, kSW, kSQ, kPrefetch>(Fs, Ws, Qs, lane);
+        if (lane < kNT) qv[lane] = q_entry<kNS, kSF>(Fs, vv, cbv, lt);
       }
       __syncwarp();
+      clk.mark(kPhQ);
 
       if constexpr (kSmemCtrl) {
+        // ---- the control solve across the lanes (box_qp_smem.cuh): Quu
+        // read in place from Q's tile; lane i row i of the gains ---------
         float* Ls = sh + oL;
+        float* Li = sh + oLi;
         float* xq = sh + oQx;
-        // ---- the control solve on the warp's tiles (box_qp_smem.cuh):
-        // Quu read in place from Q's tile -------------------------------
         const float* Quu = Qs + kNS * kSQ + kNS;
         const float* qu = qv + kNS;
-        // lane j < n_state: column j of K from Qux's column j (masked)
-        float Kcol[kNC];
         unsigned fr = (1u << kNC) - 1u;
         if constexpr (!kHasBounds) {
           // a pinned control's row of k and K is zero (:1475-1503): the
@@ -666,20 +705,9 @@ __global__ void __launch_bounds__(kThreads)
             fr = __ballot_sync(0xffffffffu,
                                lane < kNC &&
                                    __ldg(uzb + t * op.sut + lc) < 0.5f);
-          cholesky_rows<kNC>(Quu, kSQ, kHasUz, fr, kHasUz ? 0.f : 1e-11f,
-                             Ls, kSL, lane);
-          if (lane == kNS) {
-            float v[kNC];
-#pragma unroll
-            for (int i = 0; i < kNC; ++i) v[i] = (fr >> i) & 1u ? qu[i] : 0.f;
-            chol_solve_reg<kNC>(Ls, kSL, v);
-            float* gk = gains + t * kGain + kNC * kNS;
-#pragma unroll
-            for (int i = 0; i < kNC; ++i) {
-              ks[i] = -v[i];
-              gk[i] = -v[i];
-            }
-          }
+          factor_lanes<kNC>(Quu, kSQ, kHasUz, fr, kHasUz ? 0.f : 1e-11f, Ls,
+                            kSL, Li, lane);
+          clk.mark(kPhFactor);
         } else {
           // the box narrowed by the trust region (:1513-1515)
           if (lane < kNC) {
@@ -691,82 +719,53 @@ __global__ void __launch_bounds__(kThreads)
           if (last) {
             // the unclamped solve that starts the search; later steps
             // start from the previous step's solution, left in x
-            cholesky_rows<kNC>(Quu, kSQ, false, fr, 1e-11f, Ls, kSL, lane);
-            if (lane == 0) {
-              float v[kNC];
-#pragma unroll
-              for (int i = 0; i < kNC; ++i) v[i] = qu[i];
-              chol_solve_reg<kNC>(Ls, kSL, v);
-#pragma unroll
-              for (int i = 0; i < kNC; ++i) xq[i] = -v[i];
-            }
+            factor_lanes<kNC>(Quu, kSQ, false, fr, 1e-11f, Ls, kSL, Li,
+                              lane);
+            float v[1] = {qu[lc]};
+            solve_lanes<kNC, 1>(Ls, kSL, Li, v, lane);
+            if (lane < kNC) xq[lane] = -v[0];
           }
           __syncwarp();
+          clk.mark(kPhFactor);
           float trips;
-          pnqp_rows<kNC>(Quu, kSQ, qu, sh + oQlo, sh + oQhi, xq, sh + oQg,
-                         sh + oQd, op.pnqp_iter, sched.qp_steps, lane, Ls,
-                         kSL, fr, trips);
+          pnqp_lanes<kNC>(Quu, kSQ, qu, sh + oQlo, sh + oQhi, xq, sh + oQd,
+                          op.pnqp_iter, sched.qp_steps, lane, Ls, kSL, Li,
+                          fr, trips, clk);
+          clk.mark(kPhQP);
           qp_cnt += trips;
           if (lane < kNC) {
             ks[lane] = xq[lane];
             gains[t * kGain + kNC * kNS + lane] = xq[lane];
           }
         }
-        if (lane < kNS) {
+        // the gains: lane i row i of K (Qux's row i, masked) and, without
+        // bounds, of k (qu_i masked)
+        constexpr int R = kNS + (kHasBounds ? 0 : 1);
+        const bool fi = (fr >> lc) & 1u;
+        float rhs[R];
 #pragma unroll
-          for (int i = 0; i < kNC; ++i)
-            Kcol[i] = (fr >> i) & 1u ? Qs[(kNS + i) * kSQ + lx] : 0.f;
-          chol_solve_reg<kNC>(Ls, kSL, Kcol);
+        for (int r = 0; r < kNS; ++r)
+          rhs[r] = fi ? Qs[(kNS + lc) * kSQ + r] : 0.f;
+        if constexpr (!kHasBounds) rhs[R - 1] = fi ? qu[lc] : 0.f;
+        solve_lanes<kNC, R>(Ls, kSL, Li, rhs, lane);
+        if (lane < kNC) {
           float* gK = gains + t * kGain;
 #pragma unroll
-          for (int i = 0; i < kNC; ++i) {
-            Ks[i * kNS + lane] = -Kcol[i];
-            gK[i * kNS + lane] = -Kcol[i];
+          for (int r = 0; r < kNS; ++r) {
+            Ks[lane * kNS + r] = -rhs[r];
+            gK[lane * kNS + r] = -rhs[r];
+          }
+          if constexpr (!kHasBounds) {
+            ks[lane] = -rhs[R - 1];
+            gK[kNC * kNS + lane] = -rhs[R - 1];
           }
         }
         __syncwarp();
-
-        // ---- the cost-to-go, as vv_update sums it, from the tiles -------
-        if (lane < kNS) {
-          for (int m = 0; m < kNC; ++m) {
-            const float* qr = Quu + m * kSQ;
-            float s = qr[0] * Ks[lx];
-            for (int mm = 1; mm < kNC; ++mm)
-              s = s + qr[mm] * Ks[mm * kNS + lx];
-            KQs[m * kNS + lane] = s;
-          }
-        }
-        __syncwarp();
-        if (lane < kNS) {
-          const int i = lx;
-          const float* qxu = Qs + i * kSQ + kNS;
-          for (int j = i; j < kNS; ++j) {
-            const float* qxj = Qs + j * kSQ + kNS;
-            float qk_ij = qxu[0] * Ks[j];
-            float qk_ji = qxj[0] * Ks[i];
-            float kqk = Ks[i] * KQs[j];
-            for (int m = 1; m < kNC; ++m) {
-              qk_ij = qk_ij + qxu[m] * Ks[m * kNS + j];
-              qk_ji = qk_ji + qxj[m] * Ks[m * kNS + i];
-              kqk = kqk + Ks[m * kNS + i] * KQs[m * kNS + j];
-            }
-            const float vn = ((Qs[i * kSQ + j] + qk_ij) + qk_ji) + kqk;
-            Vs[i * kSV + j] = vn;
-            Vs[j * kSV + i] = vn;
-          }
-          float s1 = qxu[0] * ks[0];
-          float s2 = 0.f;
-          for (int m = 0; m < kNC; ++m) {
-            if (m > 0) s1 = s1 + qxu[m] * ks[m];
-            const float* qr = Quu + m * kSQ;
-            float quk = qr[0] * ks[0];
-            for (int mm = 1; mm < kNC; ++mm) quk = quk + qr[mm] * ks[mm];
-            const float term = Ks[m * kNS + i] * (qu[m] + quk);
-            s2 = m == 0 ? term : s2 + term;
-          }
-          vv[i] = (qv[i] + s1) + s2;
-        }
-        __syncwarp();
+        clk.mark(kPhGains);
+        const float none2[1][1] = {{0.f}}, none1[1] = {0.f};
+        cost_to_go<kNS, kNC, kSQ, kSV, false>(Qs, qv, Ks, KQs, ks, none2,
+                                              none1, none1, Vs, vv, lane);
+        clk.mark(kPhCostToGo);
       } else {
         // ---- the control solve (every lane on the same registers) ------
         float Quu[kNC][kNC], qu[kNC], kt[kNC];
@@ -812,6 +811,7 @@ __global__ void __launch_bounds__(kThreads)
             } else {
               cholesky<kNC>(Quu, 1e-11f, L);
             }
+            clk.mark(kPhFactor);
             chol_solve<kNC>(L, qm, sol);
   #pragma unroll
             for (int i = 0; i < kNC; ++i) kt[i] = -sol[i];
@@ -848,8 +848,10 @@ __global__ void __launch_bounds__(kThreads)
   #pragma unroll
               for (int i = 0; i < kNC; ++i) kt[i] = prev_k[i];
             }
+            clk.mark(kPhFactor);
             pnqp<kNC>(Quu, qu, lo, hi, kt, op.pnqp_iter, sched.qp_steps, lane,
-                      L, fr, trips);
+                      L, fr, trips, clk);
+            clk.mark(kPhQP);
             qp_cnt += trips;
   #pragma unroll
             for (int i = 0; i < kNC; ++i) qx[i] = fr[i] ? qx[i] : 0.f;
@@ -876,57 +878,14 @@ __global__ void __launch_bounds__(kThreads)
           }
         }
         __syncwarp();
+        clk.mark(kPhGains);
 
-        // ---- the cost-to-go, as vv_update sums it ----------------------
-        if (lane < kNS) {
-  #pragma unroll
-          for (int m = 0; m < kNC; ++m) {
-            float s = Quu[m][0] * Ks[lx];
-  #pragma unroll
-            for (int mm = 1; mm < kNC; ++mm)
-              s = s + Quu[m][mm] * Ks[mm * kNS + lx];
-            KQs[m * kNS + lane] = s;
-          }
-        }
-        __syncwarp();
-        if (lane < kNS) {
-          const int i = lx;
-          float qxu[kNC], ki[kNC];
-  #pragma unroll
-          for (int m = 0; m < kNC; ++m) {
-            qxu[m] = Qs[i * kSQ + kNS + m];
-            ki[m] = Ks[m * kNS + i];
-          }
-          for (int j = i; j < kNS; ++j) {
-            float qk_ij = qxu[0] * Ks[j];
-            float qk_ji = Qs[j * kSQ + kNS] * ki[0];
-            float kqk = ki[0] * KQs[j];
-  #pragma unroll
-            for (int m = 1; m < kNC; ++m) {
-              qk_ij = qk_ij + qxu[m] * Ks[m * kNS + j];
-              qk_ji = qk_ji + Qs[j * kSQ + kNS + m] * ki[m];
-              kqk = kqk + ki[m] * KQs[m * kNS + j];
-            }
-            const float vn = ((Qs[i * kSQ + j] + qk_ij) + qk_ji) + kqk;
-            Vs[i * kSV + j] = vn;
-            Vs[j * kSV + i] = vn;
-          }
-          float s1 = qxu[0] * kt[0];
-          float s2 = 0.f;
-  #pragma unroll
-          for (int m = 0; m < kNC; ++m) {
-            if (m > 0) s1 = s1 + qxu[m] * kt[m];
-            float quk = Quu[m][0] * kt[0];
-  #pragma unroll
-            for (int mm = 1; mm < kNC; ++mm) quk = quk + Quu[m][mm] * kt[mm];
-            const float term = ki[m] * (qu[m] + quk);
-            s2 = m == 0 ? term : s2 + term;
-          }
-          vv[i] = (qv[i] + s1) + s2;
-        }
-        __syncwarp();
+        cost_to_go<kNS, kNC, kSQ, kSV, true>(Qs, qv, Ks, KQs, ks, Quu, qu,
+                                             kt, Vs, vv, lane);
+        clk.mark(kPhCostToGo);
       }
     }
+
 
     // ---- the line search: trial rollouts into the other slot; the first
     // passing step size, else the last, becomes the trajectory ----------
@@ -993,6 +952,7 @@ __global__ void __launch_bounds__(kThreads)
         break;
       }
     }
+    clk.mark(kPhRollout);
 
     // ---- best tracking and stopping ----------------------------------
     const bool improved = sel_cost <= best_cost + op.best_cost_eps;
@@ -1015,6 +975,7 @@ __global__ void __launch_bounds__(kThreads)
     alpha_sel = sel_alpha;
     n_it += 1.f;
     cost_cur = sel_cost;
+    clk.mark(kPhOther);
     if (!(cur_du >= op.eps && nni <= op.not_improved_lim)) break;
   }
 
@@ -1026,6 +987,8 @@ __global__ void __launch_bounds__(kThreads)
     op.stats[4 * B + b] = alpha_sel;
     op.stats[5 * B + b] = n_trials;
   }
+  clk.mark(kPhOther);
+  clk.write(op.clocks, b);
 }
 
 }  // namespace mpc
@@ -1042,7 +1005,7 @@ extern "C" int mpc_fused_ilqr_dense(
     long long sut, long long sub, float delta, const float* alphas,
     int n_alpha, int lqr_iter, int pnqp_iter, float eps, float best_cost_eps,
     float not_improved_lim, float* ws, int smem_bytes, float* x_out,
-    float* u_out, float* stats, void* stream) {
+    float* u_out, float* stats, long long* clocks, void* stream) {
   using namespace mpc;
   if (B <= 0 || T <= 0 || n_alpha <= 0 || n_alpha > kMaxAlpha ||
       lqr_iter < 0 || pnqp_iter < 0 || ws == nullptr ||
@@ -1055,7 +1018,8 @@ extern "C" int mpc_fused_ilqr_dense(
       (kHuber ? (cost == nullptr || C != nullptr || c != nullptr)
               : (C == nullptr || c == nullptr)) ||
       (kMLP ? n_sizes != kDepth + 2 || nn_sizes == nullptr
-            : n_sizes != 0))
+            : n_sizes != 0) ||
+      (clocks != nullptr) != kPhaseClocks)
     return (int)cudaErrorInvalidValue;
   // the MLP build: its widths (the model's n_in and n_out are the build's),
   // the weights' copy above the warps' tiles and scratch
@@ -1065,7 +1029,9 @@ extern "C" int mpc_fused_ilqr_dense(
     if (!mlp_layout(nn_sizes, kDepth, nn_pass != 0, nn) ||
         nn.size[0] != kNSI + kNC || nn.size[kDepth + 1] != kNSI)
       return (int)cudaErrorInvalidValue;
-    warp_floats = kWarpFloats + nn.scratch;
+    // a warp's region starts 16-byte aligned in the prefetching layout
+    warp_floats = kWarpFloats + (kPrefetch ? (nn.scratch + 3) / 4 * 4
+                                           : nn.scratch);
     smem_floats = kWarps * warp_floats + nn.floats;
   }
   if (smem_bytes != smem_floats * (int)sizeof(float))
@@ -1139,6 +1105,7 @@ extern "C" int mpc_fused_ilqr_dense(
   op.x_out = x_out;
   op.u_out = u_out;
   op.stats = stats;
+  op.clocks = clocks;
   const int blocks = (B + kWarps - 1) / kWarps;
   fused_ilqr_dense_kernel<<<blocks, kThreads, smem_bytes,
                             (cudaStream_t)stream>>>(op, sched);

@@ -24,25 +24,32 @@
 // B=1024) ~0.9 M operations an example against ~4 MB in and out, so the
 // bound is the card's float32 rate (fused_bwd_dense.k4d_flops,
 // k4d_bytes).  The recursions are chains over t per example, so the
-// card needs many examples in flight, and only the three true
-// recurrences belong on a chain.
+// card needs many examples in flight, only the three true recurrences
+// belong on a chain, and a step costs the latency of its phases: the
+// phase account (MPC_PHASE_CLOCKS; PERF.md section 6) put the
+// products at 38% of the chains' cycles at 20s4c and the control
+// block's factor at 42% at 4s12c.
 //
 // What the design does about it.
 //
-// - THE CHAINS, ONE WARP AN EXAMPLE (kkt_bwd_dense_chains), laid out as
-//   the dense forward's Riccati sweep (fused_ilqr_dense.cu): lane r owns
-//   row r of V, Q and W, the warp's tiles sit in shared memory with rows
-//   of odd stride, and the lanes meet by __syncwarp between a step's
-//   phases.  The control solve of a step runs in every lane on registers
-//   with the same bits (box_qp.cuh's cholesky, chol_solve and
-//   masked_free_chol) up to kRegCtrlMax = 8 controls, past that on the
-//   warp's tiles (box_qp_smem.cuh: Quu read in place from Q's tile, the
-//   factor a tile of its own); lane j computes column j of the gains.  Then the
-//   differential rollout (lane i state i, the controls on lanes n_state..)
-//   and the costates lam and dlam (lane i row i), the second beside the
-//   first.  The gains, dtau, lam and dlam of each step go to a workspace
-//   in global memory (written and read by the same warp; a warp's tiles
-//   hold one step, and T steps of a 24-state example would not fit).
+// - THE CHAINS, ONE WARP AN EXAMPLE (kkt_bwd_dense_chains), the dense
+//   forward's Riccati step (riccati_dense.cuh, the same code): W = V F
+//   and Q's upper triangle as register tiles, the next step's C and F in
+//   flight by cp.async where a second set of tiles pays
+//   (fused_bwd_dense.bwd_dense_prefetch), the cost-to-go a row a lane.
+//   The control solve of a step runs in every lane on registers with the
+//   same bits (box_qp.cuh's cholesky, chol_solve and masked_free_chol) up
+//   to kRegCtrlMax = 8 controls (lane j column j of the gains), past that
+//   across the lanes (box_qp_smem.cuh: Quu read in place from Q's tile,
+//   lane i row i of the right-looking factor and of the gains' solves,
+//   all n_state + 1 right-hand sides at once).  Up to 4 controls a build
+//   keeps to 128 registers a lane (4 blocks an SM).  Then the
+//   differential rollout (lane i state i, the controls on lanes
+//   n_state..) and the costates lam and dlam (lane i row i), the second
+//   beside the first.  The gains, dtau, lam and dlam of each step go to a
+//   workspace in global memory (written and read by the same warp; a
+//   warp's tiles hold one step, and T steps of a 24-state example would
+//   not fit).
 // - THE GRADIENTS, A PASS PARALLEL OVER t (kkt_bwd_dense_grads): a block
 //   for each step and chunk of K4D_CHUNK examples copies the chunk's
 //   tau, dtau, lam' and dlam' to shared memory and writes every
@@ -73,6 +80,8 @@
 
 #include "box_qp.cuh"
 #include "box_qp_smem.cuh"
+#include "phase_clock.cuh"
+#include "riccati_dense.cuh"
 
 #if !defined(MPC_NS) || !defined(MPC_NC) || !defined(MPC_HAS_I) || \
     !defined(MPC_HAS_F) || !defined(MPC_WARPS) || !defined(MPC_CHUNK) || \
@@ -94,14 +103,29 @@ constexpr int kGradThreads = MPC_GRAD_THREADS;
 static_assert(kNS >= 1 && kNC >= 1 && kNT <= 32,
               "a warp an example: n_state + n_ctrl <= 32");
 
-// a warp's tiles (floats): rows of odd stride
-constexpr int kSQ = kNT | 1;
-constexpr int kSV = kNS | 1;
-constexpr int oQ = 0;                       // C_t, then Q_t   [kNT][kSQ]
-constexpr int oW = oQ + kNT * kSQ;          // W = V F         [kNS][kSQ]
-constexpr int oF = oW + kNS * kSQ;          // F_t             [kNS][kNT]
-constexpr int oV = oF + kNS * kNT;          // V               [kNS][kSV]
-constexpr int oQv = oV + kNS * kSV;         // q               [kNT]
+// 1: the prefetching layout (a second set of C and F tiles, the rows of
+// F, W and V 16-byte aligned); 0: one set, the lane-a-row design's
+// strides (fused_bwd_dense.bwd_dense_kernel_defines decides, as the
+// forward's host does)
+#ifndef MPC_PREFETCH
+#define MPC_PREFETCH 0
+#endif
+constexpr bool kPrefetch = MPC_PREFETCH != 0;
+constexpr int kBufs = kPrefetch ? 2 : 1;
+// a warp's tiles (floats), riccati_dense.cuh's strides, the aligned tiles
+// first
+using Strides = RiccatiStrides<kNS, kNT, kPrefetch>;
+constexpr int kSQ = Strides::kSQ;
+constexpr int kSW = Strides::kSW;
+constexpr int kSF = Strides::kSF;
+constexpr int kSV = Strides::kSV;
+constexpr int kQT = kNT * kSQ;              // a Q tile
+constexpr int kFT = kNS * kSF;              // an F tile
+constexpr int oF = 0;                       // F_t             [kBufs][kNS][kSF]
+constexpr int oW = oF + kBufs * kFT;        // W = V F         [kNS][kSW]
+constexpr int oV = oW + kNS * kSW;          // V               [kNS][kSV]
+constexpr int oQ = oV + kNS * kSV;          // C_t, then Q_t   [kBufs][kNT][kSQ]
+constexpr int oQv = oQ + kBufs * kQT;       // q               [kNT]
 constexpr int oTau = oQv + kNT;             // tau_t           [kNT]
 constexpr int oDt = oTau + kNT;             // dtau_t          [kNT]
 constexpr int oVv = oDt + kNT;              // v               [kNS]
@@ -115,8 +139,11 @@ constexpr int oKk = oKQ + kNC * kNS;        // k_t             [kNC]
 constexpr bool kSmemCtrl = kNC > kRegCtrlMax;
 constexpr int kSL = odd_stride(kNC);
 constexpr int oL = oKk + kNC;               // L               [kNC][kSL]
-constexpr int kCtrlFloats = kSmemCtrl ? kNC * kSL : 0;
-constexpr int kWarpFloats = (oKk + kNC + kCtrlFloats + 3) / 4 * 4;
+constexpr int oLi = oL + kNC * kSL;         // 1 / L_kk        [kNC]
+constexpr int kCtrlFloats = kSmemCtrl ? kNC * kSL + kNC : 0;
+// the phase account's counters (phase_clock.cuh; none but in its build)
+constexpr int oClk = (oKk + kNC + kCtrlFloats + 3) / 4 * 4;
+constexpr int kWarpFloats = oClk + kClockFloats;
 // the gains of a step in the workspace: K (kNC x kNS), then k
 constexpr int kGain = kNC * (kNS + 1);
 // a gradient block's copy of its chunk: tau, dtau [kChunk][kNT], then
@@ -153,9 +180,31 @@ struct Operands {
   float* part_cost;  // [chunks][T][kCostRow] where C or c is shared
   float* part_dyn;   // [chunks][T-1][kDynRow] where F or f is shared
   int chunks;
+  long long* clocks; // [B][kPhases]: MPC_PHASE_CLOCKS only
 };
 
-__global__ void __launch_bounds__(kThreads)
+// Up to 16 controls a warp's work is held to 128 registers a lane, so
+// that four blocks of 128 threads share an SM (B = 2048, 512 blocks, then
+// runs in one wave on 132 SMs; at three blocks an SM a second wave of 116
+// blocks costs more than the few spilled registers); the corners past it
+// take what their solve needs.
+constexpr int kMinBlocks = kNC <= 16 ? 4 : 1;
+
+// Step t's C_t and F_t (t < T - 1) into its set of tiles (t % kBufs): in
+// flight with Async (the next step's while this one runs), else read now.
+template <bool Async>
+__device__ __forceinline__ void stage_step(const Operands& op,
+                                           const float* Cb, const float* Fb,
+                                           float* sh, int t, int T, int lane) {
+  const int buf = kPrefetch ? (t & 1) : 0;
+  stage_tile<kNT, kNT, kSQ, Async, true>(sh + oQ + buf * kQT,
+                                         Cb + t * op.sCt, lane);
+  if (t < T - 1)
+    stage_tile<kNS, kNT, kSF, Async, true>(sh + oF + buf * kFT,
+                                           Fb + t * op.sFt, lane);
+}
+
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
     kkt_bwd_dense_chains(const Operands op) {
   extern __shared__ float smem[];
   const int lane = threadIdx.x & 31;
@@ -169,10 +218,10 @@ __global__ void __launch_bounds__(kThreads)
   if (b >= op.B) return;  // the whole warp: nothing below syncs the block
   const int T = op.T, B = op.B;
   float* sh = smem + (threadIdx.x >> 5) * kWarpFloats;
-  float* Qs = sh + oQ;
-  float* Ws = sh + oW;
-  float* Fs = sh + oF;
-  float* Vs = sh + oV;
+  PhaseClock clk;
+  clk.start(sh + oClk);
+  float* const Ws = sh + oW;
+  float* const Vs = sh + oV;
   float* qv = sh + oQv;
   float* taus = sh + oTau;
   float* dts = sh + oDt;
@@ -188,137 +237,80 @@ __global__ void __launch_bounds__(kThreads)
   const float* Fb = op.F + b * op.sFb;
 
   // ---- the differential Riccati recursion on (C, -r), t = T-1 .. 0 -----
+  if constexpr (kPrefetch) {
+    stage_step<true>(op, Cb, Fb, sh, T - 1, T, lane);
+    cp_async_commit();
+  }
   for (int t = T - 1; t >= 0; --t) {
-    const float* Ct = Cb + t * op.sCt;
-    for (int e = lane; e < kNT * kNT; e += 32)
-      Qs[(e / kNT) * kSQ + e % kNT] = __ldg(Ct + e);
+    const int buf = kPrefetch ? (t & 1) : 0;
+    float* const Qs = sh + oQ + buf * kQT;
+    const float* const Fs = sh + oF + buf * kFT;
+    if constexpr (kPrefetch)
+      cp_async_wait_all();
+    else
+      stage_step<false>(op, Cb, Fb, sh, t, T, lane);
     const bool last = t == T - 1;
-    if (!last) {
-      const float* Ft = Fb + t * op.sFt;
-      for (int e = lane; e < kNS * kNT; e += 32) Fs[e] = __ldg(Ft + e);
-    }
     // -r_t, this lane's row
     const int tb = t * B + b;
     const float mr = lane < kNS ? -__ldg(op.gx + tb * kNS + lx)
                                 : -__ldg(op.gu + tb * kNC + lu);
     __syncwarp();
+    if constexpr (kPrefetch) {
+      if (t > 0) stage_step<true>(op, Cb, Fb, sh, t - 1, T, lane);
+      cp_async_commit();
+    }
+    clk.mark(kPhStage);
     if (last) {
       if (lane < kNT) qv[lane] = mr;
     } else {
-      // W = V F_t, a row a lane
-      if (lane < kNS) {
-        float vr[kNS];
-#pragma unroll
-        for (int k = 0; k < kNS; ++k) vr[k] = Vs[lx * kSV + k];
-#pragma unroll 4
-        for (int j = 0; j < kNT; ++j) {
-          float s = vr[0] * Fs[j];
-#pragma unroll
-          for (int k = 1; k < kNS; ++k) s = s + vr[k] * Fs[k * kNT + j];
-          Ws[lane * kSQ + j] = s;
-        }
-      }
-      __syncwarp();
-      // Q = C_t + F_t^T W: row ``lane`` from its diagonal on, mirrored;
-      // q = -r_t + F_t^T v
-      if (lane < kNT) {
-        float fc[kNS];
-#pragma unroll
-        for (int k = 0; k < kNS; ++k) fc[k] = Fs[k * kNT + lt];
-        for (int j = lane; j < kNT; ++j) {
-          float s = fc[0] * Ws[j];
-#pragma unroll
-          for (int k = 1; k < kNS; ++k) s = s + fc[k] * Ws[k * kSQ + j];
-          const float qaj = Qs[lane * kSQ + j] + s;
-          Qs[lane * kSQ + j] = qaj;
-          Qs[j * kSQ + lane] = qaj;
-        }
-        float s = fc[0] * vv[0];
-#pragma unroll
-        for (int k = 1; k < kNS; ++k) s = s + fc[k] * vv[k];
-        qv[lane] = mr + s;
-      }
+      products_W<kNS, kNT, kSV, kSF, kSW, kPrefetch>(Vs, Fs, Ws, lane);
+      clk.mark(kPhW);
+      // Q = C_t + F_t^T W; q = -r_t + F_t^T v
+      products_Q<kNS, kNT, kSF, kSW, kSQ, kPrefetch>(Fs, Ws, Qs, lane);
+      if (lane < kNT) qv[lane] = q_entry<kNS, kSF>(Fs, vv, mr, lt);
     }
     __syncwarp();
+    clk.mark(kPhQ);
 
     if constexpr (kSmemCtrl) {
-      // ---- the control solve on the warp's tiles (box_qp_smem.cuh):
-      // Quu read in place from Q's tile, the pinned controls' rows and
-      // columns masked out of the factor (no jitter), else a 1e-11 jitter
+      // ---- the control solve across the lanes (box_qp_smem.cuh): Quu
+      // read in place from Q's tile, the pinned controls' rows and
+      // columns masked out of the factor (no jitter), else a 1e-11
+      // jitter; lane i row i of K and k
       float* Ls = sh + oL;
+      float* Li = sh + oLi;
       const float* Quu = Qs + kNS * kSQ + kNS;
       const float* qu = qv + kNS;
       unsigned fr = (1u << kNC) - 1u;
       if constexpr (kHasI)
         fr = __ballot_sync(0xffffffffu,
                            lane < kNC && __ldg(op.I + tb * kNC + lc) < 0.5f);
-      cholesky_rows<kNC>(Quu, kSQ, kHasI, fr, kHasI ? 0.f : 1e-11f, Ls, kSL,
-                         lane);
-      float* gK = gains + t * kGain;
-      float v[kNC];
-      if (lane < kNS) {
-        // lane j: column j of K from Qux's column j
+      factor_lanes<kNC>(Quu, kSQ, kHasI, fr, kHasI ? 0.f : 1e-11f, Ls, kSL,
+                        Li, lane);
+      clk.mark(kPhFactor);
+      const bool fi = (fr >> lc) & 1u;
+      float rhs[kNS + 1];
 #pragma unroll
-        for (int i = 0; i < kNC; ++i)
-          v[i] = (fr >> i) & 1u ? Qs[(kNS + i) * kSQ + lx] : 0.f;
-        chol_solve_reg<kNC>(Ls, kSL, v);
+      for (int r = 0; r < kNS; ++r)
+        rhs[r] = fi ? Qs[(kNS + lc) * kSQ + r] : 0.f;
+      rhs[kNS] = fi ? qu[lc] : 0.f;
+      solve_lanes<kNC, kNS + 1>(Ls, kSL, Li, rhs, lane);
+      if (lane < kNC) {
+        float* gK = gains + t * kGain;
 #pragma unroll
-        for (int i = 0; i < kNC; ++i) {
-          Ks[i * kNS + lane] = -v[i];
-          gK[i * kNS + lane] = -v[i];
+        for (int r = 0; r < kNS; ++r) {
+          Ks[lane * kNS + r] = -rhs[r];
+          gK[lane * kNS + r] = -rhs[r];
         }
-      } else if (lane == kNS) {
-#pragma unroll
-        for (int i = 0; i < kNC; ++i) v[i] = (fr >> i) & 1u ? qu[i] : 0.f;
-        chol_solve_reg<kNC>(Ls, kSL, v);
-#pragma unroll
-        for (int i = 0; i < kNC; ++i) {
-          ks[i] = -v[i];
-          gK[kNC * kNS + i] = -v[i];
-        }
+        ks[lane] = -rhs[kNS];
+        gK[kNC * kNS + lane] = -rhs[kNS];
       }
       __syncwarp();
-
-      // ---- the cost-to-go, as _bwd_vv_update sums it, from the tiles ---
-      if (lane < kNS) {
-        for (int m = 0; m < kNC; ++m) {
-          const float* qr = Quu + m * kSQ;
-          float s = qr[0] * Ks[lx];
-          for (int mm = 1; mm < kNC; ++mm) s = s + qr[mm] * Ks[mm * kNS + lx];
-          KQs[m * kNS + lane] = s;
-        }
-      }
-      __syncwarp();
-      if (lane < kNS) {
-        const int i = lx;
-        const float* qxu = Qs + i * kSQ + kNS;
-        for (int j = i; j < kNS; ++j) {
-          const float* qxj = Qs + j * kSQ + kNS;
-          float qk_ij = qxu[0] * Ks[j];
-          float qk_ji = qxj[0] * Ks[i];
-          float kqk = Ks[i] * KQs[j];
-          for (int m = 1; m < kNC; ++m) {
-            qk_ij = qk_ij + qxu[m] * Ks[m * kNS + j];
-            qk_ji = qk_ji + qxj[m] * Ks[m * kNS + i];
-            kqk = kqk + Ks[m * kNS + i] * KQs[m * kNS + j];
-          }
-          const float vn = ((Qs[i * kSQ + j] + qk_ij) + qk_ji) + kqk;
-          Vs[i * kSV + j] = vn;
-          Vs[j * kSV + i] = vn;
-        }
-        float s1 = qxu[0] * ks[0];
-        float s2 = 0.f;
-        for (int m = 0; m < kNC; ++m) {
-          if (m > 0) s1 = s1 + qxu[m] * ks[m];
-          const float* qr = Quu + m * kSQ;
-          float quk = qr[0] * ks[0];
-          for (int mm = 1; mm < kNC; ++mm) quk = quk + qr[mm] * ks[mm];
-          const float term = Ks[m * kNS + i] * (qu[m] + quk);
-          s2 = m == 0 ? term : s2 + term;
-        }
-        vv[i] = (qv[i] + s1) + s2;
-      }
-      __syncwarp();
+      clk.mark(kPhGains);
+      const float none2[1][1] = {{0.f}}, none1[1] = {0.f};
+      cost_to_go<kNS, kNC, kSQ, kSV, false>(Qs, qv, Ks, KQs, ks, none2, none1,
+                                            none1, Vs, vv, lane);
+      clk.mark(kPhCostToGo);
     } else {
       // ---- the control solve (every lane on the same registers) --------
       float Quu[kNC][kNC], qu[kNC], kt[kNC], qx[kNC], Kcol[kNC];
@@ -341,6 +333,7 @@ __global__ void __launch_bounds__(kThreads)
         } else {
           float L[kNC][kNC], rhs[kNC], sol[kNC];
           masked_free_chol<kNC>(Quu, fr, L);
+          clk.mark(kPhFactor);
   #pragma unroll
           for (int i = 0; i < kNC; ++i) rhs[i] = fr[i] ? qu[i] : 0.f;
           chol_solve<kNC>(L, rhs, sol);
@@ -360,6 +353,7 @@ __global__ void __launch_bounds__(kThreads)
       } else {
         float L[kNC][kNC], sol[kNC];
         cholesky<kNC>(Quu, 1e-11f, L);
+        clk.mark(kPhFactor);
         chol_solve<kNC>(L, qu, sol);
   #pragma unroll
         for (int i = 0; i < kNC; ++i) kt[i] = -sol[i];
@@ -383,55 +377,11 @@ __global__ void __launch_bounds__(kThreads)
         }
       }
       __syncwarp();
+      clk.mark(kPhGains);
 
-      // ---- the cost-to-go, as _bwd_vv_update sums it --------------------
-      if (lane < kNS) {
-  #pragma unroll
-        for (int m = 0; m < kNC; ++m) {
-          float s = Quu[m][0] * Ks[lx];
-  #pragma unroll
-          for (int mm = 1; mm < kNC; ++mm)
-            s = s + Quu[m][mm] * Ks[mm * kNS + lx];
-          KQs[m * kNS + lane] = s;
-        }
-      }
-      __syncwarp();
-      if (lane < kNS) {
-        const int i = lx;
-        float qxu[kNC], ki[kNC];
-  #pragma unroll
-        for (int m = 0; m < kNC; ++m) {
-          qxu[m] = Qs[i * kSQ + kNS + m];
-          ki[m] = Ks[m * kNS + i];
-        }
-        for (int j = i; j < kNS; ++j) {
-          float qk_ij = qxu[0] * Ks[j];
-          float qk_ji = Qs[j * kSQ + kNS] * ki[0];
-          float kqk = ki[0] * KQs[j];
-  #pragma unroll
-          for (int m = 1; m < kNC; ++m) {
-            qk_ij = qk_ij + qxu[m] * Ks[m * kNS + j];
-            qk_ji = qk_ji + Qs[j * kSQ + kNS + m] * ki[m];
-            kqk = kqk + ki[m] * KQs[m * kNS + j];
-          }
-          const float vn = ((Qs[i * kSQ + j] + qk_ij) + qk_ji) + kqk;
-          Vs[i * kSV + j] = vn;
-          Vs[j * kSV + i] = vn;
-        }
-        float s1 = qxu[0] * kt[0];
-        float s2 = 0.f;
-  #pragma unroll
-        for (int m = 0; m < kNC; ++m) {
-          if (m > 0) s1 = s1 + qxu[m] * kt[m];
-          float quk = Quu[m][0] * kt[0];
-  #pragma unroll
-          for (int mm = 1; mm < kNC; ++mm) quk = quk + Quu[m][mm] * kt[mm];
-          const float term = ki[m] * (qu[m] + quk);
-          s2 = m == 0 ? term : s2 + term;
-        }
-        vv[i] = (qv[i] + s1) + s2;
-      }
-      __syncwarp();
+      cost_to_go<kNS, kNC, kSQ, kSV, true>(Qs, qv, Ks, KQs, ks, Quu, qu, kt,
+                                           Vs, vv, lane);
+      clk.mark(kPhCostToGo);
     }
   }
 
@@ -517,6 +467,8 @@ __global__ void __launch_bounds__(kThreads)
     __syncwarp();
   }
   if (lane < kNS) op.dxi[b * kNS + lane] = -dlam;
+  clk.mark(kPhRollout);
+  clk.write(op.clocks, b);
 }
 
 // the gradients of step t (blockIdx.x) for the chunk blockIdx.y
@@ -674,7 +626,7 @@ extern "C" int mpc_fused_kkt_bwd_dense(
     const float* gx, const float* gu, const float* I, int f_shared,
     float* ws, int smem_bytes, int grad_smem_bytes, float* dxi, float* dC,
     float* dc, float* dF, float* df, float* part_cost, float* part_dyn,
-    void* stream) {
+    long long* clocks, int parts, void* stream) {
   using namespace mpc;
   const int chunks = B > 0 ? (B + kChunk - 1) / kChunk : 0;
   const bool cost_red = sCb == 0 || scb == 0;
@@ -688,7 +640,9 @@ extern "C" int mpc_fused_kkt_bwd_dense(
       (dyn_red && part_dyn == nullptr) ||
       smem_bytes != kWarps * kWarpFloats * (int)sizeof(float) ||
       grad_smem_bytes != kGradFloats * (int)sizeof(float) ||
-      grad_smem_bytes > 48 * 1024 || chunks > 65535)
+      grad_smem_bytes > 48 * 1024 || chunks > 65535 ||
+      (clocks != nullptr) != kPhaseClocks || parts < 1 || parts > 7 ||
+      (!kPhaseClocks && parts != 7))
     return (int)cudaErrorInvalidValue;
   // 32-bit indices: the largest offset of each array
   const long long last = T - 1, lastb = B - 1, big = 1LL << 31;
@@ -741,16 +695,25 @@ extern "C" int mpc_fused_kkt_bwd_dense(
   op.part_cost = cost_red ? part_cost : nullptr;
   op.part_dyn = dyn_red ? part_dyn : nullptr;
   op.chunks = chunks;
+  op.clocks = clocks;
+  // ``parts`` (bits: 1 the chains, 2 the gradient pass, 4 the chunk-order
+  // sums) is 7 but in the clocked build, whose account times the three
+  // launches apart
   cudaStream_t s = (cudaStream_t)stream;
-  kkt_bwd_dense_chains<<<(B + kWarps - 1) / kWarps, kThreads, smem_bytes,
-                         s>>>(op);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  kkt_bwd_dense_grads<<<dim3(T, chunks), kGradThreads, grad_smem_bytes, s>>>(
-      op);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  if (cost_red || dyn_red) {
+  cudaError_t err = cudaSuccess;
+  if (parts & 1) {
+    kkt_bwd_dense_chains<<<(B + kWarps - 1) / kWarps, kThreads, smem_bytes,
+                           s>>>(op);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (parts & 2) {
+    kkt_bwd_dense_grads<<<dim3(T, chunks), kGradThreads, grad_smem_bytes,
+                          s>>>(op);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  if ((parts & 4) && (cost_red || dyn_red)) {
     const int n = T * kCostRow + (T - 1) * kDynRow;
     int blocks = (n + 255) / 256;
     if (blocks > 1024) blocks = 1024;

@@ -16,6 +16,8 @@ import hashlib
 import os
 import shutil
 import subprocess
+import uuid
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / 'csrc'
@@ -50,35 +52,55 @@ def _library_path(name, defines) -> Path:
     return BUILD_DIR / f'{name}-{h.hexdigest()[:16]}.so'
 
 
+def start(specs, niceness=0, jobs=None):
+    """Start nvcc for every (name, defines) in ``specs`` that is not built
+    yet, one process each, at most ``jobs`` at a time (all together by
+    default), at ``niceness`` (19: the lowest priority, so that the
+    caller's processes keep their cores); ``finish`` waits for them."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    paths = [_library_path(n, d) for n, d in specs]
+    todo = [(name, defines, lib) for (name, defines), lib in zip(specs, paths)
+            if not lib.exists()]
+    pool = ThreadPoolExecutor(max_workers=max(1, jobs or len(todo)))
+    futures = [pool.submit(_nvcc, *t, niceness) for t in todo]
+    pool.shutdown(wait=False)
+    return paths, futures
+
+
+def _nvcc(name, defines, lib, niceness):
+    """One build; returns its log where it failed, else None."""
+    # unique, so that two builds of one library never share a file
+    tmp = lib.with_name(f'{lib.name}.{os.getpid()}.{uuid.uuid4().hex[:8]}.tmp')
+    cmd = [nvcc(), *NVCC_FLAGS,
+           *(f'-D{k}={v}' for k, v in sorted(defines.items())),
+           '-o', str(tmp), str(CSRC / f'{name}.cu')]
+    if niceness and shutil.which('nice'):
+        cmd = ['nice', '-n', str(niceness), *cmd]
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                          stderr=subprocess.STDOUT, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        return f'{lib.name}:\n{proc.stdout}'
+    lib.with_suffix('.ptxas.txt').write_text(proc.stdout)
+    os.replace(tmp, lib)
+    return None
+
+
+def finish(started):
+    """Wait for the builds of ``start``; a failed build raises.  Returns
+    the library paths in order."""
+    paths, futures = started
+    failures = [f for f in (fut.result() for fut in futures) if f]
+    if failures:
+        raise RuntimeError('nvcc failed:\n' + '\n'.join(failures))
+    return paths
+
+
 def build(specs):
     """Build every (name, defines) in ``specs`` that is not built yet,
     one nvcc process each, all started together.  Returns the library
     paths in order."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    paths = [_library_path(n, d) for n, d in specs]
-    procs = []
-    for (name, defines), lib in zip(specs, paths):
-        if lib.exists():
-            continue
-        tmp = lib.with_name(f'{lib.name}.{os.getpid()}.tmp')
-        cmd = [nvcc(), *NVCC_FLAGS,
-               *(f'-D{k}={v}' for k, v in sorted(defines.items())),
-               '-o', str(tmp), str(CSRC / f'{name}.cu')]
-        procs.append((lib, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)))
-    failures = []
-    for lib, tmp, proc in procs:
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            failures.append(f'{lib.name}:\n{log}')
-            continue
-        lib.with_suffix('.ptxas.txt').write_text(log)
-        os.replace(tmp, lib)
-    if failures:
-        raise RuntimeError('nvcc failed:\n' + '\n'.join(failures))
-    return paths
+    return finish(start(specs))
 
 
 def ptxas_report(name, defines) -> str:

@@ -442,6 +442,21 @@ def _k3d_cuda(F, f, C, c, x0, u0, lb, ub, alphas, lqr_iter, eps,
     """Allocate the workspace of ``fused_dense.k3d_launch`` and launch
     csrc/fused_ilqr_dense.cu (the launcher refuses, as an invalid value,
     an array or a workspace too large for its 32-bit indices)."""
+    return k3d_run(F, f, C, c, x0, u0, lb, ub, alphas, lqr_iter, eps,
+                      best_cost_eps, not_improved_lim, pnqp_iter, model,
+                      slew, params, cost_params, uz, delta_u, nn_sizes,
+                      activation, passthrough)[:3]
+
+
+def k3d_run(F, f, C, c, x0, u0, lb, ub, alphas, lqr_iter, eps,
+            best_cost_eps, not_improved_lim, pnqp_iter, model='',
+            slew=False, params=None, cost_params=None, uz=None,
+            delta_u=None, nn_sizes=None, activation='', passthrough=False,
+            clocks=False):
+    """The launch of ``k3d_solve`` on the card: (x, u, stats, clocks).
+    With ``clocks`` the build of the phase account (MPC_PHASE_CLOCKS,
+    utils/phase_account.py), its cycles [B, len(fused_dense.PHASES)] of
+    int64 returned and its launch not counted; else clocks is None."""
     T, B, nc = u0.shape
     if x0.dim() != 2:
         raise ValueError('the dense kernel takes x0 [B, n_state]')
@@ -479,15 +494,17 @@ def _k3d_cuda(F, f, C, c, x0, u0, lb, ub, alphas, lqr_iter, eps,
     if pnqp_iter < 0:
         raise ValueError('pnqp_iter must not be negative')
     geo = fused_dense.k3d_launch(T, B, ns, nc, len(alphas), bool(model),
-                                 mlp[0] if mlp else None)
+                                 mlp[0] if mlp else None, clocks)
     fn = fused_dense.kernel_lib(ns, nc, has_bounds, f is not None,
                                 model or None, slew, huber, uz is not None,
-                                mlp)
+                                mlp, clocks)
     empty = functools.partial(torch.empty, dtype=torch.float32,
                               device=x0.device)
     x, u, stats = empty((T, B, ns)), empty((T, B, nc)), empty((6, B))
+    cyc = torch.zeros((B, len(fused_dense.PHASES)), dtype=torch.int64,
+                      device=x0.device) if clocks else None
     if B == 0:
-        return x, u, stats
+        return x, u, stats, cyc
     ws = empty((geo['workspace_bytes'] // 4,))
     a_host = (ctypes.c_float * len(alphas))(*alphas)
     sizes = mlp[0] if mlp else ()
@@ -505,12 +522,14 @@ def _k3d_cuda(F, f, C, c, x0, u0, lb, ub, alphas, lqr_iter, eps,
                  *mask, a_host, len(alphas), int(lqr_iter), int(pnqp_iter),
                  float(eps), float(best_cost_eps), float(not_improved_lim),
                  ws.data_ptr(), geo['smem_bytes'], x.data_ptr(),
-                 u.data_ptr(), stats.data_ptr(), stream)
+                 u.data_ptr(), stats.data_ptr(),
+                 cyc.data_ptr() if clocks else None, stream)
     if err != 0:
         raise RuntimeError('the dense kernel\'s launch failed with '
                            f'cudaError_t {err}')
-    fused.launch_counts['fused_ilqr_dense'] += 1
-    return x, u, stats
+    if not clocks:
+        fused.launch_counts['fused_ilqr_dense'] += 1
+    return x, u, stats, cyc
 
 
 # ---------------------------------------------------------------------------
@@ -717,6 +736,19 @@ def _k4d_cuda(C, c, F, x_star, u_star, dl_dx, dl_du, I_mask, has_f,
     partial sums of the shared leaves, and launch
     csrc/fused_kkt_bwd_dense.cu (the launcher refuses, as an invalid
     value, an array or a workspace too large for its 32-bit indices)."""
+    return k4d_run(C, c, F, x_star, u_star, dl_dx, dl_du, I_mask, has_f,
+                      f_shared)[:5]
+
+
+def k4d_run(C, c, F, x_star, u_star, dl_dx, dl_du, I_mask, has_f,
+            f_shared, clocks=False, timer=None):
+    """The launch of ``k4d_backward`` on the card: its five outputs and
+    the clocks.  With ``clocks`` the build of the phase account
+    (utils/phase_account.py): the chains' cycles [B, len(PHASES)] of
+    int64, the launch not counted, and with ``timer`` the chains, the
+    gradient pass and the chunk-order sums launched one call each (the
+    C entry's launch bits 1, 2, 4; ``timer(bits, fn)`` runs ``fn``, that
+    launch, and records its device ms); else clocks is None."""
     T, B, ns = x_star.shape
     if u_star.dim() != 3:
         raise ValueError('the dense backward takes u_star [T, B, n_ctrl]')
@@ -735,37 +767,52 @@ def _k4d_cuda(C, c, F, x_star, u_star, dl_dx, dl_du, I_mask, has_f,
             or dl_dx.shape != (T, B, ns) or dl_du.shape != (T, B, nc)
             or (I_mask is not None and I_mask.shape != (T, B, nc))):
         raise ValueError('the dense backward\'s operand shapes do not match')
-    geo = fused_bwd_dense.k4d_launch(T, B, ns, nc)
-    fn = fused_bwd_dense.kernel_lib(ns, nc, I_mask is not None, has_f)
+    geo = fused_bwd_dense.k4d_launch(T, B, ns, nc, clocks)
+    fn = fused_bwd_dense.kernel_lib(ns, nc, I_mask is not None, has_f,
+                                    clocks)
     outs = _k4d_fake(C, c, F, x_star, u_star, dl_dx, dl_du, I_mask, has_f,
                      f_shared)
+    cyc = torch.zeros((B, len(fused_dense.PHASES)), dtype=torch.int64,
+                      device=x_star.device) if clocks else None
     if B == 0:
-        return tuple(o.zero_() for o in outs)
+        return (*(o.zero_() for o in outs), cyc)
     dxi, dC, dc, dF, df = outs
     empty = functools.partial(torch.empty, dtype=torch.float32,
                               device=x_star.device)
     ws = empty((geo['workspace_bytes'] // 4,))
-    parts = [empty(s) if s is not None else None
-             for s in fused_bwd_dense.partial_shapes(
-                 T, B, ns, nc, _k4d_reduced(C, c, F, has_f, f_shared))]
+    sums = [empty(s) if s is not None else None
+            for s in fused_bwd_dense.partial_shapes(
+                T, B, ns, nc, _k4d_reduced(C, c, F, has_f, f_shared))]
 
     def ptr(a):
         return a.data_ptr() if a is not None and a.numel() else None
 
     with torch.cuda.device(x_star.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(B, T, *fused._strided(C, nt * nt), *fused._strided(c, nt),
-                 # F has no rows at T = 1; its pointer is then never read
-                 ptr(F) or x_star.data_ptr(), F.shape[1] * ns * nt,
-                 fused._batch_stride(F, ns * nt),
-                 x_star.data_ptr(), u_star.data_ptr(), dl_dx.data_ptr(),
-                 dl_du.data_ptr(), ptr(I_mask), int(has_f and f_shared),
-                 ws.data_ptr(), geo['smem_bytes'], geo['grad_smem_bytes'],
-                 dxi.data_ptr(), dC.data_ptr(), dc.data_ptr(), ptr(dF),
-                 ptr(df), *map(ptr, parts),
-                 stream)
+
+        def launch(bits):
+            return fn(B, T, *fused._strided(C, nt * nt),
+                      *fused._strided(c, nt),
+                      # F has no rows at T = 1; its pointer is then never
+                      # read
+                      ptr(F) or x_star.data_ptr(), F.shape[1] * ns * nt,
+                      fused._batch_stride(F, ns * nt),
+                      x_star.data_ptr(), u_star.data_ptr(), dl_dx.data_ptr(),
+                      dl_du.data_ptr(), ptr(I_mask), int(has_f and f_shared),
+                      ws.data_ptr(), geo['smem_bytes'],
+                      geo['grad_smem_bytes'], dxi.data_ptr(), dC.data_ptr(),
+                      dc.data_ptr(), ptr(dF), ptr(df), *map(ptr, sums),
+                      ptr(cyc), bits, stream)
+        errs = []
+        for bits in ((1, 2, 4) if clocks and timer else (7,)):
+            if timer:
+                timer(bits, lambda: errs.append(launch(bits)))
+            else:
+                errs.append(launch(bits))
+    err = next((e for e in errs if e != 0), 0)
     if err != 0:
         raise RuntimeError('the dense backward\'s launch failed with '
                            f'cudaError_t {err}')
-    fused_bwd.launch_counts['fused_kkt_bwd_dense'] += 1
-    return dxi, dC, dc, dF, df
+    if not clocks:
+        fused_bwd.launch_counts['fused_kkt_bwd_dense'] += 1
+    return dxi, dC, dc, dF, df, cyc

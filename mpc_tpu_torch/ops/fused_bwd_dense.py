@@ -17,8 +17,8 @@ several controls with an active set, the Cholesky with a 1e-11 jitter
 for several without.
 
 The kernel is csrc/fused_kkt_bwd_dense.cu: ONE WARP AN EXAMPLE for the
-three chains (lane r owning row r of V, Q and W, as in the dense
-forward, csrc/fused_ilqr_dense.cu), then the gradients in a pass
+three chains (the dense forward's Riccati step, csrc/riccati_dense.cuh,
+and its control solve), then the gradients in a pass
 parallel over t, and the batch sums of the shared leaves in a fixed
 order: within a chunk of ``K4D_CHUNK`` examples one after the other,
 then the chunks in order by a second pass.  n_state, n_ctrl, the active
@@ -43,9 +43,10 @@ import ctypes
 import torch
 
 from .fused import _check_device
-from .fused_dense import (CHOL_JITTER, _chol_ops, _chol_solve, _cholesky,
-                          _ctrl_tile_floats, _dot, _masked_free_chol, _odd,
-                          _solve_ops, _upper)
+from .fused_dense import (CHOL_JITTER, PHASE_CLOCK_FLOATS, _chol_ops,
+                          _cholesky, _ctrl_tile_floats, _dot,
+                          _masked_free_chol, _solve_ops, _solve_rows, _upper,
+                          prefetch_fits, riccati_tiles)
 
 # Examples (warps) a block of the chains, as the dense forward.  The gate
 # is the forward's (``fused.dense_gap``), and this card holds it: a lane
@@ -64,17 +65,29 @@ K4D_CHUNK = 64
 K4D_GRAD_THREADS = 256
 
 
-def _warp_floats(ns, nc) -> int:
+def _warp_floats(ns, nc, prefetch=None) -> int:
     """The floats of a warp's shared tiles in the chains
-    (csrc/fused_kkt_bwd_dense.cu, oQ to oL): Q [ntau][odd], W
-    [ns][odd], F [ns][ntau], V [ns][odd], the vectors q, v, tau, dtau,
-    lam and dlam, the gains K and Quu K [nc][ns] and k; past
-    ``fused_dense.REG_CTRL_MAX`` controls the factor L [nc][odd]
-    (``fused_dense._ctrl_tile_floats``); padded to a multiple of 4."""
+    (csrc/fused_kkt_bwd_dense.cu, oF to oL): the Riccati step's
+    (``fused_dense.riccati_tiles``: F, W, V and Q, two sets of F and Q with
+    ``prefetch``), the vectors q, v, tau, dtau, lam and dlam, the gains K
+    and Quu K [nc][ns] and k; past ``fused_dense.REG_CTRL_MAX`` controls
+    the factor L [nc][odd] (``fused_dense._ctrl_tile_floats``); padded to
+    a multiple of 4; ``prefetch`` None takes the build's
+    (``bwd_dense_prefetch``)."""
+    if prefetch is None:
+        prefetch = bwd_dense_prefetch(ns, nc)
     nt = ns + nc
-    n = (nt * _odd(nt) + ns * _odd(nt) + ns * nt + ns * _odd(ns)
-         + 3 * nt + 3 * ns + 2 * nc * ns + nc + _ctrl_tile_floats(nc, 0))
+    n = (riccati_tiles(ns, nc, prefetch) + 3 * nt + 3 * ns + 2 * nc * ns
+         + nc + _ctrl_tile_floats(nc, 0))
     return n + -n % 4
+
+
+def bwd_dense_prefetch(ns, nc) -> bool:
+    """Whether the chains prefetch the next step's C and F (MPC_PREFETCH,
+    csrc/riccati_dense.cuh), by the forward's rule
+    (``fused_dense.prefetch_fits``)."""
+    return prefetch_fits(ns, nc, 4 * K4D_WARPS * _warp_floats(ns, nc, False),
+                         4 * K4D_WARPS * _warp_floats(ns, nc, True))
 
 
 def _grad_floats(ns, nc) -> int:
@@ -83,19 +96,21 @@ def _grad_floats(ns, nc) -> int:
     return K4D_CHUNK * (2 * (ns + nc) + 2 * ns)
 
 
-def k4d_launch(T, B, ns, nc) -> dict:
+def k4d_launch(T, B, ns, nc, clocks=False) -> dict:
     """The dense backward's launch geometry: lanes an example (a warp),
     warps and examples a block of the chains, their blocks and dynamic
     shared memory; the gradient pass's chunks of ``K4D_CHUNK`` examples
     (its blocks are [T, chunks] of ``K4D_GRAD_THREADS`` threads) and its
     shared memory; and the workspace in global memory: the gains
     [B][T][nc (ns + 1)], dtau [T][B][ntau], lam and dlam [T][B][ns] of
-    float32."""
+    float32; ``clocks``: the phase account's build, each warp's counters
+    above its tiles."""
     nt = ns + nc
     chunks = -(-B // K4D_CHUNK)
     return dict(team=32, warps=K4D_WARPS, examples=K4D_WARPS,
                 blocks=-(-B // K4D_WARPS),
-                smem_bytes=4 * K4D_WARPS * _warp_floats(ns, nc),
+                smem_bytes=4 * K4D_WARPS * (_warp_floats(ns, nc) + (
+                    PHASE_CLOCK_FLOATS if clocks else 0)),
                 chunks=chunks, grad_smem_bytes=4 * _grad_floats(ns, nc),
                 workspace_bytes=4 * T * B * (nc * (ns + 1) + nt + 2 * ns))
 
@@ -106,7 +121,8 @@ def bwd_dense_kernel_defines(ns, nc, has_I, has_f) -> dict:
     load goes through the pointer of an absent operand)."""
     return {'MPC_NS': ns, 'MPC_NC': nc, 'MPC_HAS_I': int(has_I),
             'MPC_HAS_F': int(has_f), 'MPC_WARPS': K4D_WARPS,
-            'MPC_CHUNK': K4D_CHUNK, 'MPC_GRAD_THREADS': K4D_GRAD_THREADS}
+            'MPC_CHUNK': K4D_CHUNK, 'MPC_GRAD_THREADS': K4D_GRAD_THREADS,
+            'MPC_PREFETCH': int(bwd_dense_prefetch(ns, nc))}
 
 
 # ---------------------------------------------------------------------------
@@ -179,8 +195,8 @@ def _bwd_ctrl_solve(Q, q, I_t, ns):
             inv = 1.0 / Quu[0][0]
             return (-Qux) * inv[:, None, None], ((-qu[0]) * inv)[:, None]
         L = _cholesky(Quu, CHOL_JITTER)
-        kt = [-v for v in _chol_solve(L, qu)]
-        cols = _chol_solve(L, list(Qux.unbind(1)))
+        kt = [-v for v in _solve_rows(L, qu)]
+        cols = _solve_rows(L, list(Qux.unbind(1)))
         return -torch.stack(cols, 1), torch.stack(kt, 1)
     free = [I_t[:, m] < 0.5 for m in range(nc)]
     if nc == 1:
@@ -190,9 +206,9 @@ def _bwd_ctrl_solve(Q, q, I_t, ns):
                         0.0)
         return K, kt[:, None]
     L = _masked_free_chol(Quu, free)
-    kt = [-v for v in _chol_solve(L, [torch.where(free[i], qu[i], 0.0)
+    kt = [-v for v in _solve_rows(L, [torch.where(free[i], qu[i], 0.0)
                                       for i in range(nc)])]
-    cols = _chol_solve(L, [torch.where(free[i][:, None], Qux[:, i], 0.0)
+    cols = _solve_rows(L, [torch.where(free[i][:, None], Qux[:, i], 0.0)
                            for i in range(nc)])
     return -torch.stack(cols, 1), torch.stack(kt, 1)
 
@@ -312,15 +328,19 @@ ARGTYPES = [
     _P, ctypes.c_int, ctypes.c_int,       # workspace, smem bytes, grad smem
     _P, _P, _P, _P, _P,                   # dx_init, dC, dc, dF, df
     _P, _P,                               # cost and dynamics partial sums
+    _P, ctypes.c_int,                     # clocks, the launches (1|2|4)
     _P,                                   # stream
 ]
 
 
-def kernel_lib(ns, nc, has_I, has_f):
+def kernel_lib(ns, nc, has_I, has_f, clocks=False):
+    """The build's entry point; ``clocks`` the phase account's build
+    (MPC_PHASE_CLOCKS = 1, csrc/phase_clock.cuh)."""
     from . import _build
-    fn = _build.load('fused_kkt_bwd_dense',
-                     bwd_dense_kernel_defines(ns, nc, has_I, has_f)
-                     ).mpc_fused_kkt_bwd_dense
+    defines = bwd_dense_kernel_defines(ns, nc, has_I, has_f)
+    if clocks:
+        defines['MPC_PHASE_CLOCKS'] = 1
+    fn = _build.load('fused_kkt_bwd_dense', defines).mpc_fused_kkt_bwd_dense
     if fn.argtypes is None:
         fn.argtypes = ARGTYPES
         fn.restype = ctypes.c_int

@@ -15,9 +15,11 @@ QP for one control, the in-kernel projected-Newton box QP
 several bounded controls, and the Cholesky with a 1e-11 jitter for
 several unbounded ones.
 
-The kernel is csrc/fused_ilqr_dense.cu (+ csrc/box_qp.cuh): ONE WARP AN
-EXAMPLE, lane r owning row r of the cost-to-go V, of Q and of the gains,
-so n_state + n_ctrl <= 32 (``fused.DENSE_MAX_TAU``); n_state, n_ctrl and
+The kernel is csrc/fused_ilqr_dense.cu (+ csrc/riccati_dense.cuh,
+box_qp.cuh, box_qp_smem.cuh): ONE WARP AN EXAMPLE, the Riccati step's
+products as register tiles, lane r owning row r of the cost-to-go V and
+of Q's tile, so n_state + n_ctrl <= 32 (``fused.DENSE_MAX_TAU``); the
+second set of tiles where it pays (``dense_prefetch``); n_state, n_ctrl and
 the bounds and f flags are nvcc defines (``dense_kernel_defines``), so
 the small loops unroll; the layouts (each operand shared or batched) are
 run-time batch strides, as in K3.  The launch geometry is computed here
@@ -59,11 +61,20 @@ from .math import sqrt_rn as _sqrt
 # 4 controls, 16.3 KB at n_state + n_ctrl = 32, so a block of 4 takes
 # 50-65 KB and three or four blocks share an SM.
 DENSE_WARPS = 4
+# An H100 SM's shared memory, 228 KB, of which each resident block
+# reserves 1 KB; the blocks an SM the prefetch must leave (B = 2048, the
+# medium and wide rows' batch, is 512 blocks, 3.9 an SM of 132).
+SM_SMEM = 233472
+BLOCK_RESERVED = 1024
+PREFETCH_BLOCKS = 4
+# the least floats of a step's operands (C_t and F_t) worth prefetching
+PREFETCH_MIN_FLOATS = 512
 # The most controls whose control solve runs on register arrays
 # (csrc/box_qp.cuh: the block Quu, its factor and the box QP's vectors,
 # nc^2 + nc (nc + 1) / 2 + 7 nc floats in every lane); past it the solve
-# runs on the warp's tiles (csrc/box_qp_smem.cuh:kRegCtrlMax), the same
-# arithmetic in the same order.
+# runs across the warp's lanes (csrc/box_qp_smem.cuh:kRegCtrlMax), its
+# back substitution k descending with the diagonal's reciprocals
+# (``_chol_solve_lanes``).
 REG_CTRL_MAX = 8
 
 # The projected-Newton box QP's constants (mpc_tpu/ops/fused.py:70-73):
@@ -75,6 +86,13 @@ PNQP_MAX_LS = 10
 PNQP_CONV_TOL = 1e-4
 # the unbounded Cholesky's jitter (mpc_tpu/ops/fused.py:908-920, 1464-1544)
 CHOL_JITTER = 1e-11
+# The phases of the dense kernels' account (csrc/phase_clock.cuh:Phase, in
+# its order): the clocked builds add each phase's cycles into [B, 10].
+PHASES = ('jacobians', 'stage', 'W', 'Q', 'factor', 'qp', 'gains',
+          'cost_to_go', 'rollouts', 'other')
+# the clocked build's counters at the end of a warp's tiles
+# (phase_clock.cuh:kClockFloats: the phases rounded up to 4 floats)
+PHASE_CLOCK_FLOATS = -(-len(PHASES) // 4) * 4
 
 
 def _odd(n) -> int:
@@ -83,24 +101,49 @@ def _odd(n) -> int:
     return n | 1
 
 
-def _warp_floats(ns, nc) -> int:
-    """The floats of a warp's shared tiles (csrc/fused_ilqr_dense.cu, oQ
-    to oQhi): Q [ntau][odd], W [ns][odd], F [ns][ntau], V [ns][odd],
-    the vectors tau, q, c, v, dx, the gains K [nc][ns], k [nc] and
-    K^T Quu [nc][ns]; past ``REG_CTRL_MAX`` controls the control solve's
-    (``_ctrl_tile_floats``); padded to a multiple of 4."""
+def _round4(n) -> int:
+    return -(-n // 4) * 4
+
+
+def riccati_tiles(ns, nc, prefetch) -> int:
+    """The floats of the Riccati step's tiles in a warp's shared memory
+    (csrc/riccati_dense.cuh:RiccatiStrides, the same in both dense
+    kernels): F [sets][ns][sf], W [ns][sw], V [ns][sv] and Q [sets][ntau]
+    [odd].  With ``prefetch`` two sets of F and Q (the next step's
+    operands in flight) and the rows of F, W and V a multiple of 4 floats
+    (16-byte loads); else one set, W's stride odd, F's ntau, V's odd."""
     nt = ns + nc
-    n = (nt * _odd(nt) + ns * _odd(nt) + ns * nt + ns * _odd(ns)
-         + 3 * nt + 2 * ns + 2 * nc * ns + nc + _ctrl_tile_floats(nc, 5))
+    sets = 2 if prefetch else 1
+    if prefetch:
+        sw = sf = _round4(nt)
+        sv = _round4(ns)
+    else:
+        sw, sf, sv = _odd(nt), nt, _odd(ns)
+    return sets * ns * sf + ns * sw + ns * sv + sets * nt * _odd(nt)
+
+
+def _warp_floats(ns, nc, prefetch=None) -> int:
+    """The floats of a warp's shared tiles (csrc/fused_ilqr_dense.cu, oF
+    to oQhi): the Riccati step's (``riccati_tiles``), the vectors tau, q,
+    c (one a set), v, dx, the gains K [nc][ns], k [nc] and K^T Quu
+    [nc][ns]; past ``REG_CTRL_MAX`` controls the control solve's
+    (``_ctrl_tile_floats``); padded to a multiple of 4.  ``prefetch`` None
+    takes the LinDx build's (``dense_prefetch``)."""
+    if prefetch is None:
+        prefetch = dense_prefetch(ns, nc)
+    nt = ns + nc
+    n = (riccati_tiles(ns, nc, prefetch) + (4 if prefetch else 3) * nt
+         + 2 * ns + 2 * nc * ns + nc + _ctrl_tile_floats(nc, 4))
     return n + -n % 4
 
 
 def _ctrl_tile_floats(nc, rows) -> int:
     """The control solve's tiles past ``REG_CTRL_MAX`` controls
-    (csrc/box_qp_smem.cuh): the factor L [nc][odd] and ``rows`` vectors
-    of nc (the forward's box QP: x, g, dx, lo, hi; the backward none);
-    nothing at fewer controls, whose solve runs on registers."""
-    return nc * _odd(nc) + rows * nc if nc > REG_CTRL_MAX else 0
+    (csrc/box_qp_smem.cuh): the factor L [nc][odd], its diagonal's
+    reciprocals [nc] and ``rows`` vectors of nc (the forward's box QP: x,
+    dx, lo, hi; the backward none); nothing at fewer controls, whose solve
+    runs on registers."""
+    return nc * _odd(nc) + (rows + 1) * nc if nc > REG_CTRL_MAX else 0
 
 
 def dense_workspace_floats(T, ns, nc, model=False) -> int:
@@ -191,15 +234,55 @@ def mlp_weight_floats(sizes):
     return sum(b * _odd(a) + b for a, b in zip(sizes[:-1], sizes[1:]))
 
 
-def k3d_smem_bytes(ns, nc, mlp_sizes=None) -> int:
+def k3d_smem_bytes(ns, nc, mlp_sizes=None, prefetch=None) -> int:
     """The dense kernel's dynamic shared memory a block: the warps' tiles
-    (``_warp_floats``) and, in the MLP build, each warp's scratch and one
-    copy of the weights above them."""
-    floats = DENSE_WARPS * _warp_floats(ns, nc)
+    (``_warp_floats``) and, in the MLP build, each warp's scratch (a
+    multiple of 4 floats in the prefetching layout) and one copy of the
+    weights above them; ``prefetch`` None takes the build's
+    (``dense_prefetch``)."""
+    if prefetch is None:
+        prefetch = dense_prefetch(ns, nc, mlp_sizes)
+    floats = DENSE_WARPS * _warp_floats(ns, nc, prefetch)
     if mlp_sizes is not None:
-        floats += (DENSE_WARPS * _mlp_scratch_floats(mlp_sizes)
+        scratch = _mlp_scratch_floats(mlp_sizes)
+        floats += (DENSE_WARPS * (_round4(scratch) if prefetch else scratch)
                    + mlp_weight_floats(mlp_sizes))
     return 4 * floats
+
+
+def blocks_an_sm(smem_bytes, warps=DENSE_WARPS) -> int:
+    """Blocks of ``warps`` warps an H100 SM holds by shared memory: 228 KB
+    an SM, 1 KB of it reserved for each block, at most 64 warps."""
+    return min(SM_SMEM // (smem_bytes + BLOCK_RESERVED), 64 // warps)
+
+
+def prefetch_fits(ns, nc, smem_one, smem_two) -> bool:
+    """Whether a dense kernel's second set of tiles (``smem_two`` bytes a
+    block against ``smem_one`` with one set) is worth its memory and its
+    copies: a step's operands C_t and F_t must be at least
+    ``PREFETCH_MIN_FLOATS`` (16 copies a lane; below it starting and
+    waiting on the copies costs more than the loads they hide: 5s1c, config 3 and the
+    MLP rows ran 2-3% slower with it, 16s4c and 20s4c 9-10% faster, PERF.md
+    section 6), fit 227 KB (``fused.SMEM_LIMIT``), and leave an SM
+    at least as many blocks as one set does, or ``PREFETCH_BLOCKS``: a
+    second wave of blocks would cost more than the prefetch saves (at 24
+    states and 4 controls the second set takes 73 KB a block, three an
+    SM, and B = 2048, 512 blocks, would no longer fit the card at once)."""
+    nt = ns + nc
+    return (nt * nt + ns * nt >= PREFETCH_MIN_FLOATS
+            and smem_two <= SMEM_LIMIT
+            and blocks_an_sm(smem_two) >= min(blocks_an_sm(smem_one),
+                                              PREFETCH_BLOCKS))
+
+
+def dense_prefetch(ns, nc, mlp_sizes=None) -> bool:
+    """Whether the dense build prefetches the next step's operands
+    (MPC_PREFETCH, csrc/riccati_dense.cuh), by ``prefetch_fits``.  A build
+    without keeps one set and the lane-a-row strides: the tiles of
+    ``_warp_floats(..., False)``, never more than the design before the
+    prefetch took, so that no size or MLP the gate admits is refused."""
+    return prefetch_fits(ns, nc, k3d_smem_bytes(ns, nc, mlp_sizes, False),
+                         k3d_smem_bytes(ns, nc, mlp_sizes, True))
 
 
 def mlp_gap(dynamics, slew_nc=0):
@@ -225,7 +308,7 @@ def mlp_gap(dynamics, slew_nc=0):
         return (f'an MLP of {len(sizes) - 2} hidden layers exceeds the dense '
                 f'configuration\'s {MAX_NN_DEPTH} (its MLP build\'s layout); '
                 'it runs on the eager solver')
-    smem = k3d_smem_bytes(ns, dynamics.n_ctrl, sizes)
+    smem = k3d_smem_bytes(ns, dynamics.n_ctrl, sizes, prefetch=False)
     if smem > SMEM_LIMIT:
         return (f'an MLP of hidden widths {sizes[1:-1]} needs {smem} bytes of '
                 'a block\'s shared memory in the dense configuration (its '
@@ -234,18 +317,21 @@ def mlp_gap(dynamics, slew_nc=0):
     return None
 
 
-def k3d_launch(T, B, ns, nc, n_alpha, model=False, mlp_sizes=None) -> dict:
+def k3d_launch(T, B, ns, nc, n_alpha, model=False, mlp_sizes=None,
+               clocks=False) -> dict:
     """The dense kernel's launch geometry: lanes an example (a warp),
     warps and examples a block, blocks, the dynamic shared memory of a
     block (``k3d_smem_bytes``: with an MLP's layer widths ``mlp_sizes``
     its weights and the warps' scratch too) and the workspace
     [B, ``dense_workspace_floats``] of float32 in global memory.
     ``n_alpha`` step sizes run one after another on the warp, so they
-    change nothing here; it is checked against ``MAX_ALPHA``."""
+    change nothing here; it is checked against ``MAX_ALPHA``.  ``clocks``:
+    the phase account's build, each warp's counters above its tiles."""
     if not 0 < n_alpha <= MAX_ALPHA:
         raise ValueError(f'the dense kernel takes 1 to {MAX_ALPHA} step '
                          'sizes')
-    smem = k3d_smem_bytes(ns, nc, mlp_sizes)
+    smem = k3d_smem_bytes(ns, nc, mlp_sizes) + (
+        4 * DENSE_WARPS * PHASE_CLOCK_FLOATS if clocks else 0)
     return dict(team=32, warps=DENSE_WARPS, examples=DENSE_WARPS,
                 blocks=-(-B // DENSE_WARPS), smem_bytes=smem,
                 workspace_bytes=4 * B * dense_workspace_floats(T, ns, nc,
@@ -269,7 +355,10 @@ def dense_kernel_defines(ns, nc, has_bounds, has_f, model=None,
     d = _optional_defines({'MPC_NS': ns, 'MPC_NC': nc,
                            'MPC_HAS_BOUNDS': int(has_bounds),
                            'MPC_HAS_F': int(has_f),
-                           'MPC_WARPS': DENSE_WARPS}, huber, has_uz)
+                           'MPC_WARPS': DENSE_WARPS,
+                           'MPC_PREFETCH': int(dense_prefetch(
+                               ns, nc, mlp[0] if model == 'mlp' else None))},
+                          huber, has_uz)
     if model is not None:
         if has_f:
             raise ValueError('the model-step build has no f')
@@ -449,8 +538,12 @@ def _upper(M):
 
 def _cholesky(A, jitter=0.0):
     """``_cholesky`` (mpc_tpu/ops/fused.py:479-499) on a list of lists of
-    [...] tensors: L (lower, zeros above), in its order."""
+    [...] tensors: L (lower, zeros above), in its order.  Past
+    ``REG_CTRL_MAX`` the same arithmetic on the stacked matrix
+    (``_cholesky_columns``)."""
     n = len(A)
+    if n > REG_CTRL_MAX:
+        return _Factor(_cholesky_columns(_stack(A), jitter))
     z = torch.zeros_like(A[0][0])
     L = [[z] * n for _ in range(n)]
     for j in range(n):
@@ -465,6 +558,49 @@ def _cholesky(A, jitter=0.0):
                 s2 = s2 - L[i][k] * L[j][k]
             L[i][j] = s2 * inv
     return L
+
+
+def _stack(M):
+    """A list of lists of [...] tensors stacked, [..., n, n]."""
+    return torch.stack([torch.stack(list(r), -1) for r in M], -2)
+
+
+class _Factor:
+    """A factor stacked, [..., n, n] (``m``), which the solves past
+    ``REG_CTRL_MAX`` read, that reads as ``_cholesky``'s list of rows of
+    [...] tensors where indexed (a row built at each access)."""
+
+    def __init__(self, m):
+        self.m = m
+
+    def __len__(self):
+        return self.m.shape[-1]
+
+    def __getitem__(self, i):
+        return [self.m[..., i, j] for j in range(len(self))]
+
+    def __iter__(self):
+        return (self[i] for i in range(len(self)))
+
+
+def _cholesky_columns(A, jitter=0.0):
+    """``_cholesky`` of A [..., n, n], a column at a time, each column's
+    rows side by side: every entry takes ``_cholesky``'s terms in its
+    order (A_ij + jitter, then - L_i0 L_j0, - L_i1 L_j1, ...; the root,
+    the reciprocal), so it has its bits, in n^2 / 2 tensor operations
+    where the loop over entries takes n^3 / 3.  Returns L [..., n, n]."""
+    n = A.shape[-1]
+    cols = []
+    for j in range(n):
+        s = A[..., j:, j]
+        if jitter:
+            s = torch.cat([s[..., :1] + jitter, s[..., 1:]], -1)
+        for k in range(j):
+            s = s - cols[k][..., j:] * cols[k][..., j:j + 1]
+        d = _sqrt(torch.clamp_min(s[..., :1], 1e-30))
+        cols.append(torch.cat([A.new_zeros(A.shape[:-2] + (j,)), d,
+                               s[..., 1:] * (1.0 / d)], -1))
+    return torch.stack(cols, -1)
 
 
 def _chol_solve(L, b):
@@ -492,17 +628,76 @@ def _chol_solve(L, b):
     return x
 
 
+def _chol_solve_lanes(L, b):
+    """(L L^T) x = b as the kernels solve it past ``REG_CTRL_MAX``
+    controls, a row a lane (csrc/box_qp_smem.cuh:solve_lanes): the forward
+    substitution of ``_chol_solve``, and the back substitution with its
+    terms taken k descending (x_{n-1} is ready first): x_i = (y_i -
+    L_{n-1,i} x_{n-1} - L_{n-2,i} x_{n-2} - ...) (1 / L_ii); each
+    division a product with the diagonal's reciprocal (the factor's
+    ``1.0 / L[j][j]``).  b as ``_chol_solve``'s."""
+    m = L.m if isinstance(L, _Factor) else _stack(L)
+    d = m.dim() - 2
+    return list(_lanes_solve(m, torch.stack(b, d), d).unbind(d))
+
+
+def _lanes_solve(L, b, d):
+    """``_chol_solve_lanes`` on L [..., n, n] and b stacked with its rows
+    on axis ``d`` (L's leading axes first, more right-hand sides after):
+    each step's rows side by side, every entry's terms in the order of
+    the lanes (so their bits).  Returns x stacked as b."""
+    n = L.shape[-1]
+    extra = b.dim() - d - 1
+
+    def e(v):
+        return v.reshape(v.shape + (1,) * extra)
+
+    inv = 1.0 / torch.diagonal(L, dim1=-2, dim2=-1)
+    s, y = b, []
+    for k in range(n):
+        y.append(s.select(d, 0) * e(inv[..., k]))
+        if k + 1 < n:
+            s = s.narrow(d, 1, n - k - 1) - (e(L[..., k + 1:, k])
+                                             * y[k].unsqueeze(d))
+    s, x = torch.stack(y, d), [None] * n
+    for k in range(n - 1, -1, -1):
+        x[k] = s.select(d, k) * e(inv[..., k])
+        if k:
+            s = s.narrow(d, 0, k) - e(L[..., k, :k]) * x[k].unsqueeze(d)
+    return torch.stack(x, d)
+
+
+def _solve_rows(L, b):
+    """The control solve's triangular solves in the kernels' order:
+    ``_chol_solve`` up to ``REG_CTRL_MAX`` controls (every lane on
+    registers), ``_chol_solve_lanes`` past it."""
+    return (_chol_solve_lanes if len(L) > REG_CTRL_MAX else _chol_solve)(L, b)
+
+
 def _masked_free_chol(H, free):
     """``_masked_free_chol`` (mpc_tpu/ops/fused.py:519-533): the factor of
     H with the clamped rows and columns zeroed and a unit diagonal on
     them."""
     n = len(H)
+    if n > REG_CTRL_MAX:
+        return _masked_free_columns(_stack(H), torch.stack(free, -1))
     z = torch.zeros_like(H[0][0])
     Hm = [[torch.where(free[i] & free[j], H[i][j], z) for j in range(n)]
           for i in range(n)]
     for i in range(n):
         Hm[i][i] = torch.where(free[i], H[i][i], z + 1.0)
     return _cholesky(Hm)
+
+
+def _masked_free_columns(H, free):
+    """``_masked_free_chol`` of H [..., n, n] stacked and the free set
+    [..., n]: the ``_Factor`` of ``_cholesky_columns``."""
+    n = H.shape[-1]
+    M = torch.where(free[..., :, None] & free[..., None, :], H, 0.0)
+    eye = torch.eye(n, dtype=torch.bool, device=H.device)
+    diag = torch.where(free, torch.diagonal(H, dim1=-2, dim2=-1), 1.0)
+    return _Factor(_cholesky_columns(torch.where(eye, torch.diag_embed(diag),
+                                                 M)))
 
 
 def _pnqp_steps(dtype):
@@ -527,6 +722,8 @@ def _pnqp(H, q, lo, hi, x0, n_iter):
     every example has stopped, which changes nothing: a stopped
     example's trip recomputes the same factor from the same x."""
     n = len(q)
+    if n > REG_CTRL_MAX:
+        return _pnqp_stacked(H, q, lo, hi, x0, n_iter)
     z = torch.zeros_like(q[0])
     x = [torch.clamp(x0[i], lo[i], hi[i]) for i in range(n)]
     done = torch.zeros(z.shape, dtype=torch.bool, device=z.device)
@@ -560,7 +757,7 @@ def _pnqp(H, q, lo, hi, x0, n_iter):
         fr = [~c for c in clamped]
         g_ = [torch.where(clamped[i], z, g[i]) for i in range(n)]
         Lf = _masked_free_chol(H, fr)
-        dx = [-v for v in _chol_solve(Lf, g_)]
+        dx = [-v for v in _solve_rows(Lf, g_)]
         dx2 = dx[0] * dx[0]
         for i in range(1, n):
             dx2 = dx2 + dx[i] * dx[i]
@@ -584,6 +781,68 @@ def _pnqp(H, q, lo, hi, x0, n_iter):
         trips = trips + torch.where(done, z, z + 1.0)
         L, free, done = Lf, fr, done_new
     return x, L, free, trips
+
+
+def _pnqp_stacked(H, q, lo, hi, x0, n_iter):
+    """``_pnqp`` past ``REG_CTRL_MAX`` on the stacked [..., n] and
+    [..., n, n] operands: each entry's arithmetic in ``_pnqp``'s order
+    (H x from its first term on, j ascending; the trial objectives' and
+    the Armijo denominator's terms i ascending), so its bits, a tensor
+    operation a term where ``_pnqp`` takes one an entry and a term.  The
+    same arguments and returns."""
+    n = len(q)
+    Hm, qm = _stack(H), torch.stack(q, -1)
+    lom, him = torch.stack(lo, -1), torch.stack(hi, -1)
+    x = torch.clamp(torch.stack(x0, -1), lom, him)
+    z = torch.zeros_like(q[0])
+    done = torch.zeros(z.shape, dtype=torch.bool, device=z.device)
+    trips = z.clone()
+    L = _Factor(torch.eye(n, dtype=z.dtype, device=z.device).expand(
+        z.shape + (n, n)))
+    free = torch.ones(z.shape + (n,), dtype=torch.bool, device=z.device)
+    steps = torch.tensor(_pnqp_steps(z.dtype), dtype=z.dtype,
+                         device=z.device).reshape((-1,) + (1,) * (z.dim() + 1))
+
+    def hv(v):
+        s = Hm[..., :, 0] * v[..., 0:1]
+        for j in range(1, n):
+            s = s + Hm[..., :, j] * v[..., j:j + 1]
+        return s
+
+    def ordered(t):
+        acc = t[..., 0]
+        for i in range(1, n):
+            acc = acc + t[..., i]
+        return acc
+
+    def obj(v):
+        return ordered((0.5 * hv(v) + qm) * v)
+
+    for _ in range(n_iter):
+        if bool(done.all()):
+            break
+        g = hv(x) + qm
+        clamped = ((x == lom) & (g > 0)) | ((x == him) & (g < 0))
+        fr = ~clamped
+        Lf = _masked_free_columns(Hm, fr)
+        dx = -_lanes_solve(Lf.m, torch.where(clamped, 0.0, g), z.dim())
+        done_new = done | (_sqrt(ordered(dx * dx)) < PNQP_CONV_TOL)
+        ox = obj(x)
+        # the ten step sizes side by side, [10, ..., n]
+        xt = torch.clamp(x + steps * dx, lom, him)
+        num = ox - obj(xt)
+        den = ordered(g * (x - xt))
+        armijo = torch.where(den.abs() < 1e-30,
+                             torch.full_like(den, PNQP_GAMMA + 1e-6),
+                             num / den)
+        passing = armijo > PNQP_GAMMA
+        first = torch.where(passing.any(0), passing.to(torch.int8).argmax(0),
+                            PNQP_MAX_LS - 1)
+        sel = xt.gather(0, first[None, ..., None].expand((1,) + x.shape))[0]
+        x = torch.where(done_new[..., None], x, sel)
+        trips = trips + torch.where(done, z, z + 1.0)
+        L, free, done = Lf, fr, done_new
+    return list(x.unbind(-1)), L, list(free.unbind(-1)), trips
 
 
 def _ctrl_solve(t, T, Q, q, u_t, lb_t, ub_t, prev_kt, ns, pnqp_iter,
@@ -619,8 +878,8 @@ def _ctrl_solve(t, T, Q, q, u_t, lb_t, ub_t, prev_kt, ns, pnqp_iter,
             rhs_k = [torch.where(free[i], qu[i], 0.0) for i in range(nc)]
             rhs_K = [torch.where(free[i][:, None], Qux[:, i], 0.0)
                      for i in range(nc)]
-        kt = [-v for v in _chol_solve(L, rhs_k)]
-        cols = _chol_solve(L, rhs_K)
+        kt = [-v for v in _solve_rows(L, rhs_k)]
+        cols = _solve_rows(L, rhs_K)
         return -torch.stack(cols, 1), torch.stack(kt, 1), z
     lo = lb_t - u_t
     hi = ub_t - u_t
@@ -639,13 +898,13 @@ def _ctrl_solve(t, T, Q, q, u_t, lb_t, ub_t, prev_kt, ns, pnqp_iter,
         return K, kv[:, None], z + 1.0
     if t == T - 1:
         L0 = _cholesky(Quu, CHOL_JITTER)
-        x_init = [-v for v in _chol_solve(L0, qu)]
+        x_init = [-v for v in _solve_rows(L0, qu)]
     else:
         x_init = list(prev_kt.unbind(1))
     kt, L_free, free, trips = _pnqp(Quu, qu, list(lo.unbind(1)),
                                     list(hi.unbind(1)), x_init, pnqp_iter)
     rhs = [torch.where(free[i][:, None], Qux[:, i], 0.0) for i in range(nc)]
-    cols = _chol_solve(L_free, rhs)
+    cols = _solve_rows(L_free, rhs)
     return -torch.stack(cols, 1), torch.stack(kt, 1), trips
 
 
@@ -903,16 +1162,21 @@ ARGTYPES = [
     ctypes.c_float, ctypes.c_float, ctypes.c_float,
     _P, ctypes.c_int,                     # workspace, shared memory bytes
     _P, _P, _P,                           # x, u, stats
+    _P,                                   # clocks (the phase account)
     _P,                                   # stream
 ]
 
 
 def kernel_lib(ns, nc, has_bounds, has_f, model=None, slew=False,
-               huber=False, has_uz=False, mlp=None):
+               huber=False, has_uz=False, mlp=None, clocks=False):
+    """The build's entry point; ``clocks`` the phase account's build
+    (MPC_PHASE_CLOCKS = 1, csrc/phase_clock.cuh)."""
     from . import _build
-    fn = _build.load('fused_ilqr_dense', dense_kernel_defines(
-        ns, nc, has_bounds, has_f, model, slew, huber,
-        has_uz, mlp)).mpc_fused_ilqr_dense
+    defines = dense_kernel_defines(ns, nc, has_bounds, has_f, model, slew,
+                                   huber, has_uz, mlp)
+    if clocks:
+        defines['MPC_PHASE_CLOCKS'] = 1
+    fn = _build.load('fused_ilqr_dense', defines).mpc_fused_ilqr_dense
     if fn.argtypes is None:
         fn.argtypes = ARGTYPES
         fn.restype = ctypes.c_int
@@ -936,15 +1200,26 @@ def fused_ilqr_dense(F, f, C, c, x0, u0, lb, ub, *, alphas, lqr_iter, eps,
     csrc/fused_ilqr_dense.cu on the current stream and raises on any
     operand the kernel does not take or on a launch error."""
     _check_device('the dense kernel', x0)
+    return torch.ops.mpc_tpu_torch.k3d_solve(*op_args(
+        F, f, C, c, x0, u0, lb, ub, alphas=alphas, lqr_iter=lqr_iter, eps=eps,
+        best_cost_eps=best_cost_eps, not_improved_lim=not_improved_lim,
+        pnqp_iter=pnqp_iter, model=model, params=params,
+        cost_params=cost_params, uz=uz, delta_u=delta_u))
+
+
+def op_args(F, f, C, c, x0, u0, lb, ub, *, alphas, lqr_iter, eps,
+            best_cost_eps, not_improved_lim, pnqp_iter, model=None,
+            params=None, cost_params=None, uz=None, delta_u=None):
+    """The arguments of the op ``k3d_solve`` for the wrapper's keyword
+    operands (``fused_ilqr_dense``)."""
     name, slew = dense_model(model) if model is not None else ('', False)
     mlp = mlp_spec(model) if model is not None else None
     sizes, activation, passthrough = mlp or (None, '', False)
-    return torch.ops.mpc_tpu_torch.k3d_solve(
-        F, f, C, c, x0, u0, lb, ub, [float(a) for a in alphas],
-        int(lqr_iter), float(eps), float(best_cost_eps),
-        float(not_improved_lim), int(pnqp_iter), name, slew, params,
-        cost_params, uz, _opt_float(delta_u),
-        None if sizes is None else list(sizes), activation, passthrough)
+    return (F, f, C, c, x0, u0, lb, ub, [float(a) for a in alphas],
+            int(lqr_iter), float(eps), float(best_cost_eps),
+            float(not_improved_lim), int(pnqp_iter), name, slew, params,
+            cost_params, uz, _opt_float(delta_u),
+            None if sizes is None else list(sizes), activation, passthrough)
 
 
 def _ctrl_bound(a, T, B, nc, dtype, device):

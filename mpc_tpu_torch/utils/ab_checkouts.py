@@ -16,15 +16,19 @@ of one checkout.  The script reports the phases' own lines and judges
 no time; host times compare within one call only.
 
 Each turn also solves the headline (K1, B=4096), the long LinDx system
-(K3, T=160, B=4096), the medium row (the dense configuration, 24
-states and 4 controls, B=2048), bench_nn_dynamics (K3's MLP
-configuration, B=2048), config 3 (the cartpole in the dense
-configuration's model-step build, B=512) and the headline under slew 0.5
-(the slew-augmented pendulum there, B=4096) once on the operands
-chip_smoke builds for them and prints a digest of the outputs' bytes (x,
-u and stats); the
-last line says whether each row's digest is the same in all four turns,
-that is whether the two checkouts' kernels give the same bits there.
+(K3, T=160, B=4096), bench_nn_dynamics (K3's MLP configuration,
+B=2048) and the dense kernels' rows once on the operands chip_smoke
+builds for them and prints a digest of the outputs' bytes (x, u and
+stats; the backward's five gradients): the dense forward at the medium
+rows 24s4c and 16s4c (B=2048), 5s1c (B=2048), TVLQR (B=128), config 3
+(the cartpole in the model-step build, B=512), the headline under slew
+0.5 (B=4096), mlp-deep (B=2048) and the rows past 8 controls wide-3s9c,
+wide-4s12c and wide-2s16c (B=2048); the dense backward at 20s4c and
+4s12c (B=1024).  Each dense row's device time comes from a CUDA graph
+([dense-time]).  The last lines say whether each row's digest is the
+same in all four turns, that is whether the two checkouts' kernels give
+the same bits there, and each dense row's best time in each checkout
+beside the spread of its two turns.
 """
 
 import os
@@ -55,26 +59,50 @@ from mpc_tpu_torch.ops import fused, fused_dense
 def digest(outs):
     h = hashlib.sha256()
     for a in outs:
-        h.update(a.detach().cpu().contiguous().numpy().tobytes())
+        if a is not None:
+            h.update(a.detach().cpu().contiguous().numpy().tobytes())
     return h.hexdigest()[:16]
+from mpc_tpu_torch.ops import fused_bwd_dense
 dx, cost = cs.problem(torch, d)
 bits = {
     'headline': fused.fused_ilqr(**fused.k1_operands(
         MPCConfig(**cs.HEADLINE), cs.x0_batch(cs.B, 0, torch, d), cost, dx,
         u_lower=-2.0, u_upper=2.0)),
     'long': fused.fused_ilqr_long(**cs.long_k3_operands(torch, d)),
-    '24s4c': fused_dense.fused_ilqr_dense(**cs.dense_operands(
-        torch, d, 'medium', 24, 4, 2048)),
     'mlp': fused.fused_ilqr_long(**cs.nn_k3_operands(torch, d)),
 }
-for key, label in (('config3', 'config 3'), ('slew', 'slew 0.5')):
-    ops, kernel, _ = cs.soa_operands(torch, d, label)
-    bits[key] = kernel(**ops)
+fwd = {
+    '24s4c': cs.dense_operands(torch, d, 'medium', 24, 4, 2048),
+    '16s4c': cs.dense_operands(torch, d, 'medium', 16, 4, 2048),
+    '5s1c': cs.dense_operands(torch, d, 'box', 5, 1, 2048),
+    'tvlqr': cs.dense_operands(torch, d, 'tvlqr', 3, 4, cs.TVLQR_B),
+    'config3': cs.soa_operands(torch, d, 'config 3')[0],
+    'slew': cs.soa_operands(torch, d, 'slew 0.5')[0],
+    'mlp-deep': cs.mlp_operands(torch, d, 'mlp-deep'),
+    'wide-3s9c': cs.wide_operands(torch, d, 'wide-3s9c'),
+    'wide-4s12c': cs.wide_operands(torch, d, 'wide-4s12c'),
+    'wide-2s16c': cs.wide_operands(torch, d, 'wide-2s16c'),
+}
+bwd = {
+    'bwd-20s4c': cs.bwd_dense_operands(torch, d, 'medium', 20, 4, 1024),
+    'bwd-4s12c': cs.wide_bwd_operands(torch, d),
+}
+for key, ops in fwd.items():
+    bits[key] = fused_dense.fused_ilqr_dense(**ops)
+    ms, _ = cs.graph_ms(torch, lambda: fused_dense.fused_ilqr_dense(**ops),
+                        reps=3, per_graph=4)
+    print(f'[dense-time] {key} {ms:.4f}', flush=True)
+for key, (o, kw) in bwd.items():
+    bits[key] = fused_bwd_dense.fused_kkt_backward_dense(**o, **kw)
+    ms, _ = cs.graph_ms(
+        torch, lambda: fused_bwd_dense.fused_kkt_backward_dense(**o, **kw))
+    print(f'[dense-time] {key} {ms:.4f}', flush=True)
 
 print('[bits] ' + ' '.join(f'{k} {digest(v)}' for k, v in bits.items()))
 print(cs.card_line())
 '''
-KEEP = ('[serve', '[train', '[time', '  median', '  latency', '[bits')
+KEEP = ('[serve', '[train', '[time', '  median', '  latency', '[bits',
+        '[dense-time')
 
 
 def main(argv):
@@ -85,7 +113,7 @@ def main(argv):
     this = argv[2] if len(argv) == 3 else os.path.join(here, '..', '..')
     turns = [('other', argv[1]), ('this', this), ('this', this),
              ('other', argv[1])]
-    digests = []
+    digests, dense_ms = [], {}
     for i, (who, where) in enumerate(turns):
         r = subprocess.run([sys.executable, '-c', TURN], cwd=where,
                            capture_output=True, text=True)
@@ -99,10 +127,19 @@ def main(argv):
             if line.startswith('[bits] '):
                 words = line.split()[1:]
                 digests.append(dict(zip(words[::2], words[1::2])))
+            if line.startswith('[dense-time] '):
+                _, key, ms = line.split()
+                dense_ms.setdefault(key, {}).setdefault(who, []).append(
+                    float(ms))
         print(f'turn {i + 1} {who:5s} [card] {lines[-1]}', flush=True)
     print('[bits] the same in all four turns: ' + ', '.join(
         f'{k} {"yes" if len({d[k] for d in digests}) == 1 else "NO"}'
         for k in digests[0]), flush=True)
+    for key, t in dense_ms.items():
+        print(f'[dense-time] {key}: other ' + ' '.join(
+            f'{v:.4f}' for v in t['other']) + ', this ' + ' '.join(
+            f'{v:.4f}' for v in t['this']) + f'; this / other '
+            f'{min(t["this"]) / min(t["other"]):.3f}', flush=True)
     return 0
 
 

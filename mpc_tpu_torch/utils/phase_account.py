@@ -1,0 +1,81 @@
+"""The phase account of the dense kernels on the card: where a warp's
+cycles go.
+
+The clocked builds (MPC_PHASE_CLOCKS = 1, csrc/phase_clock.cuh) of
+csrc/fused_ilqr_dense.cu and csrc/fused_kkt_bwd_dense.cu have lane 0 of
+each warp read ``clock64()`` at the boundaries of the phases of
+``fused_dense.PHASES`` and add each phase's cycles into an int64 buffer
+[B, phases]; the backward's gradient pass and chunk-order sums are
+launched apart and timed by CUDA events.  Only this module launches
+those builds: the ops' builds carry none of it, and a clocked launch is
+not counted as one of the main path's.
+
+    from mpc_tpu_torch.utils import phase_account
+    clocks = phase_account.clocked_forward(ops)[-1]   # ops: k3d_operands
+    print(phase_account.format_shares(phase_account.phase_shares(clocks)))
+
+chip_smoke.py's [phases-dense] prints the account at its rows
+(``python3 chip_smoke.py --phases-dense`` runs that phase alone).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..ops import fused_dense
+
+PHASES = fused_dense.PHASES
+
+
+def clocked_forward(ops):
+    """The dense forward's clocked build on ``ops`` (the keyword operands
+    of ``fused_dense.fused_ilqr_dense``, on the card): (x, u, stats,
+    clocks [B, len(PHASES)] int64)."""
+    from ..ops import custom
+    return custom.k3d_run(*fused_dense.op_args(**ops), clocks=True)
+
+
+def clocked_backward(o, kw):
+    """The dense backward's clocked build on ``o`` and ``kw`` (the
+    arguments of ``fused_bwd_dense.fused_kkt_backward_dense``), its
+    three launches one after the other: (the five outputs, the chains'
+    clocks [B, len(PHASES)] int64, {'chains', 'grads', 'sums': device ms
+    between CUDA events})."""
+    from ..ops import custom
+    names = {1: 'chains', 2: 'grads', 4: 'sums'}
+    ms = {}
+
+    def timer(bits, fn):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        ms[names[bits]] = start.elapsed_time(end)
+    out = custom.k4d_run(o['C'], o['c'], o['F'], o['x_star'], o['u_star'],
+                         o['dl_dx'], o['dl_du'], o.get('I_mask'),
+                         bool(kw['has_f']), bool(kw['f_shared']), clocks=True,
+                         timer=timer)
+    return out[:5], out[5], ms
+
+
+def phase_shares(clocks):
+    """{phase: (share of the warps' cycles, mean cycles a warp)} of a
+    clocks buffer [B, len(PHASES)], the phases that took none left out;
+    the shares sum to 1."""
+    c = torch.as_tensor(clocks).detach().to('cpu', torch.float64)
+    if c.dim() != 2 or c.shape[1] != len(PHASES):
+        raise ValueError(f'a clocks buffer is [B, {len(PHASES)}]')
+    per = c.sum(0)
+    total = float(per.sum())
+    if not total > 0:
+        raise ValueError('the clocks buffer holds no cycles')
+    return {name: (float(v) / total, float(v) / c.shape[0])
+            for name, v in zip(PHASES, per.tolist()) if v}
+
+
+def format_shares(shares):
+    """One line: each phase's share in percent and its mean cycles a
+    warp, largest first."""
+    return ', '.join(f'{k} {100 * s:.1f}% ({cyc:.0f})' for k, (s, cyc) in
+                     sorted(shares.items(), key=lambda kv: -kv[1][0]))

@@ -429,7 +429,8 @@ def test_k4d_launch_geometry():
         assert g['grad_smem_bytes'] <= 48 * 1024
     assert fbd.bwd_dense_kernel_defines(20, 4, True, False) == {
         'MPC_NS': 20, 'MPC_NC': 4, 'MPC_HAS_I': 1, 'MPC_HAS_F': 0,
-        'MPC_WARPS': 4, 'MPC_CHUNK': 64, 'MPC_GRAD_THREADS': 256}
+        'MPC_WARPS': 4, 'MPC_CHUNK': 64, 'MPC_GRAD_THREADS': 256,
+        'MPC_PREFETCH': 1}
 
 
 def test_k4d_bound_counts():

@@ -141,8 +141,13 @@ CASES = {
 # from the jnp path's at a round-off tie (a free set decided on a gradient
 # zero at a bound; the jnp path adds 1e-11 to the masked block, the kernel
 # route does not), as tests/test_torch_uzero.py cuts hw_sweep's delta_u
-# row; measured at lqr_iter=6: n_qp_iter 37 against 34 in one example and
-# u 1.4e-8 apart relative, 3.1e-12 at 2 iterations.
+# row.  Measured with the lanes' solve past 8 controls (the back
+# substitution k descending, a product with the diagonal's reciprocal,
+# fused_dense._chol_solve_lanes): at lqr_iter=3 n_qp_iter 38 against 36
+# and 34 against 37 in two examples, u 1.4e-8 apart relative; at 6 the
+# iterations part too (4 against 3 in one example); 3.1e-12 at 2
+# iterations.  (With the column-by-column solve before it: 37 against 34
+# in one example at lqr_iter=6, u 1.4e-8.)
 CASE_CFG = {'box_4s12c_batched_C': dict(lqr_iter=2)}
 
 
@@ -576,30 +581,36 @@ def test_warp_tiles_at_24_states():
     """The tiles of an example at 24 states and 4 controls (the odd row
     strides included): 3108 floats, 12,432 bytes; a block of four
     49,728."""
-    assert fd._warp_floats(24, 4) == 3108
+    assert fd._warp_floats(24, 4) == fd._warp_floats(24, 4, False) == 3108
     assert fd.k3d_launch(20, 2048, 24, 4, 10)['smem_bytes'] == 49728
+    # the prefetch's second set (4,572 floats, 73,152 bytes a block) would
+    # leave three blocks an SM: 24s4c keeps one set
+    assert fd._warp_floats(24, 4, True) == 4572
     assert fd.dense_kernel_defines(24, 4, True, False) == {
         'MPC_NS': 24, 'MPC_NC': 4, 'MPC_HAS_BOUNDS': 1, 'MPC_HAS_F': 0,
-        'MPC_WARPS': 4}
+        'MPC_WARPS': 4, 'MPC_PREFETCH': 0}
 
 
 def test_warp_tiles_past_8_controls():
     """Past ``REG_CTRL_MAX`` controls (csrc/box_qp_smem.cuh:kRegCtrlMax,
     the same number) a warp's tiles add the control solve's: the factor
-    [nc][odd] and the box QP's five rows in the forward, the factor in
-    the backward; at 4 states and 28 controls 2,644 and 2,508 floats
-    (1,692 and 1,696 without them), a block of four 42,304 and 40,128
-    bytes.  At 8 controls nothing is added."""
+    [nc][odd], its diagonal's reciprocals and the box QP's four rows in the
+    forward (x, dx, lo, hi), the factor and the reciprocals in the
+    backward; at 4 states and 28 controls (one set of tiles: two would
+    leave three blocks an SM) 2,644 and 2,536 floats (1,692 and 1,696
+    without them), a block of four 42,304 and 40,576 bytes.  At 8 controls
+    nothing is added."""
     src = (fd.__file__.rsplit('/ops/', 1)[0] + '/csrc/box_qp_smem.cuh')
     m = re.search(r'constexpr int kRegCtrlMax = (\d+);', open(src).read())
     assert int(m.group(1)) == fd.REG_CTRL_MAX == 8
     assert fd._warp_floats(4, 28) == 1692 + 28 * 29 + 5 * 28 == 2644
-    assert fused_bwd_dense._warp_floats(4, 28) == 1696 + 28 * 29 == 2508
+    assert fused_bwd_dense._warp_floats(4, 28) == 1696 + 28 * 29 + 28 \
+        == 2536
     assert fd.k3d_launch(20, 2048, 4, 28, 10)['smem_bytes'] == 42304
     assert fused_bwd_dense.k4d_launch(20, 1024, 4, 28)['smem_bytes'] \
-        == 40128
+        == 40576
     assert fd._ctrl_tile_floats(8, 5) == 0
-    assert fd._ctrl_tile_floats(9, 5) == 9 * 9 + 5 * 9
+    assert fd._ctrl_tile_floats(9, 4) == 9 * 9 + 5 * 9
 
 
 def test_k3d_bound_counts():

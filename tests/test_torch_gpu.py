@@ -972,6 +972,62 @@ def test_wide_dense_position_free_and_repeatable(cuda):
         assert all(torch.equal(a, b[:, :n]) for a, b in zip(part, full))
 
 
+# the redesigned dense kernels' builds (csrc/riccati_dense.cuh: the
+# products as register tiles of every shape, the prefetching and the
+# one-set layouts; csrc/box_qp_smem.cuh: the control solve across the
+# lanes past 8 controls) at the gate's corners and the rows the phase
+# account reads, each against its plain version
+REDESIGNED = [(1, 9, True), (1, 31, True), (4, 28, True), (23, 9, True),
+              (24, 4, True), (20, 4, True), (16, 4, True), (4, 12, True),
+              (3, 9, False), (2, 16, False), (5, 1, True), (8, 4, True)]
+
+
+@pytest.mark.parametrize('ns,nc,bounded', REDESIGNED)
+def test_redesigned_dense_builds_match_plain(cuda, ns, nc, bounded):
+    """T=4, B=66 (more than a block, a partial one), two iterations (the
+    plain box QP past 20 controls is thousands of small kernels a trip):
+    the float32 tail, n_iter equal, no further from the float64 plain run
+    than twice the plain float32 run, and the reversed batch bitwise."""
+    cfg, x0, cost, dyn, bk = _dense_problem(cuda, 66, ns, nc, T=4,
+                                            bounded=bounded)
+    cfg = dataclasses.replace(cfg, lqr_iter=2)
+    ops = fused_dense.k3d_operands(cfg, x0, cost, dyn, **bk)
+    xk, uk, sk = fused_dense.fused_ilqr_dense(**ops)
+    xp, up, sp = fused_dense.fused_solve_dense_plain(**ops)
+    assert torch.isfinite(xk).all() and torch.isfinite(uk).all()
+    _assert_tail(uk, up)
+    assert torch.equal(sk[2], sp[2])
+    cfg64, x64, cost64, dyn64, bk64 = _dense_problem(
+        cuda, 66, ns, nc, T=4, bounded=bounded, dtype=torch.float64)
+    _, u64, _ = fused_dense.fused_solve_dense_plain(
+        **fused_dense.k3d_operands(dataclasses.replace(cfg64, lqr_iter=2),
+                                   x64, cost64, dyn64, **bk64))
+    _assert_near_f64(uk, up, u64)
+    rev = fused_dense.fused_ilqr_dense(**dict(
+        ops, x0=ops['x0'].flip(0).contiguous(),
+        u0=ops['u0'].flip(1).contiguous()))
+    assert all(torch.equal(a.flip(1), b) for a, b in zip(rev, (xk, uk, sk)))
+
+
+@pytest.mark.parametrize('ns,nc,bounded', REDESIGNED)
+def test_redesigned_dense_backward_matches_plain(cuda, ns, nc, bounded):
+    """The dense backward's redesigned chains at the same sizes (T=4,
+    B=66, the active set where the forward has a box): every gradient
+    within 1e-4 of the plain version relative to its largest entry, and
+    repeated bitwise."""
+    ops = _bwd_dense_problem(cuda, ns, nc, 4, 66, True, True,
+                             has_I=bounded, has_f=not bounded)
+    got = fused_bwd_dense.fused_kkt_backward_dense(**ops)
+    again = fused_bwd_dense.fused_kkt_backward_dense(**ops)
+    ref = fused_bwd_dense.fused_kkt_backward_dense_plain(**ops)
+    for a, b, c in zip(got, ref, again):
+        if b is None:
+            assert a is None
+            continue
+        assert torch.isfinite(a).all() and torch.equal(a, c)
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+
+
 def test_dense_entry_points_launch_it_once(cuda):
     """batched_solve and MPC launch the dense kernel once a request and
     nothing else; a differentiable 5-state solve runs it and the dense

@@ -356,9 +356,12 @@ def test_each_row_routes_to_the_mlp_build(label):
     # the block's shared memory: weights, tiles and scratch within 227 KB
     geo = fd.k3d_launch(T, 2048, dyn.n_state, nc, 3, True, model.sizes)
     assert geo['smem_bytes'] <= fused.SMEM_LIMIT
+    # (the prefetching layout's scratch rounded to 16-byte rows)
+    pre = fd.dense_prefetch(dyn.n_state, nc, model.sizes)
+    scratch = fd._mlp_scratch_floats(model.sizes)
     assert geo['smem_bytes'] == 4 * (
-        fd.DENSE_WARPS * (fd._warp_floats(dyn.n_state, nc)
-                          + fd._mlp_scratch_floats(model.sizes))
+        fd.DENSE_WARPS * (fd._warp_floats(dyn.n_state, nc, pre)
+                          + (-(-scratch // 4) * 4 if pre else scratch))
         + fd.mlp_weight_floats(model.sizes))
 
 

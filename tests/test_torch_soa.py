@@ -528,7 +528,8 @@ def test_counts_and_geometry_of_the_model_step_build():
         25, 5, 1, True)
     assert fd.dense_kernel_defines(5, 1, True, False, 'cartpole') == {
         'MPC_NS': 5, 'MPC_NC': 1, 'MPC_HAS_BOUNDS': 1, 'MPC_HAS_F': 0,
-        'MPC_WARPS': fd.DENSE_WARPS, 'MPC_MODEL': 3, 'MPC_SLEW': 0}
+        'MPC_WARPS': fd.DENSE_WARPS, 'MPC_PREFETCH': 0, 'MPC_MODEL': 3,
+        'MPC_SLEW': 0}
     assert fd.dense_kernel_defines(4, 1, True, False, 'pendulum',
                                    True)['MPC_SLEW'] == 1
     with pytest.raises(ValueError):
