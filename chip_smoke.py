@@ -6427,12 +6427,15 @@ def phase_time_mlp(torch, device, compare):
             f'{sizes}: {ms:.4f} ms (from a CUDA graph; {eager_ms:.4f} ms a '
             f'call from Python), plain {compare[label]["plain_ms"]:.1f} ms; '
             f'{flops:.4e} operations ({float(st[2].double().mean()):.2f} '
-            f'iterations, {float(st[5].double().mean()):.2f} trials, '
+            f'iterations, at most {float(st[2].max()):.0f}, '
+            f'{float(st[5].double().mean()):.2f} trials, '
             f'{float(st[3].double().mean()):.1f} QP trips a solve), {nbytes} '
             f'bytes; bound {bound_ms:.5f} ms by {by} ({ms / bound_ms:.1f}x); '
             f'{n / ms * 1e3:.0f} solves/s; registers {des["registers"]}, '
             f'spill stores {des["spill_store_bytes"]} bytes, shared memory '
-            f'{geo["smem_bytes"]} bytes a block; {card_line()}')
+            f'{geo["smem_bytes"]} bytes a block, '
+            f'{fd.blocks_an_sm(geo["smem_bytes"])} blocks an SM by it, '
+            f'Jacobian chunk {geo["chunk"]}; {card_line()}')
         rows.append(dict(row=f'{label} B={n}', label=label, ms=ms,
                          plain_ms=compare[label]['plain_ms'],
                          bound_ms=bound_ms, bound_by=by, depth=len(sizes) - 2,
@@ -6636,12 +6639,13 @@ PSCAN_GRAD_EXACT_TOL, PSCAN_REG, PSCAN_REG_ROOM = 1e-12, 1e-11, 10.0
 
 # [phases-dense]'s rows: the dense forward at the medium row (24s4c), the
 # 5-state box row (each B=2048), TVLQR (B=128), the wide rows 4s12c and
-# 2s16c (B=2048), config 3 (B=512) and the deep MLP (B=2048); the dense
-# backward at the medium
+# 2s16c (B=2048), config 3 (B=512) and the MLP build's rows mlp-deep,
+# mlp-slew and mlp-multictrl (B=2048); the dense backward at the medium
 # imitation row (20s4c) and at 4s12c (B=1024), on the operands the other
 # phases build for them
 PHASE_ROWS = ('24s4c', '5s1c', 'tvlqr', 'wide-4s12c', 'wide-2s16c',
-              'config 3', 'mlp-deep', 'backward 20s4c', 'backward 4s12c')
+              'config 3', 'mlp-deep', 'mlp-slew', 'mlp-multictrl',
+              'backward 20s4c', 'backward 4s12c')
 
 
 def phase_row_operands(torch, device, label, n=None):
@@ -6658,7 +6662,7 @@ def phase_row_operands(torch, device, label, n=None):
         return wide_operands(torch, device, label, n=n)
     if label == 'config 3':
         return soa_operands(torch, device, label, n=n)[0]
-    if label == 'mlp-deep':
+    if label.startswith('mlp-'):
         return mlp_operands(torch, device, label, n=n)
     if label == 'backward 20s4c':
         return bwd_dense_operands(torch, device, 'medium', 20, 4,
@@ -6693,7 +6697,9 @@ def phase_phases_dense(torch, device, rows=PHASE_ROWS):
     a warm-up, every phase's share of the warps' cycles and its mean
     cycles a warp; the backward's gradient pass and chunk-order sums
     apart by CUDA events.  The clocked outputs are set beside the op's
-    build's (the same arithmetic; logged, not held).  Returns the
+    build's (the same arithmetic; logged, not held); a forward row's
+    iterations (stats row 2: the launch lasts as long as its slowest warp)
+    and, in the MLP build, its Jacobian chunk beside.  Returns the
     accounts by row."""
     from mpc_tpu_torch.ops import fused_bwd_dense as fbd
     from mpc_tpu_torch.ops import fused_dense as fd
@@ -6717,9 +6723,18 @@ def phase_phases_dense(torch, device, rows=PHASE_ROWS):
                    for a, b in zip(outs, ref))
         shares = pa.phase_shares(clocks)
         total = sum(v[1] for v in shares.values())
+        extra = ''
+        if not label.startswith('backward'):
+            it = outs[2][2].double()
+            extra = (f'; n_iter mean {float(it.mean()):.2f}, max '
+                     f'{float(it.max()):.0f}')
+            if ops.get('model') is not None and fd.dense_model(
+                    ops['model'])[0] == 'mlp':
+                extra += f'; chunk {dense_defines(ops)[1]["chunk"]}'
         log(f'[phases-dense] {label}, B={n}: {total:.0f} cycles a warp; '
             + pa.format_shares(shares)
             + ''.join(f'; {k} {v:.4f} ms' for k, v in part_ms.items())
+            + extra
             + f'; outputs bitwise the op\'s build: {same}; {card_line()}')
         accounts[label] = dict(cycles_a_warp=total, **{
             k: round(v[0], 4) for k, v in shares.items()}, **{

@@ -98,16 +98,29 @@
 // (one hidden layer, mpc_tpu/ops/fused.py:1252-1306) or its tuple path
 // (deeper, :1307-1340): nn_dense.cuh.  The block copies the weights into
 // shared memory above the warps' tiles once a launch; each warp has a
-// scratch beside its tiles for a layer's activations, the derivatives of
-// the hidden layers and the reverse product's rows.  The step is the
-// whole warp's, a unit a lane, in the rollouts as in the Jacobian pass,
-// which runs one t after another before each sweep (the weights are
-// shared by the block, so there is no per-lane copy of a model to run
-// lane-parallel over t).  The sweep reads the Jacobians from the
-// workspace as for the other models.  What bounds it: operations, the
-// MLP's step in every trial rollout and its Jacobian T - 1 times an
-// iteration (k3d_flops with mlp_op_counts); the step's layers are a
-// chain of dependent dot products on the rollout's chain.
+// scratch beside its tiles.  In the rollouts the step is the whole
+// warp's, a unit a lane (ceil(width / 32) slots a lane, none empty in
+// every lane), the activations in the scratch, each output's dot product
+// split over the lanes and summed by a butterfly of shuffles (its plain
+// version fused_dense.mlp_step_lanes; ROADMAP section 3).  Before each
+// sweep the Jacobian pass takes a chunk of consecutive steps (the host
+// sizes it from the shared memory left, fused_dense.mlp_chunk: 4 steps
+// at mlp-slew and mlp-multictrl, 2 at mlp-deep, 1 where the weights fill
+// the block), in a function of its own (its tiles' registers): each
+// hidden layer's forward pass and each reverse product
+// is a register tile over the chunk's steps, the scratch holding the
+// chunk's inputs, activations, derivatives and reverse rows.  The sweep
+// reads the Jacobians from the workspace as for the other models.  What
+// bounds it: operations, the MLP's step in every trial rollout and its
+// Jacobian T - 1 times an iteration (k3d_flops with mlp_op_counts); on
+// the card, the shared-memory wavefronts the MLP's multiply-adds read
+// (one a clock an SM): the tiles read a broadcast row of a chunk's steps
+// for C multiply-adds, and the rollout's layers are a chain of dependent
+// dot products on the rollout's chain.  Where a launch lasts as long as
+// its slowest warps (mlp-deep stops on eps: 3 iterations on average, 20
+// at most), each chunk's fixed cost (its inputs' load, the activations,
+// the loops' start) sets the time, so the chunk is as large as the
+// shared memory left allows (PERF.md section 6).
 //
 // THE COST BUILD (MPC_COST = 1), for the LinDx and the model-step builds,
 // takes the pseudo-Huber cost (cost.cuh) where the TPU kernels take a
@@ -397,10 +410,12 @@ __device__ __forceinline__ float model_step(const float* prm,
 }
 
 // The MLP build's pointers into shared memory: the block's weights and
-// this warp's scratch (nn_dense.cuh).
+// this warp's scratch (nn_dense.cuh): the rollout step's two activation
+// buffers, or the Jacobian pass's chunk.
 struct MLPShared {
   const float* w;
-  float *hA, *hB, *D, *GA, *GB;
+  float *hA, *hB;
+  int wo, so;  // w and the scratch as offsets into the shared memory
 };
 
 // state row lx of the MLP's step from tau in shared memory, every lane of
@@ -410,8 +425,8 @@ __device__ __forceinline__ float mlp_model_step(const MLPShared& m,
                                                const MLPLayout& L,
                                                const float* tau, int lane,
                                                int lx) {
-  const float o = mlp_step<kDepth, MPC_ACT>(m.w, L, kSlew ? tau + kNC : tau,
-                                            m.hA, m.hB, lane);
+  const float o = mlp_step<kDepth, MPC_ACT, kNSI>(
+      m.w, L, kSlew ? tau + kNC : tau, m.hA, m.hB, lane);
   if constexpr (kSlew) {
     const float r = __shfl_sync(0xffffffffu, o, lx >= kNC ? lx - kNC : 0);
     return lx < kNC ? tau[kNS + lx] : r;
@@ -419,28 +434,30 @@ __device__ __forceinline__ float mlp_model_step(const MLPShared& m,
   return o;
 }
 
-// F_t = d x_{t+1} / d tau_t of the MLP at tau in shared memory into J
-// [kNS][kNT] (the workspace), every lane of the warp calling it; under
-// slew the first n_ctrl rows pick u_t and the MLP's rows start past the
-// u_{t-1} columns (fused.SlewSoA.soa_jacobian)
-__device__ __forceinline__ void mlp_model_jacobian(const MLPShared& m,
-                                                   const MLPLayout& L,
-                                                   const float* tau,
-                                                   int lane, float* J) {
+// F_t = d x_{t+1} / d tau_t of the MLP at the T - 1 steps of the
+// trajectory traj [T][kNT] into J [T-1][kNS][kNT] (the workspace), every
+// lane of the warp calling it; under slew the first n_ctrl rows pick u_t
+// and the MLP's rows start past the u_{t-1} columns
+// (fused.SlewSoA.soa_jacobian)
+__device__ __forceinline__ void mlp_model_jacobians(const MLPShared& m,
+                                                    const MLPLayout& L,
+                                                    const float* traj, int T,
+                                                    int lane, float* J,
+                                                    PhaseClock& clk) {
   if constexpr (kSlew) {
-    for (int e = lane; e < kNC * kNT; e += 32) {
-      const int r = e / kNT;
-      J[e] = e - r * kNT == kNS + r ? 1.f : 0.f;
+    for (int e = lane; e < (T - 1) * kNC * kNT; e += 32) {
+      const int t = e / (kNC * kNT), f = e - t * (kNC * kNT), r = f / kNT;
+      J[t * kJac + f] = f - r * kNT == kNS + r ? 1.f : 0.f;
     }
-    for (int e = lane; e < kNSI * kNC; e += 32) {
-      const int r = e / kNC;
-      J[(kNC + r) * kNT + e - r * kNC] = 0.f;
+    for (int e = lane; e < (T - 1) * kNSI * kNC; e += 32) {
+      const int t = e / (kNSI * kNC), f = e - t * (kNSI * kNC), r = f / kNC;
+      J[t * kJac + (kNC + r) * kNT + f - r * kNC] = 0.f;
     }
   }
   constexpr int off = kSlew ? kNC : 0;
-  mlp_jacobian<kDepth, MPC_ACT, kNSI>(m.w, L, tau + off, m.hA, m.hB, m.D,
-                                      m.GA, m.GB, lane,
-                                      J + off * kNT + off, kNT);
+  mlp_jacobians<kDepth, MPC_ACT, kNSI>(
+      m.wo, L, m.so, traj + off, kNT, T - 1, lane,
+      J + off * kNT + off, kNT, kJac, clk);
 }
 
 // state row lx (a lane clamped below kNS) of F_t tau + f_t
@@ -507,9 +524,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     stage_mlp<kThreads, kDepth>(op.params, op.nn, w);
     __syncthreads();
     float* const scr = smem + (threadIdx.x >> 5) * wf + kWarpFloats;
-    const int wm = op.nn.wmax;
-    mlp = MLPShared{w, scr, scr + wm, scr + 2 * wm, scr + (2 + kDepth) * wm,
-                    scr + (2 + kDepth + kNSI) * wm};
+    const int so = (threadIdx.x >> 5) * wf + kWarpFloats;
+    mlp = MLPShared{w, scr, scr + op.nn.wmax, kWarps * wf, so};
   }
   if (b >= op.B) return;  // the whole warp: nothing below syncs the block
   const int T = op.T, B = op.B;
@@ -596,15 +612,10 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   for (int it = 0; it < op.lqr_iter; ++it) {
     const float* trajc = ws0 + cur * T * kNT;
     // ---- the model's Jacobians at the current trajectory, lane t taking
-    // steps t, t + 32, ... (the MLP's: the warp, one t after another):
-    // off the sweep's chain ---------------------------------------------
+    // steps t, t + 32, ... (the MLP's: the warp, a chunk of steps at
+    // once): off the sweep's chain -------------------------------------
     if constexpr (kMLP) {
-      for (int t = 0; t < T - 1; ++t) {
-        if (lane < kNT) tau[lane] = trajc[t * kNT + lane];
-        __syncwarp();
-        mlp_model_jacobian(mlp, op.nn, tau, lane, jac + t * kJac);
-        __syncwarp();
-      }
+      mlp_model_jacobians(mlp, op.nn, trajc, T, lane, jac, clk);
     } else if constexpr (kModel) {
       for (int t = lane; t < T - 1; t += 32) {
         float tl[kNT];
@@ -1022,17 +1033,26 @@ extern "C" int mpc_fused_ilqr_dense(
       (clocks != nullptr) != kPhaseClocks)
     return (int)cudaErrorInvalidValue;
   // the MLP build: its widths (the model's n_in and n_out are the build's),
-  // the weights' copy above the warps' tiles and scratch
+  // the weights' copy above the warps' tiles and scratch; the Jacobian
+  // pass's chunk is the largest whose scratch gives the host's shared
+  // memory (fused_dense.mlp_chunk), a warp's region 16-byte aligned where
+  // its rows are vector loads or the layout prefetches
   MLPLayout nn{};
   int warp_floats = kWarpFloats, smem_floats = kWarps * kWarpFloats;
   if (kMLP) {
     if (!mlp_layout(nn_sizes, kDepth, nn_pass != 0, nn) ||
         nn.size[0] != kNSI + kNC || nn.size[kDepth + 1] != kNSI)
       return (int)cudaErrorInvalidValue;
-    // a warp's region starts 16-byte aligned in the prefetching layout
-    warp_floats = kWarpFloats + (kPrefetch ? (nn.scratch + 3) / 4 * 4
-                                           : nn.scratch);
-    smem_floats = kWarps * warp_floats + nn.floats;
+    for (int ch = kMaxChunk; ch >= 1; --ch) {
+      const int scratch = mlp_scratch_floats(nn.base, nn.slot, ch, kPrefetch);
+      const int wf = kWarpFloats + scratch;
+      if (smem_bytes == (kWarps * wf + nn.floats) * (int)sizeof(float)) {
+        nn.chunk = ch;
+        warp_floats = wf;
+        smem_floats = kWarps * wf + nn.floats;
+        break;
+      }
+    }
   }
   if (smem_bytes != smem_floats * (int)sizeof(float))
     return (int)cudaErrorInvalidValue;

@@ -23,7 +23,8 @@
 namespace mpc {
 
 // The phases, in the order of the buffer's columns (the host reads them
-// as fused_dense.PHASES): the Jacobian pass before a sweep; staging the
+// as fused_dense.PHASES): the Jacobian pass before a sweep (the MLP
+// build's forward pass; its reverse product apart); staging the
 // step's operands (C_t, c_t, F_t, tau_t, C_t tau + c_t); W = V F_t; Q =
 // C_t + F_t^T W with q; the control solve's factor (an unbounded solve's,
 // the unclamped start's and, past kRegCtrlMax controls, each QP trip's),
@@ -33,6 +34,7 @@ namespace mpc {
 // rollout, best tracking, the outputs).
 enum Phase {
   kPhJac = 0,
+  kPhJacRev,
   kPhStage,
   kPhW,
   kPhQ,

@@ -23,7 +23,8 @@ second set of tiles where it pays (``dense_prefetch``); n_state, n_ctrl and
 the bounds and f flags are nvcc defines (``dense_kernel_defines``), so
 the small loops unroll; the layouts (each operand shared or batched) are
 run-time batch strides, as in K3.  The launch geometry is computed here
-(``k3d_launch``), so the CPU tests reach it.
+(``k3d_launch``, with the MLP build's Jacobian chunk, ``mlp_chunk``), so
+the CPU tests reach it.
 
 ``fused_solve_dense_plain`` is the plain version: each kernel scalar is
 a [B] tensor (a row of lanes a [B, n] tensor) and every sum runs in the
@@ -43,7 +44,7 @@ import ctypes
 import torch
 
 from ..models.cartpole import CartpoleDx
-from ..models.dynamics import NNDynamics
+from ..models.dynamics import _ACTS_SOA, NNDynamics, _pre
 from ..models.pendulum import PendulumDx
 from ..types import LinDx
 from ..models.cost import huber_quad, huber_terms
@@ -87,9 +88,9 @@ PNQP_CONV_TOL = 1e-4
 # the unbounded Cholesky's jitter (mpc_tpu/ops/fused.py:908-920, 1464-1544)
 CHOL_JITTER = 1e-11
 # The phases of the dense kernels' account (csrc/phase_clock.cuh:Phase, in
-# its order): the clocked builds add each phase's cycles into [B, 10].
-PHASES = ('jacobians', 'stage', 'W', 'Q', 'factor', 'qp', 'gains',
-          'cost_to_go', 'rollouts', 'other')
+# its order): the clocked builds add each phase's cycles into [B, 11].
+PHASES = ('jacobians', 'jac_reverse', 'stage', 'W', 'Q', 'factor', 'qp',
+          'gains', 'cost_to_go', 'rollouts', 'other')
 # the clocked build's counters at the end of a warp's tiles
 # (phase_clock.cuh:kClockFloats: the phases rounded up to 4 floats)
 PHASE_CLOCK_FLOATS = -(-len(PHASES) // 4) * 4
@@ -217,14 +218,44 @@ def model_of(name, slew, n_ctrl=1, mlp=None):
     return SlewSoA(m, n_ctrl) if slew else m
 
 
-def _mlp_scratch_floats(sizes):
-    """A warp's scratch of the MLP build (csrc/nn_dense.cuh,
-    ``mlp_scratch_floats``), in units of the widest hidden layer wmax:
-    two activation buffers, the derivatives of each hidden layer and, for
-    the reverse product's rows, one (two hidden layers) or two (more)
-    buffers of n_state x wmax."""
+# The Jacobian pass's steps at once at most (csrc/nn_dense.cuh:kMaxChunk).
+MLP_MAX_CHUNK = 4
+
+
+def _mlp_base_floats(sizes):
+    """The MLP build's one-step scratch (csrc/nn_dense.cuh,
+    ``mlp_base_floats``), in units of the widest hidden layer wmax: two
+    activation buffers, the derivatives of each hidden layer and, for the
+    reverse product's rows, one (two hidden layers) or two (more) buffers
+    of n_state x wmax.  A warp's scratch is never less, so that the gate
+    (``mlp_gap``, at a chunk of one step) admits the same MLPs whatever
+    the chunk."""
     depth, ns = len(sizes) - 2, sizes[-1]
     return max(sizes[1:-1]) * (2 + depth + ns * min(depth - 1, 2))
+
+
+def _mlp_slot_floats(sizes):
+    """A step of the Jacobian pass's chunk in a warp's scratch
+    (``mlp_slot_floats``): the derivatives of every hidden layer, then the
+    larger of the forward pass's inputs and one or two activation buffers
+    and the reverse product's one or two buffers of rows [n_state]; the
+    buffers are as wide as the widest hidden layer but the last."""
+    depth, n_in, ns = len(sizes) - 2, sizes[0], sizes[-1]
+    hidden = sizes[1:-1]
+    g = min(depth - 1, 2)
+    hmid = max(hidden[:-1], default=0)
+    return sum(hidden) + max(n_in + g * hmid, g * ns * hmid)
+
+
+def _mlp_scratch_floats(sizes, chunk=1, prefetch=False):
+    """A warp's scratch of the MLP build with a chunk of ``chunk`` steps
+    (csrc/nn_dense.cuh, ``mlp_scratch_floats``): the larger of the
+    one-step base and the chunk's steps (the rollout's activation buffers
+    share it), a multiple of 4 floats where the chunk's rows are vector
+    loads (chunk > 1) or the layout prefetches, so that every warp's
+    scratch starts 16-byte aligned."""
+    s = max(_mlp_base_floats(sizes), chunk * _mlp_slot_floats(sizes))
+    return _round4(s) if prefetch or chunk > 1 else s
 
 
 def mlp_weight_floats(sizes):
@@ -234,20 +265,43 @@ def mlp_weight_floats(sizes):
     return sum(b * _odd(a) + b for a, b in zip(sizes[:-1], sizes[1:]))
 
 
-def k3d_smem_bytes(ns, nc, mlp_sizes=None, prefetch=None) -> int:
+def k3d_smem_bytes(ns, nc, mlp_sizes=None, prefetch=None,
+                   chunk=None) -> int:
     """The dense kernel's dynamic shared memory a block: the warps' tiles
-    (``_warp_floats``) and, in the MLP build, each warp's scratch (a
-    multiple of 4 floats in the prefetching layout) and one copy of the
-    weights above them; ``prefetch`` None takes the build's
-    (``dense_prefetch``)."""
+    (``_warp_floats``) and, in the MLP build, each warp's scratch for a
+    Jacobian chunk of ``chunk`` steps (``_mlp_scratch_floats``; None takes
+    the build's, ``mlp_chunk``) and one copy of the weights above them;
+    ``prefetch`` None takes the build's (``dense_prefetch``)."""
     if prefetch is None:
         prefetch = dense_prefetch(ns, nc, mlp_sizes)
     floats = DENSE_WARPS * _warp_floats(ns, nc, prefetch)
     if mlp_sizes is not None:
-        scratch = _mlp_scratch_floats(mlp_sizes)
-        floats += (DENSE_WARPS * (_round4(scratch) if prefetch else scratch)
+        if chunk is None:
+            chunk = mlp_chunk(ns, nc, mlp_sizes, prefetch)
+        floats += (DENSE_WARPS * _mlp_scratch_floats(mlp_sizes, chunk,
+                                                     prefetch)
                    + mlp_weight_floats(mlp_sizes))
     return 4 * floats
+
+
+def mlp_chunk(ns, nc, sizes, prefetch=None) -> int:
+    """The steps the MLP build's Jacobian pass takes at once (a warp's
+    register tiles over them, csrc/nn_dense.cuh): the most, up to
+    ``MLP_MAX_CHUNK``, whose scratch keeps the block within 227 KB and an
+    SM the blocks that one step gives (``blocks_an_sm``).  So it is sized
+    from the shared memory left; where none is left it is one step, the
+    one-step footprint (``_mlp_base_floats``).  The kernel
+    takes the most steps whose scratch gives the same shared memory, which
+    is this count."""
+    if prefetch is None:
+        prefetch = dense_prefetch(ns, nc, sizes)
+    one = k3d_smem_bytes(ns, nc, sizes, prefetch, 1)
+    best = 1
+    for ch in range(2, MLP_MAX_CHUNK + 1):
+        smem = k3d_smem_bytes(ns, nc, sizes, prefetch, ch)
+        if smem <= SMEM_LIMIT and blocks_an_sm(smem) >= blocks_an_sm(one):
+            best = ch
+    return best
 
 
 def blocks_an_sm(smem_bytes, warps=DENSE_WARPS) -> int:
@@ -281,8 +335,8 @@ def dense_prefetch(ns, nc, mlp_sizes=None) -> bool:
     without keeps one set and the lane-a-row strides: the tiles of
     ``_warp_floats(..., False)``, never more than the design before the
     prefetch took, so that no size or MLP the gate admits is refused."""
-    return prefetch_fits(ns, nc, k3d_smem_bytes(ns, nc, mlp_sizes, False),
-                         k3d_smem_bytes(ns, nc, mlp_sizes, True))
+    return prefetch_fits(ns, nc, k3d_smem_bytes(ns, nc, mlp_sizes, False, 1),
+                         k3d_smem_bytes(ns, nc, mlp_sizes, True, 1))
 
 
 def mlp_gap(dynamics, slew_nc=0):
@@ -292,11 +346,14 @@ def mlp_gap(dynamics, slew_nc=0):
     (``fused.dense_gap``), 1 to ``MAX_NN_DEPTH`` hidden layers (the
     layout's arrays) and a block's shared memory, 227 KB
     (``fused.SMEM_LIMIT``), holding the four warps' tiles and scratch
-    and one copy of the weights (``k3d_smem_bytes``).  So it sits where
-    the weights and the scratch fill a block: (64, 64) at 2 states and 1
-    control takes 25,360 bytes and two hidden layers of 225 units fit
-    there; a one-hidden-layer MLP at 8 states and 4 controls takes 8,768
-    bytes of tiles and 104 bytes a hidden unit, so up to 1,644 units.
+    and one copy of the weights (``k3d_smem_bytes``), with the Jacobian
+    pass one step at a time: a chunk of steps takes only the memory left
+    (``mlp_chunk``), so the gate is where the one-step design put it.  It
+    sits where the weights and the scratch fill a block: (64, 64) at 2
+    states and 1 control takes 25,360 bytes (27,408 with its chunk of 2)
+    and two hidden layers of 225 units fit there; a one-hidden-layer MLP
+    at 8 states and 4 controls takes 8,768 bytes of tiles and 104 bytes a
+    hidden unit, so up to 1,644 units.
     The weights are read at every unit of every step, so they stay in
     shared memory and nothing past the gate is streamed."""
     ns = dynamics.n_state + slew_nc
@@ -308,7 +365,8 @@ def mlp_gap(dynamics, slew_nc=0):
         return (f'an MLP of {len(sizes) - 2} hidden layers exceeds the dense '
                 f'configuration\'s {MAX_NN_DEPTH} (its MLP build\'s layout); '
                 'it runs on the eager solver')
-    smem = k3d_smem_bytes(ns, dynamics.n_ctrl, sizes, prefetch=False)
+    smem = k3d_smem_bytes(ns, dynamics.n_ctrl, sizes, prefetch=False,
+                          chunk=1)
     if smem > SMEM_LIMIT:
         return (f'an MLP of hidden widths {sizes[1:-1]} needs {smem} bytes of '
                 'a block\'s shared memory in the dense configuration (its '
@@ -326,14 +384,16 @@ def k3d_launch(T, B, ns, nc, n_alpha, model=False, mlp_sizes=None,
     [B, ``dense_workspace_floats``] of float32 in global memory.
     ``n_alpha`` step sizes run one after another on the warp, so they
     change nothing here; it is checked against ``MAX_ALPHA``.  ``clocks``:
-    the phase account's build, each warp's counters above its tiles."""
+    the phase account's build, each warp's counters above its tiles;
+    ``chunk`` the MLP build's Jacobian chunk (``mlp_chunk``), else 0."""
     if not 0 < n_alpha <= MAX_ALPHA:
         raise ValueError(f'the dense kernel takes 1 to {MAX_ALPHA} step '
                          'sizes')
-    smem = k3d_smem_bytes(ns, nc, mlp_sizes) + (
+    chunk = 0 if mlp_sizes is None else mlp_chunk(ns, nc, mlp_sizes)
+    smem = k3d_smem_bytes(ns, nc, mlp_sizes, chunk=chunk or None) + (
         4 * DENSE_WARPS * PHASE_CLOCK_FLOATS if clocks else 0)
     return dict(team=32, warps=DENSE_WARPS, examples=DENSE_WARPS,
-                blocks=-(-B // DENSE_WARPS), smem_bytes=smem,
+                blocks=-(-B // DENSE_WARPS), smem_bytes=smem, chunk=chunk,
                 workspace_bytes=4 * B * dense_workspace_floats(T, ns, nc,
                                                                model))
 
@@ -517,6 +577,35 @@ def _lane_sum(terms):
     for o in (16, 8, 4, 2, 1):
         a = a[..., :o] + a[..., o:2 * o]
     return a[..., 0]
+
+
+def mlp_step_lanes(nn, xs, u, params):
+    """The MLP build's step (csrc/nn_dense.cuh:mlp_step) on component
+    tensors, as ``NNDynamics.soa_step`` takes them: its hidden layers (each
+    unit's pre-activation from the first term on, then the bias and the
+    activation), then each output's dot product over the last hidden layer
+    summed as the kernel splits it over a warp's lanes: lane l's partial
+    over the units l, l + 32, ... from the first term on (0 past the
+    width), the 32 partials by the xor butterfly (``_lane_sum``), then the
+    bias and the passthrough.  Only that sum's order differs from
+    ``soa_step``'s."""
+    z0 = nn._soa_inputs(xs, u)
+    layers = nn._flat_layers(params)
+    z = z0
+    for W, b in layers[:-1]:
+        z = _ACTS_SOA[nn.activation](_pre(z, W, b))
+    W, b = layers[-1]
+    h = W.shape[1]
+    parts = []
+    for lane in range(min(h, 32)):
+        p = W[:, lane] * z[..., lane:lane + 1]
+        for i in range(lane + 32, h, 32):
+            p = p + W[:, i] * z[..., i:i + 1]
+        parts.append(p)
+    out = _lane_sum(torch.stack(parts, -1)) + b
+    if nn.passthrough:
+        out = out + z0[..., :nn.n_state]
+    return tuple(out.unbind(-1))
 
 
 def _dot(a, b, dim):
@@ -918,9 +1007,10 @@ def fused_solve_dense_plain(F, f, C, c, x0, u0, lb, ub, *, alphas, lqr_iter,
     model-step build, F and f None and ``model`` one of the kernels'
     models (a pendulum, the cartpole, an MLP or a ``SlewSoA`` of one)
     and ``params`` its parameter vector (``model_params``): the rollouts
-    take its ``soa_step`` and each sweep its ``soa_jacobian`` at the
-    current trajectory, computed before the sweep as the kernel computes
-    them (u a component for one control, a tuple for several);
+    take its ``soa_step`` (an MLP's ``mlp_step_lanes``, the MLP build's
+    order of the output layer's sums) and each sweep its ``soa_jacobian``
+    at the current trajectory, computed before the sweep as the kernel
+    computes them (u a component for one control, a tuple for several);
     C [T, 1 or B, ntau, ntau]; c [T, 1 or B, ntau]; or, for the cost
     build, C and c None and ``cost_params`` the pseudo-Huber cost's [w,
     goal, delta] (2 ntau + 1), lane i's term of a stage cost summed by
@@ -991,8 +1081,15 @@ def fused_solve_dense_plain(F, f, C, c, x0, u0, lb, ub, *, alphas, lqr_iter,
             return us[..., 0] if nc == 1 else tuple(us.unbind(-1))
 
         def step(t, tau):
-            return torch.stack(model.soa_step(
-                tuple(tau[:, :ns].unbind(-1)), ctrl(tau[:, ns:]), p), -1)
+            xs, us = tuple(tau[:, :ns].unbind(-1)), ctrl(tau[:, ns:])
+            if not isinstance(inner, NNDynamics):
+                return torch.stack(model.soa_step(xs, us, p), -1)
+            # the MLP build's step (its output layer summed over the lanes)
+            k = ns - inner.n_state      # the slew passthrough's u_{t-1}
+            out = mlp_step_lanes(inner, xs[k:], us, p)
+            if k:
+                out = ((us,) if nc == 1 else us) + out
+            return torch.stack(out, -1)
 
         def jacobians(x, u):
             """F_t [B, ns, ntau] at the current trajectory for t < T - 1,

@@ -2,6 +2,7 @@
 paths' host times and the kernels' device times.
 
     python3 mpc_tpu_torch/utils/ab_checkouts.py OTHER [THIS]
+    python3 mpc_tpu_torch/utils/ab_checkouts.py --phases OTHER [THIS]
 
 OTHER and THIS (default: the checkout this file is in) each hold a
 ``chip_smoke.py`` beside ``mpc_tpu_torch/``; for the parent commit, say,
@@ -22,13 +23,22 @@ builds for them and prints a digest of the outputs' bytes (x, u and
 stats; the backward's five gradients): the dense forward at the medium
 rows 24s4c and 16s4c (B=2048), 5s1c (B=2048), TVLQR (B=128), config 3
 (the cartpole in the model-step build, B=512), the headline under slew
-0.5 (B=4096), mlp-deep (B=2048) and the rows past 8 controls wide-3s9c,
+0.5 (B=4096), the MLP build's rows mlp-deep, mlp-slew and mlp-multictrl
+(B=2048) and the rows past 8 controls wide-3s9c,
 wide-4s12c and wide-2s16c (B=2048); the dense backward at 20s4c and
 4s12c (B=1024).  Each dense row's device time comes from a CUDA graph
 ([dense-time]).  The last lines say whether each row's digest is the
 same in all four turns, that is whether the two checkouts' kernels give
 the same bits there, and each dense row's best time in each checkout
 beside the spread of its two turns.
+
+With ``--phases`` each checkout runs, once, chip_smoke's phase account
+([phases-dense]: the clocked builds of the dense forward) at the MLP
+build's rows mlp-deep, mlp-slew and mlp-multictrl, each row's iterations
+(mean and most: a launch lasts as long as its slowest warp), the
+registers and spills of its build and a digest of its outputs beside; a
+checkout whose chip_smoke has no such row takes the row's operands from
+``mlp_operands``.
 """
 
 import os
@@ -79,6 +89,8 @@ fwd = {
     'config3': cs.soa_operands(torch, d, 'config 3')[0],
     'slew': cs.soa_operands(torch, d, 'slew 0.5')[0],
     'mlp-deep': cs.mlp_operands(torch, d, 'mlp-deep'),
+    'mlp-slew': cs.mlp_operands(torch, d, 'mlp-slew'),
+    'mlp-multictrl': cs.mlp_operands(torch, d, 'mlp-multictrl'),
     'wide-3s9c': cs.wide_operands(torch, d, 'wide-3s9c'),
     'wide-4s12c': cs.wide_operands(torch, d, 'wide-4s12c'),
     'wide-2s16c': cs.wide_operands(torch, d, 'wide-2s16c'),
@@ -104,12 +116,62 @@ print(cs.card_line())
 KEEP = ('[serve', '[train', '[time', '  median', '  latency', '[bits',
         '[dense-time')
 
+PHASES = '''
+import hashlib, sys, torch
+sys.path.insert(0, '.')
+import chip_smoke as cs
+from mpc_tpu_torch.ops import fused_dense
+rows = ('mlp-deep', 'mlp-slew', 'mlp-multictrl')
+plain = cs.phase_row_operands
+cs.phase_row_operands = lambda torch, device, label, n=None: (
+    cs.mlp_operands(torch, device, label, n=n) if label in rows
+    else plain(torch, device, label, n))
+cs.PHASE_ROWS = rows
+cs.phases_dense_main(*rows)
+d = torch.device('cuda')
+for label in rows:
+    ops = cs.mlp_operands(torch, d, label)
+    outs = fused_dense.fused_ilqr_dense(**ops)
+    st = outs[2]
+    h = hashlib.sha256()
+    for a in outs:
+        h.update(a.cpu().contiguous().numpy().tobytes())
+    defines, geo = cs.dense_defines(ops)
+    des = cs.design('fused_ilqr_dense', defines, geo)
+    print(f'[phases-mlp] {label}: n_iter mean {float(st[2].mean()):.2f}, '
+          f'max {float(st[2].max()):.0f}; registers {des["registers"]}, '
+          f'spill stores {des["spill_store_bytes"]} bytes; shared memory '
+          f'{geo["smem_bytes"]} bytes a block, '
+          f'{fused_dense.blocks_an_sm(geo["smem_bytes"])} blocks an SM by '
+          f'it; digest {h.hexdigest()[:16]}', flush=True)
+print(cs.card_line())
+'''
+
+
+def phases(other, this):
+    """The phase account of both checkouts at the MLP build's rows."""
+    for who, where in (('other', other), ('this', this)):
+        r = subprocess.run([sys.executable, '-c', PHASES], cwd=where,
+                           capture_output=True, text=True)
+        if r.returncode != 0:
+            print(r.stdout[-4000:], r.stderr[-4000:], sep='\n')
+            return r.returncode
+        for line in r.stdout.splitlines():
+            print(f'{who:5s} {line}', flush=True)
+    return 0
+
 
 def main(argv):
+    here = os.path.dirname(os.path.abspath(__file__))
+    if len(argv) > 1 and argv[1] == '--phases':
+        if not 3 <= len(argv) <= 4:
+            print(__doc__, file=sys.stderr)
+            return 2
+        return phases(argv[2], argv[3] if len(argv) == 4
+                      else os.path.join(here, '..', '..'))
     if not 2 <= len(argv) <= 3:
         print(__doc__, file=sys.stderr)
         return 2
-    here = os.path.dirname(os.path.abspath(__file__))
     this = argv[2] if len(argv) == 3 else os.path.join(here, '..', '..')
     turns = [('other', argv[1]), ('this', this), ('this', this),
              ('other', argv[1])]

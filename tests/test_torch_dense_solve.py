@@ -240,7 +240,10 @@ def test_phase_account_reader():
     """The clocks buffer [B, phases] to each phase's share of the warps'
     cycles and its mean cycles a warp, largest first in the line."""
     P = len(fd.PHASES)
-    assert fd.PHASES[:4] == ('jacobians', 'stage', 'W', 'Q') and P == 10
+    assert fd.PHASES[:5] == ('jacobians', 'jac_reverse', 'stage', 'W',
+                             'Q') and P == 11
+    # the counters stay 12 floats a warp (phase_clock.cuh:kClockFloats)
+    assert fd.PHASE_CLOCK_FLOATS == 12
     c = torch.zeros(4, P, dtype=torch.int64)
     c[:, fd.PHASES.index('W')] = torch.tensor([100, 200, 300, 400])
     c[:, fd.PHASES.index('factor')] = 250

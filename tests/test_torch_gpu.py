@@ -1963,6 +1963,90 @@ def test_mlp_matches_plain(cuda, case):
         r.stdout[-2000:] + r.stderr[-4000:]
 
 
+# (n_state, n_ctrl, hidden widths, activation, T, slew penalty): the
+# MLP build's Jacobian pass over a chunk of steps at awkward sizes, each
+# at B=2050 with a box of +-1: widths 7, 33, 100 and 225, one to four
+# hidden layers, T - 1 not a multiple of the chunk (the last chunk
+# shorter), T = 2 (one step), and a slew penalty at 2 controls
+CHUNK_CASES = {
+    'chunk_w7': (2, 1, (7,), 'sigmoid', 7, None),
+    'chunk_w33_d2': (3, 2, (33, 33), 'elu', 6, None),
+    'chunk_w100_d3': (4, 1, (100, 7, 100), 'relu', 8, None),
+    'chunk_w225_d4': (2, 1, (225, 33, 7, 225), 'sigmoid', 6, None),
+    'chunk_T2': (2, 1, (64, 64), 'sigmoid', 2, None),
+    'chunk_slew_2c': (2, 2, (33,), 'sigmoid', 7, 0.5),
+}
+
+
+def _chunk_problem(device, case, B, dtype=torch.float32):
+    """A CHUNK_CASES case's dense-kernel operands, from a numpy seed."""
+    from mpc_tpu_torch.utils.convert import nn_dynamics_from_numpy
+    from mpc_tpu_torch.utils.problems import mlp_weights
+    ns, nc, hid, act, T, slew = CHUNK_CASES[case]
+    rng = np.random.RandomState(len(hid) + ns)
+    t = (lambda a: torch.tensor(a, dtype=dtype, device=device))
+    model = nn_dynamics_from_numpy(
+        mlp_weights((ns + nc,) + hid + (ns,), seed=len(hid)), act, True,
+        device=device).to(dtype)
+    cfg = _cfg(T, n_state=ns, n_ctrl=nc, lqr_iter=4,
+               slew_rate_penalty=slew)
+    x0 = t(rng.randn(B, ns))
+    nt = ns + nc
+    cost = mt.QuadCost(t(np.eye(nt)), t(0.1 * rng.randn(nt)))
+    if slew is not None:
+        cfg, x0, cost, model = fused.slew_problem(
+            cfg, x0, cost, model, t(rng.uniform(-1, 1, (B, nc))))
+    return fused_dense.k3d_operands(cfg, x0, cost, model, u_lower=-1.0,
+                                    u_upper=1.0)
+
+
+def chunk_case_main(case):
+    """One CHUNK_CASES case against its plain version at B=2050, run alone
+    in a process under CUDA_LAUNCH_BLOCKING=1 by
+    test_mlp_chunked_jacobians_match_plain: one launch, finite, no further
+    from the float64 plain run than twice the plain float32 run (two
+    float32 solves of an MLP part beyond the tail, PERF.md section 6), the
+    reversed batch bitwise."""
+    device = torch.device('cuda')
+    ops = _chunk_problem(device, case, 2050)
+    ops64 = _chunk_problem(device, case, 2050, torch.float64)
+    sizes = fused_dense.mlp_spec(ops['model'])[0]
+    T, _, nc = ops['u0'].shape
+    chunk = fused_dense.k3d_launch(T, 2050, ops['x0'].shape[1], nc, 5, True,
+                                   sizes)['chunk']
+    fused.reset_launch_counts()
+    xk, uk, sk = fused_dense.fused_ilqr_dense(**ops)
+    torch.cuda.synchronize()
+    assert sum(fused.launch_counts.values()) == 1
+    _, up, _ = fused_dense.fused_solve_dense_plain(**ops)
+    _, u64, _ = fused_dense.fused_solve_dense_plain(**ops64)
+    assert torch.isfinite(xk).all() and torch.isfinite(uk).all()
+    _assert_near_f64(uk, up, u64)
+    back = fused_dense.fused_ilqr_dense(**_batch_map(
+        ops, lambda a: a.flip(0), lambda a: a.flip(1)))
+    assert all(torch.equal(a.flip(1), b) for a, b in zip(back, (xk, uk, sk)))
+    print('ok', case, 'chunk', chunk, float((uk - up).abs().max()))
+
+
+@pytest.mark.parametrize('case', list(CHUNK_CASES))
+def test_mlp_chunked_jacobians_match_plain(cuda, case):
+    """The MLP build's Jacobian pass over a chunk of steps against the
+    plain version at awkward widths, depths and horizons, one case a
+    process under CUDA_LAUNCH_BLOCKING=1."""
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, CUDA_LAUNCH_BLOCKING='1',
+               PYTHONPATH=os.pathsep.join(
+                   [root, os.environ.get('PYTHONPATH', '')]))
+    r = subprocess.run([sys.executable, os.path.abspath(__file__), case],
+                       env=env, cwd=root, capture_output=True, text=True,
+                       timeout=600)
+    assert r.returncode == 0 and f'ok {case}' in r.stdout, \
+        r.stdout[-2000:] + r.stderr[-4000:]
+
+
 def test_mlp_entry_points_launch_once_and_never_fall_back(cuda,
                                                           monkeypatch):
     """The slew row and the deep row through batched_solve and MPC: one
@@ -2013,5 +2097,7 @@ if __name__ == '__main__':
         uz_case_main(sys.argv[1])
     elif sys.argv[1] in MLP_CASES:
         mlp_case_main(sys.argv[1])
+    elif sys.argv[1] in CHUNK_CASES:
+        chunk_case_main(sys.argv[1])
     else:
         soa_case_main(sys.argv[1])

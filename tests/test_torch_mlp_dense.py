@@ -115,6 +115,30 @@ def test_mlp_step_and_jacobian_match_jax(hidden, act, passthrough, nc):
     _rel(got, J, STEP_TOL, 'jacobian')
 
 
+@pytest.mark.parametrize('hidden,act,nc', [((7,), 'sigmoid', 1),
+                                           ((33, 33), 'elu', 2),
+                                           ((100, 7, 100), 'relu', 1),
+                                           ((100,), 'sigmoid', 4),
+                                           ((225, 33, 7, 225), 'sigmoid', 1)])
+def test_the_kernels_step_sums_its_output_layer_over_the_lanes(hidden, act,
+                                                               nc):
+    """fused_dense.mlp_step_lanes, the MLP build's step with each output's
+    dot product split over a warp's lanes (csrc/nn_dense.cuh:mlp_step), in
+    float64 within 1e-12 of NNDynamics.soa_step (mpc_tpu's order), which
+    stays as it is; widths below and past 32, 1 to 4 hidden layers."""
+    ns = 3
+    model = _models(ns, nc, hidden, act, True, seed=len(hidden))[1]
+    p = model.kernel_params().detach()
+    rng = np.random.RandomState(7)
+    x = torch.tensor(rng.randn(40, ns))
+    u = torch.tensor(rng.randn(40, nc))
+    us = u[:, 0] if nc == 1 else tuple(u.unbind(-1))
+    ref = torch.stack(model.soa_step(tuple(x.unbind(-1)), us, p), -1)
+    got = torch.stack(fd.mlp_step_lanes(model, tuple(x.unbind(-1)), us, p),
+                      -1)
+    _rel(got, ref, STEP_TOL, 'lanes step')
+
+
 def test_slew_mlp_matches_jax_at_two_controls():
     ns, nc = 3, 2
     jm, tm = _models(ns, nc, (6, 5), 'elu', True, seed=2)
@@ -356,13 +380,90 @@ def test_each_row_routes_to_the_mlp_build(label):
     # the block's shared memory: weights, tiles and scratch within 227 KB
     geo = fd.k3d_launch(T, 2048, dyn.n_state, nc, 3, True, model.sizes)
     assert geo['smem_bytes'] <= fused.SMEM_LIMIT
-    # (the prefetching layout's scratch rounded to 16-byte rows)
+    # (the scratch rounded to 16-byte rows where the Jacobian chunk's rows
+    # are vector loads or the layout prefetches)
     pre = fd.dense_prefetch(dyn.n_state, nc, model.sizes)
-    scratch = fd._mlp_scratch_floats(model.sizes)
+    chunk = geo['chunk']
+    scratch = max(fd._mlp_base_floats(model.sizes),
+                  chunk * fd._mlp_slot_floats(model.sizes))
     assert geo['smem_bytes'] == 4 * (
         fd.DENSE_WARPS * (fd._warp_floats(dyn.n_state, nc, pre)
-                          + (-(-scratch // 4) * 4 if pre else scratch))
+                          + (-(-scratch // 4) * 4 if pre or chunk > 1
+                             else scratch))
         + fd.mlp_weight_floats(model.sizes))
+
+
+# Each MLP_ROWS row's blocks an SM by shared memory (fused_dense.
+# blocks_an_sm) with the Jacobian pass one step at a time, the footprint
+# the chunk may not cost: 10,344, 25,360 and 22,432 bytes a block.
+ONE_STEP_BLOCKS = {'mlp-slew': 16, 'mlp-deep': 8, 'mlp-multictrl': 9}
+
+
+@pytest.mark.parametrize('label', list(MLP_ROWS))
+def test_the_jacobian_chunk_keeps_the_blocks_an_sm(label):
+    """The chunk is sized from the shared memory left: at every MLP_ROWS
+    row the block keeps the one-step design's blocks an SM, and the chunk
+    is the most steps (up to MLP_MAX_CHUNK) that does."""
+    ns, nc, hid = MLP_ROWS[label][:3]
+    slew = label == 'mlp-slew'
+    ns_k = ns + (nc if slew else 0)
+    sizes = (ns + nc,) + hid + (ns,)
+    geo = fd.k3d_launch(20, 2048, ns_k, nc, 5, True, sizes)
+    one = fd.k3d_smem_bytes(ns_k, nc, sizes, chunk=1)
+    assert fd.blocks_an_sm(one) == ONE_STEP_BLOCKS[label]
+    assert fd.blocks_an_sm(geo['smem_bytes']) >= ONE_STEP_BLOCKS[label]
+    chunk = geo['chunk']
+    assert chunk == fd.mlp_chunk(ns_k, nc, sizes) and chunk > 1
+    assert geo['smem_bytes'] == fd.k3d_smem_bytes(ns_k, nc, sizes)
+    if chunk < fd.MLP_MAX_CHUNK:
+        more = fd.k3d_smem_bytes(ns_k, nc, sizes, chunk=chunk + 1)
+        assert fd.blocks_an_sm(more) < ONE_STEP_BLOCKS[label]
+    # with one step the footprint is the one-step design's
+    assert one == 4 * (fd.DENSE_WARPS * (fd._warp_floats(ns_k, nc, False)
+                                         + fd._mlp_base_floats(sizes))
+                       + fd.mlp_weight_floats(sizes))
+    assert {'mlp-slew': 4, 'mlp-deep': 2, 'mlp-multictrl': 4}[label] == chunk
+
+
+@pytest.mark.parametrize('depth', [1, 2, 3, 4])
+def test_the_chunk_step_scratch_counts_its_buffers(depth):
+    """A chunk step's scratch (csrc/nn_dense.cuh:mlp_slot_floats): every
+    hidden layer's act', then the larger of the forward's inputs and
+    activation buffers (one at two hidden layers, two past) and the
+    reverse product's row buffers (n_state wide, as many)."""
+    hidden = (40, 7, 33, 5)[:depth]
+    sizes = (6,) + hidden + (4,)
+    g = min(depth - 1, 2)
+    hmid = max(hidden[:-1], default=0)
+    assert fd._mlp_slot_floats(sizes) == sum(hidden) + max(
+        6 + g * hmid, g * 4 * hmid)
+    base = fd._mlp_base_floats(sizes)
+    assert base == 40 * (2 + depth + 4 * g)
+    for chunk in range(1, fd.MLP_MAX_CHUNK + 1):
+        s = max(base, chunk * fd._mlp_slot_floats(sizes))
+        assert fd._mlp_scratch_floats(sizes, chunk) == (
+            s if chunk == 1 else -(-s // 4) * 4)
+        assert fd._mlp_scratch_floats(sizes, chunk, True) % 4 == 0
+
+
+@pytest.mark.parametrize('ns,nc,hidden,admitted', [
+    (2, 1, (225, 225), True), (2, 1, (226, 226), False),
+    (8, 4, (1644,), True), (8, 4, (1645,), False)])
+def test_the_gate_keeps_its_edges(ns, nc, hidden, admitted):
+    """mlp_gap admits what it admitted when the Jacobian pass took one
+    step at a time, and refuses the first size past each edge: the gate
+    reads the one-step footprint, and a chunk only takes the memory
+    left (where none is, it is one step)."""
+    model = mt.NNDynamics.shaped((ns + nc,) + hidden + (ns,), 'sigmoid',
+                                 True)
+    gap = fd.mlp_gap(model)
+    assert (gap is None) == admitted
+    if admitted:
+        geo = fd.k3d_launch(20, 2048, ns, nc, 5, True, model.sizes)
+        assert geo['smem_bytes'] <= fused.SMEM_LIMIT
+        assert geo['chunk'] >= 1
+    else:
+        assert 'shared memory' in gap
 
 
 def test_k3_keeps_its_mlp_and_deeper_ones_go_dense():
