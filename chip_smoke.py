@@ -194,8 +194,10 @@ loss falling ([train-dense]).
 The phase account of both dense kernels ([phases-dense]; alone:
 python3 chip_smoke.py --phases-dense [ROW ...]): each kernel's clocked
 build (MPC_PHASE_CLOCKS, csrc/phase_clock.cuh) at the forward's 24s4c,
-5s1c, wide-4s12c, wide-2s16c (B=2048), config 3 (B=512) and mlp-deep
-(B=2048) and the backward's 20s4c and 4s12c (B=1024): each phase's share
+5s1c, wide-4s12c, wide-2s16c (B=2048), TVLQR (B=128), the model-step
+build's config 3 and cartpole at T=200 (B=512) and slew-augmented
+headline (B=4096), mlp-deep, mlp-slew and mlp-multictrl (B=2048) and the
+backward's 20s4c and 4s12c (B=1024): each phase's share
 of a warp's cycles (the Jacobian pass, staging a step's operands, W, Q,
 the control solve's factor, QP trips and gains, the cost-to-go, the
 trial rollouts), the backward's gradient pass and chunk-order sums by
@@ -421,12 +423,10 @@ def phase_build(background=False):
     specs += [('fused_kkt_bwd_dense', fused_bwd_dense.bwd_dense_kernel_defines(
         ns, nc, True, False)) for ns, nc in ((28, 4), (24, 8))]
     # the nonlinear models: the dense configuration's model-step build for
-    # the cartpole and the slew-augmented pendulums and cartpole, K1 and K3
-    # on the damped pendulum
-    specs += [('fused_ilqr_dense', fused_dense.dense_kernel_defines(
-        ns, 1, True, False, model, slew)) for ns, model, slew in (
-            (5, 'cartpole', False), (4, 'pendulum', True),
-            (4, 'damped_pendulum', True), (6, 'cartpole', True))]
+    # the cartpole and the slew-augmented pendulums and cartpole (each in
+    # the workspace layout of its SOA_ROWS rows, the others' in global
+    # memory), K1 and K3 on the damped pendulum
+    specs += soa_build_specs()
     specs += [('fused_ilqr', fused.kernel_defines(T, True, damped=True)),
               ('fused_ilqr_long', fused.long_kernel_defines(False, True,
                                                             damped=True))]
@@ -438,7 +438,9 @@ def phase_build(background=False):
         lindx, True, act, huber=True)) for lindx, act in (
             (False, None), (True, None), (False, 'sigmoid'))]
     specs += [('fused_ilqr_dense', fused_dense.dense_kernel_defines(
-        5, 1, True, False, 'cartpole', huber=True)),
+        5, 1, True, False, 'cartpole', huber=True,
+        ws_shared=fused_dense.k3d_launch(CARTPOLE['T'], CARTPOLE_B, 5, 1, 1,
+                                         True)['ws_shared'])),
               ('fused_ilqr_dense', fused_dense.dense_kernel_defines(
                   24, 4, True, False, huber=True)),
               ('fused_kkt_bwd', fused_bwd.kernel_defines(HUBER_GRAD['T'],
@@ -512,6 +514,15 @@ def phase_build_report(started):
                if kernel == 'K1' else fused.k3_launch(T_, n, 5))
               for label, model, T_, n, kernel in SOA_ROWS)):
         log(f'  launch, {what}: {geo}')
+    # the model-step build at each of its rows: registers, spills, the
+    # workspace's layout, blocks an SM and waves at the row's batch
+    import torch
+    for label, _, T_, n, kernel in SOA_ROWS:
+        if kernel == 'dense':
+            defines, geo = dense_defines(soa_operands(
+                torch, torch.device('cpu'), label, n=1)[0], n)
+            log(f'  model-step build, {label}, B={n}, T={T_}: '
+                + residency(design('fused_ilqr_dense', defines, geo), geo))
 
 
 def design(name, defines, geo):
@@ -530,6 +541,22 @@ def design(name, defines, geo):
             'workspace_bytes': geo.get('workspace_bytes', 0),
             'registers': max(map(int, regs)),
             'spill_store_bytes': max(map(int, spills))}
+
+
+def residency(des, geo):
+    """A dense build's registers, spills, workspace layout, blocks an SM
+    (by registers and by shared memory) and waves of its launch, from its
+    ``design`` entry and launch geometry."""
+    from mpc_tpu_torch.ops import fused_dense as fd
+    by_regs = fd.blocks_by_registers(des['registers'])
+    by_smem = fd.blocks_an_sm(geo['smem_bytes'])
+    return (f'registers {des["registers"]}, spill stores '
+            f'{des["spill_store_bytes"]} bytes; workspace '
+            f'{"shared" if geo.get("ws_shared") else "global"}, '
+            f'{geo["smem_bytes"]} bytes of shared memory a block; blocks an '
+            f'SM {by_regs} by registers, {by_smem} by shared memory; '
+            f'{geo["blocks"]} blocks, '
+            f'{fd.waves(geo["blocks"], min(by_regs, by_smem))} wave(s)')
 
 
 def hold_equidistance(what, uk, up, u64):
@@ -3723,22 +3750,26 @@ def wide_operands(torch, device, label, dtype=None, n=None):
     return fd.k3d_operands(cfg, x0, cost, dyn, **bk)
 
 
-def dense_defines(ops):
+def dense_defines(ops, n=None):
     """(defines, launch geometry) of the dense build a forward's operands
-    run (any model, mask or f)."""
+    run (any model, cost, mask or f), at their batch or, where ``ops``
+    are a cut of the row, at the row's ``n`` examples (the model-step
+    build's workspace layout depends on the batch)."""
     from mpc_tpu_torch.ops import fused_dense as fd
-    T_, n, nc = ops['u0'].shape
+    T_, n0, nc = ops['u0'].shape
     ns = ops['x0'].shape[1]
     model, slew, spec = None, False, None
     if ops.get('model') is not None:
         model, slew = fd.dense_model(ops['model'])
         spec = fd.mlp_spec(ops['model'])
+    geo = fd.k3d_launch(T_, n or n0, ns, nc, len(ops['alphas']),
+                        model is not None, spec[0] if spec else None)
     return (fd.dense_kernel_defines(ns, nc, ops['lb'] is not None,
                                     ops['f'] is not None, model, slew,
+                                    huber=ops.get('cost_params') is not None,
                                     has_uz=ops.get('uz') is not None,
-                                    mlp=spec),
-            fd.k3d_launch(T_, n, ns, nc, len(ops['alphas']),
-                          model is not None, spec[0] if spec else None))
+                                    mlp=spec, ws_shared=geo['ws_shared']),
+            geo)
 
 
 def corner_problem(torch, device, kind, ns, nc, a, b, dtype=None):
@@ -4415,6 +4446,31 @@ def soa_operands(torch, device, label, dtype=None, n=None):
             fused.fused_ilqr_long, fused.fused_solve_long_plain)
 
 
+def soa_build_specs():
+    """The model-step builds the nonlinear models' phases run: each dense
+    SOA_ROWS row's in both workspace layouts (the one its batch takes, the
+    other forced by [time-soa]), and the slew-augmented damped pendulum
+    and cartpole in global memory."""
+    import torch
+    from mpc_tpu_torch.ops import fused_dense as fd
+    specs = []
+    for label, _, T_, n, kernel in SOA_ROWS:
+        if kernel == 'dense':
+            # and in the other layout, which [time-soa] times beside
+            d = dense_defines(soa_operands(torch, torch.device('cpu'), label,
+                                           n=1)[0], n)[0]
+            other = dict(d, MPC_WS_SHARED=1)
+            if 'MPC_WS_SHARED' in d:
+                other.pop('MPC_WS_SHARED')
+            for s in (('fused_ilqr_dense', d), ('fused_ilqr_dense', other)):
+                if s not in specs:
+                    specs.append(s)
+    specs += [('fused_ilqr_dense', fd.dense_kernel_defines(
+        ns, 1, True, False, model, True)) for ns, model in (
+            (4, 'damped_pendulum'), (6, 'cartpole'))]
+    return specs
+
+
 def soa_limits(label):
     """The float32 tail of a row: the pendulum's; the cartpole's at the
     long configuration's level, relative to its control range
@@ -4659,16 +4715,11 @@ def soa_flops(ops, label, stats):
 def soa_design(ops, label):
     """The design entry (geometry, registers, spills) of a row's build."""
     from mpc_tpu_torch.ops import fused
-    from mpc_tpu_torch.ops import fused_dense as fd
     kernel = next(r for r in SOA_ROWS if r[0] == label)[4]
     T_, n = ops['u0'].shape[:2]
     n_alpha = len(ops['alphas'])
     if kernel == 'dense':
-        ns = ops['x0'].shape[1]
-        name, slew = fd.dense_model(ops['model'])
-        return design('fused_ilqr_dense', fd.dense_kernel_defines(
-            ns, 1, True, False, name, slew),
-            fd.k3d_launch(T_, n, ns, 1, n_alpha, True))
+        return design('fused_ilqr_dense', *dense_defines(ops))
     if kernel == 'K1':
         return design('fused_ilqr', fused.kernel_defines(T_, True, True),
                       fused.k1_launch(T_, n, n_alpha))
@@ -4697,13 +4748,39 @@ def phase_time_soa(torch, device, plain_ms):
             f'({float(st[2].double().mean()):.2f} iterations, '
             f'{float(st[5].double().mean()):.2f} trials a solve), {nbytes} '
             f'bytes; bound {bound_ms:.5f} ms by {by} ({ms / bound_ms:.1f}x); '
-            f'{n / ms * 1e3:.0f} solves/s; registers {des["registers"]}, '
-            f'spill stores {des["spill_store_bytes"]} bytes; {card_line()}')
+            f'{n / ms * 1e3:.0f} solves/s; '
+            + (residency(des, dense_defines(ops)[1]) if kname == 'dense' else
+               f'registers {des["registers"]}, spill stores '
+               f'{des["spill_store_bytes"]} bytes') + f'; {card_line()}')
         rows.append(dict(row=f'{label} B={n} T={T_}', ms=ms,
                          plain_ms=plain_ms[label], bound_ms=bound_ms,
                          bound_by=by, registers=des['registers'],
                          spill_store_bytes=des['spill_store_bytes'],
                          design=des))
+        if kname == 'dense':
+            # the model-step build with its workspace in the other memory
+            # (fused_dense.dense_ws_shared replaced for the timing), the
+            # same bits
+            from mpc_tpu_torch.ops import fused_dense as fd
+            shared = dense_defines(ops)[1]['ws_shared']
+            chosen = fd.dense_ws_shared
+            fd.dense_ws_shared = lambda *a: not shared
+            try:
+                other = kernel(**ops)
+                ms_other, _ = graph_ms(torch, lambda: kernel(**ops), reps=3,
+                                       per_graph=4)
+                des_other = soa_design(ops, label)
+            finally:
+                fd.dense_ws_shared = chosen
+            if not all(torch.equal(a, b)
+                       for a, b in zip(other, kernel(**ops))):
+                raise AssertionError(f'{label}: the layouts differ')
+            log(f'  {label}: the workspace in '
+                f'{"global" if shared else "shared"} memory (forced) '
+                f'{ms_other:.4f} ms, bitwise the same; registers '
+                f'{des_other["registers"]}, spill stores '
+                f'{des_other["spill_store_bytes"]} bytes')
+            rows[-1]['other_layout_ms'] = ms_other
     return rows
 
 
@@ -5219,17 +5296,11 @@ def huber_design(ops, label):
     """The design entry (geometry, registers, spills) of a row's cost
     build."""
     from mpc_tpu_torch.ops import fused
-    from mpc_tpu_torch.ops import fused_dense as fd
     _, prob, _, _, kernel = next(r for r in HUBER_ROWS if r[0] == label)
     T_, n = ops['u0'].shape[:2]
     n_alpha = len(ops['alphas'])
     if kernel == 'dense':
-        ns, nc = ops['x0'].shape[1], ops['u0'].shape[2]
-        model = None if ops['model'] is None else fd.dense_model(
-            ops['model'])[0]
-        return design('fused_ilqr_dense', fd.dense_kernel_defines(
-            ns, nc, True, False, model, huber=True),
-            fd.k3d_launch(T_, n, ns, nc, n_alpha, model is not None))
+        return design('fused_ilqr_dense', *dense_defines(ops))
     if kernel == 'K1':
         return design('fused_ilqr', fused.kernel_defines(T_, True,
                                                          huber=True),
@@ -5979,19 +6050,12 @@ def uz_defines(ops, label):
     """(library name, defines, launch geometry) of a row's build, with
     the mask build's define where ``ops`` has a mask."""
     from mpc_tpu_torch.ops import fused
-    from mpc_tpu_torch.ops import fused_dense as fd
-    _, prob, _, _, kernel, _, _, _ = uz_row(label)
+    _, prob, _, n_row, kernel, _, _, _ = uz_row(label)
     T_, n = ops['u0'].shape[:2]
     n_alpha = len(ops['alphas'])
     bounds, has_uz = ops['lb'] is not None, ops['uz'] is not None
     if kernel == 'dense':
-        ns, nc = ops['x0'].shape[1], ops['u0'].shape[2]
-        model, slew = (None, False) if ops['model'] is None else \
-            fd.dense_model(ops['model'])
-        return ('fused_ilqr_dense', fd.dense_kernel_defines(
-            ns, nc, bounds, ops['f'] is not None, model, slew,
-            has_uz=has_uz), fd.k3d_launch(T_, n, ns, nc, n_alpha,
-                                          model is not None))
+        return ('fused_ilqr_dense', *dense_defines(ops, n_row))
     if kernel == 'K1':
         return ('fused_ilqr', fused.kernel_defines(T_, bounds,
                                                    has_uz=has_uz),
@@ -6639,12 +6703,14 @@ PSCAN_GRAD_EXACT_TOL, PSCAN_REG, PSCAN_REG_ROOM = 1e-12, 1e-11, 10.0
 
 # [phases-dense]'s rows: the dense forward at the medium row (24s4c), the
 # 5-state box row (each B=2048), TVLQR (B=128), the wide rows 4s12c and
-# 2s16c (B=2048), config 3 (B=512) and the MLP build's rows mlp-deep,
-# mlp-slew and mlp-multictrl (B=2048); the dense backward at the medium
-# imitation row (20s4c) and at 4s12c (B=1024), on the operands the other
-# phases build for them
+# 2s16c (B=2048), the model-step build's rows config 3 and the cartpole
+# at T=200 (B=512) and the headline under slew 0.5 (B=4096), and the MLP
+# build's rows mlp-deep, mlp-slew and mlp-multictrl (B=2048); the dense
+# backward at the medium imitation row (20s4c) and at 4s12c (B=1024), on
+# the operands the other phases build for them
 PHASE_ROWS = ('24s4c', '5s1c', 'tvlqr', 'wide-4s12c', 'wide-2s16c',
-              'config 3', 'mlp-deep', 'mlp-slew', 'mlp-multictrl',
+              'config 3', f'cartpole T={SOA_LONG_T}', 'slew 0.5',
+              'mlp-deep', 'mlp-slew', 'mlp-multictrl',
               'backward 20s4c', 'backward 4s12c')
 
 
@@ -6660,7 +6726,7 @@ def phase_row_operands(torch, device, label, n=None):
         return dense_operands(torch, device, 'tvlqr', 3, 4, n or TVLQR_B)
     if label.startswith('wide-'):
         return wide_operands(torch, device, label, n=n)
-    if label == 'config 3':
+    if any(label == r[0] for r in SOA_ROWS):
         return soa_operands(torch, device, label, n=n)[0]
     if label.startswith('mlp-'):
         return mlp_operands(torch, device, label, n=n)
@@ -6682,9 +6748,10 @@ def phases_build_specs():
                 ns, nc, True, False), MPC_PHASE_CLOCKS=1))
         else:
             # the forward's operands on the CPU (the backward's would
-            # solve them first)
+            # solve them first), the layout at the row's batch
+            n = next((r[3] for r in SOA_ROWS if r[0] == label), None)
             defines = dense_defines(phase_row_operands(
-                torch, torch.device('cpu'), label, n=1))[0]
+                torch, torch.device('cpu'), label, n=1), n)[0]
             s = ('fused_ilqr_dense', dict(defines, MPC_PHASE_CLOCKS=1))
         if s not in specs:
             specs.append(s)

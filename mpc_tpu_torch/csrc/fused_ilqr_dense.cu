@@ -77,20 +77,52 @@
 // nonlinear model where the TPU kernels take its structure-of-arrays step
 // (dyn_mode 'soa', mpc_tpu/ops/fused.py:676-700) and linearise it in the
 // kernel (jax.linearize, :788-815 in K1, :1307-1340 in K3).  There is no
-// F or f operand: no pointer of one is formed.  In the rollouts each lane
-// below n_state evaluates the model's whole step from tau in shared
-// memory and keeps its own component (every lane does the same
-// arithmetic, so the components agree to the bit).  Before each Riccati
-// sweep a pass parallel over t (lane t takes steps t, t + 32, ...)
-// computes the step Jacobians F_t = d x_{t+1} / d tau_t at the current
-// trajectory into the example's workspace, [T-1][n_state][n_tau], and the
-// sweep reads them there as it reads a batched LinDx's F: the Jacobian
-// stays off the Riccati chain (the MLP's lesson in K3).  The model's
-// parameters (3 to 5 floats) sit in every lane's registers.  What bounds
-// it: operations (k3d_flops with the model's counts, ~2.4e5 an example at
-// config 3), but config 3's 512 examples are one block an SM, so the time
-// is the chain's latency, a rollout step now the model's whole step with
-// its cosf, sinf and divisions (PERF.md section 6).
+// F or f operand: no pointer of one is formed.  The model's parameters (3
+// to 5 floats) sit in every lane's registers.
+//
+// - THE ROLLOUT STEP ON EVERY LANE'S REGISTERS: every lane holds the
+//   whole of tau = (x_t, u_t), forms the control (K_t dx + u)
+//   + alpha k_t and its clamp from the step's operands, runs the model's
+//   whole step and keeps the whole next state.  Every lane does the same
+//   arithmetic on the same values, so every lane has the same bits, and
+//   no lane waits on another: the step needs no __syncwarp and no
+//   round trip through shared memory.  The step's operands (the current
+//   trajectory's row, K_t and k_t, the bounds, the mask) do not depend on
+//   the chain, so the next step's are loaded while this step's model
+//   runs.  The stage cost keeps lane i's row term and the butterfly,
+//   which are off the state's chain: the butterfly runs at the top of
+//   the next step, beside its control; the full step's squares are
+//   summed in registers in the butterfly's order (lane_tree), so neither
+//   sum changes a bit.  Only the trial row's store leaves the warp.  The
+//   initial rollout takes the same path.
+// - THE EXAMPLE'S WORKSPACE IN THE WARP'S SHARED MEMORY where it fits
+//   (MPC_WS_SHARED; the host decides, fused_dense.dense_ws_shared: where
+//   the block stays within 227 KB and the launch's waves do not grow):
+//   the two trajectory slots, the gains and the Jacobians above the
+//   warp's tiles, so the rollouts, the sweep and the Jacobian pass read
+//   them at shared memory's latency, and the sweep reads F_t in place
+//   (no staging copy).  Elsewhere (the cartpole at T=200 with more than
+//   132 blocks) they stay in global memory.  Outputs stay in global
+//   memory.
+// - Before each Riccati sweep a pass parallel over t (lane t takes steps
+//   t, t + 32, ...) computes the step Jacobians F_t = d x_{t+1} / d tau_t
+//   at the current trajectory into the workspace, [T-1][n_state][n_tau],
+//   and the sweep reads them there as it reads a batched LinDx's F: the
+//   Jacobian stays off the Riccati chain (the MLP's lesson in K3).
+// - 64 registers a lane up to n_tau = 5 (__launch_bounds__ with
+//   kStepMinBlocks = 8 blocks an SM), so that the headline under slew,
+//   B = 4096, 1,024 blocks, runs in one wave on 132 SMs.
+//
+// What bounds it: operations (k3d_flops with the model's counts, ~2.4e5
+// an example at config 3), but config 3's 512 examples and the cartpole
+// at T=200 are one block an SM, so the time is one warp's chain: a
+// rollout step (~940 cycles at config 3) is mostly the model's own step,
+// whose IEEE divisions, sqrtf, cosf and sinf each end in a branch that
+// closes the scheduler's block, so their chains do not overlap; a sweep
+// step is the Riccati tiles at n_tau = 6 (W, Q and the cost-to-go, half
+// of config 3's cycles) and staging C_t.  The slew headline, eight
+// blocks an SM, is bound by the schedulers its warps share (PERF.md
+// section 6).
 //
 // THE MLP BUILD (MPC_MODEL 4, MPC_NN_DEPTH hidden layers, MPC_ACT; with
 // MPC_SLEW its slew passthrough, any n_ctrl) runs an NNDynamics of any
@@ -191,6 +223,11 @@
 #ifndef MPC_HAS_UZ
 #define MPC_HAS_UZ 0
 #endif
+// 1: the model-step build's workspace in the warp's shared memory
+// (fused_dense.dense_ws_shared); 0: in global memory
+#ifndef MPC_WS_SHARED
+#define MPC_WS_SHARED 0
+#endif
 
 namespace mpc {
 
@@ -258,6 +295,9 @@ static_assert(!kModel ||
 constexpr int kNP = Model::NP;
 // the Jacobians of the current trajectory in the workspace, a step's
 constexpr int kJac = kModel ? kNS * kNT : 0;
+// the model-step build: a model's step in every lane (not the MLP's)
+constexpr bool kStep = kModel && !kMLP;
+constexpr bool kWsShared = MPC_WS_SHARED != 0;
 
 // 1: the prefetching layout (a second set of C, c and F tiles, the rows
 // of F, W and V 16-byte aligned); 0: one set, the lane-a-row design's
@@ -269,6 +309,8 @@ constexpr int kJac = kModel ? kNS * kNT : 0;
 #endif
 constexpr bool kPrefetch = MPC_PREFETCH != 0;
 constexpr int kBufs = kPrefetch ? 2 : 1;
+static_assert(!kWsShared || (kStep && !kPrefetch),
+              "the shared workspace: the model-step build, one set of tiles");
 // a warp's tiles (floats), riccati_dense.cuh's strides: the aligned tiles
 // first, so that their rows start 16-byte aligned
 using Strides = RiccatiStrides<kNS, kNT, kPrefetch>;
@@ -397,16 +439,89 @@ __device__ __forceinline__ float stage_at(const float* Cb, const float* cb,
   }
 }
 
-// state row lx of the model's step from tau: the whole step in every lane
-// (the same arithmetic, so the same bits), its own component kept
-__device__ __forceinline__ float model_step(const float* prm,
-                                           const float* tau, int lx) {
-  float out[kNS];
-  Model::step(prm, tau, out);
-  float r = out[0];
+// lane_sum's sum of values v[i] held on lanes Off + i (0.0 on the other
+// lanes), computed in every lane's registers in the butterfly's order
+// (level o adds lane k + o to lane k): the same bits, no shuffle
+template <int Off, int N>
+__device__ __forceinline__ float lane_tree(const float (&v)[N]) {
+  static_assert(Off >= 0 && Off + N <= 32, "values on the warp's lanes");
+  float a[32];
 #pragma unroll
-  for (int i = 1; i < kNS; ++i) r = lx == i ? out[i] : r;
+  for (int i = 0; i < 32; ++i) a[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < N; ++i) a[Off + i] = v[i];
+  // o = 16, 8, 4, 2, 1; loops of fixed counts, so that both unroll and
+  // a stays in registers
+#pragma unroll
+  for (int level = 0; level < 5; ++level)
+#pragma unroll
+    for (int k = 0; k < 16; ++k)
+      if (k < (16 >> level)) a[k] = a[k] + a[k + (16 >> level)];
+  return a[0];
+}
+
+// v[i] of a register array at a run-time index (no local memory)
+template <int N>
+__device__ __forceinline__ float pick(const float (&v)[N], int i) {
+  float r = v[0];
+#pragma unroll
+  for (int k = 1; k < N; ++k) r = i == k ? v[k] : r;
   return r;
+}
+
+// Lane lt's term of the stage cost at step t of tau in every lane's
+// registers (stage_at's: the pseudo-Huber term of its component, or the
+// QuadCost's row), 0 on the lanes past n_tau; lane_sum sums the terms.
+// No branch: every lane reads row lt, which is in range.
+__device__ __forceinline__ float stage_term(const float* Cb, const float* cb,
+                                           int sCt, int sct, int t,
+                                           const LaneCost& hl,
+                                           const float (&tau)[kNT], int lane,
+                                           int lt) {
+  float term;
+  if constexpr (kHuber) {
+    term = huber_term(hl.w, hl.goal, hl.delta, pick(tau, lt));
+  } else {
+    const float* row = Cb + t * sCt + lt * kNT;
+    float s = __ldg(row) * tau[0];
+#pragma unroll
+    for (int j = 1; j < kNT; ++j) s = s + __ldg(row + j) * tau[j];
+    term = (0.5f * s + __ldg(cb + t * sct + lt)) * pick(tau, lt);
+  }
+  return lane < kNT ? term : 0.f;
+}
+
+// A trial step's operands, which do not depend on the rollout's chain:
+// the current trajectory's x_t and u_t, K_t and k_t, and the control's
+// box (the bounds narrowed by the trust region around u_t) and mask.
+struct TrialOps {
+  float xo[kNS], uo[kNC], K[kNC][kNS], k[kNC], lo[kNC], hi[kNC];
+  bool pin[kNC];
+};
+
+__device__ __forceinline__ void load_trial(const Operands& op,
+                                           const float* trajc,
+                                           const float* gains,
+                                           const float* lbb, const float* ubb,
+                                           const float* uzb, int t,
+                                           TrialOps& s) {
+  const float* tr = trajc + t * kNT;
+  const float* g = gains + t * kGain;
+#pragma unroll
+  for (int j = 0; j < kNS; ++j) s.xo[j] = tr[j];
+#pragma unroll
+  for (int m = 0; m < kNC; ++m) {
+    s.uo[m] = tr[kNS + m];
+#pragma unroll
+    for (int j = 0; j < kNS; ++j) s.K[m][j] = g[m * kNS + j];
+    s.k[m] = g[kNC * kNS + m];
+    s.pin[m] = false;
+    if constexpr (kHasUz) s.pin[m] = __ldg(uzb + t * op.sut + m) > 0.5f;
+    if constexpr (kHasBounds) {
+      s.lo[m] = fmaxf(s.uo[m] - op.delta, __ldg(lbb + t * op.sbt + m));
+      s.hi[m] = fminf(s.uo[m] + op.delta, __ldg(ubb + t * op.sbt + m));
+    }
+  }
 }
 
 // The MLP build's pointers into shared memory: the block's weights and
@@ -488,7 +603,8 @@ __device__ __forceinline__ void stage_step(const Operands& op,
     if (lane < kNT)
       stage_entry<Async, true>(sh + oCv + buf * kNT + lt, cb + t * op.sct + lt);
   }
-  if (t < T - 1) {
+  // (the shared workspace's F_t is read in place)
+  if (t < T - 1 && !kWsShared) {
     if constexpr (kModel)
       stage_tile<kNS, kNT, kSF, Async, false>(sh + oF + buf * kFT,
                                               jac + t * kJac, lane);
@@ -503,7 +619,14 @@ __device__ __forceinline__ void stage_step(const Operands& op,
 // runs in one wave on 132 SMs; at three blocks an SM a second wave of 116
 // blocks costs more than the few spilled registers); the corners past it
 // take what their solve needs.
-constexpr int kMinBlocks = kNC <= 16 ? 4 : 1;
+// The model-step build up to n_tau = 5 (the slew-augmented pendulums) is
+// held to 64 registers a lane: eight blocks of 128 threads an SM, so that
+// the headline under slew, B = 4096 (1,024 blocks), runs in one wave (at
+// 80 registers, 6 blocks an SM, it took two); above (the cartpole) 64
+// registers spill its step and Jacobian, and its rows run one block an
+// SM either way, so it keeps 4 (fused_dense.step_min_blocks).
+constexpr int kStepMinBlocks = kNT <= 5 ? 8 : 4;
+constexpr int kMinBlocks = kStep ? kStepMinBlocks : (kNC <= 16 ? 4 : 1);
 
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
     fused_ilqr_dense_kernel(const Operands op, const Schedule sched) {
@@ -516,8 +639,9 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   // the lane clamped into a control (the control solve's rows)
   const int lc = lane < kNC ? lane : kNC - 1;
   const int b = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  // a warp's tiles, and its scratch in the MLP build, then the weights
-  const int wf = kMLP ? op.warp_floats : kWarpFloats;
+  // a warp's tiles, and its scratch in the MLP build (then the weights)
+  // or its example's workspace in the shared layout
+  const int wf = (kMLP || kWsShared) ? op.warp_floats : kWarpFloats;
   MLPShared mlp{};
   if constexpr (kMLP) {
     float* const w = smem + kWarps * wf;
@@ -542,8 +666,9 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   float* KQs = sh + oKQ;
   float* ks = sh + oKk;
   // the two trajectory slots [T][kNT] (current and trial, by ``cur``)
-  // and the gains; slot s at ws0 + s * T * kNT
-  float* const ws0 = op.ws + b * op.ws_example;
+  // and the gains; slot s at ws0 + s * T * kNT; above the warp's tiles
+  // in the shared layout
+  float* const ws0 = kWsShared ? sh + kWarpFloats : op.ws + b * op.ws_example;
   float* const gains = ws0 + 2 * T * kNT;
   // the model-step build's Jacobians [T-1][kNS][kNT]
   float* const jac = gains + T * kGain;
@@ -570,7 +695,44 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
 
   // ---- init: the rollout of u0 into slot 0 and the outputs, its cost --
   float cost_cur = 0.f;
-  {
+  if constexpr (kStep) {
+    // every lane on its registers (the model-step build's rollout step):
+    // x_t, the next step's u0 loaded while this step's model runs
+    float x[kNS], un[kNC];
+#pragma unroll
+    for (int i = 0; i < kNS; ++i) x[i] = __ldg(op.x0 + b * kNS + i);
+#pragma unroll
+    for (int m = 0; m < kNC; ++m) un[m] = __ldg(op.u0 + b * kNC + m);
+    // the last step's stage term, summed over the lanes at the top of the
+    // next step (its shuffles beside that step's work)
+    float term = 0.f;
+    for (int t = 0; t < T; ++t) {
+      const float sc = lane_sum(term);
+      cost_cur = t < 2 ? sc : cost_cur + sc;
+      float tv[kNT];
+#pragma unroll
+      for (int i = 0; i < kNS; ++i) tv[i] = x[i];
+#pragma unroll
+      for (int m = 0; m < kNC; ++m) tv[kNS + m] = un[m];
+      const int tn = t + 1 < T ? t + 1 : t;
+#pragma unroll
+      for (int m = 0; m < kNC; ++m)
+        un[m] = __ldg(op.u0 + (tn * B + b) * kNC + m);
+      term = stage_term(Cb, cb, op.sCt, op.sct, t, hl, tv, lane, lt);
+      if (lane < kNT) {
+        const float v = pick(tv, lt);
+        ws0[t * kNT + lane] = v;
+        if (lane < kNS)
+          op.x_out[(t * B + b) * kNS + lane] = v;
+        else
+          op.u_out[(t * B + b) * kNC + lane - kNS] = v;
+      }
+      Model::step(prm, tv, x);  // past the last step unused
+    }
+    const float sc = lane_sum(term);
+    cost_cur = T < 2 ? sc : cost_cur + sc;
+    __syncwarp();
+  } else {
     float xr = x0r;
     for (int t = 0; t < T; ++t) {
       if (lane < kNS)
@@ -594,11 +756,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
           const float r = mlp_model_step(mlp, op.nn, tau, lane, lx);
           if (lane < kNS) xr = r;
         } else if (lane < kNS) {
-          if constexpr (kModel)
-            xr = model_step(prm, tau, lx);
-          else
-            xr = dyn_step(Fb + t * op.sFt,
-                          kHasF ? fb + t * op.sft : nullptr, tau, lx);
+          xr = dyn_step(Fb + t * op.sFt, kHasF ? fb + t * op.sft : nullptr,
+                        tau, lx);
         }
       }
       __syncwarp();
@@ -646,7 +805,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     for (int t = T - 1; t >= 0; --t) {
       const int buf = kPrefetch ? (t & 1) : 0;
       float* const Qs = sh + oQ + buf * kQT;
-      const float* const Fs = sh + oF + buf * kFT;
+      const float* const Fs =
+          kWsShared ? jac + (t < T - 1 ? t : 0) * kJac : sh + oF + buf * kFT;
       const float* const cv = sh + oCv + buf * kNT;
       if constexpr (kPrefetch)
         cp_async_wait_all();
@@ -903,57 +1063,106 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     const float old_cost = cost_cur;
     float* trial = ws0 + (1 - cur) * T * kNT;
     float sel_cost = 0.f, sel_alpha = 0.f, full_du = 0.f;
+    // the gains and the current slot as the sweep left them
+    if constexpr (kStep) __syncwarp();
     for (int ai = 0; ai < sched.n; ++ai) {
       const float a = sched.a[ai];
       float xr = x0r, cost_a = 0.f, du2 = 0.f;
-      for (int t = 0; t < T; ++t) {
-        if (lane < kNS) {
-          tau[lane] = xr;
-          dxs[lane] = xr - trajc[t * kNT + lx];
-        }
-        __syncwarp();
-        float d2 = 0.f;
-        if (lane >= kNS && lane < kNT) {
-          const int m = lu;
-          const float* Kr = gains + t * kGain + m * kNS;
-          float s = Kr[0] * dxs[0];
+      if constexpr (kStep) {
+        // every lane on its registers: x_t, u_t and the step's operands
+        // (the next step's loaded while this step's model runs); no
+        // barrier on the chain
+        float x[kNS];
 #pragma unroll
-          for (int j = 1; j < kNS; ++j) s = s + Kr[j] * dxs[j];
-          const float uo = trajc[t * kNT + kNS + m];
-          float ut = (s + uo) + a * gains[t * kGain + kNC * kNS + m];
-          // zeroed where pinned, before the clamp (:1686-1692)
-          if constexpr (kHasUz)
-            ut = __ldg(uzb + t * op.sut + m) > 0.5f ? 0.f : ut;
-          if constexpr (kHasBounds)
-            ut = fminf(fmaxf(ut, fmaxf(uo - op.delta,
-                                       __ldg(lbb + t * op.sbt + m))),
-                       fminf(uo + op.delta, __ldg(ubb + t * op.sbt + m)));
-          tau[lane] = ut;
-          const float d = uo - ut;
-          d2 = d * d;
-        }
-        __syncwarp();
-        const float sc =
-            stage_at(Cb, cb, op.sCt, op.sct, t, hl, tau, lane, lt);
-        cost_a = t == 0 ? sc : cost_a + sc;
-        if (ai == 0) {
-          const float d2s = lane_sum(d2);
-          du2 = t == 0 ? d2s : du2 + d2s;
-        }
-        if (lane < kNT) trial[t * kNT + lane] = tau[lt];
-        if (t < T - 1) {
-          if constexpr (kMLP) {
-            const float r = mlp_model_step(mlp, op.nn, tau, lane, lx);
-            if (lane < kNS) xr = r;
-          } else if (lane < kNS) {
-            if constexpr (kModel)
-              xr = model_step(prm, tau, lx);
-            else
-              xr = dyn_step(Fb + t * op.sFt,
-                            kHasF ? fb + t * op.sft : nullptr, tau, lx);
+        for (int i = 0; i < kNS; ++i) x[i] = __ldg(op.x0 + b * kNS + i);
+        TrialOps s;
+        load_trial(op, trajc, gains, lbb, ubb, uzb, 0, s);
+        float term = 0.f;  // the last step's stage term, as in the init
+        for (int t = 0; t < T; ++t) {
+          const float sc = lane_sum(term);
+          cost_a = t < 2 ? sc : cost_a + sc;
+          float tv[kNT], u[kNC];
+#pragma unroll
+          for (int i = 0; i < kNS; ++i) tv[i] = x[i];
+#pragma unroll
+          for (int m = 0; m < kNC; ++m) {
+            float dx[kNS];
+#pragma unroll
+            for (int j = 0; j < kNS; ++j) dx[j] = x[j] - s.xo[j];
+            float sk = s.K[m][0] * dx[0];
+#pragma unroll
+            for (int j = 1; j < kNS; ++j) sk = sk + s.K[m][j] * dx[j];
+            float ut = (sk + s.uo[m]) + a * s.k[m];
+            // zeroed where pinned, before the clamp (:1686-1692)
+            if constexpr (kHasUz) ut = s.pin[m] ? 0.f : ut;
+            if constexpr (kHasBounds) ut = fminf(fmaxf(ut, s.lo[m]), s.hi[m]);
+            u[m] = ut;
+            tv[kNS + m] = ut;
           }
+          // the full step's squares, control m's on lane n_state + m
+          float d2[kNC];
+#pragma unroll
+          for (int m = 0; m < kNC; ++m) {
+            const float d = s.uo[m] - u[m];
+            d2[m] = d * d;
+          }
+          load_trial(op, trajc, gains, lbb, ubb, uzb, t + 1 < T ? t + 1 : t,
+                     s);
+          term = stage_term(Cb, cb, op.sCt, op.sct, t, hl, tv, lane, lt);
+          const float d2s = lane_tree<kNS, kNC>(d2);
+          du2 = t == 0 ? d2s : du2 + d2s;
+          if (lane < kNT) trial[t * kNT + lane] = pick(tv, lt);
+          Model::step(prm, tv, x);  // past the last step unused
         }
-        __syncwarp();
+        const float sc = lane_sum(term);
+        cost_a = T < 2 ? sc : cost_a + sc;
+      } else {
+        for (int t = 0; t < T; ++t) {
+          if (lane < kNS) {
+            tau[lane] = xr;
+            dxs[lane] = xr - trajc[t * kNT + lx];
+          }
+          __syncwarp();
+          float d2 = 0.f;
+          if (lane >= kNS && lane < kNT) {
+            const int m = lu;
+            const float* Kr = gains + t * kGain + m * kNS;
+            float s = Kr[0] * dxs[0];
+#pragma unroll
+            for (int j = 1; j < kNS; ++j) s = s + Kr[j] * dxs[j];
+            const float uo = trajc[t * kNT + kNS + m];
+            float ut = (s + uo) + a * gains[t * kGain + kNC * kNS + m];
+            // zeroed where pinned, before the clamp (:1686-1692)
+            if constexpr (kHasUz)
+              ut = __ldg(uzb + t * op.sut + m) > 0.5f ? 0.f : ut;
+            if constexpr (kHasBounds)
+              ut = fminf(fmaxf(ut, fmaxf(uo - op.delta,
+                                         __ldg(lbb + t * op.sbt + m))),
+                         fminf(uo + op.delta, __ldg(ubb + t * op.sbt + m)));
+            tau[lane] = ut;
+            const float d = uo - ut;
+            d2 = d * d;
+          }
+          __syncwarp();
+          const float sc =
+              stage_at(Cb, cb, op.sCt, op.sct, t, hl, tau, lane, lt);
+          cost_a = t == 0 ? sc : cost_a + sc;
+          if (ai == 0) {
+            const float d2s = lane_sum(d2);
+            du2 = t == 0 ? d2s : du2 + d2s;
+          }
+          if (lane < kNT) trial[t * kNT + lane] = tau[lt];
+          if (t < T - 1) {
+            if constexpr (kMLP) {
+              const float r = mlp_model_step(mlp, op.nn, tau, lane, lx);
+              if (lane < kNS) xr = r;
+            } else if (lane < kNS) {
+              xr = dyn_step(Fb + t * op.sFt, kHasF ? fb + t * op.sft : nullptr,
+                            tau, lx);
+            }
+          }
+          __syncwarp();
+        }
       }
       n_trials += 1.f;
       if (ai == 0) full_du = sqrtf(du2);
@@ -963,6 +1172,9 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
         break;
       }
     }
+    // the trial slot complete before another lane reads it (the next
+    // Jacobian pass, the next sweep)
+    if constexpr (kStep) __syncwarp();
     clk.mark(kPhRollout);
 
     // ---- best tracking and stopping ----------------------------------
@@ -1019,7 +1231,7 @@ extern "C" int mpc_fused_ilqr_dense(
     float* u_out, float* stats, long long* clocks, void* stream) {
   using namespace mpc;
   if (B <= 0 || T <= 0 || n_alpha <= 0 || n_alpha > kMaxAlpha ||
-      lqr_iter < 0 || pnqp_iter < 0 || ws == nullptr ||
+      lqr_iter < 0 || pnqp_iter < 0 || (ws == nullptr) != kWsShared ||
       (kModel ? (params == nullptr || F != nullptr || f != nullptr)
               : (F == nullptr && T > 1)) ||
       ((f != nullptr) != kHasF && T > 1) ||
@@ -1038,7 +1250,15 @@ extern "C" int mpc_fused_ilqr_dense(
   // memory (fused_dense.mlp_chunk), a warp's region 16-byte aligned where
   // its rows are vector loads or the layout prefetches
   MLPLayout nn{};
+  const long long ws_example =
+      (long long)T * (2 * kNT + kGain) + (T - 1LL) * kJac;
   int warp_floats = kWarpFloats, smem_floats = kWarps * kWarpFloats;
+  // the shared layout: each warp's workspace above its tiles, a multiple
+  // of 4 floats
+  if (kWsShared) {
+    warp_floats = kWarpFloats + (int)((ws_example + 3) / 4 * 4);
+    smem_floats = kWarps * warp_floats;
+  }
   if (kMLP) {
     if (!mlp_layout(nn_sizes, kDepth, nn_pass != 0, nn) ||
         nn.size[0] != kNSI + kNC || nn.size[kDepth + 1] != kNSI)
@@ -1058,15 +1278,14 @@ extern "C" int mpc_fused_ilqr_dense(
     return (int)cudaErrorInvalidValue;
   // 32-bit indices: the largest offset of each array
   const long long last = T - 1, lastb = B - 1, big = 1LL << 31;
-  const long long ws_example =
-      (long long)T * (2 * kNT + kGain) + (T - 1LL) * kJac;
   if (last * sCt + lastb * sCb + kNT * kNT >= big ||
       last * sct + lastb * scb + kNT >= big ||
       last * sFt + lastb * sFb + kNS * kNT >= big ||
       last * sft + lastb * sfb + kNS >= big ||
       last * sbt + lastb * sbb + kNC >= big ||
       last * sut + lastb * sub + kNC >= big ||
-      (long long)T * B * kNT >= big || ws_example * B >= big)
+      (long long)T * B * kNT >= big ||
+      (!kWsShared && ws_example * B >= big))
     return (int)cudaErrorInvalidValue;
   // more than 48 KB of dynamic shared memory has to be asked for; the
   // library remembers the most it has asked for

@@ -52,6 +52,17 @@ __device__ __forceinline__ float pendulum_newdth(const PendulumParams& p,
                       (3.f * uc) / (p.m * (p.l * p.l)));
 }
 
+// pendulum_newdth with the gravity term rounded before the control's is
+// added (no FFMA), as the plain version rounds it: the dense kernel's
+// model-step build takes it (soa_model.cuh), whose rollout step ptxas
+// would otherwise fuse or not by where it schedules the product
+__device__ __forceinline__ float pendulum_newdth_rn(const PendulumParams& p,
+                                                    float sin_th, float dth,
+                                                    float uc) {
+  return dth + kDt * (__fmul_rn((-3.f * p.g) / (2.f * p.l), -sin_th) +
+                      (3.f * uc) / (p.m * (p.l * p.l)));
+}
+
 // the damped step's new angular velocity from the angle th
 __device__ __forceinline__ float damped_newdth(const PendulumParams& p,
                                                float th, float dth,
@@ -64,8 +75,8 @@ __device__ __forceinline__ float damped_newdth(const PendulumParams& p,
 // x_{t+1} = f(x_t, u_t).  The simple pendulum by angle addition with
 // atan2's renormalisation (mpc_tpu/ops/math.py:rotate_unit), (0, 0)
 // taken as angle 0; the damped one through th = atan2f(sin, cos), which
-// is 0 at (0, 0).
-template <bool Damped>
+// is 0 at (0, 0).  Rn: the simple pendulum's dth by pendulum_newdth_rn.
+template <bool Damped, bool Rn = false>
 __device__ __forceinline__ void pendulum_step(const PendulumParams& p,
                                               const float* x, float u,
                                               float* out) {
@@ -79,7 +90,8 @@ __device__ __forceinline__ void pendulum_step(const PendulumParams& p,
     out[1] = sinf(newth);
     out[2] = newdth;
   } else {
-    const float newdth = pendulum_newdth(p, sin_th, x[2], uc);
+    const float newdth = Rn ? pendulum_newdth_rn(p, sin_th, x[2], uc)
+                            : pendulum_newdth(p, sin_th, x[2], uc);
     const float delta = newdth * kDt;
     const float cd = cosf(delta), sd = sinf(delta);
     const float r2 = cos_th * cos_th + sin_th * sin_th;

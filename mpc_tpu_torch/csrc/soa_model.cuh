@@ -3,6 +3,9 @@
 // pendulum.cuh and cartpole.cuh behind one interface on the kernel's tau
 // layout, and the slew passthrough step over any of them.
 //
+// The simple pendulum's step takes pendulum_newdth_rn: its gravity term
+// rounded as the plain version rounds it, whatever ptxas fuses.
+//
 // A model M has NS states, NC controls and NP parameters (the vector the
 // wrapper passes, in the model's soa_params order), and two functions of
 // tau = (x_t, u_t), NS + NC floats:
@@ -31,7 +34,7 @@ struct PendulumModel {
   static constexpr int NP = Damped ? 5 : 3;
   __device__ static __forceinline__ void step(const float* p,
                                               const float* tau, float* out) {
-    pendulum_step<Damped>(load_pendulum<Damped>(p), tau, tau[NS], out);
+    pendulum_step<Damped, true>(load_pendulum<Damped>(p), tau, tau[NS], out);
   }
   __device__ static __forceinline__ void jacobian(const float* p,
                                                   const float* tau,

@@ -497,7 +497,7 @@ def k3d_run(F, f, C, c, x0, u0, lb, ub, alphas, lqr_iter, eps,
                                  mlp[0] if mlp else None, clocks)
     fn = fused_dense.kernel_lib(ns, nc, has_bounds, f is not None,
                                 model or None, slew, huber, uz is not None,
-                                mlp, clocks)
+                                mlp, clocks, geo['ws_shared'])
     empty = functools.partial(torch.empty, dtype=torch.float32,
                               device=x0.device)
     x, u, stats = empty((T, B, ns)), empty((T, B, nc)), empty((6, B))
@@ -505,7 +505,9 @@ def k3d_run(F, f, C, c, x0, u0, lb, ub, alphas, lqr_iter, eps,
                       device=x0.device) if clocks else None
     if B == 0:
         return x, u, stats, cyc
-    ws = empty((geo['workspace_bytes'] // 4,))
+    # none where the model-step build keeps it in shared memory
+    ws = empty((geo['workspace_bytes'] // 4,)) if geo['workspace_bytes'] \
+        else None
     a_host = (ctypes.c_float * len(alphas))(*alphas)
     sizes = mlp[0] if mlp else ()
     sizes_host = (ctypes.c_int * max(len(sizes), 1))(*sizes)
@@ -521,7 +523,8 @@ def k3d_run(F, f, C, c, x0, u0, lb, ub, alphas, lqr_iter, eps,
                  lb_ptr, ub.data_ptr() if has_bounds else None, sbt, sbb,
                  *mask, a_host, len(alphas), int(lqr_iter), int(pnqp_iter),
                  float(eps), float(best_cost_eps), float(not_improved_lim),
-                 ws.data_ptr(), geo['smem_bytes'], x.data_ptr(),
+                 None if ws is None else ws.data_ptr(), geo['smem_bytes'],
+                 x.data_ptr(),
                  u.data_ptr(), stats.data_ptr(),
                  cyc.data_ptr() if clocks else None, stream)
     if err != 0:

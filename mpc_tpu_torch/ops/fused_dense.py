@@ -68,6 +68,8 @@ DENSE_WARPS = 4
 SM_SMEM = 233472
 BLOCK_RESERVED = 1024
 PREFETCH_BLOCKS = 4
+# An H100's SMs, over which a launch's blocks run in waves.
+H100_SMS = 132
 # the least floats of a step's operands (C_t and F_t) worth prefetching
 PREFETCH_MIN_FLOATS = 512
 # The most controls whose control solve runs on register arrays
@@ -148,11 +150,15 @@ def _ctrl_tile_floats(nc, rows) -> int:
 
 
 def dense_workspace_floats(T, ns, nc, model=False) -> int:
-    """An example's workspace in global memory: two trajectory slots
-    [2][T][ntau] (the current one and the trial), the gains
-    [T][nc][ns + 1] (K then k) and, in the model-step build, the step
-    Jacobians of the current trajectory [T-1][ns][ntau] (720 floats at
-    the cartpole's 5 states, 1 control and T = 25)."""
+    """An example's workspace: two trajectory slots [2][T][ntau] (the
+    current one and the trial), the gains [T][nc][ns + 1] (K then k) and,
+    in the model-step and MLP builds, the step Jacobians of the current
+    trajectory [T-1][ns][ntau] (720 floats at the cartpole's 5 states, 1
+    control and T = 25; 1,170 floats in all).  It lives in global memory
+    ([B][...], the example's region contiguous), or, in the model-step
+    build where ``dense_ws_shared`` says so, in its warp's shared memory
+    above the warp's tiles, rounded up to 4 floats
+    (``_ws_shared_floats``)."""
     nt = ns + nc
     return T * (2 * nt + nc * (ns + 1)) + (
         (T - 1) * ns * nt if model else 0)
@@ -304,6 +310,60 @@ def mlp_chunk(ns, nc, sizes, prefetch=None) -> int:
     return best
 
 
+def _ws_shared_floats(T, ns, nc) -> int:
+    """A warp's workspace in the shared layout: the model-step build's
+    ``dense_workspace_floats``, a multiple of 4 floats."""
+    return _round4(dense_workspace_floats(T, ns, nc, True))
+
+
+def blocks_by_registers(regs, warps=DENSE_WARPS) -> int:
+    """Blocks of ``warps`` warps an H100 SM holds by registers: 64K an SM,
+    a warp's allocated in units of 256 (a lane's count rounded up to 8)."""
+    return 65536 // (-(-regs // 8) * 8 * 32 * warps)
+
+
+def waves(blocks, blocks_an_sm_) -> int:
+    """Waves of a launch of ``blocks`` blocks at ``blocks_an_sm_``
+    resident an SM on the H100's SMs."""
+    return -(-blocks // (H100_SMS * blocks_an_sm_))
+
+
+def step_min_blocks(ns, nc) -> int:
+    """The model-step build's blocks an SM by registers at least: its
+    __launch_bounds__ minimum (csrc/fused_ilqr_dense.cu:kStepMinBlocks).
+    8 (64 registers a lane) up to n_tau = 5, the slew-augmented
+    pendulums, whose headline row (B = 4096, 1,024 blocks) then runs in
+    one wave; 4 (128) above, where 64 registers spill the cartpole's
+    step and Jacobian, whose rows run one block an SM either way."""
+    return 8 if ns + nc <= 5 else 4
+
+
+def dense_ws_shared(T, B, ns, nc) -> bool:
+    """Whether the model-step build keeps each example's workspace in its
+    warp's shared memory (MPC_WS_SHARED, csrc/fused_ilqr_dense.cu): where
+    the block stays within 227 KB (``fused.SMEM_LIMIT``) and the launch
+    of B examples runs in no more waves than with the workspace in global
+    memory, the blocks an SM taken as the fewer of those its shared
+    memory leaves (``blocks_an_sm``) and ``step_min_blocks`` (its
+    registers).  Config 3 (T=25, 4.7 KB an example) and the cartpole at
+    T=200 and B=512 (38 KB an example, one block an SM: 128 blocks, one
+    wave either way) take it; the cartpole at T=200 and B=2050 (513
+    blocks: four waves at one block an SM, one in global memory) does
+    not.  A build that prefetches (none of the models') keeps global
+    memory."""
+    if dense_prefetch(ns, nc):
+        return False
+    blocks = -(-B // DENSE_WARPS)
+    glob = k3d_smem_bytes(ns, nc, prefetch=False)
+    shared = glob + 4 * DENSE_WARPS * _ws_shared_floats(T, ns, nc)
+
+    def resident(smem):
+        return min(blocks_an_sm(smem), step_min_blocks(ns, nc))
+    return (shared <= SMEM_LIMIT
+            and waves(blocks, resident(shared)) <= waves(blocks,
+                                                         resident(glob)))
+
+
 def blocks_an_sm(smem_bytes, warps=DENSE_WARPS) -> int:
     """Blocks of ``warps`` warps an H100 SM holds by shared memory: 228 KB
     an SM, 1 KB of it reserved for each block, at most 64 warps."""
@@ -380,27 +440,37 @@ def k3d_launch(T, B, ns, nc, n_alpha, model=False, mlp_sizes=None,
     """The dense kernel's launch geometry: lanes an example (a warp),
     warps and examples a block, blocks, the dynamic shared memory of a
     block (``k3d_smem_bytes``: with an MLP's layer widths ``mlp_sizes``
-    its weights and the warps' scratch too) and the workspace
-    [B, ``dense_workspace_floats``] of float32 in global memory.
-    ``n_alpha`` step sizes run one after another on the warp, so they
-    change nothing here; it is checked against ``MAX_ALPHA``.  ``clocks``:
-    the phase account's build, each warp's counters above its tiles;
-    ``chunk`` the MLP build's Jacobian chunk (``mlp_chunk``), else 0."""
+    its weights and the warps' scratch too) and the workspace in global
+    memory, [B, ``dense_workspace_floats``] of float32.  ``model`` (no
+    ``mlp_sizes``) is the model-step build, whose workspace
+    ``ws_shared`` (``dense_ws_shared``) puts in each warp's shared memory
+    above its tiles instead: then the block's shared memory holds the
+    four workspaces and the global one is empty.  ``n_alpha`` step sizes
+    run one after another on the warp, so they change nothing here; it is
+    checked against ``MAX_ALPHA``.  ``clocks``: the phase account's build,
+    each warp's counters above its tiles (the layout is the build's
+    without them); ``chunk`` the MLP build's Jacobian chunk
+    (``mlp_chunk``), else 0."""
     if not 0 < n_alpha <= MAX_ALPHA:
         raise ValueError(f'the dense kernel takes 1 to {MAX_ALPHA} step '
                          'sizes')
     chunk = 0 if mlp_sizes is None else mlp_chunk(ns, nc, mlp_sizes)
+    ws_shared = bool(model) and mlp_sizes is None and dense_ws_shared(
+        T, B, ns, nc)
     smem = k3d_smem_bytes(ns, nc, mlp_sizes, chunk=chunk or None) + (
         4 * DENSE_WARPS * PHASE_CLOCK_FLOATS if clocks else 0)
+    if ws_shared:
+        smem += 4 * DENSE_WARPS * _ws_shared_floats(T, ns, nc)
     return dict(team=32, warps=DENSE_WARPS, examples=DENSE_WARPS,
                 blocks=-(-B // DENSE_WARPS), smem_bytes=smem, chunk=chunk,
-                workspace_bytes=4 * B * dense_workspace_floats(T, ns, nc,
-                                                               model))
+                ws_shared=ws_shared,
+                workspace_bytes=0 if ws_shared else
+                4 * B * dense_workspace_floats(T, ns, nc, model))
 
 
 def dense_kernel_defines(ns, nc, has_bounds, has_f, model=None,
                          slew=False, huber=False, has_uz=False,
-                         mlp=None) -> dict:
+                         mlp=None, ws_shared=False) -> dict:
     """The nvcc defines of the dense build for these sizes, bounds and f
     (present or absent: a compile-time flag, so that no load goes through
     the pointer of an absent f); with ``model`` (a name of
@@ -411,7 +481,9 @@ def dense_kernel_defines(ns, nc, has_bounds, has_f, model=None,
     run-time arguments); ``huber`` the
     cost build, which has no C or c operand (MPC_COST = 1, left out for a
     QuadCost); ``has_uz`` the u_zero_I mask (MPC_HAS_UZ = 1, left out
-    without one, likewise a compile-time flag)."""
+    without one, likewise a compile-time flag); ``ws_shared`` the
+    model-step build's workspace in shared memory (MPC_WS_SHARED = 1, left
+    out for global memory; ``k3d_launch``'s ``ws_shared``)."""
     d = _optional_defines({'MPC_NS': ns, 'MPC_NC': nc,
                            'MPC_HAS_BOUNDS': int(has_bounds),
                            'MPC_HAS_F': int(has_f),
@@ -428,6 +500,11 @@ def dense_kernel_defines(ns, nc, has_bounds, has_f, model=None,
             sizes, activation, _ = mlp
             d.update(MPC_ACT=NN_ACTIVATIONS.index(activation),
                      MPC_NN_DEPTH=len(sizes) - 2)
+    if ws_shared:
+        if model is None or model == 'mlp':
+            raise ValueError('only the model-step build keeps its '
+                             'workspace in shared memory')
+        d.update(MPC_WS_SHARED=1)
     return d
 
 
@@ -1265,12 +1342,14 @@ ARGTYPES = [
 
 
 def kernel_lib(ns, nc, has_bounds, has_f, model=None, slew=False,
-               huber=False, has_uz=False, mlp=None, clocks=False):
+               huber=False, has_uz=False, mlp=None, clocks=False,
+               ws_shared=False):
     """The build's entry point; ``clocks`` the phase account's build
-    (MPC_PHASE_CLOCKS = 1, csrc/phase_clock.cuh)."""
+    (MPC_PHASE_CLOCKS = 1, csrc/phase_clock.cuh), ``ws_shared`` the
+    model-step build's shared workspace."""
     from . import _build
     defines = dense_kernel_defines(ns, nc, has_bounds, has_f, model, slew,
-                                   huber, has_uz, mlp)
+                                   huber, has_uz, mlp, ws_shared)
     if clocks:
         defines['MPC_PHASE_CLOCKS'] = 1
     fn = _build.load('fused_ilqr_dense', defines).mpc_fused_ilqr_dense
@@ -1293,7 +1372,8 @@ def fused_ilqr_dense(F, f, C, c, x0, u0, lb, ub, *, alphas, lqr_iter, eps,
     required) the trust region.
 
     On the CPU the op runs ``fused_solve_dense_plain``.  On a CUDA tensor
-    it allocates the workspace of ``k3d_launch``, launches
+    it allocates the workspace of ``k3d_launch`` (none where the
+    model-step build keeps it in shared memory), launches
     csrc/fused_ilqr_dense.cu on the current stream and raises on any
     operand the kernel does not take or on a launch error."""
     _check_device('the dense kernel', x0)

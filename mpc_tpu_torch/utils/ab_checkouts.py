@@ -22,23 +22,26 @@ B=2048) and the dense kernels' rows once on the operands chip_smoke
 builds for them and prints a digest of the outputs' bytes (x, u and
 stats; the backward's five gradients): the dense forward at the medium
 rows 24s4c and 16s4c (B=2048), 5s1c (B=2048), TVLQR (B=128), config 3
-(the cartpole in the model-step build, B=512), the headline under slew
-0.5 (B=4096), the MLP build's rows mlp-deep, mlp-slew and mlp-multictrl
-(B=2048) and the rows past 8 controls wide-3s9c,
-wide-4s12c and wide-2s16c (B=2048); the dense backward at 20s4c and
-4s12c (B=1024).  Each dense row's device time comes from a CUDA graph
-([dense-time]).  The last lines say whether each row's digest is the
-same in all four turns, that is whether the two checkouts' kernels give
-the same bits there, and each dense row's best time in each checkout
-beside the spread of its two turns.
+(the cartpole in the model-step build, B=512), the cartpole at T=200
+(B=512), the headline under slew 0.5 (B=4096), the MLP build's rows
+mlp-deep, mlp-slew and mlp-multictrl (B=2048) and the rows past 8
+controls wide-3s9c, wide-4s12c and wide-2s16c (B=2048); the dense
+backward at 20s4c and 4s12c (B=1024).  Each dense row's device time
+comes from a CUDA graph ([dense-time]).  The last lines say whether each
+row's digest is the same in all four turns, that is whether the two
+checkouts' kernels give the same bits there, and each dense row's best
+time in each checkout beside the spread of its two turns.
 
 With ``--phases`` each checkout runs, once, chip_smoke's phase account
-([phases-dense]: the clocked builds of the dense forward) at the MLP
-build's rows mlp-deep, mlp-slew and mlp-multictrl, each row's iterations
-(mean and most: a launch lasts as long as its slowest warp), the
-registers and spills of its build and a digest of its outputs beside; a
-checkout whose chip_smoke has no such row takes the row's operands from
-``mlp_operands``.
+([phases-dense]: the clocked builds of the dense forward) at the
+model-step build's rows config 3, the cartpole at T=200 (B=512) and the
+headline under slew 0.5 (B=4096) and at the MLP build's rows mlp-deep,
+mlp-slew and mlp-multictrl, each row's iterations (mean and most: a
+launch lasts as long as its slowest warp), the registers and spills of
+its build, its workspace's layout, its blocks an SM by registers and by
+shared memory and its waves of blocks, and a digest of its outputs
+beside; the rows' operands come from ``soa_operands`` and
+``mlp_operands``, which every checkout's chip_smoke has.
 """
 
 import os
@@ -87,6 +90,7 @@ fwd = {
     '5s1c': cs.dense_operands(torch, d, 'box', 5, 1, 2048),
     'tvlqr': cs.dense_operands(torch, d, 'tvlqr', 3, 4, cs.TVLQR_B),
     'config3': cs.soa_operands(torch, d, 'config 3')[0],
+    'cartpole-200': cs.soa_operands(torch, d, 'cartpole T=200')[0],
     'slew': cs.soa_operands(torch, d, 'slew 0.5')[0],
     'mlp-deep': cs.mlp_operands(torch, d, 'mlp-deep'),
     'mlp-slew': cs.mlp_operands(torch, d, 'mlp-slew'),
@@ -121,16 +125,24 @@ import hashlib, sys, torch
 sys.path.insert(0, '.')
 import chip_smoke as cs
 from mpc_tpu_torch.ops import fused_dense
-rows = ('mlp-deep', 'mlp-slew', 'mlp-multictrl')
-plain = cs.phase_row_operands
-cs.phase_row_operands = lambda torch, device, label, n=None: (
-    cs.mlp_operands(torch, device, label, n=n) if label in rows
-    else plain(torch, device, label, n))
+soa = ('config 3', 'cartpole T=200', 'slew 0.5')
+mlp = ('mlp-deep', 'mlp-slew', 'mlp-multictrl')
+rows = soa + mlp
+
+
+def operands(torch, device, label, n=None):
+    if label in soa:
+        return cs.soa_operands(torch, device, label, n=n)[0]
+    return cs.mlp_operands(torch, device, label, n=n)
+
+
+cs.phase_row_operands = operands
 cs.PHASE_ROWS = rows
 cs.phases_dense_main(*rows)
 d = torch.device('cuda')
+sms = torch.cuda.get_device_properties(0).multi_processor_count
 for label in rows:
-    ops = cs.mlp_operands(torch, d, label)
+    ops = operands(torch, d, label)
     outs = fused_dense.fused_ilqr_dense(**ops)
     st = outs[2]
     h = hashlib.sha256()
@@ -138,18 +150,26 @@ for label in rows:
         h.update(a.cpu().contiguous().numpy().tobytes())
     defines, geo = cs.dense_defines(ops)
     des = cs.design('fused_ilqr_dense', defines, geo)
-    print(f'[phases-mlp] {label}: n_iter mean {float(st[2].mean()):.2f}, '
-          f'max {float(st[2].max()):.0f}; registers {des["registers"]}, '
-          f'spill stores {des["spill_store_bytes"]} bytes; shared memory '
-          f'{geo["smem_bytes"]} bytes a block, '
-          f'{fused_dense.blocks_an_sm(geo["smem_bytes"])} blocks an SM by '
-          f'it; digest {h.hexdigest()[:16]}', flush=True)
+    regs = des['registers']
+    by_regs = 65536 // (-(-regs // 8) * 8 * 32 * geo['warps'])
+    by_smem = fused_dense.blocks_an_sm(geo['smem_bytes'])
+    waves = -(-geo['blocks'] // (sms * min(by_regs, by_smem)))
+    print(f'[phases-model] {label}, B={ops["x0"].shape[0]}: n_iter mean '
+          f'{float(st[2].mean()):.2f}, max {float(st[2].max()):.0f}; '
+          f'registers {regs}, spill stores {des["spill_store_bytes"]} bytes; '
+          f'shared memory {geo["smem_bytes"]} bytes a block, workspace '
+          f'{"shared" if geo.get("ws_shared") else "global"} '
+          f'({geo["workspace_bytes"]} bytes in global memory); blocks an SM '
+          f'{by_regs} by registers, {by_smem} by shared memory; '
+          f'{geo["blocks"]} blocks, {waves} wave(s) on {sms} SMs; digest '
+          f'{h.hexdigest()[:16]}', flush=True)
 print(cs.card_line())
 '''
 
 
 def phases(other, this):
-    """The phase account of both checkouts at the MLP build's rows."""
+    """The phase account of both checkouts at the model-step and MLP
+    builds' rows."""
     for who, where in (('other', other), ('this', this)):
         r = subprocess.run([sys.executable, '-c', PHASES], cwd=where,
                            capture_output=True, text=True)

@@ -74,7 +74,10 @@ the cartpole; K1 and K3 on the damped pendulum) are each held to their
 plain version at B=2050, one case a process under
 CUDA_LAUNCH_BLOCKING=1, the cartpole's controls in units of its +-100
 box scaled to the pendulum's +-2; reversed, sliced and repeated
-launches bitwise; the entry points launch each kernel once a request, a
+launches bitwise; with the example's workspace in global and in shared
+memory (forced) at config 3's shapes and at B=2050, each layout against
+the plain version, the reversed batch bitwise and the two layouts
+bitwise equal; the entry points launch each kernel once a request, a
 differentiable cartpole solve the dense forward and backward once each,
 and a broken library raises.
 
@@ -1524,6 +1527,39 @@ def test_soa_raises_rather_than_falls_back(cuda, monkeypatch):
                          u_lower=-2.0, u_upper=2.0)
     assert not any(fused.launch_counts.values())
     assert solver.eager_counts['eager_solve'] == 0
+
+
+@pytest.mark.parametrize('B', [512, 2050])
+@pytest.mark.parametrize('case', ['cartpole', 'slew_pendulum'])
+def test_soa_workspace_layouts_match_plain_and_each_other(cuda, monkeypatch,
+                                                          case, B):
+    """The model-step build with its workspace in global and in shared
+    memory (each forced by replacing fused_dense.dense_ws_shared) at
+    config 3's shapes (B=512) and at B=2050: one launch, the float32 tail
+    of the plain version with n_iter equal, the reversed batch bitwise,
+    and the two layouts bitwise equal."""
+    ops, kernel, plain, scale = _soa_problem(cuda, case, B)
+    _, up, sp = plain(**ops)
+    T, _, nc = ops['u0'].shape
+    outs = {}
+    for shared in (False, True):
+        monkeypatch.setattr(fused_dense, 'dense_ws_shared',
+                            lambda *a, s=shared: s)
+        geo = fused_dense.k3d_launch(T, B, ops['x0'].shape[1], nc, 5, True)
+        assert geo['ws_shared'] is shared
+        assert (geo['workspace_bytes'] == 0) is shared
+        fused.reset_launch_counts()
+        full = kernel(**ops)
+        torch.cuda.synchronize()
+        assert fused.launch_counts['fused_ilqr_dense'] == 1
+        assert torch.isfinite(full[0]).all() and torch.isfinite(full[1]).all()
+        _assert_tail(full[1] / scale, up / scale)
+        assert torch.equal(full[2][2], sp[2])
+        back = kernel(**_batch_map(ops, lambda a: a.flip(0),
+                                   lambda a: a.flip(1)))
+        assert all(torch.equal(a.flip(1), b) for a, b in zip(back, full))
+        outs[shared] = full
+    assert all(torch.equal(a, b) for a, b in zip(outs[False], outs[True]))
 
 
 # ---------------------------------------------------------------------------

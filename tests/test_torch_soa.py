@@ -26,7 +26,13 @@ configuration's model-step build, the damped pendulum through K1 and K3.
 - the damped pendulum's plain K1 against mpc_tpu's interpret-mode Pallas
   K1 at T=5, B=8 in float32 (1e-4: the polynomial atan2 and float32
   round-off), the op's schema (opcheck), operation counts and launch
-  geometry.
+  geometry;
+- the model-step build's workspace layout (``fused_dense.dense_ws_shared``:
+  shared memory at config 3, the cartpole at T=200 up to 528 examples and
+  the slew headline, global memory where the shared layout would add
+  waves) with the shared memory and defines that follow from it, and the
+  LinDx and MLP builds' geometry and defines pinned at the MLP build's
+  redesign's rows.
 
 The kernel route's float64 sits up to ~1e-9 from mpc_tpu's jnp path where
 the eager route sits at 1e-14: the jnp path's PNQP adds 1e-11 to the
@@ -523,9 +529,10 @@ def test_counts_and_geometry_of_the_model_step_build():
     # the cartpole at T=25
     assert fd.dense_workspace_floats(25, 5, 1, model=True) - \
         fd.dense_workspace_floats(25, 5, 1) == 720
+    # config 3 keeps it in its warps' shared memory (1,172 floats a warp)
     geo = fd.k3d_launch(25, 512, 5, 1, 2, model=True)
-    assert geo['workspace_bytes'] == 4 * 512 * fd.dense_workspace_floats(
-        25, 5, 1, True)
+    assert geo['ws_shared'] and geo['workspace_bytes'] == 0
+    assert geo['smem_bytes'] == fd.k3d_smem_bytes(5, 1) + 4 * 4 * 1172
     assert fd.dense_kernel_defines(5, 1, True, False, 'cartpole') == {
         'MPC_NS': 5, 'MPC_NC': 1, 'MPC_HAS_BOUNDS': 1, 'MPC_HAS_F': 0,
         'MPC_WARPS': fd.DENSE_WARPS, 'MPC_PREFETCH': 0, 'MPC_MODEL': 3,
@@ -547,3 +554,111 @@ def test_counts_and_geometry_of_the_model_step_build():
         20, 3, 1, 10, 10)
     assert fd.model_op_counts('damped_pendulum') == \
         fused.pendulum_op_counts(True)
+
+
+# (T, B, n_state, n_ctrl) -> the model-step build's workspace in shared
+# memory: config 3 (T=25, B=512, 128 blocks), the cartpole at T=200 and
+# B=512 (one block an SM either way) and up to 528 examples, the headline
+# under slew (B=4096: 1,024 blocks, one wave at 8 blocks an SM), the
+# slew-augmented cartpole; global memory where the shared layout's
+# blocks an SM would add waves (the cartpole at T=200 past 132 blocks)
+LAYOUTS = [((25, 512, 5, 1), True), ((200, 512, 5, 1), True),
+           ((200, 528, 5, 1), True), ((20, 4096, 4, 1), True),
+           ((25, 2050, 6, 1), True), ((200, 532, 5, 1), False),
+           ((200, 2050, 5, 1), False)]
+
+
+@pytest.mark.parametrize('shape,shared', LAYOUTS)
+def test_workspace_layout_of_the_model_step_build(shape, shared):
+    T, B, ns, nc = shape
+    assert fd.dense_ws_shared(T, B, ns, nc) is shared
+    geo = fd.k3d_launch(T, B, ns, nc, 5, model=True)
+    one = fd.k3d_smem_bytes(ns, nc)
+    ws = fd.dense_workspace_floats(T, ns, nc, True)
+    assert geo['ws_shared'] is shared
+    if shared:
+        # the four warps' workspaces above their tiles, 4-float aligned
+        assert geo['smem_bytes'] == one + 4 * fd.DENSE_WARPS * (
+            -(-ws // 4) * 4) <= fused.SMEM_LIMIT
+        assert geo['workspace_bytes'] == 0
+    else:
+        assert geo['smem_bytes'] == one
+        assert geo['workspace_bytes'] == 4 * B * ws
+        # the shared layout would cost the launch waves
+        smem = one + 16 * (-(-ws // 4) * 4)
+        blocks = geo['blocks']
+        regs = fd.step_min_blocks(ns, nc)
+        assert fd.waves(blocks, min(fd.blocks_an_sm(smem), regs)) > \
+            fd.waves(blocks, min(fd.blocks_an_sm(one), regs))
+    # the clocked build keeps the layout, its counters above the tiles
+    clocked = fd.k3d_launch(T, B, ns, nc, 5, model=True, clocks=True)
+    assert clocked['ws_shared'] is shared and clocked['smem_bytes'] == \
+        geo['smem_bytes'] + 4 * fd.DENSE_WARPS * fd.PHASE_CLOCK_FLOATS
+    model = 'cartpole' if ns in (5, 6) else 'pendulum'
+    d = fd.dense_kernel_defines(ns, nc, True, False, model, ns in (4, 6),
+                                ws_shared=geo['ws_shared'])
+    assert d.get('MPC_WS_SHARED', 0) == int(shared)
+    without = dict(d)
+    without.pop('MPC_WS_SHARED', None)
+    assert without == fd.dense_kernel_defines(ns, nc, True, False, model,
+                                              ns in (4, 6))
+
+
+def test_shared_workspace_is_the_model_step_builds_alone():
+    # a LinDx or an MLP build has no shared workspace
+    with pytest.raises(ValueError):
+        fd.dense_kernel_defines(5, 1, True, False, ws_shared=True)
+    with pytest.raises(ValueError):
+        fd.dense_kernel_defines(2, 1, True, False, 'mlp', mlp=(
+            (3, 64, 64, 2), 'sigmoid', True), ws_shared=True)
+    assert not fd.k3d_launch(20, 2048, 2, 1, 5, True,
+                             (3, 64, 64, 2))['ws_shared']
+    assert not fd.k3d_launch(20, 2048, 5, 1, 5)['ws_shared']
+    # registers: 64 a lane give the slew-augmented pendulums' build 8
+    # blocks an SM (80 gave 6: two waves at B=4096), the cartpole's keeps
+    # 4 (one block an SM at config 3 and T=200 either way)
+    assert [fd.blocks_by_registers(r) for r in (64, 80, 90, 128)] == \
+        [8, 6, 5, 4]
+    assert (fd.step_min_blocks(4, 1), fd.step_min_blocks(5, 1),
+            fd.step_min_blocks(6, 1)) == (8, 4, 4)
+    assert fd.waves(1024, 8) == 1 and fd.waves(1024, 6) == 2
+
+
+# the LinDx and MLP builds' geometry and defines at the rows of the MLP
+# build's redesign, as they were before the model-step build took its
+# shared workspace: (k3d_launch's arguments, dense_kernel_defines'
+# arguments, its keywords) -> (geometry, defines)
+_BASE = {'MPC_HAS_BOUNDS': 1, 'MPC_HAS_F': 0, 'MPC_WARPS': 4,
+         'MPC_PREFETCH': 0}
+PINNED = {
+    '24s4c': (((20, 2048, 24, 4, 10), (24, 4, True, False), {}),
+              (512, 49728, 0, 25559040),
+              dict(_BASE, MPC_NS=24, MPC_NC=4)),
+    '5s1c': (((20, 2048, 5, 1, 10), (5, 1, True, False), {}),
+             (512, 2752, 0, 2949120), dict(_BASE, MPC_NS=5, MPC_NC=1)),
+    'tvlqr': (((5, 128, 3, 4, 10), (3, 4, False, True), {}),
+              (32, 2496, 0, 76800),
+              dict(_BASE, MPC_NS=3, MPC_NC=4, MPC_HAS_BOUNDS=0,
+                   MPC_HAS_F=1)),
+    'mlp-deep': (((20, 2048, 2, 1, 5, True, (3, 64, 64, 2)),
+                  (2, 1, True, False, 'mlp'),
+                  dict(mlp=((3, 64, 64, 2), 'sigmoid', True))),
+                 (512, 27408, 2, 2408448),
+                 dict(_BASE, MPC_NS=2, MPC_NC=1, MPC_MODEL=4, MPC_SLEW=0,
+                      MPC_ACT=0, MPC_NN_DEPTH=2)),
+    'mlp-slew': (((20, 2048, 4, 1, 3, True, (4, 100, 3)),
+                  (4, 1, True, False, 'mlp', True),
+                  dict(mlp=((4, 100, 3), 'sigmoid', True))),
+                 (512, 12200, 4, 5570560),
+                 dict(_BASE, MPC_NS=4, MPC_NC=1, MPC_MODEL=4, MPC_SLEW=1,
+                      MPC_ACT=0, MPC_NN_DEPTH=1)),
+}
+
+
+@pytest.mark.parametrize('row', list(PINNED))
+def test_lindx_and_mlp_builds_keep_their_geometry(row):
+    (launch, dargs, dkw), (blocks, smem, chunk, ws), defines = PINNED[row]
+    assert fd.k3d_launch(*launch) == dict(
+        team=32, warps=4, examples=4, blocks=blocks, smem_bytes=smem,
+        chunk=chunk, ws_shared=False, workspace_bytes=ws)
+    assert fd.dense_kernel_defines(*dargs, **dkw) == defines
