@@ -34,9 +34,13 @@ drives the port's main paths on the card:
   (benchmarks/configs.py:647-678: the reference's default MLP, one
   hidden layer of 100 sigmoid units, B=2048, T=20, lqr_iter=10, box +-2,
   float32) through K3's streamed-weights configuration (MPC_DYN=2,
-  csrc/nn.cuh): K3 against its plain version ([compare-nn]), requests
-  through batched_solve ([serve-nn]), K3's time against its bound and
-  with other warps a block ([time-nn]), and gradients of an imitation
+  csrc/nn.cuh; a warp an example, its hidden units over the lanes with
+  their weights in registers, the Jacobian pass a step a lane): K3
+  against its plain version, reversed, sliced and B+2 batches, the
+  example's slots in the workspace, the cost and mask builds bitwise
+  ([compare-nn]), requests through batched_solve ([serve-nn]), K3's time
+  against its bound with its geometry ([time-nn]), the phase account of
+  its clocked build ([phases-nn]), and gradients of an imitation
   loss to the MLP's weights through K3 and K2 against the eager fixed
   point, with K2 on that path's operands ([grad-nn]).
 
@@ -396,14 +400,14 @@ def phase_build(background=False):
               for cost_shared in (True, False) for has_I in (True, False)]
     specs += [('fused_ilqr_long', fused.long_kernel_defines(lindx, True))
               for lindx in (True, False)]
-    # K3's MLP build: sigmoid with bounds at each warps a block that
-    # [time-nn] tries, and relu without bounds; K2 at the MLP path's T
-    specs += [('fused_ilqr_long', dict(
-        fused.long_kernel_defines(False, True, 'sigmoid'), MPC_WARPS=w))
-        for w in NN_WARPS_TRIED]
-    specs += [('fused_ilqr_long', fused.long_kernel_defines(False, False,
+    # K3's MLP build: sigmoid with bounds, relu without, and the clocked
+    # builds of [phases-nn]; K2 at the MLP path's T
+    specs += [('fused_ilqr_long', fused.long_kernel_defines(False, True,
+                                                            'sigmoid')),
+              ('fused_ilqr_long', fused.long_kernel_defines(False, False,
                                                             'relu')),
               ('fused_kkt_bwd', fused_bwd.kernel_defines(NN_T, True, True))]
+    specs += [s for s in phases_nn_build_specs() if s not in specs]
     specs += [('fused_kkt_bwd_long',
                fused_bwd.long_kernel_defines(cost_shared, dyn_shared))
               for cost_shared in (True, False) for dyn_shared in (True, False)]
@@ -1941,12 +1945,16 @@ NN = dict(n_state=3, n_ctrl=1, T=NN_T, lqr_iter=10, eps=0.0,
           linesearch_decay=0.2, max_linesearch_iter=3)
 # the gradient phase's batch and its learner's target scale
 NN_GRAD_B = 1024
-# the warps a block K3's MLP build is timed with (K3_WARPS and fewer)
-NN_WARPS_TRIED = (4, 2, 1)
+# [compare-nn]'s rows whose example slots are in the workspace
+# (fused.k3_nn_launch): past the horizon a block of 100 units holds while
+# an SM keeps its 4 blocks (99 steps), and a width past the units a lane
+# keeps in registers whose weights alone fill the block (the gate is
+# 7263); each (T, H, B, lqr_iter), sigmoid, box +-2
+NN_WORKSPACE_ROWS = ((430, NN_H, 256, 4), (NN_T, 7000, 256, 4))
 
 
 def nn_problem(torch, device, n=NN_B, act='sigmoid', dtype=None, seed=4,
-               **cfg_kw):
+               hidden=NN_H, **cfg_kw):
     """(cfg, x0 [n, 3], cost, model) of bench_nn_dynamics: the MLP drawn
     in float32 from a seeded generator (cast for float64, so both
     precisions solve one problem), pendulum starts from RandomState(seed)
@@ -1955,7 +1963,7 @@ def nn_problem(torch, device, n=NN_B, act='sigmoid', dtype=None, seed=4,
     import mpc_tpu_torch as mt
     from mpc_tpu_torch.models import PendulumDx
     dtype = dtype or torch.float32
-    model = mt.NNDynamics.init(3, 1, (NN_H,), act,
+    model = mt.NNDynamics.init(3, 1, (hidden,), act,
                                generator=torch.Generator().manual_seed(0),
                                device=device).to(dtype)
     rng = np.random.RandomState(seed)
@@ -1969,9 +1977,10 @@ def nn_problem(torch, device, n=NN_B, act='sigmoid', dtype=None, seed=4,
 
 
 def nn_k3_operands(torch, device, n=NN_B, act='sigmoid', dtype=None,
-                   bounded=True, seed=4):
+                   bounded=True, seed=4, hidden=NN_H, **cfg_kw):
     from mpc_tpu_torch.ops import fused
-    cfg, x0, cost, model = nn_problem(torch, device, n, act, dtype, seed)
+    cfg, x0, cost, model = nn_problem(torch, device, n, act, dtype, seed,
+                                      hidden, **cfg_kw)
     lim = dict(u_lower=-2.0, u_upper=2.0) if bounded else {}
     return fused.k3_operands(cfg, x0, cost, model, **lim)
 
@@ -1981,8 +1990,12 @@ def phase_compare_nn(torch, device):
     of bench_nn_dynamics: the float32 tail, the float64 plain run, the
     reversed batch, and B = 1, 7, 33 and 2048 alone against the same
     examples inside a batch of 2050, bitwise; then relu without bounds
-    at B=1024.  Returns max |du| of the bench problem and the plain
-    version's ms there."""
+    at B=1024 and the NN_WORKSPACE_ROWS rows (the example's slots in the
+    workspace), each judged against the float64 plain run, reversed
+    bitwise; then the cost and mask builds (HUBER_ROWS' and UZ_ROWS'
+    'MLP', held against their plain versions in [compare-huber] and
+    [compare-uz]) reversed and at B=2050 sliced, bitwise.  Returns max
+    |du| of the bench problem and the plain version's ms there."""
     from mpc_tpu_torch.ops import fused
     long_kw = dict(kernel=fused.fused_ilqr_long,
                    plain=fused.fused_solve_long_plain)
@@ -1996,7 +2009,7 @@ def phase_compare_nn(torch, device):
     on_box = float((uk.abs() >= 2.0).double().mean())
     log(f'  controls on a bound: {on_box:.3f} of T*B; selected index + 1 a '
         f'solve {float(sk[5].mean()):.2f}; plain version {plain_ms:.1f} ms')
-    # B=2050: 64 full blocks and 2 examples; its first 2048 are the
+    # B=2050: 512 full blocks and 2 examples; its first 2048 are the
     # bench batch
     wide = nn_k3_operands(torch, device, NN_B + 2)
     hold_slices(torch, 'K3 MLP, B=2050', fused.fused_ilqr_long, wide,
@@ -2009,6 +2022,36 @@ def phase_compare_nn(torch, device):
         nn_k3_operands(torch, device, 1024, 'relu', torch.float64,
                        bounded=False), limits=None, **long_kw)
     log(f'  largest |u| {float(ur.abs().max()):.3e}')
+    for T_, H, n, iters in NN_WORKSPACE_ROWS:
+        geo = fused.k3_launch(T_, n, 3, H)
+        log(f'[compare-nn] K3 MLP (sigmoid, H={H}), B={n}, T={T_}, '
+            f'lqr_iter={iters}: the example\'s slots in the workspace '
+            f'({geo["workspace_bytes"]} bytes; {geo["smem_bytes"]} bytes of '
+            'shared memory a block), judged against the float64 plain run')
+        if geo['slots'] == 0:
+            raise AssertionError('the row\'s slots are resident')
+        kw = dict(hidden=H, T=T_, lqr_iter=iters)
+        hold_k1(torch, f'K3 MLP H={H}, T={T_} vs plain',
+                nn_k3_operands(torch, device, n, **kw),
+                nn_k3_operands(torch, device, n, dtype=torch.float64, **kw),
+                limits=None, **long_kw)
+    for what, o in (('cost', huber_operands(torch, device, 'MLP')[0]),
+                    ('mask', uz_operands(torch, device, 'MLP')[0])):
+        full = fused.fused_ilqr_long(**o)
+        r = fused.fused_ilqr_long(**batch_subset(
+            torch, o, torch.arange(NN_B - 1, -1, -1)))
+        if not all(torch.equal(a.flip(1), b) for a, b in zip(r, full)):
+            raise AssertionError(f'K3 MLP {what} build: reversed batch is '
+                                 'not bitwise equal')
+        log(f'[compare-nn] K3 MLP {what} build, B={NN_B}: reversed batch '
+            'bitwise equal')
+        # B=2050, the mask build with the row's shared mask
+        o2 = huber_operands(torch, device, 'MLP', n=NN_B + 2)[0] \
+            if what == 'cost' else dict(
+                nn_k3_operands(torch, device, NN_B + 2), uz=o['uz'])
+        hold_slices(torch, f'K3 MLP {what} build, B={NN_B + 2}',
+                    fused.fused_ilqr_long, o2, fused.fused_ilqr_long(**o2),
+                    sizes=(1, 33, NN_B))
     return mx, plain_ms
 
 
@@ -2062,11 +2105,15 @@ def phase_serve_nn(torch, device, n_requests=8):
 
 def phase_time_nn(torch, device, plain_ms):
     """K3's MLP build at the full size from a CUDA graph against its
-    bound, with the blocks and SMs it uses, and the same kernel built
-    with the other warps a block of NN_WARPS_TRIED, in this process."""
+    bound, with its launch geometry (fused.k3_nn_launch: a warp an
+    example), registers, spills, blocks an SM and waves."""
     from mpc_tpu_torch.ops import fused
     ops = nn_k3_operands(torch, device)
-    _, _, stats = fused.fused_ilqr_long(**ops)
+    ref = fused.fused_ilqr_long(**ops)
+    if not all(torch.equal(a, b) for a, b in
+               zip(ref, fused.fused_ilqr_long(**ops))):
+        raise AssertionError('K3 MLP: two launches differ')
+    stats = ref[2]
     n_it = float(stats[2].double().sum())
     n_trials = float(stats[5].double().sum())
     flops = fused.k3_flops(NN_T, 3, 1, n_it, n_trials, batch=NN_B,
@@ -2074,35 +2121,18 @@ def phase_time_nn(torch, device, plain_ms):
                            nn_ops=fused.nn_op_counts(NN_H, 'sigmoid', True))
     nbytes = fused.k3_bytes(ops)
     bound_ms, by = bound(flops, nbytes)
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    default = fused.K3_WARPS
-    times = {}
-    try:
-        for warps in NN_WARPS_TRIED:
-            fused.K3_WARPS = warps
-            ref = fused.fused_ilqr_long(**ops)
-            if not torch.equal(ref[1], fused.fused_ilqr_long(**ops)[1]):
-                raise AssertionError('K3 MLP: two launches differ')
-            ms, eager_ms = graph_ms(
-                torch, lambda: fused.fused_ilqr_long(**ops), reps=5,
-                per_graph=4)
-            geo = fused.k3_launch(NN_T, NN_B, 3, NN_H)
-            times[warps] = ms
-            log(f'[time-nn] K3 MLP, {warps} warps a block: {ms:.4f} ms (from '
-                f'a CUDA graph; {eager_ms:.4f} ms a call from Python); '
-                f'{geo["blocks"]} blocks of {geo["examples"]} examples on '
-                f'{min(geo["blocks"], sms)} of {sms} SMs; {geo["smem_bytes"]} '
-                'bytes of shared memory a block')
-    finally:
-        fused.K3_WARPS = default
-    ms = times[default]
-    log(f'[time-nn] K3 MLP B={NN_B}, T={NN_T}, H={NN_H}: {ms:.4f} ms with '
-        f'{default} warps a block; {flops:.4e} operations ({n_it / NN_B:.2f} '
-        f'iterations, {n_trials / NN_B:.2f} trials/solve), {nbytes} bytes; '
-        f'bound {bound_ms:.5f} ms by {by} ({ms / bound_ms:.1f}x); plain '
-        f'{plain_ms:.1f} ms; {NN_B / ms * 1e3:.0f} solves/s; {card_line()}')
+    ms, eager_ms = graph_ms(torch, lambda: fused.fused_ilqr_long(**ops),
+                            reps=5, per_graph=4)
+    geo = nn_defines(ops)[1]
+    log(f'[time-nn] K3 MLP B={NN_B}, T={NN_T}, H={NN_H}: {ms:.4f} ms (from '
+        f'a CUDA graph; {eager_ms:.4f} ms a call from Python); a warp an '
+        f'example, {nn_residency(torch, ops)}; {flops:.4e} operations '
+        f'({n_it / NN_B:.2f} iterations, {n_trials / NN_B:.2f} trials/solve), '
+        f'{nbytes} bytes; bound {bound_ms:.5f} ms by {by} '
+        f'({ms / bound_ms:.1f}x); plain {plain_ms:.1f} ms; '
+        f'{NN_B / ms * 1e3:.0f} solves/s; {card_line()}')
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
-                ms_by_warps={str(k): v for k, v in times.items()})
+                blocks=geo['blocks'], warps_a_block=geo['warps'])
 
 
 def nn_imitation(torch, device, n, primal=None):
@@ -6835,6 +6865,123 @@ def phases_dense_main(*rows):
     return 0
 
 
+# ---------------------------------------------------------------------------
+# K3's MLP configuration's phase account
+# ---------------------------------------------------------------------------
+
+# [phases-nn]'s rows, each at bench_nn_dynamics' sizes (B=2048, T=20,
+# H=100): the QuadCost build ([time-nn]'s row), the pseudo-Huber cost
+# build (HUBER_ROWS' 'MLP') and the mask build (UZ_ROWS' 'MLP')
+NN_PHASE_ROWS = ('bench', 'cost', 'mask')
+
+
+def nn_phase_operands(torch, device, label, n=None):
+    """An NN_PHASE_ROWS row's K3 operands (``n`` cuts the batch)."""
+    if label == 'cost':
+        return huber_operands(torch, device, 'MLP', n=n)[0]
+    if label == 'mask':
+        return uz_operands(torch, device, 'MLP', n=n)[0]
+    return nn_k3_operands(torch, device, n or NN_B)
+
+
+def nn_defines(ops, clocks=False):
+    """(nvcc defines, launch geometry) of K3's build for the MLP operands
+    ``ops`` at their batch: those that ``custom.k3_run`` launches with."""
+    from mpc_tpu_torch.ops import custom, fused
+    return custom.k3_build(*fused.k3_args(**ops), clocks=clocks)
+
+
+def nn_residency(torch, ops):
+    """Registers, spills, blocks an SM (by registers and by shared memory)
+    and waves of K3's build for the MLP operands ``ops``."""
+    from mpc_tpu_torch.ops import fused_dense as fd
+    defines, geo = nn_defines(ops)
+    des = design('fused_ilqr_long', defines, geo)
+    by_regs = fd.blocks_by_registers(des['registers'], geo['warps'])
+    by_smem = fd.blocks_an_sm(geo['smem_bytes'], geo['warps'])
+    return (f'registers {des["registers"]}, spill stores '
+            f'{des["spill_store_bytes"]} bytes; {geo["warps"]} warps, '
+            f'{geo["examples"]} examples a block, {geo["smem_bytes"]} bytes '
+            f'of shared memory a block; blocks an SM {by_regs} by registers, '
+            f'{by_smem} by shared memory; {geo["blocks"]} blocks, '
+            f'{fd.waves(geo["blocks"], min(by_regs, by_smem))} wave(s)')
+
+
+def clocked_regs(ops):
+    """Registers and spill stores of K3's clocked build for ``ops``."""
+    defines, geo = nn_defines(ops, clocks=True)
+    des = design('fused_ilqr_long', defines, geo)
+    return (f'registers {des["registers"]}, spill stores '
+            f'{des["spill_store_bytes"]} bytes')
+
+
+def phase_phases_nn(torch, device, rows=NN_PHASE_ROWS):
+    """The phase account of K3's MLP configuration at the NN_PHASE_ROWS
+    rows: each row's clocked build (utils/phase_account.clocked_k3)
+    launched once after a warm-up, every phase's share of the warps'
+    cycles and its mean cycles a warp, the row's iterations and trials
+    (stats rows 2 and 5), its build's registers, spills, blocks an SM and
+    waves; the clocked outputs set beside the op's build's (logged, not
+    held).  Returns the accounts by row."""
+    from mpc_tpu_torch.ops import fused
+    from mpc_tpu_torch.utils import phase_account as pa
+    accounts = {}
+    for label in rows:
+        ops = nn_phase_operands(torch, device, label)
+        pa.clocked_k3(ops)
+        *outs, clocks = pa.clocked_k3(ops)
+        ref = fused.fused_ilqr_long(**ops)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(outs, ref))
+        ms, _ = graph_ms(torch, lambda: fused.fused_ilqr_long(**ops), reps=3,
+                         per_graph=4)
+        shares = pa.phase_shares(clocks, fused.K3_PHASES)
+        total = sum(v[1] for v in shares.values())
+        st = outs[2].double()
+        log(f'[phases-nn] {label}, B={ops["x0"].shape[0]}: the op\'s build '
+            f'{ms:.4f} ms (from a CUDA graph); {total:.0f} '
+            f'cycles a warp; ' + pa.format_shares(shares)
+            + f'; n_iter mean {float(st[2].mean()):.2f}, max '
+            f'{float(st[2].max()):.0f}; selected index + 1 a solve '
+            f'{float(st[5].mean()):.2f}; {nn_residency(torch, ops)}; '
+            f'the clocked build: {clocked_regs(ops)}; '
+            f'outputs bitwise the op\'s build: {same}; {card_line()}')
+        accounts[label] = dict(ms=ms, cycles_a_warp=total, **{
+            k: round(v[0], 4) for k, v in shares.items()})
+    return accounts
+
+
+def phases_nn_build_specs():
+    """The NN_PHASE_ROWS rows' builds, clocked and not."""
+    import torch
+    specs = []
+    for label in NN_PHASE_ROWS:
+        ops = nn_phase_operands(torch, torch.device('cpu'), label, n=1)
+        for clocks in (True, False):
+            s = ('fused_ilqr_long', nn_defines(ops, clocks)[0])
+            if s not in specs:
+                specs.append(s)
+    return specs
+
+
+def phases_nn_main(*rows):
+    """``python3 chip_smoke.py --phases-nn [ROW ...]``: [phases-nn] alone
+    (its builds, then the account), at the NN_PHASE_ROWS rows named (all
+    by default)."""
+    import torch
+    from mpc_tpu_torch.ops import _build
+    if not torch.cuda.is_available():
+        print('chip_smoke: no CUDA card is visible', file=sys.stderr)
+        return 2
+    t0 = time.perf_counter()
+    _build.build(phases_nn_build_specs())
+    log(f'[build] the clocked builds and the ops\' builds of their rows '
+        f'({time.perf_counter() - t0:.1f} s)')
+    phase_phases_nn(torch, torch.device('cuda'), rows or NN_PHASE_ROWS)
+    log(card_line())
+    return 0
+
+
 def count_ops(torch, fn):
     """(result, the number of PyTorch operators ``fn()`` dispatches)."""
     from torch.utils._python_dispatch import TorchDispatchMode
@@ -8346,7 +8493,8 @@ WORKERS = {'--serve-worker': serve_worker, '--pod-worker': pod_worker,
            '--mlp-worker': mlp_worker, '--blocking-worker': blocking_worker,
            '--plain-worker': plain_worker,
            '--wide-train-worker': wide_train_worker,
-           '--phases-dense': phases_dense_main}
+           '--phases-dense': phases_dense_main,
+           '--phases-nn': phases_nn_main}
 
 
 def main():
@@ -8403,6 +8551,7 @@ def main():
     nn_err, nn_plain_ms = phase_compare_nn(torch, device)
     k3_nn_serve, nn_request_ms = phase_serve_nn(torch, device)
     timing_nn = phase_time_nn(torch, device, nn_plain_ms)
+    nn_accounts = phase_phases_nn(torch, device)
     k3_nn_grad, k2_nn_grad, nn_grad_err, k2_nn = phase_grad_nn(torch, device)
     phase_build_report(builds)
     t_dense = time.perf_counter()
@@ -8582,8 +8731,10 @@ def main():
          'library_ms': None, **timing_bwd_long},
         {'name': 'fused_ilqr_long (nn)', 'path': 'learned dynamics',
          'route': 'cuda', 'source': 'mpc_tpu_torch/csrc/fused_ilqr_long.cu',
-         'headers': ['mpc_tpu_torch/csrc/nn.cuh'],
-         'replaces': 'mpc_tpu/ops/fused.py:1252',
+         'headers': ['mpc_tpu_torch/csrc/nn.cuh',
+                     'mpc_tpu_torch/csrc/phase_clock.cuh'],
+         'replaces': 'mpc_tpu/ops/fused.py:1252', 'status': 'redesigned',
+         'phase_account': nn_accounts,
          'design': design('fused_ilqr_long',
                           fused.long_kernel_defines(False, True, 'sigmoid'),
                           fused.k3_launch(NN_T, NN_B, 3, NN_H)),

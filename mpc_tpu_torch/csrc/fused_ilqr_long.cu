@@ -77,23 +77,44 @@
 //
 // Dynamics (MPC_DYN): 0 = LinDx (x' = F (x, u) + f; F shared or per
 // example, f optional), 1 = a pendulum (pendulum.cuh; MPC_DAMPED the
-// damped, biased one), 2 = a
-// one-hidden-layer MLP (nn.cuh; MPC_ACT its activation, H and the
-// passthrough run-time arguments), the TPU kernel's streamed-weights NN
-// mode (mpc_tpu/ops/fused.py:1252-1306).  An MLP's step is ~1,800
+// damped, biased one), 2 = a one-hidden-layer MLP (nn.cuh; MPC_ACT its
+// activation, H and the passthrough run-time arguments), the TPU kernel's
+// streamed-weights NN mode (mpc_tpu/ops/fused.py:1252-1306), which runs
+// in a kernel of its own below.
+//
+// THE MLP CONFIGURATION (fused_ilqr_nn_kernel).  An MLP's step is ~1,800
 // operations at H = 100 and its Jacobian ~4,100 (ops/fused.py:
-// nn_op_counts), ~80x the pendulum's: on the Riccati chain the Jacobian
-// would add H units of work to every step.  So the block keeps the
-// weights in shared memory (read as broadcasts, every lane of a warp on
-// the same unit) and, before each Riccati sweep, the team computes the
-// sweep's Jacobians in a pass parallel over t (lane g takes steps g,
-// g + kTeam, ...) into three float4 rows a step and example, resident
-// beside the state where the horizon fits, else in the workspace; the
-// sweep then reads them as it reads a LinDx F.  The rollouts keep the
-// step on their chains: each lane its own step size, as for the other
-// dynamics (the JAX kernel shares one SMEM weight sweep across its step
-// sizes, :1705-1720, a scalar-read saving that the broadcast makes
-// moot here).
+// nn_op_counts), ~80x the pendulum's, so one lane's chain of them is what
+// a team of lanes would wait on (PERF.md section 6: a rollout step ~5.4k
+// cycles on one lane, one warp a scheduler).  So an example gets a WARP
+// (the team is the warp, 4 warps a block, 16 warps an SM at the
+// __launch_bounds__ of 128 registers a lane, ops/fused.py:k3_nn_launch):
+// - the rollout step is split over the lanes (nn_step_warp): lane l keeps
+//   units l, l + 32, ... in registers, loaded from the block's shared
+//   copy of the weights at the start of each rollout (kept live across
+//   the sweep they would take its registers), forms partial sums of the
+//   three outputs, and a butterfly of shuffles leaves x_{t+1} in every
+//   lane with the same bits: no shared-memory scratch and no __syncwarp
+//   on the chain.  The control, its clamp and the stage cost run in every
+//   lane, lane 0 stores;
+// - the line search rolls out its step sizes one after another and stops
+//   at the first that passes (bench_nn_dynamics needs 1.107 trials an
+//   iteration; two or three side by side, as the TPU kernel's
+//   dyn_step_multi shares one weight sweep, :1705-1720, ran slower:
+//   PERF.md section 6);
+// - the Jacobian pass before each sweep runs a step a lane (lane t step
+//   t, looping past 33 steps), each nn_jacobian over every unit with the
+//   weights read as broadcasts, into three float4 rows a step;
+// - the Riccati sweep runs redundantly in every lane (SIMT: no more issue
+//   slots than one lane), lane 0 stores the gains;
+// - the example's slots ((K, k), (x, u), the Jacobian rows, the trial
+//   trajectory) are the warp's rows of shared memory where they cost an
+//   SM no block, else the workspace [t, slot, B]; the selected trial is
+//   copied into (x, u) and the outputs, lane t step t.
+// The step's output sums are lane partials and a butterfly, another order
+// than the stream form's, which the plain version follows
+// (ops/fused_dense.py:mlp_step_lanes); the Jacobian keeps the stream
+// form's order.
 //
 // The arithmetic of every scalar is the TPU kernel's, in its order
 // (vv_update sums left to right, the control is (K dx + u) + alpha k,
@@ -139,12 +160,16 @@
 #include "cost.cuh"
 #include "nn.cuh"
 #include "pendulum.cuh"
+#include "phase_clock.cuh"
 
 #ifndef MPC_DYN
 #error "compile with -DMPC_DYN=0 (LinDx), 1 (pendulum) or 2 (MLP)"
 #endif
 #if MPC_DYN == 2 && !defined(MPC_ACT)
 #error "compile the MLP with -DMPC_ACT=0 (sigmoid), 1 (relu) or 2 (elu)"
+#endif
+#if MPC_DYN == 2 && !defined(MPC_MIN_BLOCKS)
+#error "compile the MLP with -DMPC_MIN_BLOCKS=<blocks an SM>"
 #endif
 #ifndef MPC_ACT
 #define MPC_ACT 0
@@ -198,8 +223,18 @@ constexpr int kOffC = 0, kOffc = 16, kOffF = 20, kOfff = 32, kOffLb = 36,
 static_assert(kOffUz < kOpRow && kOpRow % 4 == 0,
               "a row holds every operand and keeps float4 alignment");
 
-static_assert(kTeam == 2 || kTeam == 4 || kTeam == 8 || kTeam == 16,
-              "a team is a power-of-two part of a warp");
+static_assert(kNN ? kTeam == 32
+                  : kTeam == 2 || kTeam == 4 || kTeam == 8 || kTeam == 16,
+              "a team is a power-of-two part of a warp; the MLP's a warp");
+
+// The phase account (MPC_PHASE_CLOCKS, phase_clock.cuh; the host reads
+// the columns as fused.K3_PHASES): the initial rollout (with the block's
+// staging), the Jacobian pass, the Riccati sweep, the trial rollouts, the
+// copy of the selected trial (with best tracking and the outputs).
+enum K3Phase { kK3Init = 0, kK3Jac, kK3Sweep, kK3Trials, kK3Copy, kK3Phases };
+// a warp's counters at the start of the block's shared memory
+constexpr int kK3ClockFloats = kPhaseClocks ? 8 : 0;
+static_assert(kK3ClockFloats == 0 || kK3ClockFloats >= kK3Phases, "");
 
 struct Schedule {
   float a[kMaxAlpha];
@@ -241,6 +276,7 @@ struct Operands {
   float* x_out;  // [T, B, 3]: the best trajectory throughout
   float* u_out;  // [T, B]
   float* stats;  // [6, B]
+  long long* clocks;  // [blocks * kWarps][kK3Phases]: MPC_PHASE_CLOCKS only
 };
 
 // ``p`` points into global or shared memory
@@ -321,14 +357,15 @@ struct Team {
   bool has_f;
   float4* st;  // the example's state at step 0, slot kGain: shared
                // memory [t, 2, kExamples] where resident, else two
-               // slots of the workspace [t, slots, B] after the trials'
+               // slots of the workspace [t, slots, B] after the trials';
+               // the MLP's kNNSlots slots, the warp's rows [t, kNNSlots]
+               // or the workspace [t, kNNSlots, B]
   int st_step, st_slot;  // its strides
   const float4* w;  // MLP: the block's weights in shared memory
   int H;
   bool pass;
-  float4* jb;  // MLP: the example's Jacobian rows at step 0: shared memory
-               // [t, 3, kExamples] where resident, else the workspace's
-               // last three slots
+  float4* jb;  // MLP: the example's Jacobian rows at step 0 (its slots
+               // kJac, kJac + 1, kJac + 2)
   int jb_step, jb_row;  // their strides
 
   // slot ``slot`` (kGain or kTraj) of the state at step t
@@ -409,8 +446,6 @@ struct Team {
         if (has_f) s += r.f[i];
         out[i] = s;
       }
-    } else if (kNN) {
-      nn_step<MPC_ACT>(w, H, pass, x, u, out);
     } else {
       pendulum_step<kDamped>(p, x, u, out);
     }
@@ -522,13 +557,15 @@ struct Team {
     for (int i = 0; i < NS; ++i) v[i] = (qt[i] + Qt[i][3] * kt) + Kt[i] * quk;
   }
 
-  // One step of a trial rollout with step size alpha: the new control
-  // from the stored gains (_ctrl_from, mpc_tpu/ops/fused.py:1681-1695),
-  // the lane's slot, the cost, the step norm, and x <- x_{t+1}.
-  __device__ __forceinline__ void trial_step(int t, const Rows& r,
-                                             const float4 old, const float4 Kk,
-                                             float alpha, int lane, float* xt,
-                                             float& cost, float& du2) const {
+  // A trial rollout's control at step t with step size alpha, from the
+  // stored gains (_ctrl_from, mpc_tpu/ops/fused.py:1681-1695), with its
+  // stage cost and step norm added to ``cost`` and ``du2``; both kernels'
+  // trials take it.
+  __device__ __forceinline__ float trial_control(int t, const Rows& r,
+                                                 const float4 old,
+                                                 const float4 Kk, float alpha,
+                                                 const float* xt, float& cost,
+                                                 float& du2) const {
     const float d0 = xt[0] - old.x;
     const float d1 = xt[1] - old.y;
     const float d2 = xt[2] - old.z;
@@ -538,15 +575,26 @@ struct Team {
     if (kHasBounds)
       ut = clamp_box(ut, fmaxf(old.w - op.delta, r.lb),
                      fminf(old.w + op.delta, r.ub));
-    trial(t, lane) = make_float4(xt[0], xt[1], xt[2], ut);
     const float sc = cost_at(r, xt, ut);
     cost = t == 0 ? sc : cost + sc;
     const float d = old.w - ut;
     du2 = t == 0 ? d * d : du2 + d * d;
+    return ut;
+  }
+
+  // One step of a trial rollout: the control, the lane's slot, and
+  // x <- x_{t+1}.
+  __device__ __forceinline__ void trial_step(int t, const Rows& r,
+                                             const float4 old, const float4 Kk,
+                                             float alpha, int lane, float* xt,
+                                             float& cost, float& du2) const {
+    const float ut = trial_control(t, r, old, Kk, alpha, xt, cost, du2);
+    trial(t, lane) = make_float4(xt[0], xt[1], xt[2], ut);
     if (t < op.T - 1) step(r, xt, ut);
   }
 };
 
+#if MPC_DYN != 2
 __global__ void __launch_bounds__(kThreads)
     fused_ilqr_long_kernel(const Operands op, const Schedule sched) {
   const cg::thread_block_tile<kTeam> tile =
@@ -555,16 +603,13 @@ __global__ void __launch_bounds__(kThreads)
   const int b = blockIdx.x * kExamples + threadIdx.x / kTeam;
   const int B = op.B;
   const int T = op.T;
-  // shared memory: an MLP's weights (2 H + 1 float4), then where resident
-  // the state [T, 2, kExamples], the block's copy of the batch-shared
-  // operands [T, kOpRow] and an MLP's Jacobian rows [T, 3, kExamples];
-  // the whole block fills the weights and the copy before any team leaves
-  float4* const state_base = smem + (kNN ? 2 * op.nn_h + 1 : 0);
+  // shared memory, where resident: the state [T, 2, kExamples], then the
+  // block's copy of the batch-shared operands [T, kOpRow], which the whole
+  // block fills before any team leaves
+  float4* const state_base = smem;
   float* const staged =
       op.resident ? reinterpret_cast<float*>(state_base + 2 * T * kExamples)
                   : nullptr;
-  float4* const jac_base = state_base + 2 * T * kExamples + T * (kOpRow / 4);
-  if (kNN) stage_nn_weights<kThreads>(op.params, op.nn_h, smem);
   if (staged != nullptr) {
     if (!kHuber && op.sCb == 0) stage<16>(op.C, op.sCt, T, staged + kOffC);
     if (!kHuber && op.scb == 0) stage<4>(op.c, op.sct, T, staged + kOffc);
@@ -577,7 +622,7 @@ __global__ void __launch_bounds__(kThreads)
     }
     if (kHasUz && op.sub == 0) stage<1>(op.uz, op.sut, T, staged + kOffUz);
   }
-  if (kNN || staged != nullptr) __syncthreads();
+  if (staged != nullptr) __syncthreads();
   if (b >= B) return;  // ragged tail: a whole team leaves together
   PendulumParams p{0.f, 0.f, 0.f, 0.f, 0.f};
   if (kPendulum) p = load_pendulum<kDamped>(op.params);
@@ -605,12 +650,12 @@ __global__ void __launch_bounds__(kThreads)
                 op.resident ? state_base + e : op.ws + n_lanes * B + b,
                 op.resident ? 2 * kExamples : op.slots * B,
                 op.resident ? kExamples : B,
-                smem,
-                op.nn_h,
-                op.nn_pass != 0,
-                op.resident ? jac_base + e : op.ws + (n_lanes + 2) * B + b,
-                op.resident ? 3 * kExamples : op.slots * B,
-                op.resident ? kExamples : B};
+                nullptr,
+                0,
+                false,
+                nullptr,
+                0,
+                0};
   // the team's lanes within its warp, for the ballot of the line search
   const unsigned team_shift = (threadIdx.x & 31u) & ~(unsigned)(kTeam - 1);
   const unsigned team_mask = ((1u << kTeam) - 1u) << team_shift;
@@ -669,21 +714,6 @@ __global__ void __launch_bounds__(kThreads)
   float nni = 0.f, n_qp = 0.f, alpha_sel = 1.f, n_it = 0.f, n_trials = 0.f;
 
   for (int it = 0; it < op.lqr_iter; ++it) {
-    // ---- an MLP's Jacobians at the current trajectory, off the chain:
-    // lane g takes steps g, g + kTeam, ... --------------------------------
-    if (kNN) {
-      for (int t = g; t < T - 1; t += kTeam) {
-        const float4 xu = tm.state(t, kTraj);
-        const float xt[NS] = {xu.x, xu.y, xu.z};
-        float J[NS][NTAU];
-        nn_jacobian<MPC_ACT>(tm.w, tm.H, tm.pass, xt, xu.w, J);
-#pragma unroll
-        for (int i = 0; i < NS; ++i)
-          tm.jac(t, i) = make_float4(J[i][0], J[i][1], J[i][2], J[i][3]);
-      }
-      tile.sync();  // the sweep reads every lane's rows
-    }
-
     // ---- Riccati backward recursion, rows of step t - 1 in flight
     // while step t computes; two register sets in turns ----------------
     float qp_cnt = 0.f;
@@ -813,18 +843,249 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+#endif  // MPC_DYN != 2
+
+#if MPC_DYN == 2
+// ---------------------------------------------------------------------------
+// The MLP configuration: a warp an example
+// ---------------------------------------------------------------------------
+
+// an example's float4 slots a step: (K, k), the current (x, u), the
+// Jacobian's three rows, the trial trajectory (ops/fused.py:NN_SLOTS)
+constexpr int kJac = 2;
+constexpr int kTrial = 5;
+constexpr int kNNSlots = 6;
+// blocks an SM at least (ops/fused.py:K3_NN_MIN_BLOCKS): 16 warps, so at
+// most 128 registers a lane
+constexpr int kMinBlocks = MPC_MIN_BLOCKS;
+
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    fused_ilqr_nn_kernel(const Operands op, const Schedule sched) {
+  const int lane = threadIdx.x & 31;
+  const int e = threadIdx.x >> 5;  // the warp's example within the block
+  const int b = blockIdx.x * kWarps + e;
+  const int B = op.B;
+  const int T = op.T;
+  // shared memory: the clocked build's counters (kK3ClockFloats a warp),
+  // the MLP's weights (2 H + 1 float4), then where resident each warp's
+  // example [T, kNNSlots] and the block's copy of the batch-shared
+  // operands [T, kOpRow]; the whole block fills the weights and the copy
+  // before any warp leaves
+  PhaseClockOf<kK3Phases> clk;
+  clk.start(reinterpret_cast<float*>(smem) + e * kK3ClockFloats);
+  float4* const wts = smem + kWarps * kK3ClockFloats / 4;
+  float4* const state_base = wts + 2 * op.nn_h + 1;
+  float* const staged =
+      op.resident
+          ? reinterpret_cast<float*>(state_base + kWarps * T * kNNSlots)
+          : nullptr;
+  stage_nn_weights<kThreads>(op.params, op.nn_h, wts);
+  if (staged != nullptr) {
+    if (!kHuber && op.sCb == 0) stage<16>(op.C, op.sCt, T, staged + kOffC);
+    if (!kHuber && op.scb == 0) stage<4>(op.c, op.sct, T, staged + kOffc);
+    if (kHasBounds && op.sbb == 0) {
+      stage<1>(op.lb, op.sbt, T, staged + kOffLb);
+      stage<1>(op.ub, op.sbt, T, staged + kOffUb);
+    }
+    if (kHasUz && op.sub == 0) stage<1>(op.uz, op.sut, T, staged + kOffUz);
+  }
+  __syncthreads();
+  if (b >= B) return;  // ragged tail: a whole warp leaves
+  Huber<NTAU> hc{};
+  if (kHuber) hc = Huber<NTAU>::load(op.cost);
+  // the example's slots: the warp's rows of shared memory where resident,
+  // else the workspace [T, kNNSlots, B]
+  float4* const st = op.resident ? state_base + e * T * kNNSlots : op.ws + b;
+  const int st_step = op.resident ? kNNSlots : op.slots * B;
+  const int st_slot = op.resident ? 1 : B;
+  // the cost build forms no pointer into the absent C and c
+  const Team tm{op,
+                b,
+                PendulumParams{0.f, 0.f, 0.f, 0.f, 0.f},
+                hc,
+                kHuber ? Operand{nullptr, 0}
+                       : operand(op.C, op.sCt, op.sCb, b, staged, kOffC),
+                kHuber ? Operand{nullptr, 0}
+                       : operand(op.c, op.sct, op.scb, b, staged, kOffc),
+                Operand{nullptr, 0},
+                Operand{nullptr, 0},
+                operand(op.lb, op.sbt, op.sbb, b, staged, kOffLb),
+                operand(op.ub, op.sbt, op.sbb, b, staged, kOffUb),
+                kHasUz ? operand(op.uz, op.sut, op.sub, b, staged, kOffUz)
+                       : Operand{nullptr, 0},
+                false,
+                st,
+                st_step,
+                st_slot,
+                wts,
+                op.nn_h,
+                op.nn_pass != 0,
+                st + kJac * st_slot,
+                st_step,
+                st_slot};
+
+  float x0[NS];
+#pragma unroll
+  for (int i = 0; i < NS; ++i) x0[i] = op.x0[b * NS + i];
+
+  // ---- init: u <- u0 (fetched in a pass parallel over t, off the
+  // chain), x <- rollout(u0) into the state and, as the best trajectory,
+  // into the outputs; its cost in every lane, lane 0 stores -------------
+  for (int t = lane; t < T; t += 32) tm.state(t, kTraj).w = op.u0[t * B + b];
+  __syncwarp();
+  float cost_cur = 0.f;
+  {
+    const Units un = load_units(wts, op.nn_h, lane);
+    float xt[NS] = {x0[0], x0[1], x0[2]};
+    for (int t = 0; t < T; ++t) {
+      Rows r;
+      tm.load_rows(t, r);
+      const float ut = tm.state(t, kTraj).w;
+      if (lane == 0) {
+        const int o = t * B + b;
+        tm.state(t, kTraj) = make_float4(xt[0], xt[1], xt[2], ut);
+        op.u_out[o] = ut;
+#pragma unroll
+        for (int i = 0; i < NS; ++i) op.x_out[o * NS + i] = xt[i];
+      }
+      const float sc = tm.cost_at(r, xt, ut);
+      cost_cur = t == 0 ? sc : cost_cur + sc;
+      if (t < T - 1)
+        nn_step_warp<MPC_ACT>(un, wts, op.nn_h, tm.pass, lane, xt, ut);
+    }
+  }
+  __syncwarp();
+  clk.mark(kK3Init);
+
+  float best_cost = kBig, best_du = kBig;
+  float nni = 0.f, n_qp = 0.f, alpha_sel = 1.f, n_it = 0.f, n_trials = 0.f;
+
+  for (int it = 0; it < op.lqr_iter; ++it) {
+    // ---- the Jacobians at the current trajectory, off the chains: lane
+    // t takes step t (t, t + 32, ... past 33 steps), each a loop over
+    // every unit with the weights read as broadcasts ----------------------
+    for (int t = lane; t < T - 1; t += 32) {
+      const float4 xu = tm.state(t, kTraj);
+      const float xt[NS] = {xu.x, xu.y, xu.z};
+      float J[NS][NTAU];
+      nn_jacobian<MPC_ACT>(wts, op.nn_h, tm.pass, xt, xu.w, J);
+#pragma unroll
+      for (int i = 0; i < NS; ++i)
+        tm.jac(t, i) = make_float4(J[i][0], J[i][1], J[i][2], J[i][3]);
+    }
+    __syncwarp();  // the sweep reads every lane's rows
+    clk.mark(kK3Jac);
+
+    // ---- Riccati backward recursion in every lane, lane 0 stores -------
+    float qp_cnt = 0.f;
+    {
+      float V[NS][NS], v[NS];
+      for (int t = T - 1; t >= 0; --t) {
+        Rows r;
+        tm.load_rows(t, r);
+        tm.load_jac(t, r);
+        tm.riccati_step(t, r, tm.state(t, kTraj), V, v, qp_cnt, lane == 0);
+      }
+    }
+    __syncwarp();  // the gains are lane 0's stores
+    clk.mark(kK3Sweep);
+
+    // ---- line search: the step sizes one after another; the first
+    // whose cost does not exceed the current one is taken, else the last.
+    // The first is alpha = 1 and gives the full-step norm.  Every lane
+    // holds the trial's cost with the same bits. -------------------------
+    const float old_cost = cost_cur;
+    float sel_cost = 0.f, full_du = 0.f;
+    int sel_index = 0;
+    {
+      const Units un = load_units(wts, op.nn_h, lane);
+      for (int a = 0; a < sched.n; ++a) {
+        const float alpha = sched.a[a];
+        float xt[NS] = {x0[0], x0[1], x0[2]};
+        float cost_a = 0.f, du2 = 0.f;
+        for (int t = 0; t < T; ++t) {
+          Rows r;
+          tm.load_rows(t, r);
+          const float ut = tm.trial_control(t, r, tm.state(t, kTraj),
+                                            tm.state(t, kGain), alpha, xt,
+                                            cost_a, du2);
+          if (lane == 0)
+            tm.state(t, kTrial) = make_float4(xt[0], xt[1], xt[2], ut);
+          if (t < T - 1)
+            nn_step_warp<MPC_ACT>(un, wts, op.nn_h, tm.pass, lane, xt, ut);
+        }
+        if (a == 0) full_du = sqrtf(du2);
+        sel_cost = cost_a;
+        sel_index = a;
+        if (cost_a <= old_cost) break;
+      }
+    }
+    const float sel_alpha = sched.a[sel_index];
+    n_trials += (float)(sel_index + 1);
+    __syncwarp();  // the trial slots are lane 0's stores
+    clk.mark(kK3Trials);
+
+    // ---- the selected trial becomes the current trajectory and, where
+    // it improved, the outputs (the best one): lane t copies step t ------
+    const bool first = it == 0;
+    const bool improved = sel_cost <= best_cost + op.best_cost_eps;
+    const bool take_best = first || improved;
+    for (int t = lane; t < T; t += 32) {
+      const float4 row = tm.state(t, kTrial);
+      tm.state(t, kTraj) = row;
+      if (take_best) {
+        const int o = t * B + b;
+        op.x_out[o * NS + 0] = row.x;
+        op.x_out[o * NS + 1] = row.y;
+        op.x_out[o * NS + 2] = row.z;
+        op.u_out[o] = row.w;
+      }
+    }
+    __syncwarp();  // the current trajectory is every lane's stores
+
+    // ---- best tracking and per-example stopping (the same in every
+    // lane) --------------------------------------------------------------
+    nni = (improved && !first) ? 0.f : nni + 1.f;
+    if (take_best) {
+      best_cost = sel_cost;
+      best_du = full_du;
+    }
+    cost_cur = sel_cost;
+    n_qp += qp_cnt;
+    alpha_sel = sel_alpha;
+    n_it += 1.f;
+    clk.mark(kK3Copy);
+    if (!(full_du >= op.eps && nni <= op.not_improved_lim)) break;
+  }
+
+  if (lane == 0) {
+    op.stats[0 * B + b] = best_cost;
+    op.stats[1 * B + b] = best_du;
+    op.stats[2 * B + b] = n_it;
+    op.stats[3 * B + b] = n_qp;
+    op.stats[4 * B + b] = alpha_sel;
+    op.stats[5 * B + b] = n_trials;
+  }
+  clk.mark(kK3Copy);
+  clk.write(op.clocks, b);
+}
+#endif  // MPC_DYN == 2
+
 }  // namespace mpc
 
 // Launches K3 on ``stream`` with the geometry of ops/fused.py:k3_launch,
 // which is built with the same MPC_TEAM, MPC_WARPS and MPC_OP_ROW; returns
 // the cudaError_t of the launch, or of raising the kernel's shared-memory
 // limit where that is needed.  ``ws`` is the [T, slots, B] float4
-// workspace.  An MLP's weights are always in shared memory (the first
-// 16 (2 nn_h + 1) of ``smem_bytes``).  Where the rest of ``smem_bytes``
-// holds them, the state, the block's copy of the batch-shared operands
-// and an MLP's Jacobian rows are resident in shared memory and the slots
-// are the trial slots; else the state lives in the two workspace slots
-// after the trials' and an MLP's Jacobian rows in the three after those.
+// workspace.  The clocked build's counters (MPC_PHASE_CLOCKS, ``clocks``
+// [blocks * MPC_WARPS][kK3Phases]) and an MLP's weights are always in
+// shared memory (the first 4 MPC_WARPS kK3ClockFloats + 16 (2 nn_h + 1)
+// bytes of ``smem_bytes``).  Where the rest of ``smem_bytes`` holds them,
+// the state and the block's copy of the batch-shared operands are
+// resident in shared memory: the team kernel's slots are then the trial
+// slots, else the state lives in the two workspace slots after the
+// trials'; the MLP's slots are all resident (``ws`` may be null), else
+// all in the workspace.
 extern "C" int mpc_fused_ilqr_long(
     int B, int T, const float* params, int nn_h, int nn_pass,
     const float* cost, const float* F, long long sFt,
@@ -835,11 +1096,15 @@ extern "C" int mpc_fused_ilqr_long(
     const float* uz, long long sut, long long sub, float delta,
     const float* alphas, int n_alpha, int lqr_iter, float eps,
     float best_cost_eps, float not_improved_lim, float* ws, int slots,
-    int smem_bytes, float* x_out, float* u_out, float* stats, void* stream) {
-  const int weight_bytes = mpc::kNN ? 16 * (2 * nn_h + 1) : 0;
+    int smem_bytes, float* x_out, float* u_out, float* stats,
+    long long* clocks, void* stream) {
+  const int weight_bytes = (mpc::kNN ? 16 * (2 * nn_h + 1) : 0) +
+                           4 * mpc::kWarps * mpc::kK3ClockFloats;
   const bool resident = smem_bytes > weight_bytes;
   if (B <= 0 || T <= 0 || n_alpha <= 0 || n_alpha > mpc::kMaxAlpha ||
-      ws == nullptr || (mpc::kNN && (nn_h <= 0 || smem_bytes < weight_bytes)) ||
+      (clocks != nullptr) != mpc::kPhaseClocks ||
+      (ws == nullptr && !(mpc::kNN && resident)) ||
+      (mpc::kNN && (nn_h <= 0 || smem_bytes < weight_bytes)) ||
       (mpc::kLinDx ? (F == nullptr && T > 1) : params == nullptr) ||
       (mpc::kHasBounds && (lb == nullptr || ub == nullptr)) ||
       (mpc::kHasUz != (uz != nullptr)) || !(delta > 0.f) ||
@@ -849,11 +1114,15 @@ extern "C" int mpc_fused_ilqr_long(
     return (int)cudaErrorInvalidValue;
   // more than 48 KB of dynamic shared memory has to be asked for; the
   // library remembers the most it has asked for
+#if MPC_DYN == 2
+  const auto kernel = mpc::fused_ilqr_nn_kernel;
+#else
+  const auto kernel = mpc::fused_ilqr_long_kernel;
+#endif
   static int smem_allowed = 48 * 1024;
   if (smem_bytes > smem_allowed) {
     const cudaError_t err = cudaFuncSetAttribute(
-        mpc::fused_ilqr_long_kernel,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
     if (err != cudaSuccess) return (int)err;
     smem_allowed = smem_bytes;
   }
@@ -909,8 +1178,9 @@ extern "C" int mpc_fused_ilqr_long(
   op.x_out = x_out;
   op.u_out = u_out;
   op.stats = stats;
+  op.clocks = clocks;
   const int blocks = (B + mpc::kExamples - 1) / mpc::kExamples;
-  mpc::fused_ilqr_long_kernel<<<blocks, mpc::kThreads, smem_bytes,
-                                (cudaStream_t)stream>>>(op, sched);
+  kernel<<<blocks, mpc::kThreads, smem_bytes, (cudaStream_t)stream>>>(op,
+                                                                      sched);
   return (int)cudaGetLastError();
 }

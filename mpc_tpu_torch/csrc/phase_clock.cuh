@@ -1,5 +1,6 @@
 // The phase account of the dense kernels (fused_ilqr_dense.cu,
-// fused_kkt_bwd_dense.cu and the control solves they include).
+// fused_kkt_bwd_dense.cu and the control solves they include) and of K3's
+// MLP configuration (fused_ilqr_long.cu, its own phases: fused.K3_PHASES).
 //
 // THE PHASE ACCOUNT (MPC_PHASE_CLOCKS = 1, a build of its own that only
 // mpc_tpu_torch/utils/phase_account.py launches): every lane reads
@@ -51,15 +52,16 @@ constexpr bool kPhaseClocks = MPC_PHASE_CLOCKS != 0;
 // the counters' floats at the end of a warp's tiles (a multiple of 4)
 constexpr int kClockFloats = kPhaseClocks ? (kPhases + 3) / 4 * 4 : 0;
 
-// mark(p) charges the cycles since the last mark to phase p.
-struct PhaseClock {
+// mark(p) charges the cycles since the last mark to phase p, one of N.
+template <int N>
+struct PhaseClockOf {
   unsigned last;
   unsigned* acc;  // the warp's counters (lane 0 adds)
   __device__ __forceinline__ void start(float* counters) {
     if constexpr (kPhaseClocks) {
       acc = reinterpret_cast<unsigned*>(counters);
       if ((threadIdx.x & 31) == 0)
-        for (int p = 0; p < kPhases; ++p) acc[p] = 0u;
+        for (int p = 0; p < N; ++p) acc[p] = 0u;
       last = static_cast<unsigned>(clock());
     }
   }
@@ -70,13 +72,16 @@ struct PhaseClock {
       last = now;
     }
   }
+  // row ``b`` of clocks [rows][N]
   __device__ __forceinline__ void write(long long* clocks, int b) const {
     if constexpr (kPhaseClocks) {
       if ((threadIdx.x & 31) == 0 && clocks != nullptr)
-        for (int p = 0; p < kPhases; ++p)
-          clocks[b * kPhases + p] = static_cast<long long>(acc[p]);
+        for (int p = 0; p < N; ++p)
+          clocks[b * N + p] = static_cast<long long>(acc[p]);
     }
   }
 };
+
+using PhaseClock = PhaseClockOf<kPhases>;
 
 }  // namespace mpc

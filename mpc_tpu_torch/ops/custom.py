@@ -277,6 +277,20 @@ def _k3_cuda(params, F, f, C, c, x0, u0, lb, ub, alphas, lqr_iter, eps,
     """Allocate the workspace of ``fused.k3_launch`` and launch
     csrc/fused_ilqr_long.cu (the launcher refuses, as an invalid value,
     an array or a workspace too large for its 32-bit indices)."""
+    return k3_run(params, F, f, C, c, x0, u0, lb, ub, alphas, lqr_iter, eps,
+                  best_cost_eps, not_improved_lim, nn_hidden, activation,
+                  passthrough, cost_params, uz, delta_u)[:3]
+
+
+def k3_run(params, F, f, C, c, x0, u0, lb, ub, alphas, lqr_iter, eps,
+           best_cost_eps, not_improved_lim, nn_hidden, activation,
+           passthrough, cost_params=None, uz=None, delta_u=None,
+           clocks=False):
+    """The launch of ``k3_solve`` on the card: (x, u, stats, clocks).
+    With ``clocks`` the build of the phase account (MPC_PHASE_CLOCKS,
+    utils/phase_account.py), its cycles [warps, len(fused.K3_PHASES)] of
+    int64 (a row a warp of the launch) returned and its launch not
+    counted; else clocks is None."""
     T, B = u0.shape
     lindx = params is None
     nn = not lindx and nn_hidden > 0
@@ -318,17 +332,19 @@ def _k3_cuda(params, F, f, C, c, x0, u0, lb, ub, alphas, lqr_iter, eps,
     if not 0 < len(alphas) <= fused.MAX_ALPHA:
         raise ValueError(f'K3 takes 1 to {fused.MAX_ALPHA} step sizes')
     fused._check_float4('K3', C, c, F)
-    fn = fused._kernel_lib_long(fused.long_kernel_defines(
-        lindx, has_bounds, activation if nn else None,
-        damped=not (lindx or nn) and params.shape[0] == 5, huber=huber,
-        has_uz=uz is not None))
+    defines, geo = k3_build(params, F, f, C, c, x0, u0, lb, ub, alphas,
+                            lqr_iter, eps, best_cost_eps, not_improved_lim,
+                            nn_hidden, activation, passthrough, cost_params,
+                            uz, delta_u, clocks)
+    fn = fused._kernel_lib_long(defines)
     empty = functools.partial(torch.empty, dtype=torch.float32,
                               device=x0.device)
     x, u, stats = empty((T, B, 3)), empty((T, B, 1)), empty((6, B))
-    if B == 0:
-        return x, u, stats
     hidden = nn_hidden if nn else 0
-    geo = fused.k3_launch(T, B, len(alphas), hidden)
+    cyc = torch.zeros((geo['blocks'] * geo['warps'], len(fused.K3_PHASES)),
+                      dtype=torch.int64, device=x0.device) if clocks else None
+    if B == 0:
+        return x, u, stats, cyc
     ws = fused.k3_workspace(geo, T, B, x0.device)
     a_host = (ctypes.c_float * len(alphas))(*alphas)
     lb_ptr, sbt, sbb = fused._strided(lb, 1)
@@ -343,13 +359,36 @@ def _k3_cuda(params, F, f, C, c, x0, u0, lb, ub, alphas, lqr_iter, eps,
                  lb_ptr, ub.data_ptr() if has_bounds else None, sbt, sbb,
                  *mask, a_host, len(alphas), int(lqr_iter), float(eps),
                  float(best_cost_eps), float(not_improved_lim),
-                 ws.data_ptr(), geo['slots'], geo['smem_bytes'],
+                 None if ws is None else ws.data_ptr(), geo['slots'],
+                 geo['smem_bytes'],
                  x.data_ptr(), u.data_ptr(),
-                 stats.data_ptr(), stream)
+                 stats.data_ptr(), cyc.data_ptr() if clocks else None,
+                 stream)
     if err != 0:
         raise RuntimeError(f'K3 launch failed with cudaError_t {err}')
-    fused.launch_counts['fused_ilqr_long'] += 1
-    return x, u, stats
+    if not clocks:
+        fused.launch_counts['fused_ilqr_long'] += 1
+    return x, u, stats, cyc
+
+
+def k3_build(params, F, f, C, c, x0, u0, lb, ub, alphas, lqr_iter, eps,
+             best_cost_eps, not_improved_lim, nn_hidden, activation,
+             passthrough, cost_params=None, uz=None, delta_u=None,
+             clocks=False):
+    """(nvcc defines, launch geometry of ``fused.k3_launch``) with which
+    ``k3_run`` launches K3 on these arguments (``fused.k3_args`` of the
+    keyword operands of ``fused.fused_ilqr_long``)."""
+    T, B = u0.shape
+    lindx = params is None
+    nn = not lindx and nn_hidden > 0
+    defines = fused.long_kernel_defines(
+        lindx, lb is not None, activation if nn else None,
+        damped=not (lindx or nn) and params.shape[0] == 5,
+        huber=cost_params is not None, has_uz=uz is not None)
+    if clocks:
+        defines['MPC_PHASE_CLOCKS'] = 1
+    return defines, fused.k3_launch(T, B, len(alphas),
+                                    nn_hidden if nn else 0, clocks)
 
 
 # ---------------------------------------------------------------------------

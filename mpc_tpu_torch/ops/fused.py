@@ -19,11 +19,12 @@ csrc/fused_ilqr_long.cu: LinDx, pendulum or MLP dynamics, T a run-time
 argument, the same slots in a workspace in global memory that the
 wrapper allocates and, where the horizon fits, the state the loops read
 in shared memory; each step's rows are loaded one step ahead of their use.
-For an MLP (csrc/nn.cuh) the block keeps the weights in shared memory
-and the team computes the step Jacobians in a pass parallel over t
-before each Riccati sweep.
-The launch geometry is computed here (``k1_launch``, ``k3_launch``), so
-the CPU tests reach it.
+An MLP (csrc/nn.cuh) runs in a kernel of its own there: a warp an
+example, the block's weights in shared memory, the rollout step split
+over the lanes (a lane's units in registers, a butterfly of shuffles),
+the step Jacobians a step a lane before each Riccati sweep.
+The launch geometry is computed here (``k1_launch``, ``k3_launch``,
+``k3_nn_launch``), so the CPU tests reach it.
 
 ``fused_solve_plain`` and ``fused_solve_long_plain`` are the plain
 versions of those kernels: each kernel scalar is a [B] tensor and the
@@ -103,6 +104,15 @@ TEAM = 4
 # ten, and takes four (2 and 8 measured slower, PERF.md).
 K1_WARPS = 1
 K3_WARPS = 4
+# K3's MLP configuration gives each example a warp (its hidden units over
+# the lanes, csrc/nn.cuh) and takes 4 warps a block, at least
+# K3_NN_MIN_BLOCKS blocks an SM (its __launch_bounds__, MPC_MIN_BLOCKS):
+# 16 warps an SM, which holds a lane to 128 registers.
+K3_NN_WARPS = 4
+K3_NN_MIN_BLOCKS = 16 // K3_NN_WARPS
+# Its float4 slots a step and example: (K, k), (x, u), three Jacobian
+# rows and the trial trajectory (its trials run one after another).
+NN_SLOTS = 6
 # Shared memory one block may use on an H100 (227 KB).
 SMEM_LIMIT = 232448
 # K1's shared-memory slots (float4) per step and example beside the
@@ -113,6 +123,8 @@ _K1_FIXED_SLOTS = 5
 # (MPC_OP_ROW): C 16, c 4, F 12, f 3 (padded to 4), the two bounds and a
 # shared u_zero_I mask, padded to a multiple of 4.
 _K3_OPERAND_ROW = 40
+# The columns of K3's phase account (csrc/fused_ilqr_long.cu:K3Phase).
+K3_PHASES = ('initial rollout', 'jacobians', 'sweep', 'trials', 'copy')
 
 
 def _trial_lanes(n_alpha) -> int:
@@ -136,10 +148,12 @@ def k1_launch(T, B, n_alpha) -> dict:
                 smem_bytes=T * slots * examples * 16)
 
 
-def k3_launch(T, B, n_alpha, nn_hidden=0) -> dict:
+def k3_launch(T, B, n_alpha, nn_hidden=0, clocks=False) -> dict:
     """K3's launch geometry: team width, warps and examples a block,
     blocks, where the state lives, and the workspace [T, slots, B] of
-    float4 in global memory.
+    float4 in global memory; with ``nn_hidden`` units the MLP
+    configuration's (``k3_nn_launch``, ``clocks`` its phase account's
+    build).
 
     The state that the horizon loops read at every step, the gains
     (K, k) and the current (x, u), is two float4 a step and example: a
@@ -150,30 +164,65 @@ def k3_launch(T, B, n_alpha, nn_hidden=0) -> dict:
     there both are resident (``smem_bytes`` > 0) and the workspace holds
     the trial slots only; past it ``smem_bytes`` is 0, the state takes
     the workspace's last two slots and the operands are read from global
-    memory, so any T runs.
-
-    An MLP of ``nn_hidden`` hidden units adds
-    its weights, 2 float4 a unit and one for the output biases, which
-    stay in shared memory in either case (``_nn_weight_bytes``), and the
-    step Jacobians, three float4 rows a step and example: resident with
-    the state where all of it fits (T <= 84 at 100 units), else three
-    more workspace slots after the state's two.  Its build keeps
-    K3_WARPS too: at the bench MLP's B = 2048 that fills 64 of the 132
-    SMs, and 2 or 1 warps a block, which fill more, measured slower
-    (PERF.md, section 6)."""
-    examples = 32 * K3_WARPS // TEAM
-    weights = _nn_weight_bytes(nn_hidden)
-    per_step = 2 * 16 * examples + 4 * _K3_OPERAND_ROW
+    memory, so any T runs."""
     if nn_hidden:
-        per_step += 3 * 16 * examples
-    smem = weights + T * per_step
+        return k3_nn_launch(T, B, nn_hidden, clocks)
+    if clocks:
+        raise ValueError('K3 has a phase account for its MLP configuration '
+                         'only')
+    examples = 32 * K3_WARPS // TEAM
+    per_step = 2 * 16 * examples + 4 * _K3_OPERAND_ROW
+    smem = T * per_step
     resident = smem <= SMEM_LIMIT
     slots = _trial_lanes(n_alpha)
     if not resident:
-        slots += 5 if nn_hidden else 2
+        slots += 2
     return dict(team=TEAM, warps=K3_WARPS, examples=examples,
                 blocks=_blocks(B, examples), slots=slots,
-                smem_bytes=smem if resident else weights,
+                smem_bytes=smem if resident else 0,
+                workspace_bytes=T * slots * B * 16)
+
+
+def k3_nn_launch(T, B, nn_hidden, clocks=False) -> dict:
+    """The launch geometry of K3's MLP configuration (MPC_DYN = 2,
+    csrc/fused_ilqr_long.cu:fused_ilqr_nn_kernel): a warp an example
+    (its team is the warp: ``team`` 32), ``K3_NN_WARPS`` warps and
+    examples a block, blocks, its shared memory and its workspace.
+
+    The block's shared memory holds the weights, 2 float4 a unit and one
+    for the output biases (``_nn_weight_bytes``), always, and, where they
+    cost an SM no block, each example's ``NN_SLOTS`` float4 a step ((K, k),
+    (x, u), the Jacobian's three rows, the trial trajectory) and the
+    block's copy of the batch-shared operands (``_K3_OPERAND_ROW`` floats
+    a step): resident while the blocks an SM by shared memory stay as many
+    as the weights alone leave, up to ``min_blocks``, and the whole fits
+    227 KB.  At 100 units and 4 warps that is 3,216 + 544 T bytes, 4
+    blocks an SM up to T = 99.  Past it the slots go to the workspace
+    [T, NN_SLOTS, B] and the operands are read from global memory
+    (``slots`` and ``workspace_bytes`` 0 where resident), so any T runs,
+    up to ``K3_NN_MAX_HIDDEN`` units.  Measured at bench_nn_dynamics
+    (PERF.md section 6): resident 1-4% faster than the workspace at T =
+    20, 60 and 99, the workspace 26%, 17% and 45% faster at T = 100, 200
+    and 400, where shared memory would leave 3, 2 and 1 blocks an SM.
+    ``min_blocks`` (``K3_NN_MIN_BLOCKS``) is the kernel's
+    __launch_bounds__ minimum, so an SM holds 16 of its warps by
+    registers (128 a lane): at the bench MLP's B = 2048, 512 blocks on
+    all 132 SMs in one wave.
+
+    ``clocks``: the phase account's build (MPC_PHASE_CLOCKS), whose
+    counters take 32 bytes a warp at the start of the shared memory."""
+    from .fused_dense import blocks_an_sm
+    warps = K3_NN_WARPS
+    head = _nn_weight_bytes(nn_hidden) + (32 * warps if clocks else 0)
+    smem = head + T * (warps * NN_SLOTS * 16 + 4 * _K3_OPERAND_ROW)
+    resident = smem <= SMEM_LIMIT and min(
+        blocks_an_sm(smem, warps), K3_NN_MIN_BLOCKS) == min(
+            blocks_an_sm(head, warps), K3_NN_MIN_BLOCKS)
+    slots = 0 if resident else NN_SLOTS
+    return dict(team=32, warps=warps, examples=warps,
+                blocks=_blocks(B, warps), min_blocks=K3_NN_MIN_BLOCKS,
+                slots=slots,
+                smem_bytes=smem if resident else head,
                 workspace_bytes=T * slots * B * 16)
 
 
@@ -1060,10 +1109,13 @@ def fused_solve_long_plain(dynamics, params, F, f, C, c, x0, u0, lb, ub, *,
     examples try each step size until every active one has passed, and
     one more rollout with each example's selected step size writes the
     new trajectory: the same operations on the same numbers, so the same
-    trajectory.  An MLP's step and Jacobian are the model's
-    ``soa_stream_step`` and ``soa_stream_jac``, the stream form of
-    csrc/nn.cuh; the kernel computes the Jacobians of a sweep in a pass
-    before it, at the same points, so the same values.
+    trajectory.  An MLP's step is the kernel's split over a warp's lanes,
+    ``fused_dense.mlp_step_lanes`` (each output's lane partials over
+    every 32nd unit summed in the butterfly's tree: another order than
+    the model's ``soa_stream_step``, ROADMAP section 3), its Jacobian the
+    model's ``soa_stream_jac`` (csrc/nn.cuh); the kernel computes the
+    Jacobians of a sweep in a pass before it, at the same points, so the
+    same values.
 
     ``trace``, a list, receives one (iteration, step-size index, current
     cost, trial cost, tried, full-step norm) per trial, ``tried`` marking
@@ -1103,8 +1155,10 @@ def fused_solve_long_plain(dynamics, params, F, f, C, c, x0, u0, lb, ub, *,
         def jac(t, xt, ut):
             return Fl[t]
     elif isinstance(dynamics, NNDynamics):
+        from .fused_dense import mlp_step_lanes
+
         def step(t, xt, ut):
-            return list(dynamics.soa_stream_step(tuple(xt), ut, params))
+            return list(mlp_step_lanes(dynamics, tuple(xt), ut, params))
 
         def jac(t, xt, ut):
             return dynamics.soa_stream_jac(tuple(xt), ut, params)
@@ -1281,6 +1335,7 @@ _ARGTYPES_LONG = [
     _P, ctypes.c_int, ctypes.c_int,       # workspace, its slots, shared
                                           # memory bytes
     _P, _P, _P,                           # x, u, stats
+    _P,                                   # clocks (the phase account)
     _P,                                   # stream
 ]
 
@@ -1299,8 +1354,9 @@ def long_kernel_defines(lindx, has_bounds, activation=None,
     without one)."""
     if activation is not None:
         d = {'MPC_DYN': 2, 'MPC_ACT': NN_ACTIVATIONS.index(activation),
-             'MPC_HAS_BOUNDS': int(has_bounds), 'MPC_TEAM': TEAM,
-             'MPC_WARPS': K3_WARPS, 'MPC_OP_ROW': _K3_OPERAND_ROW}
+             'MPC_HAS_BOUNDS': int(has_bounds), 'MPC_TEAM': 32,
+             'MPC_WARPS': K3_NN_WARPS, 'MPC_MIN_BLOCKS': K3_NN_MIN_BLOCKS,
+             'MPC_OP_ROW': _K3_OPERAND_ROW}
     else:
         d = {'MPC_DYN': 0 if lindx else 1,
              'MPC_HAS_BOUNDS': int(has_bounds), 'MPC_TEAM': TEAM,
@@ -1329,9 +1385,12 @@ def _strided(a, inner):
 
 def k3_workspace(geo, T, B, device):
     """K3's workspace for the geometry ``geo`` of ``k3_launch``: the
-    trial slots (and the state's two, and an MLP's three Jacobian rows,
-    where they are not resident), [t, slot, b] of float4, so that the 8
-    examples of a warp share one 128-byte line per slot."""
+    trial slots (and the state's two where it is not resident; the MLP
+    configuration's slots where they are not resident, else none),
+    [t, slot, b] of float4, so that the 8 examples of a team warp share
+    one 128-byte line per slot; None where it has no slots."""
+    if not geo['slots']:
+        return None
     return torch.empty((T, geo['slots'], B, 4), dtype=torch.float32,
                        device=device)
 
@@ -1350,6 +1409,18 @@ def fused_ilqr_long(dynamics, params, F, f, C, c, x0, u0, lb, ub, *, alphas,
     its 32-bit indices).  With ``cost_params`` (C and c None) the cost
     build runs the pseudo-Huber cost (MPC_COST); ``uz`` and ``delta_u``
     as in ``fused_ilqr``."""
+    return torch.ops.mpc_tpu_torch.k3_solve(*k3_args(
+        dynamics, params, F, f, C, c, x0, u0, lb, ub, alphas=alphas,
+        lqr_iter=lqr_iter, eps=eps, best_cost_eps=best_cost_eps,
+        not_improved_lim=not_improved_lim, cost_params=cost_params, uz=uz,
+        delta_u=delta_u))
+
+
+def k3_args(dynamics, params, F, f, C, c, x0, u0, lb, ub, *, alphas,
+            lqr_iter, eps, best_cost_eps, not_improved_lim, cost_params=None,
+            uz=None, delta_u=None) -> tuple:
+    """``fused_ilqr_long``'s operands, checked, as the arguments of the op
+    ``k3_solve`` (and of ``custom.k3_run`` and ``custom.k3_build``)."""
     _check_device('K3', x0)
     nn_hidden, activation, passthrough = 0, '', False
     if isinstance(dynamics, NNDynamics):
@@ -1367,11 +1438,10 @@ def fused_ilqr_long(dynamics, params, F, f, C, c, x0, u0, lb, ub, *, alphas,
     if (dynamics is None) != (params is None):
         raise ValueError('K3 takes params for the pendulum and an MLP, and '
                          'none for LinDx')
-    return torch.ops.mpc_tpu_torch.k3_solve(
-        params, F, f, C, c, x0, u0, lb, ub, [float(a) for a in alphas],
-        int(lqr_iter), float(eps), float(best_cost_eps),
-        float(not_improved_lim), nn_hidden, activation, passthrough,
-        cost_params, uz, _opt_float(delta_u))
+    return (params, F, f, C, c, x0, u0, lb, ub, [float(a) for a in alphas],
+            int(lqr_iter), float(eps), float(best_cost_eps),
+            float(not_improved_lim), nn_hidden, activation, passthrough,
+            cost_params, uz, _opt_float(delta_u))
 
 
 # ---------------------------------------------------------------------------

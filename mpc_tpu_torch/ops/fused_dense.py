@@ -673,13 +673,15 @@ def mlp_step_lanes(nn, xs, u, params):
         z = _ACTS_SOA[nn.activation](_pre(z, W, b))
     W, b = layers[-1]
     h = W.shape[1]
-    parts = []
-    for lane in range(min(h, 32)):
-        p = W[:, lane] * z[..., lane:lane + 1]
-        for i in range(lane + 32, h, 32):
-            p = p + W[:, i] * z[..., i:i + 1]
-        parts.append(p)
-    out = _lane_sum(torch.stack(parts, -1)) + b
+    # the products [..., n_out, slot, lane], 0 past the width; lane l's
+    # partial adds its slots in order (a 0 leaves a partial unchanged)
+    n = -(-h // 32) * 32
+    terms = torch.nn.functional.pad(W * z.unsqueeze(-2), (0, n - h))
+    terms = terms.unflatten(-1, (n // 32, 32))
+    parts = terms[..., 0, :]
+    for slot in range(1, n // 32):
+        parts = parts + terms[..., slot, :]
+    out = _lane_sum(parts) + b
     if nn.passthrough:
         out = out + z0[..., :nn.n_state]
     return tuple(out.unbind(-1))

@@ -3,6 +3,7 @@ paths' host times and the kernels' device times.
 
     python3 mpc_tpu_torch/utils/ab_checkouts.py OTHER [THIS]
     python3 mpc_tpu_torch/utils/ab_checkouts.py --phases OTHER [THIS]
+    python3 mpc_tpu_torch/utils/ab_checkouts.py --phases-nn OTHER [THIS]
 
 OTHER and THIS (default: the checkout this file is in) each hold a
 ``chip_smoke.py`` beside ``mpc_tpu_torch/``; for the parent commit, say,
@@ -18,7 +19,11 @@ no time; host times compare within one call only.
 
 Each turn also solves the headline (K1, B=4096), the long LinDx system
 (K3, T=160, B=4096), bench_nn_dynamics (K3's MLP configuration,
-B=2048) and the dense kernels' rows once on the operands chip_smoke
+B=2048) with its cost and mask builds (chip_smoke's HUBER_ROWS and
+UZ_ROWS 'MLP'), K3's other builds at chip_smoke's rows (the damped
+pendulum at T=200, the cost build at the pendulum T=200 and the long
+LinDx rows, the mask build at the long LinDx row), and the dense
+kernels' rows once on the operands chip_smoke
 builds for them and prints a digest of the outputs' bytes (x, u and
 stats; the backward's five gradients): the dense forward at the medium
 rows 24s4c and 16s4c (B=2048), 5s1c (B=2048), TVLQR (B=128), config 3
@@ -27,9 +32,10 @@ rows 24s4c and 16s4c (B=2048), 5s1c (B=2048), TVLQR (B=128), config 3
 mlp-deep, mlp-slew and mlp-multictrl (B=2048) and the rows past 8
 controls wide-3s9c, wide-4s12c and wide-2s16c (B=2048); the dense
 backward at 20s4c and 4s12c (B=1024).  Each dense row's device time
-comes from a CUDA graph ([dense-time]).  The last lines say whether each
+comes from a CUDA graph ([dense-time]), and so does each K3 row's but
+the three at T=200 ([k3-time]).  The last lines say whether each
 row's digest is the same in all four turns, that is whether the two
-checkouts' kernels give the same bits there, and each dense row's best
+checkouts' kernels give the same bits there, and each timed row's best
 time in each checkout beside the spread of its two turns.
 
 With ``--phases`` each checkout runs, once, chip_smoke's phase account
@@ -41,7 +47,10 @@ launch lasts as long as its slowest warp), the registers and spills of
 its build, its workspace's layout, its blocks an SM by registers and by
 shared memory and its waves of blocks, and a digest of its outputs
 beside; the rows' operands come from ``soa_operands`` and
-``mlp_operands``, which every checkout's chip_smoke has.
+``mlp_operands``, which every checkout's chip_smoke has.  With
+``--phases-nn`` each checkout runs chip_smoke's ``--phases-nn`` alone:
+the phase account of K3's MLP configuration (its clocked build, which
+a checkout needs) at bench_nn_dynamics and its cost and mask builds.
 """
 
 import os
@@ -81,9 +90,23 @@ bits = {
     'headline': fused.fused_ilqr(**fused.k1_operands(
         MPCConfig(**cs.HEADLINE), cs.x0_batch(cs.B, 0, torch, d), cost, dx,
         u_lower=-2.0, u_upper=2.0)),
-    'long': fused.fused_ilqr_long(**cs.long_k3_operands(torch, d)),
-    'mlp': fused.fused_ilqr_long(**cs.nn_k3_operands(torch, d)),
 }
+k3 = {
+    'long': cs.long_k3_operands(torch, d),
+    'mlp': cs.nn_k3_operands(torch, d),
+    'mlp-cost': cs.huber_operands(torch, d, 'MLP')[0],
+    'mlp-mask': cs.uz_operands(torch, d, 'MLP')[0],
+    'k3-damped-200': cs.soa_operands(torch, d, 'damped T=200')[0],
+    'k3-cost-pendulum-200': cs.huber_operands(torch, d, 'pendulum T=200')[0],
+    'k3-cost-long': cs.huber_operands(torch, d, 'long LinDx')[0],
+    'k3-mask-long': cs.uz_operands(torch, d, 'long LinDx')[0],
+}
+for key, ops in k3.items():
+    bits[key] = fused.fused_ilqr_long(**ops)
+    if '200' not in key:
+        ms, _ = cs.graph_ms(torch, lambda: fused.fused_ilqr_long(**ops),
+                            reps=3, per_graph=4)
+        print(f'[k3-time] {key} {ms:.4f}', flush=True)
 fwd = {
     '24s4c': cs.dense_operands(torch, d, 'medium', 24, 4, 2048),
     '16s4c': cs.dense_operands(torch, d, 'medium', 16, 4, 2048),
@@ -118,7 +141,7 @@ print('[bits] ' + ' '.join(f'{k} {digest(v)}' for k, v in bits.items()))
 print(cs.card_line())
 '''
 KEEP = ('[serve', '[train', '[time', '  median', '  latency', '[bits',
-        '[dense-time')
+        '[dense-time', '[k3-time')
 
 PHASES = '''
 import hashlib, sys, torch
@@ -167,12 +190,13 @@ print(cs.card_line())
 '''
 
 
-def phases(other, this):
+def phases(other, this, nn=False):
     """The phase account of both checkouts at the model-step and MLP
-    builds' rows."""
+    builds' rows, or with ``nn`` at K3's MLP configuration's rows."""
     for who, where in (('other', other), ('this', this)):
-        r = subprocess.run([sys.executable, '-c', PHASES], cwd=where,
-                           capture_output=True, text=True)
+        cmd = ([sys.executable, 'chip_smoke.py', '--phases-nn'] if nn
+               else [sys.executable, '-c', PHASES])
+        r = subprocess.run(cmd, cwd=where, capture_output=True, text=True)
         if r.returncode != 0:
             print(r.stdout[-4000:], r.stderr[-4000:], sep='\n')
             return r.returncode
@@ -183,12 +207,13 @@ def phases(other, this):
 
 def main(argv):
     here = os.path.dirname(os.path.abspath(__file__))
-    if len(argv) > 1 and argv[1] == '--phases':
+    if len(argv) > 1 and argv[1] in ('--phases', '--phases-nn'):
         if not 3 <= len(argv) <= 4:
             print(__doc__, file=sys.stderr)
             return 2
         return phases(argv[2], argv[3] if len(argv) == 4
-                      else os.path.join(here, '..', '..'))
+                      else os.path.join(here, '..', '..'),
+                      nn=argv[1] == '--phases-nn')
     if not 2 <= len(argv) <= 3:
         print(__doc__, file=sys.stderr)
         return 2
@@ -209,7 +234,7 @@ def main(argv):
             if line.startswith('[bits] '):
                 words = line.split()[1:]
                 digests.append(dict(zip(words[::2], words[1::2])))
-            if line.startswith('[dense-time] '):
+            if line.startswith(('[dense-time] ', '[k3-time] ')):
                 _, key, ms = line.split()
                 dense_ms.setdefault(key, {}).setdefault(who, []).append(
                     float(ms))
@@ -218,7 +243,7 @@ def main(argv):
         f'{k} {"yes" if len({d[k] for d in digests}) == 1 else "NO"}'
         for k in digests[0]), flush=True)
     for key, t in dense_ms.items():
-        print(f'[dense-time] {key}: other ' + ' '.join(
+        print(f'[time] {key}: other ' + ' '.join(
             f'{v:.4f}' for v in t['other']) + ', this ' + ' '.join(
             f'{v:.4f}' for v in t['this']) + f'; this / other '
             f'{min(t["this"]) / min(t["other"]):.3f}', flush=True)

@@ -1,5 +1,5 @@
-"""The phase account of the dense kernels on the card: where a warp's
-cycles go.
+"""The phase account of the dense kernels and of K3's MLP configuration
+on the card: where a warp's cycles go.
 
 The clocked builds (MPC_PHASE_CLOCKS = 1, csrc/phase_clock.cuh) of
 csrc/fused_ilqr_dense.cu and csrc/fused_kkt_bwd_dense.cu have lane 0 of
@@ -15,7 +15,10 @@ not counted as one of the main path's.
     print(phase_account.format_shares(phase_account.phase_shares(clocks)))
 
 chip_smoke.py's [phases-dense] prints the account at its rows
-(``python3 chip_smoke.py --phases-dense`` runs that phase alone).
+(``python3 chip_smoke.py --phases-dense`` runs that phase alone).  K3's
+clocked build (csrc/fused_ilqr_long.cu) counts its own phases,
+``fused.K3_PHASES``, a row a warp of its launch (``clocked_k3``);
+[phases-nn] prints them (``python3 chip_smoke.py --phases-nn``).
 """
 
 from __future__ import annotations
@@ -59,19 +62,30 @@ def clocked_backward(o, kw):
     return out[:5], out[5], ms
 
 
-def phase_shares(clocks):
+def clocked_k3(ops):
+    """K3's clocked build on ``ops`` (the keyword operands of
+    ``fused.fused_ilqr_long``, on the card): (x, u, stats, clocks
+    [warps, len(fused.K3_PHASES)] int64, a row a warp of the launch, the
+    rows of warps that ran no example zero)."""
+    from ..ops import custom, fused
+    return custom.k3_run(*fused.k3_args(**ops), clocks=True)
+
+
+def phase_shares(clocks, phases=PHASES):
     """{phase: (share of the warps' cycles, mean cycles a warp)} of a
-    clocks buffer [B, len(PHASES)], the phases that took none left out;
+    clocks buffer [rows, len(phases)] (a row a warp; all-zero rows, warps
+    that ran no example, left out), the phases that took none left out;
     the shares sum to 1."""
     c = torch.as_tensor(clocks).detach().to('cpu', torch.float64)
-    if c.dim() != 2 or c.shape[1] != len(PHASES):
-        raise ValueError(f'a clocks buffer is [B, {len(PHASES)}]')
+    if c.dim() != 2 or c.shape[1] != len(phases):
+        raise ValueError(f'a clocks buffer is [rows, {len(phases)}]')
+    c = c[c.sum(1) > 0]
     per = c.sum(0)
     total = float(per.sum())
     if not total > 0:
         raise ValueError('the clocks buffer holds no cycles')
     return {name: (float(v) / total, float(v) / c.shape[0])
-            for name, v in zip(PHASES, per.tolist()) if v}
+            for name, v in zip(phases, per.tolist()) if v}
 
 
 def format_shares(shares):

@@ -24,8 +24,8 @@ the gradients to the MLP's weights.
   configuration's MLP build), and refuses a width past
   ``K3_NN_MAX_HIDDEN``, whose arithmetic is pinned; ``routes_long``
   sends the one-hidden-layer 3s1c MLP to K3; ``k3_launch`` with
-  ``nn_hidden`` (weights in shared memory always, the state and the
-  Jacobian rows resident where they fit); the nvcc defines;
+  ``nn_hidden`` (a warp an example, the weights in shared memory always,
+  each example's slots resident where they fit); the nvcc defines;
   ``use_fused='always'`` raises NotImplementedError for an MLP past the
   dense gate and ValueError for an affine model, and solves a two-layer
   MLP with the pseudo-Huber cost.
@@ -215,32 +215,38 @@ def test_nn_gate_is_what_shared_memory_holds():
 @pytest.mark.parametrize('T', [2, 20, 84, 85, 600])
 @pytest.mark.parametrize('H', [8, 100])
 def test_k3_launch_geometry_for_the_mlp(H, T, B):
+    """A warp an example (fused.k3_nn_launch): the weights always in
+    shared memory, each example's NN_SLOTS float4 a step and the block's
+    copy of the shared operands beside them while an SM still holds its
+    4 blocks, else the slots in the workspace; 16 warps an SM by
+    registers."""
     geo = fused.k3_launch(T, B, 3, H)
     weights = 16 * (2 * H + 1)
-    per_step = 2 * 16 * geo['examples'] + 4 * 40 + 3 * 16 * geo['examples']
-    resident = weights + T * per_step <= fused.SMEM_LIMIT
-    assert geo['warps'] == fused.K3_WARPS
-    assert geo['examples'] * fused.TEAM == 32 * geo['warps']
+    per_step = geo['warps'] * fused.NN_SLOTS * 16 + 4 * 40
+    # resident while an SM still holds 4 blocks by shared memory (228 KB,
+    # 1 KB reserved a block)
+    resident = 4 * (weights + T * per_step + 1024) <= 233472
+    assert geo['warps'] == fused.K3_NN_WARPS
+    assert geo['team'] == 32 and geo['examples'] == geo['warps']
     assert geo['blocks'] == -(-B // geo['examples'])
+    assert geo['min_blocks'] * geo['warps'] == 16
     assert geo['smem_bytes'] == (weights + T * per_step if resident
                                  else weights) <= fused.SMEM_LIMIT
-    # the trial slots; where not resident the state's two and the three
-    # Jacobian rows follow them in the workspace
-    assert geo['slots'] == 3 + (0 if resident else 5)
+    assert geo['slots'] == (0 if resident else fused.NN_SLOTS)
     assert geo['workspace_bytes'] == T * geo['slots'] * B * 16
     if H == 100:
-        assert resident == (T <= 84)
+        assert resident == (T <= 99)
 
 
 def test_nn_main_path_geometry_and_defines():
     assert fused.k3_launch(20, 2048, 3, 100) == dict(
-        team=4, warps=4, examples=32, blocks=64, slots=3, smem_bytes=57616,
-        workspace_bytes=20 * 3 * 2048 * 16)
+        team=32, warps=4, examples=4, blocks=512, min_blocks=4, slots=0,
+        smem_bytes=3216 + 20 * (4 * 6 * 16 + 160), workspace_bytes=0)
     # without an MLP nothing changes
     assert fused.k3_launch(160, 4096, 3) == fused.k3_launch(160, 4096, 3, 0)
     assert fused.long_kernel_defines(False, True, 'sigmoid') == dict(
-        MPC_DYN=2, MPC_ACT=0, MPC_HAS_BOUNDS=1, MPC_TEAM=4,
-        MPC_WARPS=fused.K3_WARPS, MPC_OP_ROW=40)
+        MPC_DYN=2, MPC_ACT=0, MPC_HAS_BOUNDS=1, MPC_TEAM=32,
+        MPC_WARPS=fused.K3_NN_WARPS, MPC_MIN_BLOCKS=4, MPC_OP_ROW=40)
     assert fused.long_kernel_defines(False, False, 'elu')['MPC_ACT'] == 2
     assert fused.long_kernel_defines(True, True)['MPC_DYN'] == 0
 
