@@ -398,7 +398,9 @@ def phase_build(background=False):
     specs += [('fused_kkt_bwd',
                fused_bwd.kernel_defines(TRAIN_T, has_I, cost_shared))
               for cost_shared in (True, False) for has_I in (True, False)]
-    specs += [('fused_ilqr_long', fused.long_kernel_defines(lindx, True))
+    # K3 on LinDx and on the pendulum ([compare-teams]' 10 step sizes)
+    specs += [('fused_ilqr_long', fused.long_kernel_defines(
+        lindx, True, n_alpha=1 if lindx else TEAMS_K3_ALPHAS))
               for lindx in (True, False)]
     # K3's MLP build: sigmoid with bounds, relu without, and the clocked
     # builds of [phases-nn]; K2 at the MLP path's T
@@ -432,8 +434,9 @@ def phase_build(background=False):
     # memory), K1 and K3 on the damped pendulum
     specs += soa_build_specs()
     specs += [('fused_ilqr', fused.kernel_defines(T, True, damped=True)),
-              ('fused_ilqr_long', fused.long_kernel_defines(False, True,
-                                                            damped=True))]
+              ('fused_ilqr_long', fused.long_kernel_defines(
+                  False, True, damped=True,
+                  n_alpha=HEADLINE['max_linesearch_iter']))]
     # the pseudo-Huber cost: each kernel's cost build (MPC_COST = 1) at the
     # rows of [compare-huber] and [grad-huber], and K2 on per-example C
     specs += [('fused_ilqr', fused.kernel_defines(t_, True, huber=True))
@@ -458,8 +461,9 @@ def phase_build(background=False):
     # the gate's corners (1s9c, 1s31c, 4s28c, 23s9c), whose registers and
     # spills below stand for the control solve across the warp's lanes
     specs += [s for s in wide_build_specs() if s not in specs]
-    # the phase account's clocked builds ([phases-dense])
+    # the phase accounts' clocked builds ([phases-dense], [phases-k3])
     specs += [s for s in phases_build_specs() if s not in specs]
+    specs += [s for s in phases_k3_build_specs() if s not in specs]
     t0 = time.perf_counter()
     if not background:
         return phase_build_report((specs, _build.start(specs), t0))
@@ -515,7 +519,7 @@ def phase_build_report(started):
                                       CARTPOLE['max_linesearch_iter'] if
                                       model == 'cartpole' else 5, True)
                if kernel == 'dense' else fused.k1_launch(T_, n, 5)
-               if kernel == 'K1' else fused.k3_launch(T_, n, 5))
+               if kernel == 'K1' else fused.k3_launch(T_, n, 5, lindx=False))
               for label, model, T_, n, kernel in SOA_ROWS)):
         log(f'  launch, {what}: {geo}')
     # the model-step build at each of its rows: registers, spills, the
@@ -1388,6 +1392,10 @@ TEAMS_SAME_ITER, TEAMS_SAME_TRIALS = 0.99, 0.98
 # norm exceeds TEAMS_REAL_STEP; at most TEAMS_MAX_TIED of a problem's
 # examples may be left out for such a tie
 TEAMS_REAL_STEP, TEAMS_MAX_TIED = 1e-3, 0.1
+# step sizes of the cheap-control pendulum's search through K1 and K3:
+# past the width of a team, which is 4 lanes in K1 and on K3's pendulum as
+# wide as its search up to 8 (fused._k3_team), so 10 there
+TEAMS_K1_ALPHAS, TEAMS_K3_ALPHAS = 6, 10
 
 
 def same_share(a, b):
@@ -1523,7 +1531,8 @@ def phase_compare_teams(torch, device):
     that do not fill a block."""
     import mpc_tpu_torch as mt
     from mpc_tpu_torch.ops import fused
-    log(f'[compare-teams] teams of {fused.TEAM} lanes')
+    log(f'[compare-teams] teams of {fused.TEAM} lanes (K3\'s pendulum: as '
+        f'wide as its step sizes, up to {fused.K3_PEND_TEAM})')
     dx, cost = problem(torch, device)
     dx64, cost64 = problem(torch, device, torch.float64)
     # K1, the headline with eps = 1e-2: mixed stopping inside a warp
@@ -1566,24 +1575,26 @@ def phase_compare_teams(torch, device):
     hold_lindx_search(torch, f'K3, LinDx, T={TEAMS_T}, 6 step sizes',
                       k3_ops(torch.float32, **six),
                       k3_ops(torch.float64, **six), TEAMS_T)
-    # 6 step sizes of decay 0.5 on a cheap-control pendulum with wide
-    # bounds, where from the second iteration on the full step overshoots:
-    # rounds of the line search past the team's width with real steps.
-    # Through K1 at the headline's T and through K3 at TEAMS_T; judged
-    # against float64.  (A single step size is a case of
-    # tests/test_torch_gpu.py.)
+    # step sizes of decay 0.5 on a cheap-control pendulum with wide bounds
+    # (TEAMS_K1_ALPHAS, TEAMS_K3_ALPHAS), where from the second iteration
+    # on the full step overshoots: rounds of the line search past the
+    # team's width with real steps.  Through K1 at the headline's T and
+    # through K3 at TEAMS_T; judged against float64.  (A single step size
+    # is a case of tests/test_torch_gpu.py.)
     q, p = dx.get_true_obj()
     scale = torch.tensor([1.0, 1.0, 0.1, 0.1], device=device)
     x0 = x0_batch(1024, 6, torch, device)
-    for name, horizon, operands, kernel, plain in (
+    for name, horizon, operands, kernel, plain, n_alpha, width in (
             ('K1', T, fused.k1_operands, fused.fused_ilqr,
-             fused.fused_solve_plain),
+             fused.fused_solve_plain, TEAMS_K1_ALPHAS, fused.TEAM),
             ('K3', TEAMS_T, fused.k3_operands, fused.fused_ilqr_long,
-             fused.fused_solve_long_plain)):
-        what = f'{name}, pendulum, T={horizon}, 6 step sizes'
+             fused.fused_solve_long_plain, TEAMS_K3_ALPHAS,
+             fused.k3_launch(TEAMS_T, 1, TEAMS_K3_ALPHAS,
+                             lindx=False)['team'])):
+        what = f'{name}, pendulum, T={horizon}, {n_alpha} step sizes'
         cfg = mt.MPCConfig(**dict(
             HEADLINE, T=horizon, lqr_iter=3, linesearch_decay=0.5,
-            max_linesearch_iter=6))
+            max_linesearch_iter=n_alpha))
         both = [operands(
             cfg, x0.to(dt), mt.QuadCost(torch.diag((q * scale).to(dt)),
                                         p.to(dt)), d, u_lower=-20.0,
@@ -1594,10 +1605,10 @@ def phase_compare_teams(torch, device):
         # one iteration's count is the difference of two solves that
         # differ by that iteration
         upto = [kernel(**dict(both[0], lqr_iter=i))[2][5] for i in (1, 2)]
-        past = torch.stack([upto[1] - upto[0], sk[5] - upto[1]]) > fused.TEAM
+        past = torch.stack([upto[1] - upto[0], sk[5] - upto[1]]) > width
         log(f'  iterations 2 and 3: step sizes past the team\'s width '
-            f'in {float(past.any(0).double().mean()):.4f} of the '
-            'examples')
+            f'({width} lanes) in {float(past.any(0).double().mean()):.4f} '
+            'of the examples')
         if not bool(past.any()):
             raise AssertionError(f'{what}: no example searched past the '
                                  'team\'s width: the rounds were not '
@@ -4753,8 +4764,7 @@ def soa_design(ops, label):
     if kernel == 'K1':
         return design('fused_ilqr', fused.kernel_defines(T_, True, True),
                       fused.k1_launch(T_, n, n_alpha))
-    return design('fused_ilqr_long', fused.long_kernel_defines(
-        False, True, damped=True), fused.k3_launch(T_, n, n_alpha))
+    return design('fused_ilqr_long', *nn_defines(ops))
 
 
 def phase_time_soa(torch, device, plain_ms):
@@ -5335,10 +5345,7 @@ def huber_design(ops, label):
         return design('fused_ilqr', fused.kernel_defines(T_, True,
                                                          huber=True),
                       fused.k1_launch(T_, n, n_alpha))
-    return design('fused_ilqr_long', fused.long_kernel_defines(
-        prob == 'lindx', True, 'sigmoid' if prob == 'mlp' else None,
-        huber=True), fused.k3_launch(T_, n, n_alpha,
-                                     NN_H if prob == 'mlp' else 0))
+    return design('fused_ilqr_long', *nn_defines(ops))
 
 
 def phase_time_huber(torch, device, plain_ms):
@@ -6090,10 +6097,7 @@ def uz_defines(ops, label):
         return ('fused_ilqr', fused.kernel_defines(T_, bounds,
                                                    has_uz=has_uz),
                 fused.k1_launch(T_, n, n_alpha))
-    hidden = NN_H if prob == 'mlp' else 0
-    return ('fused_ilqr_long', fused.long_kernel_defines(
-        prob == 'lindx', bounds, 'sigmoid' if prob == 'mlp' else None,
-        has_uz=has_uz), fused.k3_launch(T_, n, n_alpha, hidden))
+    return ('fused_ilqr_long', *nn_defines(ops))
 
 
 def uz_build_specs():
@@ -6885,8 +6889,9 @@ def nn_phase_operands(torch, device, label, n=None):
 
 
 def nn_defines(ops, clocks=False):
-    """(nvcc defines, launch geometry) of K3's build for the MLP operands
-    ``ops`` at their batch: those that ``custom.k3_run`` launches with."""
+    """(nvcc defines, launch geometry) of K3's build for the operands
+    ``ops`` (an MLP's, or the team kernel's) at their batch: those that
+    ``custom.k3_run`` launches with."""
     from mpc_tpu_torch.ops import custom, fused
     return custom.k3_build(*fused.k3_args(**ops), clocks=clocks)
 
@@ -6978,6 +6983,133 @@ def phases_nn_main(*rows):
     log(f'[build] the clocked builds and the ops\' builds of their rows '
         f'({time.perf_counter() - t0:.1f} s)')
     phase_phases_nn(torch, torch.device('cuda'), rows or NN_PHASE_ROWS)
+    log(card_line())
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# K3's team kernel's phase account
+# ---------------------------------------------------------------------------
+
+# [phases-k3]'s rows: the damped pendulum at T=196 (K3_T_RESIDENT, the
+# LinDx build's horizon) and at T=200 (SOA_ROWS' row; the pendulum's own
+# horizon is fused.k3_t_resident's, 202 for its 8 lanes), the simple
+# pendulum at T=200 in the QuadCost build and in the pseudo-Huber cost
+# build (HUBER_ROWS' 'pendulum T=200' and its QuadCost twin) and the long
+# LinDx system at T=160 (LONG), each at its own batch
+K3_PHASE_ROWS = ('damped T=196', f'damped T={SOA_LONG_T}',
+                 f'pendulum T={SOA_LONG_T}', f'cost pendulum T={SOA_LONG_T}',
+                 'long LinDx')
+
+
+def k3_phase_operands(torch, device, label, n=None):
+    """A K3_PHASE_ROWS row's K3 operands (``n`` cuts the batch)."""
+    import dataclasses
+    from mpc_tpu_torch.ops import fused
+    if label == 'long LinDx':
+        return long_k3_operands(torch, device, n or LONG_B)
+    if label.startswith(('pendulum', 'cost pendulum')):
+        return huber_operands(torch, device, f'pendulum T={SOA_LONG_T}', n=n,
+                              quad=label.startswith('pendulum'))[0]
+    cfg, x0, cost, dx, bk, _ = soa_problem(torch, device,
+                                           f'damped T={SOA_LONG_T}', n=n)
+    cfg = dataclasses.replace(cfg, T=int(label.split('T=')[1]))
+    return fused.k3_operands(cfg, x0, cost, dx, **bk)
+
+
+def k3_kernel_registers(defines):
+    """Each kernel of a K3 library's ptxas report: (its mangled name,
+    registers, spill store bytes)."""
+    import re
+    from mpc_tpu_torch.ops import _build
+    regs, spills, entry, props = {}, {}, None, None
+    for line in _build.ptxas_report('fused_ilqr_long', defines).splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = m.group(1)
+        m = re.search(r'Function properties for (\S+)', line)
+        if m:
+            props = m.group(1)
+        m = re.search(r'(\d+) bytes spill stores', line)
+        if m and props is not None:
+            spills[props] = int(m.group(1))
+        m = re.search(r'Used (\d+) registers', line)
+        if m and entry is not None:
+            regs[entry] = int(m.group(1))
+    return [(k, v, spills.get(k)) for k, v in regs.items()]
+
+
+def phase_phases_k3(torch, device, rows=K3_PHASE_ROWS):
+    """The phase account of K3's team kernel at the K3_PHASE_ROWS rows:
+    each row's clocked build (utils/phase_account.clocked_k3, the same
+    layout as the op's build) launched once after a warm-up, every
+    phase's share of the examples' cycles and its mean cycles an example
+    (a team's lane 0 counts them), the row's iterations and trials (stats
+    rows 2 and 5), the op's build's time from a CUDA graph, its geometry
+    and each kernel's registers and spills in its library and in the
+    clocked one; the clocked outputs set beside the op's build's (logged,
+    not held).  Returns the accounts by row."""
+    from mpc_tpu_torch.ops import fused
+    from mpc_tpu_torch.utils import phase_account as pa
+    accounts = {}
+    for label in rows:
+        ops = k3_phase_operands(torch, device, label)
+        pa.clocked_k3(ops)
+        *outs, clocks = pa.clocked_k3(ops)
+        ref = fused.fused_ilqr_long(**ops)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(outs, ref))
+        ms, _ = graph_ms(torch, lambda: fused.fused_ilqr_long(**ops), reps=3,
+                         per_graph=4)
+        shares = pa.phase_shares(clocks, fused.K3_PHASES)
+        total = sum(v[1] for v in shares.values())
+        slowest = float(clocks.sum(1).max())
+        st = outs[2].double()
+        defines, geo = nn_defines(ops)
+        cdefines, _ = nn_defines(ops, clocks=True)
+        T_ = ops['u0'].shape[0]
+        log(f'[phases-k3] {label}, B={ops["x0"].shape[0]}, T={T_}: the op\'s '
+            f'build {ms:.4f} ms (from a CUDA graph); {total:.0f} cycles an '
+            f'example (the slowest {slowest:.0f}), {total / T_:.0f} a step; '
+            + pa.format_shares(shares)
+            + f'; n_iter mean {float(st[2].mean()):.2f}, max '
+            f'{float(st[2].max()):.0f}; selected index + 1 a solve '
+            f'{float(st[5].mean()):.2f}; geometry {geo}; kernels '
+            f'(registers, spill stores) {k3_kernel_registers(defines)}, '
+            f'clocked {k3_kernel_registers(cdefines)}; outputs bitwise the '
+            f'op\'s build: {same}; {card_line()}')
+        accounts[label] = dict(ms=ms, cycles_an_example=total, **{
+            k: round(v[0], 4) for k, v in shares.items()})
+    return accounts
+
+
+def phases_k3_build_specs():
+    """The K3_PHASE_ROWS rows' builds, clocked and not."""
+    import torch
+    specs = []
+    for label in K3_PHASE_ROWS:
+        ops = k3_phase_operands(torch, torch.device('cpu'), label, n=1)
+        for clocks in (True, False):
+            s = ('fused_ilqr_long', nn_defines(ops, clocks)[0])
+            if s not in specs:
+                specs.append(s)
+    return specs
+
+
+def phases_k3_main(*rows):
+    """``python3 chip_smoke.py --phases-k3 [ROW ...]``: [phases-k3] alone
+    (its builds, then the account), at the K3_PHASE_ROWS rows named (all
+    by default)."""
+    import torch
+    from mpc_tpu_torch.ops import _build
+    if not torch.cuda.is_available():
+        print('chip_smoke: no CUDA card is visible', file=sys.stderr)
+        return 2
+    t0 = time.perf_counter()
+    _build.build(phases_k3_build_specs())
+    log(f'[build] the clocked builds and the ops\' builds of their rows '
+        f'({time.perf_counter() - t0:.1f} s)')
+    phase_phases_k3(torch, torch.device('cuda'), rows or K3_PHASE_ROWS)
     log(card_line())
     return 0
 
@@ -8494,7 +8626,8 @@ WORKERS = {'--serve-worker': serve_worker, '--pod-worker': pod_worker,
            '--plain-worker': plain_worker,
            '--wide-train-worker': wide_train_worker,
            '--phases-dense': phases_dense_main,
-           '--phases-nn': phases_nn_main}
+           '--phases-nn': phases_nn_main,
+           '--phases-k3': phases_k3_main}
 
 
 def main():
@@ -8643,6 +8776,9 @@ def main():
     t_ph = time.perf_counter()
     accounts = phase_phases_dense(torch, device)
     log(f'[phases-dense] {time.perf_counter() - t_ph:.1f} s')
+    t_ph = time.perf_counter()
+    k3_accounts = phase_phases_k3(torch, device)
+    log(f'[phases-k3] {time.perf_counter() - t_ph:.1f} s')
     t_new = time.perf_counter()
     closed = phase_closed_loop(torch, device)
     t_closed = time.perf_counter()
@@ -8690,7 +8826,7 @@ def main():
           'tolerance': f'mean|du|<{TAIL_MEAN}, '
                        f'share(|du|>{TAIL_ENTRY})<{TAIL_SHARE}',
           'library_ms': None}
-    log(json.dumps({'kernels': mark_dense([
+    log(json.dumps({'kernels': mark_k3_team(mark_dense([
         {'name': 'fused_ilqr', 'path': 'serving', **k1,
          'design': design('fused_ilqr', fused.kernel_defines(T, True),
                           fused.k1_launch(T, B, 5)),
@@ -8789,7 +8925,7 @@ def main():
                                'k2': (bwd_err, timing_bwd),
                                'k3': (long_err, timing_long),
                                'k4': (bwd_long_err, timing_bwd_long)})],
-        accounts)}))
+        accounts), k3_accounts)}))
     # host-to-host ms of the scale-out and artifact phases
     log(json.dumps({'artifacts_and_scale_out': {
         'export_serve_ms': scale_ms['export-serve'],
@@ -8831,6 +8967,29 @@ def mark_dense(kernels, accounts):
         e['phase_account'] = {r: a for r, a in accounts.items()
                               if r.startswith('backward') == (
                                   name == 'fused_kkt_bwd_dense')}
+    return kernels
+
+
+# K3's team kernel's entries redesigned past its shared-memory horizon:
+# the pendulum's linearisation across the team, the lanes' rings
+K3_TEAM_REDESIGNED = {'fused_ilqr_long (damped pendulum)': 'damped T=200',
+                      'fused_ilqr_long (pseudo-Huber pendulum)':
+                      'cost pendulum T=200'}
+
+
+def mark_k3_team(kernels, accounts):
+    """Mark the team kernel's redesigned entries, with the clock header,
+    and give each the [phases-k3] account of its row, and the long LinDx
+    entry that of its own."""
+    for e in kernels:
+        row = K3_TEAM_REDESIGNED.get(e['name'])
+        if row is not None:
+            e['status'] = 'redesigned'
+            e['headers'] = sorted(set(e.get('headers', [])) | {
+                'mpc_tpu_torch/csrc/phase_clock.cuh'})
+            e['phase_account'] = {row: accounts[row]}
+        elif e['name'] == 'fused_ilqr_long':
+            e['phase_account'] = {'long LinDx': accounts['long LinDx']}
     return kernels
 
 

@@ -28,7 +28,11 @@
 //   lanes run in rounds of kTeam, a later round only if no lane of the
 //   earlier one passed.  That selects what a serial search that stops at
 //   its first passing step size selects, and stats[5] stays the selected
-//   index plus one.
+//   index plus one.  A launch lasts as long as its slowest example, and a
+//   second round is a whole rollout more for the examples that need it,
+//   so the pendulum's team is as wide as its line search (8 lanes in 8
+//   warps for 5 to 8 step sizes, ops/fused.py:_k3_team; 32 examples a
+//   block either way).
 // - There is NO COMMIT ROLLOUT.  The team copies the winner's slot into
 //   the current trajectory and, where it improved on the best cost, into
 //   the outputs, lane g taking steps g, g + kTeam, ... with the loads of
@@ -40,15 +44,25 @@
 //   to the L2 for them costs more than a step's arithmetic (measured:
 //   600-800 cycles a step with the state in global memory, whether or
 //   not it was loaded a step ahead).  A block of kWarps warps holds
-//   kExamples = 32 kWarps / kTeam examples, so the state takes
-//   T * 2 * 16 * kExamples bytes (1024 T for 4 warps of teams of 4) and
-//   the shared operands 160 T: both are resident up to T = 196 (232,448
-//   bytes a block), one block an SM, which at T = 160 leaves the card's
-//   132 SMs room for 4224 examples.  Past that the same source keeps the
-//   state in the workspace in global memory (``state`` is a generic
-//   pointer); ops/fused.py:k3_launch computes which, and nothing else
-//   limits T.  The trial slots are always in global memory: the chains
-//   only write them.
+//   kExamples = 32 kWarps / kTeam = 32 examples, so the state takes
+//   T * 2 * 16 * kExamples = 1024 T bytes and the shared operands 4
+//   kOpRow T (160 T for LinDx with a QuadCost, 96 T for the pendulum, 16 T
+//   for its cost build).  The state is resident where it fits 232,448
+//   bytes a block beside the pendulum's linearisation buffers (LinDx's
+//   only with its operands, whose rows its sweep would otherwise read
+//   from global memory: up to T = 196; the damped pendulum's to 202), the
+//   operands where they fit beside it too, one block an SM, which at
+//   T = 160 leaves the card's 132 SMs room for 4224 examples.  Past that
+//   the same source (the kernel's Ring instantiation) keeps the state in
+//   the workspace in global memory, and each lane reads it through A RING
+//   of the next kRing steps of its walk in shared memory: the rows of the
+//   position kAhead on are copied in by cp.async while a step computes,
+//   one commit group a position, waited for when the chain reaches it
+//   (Feed), so a step's state is a shared-memory load whatever T (the
+//   L2's round trip, 600-800 cycles, hidden behind kAhead steps).  Each
+//   lane fills its own ring: no barrier on the chain.  ops/fused.py:k3_launch
+//   computes the layout, and nothing else limits T.  The trial slots are
+//   always in global memory: the chains only write them.
 // - Rows arrive before the step that needs them, which is this card's
 //   form of the TPU kernel's make_async_copy double buffer: in both
 //   horizon loops the operands and the state of step t -+ 1 are loaded
@@ -56,15 +70,31 @@
 //   turns, so nothing is moved).  The initial controls come from device
 //   memory: the team fetches them in a pass parallel over t.
 // - A batch-shared operand (batch stride 0) is ONE COPY FOR THE BLOCK:
-//   where the state is resident the block first copies the shared ones
-//   of C, c, F, f and the bounds into shared memory behind it (160 bytes
-//   a step), all threads together, and the loops read them there; the
-//   initial rollout, the first to touch them, otherwise waits for device
-//   memory at every step of its chain (measured: ~1000 cycles a step).
-//   A batched operand is read from global memory with its batch stride.
+//   where it fits beside the state or the rings the block first copies
+//   the shared ones the build reads of C, c, F, f, the bounds and the
+//   mask into shared memory (kOpRow floats a step), all threads together,
+//   and the loops read them there; the initial rollout, the first to
+//   touch them, otherwise waits for device memory at every step of its
+//   chain (measured: ~1000 cycles a step), and the later loops find them
+//   in the L1.  A batched operand is read from global memory with its
+//   batch stride.
+// - THE PENDULUM'S JACOBIANS (and the cost build's quadratisation) are
+//   OFF THE SWEEP'S CHAIN: its damped step's Jacobian is an atan2f, a
+//   sincos, a cosf and an IEEE division deep, which every lane would pay
+//   at every step were the Riccati step to take it inline.  The sweep
+//   walks the horizon in rounds of kTeam steps; while the chain walks one
+//   round, lane g forms the Jacobian (and H's diagonal and g) of step
+//   t0 - kTeam - g of the next round, from (x, u) it loaded a round
+//   before, into the team's buffer of two rounds in shared memory, and a
+//   tile.sync() ends the round: one Jacobian's latency and issue a round
+//   instead of kTeam.  The chain reads the rows as it reads a LinDx F (load_lin).
+//   The transcendentals' fast-path checks are branches, so the formed
+//   rows do not interleave with the chain's arithmetic: the gain is the
+//   kTeam steps a Jacobian's latency is shared by (PERF.md section 6).
+//   The rollout's step stays on its chain: it is the recurrence.
 // - The workspace is [t, slot, b] of float4: one 16-byte access for
-//   (x, u) or (K, k) of a step, the 8 examples of a warp on one 128-byte
-//   line; C, c and F are read as float4 too.
+//   (x, u) or (K, k) of a step, the examples of a warp (8, in teams of 8
+//   lanes 4) on one 128-byte line; C, c and F are read as float4 too.
 // - The Riccati sweep runs redundantly in every lane of a team (same
 //   arithmetic, same bits, no shuffles on the chain); lane 0 stores the
 //   gains.  A lane reads rows another lane of its team wrote only after
@@ -193,6 +223,12 @@
 #if !defined(MPC_TEAM) || !defined(MPC_WARPS) || !defined(MPC_OP_ROW)
 #error "compile with -DMPC_TEAM=<lanes an example> -DMPC_WARPS=<warps a block> -DMPC_OP_ROW=<floats a step of the shared operands' copy>"
 #endif
+#if MPC_DYN != 2 && !defined(MPC_RING)
+#error "compile the team kernel with -DMPC_RING=<steps of a lane's ring>"
+#endif
+#ifndef MPC_RING
+#define MPC_RING 4
+#endif
 
 namespace cg = cooperative_groups;
 
@@ -217,11 +253,37 @@ constexpr float kBig = 3.0e38f;
 // the state's two slots of one step and example
 constexpr int kGain = 0;  // (K, k)
 constexpr int kTraj = 1;  // the current (x, u)
-// a step of the block's copy of the batch-shared operands, in floats
-constexpr int kOffC = 0, kOffc = 16, kOffF = 20, kOfff = 32, kOffLb = 36,
-              kOffUb = 37, kOffUz = 38, kOpRow = MPC_OP_ROW;
-static_assert(kOffUz < kOpRow && kOpRow % 4 == 0,
-              "a row holds every operand and keeps float4 alignment");
+// a step of the block's copy of the batch-shared operands, in floats: the
+// operands the build reads (C and c but in the cost build, F and f for
+// LinDx, the bounds, the mask), padded to float4 (ops/fused.py:_k3_op_row;
+// the MLP's row keeps 40)
+constexpr int kOffC = 0;
+constexpr int kOffc = kOffC + (kHuber ? 0 : 16);
+constexpr int kOffF = kOffc + (kHuber ? 0 : 4);
+constexpr int kOfff = kOffF + (kLinDx ? 12 : 0);
+constexpr int kOffLb = kOfff + (kLinDx ? 4 : 0);
+constexpr int kOffUb = kOffLb + (kHasBounds ? 1 : 0);
+constexpr int kOffUz = kOffUb + (kHasBounds ? 1 : 0);
+constexpr int kOpRowUsed = (kOffUz + (kHasUz ? 1 : 0) + 3) / 4 * 4;
+constexpr int kOpRow = MPC_OP_ROW;
+static_assert(kNN ? kOpRow >= kOpRowUsed : kOpRow == kOpRowUsed,
+              "a row holds the build's operands and keeps float4 alignment");
+// THE PENDULUM'S LINEARISATION, off the Riccati sweep's chain: the team's
+// lanes form the Jacobians of the next kTeam steps (and the cost build's
+// quadratisation) together, lane g step t0 - kTeam - g, into a buffer of
+// two rounds of kTeam steps, kLinRows float4 a step (F's three rows; H's
+// diagonal and g), one float4 more a team so that a warp's 8 teams read
+// other banks
+constexpr bool kLinOff = kPendulum;
+constexpr int kLinRows = kLinOff ? NS + (kHuber ? 2 : 0) : 0;
+constexpr int kLinTeam = kLinOff ? 2 * kTeam * kLinRows + 1 : 0;
+// THE RING past residency: a lane's rows of the next kRing steps of its
+// walk in shared memory, [kRing, 2, kThreads] of float4, those kAhead
+// positions on in flight (cp.async) while a step computes
+constexpr int kRing = MPC_RING;
+constexpr int kAhead = kRing - 2;
+static_assert(kRing >= 3 && (kRing & (kRing - 1)) == 0,
+              "a ring of a power of two steps");
 
 static_assert(kNN ? kTeam == 32
                   : kTeam == 2 || kTeam == 4 || kTeam == 8 || kTeam == 16,
@@ -273,10 +335,13 @@ struct Operands {
   int slots;     // min(n_alpha, kTeam), + 2 where the state is not resident
   int resident;  // the state (K, k), (x, u), the batch-shared operands
                  // and an MLP's Jacobian rows are in shared memory
+  int staged;    // the team kernel: the block's copy of the batch-shared
+                 // operands is in shared memory (beside the rings too,
+                 // where it fits)
   float* x_out;  // [T, B, 3]: the best trajectory throughout
   float* u_out;  // [T, B]
   float* stats;  // [6, B]
-  long long* clocks;  // [blocks * kWarps][kK3Phases]: MPC_PHASE_CLOCKS only
+  long long* clocks;  // [blocks * kExamples][kK3Phases]: MPC_PHASE_CLOCKS only
 };
 
 // ``p`` points into global or shared memory
@@ -294,6 +359,7 @@ struct Rows {
   float F[NS][NTAU], f[NS];      // LinDx only
   float lb, ub;              // with bounds only
   float uz;                  // the MPC_HAS_UZ build only
+  float hq[NTAU], gq[NTAU];  // the pendulum's cost build: H's diagonal, g
 };
 
 // 0.5 tau^T C tau + c^T tau in _quad_lin_cost's order
@@ -367,6 +433,8 @@ struct Team {
   float4* jb;  // MLP: the example's Jacobian rows at step 0 (its slots
                // kJac, kJac + 1, kJac + 2)
   int jb_step, jb_row;  // their strides
+  float4* lin;   // the pendulum: the team's linearisation buffer
+  float4* ring;  // past residency: the lane's ring (its row of slot 0)
 
   // slot ``slot`` (kGain or kTraj) of the state at step t
   __device__ __forceinline__ float4& state(int t, int slot) const {
@@ -379,6 +447,52 @@ struct Team {
   // trial slot ``lane`` of the workspace at step t
   __device__ __forceinline__ float4& trial(int t, int lane) const {
     return op.ws[(t * op.slots + lane) * op.B + b];
+  }
+  // row k of step j of the linearisation buffer's round ``half``
+  __device__ __forceinline__ float4& lin_row(int half, int j, int k) const {
+    return lin[(half * kTeam + j) * kLinRows + k];
+  }
+  // the lane's ring entry of walk position n, slot ``slot``
+  __device__ __forceinline__ float4& ring_row(int n, int slot) const {
+    return ring[((n & (kRing - 1)) * 2 + slot) * kThreads];
+  }
+
+  // The pendulum's Jacobian at (x_t, u_t) = xu and, in the cost build,
+  // the cost's quadratisation there (H's diagonal, g), into step j of the
+  // linearisation buffer's round ``half``: the operations of
+  // pendulum_jacobian and huber_quad (the plain K3's order).
+  __device__ __forceinline__ void form_lin(const float4 xu, int half,
+                                           int j) const {
+    if constexpr (kLinOff) {
+      const float xt[NS] = {xu.x, xu.y, xu.z};
+      float F[NS][NTAU];
+      pendulum_jacobian<kDamped>(p, xt, xu.w, F);
+#pragma unroll
+      for (int i = 0; i < NS; ++i)
+        lin_row(half, j, i) = make_float4(F[i][0], F[i][1], F[i][2], F[i][3]);
+      if constexpr (kHuber) {
+        const float tau[NTAU] = {xu.x, xu.y, xu.z, xu.w};
+        float h[NTAU], gq[NTAU];
+#pragma unroll
+        for (int i = 0; i < NTAU; ++i)
+          huber_quad(hc.w[i], hc.goal[i], hc.delta, tau[i], h[i], gq[i]);
+        lin_row(half, j, NS) = make_float4(h[0], h[1], h[2], h[3]);
+        lin_row(half, j, NS + 1) = make_float4(gq[0], gq[1], gq[2], gq[3]);
+      }
+    }
+  }
+
+  // step j of round ``half`` of the linearisation buffer into r.F (and
+  // r.hq, r.gq), which the Riccati step reads as it reads a LinDx F
+  __device__ __forceinline__ void load_lin(int half, int j, Rows& r) const {
+    if constexpr (kLinOff) {
+#pragma unroll
+      for (int i = 0; i < NS; ++i) load4(&lin_row(half, j, i).x, r.F[i]);
+      if constexpr (kHuber) {
+        load4(&lin_row(half, j, NS).x, r.hq);
+        load4(&lin_row(half, j, NS + 1).x, r.gq);
+      }
+    }
   }
 
   // the operands of step t; F and f are those of min(t, T - 2), the last
@@ -464,8 +578,17 @@ struct Team {
     const float ut = xu.w;
     const float tau[NTAU] = {xt[0], xt[1], xt[2], ut};
     // C_t and C_t tau_t + c_t; in the cost build diag(H) and g at tau_t
+    // (the pendulum's from its linearisation rows)
     float Ct[NTAU][NTAU], cbv[NTAU];
-    if (kHuber) {
+    if constexpr (kHuber && kLinOff) {
+#pragma unroll
+      for (int i = 0; i < NTAU; ++i) {
+#pragma unroll
+        for (int j = 0; j < NTAU; ++j) Ct[i][j] = 0.f;
+        Ct[i][i] = r.hq[i];
+        cbv[i] = r.gq[i];
+      }
+    } else if (kHuber) {
       hc.quad(tau, Ct, cbv);
     } else {
 #pragma unroll
@@ -485,15 +608,12 @@ struct Team {
         qt[i] = cbv[i];
       }
     } else {
+      // LinDx's F, an MLP's or the pendulum's Jacobian rows
       float F[NS][NTAU];
-      if (kLinDx || kNN) {
 #pragma unroll
-        for (int i = 0; i < NS; ++i)
+      for (int i = 0; i < NS; ++i)
 #pragma unroll
-          for (int j = 0; j < NTAU; ++j) F[i][j] = r.F[i][j];
-      } else {
-        pendulum_jacobian<kDamped>(p, xt, ut, F);
-      }
+        for (int j = 0; j < NTAU; ++j) F[i][j] = r.F[i][j];
       float W[NS][NTAU];
 #pragma unroll
       for (int i = 0; i < NS; ++i)
@@ -595,6 +715,71 @@ struct Team {
 };
 
 #if MPC_DYN != 2
+// a 16-byte copy from global into shared memory, in flight until waited for
+__device__ __forceinline__ void ring_copy(float4* dst, const float4* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void ring_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// until at most N of the thread's commit groups are in flight
+template <int N>
+__device__ __forceinline__ void ring_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// The state rows a chain reads at every step, (x, u) and where Gain
+// (K, k), at walk position n (step t): where the state is resident, read
+// in place; past that, from the lane's ring, whose copies of position
+// n + kAhead - 1 start when the chain first asks for position n (one
+// commit group a position, the first kAhead at construction) and whose
+// position n is then waited for.  A chain asks for positions in order,
+// each at most one past the last (a repeat reads the same rows again).
+template <bool Ring, bool Gain>
+struct Feed {
+  const Team& tm;
+  int t0, dir;  // position n is step t0 + dir * n
+  int pos;      // the last position waited for
+  __device__ __forceinline__ Feed(const Team& team, int first, int step)
+      : tm(team), t0(first), dir(step), pos(0) {
+    if constexpr (Ring) {
+#pragma unroll
+      for (int n = 0; n < kAhead; ++n) issue(n);
+      ring_wait<kAhead - 1>();
+    }
+  }
+  __device__ __forceinline__ void issue(int n) const {
+    if (n < tm.op.T) {
+      const int t = t0 + dir * n;
+      ring_copy(&tm.ring_row(n, kTraj), &tm.state(t, kTraj));
+      if (Gain) ring_copy(&tm.ring_row(n, kGain), &tm.state(t, kGain));
+    }
+    ring_commit();
+  }
+  __device__ __forceinline__ void at(int n, int t, float4& xu, float4& kk) {
+    if constexpr (Ring) {
+      if (n > pos) {
+        issue(n - 1 + kAhead);
+        ring_wait<kAhead - 1>();
+        pos = n;
+      }
+      xu = tm.ring_row(n, kTraj);
+      if constexpr (Gain) kk = tm.ring_row(n, kGain);
+    } else {
+      xu = tm.state(t, kTraj);
+      if constexpr (Gain) kk = tm.state(t, kGain);
+    }
+  }
+};
+
+// The team kernel, for LinDx and the pendulums; Ring: the state in the
+// workspace, read through the lanes' rings (past residency).
+template <bool Ring>
 __global__ void __launch_bounds__(kThreads)
     fused_ilqr_long_kernel(const Operands op, const Schedule sched) {
   const cg::thread_block_tile<kTeam> tile =
@@ -603,13 +788,17 @@ __global__ void __launch_bounds__(kThreads)
   const int b = blockIdx.x * kExamples + threadIdx.x / kTeam;
   const int B = op.B;
   const int T = op.T;
-  // shared memory, where resident: the state [T, 2, kExamples], then the
-  // block's copy of the batch-shared operands [T, kOpRow], which the whole
-  // block fills before any team leaves
-  float4* const state_base = smem;
+  // shared memory: the pendulum's linearisation buffers [kExamples,
+  // kLinTeam], then where resident the state [T, 2, kExamples], else the
+  // lanes' rings [kRing, 2, kThreads], then where it fits the block's copy
+  // of the batch-shared operands [T, kOpRow], which the whole block fills
+  // before any team leaves
+  float4* const state_base = smem + kExamples * kLinTeam;
   float* const staged =
-      op.resident ? reinterpret_cast<float*>(state_base + 2 * T * kExamples)
-                  : nullptr;
+      op.staged ? reinterpret_cast<float*>(
+                      state_base + (Ring ? 2 * kRing * kThreads
+                                         : 2 * T * kExamples))
+                : nullptr;
   if (staged != nullptr) {
     if (!kHuber && op.sCb == 0) stage<16>(op.C, op.sCt, T, staged + kOffC);
     if (!kHuber && op.scb == 0) stage<4>(op.c, op.sct, T, staged + kOffc);
@@ -624,6 +813,8 @@ __global__ void __launch_bounds__(kThreads)
   }
   if (staged != nullptr) __syncthreads();
   if (b >= B) return;  // ragged tail: a whole team leaves together
+  TeamClockOf<kK3Phases> clk;
+  clk.start(op.clocks, b, g == 0);
   PendulumParams p{0.f, 0.f, 0.f, 0.f, 0.f};
   if (kPendulum) p = load_pendulum<kDamped>(op.params);
   Huber<NTAU> hc{};
@@ -647,15 +838,17 @@ __global__ void __launch_bounds__(kThreads)
                 kHasUz ? operand(op.uz, op.sut, op.sub, b, staged, kOffUz)
                        : Operand{nullptr, 0},
                 kLinDx && op.f != nullptr,
-                op.resident ? state_base + e : op.ws + n_lanes * B + b,
-                op.resident ? 2 * kExamples : op.slots * B,
-                op.resident ? kExamples : B,
+                Ring ? op.ws + n_lanes * B + b : state_base + e,
+                Ring ? op.slots * B : 2 * kExamples,
+                Ring ? B : kExamples,
                 nullptr,
                 0,
                 false,
                 nullptr,
                 0,
-                0};
+                0,
+                smem + e * kLinTeam,
+                state_base + threadIdx.x};
   // the team's lanes within its warp, for the ballot of the line search
   const unsigned team_shift = (threadIdx.x & 31u) & ~(unsigned)(kTeam - 1);
   const unsigned team_mask = ((1u << kTeam) - 1u) << team_shift;
@@ -709,6 +902,7 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
   tile.sync();
+  clk.mark(kK3Init);
 
   float best_cost = kBig, best_du = kBig;
   float nni = 0.f, n_qp = 0.f, alpha_sel = 1.f, n_it = 0.f, n_trials = 0.f;
@@ -720,24 +914,60 @@ __global__ void __launch_bounds__(kThreads)
     {
       float V[NS][NS], v[NS];
       Rows ra, rb;
-      float4 xa, xb;
-      tm.load_rows(T - 1, ra);
-      xa = tm.state(T - 1, kTraj);
-      int t = T - 1;
-      for (; t >= 1; t -= 2) {
-        tm.load_rows(t - 1, rb);
-        tm.load_jac(t - 1, rb);
-        xb = tm.state(t - 1, kTraj);
-        tm.riccati_step(t, ra, xa, V, v, qp_cnt, g == 0);
-        const int t2 = t >= 2 ? t - 2 : 0;
-        tm.load_rows(t2, ra);
-        tm.load_jac(t2, ra);
-        xa = tm.state(t2, kTraj);
-        tm.riccati_step(t - 1, rb, xb, V, v, qp_cnt, g == 0);
+      float4 xa, xb, unused;
+      Feed<Ring, false> feed(tm, T - 1, -1);
+      if constexpr (kLinOff) {
+        // the pendulum in rounds of kTeam steps: while the chain walks a
+        // round's steps t0 .. t0 - kTeam + 1, lane g forms the next
+        // round's step t0 - kTeam - g (clamped at 0, a row never read)
+        // from (x, u) it loaded a round before; round 0's rows first
+        tm.form_lin(tm.state(max(T - 1 - g, 0), kTraj), 0, g);
+        // loaded after each use, into the same registers: no move waits
+        // for the load
+        float4 xl = tm.state(max(T - 1 - kTeam - g, 0), kTraj);
+        tile.sync();
+        clk.mark(kK3Jac);
+        tm.load_rows(T - 1, ra);
+        feed.at(0, T - 1, xa, unused);
+        int half = 0;
+        for (int t0 = T - 1; t0 >= 0; t0 -= kTeam, half ^= 1) {
+          tm.form_lin(xl, half ^ 1, g);
+          xl = tm.state(max(t0 - 2 * kTeam - g, 0), kTraj);
+          tm.load_lin(half, 0, ra);
+#pragma unroll
+          for (int j = 0; j < kTeam; ++j) {
+            const int t = t0 - j;
+            if (t < 0) break;
+            const int tn = t > 0 ? t - 1 : 0;
+            tm.load_rows(tn, rb);
+            feed.at(T - 1 - tn, tn, xb, unused);
+            if (j + 1 < kTeam) tm.load_lin(half, j + 1, rb);
+            tm.riccati_step(t, ra, xa, V, v, qp_cnt, g == 0);
+            ra = rb;
+            xa = xb;
+          }
+          tile.sync();  // the next round's rows are every lane's stores
+        }
+      } else {
+        tm.load_rows(T - 1, ra);
+        feed.at(0, T - 1, xa, unused);
+        int t = T - 1;
+        for (; t >= 1; t -= 2) {
+          tm.load_rows(t - 1, rb);
+          tm.load_jac(t - 1, rb);
+          feed.at(T - t, t - 1, xb, unused);
+          tm.riccati_step(t, ra, xa, V, v, qp_cnt, g == 0);
+          const int t2 = t >= 2 ? t - 2 : 0;
+          tm.load_rows(t2, ra);
+          tm.load_jac(t2, ra);
+          feed.at(T - 1 - t2, t2, xa, unused);
+          tm.riccati_step(t - 1, rb, xb, V, v, qp_cnt, g == 0);
+        }
+        if (t == 0) tm.riccati_step(0, ra, xa, V, v, qp_cnt, g == 0);
       }
-      if (t == 0) tm.riccati_step(0, ra, xa, V, v, qp_cnt, g == 0);
     }
     tile.sync();  // the gains are lane 0's stores
+    clk.mark(kK3Sweep);
 
     // ---- line search across the lanes: lane g rolls out step size
     // base + g into its own slot; the first lane whose cost does not
@@ -756,19 +986,17 @@ __global__ void __launch_bounds__(kThreads)
         float xt[NS] = {x0[0], x0[1], x0[2]};
         Rows ra, rb;
         float4 oa, ob, ka, kb;
+        Feed<Ring, true> feed(tm, 0, 1);
         tm.load_rows(0, ra);
-        oa = tm.state(0, kTraj);
-        ka = tm.state(0, kGain);
+        feed.at(0, 0, oa, ka);
         int t = 0;
         for (; t + 1 < T; t += 2) {
           tm.load_rows(t + 1, rb);
-          ob = tm.state(t + 1, kTraj);
-          kb = tm.state(t + 1, kGain);
+          feed.at(t + 1, t + 1, ob, kb);
           tm.trial_step(t, ra, oa, ka, a, g, xt, cost_a, du2);
           const int t2 = t + 2 < T ? t + 2 : T - 1;
           tm.load_rows(t2, ra);
-          oa = tm.state(t2, kTraj);
-          ka = tm.state(t2, kGain);
+          feed.at(t2, t2, oa, ka);
           tm.trial_step(t + 1, rb, ob, kb, a, g, xt, cost_a, du2);
         }
         if (t < T) tm.trial_step(t, ra, oa, ka, a, g, xt, cost_a, du2);
@@ -788,6 +1016,7 @@ __global__ void __launch_bounds__(kThreads)
     }
     n_trials += (float)(sel_index + 1);
     tile.sync();  // the winner's slot is another lane's stores
+    clk.mark(kK3Trials);
 
     // ---- the team copies the winner's slot into the current trajectory
     // and, where it improved, into the outputs (the best one): lane g
@@ -830,6 +1059,7 @@ __global__ void __launch_bounds__(kThreads)
     n_qp += qp_cnt;
     alpha_sel = sel_alpha;
     n_it += 1.f;
+    clk.mark(kK3Copy);
     if (!(full_du >= op.eps && nni <= op.not_improved_lim)) break;
   }
 
@@ -841,6 +1071,7 @@ __global__ void __launch_bounds__(kThreads)
     op.stats[4 * B + b] = alpha_sel;
     op.stats[5 * B + b] = n_trials;
   }
+  clk.mark(kK3Copy);
 }
 
 #endif  // MPC_DYN != 2
@@ -1074,18 +1305,21 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
 }  // namespace mpc
 
 // Launches K3 on ``stream`` with the geometry of ops/fused.py:k3_launch,
-// which is built with the same MPC_TEAM, MPC_WARPS and MPC_OP_ROW; returns
-// the cudaError_t of the launch, or of raising the kernel's shared-memory
-// limit where that is needed.  ``ws`` is the [T, slots, B] float4
-// workspace.  The clocked build's counters (MPC_PHASE_CLOCKS, ``clocks``
-// [blocks * MPC_WARPS][kK3Phases]) and an MLP's weights are always in
-// shared memory (the first 4 MPC_WARPS kK3ClockFloats + 16 (2 nn_h + 1)
-// bytes of ``smem_bytes``).  Where the rest of ``smem_bytes`` holds them,
-// the state and the block's copy of the batch-shared operands are
-// resident in shared memory: the team kernel's slots are then the trial
-// slots, else the state lives in the two workspace slots after the
-// trials'; the MLP's slots are all resident (``ws`` may be null), else
-// all in the workspace.
+// which is built with the same MPC_TEAM, MPC_WARPS, MPC_OP_ROW and
+// MPC_RING; returns the cudaError_t of the launch, or of raising the
+// kernel's shared-memory limit where that is needed.  ``ws`` is the
+// [T, slots, B] float4 workspace.  Where ``resident``, the state is
+// resident in shared memory (the MLP's with the block's copy of the
+// batch-shared operands, the team kernel's with it where ``staged``):
+// the team kernel's slots are then the trial slots, else the
+// state lives in the two workspace slots after the trials' and is read
+// through the lanes' rings; the MLP's slots are all resident (``ws`` may
+// be null), else all in the workspace.  ``smem_bytes`` must be the
+// layout's: the team kernel's linearisation buffers (the pendulum) and
+// the state or the rings; the MLP's clocked build's counters
+// (MPC_PHASE_CLOCKS, 4 MPC_WARPS kK3ClockFloats bytes) and its weights
+// (16 (2 nn_h + 1)) first.  The clocked team kernel adds into ``clocks``
+// [blocks * examples][kK3Phases] (zeroed), a row an example.
 extern "C" int mpc_fused_ilqr_long(
     int B, int T, const float* params, int nn_h, int nn_pass,
     const float* cost, const float* F, long long sFt,
@@ -1096,15 +1330,23 @@ extern "C" int mpc_fused_ilqr_long(
     const float* uz, long long sut, long long sub, float delta,
     const float* alphas, int n_alpha, int lqr_iter, float eps,
     float best_cost_eps, float not_improved_lim, float* ws, int slots,
-    int smem_bytes, float* x_out, float* u_out, float* stats,
-    long long* clocks, void* stream) {
-  const int weight_bytes = (mpc::kNN ? 16 * (2 * nn_h + 1) : 0) +
-                           4 * mpc::kWarps * mpc::kK3ClockFloats;
-  const bool resident = smem_bytes > weight_bytes;
+    int smem_bytes, int resident, int staged, float* x_out, float* u_out,
+    float* stats, long long* clocks, void* stream) {
+  const int weight_bytes = mpc::kNN ? 16 * (2 * nn_h + 1) +
+                                          4 * mpc::kWarps * mpc::kK3ClockFloats
+                                    : 0;
+  // the team kernel's layout, in bytes
+  const long long team_bytes =
+      16LL * (mpc::kExamples * mpc::kLinTeam +
+              (resident ? 2LL * T * mpc::kExamples
+                        : 2LL * mpc::kRing * mpc::kThreads)) +
+      (staged ? 4LL * T * mpc::kOpRow : 0LL);
   if (B <= 0 || T <= 0 || n_alpha <= 0 || n_alpha > mpc::kMaxAlpha ||
       (clocks != nullptr) != mpc::kPhaseClocks ||
       (ws == nullptr && !(mpc::kNN && resident)) ||
-      (mpc::kNN && (nn_h <= 0 || smem_bytes < weight_bytes)) ||
+      (mpc::kNN ? (nn_h <= 0 || smem_bytes < weight_bytes ||
+                   (resident != 0) != (smem_bytes > weight_bytes))
+                : smem_bytes != team_bytes) ||
       (mpc::kLinDx ? (F == nullptr && T > 1) : params == nullptr) ||
       (mpc::kHasBounds && (lb == nullptr || ub == nullptr)) ||
       (mpc::kHasUz != (uz != nullptr)) || !(delta > 0.f) ||
@@ -1117,14 +1359,16 @@ extern "C" int mpc_fused_ilqr_long(
 #if MPC_DYN == 2
   const auto kernel = mpc::fused_ilqr_nn_kernel;
 #else
-  const auto kernel = mpc::fused_ilqr_long_kernel;
+  const auto kernel = resident ? mpc::fused_ilqr_long_kernel<false>
+                               : mpc::fused_ilqr_long_kernel<true>;
 #endif
-  static int smem_allowed = 48 * 1024;
-  if (smem_bytes > smem_allowed) {
+  static int smem_allowed[2] = {48 * 1024, 48 * 1024};
+  int& allowed = smem_allowed[resident ? 0 : 1];
+  if (smem_bytes > allowed) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
     if (err != cudaSuccess) return (int)err;
-    smem_allowed = smem_bytes;
+    allowed = smem_bytes;
   }
   mpc::Schedule sched;
   for (int i = 0; i < n_alpha; ++i) sched.a[i] = alphas[i];
@@ -1174,7 +1418,8 @@ extern "C" int mpc_fused_ilqr_long(
   op.not_improved_lim = not_improved_lim;
   op.ws = reinterpret_cast<float4*>(ws);
   op.slots = slots;
-  op.resident = resident ? 1 : 0;
+  op.resident = resident != 0 ? 1 : 0;
+  op.staged = staged != 0 ? 1 : 0;
   op.x_out = x_out;
   op.u_out = u_out;
   op.stats = stats;

@@ -1,6 +1,7 @@
 // The phase account of the dense kernels (fused_ilqr_dense.cu,
-// fused_kkt_bwd_dense.cu and the control solves they include) and of K3's
-// MLP configuration (fused_ilqr_long.cu, its own phases: fused.K3_PHASES).
+// fused_kkt_bwd_dense.cu and the control solves they include) and of K3
+// (fused_ilqr_long.cu, its own phases: fused.K3_PHASES; TeamClockOf for
+// its team kernel).
 //
 // THE PHASE ACCOUNT (MPC_PHASE_CLOCKS = 1, a build of its own that only
 // mpc_tpu_torch/utils/phase_account.py launches): every lane reads
@@ -83,5 +84,33 @@ struct PhaseClockOf {
 };
 
 using PhaseClock = PhaseClockOf<kPhases>;
+
+// The account of K3's team kernel (fused_ilqr_long.cu, a team of lanes an
+// example): the teams of a warp leave their loops apart, so each team's
+// lane 0 adds each phase's cycles straight into its example's row of
+// clocks [rows][N] in global memory (zeroed by the host), by a reduction
+// it does not wait on.  No shared memory: the clocked build keeps the
+// layout of the build it measures.
+template <int N>
+struct TeamClockOf {
+  unsigned last;
+  unsigned long long* row;  // lane 0's row of clocks, else null
+  __device__ __forceinline__ void start(long long* clocks, int b, bool lead) {
+    if constexpr (kPhaseClocks) {
+      row = lead && clocks != nullptr
+                ? reinterpret_cast<unsigned long long*>(clocks + b * N)
+                : nullptr;
+      last = static_cast<unsigned>(clock());
+    }
+  }
+  __device__ __forceinline__ void mark(int p) {
+    if constexpr (kPhaseClocks) {
+      const unsigned now = static_cast<unsigned>(clock());
+      if (row != nullptr)
+        atomicAdd(row + p, static_cast<unsigned long long>(now - last));
+      last = now;
+    }
+  }
+};
 
 }  // namespace mpc

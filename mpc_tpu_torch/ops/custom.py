@@ -288,8 +288,9 @@ def k3_run(params, F, f, C, c, x0, u0, lb, ub, alphas, lqr_iter, eps,
            clocks=False):
     """The launch of ``k3_solve`` on the card: (x, u, stats, clocks).
     With ``clocks`` the build of the phase account (MPC_PHASE_CLOCKS,
-    utils/phase_account.py), its cycles [warps, len(fused.K3_PHASES)] of
-    int64 (a row a warp of the launch) returned and its launch not
+    utils/phase_account.py), its cycles [examples, len(fused.K3_PHASES)]
+    of int64 (a row an example slot of the launch: a warp of the MLP
+    configuration, a team of the team kernel) returned and its launch not
     counted; else clocks is None."""
     T, B = u0.shape
     lindx = params is None
@@ -341,7 +342,7 @@ def k3_run(params, F, f, C, c, x0, u0, lb, ub, alphas, lqr_iter, eps,
                               device=x0.device)
     x, u, stats = empty((T, B, 3)), empty((T, B, 1)), empty((6, B))
     hidden = nn_hidden if nn else 0
-    cyc = torch.zeros((geo['blocks'] * geo['warps'], len(fused.K3_PHASES)),
+    cyc = torch.zeros((geo['blocks'] * geo['examples'], len(fused.K3_PHASES)),
                       dtype=torch.int64, device=x0.device) if clocks else None
     if B == 0:
         return x, u, stats, cyc
@@ -361,6 +362,8 @@ def k3_run(params, F, f, C, c, x0, u0, lb, ub, alphas, lqr_iter, eps,
                  float(best_cost_eps), float(not_improved_lim),
                  None if ws is None else ws.data_ptr(), geo['slots'],
                  geo['smem_bytes'],
+                 int(geo['slots'] == 0 if nn else geo['resident']),
+                 int(geo['slots'] == 0 if nn else geo['staged']),
                  x.data_ptr(), u.data_ptr(),
                  stats.data_ptr(), cyc.data_ptr() if clocks else None,
                  stream)
@@ -384,11 +387,14 @@ def k3_build(params, F, f, C, c, x0, u0, lb, ub, alphas, lqr_iter, eps,
     defines = fused.long_kernel_defines(
         lindx, lb is not None, activation if nn else None,
         damped=not (lindx or nn) and params.shape[0] == 5,
-        huber=cost_params is not None, has_uz=uz is not None)
+        huber=cost_params is not None, has_uz=uz is not None,
+        n_alpha=len(alphas))
     if clocks:
         defines['MPC_PHASE_CLOCKS'] = 1
-    return defines, fused.k3_launch(T, B, len(alphas),
-                                    nn_hidden if nn else 0, clocks)
+    return defines, fused.k3_launch(
+        T, B, len(alphas), nn_hidden if nn else 0, clocks, lindx=lindx,
+        huber=cost_params is not None, has_bounds=lb is not None,
+        has_uz=uz is not None)
 
 
 # ---------------------------------------------------------------------------

@@ -104,6 +104,12 @@ TEAM = 4
 # ten, and takes four (2 and 8 measured slower, PERF.md).
 K1_WARPS = 1
 K3_WARPS = 4
+# K3's team kernel on the pendulum (MPC_DYN = 1) takes a team as wide as
+# its line search, up to K3_PEND_TEAM lanes: a step size a lane in one
+# round, since a second round is a whole rollout more for the examples
+# that need it and a launch lasts as long as its slowest example (PERF.md
+# section 6); 32 examples a block either way.
+K3_PEND_TEAM = 8
 # K3's MLP configuration gives each example a warp (its hidden units over
 # the lanes, csrc/nn.cuh) and takes 4 warps a block, at least
 # K3_NN_MIN_BLOCKS blocks an SM (its __launch_bounds__, MPC_MIN_BLOCKS):
@@ -119,18 +125,34 @@ SMEM_LIMIT = 232448
 # trajectories: (K, k), three rows of F, C tau + c
 # (csrc/fused_ilqr.cu:kSlotTraj).
 _K1_FIXED_SLOTS = 5
-# Floats a step of K3's block-wide copy of the batch-shared operands
-# (MPC_OP_ROW): C 16, c 4, F 12, f 3 (padded to 4), the two bounds and a
-# shared u_zero_I mask, padded to a multiple of 4.
+# Floats a step of the block-wide copy of the batch-shared operands in K3's
+# MLP configuration (MPC_OP_ROW): C 16, c 4, F 12, f 3 (padded to 4), the
+# two bounds and a shared u_zero_I mask, padded to a multiple of 4; the
+# team kernel's row holds what its build reads (``_k3_op_row``).
 _K3_OPERAND_ROW = 40
+# Steps of a lane's ring in K3's team kernel past residency (MPC_RING):
+# the state rows of the position K3_RING - 2 on are in flight while a
+# step computes (PERF.md section 6).
+K3_RING = 8
 # The columns of K3's phase account (csrc/fused_ilqr_long.cu:K3Phase).
 K3_PHASES = ('initial rollout', 'jacobians', 'sweep', 'trials', 'copy')
 
 
-def _trial_lanes(n_alpha) -> int:
+def _trial_lanes(n_alpha, team=TEAM) -> int:
     """The lanes of a team that roll out a trial, each into an (x, u)
     slot of its own."""
-    return min(n_alpha, TEAM)
+    return min(n_alpha, team)
+
+
+def _k3_team(lindx, n_alpha) -> tuple:
+    """(lanes a team, warps a block) of K3's team kernel: LinDx's TEAM
+    lanes; the pendulum's as wide as its ``n_alpha`` step sizes, TEAM to
+    K3_PEND_TEAM lanes; 32 examples a block."""
+    team = TEAM
+    if not lindx:
+        while team < min(n_alpha, K3_PEND_TEAM):
+            team *= 2
+    return team, K3_WARPS * team // TEAM
 
 
 def _blocks(B, examples) -> int:
@@ -148,39 +170,90 @@ def k1_launch(T, B, n_alpha) -> dict:
                 smem_bytes=T * slots * examples * 16)
 
 
-def k3_launch(T, B, n_alpha, nn_hidden=0, clocks=False) -> dict:
-    """K3's launch geometry: team width, warps and examples a block,
-    blocks, where the state lives, and the workspace [T, slots, B] of
-    float4 in global memory; with ``nn_hidden`` units the MLP
-    configuration's (``k3_nn_launch``, ``clocks`` its phase account's
-    build).
+def _k3_op_row(lindx, huber, has_bounds, has_uz) -> int:
+    """Floats a step of the team kernel's copy of the batch-shared
+    operands (MPC_OP_ROW): C 16 and c 4 but in the cost build, F 12 and f
+    3 (padded to 4) for LinDx, the two bounds, a u_zero_I mask, padded to
+    a multiple of 4 (csrc/fused_ilqr_long.cu:kOpRowUsed)."""
+    n = ((0 if huber else 20) + (16 if lindx else 0)
+         + (2 if has_bounds else 0) + (1 if has_uz else 0))
+    return -(-n // 4) * 4
 
-    The state that the horizon loops read at every step, the gains
-    (K, k) and the current (x, u), is two float4 a step and example: a
-    block of 32 * K3_WARPS / TEAM = 32 examples needs T * 2 * 16 * 32 =
-    1024 T bytes of shared memory, and its copy of the batch-shared
-    operands (``_K3_OPERAND_ROW`` = 40 floats a step) 160 T more, which
-    fits up to T = 232448 // 1184 = 196 (``K3_T_RESIDENT``).  Up to
-    there both are resident (``smem_bytes`` > 0) and the workspace holds
-    the trial slots only; past it ``smem_bytes`` is 0, the state takes
-    the workspace's last two slots and the operands are read from global
-    memory, so any T runs."""
+
+def _k3_lin_bytes(lindx, huber, team) -> int:
+    """Shared memory of a block's linearisation buffers in the team
+    kernel: for the pendulum, a team's two rounds of ``team`` steps of F's
+    three rows (and in the cost build H's diagonal and g) and one float4
+    more, as float4, 32 teams; none for LinDx."""
+    if lindx:
+        return 0
+    rows = 3 + (2 if huber else 0)
+    return 32 * (2 * team * rows + 1) * 16
+
+
+def k3_launch(T, B, n_alpha, nn_hidden=0, clocks=False, *, lindx=True,
+              huber=False, has_bounds=True, has_uz=False) -> dict:
+    """K3's launch geometry: team width, warps and examples a block,
+    blocks, where the state lives, the shared memory of a block and the
+    workspace [T, slots, B] of float4 in global memory, for the team
+    kernel's build (``lindx``: LinDx, else the pendulum; ``huber`` the
+    cost build; ``has_bounds``, ``has_uz``); with ``nn_hidden`` units the
+    MLP configuration's (``k3_nn_launch``, ``clocks`` its phase account's
+    build).  The team kernel's clocked build takes the layout of the
+    build it measures.
+
+    A block holds 32 examples: teams of TEAM lanes in K3_WARPS warps, the
+    pendulum's teams as wide as its step sizes (``_k3_team``: 8 lanes in
+    8 warps for 5 to 8).  The state that the horizon loops read at every
+    step, the gains (K, k) and the current (x, u), is two float4 a step
+    and example: 1024 T bytes of shared memory a block, beside the
+    pendulum's linearisation buffers (``_k3_lin_bytes``: 12,800 bytes for
+    teams of 4, 25,088 for teams of 8, 20,992 for the cost build's teams
+    of 4).  The block's copy of the batch-shared operands takes 4
+    ``_k3_op_row`` bytes a step (160 for LinDx with a QuadCost and
+    bounds, 96 for the pendulum with them, 16 for its cost build).  The
+    state is resident (``resident``) where it fits 227 KB beside the
+    buffers, a LinDx's only with its operands' copy (its sweep reads 136
+    bytes of operands at every step to the state's 32, so shared memory
+    keeps the copy: at T=200 the rings run 0.84x the state resident
+    without it, PERF.md section 6): up to T = 196 for LinDx
+    (``K3_T_RESIDENT``), 214 and 202 for the pendulum's teams of 4 and 8,
+    206 for its cost build (``k3_t_resident``); the workspace then holds
+    the trial slots only.  Past it the state takes the workspace's last
+    two slots and each lane reads it through a ring of ``K3_RING`` steps
+    in shared memory (2 float4 a step: 32 KB a block for teams of 4), so
+    any T runs.  The operands' copy is staged beside the state or the
+    rings where it fits (``staged``), else read from global memory."""
     if nn_hidden:
         return k3_nn_launch(T, B, nn_hidden, clocks)
-    if clocks:
-        raise ValueError('K3 has a phase account for its MLP configuration '
-                         'only')
-    examples = 32 * K3_WARPS // TEAM
-    per_step = 2 * 16 * examples + 4 * _K3_OPERAND_ROW
-    smem = T * per_step
-    resident = smem <= SMEM_LIMIT
-    slots = _trial_lanes(n_alpha)
+    team, warps = _k3_team(lindx, n_alpha)
+    examples = 32 * warps // team
+    lin = _k3_lin_bytes(lindx, huber, team)
+    ops = T * 4 * _k3_op_row(lindx, huber, has_bounds, has_uz)
+    state = T * 2 * 16 * examples
+    # LinDx reads 136 bytes of operands a step to its state's 32, and
+    # keeps the state resident only with their copy
+    resident = lin + state + (ops if lindx else 0) <= SMEM_LIMIT
+    slots = _trial_lanes(n_alpha, team)
     if not resident:
         slots += 2
-    return dict(team=TEAM, warps=K3_WARPS, examples=examples,
+        state = K3_RING * 2 * 16 * 32 * warps
+    staged = lin + state + ops <= SMEM_LIMIT
+    return dict(team=team, warps=warps, examples=examples,
                 blocks=_blocks(B, examples), slots=slots,
-                smem_bytes=smem if resident else 0,
-                workspace_bytes=T * slots * B * 16)
+                smem_bytes=lin + state + (ops if staged else 0),
+                workspace_bytes=T * slots * B * 16, resident=resident,
+                staged=staged)
+
+
+def k3_t_resident(lindx=True, huber=False, has_bounds=True, has_uz=False,
+                  n_alpha=1) -> int:
+    """The longest horizon whose state K3's team kernel keeps in shared
+    memory for this build (``k3_launch``)."""
+    team, _ = _k3_team(lindx, n_alpha)
+    per_step = 2 * 16 * 32 + (4 * _k3_op_row(lindx, huber, has_bounds,
+                                             has_uz) if lindx else 0)
+    return (SMEM_LIMIT - _k3_lin_bytes(lindx, huber, team)) // per_step
 
 
 def k3_nn_launch(T, B, nn_hidden, clocks=False) -> dict:
@@ -242,9 +315,10 @@ def _nn_weight_bytes(hidden) -> int:
 # the C tau + c slot, its diagonal of H a trajectory slot that is not the
 # current one until the trials), so the same limit.
 T_MAX = SMEM_LIMIT // k1_launch(1, 1, MAX_ALPHA)['smem_bytes']
-# The longest horizon whose state and shared operands K3 keeps in shared
-# memory (196).
-K3_T_RESIDENT = SMEM_LIMIT // k3_launch(1, 1, 1)['smem_bytes']
+# The longest horizon whose state and shared operands' copy K3 keeps in
+# shared memory in its LinDx build with a QuadCost and bounds, its widest
+# row (196).
+K3_T_RESIDENT = k3_t_resident()
 # The widest one-hidden-layer MLP whose weights K3's block holds in shared
 # memory with nothing else there (the state and the Jacobian rows then in
 # the workspace): 16 (2 H + 1) <= 232448, H <= 7263, 8 H + 3 = 58107
@@ -1333,7 +1407,7 @@ _ARGTYPES_LONG = [
     ctypes.POINTER(ctypes.c_float), ctypes.c_int,   # alphas (host), n
     ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_float,
     _P, ctypes.c_int, ctypes.c_int,       # workspace, its slots, shared
-                                          # memory bytes
+    ctypes.c_int, ctypes.c_int,           # memory bytes, resident, staged
     _P, _P, _P,                           # x, u, stats
     _P,                                   # clocks (the phase account)
     _P,                                   # stream
@@ -1345,23 +1419,27 @@ NN_ACTIVATIONS = ('sigmoid', 'relu', 'elu')
 
 
 def long_kernel_defines(lindx, has_bounds, activation=None,
-                        damped=False, huber=False, has_uz=False) -> dict:
+                        damped=False, huber=False, has_uz=False,
+                        n_alpha=1) -> dict:
     """The nvcc defines of the K3 build for these dynamics and bounds:
     LinDx, the pendulum (``damped``: the damped, biased one, MPC_DAMPED),
     or with ``activation`` an MLP (MPC_DYN 0, 1, 2); of a QuadCost or,
     ``huber``, the pseudo-Huber cost (MPC_COST = 1, left out for a
     QuadCost); with ``has_uz`` the u_zero_I mask (MPC_HAS_UZ = 1, left out
-    without one)."""
+    without one).  The pendulum's ``n_alpha`` step sizes set its team's
+    width (``_k3_team``)."""
     if activation is not None:
         d = {'MPC_DYN': 2, 'MPC_ACT': NN_ACTIVATIONS.index(activation),
              'MPC_HAS_BOUNDS': int(has_bounds), 'MPC_TEAM': 32,
              'MPC_WARPS': K3_NN_WARPS, 'MPC_MIN_BLOCKS': K3_NN_MIN_BLOCKS,
              'MPC_OP_ROW': _K3_OPERAND_ROW}
     else:
+        team, warps = _k3_team(lindx, n_alpha)
         d = {'MPC_DYN': 0 if lindx else 1,
-             'MPC_HAS_BOUNDS': int(has_bounds), 'MPC_TEAM': TEAM,
-             'MPC_WARPS': K3_WARPS, 'MPC_OP_ROW': _K3_OPERAND_ROW,
-             'MPC_DAMPED': int(damped)}
+             'MPC_HAS_BOUNDS': int(has_bounds), 'MPC_TEAM': team,
+             'MPC_WARPS': warps,
+             'MPC_OP_ROW': _k3_op_row(lindx, huber, has_bounds, has_uz),
+             'MPC_RING': K3_RING, 'MPC_DAMPED': int(damped)}
     return _optional_defines(d, huber, has_uz)
 
 

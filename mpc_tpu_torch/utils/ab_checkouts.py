@@ -4,6 +4,7 @@ paths' host times and the kernels' device times.
     python3 mpc_tpu_torch/utils/ab_checkouts.py OTHER [THIS]
     python3 mpc_tpu_torch/utils/ab_checkouts.py --phases OTHER [THIS]
     python3 mpc_tpu_torch/utils/ab_checkouts.py --phases-nn OTHER [THIS]
+    python3 mpc_tpu_torch/utils/ab_checkouts.py --phases-k3 OTHER [THIS]
 
 OTHER and THIS (default: the checkout this file is in) each hold a
 ``chip_smoke.py`` beside ``mpc_tpu_torch/``; for the parent commit, say,
@@ -21,10 +22,11 @@ Each turn also solves the headline (K1, B=4096), the long LinDx system
 (K3, T=160, B=4096), bench_nn_dynamics (K3's MLP configuration,
 B=2048) with its cost and mask builds (chip_smoke's HUBER_ROWS and
 UZ_ROWS 'MLP'), K3's other builds at chip_smoke's rows (the damped
-pendulum at T=200, the cost build at the pendulum T=200 and the long
-LinDx rows, the mask build at the long LinDx row), and the dense
-kernels' rows once on the operands chip_smoke
-builds for them and prints a digest of the outputs' bytes (x, u and
+pendulum at T=196, 200 and 384: K3_T_RESIDENT, past it, and past the
+pendulum's own horizon, where the state is read through the lanes'
+rings; the cost build at the pendulum T=200 and the long LinDx rows,
+the mask build at the long LinDx row), and the dense kernels' rows once
+on the operands chip_smoke builds for them and prints a digest of the outputs' bytes (x, u and
 stats; the backward's five gradients): the dense forward at the medium
 rows 24s4c and 16s4c (B=2048), 5s1c (B=2048), TVLQR (B=128), config 3
 (the cartpole in the model-step build, B=512), the cartpole at T=200
@@ -32,8 +34,8 @@ rows 24s4c and 16s4c (B=2048), 5s1c (B=2048), TVLQR (B=128), config 3
 mlp-deep, mlp-slew and mlp-multictrl (B=2048) and the rows past 8
 controls wide-3s9c, wide-4s12c and wide-2s16c (B=2048); the dense
 backward at 20s4c and 4s12c (B=1024).  Each dense row's device time
-comes from a CUDA graph ([dense-time]), and so does each K3 row's but
-the three at T=200 ([k3-time]).  The last lines say whether each
+comes from a CUDA graph ([dense-time]), and so does each K3 row's
+([k3-time]).  The last lines say whether each
 row's digest is the same in all four turns, that is whether the two
 checkouts' kernels give the same bits there, and each timed row's best
 time in each checkout beside the spread of its two turns.
@@ -51,6 +53,10 @@ beside; the rows' operands come from ``soa_operands`` and
 ``--phases-nn`` each checkout runs chip_smoke's ``--phases-nn`` alone:
 the phase account of K3's MLP configuration (its clocked build, which
 a checkout needs) at bench_nn_dynamics and its cost and mask builds.
+With ``--phases-k3`` each checkout runs chip_smoke's ``--phases-k3``
+alone: the phase account of K3's team kernel (its clocked build, which
+a checkout needs) at the damped pendulum at T=196 and T=200, the simple
+pendulum's QuadCost and cost builds at T=200 and the long LinDx row.
 """
 
 import os
@@ -91,22 +97,28 @@ bits = {
         MPCConfig(**cs.HEADLINE), cs.x0_batch(cs.B, 0, torch, d), cost, dx,
         u_lower=-2.0, u_upper=2.0)),
 }
+def damped(T_):
+    import dataclasses
+    cfg, x0, cost, dx, bk, _ = cs.soa_problem(torch, d, 'damped T=200')
+    return fused.k3_operands(dataclasses.replace(cfg, T=T_), x0, cost, dx,
+                             **bk)
 k3 = {
     'long': cs.long_k3_operands(torch, d),
     'mlp': cs.nn_k3_operands(torch, d),
     'mlp-cost': cs.huber_operands(torch, d, 'MLP')[0],
     'mlp-mask': cs.uz_operands(torch, d, 'MLP')[0],
+    'k3-damped-196': damped(196),
     'k3-damped-200': cs.soa_operands(torch, d, 'damped T=200')[0],
+    'k3-damped-384': damped(384),
     'k3-cost-pendulum-200': cs.huber_operands(torch, d, 'pendulum T=200')[0],
     'k3-cost-long': cs.huber_operands(torch, d, 'long LinDx')[0],
     'k3-mask-long': cs.uz_operands(torch, d, 'long LinDx')[0],
 }
 for key, ops in k3.items():
     bits[key] = fused.fused_ilqr_long(**ops)
-    if '200' not in key:
-        ms, _ = cs.graph_ms(torch, lambda: fused.fused_ilqr_long(**ops),
-                            reps=3, per_graph=4)
-        print(f'[k3-time] {key} {ms:.4f}', flush=True)
+    ms, _ = cs.graph_ms(torch, lambda: fused.fused_ilqr_long(**ops),
+                        reps=3, per_graph=4)
+    print(f'[k3-time] {key} {ms:.4f}', flush=True)
 fwd = {
     '24s4c': cs.dense_operands(torch, d, 'medium', 24, 4, 2048),
     '16s4c': cs.dense_operands(torch, d, 'medium', 16, 4, 2048),
@@ -190,11 +202,12 @@ print(cs.card_line())
 '''
 
 
-def phases(other, this, nn=False):
+def phases(other, this, flag=None):
     """The phase account of both checkouts at the model-step and MLP
-    builds' rows, or with ``nn`` at K3's MLP configuration's rows."""
+    builds' rows, or with ``flag`` (``--phases-nn``, ``--phases-k3``)
+    chip_smoke's phase of that name alone."""
     for who, where in (('other', other), ('this', this)):
-        cmd = ([sys.executable, 'chip_smoke.py', '--phases-nn'] if nn
+        cmd = ([sys.executable, 'chip_smoke.py', flag] if flag
                else [sys.executable, '-c', PHASES])
         r = subprocess.run(cmd, cwd=where, capture_output=True, text=True)
         if r.returncode != 0:
@@ -207,13 +220,14 @@ def phases(other, this, nn=False):
 
 def main(argv):
     here = os.path.dirname(os.path.abspath(__file__))
-    if len(argv) > 1 and argv[1] in ('--phases', '--phases-nn'):
+    if len(argv) > 1 and argv[1] in ('--phases', '--phases-nn',
+                                     '--phases-k3'):
         if not 3 <= len(argv) <= 4:
             print(__doc__, file=sys.stderr)
             return 2
         return phases(argv[2], argv[3] if len(argv) == 4
                       else os.path.join(here, '..', '..'),
-                      nn=argv[1] == '--phases-nn')
+                      flag=None if argv[1] == '--phases' else argv[1])
     if not 2 <= len(argv) <= 3:
         print(__doc__, file=sys.stderr)
         return 2

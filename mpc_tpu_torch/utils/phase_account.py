@@ -1,5 +1,5 @@
-"""The phase account of the dense kernels and of K3's MLP configuration
-on the card: where a warp's cycles go.
+"""The phase account of the dense kernels and of K3 on the card: where a
+warp's (or a team's) cycles go.
 
 The clocked builds (MPC_PHASE_CLOCKS = 1, csrc/phase_clock.cuh) of
 csrc/fused_ilqr_dense.cu and csrc/fused_kkt_bwd_dense.cu have lane 0 of
@@ -17,8 +17,10 @@ not counted as one of the main path's.
 chip_smoke.py's [phases-dense] prints the account at its rows
 (``python3 chip_smoke.py --phases-dense`` runs that phase alone).  K3's
 clocked build (csrc/fused_ilqr_long.cu) counts its own phases,
-``fused.K3_PHASES``, a row a warp of its launch (``clocked_k3``);
-[phases-nn] prints them (``python3 chip_smoke.py --phases-nn``).
+``fused.K3_PHASES``, a row an example slot of its launch (``clocked_k3``:
+a warp of the MLP configuration, a team of the team kernel, whose lane 0
+adds into it in global memory); [phases-nn] and [phases-k3] print them
+(``python3 chip_smoke.py --phases-nn``, ``--phases-k3``).
 """
 
 from __future__ import annotations
@@ -65,17 +67,17 @@ def clocked_backward(o, kw):
 def clocked_k3(ops):
     """K3's clocked build on ``ops`` (the keyword operands of
     ``fused.fused_ilqr_long``, on the card): (x, u, stats, clocks
-    [warps, len(fused.K3_PHASES)] int64, a row a warp of the launch, the
-    rows of warps that ran no example zero)."""
+    [examples, len(fused.K3_PHASES)] int64, a row an example slot of the
+    launch, the rows of slots that ran no example zero)."""
     from ..ops import custom, fused
     return custom.k3_run(*fused.k3_args(**ops), clocks=True)
 
 
 def phase_shares(clocks, phases=PHASES):
-    """{phase: (share of the warps' cycles, mean cycles a warp)} of a
-    clocks buffer [rows, len(phases)] (a row a warp; all-zero rows, warps
-    that ran no example, left out), the phases that took none left out;
-    the shares sum to 1."""
+    """{phase: (share of the rows' cycles, mean cycles a row)} of a
+    clocks buffer [rows, len(phases)] (a row a warp, or a team of K3's
+    team kernel; all-zero rows, which ran no example, left out), the
+    phases that took none left out; the shares sum to 1."""
     c = torch.as_tensor(clocks).detach().to('cpu', torch.float64)
     if c.dim() != 2 or c.shape[1] != len(phases):
         raise ValueError(f'a clocks buffer is [rows, {len(phases)}]')

@@ -278,17 +278,22 @@ def test_k1_teams(cuda, n_alpha, eps):
 def test_line_search_past_the_team(cuda, name, T):
     """Cheap control and wide bounds on the pendulum: from the second
     iteration on the full step overshoots, so the search goes past the
-    team's width into a second round.  The kernel is judged against the
-    float64 plain run."""
-    operands, kernel, plain = {
-        'K1': (fused.k1_operands, fused.fused_ilqr, fused.fused_solve_plain),
+    team's width into a second round (K1's 4 lanes with 6 step sizes;
+    K3's pendulum, whose team is as wide as its search up to 8 lanes,
+    with 10).  The kernel is judged against the float64 plain run."""
+    operands, kernel, plain, n_alpha = {
+        'K1': (fused.k1_operands, fused.fused_ilqr, fused.fused_solve_plain,
+               6),
         'K3': (fused.k3_operands, fused.fused_ilqr_long,
-               fused.fused_solve_long_plain)}[name]
+               fused.fused_solve_long_plain, 10)}[name]
+    width = fused.TEAM if name == 'K1' else fused.k3_launch(
+        T, 1, n_alpha, lindx=False)['team']
     B = 1024
     x0, dx, cost = _problem(cuda, B, T)
     scale = torch.tensor([1.0, 1.0, 0.1, 0.1], device=cuda)
     cost = mt.QuadCost(cost.C * scale, cost.c)
-    cfg = _cfg(T, lqr_iter=3, linesearch_decay=0.5, max_linesearch_iter=6)
+    cfg = _cfg(T, lqr_iter=3, linesearch_decay=0.5,
+               max_linesearch_iter=n_alpha)
     ops = operands(cfg, x0, cost, dx, u_lower=-20.0, u_upper=20.0)
     _, uk, sk = kernel(**ops)
     _, up, sp = plain(**ops)
@@ -296,7 +301,7 @@ def test_line_search_past_the_team(cuda, name, T):
     # differ by that iteration
     upto = [kernel(**dict(ops, lqr_iter=i))[2][5] for i in (1, 2)]
     per_iteration = torch.stack([upto[1] - upto[0], sk[5] - upto[1]])
-    assert bool((per_iteration > fused.TEAM).any())
+    assert bool((per_iteration > width).any())
     _assert_counts(sk, sp, mixed=False)
     dx64 = PendulumDx(device=cuda, dtype=torch.float64)
     _, u64, _ = plain(**operands(
@@ -2137,6 +2142,113 @@ def test_mlp_entry_points_launch_once_and_never_fall_back(cuda,
     assert solver.eager_counts['eager_solve'] == 0
 
 
+# ---------------------------------------------------------------------------
+# K3's team kernel on the pendulum across its shared-memory horizon
+# ---------------------------------------------------------------------------
+
+# each define set: the damped pendulum with a QuadCost, the simple
+# pendulum's pseudo-Huber cost build; each at T = 196 and 200 (the state
+# resident in shared memory: up to T = 202 and 206, fused.k3_t_resident)
+# and 384 (past it, read through the lanes' rings)
+K3_PENDULUM_CASES = {'k3_pendulum_damped': 'damped',
+                     'k3_pendulum_cost': 'cost'}
+K3_PENDULUM_T = (196, 200, 384)
+
+
+def _k3_pendulum_problem(device, build, T, B, dtype=torch.float32, seed=0):
+    """K3's operands of the damped pendulum (SOA_DAMPED, its QuadCost, 10
+    iterations, 5 step sizes) or of the simple pendulum's pseudo-Huber
+    cost (w the QuadCost's diagonal, goal upright, delta 0.9; 6
+    iterations, 3 step sizes) from +-pi starts, box +-2."""
+    from mpc_tpu_torch.models import PseudoHuberCost
+    th = np.pi * (2 * np.random.RandomState(seed).rand(B) - 1)
+    x0 = torch.tensor(np.stack([np.cos(th), np.sin(th), np.zeros(B)], 1),
+                      dtype=dtype, device=device)
+    if build == 'damped':
+        dx = PendulumDx(params=torch.tensor(SOA_DAMPED, dtype=dtype,
+                                            device=device), simple=False)
+        q, p = dx.get_true_obj()
+        cost = mt.QuadCost(torch.diag(q), p)
+        cfg = _cfg(T, lqr_iter=10, linesearch_decay=0.2)
+    else:
+        dx = PendulumDx(device=device, dtype=dtype)
+        t = (lambda a: torch.tensor(a, dtype=dtype, device=device))
+        cost = PseudoHuberCost(dx.get_true_obj()[0], t([1., 0., 0., 0.]),
+                               t(0.9))
+        cfg = _cfg(T, lqr_iter=6, linesearch_decay=0.2,
+                   max_linesearch_iter=3)
+    return fused.k3_operands(cfg, x0, cost, dx, u_lower=-2.0, u_upper=2.0)
+
+
+def k3_pendulum_case_main(case):
+    """A define set at each K3_PENDULUM_T, B=2050 (a ragged block), run
+    in a process under CUDA_LAUNCH_BLOCKING=1 by
+    test_k3_pendulum_matches_plain_across_residency: one launch a solve,
+    finite, no further from the float64 plain run than twice the plain
+    float32 run (two float32 solves of the pendulum part over long
+    horizons), n_iter equal to the plain run's in 99% of the examples,
+    the reversed batch and the first 1, 7 and 33 examples alone bitwise
+    what they give inside the batch."""
+    device = torch.device('cuda')
+    build = K3_PENDULUM_CASES[case]
+    for T in K3_PENDULUM_T:
+        ops = _k3_pendulum_problem(device, build, T, 2050)
+        ops64 = _k3_pendulum_problem(device, build, T, 2050, torch.float64)
+        geo = fused.k3_launch(T, 2050, len(ops['alphas']), lindx=False,
+                              huber=build == 'cost')
+        fused.reset_launch_counts()
+        full = fused.fused_ilqr_long(**ops)
+        torch.cuda.synchronize()
+        assert fused.launch_counts['fused_ilqr_long'] == 1
+        xk, uk, sk = full
+        assert all(torch.isfinite(a).all() for a in full)
+        _, up, sp = fused.fused_solve_long_plain(**ops)
+        _, u64, _ = fused.fused_solve_long_plain(**ops64)
+        _assert_near_f64(uk, up, u64)
+        assert float((sk[2] == sp[2]).double().mean()) >= 0.99
+        _assert_position_free(fused.fused_ilqr_long, ops, full)
+        print('ok', case, T, 'resident' if geo['resident'] else 'ring',
+              float((uk - up).abs().mean()))
+    print(f'ok {case}')
+
+
+@pytest.mark.parametrize('case', list(K3_PENDULUM_CASES))
+def test_k3_pendulum_matches_plain_across_residency(cuda, case):
+    """Each define set of K3's team kernel on the pendulum, one process
+    under CUDA_LAUNCH_BLOCKING=1 (a fault is reported at the launch that
+    made it), at T = 196, 200 and 384: resident and through the rings."""
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, CUDA_LAUNCH_BLOCKING='1',
+               PYTHONPATH=os.pathsep.join(
+                   [root, os.environ.get('PYTHONPATH', '')]))
+    r = subprocess.run([sys.executable, os.path.abspath(__file__), case],
+                       env=env, cwd=root, capture_output=True, text=True,
+                       timeout=900)
+    assert r.returncode == 0 and f'ok {case}' in r.stdout, \
+        r.stdout[-2000:] + r.stderr[-4000:]
+
+
+def test_k3_pendulum_past_residency_raises_rather_than_falls_back(
+        cuda, monkeypatch):
+    """Past the resident horizon the pendulum runs the rings' layout or
+    raises: the geometry says the ring, and with the library broken the
+    solve raises and launches nothing."""
+    T = fused.k3_t_resident(lindx=False, n_alpha=5) + 1
+    ops = _k3_pendulum_problem(cuda, 'damped', T, 64)
+    assert not fused.k3_launch(T, 64, 5, lindx=False)['resident']
+
+    def broken(*a, **k):
+        raise RuntimeError('the K3 library is broken')
+    monkeypatch.setattr(fused, '_kernel_lib_long', broken)
+    fused.reset_launch_counts()
+    with pytest.raises(RuntimeError, match='broken'):
+        fused.fused_ilqr_long(**ops)
+    assert fused.launch_counts['fused_ilqr_long'] == 0
+
+
 if __name__ == '__main__':
     import sys
     if sys.argv[1] in HUBER_CASES:
@@ -2147,5 +2259,7 @@ if __name__ == '__main__':
         mlp_case_main(sys.argv[1])
     elif sys.argv[1] in CHUNK_CASES:
         chunk_case_main(sys.argv[1])
+    elif sys.argv[1] in K3_PENDULUM_CASES:
+        k3_pendulum_case_main(sys.argv[1])
     else:
         soa_case_main(sys.argv[1])

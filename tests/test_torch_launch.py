@@ -74,12 +74,20 @@ def test_k3_launch_geometry_and_workspace(T, B, n_alpha):
     assert (geo['blocks'] - 1) * geo['examples'] < B or B == 0
     # the state (gains and current trajectory, two float4 a step and
     # example) and the block's copy of the shared operands (40 floats a
-    # step) are resident in shared memory where they fit; else the state
-    # takes two more slots of the workspace, so any T runs
-    state = T * (2 * 16 * geo['examples'] + 40 * 4)
-    resident = state <= fused.SMEM_LIMIT
-    assert resident == (T <= fused.K3_T_RESIDENT)
-    assert geo['smem_bytes'] == (state if resident else 0)
+    # step for LinDx with a QuadCost and bounds) are resident in shared
+    # memory where they fit; else the state takes two more slots of the
+    # workspace, which each lane reads through a ring of K3_RING steps of
+    # two float4 in shared memory, beside the operands' copy where it
+    # fits, so any T runs
+    state = T * 2 * 16 * geo['examples']
+    ops = T * 40 * 4
+    resident = state + ops <= fused.SMEM_LIMIT
+    assert resident == (T <= fused.K3_T_RESIDENT) == geo['resident']
+    if not resident:
+        state = fused.K3_RING * 2 * 16 * 32 * geo['warps']
+    staged = state + ops <= fused.SMEM_LIMIT
+    assert geo['staged'] == staged
+    assert geo['smem_bytes'] == state + (ops if staged else 0)
     assert geo['smem_bytes'] <= fused.SMEM_LIMIT
     assert geo['slots'] == min(n_alpha, fused.TEAM) + (0 if resident else 2)
     assert geo['workspace_bytes'] == T * geo['slots'] * B * 16
@@ -104,11 +112,13 @@ def test_main_path_geometries():
     assert fused.k1_launch(10, 8192, 3)['blocks'] == 1024
     long = fused.k3_launch(160, 4096, 3)
     assert long == dict(team=4, warps=4, examples=32, blocks=128, slots=3,
-                        smem_bytes=189440, workspace_bytes=31457280)
+                        smem_bytes=189440, workspace_bytes=31457280,
+                        resident=True, staged=True)
     assert fused.K3_T_RESIDENT == 196
     assert fused.k3_launch(384, 1024, 2) == dict(
-        team=4, warps=4, examples=32, blocks=32, slots=4, smem_bytes=0,
-        workspace_bytes=384 * 4 * 1024 * 16)
+        team=4, warps=4, examples=32, blocks=32, slots=4,
+        smem_bytes=32768 + 384 * 160, workspace_bytes=384 * 4 * 1024 * 16,
+        resident=False, staged=True)
 
 
 def test_routes_long_follows_t_max():
